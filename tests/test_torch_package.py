@@ -1,0 +1,77 @@
+"""Rules of the PyTorch port as a package: what it imports, where it runs,
+how its kernels are built."""
+
+from __future__ import annotations
+
+import ast
+from pathlib import Path
+
+import pytest
+import torch
+
+from gpumounter_tpu_torch.ops import _build
+
+REPO = Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((REPO / "gpumounter_tpu_torch").rglob("*.py")) + [
+    REPO / "chip_smoke.py"]
+
+
+def _banned(module: str) -> bool:
+    top = module.split(".")[0]
+    return top in ("jax", "jaxlib") or top == "gpumounter_tpu"
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_port_imports_no_jax_and_nothing_of_the_jax_package(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [alias.name for alias in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module]
+        else:
+            continue
+        bad = [n for n in names if _banned(n)]
+        assert not bad, f"{path.name}:{node.lineno} imports {bad}"
+
+
+def test_banned_names_match_exactly():
+    assert _banned("gpumounter_tpu") and _banned("gpumounter_tpu.ops")
+    assert _banned("jax.numpy") and _banned("jaxlib")
+    assert not _banned("gpumounter_tpu_torch.ops")
+
+
+def test_entry_without_device_raises_on_a_host_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA card; the default device works")
+    from gpumounter_tpu_torch.entry import entry
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        entry()
+
+
+def test_build_targets_sm_90a(tmp_path):
+    cmd = _build.nvcc_command(_build.CSRC / "flash_fwd.cu", tmp_path / "x.so")
+    assert "arch=compute_90a,code=sm_90a" in cmd
+    assert {"-shared", "-O3", "-std=c++17"} <= set(cmd)
+    assert cmd[-1].endswith("flash_fwd.cu")
+
+
+def test_build_output_is_gitignored():
+    rel = _build.BUILD_DIR.relative_to(REPO).as_posix() + "/"
+    ignored = (REPO / ".gitignore").read_text().split()
+    assert rel in ignored
+
+
+def test_library_path_follows_the_source():
+    path = _build.library_path("flash_fwd")
+    assert path.parent == _build.BUILD_DIR
+    assert path.name.startswith("libflash_fwd-") and path.suffix == ".so"
+    assert _build.library_path("flash_fwd") == path  # stable across calls
+
+
+def test_missing_nvcc_names_the_command(monkeypatch, tmp_path):
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "_nvcc", lambda: "/nonexistent/bin/nvcc")
+    with pytest.raises(RuntimeError, match="/nonexistent/bin/nvcc .*sm_90a"):
+        _build.build(["flash_fwd"])
