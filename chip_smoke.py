@@ -5,16 +5,26 @@
 Phases, each raising on failure (any failure exits non-zero):
 
 1. build every kernel of the port from ``gpumounter_tpu_torch/ops/csrc``
-   with nvcc (sm_90a) and print the card's name and power limit;
+   with nvcc (sm_90a), all at once, and print the card's name and power
+   limit;
 2. hold each kernel against its plain PyTorch version on the card, case by
-   case, with the tolerance stated beside each;
-3. run the main path — the probe's forward at full width (the config of the
-   repo's train-step bench: vocab 2048, d_model 1024, 8 heads of 128, 2
-   layers, d_ff 4096, rope, bf16) on 3 batches of 4 x 2048 random tokens —
-   with the launch counts set to 0 just before and read just after, and
-   hold its logits against the same forward with the plain attention;
-4. time each kernel, its plain version and the PyTorch library call that
-   computes the same function, and the whole forward, with CUDA events.
+   case, with the tolerance stated beside each (``flash_fwd``, then
+   ``flash_decode``);
+3. run the main paths at full width (the config of the repo's train-step
+   bench: vocab 2048, d_model 1024, 8 heads of 128, 2 layers, d_ff 4096,
+   rope, bf16, max_len 2048), each with the launch counts set to 0 just
+   before and read just after:
+   - the forward on 3 batches of 4 x 2048 random tokens, its logits held
+     against the same forward with the plain attention;
+   - serving: greedy ``generate`` from 4 random prompts of 1536 tokens, 512
+     new tokens (up to max_len), teacher-forced ``prefill`` +
+     ``decode_step`` logits held against ``forward`` at every generated
+     position, and seeded sampling checked for reproducibility;
+4. capture one greedy ``decode_step`` as a CUDA graph and replay it at two
+   cache lengths, each against an eager step and the forward;
+5. time each kernel, its plain version and the PyTorch library call that
+   computes the same function, the forward, the prefill and the decode
+   loop, with CUDA events.
 
 The last lines are a JSON object per kernel (``{"kernels": [...]}``) and
 ``{"ok": true, "device": {...}}``. Needs a CUDA card; imports no JAX.
@@ -32,11 +42,16 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from gpumounter_tpu_torch.models.probe import (TransformerConfig, forward,
-                                               init_params, next_token_nll)
+from torch.nn.attention.bias import causal_lower_right
+
+from gpumounter_tpu_torch.models.probe import (TransformerConfig, decode_step,
+                                               forward, generate, init_params,
+                                               next_token_nll, prefill)
 from gpumounter_tpu_torch.ops import _build
 from gpumounter_tpu_torch.ops.flash_attention import (attention_plain,
                                                       flash_attention_kernel)
+from gpumounter_tpu_torch.ops.flash_decode import (flash_decode_kernel,
+                                                   flash_decode_plain)
 
 # H100 SXM peaks (NVIDIA data sheet, dense): the bound of a kernel is the
 # larger of its operations over the bf16 tensor-core rate and its bytes
@@ -55,6 +70,12 @@ LSE_ATOL = 1e-4  # lse is f32 from f32 scores on both sides
 LOGITS_RTOL_OF_MAX = 2e-2
 NLL_ATOL = 1e-3  # the mean over 4 x 2047 positions smooths those errors
 NLL_ABOVE_UNIFORM = 0.5
+# Serving at full width: prompts of 1536 tokens, decoding up to max_len.
+SERVE = dict(B=4, T0=1536, N_NEW=512, N_SAMPLED=64)
+# Decode timings: the repo's decode bench shape (bench_flash_features.py:289)
+# at three valid lengths, and the serving shape.
+DECODE_BENCH = dict(B=4, H=8, L_Q=8, D=128, L_MAX=32768, LENS=(1024, 8192, 32768))
+L2_COPIES = 4  # inputs cycled so that a timed launch finds its K/V outside L2
 
 
 def _card() -> str:
@@ -90,10 +111,67 @@ def _attention_bound_ms(b, h, l_q, l_k, d, itemsize, causal=True):
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
+def _decode_bound_ms(b, h, h_kv, l_q, n, d, itemsize):
+    """Least time for decode attention at valid length n (no window): the
+    valid K/V region read once plus q and o, against 4·D operations per
+    attended (query, key) pair — row i of l_q attends n − l_q + 1 + i keys."""
+    pairs = l_q * (n - l_q + 1) + l_q * (l_q - 1) // 2
+    flops = 4 * d * b * h * pairs
+    nbytes = itemsize * d * (2 * b * h_kv * n + 2 * b * h * l_q)
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def _cycle(fns):
+    """One callable that calls fns in turn, one per call."""
+    state = {"i": 0}
+
+    def call():
+        fns[state["i"] % len(fns)]()
+        state["i"] += 1
+    return call
+
+
+def _capture(fn):
+    """(a CUDA graph of fn(), fn's output in the graph's memory), after one
+    eager warm-up call on a side stream. A host sync inside fn makes the
+    capture raise."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    return graph, out
+
+
+def _graph_ms(fns, calls: int = 20, replays: int = 5) -> float:
+    """Device time per call of fns (taken in turn), without the host's
+    launch overhead: `calls` calls are captured once in a CUDA graph and
+    the graph's replays timed with CUDA events."""
+    call = _cycle(fns)
+    graph, _ = _capture(lambda: [call() for _ in range(calls)])
+    return _time_ms(graph.replay, replays, warmup=1) / calls
+
+
+def _check_close(name, got, want, tol):
+    """Raise unless |got − want| <= atol + rtol·|want| everywhere and got is
+    finite; returns the max abs error."""
+    diff = (got.float() - want.float()).abs()
+    err = diff.max().item()
+    bad = diff > tol["atol"] + tol["rtol"] * want.float().abs()
+    if not torch.isfinite(got).all() or bad.any():
+        raise RuntimeError(f"{name}: max abs err {err} beyond atol "
+                           f"{tol['atol']} + rtol {tol['rtol']}")
+    return err
+
+
 def phase_build(card: str) -> None:
     print(card, flush=True)
     t0 = time.perf_counter()
-    paths = _build.build(["flash_fwd"])
+    paths = _build.build(["flash_fwd", "flash_decode"])
     print(f"build: {time.perf_counter() - t0:.1f} s ({', '.join(p.name for p in paths.values())})",
           flush=True)
 
@@ -134,12 +212,7 @@ def phase_kernel_vs_plain(gen) -> float:
             if not lse_err <= LSE_ATOL:
                 raise RuntimeError(f"{name}: lse max abs err {lse_err} > {LSE_ATOL}")
         tol = BF16_TOL if dtype == torch.bfloat16 else F32_TOL
-        diff = (got.float() - want.float()).abs()
-        err = diff.max().item()
-        bad = diff > tol["atol"] + tol["rtol"] * want.float().abs()
-        if not torch.isfinite(got).all() or bad.any():
-            raise RuntimeError(f"{name}: kernel vs plain max abs err {err} "
-                               f"beyond atol {tol['atol']} + rtol {tol['rtol']}")
+        err = _check_close(f"{name}: kernel vs plain", got, want, tol)
         lse_note = f", lse err {lse_err:.3g}" if kw.get("return_lse") else ""
         print(f"case {name}: max abs err {err:.3g} (atol {tol['atol']}, rtol {tol['rtol']}){lse_note}",
               flush=True)
@@ -156,7 +229,7 @@ def full_width_config() -> TransformerConfig:
 
 def phase_main_path(cfg, params, batches) -> int:
     """Forward on each batch through the kernel; returns its launch count."""
-    flash_attention_kernel.launches = 0
+    flash_attention_kernel.launches = flash_decode_kernel.launches = 0
     outs = [forward(params, tokens, cfg) for tokens in batches]
     torch.cuda.synchronize()
     launches = flash_attention_kernel.launches
@@ -193,6 +266,152 @@ def phase_main_path(cfg, params, batches) -> int:
     return launches
 
 
+def phase_decode_vs_plain(gen) -> float:
+    """flash_decode against flash_decode_plain, case by case; the length
+    goes in as a CUDA int32 tensor and as an int, which must agree
+    exactly. Returns the max abs error of the serving case at 2048."""
+
+    def rand(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    b, h, d = FULL["B"], FULL["H"], FULL["D"]
+    serve = (b, h, h, 1, FULL["L"], d)
+    cases = [  # (name, (B, H, H_kv, l_q, L_max, D), cache_len, kwargs, dtype, tail)
+        *[(f"serving B4 H8 l_q1 D128 L_max2048 len {n}", serve, n, {}, torch.bfloat16, None)
+          for n in (2048, 1, 37, 1537)],
+        ("len 3000 clipped to L_max", serve, 3000, {}, torch.bfloat16, None),
+        ("len 3 below l_q 8, clipped up", (b, h, h, 8, 2048, d), 3, {}, torch.bfloat16, None),
+        ("tail 1e9 past len 1000", serve, 1000, {}, torch.bfloat16, 1e9),
+        ("l_q 8 window 50", (b, h, h, 8, 2048, d), 1537, dict(window=50), torch.bfloat16, None),
+        ("window 40 + sinks 8", serve, 1537, dict(window=40, sinks=8), torch.bfloat16, None),
+        ("GQA H_kv 2", (b, h, 2, 1, 2048, d), 1537, {}, torch.bfloat16, None),
+        ("MQA H_kv 1", (b, h, 1, 1, 2048, d), 1537, {}, torch.bfloat16, None),
+        ("D 32", (b, h, h, 1, 2048, 32), 1537, {}, torch.bfloat16, None),
+        ("D 64", (b, h, h, 1, 2048, 64), 1537, {}, torch.bfloat16, None),
+        ("f32 GQA l_q 4 window 100 + sinks 3 D 64", (2, 8, 2, 4, 700, 64), 650,
+         dict(window=100, sinks=3), torch.float32, None),
+    ]
+    serve_err = None
+    for name, (cb, ch, chk, lq, lmax, cd), n, kw, dtype, tail in cases:
+        q = rand(cb, ch, lq, cd, dtype=dtype)
+        k = rand(cb, chk, lmax, cd, dtype=dtype)
+        v = rand(cb, chk, lmax, cd, dtype=dtype)
+        if tail is not None:
+            k[:, :, n:] = tail
+            v[:, :, n:] = tail
+        got = flash_decode_kernel(q, k, v, torch.tensor([n], dtype=torch.int32, device="cuda"), **kw)
+        torch.cuda.synchronize()  # a fault in the kernel surfaces here
+        by_int = flash_decode_kernel(q, k, v, n, **kw)
+        if not torch.equal(got, by_int):
+            raise RuntimeError(f"{name}: length as a tensor and as an int disagree")
+        tol = BF16_TOL if dtype == torch.bfloat16 else F32_TOL
+        err = _check_close(f"{name}: kernel vs plain", got,
+                           flash_decode_plain(q, k, v, n, **kw), tol)
+        print(f"case flash_decode {name}: max abs err {err:.3g} (atol {tol['atol']}, "
+              f"rtol {tol['rtol']}), tensor and int length equal", flush=True)
+        if serve_err is None:
+            serve_err = err
+    return serve_err
+
+
+def phase_serving(cfg, params, prompt) -> tuple[int, int, torch.Tensor, torch.Tensor]:
+    """Greedy generate with the counts set to 0 just before; then the
+    teacher-forced and sampled checks. Returns (flash_fwd launches,
+    flash_decode launches, tokens, forward's logits on the tokens)."""
+    t0, n_new = prompt.shape[1], SERVE["N_NEW"]
+    flash_attention_kernel.launches = flash_decode_kernel.launches = 0
+    tokens = generate(params, prompt, cfg, n_new)
+    torch.cuda.synchronize()
+    fwd, dec = flash_attention_kernel.launches, flash_decode_kernel.launches
+    if (fwd, dec) != (cfg.n_layers, cfg.n_layers * (n_new - 1)):
+        raise RuntimeError(f"generate launched flash_fwd {fwd} and flash_decode "
+                           f"{dec} times, expected n_layers = {cfg.n_layers} and "
+                           f"n_layers x (n_new - 1) = {cfg.n_layers * (n_new - 1)}")
+    length = t0 + n_new
+    if (tokens.shape != (prompt.shape[0], length) or not torch.equal(tokens[:, :t0], prompt)
+            or tokens.min() < 0 or tokens.max() >= cfg.vocab):
+        raise RuntimeError(f"generate returned {tuple(tokens.shape)} tokens in "
+                           f"[{tokens.min().item()}, {tokens.max().item()}]")
+    print(f"serving path: generate {tuple(prompt.shape)} + {n_new} -> "
+          f"{tuple(tokens.shape)} tokens in range; flash_fwd launches {fwd} "
+          f"(prefill, n_layers {cfg.n_layers}), flash_decode launches {dec} "
+          f"(n_layers x {n_new - 1} steps)", flush=True)
+
+    # Teacher forcing: the prefill's logits and one decode_step per
+    # generated token give the logits at positions t0-1 .. length-2, which
+    # the forward on the whole sequence gives too.
+    ref = forward(params, tokens, cfg)
+    logits, caches = prefill(params, prompt, cfg)
+    steps = [logits]
+    cur_len = torch.full((), t0, dtype=torch.int32, device="cuda")
+    for p in range(t0, length - 1):
+        steps.append(decode_step(params, caches, tokens[:, p], cur_len, cfg))
+        cur_len = cur_len + 1
+    got, want = torch.stack(steps, dim=1), ref[:, t0 - 1:length - 1]
+    limit = LOGITS_RTOL_OF_MAX * want.abs().max().item()
+    err = (got - want).abs().max().item()
+    # Each greedy token is forward's argmax up to that tolerance (bf16 ties).
+    chosen = want.gather(-1, tokens[:, t0:, None].long())[..., 0]
+    gap = (want.amax(dim=-1) - chosen).max().item()
+    if not (torch.isfinite(got).all() and err <= limit and gap <= limit):
+        raise RuntimeError(f"teacher-forced decode vs forward: logits max abs err "
+                           f"{err}, greedy token below forward's max by {gap} "
+                           f"(limit {limit})")
+    print(f"serving path: teacher-forced prefill + {length - 1 - t0} decode steps vs "
+          f"forward at {length - t0} positions: logits max abs err {err:.3g}, greedy "
+          f"tokens within {gap:.3g} of forward's max (limit {limit:.3g} = "
+          f"{LOGITS_RTOL_OF_MAX} x max |logits|)", flush=True)
+
+    def sample(seed):
+        return generate(params, prompt, cfg, SERVE["N_SAMPLED"],
+                        torch.Generator(device="cuda").manual_seed(seed), 1.0)
+
+    a, b, c = sample(1), sample(1), sample(2)
+    if not torch.equal(a, b) or torch.equal(a, c) or a.min() < 0 or a.max() >= cfg.vocab:
+        raise RuntimeError("sampled generate: not reproducible per seed, equal "
+                           "across seeds, or out of range")
+    print(f"serving path: sampled generate ({SERVE['N_SAMPLED']} tokens, T=1) "
+          f"reproducible per generator seed, different across seeds, in range",
+          flush=True)
+    return fwd, dec, tokens, ref
+
+
+def phase_graph(cfg, params, tokens, ref, card) -> float:
+    """Capture one greedy decode_step as a CUDA graph (a host sync inside
+    the step would make the capture raise), replay it at two cache
+    lengths by writing cur_len in place, and hold each replay against an
+    eager step and the forward. Returns the replayed step's ms."""
+    lens = (700, tokens.shape[1] - 8)
+    _, caches = prefill(params, tokens[:, :lens[1]], cfg)
+    token = tokens[:, lens[0]].clone()
+    cur_len = torch.full((), lens[0], dtype=torch.int32, device="cuda")
+    graph, logits = _capture(lambda: decode_step(params, caches, token, cur_len, cfg))
+    for n in lens:
+        token.copy_(tokens[:, n])
+        cur_len.fill_(n)
+        before = flash_decode_kernel.launches
+        graph.replay()
+        torch.cuda.synchronize()
+        if flash_decode_kernel.launches != before:
+            raise RuntimeError("graph replay went through the wrapper")
+        replayed = logits.clone()
+        eager = decode_step(params, caches, tokens[:, n],
+                            torch.full((), n, dtype=torch.int32, device="cuda"), cfg)
+        err = _check_close(f"graph replay at length {n + 1} vs eager", replayed, eager, BF16_TOL)
+        limit = LOGITS_RTOL_OF_MAX * ref[:, n].abs().max().item()
+        ref_err = (replayed - ref[:, n]).abs().max().item()
+        if not ref_err <= limit:
+            raise RuntimeError(f"graph replay at length {n + 1} vs forward: max abs "
+                               f"err {ref_err} (limit {limit})")
+        print(f"graph: one captured decode_step replayed at length {n + 1}: vs eager "
+              f"max abs err {err:.3g}, vs forward {ref_err:.3g} (limit {limit:.3g}), "
+              f"no wrapper launch during replay", flush=True)
+    ms = _time_ms(graph.replay, 50)
+    print(f"time decode_step as a replayed CUDA graph B{tokens.shape[0]}: {ms:.4f} ms "
+          f"[{card}]", flush=True)
+    return ms
+
+
 def phase_timings(gen, cfg, params, tokens, card) -> dict:
     b, h, l, d = FULL["B"], FULL["H"], FULL["L"], FULL["D"]
     q, k, v = (torch.randn((b, h, l, d), generator=gen, device="cuda")
@@ -212,6 +431,64 @@ def phase_timings(gen, cfg, params, tokens, card) -> dict:
                 library_ms=library_ms)
 
 
+def phase_decode_timings(gen, card) -> dict:
+    """flash_decode, its plain version and SDPA on the cache sliced to the
+    length, at the decode bench shape and the serving shape; each input
+    set cycled L2_COPIES times so the K/V come from device memory. Returns
+    the serving shape's numbers."""
+    b, h, d = FULL["B"], FULL["H"], FULL["D"]
+    shapes = [(DECODE_BENCH["L_Q"], DECODE_BENCH["L_MAX"], DECODE_BENCH["LENS"]),
+              (1, FULL["L"], (FULL["L"],))]
+    out = {}
+    for l_q, l_max, lens in shapes:
+        sets = [[torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+                 for shape in ((b, h, l_q, d), (b, h, l_max, d), (b, h, l_max, d))]
+                for _ in range(L2_COPIES)]
+        for n in lens:
+            length = torch.tensor([n], dtype=torch.int32, device="cuda")
+            mask = causal_lower_right(l_q, n) if l_q > 1 else None
+            kernel = [lambda s=s: flash_decode_kernel(*s, length) for s in sets]
+            library = [lambda s=s: F.scaled_dot_product_attention(
+                s[0], s[1][:, :, :n], s[2][:, :, :n], attn_mask=mask) for s in sets]
+            ms = _graph_ms(kernel)
+            plain_ms = _graph_ms([lambda s=s: flash_decode_plain(*s, length) for s in sets], calls=4)
+            library_ms = _graph_ms(library)
+            eager_ms = _time_ms(_cycle(kernel), 40)
+            eager_library_ms = _time_ms(_cycle(library), 40)
+            bound_ms, bound_by = _decode_bound_ms(b, h, h, l_q, n, d, 2)
+            print(f"time flash_decode B{b} H{h} l_q{l_q} D{d} L_max{l_max} len {n} bf16, "
+                  f"device (graph-replayed): kernel {ms:.4f} ms, bound {bound_ms:.4f} ms "
+                  f"({bound_by}), plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms; "
+                  f"eager per call (host included): kernel {eager_ms:.4f} ms, sdpa "
+                  f"{eager_library_ms:.4f} ms [{card}]", flush=True)
+            out = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                       library_ms=library_ms)
+        del sets
+    return out
+
+
+def phase_serving_timings(cfg, params, prompt, graph_step_ms, card) -> None:
+    """Prefill alone, then the whole greedy generate; the decode loop is
+    their difference. The replayed graph of one step (phase 4) is the
+    step's device time, so its share of the eager step bounds how busy the
+    card is in the eager loop."""
+    n_new = SERVE["N_NEW"]
+    prefill_ms = _time_ms(lambda: prefill(params, prompt, cfg), 5, warmup=1)
+    gen_ms = _time_ms(lambda: generate(params, prompt, cfg, n_new), 3, warmup=1)
+    decode_ms = gen_ms - prefill_ms
+    steps = n_new - 1
+    tok_s = prompt.shape[0] * steps / (decode_ms / 1e3)
+    print(f"time serving B{prompt.shape[0]} prompt {prompt.shape[1]} n_new {n_new}: "
+          f"generate {gen_ms:.3f} ms, prefill {prefill_ms:.3f} ms, decode "
+          f"{decode_ms:.3f} ms = {decode_ms / steps:.4f} ms per step over {steps} "
+          f"steps, {tok_s:.0f} decode tokens/s [{card}]", flush=True)
+    step_ms = decode_ms / steps
+    print(f"time decode step: eager {step_ms:.4f} ms vs graph-replayed {graph_step_ms:.4f} "
+          f"ms; card busy at most {graph_step_ms / step_ms:.1%} of the eager loop, "
+          f"{prompt.shape[0] / (graph_step_ms / 1e3):.0f} tokens/s if every step were "
+          f"replayed [{card}]", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -221,6 +498,7 @@ def main() -> int:
     phase_build(card)
     gen = torch.Generator(device="cuda").manual_seed(0)
     max_abs_err = phase_kernel_vs_plain(gen)
+    decode_err = phase_decode_vs_plain(gen)
 
     cfg = full_width_config()
     params = init_params(cfg, torch.Generator().manual_seed(0), "cuda")
@@ -228,13 +506,27 @@ def main() -> int:
     batches = [torch.from_numpy(rng.integers(0, cfg.vocab, (FULL["B"], FULL["L"]))).cuda()
                for _ in range(3)]
     launches = phase_main_path(cfg, params, batches)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (SERVE["B"], SERVE["T0"]))).cuda()
+    prefill_launches, decode_launches, tokens, ref = phase_serving(cfg, params, prompt)
+    graph_step_ms = phase_graph(cfg, params, tokens, ref, card)
+    del ref
     times = phase_timings(gen, cfg, params, batches[0], card)
+    decode_times = phase_decode_timings(gen, card)
+    phase_serving_timings(cfg, params, prompt, graph_step_ms, card)
 
+    print(f"launches on the main paths: flash_fwd {launches} (forward) + "
+          f"{prefill_launches} (prefill), flash_decode {decode_launches}", flush=True)
     print(json.dumps({"kernels": [{
         "name": "flash_fwd", "route": "cuda",
         "source": "gpumounter_tpu_torch/ops/csrc/flash_fwd.cu",
         "replaces": "gpumounter_tpu/ops/flash_attention.py:84",
-        "launches": launches, "max_abs_err": max_abs_err, **times}]}))
+        "launches": launches + prefill_launches, "max_abs_err": max_abs_err,
+        **times}, {
+        "name": "flash_decode", "route": "cuda",
+        "source": "gpumounter_tpu_torch/ops/csrc/flash_decode.cu",
+        "replaces": "gpumounter_tpu/ops/flash_decode.py:48",
+        "launches": decode_launches, "max_abs_err": decode_err,
+        **decode_times}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,14 +1,21 @@
-"""The probe transformer's forward pass in PyTorch.
+"""The probe transformer's forward pass and serving path in PyTorch.
 
-Counterpart of ``gpumounter_tpu/models/probe.py``, forward path only: a
-small decoder-only transformer whose every block's attention goes through
-``ops.flash_attention`` (the hand-written kernel for CUDA tensors, its plain
-version for CPU tensors). Parameters are a plain dict in the reference's
-layout — ``x @ W`` with W of shape (in, out) — so weights carry across
-without transposes (``weights.params_from_jax``).
+Counterpart of ``gpumounter_tpu/models/probe.py``: a small decoder-only
+transformer whose every block's attention goes through
+``ops.flash_attention`` (forward and prefill) or ``ops.flash_decode`` (one
+token against the KV cache) — the hand-written kernels for CUDA tensors,
+their plain versions for CPU tensors. Parameters are a plain dict in the
+reference's layout — ``x @ W`` with W of shape (in, out) — so weights carry
+across without transposes (``weights.params_from_jax``).
 
-Not ported yet: ``generate()`` and its KV cache (the serving slice), the
-MoE FFN, sequence-parallel attention, and the training loss and step.
+Serving: ``prefill`` fills a fixed-shape cache per layer, ``decode_step``
+adds one token at a cache length held on the device (no host sync, so a
+step can be captured as one CUDA graph), and ``generate`` loops them. The
+port updates the caches in place where the reference threads new arrays
+through its scan.
+
+Not ported yet: the MoE FFN, sequence-parallel attention, and the training
+loss and step.
 """
 
 from __future__ import annotations
@@ -20,6 +27,7 @@ import torch.nn.functional as F
 
 from gpumounter_tpu_torch._device import resolve_device
 from gpumounter_tpu_torch.ops.flash_attention import flash_attention
+from gpumounter_tpu_torch.ops.flash_decode import flash_decode
 
 
 @dataclass(frozen=True)
@@ -170,12 +178,29 @@ def _finish_block(x, attn_heads, p):
     return x + F.gelu(h @ p["w1"], approximate="tanh") @ p["w2"]
 
 
-def _block(x, p, cfg, attention):
+def _block(x, p, cfg, attention, return_kv=False):
+    """One block over the whole sequence; with return_kv also its post-RoPE
+    k and v (b, kv_heads, t, d_head), which is what the cache stores."""
     q, k, v = _qkv_heads(x, p, cfg)
     positions = torch.arange(x.shape[1], device=x.device)
     q, k = _maybe_rope(q, k, cfg, positions)
-    return _finish_block(x, attention(q, k, v, causal=True,
-                                      window=cfg.window), p)
+    x = _finish_block(x, attention(q, k, v, causal=True, window=cfg.window), p)
+    return (x, k, v) if return_kv else x
+
+
+def _block_decode(x, p, cfg, k_cache, v_cache, cur_len):
+    """One block for one new token x (b, 1, d_model) at position
+    cur_len − 1 (cur_len: int32 on the device, counting this token): write
+    its k and v into the caches in place at that slot, then attend the
+    cur_len valid entries through flash_decode."""
+    q, k, v = _qkv_heads(x, p, cfg)
+    slot = (cur_len - 1).reshape(1)
+    # The cache holds rotated keys, so only the new entry is rotated.
+    q, k = _maybe_rope(q, k, cfg, slot)
+    k_cache.index_copy_(2, slot.long(), k)
+    v_cache.index_copy_(2, slot.long(), v)
+    out = flash_decode(q, k_cache, v_cache, cur_len, window=cfg.window)
+    return _finish_block(x, out, p)
 
 
 def forward(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
@@ -197,6 +222,111 @@ def forward(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
     for blk in params["blocks"]:
         x = _block(x, blk, cfg, attention)
     return (x @ params["embed"].T).float()
+
+
+def prefill(params: dict, prompt: torch.Tensor, cfg: TransformerConfig):
+    """(float32 logits (B, vocab) at the prompt's last position, caches).
+
+    Runs the full forward over the prompt (B, t0) and keeps each layer's
+    post-RoPE k and v in a zero-filled cache pair of the fixed shape
+    (B, kv_heads, max_len, d_head), the first t0 slots set.
+    """
+    b, t0 = prompt.shape
+    if t0 > cfg.max_len:
+        raise ValueError(f"sequence length {t0} exceeds max_len "
+                         f"{cfg.max_len}")
+    x = params["embed"][prompt]
+    if not cfg.rope:
+        x = x + params["pos"][:t0]
+    caches = []
+    for blk in params["blocks"]:
+        x, k, v = _block(x, blk, cfg, flash_attention, return_kv=True)
+        shape = (b, cfg.kv_heads, cfg.max_len, cfg.d_head)
+        kc = torch.zeros(shape, dtype=k.dtype, device=k.device)
+        vc = torch.zeros(shape, dtype=v.dtype, device=v.device)
+        kc[:, :, :t0] = k
+        vc[:, :, :t0] = v
+        caches.append((kc, vc))
+    return (x[:, -1] @ params["embed"].T).float(), caches
+
+
+def decode_step(params: dict, caches: list, token: torch.Tensor,
+                cur_len: torch.Tensor, cfg: TransformerConfig) -> torch.Tensor:
+    """float32 logits (B, vocab) for one new token per sequence.
+
+    token (B,) sits at position cur_len, a 0-dim int32 tensor on the device
+    counting the tokens already in the caches; the step writes its k and v
+    at that slot of every layer's caches, in place. Nothing here reads a
+    device value on the host, so the step can be captured as one CUDA graph
+    and replayed at any length by writing cur_len.
+    """
+    x = params["embed"][token][:, None, :]
+    if not cfg.rope:
+        x = x + params["pos"].index_select(0, cur_len.reshape(1).long())
+    for blk, (kc, vc) in zip(params["blocks"], caches, strict=True):
+        x = _block_decode(x, blk, cfg, kc, vc, cur_len + 1)
+    return (x[:, -1] @ params["embed"].T).float()
+
+
+@torch.no_grad()
+def generate(params: dict, prompt: torch.Tensor, cfg: TransformerConfig,
+             n_new: int, generator: torch.Generator | None = None,
+             temperature: float | torch.Tensor | None = None) -> torch.Tensor:
+    """Autoregressive generation with a fixed-shape KV cache.
+
+    prompt: (batch, t0) integer tokens; returns (batch, t0 + n_new). The
+    prefill runs the full forward once (filling the caches); then n_new − 1
+    decode steps each attend through flash_decode at a cache length held on
+    the device, so every step launches the same kernels with the same
+    shapes.
+
+    generator None (default): greedy argmax decoding. generator given:
+    sample from softmax(logits / temperature) (temperature defaults to 1.0)
+    by the Gumbel-max trick, the noise drawn from `generator` on its own
+    device. The two frameworks' random streams differ, so sampled tokens do
+    not match the reference's; greedy tokens do.
+    """
+    if n_new < 0:
+        raise ValueError(f"n_new must be >= 0, got {n_new}")
+    if n_new == 0:
+        return prompt
+    if prompt.shape[1] + n_new > cfg.max_len:
+        raise ValueError(f"prompt ({prompt.shape[1]}) + n_new ({n_new}) "
+                         f"exceeds max_len ({cfg.max_len})")
+    if temperature is not None and generator is None:
+        raise ValueError("temperature without a generator would be "
+                         "silently ignored; pass generator= to sample")
+    if (generator is not None and isinstance(temperature, (int, float))
+            and not temperature > 0):  # `not >` also rejects NaN
+        raise ValueError(f"temperature must be > 0, got {temperature}")
+    if temperature is None:
+        temperature = 1.0
+    # A tensor temperature bypasses the check above: floor it, as the
+    # reference does, so 0, negative or NaN cannot poison the logits.
+    temperature = torch.as_tensor(temperature, dtype=torch.float32,
+                                  device=prompt.device)
+    temperature = torch.where(temperature > 0, temperature,
+                              torch.full_like(temperature, 1e-6))
+
+    def pick(logits):
+        if generator is None:
+            return logits.argmax(dim=-1)
+        u = torch.rand(logits.shape, generator=generator,
+                       device=generator.device).to(logits.device)
+        gumbel = -torch.log(-torch.log(u.clamp_min(torch.finfo(u.dtype).tiny)))
+        return (logits / temperature + gumbel).argmax(dim=-1)
+
+    logits, caches = prefill(params, prompt, cfg)
+    token = pick(logits)
+    new = [token]
+    cur_len = torch.full((), prompt.shape[1], dtype=torch.int32,
+                         device=prompt.device)
+    # The prefill's pick is new token #1, so n_new − 1 steps remain.
+    for _ in range(n_new - 1):
+        token = pick(decode_step(params, caches, token, cur_len, cfg))
+        new.append(token)
+        cur_len = cur_len + 1
+    return torch.cat([prompt, torch.stack(new, dim=1).to(prompt.dtype)], dim=1)
 
 
 def next_token_nll(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
