@@ -4,12 +4,12 @@
 
 Phases, each raising on failure (any failure exits non-zero):
 
-1. build every kernel of the port from ``gpumounter_tpu_torch/ops/csrc``
+1. build every kernel of the port (each ``gpumounter_tpu_torch/ops/csrc/*.cu``)
    with nvcc (sm_90a), all at once, and print the card's name and power
    limit;
 2. hold each kernel against its plain PyTorch version on the card, case by
    case, with the tolerance stated beside each (``flash_fwd``, then
-   ``flash_decode``);
+   ``flash_decode``, then the two backward kernels of ``flash_bwd``);
 3. run the main paths at full width (the config of the repo's train-step
    bench: vocab 2048, d_model 1024, 8 heads of 128, 2 layers, d_ff 4096,
    rope, bf16, max_len 2048), each with the launch counts set to 0 just
@@ -20,11 +20,15 @@ Phases, each raising on failure (any failure exits non-zero):
      new tokens (up to max_len), teacher-forced ``prefill`` +
      ``decode_step`` logits held against ``forward`` at every generated
      position, and seeded sampling checked for reproducibility;
+   - training: 3 SGD steps of ``make_train_step`` on 4 x 2048 random
+     tokens, the grads of one batch held leaf by leaf against the grads
+     through the plain attention; then ``entry.train_check()``;
 4. capture one greedy ``decode_step`` as a CUDA graph and replay it at two
    cache lengths, each against an eager step and the forward;
 5. time each kernel, its plain version and the PyTorch library call that
    computes the same function, the forward, the prefill and the decode
-   loop, with CUDA events.
+   loop, and the train step split into forward, backward and update, with
+   CUDA events.
 
 The last lines are a JSON object per kernel (``{"kernels": [...]}``) and
 ``{"ok": true, "device": {...}}``. Needs a CUDA card; imports no JAX.
@@ -44,12 +48,20 @@ import torch.nn.functional as F
 
 from torch.nn.attention.bias import causal_lower_right
 
+from gpumounter_tpu_torch.entry import train_check
 from gpumounter_tpu_torch.models.probe import (TransformerConfig, decode_step,
                                                forward, generate, init_params,
-                                               next_token_nll, prefill)
+                                               loss_fn, next_token_nll, prefill)
 from gpumounter_tpu_torch.ops import _build
-from gpumounter_tpu_torch.ops.flash_attention import (attention_plain,
+from gpumounter_tpu_torch.ops.flash_attention import (_bwd_launch,
+                                                      attention_bwd_plain,
+                                                      attention_plain,
+                                                      flash_attention_bwd_kernel,
                                                       flash_attention_kernel)
+from gpumounter_tpu_torch.parallel.train_step import (loss_and_grads,
+                                                      make_train_step,
+                                                      sgd_update, tree_leaves,
+                                                      tree_map)
 from gpumounter_tpu_torch.ops.flash_decode import (flash_decode_kernel,
                                                    flash_decode_plain)
 
@@ -76,6 +88,20 @@ SERVE = dict(B=4, T0=1536, N_NEW=512, N_SAMPLED=64)
 # at three valid lengths, and the serving shape.
 DECODE_BENCH = dict(B=4, H=8, L_Q=8, D=128, L_MAX=32768, LENS=(1024, 8192, 32768))
 L2_COPIES = 4  # inputs cycled so that a timed launch finds its K/V outside L2
+# Backward kernels against attention_bwd_plain, as a share of each gradient's
+# max |value|. bf16: each gradient is rounded once to bf16 from f32
+# accumulators (0.4% of max at most) and, as in the TPU kernel, p and ds are
+# rounded to bf16 before their products where the plain version keeps f32;
+# the first card run measured at most 0.8% of max. f32: the order of
+# summation only (measured below 1e-6).
+BWD_RTOL_OF_MAX = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+# Training at full width: 3 SGD steps on fresh 4 x 2048 batches.
+TRAIN = dict(B=4, L=2048, STEPS=3, LR=1e-3)
+# Grads of the bf16 weights through the kernels against those through the
+# plain attention, per leaf, as a share of the leaf's max |grad|: attention
+# grads that differ by up to 0.8% of max pass through two layers of bf16
+# matmuls, rmsnorm and GELU backward, and every leaf is rounded to bf16.
+GRAD_RTOL_OF_MAX = 5e-2
 
 
 def _card() -> str:
@@ -107,6 +133,20 @@ def _attention_bound_ms(b, h, l_q, l_k, d, itemsize, causal=True):
     pairs = l_q * (2 * l_k - l_q + 1) // 2 if causal else l_q * l_k
     flops = 4 * d * b * h * pairs
     nbytes = itemsize * d * b * h * (2 * l_q + 2 * l_k)
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def _bwd_bound_ms(b, h, h_kv, l_q, l_k, d, itemsize, products, n_out, causal=True):
+    """Least time for one backward kernel: `products` products of 2·D
+    operations per attended (query, key) pair (dq: S, dP, dQ; dk/dv: S, dP,
+    dV, dK) against q, do, k, v, lse and Δ read once and its n_out
+    outputs (dq: (B, H, L_q, D); dk, dv: (B, H_kv, L_k, D)) written once."""
+    pairs = l_q * (2 * l_k - l_q + 1) // 2 if causal else l_q * l_k
+    flops = 2 * products * d * b * h * pairs
+    out_rows = b * h * l_q if n_out == 1 else 2 * b * h_kv * l_k
+    nbytes = (itemsize * d * (2 * b * h * l_q + 2 * b * h_kv * l_k + out_rows)
+              + 4 * 2 * b * h * l_q)
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
@@ -171,7 +211,7 @@ def _check_close(name, got, want, tol):
 def phase_build(card: str) -> None:
     print(card, flush=True)
     t0 = time.perf_counter()
-    paths = _build.build(["flash_fwd", "flash_decode"])
+    paths = _build.build(sorted(src.stem for src in _build.CSRC.glob("*.cu")))
     print(f"build: {time.perf_counter() - t0:.1f} s ({', '.join(p.name for p in paths.values())})",
           flush=True)
 
@@ -314,6 +354,122 @@ def phase_decode_vs_plain(gen) -> float:
     return serve_err
 
 
+def phase_bwd_vs_plain(gen) -> tuple[float, float]:
+    """flash_bwd's two kernels against attention_bwd_plain on the forward's
+    cases: o and lse from the forward kernel, do random, and a nonzero lse
+    cotangent in the cross-length case. Returns the max abs errors of dq
+    and of dk/dv in the full-width causal case."""
+
+    def rand(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    b, h, l, d = FULL["B"], FULL["H"], FULL["L"], FULL["D"]
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [  # (name, (B, H, H_kv, L_q, L_k, D), kwargs, dtype, with dlse)
+        ("causal B4 H8 L2048 D128", (b, h, h, l, l, d), dict(causal=True), bf16, False),
+        ("GQA H_kv=2", (b, h, 2, l, l, d), dict(causal=True), bf16, False),
+        ("window 255", (b, h, h, l, l, d), dict(causal=True, window=255), bf16, False),
+        ("window 255 + sinks 4", (b, h, h, l, l, d), dict(causal=True, window=255, sinks=4), bf16, False),
+        ("softcap 30", (b, h, h, l, l, d), dict(causal=True, softcap=30.0), bf16, False),
+        ("causal cross-length L_q=128 L_k=2048 + dlse", (b, h, h, 128, l, d), dict(causal=True), bf16, True),
+        ("D=32", (b, h, h, l, l, 32), dict(causal=True), bf16, False),
+        ("D=64", (b, h, h, l, l, 64), dict(causal=True), bf16, False),
+        ("ragged L=1000", (b, h, h, 1000, 1000, d), dict(causal=True), bf16, False),
+        ("non-causal L_q=300 L_k=700 D=64", (2, 4, 4, 300, 700, 64), dict(causal=False), bf16, False),
+        ("f32 GQA window 17 + sinks 2 L=500 D=64 + dlse", (2, 4, 2, 500, 500, 64),
+         dict(causal=True, window=17, sinks=2), f32, True),
+    ]
+    full = None
+    for name, (cb, ch, chk, lq, lk, cd), kw, dtype, with_dlse in cases:
+        q = rand(cb, ch, lq, cd, dtype=dtype)
+        k = rand(cb, chk, lk, cd, dtype=dtype)
+        v = rand(cb, chk, lk, cd, dtype=dtype)
+        o, lse = flash_attention_kernel(q, k, v, return_lse=True, **kw)
+        do = rand(cb, ch, lq, cd, dtype=dtype)
+        dlse = rand(cb, ch, lq, dtype=f32) if with_dlse else None
+        got = flash_attention_bwd_kernel(q, k, v, o, lse, do, dlse, **kw)
+        torch.cuda.synchronize()  # a fault in the kernels surfaces here
+        want = attention_bwd_plain(q, k, v, o, lse, do, dlse, **kw)
+        rtol = BWD_RTOL_OF_MAX[dtype]
+        errs, limits = [], []
+        for grad, g, w in zip(("dq", "dk", "dv"), got, want):
+            err = (g.float() - w.float()).abs().max().item()
+            limit = rtol * w.float().abs().max().item()
+            if not (torch.isfinite(g).all() and err <= limit):
+                raise RuntimeError(f"{name}: {grad} kernel vs plain max abs err {err} "
+                                   f"(limit {limit} = {rtol} x max |{grad}|)")
+            errs.append(err)
+            limits.append(limit)
+        print(f"case flash_bwd {name}: dq / dk / dv max abs err "
+              f"{' / '.join(f'{e:.3g}' for e in errs)} (limits "
+              f"{' / '.join(f'{x:.3g}' for x in limits)} = {rtol} x max |grad|)", flush=True)
+        if full is None:
+            full = (errs[0], max(errs[1:]))
+    return full
+
+
+def _leaf_names(params) -> list[str]:
+    """Names of tree_leaves(params), in its order."""
+    top = [key for key in sorted(params) if key != "blocks"]
+    return top + [f"blocks[{i}].{key}" for i, blk in enumerate(params["blocks"])
+                  for key in sorted(blk)]
+
+
+def phase_train(cfg, params, batches) -> tuple[int, int, int]:
+    """SGD steps through make_train_step, one per batch, with the counts
+    set to 0 just before and read just after; then one batch's grads
+    through the kernels against the grads through the plain attention, and
+    train_check(). Returns the (flash_fwd, dq, dk/dv) launches."""
+    step = make_train_step(cfg, TRAIN["LR"])
+    bwd = flash_attention_bwd_kernel
+    flash_attention_kernel.launches = flash_decode_kernel.launches = 0
+    bwd.dq_launches = bwd.dkv_launches = 0
+    p, losses = params, []
+    for tokens in batches:
+        p, loss = step(p, tokens)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    counts = (flash_attention_kernel.launches, bwd.dq_launches, bwd.dkv_launches)
+    want = cfg.n_layers * len(batches)
+    if counts != (want,) * 3 or flash_decode_kernel.launches:
+        raise RuntimeError(f"train steps launched flash_fwd / dq / dk/dv {counts} and "
+                           f"flash_decode {flash_decode_kernel.launches} times, expected "
+                           f"n_layers x steps = {want} each and 0")
+    log_v = math.log(cfg.vocab)
+    losses = [loss.item() for loss in losses]
+    if not all(0 <= x - log_v < NLL_ABOVE_UNIFORM for x in losses):
+        raise RuntimeError(f"train losses {losses} not within {NLL_ABOVE_UNIFORM} above "
+                           f"log(vocab) = {log_v}")
+    if not all(torch.isfinite(t).all() for t in tree_leaves(p)):
+        raise RuntimeError("params after the train steps are not finite")
+    print(f"training path: {len(batches)} SGD steps (lr {TRAIN['LR']}) on "
+          f"{tuple(batches[0].shape)} tokens, losses {', '.join(f'{x:.4f}' for x in losses)} "
+          f"(log V {log_v:.4f}); launches flash_fwd {counts[0]}, dq {counts[1]}, dk/dv "
+          f"{counts[2]} (n_layers {cfg.n_layers} x {len(batches)} steps each)", flush=True)
+
+    _, grads = loss_and_grads(params, batches[0], cfg)
+    _, plain = loss_and_grads(params, batches[0], cfg, attention=attention_plain)
+    bad, worst = [], (-1.0, "")
+    for name, g, w in zip(_leaf_names(params), tree_leaves(grads), tree_leaves(plain)):
+        err = (g.float() - w.float()).abs().max().item()
+        peak = w.float().abs().max().item()
+        share = err / peak if peak else math.inf
+        print(f"training grads {name}: max abs err {err:.3g} vs plain-attention grads, "
+              f"{share:.3g} of max |grad| {peak:.3g}", flush=True)
+        if not (torch.isfinite(g).all() and err <= GRAD_RTOL_OF_MAX * peak):
+            bad.append(name)
+        worst = max(worst, (share, name))
+    if bad:
+        raise RuntimeError(f"grads of {bad} differ from the plain-attention grads by more "
+                           f"than {GRAD_RTOL_OF_MAX} x max |grad|")
+    print(f"training path: grads through the kernels vs plain attention, worst leaf "
+          f"{worst[1]} at {worst[0]:.3g} of its max |grad| (limit {GRAD_RTOL_OF_MAX})", flush=True)
+    result = train_check()
+    print(f"train_check(): flagship dialect at d_head 32, loss {result['loss']:.4f}, "
+          f"grads vs plain max abs err {result['max_grad_err']:.3g} (limit 5e-3)", flush=True)
+    return counts
+
+
 def phase_serving(cfg, params, prompt) -> tuple[int, int, torch.Tensor, torch.Tensor]:
     """Greedy generate with the counts set to 0 just before; then the
     teacher-forced and sampled checks. Returns (flash_fwd launches,
@@ -431,6 +587,72 @@ def phase_timings(gen, cfg, params, tokens, card) -> dict:
                 library_ms=library_ms)
 
 
+def phase_bwd_timings(gen, card) -> dict:
+    """Each backward kernel alone at the full-width shape (device time from
+    graph replays), the whole wrapper eagerly, the plain backward, and
+    SDPA's backward (its forward + backward through autograd, minus its
+    forward): one library time for the pair of kernels."""
+    b, h, l, d = FULL["B"], FULL["H"], FULL["L"], FULL["D"]
+    q, k, v, do = (torch.randn((b, h, l, d), generator=gen, device="cuda")
+                   .to(torch.bfloat16) for _ in range(4))
+    o, lse = flash_attention_kernel(q, k, v, causal=True, return_lse=True)
+    delta = (do.float() * o.float()).sum(dim=-1)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    band = dict(causal=True, scale=1.0 / math.sqrt(d), window=None, softcap=None, sinks=0)
+    ms = {"dq": _graph_ms([lambda: _bwd_launch("dq", q, k, v, do, lse, delta, (dq,), **band)]),
+          "dkv": _graph_ms([lambda: _bwd_launch("dkv", q, k, v, do, lse, delta, (dk, dv), **band)])}
+    eager_ms = _time_ms(lambda: flash_attention_bwd_kernel(q, k, v, o, lse, do, causal=True), 10)
+    plain_ms = _time_ms(lambda: attention_bwd_plain(q, k, v, o, lse, do, causal=True), 3, warmup=1)
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+
+    sdpa_both_ms = _time_ms(lambda: torch.autograd.grad(sdpa(), (qg, kg, vg), do), 20)
+    sdpa_fwd_ms = _time_ms(sdpa, 20)
+    library_ms = sdpa_both_ms - sdpa_fwd_ms
+    out = {}
+    for name, products, n_out in (("dq", 3, 1), ("dkv", 4, 2)):
+        bound_ms, bound_by = _bwd_bound_ms(b, h, h, l, l, d, 2, products, n_out)
+        print(f"time flash_bwd_{name} B{b} H{h} L{l} D{d} causal bf16, device (graph-replayed): "
+              f"kernel {ms[name]:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) [{card}]", flush=True)
+        out[name] = dict(ms=ms[name], plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                         library_ms=library_ms)
+    print(f"time backward B{b} H{h} L{l} D{d} causal bf16: wrapper (Δ + both kernels) eager "
+          f"{eager_ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa backward {library_ms:.4f} ms "
+          f"(forward + backward {sdpa_both_ms:.4f} ms − forward {sdpa_fwd_ms:.4f} ms) [{card}]",
+          flush=True)
+    return out
+
+
+def phase_train_timings(cfg, params, tokens, card) -> None:
+    """The SGD step as make_train_step runs it, and the same step with CUDA
+    events between its forward (loss_fn), backward (autograd) and update."""
+    step = make_train_step(cfg, TRAIN["LR"])
+    step_ms = _time_ms(lambda: step(params, tokens), 5, warmup=1)
+
+    def split():
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        events[0].record()
+        leaves = tree_map(lambda p: p.detach().requires_grad_(), params)
+        loss = loss_fn(leaves, tokens, cfg)
+        events[1].record()
+        grads = iter(torch.autograd.grad(loss, tree_leaves(leaves)))
+        events[2].record()
+        sgd_update(params, tree_map(lambda _: next(grads), params), TRAIN["LR"])
+        events[3].record()
+        return events
+
+    split()
+    runs = [split() for _ in range(5)]
+    torch.cuda.synchronize()
+    fwd, bwd, upd = (sum(e[i].elapsed_time(e[i + 1]) for e in runs) / len(runs)
+                     for i in range(3))
+    print(f"time train step B{tokens.shape[0]} L{tokens.shape[1]} (SGD): {step_ms:.3f} ms, "
+          f"{tokens.numel() / (step_ms / 1e3):.0f} tokens/s; split: forward {fwd:.3f} ms, "
+          f"backward {bwd:.3f} ms, update {upd:.3f} ms [{card}]", flush=True)
+
+
 def phase_decode_timings(gen, card) -> dict:
     """flash_decode, its plain version and SDPA on the cache sliced to the
     length, at the decode bench shape and the serving shape; each input
@@ -499,6 +721,7 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     max_abs_err = phase_kernel_vs_plain(gen)
     decode_err = phase_decode_vs_plain(gen)
+    bwd_errs = phase_bwd_vs_plain(gen)
 
     cfg = full_width_config()
     params = init_params(cfg, torch.Generator().manual_seed(0), "cuda")
@@ -510,18 +733,30 @@ def main() -> int:
     prefill_launches, decode_launches, tokens, ref = phase_serving(cfg, params, prompt)
     graph_step_ms = phase_graph(cfg, params, tokens, ref, card)
     del ref
+    train_fwd, train_dq, train_dkv = phase_train(cfg, params, batches)
     times = phase_timings(gen, cfg, params, batches[0], card)
+    bwd_times = phase_bwd_timings(gen, card)
+    phase_train_timings(cfg, params, batches[0], card)
     decode_times = phase_decode_timings(gen, card)
     phase_serving_timings(cfg, params, prompt, graph_step_ms, card)
 
     print(f"launches on the main paths: flash_fwd {launches} (forward) + "
-          f"{prefill_launches} (prefill), flash_decode {decode_launches}", flush=True)
+          f"{prefill_launches} (prefill) + {train_fwd} (training), flash_decode "
+          f"{decode_launches}, flash_bwd dq {train_dq} and dk/dv {train_dkv} (training)",
+          flush=True)
+    bwd_source = "gpumounter_tpu_torch/ops/csrc/flash_bwd.cu"
     print(json.dumps({"kernels": [{
         "name": "flash_fwd", "route": "cuda",
         "source": "gpumounter_tpu_torch/ops/csrc/flash_fwd.cu",
         "replaces": "gpumounter_tpu/ops/flash_attention.py:84",
-        "launches": launches + prefill_launches, "max_abs_err": max_abs_err,
+        "launches": launches + prefill_launches + train_fwd, "max_abs_err": max_abs_err,
         **times}, {
+        "name": "flash_bwd_dq", "route": "cuda", "source": bwd_source,
+        "replaces": "gpumounter_tpu/ops/flash_attention.py:182",
+        "launches": train_dq, "max_abs_err": bwd_errs[0], **bwd_times["dq"]}, {
+        "name": "flash_bwd_dkv", "route": "cuda", "source": bwd_source,
+        "replaces": "gpumounter_tpu/ops/flash_attention.py:236",
+        "launches": train_dkv, "max_abs_err": bwd_errs[1], **bwd_times["dkv"]}, {
         "name": "flash_decode", "route": "cuda",
         "source": "gpumounter_tpu_torch/ops/csrc/flash_decode.cu",
         "replaces": "gpumounter_tpu/ops/flash_decode.py:48",

@@ -1,4 +1,5 @@
-"""The probe transformer's forward pass and serving path in PyTorch.
+"""The probe transformer's forward pass, training loss and serving path in
+PyTorch.
 
 Counterpart of ``gpumounter_tpu/models/probe.py``: a small decoder-only
 transformer whose every block's attention goes through
@@ -14,8 +15,14 @@ step can be captured as one CUDA graph), and ``generate`` loops them. The
 port updates the caches in place where the reference threads new arrays
 through its scan.
 
-Not ported yet: the MoE FFN, sequence-parallel attention, and the training
-loss and step.
+Training: ``loss_fn`` is the mean next-token NLL of ``forward``, which is
+differentiable end to end; under grad every block's attention runs the
+forward kernel with lse and the two backward kernels
+(``ops.flash_attention._FlashAttentionFn``). The single-GPU train steps are
+in ``parallel/train_step.py``.
+
+Not ported yet: the MoE FFN (and its aux loss term) and sequence-parallel
+attention.
 """
 
 from __future__ import annotations
@@ -335,3 +342,12 @@ def next_token_nll(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     logp = torch.log_softmax(logits[:, :-1], dim=-1)
     nll = -logp.gather(-1, tokens[:, 1:, None].long())
     return nll.mean()
+
+
+def loss_fn(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
+            attention=flash_attention) -> torch.Tensor:
+    """Mean next-token cross-entropy of ``forward`` on tokens (B, T), a
+    0-dim float32 tensor. The reference adds moe_aux_weight x the MoE
+    load-balancing loss for n_experts configs, which the port's config
+    refuses until the MoE FFN is ported. attention as in ``forward``."""
+    return next_token_nll(forward(params, tokens, cfg, attention), tokens)

@@ -12,12 +12,21 @@ tensor runs the kernel or raises ``ValueError`` naming what the kernel does
 not take, and a CPU tensor runs ``attention_plain``. There is no fallback
 from one to the other. The TPU dispatch tables and backends of the reference
 (``_SWEEP_TABLE``, ``backend="auto"``) are v5e measurements and are not
-ported; training (the backward kernels) is a later slice.
+ported.
+
+Training: ``csrc/flash_bwd.cu`` ports the two Pallas backward kernels
+(``_flash_bwd_dq_kernel``, ``_flash_bwd_dkv_kernel``) behind
+``flash_attention_bwd_kernel``, with ``attention_bwd_plain`` as their plain
+version (``_flash_backward`` written out in PyTorch). ``_FlashAttentionFn``
+joins them to the forward kernel as the reference's two custom VJPs do:
+``flash_attention_with_lse`` differentiates in both outputs, and the public
+``flash_attention`` goes through it when grad is on.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -101,6 +110,52 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lse = torch.logsumexp(s, dim=-1)
     empty = s.amax(dim=-1) <= NEG_INF / 2
     return out, torch.where(empty, torch.full_like(lse, NEG_INF), lse)
+
+
+def attention_bwd_plain(q, k, v, o, lse, do, dlse=None, *, causal=True,
+                        scale=None, window=None, softcap=None, sinks=0):
+    """(dq, dk, dv) of attention, the backward kernels' plain version.
+
+    The reference's ``_flash_backward`` written out in PyTorch, in float32:
+    p = exp(s − lse) from the saved natural-unit lse (0 where lse is
+    NEG_INF), Δ = rowsum(do∘o) − dlse, ds = p∘(do·vᵀ − Δ) (times
+    1 − (s_cap/cap)² with softcap), dq = ds·k·scale, dk = dsᵀ·q·scale,
+    dv = pᵀ·do. dk and dv are summed over each GQA group in float32 and
+    cast once; each gradient comes back in its input's dtype. Unlike the
+    kernels, p and ds are not rounded to bf16 before their products.
+    """
+    _check_band_args(q, k, causal, window, sinks)
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    b, h, l_q, d = q.shape
+    h_kv, l_k = k.shape[1], k.shape[2]
+    group = h // h_kv
+    qf, dof = q.float(), do.float()
+    kf = k.float().repeat_interleave(group, dim=1)
+    vf = v.float().repeat_interleave(group, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * scale
+    chain = None
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)  # s_cap, before the mask
+        chain = 1.0 - (s / softcap).square()
+    if causal:
+        keep = _band_mask(l_q, l_k, window, sinks, q.device)
+        s = torch.where(keep, s, torch.full_like(s, NEG_INF))
+    lse_col = lse.float()[..., None]
+    p = torch.where(lse_col <= NEG_INF / 2, torch.zeros_like(s),
+                    torch.exp(s - lse_col))
+    delta = (dof * o.float()).sum(dim=-1)
+    if dlse is not None:
+        delta = delta - dlse.float()
+    ds = p * (torch.einsum("bhqd,bhkd->bhqk", dof, vf) - delta[..., None])
+    if chain is not None:
+        ds = ds * chain
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf) * scale
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, dof)
+    dk = dk.reshape(b, h_kv, group, l_k, d).sum(dim=2)
+    dv = dv.reshape(b, h_kv, group, l_k, d).sum(dim=2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 _ptr, _int, _ll, _float = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
@@ -211,6 +266,177 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_attention_kernel.launches = 0
 
 
+@functools.cache
+def _bwd_library(device_index: int) -> ctypes.CDLL:
+    """The backward kernels' library, its shared-memory limits raised on
+    the device once, at load."""
+    lib = _build.load("flash_bwd")
+    lib.flash_bwd_init.restype = _int
+    lib.flash_bwd_init.argtypes = []
+    for name, n_out in (("flash_bwd_dq", 1), ("flash_bwd_dkv", 2)):
+        fn = getattr(lib, name)
+        fn.restype = _int
+        fn.argtypes = (
+            [_ptr] * (6 + n_out)   # q, k, v, do, lse, delta; dq or dk, dv
+            + [_int] * 7           # dtype, B, H, H_kv, L_q, L_k, D
+            + [_ll] * 12           # q, k, v, do strides: batch, head, row
+            + [_int] * 3           # causal, window, sinks
+            + [_float] * 2         # scale, softcap
+            + [_ptr])              # stream
+    with torch.cuda.device(device_index):
+        err = lib.flash_bwd_init()
+    if err != 0:
+        raise RuntimeError(f"flash_bwd_init failed: cudaError_t {err}")
+    return lib
+
+
+def _check_bwd_inputs(q, k, v, o, lse, do, dlse):
+    """Raise ValueError for what flash_bwd.cu does not take, beyond
+    ``_check_kernel_inputs``: o and do must match q, lse (and dlse) must be
+    (B, H, L_q)."""
+    _check_kernel_inputs(q, k, v)
+    for name, t in (("o", o), ("do", do)):
+        if t.shape != q.shape or t.dtype != q.dtype:
+            raise ValueError(f"{name} must match q {tuple(q.shape)} "
+                             f"{q.dtype}, got {tuple(t.shape)} {t.dtype}")
+    for name, t in (("lse", lse), ("dlse", dlse)):
+        if t is not None and t.shape != q.shape[:3]:
+            raise ValueError(f"{name} must be (B, H, L_q) = "
+                             f"{tuple(q.shape[:3])}, got {tuple(t.shape)}")
+
+
+def _kernel_layout(t: torch.Tensor) -> torch.Tensor:
+    """t itself when the kernel can read it strided, else a contiguous
+    copy: autograd decides the layout of an incoming gradient."""
+    vec = 16 // t.element_size()
+    if (t.stride(3) == 1 and t.data_ptr() % 16 == 0
+            and not any(s % vec for s in t.stride()[:3])):
+        return t
+    return t.contiguous()
+
+
+def flash_attention_bwd_kernel(q, k, v, o, lse, do, dlse=None, *,
+                               causal: bool = True, scale: float | None = None,
+                               window: int | None = None,
+                               softcap: float | None = None, sinks: int = 0):
+    """(dq, dk, dv) through ``csrc/flash_bwd.cu``; counterpart of the
+    reference's ``_flash_backward``.
+
+    q, o, do (B, H, L_q, D); k, v (B, H_kv, L_k, D); lse the forward's
+    (B, H, L_q) float32 log-sum-exp; dlse an optional cotangent of lse,
+    folded into Δ = rowsum(do∘o) − dlse, which is computed here in PyTorch
+    before the launch, as the reference computes it outside its kernels.
+    CUDA tensors launch the dq kernel, then the dk/dv kernel, on the current
+    stream (or raise ValueError); CPU tensors run ``attention_bwd_plain``.
+    Each launch adds one to ``flash_attention_bwd_kernel.dq_launches`` or
+    ``.dkv_launches``. dk and dv are summed over each GQA group inside the
+    kernel, in float32, and come back with H_kv heads.
+    """
+    tensors = [q, k, v, o, lse, do] + ([] if dlse is None else [dlse])
+    if any(t.device != q.device for t in tensors):
+        raise ValueError(f"backward inputs on different devices: "
+                         f"{sorted({str(t.device) for t in tensors})}")
+    if q.device.type == "cpu":
+        return attention_bwd_plain(q, k, v, o, lse, do, dlse, causal=causal,
+                                   scale=scale, window=window,
+                                   softcap=softcap, sinks=sinks)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd_kernel runs on cuda or cpu "
+                         f"tensors, got {q.device}")
+    _check_band_args(q, k, causal, window, sinks)
+    _check_bwd_inputs(q, k, v, o, lse, do, dlse)
+    b, h, l_q, d = q.shape
+    h_kv, l_k = k.shape[1], k.shape[2]
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    do = _kernel_layout(do)
+    delta = (do.float() * o.float()).sum(dim=-1)
+    if dlse is not None:
+        delta = delta - dlse.float()
+    lse = lse.float().contiguous()
+    band = dict(causal=causal, scale=scale, window=window, softcap=softcap,
+                sinks=sinks)
+    dq = torch.empty((b, h, l_q, d), dtype=q.dtype, device=q.device)
+    dk = torch.empty((b, h_kv, l_k, d), dtype=k.dtype, device=q.device)
+    dv = torch.empty((b, h_kv, l_k, d), dtype=v.dtype, device=q.device)
+    _bwd_launch("dq", q, k, v, do, lse, delta, (dq,), **band)
+    _bwd_launch("dkv", q, k, v, do, lse, delta, (dk, dv), **band)
+    return dq, dk, dv
+
+
+flash_attention_bwd_kernel.dq_launches = 0
+flash_attention_bwd_kernel.dkv_launches = 0
+
+
+def _bwd_launch(name, q, k, v, do, lse, delta, outs, *, causal, scale, window,
+                softcap, sinks):
+    """Launch ``flash_bwd_<name>`` (name "dq" or "dkv") on checked inputs:
+    do in a layout the kernel reads, lse and delta float32 and contiguous,
+    outs (dq, or dk and dv) contiguous. Adds one to that kernel's count."""
+    b, h, l_q, d = q.shape
+    h_kv, l_k = k.shape[1], k.shape[2]
+    with torch.cuda.device(q.device):
+        fn = getattr(_bwd_library(q.device.index), f"flash_bwd_{name}")
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                 lse.data_ptr(), delta.data_ptr(),
+                 *(t.data_ptr() for t in outs),
+                 _KERNEL_DTYPES[q.dtype], b, h, h_kv, l_q, l_k, d,
+                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                 *do.stride()[:3], int(causal),
+                 -1 if window is None else window, sinks, scale,
+                 0.0 if softcap is None else softcap,
+                 torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_bwd_{name} launch failed: cudaError_t "
+                           f"{err} for q {tuple(q.shape)} k {tuple(k.shape)} "
+                           f"{q.dtype}")
+    if name == "dq":
+        flash_attention_bwd_kernel.dq_launches += 1
+    else:
+        flash_attention_bwd_kernel.dkv_launches += 1
+
+
+class _FlashAttentionFn(torch.autograd.Function):
+    """(o, lse) with a backward through the backward kernels: the
+    counterpart of the reference's custom VJPs ``flash_attention_with_lse``
+    and ``_flash_attention_trainable``. The forward is the forward kernel
+    with lse, saved with q, k, v and o; the backward folds the lse
+    cotangent into Δ. On CPU tensors both directions are the plain
+    versions, so no graph is taken through ``attention_plain``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale, window, softcap, sinks):
+        o, lse = flash_attention_kernel(q, k, v, causal=causal, scale=scale,
+                                        window=window, softcap=softcap,
+                                        sinks=sinks, return_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.band = dict(causal=causal, scale=scale, window=window,
+                        softcap=softcap, sinks=sinks)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, dlse):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd_kernel(q, k, v, o, lse, do, dlse,
+                                                **ctx.band)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, *, causal: bool = True,
+                             scale: float | None = None,
+                             window: int | None = None,
+                             softcap: float | None = None, sinks: int = 0):
+    """Differentiable (o, lse): o (B, H, L_q, D) in q's dtype and lse
+    (B, H, L_q) float32, both carrying gradients (an lse cotangent folds
+    into Δ, as in the reference). Causal cross-length follows the decode
+    convention of ``flash_attention_kernel``."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    return _FlashAttentionFn.apply(q, k, v, causal, scale, window, softcap,
+                                   sinks)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, scale: float | None = None,
                     window: int | None = None, softcap: float | None = None,
@@ -221,7 +447,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     window=W attends W+1 keys (Mistral/HF sliding_window=W is window=W−1
     here). softcap: cap·tanh(s/cap) on the raw scores. sinks (requires
     window): keep the first `sinks` keys attendable. Causal cross-length is
-    refused here; decode callers use flash_attention_kernel directly.
+    refused here; decode callers use flash_attention_kernel directly. When
+    grad is on and an input requires it, the call goes through
+    ``_FlashAttentionFn`` (the forward kernel with lse, then the backward
+    kernels); otherwise it is the forward kernel alone, without lse, as the
+    reference's primal is.
     """
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
@@ -241,5 +471,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             f"{q.shape[2]} vs {k.shape[2]}); for KV-cache decode use "
             f"flash_attention_kernel(..., return_lse=...) which follows "
             f"the decode convention")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttentionFn.apply(q, k, v, causal, scale, window,
+                                       softcap, sinks)[0]
     return flash_attention_kernel(q, k, v, causal=causal, scale=scale,
                                   window=window, softcap=softcap, sinks=sinks)
