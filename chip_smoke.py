@@ -6,7 +6,8 @@ Phases, each raising on failure (any failure exits non-zero):
 
 1. build every kernel of the port (each ``gpumounter_tpu_torch/ops/csrc/*.cu``)
    with nvcc (sm_90a), all at once, and print the card's name and power
-   limit;
+   limit, and the registers and spills that ptxas reports for each
+   instance of ``flash_fwd.cu``;
 2. hold each kernel against its plain PyTorch version on the card, case by
    case, with the tolerance stated beside each (``flash_fwd``, then
    ``flash_decode``, then the two backward kernels of ``flash_bwd``);
@@ -26,9 +27,10 @@ Phases, each raising on failure (any failure exits non-zero):
 4. capture one greedy ``decode_step`` as a CUDA graph and replay it at two
    cache lengths, each against an eager step and the forward;
 5. time each kernel, its plain version and the PyTorch library call that
-   computes the same function, the forward, the prefill and the decode
-   loop, and the train step split into forward, backward and update, with
-   CUDA events.
+   computes the same function (kernels and library calls as device time by
+   replaying a CUDA graph of 20 calls, and ``flash_fwd`` and SDPA also
+   eagerly per call), the forward, the prefill and the decode loop, and the
+   train step split into forward, backward and update, with CUDA events.
 
 The last lines are a JSON object per kernel (``{"kernels": [...]}``) and
 ``{"ok": true, "device": {...}}``. Needs a CUDA card; imports no JAX.
@@ -38,6 +40,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -53,7 +56,7 @@ from gpumounter_tpu_torch.models.probe import (TransformerConfig, decode_step,
                                                forward, generate, init_params,
                                                loss_fn, next_token_nll, prefill)
 from gpumounter_tpu_torch.ops import _build
-from gpumounter_tpu_torch.ops.flash_attention import (_bwd_launch,
+from gpumounter_tpu_torch.ops.flash_attention import (_band_mask, _bwd_launch,
                                                       attention_bwd_plain,
                                                       attention_plain,
                                                       flash_attention_bwd_kernel,
@@ -126,15 +129,24 @@ def _time_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _attention_bound_ms(b, h, l_q, l_k, d, itemsize, causal=True):
+def _attention_pairs(l_q, l_k, causal=True, window=None):
+    """(query, key) pairs one head attends: the causal band, L(L+1)/2 when
+    L_q == L_k, cut to the window [p − window, p] when one is set."""
+    if not causal:
+        return l_q * l_k
+    offset = l_k - l_q
+    return sum(min(p, window) + 1 if window is not None else p + 1
+               for p in range(offset, offset + l_q))
+
+
+def _attention_bound_ms(b, h, l_q, l_k, d, itemsize, causal=True, h_kv=None, window=None):
     """Least time for the attention forward: 4·D operations per attended
-    (query, key) pair — here all pairs of the causal band, L(L+1)/2 per
-    head when L_q == L_k — against q/k/v/o bytes."""
-    pairs = l_q * (2 * l_k - l_q + 1) // 2 if causal else l_q * l_k
-    flops = 4 * d * b * h * pairs
-    nbytes = itemsize * d * b * h * (2 * l_q + 2 * l_k)
+    (query, key) pair against q and o (H heads) and k and v (H_kv heads)
+    bytes. Returns (ms, what bounds it, the operations)."""
+    flops = 4 * d * b * h * _attention_pairs(l_q, l_k, causal, window)
+    nbytes = itemsize * d * b * (2 * h * l_q + 2 * (h_kv or h) * l_k)
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S
-    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes", flops
 
 
 def _bwd_bound_ms(b, h, h_kv, l_q, l_k, d, itemsize, products, n_out, causal=True):
@@ -208,12 +220,48 @@ def _check_close(name, got, want, tol):
     return err
 
 
+_PTXAS_ENTRY = re.compile(r"Compiling entry function '\S*?(flash_fwd_[a-z0-9]+_kernel)I(\w*?)EEv")
+_PTXAS_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+_PTXAS_REGS = re.compile(r"Used (\d+) registers")
+
+
+def _ptxas_lines(log: str) -> list[str]:
+    """One line per kernel instance of ptxas's -v report: its registers (the
+    launch's cap; setmaxnreg moves them between warpgroups later) and its
+    spills."""
+    lines, name, spill = [], None, None
+    for line in log.splitlines():
+        if entry := _PTXAS_ENTRY.search(line):
+            args = re.findall(r"L[ib](\d+)E?", entry.group(2) + "E")
+            name = f"{entry.group(1)}<{', '.join(args)}>"
+        elif name and (found := _PTXAS_SPILL.search(line)):
+            spill = found.groups()
+        elif name and spill and (found := _PTXAS_REGS.search(line)):
+            lines.append(f"ptxas {name}: {found.group(1)} registers, spill stores "
+                         f"{spill[0]} B, spill loads {spill[1]} B")
+            name = spill = None
+    return lines
+
+
 def phase_build(card: str) -> None:
+    """Build every kernel; beside the build, compile flash_fwd.cu once more
+    with ptxas's -v report and print each instance's registers and spills."""
     print(card, flush=True)
     t0 = time.perf_counter()
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    report_so = _build.BUILD_DIR / "ptxas-report-flash_fwd.so"
+    report = subprocess.Popen(
+        _build.nvcc_command(_build.CSRC / "flash_fwd.cu", report_so) + ["-Xptxas", "-v"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     paths = _build.build(sorted(src.stem for src in _build.CSRC.glob("*.cu")))
     print(f"build: {time.perf_counter() - t0:.1f} s ({', '.join(p.name for p in paths.values())})",
           flush=True)
+    log, _ = report.communicate()
+    report_so.unlink(missing_ok=True)
+    lines = _ptxas_lines(log)
+    if report.returncode != 0 or not lines:
+        raise RuntimeError(f"ptxas report of flash_fwd.cu failed:\n{log[-3000:]}")
+    print("\n".join(lines), flush=True)
 
 
 def phase_kernel_vs_plain(gen) -> float:
@@ -236,6 +284,15 @@ def phase_kernel_vs_plain(gen) -> float:
         ("D=64", (b, h, h, l, l, 64), dict(causal=True), torch.bfloat16),
         ("ragged L=1000", (b, h, h, 1000, 1000, d), dict(causal=True), torch.bfloat16),
         ("non-causal L_q=300 L_k=700 D=64", (2, 4, 4, 300, 700, 64), dict(causal=False), torch.bfloat16),
+        # The edges of the bf16 kernel's 128-row q tiles and 128-key k tiles.
+        ("ragged L=129 + lse", (b, h, h, 129, 129, d), dict(causal=True, return_lse=True), torch.bfloat16),
+        ("causal cross-length L_q=1 L_k=300", (b, h, h, 1, 300, d), dict(causal=True, return_lse=True), torch.bfloat16),
+        ("causal cross-length L_q=100 L_k=300", (b, h, h, 100, 300, d), dict(causal=True, return_lse=True), torch.bfloat16),
+        *[(f"window {w} L=1000", (b, h, h, 1000, 1000, d), dict(causal=True, window=w), torch.bfloat16)
+          for w in (17, 127, 128, 129)],
+        ("window 200 + sinks 130 L=1000", (b, h, h, 1000, 1000, d), dict(causal=True, window=200, sinks=130, return_lse=True), torch.bfloat16),
+        ("GQA group 8 L=1000", (b, h, 1, 1000, 1000, d), dict(causal=True), torch.bfloat16),
+        ("softcap 30 + lse", (b, h, h, l, l, d), dict(causal=True, softcap=30.0, return_lse=True), torch.bfloat16),
         ("f32 GQA window 17 + sinks 2 L=500 D=64", (2, 4, 2, 500, 500, 64), dict(causal=True, window=17, sinks=2, return_lse=True), torch.float32),
     ]
     full_err = None
@@ -569,22 +626,52 @@ def phase_graph(cfg, params, tokens, ref, card) -> float:
 
 
 def phase_timings(gen, cfg, params, tokens, card) -> dict:
-    b, h, l, d = FULL["B"], FULL["H"], FULL["L"], FULL["D"]
-    q, k, v = (torch.randn((b, h, l, d), generator=gen, device="cuda")
-               .to(torch.bfloat16) for _ in range(3))
-    ms = _time_ms(lambda: flash_attention_kernel(q, k, v, causal=True), 20)
-    plain_ms = _time_ms(lambda: attention_plain(q, k, v, causal=True), 5)
-    library_ms = _time_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True), 20)
-    bound_ms, bound_by = _attention_bound_ms(b, h, l, l, d, q.element_size())
-    print(f"time flash_fwd B{b} H{h} L{l} D{d} causal bf16: kernel {ms:.4f} ms, "
-          f"bound {bound_ms:.4f} ms ({bound_by}), plain {plain_ms:.4f} ms, "
-          f"sdpa {library_ms:.4f} ms [{card}]", flush=True)
+    """flash_fwd and the PyTorch call for the same function, device time by
+    graph replay (the wrapper's host time hidden) and eagerly per call, at
+    the full-width shape, the prefill's and GQA with a window; the plain
+    version at the full-width shape; then the forward. Returns the
+    full-width shape's numbers."""
+    shapes = [  # (name, (B, H, H_kv, L, D), window)
+        ("B4 H8 L2048 D128 causal", (FULL["B"], FULL["H"], FULL["H"], FULL["L"], FULL["D"]), None),
+        ("prefill B4 H8 L1536 D128 causal", (SERVE["B"], FULL["H"], FULL["H"], SERVE["T0"], FULL["D"]), None),
+        ("GQA B4 H8 H_kv2 L2048 D128 window 255", (FULL["B"], FULL["H"], 2, FULL["L"], FULL["D"]), 255),
+    ]
+    out = None
+    for name, (b, h, h_kv, l, d), window in shapes:
+        q = torch.randn((b, h, l, d), generator=gen, device="cuda").to(torch.bfloat16)
+        k, v = (torch.randn((b, h_kv, l, d), generator=gen, device="cuda").to(torch.bfloat16)
+                for _ in range(2))
+
+        def kernel():
+            return flash_attention_kernel(q, k, v, causal=True, window=window)
+
+        if window is None:
+            def library():
+                return F.scaled_dot_product_attention(q, k, v, is_causal=True)
+        else:
+            mask = _band_mask(l, l, window, 0, "cuda")
+
+            def library():
+                return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, enable_gqa=True)
+        ms, library_ms = _graph_ms([kernel]), _graph_ms([library])
+        eager_ms, eager_library_ms = _time_ms(kernel, 20), _time_ms(library, 20)
+        bound_ms, bound_by, flops = _attention_bound_ms(b, h, l, l, d, q.element_size(),
+                                                        h_kv=h_kv, window=window)
+        print(f"time flash_fwd {name} bf16, device (graph-replayed): kernel {ms:.4f} ms "
+              f"({flops / ms / 1e9:.1f} TFLOP/s, {bound_ms / ms:.1%} of bound {bound_ms:.4f} ms, "
+              f"{bound_by}), sdpa {library_ms:.4f} ms; eager per call (host included): kernel "
+              f"{eager_ms:.4f} ms, sdpa {eager_library_ms:.4f} ms [{card}]", flush=True)
+        if out is None:
+            plain_ms = _time_ms(lambda: attention_plain(q, k, v, causal=True), 5)
+            print(f"time attention_plain {name} bf16: {plain_ms:.4f} ms [{card}]", flush=True)
+            out = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                       library_ms=library_ms)
+        del q, k, v
     fwd_ms = _time_ms(lambda: forward(params, tokens, cfg), 5, warmup=1)
     tok_s = tokens.numel() / (fwd_ms / 1e3)
     print(f"time forward B{tokens.shape[0]} L{tokens.shape[1]}: {fwd_ms:.3f} ms, "
           f"{tok_s:.0f} tokens/s [{card}]", flush=True)
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                library_ms=library_ms)
+    return out
 
 
 def phase_bwd_timings(gen, card) -> dict:
@@ -690,18 +777,20 @@ def phase_decode_timings(gen, card) -> dict:
 
 
 def phase_serving_timings(cfg, params, prompt, graph_step_ms, card) -> None:
-    """Prefill alone, then the whole greedy generate; the decode loop is
-    their difference. The replayed graph of one step (phase 4) is the
+    """Prefill alone (eagerly, and its device time by graph replay), then
+    the whole greedy generate; the decode loop is their difference. The replayed graph of one step (phase 4) is the
     step's device time, so its share of the eager step bounds how busy the
     card is in the eager loop."""
     n_new = SERVE["N_NEW"]
     prefill_ms = _time_ms(lambda: prefill(params, prompt, cfg), 5, warmup=1)
+    prefill_device_ms = _graph_ms([lambda: prefill(params, prompt, cfg)], calls=5)
     gen_ms = _time_ms(lambda: generate(params, prompt, cfg, n_new), 3, warmup=1)
     decode_ms = gen_ms - prefill_ms
     steps = n_new - 1
     tok_s = prompt.shape[0] * steps / (decode_ms / 1e3)
     print(f"time serving B{prompt.shape[0]} prompt {prompt.shape[1]} n_new {n_new}: "
-          f"generate {gen_ms:.3f} ms, prefill {prefill_ms:.3f} ms, decode "
+          f"generate {gen_ms:.3f} ms, prefill {prefill_ms:.3f} ms (device, graph-replayed: "
+          f"{prefill_device_ms:.3f} ms), decode "
           f"{decode_ms:.3f} ms = {decode_ms / steps:.4f} ms per step over {steps} "
           f"steps, {tok_s:.0f} decode tokens/s [{card}]", flush=True)
     step_ms = decode_ms / steps

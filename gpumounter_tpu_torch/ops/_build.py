@@ -15,6 +15,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -37,13 +38,30 @@ def nvcc_command(source: Path, output: Path) -> list[str]:
     return [_nvcc(), *NVCC_FLAGS, "-o", str(output), str(source)]
 
 
+_LOCAL_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def sources(name: str) -> list[Path]:
+    """``csrc/<name>.cu`` and the local headers it includes (``#include
+    "..."``), directly or through another of them."""
+    found, todo = set(), [CSRC / f"{name}.cu"]
+    while todo:
+        src = todo.pop()
+        if src in found or not src.exists():
+            continue
+        found.add(src)
+        todo += [src.parent / inc for inc in _LOCAL_INCLUDE.findall(src.read_text())]
+    return sorted(found)
+
+
 def library_path(name: str) -> Path:
-    """Where the library built from ``csrc/<name>.cu`` lives."""
+    """Where the library built from ``csrc/<name>.cu`` lives: its name
+    hashes the flags, the source and the headers it includes, so editing a
+    header rebuilds only the libraries that include it."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sorted(CSRC.glob("*.cu*")):  # the .cu itself and shared .cuh
-        if src.suffix == ".cuh" or src.stem == name:
-            digest.update(src.name.encode())
-            digest.update(src.read_bytes())
+    for src in sources(name):
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 

@@ -161,8 +161,13 @@ def attention_bwd_plain(q, k, v, o, lse, do, dlse=None, *, causal=True,
 _ptr, _int, _ll, _float = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 
 
-def _library() -> ctypes.CDLL:
+@functools.cache
+def _library(device_index: int) -> ctypes.CDLL:
+    """The forward kernels' library, its shared-memory limits raised on the
+    device once, at load."""
     lib = _build.load("flash_fwd")
+    lib.flash_fwd_init.restype = _int
+    lib.flash_fwd_init.argtypes = []
     lib.flash_fwd.restype = _int
     lib.flash_fwd.argtypes = (
         [_ptr] * 5                 # q, k, v, o, lse
@@ -171,6 +176,10 @@ def _library() -> ctypes.CDLL:
         + [_int] * 3               # causal, window, sinks
         + [_float] * 2             # scale, softcap
         + [_ptr])                  # stream
+    with torch.cuda.device(device_index):
+        err = lib.flash_fwd_init()
+    if err != 0:
+        raise RuntimeError(f"flash_fwd_init failed: cudaError_t {err}")
     return lib
 
 
@@ -178,7 +187,8 @@ def _check_kernel_inputs(q, k, v):
     """Raise ValueError for what flash_fwd.cu does not take. The kernel reads
     strided (B, H, L, D) views (the probe's q/k/v are transposes of one
     projection, so no copy is made): only the head dim must be contiguous,
-    and bf16 rows must start on 16-byte boundaries for its vector loads."""
+    and rows must start on 16-byte boundaries. bf16 inputs are read by TMA
+    tensor maps, which also take no broadcast (zero-stride) dim."""
     if not (q.dtype == k.dtype == v.dtype):
         raise ValueError(f"q/k/v dtypes differ: {q.dtype}, {k.dtype}, "
                          f"{v.dtype}")
@@ -202,6 +212,9 @@ def _check_kernel_inputs(q, k, v):
     if b * h > 65535:
         raise ValueError(f"flash_fwd launches one grid row per (b, h): "
                          f"B*H={b * h} exceeds 65535")
+    if q.dtype == torch.bfloat16 and -(-l_q // 128) > 65535:
+        raise ValueError(f"flash_fwd launches one grid column per 128 query "
+                         f"rows: L_q={l_q} needs more than 65535")
     vec = 16 // q.element_size()
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(3) != 1:
@@ -211,6 +224,12 @@ def _check_kernel_inputs(q, k, v):
             raise ValueError(f"{name} rows must start on 16-byte boundaries, "
                              f"got strides {t.stride()} at offset "
                              f"{t.data_ptr() % 16}")
+        if t.dtype != torch.bfloat16:
+            continue
+        if any(s == 0 and n > 1 for s, n in zip(t.stride(), t.shape)):
+            raise ValueError(f"{name} is a broadcast view (strides "
+                             f"{t.stride()}, shape {tuple(t.shape)}), which a "
+                             f"TMA tensor map cannot read")
 
 
 def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -248,7 +267,7 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            if return_lse else None)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _library().flash_fwd(
+        err = _library(q.device.index).flash_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr() if return_lse else None,
             _KERNEL_DTYPES[q.dtype], b, h, h_kv, l_q, l_k, d,

@@ -160,6 +160,33 @@ def test_kernel_input_checks(mutate, match):
         tfa._check_kernel_inputs(*mutate(q, k, v))
 
 
+@pytest.mark.parametrize("mutate, match", [
+    (lambda q, k, v: (q, k[:, :, :1].expand(-1, -1, 64, -1), v), "broadcast"),
+    (lambda q, k, v: (q, k, v[:, :1].expand(-1, 4, -1, -1)), "broadcast"),
+    (lambda q, k, v: (torch.zeros(1, 1, 1, 64, dtype=q.dtype)
+                      .expand(1, 1, 128 * 65535 + 1, 64), k[:1, :1], v[:1, :1]),
+     "grid column per 128 query rows"),
+    (lambda q, k, v: (torch.randn(2, 4, 64, 72, dtype=q.dtype)[..., 1:65], k, v),
+     "16-byte"),
+    (lambda q, k, v: (q, torch.randn(2, 4, 64, 68, dtype=q.dtype)[..., :64], v),
+     "16-byte"),
+])
+def test_kernel_input_checks_for_tma(mutate, match):
+    """bf16 q/k/v are read by TMA tensor maps: a 16-byte-aligned base and
+    16-byte-multiple strides, no broadcast dim, and no more than 65535
+    tiles of 128 query rows."""
+    q, k, v = (torch.randn(2, 4, 64, 64, dtype=torch.bfloat16)
+               for _ in range(3))
+    with pytest.raises(ValueError, match=match):
+        tfa._check_kernel_inputs(*mutate(q, k, v))
+
+
+def test_tma_rules_leave_f32_alone():
+    # f32 takes the scalar path, which reads a broadcast view by its strides.
+    q, k, v = (torch.randn(2, 4, 64, 64) for _ in range(3))
+    tfa._check_kernel_inputs(q, k[:, :, :1].expand(-1, -1, 64, -1), v)
+
+
 def test_kernel_input_checks_accept_probe_views():
     # The probe's q/k/v are head-split transposes of one projection; the
     # kernel reads them strided, without a copy.

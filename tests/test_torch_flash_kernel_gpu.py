@@ -32,6 +32,19 @@ CASES = {
     "softcap_lse": (1, 2, 2, 130, 130, 32, dict(causal=True, softcap=5.0, return_lse=True)),
     "decode_offset": (1, 4, 1, 7, 190, 64, dict(causal=True, window=63, return_lse=True)),
     "non_causal_cross": (2, 2, 2, 65, 129, 128, dict(causal=False)),
+    # The edges of 128-row q tiles and 128-key k tiles.
+    "ragged_129": (1, 2, 2, 129, 129, 128, dict(causal=True, return_lse=True)),
+    "ragged_1000": (1, 2, 2, 1000, 1000, 64, dict(causal=True)),
+    "cross_1_of_300": (2, 2, 2, 1, 300, 128, dict(causal=True, return_lse=True)),
+    "cross_100_of_300": (2, 2, 2, 100, 300, 128, dict(causal=True, return_lse=True)),
+    "window_17": (1, 2, 2, 400, 400, 128, dict(causal=True, window=17, return_lse=True)),
+    "window_127": (1, 2, 2, 400, 400, 128, dict(causal=True, window=127)),
+    "window_128": (1, 2, 2, 400, 400, 128, dict(causal=True, window=128)),
+    "window_129": (1, 2, 2, 400, 400, 128, dict(causal=True, window=129)),
+    "window_200_sinks_130": (1, 2, 2, 500, 500, 128, dict(causal=True, window=200, sinks=130, return_lse=True)),
+    "gqa_group_8": (1, 8, 1, 300, 300, 128, dict(causal=True)),
+    "softcap_lse_d128": (1, 2, 2, 300, 300, 128, dict(causal=True, softcap=20.0, return_lse=True)),
+    "negative_scale": (1, 2, 2, 200, 200, 64, dict(causal=True, scale=-0.1, return_lse=True)),
 }
 
 
@@ -57,6 +70,21 @@ def test_kernel_matches_plain(cuda, case, dtype):
     # bf16: output ulp plus P rounded to bf16 before P·V; f32: sum order.
     tol = dict(atol=2e-2, rtol=1e-2) if dtype == torch.bfloat16 else dict(atol=1e-4, rtol=1e-4)
     torch.testing.assert_close(got, want, **tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_repeated_calls_are_bit_equal(cuda, dtype):
+    # No atomics and a fixed order of k tiles: the same inputs give the
+    # same bits, lse included.
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    q, k, v = (torch.randn(2, 4, 300, 128, generator=gen, device=cuda).to(dtype)
+               for _ in range(3))
+    kw = dict(causal=True, window=129, sinks=3, return_lse=True)
+    first = flash_attention_kernel(q, k, v, **kw)
+    for _ in range(3):
+        again = flash_attention_kernel(q, k, v, **kw)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
 
 
 def test_kernel_refuses_unsupported_head_dim(cuda):

@@ -75,3 +75,32 @@ def test_missing_nvcc_names_the_command(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "_nvcc", lambda: "/nonexistent/bin/nvcc")
     with pytest.raises(RuntimeError, match="/nonexistent/bin/nvcc .*sm_90a"):
         _build.build(["flash_fwd"])
+
+
+def test_library_path_hashes_only_the_headers_a_source_includes(monkeypatch, tmp_path):
+    """Editing a header rebuilds the libraries that include it, directly or
+    through another header, and no other."""
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    (tmp_path / "a.cu").write_text('#include <cuda_runtime.h>\n#include "x.cuh"\n')
+    (tmp_path / "b.cu").write_text('#include "y.cuh"\n')
+    (tmp_path / "c.cu").write_text("// includes nothing local\n")
+    (tmp_path / "x.cuh").write_text('#pragma once\n  #  include "z.cuh"\n')
+    (tmp_path / "y.cuh").write_text("#pragma once\n")
+    (tmp_path / "z.cuh").write_text("#pragma once\n")
+    assert [p.name for p in _build.sources("a")] == ["a.cu", "x.cuh", "z.cuh"]
+    before = {name: _build.library_path(name) for name in "abc"}
+
+    (tmp_path / "z.cuh").write_text("#pragma once\n// edited\n")
+    after = {name: _build.library_path(name) for name in "abc"}
+    assert after["a"] != before["a"]  # through x.cuh
+    assert after["b"] == before["b"] and after["c"] == before["c"]
+
+    (tmp_path / "y.cuh").write_text("#pragma once\n// edited\n")
+    assert _build.library_path("b") != before["b"]
+    assert _build.library_path("a") == after["a"]
+    assert _build.library_path("c") == before["c"]
+
+
+def test_flash_fwd_hashes_the_hopper_header():
+    assert {p.name for p in _build.sources("flash_fwd")} == {"flash_fwd.cu", "hopper.cuh"}
+    assert {p.name for p in _build.sources("flash_bwd")} == {"flash_bwd.cu"}
