@@ -7,10 +7,12 @@ Phases, each raising on failure (any failure exits non-zero):
 1. build every kernel of the port (each ``gpumounter_tpu_torch/ops/csrc/*.cu``)
    with nvcc (sm_90a), all at once, and print the card's name and power
    limit, and the registers and spills that ptxas reports for each
-   instance of ``flash_fwd.cu``;
+   instance of ``flash_fwd.cu`` and ``flash_bwd.cu`` (failing on a warning
+   that their wgmma structure broke);
 2. hold each kernel against its plain PyTorch version on the card, case by
    case, with the tolerance stated beside each (``flash_fwd``, then
-   ``flash_decode``, then the two backward kernels of ``flash_bwd``);
+   ``flash_decode``, then the two backward kernels of ``flash_bwd``, whose
+   reruns must also be bit-equal);
 3. run the main paths at full width (the config of the repo's train-step
    bench: vocab 2048, d_model 1024, 8 heads of 128, 2 layers, d_ff 4096,
    rope, bf16, max_len 2048), each with the launch counts set to 0 just
@@ -30,7 +32,9 @@ Phases, each raising on failure (any failure exits non-zero):
    computes the same function (kernels and library calls as device time by
    replaying a CUDA graph of 20 calls, and ``flash_fwd`` and SDPA also
    eagerly per call), the forward, the prefill and the decode loop, and the
-   train step split into forward, backward and update, with CUDA events.
+   train step split into forward, backward and update, with CUDA events;
+   the backward kernels also with GQA H_kv 2 and window 255; and print the
+   slowest device kernels of one SGD step from ``torch.profiler``.
 
 The last lines are a JSON object per kernel (``{"kernels": [...]}``) and
 ``{"ok": true, "device": {...}}``. Needs a CUDA card; imports no JAX.
@@ -149,18 +153,18 @@ def _attention_bound_ms(b, h, l_q, l_k, d, itemsize, causal=True, h_kv=None, win
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes", flops
 
 
-def _bwd_bound_ms(b, h, h_kv, l_q, l_k, d, itemsize, products, n_out, causal=True):
+def _bwd_bound_ms(b, h, h_kv, l_q, l_k, d, itemsize, products, n_out, causal=True, window=None):
     """Least time for one backward kernel: `products` products of 2·D
     operations per attended (query, key) pair (dq: S, dP, dQ; dk/dv: S, dP,
     dV, dK) against q, do, k, v, lse and Δ read once and its n_out
-    outputs (dq: (B, H, L_q, D); dk, dv: (B, H_kv, L_k, D)) written once."""
-    pairs = l_q * (2 * l_k - l_q + 1) // 2 if causal else l_q * l_k
-    flops = 2 * products * d * b * h * pairs
+    outputs (dq: (B, H, L_q, D); dk, dv: (B, H_kv, L_k, D)) written once.
+    Returns (ms, what bounds it, the operations)."""
+    flops = 2 * products * d * b * h * _attention_pairs(l_q, l_k, causal, window)
     out_rows = b * h * l_q if n_out == 1 else 2 * b * h_kv * l_k
     nbytes = (itemsize * d * (2 * b * h * l_q + 2 * b * h_kv * l_k + out_rows)
               + 4 * 2 * b * h * l_q)
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S
-    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes", flops
 
 
 def _decode_bound_ms(b, h, h_kv, l_q, n, d, itemsize):
@@ -220,9 +224,17 @@ def _check_close(name, got, want, tol):
     return err
 
 
-_PTXAS_ENTRY = re.compile(r"Compiling entry function '\S*?(flash_fwd_[a-z0-9]+_kernel)I(\w*?)EEv")
+# A mangled kernel name: its length, then e.g. flash_bwd_dkv_kernel, then
+# the template arguments (the anonymous namespace's own name also holds
+# "flash_bwd_", after an underscore, not a digit).
+_PTXAS_ENTRY = re.compile(r"Compiling entry function '\S*?\d(flash_(?:fwd|bwd)_[a-z0-9_]+?_kernel)I(\w*?)EEv")
 _PTXAS_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
 _PTXAS_REGS = re.compile(r"Used (\d+) registers")
+# Warnings that mean the warp-specialised structure or the accumulator
+# fences broke: ptxas dropped the register reallocation, or made the
+# asynchronous products wait for each other.
+_PTXAS_BROKEN = re.compile(r"setmaxnreg ignored|wgmma.*serialized|C7508", re.IGNORECASE)
+PTXAS_REPORTED = ("flash_fwd", "flash_bwd")
 
 
 def _ptxas_lines(log: str) -> list[str]:
@@ -244,24 +256,34 @@ def _ptxas_lines(log: str) -> list[str]:
 
 
 def phase_build(card: str) -> None:
-    """Build every kernel; beside the build, compile flash_fwd.cu once more
-    with ptxas's -v report and print each instance's registers and spills."""
+    """Build every kernel; beside the build, compile the wgmma sources once
+    more with ptxas's -v report and print each instance's registers and
+    spills, and ptxas's other notes. Fails on a warning that the
+    warp-specialised structure broke."""
     print(card, flush=True)
     t0 = time.perf_counter()
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    report_so = _build.BUILD_DIR / "ptxas-report-flash_fwd.so"
-    report = subprocess.Popen(
-        _build.nvcc_command(_build.CSRC / "flash_fwd.cu", report_so) + ["-Xptxas", "-v"],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    reports = {}
+    for name in PTXAS_REPORTED:
+        report_so = _build.BUILD_DIR / f"ptxas-report-{name}.so"
+        reports[name] = (report_so, subprocess.Popen(
+            _build.nvcc_command(_build.CSRC / f"{name}.cu", report_so) + ["-Xptxas", "-v"],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     paths = _build.build(sorted(src.stem for src in _build.CSRC.glob("*.cu")))
     print(f"build: {time.perf_counter() - t0:.1f} s ({', '.join(p.name for p in paths.values())})",
           flush=True)
-    log, _ = report.communicate()
-    report_so.unlink(missing_ok=True)
-    lines = _ptxas_lines(log)
-    if report.returncode != 0 or not lines:
-        raise RuntimeError(f"ptxas report of flash_fwd.cu failed:\n{log[-3000:]}")
-    print("\n".join(lines), flush=True)
+    for name, (report_so, report) in reports.items():
+        log, _ = report.communicate()
+        report_so.unlink(missing_ok=True)
+        lines = _ptxas_lines(log)
+        if report.returncode != 0 or not lines:
+            raise RuntimeError(f"ptxas report of {name}.cu failed:\n{log[-3000:]}")
+        notes = [line.strip() for line in log.splitlines()
+                 if re.search(r"warning|\(C\d+\)", line)]
+        print("\n".join(lines + [f"ptxas note ({name}.cu): {note}" for note in notes]), flush=True)
+        if broken := [note for note in notes if _PTXAS_BROKEN.search(note)]:
+            raise RuntimeError(f"{name}.cu: ptxas warns that the wgmma structure broke: {broken}")
+    print(f"ptxas reports: {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def phase_kernel_vs_plain(gen) -> float:
@@ -433,6 +455,21 @@ def phase_bwd_vs_plain(gen) -> tuple[float, float]:
         ("D=64", (b, h, h, l, l, 64), dict(causal=True), bf16, False),
         ("ragged L=1000", (b, h, h, 1000, 1000, d), dict(causal=True), bf16, False),
         ("non-causal L_q=300 L_k=700 D=64", (2, 4, 4, 300, 700, 64), dict(causal=False), bf16, False),
+        # The edges of the bf16 kernels' tiles: blocks of 128 queries (dq)
+        # and of 64 keys (dk/dv), tiles of 64 rows streamed against them.
+        ("ragged L=129", (b, h, h, 129, 129, d), dict(causal=True), bf16, False),
+        ("ragged L=300", (b, h, h, 300, 300, d), dict(causal=True), bf16, False),
+        ("causal cross-length L_q=1 L_k=300", (b, h, h, 1, 300, d), dict(causal=True), bf16, False),
+        ("causal cross-length L_q=100 L_k=300 + dlse", (b, h, h, 100, 300, d), dict(causal=True), bf16, True),
+        *[(f"window {w} L=1000", (b, h, h, 1000, 1000, d), dict(causal=True, window=w), bf16, False)
+          for w in (17, 127, 128, 129)],
+        ("window 200 + sinks 130 L=1000", (b, h, h, 1000, 1000, d), dict(causal=True, window=200, sinks=130),
+         bf16, False),
+        ("window 50 + sinks 70 L=1000 D=64", (b, h, h, 1000, 1000, 64), dict(causal=True, window=50, sinks=70),
+         bf16, False),
+        ("GQA group 4 L=1000", (b, h, 2, 1000, 1000, d), dict(causal=True), bf16, False),
+        ("GQA group 8 L=1000", (b, h, 1, 1000, 1000, d), dict(causal=True), bf16, False),
+        ("negative scale L=1000 D=64", (b, h, h, 1000, 1000, 64), dict(causal=True, scale=-0.1), bf16, False),
         ("f32 GQA window 17 + sinks 2 L=500 D=64 + dlse", (2, 4, 2, 500, 500, 64),
          dict(causal=True, window=17, sinks=2), f32, True),
     ]
@@ -446,6 +483,9 @@ def phase_bwd_vs_plain(gen) -> tuple[float, float]:
         dlse = rand(cb, ch, lq, dtype=f32) if with_dlse else None
         got = flash_attention_bwd_kernel(q, k, v, o, lse, do, dlse, **kw)
         torch.cuda.synchronize()  # a fault in the kernels surfaces here
+        # No atomics and a fixed order of the group sum: the same bits again.
+        if not all(map(torch.equal, got, flash_attention_bwd_kernel(q, k, v, o, lse, do, dlse, **kw))):
+            raise RuntimeError(f"{name}: a rerun of the backward kernels gave other bits")
         want = attention_bwd_plain(q, k, v, o, lse, do, dlse, **kw)
         rtol = BWD_RTOL_OF_MAX[dtype]
         errs, limits = [], []
@@ -459,7 +499,8 @@ def phase_bwd_vs_plain(gen) -> tuple[float, float]:
             limits.append(limit)
         print(f"case flash_bwd {name}: dq / dk / dv max abs err "
               f"{' / '.join(f'{e:.3g}' for e in errs)} (limits "
-              f"{' / '.join(f'{x:.3g}' for x in limits)} = {rtol} x max |grad|)", flush=True)
+              f"{' / '.join(f'{x:.3g}' for x in limits)} = {rtol} x max |grad|), rerun bit-equal",
+              flush=True)
         if full is None:
             full = (errs[0], max(errs[1:]))
     return full
@@ -675,41 +716,84 @@ def phase_timings(gen, cfg, params, tokens, card) -> dict:
 
 
 def phase_bwd_timings(gen, card) -> dict:
-    """Each backward kernel alone at the full-width shape (device time from
-    graph replays), the whole wrapper eagerly, the plain backward, and
-    SDPA's backward (its forward + backward through autograd, minus its
-    forward): one library time for the pair of kernels."""
+    """Each backward kernel alone (device time from graph replays), the
+    whole wrapper eagerly, the plain backward, and SDPA's backward (its
+    forward + backward through autograd, minus its forward, graph-replayed
+    and eagerly): one library time for the pair of kernels. At the
+    full-width shape, then with GQA H_kv 2 and window 255 (SDPA with the
+    band mask). Returns the full-width shape's numbers."""
     b, h, l, d = FULL["B"], FULL["H"], FULL["L"], FULL["D"]
-    q, k, v, do = (torch.randn((b, h, l, d), generator=gen, device="cuda")
-                   .to(torch.bfloat16) for _ in range(4))
-    o, lse = flash_attention_kernel(q, k, v, causal=True, return_lse=True)
-    delta = (do.float() * o.float()).sum(dim=-1)
-    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    band = dict(causal=True, scale=1.0 / math.sqrt(d), window=None, softcap=None, sinks=0)
-    ms = {"dq": _graph_ms([lambda: _bwd_launch("dq", q, k, v, do, lse, delta, (dq,), **band)]),
-          "dkv": _graph_ms([lambda: _bwd_launch("dkv", q, k, v, do, lse, delta, (dk, dv), **band)])}
-    eager_ms = _time_ms(lambda: flash_attention_bwd_kernel(q, k, v, o, lse, do, causal=True), 10)
-    plain_ms = _time_ms(lambda: attention_bwd_plain(q, k, v, o, lse, do, causal=True), 3, warmup=1)
-    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+    shapes = [  # (name, H_kv, window)
+        (f"B{b} H{h} L{l} D{d} causal", h, None),
+        (f"GQA B{b} H{h} H_kv2 L{l} D{d} window 255", 2, 255),
+    ]
+    out = None
+    for shape, h_kv, window in shapes:
+        q, do = (torch.randn((b, h, l, d), generator=gen, device="cuda").to(torch.bfloat16)
+                 for _ in range(2))
+        k, v = (torch.randn((b, h_kv, l, d), generator=gen, device="cuda").to(torch.bfloat16)
+                for _ in range(2))
+        o, lse = flash_attention_kernel(q, k, v, causal=True, window=window, return_lse=True)
+        delta = (do.float() * o.float()).sum(dim=-1)
+        dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+        band = dict(causal=True, scale=1.0 / math.sqrt(d), window=window, softcap=None, sinks=0)
+        ms = {"dq": _graph_ms([lambda: _bwd_launch("dq", q, k, v, do, lse, delta, (dq,), **band)]),
+              "dkv": _graph_ms([lambda: _bwd_launch("dkv", q, k, v, do, lse, delta, (dk, dv), **band)])}
+        eager_ms = _time_ms(lambda: flash_attention_bwd_kernel(q, k, v, o, lse, do, causal=True,
+                                                               window=window), 10)
+        plain_ms = _time_ms(lambda: attention_bwd_plain(q, k, v, o, lse, do, causal=True, window=window),
+                            3, warmup=1)
+        qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+        if window is None:
+            def sdpa():
+                return F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+        else:
+            mask = _band_mask(l, l, window, 0, "cuda")
 
-    def sdpa():
-        return F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+            def sdpa():
+                return F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask, enable_gqa=True)
 
-    sdpa_both_ms = _time_ms(lambda: torch.autograd.grad(sdpa(), (qg, kg, vg), do), 20)
-    sdpa_fwd_ms = _time_ms(sdpa, 20)
-    library_ms = sdpa_both_ms - sdpa_fwd_ms
-    out = {}
-    for name, products, n_out in (("dq", 3, 1), ("dkv", 4, 2)):
-        bound_ms, bound_by = _bwd_bound_ms(b, h, h, l, l, d, 2, products, n_out)
-        print(f"time flash_bwd_{name} B{b} H{h} L{l} D{d} causal bf16, device (graph-replayed): "
-              f"kernel {ms[name]:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) [{card}]", flush=True)
-        out[name] = dict(ms=ms[name], plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                         library_ms=library_ms)
-    print(f"time backward B{b} H{h} L{l} D{d} causal bf16: wrapper (Δ + both kernels) eager "
-          f"{eager_ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa backward {library_ms:.4f} ms "
-          f"(forward + backward {sdpa_both_ms:.4f} ms − forward {sdpa_fwd_ms:.4f} ms) [{card}]",
-          flush=True)
+        def sdpa_both():
+            return torch.autograd.grad(sdpa(), (qg, kg, vg), do)
+
+        sdpa_both_ms, sdpa_fwd_ms = _graph_ms([sdpa_both]), _graph_ms([sdpa])
+        library_ms = sdpa_both_ms - sdpa_fwd_ms
+        eager_library_ms = _time_ms(sdpa_both, 20) - _time_ms(sdpa, 20)
+        times = {}
+        for name, products, n_out in (("dq", 3, 1), ("dkv", 4, 2)):
+            bound_ms, bound_by, flops = _bwd_bound_ms(b, h, h_kv, l, l, d, 2, products, n_out, window=window)
+            print(f"time flash_bwd_{name} {shape} bf16, device (graph-replayed): kernel "
+                  f"{ms[name]:.4f} ms ({flops / ms[name] / 1e9:.1f} TFLOP/s, {bound_ms / ms[name]:.1%} "
+                  f"of bound {bound_ms:.4f} ms, {bound_by}) [{card}]", flush=True)
+            times[name] = dict(ms=ms[name], plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                               library_ms=library_ms)
+        print(f"time backward {shape} bf16: dq + dk/dv {ms['dq'] + ms['dkv']:.4f} ms, wrapper "
+              f"(Δ + both kernels) eager {eager_ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa backward, "
+              f"device (graph-replayed) {library_ms:.4f} ms (forward + backward {sdpa_both_ms:.4f} ms − "
+              f"forward {sdpa_fwd_ms:.4f} ms), eager {eager_library_ms:.4f} ms [{card}]", flush=True)
+        out = out or times
+        del q, k, v, do, o, lse, delta, dq, dk, dv, qg, kg, vg
     return out
+
+
+def phase_train_profile(cfg, params, tokens, card, top: int = 15) -> None:
+    """The device kernels of one SGD step by torch.profiler: name, calls
+    and device ms of the `top` slowest, and their sum. Printed only."""
+    step = make_train_step(cfg, TRAIN["LR"])
+    step(params, tokens)
+    torch.cuda.synchronize()
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        step(params, tokens)
+        torch.cuda.synchronize()
+    kernels = sorted(((evt.self_device_time_total / 1e3, evt.count, evt.key) for evt in prof.key_averages()
+                      if evt.device_type == torch.autograd.DeviceType.CUDA and evt.self_device_time_total > 0),
+                     reverse=True)
+    total = sum(ms for ms, _, _ in kernels)
+    print(f"profile of one SGD step B{tokens.shape[0]} L{tokens.shape[1]}: {len(kernels)} device kernels, "
+          f"{total:.3f} ms of device time in all [{card}]", flush=True)
+    for ms, calls, name in kernels[:top]:
+        print(f"profile kernel {ms:.4f} ms, {calls} calls: {name[:140]}", flush=True)
 
 
 def phase_train_timings(cfg, params, tokens, card) -> None:
@@ -826,6 +910,7 @@ def main() -> int:
     times = phase_timings(gen, cfg, params, batches[0], card)
     bwd_times = phase_bwd_timings(gen, card)
     phase_train_timings(cfg, params, batches[0], card)
+    phase_train_profile(cfg, params, batches[0], card)
     decode_times = phase_decode_timings(gen, card)
     phase_serving_timings(cfg, params, prompt, graph_step_ms, card)
 

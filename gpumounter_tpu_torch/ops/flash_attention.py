@@ -326,10 +326,13 @@ def _check_bwd_inputs(q, k, v, o, lse, do, dlse):
 
 def _kernel_layout(t: torch.Tensor) -> torch.Tensor:
     """t itself when the kernel can read it strided, else a contiguous
-    copy: autograd decides the layout of an incoming gradient."""
+    copy: autograd decides the layout of an incoming gradient, which may be
+    a broadcast view (``w.expand_as(o)`` handed in as the gradient, or that
+    of ``o.sum()``) that a TMA tensor map cannot read."""
     vec = 16 // t.element_size()
     if (t.stride(3) == 1 and t.data_ptr() % 16 == 0
-            and not any(s % vec for s in t.stride()[:3])):
+            and not any(s % vec for s in t.stride()[:3])
+            and not any(s == 0 and n > 1 for s, n in zip(t.stride(), t.shape))):
         return t
     return t.contiguous()
 

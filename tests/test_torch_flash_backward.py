@@ -225,3 +225,21 @@ def test_kernel_layout_copies_only_what_the_kernel_cannot_read():
     odd = torch.randn(2, 4, 32, 64, dtype=torch.bfloat16).transpose(2, 3)
     fixed = tfa._kernel_layout(odd)
     assert fixed.is_contiguous() and torch.equal(fixed, odd)
+
+
+@pytest.mark.parametrize("shape", [(64, 32), (1, 4, 64, 32), (2, 1, 1, 32)])
+def test_kernel_layout_copies_a_broadcast_gradient(shape):
+    """A gradient handed in as w.expand_as(o) keeps w's zero strides, which
+    a TMA tensor map cannot read, so it comes back as a contiguous copy.
+    A zero stride on a dim of extent 1 is never stepped
+    along, and the probe's head-split transpose is read in place: both
+    come back as themselves."""
+    w = torch.randn(shape, dtype=torch.bfloat16)
+    do = w.expand(2, 4, 64, 32)
+    assert 0 in do.stride()
+    fixed = tfa._kernel_layout(do)
+    assert fixed.is_contiguous() and torch.equal(fixed, do)
+    lone = torch.randn(4, 64, 32, dtype=torch.bfloat16).as_strided((1, 4, 64, 32), (0, 64 * 32, 32, 1))
+    assert tfa._kernel_layout(lone) is lone
+    split = torch.randn(2, 64, 4 * 32, dtype=torch.bfloat16).reshape(2, 64, 4, 32).transpose(1, 2)
+    assert tfa._kernel_layout(split) is split

@@ -31,6 +31,24 @@ CASES = {
     "gqa_window_sinks_softcap": (2, 4, 2, 300, 300, 64,
                                  dict(causal=True, window=40, sinks=3, softcap=5.0), False),
     "decode_offset_dlse": (1, 4, 1, 70, 190, 32, dict(causal=True, window=63), True),
+    # The edges of the bf16 kernels' tiles: blocks of 128 queries (dq) and
+    # of 64 keys (dk/dv), tiles of 64 rows streamed against them.
+    "ragged_1000": (1, 2, 2, 1000, 1000, 64, dict(causal=True), False),
+    "ragged_300": (2, 2, 2, 300, 300, 128, dict(causal=True), False),
+    "cross_100_of_300_dlse": (2, 2, 2, 100, 300, 128, dict(causal=True), True),
+    "cross_1_of_300": (2, 2, 2, 1, 300, 128, dict(causal=True), False),
+    "non_causal_cross": (2, 2, 2, 65, 129, 128, dict(causal=False), False),
+    "window_17": (1, 2, 2, 400, 400, 128, dict(causal=True, window=17), False),
+    "window_127": (1, 2, 2, 400, 400, 128, dict(causal=True, window=127), False),
+    "window_128": (1, 2, 2, 400, 400, 128, dict(causal=True, window=128), False),
+    "window_129": (1, 2, 2, 400, 400, 128, dict(causal=True, window=129), False),
+    "window_200_sinks_130": (1, 2, 2, 500, 500, 128, dict(causal=True, window=200, sinks=130), False),
+    "window_50_sinks_70_d64": (1, 2, 2, 400, 400, 64, dict(causal=True, window=50, sinks=70), False),
+    "gqa_group_4": (1, 8, 2, 300, 300, 128, dict(causal=True), False),
+    "gqa_group_8": (1, 8, 1, 300, 300, 128, dict(causal=True), False),
+    "d32": (2, 2, 2, 200, 200, 32, dict(causal=True), False),
+    "softcap_d128": (1, 2, 2, 300, 300, 128, dict(causal=True, softcap=20.0), False),
+    "negative_scale": (1, 2, 2, 200, 200, 64, dict(causal=True, scale=-0.1), False),
 }
 # Share of each gradient's max |value|. bf16: one rounding of the output
 # and of p and ds before their products (as the TPU kernel does), where the
@@ -79,6 +97,30 @@ def test_autograd_through_the_public_entry_launches_both_kernels(cuda):
     torch.autograd.backward(flash_attention(q, k, v), do)
     assert flash_attention_bwd_kernel.dq_launches == before + 1
     assert all(t.grad is not None and torch.isfinite(t.grad).all() for t in (q, k, v))
+
+
+@pytest.mark.parametrize("form", ["expanded_w", "sum"])
+def test_broadcast_output_gradient(cuda, form):
+    """A broadcast gradient of o (w (L, D) handed in as w.expand_as(o), or
+    the all-zero strides of o.sum()'s) cannot be read by a TMA tensor map:
+    the wrapper copies it, and the grads match the plain backward."""
+    (q, k, v, o, lse, do, _), kw = _inputs("causal", torch.bfloat16, cuda)
+    do = do[0, 0] if form == "expanded_w" else torch.ones((), dtype=do.dtype, device=cuda)
+    do = do.expand_as(o)
+    assert do.stride(0) == 0
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = flash_attention(*leaves, **kw)
+    before = flash_attention_bwd_kernel.dq_launches
+    if form == "sum":
+        got = torch.autograd.grad(out.sum(), leaves)
+    else:
+        got = torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd_kernel.dq_launches == before + 1
+    want = attention_bwd_plain(q, k, v, o, lse, do, **kw)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want, strict=True):
+        err = (g.float() - w.float()).abs().max().item()
+        assert err <= RTOL_OF_MAX[torch.bfloat16] * w.float().abs().max().item(), (name, err)
 
 
 def test_head_dim_4_raises(cuda):
