@@ -7,11 +7,12 @@ Phases, each raising on failure (any failure exits non-zero):
 1. build every kernel of the port (each ``gpumounter_tpu_torch/ops/csrc/*.cu``)
    with nvcc (sm_90a), all at once, and print the card's name and power
    limit, and the registers and spills that ptxas reports for each
-   instance of ``flash_fwd.cu`` and ``flash_bwd.cu`` (failing on a warning
-   that their wgmma structure broke);
+   instance of ``flash_fwd.cu``, ``flash_bwd.cu`` and ``flash_decode.cu``
+   (failing on a warning that their wgmma structure broke, or on a spill in
+   a wgmma instance);
 2. hold each kernel against its plain PyTorch version on the card, case by
    case, with the tolerance stated beside each (``flash_fwd``, then
-   ``flash_decode``, then the two backward kernels of ``flash_bwd``, whose
+   ``flash_decode`` and the two backward kernels of ``flash_bwd``, whose
    reruns must also be bit-equal);
 3. run the main paths at full width (the config of the repo's train-step
    bench: vocab 2048, d_model 1024, 8 heads of 128, 2 layers, d_ff 4096,
@@ -33,8 +34,10 @@ Phases, each raising on failure (any failure exits non-zero):
    replaying a CUDA graph of 20 calls, and ``flash_fwd`` and SDPA also
    eagerly per call), the forward, the prefill and the decode loop, and the
    train step split into forward, backward and update, with CUDA events;
-   the backward kernels also with GQA H_kv 2 and window 255; and print the
-   slowest device kernels of one SGD step from ``torch.profiler``.
+   the backward kernels also with GQA H_kv 2 and window 255, ``flash_decode``
+   also at a GQA shape (H 32, H_kv 4) with its achieved TB/s and the device
+   time of its split kernel and of its merge from ``torch.profiler``; and
+   print the slowest device kernels of one SGD step from ``torch.profiler``.
 
 The last lines are a JSON object per kernel (``{"kernels": [...]}``) and
 ``{"ok": true, "device": {...}}``. Needs a CUDA card; imports no JAX.
@@ -83,6 +86,12 @@ FULL = dict(B=4, H=8, L=2048, D=128)
 # before P·V (as the TPU kernel does) where the plain version keeps f32.
 BF16_TOL = dict(atol=2e-2, rtol=1e-2)
 F32_TOL = dict(atol=1e-4, rtol=1e-4)
+# A decode output averages up to 32768 unit-normal V rows, so |o| can be far
+# below BF16_TOL's atol: the bf16 cases are held to DECODE_ULPS_OF_MAX ulps
+# (2^-8) of the output's max |value| instead, never looser than BF16_TOL.
+# Then one 64-key tile left out of 32768 keys fails (checked on the CPU with
+# the plain version: 251 of 4096 outputs beyond the limit).
+DECODE_ULPS_OF_MAX = 4
 LSE_ATOL = 1e-4  # lse is f32 from f32 scores on both sides
 # Logits of the full forward: attention outputs that differ by ~1 bf16 ulp
 # pass through two layers of bf16 matmuls and residual adds.
@@ -92,8 +101,9 @@ NLL_ABOVE_UNIFORM = 0.5
 # Serving at full width: prompts of 1536 tokens, decoding up to max_len.
 SERVE = dict(B=4, T0=1536, N_NEW=512, N_SAMPLED=64)
 # Decode timings: the repo's decode bench shape (bench_flash_features.py:289)
-# at three valid lengths, and the serving shape.
+# at three valid lengths, a GQA decode shape (group 8), and the serving shape.
 DECODE_BENCH = dict(B=4, H=8, L_Q=8, D=128, L_MAX=32768, LENS=(1024, 8192, 32768))
+DECODE_GQA = dict(H=32, H_KV=4, L_Q=1, L_MAX=32768, LEN=8192)
 L2_COPIES = 4  # inputs cycled so that a timed launch finds its K/V outside L2
 # Backward kernels against attention_bwd_plain, as a share of each gradient's
 # max |value|. bf16: each gradient is rounded once to bf16 from f32
@@ -170,12 +180,13 @@ def _bwd_bound_ms(b, h, h_kv, l_q, l_k, d, itemsize, products, n_out, causal=Tru
 def _decode_bound_ms(b, h, h_kv, l_q, n, d, itemsize):
     """Least time for decode attention at valid length n (no window): the
     valid K/V region read once plus q and o, against 4·D operations per
-    attended (query, key) pair — row i of l_q attends n − l_q + 1 + i keys."""
+    attended (query, key) pair — row i of l_q attends n − l_q + 1 + i keys.
+    Returns (ms, what bounds it, the bytes)."""
     pairs = l_q * (n - l_q + 1) + l_q * (l_q - 1) // 2
     flops = 4 * d * b * h * pairs
     nbytes = itemsize * d * (2 * b * h_kv * n + 2 * b * h * l_q)
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S
-    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes", nbytes
 
 
 def _cycle(fns):
@@ -212,6 +223,24 @@ def _graph_ms(fns, calls: int = 20, replays: int = 5) -> float:
     return _time_ms(graph.replay, replays, warmup=1) / calls
 
 
+def _profile_ms(fn, calls: int, names) -> dict:
+    """Device ms a call of fn() spends in the kernels whose names hold each
+    of `names`, by torch.profiler over `calls` calls."""
+    fn()
+    torch.cuda.synchronize()
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = dict.fromkeys(names, 0.0)
+    for evt in prof.key_averages():
+        for name in names:
+            if evt.device_type == torch.autograd.DeviceType.CUDA and name in evt.key:
+                out[name] += evt.self_device_time_total / 1e3 / calls
+    return out
+
+
 def _check_close(name, got, want, tol):
     """Raise unless |got − want| <= atol + rtol·|want| everywhere and got is
     finite; returns the max abs error."""
@@ -227,14 +256,16 @@ def _check_close(name, got, want, tol):
 # A mangled kernel name: its length, then e.g. flash_bwd_dkv_kernel, then
 # the template arguments (the anonymous namespace's own name also holds
 # "flash_bwd_", after an underscore, not a digit).
-_PTXAS_ENTRY = re.compile(r"Compiling entry function '\S*?\d(flash_(?:fwd|bwd)_[a-z0-9_]+?_kernel)I(\w*?)EEv")
+_PTXAS_ENTRY = re.compile(r"Compiling entry function '\S*?\d(flash_(?:fwd|bwd|decode)_[a-z0-9_]+?_kernel)I(\w*?)EEv")
 _PTXAS_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
 _PTXAS_REGS = re.compile(r"Used (\d+) registers")
 # Warnings that mean the warp-specialised structure or the accumulator
 # fences broke: ptxas dropped the register reallocation, or made the
 # asynchronous products wait for each other.
 _PTXAS_BROKEN = re.compile(r"setmaxnreg ignored|wgmma.*serialized|C7508", re.IGNORECASE)
-PTXAS_REPORTED = ("flash_fwd", "flash_bwd")
+PTXAS_REPORTED = ("flash_fwd", "flash_bwd", "flash_decode")
+# The wgmma instances, which must not spill (the f32 scalar ones may).
+_PTXAS_NO_SPILL = re.compile(r"ptxas (flash_fwd_tc|flash_bwd_dq|flash_bwd_dkv|flash_decode_tc)_kernel<")
 
 
 def _ptxas_lines(log: str) -> list[str]:
@@ -283,6 +314,9 @@ def phase_build(card: str) -> None:
         print("\n".join(lines + [f"ptxas note ({name}.cu): {note}" for note in notes]), flush=True)
         if broken := [note for note in notes if _PTXAS_BROKEN.search(note)]:
             raise RuntimeError(f"{name}.cu: ptxas warns that the wgmma structure broke: {broken}")
+        if spilled := [line for line in lines if _PTXAS_NO_SPILL.match(line)
+                       and not line.endswith("spill stores 0 B, spill loads 0 B")]:
+            raise RuntimeError(f"{name}.cu: wgmma instances spill: {spilled}")
     print(f"ptxas reports: {time.perf_counter() - t0:.1f} s", flush=True)
 
 
@@ -388,7 +422,8 @@ def phase_main_path(cfg, params, batches) -> int:
 def phase_decode_vs_plain(gen) -> float:
     """flash_decode against flash_decode_plain, case by case; the length
     goes in as a CUDA int32 tensor and as an int, which must agree
-    exactly. Returns the max abs error of the serving case at 2048."""
+    exactly, and a rerun must give the same bits. Returns the max abs
+    error of the serving case at 2048."""
 
     def rand(*shape, dtype=torch.bfloat16):
         return torch.randn(shape, generator=gen, device="cuda").to(dtype)
@@ -409,6 +444,16 @@ def phase_decode_vs_plain(gen) -> float:
         ("D 64", (b, h, h, 1, 2048, 64), 1537, {}, torch.bfloat16, None),
         ("f32 GQA l_q 4 window 100 + sinks 3 D 64", (2, 8, 2, 4, 700, 64), 650,
          dict(window=100, sinks=3), torch.float32, None),
+        # One block's 64 rows, then beyond them (two row chunks).
+        ("GQA group 8 l_q 8 = 64 rows", (b, h, 1, 8, 2048, d), 1537, {}, torch.bfloat16, None),
+        ("MQA H16 l_q 8 = 128 rows window 100 + sinks 4", (b, 16, 1, 8, 2048, d), 1537,
+         dict(window=100, sinks=4), torch.bfloat16, None),
+        ("f32 MQA H16 l_q 8 = 128 rows window 100 + sinks 3 D 64", (2, 16, 1, 8, 700, 64), 650,
+         dict(window=100, sinks=3), torch.float32, None),
+        # A length inside a 64-key tile: the tile's NaN slots arrive by TMA.
+        ("NaN tail past len 1001", serve, 1001, {}, torch.bfloat16, float("nan")),
+        ("bench shape len = L_max 32768", (b, h, h, DECODE_BENCH["L_Q"], DECODE_BENCH["L_MAX"], d),
+         DECODE_BENCH["L_MAX"], {}, torch.bfloat16, None),
     ]
     serve_err = None
     for name, (cb, ch, chk, lq, lmax, cd), n, kw, dtype, tail in cases:
@@ -423,11 +468,16 @@ def phase_decode_vs_plain(gen) -> float:
         by_int = flash_decode_kernel(q, k, v, n, **kw)
         if not torch.equal(got, by_int):
             raise RuntimeError(f"{name}: length as a tensor and as an int disagree")
-        tol = BF16_TOL if dtype == torch.bfloat16 else F32_TOL
-        err = _check_close(f"{name}: kernel vs plain", got,
-                           flash_decode_plain(q, k, v, n, **kw), tol)
-        print(f"case flash_decode {name}: max abs err {err:.3g} (atol {tol['atol']}, "
-              f"rtol {tol['rtol']}), tensor and int length equal", flush=True)
+        if not torch.equal(got, flash_decode_kernel(q, k, v, n, **kw)):
+            raise RuntimeError(f"{name}: a rerun gave other bits")
+        want = flash_decode_plain(q, k, v, n, **kw)
+        tol = F32_TOL
+        if dtype == torch.bfloat16:
+            of_max = DECODE_ULPS_OF_MAX * 2**-8 * want.float().abs().max().item()
+            tol = dict(BF16_TOL, atol=min(BF16_TOL["atol"], of_max))
+        err = _check_close(f"{name}: kernel vs plain", got, want, tol)
+        print(f"case flash_decode {name}: max abs err {err:.3g} (atol {tol['atol']:.3g}, "
+              f"rtol {tol['rtol']}), tensor and int length equal, rerun bit-equal", flush=True)
         if serve_err is None:
             serve_err = err
     return serve_err
@@ -826,34 +876,45 @@ def phase_train_timings(cfg, params, tokens, card) -> None:
 
 def phase_decode_timings(gen, card) -> dict:
     """flash_decode, its plain version and SDPA on the cache sliced to the
-    length, at the decode bench shape and the serving shape; each input
-    set cycled L2_COPIES times so the K/V come from device memory. Returns
-    the serving shape's numbers."""
-    b, h, d = FULL["B"], FULL["H"], FULL["D"]
-    shapes = [(DECODE_BENCH["L_Q"], DECODE_BENCH["L_MAX"], DECODE_BENCH["LENS"]),
-              (1, FULL["L"], (FULL["L"],))]
-    out = {}
-    for l_q, l_max, lens in shapes:
+    length (``enable_gqa`` for a GQA shape), at the decode bench shape, a
+    GQA shape and the serving shape, with the kernel's achieved TB/s and
+    share of its bound, and the device time of its two kernels (the split
+    kernel, the merge) by torch.profiler; each input set cycled L2_COPIES
+    times so the K/V come from device memory. Returns the serving shape's
+    numbers."""
+    b, d = FULL["B"], FULL["D"]
+    shapes = [  # (H, H_kv, l_q, L_max, lengths)
+        (FULL["H"], FULL["H"], DECODE_BENCH["L_Q"], DECODE_BENCH["L_MAX"], DECODE_BENCH["LENS"]),
+        (DECODE_GQA["H"], DECODE_GQA["H_KV"], DECODE_GQA["L_Q"], DECODE_GQA["L_MAX"], (DECODE_GQA["LEN"],)),
+        (FULL["H"], FULL["H"], 1, FULL["L"], (FULL["L"],)),
+    ]
+    out = None
+    for h, h_kv, l_q, l_max, lens in shapes:
         sets = [[torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
-                 for shape in ((b, h, l_q, d), (b, h, l_max, d), (b, h, l_max, d))]
+                 for shape in ((b, h, l_q, d), (b, h_kv, l_max, d), (b, h_kv, l_max, d))]
                 for _ in range(L2_COPIES)]
         for n in lens:
             length = torch.tensor([n], dtype=torch.int32, device="cuda")
             mask = causal_lower_right(l_q, n) if l_q > 1 else None
             kernel = [lambda s=s: flash_decode_kernel(*s, length) for s in sets]
             library = [lambda s=s: F.scaled_dot_product_attention(
-                s[0], s[1][:, :, :n], s[2][:, :, :n], attn_mask=mask) for s in sets]
+                s[0], s[1][:, :, :n], s[2][:, :, :n], attn_mask=mask, enable_gqa=h != h_kv)
+                for s in sets]
             ms = _graph_ms(kernel)
             plain_ms = _graph_ms([lambda s=s: flash_decode_plain(*s, length) for s in sets], calls=4)
             library_ms = _graph_ms(library)
             eager_ms = _time_ms(_cycle(kernel), 40)
             eager_library_ms = _time_ms(_cycle(library), 40)
-            bound_ms, bound_by = _decode_bound_ms(b, h, h, l_q, n, d, 2)
-            print(f"time flash_decode B{b} H{h} l_q{l_q} D{d} L_max{l_max} len {n} bf16, "
-                  f"device (graph-replayed): kernel {ms:.4f} ms, bound {bound_ms:.4f} ms "
-                  f"({bound_by}), plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms; "
-                  f"eager per call (host included): kernel {eager_ms:.4f} ms, sdpa "
-                  f"{eager_library_ms:.4f} ms [{card}]", flush=True)
+            split_ms, merge_ms = _profile_ms(_cycle(kernel), 20, ("flash_decode_tc_kernel",
+                                                                  "flash_decode_merge")).values()
+            bound_ms, bound_by, nbytes = _decode_bound_ms(b, h, h_kv, l_q, n, d, 2)
+            print(f"time flash_decode B{b} H{h} H_kv{h_kv} l_q{l_q} D{d} L_max{l_max} len {n} "
+                  f"bf16, device (graph-replayed): kernel {ms:.4f} ms ({nbytes / ms / 1e9:.3f} TB/s, "
+                  f"{bound_ms / ms:.1%} of bound {bound_ms:.4f} ms, {bound_by}), plain "
+                  f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms ({bound_ms / library_ms:.1%} of "
+                  f"bound); eager per call (host included): kernel {eager_ms:.4f} ms, sdpa "
+                  f"{eager_library_ms:.4f} ms; by torch.profiler: split kernel {split_ms:.4f} ms + "
+                  f"merge {merge_ms:.4f} ms [{card}]", flush=True)
             out = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                        library_ms=library_ms)
         del sets

@@ -7,7 +7,9 @@ valid entries is an int32 on the device, so no step reads it on the host:
 the reference compiles once for every length, and here one launch
 configuration (and one captured CUDA graph) serves every length. The
 kernel, ``csrc/flash_decode.cu``, ports the Pallas ``_decode_kernel``;
-``flash_decode_plain`` is the same function written out in PyTorch.
+``flash_decode_plain`` is the same function written out in PyTorch. The
+kernel takes any group·l_q: rows beyond 64 go to further row chunks of its
+grid, each reading the cache once.
 
 The path follows the tensors' device: a CUDA tensor runs the kernel or
 raises ``ValueError`` naming what the kernel does not take, and a CPU
@@ -29,10 +31,11 @@ from gpumounter_tpu_torch.ops import _build
 from gpumounter_tpu_torch.ops.flash_attention import KERNEL_HEAD_DIMS, NEG_INF
 
 _KERNEL_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
-# Keys per shared-memory tile in flash_decode.cu (Layout::BN): the unit in
-# which the wrapper splits the cache across blocks.
+# Keys per shared-memory tile in flash_decode.cu (tc::BN, f32::BN): the
+# unit in which the wrapper splits the cache across blocks.
 _KEYS_PER_TILE = {torch.bfloat16: 64, torch.float32: 32}
-MAX_ROWS = 64  # group · l_q query rows per block, the kernel's limit
+CHUNK_ROWS = 64  # group·l_q query rows per block (CHUNK_ROWS in the kernel)
+GRID_YZ_MAX = 65535  # CUDA's limit on grid y (B·H_kv) and z (row chunks)
 
 
 def _check_decode_args(q, k_cache, window, sinks):
@@ -113,7 +116,7 @@ def _library(device_index: int) -> ctypes.CDLL:
         + [_ll] * 9                # q, k, v strides: batch, head, row
         + [_int] * 2               # window, sinks
         + [_float]                 # scale
-        + [_int]                   # n_splits
+        + [_int] * 2               # n_splits, n_chunks
         + [_ptr])                  # stream
     with torch.cuda.device(device_index):
         err = lib.flash_decode_init()
@@ -124,8 +127,10 @@ def _library(device_index: int) -> ctypes.CDLL:
 
 def _check_kernel_inputs(q, k_cache, v_cache):
     """Raise ValueError for what flash_decode.cu does not take. q may be a
-    strided view with a contiguous head dim; K/V rows must start on 16-byte
-    boundaries for the kernel's 16-byte copies."""
+    strided view with a contiguous head dim. The caches are read by TMA
+    tensor maps (bf16) or 16-byte copies (f32): their base and their batch,
+    head and row strides must be multiples of 16 bytes, and a bf16 cache
+    may not be a broadcast (zero-stride) view."""
     if not (q.dtype == k_cache.dtype == v_cache.dtype):
         raise ValueError(f"q/k/v dtypes differ: {q.dtype}, {k_cache.dtype}, "
                          f"{v_cache.dtype}")
@@ -146,24 +151,37 @@ def _check_kernel_inputs(q, k_cache, v_cache):
     if l_q == 0 or b == 0:
         raise ValueError(f"flash_decode needs B, l_q >= 1, got q "
                          f"{tuple(q.shape)}")
-    rows = h // k_cache.shape[1] * l_q
-    if rows > MAX_ROWS:
-        raise ValueError(f"flash_decode takes group x l_q <= {MAX_ROWS} query "
-                         f"rows per kv head, got {h // k_cache.shape[1]} x "
-                         f"{l_q} = {rows}")
-    if b * k_cache.shape[1] > 65535:
+    if b * k_cache.shape[1] > GRID_YZ_MAX:
         raise ValueError(f"flash_decode launches one grid row per (b, kv "
-                         f"head): B*H_kv={b * k_cache.shape[1]} exceeds 65535")
+                         f"head): B*H_kv={b * k_cache.shape[1]} exceeds "
+                         f"{GRID_YZ_MAX}")
+    group = h // k_cache.shape[1]
+    chunks = -(-group * l_q // CHUNK_ROWS)
+    if chunks > GRID_YZ_MAX:
+        raise ValueError(f"flash_decode launches one grid layer per "
+                         f"{CHUNK_ROWS} query rows of a kv head: {group} x "
+                         f"{l_q} rows need {chunks}, more than {GRID_YZ_MAX}")
     if q.stride(3) != 1:
         raise ValueError(f"q must be contiguous in the head dim, got strides "
                          f"{q.stride()}")
-    vec = 16 // q.element_size()
+    size = q.element_size()
     for name, t in (("k_cache", k_cache), ("v_cache", v_cache)):
-        if t.stride(3) != 1 or t.data_ptr() % 16 or any(
-                s % vec for s in t.stride()[:3]):
-            raise ValueError(f"{name} must be contiguous in the head dim with "
-                             f"rows on 16-byte boundaries, got strides "
-                             f"{t.stride()} at offset {t.data_ptr() % 16}")
+        if t.stride(3) != 1:
+            raise ValueError(f"{name} must be contiguous in the head dim, got "
+                             f"strides {t.stride()}")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary, got "
+                             f"offset {t.data_ptr() % 16}")
+        for dim, stride in zip(("batch", "head", "row"), t.stride()[:3]):
+            if stride * size % 16:
+                raise ValueError(f"{name}'s {dim} stride must be a multiple of "
+                                 f"16 bytes, got {stride} elements = "
+                                 f"{stride * size} bytes (strides {t.stride()})")
+        if t.dtype == torch.bfloat16 and any(
+                s == 0 and n > 1 for s, n in zip(t.stride(), t.shape)):
+            raise ValueError(f"{name} is a broadcast view (strides "
+                             f"{t.stride()}, shape {tuple(t.shape)}), which a "
+                             f"TMA tensor map cannot read")
 
 
 def _device_length(cache_len, device) -> torch.Tensor:
@@ -180,13 +198,18 @@ def _device_length(cache_len, device) -> torch.Tensor:
     return torch.full((1,), n, dtype=torch.int32, device=device)
 
 
-def _n_splits(n_bhk: int, l_max: int, dtype, device) -> int:
-    """Blocks per (b, kv head): about two blocks per SM over the grid, at
-    most one per key tile. Depends on the shapes only, never on the
-    length."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    tiles = -(-l_max // _KEYS_PER_TILE[dtype])
-    return max(1, min(tiles, -(-2 * sms // n_bhk)))
+def _launch_plan(sms: int, n_bhk: int, l_max: int, rows: int,
+                 keys_per_tile: int) -> tuple[int, int]:
+    """(n_chunks, n_splits) of the grid (n_splits, B·H_kv, n_chunks): the
+    group·l_q rows of a kv head in chunks of CHUNK_ROWS, and the key tiles
+    of each (b, kv head, chunk) split across as many blocks as fill the
+    card in one wave of one block an SM, at most one a key tile and at
+    least one. A function of the shapes and the card, never of the valid
+    length, so one launch serves every length."""
+    n_chunks = -(-rows // CHUNK_ROWS)
+    tiles = -(-l_max // keys_per_tile)
+    slots = sms // (n_bhk * n_chunks)
+    return n_chunks, max(1, min(tiles, slots))
 
 
 def flash_decode_kernel(q: torch.Tensor, k_cache: torch.Tensor,
@@ -200,7 +223,8 @@ def flash_decode_kernel(q: torch.Tensor, k_cache: torch.Tensor,
     ValueError); CPU tensors run ``flash_decode_plain``. cache_len is a
     Python int or a one-element integer tensor on q's device, passed to the
     kernel by pointer, so a captured graph replays at whatever length the
-    tensor holds. Each launch adds one to ``flash_decode_kernel.launches``.
+    tensor holds. Each call launches the split kernel and the merge of its
+    partials, and adds one to ``flash_decode_kernel.launches``.
     """
     if not (q.device == k_cache.device == v_cache.device):
         raise ValueError(f"q/k/v on different devices: {q.device}, "
@@ -218,8 +242,10 @@ def flash_decode_kernel(q: torch.Tensor, k_cache: torch.Tensor,
     h_kv, l_max = k_cache.shape[1], k_cache.shape[2]
     if scale is None:
         scale = 1.0 / math.sqrt(d)
-    n_splits = _n_splits(b * h_kv, l_max, q.dtype, q.device)
     rows = h // h_kv * l_q
+    n_chunks, n_splits = _launch_plan(
+        torch.cuda.get_device_properties(q.device).multi_processor_count,
+        b * h_kv, l_max, rows, _KEYS_PER_TILE[q.dtype])
     o = torch.empty((b, h, l_q, d), dtype=q.dtype, device=q.device)
     part_acc = torch.empty((b * h_kv, n_splits, rows, d), dtype=torch.float32,
                            device=q.device)
@@ -232,7 +258,8 @@ def flash_decode_kernel(q: torch.Tensor, k_cache: torch.Tensor,
             part_acc.data_ptr(), part_ml.data_ptr(), length.data_ptr(),
             _KERNEL_DTYPES[q.dtype], b, h, h_kv, l_q, l_max, d,
             *q.stride()[:3], *k_cache.stride()[:3], *v_cache.stride()[:3],
-            -1 if window is None else window, sinks, scale, n_splits, stream)
+            -1 if window is None else window, sinks, scale, n_splits,
+            n_chunks, stream)
     if err != 0:
         raise RuntimeError(f"flash_decode launch failed: cudaError_t {err} "
                            f"for q {tuple(q.shape)} caches "

@@ -17,7 +17,9 @@ import torch
 
 from gpumounter_tpu.ops.flash_decode import flash_decode as jax_flash_decode
 from gpumounter_tpu_torch.ops.flash_attention import attention_plain
-from gpumounter_tpu_torch.ops.flash_decode import (flash_decode,
+from gpumounter_tpu_torch.ops.flash_decode import (CHUNK_ROWS, GRID_YZ_MAX,
+                                                   _check_kernel_inputs,
+                                                   _launch_plan, flash_decode,
                                                    flash_decode_kernel,
                                                    flash_decode_plain)
 
@@ -53,6 +55,9 @@ REFERENCE_CASES = {
     "gqa_4_over_1": (dict(h=4, h_kv=1), 150, {}),
     "len_above_l_max_clipped": ({}, 300, {}),
     "len_below_l_q_clipped": (dict(l_q=8), 3, {}),
+    # Beyond one kernel block's 64 rows: group 16 x l_q 8 = 128.
+    "mqa_128_rows_window_sinks": (dict(h=16, h_kv=1, l_q=8), 200,
+                                  dict(window=30, sinks=4)),
 }
 
 
@@ -151,3 +156,67 @@ def test_argument_checks_match_reference(case):
         flash_decode(torch.from_numpy(q), torch.from_numpy(kv),
                      torch.from_numpy(kv), 4, **kw)
     assert str(got.value) == str(want.value)
+
+
+def test_kernel_checks_take_128_rows_and_refuse_a_misaligned_cache():
+    q = torch.zeros(1, 16, 8, 64, dtype=torch.bfloat16)
+    kv = torch.zeros(1, 1, 32, 64, dtype=torch.bfloat16)
+    _check_kernel_inputs(q, kv, kv)  # 128 rows: two row chunks
+    wide = torch.zeros(1, 1, 32, 68, dtype=torch.bfloat16)  # 136-byte rows
+    with pytest.raises(ValueError, match="row stride must be a multiple of 16 bytes"):
+        _check_kernel_inputs(q, wide[..., :64], wide[..., :64])
+    with pytest.raises(ValueError, match="broadcast view"):
+        _check_kernel_inputs(q, kv, kv[:, :, :1].expand(1, 1, 32, 64))
+
+
+def _needed_tiles(n, l_q, window, sinks, keys_per_tile):
+    """The key tiles holding a key that some query row attends at valid
+    length n, from the mask itself."""
+    keys = np.arange(n)
+    pos = n - l_q + np.arange(l_q)[:, None]
+    keep = keys <= pos
+    if window is not None:
+        keep &= (keys >= pos - window) | (keys < sinks)
+    return set((keys[keep.any(axis=0)] // keys_per_tile).tolist())
+
+
+def _split_tiles(n, l_q, window, sinks, keys_per_tile, split, n_splits):
+    """The tiles that split `split` of n_splits streams, by the loop bounds
+    of flash_decode.cu (DecodeTiles)."""
+    last = (n - 1) // keys_per_tile
+    sink_end = band_begin = 0
+    if window is not None:
+        band_begin = max(0, n - l_q - window) // keys_per_tile
+        sink_end = min(-(-sinks // keys_per_tile), last + 1)
+        band_begin = max(band_begin, sink_end)
+    order = list(range(sink_end)) + list(range(band_begin, last + 1))
+    return order[split * len(order) // n_splits:(split + 1) * len(order) // n_splits]
+
+
+# (SMs, B·H_kv, L_max, rows, keys per tile, l_q, window, sinks)
+PLANS = {
+    "serving": (132, 32, 2048, 1, 64, 1, None, 0),
+    "bench_l_q8": (132, 32, 600, 8, 64, 8, None, 0),
+    "window_sinks": (132, 4, 700, 8, 64, 8, 100, 70),
+    "mqa_128_rows": (132, 2, 300, 128, 64, 8, 40, 4),
+    "f32_tiles": (132, 8, 333, 4, 32, 4, 17, 2),
+    "more_heads_than_sms": (132, 300, 256, 1, 64, 1, None, 0),
+}
+
+
+@pytest.mark.parametrize("case", list(PLANS))
+def test_launch_plan_covers_every_needed_tile_once_at_every_length(case):
+    sms, n_bhk, l_max, rows, bn, l_q, window, sinks = PLANS[case]
+    n_chunks, n_splits = _launch_plan(sms, n_bhk, l_max, rows, bn)
+    # The plan has no length in it: one grid serves every n below.
+    assert n_chunks == -(-rows // CHUNK_ROWS) <= GRID_YZ_MAX
+    assert 1 <= n_splits <= -(-l_max // bn)
+    if n_bhk * n_chunks <= sms:
+        assert n_splits * n_bhk * n_chunks <= sms  # one wave
+    else:
+        assert n_splits == 1
+    for n in range(l_q, l_max + 1):
+        got = [t for split in range(n_splits)
+               for t in _split_tiles(n, l_q, window, sinks, bn, split, n_splits)]
+        assert len(got) == len(set(got)), n
+        assert set(got) == _needed_tiles(n, l_q, window, sinks, bn), n

@@ -4,6 +4,7 @@ how its kernels are built."""
 from __future__ import annotations
 
 import ast
+import importlib.util
 from pathlib import Path
 
 import pytest
@@ -104,3 +105,28 @@ def test_library_path_hashes_only_the_headers_a_source_includes(monkeypatch, tmp
 def test_flash_fwd_hashes_the_hopper_header():
     assert {p.name for p in _build.sources("flash_fwd")} == {"flash_fwd.cu", "hopper.cuh"}
     assert {p.name for p in _build.sources("flash_bwd")} == {"flash_bwd.cu", "hopper.cuh"}
+    assert {p.name for p in _build.sources("flash_decode")} == {"flash_decode.cu", "hopper.cuh"}
+
+
+def test_ptxas_report_names_every_kernel_instance():
+    spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    log = "\n".join(
+        f"ptxas info    : Compiling entry function '{name}' for 'sm_90a'\n"
+        f"ptxas info    : Function properties for {name}\n"
+        f"    0 bytes stack frame, {spill} bytes spill stores, {spill} bytes spill loads\n"
+        f"ptxas info    : Used {regs} registers, used 2 barriers, 128 bytes smem"
+        for name, regs, spill in (
+            ("_ZN12_GLOBAL__N_12tc22flash_decode_tc_kernelILi128ELi8EEEvNS_6ParamsE", 76, 0),
+            # The merge kernel is not a *_kernel entry and is left out.
+            ("_ZN12_GLOBAL__N_118flash_decode_mergeI13__nv_bfloat16Li128EEEvNS_6ParamsE", 40, 0),
+            ("_ZN12_GLOBAL__N_13f3223flash_decode_f32_kernelILi64ELi1EEEvNS_6ParamsE", 128, 8),
+            ("_ZN12_GLOBAL__N_12tc19flash_fwd_tc_kernelILi128ELb1EEEvNS0_6ParamsE", 168, 0)))
+    lines = smoke._ptxas_lines(log)
+    assert lines == [
+        "ptxas flash_decode_tc_kernel<128, 8>: 76 registers, spill stores 0 B, spill loads 0 B",
+        "ptxas flash_decode_f32_kernel<64, 1>: 128 registers, spill stores 8 B, spill loads 8 B",
+        "ptxas flash_fwd_tc_kernel<128, 1>: 168 registers, spill stores 0 B, spill loads 0 B"]
+    # Only the wgmma instances are held to no spills.
+    assert [bool(smoke._PTXAS_NO_SPILL.match(line)) for line in lines] == [True, False, True]
