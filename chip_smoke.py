@@ -29,6 +29,12 @@ Phases, each raising on failure (any failure exits non-zero):
      through the plain attention; then ``entry.train_check()``;
 4. capture one greedy ``decode_step`` as a CUDA graph and replay it at two
    cache lengths, each against an eager step and the forward;
+   then the MoE probe (the same config with 8 experts): ``moe_ffn`` against
+   ``moe_ffn_plain`` at (8192, 1024) in bf16 and f32, and its forward,
+   serving (with the captured step) and training paths as above, each
+   held block by block against the plain attention (or, serving, against
+   the forward's blocks) because a top-1 routing near tie may flip between
+   two runs, then ``entry.moe_check()``;
 5. time each kernel, its plain version and the PyTorch library call that
    computes the same function (kernels and library calls as device time by
    replaying a CUDA graph of 20 calls, and ``flash_fwd`` and SDPA also
@@ -37,7 +43,8 @@ Phases, each raising on failure (any failure exits non-zero):
    the backward kernels also with GQA H_kv 2 and window 255, ``flash_decode``
    also at a GQA shape (H 32, H_kv 4) with its achieved TB/s and the device
    time of its split kernel and of its merge from ``torch.profiler``; and
-   print the slowest device kernels of one SGD step from ``torch.profiler``.
+   print the slowest device kernels of one SGD step from ``torch.profiler``;
+   the MoE forward, SGD step (split, profiled), prefill and decode loop.
 
 The last lines are a JSON object per kernel (``{"kernels": [...]}``) and
 ``{"ok": true, "device": {...}}``. Needs a CUDA card; imports no JAX.
@@ -58,14 +65,17 @@ import torch.nn.functional as F
 
 from torch.nn.attention.bias import causal_lower_right
 
-from gpumounter_tpu_torch.entry import train_check
-from gpumounter_tpu_torch.models.probe import (TransformerConfig, decode_step,
-                                               forward, generate, init_params,
+from gpumounter_tpu_torch.entry import (MOE_ROUTE_GAP, _masked_err, moe_blocks_vs_plain,
+                                        moe_check, route_flips, train_check)
+from gpumounter_tpu_torch.models.probe import (TransformerConfig, _attend, _attend_decode,
+                                               _embed, _finish_block, _forward_impl,
+                                               decode_step, forward, generate, init_params,
                                                loss_fn, next_token_nll, prefill)
+from gpumounter_tpu_torch.parallel.moe import _route, init_moe_params, moe_ffn, moe_ffn_plain
 from gpumounter_tpu_torch.ops import _build
 from gpumounter_tpu_torch.ops.flash_attention import (_band_mask, _bwd_launch,
                                                       attention_bwd_plain,
-                                                      attention_plain,
+                                                      attention_plain, flash_attention,
                                                       flash_attention_bwd_kernel,
                                                       flash_attention_kernel)
 from gpumounter_tpu_torch.parallel.train_step import (loss_and_grads,
@@ -119,6 +129,21 @@ TRAIN = dict(B=4, L=2048, STEPS=3, LR=1e-3)
 # grads that differ by up to 0.8% of max pass through two layers of bf16
 # matmuls, rmsnorm and GELU backward, and every leaf is rounded to bf16.
 GRAD_RTOL_OF_MAX = 5e-2
+# The MoE configuration: the full-width config with the reference's 8
+# experts (__graft_entry__.py:195-201).
+MOE_EXPERTS = 8
+# moe_ffn (batched products over every token) against moe_ffn_plain (each
+# expert's own tokens): cuBLAS may sum the two shapes in other orders. bf16:
+# both round the expert products to bf16, held to 4 bf16 ulps (2^-8 each)
+# of the output's max |value|; f32 (no TF32): summation order, 1e-5 of max.
+MOE_OUT_OF_MAX = {torch.bfloat16: 4 * 2**-8, torch.float32: 1e-5}
+MOE_AUX_ATOL = 1e-5
+# Teacher-forced MoE decode against the forward: the generated tokens are
+# the model's own picks, so their NLL sits below log V and the forward's
+# range does not apply. A routing flip (about 1% of positions a layer)
+# changes its position's logits wholly; those logits spread s ~ 0.5, so a
+# flip moves its position's NLL by about a nat and the mean by about 0.01.
+MOE_SERVE_NLL_ATOL = 0.05
 
 
 def _card() -> str:
@@ -374,10 +399,10 @@ def phase_kernel_vs_plain(gen) -> float:
     return full_err
 
 
-def full_width_config() -> TransformerConfig:
+def full_width_config(n_experts: int | None = None) -> TransformerConfig:
     return TransformerConfig(vocab=2048, d_model=1024, n_heads=8, n_layers=2,
                              d_ff=4096, max_len=FULL["L"], rope=True,
-                             dtype=torch.bfloat16)
+                             dtype=torch.bfloat16, n_experts=n_experts)
 
 
 def phase_main_path(cfg, params, batches) -> int:
@@ -684,7 +709,9 @@ def phase_graph(cfg, params, tokens, ref, card) -> float:
     """Capture one greedy decode_step as a CUDA graph (a host sync inside
     the step would make the capture raise), replay it at two cache
     lengths by writing cur_len in place, and hold each replay against an
-    eager step and the forward. Returns the replayed step's ms."""
+    eager step and, for a dense config, the forward (an MoE step may route
+    a token otherwise than the forward, so its distance is printed only).
+    Returns the replayed step's ms."""
     lens = (700, tokens.shape[1] - 8)
     _, caches = prefill(params, tokens[:, :lens[1]], cfg)
     token = tokens[:, lens[0]].clone()
@@ -704,15 +731,17 @@ def phase_graph(cfg, params, tokens, ref, card) -> float:
         err = _check_close(f"graph replay at length {n + 1} vs eager", replayed, eager, BF16_TOL)
         limit = LOGITS_RTOL_OF_MAX * ref[:, n].abs().max().item()
         ref_err = (replayed - ref[:, n]).abs().max().item()
-        if not ref_err <= limit:
+        if cfg.n_experts is None and not ref_err <= limit:
             raise RuntimeError(f"graph replay at length {n + 1} vs forward: max abs "
                                f"err {ref_err} (limit {limit})")
-        print(f"graph: one captured decode_step replayed at length {n + 1}: vs eager "
-              f"max abs err {err:.3g}, vs forward {ref_err:.3g} (limit {limit:.3g}), "
-              f"no wrapper launch during replay", flush=True)
+        print(f"graph{' MoE' if cfg.n_experts else ''}: one captured decode_step replayed at "
+              f"length {n + 1}: vs eager max abs err {err:.3g} (bit-equal "
+              f"{torch.equal(replayed, eager)}), vs forward {ref_err:.3g} (limit {limit:.3g}"
+              f"{'' if cfg.n_experts is None else ', not held: routing flips'}), no wrapper "
+              f"launch during replay", flush=True)
     ms = _time_ms(graph.replay, 50)
-    print(f"time decode_step as a replayed CUDA graph B{tokens.shape[0]}: {ms:.4f} ms "
-          f"[{card}]", flush=True)
+    print(f"time{' MoE' if cfg.n_experts else ''} decode_step as a replayed CUDA graph "
+          f"B{tokens.shape[0]}: {ms:.4f} ms [{card}]", flush=True)
     return ms
 
 
@@ -758,10 +787,7 @@ def phase_timings(gen, cfg, params, tokens, card) -> dict:
             out = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                        library_ms=library_ms)
         del q, k, v
-    fwd_ms = _time_ms(lambda: forward(params, tokens, cfg), 5, warmup=1)
-    tok_s = tokens.numel() / (fwd_ms / 1e3)
-    print(f"time forward B{tokens.shape[0]} L{tokens.shape[1]}: {fwd_ms:.3f} ms, "
-          f"{tok_s:.0f} tokens/s [{card}]", flush=True)
+    phase_forward_timing(cfg, params, tokens, card)
     return out
 
 
@@ -840,7 +866,8 @@ def phase_train_profile(cfg, params, tokens, card, top: int = 15) -> None:
                       if evt.device_type == torch.autograd.DeviceType.CUDA and evt.self_device_time_total > 0),
                      reverse=True)
     total = sum(ms for ms, _, _ in kernels)
-    print(f"profile of one SGD step B{tokens.shape[0]} L{tokens.shape[1]}: {len(kernels)} device kernels, "
+    print(f"profile of one{' MoE' if cfg.n_experts else ''} SGD step B{tokens.shape[0]} L{tokens.shape[1]}: "
+          f"{len(kernels)} device kernels, "
           f"{total:.3f} ms of device time in all [{card}]", flush=True)
     for ms, calls, name in kernels[:top]:
         print(f"profile kernel {ms:.4f} ms, {calls} calls: {name[:140]}", flush=True)
@@ -869,7 +896,8 @@ def phase_train_timings(cfg, params, tokens, card) -> None:
     torch.cuda.synchronize()
     fwd, bwd, upd = (sum(e[i].elapsed_time(e[i + 1]) for e in runs) / len(runs)
                      for i in range(3))
-    print(f"time train step B{tokens.shape[0]} L{tokens.shape[1]} (SGD): {step_ms:.3f} ms, "
+    print(f"time{' MoE' if cfg.n_experts else ''} train step B{tokens.shape[0]} L{tokens.shape[1]} "
+          f"(SGD): {step_ms:.3f} ms, "
           f"{tokens.numel() / (step_ms / 1e3):.0f} tokens/s; split: forward {fwd:.3f} ms, "
           f"backward {bwd:.3f} ms, update {upd:.3f} ms [{card}]", flush=True)
 
@@ -933,16 +961,270 @@ def phase_serving_timings(cfg, params, prompt, graph_step_ms, card) -> None:
     decode_ms = gen_ms - prefill_ms
     steps = n_new - 1
     tok_s = prompt.shape[0] * steps / (decode_ms / 1e3)
-    print(f"time serving B{prompt.shape[0]} prompt {prompt.shape[1]} n_new {n_new}: "
+    moe = " MoE" if cfg.n_experts else ""
+    print(f"time{moe} serving B{prompt.shape[0]} prompt {prompt.shape[1]} n_new {n_new}: "
           f"generate {gen_ms:.3f} ms, prefill {prefill_ms:.3f} ms (device, graph-replayed: "
           f"{prefill_device_ms:.3f} ms), decode "
           f"{decode_ms:.3f} ms = {decode_ms / steps:.4f} ms per step over {steps} "
           f"steps, {tok_s:.0f} decode tokens/s [{card}]", flush=True)
     step_ms = decode_ms / steps
-    print(f"time decode step: eager {step_ms:.4f} ms vs graph-replayed {graph_step_ms:.4f} "
+    print(f"time{moe} decode step: eager {step_ms:.4f} ms vs graph-replayed {graph_step_ms:.4f} "
           f"ms; card busy at most {graph_step_ms / step_ms:.1%} of the eager loop, "
           f"{prompt.shape[0] / (graph_step_ms / 1e3):.0f} tokens/s if every step were "
           f"replayed [{card}]", flush=True)
+
+
+def phase_moe_ffn_vs_plain(gen) -> float:
+    """moe_ffn against moe_ffn_plain on x (B·L, d_model) of the MoE path,
+    in bf16 and in f32: the same expert for every token, the aux within
+    MOE_AUX_ATOL and the outputs within MOE_OUT_OF_MAX of their max.
+    Returns the bf16 case's max abs error."""
+    t, d, ff = FULL["B"] * FULL["L"], 1024, 4096
+    bf16_err = None
+    for dtype in (torch.bfloat16, torch.float32):
+        params = init_moe_params(torch.Generator().manual_seed(0), MOE_EXPERTS, d, ff, dtype, "cuda")
+        x = torch.randn((t, d), generator=gen, device="cuda").to(dtype)
+        out, aux = moe_ffn(params, x)
+        want, want_aux, want_idx = moe_ffn_plain(params, x)
+        idx, _ = _route(params, x)
+        per_expert = torch.bincount(idx, minlength=MOE_EXPERTS).tolist()
+        err = (out.float() - want.float()).abs().max().item()
+        limit = MOE_OUT_OF_MAX[dtype] * want.float().abs().max().item()
+        aux_err = abs(aux.item() - want_aux.item())
+        if not (torch.equal(idx, want_idx) and aux_err <= MOE_AUX_ATOL and err <= limit
+                and torch.isfinite(out).all()):
+            raise RuntimeError(f"moe_ffn vs moe_ffn_plain {dtype}: experts equal "
+                               f"{torch.equal(idx, want_idx)}, aux err {aux_err} (limit "
+                               f"{MOE_AUX_ATOL}), out max abs err {err} (limit {limit})")
+        print(f"case moe_ffn vs moe_ffn_plain T{t} d{d} ff{ff} E{MOE_EXPERTS} {dtype}: same "
+              f"expert for every token (tokens per expert {per_expert}), aux {aux.item():.6f} "
+              f"err {aux_err:.3g}, out max abs err {err:.3g} (limit {limit:.3g} = "
+              f"{MOE_OUT_OF_MAX[dtype]:.3g} x max |out|)", flush=True)
+        bf16_err = err if bf16_err is None else bf16_err
+        del params, x, out, want
+    return bf16_err
+
+
+def _print_blocks(what, records) -> None:
+    """Print, and hold to the limits, the per-block records of
+    moe_blocks_vs_plain (or of the serving check): the unflipped tokens'
+    block output within LOGITS_RTOL_OF_MAX of its max, each grad within
+    GRAD_RTOL_OF_MAX of its max."""
+    for i, r in enumerate(records):
+        limit = LOGITS_RTOL_OF_MAX * r["out_max"]
+        n = r["flipped"].numel()
+        line = (f"{what} block {i}: {int(r['flipped'].sum())} of {n} tokens routed to "
+                f"another expert (largest top-1/top-2 gap among them {r['worst_gap']:.3g}, "
+                f"limit {MOE_ROUTE_GAP}; router logits max abs diff {r['logit_err']:.3g}), "
+                f"unflipped block output max abs err {r['out_err']:.3g} (limit {limit:.3g} = "
+                f"{LOGITS_RTOL_OF_MAX} x max |out|)")
+        bad = [] if r["out_err"] <= limit else ["output"]
+        if "grads" in r:
+            worst = max((err / peak if peak else math.inf, name)
+                        for name, (err, peak) in r["grads"].items())
+            bad += [name for name, (err, peak) in r["grads"].items()
+                    if not err <= GRAD_RTOL_OF_MAX * peak]
+            line += f"; grads worst {worst[1]} at {worst[0]:.3g} of its max (limit {GRAD_RTOL_OF_MAX})"
+        print(line, flush=True)
+        if bad:
+            raise RuntimeError(f"{what} block {i}: {bad} beyond the limits: {line}")
+
+
+def phase_moe_forward(cfg, params, batches) -> int:
+    """The MoE forward on each batch with the counts set to 0 just before;
+    then per batch the logits and NLL beside the plain-attention forward's
+    (printed) and the block-by-block check (held). Returns its flash_fwd
+    launches."""
+    flash_attention_kernel.launches = flash_decode_kernel.launches = 0
+    outs = [forward(params, tokens, cfg) for tokens in batches]
+    torch.cuda.synchronize()
+    launches, want = flash_attention_kernel.launches, cfg.n_layers * len(batches)
+    if launches != want or flash_decode_kernel.launches:
+        raise RuntimeError(f"MoE forward launched flash_fwd {launches} and flash_decode "
+                           f"{flash_decode_kernel.launches} times, expected {want} and 0")
+    log_v = math.log(cfg.vocab)
+    for i, (tokens, logits) in enumerate(zip(batches, outs)):
+        nll = next_token_nll(logits, tokens).item()
+        if (logits.shape != (*tokens.shape, cfg.vocab) or not torch.isfinite(logits).all()
+                or not 0 <= nll - log_v < NLL_ABOVE_UNIFORM):
+            raise RuntimeError(f"MoE batch {i}: logits {tuple(logits.shape)} finite "
+                               f"{bool(torch.isfinite(logits).all())}, nll {nll} (log V {log_v})")
+        plain = forward(params, tokens, cfg, attention=attention_plain)
+        print(f"MoE forward batch {i}: logits {tuple(logits.shape)} finite, nll {nll:.4f} (log V "
+              f"{log_v:.4f}; plain-attention forward {next_token_nll(plain, tokens).item():.4f}), "
+              f"logits vs plain-attention forward max abs err {(logits - plain).abs().max().item():.3g} "
+              f"({LOGITS_RTOL_OF_MAX} x max |logits| = "
+              f"{LOGITS_RTOL_OF_MAX * plain.abs().max().item():.3g}; not held: routing flips)",
+              flush=True)
+        del plain
+        _print_blocks(f"MoE forward batch {i}", moe_blocks_vs_plain(params, tokens, cfg))
+    print(f"MoE forward: flash_fwd launches {launches} (n_layers {cfg.n_layers} x batches "
+          f"{len(batches)})", flush=True)
+    return launches
+
+
+def phase_moe_train(cfg, params, batches) -> tuple[int, int, int]:
+    """SGD steps of the MoE config with the counts set to 0 just before and
+    read just after; the aux term in the loss; one batch's grads block by
+    block (and whole-model, printed); then moe_check(). Returns the
+    (flash_fwd, dq, dk/dv) launches."""
+    step = make_train_step(cfg, TRAIN["LR"])
+    bwd = flash_attention_bwd_kernel
+    flash_attention_kernel.launches = flash_decode_kernel.launches = 0
+    bwd.dq_launches = bwd.dkv_launches = 0
+    p, losses = params, []
+    for tokens in batches:
+        p, loss = step(p, tokens)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    counts = (flash_attention_kernel.launches, bwd.dq_launches, bwd.dkv_launches)
+    want = cfg.n_layers * len(batches)
+    if counts != (want,) * 3 or flash_decode_kernel.launches:
+        raise RuntimeError(f"MoE train steps launched flash_fwd / dq / dk/dv {counts} and "
+                           f"flash_decode {flash_decode_kernel.launches} times, expected {want} "
+                           f"each and 0")
+    log_v = math.log(cfg.vocab)
+    losses = [loss.item() for loss in losses]
+    if not all(0 <= x - log_v < NLL_ABOVE_UNIFORM for x in losses):
+        raise RuntimeError(f"MoE train losses {losses} not within {NLL_ABOVE_UNIFORM} above "
+                           f"log(vocab) = {log_v}")
+    if not all(torch.isfinite(t).all() for t in tree_leaves(p)):
+        raise RuntimeError("MoE params after the train steps are not finite")
+    routers = {t.dtype for blk in p["blocks"] for key, t in blk.items() if key == "router"}
+    if routers != {torch.float32}:
+        raise RuntimeError(f"MoE routers after the SGD steps are {routers}, not float32")
+    print(f"MoE training: {len(batches)} SGD steps (lr {TRAIN['LR']}) on "
+          f"{tuple(batches[0].shape)} tokens, losses {', '.join(f'{x:.4f}' for x in losses)} "
+          f"(log V {log_v:.4f}); launches flash_fwd {counts[0]}, dq {counts[1]}, dk/dv "
+          f"{counts[2]} (n_layers {cfg.n_layers} x {len(batches)} steps each); routers float32",
+          flush=True)
+
+    # The aux term: loss_fn − the nll of the same forward's logits.
+    tokens = batches[0]
+    with torch.no_grad():
+        logits, aux = _forward_impl(params, tokens, cfg, flash_attention)
+        nll = next_token_nll(logits, tokens).item()
+        loss = loss_fn(params, tokens, cfg).item()
+    term = loss - nll
+    if not (0.5 < aux.item() < 2 and abs(term - cfg.moe_aux_weight * aux.item()) <= 1e-5):
+        raise RuntimeError(f"MoE loss {loss} − nll {nll} = {term}, expected moe_aux_weight "
+                           f"{cfg.moe_aux_weight} x aux {aux.item()}")
+    print(f"MoE training: loss_fn {loss:.6f} − next_token_nll {nll:.6f} = {term:.6g} = "
+          f"{cfg.moe_aux_weight} x aux {aux.item():.6f} (mean over the layers)", flush=True)
+
+    _, grads = loss_and_grads(params, tokens, cfg)
+    _, plain = loss_and_grads(params, tokens, cfg, attention=attention_plain)
+    worst = max(((g.float() - w.float()).abs().max().item() / w.float().abs().max().item(), name)
+                for name, g, w in zip(_leaf_names(params), tree_leaves(grads), tree_leaves(plain)))
+    print(f"MoE training: whole-model grads through the kernels vs plain attention, worst "
+          f"leaf {worst[1]} at {worst[0]:.3g} of its max |grad| ({GRAD_RTOL_OF_MAX} held "
+          f"block by block below: routing flips)", flush=True)
+    del grads, plain
+    _print_blocks("MoE training grads", moe_blocks_vs_plain(params, tokens, cfg, grads=True))
+    result = moe_check()
+    print(f"moe_check(): MoE flagship at d_head 32, loss {result['loss']:.4f}, block grads vs "
+          f"plain max abs err {result['max_grad_err']:.3g} (limit 5e-3), flipped tokens per "
+          f"layer {result['flipped']}; make_moe_step losses "
+          f"{', '.join(f'{x:.6f}' for x in result['moe_step_losses'])}", flush=True)
+    return counts
+
+
+def _serving_blocks_vs_forward(cfg, params, tokens, t0) -> list[dict]:
+    """Each block as the serving path runs it (the prefill's block on the
+    first t0 positions, then one decode block a position against the
+    cache) against the forward's block, at positions t0 − 1 .. T − 2, both
+    on the forward's input to that layer, so a routing flip changes only
+    its own position."""
+    b, length = tokens.shape
+    x, records = _embed(params, tokens, cfg), []
+    for blk in params["blocks"]:
+        xa_fwd = _attend(x, blk, cfg, flash_attention)[0]
+        xa_pre, k, v = _attend(x[:, :t0], blk, cfg, flash_attention)
+        shape = (b, cfg.kv_heads, cfg.max_len, cfg.d_head)
+        kc, vc = (torch.zeros(shape, dtype=k.dtype, device="cuda") for _ in range(2))
+        kc[:, :, :t0], vc[:, :, :t0] = k, v
+        rows = [xa_pre[:, -1:]]
+        for pos in range(t0, length - 1):
+            cur_len = torch.full((), pos + 1, dtype=torch.int32, device="cuda")
+            rows.append(_attend_decode(x[:, pos:pos + 1], blk, cfg, kc, vc, cur_len))
+        xa_srv, xa_ref = torch.cat(rows, dim=1), xa_fwd[:, t0 - 1:length - 1]
+        record = route_flips(xa_srv, xa_ref, blk)
+        out_srv, out_ref = _finish_block(xa_srv, blk)[0], _finish_block(xa_ref, blk)[0]
+        record.update(out_err=_masked_err(out_srv, out_ref, ~record["flipped"]),
+                      out_max=out_ref.float().abs().max().item())
+        records.append(record)
+        x = _finish_block(xa_fwd, blk)[0]
+    return records
+
+
+@torch.no_grad()
+def phase_moe_serving(cfg, params, prompt) -> tuple[int, int, torch.Tensor, torch.Tensor]:
+    """Greedy generate of the MoE config with the counts set to 0 just
+    before; the teacher-forced logits and NLL beside the forward's
+    (printed; the NLL range held), the serving blocks against the
+    forward's (held), seeded sampling. Returns (flash_fwd launches,
+    flash_decode launches, tokens, forward's logits on the tokens)."""
+    t0, n_new = prompt.shape[1], SERVE["N_NEW"]
+    flash_attention_kernel.launches = flash_decode_kernel.launches = 0
+    tokens = generate(params, prompt, cfg, n_new)
+    torch.cuda.synchronize()
+    fwd, dec = flash_attention_kernel.launches, flash_decode_kernel.launches
+    if (fwd, dec) != (cfg.n_layers, cfg.n_layers * (n_new - 1)):
+        raise RuntimeError(f"MoE generate launched flash_fwd {fwd} and flash_decode {dec} "
+                           f"times, expected {cfg.n_layers} and {cfg.n_layers * (n_new - 1)}")
+    length = t0 + n_new
+    if (tokens.shape != (prompt.shape[0], length) or not torch.equal(tokens[:, :t0], prompt)
+            or tokens.min() < 0 or tokens.max() >= cfg.vocab):
+        raise RuntimeError(f"MoE generate returned {tuple(tokens.shape)} tokens in "
+                           f"[{tokens.min().item()}, {tokens.max().item()}]")
+    print(f"MoE serving: generate {tuple(prompt.shape)} + {n_new} -> {tuple(tokens.shape)} "
+          f"tokens in range; flash_fwd launches {fwd} (prefill), flash_decode launches {dec} "
+          f"(n_layers x {n_new - 1} steps)", flush=True)
+
+    ref = forward(params, tokens, cfg)
+    logits, caches = prefill(params, prompt, cfg)
+    steps = [logits]
+    cur_len = torch.full((), t0, dtype=torch.int32, device="cuda")
+    for pos in range(t0, length - 1):
+        steps.append(decode_step(params, caches, tokens[:, pos], cur_len, cfg))
+        cur_len = cur_len + 1
+    got, want = torch.stack(steps, dim=1), ref[:, t0 - 1:length - 1]
+    log_v = math.log(cfg.vocab)
+    nll, nll_ref = (-torch.log_softmax(a, dim=-1).gather(-1, tokens[:, t0:, None].long()).mean().item()
+                    for a in (got, want))
+    limit = LOGITS_RTOL_OF_MAX * want.abs().max().item()
+    chosen = want.gather(-1, tokens[:, t0:, None].long())[..., 0]
+    off = int(((want.amax(dim=-1) - chosen) > limit).sum())
+    if not (torch.isfinite(got).all() and abs(nll - nll_ref) <= MOE_SERVE_NLL_ATOL):
+        raise RuntimeError(f"MoE teacher-forced decode: logits finite "
+                           f"{bool(torch.isfinite(got).all())}, nll {nll} vs the forward's "
+                           f"{nll_ref} (limit {MOE_SERVE_NLL_ATOL})")
+    print(f"MoE serving: teacher-forced prefill + {length - 1 - t0} decode steps vs forward at "
+          f"{length - t0} positions: logits max abs err {(got - want).abs().max().item():.3g} "
+          f"({LOGITS_RTOL_OF_MAX} x max |logits| = {limit:.3g}; not held: routing flips), nll "
+          f"{nll:.4f} vs forward's {nll_ref:.4f} (limit {MOE_SERVE_NLL_ATOL}; log V "
+          f"{log_v:.4f}); {off} of "
+          f"{chosen.numel()} greedy tokens below forward's max by more than that", flush=True)
+    _print_blocks("MoE serving", _serving_blocks_vs_forward(cfg, params, tokens, t0))
+
+    def sample(seed):
+        return generate(params, prompt, cfg, SERVE["N_SAMPLED"],
+                        torch.Generator(device="cuda").manual_seed(seed), 1.0)
+
+    a, b, c = sample(1), sample(1), sample(2)
+    if not torch.equal(a, b) or torch.equal(a, c) or a.min() < 0 or a.max() >= cfg.vocab:
+        raise RuntimeError("MoE sampled generate: not reproducible per seed, equal across "
+                           "seeds, or out of range")
+    print(f"MoE serving: sampled generate ({SERVE['N_SAMPLED']} tokens, T=1) reproducible per "
+          f"generator seed, different across seeds, in range", flush=True)
+    return fwd, dec, tokens, ref
+
+
+def phase_forward_timing(cfg, params, tokens, card, what="forward") -> None:
+    fwd_ms = _time_ms(lambda: forward(params, tokens, cfg), 5, warmup=1)
+    tok_s = tokens.numel() / (fwd_ms / 1e3)
+    print(f"time {what} B{tokens.shape[0]} L{tokens.shape[1]}: {fwd_ms:.3f} ms, "
+          f"{tok_s:.0f} tokens/s [{card}]", flush=True)
 
 
 def main() -> int:
@@ -968,34 +1250,50 @@ def main() -> int:
     graph_step_ms = phase_graph(cfg, params, tokens, ref, card)
     del ref
     train_fwd, train_dq, train_dkv = phase_train(cfg, params, batches)
+
+    moe_cfg = full_width_config(n_experts=MOE_EXPERTS)
+    moe_params = init_params(moe_cfg, torch.Generator().manual_seed(0), "cuda")
+    moe_ffn_err = phase_moe_ffn_vs_plain(gen)
+    moe_launches = phase_moe_forward(moe_cfg, moe_params, batches)
+    moe_prefill, moe_decode, moe_tokens, moe_ref = phase_moe_serving(moe_cfg, moe_params, prompt)
+    moe_graph_ms = phase_graph(moe_cfg, moe_params, moe_tokens, moe_ref, card)
+    del moe_ref
+    moe_fwd, moe_dq, moe_dkv = phase_moe_train(moe_cfg, moe_params, batches)
+
     times = phase_timings(gen, cfg, params, batches[0], card)
     bwd_times = phase_bwd_timings(gen, card)
     phase_train_timings(cfg, params, batches[0], card)
     phase_train_profile(cfg, params, batches[0], card)
     decode_times = phase_decode_timings(gen, card)
     phase_serving_timings(cfg, params, prompt, graph_step_ms, card)
+    phase_forward_timing(moe_cfg, moe_params, batches[0], card, "MoE forward")
+    phase_train_timings(moe_cfg, moe_params, batches[0], card)
+    phase_train_profile(moe_cfg, moe_params, batches[0], card)
+    phase_serving_timings(moe_cfg, moe_params, prompt, moe_graph_ms, card)
 
     print(f"launches on the main paths: flash_fwd {launches} (forward) + "
           f"{prefill_launches} (prefill) + {train_fwd} (training), flash_decode "
-          f"{decode_launches}, flash_bwd dq {train_dq} and dk/dv {train_dkv} (training)",
-          flush=True)
+          f"{decode_launches}, flash_bwd dq {train_dq} and dk/dv {train_dkv} (training); "
+          f"MoE paths: flash_fwd {moe_launches} (forward) + {moe_prefill} (prefill) + "
+          f"{moe_fwd} (training), flash_decode {moe_decode}, flash_bwd dq {moe_dq} and dk/dv "
+          f"{moe_dkv}; moe_ffn vs moe_ffn_plain bf16 max abs err {moe_ffn_err:.3g}", flush=True)
     bwd_source = "gpumounter_tpu_torch/ops/csrc/flash_bwd.cu"
     print(json.dumps({"kernels": [{
         "name": "flash_fwd", "route": "cuda",
         "source": "gpumounter_tpu_torch/ops/csrc/flash_fwd.cu",
         "replaces": "gpumounter_tpu/ops/flash_attention.py:84",
-        "launches": launches + prefill_launches + train_fwd, "max_abs_err": max_abs_err,
-        **times}, {
+        "launches": launches + prefill_launches + train_fwd + moe_launches + moe_prefill + moe_fwd,
+        "max_abs_err": max_abs_err, **times}, {
         "name": "flash_bwd_dq", "route": "cuda", "source": bwd_source,
         "replaces": "gpumounter_tpu/ops/flash_attention.py:182",
-        "launches": train_dq, "max_abs_err": bwd_errs[0], **bwd_times["dq"]}, {
+        "launches": train_dq + moe_dq, "max_abs_err": bwd_errs[0], **bwd_times["dq"]}, {
         "name": "flash_bwd_dkv", "route": "cuda", "source": bwd_source,
         "replaces": "gpumounter_tpu/ops/flash_attention.py:236",
-        "launches": train_dkv, "max_abs_err": bwd_errs[1], **bwd_times["dkv"]}, {
+        "launches": train_dkv + moe_dkv, "max_abs_err": bwd_errs[1], **bwd_times["dkv"]}, {
         "name": "flash_decode", "route": "cuda",
         "source": "gpumounter_tpu_torch/ops/csrc/flash_decode.cu",
         "replaces": "gpumounter_tpu/ops/flash_decode.py:48",
-        "launches": decode_launches, "max_abs_err": decode_err,
+        "launches": decode_launches + moe_decode, "max_abs_err": decode_err,
         **decode_times}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

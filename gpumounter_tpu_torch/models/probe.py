@@ -21,8 +21,13 @@ forward kernel with lse and the two backward kernels
 (``ops.flash_attention._FlashAttentionFn``). The single-GPU train steps are
 in ``parallel/train_step.py``.
 
-Not ported yet: the MoE FFN (and its aux loss term) and sequence-parallel
-attention.
+MoE: with ``n_experts`` set, every block's FFN is the Switch-style top-1
+routed FFN of ``parallel/moe.py`` (a float32 router and stacked expert
+weights per block), and ``loss_fn`` adds ``moe_aux_weight`` x its
+load-balancing loss averaged over the layers. The serving path drops that
+loss, as the reference does.
+
+Not ported yet: sequence-parallel attention.
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ import torch.nn.functional as F
 from gpumounter_tpu_torch._device import resolve_device
 from gpumounter_tpu_torch.ops.flash_attention import flash_attention
 from gpumounter_tpu_torch.ops.flash_decode import flash_decode
+from gpumounter_tpu_torch.parallel.moe import init_moe_params, moe_ffn
 
 
 @dataclass(frozen=True)
@@ -84,10 +90,6 @@ class TransformerConfig:
         if self.rope_base <= 0:
             raise ValueError(f"rope_base must be > 0, got "
                              f"{self.rope_base}")
-        if self.n_experts is not None:
-            raise NotImplementedError(
-                "the MoE FFN is not ported yet (ROADMAP.md, modules to "
-                "port: models/probe.py with parallel/moe.py)")
         if self.attn_parallel == "seq":
             raise NotImplementedError(
                 "attn_parallel='seq' (ring attention) is not ported yet "
@@ -123,14 +125,19 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
         params["pos"] = dense(cfg.max_len, cfg.d_model)
     kv_dim = cfg.kv_heads * cfg.d_head
     for _ in range(cfg.n_layers):
-        params["blocks"].append({
+        block = {
             "wqkv": dense(cfg.d_model, cfg.d_model + 2 * kv_dim),
             "wo": dense(cfg.d_model, cfg.d_model),
             "ln1": ones(cfg.d_model),
             "ln2": ones(cfg.d_model),
-            "w1": dense(cfg.d_model, cfg.d_ff),
-            "w2": dense(cfg.d_ff, cfg.d_model),
-        })
+        }
+        if cfg.n_experts is None:
+            block["w1"] = dense(cfg.d_model, cfg.d_ff)
+            block["w2"] = dense(cfg.d_ff, cfg.d_model)
+        else:
+            block.update(init_moe_params(generator, cfg.n_experts, cfg.d_model,
+                                         cfg.d_ff, cfg.dtype, device))
+        params["blocks"].append(block)
     return params
 
 
@@ -175,39 +182,80 @@ def _maybe_rope(q, k, cfg, positions):
     return _rope_rotate(q, positions, cfg), _rope_rotate(k, positions, cfg)
 
 
-def _finish_block(x, attn_heads, p):
-    """Output projection, residual, dense FFN (tanh GELU, as jax.nn.gelu's
-    default)."""
-    b, _, t, _ = attn_heads.shape
-    merged = attn_heads.transpose(1, 2).reshape(b, t, -1)
-    x = x + merged @ p["wo"]
+def _finish_block(x, p):
+    """rmsnorm, FFN and residual: (x, aux). The FFN is the MoE when the
+    block carries a router (aux its load-balancing loss), else the dense
+    FFN with tanh GELU, as jax.nn.gelu's default (aux 0.0)."""
     h = _rmsnorm(x, p["ln2"])
-    return x + F.gelu(h @ p["w1"], approximate="tanh") @ p["w2"]
+    if "router" in p:
+        b, t, d = h.shape
+        out, aux = moe_ffn(p, h.reshape(b * t, d))
+        return x + out.reshape(b, t, d), aux
+    return x + F.gelu(h @ p["w1"], approximate="tanh") @ p["w2"], 0.0
 
 
-def _block(x, p, cfg, attention, return_kv=False):
-    """One block over the whole sequence; with return_kv also its post-RoPE
-    k and v (b, kv_heads, t, d_head), which is what the cache stores."""
+def _project(x, attn_heads, p):
+    """x plus the output projection of the attention heads (b, h, t, d)."""
+    b, _, t, _ = attn_heads.shape
+    return x + attn_heads.transpose(1, 2).reshape(b, t, -1) @ p["wo"]
+
+
+def _attend(x, p, cfg, attention):
+    """The attention half of a block over the whole sequence: (x plus its
+    attention's projection, post-RoPE k and v (b, kv_heads, t, d_head),
+    which is what the cache stores)."""
     q, k, v = _qkv_heads(x, p, cfg)
     positions = torch.arange(x.shape[1], device=x.device)
     q, k = _maybe_rope(q, k, cfg, positions)
-    x = _finish_block(x, attention(q, k, v, causal=True, window=cfg.window), p)
-    return (x, k, v) if return_kv else x
+    return _project(x, attention(q, k, v, causal=True, window=cfg.window), p), k, v
 
 
-def _block_decode(x, p, cfg, k_cache, v_cache, cur_len):
-    """One block for one new token x (b, 1, d_model) at position
-    cur_len − 1 (cur_len: int32 on the device, counting this token): write
-    its k and v into the caches in place at that slot, then attend the
-    cur_len valid entries through flash_decode."""
+def _block(x, p, cfg, attention, return_kv=False):
+    """One block over the whole sequence: (x, aux), with return_kv also its
+    k and v."""
+    x, k, v = _attend(x, p, cfg, attention)
+    x, aux = _finish_block(x, p)
+    return (x, aux, k, v) if return_kv else (x, aux)
+
+
+def _attend_decode(x, p, cfg, k_cache, v_cache, cur_len):
+    """The attention half of a block for one new token x (b, 1, d_model)
+    at position cur_len − 1 (cur_len: int32 on the device, counting this
+    token): write its k and v into the caches in place at that slot, then
+    attend the cur_len valid entries through flash_decode."""
     q, k, v = _qkv_heads(x, p, cfg)
     slot = (cur_len - 1).reshape(1)
     # The cache holds rotated keys, so only the new entry is rotated.
     q, k = _maybe_rope(q, k, cfg, slot)
     k_cache.index_copy_(2, slot.long(), k)
     v_cache.index_copy_(2, slot.long(), v)
-    out = flash_decode(q, k_cache, v_cache, cur_len, window=cfg.window)
-    return _finish_block(x, out, p)
+    return _project(x, flash_decode(q, k_cache, v_cache, cur_len, window=cfg.window), p)
+
+
+def _block_decode(x, p, cfg, k_cache, v_cache, cur_len):
+    """One block for one new token; the MoE's aux loss is dropped."""
+    return _finish_block(_attend_decode(x, p, cfg, k_cache, v_cache, cur_len), p)[0]
+
+
+def _embed(params, tokens, cfg):
+    """Token embeddings (b, t, d_model), plus the learned positions unless
+    the config uses RoPE."""
+    t = tokens.shape[1]
+    if t > cfg.max_len:
+        raise ValueError(f"sequence length {t} exceeds max_len "
+                         f"{cfg.max_len}")
+    x = params["embed"][tokens]
+    return x if cfg.rope else x + params["pos"][:t]
+
+
+def _forward_impl(params, tokens, cfg, attention):
+    """(float32 logits, the blocks' aux loss averaged over n_layers; 0.0
+    for a dense config)."""
+    x, aux_total = _embed(params, tokens, cfg), 0.0
+    for blk in params["blocks"]:
+        x, aux = _block(x, blk, cfg, attention)
+        aux_total = aux_total + aux
+    return (x @ params["embed"].T).float(), aux_total / max(1, cfg.n_layers)
 
 
 def forward(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
@@ -219,16 +267,7 @@ def forward(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
     gives the same forward with the kernel's plain version, which is how
     the kernel's run is checked on the card.
     """
-    b, t = tokens.shape
-    if t > cfg.max_len:
-        raise ValueError(f"sequence length {t} exceeds max_len "
-                         f"{cfg.max_len}")
-    x = params["embed"][tokens]
-    if not cfg.rope:
-        x = x + params["pos"][:t]
-    for blk in params["blocks"]:
-        x = _block(x, blk, cfg, attention)
-    return (x @ params["embed"].T).float()
+    return _forward_impl(params, tokens, cfg, attention)[0]
 
 
 def prefill(params: dict, prompt: torch.Tensor, cfg: TransformerConfig):
@@ -239,15 +278,10 @@ def prefill(params: dict, prompt: torch.Tensor, cfg: TransformerConfig):
     (B, kv_heads, max_len, d_head), the first t0 slots set.
     """
     b, t0 = prompt.shape
-    if t0 > cfg.max_len:
-        raise ValueError(f"sequence length {t0} exceeds max_len "
-                         f"{cfg.max_len}")
-    x = params["embed"][prompt]
-    if not cfg.rope:
-        x = x + params["pos"][:t0]
+    x = _embed(params, prompt, cfg)
     caches = []
     for blk in params["blocks"]:
-        x, k, v = _block(x, blk, cfg, flash_attention, return_kv=True)
+        x, _aux, k, v = _block(x, blk, cfg, flash_attention, return_kv=True)
         shape = (b, cfg.kv_heads, cfg.max_len, cfg.d_head)
         kc = torch.zeros(shape, dtype=k.dtype, device=k.device)
         vc = torch.zeros(shape, dtype=v.dtype, device=v.device)
@@ -347,7 +381,10 @@ def next_token_nll(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
 def loss_fn(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
             attention=flash_attention) -> torch.Tensor:
     """Mean next-token cross-entropy of ``forward`` on tokens (B, T), a
-    0-dim float32 tensor. The reference adds moe_aux_weight x the MoE
-    load-balancing loss for n_experts configs, which the port's config
-    refuses until the MoE FFN is ported. attention as in ``forward``."""
-    return next_token_nll(forward(params, tokens, cfg, attention), tokens)
+    0-dim float32 tensor, plus moe_aux_weight x the mean load-balancing
+    loss for MoE configs. attention as in ``forward``."""
+    logits, aux = _forward_impl(params, tokens, cfg, attention)
+    loss = next_token_nll(logits, tokens)
+    if cfg.n_experts is not None:
+        loss = loss + cfg.moe_aux_weight * aux
+    return loss

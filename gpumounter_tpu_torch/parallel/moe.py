@@ -1,0 +1,116 @@
+"""Switch-style top-1 Mixture-of-Experts FFN on one device.
+
+Counterpart of ``gpumounter_tpu/parallel/moe.py``: a router in float32
+picks one expert per token, and the layer is the reference's dense one-hot
+dispatch and combine, every expert run on every token (capacity-less, so
+shapes stay static). Its products are ``torch.einsum`` on cuBLAS; the
+reference also computes them outside any Pallas kernel, so no hand-written
+kernel belongs here.
+
+Nothing on the path reads a device value on the host and no shape depends
+on the routing, so a decode step through an MoE block can still be
+captured as one CUDA graph. ``moe_ffn_plain`` gathers each expert's tokens
+by index instead: it is the formulation the dispatch is checked against,
+and runs on no path.
+
+Not ported here: ``moe_param_specs`` and ``shard_moe_params`` (the expert
+mesh), which belong to the multi-GPU slice.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from gpumounter_tpu_torch._device import resolve_device
+
+
+def init_moe_params(generator: torch.Generator, n_experts: int, d_model: int,
+                    d_ff: int, dtype=torch.bfloat16, device="cuda") -> dict:
+    """Router (d_model, E) in float32 whatever `dtype` is; w1 (E, d_model,
+    d_ff) and w2 (E, d_ff, d_model) in `dtype`; all N(0, 0.02²), drawn from
+    `generator` on its own device and moved to `device`."""
+    device = resolve_device(device)
+
+    def normal(*shape):
+        w = torch.randn(shape, generator=generator, device=generator.device)
+        return (w * 0.02).to(device)
+
+    return {"router": normal(d_model, n_experts),
+            "w1": normal(n_experts, d_model, d_ff).to(dtype),
+            "w2": normal(n_experts, d_ff, d_model).to(dtype)}
+
+
+def _route(params: dict, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(expert index (T,), router probabilities (T, E) in float32) for
+    tokens x (T, d_model): the logits are x in float32 times the router."""
+    probs = torch.softmax(x.float() @ params["router"], dim=-1)
+    return probs.argmax(dim=-1), probs
+
+
+def moe_ffn(params: dict, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Top-1 routed FFN of tokens x (T, d_model): (output (T, d_model) in
+    x's dtype, the Switch load-balancing loss, 0-dim float32).
+
+    The reference's steps in its order and dtypes: the one-hot and the gate
+    in x's dtype, dispatch te,td->etd, the expert products, tanh GELU,
+    combine etd,te->td, then times the gate. Gradients reach the router
+    through the gate and the aux loss's mean probability only.
+    """
+    n_experts = params["router"].shape[1]
+    expert_idx, probs = _route(params, x)
+    # A comparison, not F.one_hot, whose value checks read the device.
+    onehot = (expert_idx[:, None] == torch.arange(n_experts, device=x.device)).to(x.dtype)
+    gate = probs.gather(1, expert_idx[:, None]).to(x.dtype)
+    dispatched = torch.einsum("te,td->etd", onehot, x)
+    h = F.gelu(torch.einsum("etd,edf->etf", dispatched, params["w1"]), approximate="tanh")
+    out_e = torch.einsum("etf,efd->etd", h, params["w2"])
+    combined = torch.einsum("etd,te->td", out_e, onehot) * gate
+    frac = onehot.float().mean(dim=0)
+    aux = n_experts * (frac * probs.mean(dim=0)).sum()
+    return combined, aux
+
+
+def moe_ffn_plain(params: dict, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``moe_ffn`` formulated as a loop over experts, each running only its
+    own tokens, gathered by index and scattered back: (output, aux loss,
+    expert index (T,)). Reads the routing on the host; for checks only."""
+    n_experts = params["router"].shape[1]
+    probs = torch.softmax(x.float() @ params["router"], dim=-1)
+    top, expert_idx = probs.max(dim=-1)
+    gate = top.to(x.dtype)
+    out = torch.zeros_like(x)
+    for e in range(n_experts):
+        rows = (expert_idx == e).nonzero().squeeze(1)
+        h = F.gelu(x[rows] @ params["w1"][e], approximate="tanh")
+        out[rows] = (h @ params["w2"][e]) * gate[rows, None]
+    frac = torch.bincount(expert_idx, minlength=n_experts).float() / x.shape[0]
+    aux = n_experts * (frac * probs.mean(dim=0)).sum()
+    return out, aux, expert_idx
+
+
+def make_moe_step(n_experts: int, d_model: int, d_ff: int, lr: float = 1e-2):
+    """Returns step(params, x, target) -> (new params, loss): one SGD step
+    of the loss MSE(out, target) in float32 + 0.01 x aux, the update in
+    float32 cast back to each param's dtype (the router stays float32).
+    Params are ``init_moe_params``'s dict of these sizes."""
+    shapes = {"router": (d_model, n_experts), "w1": (n_experts, d_model, d_ff),
+              "w2": (n_experts, d_ff, d_model)}
+
+    def loss_fn(params, x, target):
+        out, aux = moe_ffn(params, x)
+        return (out.float() - target.float()).square().mean() + 0.01 * aux
+
+    def step(params, x, target):
+        got = {key: tuple(value.shape) for key, value in params.items()}
+        if got != shapes:
+            raise ValueError(f"params of shapes {got}, the step was made for {shapes}")
+        leaves = {key: value.detach().requires_grad_() for key, value in params.items()}
+        loss = loss_fn(leaves, x, target)
+        grads = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+        with torch.no_grad():
+            new = {key: (value.float() - lr * grads[key].float()).to(value.dtype)
+                   for key, value in params.items()}
+        return new, loss.detach()
+
+    return step

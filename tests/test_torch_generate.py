@@ -24,6 +24,9 @@ from gpumounter_tpu_torch.models import probe as tprobe
 from gpumounter_tpu_torch.ops.flash_decode import flash_decode_kernel
 from gpumounter_tpu_torch.weights import params_from_jax
 
+from test_torch_moe import NoHostReads
+from test_torch_probe import MOE_FLAGSHIP, jax_routes, port_routes
+
 _DTYPES = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
 
 
@@ -63,6 +66,9 @@ GREEDY_CASES = {
         tprobe.TransformerConfig(n_layers=1, d_model=64, n_heads=2, d_ff=128,
                                  max_len=32, dtype=torch.float32),
         1, (1, 3), 1),
+    "moe4_flagship": (
+        tprobe.TransformerConfig(dtype=torch.float32, **MOE_FLAGSHIP),
+        2, (2, 6), 12),
 }
 
 
@@ -76,6 +82,11 @@ def test_greedy_generate_matches_reference(case):
     got = tprobe.generate(params, torch.from_numpy(prompt), cfg, n_new)
     assert got.shape == (shape[0], shape[1] + n_new)
     np.testing.assert_array_equal(got.numpy(), want)
+    if cfg.n_experts is not None:
+        # The generated sequence routes the same on both sides.
+        for w, g in zip(jax_routes(jparams, jnp.asarray(want), _jax_cfg(cfg)),
+                        port_routes(params, got, cfg), strict=True):
+            np.testing.assert_array_equal(g, w)
 
 
 def _teacher_forced(params, tokens, t0, cfg):
@@ -107,6 +118,8 @@ TEACHER_CASES = {
         tprobe.TransformerConfig(n_layers=2, d_model=64, n_heads=4,
                                  n_kv_heads=2, rope=True, d_ff=128,
                                  max_len=32, dtype=torch.bfloat16), 1e-3),
+    "moe4_flagship_f32": (
+        tprobe.TransformerConfig(dtype=torch.float32, **MOE_FLAGSHIP), 1e-5),
 }
 
 
@@ -208,6 +221,20 @@ def test_decode_step_never_reads_a_device_value_on_the_host(monkeypatch):
         torch.testing.assert_close(kc[:, :, :9], old[:, :, :9], rtol=0, atol=0)
         torch.testing.assert_close(kc[:, :, 10:], old[:, :, 10:], rtol=0,
                                    atol=0)
+
+
+def test_moe_decode_step_never_reads_a_device_value_on_the_host():
+    """An MoE decode step stays capturable: no .item(), nonzero or
+    boolean-mask indexing anywhere in it (the routing included)."""
+    cfg = tprobe.TransformerConfig(dtype=torch.bfloat16, **MOE_FLAGSHIP)
+    params = tprobe.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    prompt = torch.randint(0, cfg.vocab, (2, 9),
+                           generator=torch.Generator().manual_seed(1))
+    _, caches = tprobe.prefill(params, prompt, cfg)
+    with torch.no_grad(), NoHostReads():
+        logits = tprobe.decode_step(params, caches, prompt[:, -1],
+                                    torch.tensor(9, dtype=torch.int32), cfg)
+    assert logits.shape == (2, cfg.vocab) and torch.isfinite(logits).all()
 
 
 def test_prefill_caches_hold_the_prompt_keys_zero_filled():

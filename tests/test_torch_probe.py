@@ -19,6 +19,8 @@ import torch
 from gpumounter_tpu.models import probe as jprobe
 from gpumounter_tpu_torch.models import probe as tprobe
 from gpumounter_tpu_torch.entry import entry
+from gpumounter_tpu_torch.ops.flash_attention import flash_attention
+from gpumounter_tpu_torch.parallel.moe import _route
 from gpumounter_tpu_torch.weights import params_from_jax
 
 _DTYPES = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
@@ -45,6 +47,10 @@ def _both(cfg, seed=0):
 
 
 SMALL = dict(vocab=64, d_model=32, n_heads=4, n_layers=2, d_ff=64, max_len=16)
+# The reference's MoE probe tests' config (tests/test_probe_moe.py): the
+# dryrun flagship's dialect (d_head 4) with 4 experts.
+MOE_FLAGSHIP = dict(n_layers=2, d_model=64, n_heads=16, d_ff=128, max_len=32,
+                    n_kv_heads=8, window=8, rope=True, n_experts=4)
 # (config, atol on logits). f32: only summation order differs. bf16: the
 # two frameworks round activations at different places (1 bf16 ulp at the
 # logits' scale of ~0.02 is 1.2e-4).
@@ -56,6 +62,8 @@ FORWARD_CASES = {
                                  rope=True, **SMALL), 1e-6),
     "dense_mha_bf16": (
         tprobe.TransformerConfig(dtype=torch.bfloat16, **SMALL), 5e-4),
+    "moe4_flagship_f32": (
+        tprobe.TransformerConfig(dtype=torch.float32, **MOE_FLAGSHIP), 1e-6),
 }
 
 
@@ -75,6 +83,50 @@ def test_forward_matches_reference(case):
     nll_got = tprobe.next_token_nll(torch.from_numpy(want.copy()),
                                     torch.from_numpy(tokens)).item()
     assert nll_got == pytest.approx(nll_want, abs=1e-6)
+
+
+def jax_routes(jparams, tokens, jcfg) -> list[np.ndarray]:
+    """The reference's expert index per token (b·t,) at each MoE layer,
+    from its own block functions."""
+    b, t = tokens.shape
+    x = jparams["embed"][tokens]
+    if not jcfg.rope:
+        x = x + jparams["pos"][:t]
+    routes = []
+    for blk in jparams["blocks"]:
+        q, k, v = jprobe._qkv_heads(x, blk, jcfg)
+        q, k = jprobe._maybe_rope(q, k, jcfg, jnp.arange(t, dtype=jnp.int32))
+        heads = jprobe._attention(q, k, v, jcfg)
+        xa = x + heads.transpose(0, 2, 1, 3).reshape(b, t, -1) @ blk["wo"]
+        h = jprobe._rmsnorm(xa, blk["ln2"]).reshape(b * t, -1)
+        probs = jax.nn.softmax(h.astype(jnp.float32) @ blk["router"], axis=-1)
+        routes.append(np.asarray(jnp.argmax(probs, axis=-1)))
+        x, _ = jprobe._block(x, blk, jcfg)
+    return routes
+
+
+def port_routes(params, tokens, cfg) -> list[np.ndarray]:
+    """The port's expert index per token at each MoE layer (``_route``,
+    which ``moe_ffn`` uses)."""
+    x, routes = tprobe._embed(params, tokens, cfg), []
+    for blk in params["blocks"]:
+        xa = tprobe._attend(x, blk, cfg, flash_attention)[0]
+        routes.append(_route(blk, tprobe._rmsnorm(xa, blk["ln2"]).flatten(0, 1))[0].numpy())
+        x, _ = tprobe._finish_block(xa, blk)
+    return routes
+
+
+def test_moe_forward_routes_as_reference():
+    """Every token of every layer goes to the same expert on both sides,
+    and every expert gets tokens somewhere."""
+    cfg = tprobe.TransformerConfig(dtype=torch.float32, **MOE_FLAGSHIP)
+    jparams, params = _both(cfg, seed=4)
+    tokens = np.random.default_rng(4).integers(0, cfg.vocab, (2, 16))
+    want = jax_routes(jparams, jnp.asarray(tokens, jnp.int32), _jax_cfg(cfg))
+    got = port_routes(params, torch.from_numpy(tokens), cfg)
+    for w, g in zip(want, got, strict=True):
+        np.testing.assert_array_equal(g, w)
+    assert set(np.concatenate(got).tolist()) == set(range(cfg.n_experts))
 
 
 def test_forward_refuses_too_long_sequence():
@@ -107,6 +159,57 @@ def test_params_from_jax_checks_layout():
     with pytest.raises(ValueError, match="config says"):
         params_from_jax(tree, dataclasses.replace(cfg, dtype=torch.bfloat16),
                         "cpu")
+
+
+def test_params_from_jax_is_bit_exact_on_moe_bf16():
+    """An MoE block carries across bit for bit: the router in float32, the
+    stacked experts and the rest in bf16."""
+    cfg = tprobe.TransformerConfig(dtype=torch.bfloat16, **MOE_FLAGSHIP)
+    jparams, params = _both(cfg, seed=5)
+    for jb, tb in zip(jparams["blocks"], params["blocks"], strict=True):
+        assert set(tb) == set(jb) == {"wqkv", "wo", "ln1", "ln2", "router", "w1", "w2"}
+        for key, jw in jb.items():
+            tw = tb[key]
+            assert tuple(tw.shape) == jw.shape, key
+            if key == "router":
+                assert tw.dtype == torch.float32
+                np.testing.assert_array_equal(tw.numpy().view(np.uint32),
+                                              np.asarray(jw).view(np.uint32))
+            else:
+                assert tw.dtype == torch.bfloat16, key
+                np.testing.assert_array_equal(tw.view(torch.int16).numpy().view(np.uint16),
+                                              np.asarray(jw).view(np.uint16))
+
+
+def test_params_from_jax_checks_moe_layout():
+    cfg = tprobe.TransformerConfig(dtype=torch.bfloat16, **MOE_FLAGSHIP)
+    moe_tree = jax.tree.map(np.asarray,
+                            jprobe.init_params(_jax_cfg(cfg), jax.random.key(0)))
+    dense_cfg = dataclasses.replace(cfg, n_experts=None)
+    dense_tree = jax.tree.map(np.asarray,
+                              jprobe.init_params(_jax_cfg(dense_cfg), jax.random.key(0)))
+    # A wrong key set names both blocks, either way round.
+    for tree, c in ((dense_tree, cfg), (moe_tree, dense_cfg)):
+        with pytest.raises(ValueError, match="dense .*'w2'.*MoE .*'router'"):
+            params_from_jax(tree, c, "cpu")
+    # A router in another dtype than float32 is refused.
+    blocks = [dict(b, router=b["router"].astype(jnp.bfloat16)) for b in moe_tree["blocks"]]
+    with pytest.raises(ValueError, match=r"blocks\[0\]\.router is torch.bfloat16, "
+                                         r"config says torch.float32"):
+        params_from_jax(dict(moe_tree, blocks=blocks), cfg, "cpu")
+    # Experts that do not match n_experts are refused.
+    with pytest.raises(ValueError, match="stacked experts"):
+        params_from_jax(moe_tree, dataclasses.replace(cfg, n_experts=8), "cpu")
+
+
+def test_moe_init_params_layout_matches_reference():
+    cfg = tprobe.TransformerConfig(dtype=torch.bfloat16, **MOE_FLAGSHIP)
+    params = tprobe.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    want = jprobe.init_params(_jax_cfg(cfg), jax.random.key(0))
+    for tb, jb in zip(params["blocks"], want["blocks"], strict=True):
+        assert {k: (tuple(v.shape), v.dtype) for k, v in tb.items()} == {
+            k: (v.shape, torch.float32 if k == "router" else torch.bfloat16)
+            for k, v in jb.items()}
 
 
 def test_init_params_layout_matches_reference():
@@ -145,8 +248,7 @@ def test_config_checks_match_reference(case):
     assert str(got.value) == str(want.value)
 
 
-@pytest.mark.parametrize("kwargs", [dict(n_experts=4),
-                                    dict(attn_parallel="seq")])
+@pytest.mark.parametrize("kwargs", [dict(attn_parallel="seq")])
 def test_unported_config_options_raise(kwargs):
     jprobe.TransformerConfig(**kwargs)  # valid in the reference
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -29,7 +29,7 @@ from gpumounter_tpu_torch.parallel.train_step import (loss_and_grads,
                                                       make_train_step_optim,
                                                       tree_leaves, tree_map)
 
-from test_torch_probe import SMALL, _both, _jax_cfg
+from test_torch_probe import MOE_FLAGSHIP, SMALL, _both, _jax_cfg
 
 
 @pytest.fixture(autouse=True)
@@ -85,6 +85,8 @@ LOSS_CASES = {
                              2e-6, 1e-6, False),
     "dense_mha_bf16": (tprobe.TransformerConfig(dtype=torch.bfloat16, **SMALL),
                        1e-4, 3e-2, True),
+    "moe4_flagship_f32": (tprobe.TransformerConfig(dtype=torch.float32, **MOE_FLAGSHIP),
+                          2e-6, 1e-6, False),
 }
 
 
@@ -114,6 +116,39 @@ def test_loss_and_grads_match_reference_pallas_backward():
     loss, grads = loss_and_grads(params, torch.from_numpy(tokens), cfg)
     assert loss.item() == pytest.approx(want_loss, abs=2e-6)
     _assert_tree_close(grads, want_grads, 1e-6)
+
+
+def test_moe_aux_weight_enters_the_loss():
+    """loss_fn = the nll of forward + moe_aux_weight x the mean aux, on both
+    sides; the Switch aux is ~1 at init, so weight 0.5 against 0 moves the
+    loss by about 0.5."""
+    cfg = tprobe.TransformerConfig(dtype=torch.float32, **MOE_FLAGSHIP)
+    jparams, params = _both(cfg, seed=6)
+    tokens = _tokens(cfg, seed=6)
+    losses = {}
+    for weight in (0.0, 0.01, 0.5):
+        c = dataclasses.replace(cfg, moe_aux_weight=weight)
+        want = float(jprobe.loss_fn(jparams, jnp.asarray(tokens, jnp.int32), _jax_cfg(c)))
+        losses[weight] = tprobe.loss_fn(params, torch.from_numpy(tokens), c).item()
+        assert losses[weight] == pytest.approx(want, abs=2e-6), weight
+    nll = tprobe.next_token_nll(tprobe.forward(params, torch.from_numpy(tokens), cfg),
+                                torch.from_numpy(tokens)).item()
+    assert losses[0.0] == pytest.approx(nll, abs=1e-6)
+    aux = (losses[0.5] - losses[0.0]) / 0.5
+    assert 0.9 < aux < 1.5
+    assert losses[0.01] - losses[0.0] == pytest.approx(0.01 * aux, abs=1e-5)
+
+
+def test_moe_tree_leaves_order_matches_jax():
+    """An MoE block's leaves in jax.tree.leaves's order (ln1, ln2, router,
+    w1, w2, wo, wqkv), so grads and optimizer state line up leaf by leaf."""
+    cfg = tprobe.TransformerConfig(dtype=torch.float32, **MOE_FLAGSHIP)
+    jparams, params = _both(cfg)
+    want = jax.tree.leaves(jparams["blocks"])
+    got = tree_leaves(params)[1:]  # after embed (rope: no pos table)
+    assert len(got) == len(want) == 7 * cfg.n_layers
+    for g, w in zip(got, want, strict=True):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
 
 def test_loss_fn_is_the_nll_of_forward():
@@ -148,8 +183,60 @@ def test_three_sgd_steps_match_reference():
     _assert_tree_close(params, jax.tree.map(np.asarray, jparams), 1e-6)
 
 
+def test_three_sgd_steps_match_reference_moe():
+    """The MoE flagship: 3 SGD steps, the router kept float32 by the f32
+    update of a bf16 model."""
+    cfg = tprobe.TransformerConfig(dtype=torch.float32, **MOE_FLAGSHIP)
+    jparams, params = _both(cfg, seed=7)
+    jcfg, lr = _jax_cfg(cfg), 0.1
+    step = make_train_step(cfg, lr=lr)
+    for i in range(3):
+        tokens = _tokens(cfg, seed=30 + i)
+        want_loss, grads = _jax_value_and_grad(jparams, tokens, jcfg)
+        jparams = jax_sgd_update(jparams, grads, lr)
+        params, loss = step(params, torch.from_numpy(tokens))
+        assert loss.item() == pytest.approx(want_loss, abs=2e-6), i
+    _assert_tree_close(params, jax.tree.map(np.asarray, jparams), 1e-6)
+    bf16 = tprobe.TransformerConfig(dtype=torch.bfloat16, **MOE_FLAGSHIP)
+    _, p16 = _both(bf16)
+    new, _ = make_train_step(bf16, lr=lr)(p16, torch.from_numpy(_tokens(bf16)))
+    for blk in new["blocks"]:
+        assert blk["router"].dtype == torch.float32 and blk["w1"].dtype == torch.bfloat16
+
+
 def test_three_adamw_steps_match_optax():
     cfg = tprobe.TransformerConfig(dtype=torch.float32, **SMALL)
+    params, jparams, _ = _adamw_steps(cfg)
+    # Adam divides each grad by sqrt(v), so where a grad is near 0 its f32
+    # rounding differences reach the update whole: allow 1% of one step's
+    # lr (2.1e-5 seen on one weight of 2048).
+    _assert_tree_close(params, jax.tree.map(np.asarray, jparams), 1e-4)
+
+
+def test_three_adamw_steps_match_optax_moe():
+    """The MoE flagship under AdamW; the router stays float32. This
+    config's grads are small (sqrt of Adam's second moment below 1e-6 on
+    half of one layer's wqkv), and Adam divides each grad by that RMS, so
+    a grad error Δg moves a step's update by up to lr·Δg/(sqrt(v) + eps).
+    With Δg at the 1e-6 the loss-and-grads case holds the grads to, each
+    weight is held within 1e-4 + 3 steps of lr·min(1, 1e-6/(sqrt(v) +
+    eps)), v optax's second moment after the steps (3.4e-4 seen on one
+    expert weight whose grads' RMS is 3.7e-8)."""
+    cfg = tprobe.TransformerConfig(dtype=torch.float32, **MOE_FLAGSHIP)
+    params, jparams, jstate = _adamw_steps(cfg)
+
+    def check(got, want, v):
+        diff = np.abs(got.detach().numpy() - np.asarray(want))
+        limit = 1e-4 + 3 * 1e-2 * np.minimum(1.0, 1e-6 / (np.sqrt(np.asarray(v)) + 1e-8))
+        assert got.dtype == torch.float32 and (diff <= limit).all(), diff.max()
+
+    tree_map(check, params, *(jax.tree.map(np.asarray, t) for t in (jparams, jstate[0].nu)))
+
+
+def _adamw_steps(cfg):
+    """3 AdamW steps (lr 1e-2, weight decay 1e-4) of the port and of optax
+    from the same weights, the losses held within 2e-6; returns (port
+    params, reference params, optax state)."""
     jparams, params = _both(cfg, seed=3)
     jcfg, lr, wd = _jax_cfg(cfg), 1e-2, 1e-4
     tx = optax.adamw(lr, b1=0.9, b2=0.999, eps=1e-8, weight_decay=wd)
@@ -166,10 +253,7 @@ def test_three_adamw_steps_match_optax():
         params, opt_state, loss = step_fn(params, opt_state,
                                           torch.from_numpy(tokens))
         assert loss.item() == pytest.approx(want_loss, abs=2e-6), i
-    # Adam divides each grad by sqrt(v), so where a grad is near 0 its f32
-    # rounding differences reach the update whole: allow 1% of one step's
-    # lr (2.1e-5 seen on one weight of 2048).
-    _assert_tree_close(params, jax.tree.map(np.asarray, jparams), 1e-4)
+    return params, jparams, jstate
 
 
 def test_train_check_runs_on_cpu():
