@@ -21,30 +21,41 @@ Phases, each raising on failure (any failure exits non-zero):
    - the forward on 3 batches of 4 x 2048 random tokens, its logits held
      against the same forward with the plain attention;
    - serving: greedy ``generate`` from 4 random prompts of 1536 tokens, 512
-     new tokens (up to max_len), teacher-forced ``prefill`` +
-     ``decode_step`` logits held against ``forward`` at every generated
-     position, and seeded sampling checked for reproducibility;
+     new tokens (up to max_len), the first decode step eager and the other
+     510 replays of one captured step, the launch counts following the
+     replays (``ops.graphs``); teacher-forced ``prefill`` + ``decode_step``
+     logits held against ``forward`` at every generated position; the
+     captured loop's tokens held bit for bit against ``generate_loop`` with
+     capture=False, greedy and seeded (a CUDA generator, 512 tokens), seeded
+     sampling reproducible per seed and different across seeds, and
+     ``torch.cuda.memory_allocated()`` unchanged over repeated calls;
    - training: 3 SGD steps of ``make_train_step`` on 4 x 2048 random
      tokens, the grads of one batch held leaf by leaf against the grads
      through the plain attention; then ``entry.train_check()``;
 4. capture one greedy ``decode_step`` as a CUDA graph and replay it at two
-   cache lengths, each against an eager step and the forward;
+   cache lengths, each against an eager step and the forward (a raw
+   replay goes through no wrapper; a counted replay adds n_layers
+   ``flash_decode`` launches);
    then the MoE probe (the same config with 8 experts): ``moe_ffn`` against
    ``moe_ffn_plain`` at (8192, 1024) in bf16 and f32, and its forward,
-   serving (with the captured step) and training paths as above, each
+   serving (the captured loop and its checks, and the captured step) and
+   training paths as above, each
    held block by block against the plain attention (or, serving, against
    the forward's blocks) because a top-1 routing near tie may flip between
    two runs, then ``entry.moe_check()``;
 5. time each kernel, its plain version and the PyTorch library call that
    computes the same function (kernels and library calls as device time by
    replaying a CUDA graph of 20 calls, and ``flash_fwd`` and SDPA also
-   eagerly per call), the forward, the prefill and the decode loop, and the
-   train step split into forward, backward and update, with CUDA events;
+   eagerly per call), the forward, the prefill, the whole greedy
+   ``generate``, its capture and its replayed loop (ms per step, decode
+   tokens/s, and the share of it the replayed step's device time fills),
+   the eager loop beside it, and the train step split into forward,
+   backward and update, with CUDA events;
    the backward kernels also with GQA H_kv 2 and window 255, ``flash_decode``
    also at a GQA shape (H 32, H_kv 4) with its achieved TB/s and the device
    time of its split kernel and of its merge from ``torch.profiler``; and
    print the slowest device kernels of one SGD step from ``torch.profiler``;
-   the MoE forward, SGD step (split, profiled), prefill and decode loop.
+   the MoE forward, SGD step (split, profiled), prefill and decode loops.
 
 The last lines are a JSON object per kernel (``{"kernels": [...]}``) and
 ``{"ok": true, "device": {...}}``. Needs a CUDA card; imports no JAX.
@@ -55,6 +66,7 @@ from __future__ import annotations
 import json
 import math
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -68,11 +80,13 @@ from torch.nn.attention.bias import causal_lower_right
 from gpumounter_tpu_torch.entry import (MOE_ROUTE_GAP, _masked_err, moe_blocks_vs_plain,
                                         moe_check, route_flips, train_check)
 from gpumounter_tpu_torch.models.probe import (TransformerConfig, _attend, _attend_decode,
-                                               _embed, _finish_block, _forward_impl,
-                                               decode_step, forward, generate, init_params,
-                                               loss_fn, next_token_nll, prefill)
+                                               _decoder, _embed, _finish_block, _forward_impl,
+                                               _picker, decode_step, forward, generate,
+                                               generate_loop, init_params, loss_fn,
+                                               next_token_nll, prefill)
 from gpumounter_tpu_torch.parallel.moe import _route, init_moe_params, moe_ffn, moe_ffn_plain
 from gpumounter_tpu_torch.ops import _build
+from gpumounter_tpu_torch.ops.graphs import capture
 from gpumounter_tpu_torch.ops.flash_attention import (_band_mask, _bwd_launch,
                                                       attention_bwd_plain,
                                                       attention_plain, flash_attention,
@@ -109,7 +123,7 @@ LOGITS_RTOL_OF_MAX = 2e-2
 NLL_ATOL = 1e-3  # the mean over 4 x 2047 positions smooths those errors
 NLL_ABOVE_UNIFORM = 0.5
 # Serving at full width: prompts of 1536 tokens, decoding up to max_len.
-SERVE = dict(B=4, T0=1536, N_NEW=512, N_SAMPLED=64)
+SERVE = dict(B=4, T0=1536, N_NEW=512)
 # Decode timings: the repo's decode bench shape (bench_flash_features.py:289)
 # at three valid lengths, a GQA decode shape (group 8), and the serving shape.
 DECODE_BENCH = dict(B=4, H=8, L_Q=8, D=128, L_MAX=32768, LENS=(1024, 8192, 32768))
@@ -146,10 +160,9 @@ MOE_AUX_ATOL = 1e-5
 MOE_SERVE_NLL_ATOL = 0.05
 
 
-def _card() -> str:
+def _card(query: str = "name,power.limit") -> str:
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
 
@@ -224,27 +237,13 @@ def _cycle(fns):
     return call
 
 
-def _capture(fn):
-    """(a CUDA graph of fn(), fn's output in the graph's memory), after one
-    eager warm-up call on a side stream. A host sync inside fn makes the
-    capture raise."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        out = fn()
-    return graph, out
-
-
 def _graph_ms(fns, calls: int = 20, replays: int = 5) -> float:
     """Device time per call of fns (taken in turn), without the host's
-    launch overhead: `calls` calls are captured once in a CUDA graph and
-    the graph's replays timed with CUDA events."""
+    launch overhead: `calls` calls are captured once in a CUDA graph (after
+    one eager warm-up call) and the graph's replays timed with CUDA
+    events."""
     call = _cycle(fns)
-    graph, _ = _capture(lambda: [call() for _ in range(calls)])
+    graph, _, _ = capture(lambda: [call() for _ in range(calls)])
     return _time_ms(graph.replay, replays, warmup=1) / calls
 
 
@@ -691,18 +690,46 @@ def phase_serving(cfg, params, prompt) -> tuple[int, int, torch.Tensor, torch.Te
           f"tokens within {gap:.3g} of forward's max (limit {limit:.3g} = "
           f"{LOGITS_RTOL_OF_MAX} x max |logits|)", flush=True)
 
-    def sample(seed):
-        return generate(params, prompt, cfg, SERVE["N_SAMPLED"],
-                        torch.Generator(device="cuda").manual_seed(seed), 1.0)
-
-    a, b, c = sample(1), sample(1), sample(2)
-    if not torch.equal(a, b) or torch.equal(a, c) or a.min() < 0 or a.max() >= cfg.vocab:
-        raise RuntimeError("sampled generate: not reproducible per seed, equal "
-                           "across seeds, or out of range")
-    print(f"serving path: sampled generate ({SERVE['N_SAMPLED']} tokens, T=1) "
-          f"reproducible per generator seed, different across seeds, in range",
-          flush=True)
+    _check_captured_loop(cfg, params, prompt, tokens, "serving path")
     return fwd, dec, tokens, ref
+
+
+def _check_captured_loop(cfg, params, prompt, tokens, what) -> None:
+    """generate's captured loop against generate_loop(capture=False), bit
+    for bit: greedy (`tokens`, the counted run's) and seeded (a CUDA
+    generator, T=1); seeded sampling reproducible per seed and different
+    across seeds; torch.cuda.memory_allocated() the same after two more
+    greedy calls (each call's graph and pool go with it)."""
+    n_new = SERVE["N_NEW"]
+    eager = generate_loop(params, prompt, cfg, n_new, capture=False)
+    if not torch.equal(tokens, eager):
+        raise RuntimeError(f"{what}: captured greedy tokens differ from the eager loop's at "
+                           f"{int((tokens != eager).sum())} places")
+
+    def sample(seed, captured=True):
+        return generate_loop(params, prompt, cfg, n_new, torch.Generator(device="cuda").manual_seed(seed),
+                             1.0, capture=captured)
+
+    a, b, c, e = sample(1), sample(1), sample(2), sample(1, captured=False)
+    if (not torch.equal(a, e) or not torch.equal(a, b) or torch.equal(a, c)
+            or a.min() < 0 or a.max() >= cfg.vocab):
+        raise RuntimeError(f"{what}: sampled tokens captured vs eager equal {torch.equal(a, e)}, "
+                           f"reproducible {torch.equal(a, b)}, equal across seeds "
+                           f"{torch.equal(a, c)}, in range {0 <= a.min() and a.max() < cfg.vocab}")
+    del a, b, c, e, eager
+    torch.cuda.synchronize()
+    allocated = [torch.cuda.memory_allocated()]
+    for _ in range(2):
+        if not torch.equal(generate(params, prompt, cfg, n_new), tokens):
+            raise RuntimeError(f"{what}: a repeated greedy generate gave other tokens")
+        torch.cuda.synchronize()
+        allocated.append(torch.cuda.memory_allocated())
+    if len(set(allocated)) != 1:
+        raise RuntimeError(f"{what}: memory_allocated over repeated generate calls {allocated}")
+    print(f"{what}: captured loop bit-equal to capture=False, greedy and sampled ({n_new} "
+          f"tokens, T=1, a CUDA generator); sampled reproducible per seed, different across "
+          f"seeds, in range; greedy reruns equal; memory_allocated {allocated[0]} B, the same "
+          f"after each of two more calls", flush=True)
 
 
 def phase_graph(cfg, params, tokens, ref, card) -> float:
@@ -716,7 +743,18 @@ def phase_graph(cfg, params, tokens, ref, card) -> float:
     _, caches = prefill(params, tokens[:, :lens[1]], cfg)
     token = tokens[:, lens[0]].clone()
     cur_len = torch.full((), lens[0], dtype=torch.int32, device="cuda")
-    graph, logits = _capture(lambda: decode_step(params, caches, token, cur_len, cfg))
+    before = flash_decode_kernel.launches
+    graph, replay, logits = capture(lambda: decode_step(params, caches, token, cur_len, cfg))
+    # The eager warm-up counts its launches; the capture's are taken out,
+    # and a counted replay adds them once.
+    if flash_decode_kernel.launches - before != cfg.n_layers:
+        raise RuntimeError(f"warm-up and capture counted {flash_decode_kernel.launches - before} "
+                           f"flash_decode launches, expected the warm-up's {cfg.n_layers}")
+    before = flash_decode_kernel.launches
+    replay()
+    if flash_decode_kernel.launches - before != cfg.n_layers:
+        raise RuntimeError(f"a counted replay added {flash_decode_kernel.launches - before} "
+                           f"flash_decode launches, expected n_layers = {cfg.n_layers}")
     for n in lens:
         token.copy_(tokens[:, n])
         cur_len.fill_(n)
@@ -738,7 +776,7 @@ def phase_graph(cfg, params, tokens, ref, card) -> float:
               f"length {n + 1}: vs eager max abs err {err:.3g} (bit-equal "
               f"{torch.equal(replayed, eager)}), vs forward {ref_err:.3g} (limit {limit:.3g}"
               f"{'' if cfg.n_experts is None else ', not held: routing flips'}), no wrapper "
-              f"launch during replay", flush=True)
+              f"launch during replay (a counted replay adds n_layers)", flush=True)
     ms = _time_ms(graph.replay, 50)
     print(f"time{' MoE' if cfg.n_experts else ''} decode_step as a replayed CUDA graph "
           f"B{tokens.shape[0]}: {ms:.4f} ms [{card}]", flush=True)
@@ -949,29 +987,76 @@ def phase_decode_timings(gen, card) -> dict:
     return out
 
 
+def _runs(values) -> str:
+    """The median of runs, then every run: work on the host (a capture, an
+    eager loop) spreads widely between runs on a shared host."""
+    return f"{statistics.median(values):.3f} ms (runs {', '.join(f'{x:.3f}' for x in values)})"
+
+
 def phase_serving_timings(cfg, params, prompt, graph_step_ms, card) -> None:
-    """Prefill alone (eagerly, and its device time by graph replay), then
-    the whole greedy generate; the decode loop is their difference. The replayed graph of one step (phase 4) is the
-    step's device time, so its share of the eager step bounds how busy the
-    card is in the eager loop."""
-    n_new = SERVE["N_NEW"]
+    """The whole greedy generate, each call by the host's clock between two
+    synchronizes; prefill alone (eagerly, and its device time by graph
+    replay); then generate's pieces as it runs them (``probe._decoder``,
+    ``ops.graphs.capture``, the counted replays): the first step and the
+    capture by the host's clock, and the replayed loop by CUDA events
+    around its replays. The replayed graph of one decode_step (phase 4) is
+    the step's device time, so its share of a step of the loop is how busy
+    the loop keeps the card. Then the eager loop (generate_loop with
+    capture=False) beside it."""
+    n_new, b = SERVE["N_NEW"], prompt.shape[0]
+    moe = " MoE" if cfg.n_experts else ""
+
+    def host_ms(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3, out
+
+    gen = [host_ms(lambda: generate(params, prompt, cfg, n_new))[0] for _ in range(6)][1:]
     prefill_ms = _time_ms(lambda: prefill(params, prompt, cfg), 5, warmup=1)
     prefill_device_ms = _graph_ms([lambda: prefill(params, prompt, cfg)], calls=5)
-    gen_ms = _time_ms(lambda: generate(params, prompt, cfg, n_new), 3, warmup=1)
+    eager = [host_ms(lambda: generate_loop(params, prompt, cfg, n_new, capture=False))[0]
+             for _ in range(3)]
+    eager_step_ms = (statistics.median(eager) - prefill_ms) / (n_new - 1)
+    first, loop, reserved, enqueue, clocks = [], [], [], [], []
+    for _ in range(3):
+        step, out = _decoder(params, prompt, cfg, n_new, _picker(None, None))
+        # What the capture's empty_cache (torch.cuda.graph's) may free.
+        reserved.append(torch.cuda.memory_reserved() / 2**30)
+        ms, (_, replay, _) = host_ms(lambda: capture(step))
+        first.append(ms)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        t = time.perf_counter()
+        for _ in range(n_new - 2):
+            replay()
+        enqueue.append((time.perf_counter() - t) * 1e3)
+        end.record()
+        # Read while the card still runs the replays the host has queued.
+        clocks.append(_card("clocks.sm,power.draw"))
+        torch.cuda.synchronize()
+        loop.append(start.elapsed_time(end))
+        del step, out, replay
+    gen_ms, loop_ms = statistics.median(gen), statistics.median(loop)
+    replay_ms = loop_ms / (n_new - 2)
     decode_ms = gen_ms - prefill_ms
-    steps = n_new - 1
-    tok_s = prompt.shape[0] * steps / (decode_ms / 1e3)
-    moe = " MoE" if cfg.n_experts else ""
-    print(f"time{moe} serving B{prompt.shape[0]} prompt {prompt.shape[1]} n_new {n_new}: "
-          f"generate {gen_ms:.3f} ms, prefill {prefill_ms:.3f} ms (device, graph-replayed: "
-          f"{prefill_device_ms:.3f} ms), decode "
-          f"{decode_ms:.3f} ms = {decode_ms / steps:.4f} ms per step over {steps} "
-          f"steps, {tok_s:.0f} decode tokens/s [{card}]", flush=True)
-    step_ms = decode_ms / steps
-    print(f"time{moe} decode step: eager {step_ms:.4f} ms vs graph-replayed {graph_step_ms:.4f} "
-          f"ms; card busy at most {graph_step_ms / step_ms:.1%} of the eager loop, "
-          f"{prompt.shape[0] / (graph_step_ms / 1e3):.0f} tokens/s if every step were "
-          f"replayed [{card}]", flush=True)
+    print(f"time{moe} serving B{b} prompt {prompt.shape[1]} n_new {n_new}: generate "
+          f"{_runs(gen)}, prefill {prefill_ms:.3f} ms (device, graph-replayed: "
+          f"{prefill_device_ms:.3f} ms), decode {decode_ms:.3f} ms = "
+          f"{b * (n_new - 1) / (decode_ms / 1e3):.0f} decode tokens/s over {n_new - 1} steps "
+          f"(the first eager, the capture included) [{card}]", flush=True)
+    print(f"time{moe} captured loop: first step + capture {_runs(first)}, the capture alone ≈ "
+          f"{statistics.median(first) - eager_step_ms:.3f} ms (less an eager step; the allocator "
+          f"held {', '.join(f'{x:.2f}' for x in reserved)} GiB before each); replayed "
+          f"loop {_runs(loop)} by CUDA events = {replay_ms:.4f} ms per step over {n_new - 2} "
+          f"replays, {b / (replay_ms / 1e3):.0f} decode tokens/s; decode_step's replayed device "
+          f"time {graph_step_ms:.4f} ms = {graph_step_ms / replay_ms:.1%} of a step of the loop "
+          f"(card busy); the host queued the replays in {_runs(enqueue)}; SM clock and power "
+          f"during the loops: {'; '.join(clocks)} [{card}]", flush=True)
+    print(f"time{moe} eager loop (capture=False): generate {_runs(eager)}, "
+          f"{eager_step_ms:.4f} ms per step, {b / (eager_step_ms / 1e3):.0f} decode tokens/s, "
+          f"card busy at most {graph_step_ms / eager_step_ms:.1%} [{card}]", flush=True)
 
 
 def phase_moe_ffn_vs_plain(gen) -> float:
@@ -1207,16 +1292,7 @@ def phase_moe_serving(cfg, params, prompt) -> tuple[int, int, torch.Tensor, torc
           f"{chosen.numel()} greedy tokens below forward's max by more than that", flush=True)
     _print_blocks("MoE serving", _serving_blocks_vs_forward(cfg, params, tokens, t0))
 
-    def sample(seed):
-        return generate(params, prompt, cfg, SERVE["N_SAMPLED"],
-                        torch.Generator(device="cuda").manual_seed(seed), 1.0)
-
-    a, b, c = sample(1), sample(1), sample(2)
-    if not torch.equal(a, b) or torch.equal(a, c) or a.min() < 0 or a.max() >= cfg.vocab:
-        raise RuntimeError("MoE sampled generate: not reproducible per seed, equal across "
-                           "seeds, or out of range")
-    print(f"MoE serving: sampled generate ({SERVE['N_SAMPLED']} tokens, T=1) reproducible per "
-          f"generator seed, different across seeds, in range", flush=True)
+    _check_captured_loop(cfg, params, prompt, tokens, "MoE serving")
     return fwd, dec, tokens, ref
 
 

@@ -11,8 +11,10 @@ across without transposes (``weights.params_from_jax``).
 
 Serving: ``prefill`` fills a fixed-shape cache per layer, ``decode_step``
 adds one token at a cache length held on the device (no host sync, so a
-step can be captured as one CUDA graph), and ``generate`` loops them. The
-port updates the caches in place where the reference threads new arrays
+step can be captured as one CUDA graph), and ``generate`` loops them: on
+a CUDA prompt as replays of one captured step, the counterpart of the
+reference's jitted scan. The port updates the caches, the token, the
+length and the output in place where the reference threads new arrays
 through its scan.
 
 Training: ``loss_fn`` is the mean next-token NLL of ``forward``, which is
@@ -40,6 +42,7 @@ import torch.nn.functional as F
 from gpumounter_tpu_torch._device import resolve_device
 from gpumounter_tpu_torch.ops.flash_attention import flash_attention
 from gpumounter_tpu_torch.ops.flash_decode import flash_decode
+from gpumounter_tpu_torch.ops.graphs import capture as capture_graph
 from gpumounter_tpu_torch.parallel.moe import init_moe_params, moe_ffn
 
 
@@ -319,16 +322,82 @@ def generate(params: dict, prompt: torch.Tensor, cfg: TransformerConfig,
     prefill runs the full forward once (filling the caches); then n_new − 1
     decode steps each attend through flash_decode at a cache length held on
     the device, so every step launches the same kernels with the same
-    shapes.
+    shapes. On a CUDA prompt the steps after the first are replays of one
+    CUDA graph of a step, as the reference's jitted scan is one program
+    (``generate_loop`` with capture=True); on a CPU prompt every step runs
+    eagerly.
 
     generator None (default): greedy argmax decoding. generator given:
     sample from softmax(logits / temperature) (temperature defaults to 1.0)
     by the Gumbel-max trick, the noise drawn from `generator` on its own
-    device. The two frameworks' random streams differ, so sampled tokens do
-    not match the reference's; greedy tokens do.
+    device, which must be the prompt's on a CUDA prompt. The two
+    frameworks' random streams differ, so sampled tokens do not match the
+    reference's; greedy tokens do.
+    """
+    return generate_loop(params, prompt, cfg, n_new, generator, temperature,
+                         capture=prompt.is_cuda)
+
+
+def _picker(generator, temperature):
+    """pick(logits) -> (B,) int64 tokens: argmax, or with a generator the
+    argmax of logits / temperature plus Gumbel noise drawn from it."""
+
+    def pick(logits):
+        if generator is None:
+            return logits.argmax(dim=-1)
+        u = torch.rand(logits.shape, generator=generator,
+                       device=generator.device).to(logits.device)
+        gumbel = -torch.log(-torch.log(u.clamp_min(torch.finfo(u.dtype).tiny)))
+        return (logits / temperature + gumbel).argmax(dim=-1)
+
+    return pick
+
+
+def _decoder(params, prompt, cfg, n_new, pick):
+    """(step, out) after the prefill of `prompt` (B, t0): out (B, n_new)
+    holds new token #1, the prefill's pick, in column 0; each step() is one
+    decode step on static buffers, all updated in place: the model step on
+    the last token at the length cur_len (0-dim int32 on the device), its
+    pick written to the token and to column cur_len − t0 + 1 of out through
+    a device index, then cur_len + 1. Nothing is read on the host, and
+    every buffer a replay reads is the one the capture saw."""
+    b, t0 = prompt.shape
+    logits, caches = prefill(params, prompt, cfg)
+    token = pick(logits)
+    out = torch.empty((b, n_new), dtype=prompt.dtype, device=prompt.device)
+    out[:, 0] = token
+    cur_len = torch.full((), t0, dtype=torch.int32, device=prompt.device)
+
+    def step():
+        nxt = pick(decode_step(params, caches, token, cur_len, cfg))
+        token.copy_(nxt)
+        column = (cur_len - (t0 - 1)).reshape(1).long()
+        out.index_copy_(1, column, nxt[:, None].to(out.dtype))
+        cur_len.add_(1)
+
+    return step, out
+
+
+@torch.no_grad()
+def generate_loop(params: dict, prompt: torch.Tensor, cfg: TransformerConfig,
+                  n_new: int, generator: torch.Generator | None = None,
+                  temperature: float | torch.Tensor | None = None, *,
+                  capture: bool) -> torch.Tensor:
+    """``generate``'s body, the decode loop chosen by `capture`.
+
+    capture=False runs every decode step eagerly. capture=True (a CUDA
+    prompt only) runs the first step eagerly on the capture stream, then
+    captures one step as a CUDA graph (``ops.graphs.capture``) and replays
+    it for every further step, the launch counts following the replays.
+    The graph lives for this call. Both give the same tokens: the same
+    kernels on the same inputs, and the generator registered with the
+    graph, so every replay draws the noise the eager step would. A failed
+    capture or replay raises; nothing falls back to the eager loop.
     """
     if n_new < 0:
         raise ValueError(f"n_new must be >= 0, got {n_new}")
+    if capture and not prompt.is_cuda:
+        raise ValueError(f"capture needs a CUDA prompt, got one on {prompt.device}")
     if n_new == 0:
         return prompt
     if prompt.shape[1] + n_new > cfg.max_len:
@@ -340,6 +409,14 @@ def generate(params: dict, prompt: torch.Tensor, cfg: TransformerConfig,
     if (generator is not None and isinstance(temperature, (int, float))
             and not temperature > 0):  # `not >` also rejects NaN
         raise ValueError(f"temperature must be > 0, got {temperature}")
+    # A graph records one host-to-device copy of a CPU generator's noise and
+    # would replay that same noise at every step.
+    if capture and generator is not None and (
+            generator.device.type != prompt.device.type
+            or generator.device.index not in (None, prompt.device.index)):
+        raise ValueError(f"a captured loop draws its noise on the prompt's "
+                         f"device {prompt.device}; the generator is on "
+                         f"{generator.device}")
     if temperature is None:
         temperature = 1.0
     # A tensor temperature bypasses the check above: floor it, as the
@@ -348,26 +425,18 @@ def generate(params: dict, prompt: torch.Tensor, cfg: TransformerConfig,
                                   device=prompt.device)
     temperature = torch.where(temperature > 0, temperature,
                               torch.full_like(temperature, 1e-6))
-
-    def pick(logits):
-        if generator is None:
-            return logits.argmax(dim=-1)
-        u = torch.rand(logits.shape, generator=generator,
-                       device=generator.device).to(logits.device)
-        gumbel = -torch.log(-torch.log(u.clamp_min(torch.finfo(u.dtype).tiny)))
-        return (logits / temperature + gumbel).argmax(dim=-1)
-
-    logits, caches = prefill(params, prompt, cfg)
-    token = pick(logits)
-    new = [token]
-    cur_len = torch.full((), prompt.shape[1], dtype=torch.int32,
-                         device=prompt.device)
+    step, out = _decoder(params, prompt, cfg, n_new, _picker(generator, temperature))
     # The prefill's pick is new token #1, so n_new − 1 steps remain.
-    for _ in range(n_new - 1):
-        token = pick(decode_step(params, caches, token, cur_len, cfg))
-        new.append(token)
-        cur_len = cur_len + 1
-    return torch.cat([prompt, torch.stack(new, dim=1).to(prompt.dtype)], dim=1)
+    steps = n_new - 1
+    if capture and steps > 1:
+        generators = () if generator is None else (generator,)
+        _, replay, _ = capture_graph(step, generators)
+        for _ in range(steps - 1):
+            replay()
+    else:
+        for _ in range(steps):
+            step()
+    return torch.cat([prompt, out], dim=1)
 
 
 def next_token_nll(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:

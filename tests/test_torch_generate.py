@@ -6,6 +6,12 @@ JAX ``init_params`` weights go through numpy into the port
 ``generate`` (its decode kernel in interpret mode, ``attn_backend="xla"``
 for the prefill); teacher-forced decode logits must equal the reference's
 ``forward`` on the same sequence.
+
+On the CPU ``generate`` runs its in-place step body eagerly; the same body
+is what a CUDA prompt captures and replays. Here it is held against a
+plain loop and run under ``NoHostReads``, and the replay counts are driven
+with a stand-in graph; the captured loop itself is tested on the card
+(``test_torch_generate_gpu.py``).
 """
 
 from __future__ import annotations
@@ -21,6 +27,8 @@ import torch
 
 from gpumounter_tpu.models import probe as jprobe
 from gpumounter_tpu_torch.models import probe as tprobe
+from gpumounter_tpu_torch.ops import graphs
+from gpumounter_tpu_torch.ops.flash_attention import flash_attention_kernel
 from gpumounter_tpu_torch.ops.flash_decode import flash_decode_kernel
 from gpumounter_tpu_torch.weights import params_from_jax
 
@@ -82,11 +90,132 @@ def test_greedy_generate_matches_reference(case):
     got = tprobe.generate(params, torch.from_numpy(prompt), cfg, n_new)
     assert got.shape == (shape[0], shape[1] + n_new)
     np.testing.assert_array_equal(got.numpy(), want)
+    # The in-place step loop gives the plain loop's tokens.
+    np.testing.assert_array_equal(
+        _plain_loop(params, torch.from_numpy(prompt), cfg, n_new).numpy(), want)
     if cfg.n_experts is not None:
         # The generated sequence routes the same on both sides.
         for w, g in zip(jax_routes(jparams, jnp.asarray(want), _jax_cfg(cfg)),
                         port_routes(params, got, cfg), strict=True):
             np.testing.assert_array_equal(g, w)
+
+
+def _plain_loop(params, prompt, cfg, n_new, generator=None, temperature=1.0):
+    """The decode loop written plainly: a list of picked tokens and a new
+    length tensor each step, the noise drawn as generate draws it."""
+
+    def pick(logits):
+        if generator is None:
+            return logits.argmax(dim=-1)
+        u = torch.rand(logits.shape, generator=generator)
+        gumbel = -torch.log(-torch.log(u.clamp_min(torch.finfo(u.dtype).tiny)))
+        return (logits / temperature + gumbel).argmax(dim=-1)
+
+    logits, caches = tprobe.prefill(params, prompt, cfg)
+    new = [pick(logits)]
+    cur_len = torch.tensor(prompt.shape[1], dtype=torch.int32)
+    for _ in range(n_new - 1):
+        new.append(pick(tprobe.decode_step(params, caches, new[-1], cur_len, cfg)))
+        cur_len = cur_len + 1
+    return torch.cat([prompt, torch.stack(new, dim=1).to(prompt.dtype)], dim=1)
+
+
+@pytest.mark.parametrize("case", list(GREEDY_CASES))
+def test_sampled_step_loop_matches_a_plain_loop(case):
+    """Seeded sampling through the in-place step body (eagerly, as on the
+    CPU) draws the plain loop's noise and picks its tokens."""
+    cfg, seed, shape, n_new = GREEDY_CASES[case]
+    _, params = _both(cfg, seed)
+    prompt = torch.from_numpy(np.random.default_rng(seed).integers(0, cfg.vocab, shape))
+    got = tprobe.generate_loop(params, prompt, cfg, n_new,
+                               torch.Generator().manual_seed(seed), 0.7, capture=False)
+    want = _plain_loop(params, prompt, cfg, n_new, torch.Generator().manual_seed(seed), 0.7)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("n_new", [1, 2, 3])
+def test_few_new_tokens_match_reference(n_new):
+    """One new token runs no decode step, two run one eager step and no
+    capture on a CUDA prompt, three the first replay."""
+    cfg, seed, shape, _ = GREEDY_CASES["dense_learned_pos"]
+    jparams, params = _both(cfg, seed)
+    prompt = np.random.default_rng(seed).integers(0, cfg.vocab, shape)
+    want = np.asarray(jprobe.generate(jparams, jnp.asarray(prompt, jnp.int32),
+                                      _jax_cfg(cfg), n_new))
+    got = tprobe.generate_loop(params, torch.from_numpy(prompt), cfg, n_new, capture=False)
+    assert got.shape == (shape[0], shape[1] + n_new)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+# name: (config, generator seed or None)
+STEP_CASES = {
+    "gqa_window_greedy": (GREEDY_CASES["gqa_window8_rope"][0], None),
+    "gqa_window_sampled": (GREEDY_CASES["gqa_window8_rope"][0], 4),
+    "moe4_flagship_greedy": (GREEDY_CASES["moe4_flagship"][0], None),
+    "moe4_flagship_sampled": (GREEDY_CASES["moe4_flagship"][0], 4),
+}
+
+
+@pytest.mark.parametrize("case", list(STEP_CASES))
+def test_decode_step_body_reads_no_device_value_on_the_host(case):
+    """The whole captured step (model step, pick, token write through a
+    device index, length increment) stays capturable; two steps write
+    columns 1 and 2 of the output, the plain loop's tokens, and leave the
+    rest."""
+    cfg, seed = STEP_CASES[case]
+    params = tprobe.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    prompt = torch.randint(0, cfg.vocab, (2, 9), generator=torch.Generator().manual_seed(1))
+
+    def generator():
+        return None if seed is None else torch.Generator().manual_seed(seed)
+
+    temperature = torch.tensor(0.8)
+    step, out = tprobe._decoder(params, prompt, cfg, 5, tprobe._picker(generator(), temperature))
+    out[:, 3:] = -1
+    with torch.no_grad(), NoHostReads():
+        step()
+        step()
+    want = _plain_loop(params, prompt, cfg, 3, generator(), temperature)[:, 9:]
+    torch.testing.assert_close(out[:, :3], want, rtol=0, atol=0)
+    assert out[:, 3:].eq(-1).all()
+
+
+def test_capture_needs_a_cuda_prompt():
+    cfg, params, prompt = _sampling_setup()
+    with pytest.raises(ValueError, match="capture needs a CUDA prompt"):
+        tprobe.generate_loop(params, prompt, cfg, 4, capture=True)
+
+
+class _StandInGraph:
+    def __init__(self):
+        self.replays = 0
+
+    def replay(self):
+        self.replays += 1
+
+
+@pytest.mark.parametrize("k", [1, 5])
+def test_counted_replay_adds_the_per_step_counts_per_replay(monkeypatch, k):
+    """A capture counts but runs nothing; each replay runs what it holds.
+    After a capture and k replays the counts are k x a step's, not k + 1."""
+    counters = graphs.COUNTERS
+    for fn, name in counters:
+        monkeypatch.setattr(fn, name, 7)
+    per_step = {(flash_decode_kernel, "launches"): 3,
+                (flash_attention_kernel, "launches"): 1}
+
+    def record():  # what the wrappers count while a step is captured
+        for (fn, name), n in per_step.items():
+            setattr(fn, name, getattr(fn, name) + n)
+
+    graph = _StandInGraph()
+    replay = graphs.counted_replay(graph, record)
+    assert [getattr(fn, name) for fn, name in counters] == [7] * len(counters)
+    for _ in range(k):
+        replay()
+    assert graph.replays == k
+    for fn, name in counters:
+        assert getattr(fn, name) == 7 + k * per_step.get((fn, name), 0), name
 
 
 def _teacher_forced(params, tokens, t0, cfg):
