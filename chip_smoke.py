@@ -55,7 +55,25 @@ Phases, each raising on failure (any failure exits non-zero):
    also at a GQA shape (H 32, H_kv 4) with its achieved TB/s and the device
    time of its split kernel and of its merge from ``torch.profiler``; and
    print the slowest device kernels of one SGD step from ``torch.profiler``;
-   the MoE forward, SGD step (split, profiled), prefill and decode loops.
+   the MoE forward, SGD step (split, profiled), prefill and decode loops;
+6. the tenant's hot-mount side (``torchside``), each part in child
+   processes that run this script with ``--handoff-child``:
+   a. CUDA's enumeration is fixed at init: a process started with
+      ``CUDA_VISIBLE_DEVICES=""`` reads 0 devices, still reads 0 through
+      CUDA after ``set_visibility_env`` (``torch.cuda.init()`` and
+      ``refresh_devices()`` raise), then ``handoff``s to a new image that
+      sees the card, whose ``wait_for_gpus(1)`` counts 1, and which trains
+      one AdamW step on it (the 0 -> 1 hot-add);
+   b, c. the full-width dense and MoE trainers: 3 AdamW steps, ``pack``
+      (params and optimizer state), ``handoff``; the new image loads,
+      restores, takes 3 more steps and a greedy ``generate``; losses, final
+      params and tokens held bit for bit against the same run in this
+      process without a handoff, 3 handoffs each, the launch counts of
+      every image checked, and the median time of each part of the
+      handoff printed (pack, save, exec to CUDA ready, load, restore, the
+      optimizer's state, the first step, the tenant's whole side) with
+      the checkpoint directory's filesystem (a ``tempfile.mkdtemp()``,
+      removed after).
 
 The last lines are a JSON object per kernel (``{"kernels": [...]}``) and
 ``{"ok": true, "device": {...}}``. Needs a CUDA card; imports no JAX.
@@ -65,17 +83,19 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from torch.nn.attention.bias import causal_lower_right
 
 from gpumounter_tpu_torch.entry import (MOE_ROUTE_GAP, _masked_err, moe_blocks_vs_plain,
                                         moe_check, route_flips, train_check)
@@ -86,6 +106,7 @@ from gpumounter_tpu_torch.models.probe import (TransformerConfig, _attend, _atte
                                                next_token_nll, prefill)
 from gpumounter_tpu_torch.parallel.moe import _route, init_moe_params, moe_ffn, moe_ffn_plain
 from gpumounter_tpu_torch.ops import _build
+from gpumounter_tpu_torch.ops import flash_attention as fa, flash_decode as fd
 from gpumounter_tpu_torch.ops.graphs import capture
 from gpumounter_tpu_torch.ops.flash_attention import (_band_mask, _bwd_launch,
                                                       attention_bwd_plain,
@@ -94,10 +115,15 @@ from gpumounter_tpu_torch.ops.flash_attention import (_band_mask, _bwd_launch,
                                                       flash_attention_kernel)
 from gpumounter_tpu_torch.parallel.train_step import (loss_and_grads,
                                                       make_train_step,
+                                                      make_train_step_optim,
                                                       sgd_update, tree_leaves,
                                                       tree_map)
 from gpumounter_tpu_torch.ops.flash_decode import (flash_decode_kernel,
                                                    flash_decode_plain)
+from gpumounter_tpu_torch.torchside import (HotResumable, handoff, load_optimizer_state,
+                                            optimizer_state_tree, refresh_devices,
+                                            set_visibility_env, wait_for_gpus)
+from gpumounter_tpu_torch.torchside.visibility import HANDOFF_AT_ENV
 
 # H100 SXM peaks (NVIDIA data sheet, dense): the bound of a kernel is the
 # larger of its operations over the bf16 tensor-core rate and its bytes
@@ -961,6 +987,9 @@ def phase_decode_timings(gen, card) -> dict:
                 for _ in range(L2_COPIES)]
         for n in lens:
             length = torch.tensor([n], dtype=torch.int32, device="cuda")
+            # imported here: it pulls in torch._dynamo, seconds of import time
+            # that the handoff's children, which import this script, would pay
+            from torch.nn.attention.bias import causal_lower_right
             mask = causal_lower_right(l_q, n) if l_q > 1 else None
             kernel = [lambda s=s: flash_decode_kernel(*s, length) for s in sets]
             library = [lambda s=s: F.scaled_dot_product_attention(
@@ -1296,6 +1325,342 @@ def phase_moe_serving(cfg, params, prompt) -> tuple[int, int, torch.Tensor, torc
     return fwd, dec, tokens, ref
 
 
+# --- phase 6: the tenant's hot-mount side (torchside): the handoff ---
+
+# The handoff's training: full-width batches of B 4 x L 2048 (numpy seeds
+# SEED + step), AdamW (lr 1e-3, weight decay 1e-4), STEPS steps before the
+# handoff and STEPS in the new image, then a greedy generate of PROMPTS
+# prompts of T0 tokens + N_NEW; RUNS handoffs each, dense and MoE.
+HANDOFF = dict(B=4, L=2048, STEPS=3, RUNS=3, PROMPTS=2, T0=64, N_NEW=32, SEED=100)
+HANDOFF_ADAMW = dict(lr=1e-3, weight_decay=1e-4)
+HANDOFF_PARTS = ("pack", "save", "exec_to_cuda_ready", "load", "restore", "optimizer_load",
+                 "first_step", "tenant_side")
+
+
+def _kernel_counts() -> dict:
+    bwd = flash_attention_bwd_kernel
+    return {"flash_fwd": flash_attention_kernel.launches, "dq": bwd.dq_launches,
+            "dkv": bwd.dkv_launches, "flash_decode": flash_decode_kernel.launches}
+
+
+def _reset_kernel_counts() -> None:
+    flash_attention_kernel.launches = flash_decode_kernel.launches = 0
+    flash_attention_bwd_kernel.dq_launches = flash_attention_bwd_kernel.dkv_launches = 0
+
+
+def _handoff_batch(cfg, step: int) -> torch.Tensor:
+    rng = np.random.default_rng(HANDOFF["SEED"] + step)
+    return torch.from_numpy(rng.integers(0, cfg.vocab, (HANDOFF["B"], HANDOFF["L"]))).cuda()
+
+
+def _handoff_prompt(cfg) -> torch.Tensor:
+    rng = np.random.default_rng(HANDOFF["SEED"] - 1)
+    return torch.from_numpy(rng.integers(0, cfg.vocab, (HANDOFF["PROMPTS"], HANDOFF["T0"]))).cuda()
+
+
+def _adamw_step(cfg):
+    return make_train_step_optim(cfg, lambda ps: torch.optim.AdamW(ps, **HANDOFF_ADAMW))
+
+
+def _expected_counts(cfg, steps: int, generate_calls: int) -> dict:
+    """Launches of `steps` train steps and `generate_calls` greedy generates."""
+    n = cfg.n_layers
+    return {"flash_fwd": n * (steps + generate_calls), "dq": n * steps, "dkv": n * steps,
+            "flash_decode": n * (HANDOFF["N_NEW"] - 1) * generate_calls}
+
+
+def _check_counts(what, got, want) -> None:
+    if got != want:
+        raise RuntimeError(f"{what}: launches {got}, expected {want}")
+
+
+def _child_argv(spec: dict) -> list[str]:
+    return [os.path.abspath(__file__), "--handoff-child", json.dumps(spec)]
+
+
+def _handoff_child(spec: dict) -> None:
+    """The tenant programs of phase 6, one stage per process image:
+
+    enumerate (started with CUDA_VISIBLE_DEVICES=""): CUDA's count is 0 and
+        stays 0 after set_visibility_env, torch.cuda.init() and
+        refresh_devices() raise; hands off the full-width dense params,
+        made on the CPU, to an image that sees the device;
+    enumerated: wait_for_gpus(1), restore on cuda:0, one AdamW step;
+    train: STEPS AdamW steps at full width, pack, hand off;
+    resumed: wait_for_gpus(1), load, restore, STEPS more steps, generate;
+        saves params, losses and tokens for the smoke to hold bit for bit
+        against its own uninterrupted run, and prints its timings.
+
+    Each prints one JSON line; any failure raises (exit code 1)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    stage, ckpt = spec["stage"], spec["ckpt"]
+    cfg = full_width_config(spec.get("n_experts"))
+    init_fn, step_fn = _adamw_step(cfg)
+    if stage == "enumerate":
+        report = {"CUDA_VISIBLE_DEVICES": os.environ.get("CUDA_VISIBLE_DEVICES"),
+                  "device_count": torch.cuda.device_count(),
+                  "is_available": torch.cuda.is_available()}
+        # is_available() read CUDA's own count: the enumeration is fixed now.
+        set_visibility_env(visible_devices=spec["visible"])
+        report["after_set_visibility_env"] = {
+            "device_count": torch.cuda.device_count(),
+            "is_available": torch.cuda.is_available()}
+        for name, call in (("cuda_init", torch.cuda.init), ("refresh_devices", refresh_devices)):
+            try:
+                call()
+            except RuntimeError as err:
+                report[name] = f"raised: {err}"
+            else:
+                raise RuntimeError(f"{name}() worked in a process that enumerated no device")
+        if (report["device_count"], report["is_available"],
+                report["after_set_visibility_env"]["is_available"]) != (0, False, False):
+            raise RuntimeError(f"enumeration not fixed at init: {report}")
+        print(json.dumps({"enumerate": report}))
+        params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        handoff(HotResumable.pack(params), ckpt, argv=_child_argv({**spec, "stage": "enumerated"}))
+    elif stage == "enumerated":
+        wait = wait_for_gpus(1, timeout_s=60.0)
+        if wait["device_count"] != 1 or torch.cuda.device_count() != 1:
+            raise RuntimeError(f"the new image sees {torch.cuda.device_count()} device(s), "
+                               f"wait_for_gpus {wait}")
+        (params,) = HotResumable.load(ckpt).restore("cuda")
+        _reset_kernel_counts()
+        params, opt, loss = step_fn(params, init_fn(params), _handoff_batch(cfg, 0))
+        loss = loss.item()
+        if not math.isfinite(loss):
+            raise RuntimeError(f"the new image's step gave loss {loss}")
+        print(json.dumps({"enumerated": {
+            "CUDA_VISIBLE_DEVICES": os.environ.get("CUDA_VISIBLE_DEVICES"),
+            "wait_for_gpus": wait, "device": torch.cuda.get_device_name(0),
+            "param_device": str(params["embed"].device), "loss": loss,
+            "launches": _kernel_counts()}}))
+    elif stage == "train":
+        params = init_params(cfg, torch.Generator().manual_seed(0), "cuda")
+        opt, losses = init_fn(params), []
+        _reset_kernel_counts()
+        for step in range(HANDOFF["STEPS"]):
+            params, opt, loss = step_fn(params, opt, _handoff_batch(cfg, step))
+            losses.append(loss)
+        torch.cuda.synchronize()
+        launches = _kernel_counts()
+        t_pack = time.time()
+        state = HotResumable.pack(params, optimizer_state_tree(opt), torch.stack(losses))
+        t_packed = time.time()
+        nbytes = sum(t.nbytes for t in _leaves(state.host_state))
+        handoff(state, ckpt, argv=_child_argv({
+            **spec, "stage": "resumed", "launches_before": launches, "pack_at": t_pack,
+            "packed_at": t_packed, "bytes": nbytes}))
+    elif stage == "resumed":
+        t_exec, t_main = float(os.environ[HANDOFF_AT_ENV]), time.time()
+        fds = _device_fds()  # the old image's device files, if exec kept any
+        wait = wait_for_gpus(1, timeout_s=60.0)
+        torch.cuda.init()
+        fa._library(0), fa._bwd_library(0), fd._library(0)
+        torch.cuda.synchronize()
+        t_ready = time.time()
+        state = HotResumable.load(ckpt)
+        t_load = time.time()
+        params, tree, losses = state.restore("cuda")
+        torch.cuda.synchronize()
+        t_restore = time.time()
+        opt = init_fn(params)
+        load_optimizer_state(opt, tree)
+        t_opt = time.time()
+        _reset_kernel_counts()
+        params, opt, loss = step_fn(params, opt, _handoff_batch(cfg, HANDOFF["STEPS"]))
+        torch.cuda.synchronize()
+        t_step = time.time()
+        more = [loss]
+        for step in range(HANDOFF["STEPS"] + 1, 2 * HANDOFF["STEPS"]):
+            params, opt, loss = step_fn(params, opt, _handoff_batch(cfg, step))
+            more.append(loss)
+        torch.cuda.synchronize()
+        steady_ms = (time.time() - t_step) * 1e3 / (HANDOFF["STEPS"] - 1)
+        tokens = generate(params, _handoff_prompt(cfg), cfg, HANDOFF["N_NEW"])
+        torch.cuda.synchronize()
+        launches = _kernel_counts()
+        HotResumable.pack({"params": params, "losses": torch.cat([losses, torch.stack(more)]),
+                           "tokens": tokens}).save(spec["out"])
+        pack_at, packed_at = spec["pack_at"], spec["packed_at"]
+        ms = {"pack": packed_at - pack_at, "save": t_exec - packed_at,
+              "exec_to_cuda_ready": t_ready - t_exec, "load": t_load - t_ready,
+              "restore": t_restore - t_load, "optimizer_load": t_opt - t_restore,
+              "first_step": t_step - t_opt,
+              "tenant_side": t_step - pack_at, "exec_to_main": t_main - t_exec,
+              "wait_for_gpus": wait["total_ms"] / 1e3}
+        print(json.dumps({"resumed": {
+            "ms": {k: v * 1e3 for k, v in ms.items()}, "bytes": spec["bytes"],
+            "steady_step_ms": steady_ms, "wait_for_gpus": wait,
+            "launches_before": spec["launches_before"], "launches_after": launches,
+            "device_fds_at_start": fds}}))
+    else:
+        raise RuntimeError(f"unknown handoff stage {stage!r}")
+
+
+def _device_fds() -> int:
+    """Open descriptors of this process on /dev/nvidia* files."""
+    count = 0
+    for name in os.listdir("/proc/self/fd"):
+        try:
+            count += os.readlink(f"/proc/self/fd/{name}").startswith("/dev/nvidia")
+        except OSError:
+            pass
+    return count
+
+
+def _leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [leaf for key in sorted(tree) for leaf in _leaves(tree[key])]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for x in tree for leaf in _leaves(x)]
+    return [] if tree is None else [tree]
+
+
+def _run_child(spec: dict, env: dict | None = None) -> dict:
+    """Run one handoff child to its end (both images); returns its JSON
+    lines merged. Fails on a non-zero exit or on a missing line."""
+    out = subprocess.run([sys.executable, *_child_argv(spec)], capture_output=True, text=True,
+                         timeout=600, env=env)
+    if out.returncode != 0:
+        raise RuntimeError(f"handoff child {spec['stage']} exited {out.returncode}:\n"
+                           f"{out.stdout[-2000:]}\n{out.stderr[-4000:]}")
+    report = {}
+    for line in out.stdout.splitlines():
+        if line.startswith("{"):
+            report.update(json.loads(line))
+    return report
+
+
+def _filesystem(path: str) -> str:
+    """The type of the filesystem that holds `path` (/proc/self/mounts)."""
+    path, best = os.path.realpath(path), ("", "unknown")
+    with open("/proc/mounts") as f:
+        for line in f:
+            _, mount, fstype = line.split()[:3]
+            if (path == mount or path.startswith(mount.rstrip("/") + "/")) and len(mount) > len(best[0]):
+                best = (mount, fstype)
+    return best[1]
+
+
+def _uninterrupted(cfg) -> tuple[dict, torch.Tensor, torch.Tensor, dict]:
+    """The handoff's 2 x STEPS steps and its generate in this process,
+    without a handoff: (params, losses, tokens, launches)."""
+    init_fn, step_fn = _adamw_step(cfg)
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cuda")
+    opt, losses = init_fn(params), []
+    _reset_kernel_counts()
+    for step in range(2 * HANDOFF["STEPS"]):
+        params, opt, loss = step_fn(params, opt, _handoff_batch(cfg, step))
+        losses.append(loss)
+    tokens = generate(params, _handoff_prompt(cfg), cfg, HANDOFF["N_NEW"])
+    torch.cuda.synchronize()
+    return params, torch.stack(losses), tokens, _kernel_counts()
+
+
+def _bit_equal(what, got, want) -> None:
+    if got.dtype != want.dtype or got.shape != want.shape or not torch.equal(got, want):
+        diff = (got.float() - want.float()).abs().max().item() if got.shape == want.shape else None
+        raise RuntimeError(f"{what}: not bit-equal to the uninterrupted run "
+                           f"({got.dtype} {tuple(got.shape)} vs {want.dtype} "
+                           f"{tuple(want.shape)}, max abs diff {diff})")
+
+
+def phase_handoff(card: str) -> dict:
+    """Phase 6: a. CUDA enumeration fixed at init, and the 0 -> 1 hot-add by
+    handoff; b, c. RUNS handoffs of the full-width dense and MoE trainers,
+    held bit for bit against this process's uninterrupted run, and the
+    median time of each part. Returns the launches on this phase's path
+    (the children's and the uninterrupted runs')."""
+    total = dict.fromkeys(("flash_fwd", "dq", "dkv", "flash_decode"), 0)
+
+    def add(counts):
+        for key in total:
+            total[key] += counts[key]
+
+    root = tempfile.mkdtemp(prefix="handoff-")
+    try:
+        fs = _filesystem(root)
+        print(f"handoff: checkpoints under {root} ({fs}) [{card}]", flush=True)
+        visible = os.environ.get("CUDA_VISIBLE_DEVICES") or "0"
+        hidden = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
+        report = _run_child({"stage": "enumerate", "ckpt": os.path.join(root, "enum"),
+                             "visible": visible}, env=hidden)
+        first, new = report["enumerate"], report["enumerated"]
+        _check_counts("handoff a: the new image's step", new["launches"],
+                      _expected_counts(full_width_config(), 1, 0))
+        if new["wait_for_gpus"]["device_count"] != 1 or new["param_device"] != "cuda:0":
+            raise RuntimeError(f"handoff a: the new image {new}")
+        add(new["launches"])
+        print(f"handoff a (enumeration fixed at init): a process started with "
+              f"CUDA_VISIBLE_DEVICES='' reads torch.cuda.device_count() {first['device_count']}, "
+              f"is_available() {first['is_available']}; after set_visibility_env("
+              f"visible_devices={visible!r}) torch.cuda.device_count() reads "
+              f"{first['after_set_visibility_env']['device_count']} (NVML, from the environment) "
+              f"but is_available() {first['after_set_visibility_env']['is_available']}, "
+              f"torch.cuda.init() {first['cuda_init']!r}, refresh_devices() "
+              f"{first['refresh_devices']!r}", flush=True)
+        print(f"handoff a (0 -> 1 by handoff): the new image (CUDA_VISIBLE_DEVICES="
+              f"{new['CUDA_VISIBLE_DEVICES']!r}) wait_for_gpus(1) {new['wait_for_gpus']}, "
+              f"restored the full-width dense params onto {new['param_device']} "
+              f"({new['device']}), one AdamW step loss {new['loss']:.4f}, launches "
+              f"{new['launches']} [{card}]", flush=True)
+
+        for name, n_experts in (("dense", None), ("MoE", MOE_EXPERTS)):
+            cfg = full_width_config(n_experts)
+            params, losses, tokens, launches = _uninterrupted(cfg)
+            _check_counts(f"handoff {name}: the uninterrupted run", launches,
+                          _expected_counts(cfg, 2 * HANDOFF["STEPS"], 1))
+            add(launches)
+            leaves = tree_leaves(params)
+            n_params = sum(t.numel() for t in leaves)
+            runs = []
+            for run in range(HANDOFF["RUNS"]):
+                spec = {"stage": "train", "n_experts": n_experts,
+                        "ckpt": os.path.join(root, f"{name}-{run}"),
+                        "out": os.path.join(root, f"{name}-{run}-out")}
+                got = _run_child(spec)["resumed"]
+                _check_counts(f"handoff {name}: the first image", got["launches_before"],
+                              _expected_counts(cfg, HANDOFF["STEPS"], 0))
+                _check_counts(f"handoff {name}: the new image", got["launches_after"],
+                              _expected_counts(cfg, HANDOFF["STEPS"], 1))
+                add(got["launches_before"])
+                add(got["launches_after"])
+                (out,) = HotResumable.load(spec["out"]).restore("cuda")
+                _bit_equal(f"handoff {name} run {run}: losses", out["losses"], losses)
+                _bit_equal(f"handoff {name} run {run}: tokens", out["tokens"], tokens)
+                for i, (g, w) in enumerate(zip(tree_leaves(out["params"]), leaves, strict=True)):
+                    _bit_equal(f"handoff {name} run {run}: param leaf {i}", g, w.detach())
+                del out
+                shutil.rmtree(spec["ckpt"])
+                shutil.rmtree(spec["out"])
+                runs.append(got)
+            state_mb = runs[0]["bytes"] / 1e6
+            print(f"handoff {name}: {n_params / 1e6:.1f}M params, state {state_mb:.1f} MB "
+                  f"(params + AdamW moments, bf16{', f32 routers' if n_experts else ''}); "
+                  f"{HANDOFF['RUNS']} runs, each 2 x {HANDOFF['STEPS']} AdamW steps on "
+                  f"{HANDOFF['B']} x {HANDOFF['L']} and a greedy generate of "
+                  f"{HANDOFF['PROMPTS']} x {HANDOFF['T0']} + {HANDOFF['N_NEW']}: losses "
+                  f"{', '.join(f'{x:.4f}' for x in losses.tolist())}, the final params and "
+                  f"the tokens bit-equal to the uninterrupted run in every run; launches "
+                  f"a run: first image {runs[0]['launches_before']}, new image "
+                  f"{runs[0]['launches_after']}; /dev/nvidia* descriptors open in the new "
+                  f"image before it touched CUDA: {[r['device_fds_at_start'] for r in runs]}",
+                  flush=True)
+            for part in HANDOFF_PARTS + ("exec_to_main", "wait_for_gpus"):
+                note = ""
+                if part == "save":
+                    rates = [r["bytes"] / r["ms"]["save"] / 1e6 for r in runs]
+                    note = f", {statistics.median(rates):.3f} GB/s with the fsyncs"
+                print(f"time handoff {name} {part}: {_runs([r['ms'][part] for r in runs])}"
+                      f"{note} [{card}; checkpoint on {fs}]", flush=True)
+            print(f"time handoff {name} steady step in the new image: "
+                  f"{_runs([r['steady_step_ms'] for r in runs])} [{card}]", flush=True)
+            del params, leaves
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return total
+
+
 def phase_forward_timing(cfg, params, tokens, card, what="forward") -> None:
     fwd_ms = _time_ms(lambda: forward(params, tokens, cfg), 5, warmup=1)
     tok_s = tokens.numel() / (fwd_ms / 1e3)
@@ -1304,6 +1669,9 @@ def phase_forward_timing(cfg, params, tokens, card, what="forward") -> None:
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--handoff-child"]:
+        _handoff_child(json.loads(sys.argv[2]))
+        return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -1346,30 +1714,38 @@ def main() -> int:
     phase_train_timings(moe_cfg, moe_params, batches[0], card)
     phase_train_profile(moe_cfg, moe_params, batches[0], card)
     phase_serving_timings(moe_cfg, moe_params, prompt, moe_graph_ms, card)
+    del moe_params, params
+    handoff_launches = phase_handoff(card)
 
     print(f"launches on the main paths: flash_fwd {launches} (forward) + "
           f"{prefill_launches} (prefill) + {train_fwd} (training), flash_decode "
           f"{decode_launches}, flash_bwd dq {train_dq} and dk/dv {train_dkv} (training); "
           f"MoE paths: flash_fwd {moe_launches} (forward) + {moe_prefill} (prefill) + "
           f"{moe_fwd} (training), flash_decode {moe_decode}, flash_bwd dq {moe_dq} and dk/dv "
-          f"{moe_dkv}; moe_ffn vs moe_ffn_plain bf16 max abs err {moe_ffn_err:.3g}", flush=True)
+          f"{moe_dkv}; moe_ffn vs moe_ffn_plain bf16 max abs err {moe_ffn_err:.3g}; the "
+          f"handoff phase (its children and the uninterrupted runs): {handoff_launches}",
+          flush=True)
     bwd_source = "gpumounter_tpu_torch/ops/csrc/flash_bwd.cu"
     print(json.dumps({"kernels": [{
         "name": "flash_fwd", "route": "cuda",
         "source": "gpumounter_tpu_torch/ops/csrc/flash_fwd.cu",
         "replaces": "gpumounter_tpu/ops/flash_attention.py:84",
-        "launches": launches + prefill_launches + train_fwd + moe_launches + moe_prefill + moe_fwd,
+        "launches": (launches + prefill_launches + train_fwd + moe_launches + moe_prefill
+                     + moe_fwd + handoff_launches["flash_fwd"]),
         "max_abs_err": max_abs_err, **times}, {
         "name": "flash_bwd_dq", "route": "cuda", "source": bwd_source,
         "replaces": "gpumounter_tpu/ops/flash_attention.py:182",
-        "launches": train_dq + moe_dq, "max_abs_err": bwd_errs[0], **bwd_times["dq"]}, {
+        "launches": train_dq + moe_dq + handoff_launches["dq"], "max_abs_err": bwd_errs[0],
+        **bwd_times["dq"]}, {
         "name": "flash_bwd_dkv", "route": "cuda", "source": bwd_source,
         "replaces": "gpumounter_tpu/ops/flash_attention.py:236",
-        "launches": train_dkv + moe_dkv, "max_abs_err": bwd_errs[1], **bwd_times["dkv"]}, {
+        "launches": train_dkv + moe_dkv + handoff_launches["dkv"], "max_abs_err": bwd_errs[1],
+        **bwd_times["dkv"]}, {
         "name": "flash_decode", "route": "cuda",
         "source": "gpumounter_tpu_torch/ops/csrc/flash_decode.cu",
         "replaces": "gpumounter_tpu/ops/flash_decode.py:48",
-        "launches": decode_launches + moe_decode, "max_abs_err": decode_err,
+        "launches": decode_launches + moe_decode + handoff_launches["flash_decode"],
+        "max_abs_err": decode_err,
         **decode_times}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
