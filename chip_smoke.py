@@ -73,10 +73,28 @@ Phases, each raising on failure (any failure exits non-zero):
       handoff printed (pack, save, exec to CUDA ready, load, restore, the
       optimizer's state, the first step, the tenant's whole side) with
       the checkpoint directory's filesystem (a ``tempfile.mkdtemp()``,
-      removed after).
+      removed after);
+7. dp x tp and expert parallelism (``parallel/``): 4 ranks started once
+   (``parallel.launch.run_ranks``) on a 2 x 2 ("data", "model") mesh, all
+   sharing the one card over gloo (NCCL refuses two ranks on one device;
+   gloo's all-reduce takes CUDA tensors by way of the host). In them:
+   ``entry.tp_checks`` (the dryrun's sharded sections at ``train_check``'s
+   dialect: the kernel-vs-plain grads on the mesh within 5e-3, the MoE
+   flagship, ``make_moe_step`` over ("data", "expert")); then the full-width
+   dense and MoE sharded SGD steps (``entry.sharded_step_check``: local
+   shapes, ``flash_fwd``, dq and dk/dv n_layers times a step on every rank
+   at H/tp heads, the collectives of ``step_collectives``, replicas
+   bit-equal), their gathered new params and loss held against the
+   one-process ``make_train_step`` on the same card, weights and tokens, the
+   dense grads through the kernels against the plain attention's on the
+   mesh, and each rank's step time, gloo all-reduce time and gradient
+   sums' time.
 
 The last lines are a JSON object per kernel (``{"kernels": [...]}``) and
-``{"ok": true, "device": {...}}``. Needs a CUDA card; imports no JAX.
+``{"ok": true, "device": {...}}``, and the exit code is 0. A failing check
+raises: the script prints which phase failed and why, and exits 1. Run
+alone, without ``gpumounter_tpu_torch`` beside it, it says so and exits 2.
+Needs a CUDA card; imports no JAX.
 """
 
 from __future__ import annotations
@@ -94,16 +112,29 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
-
-from gpumounter_tpu_torch.entry import (MOE_ROUTE_GAP, _masked_err, moe_blocks_vs_plain,
-                                        moe_check, route_flips, train_check)
+try:
+    import gpumounter_tpu_torch  # noqa: F401
+except ModuleNotFoundError as err:
+    if err.name != "gpumounter_tpu_torch":
+        raise
+    print("chip_smoke: the package gpumounter_tpu_torch is not beside this script; "
+          "run it from the root of the repository", file=sys.stderr)
+    sys.exit(2)
+from gpumounter_tpu_torch.entry import (MOE_ROUTE_GAP, _masked_err, kernel_launches,
+                                        moe_blocks_vs_plain, moe_check,
+                                        reset_kernel_launches, route_flips,
+                                        sharded_step_check, tp_checks, train_check)
 from gpumounter_tpu_torch.models.probe import (TransformerConfig, _attend, _attend_decode,
                                                _decoder, _embed, _finish_block, _forward_impl,
                                                _picker, decode_step, forward, generate,
-                                               generate_loop, init_params, loss_fn,
-                                               next_token_nll, prefill)
+                                               generate_loop, init_params, local_heads,
+                                               loss_fn, next_token_nll, prefill)
+from gpumounter_tpu_torch.parallel.collectives import all_reduce
+from gpumounter_tpu_torch.parallel.launch import run_ranks
+from gpumounter_tpu_torch.parallel.mesh import build_mesh
 from gpumounter_tpu_torch.parallel.moe import _route, init_moe_params, moe_ffn, moe_ffn_plain
 from gpumounter_tpu_torch.ops import _build
 from gpumounter_tpu_torch.ops import flash_attention as fa, flash_decode as fd
@@ -113,8 +144,8 @@ from gpumounter_tpu_torch.ops.flash_attention import (_band_mask, _bwd_launch,
                                                       attention_plain, flash_attention,
                                                       flash_attention_bwd_kernel,
                                                       flash_attention_kernel)
-from gpumounter_tpu_torch.parallel.train_step import (loss_and_grads,
-                                                      make_train_step,
+from gpumounter_tpu_torch.parallel.train_step import (gather_params, loss_and_grads,
+                                                      make_train_step, shard_params,
                                                       make_train_step_optim,
                                                       sgd_update, tree_leaves,
                                                       tree_map)
@@ -184,6 +215,23 @@ MOE_AUX_ATOL = 1e-5
 # changes its position's logits wholly; those logits spread s ~ 0.5, so a
 # flip moves its position's NLL by about a nat and the mean by about 0.01.
 MOE_SERVE_NLL_ATOL = 0.05
+# Phase 7: 4 ranks on a 2 x 2 ("data", "model") mesh sharing the card over
+# gloo; TIMED sharded steps a config timed on each rank, after the checks.
+SHARDED = dict(SHAPE=(2, 2), BACKEND="gloo", SEED=200, TIMED=3)
+# The sharded step against the one-process step on the same card, weights
+# and tokens. Each new weight is p − lr·g rounded to bf16. g differs by a
+# few bf16 ulps (g sums wo's and w2's bf16 partial products where one
+# matmul rounds once, and the data shards' bf16 grads are summed in bf16),
+# lr·g is far below an ulp of p, but the rounding can land on p's
+# neighbour: each leaf within 1 bf16 ulp of its max |value| (2^-7 of it).
+SHARDED_PARAM_OF_MAX = 2**-7
+# The loss, dense: the mean of 4 x 2047 NLLs of logits about an ulp apart,
+# NLL_ATOL as for the forward. MoE: a routing flip between the two runs
+# moves its position's NLL by about a nat (MOE_SERVE_NLL_ATOL), the mean
+# over 8188 positions by about 1.2e-4; 0.01 allows 80 flips, 1% of a
+# layer's tokens (0.1-0.3% flipped between two attentions an ulp apart on
+# an H100; see entry.MOE_ROUTE_GAP).
+SHARDED_LOSS_ATOL = {"dense": NLL_ATOL, "MoE": 0.01}
 
 
 def _card(query: str = "name,power.limit") -> str:
@@ -1338,14 +1386,12 @@ HANDOFF_PARTS = ("pack", "save", "exec_to_cuda_ready", "load", "restore", "optim
 
 
 def _kernel_counts() -> dict:
-    bwd = flash_attention_bwd_kernel
-    return {"flash_fwd": flash_attention_kernel.launches, "dq": bwd.dq_launches,
-            "dkv": bwd.dkv_launches, "flash_decode": flash_decode_kernel.launches}
+    return {**kernel_launches(), "flash_decode": flash_decode_kernel.launches}
 
 
 def _reset_kernel_counts() -> None:
-    flash_attention_kernel.launches = flash_decode_kernel.launches = 0
-    flash_attention_bwd_kernel.dq_launches = flash_attention_bwd_kernel.dkv_launches = 0
+    reset_kernel_launches()
+    flash_decode_kernel.launches = 0
 
 
 def _handoff_batch(cfg, step: int) -> torch.Tensor:
@@ -1661,6 +1707,189 @@ def phase_handoff(card: str) -> dict:
     return total
 
 
+# --- phase 7: dp x tp and expert parallelism, 4 ranks sharing the card ---
+
+
+def _sharded_vs_one_process(name, cfg, mesh, params, tokens, new_local, loss) -> dict:
+    """Rank 0: the one-process step on the same card, weights and tokens,
+    against the sharded step's gathered new params (every rank gathers)."""
+    gathered = gather_params(new_local, mesh, cfg)
+    if mesh.rank != 0:
+        return {}
+    full = tree_map(lambda t: t.to(mesh.device), params)
+    want, want_loss = make_train_step(cfg, TRAIN["LR"])(full, tokens.to(mesh.device))
+    worst, bad = (0.0, ""), []
+    for leaf, g, w in zip(_leaf_names(params), tree_leaves(gathered), tree_leaves(want)):
+        peak = w.float().abs().max().item()
+        share = (g.float() - w.float()).abs().max().item() / peak
+        worst = max(worst, (share, leaf))
+        if not share <= SHARDED_PARAM_OF_MAX:
+            bad.append(leaf)
+    loss_err = abs(loss - want_loss.item())
+    if bad or not loss_err <= SHARDED_LOSS_ATOL[name]:
+        raise RuntimeError(f"sharded {name} step vs the one-process step: params {bad} beyond "
+                           f"{SHARDED_PARAM_OF_MAX} of their max |value| (worst {worst}), loss "
+                           f"{loss} vs {want_loss.item()} (limit {SHARDED_LOSS_ATOL[name]})")
+    return {"loss_one_process": want_loss.item(), "loss_err": loss_err,
+            "worst_param": worst}
+
+
+def _sharded_grads_vs_plain(cfg, mesh, local, tokens) -> tuple[float, str]:
+    """Each rank's shards of the grads through the kernels against those
+    through the plain attention on the mesh, as a share of each leaf's max
+    |grad| (GRAD_RTOL_OF_MAX, phase 3's limit), the kernels on this rank's
+    H/tp q and H_kv/tp kv heads; returns the worst."""
+    heads = []
+
+    def recording(q, k, v, **kw):
+        heads.append((q.shape[1], k.shape[1]))
+        return flash_attention(q, k, v, **kw)
+
+    _, grads = loss_and_grads(local, tokens, cfg, attention=recording, mesh=mesh)
+    _, plain = loss_and_grads(local, tokens, cfg, attention=attention_plain, mesh=mesh)
+    if heads != [local_heads(cfg, mesh)] * cfg.n_layers:
+        raise RuntimeError(f"rank {mesh.rank}: attention ran on (q, kv) heads {heads}")
+    worst = (0.0, "")
+    for leaf, g, w in zip(_leaf_names(local), tree_leaves(grads), tree_leaves(plain)):
+        share = (g.float() - w.float()).abs().max().item() / w.float().abs().max().item()
+        if not (torch.isfinite(g).all() and share <= GRAD_RTOL_OF_MAX):
+            raise RuntimeError(f"rank {mesh.rank}: sharded grads of {leaf} differ from the "
+                               f"plain attention's by {share} of max |grad| > {GRAD_RTOL_OF_MAX}")
+        worst = max(worst, (share, leaf))
+    return worst
+
+
+def _sharded_times(cfg, mesh, local, tokens) -> dict:
+    """ms of TIMED sharded SGD steps on this rank (host clock from a
+    barrier to the step's end, synchronized), of one gloo all-reduce of an
+    activation over "model" (the payload of each f and g), and of the
+    step's gradient sums over "data" (one all-reduce a leaf of this rank's
+    shards)."""
+    step = make_train_step(cfg, TRAIN["LR"], mesh)
+    step(local, tokens)  # warm-up
+    steps = []
+    for _ in range(SHARDED["TIMED"]):
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(local, tokens)
+        torch.cuda.synchronize()
+        steps.append((time.perf_counter() - t0) * 1e3)
+    act = torch.ones((tokens.shape[0] // mesh.size("data"), tokens.shape[1], cfg.d_model),
+                     dtype=cfg.dtype, device=mesh.device)
+    reduces = []
+    for _ in range(5):
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        all_reduce(act, mesh, "model")
+        torch.cuda.synchronize()
+        reduces.append((time.perf_counter() - t0) * 1e3)
+    grads, sums = [t.clone() for t in tree_leaves(local)], []
+    for _ in range(SHARDED["TIMED"]):
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for g in grads:
+            all_reduce(g, mesh, "data")
+        torch.cuda.synchronize()
+        sums.append((time.perf_counter() - t0) * 1e3)
+    return {"step_ms": steps, "all_reduce_ms": reduces, "all_reduce_bytes": act.nbytes,
+            "grad_sums_ms": sums, "grad_bytes": sum(g.nbytes for g in grads)}
+
+
+def _sharded_rank() -> dict:
+    """One rank of phase 7; returns numbers and no tensors."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = build_mesh(SHARDED["SHAPE"], device="cuda")
+    out = {"rank": mesh.rank, "coords": mesh.coords, "device": str(mesh.device),
+           "dialect": tp_checks(mesh)}
+    # The dialect's two sharded steps (dense, MoE) are on the main path.
+    launches = {k: v + out["dialect"]["moe_launches"][k]
+                for k, v in out["dialect"]["launches"].items()}
+    for name, n_experts in (("dense", None), ("MoE", MOE_EXPERTS)):
+        cfg = full_width_config(n_experts)
+        params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        tokens = torch.from_numpy(np.random.default_rng(SHARDED["SEED"]).integers(
+            0, cfg.vocab, (TRAIN["B"], TRAIN["L"])))
+        result = sharded_step_check(cfg, mesh, params, tokens, TRAIN["LR"])
+        for k, v in result["launches"].items():
+            launches[k] += v
+        record = {"loss": result["loss"], "launches": result["launches"],
+                  "collectives": result["collectives"],
+                  **_sharded_vs_one_process(name, cfg, mesh, params, tokens,
+                                            result["local"], result["loss"])}
+        del result
+        local = shard_params(params, mesh, cfg)
+        if n_experts is None:
+            record["grads_vs_plain"] = _sharded_grads_vs_plain(cfg, mesh, local, tokens)
+        record["times"] = _sharded_times(cfg, mesh, local, tokens)
+        out[name] = record
+        del local
+        torch.cuda.empty_cache()
+    out["launches"] = launches
+    return out
+
+
+def phase_sharded(card: str) -> dict:
+    """Phase 7 (see the module's docstring): starts the 4 ranks once,
+    checks what they report, and returns the training kernels' launches
+    on its main path (every rank's sharded steps)."""
+    torch.cuda.empty_cache()  # this process's cache, for the ranks' sake
+    world = SHARDED["SHAPE"][0] * SHARDED["SHAPE"][1]
+    t0 = time.perf_counter()
+    ranks = run_ranks(_sharded_rank, world, backend=SHARDED["BACKEND"], timeout_s=900.0)
+    label = (f"{world} ranks sharing one H100 over {SHARDED['BACKEND']}, not a {world}-GPU "
+             f"figure; mesh {SHARDED['SHAPE']} (data, model) [{card}]")
+    print(f"sharded: {world} ranks on a {SHARDED['SHAPE']} (data, model) mesh, one process "
+          f"each, all on {ranks[0]['device']}, over {SHARDED['BACKEND']} (NCCL refuses two "
+          f"ranks on one device; gloo's all-reduce takes CUDA tensors by way of the host); "
+          f"{time.perf_counter() - t0:.1f} s with the ranks' start", flush=True)
+    total = dict.fromkeys(("flash_fwd", "dq", "dkv"), 0)
+    for r in ranks:
+        d = r["dialect"]
+        print(f"sharded rank {r['rank']} {r['coords']}: train_check's dialect: loss "
+              f"{d['loss']:.4f}, grads through the kernels vs the plain attention on the mesh "
+              f"max abs err {d['max_grad_err']:.3g} (limit 5e-3), attention on (q, kv) heads "
+              f"{d['heads']}, launches a step {d['launches']}, collectives {d['collectives']}; "
+              f"MoE flagship loss {d['moe_loss']:.4f}, collectives {d['moe_collectives']}; "
+              f"make_moe_step over (data, expert) losses "
+              f"{', '.join(f'{x:.4f}' for x in d['moe_step_losses'])}", flush=True)
+        for name in ("dense", "MoE"):
+            rec = r[name]
+            line = (f"sharded rank {r['rank']} full-width {name} SGD step: loss "
+                    f"{rec['loss']:.4f}, launches {rec['launches']} (n_layers each), "
+                    f"collectives {rec['collectives']}")
+            if "loss_one_process" in rec:
+                line += (f"; the one-process step on the card: loss "
+                         f"{rec['loss_one_process']:.4f} (|diff| {rec['loss_err']:.3g}, limit "
+                         f"{SHARDED_LOSS_ATOL[name]}), gathered params worst "
+                         f"{rec['worst_param'][1]} at {rec['worst_param'][0]:.3g} of its max "
+                         f"|value| (limit {SHARDED_PARAM_OF_MAX:.3g})")
+            if "grads_vs_plain" in rec:
+                share, leaf = rec["grads_vs_plain"]
+                line += (f"; grads vs the plain attention on the mesh, worst {leaf} at "
+                         f"{share:.3g} of its max |grad| (limit {GRAD_RTOL_OF_MAX}), the "
+                         f"kernels on {full_width_config().n_heads // SHARDED['SHAPE'][1]} of "
+                         f"{full_width_config().n_heads} heads")
+            print(line, flush=True)
+            t = rec["times"]
+            print(f"time sharded {name} SGD step, rank {r['rank']}: {_runs(t['step_ms'])}; "
+                  f"one gloo all-reduce of {t['all_reduce_bytes'] / 1e6:.1f} MB over model "
+                  f"(8 a step): {_runs(t['all_reduce_ms'])}; the gradient sums over data "
+                  f"({t['grad_bytes'] / 1e6:.1f} MB in one all-reduce a leaf): "
+                  f"{_runs(t['grad_sums_ms'])} [{label}]", flush=True)
+        for k in total:
+            total[k] += r["launches"][k]
+    for name in ("dense", "MoE"):
+        if len({r[name]["loss"] for r in ranks}) != 1:
+            raise RuntimeError(f"sharded {name}: the ranks' losses differ: "
+                               f"{[r[name]['loss'] for r in ranks]}")
+    print(f"sharded: launches on its main path (every rank's sharded steps): {total}",
+          flush=True)
+    return total
+
+
 def phase_forward_timing(cfg, params, tokens, card, what="forward") -> None:
     fwd_ms = _time_ms(lambda: forward(params, tokens, cfg), 5, warmup=1)
     tok_s = tokens.numel() / (fwd_ms / 1e3)
@@ -1675,14 +1904,30 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    stages = ["1 (build)"]
+    try:
+        _phases(stages)
+    except Exception as err:
+        message = f"chip_smoke: FAILED in phase {stages[-1]}: {type(err).__name__}: {err}"
+        print(message, flush=True)
+        print(message, file=sys.stderr, flush=True)
+        raise
+    return 0
+
+
+def _phases(stage: list) -> None:
+    """Every phase in order; the name of each is appended to `stage` before
+    it runs, so that a failure names it."""
     torch.backends.cuda.matmul.allow_tf32 = False
     card = _card()
     phase_build(card)
+    stage.append("2 (kernels against their plain versions)")
     gen = torch.Generator(device="cuda").manual_seed(0)
     max_abs_err = phase_kernel_vs_plain(gen)
     decode_err = phase_decode_vs_plain(gen)
     bwd_errs = phase_bwd_vs_plain(gen)
 
+    stage.append("3 (dense main paths: forward, serving)")
     cfg = full_width_config()
     params = init_params(cfg, torch.Generator().manual_seed(0), "cuda")
     rng = np.random.default_rng(0)
@@ -1691,10 +1936,13 @@ def main() -> int:
     launches = phase_main_path(cfg, params, batches)
     prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (SERVE["B"], SERVE["T0"]))).cuda()
     prefill_launches, decode_launches, tokens, ref = phase_serving(cfg, params, prompt)
+    stage.append("4 (captured decode step, then the MoE paths)")
     graph_step_ms = phase_graph(cfg, params, tokens, ref, card)
     del ref
+    stage.append("3 (dense training)")
     train_fwd, train_dq, train_dkv = phase_train(cfg, params, batches)
 
+    stage.append("4 (the MoE paths)")
     moe_cfg = full_width_config(n_experts=MOE_EXPERTS)
     moe_params = init_params(moe_cfg, torch.Generator().manual_seed(0), "cuda")
     moe_ffn_err = phase_moe_ffn_vs_plain(gen)
@@ -1704,6 +1952,7 @@ def main() -> int:
     del moe_ref
     moe_fwd, moe_dq, moe_dkv = phase_moe_train(moe_cfg, moe_params, batches)
 
+    stage.append("5 (timings)")
     times = phase_timings(gen, cfg, params, batches[0], card)
     bwd_times = phase_bwd_timings(gen, card)
     phase_train_timings(cfg, params, batches[0], card)
@@ -1715,15 +1964,20 @@ def main() -> int:
     phase_train_profile(moe_cfg, moe_params, batches[0], card)
     phase_serving_timings(moe_cfg, moe_params, prompt, moe_graph_ms, card)
     del moe_params, params
+    stage.append("6 (the handoff)")
     handoff_launches = phase_handoff(card)
+    stage.append("7 (dp x tp and expert parallelism, 4 ranks sharing the card)")
+    sharded_launches = phase_sharded(card)
 
+    stage.append("the kernels line")
     print(f"launches on the main paths: flash_fwd {launches} (forward) + "
           f"{prefill_launches} (prefill) + {train_fwd} (training), flash_decode "
           f"{decode_launches}, flash_bwd dq {train_dq} and dk/dv {train_dkv} (training); "
           f"MoE paths: flash_fwd {moe_launches} (forward) + {moe_prefill} (prefill) + "
           f"{moe_fwd} (training), flash_decode {moe_decode}, flash_bwd dq {moe_dq} and dk/dv "
           f"{moe_dkv}; moe_ffn vs moe_ffn_plain bf16 max abs err {moe_ffn_err:.3g}; the "
-          f"handoff phase (its children and the uninterrupted runs): {handoff_launches}",
+          f"handoff phase (its children and the uninterrupted runs): {handoff_launches}; "
+          f"the sharded phase (every rank's sharded steps): {sharded_launches}",
           flush=True)
     bwd_source = "gpumounter_tpu_torch/ops/csrc/flash_bwd.cu"
     print(json.dumps({"kernels": [{
@@ -1731,16 +1985,17 @@ def main() -> int:
         "source": "gpumounter_tpu_torch/ops/csrc/flash_fwd.cu",
         "replaces": "gpumounter_tpu/ops/flash_attention.py:84",
         "launches": (launches + prefill_launches + train_fwd + moe_launches + moe_prefill
-                     + moe_fwd + handoff_launches["flash_fwd"]),
+                     + moe_fwd + handoff_launches["flash_fwd"]
+                     + sharded_launches["flash_fwd"]),
         "max_abs_err": max_abs_err, **times}, {
         "name": "flash_bwd_dq", "route": "cuda", "source": bwd_source,
         "replaces": "gpumounter_tpu/ops/flash_attention.py:182",
-        "launches": train_dq + moe_dq + handoff_launches["dq"], "max_abs_err": bwd_errs[0],
-        **bwd_times["dq"]}, {
+        "launches": train_dq + moe_dq + handoff_launches["dq"] + sharded_launches["dq"],
+        "max_abs_err": bwd_errs[0], **bwd_times["dq"]}, {
         "name": "flash_bwd_dkv", "route": "cuda", "source": bwd_source,
         "replaces": "gpumounter_tpu/ops/flash_attention.py:236",
-        "launches": train_dkv + moe_dkv + handoff_launches["dkv"], "max_abs_err": bwd_errs[1],
-        **bwd_times["dkv"]}, {
+        "launches": train_dkv + moe_dkv + handoff_launches["dkv"] + sharded_launches["dkv"],
+        "max_abs_err": bwd_errs[1], **bwd_times["dkv"]}, {
         "name": "flash_decode", "route": "cuda",
         "source": "gpumounter_tpu_torch/ops/csrc/flash_decode.cu",
         "replaces": "gpumounter_tpu/ops/flash_decode.py:48",
@@ -1750,7 +2005,6 @@ def main() -> int:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
-    return 0
 
 
 if __name__ == "__main__":

@@ -1,9 +1,11 @@
 """Entry points: the probe's forward, as ``__graft_entry__.entry()`` gives
 it, and the training checks of the reference's dryrun, dense
-(``train_check``) and MoE (``moe_check``)."""
+(``train_check``), MoE (``moe_check``) and sharded over a mesh of ranks
+(``tp_train_check``)."""
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import numpy as np
@@ -12,12 +14,18 @@ import torch
 from gpumounter_tpu_torch._device import resolve_device
 from gpumounter_tpu_torch.models.probe import (TransformerConfig, _attend, _block, _embed,
                                                _finish_block, _rmsnorm, forward, init_params,
-                                               next_token_nll)
-from gpumounter_tpu_torch.ops.flash_attention import attention_plain, flash_attention
-from gpumounter_tpu_torch.parallel.moe import _route, init_moe_params, make_moe_step
-from gpumounter_tpu_torch.parallel.train_step import (loss_and_grads,
-                                                      make_train_step,
-                                                      tree_leaves)
+                                               local_heads, next_token_nll)
+from gpumounter_tpu_torch.ops.flash_attention import (attention_plain, flash_attention,
+                                                      flash_attention_bwd_kernel,
+                                                      flash_attention_kernel)
+from gpumounter_tpu_torch.parallel.collectives import all_gather
+from gpumounter_tpu_torch.parallel.launch import run_ranks
+from gpumounter_tpu_torch.parallel.mesh import build_mesh
+from gpumounter_tpu_torch.parallel.moe import (_route, init_moe_params, make_moe_step,
+                                               shard_moe_params)
+from gpumounter_tpu_torch.parallel.train_step import (loss_and_grads, make_train_step,
+                                                      param_specs, shard_params,
+                                                      step_collectives, tree_leaves)
 
 TRAIN_GRAD_ATOL = 5e-3  # the reference's kernel-vs-xla grad limit
 # Top-1 routing is discontinuous: a token whose two best router logits are
@@ -45,6 +53,21 @@ def entry(device="cuda"):
     return fn, (params, tokens)
 
 
+def check_config(**changes) -> TransformerConfig:
+    """The checks' dialect: the reference's dryrun flagship
+    (``__graft_entry__._flagship_cfg``: 16 q heads, 8 kv heads, window 8,
+    RoPE, 2 layers, d_ff 128, max_len 32, bf16) at d_model 512, so d_head
+    32 (``train_check`` says why), with `changes`."""
+    cfg = TransformerConfig(n_layers=2, d_model=512, n_heads=16, d_ff=128,
+                            max_len=32, n_kv_heads=8, window=8, rope=True)
+    return dataclasses.replace(cfg, **changes)
+
+
+def check_tokens(cfg) -> torch.Tensor:
+    """The checks' batch: tokens (8, 16) from numpy seed 0, on the CPU."""
+    return torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (8, 16)))
+
+
 def train_check(device="cuda") -> dict:
     """One SGD step of the reference's flagship dialect on tokens (8, 16)
     from numpy seed 0, then its grads through the kernels held leaf by leaf
@@ -65,11 +88,9 @@ def train_check(device="cuda") -> dict:
     the loss is not finite or a grad is off.
     """
     device = resolve_device(device)
-    cfg = TransformerConfig(n_layers=2, d_model=512, n_heads=16, d_ff=128,
-                            max_len=32, n_kv_heads=8, window=8, rope=True)
+    cfg = check_config()
     params = init_params(cfg, torch.Generator().manual_seed(0), device)
-    tokens = torch.from_numpy(
-        np.random.default_rng(0).integers(0, cfg.vocab, (8, 16))).to(device)
+    tokens = check_tokens(cfg).to(device)
     _, loss = make_train_step(cfg)(params, tokens)
     if not torch.isfinite(loss):
         raise RuntimeError(f"train step loss is not finite: {loss.item()}")
@@ -187,11 +208,9 @@ def moe_check(device="cuda") -> dict:
     grad is off.
     """
     device = resolve_device(device)
-    cfg = TransformerConfig(n_layers=2, d_model=512, n_heads=16, d_ff=64, max_len=32,
-                            n_kv_heads=8, window=8, rope=True, n_experts=8)
+    cfg = check_config(n_experts=8, d_ff=64)
     params = init_params(cfg, torch.Generator().manual_seed(0), device)
-    tokens = torch.from_numpy(
-        np.random.default_rng(0).integers(0, cfg.vocab, (8, 16))).to(device)
+    tokens = check_tokens(cfg).to(device)
     new, loss = make_train_step(cfg)(params, tokens)
     if not (torch.isfinite(loss) and all(torch.isfinite(t).all() for t in tree_leaves(new))):
         raise RuntimeError(f"MoE train step: loss {loss.item()}, or params not finite")
@@ -214,3 +233,189 @@ def moe_check(device="cuda") -> dict:
     return {"loss": loss.item(), "max_grad_err": err,
             "flipped": [int(r["flipped"].sum()) for r in records],
             "moe_step_losses": moe_losses}
+
+
+# --- sharded: the dryrun's dp x tp and expert-parallel sections ---
+
+
+def kernel_launches() -> dict:
+    """The training kernels' launch counts in this process."""
+    bwd = flash_attention_bwd_kernel
+    return {"flash_fwd": flash_attention_kernel.launches, "dq": bwd.dq_launches,
+            "dkv": bwd.dkv_launches}
+
+
+def reset_kernel_launches() -> None:
+    flash_attention_kernel.launches = 0
+    flash_attention_bwd_kernel.dq_launches = flash_attention_bwd_kernel.dkv_launches = 0
+
+
+def local_shapes(cfg: TransformerConfig, mesh) -> list[tuple]:
+    """The shapes of one rank's shards, in ``tree_leaves`` order: each
+    leaf's whole shape with the dim that ``param_specs`` splits over
+    "model" divided by its size, and wqkv's columns those of the rank's
+    q, k and v heads."""
+    tp = mesh.size("model")
+    n_q, n_kv = local_heads(cfg, mesh)
+    full = {"embed": (cfg.vocab, cfg.d_model), "pos": (cfg.max_len, cfg.d_model),
+            "wqkv": (cfg.d_model, (n_q + 2 * n_kv) * cfg.d_head * tp),
+            "wo": (cfg.d_model, cfg.d_model), "ln1": (cfg.d_model,), "ln2": (cfg.d_model,),
+            "w1": (cfg.d_model, cfg.d_ff), "w2": (cfg.d_ff, cfg.d_model)}
+    if cfg.n_experts is not None:
+        e = cfg.n_experts
+        full.update(router=(cfg.d_model, e), w1=(e, cfg.d_model, cfg.d_ff),
+                    w2=(e, cfg.d_ff, cfg.d_model))
+
+    def local(key, spec):
+        return tuple(n // tp if axis == "model" else n for n, axis in zip(full[key], spec))
+
+    specs = param_specs(cfg)
+    return ([local(k, specs[k]) for k in sorted(specs) if k != "blocks"]
+            + [local(k, blk[k]) for blk in specs["blocks"] for k in sorted(blk)])
+
+
+def _check_equal_over(local: dict, mesh, axis: str, keys=None) -> None:
+    """Raises unless each leaf named in `keys` (every leaf by default) is
+    bit-equal on every rank along `axis`."""
+    names = [k for k in sorted(local) if k != "blocks"] + [
+        f"blocks[{i}].{k}" for i, blk in enumerate(local["blocks"]) for k in sorted(blk)]
+    for name, leaf in zip(names, tree_leaves(local), strict=True):
+        if keys is None or name.rsplit(".", 1)[-1] in keys:
+            for r, other in enumerate(all_gather(leaf, mesh, axis)):
+                if not torch.equal(other, leaf):
+                    raise RuntimeError(f"{name} differs between rank {mesh.rank} and its "
+                                       f"{axis!r} neighbour {r} after the step")
+
+
+def sharded_step_check(cfg: TransformerConfig, mesh, params: dict, tokens: torch.Tensor,
+                       lr: float = 1e-3) -> dict:
+    """One ``make_train_step`` step of full params (on the CPU: only the
+    shards reach the device) sharded over `mesh`, with the checks that
+    stand in for the dryrun's "no involuntary rematerialization": this
+    rank's leaves, before and after, have their local shapes; the step's
+    collectives are ``step_collectives``' all-reduces, of its own shards
+    and activations, and nothing gathers a weight; and after the step every
+    leaf is bit-equal along "data", and every replicated one along
+    "model". On a CUDA mesh each training kernel launches n_layers times,
+    on this rank's heads. Returns {"local": new shards, "loss", "launches",
+    "collectives"}; raises RuntimeError when a check fails."""
+    local = shard_params(params, mesh, cfg)
+    want = local_shapes(cfg, mesh)
+    got = [tuple(t.shape) for t in tree_leaves(local)]
+    if got != want:
+        raise RuntimeError(f"rank {mesh.rank}: shards of shapes {got}, expected {want}")
+    step = make_train_step(cfg, lr=lr, mesh=mesh)
+    mesh.reset_counts()
+    reset_kernel_launches()
+    new, loss = step(local, tokens)
+    if mesh.device.type == "cuda":
+        torch.cuda.synchronize(mesh.device)
+    counts = {"calls": dict(mesh.calls), "bytes": dict(mesh.bytes)}
+    launches = kernel_launches()
+    if not math.isfinite(loss.item()):
+        raise RuntimeError(f"rank {mesh.rank}: sharded step loss {loss.item()}")
+    expected = step_collectives(cfg, mesh, local, tuple(tokens.shape))
+    if counts != expected:
+        raise RuntimeError(f"rank {mesh.rank}: collectives of a step {counts}, "
+                           f"expected {expected}")
+    n = cfg.n_layers if mesh.device.type == "cuda" else 0
+    if launches != dict.fromkeys(("flash_fwd", "dq", "dkv"), n):
+        raise RuntimeError(f"rank {mesh.rank}: kernel launches {launches}, {n} each expected")
+    if [tuple(t.shape) for t in tree_leaves(new)] != want:
+        raise RuntimeError(f"rank {mesh.rank}: the new shards changed shape")
+    _check_equal_over(new, mesh, "data")
+    _check_equal_over(new, mesh, "model", {"embed", "pos", "ln1", "ln2", "router"})
+    return {"local": new, "loss": loss.item(), "launches": launches, "collectives": counts}
+
+
+def tp_checks(mesh) -> dict:
+    """The dryrun's sharded sections (``__graft_entry__.py:141-167, 191-201,
+    268-284``) on this rank of a ("data", "model") mesh, at ``check_config``'s
+    dialect; every rank of the mesh calls it together.
+
+    1. One dp x tp SGD step (``sharded_step_check``), finite loss.
+    2. Its gradients through the kernels held against those through
+       ``attention_plain`` on the same mesh, leaf by leaf on this rank's
+       shards, within the reference's 5e-3; each attention call on
+       H/tp q heads and H_kv/tp kv heads.
+    3. The MoE flagship (8 experts, d_ff 64) over the same mesh, its
+       experts split over "model": one step, the same checks.
+    4. ``make_moe_step`` over a ("data", "expert") mesh of the same ranks
+       (2 experts a rank of "expert", 2 ranks on it where the world is
+       even), 3 steps of d_model 32, d_ff 64 on bf16 ones (8, 32).
+
+    Returns {"loss", "max_grad_err", "heads", "launches", "collectives",
+    "moe_loss", "moe_launches", "moe_collectives", "moe_step_losses"}."""
+    cfg = check_config()
+    tokens = check_tokens(cfg)
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    dense = sharded_step_check(cfg, mesh, params, tokens)
+
+    local = shard_params(params, mesh, cfg)
+    heads = []
+
+    def recording(q, k, v, **kw):
+        heads.append((q.shape[1], k.shape[1]))
+        return flash_attention(q, k, v, **kw)
+
+    _, grads = loss_and_grads(local, tokens, cfg, attention=recording, mesh=mesh)
+    _, plain = loss_and_grads(local, tokens, cfg, attention=attention_plain, mesh=mesh)
+    if heads != [local_heads(cfg, mesh)] * cfg.n_layers:
+        raise RuntimeError(f"rank {mesh.rank}: attention ran on (q, kv) heads {heads}")
+    err = max((g.float() - p.float()).abs().max().item()
+              for g, p in zip(tree_leaves(grads), tree_leaves(plain)))
+    if not err < TRAIN_GRAD_ATOL:
+        raise RuntimeError(f"rank {mesh.rank}: grads through the kernels vs the plain "
+                           f"attention on the mesh: max abs err {err} >= {TRAIN_GRAD_ATOL}")
+
+    moe_cfg = check_config(n_experts=8, d_ff=64)
+    moe = sharded_step_check(moe_cfg, mesh, init_params(
+        moe_cfg, torch.Generator().manual_seed(0), "cpu"), tokens)
+
+    world = mesh.size("data") * mesh.size("model")
+    ep = 2 if world % 2 == 0 else 1
+    expert_mesh = build_mesh((world // ep, ep), ("data", "expert"), mesh.device)
+    step = make_moe_step(2 * ep, 32, 64, mesh=expert_mesh)
+    moe_params = shard_moe_params(init_moe_params(
+        torch.Generator().manual_seed(1), 2 * ep, 32, 64, torch.bfloat16, "cpu"), expert_mesh)
+    xs = torch.ones((8, 32), dtype=torch.bfloat16)
+    moe_losses = []
+    for _ in range(3):
+        moe_params, moe_loss = step(moe_params, xs, xs)
+        moe_losses.append(moe_loss.item())
+    if not all(map(math.isfinite, moe_losses)):
+        raise RuntimeError(f"rank {mesh.rank}: MoE layer step losses {moe_losses}")
+    return {"loss": dense["loss"], "max_grad_err": err, "heads": heads,
+            "launches": dense["launches"], "collectives": dense["collectives"],
+            "moe_loss": moe["loss"], "moe_launches": moe["launches"],
+            "moe_collectives": moe["collectives"],
+            "moe_step_losses": moe_losses}
+
+
+def _tp_check_rank(shape, device) -> dict:
+    result = tp_checks(build_mesh(shape, device=device))
+    result["rank"] = torch.distributed.get_rank()
+    return result
+
+
+def tp_train_check(n_data: int, n_model: int, device="cuda", *, backend: str,
+                   timeout_s: float = 600.0) -> dict:
+    """``tp_checks`` on an (n_data, n_model) mesh of n_data x n_model
+    ranks, started as processes (``parallel.launch.run_ranks``) that join a
+    process group of `backend`: the counterpart of the dryrun's dp x tp
+    and expert-parallel sections on a mesh. The caller names the backend;
+    nothing here swaps one for another (NCCL refuses two ranks on one
+    device, gloo takes CUDA tensors by way of the host). Runs on the card
+    unless the caller passes device="cpu"; each rank's device is
+    ``build_mesh``'s. Returns rank 0's results, with "max_grad_err" the
+    largest over the ranks and "ranks" every rank's; raises when a rank
+    fails, naming it."""
+    if torch.device(device).type == "cuda":
+        resolve_device(device)
+    results = run_ranks(_tp_check_rank, n_data * n_model, backend=backend,
+                        args=((n_data, n_model), device), timeout_s=timeout_s)
+    losses = {r["loss"] for r in results}
+    if len(losses) != 1:
+        raise RuntimeError(f"the ranks' losses differ: {sorted(losses)}")
+    return {**results[0], "max_grad_err": max(r["max_grad_err"] for r in results),
+            "ranks": results}

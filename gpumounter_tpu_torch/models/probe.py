@@ -29,6 +29,16 @@ weights per block), and ``loss_fn`` adds ``moe_aux_weight`` x its
 load-balancing loss averaged over the layers. The serving path drops that
 loss, as the reference does.
 
+dp x tp: ``forward`` and ``loss_fn`` take a ``parallel.mesh.Mesh`` whose
+axes are (data, model), and this rank's shards of the params
+(``parallel.train_step.shard_params``) and of the batch. Each block then
+runs on its local heads and its local d_ff columns or experts: Megatron's
+f (``parallel.collectives.copy_to``) before ``wqkv`` and before ``w1`` or
+the experts, g (``reduce_from``) after ``wo`` and after ``w2`` or the
+expert combine. Attention needs no collective; every rank runs the
+kernels on its own H/tp q heads and H_kv/tp kv heads. The embedding, the
+norms, the router and the logits are computed whole on every rank.
+
 Not ported yet: sequence-parallel attention.
 """
 
@@ -43,6 +53,7 @@ from gpumounter_tpu_torch._device import resolve_device
 from gpumounter_tpu_torch.ops.flash_attention import flash_attention
 from gpumounter_tpu_torch.ops.flash_decode import flash_decode
 from gpumounter_tpu_torch.ops.graphs import capture as capture_graph
+from gpumounter_tpu_torch.parallel.collectives import copy_to, reduce_from
 from gpumounter_tpu_torch.parallel.moe import init_moe_params, moe_ffn
 
 
@@ -150,19 +161,38 @@ def _rmsnorm(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     return (x * torch.rsqrt(var + 1e-6).to(x.dtype)) * g
 
 
-def _qkv_heads(x, p, cfg):
+def _model_axis(mesh):
+    return None if mesh is None else mesh.axis_names[1]
+
+
+def local_heads(cfg, mesh=None) -> tuple[int, int]:
+    """(q heads, kv heads) of one rank: the config's, split over the mesh's
+    model axis. Raises ValueError where they do not split evenly."""
+    if mesh is None:
+        return cfg.n_heads, cfg.kv_heads
+    axis = _model_axis(mesh)
+    tp = mesh.size(axis)
+    if cfg.n_heads % tp or cfg.kv_heads % tp:
+        raise ValueError(f"heads must divide the {axis!r} axis evenly: "
+                         f"H={cfg.n_heads}, H_kv={cfg.kv_heads}, axis size {tp}")
+    return cfg.n_heads // tp, cfg.kv_heads // tp
+
+
+def _qkv_heads(x, p, cfg, mesh=None):
     """rmsnorm + QKV projection split into q (b, n_heads, t, d_head) and
-    k, v (b, kv_heads, t, d_head). These are strided views of one
-    projection; the attention kernel reads them as they are."""
+    k, v (b, kv_heads, t, d_head), the head counts this rank's under a mesh
+    (its wqkv holds its q, k and v heads' columns). These are strided views
+    of one projection; the attention kernel reads them as they are."""
     b, t, _ = x.shape
-    qkv = _rmsnorm(x, p["ln1"]) @ p["wqkv"]
-    kv_dim = cfg.kv_heads * cfg.d_head
-    q, k, v = qkv.split([cfg.d_model, kv_dim, kv_dim], dim=-1)
+    n_q, n_kv = local_heads(cfg, mesh)
+    h = copy_to(_rmsnorm(x, p["ln1"]), mesh, _model_axis(mesh))
+    q, k, v = (h @ p["wqkv"]).split(
+        [n_q * cfg.d_head, n_kv * cfg.d_head, n_kv * cfg.d_head], dim=-1)
 
     def heads(a, n):
         return a.reshape(b, t, n, cfg.d_head).transpose(1, 2)
 
-    return heads(q, cfg.n_heads), heads(k, cfg.kv_heads), heads(v, cfg.kv_heads)
+    return heads(q, n_q), heads(k, n_kv), heads(v, n_kv)
 
 
 def _rope_rotate(x, positions, cfg):
@@ -185,39 +215,45 @@ def _maybe_rope(q, k, cfg, positions):
     return _rope_rotate(q, positions, cfg), _rope_rotate(k, positions, cfg)
 
 
-def _finish_block(x, p):
+def _finish_block(x, p, mesh=None):
     """rmsnorm, FFN and residual: (x, aux). The FFN is the MoE when the
     block carries a router (aux its load-balancing loss), else the dense
-    FFN with tanh GELU, as jax.nn.gelu's default (aux 0.0)."""
+    FFN with tanh GELU, as jax.nn.gelu's default (aux 0.0). Under a mesh
+    the FFN runs on this rank's d_ff columns or experts and is summed over
+    the model axis."""
     h = _rmsnorm(x, p["ln2"])
+    axis = _model_axis(mesh)
     if "router" in p:
         b, t, d = h.shape
-        out, aux = moe_ffn(p, h.reshape(b * t, d))
+        out, aux = moe_ffn(p, h.reshape(b * t, d), mesh, axis)
         return x + out.reshape(b, t, d), aux
-    return x + F.gelu(h @ p["w1"], approximate="tanh") @ p["w2"], 0.0
+    hidden = F.gelu(copy_to(h, mesh, axis) @ p["w1"], approximate="tanh")
+    return x + reduce_from(hidden @ p["w2"], mesh, axis), 0.0
 
 
-def _project(x, attn_heads, p):
-    """x plus the output projection of the attention heads (b, h, t, d)."""
+def _project(x, attn_heads, p, mesh=None):
+    """x plus the output projection of the attention heads (b, h, t, d),
+    summed over the model axis under a mesh."""
     b, _, t, _ = attn_heads.shape
-    return x + attn_heads.transpose(1, 2).reshape(b, t, -1) @ p["wo"]
+    out = attn_heads.transpose(1, 2).reshape(b, t, -1) @ p["wo"]
+    return x + reduce_from(out, mesh, _model_axis(mesh))
 
 
-def _attend(x, p, cfg, attention):
+def _attend(x, p, cfg, attention, mesh=None):
     """The attention half of a block over the whole sequence: (x plus its
     attention's projection, post-RoPE k and v (b, kv_heads, t, d_head),
     which is what the cache stores)."""
-    q, k, v = _qkv_heads(x, p, cfg)
+    q, k, v = _qkv_heads(x, p, cfg, mesh)
     positions = torch.arange(x.shape[1], device=x.device)
     q, k = _maybe_rope(q, k, cfg, positions)
-    return _project(x, attention(q, k, v, causal=True, window=cfg.window), p), k, v
+    return _project(x, attention(q, k, v, causal=True, window=cfg.window), p, mesh), k, v
 
 
-def _block(x, p, cfg, attention, return_kv=False):
+def _block(x, p, cfg, attention, return_kv=False, mesh=None):
     """One block over the whole sequence: (x, aux), with return_kv also its
     k and v."""
-    x, k, v = _attend(x, p, cfg, attention)
-    x, aux = _finish_block(x, p)
+    x, k, v = _attend(x, p, cfg, attention, mesh)
+    x, aux = _finish_block(x, p, mesh)
     return (x, aux, k, v) if return_kv else (x, aux)
 
 
@@ -251,26 +287,31 @@ def _embed(params, tokens, cfg):
     return x if cfg.rope else x + params["pos"][:t]
 
 
-def _forward_impl(params, tokens, cfg, attention):
+def _forward_impl(params, tokens, cfg, attention, mesh=None):
     """(float32 logits, the blocks' aux loss averaged over n_layers; 0.0
     for a dense config)."""
     x, aux_total = _embed(params, tokens, cfg), 0.0
     for blk in params["blocks"]:
-        x, aux = _block(x, blk, cfg, attention)
+        x, aux = _block(x, blk, cfg, attention, mesh=mesh)
         aux_total = aux_total + aux
     return (x @ params["embed"].T).float(), aux_total / max(1, cfg.n_layers)
 
 
 def forward(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
-            attention=flash_attention) -> torch.Tensor:
+            attention=flash_attention, mesh=None) -> torch.Tensor:
     """float32 logits (batch, seq, vocab) for integer tokens (batch, seq).
 
     attention: called as ``attention(q, k, v, causal=True, window=...)``;
     the default is the port's flash_attention. Passing ``attention_plain``
     gives the same forward with the kernel's plain version, which is how
     the kernel's run is checked on the card.
+
+    mesh: a (data, model) ``parallel.mesh.Mesh``, with params this rank's
+    shards and tokens this rank's rows of the batch; the logits are this
+    rank's rows, whole over the vocab. Every rank of a model group must
+    call it together (its collectives).
     """
-    return _forward_impl(params, tokens, cfg, attention)[0]
+    return _forward_impl(params, tokens, cfg, attention, mesh)[0]
 
 
 def prefill(params: dict, prompt: torch.Tensor, cfg: TransformerConfig):
@@ -448,11 +489,17 @@ def next_token_nll(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
 
 
 def loss_fn(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
-            attention=flash_attention) -> torch.Tensor:
+            attention=flash_attention, mesh=None) -> torch.Tensor:
     """Mean next-token cross-entropy of ``forward`` on tokens (B, T), a
     0-dim float32 tensor, plus moe_aux_weight x the mean load-balancing
-    loss for MoE configs. attention as in ``forward``."""
-    logits, aux = _forward_impl(params, tokens, cfg, attention)
+    loss for MoE configs. attention as in ``forward``.
+
+    Under a mesh, this rank's share: the mean over its rows of the batch,
+    and the aux loss with each expert's routed fraction taken over the
+    whole batch (``parallel.moe.moe_ffn``). The mean of the shares over
+    the data axis is the loss of the whole batch, and the mean of their
+    gradients its gradient (``parallel.train_step.loss_and_grads``)."""
+    logits, aux = _forward_impl(params, tokens, cfg, attention, mesh)
     loss = next_token_nll(logits, tokens)
     if cfg.n_experts is not None:
         loss = loss + cfg.moe_aux_weight * aux

@@ -1,0 +1,144 @@
+"""A 2-axis process mesh over torch.distributed.
+
+Counterpart of ``gpumounter_tpu/parallel/mesh.py``. The reference hands a
+``jax.sharding.Mesh`` to GSPMD, which places the shards and inserts the
+collectives. PyTorch has no GSPMD: the port runs one process per rank, and
+each rank holds a ``Mesh`` that says where it sits (its coordinate on each
+axis), which ranks share each axis (one process group per axis) and which
+device it computes on. The collectives are explicit
+(``parallel/collectives.py``) and counted on the mesh.
+"""
+
+from __future__ import annotations
+
+import os
+
+import torch
+import torch.distributed as dist
+
+from gpumounter_tpu_torch._device import resolve_device
+from gpumounter_tpu_torch.parallel.collectives import all_gather
+
+
+def mesh_shape_for(n_devices: int) -> tuple[int, int]:
+    """(data, model) mesh shape: widest model axis that divides n_devices,
+    capped at 8 (a v5e host), model axis preferred over ICI-local groups."""
+    model = 1
+    for cand in (8, 4, 2):
+        if n_devices % cand == 0 and n_devices >= cand:
+            model = cand
+            break
+    return n_devices // model, model
+
+
+class Mesh:
+    """This rank's place in a (data, model)-shaped grid of ranks, laid out
+    row-major as ``np.array(ranks).reshape(shape)`` is in the reference.
+
+    axis_names: the two axes, the data axis first. shape, coords: each
+    axis's size and this rank's index along it. groups: each axis's process
+    group (the ranks that differ from this one only along it). device:
+    where this rank computes. calls, bytes: the collectives run over each
+    axis since the last ``reset_counts()``, and the bytes of the tensors
+    they reduced or gathered (the payload, not the traffic on the wire).
+    """
+
+    def __init__(self, axis_names, shape, rank: int, groups: dict,
+                 device: torch.device):
+        self.axis_names = tuple(axis_names)
+        self.shape = dict(zip(self.axis_names, shape, strict=True))
+        self.rank = rank
+        self.coords = dict(zip(self.axis_names, divmod(rank, shape[1]), strict=True))
+        self.groups = groups
+        self.device = device
+        self.reset_counts()
+
+    def size(self, axis: str) -> int:
+        return self.shape[axis]
+
+    def coord(self, axis: str) -> int:
+        return self.coords[axis]
+
+    def reset_counts(self) -> None:
+        self.calls = dict.fromkeys(self.axis_names, 0)
+        self.bytes = dict.fromkeys(self.axis_names, 0)
+
+
+def build_mesh(shape: tuple[int, int] | None = None,
+               axis_names: tuple[str, str] = ("data", "model"),
+               device="cuda") -> Mesh:
+    """This rank's Mesh over the initialised default process group.
+
+    The caller starts torch.distributed with the backend it chooses; this
+    never picks or swaps one. shape defaults to
+    ``mesh_shape_for(world size)`` and must multiply to the world size.
+    Every rank must call this, in the same order as its other group
+    creations: each axis's groups are made with ``dist.new_group`` on all
+    ranks. The device is ``cuda:(LOCAL_RANK % device_count)`` (LOCAL_RANK
+    from the environment, else the global rank), or the CPU when the caller
+    passes device="cpu".
+    """
+    if not dist.is_initialized():
+        raise RuntimeError("build_mesh needs torch.distributed initialised "
+                           "(init_process_group with the backend of your choice)")
+    world, rank = dist.get_world_size(), dist.get_rank()
+    shape = tuple(shape) if shape is not None else mesh_shape_for(world)
+    if len(shape) != 2 or len(axis_names) != 2 or shape[0] * shape[1] != world:
+        raise ValueError(f"mesh shape {shape} over axes {axis_names} does not "
+                         f"hold the world of {world} ranks")
+    n_data, n_model = shape
+    rows = [[d * n_model + m for m in range(n_model)] for d in range(n_data)]
+    cols = [[d * n_model + m for d in range(n_data)] for m in range(n_model)]
+    groups = {}
+    for axis, sets in ((axis_names[1], rows), (axis_names[0], cols)):
+        for ranks in sets:
+            group = dist.new_group(ranks)
+            if rank in ranks:
+                groups[axis] = group
+    device = resolve_device(device)
+    if device.type == "cuda" and device.index is None:
+        local = int(os.environ.get("LOCAL_RANK", rank))
+        device = torch.device("cuda", local % torch.cuda.device_count())
+    return Mesh(axis_names, shape, rank, groups, device)
+
+
+def shard_leaf(x: torch.Tensor, spec: tuple, mesh: Mesh) -> torch.Tensor:
+    """This rank's shard of x, a new contiguous tensor on the mesh's device.
+
+    spec names, per dim of x, the mesh axis it is split over, or None (the
+    reference's PartitionSpec as a tuple); a dim split over an axis of size
+    n is cut into n equal blocks, and the rank keeps the block at its
+    coordinate on that axis."""
+    if len(spec) != x.dim():
+        raise ValueError(f"spec {spec} for a tensor of shape {tuple(x.shape)}")
+    for dim, axis in enumerate(spec):
+        if axis is None:
+            continue
+        n = mesh.size(axis)
+        if x.shape[dim] % n:
+            raise ValueError(f"dim {dim} of shape {tuple(x.shape)} does not split "
+                             f"evenly over the {axis!r} axis of size {n}")
+        size = x.shape[dim] // n
+        x = x.narrow(dim, mesh.coord(axis) * size, size)
+    return x.to(mesh.device, copy=True).contiguous()
+
+
+def gather_leaf(x: torch.Tensor, spec: tuple, mesh: Mesh) -> torch.Tensor:
+    """The whole tensor of which x is this rank's ``shard_leaf`` shard (x
+    itself when spec splits nothing). Every rank of the axis must call it."""
+    for dim, axis in enumerate(spec):
+        if axis is not None:
+            x = torch.cat(all_gather(x, mesh, axis), dim=dim)
+    return x
+
+
+def shard_batch(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """This rank's rows of a batch (dim 0) split over the data axis (the
+    mesh's first), on the mesh's device."""
+    data = mesh.axis_names[0]
+    n = mesh.size(data)
+    if x.shape[0] % n:
+        raise ValueError(f"a batch of {x.shape[0]} does not split evenly over the "
+                         f"{data!r} axis of size {n}")
+    rows = x.shape[0] // n
+    return x[mesh.coord(data) * rows:(mesh.coord(data) + 1) * rows].to(mesh.device)

@@ -1,4 +1,4 @@
-"""Switch-style top-1 Mixture-of-Experts FFN on one device.
+"""Switch-style top-1 Mixture-of-Experts FFN, with expert parallelism.
 
 Counterpart of ``gpumounter_tpu/parallel/moe.py``: a router in float32
 picks one expert per token, and the layer is the reference's dense one-hot
@@ -13,8 +13,16 @@ captured as one CUDA graph. ``moe_ffn_plain`` gathers each expert's tokens
 by index instead: it is the formulation the dispatch is checked against,
 and runs on no path.
 
-Not ported here: ``moe_param_specs`` and ``shard_moe_params`` (the expert
-mesh), which belong to the multi-GPU slice.
+Expert parallelism: under a ``parallel.mesh.Mesh`` each rank holds the
+whole router and its own slice of the experts (``shard_moe_params``), and
+sees every token of its rows of the batch. It dispatches each of them to
+its own experts only, with the reference's one-hot einsums limited to
+those experts, and the combine is summed over the expert axis (Megatron's
+g): each token's one expert sits on one rank, and the others add zeros.
+Where the reference lets GSPMD sum over its sharded expert dimension, the
+port states the sum. Routing, the gate and the aux loss are computed whole
+on every rank; the aux loss takes each expert's routed fraction over the
+whole batch (one all-reduce over the data axis).
 """
 
 from __future__ import annotations
@@ -23,6 +31,9 @@ import torch
 import torch.nn.functional as F
 
 from gpumounter_tpu_torch._device import resolve_device
+from gpumounter_tpu_torch.parallel.collectives import (all_reduce, copy_to, mean_over_data,
+                                                       reduce_from)
+from gpumounter_tpu_torch.parallel.mesh import shard_batch, shard_leaf
 
 
 def init_moe_params(generator: torch.Generator, n_experts: int, d_model: int,
@@ -41,6 +52,20 @@ def init_moe_params(generator: torch.Generator, n_experts: int, d_model: int,
             "w2": normal(n_experts, d_ff, d_model).to(dtype)}
 
 
+def moe_param_specs(axis: str = "expert") -> dict:
+    """Expert dim split over `axis`; router replicated. The standalone MoE
+    step uses a dedicated "expert" mesh axis; the flagship probe rides the
+    tensor-parallel "model" axis instead (``train_step.param_specs``)."""
+    return {"router": (None, None), "w1": (axis, None, None), "w2": (axis, None, None)}
+
+
+def shard_moe_params(params: dict, mesh, axis: str = "expert") -> dict:
+    """This rank's shards of ``init_moe_params``'s dict, on the mesh's
+    device: the whole router, its slice of the experts."""
+    specs = moe_param_specs(axis)
+    return {key: shard_leaf(value, specs[key], mesh) for key, value in params.items()}
+
+
 def _route(params: dict, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """(expert index (T,), router probabilities (T, E) in float32) for
     tokens x (T, d_model): the logits are x in float32 times the router."""
@@ -48,7 +73,8 @@ def _route(params: dict, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return probs.argmax(dim=-1), probs
 
 
-def moe_ffn(params: dict, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def moe_ffn(params: dict, x: torch.Tensor, mesh=None,
+            axis: str = "expert") -> tuple[torch.Tensor, torch.Tensor]:
     """Top-1 routed FFN of tokens x (T, d_model): (output (T, d_model) in
     x's dtype, the Switch load-balancing loss, 0-dim float32).
 
@@ -56,17 +82,32 @@ def moe_ffn(params: dict, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     in x's dtype, dispatch te,td->etd, the expert products, tanh GELU,
     combine etd,te->td, then times the gate. Gradients reach the router
     through the gate and the aux loss's mean probability only.
+
+    mesh: this rank's experts are its shard along `axis`, x its tokens;
+    the combine is summed over `axis` before the gate, and the routed
+    fractions are averaged over the mesh's data axis (the first), so the
+    aux loss's mean over the data axis is the whole batch's.
     """
     n_experts = params["router"].shape[1]
     expert_idx, probs = _route(params, x)
     # A comparison, not F.one_hot, whose value checks read the device.
     onehot = (expert_idx[:, None] == torch.arange(n_experts, device=x.device)).to(x.dtype)
     gate = probs.gather(1, expert_idx[:, None]).to(x.dtype)
-    dispatched = torch.einsum("te,td->etd", onehot, x)
+    mine = onehot
+    if mesh is not None:
+        n_local = params["w1"].shape[0]
+        if n_local * mesh.size(axis) != n_experts:
+            raise ValueError(f"{n_local} experts a rank over the {axis!r} axis of size "
+                             f"{mesh.size(axis)} are not the router's {n_experts}")
+        mine = onehot[:, mesh.coord(axis) * n_local:][:, :n_local]
+    dispatched = torch.einsum("te,td->etd", mine, copy_to(x, mesh, axis))
     h = F.gelu(torch.einsum("etd,edf->etf", dispatched, params["w1"]), approximate="tanh")
     out_e = torch.einsum("etf,efd->etd", h, params["w2"])
-    combined = torch.einsum("etd,te->td", out_e, onehot) * gate
+    combined = reduce_from(torch.einsum("etd,te->td", out_e, mine), mesh, axis) * gate
     frac = onehot.float().mean(dim=0)
+    if mesh is not None:
+        data = mesh.axis_names[0]
+        frac = all_reduce(frac, mesh, data) / mesh.size(data)
     aux = n_experts * (frac * probs.mean(dim=0)).sum()
     return combined, aux
 
@@ -89,16 +130,36 @@ def moe_ffn_plain(params: dict, x: torch.Tensor) -> tuple[torch.Tensor, torch.Te
     return out, aux, expert_idx
 
 
-def make_moe_step(n_experts: int, d_model: int, d_ff: int, lr: float = 1e-2):
+def make_moe_step(n_experts: int, d_model: int, d_ff: int, lr: float = 1e-2,
+                  mesh=None):
     """Returns step(params, x, target) -> (new params, loss): one SGD step
     of the loss MSE(out, target) in float32 + 0.01 x aux, the update in
     float32 cast back to each param's dtype (the router stays float32).
-    Params are ``init_moe_params``'s dict of these sizes."""
-    shapes = {"router": (d_model, n_experts), "w1": (n_experts, d_model, d_ff),
-              "w2": (n_experts, d_ff, d_model)}
+    Params are ``init_moe_params``'s dict of these sizes.
+
+    mesh: a ("data", "expert") ``parallel.mesh.Mesh``, the reference's
+    ``make_moe_step(mesh, ...)``. Params are this rank's shards
+    (``shard_moe_params``); x and target are the whole batch, of which
+    each rank takes its rows along "data". The loss is the whole batch's,
+    and the gradients are averaged over "data" before the update.
+    Collectives a step: over "expert" (size > 1), 1 (the combine's sum; x
+    takes no gradient, so f's backward never runs); over "data" (size >
+    1), 5 (the routed fractions, the three gradient sums, the loss).
+    """
+    n_local = n_experts
+    if mesh is not None:
+        if mesh.axis_names != ("data", "expert"):
+            raise ValueError(f"make_moe_step runs over ('data', 'expert') mesh axes, "
+                             f"got {mesh.axis_names}")
+        if n_experts % mesh.size("expert"):
+            raise ValueError(f"{n_experts} experts do not split evenly over the "
+                             f"'expert' axis of size {mesh.size('expert')}")
+        n_local = n_experts // mesh.size("expert")
+    shapes = {"router": (d_model, n_experts), "w1": (n_local, d_model, d_ff),
+              "w2": (n_local, d_ff, d_model)}
 
     def loss_fn(params, x, target):
-        out, aux = moe_ffn(params, x)
+        out, aux = moe_ffn(params, x, mesh, "expert")
         return (out.float() - target.float()).square().mean() + 0.01 * aux
 
     def step(params, x, target):
@@ -106,8 +167,13 @@ def make_moe_step(n_experts: int, d_model: int, d_ff: int, lr: float = 1e-2):
         if got != shapes:
             raise ValueError(f"params of shapes {got}, the step was made for {shapes}")
         leaves = {key: value.detach().requires_grad_() for key, value in params.items()}
+        if mesh is not None:
+            x, target = shard_batch(x, mesh), shard_batch(target, mesh)
         loss = loss_fn(leaves, x, target)
-        grads = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+        grads = {key: g.contiguous() for key, g in
+                 zip(leaves, torch.autograd.grad(loss, list(leaves.values())))}
+        loss = mean_over_data([loss.detach().clone()], mesh)[0]
+        mean_over_data(list(grads.values()), mesh)
         with torch.no_grad():
             new = {key: (value.float() - lr * grads[key].float()).to(value.dtype)
                    for key, value in params.items()}

@@ -1,24 +1,40 @@
-"""The probe's training step on one device.
+"""The probe's training step, on one device or sharded dp x tp over a mesh.
 
-Counterpart of ``gpumounter_tpu/parallel/train_step.py`` without the mesh:
-``sgd_update``, ``make_train_step`` and ``make_train_step_optim`` (the shape
-of ``make_train_step_optax``, over ``torch.optim``). Params are the probe's
-plain dict (``models.probe.init_params``); gradients come from
-``torch.autograd`` through ``models.probe.loss_fn``, so on the card every
-block's attention runs the forward kernel with lse and the two backward
-kernels.
+Counterpart of ``gpumounter_tpu/parallel/train_step.py``: ``param_specs``,
+``shard_params``, ``sgd_update``, ``make_train_step`` and
+``make_train_step_optim`` (the shape of ``make_train_step_optax``, over
+``torch.optim``), plus ``gather_params``, which the reference has no need
+of. Params are the probe's plain dict (``models.probe.init_params``);
+gradients come from ``torch.autograd`` through ``models.probe.loss_fn``,
+so on the card every block's attention runs the forward kernel with lse
+and the two backward kernels.
 
-Not ported here: the mesh, ``param_specs``, ``shard_params`` and the optax
-step's refusal of optimizer state that does not mirror the params. They are
-about sharding and belong to the multi-GPU slice.
+dp x tp (the reference's "heads" layout over ("data", "model")): one
+process per rank, each holding a ``parallel.mesh.Mesh`` and its shards.
+The batch is split over "data"; ``wqkv`` and ``w1`` are split by columns
+and ``wo`` and ``w2`` by rows over "model" (Megatron), an MoE block's
+experts over "model", and the rest is replicated. GSPMD places the
+reference's shards and derives its collectives; here ``models.probe``
+states them (f and g, ``parallel.collectives``), every rank runs the
+kernels on its own heads, and the gradients are averaged over "data".
+
+The fused ``wqkv`` holds, left to right, the q heads' columns, then k's,
+then v's. The reference's ``P(None, "model")`` cuts it into contiguous
+column blocks and lets GSPMD move the data where the heads need it; a
+contiguous half here would hold only q. So rank r's shard is its own q
+heads' columns, then its k heads', then its v heads' (``_wqkv_columns``):
+whole heads, and whole GQA groups, since H and H_kv both divide the axis.
 """
 
 from __future__ import annotations
 
 import torch
 
-from gpumounter_tpu_torch.models.probe import TransformerConfig, loss_fn
+from gpumounter_tpu_torch.models.probe import TransformerConfig, local_heads, loss_fn
 from gpumounter_tpu_torch.ops.flash_attention import flash_attention
+from gpumounter_tpu_torch.parallel.collectives import all_gather, mean_over_data
+from gpumounter_tpu_torch.parallel.mesh import gather_leaf, shard_batch, shard_leaf
+from gpumounter_tpu_torch.parallel.moe import moe_param_specs
 
 
 def tree_leaves(params: dict) -> list[torch.Tensor]:
@@ -39,15 +55,96 @@ def tree_map(fn, params: dict, *rest: dict) -> dict:
     return out
 
 
+def _map_keyed(fn, params: dict, specs: dict) -> dict:
+    """A params dict of fn(key, leaf, spec)."""
+    out = {key: fn(key, params[key], specs[key]) for key in sorted(params) if key != "blocks"}
+    out["blocks"] = [{key: fn(key, blk[key], spec[key]) for key in sorted(blk)}
+                     for blk, spec in zip(params["blocks"], specs["blocks"], strict=True)]
+    return out
+
+
+def param_specs(cfg: TransformerConfig) -> dict:
+    """The reference's PartitionSpecs as tuples, one entry per dim: the
+    mesh axis a dim is split over, or None. Dense blocks: wqkv and w1
+    split by columns (the output dim), wo and w2 by rows (the input dim).
+    MoE blocks: the stacked experts' expert dim over "model", the router
+    replicated (``parallel.moe.moe_param_specs``)."""
+    block = {"wqkv": (None, "model"), "wo": ("model", None), "ln1": (None,), "ln2": (None,)}
+    if cfg.n_experts is None:
+        block.update(w1=(None, "model"), w2=("model", None))
+    else:
+        block.update(moe_param_specs(axis="model"))
+    specs = {"embed": (None, None), "blocks": [dict(block) for _ in range(cfg.n_layers)]}
+    if not cfg.rope:  # rope configs carry no learned position table
+        specs["pos"] = (None, None)
+    return specs
+
+
+def _wqkv_columns(cfg: TransformerConfig, mesh) -> list[torch.Tensor]:
+    """Per rank along "model", the columns of the full wqkv its shard
+    holds: its q heads', then its k heads', then its v heads'."""
+    n_q, n_kv = local_heads(cfg, mesh)
+    q, kv = n_q * cfg.d_head, n_kv * cfg.d_head
+    k0, v0 = cfg.n_heads * cfg.d_head, (cfg.n_heads + cfg.kv_heads) * cfg.d_head
+    return [torch.cat([torch.arange(r * q, (r + 1) * q),
+                       torch.arange(k0 + r * kv, k0 + (r + 1) * kv),
+                       torch.arange(v0 + r * kv, v0 + (r + 1) * kv)])
+            for r in range(mesh.size("model"))]
+
+
+def shard_params(params: dict, mesh, cfg: TransformerConfig) -> dict:
+    """This rank's shards of full params, as new tensors on the mesh's
+    device (the full ones may live on the CPU, so that the device never
+    holds them). Raises ValueError where a split is uneven: the heads, d_ff
+    or the experts over "model"."""
+    if mesh.axis_names[1] != "model":
+        raise ValueError(f"the dp x tp layout shards over a 'model' axis, got "
+                         f"{mesh.axis_names}")
+    columns = _wqkv_columns(cfg, mesh)[mesh.coord("model")]
+
+    def shard(key, leaf, spec):
+        if key == "wqkv":
+            return leaf[:, columns.to(leaf.device)].to(mesh.device)
+        return shard_leaf(leaf, spec, mesh)
+
+    return _map_keyed(shard, params, param_specs(cfg))
+
+
+def gather_params(local: dict, mesh, cfg: TransformerConfig) -> dict:
+    """The full params of which `local` holds this rank's shards
+    (``shard_params``), on every rank of the model group, which must all
+    call it together; for checks and checkpoints."""
+    columns = _wqkv_columns(cfg, mesh)
+
+    def gather(key, leaf, spec):
+        if key != "wqkv":
+            return gather_leaf(leaf, spec, mesh)
+        full = leaf.new_empty((leaf.shape[0], sum(len(c) for c in columns)))
+        for cols, piece in zip(columns, all_gather(leaf, mesh, "model"), strict=True):
+            full[:, cols.to(leaf.device)] = piece
+        return full
+
+    return _map_keyed(gather, local, param_specs(cfg))
+
+
 def loss_and_grads(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
-                   attention=flash_attention) -> tuple[torch.Tensor, dict]:
+                   attention=flash_attention, mesh=None) -> tuple[torch.Tensor, dict]:
     """(loss, grads) of ``loss_fn``: the counterpart of
     ``jax.value_and_grad(loss_fn)``. grads has the params' layout and
-    dtypes; params are left as they are."""
+    dtypes; params are left as they are.
+
+    mesh: params are this rank's shards and tokens the whole batch; the
+    rank runs its rows. The loss is the whole batch's, and grads are this
+    rank's shards of the whole batch's gradients (averaged over "data")."""
     leaves = tree_map(lambda p: p.detach().requires_grad_(), params)
-    loss = loss_fn(leaves, tokens, cfg, attention)
-    grads = iter(torch.autograd.grad(loss, tree_leaves(leaves)))
-    return loss.detach(), tree_map(lambda _: next(grads), params)
+    if mesh is not None:
+        tokens = shard_batch(tokens, mesh)
+    loss = loss_fn(leaves, tokens, cfg, attention, mesh)
+    grads = [g.contiguous() for g in torch.autograd.grad(loss, tree_leaves(leaves))]
+    mean_over_data(grads, mesh)
+    grads = iter(grads)
+    loss = mean_over_data([loss.detach().clone()], mesh)[0]
+    return loss, tree_map(lambda _: next(grads), params)
 
 
 @torch.no_grad()
@@ -57,17 +154,54 @@ def sgd_update(params: dict, grads: dict, lr: float) -> dict:
                     params, grads)
 
 
-def make_train_step(cfg: TransformerConfig, lr: float = 1e-3):
-    """Returns step(params, tokens) -> (new params, loss)."""
+def step_collectives(cfg: TransformerConfig, mesh, local: dict, batch: tuple) -> dict:
+    """The collectives of one ``make_train_step`` step over `mesh`, on
+    this rank's shards `local` and a whole batch of shape `batch` (B, T):
+    {"calls": {axis: n}, "bytes": {axis: payload bytes}}.
+
+    Over "model" (size > 1): 4 a block, each on an activation of this
+    rank's rows (B/dp, T, d_model) in cfg.dtype: g after wo and after w2
+    or the expert combine in the forward, f before wqkv and before w1 or
+    the experts in the backward. Over "data" (size > 1): one gradient sum
+    a leaf, of this rank's shard; the loss (4 bytes); and for MoE configs
+    each block's routed fractions (E float32). No gather: no rank holds a
+    whole leaf that is split over "model".
+    """
+    data, model = mesh.axis_names
+    rows, seq = batch[0] // mesh.size(data), batch[1]
+    calls, nbytes = {data: 0, model: 0}, {data: 0, model: 0}
+    if mesh.size(model) > 1:
+        calls[model] = 4 * cfg.n_layers
+        nbytes[model] = calls[model] * rows * seq * cfg.d_model * cfg.dtype.itemsize
+    if mesh.size(data) > 1:
+        leaves = tree_leaves(local)
+        calls[data] = len(leaves) + 1
+        nbytes[data] = sum(t.nbytes for t in leaves) + 4
+        if cfg.n_experts is not None:
+            calls[data] += cfg.n_layers
+            nbytes[data] += cfg.n_layers * cfg.n_experts * 4
+    return {"calls": calls, "bytes": nbytes}
+
+
+def make_train_step(cfg: TransformerConfig, lr: float = 1e-3, mesh=None):
+    """Returns step(params, tokens) -> (new params, loss).
+
+    mesh: a ("data", "model") ``parallel.mesh.Mesh``; params are this
+    rank's shards (``shard_params``) and tokens the whole batch, and the
+    step returns this rank's new shards and the whole batch's loss. The
+    f32 update is applied shard by shard. Its collectives are
+    ``step_collectives``': for L blocks and n_leaves leaves, 4 L over
+    "model" and n_leaves + 1 (+ L for MoE) over "data".
+    """
 
     def step(params, tokens):
-        loss, grads = loss_and_grads(params, tokens, cfg)
+        loss, grads = loss_and_grads(params, tokens, cfg, mesh=mesh)
         return sgd_update(params, grads, lr), loss
 
     return step
 
 
-def make_train_step_optim(cfg: TransformerConfig, make_optimizer):
+def make_train_step_optim(cfg: TransformerConfig, make_optimizer, mesh=None):
     """A train step driven by a ``torch.optim`` optimizer, in the shape of
     the reference's ``make_train_step_optax``. Returns (init_fn, step_fn):
 
@@ -79,6 +213,13 @@ def make_train_step_optim(cfg: TransformerConfig, make_optimizer):
     weight_decay=1e-4)``. torch.optim updates in place where optax returns
     new arrays: init_fn marks the params' tensors as requiring grad, and
     step_fn returns the same dict with its tensors updated.
+
+    mesh: as in ``make_train_step``; each rank's gradients are averaged
+    over "data" before its optimizer steps. Each rank's optimizer holds
+    only its own shards, so its state mirrors the parameter layout by
+    construction: the reference refuses optimizer state that does not
+    mirror the params (it would replicate it onto every device), and here
+    there is nothing of the kind to refuse.
     """
 
     def init_fn(params):
@@ -89,8 +230,13 @@ def make_train_step_optim(cfg: TransformerConfig, make_optimizer):
 
     def step_fn(params, opt_state, tokens):
         opt_state.zero_grad(set_to_none=True)
-        loss = loss_fn(params, tokens, cfg)
+        if mesh is not None:
+            tokens = shard_batch(tokens, mesh)
+        loss = loss_fn(params, tokens, cfg, mesh=mesh)
         loss.backward()
+        if mesh is not None:  # .grad has its (contiguous) param's strides
+            mean_over_data([leaf.grad for leaf in tree_leaves(params)], mesh)
+            loss = mean_over_data([loss.detach().clone()], mesh)[0]
         opt_state.step()
         return params, opt_state, loss.detach()
 

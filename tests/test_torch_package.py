@@ -130,3 +130,32 @@ def test_ptxas_report_names_every_kernel_instance():
         "ptxas flash_fwd_tc_kernel<128, 1>: 168 registers, spill stores 0 B, spill loads 0 B"]
     # Only the wgmma instances are held to no spills.
     assert [bool(smoke._PTXAS_NO_SPILL.match(line)) for line in lines] == [True, False, True]
+
+
+def _run_chip_smoke(cwd, env=None):
+    import subprocess
+    import sys
+    return subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd, capture_output=True,
+                          text=True, timeout=300, env=env)
+
+
+def test_chip_smoke_alone_exits_non_zero_and_says_why(tmp_path):
+    """In a directory that holds chip_smoke.py and nothing else of the
+    repository it must fail and print no result: it names the missing
+    package and exits 2."""
+    import os
+    import shutil
+    shutil.copy(REPO / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = _run_chip_smoke(tmp_path, env)
+    assert out.returncode == 2, out.stderr[-2000:]
+    assert out.stdout == ""
+    assert "gpumounter_tpu_torch is not beside this script" in out.stderr
+
+
+def test_chip_smoke_without_cuda_exits_1_and_prints_no_result():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA card")
+    out = _run_chip_smoke(REPO)
+    assert out.returncode == 1 and out.stdout == ""
+    assert "no CUDA device" in out.stderr

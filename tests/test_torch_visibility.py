@@ -114,7 +114,13 @@ def test_wait_for_gpus_probes_again_when_a_node_appears(tmp_path, monkeypatch):
     (tmp_path / "nvidia0").write_text("")
     probe = FakeProbe(0, 0, 0, 0, 0, 1)
     monkeypatch.setattr(visibility, "_probe_device_count", probe)
-    timer = threading.Timer(0.85, lambda: (tmp_path / "nvidia1").write_text(""))
+    arrived = []
+
+    def arrive():
+        arrived.append(time.monotonic())
+        (tmp_path / "nvidia1").write_text("")
+
+    timer = threading.Timer(0.85, arrive)
     timer.start()
     try:
         timings = wait_for_gpus(1, timeout_s=10.0, dev_dir=str(tmp_path),
@@ -122,11 +128,13 @@ def test_wait_for_gpus_probes_again_when_a_node_appears(tmp_path, monkeypatch):
     finally:
         timer.join()
     # Probes at 0, 0.1, 0.3 and 0.7 s (backing off; the next retry would
-    # be at 1.5), at the node's arrival (0.85), and 0.1 s after it (the
-    # backoff restarted; doubled it would be 1.6 s).
+    # be at 1.5), at the node's arrival (0.85 s after the timer started,
+    # which is a little before the first probe), and 0.1 s after it (the
+    # backoff restarted; doubled it would be 1.6 s). The arrival's probe is
+    # timed from the arrival itself.
     calls = [t - probe.calls[0] for t in probe.calls]
     assert timings["device_count"] == 1 and len(calls) == 6
-    assert 0.85 <= calls[4] < 1.4, calls
+    assert 0 <= probe.calls[4] - arrived[0] < 0.55, (calls, arrived[0] - probe.calls[0])
     assert calls[5] - calls[4] < 0.8, calls
 
 
