@@ -88,7 +88,25 @@ Phases, each raising on failure (any failure exits non-zero):
    one-process ``make_train_step`` on the same card, weights and tokens, the
    dense grads through the kernels against the plain attention's on the
    mesh, and each rank's step time, gloo all-reduce time and gradient
-   sums' time.
+   sums' time;
+8. sequence and pipeline parallelism (``parallel/ring_attention.py``,
+   ``pipeline.py``, ``pipeline_train.py``): 4 ranks started once on the
+   card over gloo (its point-to-point calls take no CUDA tensor, so the
+   ring's shifts go by way of host buffers), with (data, seq) meshes of
+   2 x 2 and 1 x 4 and a ("pipe",) mesh of 4. In them: ring attention on
+   1 x 4 at the full-width chunk shapes (B4 H8 L2048 as 4 chunks of 512,
+   D128, bf16: every rank meets a skipped, the diagonal and a past chunk)
+   against ``flash_attention`` over the whole sequence, forward and dq,
+   dk, dv; the full-width dense and MoE SGD steps with attn_parallel "seq"
+   on both meshes (``step_collectives``, each training kernel (c + 1) x
+   n_layers times a step at seq coordinate c, replicas bit-equal, the
+   loss and params against the one-process step on the same card); GPipe
+   (P 4, n_layers 4) and the interleaved schedule (P 4, v 2, n_layers 8)
+   at full width, n_micro 4 on B4 L2048, against the one-process step;
+   and times: each step a rank, one shift, the ring a layer against one
+   ``flash_attention`` over the whole sequence, and the pipelines'
+   ``schedule_info`` bubble fraction against each rank's time in the
+   shifts.
 
 The last lines are a JSON object per kernel (``{"kernels": [...]}``) and
 ``{"ok": true, "device": {...}}``, and the exit code is 0. A failing check
@@ -99,6 +117,7 @@ Needs a CUDA card; imports no JAX.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -123,8 +142,8 @@ except ModuleNotFoundError as err:
     print("chip_smoke: the package gpumounter_tpu_torch is not beside this script; "
           "run it from the root of the repository", file=sys.stderr)
     sys.exit(2)
-from gpumounter_tpu_torch.entry import (MOE_ROUTE_GAP, _masked_err, kernel_launches,
-                                        moe_blocks_vs_plain, moe_check,
+from gpumounter_tpu_torch.entry import (MOE_ROUTE_GAP, _check_equal_over, _masked_err,
+                                        kernel_launches, moe_blocks_vs_plain, moe_check,
                                         reset_kernel_launches, route_flips,
                                         sharded_step_check, tp_checks, train_check)
 from gpumounter_tpu_torch.models.probe import (TransformerConfig, _attend, _attend_decode,
@@ -132,9 +151,10 @@ from gpumounter_tpu_torch.models.probe import (TransformerConfig, _attend, _atte
                                                _picker, decode_step, forward, generate,
                                                generate_loop, init_params, local_heads,
                                                loss_fn, next_token_nll, prefill)
-from gpumounter_tpu_torch.parallel.collectives import all_reduce
+from gpumounter_tpu_torch.parallel import collectives
+from gpumounter_tpu_torch.parallel.collectives import all_gather, all_reduce, ring_shift
 from gpumounter_tpu_torch.parallel.launch import run_ranks
-from gpumounter_tpu_torch.parallel.mesh import build_mesh
+from gpumounter_tpu_torch.parallel.mesh import build_mesh, shard_qkv
 from gpumounter_tpu_torch.parallel.moe import _route, init_moe_params, moe_ffn, moe_ffn_plain
 from gpumounter_tpu_torch.ops import _build
 from gpumounter_tpu_torch.ops import flash_attention as fa, flash_decode as fd
@@ -144,11 +164,16 @@ from gpumounter_tpu_torch.ops.flash_attention import (_band_mask, _bwd_launch,
                                                       attention_plain, flash_attention,
                                                       flash_attention_bwd_kernel,
                                                       flash_attention_kernel)
+from gpumounter_tpu_torch.parallel.pipeline import schedule_info
+from gpumounter_tpu_torch.parallel.pipeline_train import (make_pipeline_train_step,
+                                                          shard_pipeline_params,
+                                                          to_pipeline_params)
+from gpumounter_tpu_torch.parallel.ring_attention import ring_attention
 from gpumounter_tpu_torch.parallel.train_step import (gather_params, loss_and_grads,
                                                       make_train_step, shard_params,
                                                       make_train_step_optim,
-                                                      sgd_update, tree_leaves,
-                                                      tree_map)
+                                                      sgd_update, step_collectives,
+                                                      tree_leaves, tree_map)
 from gpumounter_tpu_torch.ops.flash_decode import (flash_decode_kernel,
                                                    flash_decode_plain)
 from gpumounter_tpu_torch.torchside import (HotResumable, handoff, load_optimizer_state,
@@ -232,6 +257,12 @@ SHARDED_PARAM_OF_MAX = 2**-7
 # layer's tokens (0.1-0.3% flipped between two attentions an ulp apart on
 # an H100; see entry.MOE_ROUTE_GAP).
 SHARDED_LOSS_ATOL = {"dense": NLL_ATOL, "MoE": 0.01}
+# Phase 8: 4 ranks sharing the card over gloo, on (data, seq) meshes of
+# 2 x 2 and 1 x 4 and a ("pipe",) mesh of 4; the pipelines run N_MICRO
+# microbatches of the TRAIN batch (one row each), the interleaved one
+# VIRTUAL chunks a rank; TIMED timed runs of each step a rank.
+SEQ_PIPE = dict(WORLD=4, SEQ_SHAPES=((2, 2), (1, 4)), BACKEND="gloo", SEED=300, TIMED=3,
+                N_MICRO=4, VIRTUAL=2)
 
 
 def _card(query: str = "name,power.limit") -> str:
@@ -448,6 +479,10 @@ def phase_kernel_vs_plain(gen) -> float:
         ("GQA group 8 L=1000", (b, h, 1, 1000, 1000, d), dict(causal=True), torch.bfloat16),
         ("softcap 30 + lse", (b, h, h, l, l, d), dict(causal=True, softcap=30.0, return_lse=True), torch.bfloat16),
         ("f32 GQA window 17 + sinks 2 L=500 D=64", (2, 4, 2, 500, 500, 64), dict(causal=True, window=17, sinks=2, return_lse=True), torch.float32),
+        # Ring attention's chunk steps at the full-width chunk (L 2048 over
+        # 4 ranks): an earlier chunk whole, with lse.
+        ("ring chunk non-causal L=512 + lse", (b, h, h, 512, 512, d), dict(causal=False, return_lse=True), torch.bfloat16),
+        ("ring chunk non-causal GQA H_kv=2 L=512 + lse", (b, h, 2, 512, 512, d), dict(causal=False, return_lse=True), torch.bfloat16),
     ]
     full_err = None
     for name, (cb, ch, chk, lq, lk, cd), kw, dtype in cases:
@@ -620,6 +655,12 @@ def phase_bwd_vs_plain(gen) -> tuple[float, float]:
         ("negative scale L=1000 D=64", (b, h, h, 1000, 1000, 64), dict(causal=True, scale=-0.1), bf16, False),
         ("f32 GQA window 17 + sinks 2 L=500 D=64 + dlse", (2, 4, 2, 500, 500, 64),
          dict(causal=True, window=17, sinks=2), f32, True),
+        # Ring attention's backward: the chunks merge through their lse, so
+        # every chunk's lse cotangent is non-zero, on earlier chunks whole.
+        ("ring chunk non-causal L=512 + dlse", (b, h, h, 512, 512, d), dict(causal=False), bf16,
+         True),
+        ("ring chunk non-causal GQA H_kv=2 L=512 + dlse", (b, h, 2, 512, 512, d),
+         dict(causal=False), bf16, True),
     ]
     full = None
     for name, (cb, ch, chk, lq, lk, cd), kw, dtype, with_dlse in cases:
@@ -654,11 +695,15 @@ def phase_bwd_vs_plain(gen) -> tuple[float, float]:
     return full
 
 
-def _leaf_names(params) -> list[str]:
-    """Names of tree_leaves(params), in its order."""
-    top = [key for key in sorted(params) if key != "blocks"]
-    return top + [f"blocks[{i}].{key}" for i, blk in enumerate(params["blocks"])
-                  for key in sorted(blk)]
+def _leaf_names(tree, prefix: str = "") -> list[str]:
+    """Names of tree_leaves(tree), in its order: e.g. "embed",
+    "blocks[0].wqkv", "stages.w1"."""
+    if isinstance(tree, list):
+        return [n for i, item in enumerate(tree) for n in _leaf_names(item, f"{prefix}[{i}]")]
+    if isinstance(tree, dict):
+        keys = sorted(tree, key=lambda k: (isinstance(tree[k], (dict, list)), k))
+        return [n for k in keys for n in _leaf_names(tree[k], f"{prefix}.{k}" if prefix else k)]
+    return [prefix]
 
 
 def phase_train(cfg, params, batches) -> tuple[int, int, int]:
@@ -1710,28 +1755,57 @@ def phase_handoff(card: str) -> dict:
 # --- phase 7: dp x tp and expert parallelism, 4 ranks sharing the card ---
 
 
+def _one_process_step(cfg, params, tokens, device) -> tuple:
+    """The one-process make_train_step on this rank's device: (new params,
+    loss)."""
+    new, loss = make_train_step(cfg, TRAIN["LR"])(
+        tree_map(lambda t: t.to(device), params), tokens.to(device))
+    return new, loss.item()
+
+
+def _against_one_process(what, mesh, one_process, new_full, loss, loss_atol) -> dict:
+    """Rank 0: new_full (whole params) and loss against the one-process
+    step's (new params, loss), each leaf within SHARDED_PARAM_OF_MAX of its
+    max |value|."""
+    if mesh.rank != 0:
+        return {}
+    want, want_loss = one_process
+    worst, bad = (0.0, ""), []
+    for leaf, g, w in zip(_leaf_names(want), tree_leaves(new_full), tree_leaves(want),
+                          strict=True):
+        share = (g.float() - w.float()).abs().max().item() / w.float().abs().max().item()
+        worst = max(worst, (share, leaf))
+        if not share <= SHARDED_PARAM_OF_MAX:
+            bad.append(leaf)
+    loss_err = abs(loss - want_loss)
+    if bad or not loss_err <= loss_atol:
+        raise RuntimeError(f"{what} vs the one-process step: params {bad} beyond "
+                           f"{SHARDED_PARAM_OF_MAX} of their max |value| (worst {worst}), loss "
+                           f"{loss} vs {want_loss} (limit {loss_atol})")
+    return {"loss_one_process": want_loss, "loss_err": loss_err, "worst_param": worst}
+
+
+def _timed_ms(fn, runs: int) -> list[float]:
+    """Host ms of `runs` calls of fn() on this rank, each from a barrier of
+    every rank to its end, synchronized."""
+    times = []
+    for _ in range(runs):
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
 def _sharded_vs_one_process(name, cfg, mesh, params, tokens, new_local, loss) -> dict:
     """Rank 0: the one-process step on the same card, weights and tokens,
     against the sharded step's gathered new params (every rank gathers)."""
     gathered = gather_params(new_local, mesh, cfg)
-    if mesh.rank != 0:
-        return {}
-    full = tree_map(lambda t: t.to(mesh.device), params)
-    want, want_loss = make_train_step(cfg, TRAIN["LR"])(full, tokens.to(mesh.device))
-    worst, bad = (0.0, ""), []
-    for leaf, g, w in zip(_leaf_names(params), tree_leaves(gathered), tree_leaves(want)):
-        peak = w.float().abs().max().item()
-        share = (g.float() - w.float()).abs().max().item() / peak
-        worst = max(worst, (share, leaf))
-        if not share <= SHARDED_PARAM_OF_MAX:
-            bad.append(leaf)
-    loss_err = abs(loss - want_loss.item())
-    if bad or not loss_err <= SHARDED_LOSS_ATOL[name]:
-        raise RuntimeError(f"sharded {name} step vs the one-process step: params {bad} beyond "
-                           f"{SHARDED_PARAM_OF_MAX} of their max |value| (worst {worst}), loss "
-                           f"{loss} vs {want_loss.item()} (limit {SHARDED_LOSS_ATOL[name]})")
-    return {"loss_one_process": want_loss.item(), "loss_err": loss_err,
-            "worst_param": worst}
+    one = _one_process_step(cfg, params, tokens, mesh.device) if mesh.rank == 0 else None
+    return _against_one_process(f"sharded {name} step", mesh, one, gathered, loss,
+                                SHARDED_LOSS_ATOL[name])
 
 
 def _sharded_grads_vs_plain(cfg, mesh, local, tokens) -> tuple[float, str]:
@@ -1767,33 +1841,12 @@ def _sharded_times(cfg, mesh, local, tokens) -> dict:
     shards)."""
     step = make_train_step(cfg, TRAIN["LR"], mesh)
     step(local, tokens)  # warm-up
-    steps = []
-    for _ in range(SHARDED["TIMED"]):
-        dist.barrier()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        step(local, tokens)
-        torch.cuda.synchronize()
-        steps.append((time.perf_counter() - t0) * 1e3)
+    steps = _timed_ms(lambda: step(local, tokens), SHARDED["TIMED"])
     act = torch.ones((tokens.shape[0] // mesh.size("data"), tokens.shape[1], cfg.d_model),
                      dtype=cfg.dtype, device=mesh.device)
-    reduces = []
-    for _ in range(5):
-        dist.barrier()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        all_reduce(act, mesh, "model")
-        torch.cuda.synchronize()
-        reduces.append((time.perf_counter() - t0) * 1e3)
-    grads, sums = [t.clone() for t in tree_leaves(local)], []
-    for _ in range(SHARDED["TIMED"]):
-        dist.barrier()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for g in grads:
-            all_reduce(g, mesh, "data")
-        torch.cuda.synchronize()
-        sums.append((time.perf_counter() - t0) * 1e3)
+    reduces = _timed_ms(lambda: all_reduce(act, mesh, "model"), 5)
+    grads = [t.clone() for t in tree_leaves(local)]
+    sums = _timed_ms(lambda: [all_reduce(g, mesh, "data") for g in grads], SHARDED["TIMED"])
     return {"step_ms": steps, "all_reduce_ms": reduces, "all_reduce_bytes": act.nbytes,
             "grad_sums_ms": sums, "grad_bytes": sum(g.nbytes for g in grads)}
 
@@ -1890,6 +1943,280 @@ def phase_sharded(card: str) -> dict:
     return total
 
 
+# --- phase 8: sequence and pipeline parallelism, 4 ranks sharing the card ---
+
+
+def _kernel_counts_of(fn) -> tuple:
+    """(fn()'s value, the training kernels' launches in it), the counts set
+    to 0 just before and read just after."""
+    reset_kernel_launches()
+    value = fn()
+    torch.cuda.synchronize()
+    return value, kernel_launches()
+
+
+def _grads_within(what, got, want, limit) -> float:
+    """The worst of |got − want| over max |want|, tensor by tensor; raises
+    beyond `limit` or where got is not finite."""
+    worst = 0.0
+    for g, w in zip(got, want, strict=True):
+        share = (g.float() - w.float()).abs().max().item() / w.float().abs().max().item()
+        if not (torch.isfinite(g).all() and share <= limit):
+            raise RuntimeError(f"{what}: {share} of max |grad| > {limit}")
+        worst = max(worst, share)
+    return worst
+
+
+def _ring_vs_one_process(mesh) -> dict:
+    """Ring attention over the mesh's seq axis at the full-width chunk
+    shapes (B4 H8 L2048 D128 bf16, a chunk of L/n a rank) against
+    flash_attention over the whole sequence on this rank: the output
+    within BF16_TOL, dq, dk, dv of sum(out · do) within GRAD_RTOL_OF_MAX
+    of each one's max |grad| (phase 3's limit); the launches of the
+    rank's ring (c + 1 each at seq coordinate c); the times of the ring
+    forward and backward, of one shift of its k and v chunks, and of one
+    flash_attention call over the whole sequence, forward and backward."""
+    gen = torch.Generator().manual_seed(SEQ_PIPE["SEED"])
+    b, h, l, d = FULL["B"], FULL["H"], FULL["L"], FULL["D"]
+    full = [torch.randn((b, h, l, d), generator=gen).to(mesh.device, torch.bfloat16)
+            for _ in range(4)]
+    q, k, v, do = (shard_qkv(t, mesh) for t in full)
+    leaves = [t.requires_grad_() for t in (q, k, v)]
+    out, fwd_launches = _kernel_counts_of(lambda: ring_attention(*leaves, mesh))
+    grads, bwd_launches = _kernel_counts_of(lambda: torch.autograd.grad(out, leaves, do))
+    whole = [t.clone().requires_grad_() for t in full[:3]]
+    want = flash_attention(*whole, causal=True)
+    want_grads = [shard_qkv(g, mesh) for g in torch.autograd.grad(want, whole, full[3])]
+    err = _check_close(f"rank {mesh.rank}: ring attention vs flash_attention over the "
+                       f"whole sequence", out, shard_qkv(want.detach(), mesh), BF16_TOL)
+    grad_share = _grads_within(f"rank {mesh.rank}: ring attention grads", grads,
+                               want_grads, GRAD_RTOL_OF_MAX)
+    kv = (k.detach(), v.detach())
+    with torch.no_grad():
+        fwd_ms = _timed_ms(lambda: ring_attention(q, k, v, mesh), SEQ_PIPE["TIMED"])
+    times = {"ring_fwd_ms": fwd_ms,
+             "ring_fwd_bwd_ms": _timed_ms(
+                 lambda: torch.autograd.grad(ring_attention(*leaves, mesh), leaves, do),
+                 SEQ_PIPE["TIMED"]),
+             "shift_ms": _timed_ms(lambda: ring_shift(kv, mesh, "seq"), 5),
+             "shift_bytes": sum(t.nbytes for t in kv)}
+    if mesh.rank == 0:  # the other ranks wait at the next collective
+        with torch.no_grad():
+            times["whole_fwd_ms"] = _time_ms(lambda: flash_attention(*full[:3], causal=True), 10)
+        times["whole_fwd_bwd_ms"] = _time_ms(
+            lambda: torch.autograd.grad(flash_attention(*whole, causal=True), whole, full[3]), 10)
+    return {"max_abs_err": err, "grad_share": grad_share, "fwd_launches": fwd_launches,
+            "bwd_launches": bwd_launches, "times": times}
+
+
+def _replicas_equal(params: dict, mesh) -> None:
+    """Raises unless every leaf is bit-equal on every rank of the mesh."""
+    for axis in mesh.axis_names:
+        _check_equal_over(params, mesh, axis)
+
+
+def _seq_steps(mesh, shape) -> dict:
+    """The full-width dense and MoE SGD steps over a (data, seq) mesh of
+    this shape, window None: collectives as ``step_collectives``, each
+    training kernel (c + 1)·n_layers times at seq coordinate c, replicas
+    bit-equal on all ranks, and rank 0 holds them to the one-process step
+    (``_against_one_process``); then TIMED steps on each rank."""
+    out = {}
+    for name, n_experts in (("dense", None), ("MoE", MOE_EXPERTS)):
+        cfg = dataclasses.replace(full_width_config(n_experts), attn_parallel="seq")
+        params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        tokens = torch.from_numpy(np.random.default_rng(SEQ_PIPE["SEED"]).integers(
+            0, cfg.vocab, (TRAIN["B"], TRAIN["L"])))
+        local = shard_params(params, mesh, cfg)
+        step = make_train_step(cfg, TRAIN["LR"], mesh)
+        mesh.reset_counts()
+        (new, loss), launches = _kernel_counts_of(lambda: step(local, tokens))
+        counts = {"calls": dict(mesh.calls), "bytes": dict(mesh.bytes)}
+        expected = step_collectives(cfg, mesh, local, tuple(tokens.shape))
+        c = mesh.coord("seq")
+        want_launches = dict.fromkeys(("flash_fwd", "dq", "dkv"), (c + 1) * cfg.n_layers)
+        if counts != expected or launches != want_launches:
+            raise RuntimeError(f"rank {mesh.rank} {shape} {name} seq step: collectives "
+                               f"{counts}, expected {expected}; launches {launches}, expected "
+                               f"{want_launches}")
+        _replicas_equal(new, mesh)
+        one = (_one_process_step(dataclasses.replace(cfg, attn_parallel="heads"), params,
+                                 tokens, mesh.device) if mesh.rank == 0 else None)
+        record = {"loss": loss.item(), "launches": launches, "collectives": counts,
+                  **_against_one_process(f"{shape} {name} seq step", mesh, one, new,
+                                         loss.item(), SHARDED_LOSS_ATOL[name])}
+        del new, one
+        record["step_ms"] = _timed_ms(lambda: step(local, tokens), SEQ_PIPE["TIMED"])
+        out[name] = record
+        del local
+        torch.cuda.empty_cache()
+    return out
+
+
+def _shift_wait_ms(fn) -> tuple:
+    """(fn()'s value, host ms this rank spent in the ring's point-to-point
+    exchanges during it): every exchange is timed from a synchronize, so
+    the time is the copies through the host and the wait for the peer, not
+    the compute queued before it."""
+    spent = [0.0]
+    exchange = collectives._exchange
+
+    def timed(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = exchange(*args, **kwargs)
+        torch.cuda.synchronize()
+        spent[0] += (time.perf_counter() - t0) * 1e3
+        return got
+
+    collectives._exchange = timed
+    try:
+        return fn(), spent[0]
+    finally:
+        collectives._exchange = exchange
+
+
+def _pipeline_steps(mesh) -> dict:
+    """GPipe (P 4, n_layers 4) and the interleaved schedule (P 4, v 2,
+    n_layers 8) at full width, n_micro 4 on B4 L2048: each training kernel
+    n_micro·v·(layers a chunk) times a step on every rank, the embedding
+    bit-equal on all ranks, and rank 0 holds the gathered stages and the
+    loss to the one-process step; then TIMED steps, and one more with the
+    time spent in the shifts."""
+    p = mesh.size("pipe")
+    out = {}
+    for name, v in (("GPipe", 1), ("interleaved", SEQ_PIPE["VIRTUAL"])):
+        cfg = dataclasses.replace(full_width_config(), n_layers=p * v)
+        params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        tokens = torch.from_numpy(np.random.default_rng(SEQ_PIPE["SEED"]).integers(
+            0, cfg.vocab, (TRAIN["B"], TRAIN["L"])))
+        local = shard_pipeline_params(to_pipeline_params(params, p, v), mesh)
+        step = make_pipeline_train_step(mesh, cfg, SEQ_PIPE["N_MICRO"], TRAIN["LR"],
+                                        n_virtual=v)
+        (new, loss), launches = _kernel_counts_of(lambda: step(local, tokens))
+        per = cfg.n_layers // (p * v)
+        want_launches = dict.fromkeys(("flash_fwd", "dq", "dkv"), SEQ_PIPE["N_MICRO"] * v * per)
+        if launches != want_launches:
+            raise RuntimeError(f"rank {mesh.rank} {name} pipeline step: launches {launches}, "
+                               f"expected {want_launches}")
+        _check_equal_over({"embed": new["embed"], "blocks": []}, mesh, "pipe")
+        stages = {k: torch.cat(all_gather(t, mesh, "pipe")) for k, t in new["stages"].items()}
+        one = None
+        if mesh.rank == 0:
+            new_one, loss_one = _one_process_step(cfg, params, tokens, mesh.device)
+            one = ({"embed": new_one["embed"],
+                    "stages": to_pipeline_params(new_one, p, v)["stages"]}, loss_one)
+        record = {"loss": loss.item(), "launches": launches,
+                  "bubble_fraction": schedule_info(SEQ_PIPE["N_MICRO"], p, v)["bubble_fraction"],
+                  **_against_one_process(f"{name} pipeline step", mesh, one,
+                                         {"embed": new["embed"], "stages": stages},
+                                         loss.item(), NLL_ATOL)}
+        del new, stages, one
+        record["step_ms"] = _timed_ms(lambda: step(local, tokens), SEQ_PIPE["TIMED"])
+        dist.barrier()
+        t0 = time.perf_counter()
+        _, record["shift_wait_ms"] = _shift_wait_ms(lambda: step(local, tokens))
+        torch.cuda.synchronize()
+        record["shift_wait_step_ms"] = (time.perf_counter() - t0) * 1e3
+        out[name] = record
+        del local
+        torch.cuda.empty_cache()
+    return out
+
+
+def _seq_pipe_rank() -> dict:
+    """One rank of phase 8; returns numbers and no tensors."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    meshes = {shape: build_mesh(shape, ("data", "seq"), "cuda") for shape in SEQ_PIPE["SEQ_SHAPES"]}
+    pipe = build_mesh((SEQ_PIPE["WORLD"],), ("pipe",), "cuda")
+    ring_mesh = meshes[(1, SEQ_PIPE["WORLD"])]
+    out = {"rank": pipe.rank, "device": str(pipe.device), "ring": _ring_vs_one_process(ring_mesh)}
+    torch.cuda.empty_cache()
+    out["seq"] = {shape: _seq_steps(mesh, shape) for shape, mesh in meshes.items()}
+    out["pipeline"] = _pipeline_steps(pipe)
+    launches = dict.fromkeys(("flash_fwd", "dq", "dkv"), 0)
+    for record in [*(r for steps in out["seq"].values() for r in steps.values()),
+                   *out["pipeline"].values()]:
+        for k in launches:
+            launches[k] += record["launches"][k]
+    out["launches"] = launches
+    return out
+
+
+def phase_seq_pipeline(card: str) -> dict:
+    """Phase 8 (see the module's docstring): starts the 4 ranks once,
+    prints what they measured, and returns the training kernels' launches
+    on its main path (every rank's dp x sp and pipeline steps)."""
+    torch.cuda.empty_cache()
+    world = SEQ_PIPE["WORLD"]
+    t0 = time.perf_counter()
+    ranks = run_ranks(_seq_pipe_rank, world, backend=SEQ_PIPE["BACKEND"], timeout_s=900.0)
+    label = (f"{world} ranks sharing one H100 over {SEQ_PIPE['BACKEND']}, not a {world}-GPU "
+             f"figure [{card}]")
+    print(f"seq/pipeline: {world} ranks, one process each, all on {ranks[0]['device']}, over "
+          f"{SEQ_PIPE['BACKEND']} (point-to-point by way of host buffers: gloo's send and recv "
+          f"take no CUDA tensor); {time.perf_counter() - t0:.1f} s with the ranks' start",
+          flush=True)
+    total = dict.fromkeys(("flash_fwd", "dq", "dkv"), 0)
+    b, h, l, d = FULL["B"], FULL["H"], FULL["L"], FULL["D"]
+    for r in ranks:
+        ring, t = r["ring"], r["ring"]["times"]
+        print(f"seq/pipeline rank {r['rank']}: ring attention B{b} H{h} L{l} (4 chunks of "
+              f"{l // world}) D{d} bf16 vs flash_attention over the whole sequence: max abs err "
+              f"{ring['max_abs_err']:.3g} (atol {BF16_TOL['atol']}, rtol {BF16_TOL['rtol']}), "
+              f"dq/dk/dv worst {ring['grad_share']:.3g} of max |grad| (limit "
+              f"{GRAD_RTOL_OF_MAX}); launches forward {ring['fwd_launches']}, backward "
+              f"{ring['bwd_launches']}", flush=True)
+        print(f"time ring attention a layer, rank {r['rank']}: forward {_runs(t['ring_fwd_ms'])}, "
+              f"forward + backward {_runs(t['ring_fwd_bwd_ms'])}; one shift of its k and v "
+              f"chunks ({t['shift_bytes'] / 1e6:.1f} MB) {_runs(t['shift_ms'])} [{label}]",
+              flush=True)
+        if "whole_fwd_ms" in t:
+            print(f"time flash_attention over the whole sequence (one process, B{b} H{h} L{l} "
+                  f"D{d}, device time): forward {t['whole_fwd_ms']:.3f} ms, forward + backward "
+                  f"{t['whole_fwd_bwd_ms']:.3f} ms [{card}]", flush=True)
+        for shape, steps in r["seq"].items():
+            for name, rec in steps.items():
+                line = (f"seq/pipeline rank {r['rank']} {shape} (data, seq) full-width {name} SGD "
+                        f"step: loss {rec['loss']:.4f}, launches {rec['launches']}, collectives "
+                        f"{rec['collectives']}")
+                if "loss_one_process" in rec:
+                    line += (f"; the one-process step: loss {rec['loss_one_process']:.4f} (|diff| "
+                             f"{rec['loss_err']:.3g}, limit {SHARDED_LOSS_ATOL[name]}), params "
+                             f"worst {rec['worst_param'][1]} at {rec['worst_param'][0]:.3g} of "
+                             f"its max |value| (limit {SHARDED_PARAM_OF_MAX:.3g})")
+                print(line, flush=True)
+                print(f"time seq {shape} {name} SGD step, rank {r['rank']}: "
+                      f"{_runs(rec['step_ms'])} [{label}]", flush=True)
+        for name, rec in r["pipeline"].items():
+            line = (f"seq/pipeline rank {r['rank']} {name} pipeline step (P {world}, n_micro "
+                    f"{SEQ_PIPE['N_MICRO']}): loss {rec['loss']:.4f}, launches {rec['launches']}")
+            if "loss_one_process" in rec:
+                line += (f"; the one-process step: loss {rec['loss_one_process']:.4f} (|diff| "
+                         f"{rec['loss_err']:.3g}, limit {NLL_ATOL}), params worst "
+                         f"{rec['worst_param'][1]} at {rec['worst_param'][0]:.3g} of its max "
+                         f"|value| (limit {SHARDED_PARAM_OF_MAX:.3g})")
+            print(line, flush=True)
+            print(f"time {name} pipeline step, rank {r['rank']}: {_runs(rec['step_ms'])}; "
+                  f"schedule_info bubble fraction {rec['bubble_fraction']:.3f} against "
+                  f"{rec['shift_wait_ms']:.1f} ms in the shifts of a "
+                  f"{rec['shift_wait_step_ms']:.1f} ms step "
+                  f"({rec['shift_wait_ms'] / rec['shift_wait_step_ms']:.3f}; each exchange "
+                  f"timed from a synchronize) [{label}]", flush=True)
+        for k in total:
+            total[k] += r["launches"][k]
+    for what, losses in (
+            *((f"seq {shape} {name}", [r["seq"][shape][name]["loss"] for r in ranks])
+              for shape in SEQ_PIPE["SEQ_SHAPES"] for name in ("dense", "MoE")),
+            *((f"{name} pipeline", [r["pipeline"][name]["loss"] for r in ranks])
+              for name in ("GPipe", "interleaved"))):
+        if len(set(losses)) != 1:
+            raise RuntimeError(f"{what}: the ranks' losses differ: {losses}")
+    print(f"seq/pipeline: launches on its main path (every rank's dp x sp and pipeline steps): "
+          f"{total}", flush=True)
+    return total
+
+
 def phase_forward_timing(cfg, params, tokens, card, what="forward") -> None:
     fwd_ms = _time_ms(lambda: forward(params, tokens, cfg), 5, warmup=1)
     tok_s = tokens.numel() / (fwd_ms / 1e3)
@@ -1968,6 +2295,8 @@ def _phases(stage: list) -> None:
     handoff_launches = phase_handoff(card)
     stage.append("7 (dp x tp and expert parallelism, 4 ranks sharing the card)")
     sharded_launches = phase_sharded(card)
+    stage.append("8 (sequence and pipeline parallelism, 4 ranks sharing the card)")
+    seq_pipe_launches = phase_seq_pipeline(card)
 
     stage.append("the kernels line")
     print(f"launches on the main paths: flash_fwd {launches} (forward) + "
@@ -1977,7 +2306,8 @@ def _phases(stage: list) -> None:
           f"{moe_fwd} (training), flash_decode {moe_decode}, flash_bwd dq {moe_dq} and dk/dv "
           f"{moe_dkv}; moe_ffn vs moe_ffn_plain bf16 max abs err {moe_ffn_err:.3g}; the "
           f"handoff phase (its children and the uninterrupted runs): {handoff_launches}; "
-          f"the sharded phase (every rank's sharded steps): {sharded_launches}",
+          f"the sharded phase (every rank's sharded steps): {sharded_launches}; the "
+          f"seq/pipeline phase (every rank's dp x sp and pipeline steps): {seq_pipe_launches}",
           flush=True)
     bwd_source = "gpumounter_tpu_torch/ops/csrc/flash_bwd.cu"
     print(json.dumps({"kernels": [{
@@ -1986,15 +2316,17 @@ def _phases(stage: list) -> None:
         "replaces": "gpumounter_tpu/ops/flash_attention.py:84",
         "launches": (launches + prefill_launches + train_fwd + moe_launches + moe_prefill
                      + moe_fwd + handoff_launches["flash_fwd"]
-                     + sharded_launches["flash_fwd"]),
+                     + sharded_launches["flash_fwd"] + seq_pipe_launches["flash_fwd"]),
         "max_abs_err": max_abs_err, **times}, {
         "name": "flash_bwd_dq", "route": "cuda", "source": bwd_source,
         "replaces": "gpumounter_tpu/ops/flash_attention.py:182",
-        "launches": train_dq + moe_dq + handoff_launches["dq"] + sharded_launches["dq"],
+        "launches": (train_dq + moe_dq + handoff_launches["dq"] + sharded_launches["dq"]
+                     + seq_pipe_launches["dq"]),
         "max_abs_err": bwd_errs[0], **bwd_times["dq"]}, {
         "name": "flash_bwd_dkv", "route": "cuda", "source": bwd_source,
         "replaces": "gpumounter_tpu/ops/flash_attention.py:236",
-        "launches": train_dkv + moe_dkv + handoff_launches["dkv"] + sharded_launches["dkv"],
+        "launches": (train_dkv + moe_dkv + handoff_launches["dkv"] + sharded_launches["dkv"]
+                     + seq_pipe_launches["dkv"]),
         "max_abs_err": bwd_errs[1], **bwd_times["dkv"]}, {
         "name": "flash_decode", "route": "cuda",
         "source": "gpumounter_tpu_torch/ops/csrc/flash_decode.cu",

@@ -1,7 +1,8 @@
 """Entry points: the probe's forward, as ``__graft_entry__.entry()`` gives
 it, and the training checks of the reference's dryrun, dense
-(``train_check``), MoE (``moe_check``) and sharded over a mesh of ranks
-(``tp_train_check``)."""
+(``train_check``), MoE (``moe_check``) and sharded over a mesh of ranks:
+dp x tp and expert parallelism (``tp_train_check``), dp x sp with ring
+attention and the pipelines (``seq_pipeline_check``)."""
 
 from __future__ import annotations
 
@@ -14,20 +15,31 @@ import torch
 from gpumounter_tpu_torch._device import resolve_device
 from gpumounter_tpu_torch.models.probe import (TransformerConfig, _attend, _block, _embed,
                                                _finish_block, _rmsnorm, forward, init_params,
-                                               local_heads, next_token_nll)
+                                               local_heads, loss_fn, next_token_nll)
 from gpumounter_tpu_torch.ops.flash_attention import (attention_plain, flash_attention,
                                                       flash_attention_bwd_kernel,
                                                       flash_attention_kernel)
 from gpumounter_tpu_torch.parallel.collectives import all_gather
 from gpumounter_tpu_torch.parallel.launch import run_ranks
-from gpumounter_tpu_torch.parallel.mesh import build_mesh
+from gpumounter_tpu_torch.parallel.mesh import build_mesh, shard_qkv
 from gpumounter_tpu_torch.parallel.moe import (_route, init_moe_params, make_moe_step,
                                                shard_moe_params)
+from gpumounter_tpu_torch.parallel.pipeline import (pipeline_apply, schedule_info,
+                                                    shard_stage_params)
+from gpumounter_tpu_torch.parallel.pipeline_train import (make_pipeline_train_step,
+                                                          shard_pipeline_params,
+                                                          to_pipeline_params)
+from gpumounter_tpu_torch.parallel.ring_attention import reference_attention, ring_attention
 from gpumounter_tpu_torch.parallel.train_step import (loss_and_grads, make_train_step,
                                                       param_specs, shard_params,
-                                                      step_collectives, tree_leaves)
+                                                      step_collectives, tree_leaves, tree_map)
 
 TRAIN_GRAD_ATOL = 5e-3  # the reference's kernel-vs-xla grad limit
+# The dryrun's limits: a sharded first-step loss against the unsharded loss
+# (__graft_entry__.py:221-224, 333-336), ring attention against the
+# one-process oracle (:241-243, :253-255).
+SHARDED_LOSS_ATOL = 1e-2
+RING_TOL = dict(rtol=5e-2, atol=5e-2)
 # Top-1 routing is discontinuous: a token whose two best router logits are
 # closer than the two runs' logits differ may go to another expert in each,
 # which changes its output wholly. The kernel and the plain attention
@@ -419,3 +431,176 @@ def tp_train_check(n_data: int, n_model: int, device="cuda", *, backend: str,
         raise RuntimeError(f"the ranks' losses differ: {sorted(losses)}")
     return {**results[0], "max_grad_err": max(r["max_grad_err"] for r in results),
             "ranks": results}
+
+
+# --- sharded: the dryrun's dp x sp, ring and pipeline sections ---
+
+
+def _dryrun_config(device: torch.device, **changes) -> TransformerConfig:
+    """The dryrun's flagship (d_head 4) on the CPU; ``check_config``'s
+    dialect (d_head 32) on the card, whose kernels take head dims 32, 64
+    and 128."""
+    if device.type == "cuda":
+        return check_config(**changes)
+    return check_config(d_model=64, **changes)
+
+
+def _ring_case(mesh, shape: tuple, seed: int, grads: bool) -> dict:
+    """ring_attention over the ("seq",) mesh on this rank's chunks of
+    numpy-seeded q, k, v (normal x 0.3, f32) against reference_attention
+    over the whole sequence, within RING_TOL; with grads, also the gradient
+    of sum(out²) in q, which must be finite. Returns the max abs error."""
+    rng = np.random.default_rng(seed)
+    full = [torch.from_numpy(rng.normal(size=shape) * 0.3).float() for _ in range(3)]
+    q, k, v = (shard_qkv(t, mesh).requires_grad_(grads) for t in full)
+    out = ring_attention(q, k, v, mesh)
+    want = shard_qkv(reference_attention(*full), mesh)
+    if not torch.allclose(out.detach(), want, **RING_TOL):
+        raise RuntimeError(f"rank {mesh.rank}: ring attention at {shape} differs from "
+                           f"reference_attention")
+    result = {"max_abs_err": (out.detach() - want).abs().max().item()}
+    if grads:
+        (dq,) = torch.autograd.grad(out.square().sum(), [q])
+        if not torch.isfinite(dq).all():
+            raise RuntimeError(f"rank {mesh.rank}: ring attention's grad is not finite")
+    return result
+
+
+def seq_checks(mesh) -> dict:
+    """The dryrun's sequence-parallel sections (``__graft_entry__.py:203-266``)
+    on this rank of a (data, seq) mesh; every rank of the world calls it
+    together. CUDA ranks use ``check_config``'s dialect (d_head 32), CPU
+    ranks the dryrun's own (d_head 4).
+
+    1. One dp x sp SGD step of the dialect with window None and
+       attn_parallel "seq" (seed 4), its loss against the unsharded loss
+       of the same weights and tokens within 1e-2; on a CUDA rank at seq
+       coordinate c each training kernel launches (c + 1)·n_layers times.
+    2. Ring attention over a ("seq",) mesh of every rank: q, k, v (2, 2,
+       8n, D) against reference_attention within 5e-2, D = 8 (32 on the
+       card).
+    3. Ring-flash: (2, 2, 16n, D), D = 16 (32 on the card), the same
+       check, and the grad of sum(out²) in q finite. The port has one ring
+       body, the flash one, so 2 and 3 differ in shapes only.
+
+    Returns {"loss", "loss_unsharded", "loss_err", "launches", "ring_err",
+    "ring_flash_err"}."""
+    device = mesh.device
+    cfg = _dryrun_config(device, window=None, attn_parallel="seq")
+    tokens = check_tokens(cfg)
+    params = init_params(cfg, torch.Generator().manual_seed(4), "cpu")
+    local = shard_params(params, mesh, cfg)
+    reset_kernel_launches()
+    _, loss = make_train_step(cfg, mesh=mesh)(local, tokens)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    launches = kernel_launches()
+    if not math.isfinite(loss.item()):
+        raise RuntimeError(f"rank {mesh.rank}: non-finite seq-parallel loss {loss.item()}")
+    with torch.no_grad():
+        ref = loss_fn(local, tokens.to(device), dataclasses.replace(cfg, attn_parallel="heads"))
+    err = abs(loss.item() - ref.item())
+    if not err < SHARDED_LOSS_ATOL:
+        raise RuntimeError(f"rank {mesh.rank}: seq-parallel first-step loss {loss.item()} vs "
+                           f"unsharded {ref.item()} (|d|={err})")
+    world = mesh.size(mesh.axis_names[0]) * mesh.size(mesh.axis_names[1])
+    seq_mesh = build_mesh((world,), ("seq",), device)
+    d_ring, d_flash = (32, 32) if device.type == "cuda" else (8, 16)
+    ring = _ring_case(seq_mesh, (2, 2, 8 * world, d_ring), 0, grads=False)
+    ring_flash = _ring_case(seq_mesh, (2, 2, 16 * world, d_flash), 1, grads=True)
+    return {"loss": loss.item(), "loss_unsharded": ref.item(), "loss_err": err,
+            "launches": launches, "ring_err": ring["max_abs_err"],
+            "ring_flash_err": ring_flash["max_abs_err"]}
+
+
+def pipeline_checks(mesh) -> dict:
+    """The dryrun's pipeline sections (``__graft_entry__.py:286-336``) on
+    this rank of a ("pipe",) mesh of P ranks; every rank calls it together.
+
+    1. GPipe over P stages of tanh(x @ w), w = 0.9·I (16), on ones (8, 16)
+       in 4 microbatches: finite, and equal to the stages run in turn
+       within 1e-6.
+    With P >= 2 (the reference's sections fail below that; one stage has
+    no bubble):
+
+    2. The bubble accounting: the interleaved schedule (v 2) has a smaller
+       bubble fraction than GPipe's at the same microbatches and stages.
+    3. The interleaved flagship: 2 chunks a rank, 2P blocks of the dialect
+       (seed 5), n_micro the least multiple of P that is >= 4 (the
+       reference's 4 fails for 3 stages), on the first n_micro·⌊8/n_micro⌋
+       rows of the check batch: one step, its loss against the unsharded
+       loss within 1e-2. On a CUDA rank each training kernel launches
+       n_micro·2 times (one block a chunk).
+
+    Returns {"gpipe_err", "bubble": {"gpipe", "interleaved"}, and with P >=
+    2 "loss", "loss_unsharded", "loss_err", "n_micro", "launches"}."""
+    device = mesh.device
+    n_stages = mesh.size(mesh.axis_names[0])
+    w = torch.eye(16) * 0.9
+    stages = shard_stage_params({"w": torch.stack([w] * n_stages)}, mesh, mesh.axis_names[0])
+    x = torch.ones((8, 16), device=device)
+    y = pipeline_apply(stages, x, mesh, lambda p, a: torch.tanh(a @ p["w"]), n_micro=4,
+                       pipe_axis=mesh.axis_names[0])
+    want = x
+    for _ in range(n_stages):
+        want = torch.tanh(want @ w.to(device))
+    gpipe_err = (y - want).abs().max().item()
+    if not (torch.isfinite(y).all() and gpipe_err <= 1e-6):
+        raise RuntimeError(f"rank {mesh.rank}: GPipe output off by {gpipe_err}")
+    n_virtual, n_micro = 2, n_stages * math.ceil(4 / n_stages)
+    bubble = {"gpipe": schedule_info(n_micro, n_stages)["bubble_fraction"],
+              "interleaved": schedule_info(n_micro, n_stages, n_virtual)["bubble_fraction"]}
+    out = {"gpipe_err": gpipe_err, "bubble": bubble}
+    if n_stages < 2:  # one stage has no bubble to shrink
+        return out
+    if not bubble["interleaved"] < bubble["gpipe"]:
+        raise RuntimeError(f"interleaving does not shrink the bubble: {bubble}")
+    cfg = _dryrun_config(device, n_layers=n_stages * n_virtual)
+    tokens = check_tokens(cfg)[:n_micro * (8 // n_micro)]
+    params = init_params(cfg, torch.Generator().manual_seed(5), "cpu")
+    local = shard_pipeline_params(to_pipeline_params(params, n_stages, n_virtual), mesh,
+                                  mesh.axis_names[0])
+    step = make_pipeline_train_step(mesh, cfg, n_micro=n_micro, pipe_axis=mesh.axis_names[0],
+                                    n_virtual=n_virtual)
+    reset_kernel_launches()
+    _, loss = step(local, tokens)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    launches = kernel_launches()
+    if not math.isfinite(loss.item()):
+        raise RuntimeError(f"rank {mesh.rank}: non-finite pipeline loss {loss.item()}")
+    with torch.no_grad():
+        ref = loss_fn(tree_map(lambda t: t.to(device), params), tokens.to(device), cfg)
+    err = abs(loss.item() - ref.item())
+    if not err < SHARDED_LOSS_ATOL:
+        raise RuntimeError(f"rank {mesh.rank}: pipeline first-step loss {loss.item()} vs "
+                           f"unsharded {ref.item()} (|d|={err})")
+    return {**out, "loss": loss.item(), "loss_unsharded": ref.item(), "loss_err": err,
+            "n_micro": n_micro, "launches": launches}
+
+
+def _seq_pipeline_rank(shape, device) -> dict:
+    seq = seq_checks(build_mesh(shape, ("data", "seq"), device))
+    pipe = pipeline_checks(build_mesh((shape[0] * shape[1],), ("pipe",), device))
+    return {"rank": torch.distributed.get_rank(), "seq": seq, "pipeline": pipe}
+
+
+def seq_pipeline_check(n_data: int, n_seq: int, device="cuda", *, backend: str,
+                       timeout_s: float = 600.0) -> list[dict]:
+    """``seq_checks`` on an (n_data, n_seq) ("data", "seq") mesh, then
+    ``pipeline_checks`` on a ("pipe",) mesh of the same n_data·n_seq ranks,
+    started as processes (``parallel.launch.run_ranks``) that join a process
+    group of `backend`: the counterpart of the dryrun's dp x sp, ring and
+    pipeline sections. The caller names the backend; nothing here swaps one
+    for another. Runs on the card unless the caller passes device="cpu".
+    Returns every rank's results; raises when a rank fails, naming it, or
+    when the ranks' losses differ."""
+    if torch.device(device).type == "cuda":
+        resolve_device(device)
+    results = run_ranks(_seq_pipeline_rank, n_data * n_seq, backend=backend,
+                        args=((n_data, n_seq), device), timeout_s=timeout_s)
+    for part in ("seq", "pipeline"):
+        losses = {r[part].get("loss") for r in results}
+        if len(losses) != 1:
+            raise RuntimeError(f"the ranks' {part} losses differ: {sorted(losses)}")
+    return results

@@ -39,7 +39,18 @@ expert combine. Attention needs no collective; every rank runs the
 kernels on its own H/tp q heads and H_kv/tp kv heads. The embedding, the
 norms, the router and the logits are computed whole on every rank.
 
-Not ported yet: sequence-parallel attention.
+dp x sp (``attn_parallel="seq"``): the mesh's axes are (data, seq), the
+params are whole on every rank, and a rank holds its rows of the batch and
+its chunk of their positions. Nothing splits heads and nothing runs f or g:
+the blocks are token-local but for attention, which is
+``parallel.ring_attention`` over the seq axis, and RoPE and the learned
+positions take the chunk's global positions. The MoE's routed fractions
+are averaged over both axes (``parallel.moe.moe_ffn``). ``loss_fn`` takes
+the rank's rows whole, since the last position of a chunk predicts the
+first token of the next, and returns the rank's share of the loss: its
+positions' NLL summed and divided by the whole batch's count B·(L − 1),
+plus its share of the aux loss, so that the shares sum to the loss over
+the mesh.
 """
 
 from __future__ import annotations
@@ -55,6 +66,7 @@ from gpumounter_tpu_torch.ops.flash_decode import flash_decode
 from gpumounter_tpu_torch.ops.graphs import capture as capture_graph
 from gpumounter_tpu_torch.parallel.collectives import copy_to, reduce_from
 from gpumounter_tpu_torch.parallel.moe import init_moe_params, moe_ffn
+from gpumounter_tpu_torch.parallel.ring_attention import ring_attention
 
 
 @dataclass(frozen=True)
@@ -104,11 +116,6 @@ class TransformerConfig:
         if self.rope_base <= 0:
             raise ValueError(f"rope_base must be > 0, got "
                              f"{self.rope_base}")
-        if self.attn_parallel == "seq":
-            raise NotImplementedError(
-                "attn_parallel='seq' (ring attention) is not ported yet "
-                "(ROADMAP.md, modules to port: parallel/ across several "
-                "GPUs)")
 
     @property
     def d_head(self) -> int:
@@ -161,13 +168,39 @@ def _rmsnorm(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     return (x * torch.rsqrt(var + 1e-6).to(x.dtype)) * g
 
 
+def _tp_mesh(cfg, mesh):
+    """The mesh whose second axis splits heads and the FFN: `mesh` in the
+    heads layout, None in the seq layout (or without a mesh)."""
+    return mesh if cfg.attn_parallel == "heads" else None
+
+
 def _model_axis(mesh):
     return None if mesh is None else mesh.axis_names[1]
 
 
+def _seq_chunk(mesh):
+    """(size, this rank's coordinate) of the seq layout's sequence axis."""
+    axis = mesh.axis_names[1]
+    return mesh.size(axis), mesh.coord(axis)
+
+
+def check_seq_split(batch: tuple, mesh) -> None:
+    """Raise the reference's ValueError unless a (B, L) batch splits evenly
+    over the seq layout's (data, seq) mesh."""
+    data_ax, seq_ax = mesh.axis_names
+    dp, sp = mesh.size(data_ax), mesh.size(seq_ax)
+    if batch[0] % dp or batch[1] % sp:
+        raise ValueError(
+            f"attn_parallel='seq' needs batch/sequence to split "
+            f"evenly: B={batch[0]} over {data_ax}={dp}, "
+            f"L={batch[1]} over {seq_ax}={sp}")
+
+
 def local_heads(cfg, mesh=None) -> tuple[int, int]:
     """(q heads, kv heads) of one rank: the config's, split over the mesh's
-    model axis. Raises ValueError where they do not split evenly."""
+    model axis in the heads layout. Raises ValueError where they do not
+    split evenly."""
+    mesh = _tp_mesh(cfg, mesh)
     if mesh is None:
         return cfg.n_heads, cfg.kv_heads
     axis = _model_axis(mesh)
@@ -185,6 +218,7 @@ def _qkv_heads(x, p, cfg, mesh=None):
     of one projection; the attention kernel reads them as they are."""
     b, t, _ = x.shape
     n_q, n_kv = local_heads(cfg, mesh)
+    mesh = _tp_mesh(cfg, mesh)
     h = copy_to(_rmsnorm(x, p["ln1"]), mesh, _model_axis(mesh))
     q, k, v = (h @ p["wqkv"]).split(
         [n_q * cfg.d_head, n_kv * cfg.d_head, n_kv * cfg.d_head], dim=-1)
@@ -215,14 +249,15 @@ def _maybe_rope(q, k, cfg, positions):
     return _rope_rotate(q, positions, cfg), _rope_rotate(k, positions, cfg)
 
 
-def _finish_block(x, p, mesh=None):
+def _finish_block(x, p, mesh=None, layout="heads"):
     """rmsnorm, FFN and residual: (x, aux). The FFN is the MoE when the
     block carries a router (aux its load-balancing loss), else the dense
-    FFN with tanh GELU, as jax.nn.gelu's default (aux 0.0). Under a mesh
-    the FFN runs on this rank's d_ff columns or experts and is summed over
-    the model axis."""
+    FFN with tanh GELU, as jax.nn.gelu's default (aux 0.0). Under a mesh in
+    the heads layout the FFN runs on this rank's d_ff columns or experts
+    and is summed over the model axis; in the seq layout it runs whole on
+    this rank's tokens."""
     h = _rmsnorm(x, p["ln2"])
-    axis = _model_axis(mesh)
+    axis = _model_axis(mesh) if layout == "heads" else None
     if "router" in p:
         b, t, d = h.shape
         out, aux = moe_ffn(p, h.reshape(b * t, d), mesh, axis)
@@ -242,18 +277,26 @@ def _project(x, attn_heads, p, mesh=None):
 def _attend(x, p, cfg, attention, mesh=None):
     """The attention half of a block over the whole sequence: (x plus its
     attention's projection, post-RoPE k and v (b, kv_heads, t, d_head),
-    which is what the cache stores)."""
+    which is what the cache stores). In the seq layout x is this rank's
+    chunk of the sequence, at its global positions, and attention is the
+    ring over the seq axis."""
     q, k, v = _qkv_heads(x, p, cfg, mesh)
-    positions = torch.arange(x.shape[1], device=x.device)
-    q, k = _maybe_rope(q, k, cfg, positions)
-    return _project(x, attention(q, k, v, causal=True, window=cfg.window), p, mesh), k, v
+    t = x.shape[1]
+    seq = mesh is not None and cfg.attn_parallel == "seq"
+    start = _seq_chunk(mesh)[1] * t if seq else 0
+    q, k = _maybe_rope(q, k, cfg, torch.arange(start, start + t, device=x.device))
+    if seq:
+        out = ring_attention(q, k, v, mesh, seq_axis=mesh.axis_names[1], causal=True)
+    else:
+        out = attention(q, k, v, causal=True, window=cfg.window)
+    return _project(x, out, p, _tp_mesh(cfg, mesh)), k, v
 
 
 def _block(x, p, cfg, attention, return_kv=False, mesh=None):
     """One block over the whole sequence: (x, aux), with return_kv also its
     k and v."""
     x, k, v = _attend(x, p, cfg, attention, mesh)
-    x, aux = _finish_block(x, p, mesh)
+    x, aux = _finish_block(x, p, mesh, cfg.attn_parallel)
     return (x, aux, k, v) if return_kv else (x, aux)
 
 
@@ -276,21 +319,36 @@ def _block_decode(x, p, cfg, k_cache, v_cache, cur_len):
     return _finish_block(_attend_decode(x, p, cfg, k_cache, v_cache, cur_len), p)[0]
 
 
-def _embed(params, tokens, cfg):
-    """Token embeddings (b, t, d_model), plus the learned positions unless
-    the config uses RoPE."""
+def _embed(params, tokens, cfg, start=0, length=None):
+    """Token embeddings (b, t, d_model) of the positions [start, start + t)
+    of a sequence of `length` tokens (t by default), plus the learned
+    positions unless the config uses RoPE."""
     t = tokens.shape[1]
-    if t > cfg.max_len:
-        raise ValueError(f"sequence length {t} exceeds max_len "
+    length = t if length is None else length
+    if length > cfg.max_len:
+        raise ValueError(f"sequence length {length} exceeds max_len "
                          f"{cfg.max_len}")
     x = params["embed"][tokens]
-    return x if cfg.rope else x + params["pos"][:t]
+    return x if cfg.rope else x + params["pos"][start:start + t]
 
 
 def _forward_impl(params, tokens, cfg, attention, mesh=None):
     """(float32 logits, the blocks' aux loss averaged over n_layers; 0.0
     for a dense config)."""
-    x, aux_total = _embed(params, tokens, cfg), 0.0
+    if mesh is not None and len(mesh.axis_names) != 2:
+        raise ValueError(
+            f"forward() expects a 2-axis mesh — (data, model) for the "
+            f"heads layout, (data, seq) for attn_parallel='seq' — got "
+            f"axes {mesh.axis_names}")
+    start, length = 0, tokens.shape[1]
+    if mesh is not None and cfg.attn_parallel == "seq":
+        if attention is not flash_attention:
+            raise ValueError("the seq layout attends through ring_attention, whose "
+                             "chunk step is flash_attention_with_lse; it takes no "
+                             "attention=")
+        n, c = _seq_chunk(mesh)
+        start, length = c * tokens.shape[1], n * tokens.shape[1]
+    x, aux_total = _embed(params, tokens, cfg, start, length), 0.0
     for blk in params["blocks"]:
         x, aux = _block(x, blk, cfg, attention, mesh=mesh)
         aux_total = aux_total + aux
@@ -309,7 +367,10 @@ def forward(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
     mesh: a (data, model) ``parallel.mesh.Mesh``, with params this rank's
     shards and tokens this rank's rows of the batch; the logits are this
     rank's rows, whole over the vocab. Every rank of a model group must
-    call it together (its collectives).
+    call it together (its collectives). In the seq layout a (data, seq)
+    mesh, params whole and tokens this rank's rows and chunk of positions
+    (``parallel.mesh.shard_tokens(..., seq=True)``); the logits are that
+    chunk's, and every rank of a seq group must call it together.
     """
     return _forward_impl(params, tokens, cfg, attention, mesh)[0]
 
@@ -480,12 +541,16 @@ def generate_loop(params: dict, prompt: torch.Tensor, cfg: TransformerConfig,
     return torch.cat([prompt, out], dim=1)
 
 
+def _nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """The negative log-likelihoods (B, T, 1) of targets (B, T) under
+    logits (B, T, V)."""
+    return -torch.log_softmax(logits, dim=-1).gather(-1, targets[..., None].long())
+
+
 def next_token_nll(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     """Mean next-token negative log-likelihood: logits (B, T, V) against
     tokens (B, T), shifted by one."""
-    logp = torch.log_softmax(logits[:, :-1], dim=-1)
-    nll = -logp.gather(-1, tokens[:, 1:, None].long())
-    return nll.mean()
+    return _nll(logits[:, :-1], tokens[:, 1:]).mean()
 
 
 def loss_fn(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
@@ -498,9 +563,30 @@ def loss_fn(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
     and the aux loss with each expert's routed fraction taken over the
     whole batch (``parallel.moe.moe_ffn``). The mean of the shares over
     the data axis is the loss of the whole batch, and the mean of their
-    gradients its gradient (``parallel.train_step.loss_and_grads``)."""
-    logits, aux = _forward_impl(params, tokens, cfg, attention, mesh)
-    loss = next_token_nll(logits, tokens)
+    gradients its gradient (``parallel.train_step.loss_and_grads``).
+
+    In the seq layout, tokens are this rank's rows whole (B/dp, L): the
+    rank runs its chunk of positions and scores each against the next
+    token, which for the chunk's last position is the next chunk's first
+    (the last chunk has one position fewer). Its share is its NLLs summed
+    over the whole batch's count B·(L − 1), plus its aux loss over the
+    dp·sp ranks; the shares sum to the loss of the whole batch, and their
+    gradients to its gradient."""
+    if mesh is None or cfg.attn_parallel == "heads":
+        logits, aux = _forward_impl(params, tokens, cfg, attention, mesh)
+        loss = next_token_nll(logits, tokens)
+    else:
+        dp, (sp, c) = mesh.size(mesh.axis_names[0]), _seq_chunk(mesh)
+        rows, length = tokens.shape
+        check_seq_split((rows * dp, length), mesh)
+        chunk = length // sp
+        start = c * chunk
+        logits, aux = _forward_impl(params, tokens[:, start:start + chunk], cfg,
+                                    attention, mesh)
+        scored = min(chunk, length - 1 - start)
+        nll = _nll(logits[:, :scored], tokens[:, start + 1:start + 1 + scored])
+        loss = nll.sum() / (rows * dp * (length - 1))
+        aux = aux / (dp * sp)
     if cfg.n_experts is not None:
         loss = loss + cfg.moe_aux_weight * aux
     return loss

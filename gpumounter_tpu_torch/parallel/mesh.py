@@ -1,4 +1,4 @@
-"""A 2-axis process mesh over torch.distributed.
+"""A process mesh of one or two axes over torch.distributed.
 
 Counterpart of ``gpumounter_tpu/parallel/mesh.py``. The reference hands a
 ``jax.sharding.Mesh`` to GSPMD, which places the shards and inserts the
@@ -6,11 +6,14 @@ collectives. PyTorch has no GSPMD: the port runs one process per rank, and
 each rank holds a ``Mesh`` that says where it sits (its coordinate on each
 axis), which ranks share each axis (one process group per axis) and which
 device it computes on. The collectives are explicit
-(``parallel/collectives.py``) and counted on the mesh.
+(``parallel/collectives.py``) and counted on the mesh. Two axes serve the
+(data, model) and (data, seq) layouts, one axis the pipeline's ("pipe",)
+and the ring's ("seq",).
 """
 
 from __future__ import annotations
 
+import math
 import os
 
 import torch
@@ -32,15 +35,18 @@ def mesh_shape_for(n_devices: int) -> tuple[int, int]:
 
 
 class Mesh:
-    """This rank's place in a (data, model)-shaped grid of ranks, laid out
+    """This rank's place in a grid of ranks of one or two axes, laid out
     row-major as ``np.array(ranks).reshape(shape)`` is in the reference.
 
-    axis_names: the two axes, the data axis first. shape, coords: each
-    axis's size and this rank's index along it. groups: each axis's process
-    group (the ranks that differ from this one only along it). device:
-    where this rank computes. calls, bytes: the collectives run over each
-    axis since the last ``reset_counts()``, and the bytes of the tensors
-    they reduced or gathered (the payload, not the traffic on the wire).
+    axis_names: the axes, the data axis first where there are two. shape,
+    coords: each axis's size and this rank's index along it. groups: each
+    axis's process group (the ranks that differ from this one only along
+    it). device: where this rank computes. calls, bytes: the collectives
+    run over each axis since the last ``reset_counts()``, and the bytes of
+    the tensors they reduced, gathered or sent (the payload, not the
+    traffic on the wire). sent: the point-to-point messages sent over each
+    axis since the mesh was made, which ``collectives.ring_shift`` uses as
+    tags; reset_counts leaves it, so that every rank numbers alike.
     """
 
     def __init__(self, axis_names, shape, rank: int, groups: dict,
@@ -48,9 +54,11 @@ class Mesh:
         self.axis_names = tuple(axis_names)
         self.shape = dict(zip(self.axis_names, shape, strict=True))
         self.rank = rank
-        self.coords = dict(zip(self.axis_names, divmod(rank, shape[1]), strict=True))
+        self.coords = dict(zip(self.axis_names, divmod(rank, shape[1]) if len(shape) == 2
+                               else (rank,), strict=True))
         self.groups = groups
         self.device = device
+        self.sent = dict.fromkeys(self.axis_names, 0)
         self.reset_counts()
 
     def size(self, axis: str) -> int:
@@ -59,38 +67,53 @@ class Mesh:
     def coord(self, axis: str) -> int:
         return self.coords[axis]
 
+    def rank_at(self, axis: str, coord: int) -> int:
+        """The global rank at `coord` along `axis`, this rank's coordinates
+        on the other axis kept."""
+        coords = dict(self.coords, **{axis: coord})
+        rank = 0
+        for name in self.axis_names:
+            rank = rank * self.shape[name] + coords[name]
+        return rank
+
     def reset_counts(self) -> None:
         self.calls = dict.fromkeys(self.axis_names, 0)
         self.bytes = dict.fromkeys(self.axis_names, 0)
 
 
-def build_mesh(shape: tuple[int, int] | None = None,
-               axis_names: tuple[str, str] = ("data", "model"),
+def build_mesh(shape: tuple[int, ...] | None = None,
+               axis_names: tuple[str, ...] = ("data", "model"),
                device="cuda") -> Mesh:
     """This rank's Mesh over the initialised default process group.
 
     The caller starts torch.distributed with the backend it chooses; this
-    never picks or swaps one. shape defaults to
-    ``mesh_shape_for(world size)`` and must multiply to the world size.
-    Every rank must call this, in the same order as its other group
-    creations: each axis's groups are made with ``dist.new_group`` on all
-    ranks. The device is ``cuda:(LOCAL_RANK % device_count)`` (LOCAL_RANK
-    from the environment, else the global rank), or the CPU when the caller
-    passes device="cpu".
+    never picks or swaps one. shape, of one axis or two, defaults to
+    ``mesh_shape_for(world size)`` and must multiply to the world size;
+    axis_names has one name per axis (a one-axis mesh is the reference's
+    ``Mesh(devices, ("pipe",))``). Every rank must call this, in the same
+    order as its other group creations: each axis's groups are made with
+    ``dist.new_group`` on all ranks. The device is
+    ``cuda:(LOCAL_RANK % device_count)`` (LOCAL_RANK from the environment,
+    else the global rank), or the CPU when the caller passes device="cpu".
     """
     if not dist.is_initialized():
         raise RuntimeError("build_mesh needs torch.distributed initialised "
                            "(init_process_group with the backend of your choice)")
     world, rank = dist.get_world_size(), dist.get_rank()
     shape = tuple(shape) if shape is not None else mesh_shape_for(world)
-    if len(shape) != 2 or len(axis_names) != 2 or shape[0] * shape[1] != world:
+    if (len(shape) not in (1, 2) or len(axis_names) != len(shape)
+            or math.prod(shape) != world):
         raise ValueError(f"mesh shape {shape} over axes {axis_names} does not "
                          f"hold the world of {world} ranks")
-    n_data, n_model = shape
-    rows = [[d * n_model + m for m in range(n_model)] for d in range(n_data)]
-    cols = [[d * n_model + m for d in range(n_data)] for m in range(n_model)]
+    if len(shape) == 1:
+        sets_by_axis = [(axis_names[0], [list(range(world))])]
+    else:
+        n_data, n_model = shape
+        rows = [[d * n_model + m for m in range(n_model)] for d in range(n_data)]
+        cols = [[d * n_model + m for d in range(n_data)] for m in range(n_model)]
+        sets_by_axis = [(axis_names[1], rows), (axis_names[0], cols)]
     groups = {}
-    for axis, sets in ((axis_names[1], rows), (axis_names[0], cols)):
+    for axis, sets in sets_by_axis:
         for ranks in sets:
             group = dist.new_group(ranks)
             if rank in ranks:
@@ -142,3 +165,22 @@ def shard_batch(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
                          f"{data!r} axis of size {n}")
     rows = x.shape[0] // n
     return x[mesh.coord(data) * rows:(mesh.coord(data) + 1) * rows].to(mesh.device)
+
+
+def shard_qkv(x: torch.Tensor, mesh: Mesh, seq_axis: str = "seq") -> torch.Tensor:
+    """This rank's chunk of a (B, H, L, D) tensor whose L is split over
+    `seq_axis`, on the mesh's device: the counterpart of the reference's
+    ``ring_attention.shard_qkv``."""
+    return shard_leaf(x, (None, None, seq_axis, None), mesh)
+
+
+def shard_tokens(tokens: torch.Tensor, mesh: Mesh, seq: bool = False) -> torch.Tensor:
+    """This rank's share of a (B, L) token batch, on the mesh's device: its
+    rows over the data axis (the first), and with seq also its chunk of
+    positions over the second axis; the counterpart of the reference's
+    ``train_step._data_spec``. The seq layout's loss scores a rank's
+    positions against the next token, which may sit in the next chunk, so
+    ``parallel.train_step`` hands each rank its rows whole and the model
+    cuts the chunk (``models.probe``)."""
+    spec = (mesh.axis_names[0], mesh.axis_names[1] if seq else None)
+    return shard_leaf(tokens, spec, mesh)

@@ -23,6 +23,11 @@ Where the reference lets GSPMD sum over its sharded expert dimension, the
 port states the sum. Routing, the gate and the aux loss are computed whole
 on every rank; the aux loss takes each expert's routed fraction over the
 whole batch (one all-reduce over the data axis).
+
+In the probe's seq layout (a (data, seq) mesh, ``axis=None``) every rank
+holds every expert and its own tokens, split over both axes: the routed
+fractions are averaged over data and over seq (one all-reduce each) before
+their product with the rank's mean probabilities.
 """
 
 from __future__ import annotations
@@ -85,8 +90,10 @@ def moe_ffn(params: dict, x: torch.Tensor, mesh=None,
 
     mesh: this rank's experts are its shard along `axis`, x its tokens;
     the combine is summed over `axis` before the gate, and the routed
-    fractions are averaged over the mesh's data axis (the first), so the
-    aux loss's mean over the data axis is the whole batch's.
+    fractions are averaged over every other axis of the mesh (those that
+    split the tokens: the data axis, and in the seq layout, where `axis` is
+    None and no axis splits the experts, the seq axis too), so the aux
+    loss's mean over the ranks is the whole batch's.
     """
     n_experts = params["router"].shape[1]
     expert_idx, probs = _route(params, x)
@@ -94,7 +101,7 @@ def moe_ffn(params: dict, x: torch.Tensor, mesh=None,
     onehot = (expert_idx[:, None] == torch.arange(n_experts, device=x.device)).to(x.dtype)
     gate = probs.gather(1, expert_idx[:, None]).to(x.dtype)
     mine = onehot
-    if mesh is not None:
+    if mesh is not None and axis is not None:
         n_local = params["w1"].shape[0]
         if n_local * mesh.size(axis) != n_experts:
             raise ValueError(f"{n_local} experts a rank over the {axis!r} axis of size "
@@ -106,8 +113,9 @@ def moe_ffn(params: dict, x: torch.Tensor, mesh=None,
     combined = reduce_from(torch.einsum("etd,te->td", out_e, mine), mesh, axis) * gate
     frac = onehot.float().mean(dim=0)
     if mesh is not None:
-        data = mesh.axis_names[0]
-        frac = all_reduce(frac, mesh, data) / mesh.size(data)
+        for other in mesh.axis_names:
+            if other != axis:
+                frac = all_reduce(frac, mesh, other) / mesh.size(other)
     aux = n_experts * (frac * probs.mean(dim=0)).sum()
     return combined, aux
 

@@ -1,4 +1,5 @@
-"""The probe's training step, on one device or sharded dp x tp over a mesh.
+"""The probe's training step, on one device or sharded over a mesh (dp x tp
+or dp x sp).
 
 Counterpart of ``gpumounter_tpu/parallel/train_step.py``: ``param_specs``,
 ``shard_params``, ``sgd_update``, ``make_train_step`` and
@@ -24,35 +25,59 @@ column blocks and lets GSPMD move the data where the heads need it; a
 contiguous half here would hold only q. So rank r's shard is its own q
 heads' columns, then its k heads', then its v heads' (``_wqkv_columns``):
 whole heads, and whole GQA groups, since H and H_kv both divide the axis.
+
+dp x sp (the reference's "seq" layout over (data, seq), any axis names):
+the params are whole on every rank, the batch is split over data, and each
+rank runs its chunk of the positions over seq, attention through
+``parallel.ring_attention``. ``models.probe.loss_fn`` gives each rank a
+share of the loss (its positions' NLL over the whole batch's B·(L − 1),
+and 1/(dp·sp) of its aux loss), so the shares sum to the reference's
+global mean, and each rank's gradient is the gradient of the whole loss
+through its own computation (the ring's shifts carry the other ranks'
+cotangents back to the K/V chunks they used). The gradients of the
+replicated params are summed over data and over seq, and so is the loss:
+every rank ends with the reference's gradient of its global mean.
 """
 
 from __future__ import annotations
 
 import torch
 
-from gpumounter_tpu_torch.models.probe import TransformerConfig, local_heads, loss_fn
+from gpumounter_tpu_torch.models.probe import (TransformerConfig, check_seq_split,
+                                               local_heads, loss_fn)
 from gpumounter_tpu_torch.ops.flash_attention import flash_attention
-from gpumounter_tpu_torch.parallel.collectives import all_gather, mean_over_data
+from gpumounter_tpu_torch.parallel.collectives import all_gather, mean_over_data, sum_over
 from gpumounter_tpu_torch.parallel.mesh import gather_leaf, shard_batch, shard_leaf
 from gpumounter_tpu_torch.parallel.moe import moe_param_specs
 
 
-def tree_leaves(params: dict) -> list[torch.Tensor]:
-    """The params' tensors in a fixed order: the top-level keys sorted,
-    then each block's keys sorted (the order of ``jax.tree.leaves`` within
-    each level)."""
-    top = [params[key] for key in sorted(params) if key != "blocks"]
-    return top + [blk[key] for blk in params["blocks"] for key in sorted(blk)]
+def _keys(node: dict) -> list:
+    """A dict's keys in leaf order: its leaves' keys sorted, then those of
+    its dicts and lists sorted."""
+    return sorted(node, key=lambda k: (isinstance(node[k], (dict, list)), k))
 
 
-def tree_map(fn, params: dict, *rest: dict) -> dict:
-    """A params dict of fn(leaf, *matching leaves of rest)."""
-    out = {key: fn(params[key], *(r[key] for r in rest))
-           for key in sorted(params) if key != "blocks"}
-    out["blocks"] = [{key: fn(blk[key], *(r["blocks"][i][key] for r in rest))
-                      for key in sorted(blk)}
-                     for i, blk in enumerate(params["blocks"])]
-    return out
+def tree_leaves(params) -> list[torch.Tensor]:
+    """The params' tensors in a fixed order: at each level of dicts the
+    leaves' keys sorted, then the nested dicts and lists (the probe's
+    blocks, the pipeline's stages) in key order, lists in order. For the
+    probe: the top-level tensors sorted, then each block's keys sorted (the
+    order of ``jax.tree.leaves`` within each level)."""
+    if isinstance(params, list):
+        return [leaf for item in params for leaf in tree_leaves(item)]
+    if isinstance(params, dict):
+        return [leaf for key in _keys(params) for leaf in tree_leaves(params[key])]
+    return [params]
+
+
+def tree_map(fn, params, *rest):
+    """A params tree of fn(leaf, *matching leaves of rest)."""
+    if isinstance(params, list):
+        return [tree_map(fn, item, *(r[i] for r in rest)) for i, item in enumerate(params)]
+    if isinstance(params, dict):
+        return {key: tree_map(fn, params[key], *(r[key] for r in rest))
+                for key in _keys(params)}
+    return fn(params, *rest)
 
 
 def _map_keyed(fn, params: dict, specs: dict) -> dict:
@@ -68,7 +93,8 @@ def param_specs(cfg: TransformerConfig) -> dict:
     mesh axis a dim is split over, or None. Dense blocks: wqkv and w1
     split by columns (the output dim), wo and w2 by rows (the input dim).
     MoE blocks: the stacked experts' expert dim over "model", the router
-    replicated (``parallel.moe.moe_param_specs``)."""
+    replicated (``parallel.moe.moe_param_specs``). In the seq layout every
+    leaf is replicated: the parallelism lives in the activations."""
     block = {"wqkv": (None, "model"), "wo": ("model", None), "ln1": (None,), "ln2": (None,)}
     if cfg.n_experts is None:
         block.update(w1=(None, "model"), w2=("model", None))
@@ -77,6 +103,8 @@ def param_specs(cfg: TransformerConfig) -> dict:
     specs = {"embed": (None, None), "blocks": [dict(block) for _ in range(cfg.n_layers)]}
     if not cfg.rope:  # rope configs carry no learned position table
         specs["pos"] = (None, None)
+    if cfg.attn_parallel == "seq":
+        specs = tree_map(lambda spec: (None,) * len(spec), specs)
     return specs
 
 
@@ -96,7 +124,11 @@ def shard_params(params: dict, mesh, cfg: TransformerConfig) -> dict:
     """This rank's shards of full params, as new tensors on the mesh's
     device (the full ones may live on the CPU, so that the device never
     holds them). Raises ValueError where a split is uneven: the heads, d_ff
-    or the experts over "model"."""
+    or the experts over "model". In the seq layout every leaf is a whole
+    copy."""
+    if cfg.attn_parallel == "seq":
+        return _map_keyed(lambda _, leaf, spec: shard_leaf(leaf, spec, mesh), params,
+                          param_specs(cfg))
     if mesh.axis_names[1] != "model":
         raise ValueError(f"the dp x tp layout shards over a 'model' axis, got "
                          f"{mesh.axis_names}")
@@ -113,7 +145,10 @@ def shard_params(params: dict, mesh, cfg: TransformerConfig) -> dict:
 def gather_params(local: dict, mesh, cfg: TransformerConfig) -> dict:
     """The full params of which `local` holds this rank's shards
     (``shard_params``), on every rank of the model group, which must all
-    call it together; for checks and checkpoints."""
+    call it together; for checks and checkpoints. In the seq layout every
+    leaf is whole already."""
+    if cfg.attn_parallel == "seq":
+        return local
     columns = _wqkv_columns(cfg, mesh)
 
     def gather(key, leaf, spec):
@@ -134,17 +169,39 @@ def loss_and_grads(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
     dtypes; params are left as they are.
 
     mesh: params are this rank's shards and tokens the whole batch; the
-    rank runs its rows. The loss is the whole batch's, and grads are this
-    rank's shards of the whole batch's gradients (averaged over "data")."""
+    rank runs its rows (and in the seq layout its chunk of positions). The
+    loss is the whole batch's, and grads are this rank's shards of the
+    whole batch's gradients (``_reduce_shares``)."""
     leaves = tree_map(lambda p: p.detach().requires_grad_(), params)
-    if mesh is not None:
-        tokens = shard_batch(tokens, mesh)
+    tokens = _rank_rows(tokens, cfg, mesh)
     loss = loss_fn(leaves, tokens, cfg, attention, mesh)
     grads = [g.contiguous() for g in torch.autograd.grad(loss, tree_leaves(leaves))]
-    mean_over_data(grads, mesh)
+    loss = _reduce_shares(grads, loss.detach().clone(), cfg, mesh)
     grads = iter(grads)
-    loss = mean_over_data([loss.detach().clone()], mesh)[0]
     return loss, tree_map(lambda _: next(grads), params)
+
+
+def _rank_rows(tokens: torch.Tensor, cfg: TransformerConfig, mesh) -> torch.Tensor:
+    """This rank's rows of the whole batch (the batch itself without a
+    mesh), after the seq layout's check that the batch splits evenly."""
+    if mesh is None:
+        return tokens
+    if cfg.attn_parallel == "seq":
+        check_seq_split(tuple(tokens.shape), mesh)
+    return shard_batch(tokens, mesh)
+
+
+def _reduce_shares(grads: list, loss: torch.Tensor, cfg: TransformerConfig, mesh) -> torch.Tensor:
+    """The whole batch's gradients and loss from this rank's shares, in
+    place in `grads` (contiguous); returns the loss. heads: the mean over
+    "data" (each rank's share is its rows' mean). seq: the sum over both
+    axes (the shares sum to the loss)."""
+    if mesh is None:
+        return loss
+    if cfg.attn_parallel == "seq":
+        return sum_over(grads + [loss], mesh, mesh.axis_names)[-1]
+    mean_over_data(grads, mesh)
+    return mean_over_data([loss], mesh)[0]
 
 
 @torch.no_grad()
@@ -166,7 +223,16 @@ def step_collectives(cfg: TransformerConfig, mesh, local: dict, batch: tuple) ->
     a leaf, of this rank's shard; the loss (4 bytes); and for MoE configs
     each block's routed fractions (E float32). No gather: no rank holds a
     whole leaf that is split over "model".
+
+    The seq layout, over (data, seq) of sizes dp and sp: over seq (sp > 1),
+    the ring's shifts, sp − 1 a block forward (this rank's k and v chunks,
+    (B/dp, H_kv, T/sp, d_head) each in cfg.dtype) and as many backward (dk
+    and dv, of the same size); over each axis of size > 1, one gradient sum
+    a leaf (whole leaves), the loss (4 bytes) and for MoE configs each
+    block's routed fractions (E float32).
     """
+    if cfg.attn_parallel == "seq":
+        return _seq_step_collectives(cfg, mesh, local, batch)
     data, model = mesh.axis_names
     rows, seq = batch[0] // mesh.size(data), batch[1]
     calls, nbytes = {data: 0, model: 0}, {data: 0, model: 0}
@@ -183,6 +249,26 @@ def step_collectives(cfg: TransformerConfig, mesh, local: dict, batch: tuple) ->
     return {"calls": calls, "bytes": nbytes}
 
 
+def _seq_step_collectives(cfg: TransformerConfig, mesh, local: dict, batch: tuple) -> dict:
+    data, seq = mesh.axis_names
+    dp, sp = mesh.size(data), mesh.size(seq)
+    calls, nbytes = {data: 0, seq: 0}, {data: 0, seq: 0}
+    leaves = tree_leaves(local)
+    for axis in (data, seq):
+        if mesh.size(axis) > 1:
+            calls[axis] = len(leaves) + 1
+            nbytes[axis] = sum(t.nbytes for t in leaves) + 4
+            if cfg.n_experts is not None:
+                calls[axis] += cfg.n_layers
+                nbytes[axis] += cfg.n_layers * cfg.n_experts * 4
+    if sp > 1:
+        kv = 2 * (batch[0] // dp) * cfg.kv_heads * (batch[1] // sp) * cfg.d_head
+        shifts = 2 * (sp - 1) * cfg.n_layers
+        calls[seq] += shifts
+        nbytes[seq] += shifts * kv * cfg.dtype.itemsize
+    return {"calls": calls, "bytes": nbytes}
+
+
 def make_train_step(cfg: TransformerConfig, lr: float = 1e-3, mesh=None):
     """Returns step(params, tokens) -> (new params, loss).
 
@@ -191,7 +277,9 @@ def make_train_step(cfg: TransformerConfig, lr: float = 1e-3, mesh=None):
     step returns this rank's new shards and the whole batch's loss. The
     f32 update is applied shard by shard. Its collectives are
     ``step_collectives``': for L blocks and n_leaves leaves, 4 L over
-    "model" and n_leaves + 1 (+ L for MoE) over "data".
+    "model" and n_leaves + 1 (+ L for MoE) over "data". With
+    cfg.attn_parallel == "seq", a (data, seq) mesh: params whole on every
+    rank, and 2 (sp − 1) L ring shifts over seq besides the sums.
     """
 
     def step(params, tokens):
@@ -215,7 +303,8 @@ def make_train_step_optim(cfg: TransformerConfig, make_optimizer, mesh=None):
     step_fn returns the same dict with its tensors updated.
 
     mesh: as in ``make_train_step``; each rank's gradients are averaged
-    over "data" before its optimizer steps. Each rank's optimizer holds
+    over "data" (summed over data and seq in the seq layout) before its
+    optimizer steps. Each rank's optimizer holds
     only its own shards, so its state mirrors the parameter layout by
     construction: the reference refuses optimizer state that does not
     mirror the params (it would replicate it onto every device), and here
@@ -230,13 +319,11 @@ def make_train_step_optim(cfg: TransformerConfig, make_optimizer, mesh=None):
 
     def step_fn(params, opt_state, tokens):
         opt_state.zero_grad(set_to_none=True)
-        if mesh is not None:
-            tokens = shard_batch(tokens, mesh)
-        loss = loss_fn(params, tokens, cfg, mesh=mesh)
+        loss = loss_fn(params, _rank_rows(tokens, cfg, mesh), cfg, mesh=mesh)
         loss.backward()
-        if mesh is not None:  # .grad has its (contiguous) param's strides
-            mean_over_data([leaf.grad for leaf in tree_leaves(params)], mesh)
-            loss = mean_over_data([loss.detach().clone()], mesh)[0]
+        # .grad has its (contiguous) param's strides.
+        loss = _reduce_shares([leaf.grad for leaf in tree_leaves(params)],
+                              loss.detach().clone(), cfg, mesh)
         opt_state.step()
         return params, opt_state, loss.detach()
 

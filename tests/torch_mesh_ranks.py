@@ -14,10 +14,15 @@ import time
 import torch
 import torch.distributed as dist
 
-from gpumounter_tpu_torch.models.probe import TransformerConfig
+from gpumounter_tpu_torch.models.probe import TransformerConfig, forward
 from gpumounter_tpu_torch.parallel import collectives
-from gpumounter_tpu_torch.parallel.mesh import build_mesh, gather_leaf
+from gpumounter_tpu_torch.parallel.mesh import build_mesh, gather_leaf, shard_qkv, shard_tokens
 from gpumounter_tpu_torch.parallel.moe import make_moe_step, moe_param_specs, shard_moe_params
+from gpumounter_tpu_torch.parallel.pipeline import pipeline_apply, shard_stage_params
+from gpumounter_tpu_torch.parallel.pipeline_train import (make_pipeline_train_step,
+                                                          shard_pipeline_params,
+                                                          to_pipeline_params)
+from gpumounter_tpu_torch.parallel.ring_attention import ring_attention
 from gpumounter_tpu_torch.parallel.tp_attention import tp_flash_attention
 from gpumounter_tpu_torch.parallel.train_step import (gather_params, make_train_step,
                                                       make_train_step_optim, shard_params,
@@ -156,3 +161,90 @@ def hang_on(rank: int) -> int:
     if dist.get_rank() == rank:
         time.sleep(3600)
     return dist.get_rank()
+
+
+def ring_cases(n: int, cases: dict) -> dict:
+    """On a ("seq",) mesh of n ranks: ring_shift's values, gradients and
+    counts, then each ring attention case on this rank's chunks of the
+    whole q, k, v (numpy): its output chunk and the gradients of
+    sum(out · do) in its q, k and v chunks."""
+    torch.set_num_threads(1)
+    mesh = build_mesh((n,), ("seq",), "cpu")
+    c = mesh.coord("seq")
+    a = torch.full((3,), float(c), requires_grad=True)
+    b = torch.full((2, 2), 10.0 * c, dtype=torch.float64, requires_grad=True)
+    mesh.reset_counts()
+    ra, rb = collectives.ring_shift((a * 1, b * 1), mesh, "seq")
+    weight = float(c + 1)
+    ga, gb = torch.autograd.grad((ra * weight).sum() + rb.sum(), [a, b])
+    out = {"shift": {"received": [ra.tolist(), rb.tolist()], "grads": [ga.tolist(), gb.tolist()],
+                     "counts": _counts(mesh), "sent": dict(mesh.sent)}}
+    for name, case in cases.items():
+        q, k, v, do = (shard_qkv(torch.from_numpy(x), mesh) for x in case["qkv_do"])
+        q, k, v = (t.requires_grad_() for t in (q, k, v))
+        mesh.reset_counts()
+        o = ring_attention(q, k, v, mesh, causal=case["causal"], softcap=case["softcap"])
+        grads = torch.autograd.grad((o * do).sum(), [q, k, v])
+        out[name] = {"out": o.detach().numpy(), "grads": [g.numpy() for g in grads],
+                     "counts": _counts(mesh)}
+    return out
+
+
+def seq_train_cases(shape, cases: dict) -> dict:
+    """Every dp x sp case on a (data, seq) mesh of this shape: the losses,
+    the new params (whole on every rank), the collectives of the last step
+    against ``step_collectives``' formula."""
+    from gpumounter_tpu_torch.parallel.train_step import step_collectives
+    torch.set_num_threads(1)
+    mesh = build_mesh(shape, ("data", "seq"), device="cpu")
+    out = {}
+    for name, case in cases.items():
+        cfg = config(case["fields"])
+        local = shard_params(params_from_jax(case["tree"], cfg, "cpu"), mesh, cfg)
+        tokens = torch.from_numpy(case["batches"][0])
+        logits = forward(local, shard_tokens(tokens, mesh, seq=True), cfg, mesh=mesh)
+        result = _run_train(mesh, **case)
+        result["logits"] = logits.detach().numpy()
+        result["counts_formula"] = step_collectives(cfg, mesh, local, tokens.shape)
+        out[name] = result
+    return out
+
+
+def pipeline_cases(cases: dict) -> dict:
+    """On a ("pipe",) mesh of every rank: pipeline_apply on tanh(x @ w)
+    stages (its output, and the gradients of sum(y²) in this rank's stage
+    block and in x), and make_pipeline_train_step's steps (the losses and
+    this rank's new params, its block of the stages)."""
+    torch.set_num_threads(1)
+    mesh = build_mesh((dist.get_world_size(),), ("pipe",), "cpu")
+    out = {}
+    for name, case in cases.items():
+        if case["kind"] == "apply":
+            stages = shard_stage_params({"w": torch.from_numpy(case["w"])}, mesh)
+            stages["w"].requires_grad_()
+            x = torch.from_numpy(case["x"]).requires_grad_()
+            mesh.reset_counts()
+            y = pipeline_apply(stages, x, mesh, lambda p, a: torch.tanh(a @ p["w"]),
+                               n_micro=case["n_micro"], n_virtual=case["n_virtual"])
+            gw, gx = torch.autograd.grad(y.square().sum(), [stages["w"], x])
+            out[name] = {"y": y.detach().numpy(), "gw": gw.numpy(), "gx": gx.numpy(),
+                         "counts": _counts(mesh)}
+            continue
+        cfg = config(case["fields"])
+        n_stages, v = mesh.size("pipe"), case["n_virtual"]
+        params = shard_pipeline_params(to_pipeline_params(
+            params_from_jax(case["tree"], cfg, "cpu"), n_stages, v), mesh)
+        step = make_pipeline_train_step(mesh, cfg, case["n_micro"], lr=case["lr"], n_virtual=v)
+        losses = []
+        for tokens in case["batches"]:
+            params, loss = step(params, torch.from_numpy(tokens))
+            losses.append(loss.item())
+        out[name] = {"losses": losses, "params": _numpy(params)}
+    return out
+
+
+def pipeline_checks_rank() -> dict:
+    """entry.pipeline_checks on a ("pipe",) mesh of every rank."""
+    from gpumounter_tpu_torch.entry import pipeline_checks
+    torch.set_num_threads(1)
+    return pipeline_checks(build_mesh((dist.get_world_size(),), ("pipe",), "cpu"))
