@@ -106,7 +106,24 @@ Phases, each raising on failure (any failure exits non-zero):
    and times: each step a rank, one shift, the ring a layer against one
    ``flash_attention`` over the whole sequence, and the pipelines'
    ``schedule_info`` bubble fraction against each rank's time in the
-   shifts.
+   shifts;
+9. the mesh-growing hot-add and the multichip dryrun, ranks sharing the
+   card over gloo:
+   a. ``entry.grow_check`` at full width, dense then MoE: 2 ranks on a
+      (1, 2) ("data", "model") mesh take 2 AdamW steps, pack params and
+      optimizer state through the placement (every leaf gathered whole),
+      rank 0 saves; 4 new ranks on (2, 2) load, restore their shards (held
+      bit-equal to ``shard_params`` of the packed state, and gathered again
+      bit-equal), load the optimizer's state and take 2 more steps, the
+      first held against one process from the same state; the launches of
+      every rank's steps, and the host-clock parts of the hot-add (pack
+      with its gather, save, the new world's start, load, restore, the
+      optimizer's state, the first step);
+   b. ``entry.dryrun_multichip(8)``, the reference's own shape: its
+      sections on 8 ranks (``tp_checks`` on (1, 8): 2 q heads and 1 kv head
+      a rank; ``seq_checks`` on (2, 4); ``pipeline_checks`` on 4 stages),
+      then the stretch, 16 ranks on the H100 plan's (2, 8) mesh; each
+      section's numbers against its limits and its launches per rank.
 
 The last lines are a JSON object per kernel (``{"kernels": [...]}``) and
 ``{"ok": true, "device": {...}}``, and the exit code is 0. A failing check
@@ -142,7 +159,11 @@ except ModuleNotFoundError as err:
     print("chip_smoke: the package gpumounter_tpu_torch is not beside this script; "
           "run it from the root of the repository", file=sys.stderr)
     sys.exit(2)
-from gpumounter_tpu_torch.entry import (MOE_ROUTE_GAP, _check_equal_over, _masked_err,
+from gpumounter_tpu_torch.entry import (MOE_ROUTE_GAP, ONE_PROCESS_LOSS_ATOL,
+                                        RING_TOL, SHARDED_LOSS_ATOL, SHARDED_PARAM_OF_MAX,
+                                        TRAIN_GRAD_ATOL, _check_equal_over, _masked_err,
+                                        against_one_process, check_config, dryrun_multichip,
+                                        grow_check,
                                         kernel_launches, moe_blocks_vs_plain, moe_check,
                                         reset_kernel_launches, route_flips,
                                         sharded_step_check, tp_checks, train_check)
@@ -173,7 +194,7 @@ from gpumounter_tpu_torch.parallel.train_step import (gather_params, loss_and_gr
                                                       make_train_step, shard_params,
                                                       make_train_step_optim,
                                                       sgd_update, step_collectives,
-                                                      tree_leaves, tree_map)
+                                                      tree_leaves, tree_map, tree_names)
 from gpumounter_tpu_torch.ops.flash_decode import (flash_decode_kernel,
                                                    flash_decode_plain)
 from gpumounter_tpu_torch.torchside import (HotResumable, handoff, load_optimizer_state,
@@ -243,26 +264,19 @@ MOE_SERVE_NLL_ATOL = 0.05
 # Phase 7: 4 ranks on a 2 x 2 ("data", "model") mesh sharing the card over
 # gloo; TIMED sharded steps a config timed on each rank, after the checks.
 SHARDED = dict(SHAPE=(2, 2), BACKEND="gloo", SEED=200, TIMED=3)
-# The sharded step against the one-process step on the same card, weights
-# and tokens. Each new weight is p − lr·g rounded to bf16. g differs by a
-# few bf16 ulps (g sums wo's and w2's bf16 partial products where one
-# matmul rounds once, and the data shards' bf16 grads are summed in bf16),
-# lr·g is far below an ulp of p, but the rounding can land on p's
-# neighbour: each leaf within 1 bf16 ulp of its max |value| (2^-7 of it).
-SHARDED_PARAM_OF_MAX = 2**-7
-# The loss, dense: the mean of 4 x 2047 NLLs of logits about an ulp apart,
-# NLL_ATOL as for the forward. MoE: a routing flip between the two runs
-# moves its position's NLL by about a nat (MOE_SERVE_NLL_ATOL), the mean
-# over 8188 positions by about 1.2e-4; 0.01 allows 80 flips, 1% of a
-# layer's tokens (0.1-0.3% flipped between two attentions an ulp apart on
-# an H100; see entry.MOE_ROUTE_GAP).
-SHARDED_LOSS_ATOL = {"dense": NLL_ATOL, "MoE": 0.01}
 # Phase 8: 4 ranks sharing the card over gloo, on (data, seq) meshes of
 # 2 x 2 and 1 x 4 and a ("pipe",) mesh of 4; the pipelines run N_MICRO
 # microbatches of the TRAIN batch (one row each), the interleaved one
 # VIRTUAL chunks a rank; TIMED timed runs of each step a rank.
 SEQ_PIPE = dict(WORLD=4, SEQ_SHAPES=((2, 2), (1, 4)), BACKEND="gloo", SEED=300, TIMED=3,
                 N_MICRO=4, VIRTUAL=2)
+# Phase 9: the hot-add that grows a job's mesh at full width, from OLD to
+# NEW ("data", "model") ranks sharing the card over gloo (the data axis
+# grows as well as model), STEPS AdamW steps in each world; then the
+# reference's dryrun at the shape its __main__ runs (__graft_entry__.py:347), its
+# 16-rank stretch included. TIMEOUT_S: each spawn's own limit.
+GROW = dict(OLD=(1, 2), NEW=(2, 2), STEPS=(2, 2), BACKEND="gloo", TIMEOUT_S=300.0)
+DRYRUN = dict(N=8, BACKEND="gloo", TIMEOUT_S=300.0)
 
 
 def _card(query: str = "name,power.limit") -> str:
@@ -695,17 +709,6 @@ def phase_bwd_vs_plain(gen) -> tuple[float, float]:
     return full
 
 
-def _leaf_names(tree, prefix: str = "") -> list[str]:
-    """Names of tree_leaves(tree), in its order: e.g. "embed",
-    "blocks[0].wqkv", "stages.w1"."""
-    if isinstance(tree, list):
-        return [n for i, item in enumerate(tree) for n in _leaf_names(item, f"{prefix}[{i}]")]
-    if isinstance(tree, dict):
-        keys = sorted(tree, key=lambda k: (isinstance(tree[k], (dict, list)), k))
-        return [n for k in keys for n in _leaf_names(tree[k], f"{prefix}.{k}" if prefix else k)]
-    return [prefix]
-
-
 def phase_train(cfg, params, batches) -> tuple[int, int, int]:
     """SGD steps through make_train_step, one per batch, with the counts
     set to 0 just before and read just after; then one batch's grads
@@ -741,7 +744,7 @@ def phase_train(cfg, params, batches) -> tuple[int, int, int]:
     _, grads = loss_and_grads(params, batches[0], cfg)
     _, plain = loss_and_grads(params, batches[0], cfg, attention=attention_plain)
     bad, worst = [], (-1.0, "")
-    for name, g, w in zip(_leaf_names(params), tree_leaves(grads), tree_leaves(plain)):
+    for name, g, w in zip(tree_names(params), tree_leaves(grads), tree_leaves(plain)):
         err = (g.float() - w.float()).abs().max().item()
         peak = w.float().abs().max().item()
         share = err / peak if peak else math.inf
@@ -1322,7 +1325,7 @@ def phase_moe_train(cfg, params, batches) -> tuple[int, int, int]:
     _, grads = loss_and_grads(params, tokens, cfg)
     _, plain = loss_and_grads(params, tokens, cfg, attention=attention_plain)
     worst = max(((g.float() - w.float()).abs().max().item() / w.float().abs().max().item(), name)
-                for name, g, w in zip(_leaf_names(params), tree_leaves(grads), tree_leaves(plain)))
+                for name, g, w in zip(tree_names(params), tree_leaves(grads), tree_leaves(plain)))
     print(f"MoE training: whole-model grads through the kernels vs plain attention, worst "
           f"leaf {worst[1]} at {worst[0]:.3g} of its max |grad| ({GRAD_RTOL_OF_MAX} held "
           f"block by block below: routing flips)", flush=True)
@@ -1765,24 +1768,10 @@ def _one_process_step(cfg, params, tokens, device) -> tuple:
 
 def _against_one_process(what, mesh, one_process, new_full, loss, loss_atol) -> dict:
     """Rank 0: new_full (whole params) and loss against the one-process
-    step's (new params, loss), each leaf within SHARDED_PARAM_OF_MAX of its
-    max |value|."""
+    step's (new params, loss) (``entry.against_one_process``)."""
     if mesh.rank != 0:
         return {}
-    want, want_loss = one_process
-    worst, bad = (0.0, ""), []
-    for leaf, g, w in zip(_leaf_names(want), tree_leaves(new_full), tree_leaves(want),
-                          strict=True):
-        share = (g.float() - w.float()).abs().max().item() / w.float().abs().max().item()
-        worst = max(worst, (share, leaf))
-        if not share <= SHARDED_PARAM_OF_MAX:
-            bad.append(leaf)
-    loss_err = abs(loss - want_loss)
-    if bad or not loss_err <= loss_atol:
-        raise RuntimeError(f"{what} vs the one-process step: params {bad} beyond "
-                           f"{SHARDED_PARAM_OF_MAX} of their max |value| (worst {worst}), loss "
-                           f"{loss} vs {want_loss} (limit {loss_atol})")
-    return {"loss_one_process": want_loss, "loss_err": loss_err, "worst_param": worst}
+    return against_one_process(what, new_full, loss, *one_process, loss_atol)
 
 
 def _timed_ms(fn, runs: int) -> list[float]:
@@ -1805,7 +1794,7 @@ def _sharded_vs_one_process(name, cfg, mesh, params, tokens, new_local, loss) ->
     gathered = gather_params(new_local, mesh, cfg)
     one = _one_process_step(cfg, params, tokens, mesh.device) if mesh.rank == 0 else None
     return _against_one_process(f"sharded {name} step", mesh, one, gathered, loss,
-                                SHARDED_LOSS_ATOL[name])
+                                ONE_PROCESS_LOSS_ATOL[name])
 
 
 def _sharded_grads_vs_plain(cfg, mesh, local, tokens) -> tuple[float, str]:
@@ -1824,7 +1813,7 @@ def _sharded_grads_vs_plain(cfg, mesh, local, tokens) -> tuple[float, str]:
     if heads != [local_heads(cfg, mesh)] * cfg.n_layers:
         raise RuntimeError(f"rank {mesh.rank}: attention ran on (q, kv) heads {heads}")
     worst = (0.0, "")
-    for leaf, g, w in zip(_leaf_names(local), tree_leaves(grads), tree_leaves(plain)):
+    for leaf, g, w in zip(tree_names(local), tree_leaves(grads), tree_leaves(plain)):
         share = (g.float() - w.float()).abs().max().item() / w.float().abs().max().item()
         if not (torch.isfinite(g).all() and share <= GRAD_RTOL_OF_MAX):
             raise RuntimeError(f"rank {mesh.rank}: sharded grads of {leaf} differ from the "
@@ -1916,7 +1905,7 @@ def phase_sharded(card: str) -> dict:
             if "loss_one_process" in rec:
                 line += (f"; the one-process step on the card: loss "
                          f"{rec['loss_one_process']:.4f} (|diff| {rec['loss_err']:.3g}, limit "
-                         f"{SHARDED_LOSS_ATOL[name]}), gathered params worst "
+                         f"{ONE_PROCESS_LOSS_ATOL[name]}), gathered params worst "
                          f"{rec['worst_param'][1]} at {rec['worst_param'][0]:.3g} of its max "
                          f"|value| (limit {SHARDED_PARAM_OF_MAX:.3g})")
             if "grads_vs_plain" in rec:
@@ -2044,7 +2033,7 @@ def _seq_steps(mesh, shape) -> dict:
                                  tokens, mesh.device) if mesh.rank == 0 else None)
         record = {"loss": loss.item(), "launches": launches, "collectives": counts,
                   **_against_one_process(f"{shape} {name} seq step", mesh, one, new,
-                                         loss.item(), SHARDED_LOSS_ATOL[name])}
+                                         loss.item(), ONE_PROCESS_LOSS_ATOL[name])}
         del new, one
         record["step_ms"] = _timed_ms(lambda: step(local, tokens), SEQ_PIPE["TIMED"])
         out[name] = record
@@ -2182,7 +2171,7 @@ def phase_seq_pipeline(card: str) -> dict:
                         f"{rec['collectives']}")
                 if "loss_one_process" in rec:
                     line += (f"; the one-process step: loss {rec['loss_one_process']:.4f} (|diff| "
-                             f"{rec['loss_err']:.3g}, limit {SHARDED_LOSS_ATOL[name]}), params "
+                             f"{rec['loss_err']:.3g}, limit {ONE_PROCESS_LOSS_ATOL[name]}), params "
                              f"worst {rec['worst_param'][1]} at {rec['worst_param'][0]:.3g} of "
                              f"its max |value| (limit {SHARDED_PARAM_OF_MAX:.3g})")
                 print(line, flush=True)
@@ -2217,6 +2206,133 @@ def phase_seq_pipeline(card: str) -> dict:
     return total
 
 
+# --- phase 9: the mesh-growing hot-add and the multichip dryrun ---
+
+
+def _add_launches(total: dict, launches: dict) -> None:
+    for k in total:
+        total[k] += launches[k]
+
+
+def _expect_launches(what: str, got: dict, n: int) -> None:
+    want = dict.fromkeys(("flash_fwd", "dq", "dkv"), n)
+    if got != want:
+        raise RuntimeError(f"{what}: launches {got}, expected {want}")
+
+
+def phase_grow(card: str) -> dict:
+    """Phase 9a: ``entry.grow_check`` at full width, dense then MoE, from
+    GROW["OLD"] to GROW["NEW"] ranks on the card: its checks (restored
+    shards bit-equal, gathered again bit-equal, the first step against one
+    process), the launches of every rank's steps (n_layers a step), and the
+    host-clock parts of the hot-add. Returns the training kernels'
+    launches on its main path (every rank's steps in both worlds)."""
+    total = dict.fromkeys(("flash_fwd", "dq", "dkv"), 0)
+    old, new = GROW["OLD"], GROW["NEW"]
+    n_old, n_new = math.prod(old), math.prod(new)
+    label = (f"ranks sharing one H100 over {GROW['BACKEND']}, not a multi-GPU figure; "
+             f"{old} -> {new} (data, model) [{card}]")
+    for name, n_experts in (("dense", None), ("MoE", MOE_EXPERTS)):
+        cfg = full_width_config(n_experts)
+        torch.cuda.empty_cache()
+        root = tempfile.mkdtemp()
+        try:
+            t0 = time.perf_counter()
+            result = grow_check(old, new, backend=GROW["BACKEND"], path=os.path.join(root, "ckpt"),
+                                cfg=cfg, steps=GROW["STEPS"], batch=(TRAIN["B"], TRAIN["L"]),
+                                timeout_s=GROW["TIMEOUT_S"])
+            seconds = time.perf_counter() - t0
+            fs = _filesystem(root)
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+        for world, n_steps in (("old", GROW["STEPS"][0]), ("new", GROW["STEPS"][1])):
+            for r in result[world]:
+                _expect_launches(f"grow {name}, {world} world, rank {r['rank']}", r["launches"],
+                                 cfg.n_layers * n_steps)
+                _add_launches(total, r["launches"])
+        a, b = result["old"][0], result["new"][0]
+        one = b["one_process"]
+        print(f"grow {name}: {n_old} -> {n_new} ranks, full width, AdamW; losses before the "
+              f"hot-add {', '.join(f'{x:.4f}' for x in a['losses'])}, after "
+              f"{', '.join(f'{x:.4f}' for x in b['losses'])} (every rank's equal); restored "
+              f"params and both moments bit-equal to shard_params of the packed state, gathered "
+              f"again bit-equal; the first step against one process from the same state: loss "
+              f"{one['loss_one_process']:.4f} (|diff| {one['loss_err']:.3g}, limit "
+              f"{ONE_PROCESS_LOSS_ATOL[name]}), its update with the step's gradients worst "
+              f"{one['worst_param'][1]} at {one['worst_param'][0]:.3g} of its max |value| "
+              f"(limit {SHARDED_PARAM_OF_MAX:.3g}); launches a rank {a['launches']} then "
+              f"{b['launches']}; {seconds:.1f} s with both worlds' start", flush=True)
+        times = {"pack (with its gather), rank 0": a["times"]["pack"],
+                 f"save, rank 0 ({fs})": a["times"]["save"]}
+        for r in result["new"]:
+            for part in ("load", "restore", "optimizer"):
+                times[f"{part}, rank {r['rank']}"] = r["times"][part]
+        parts = "; ".join(f"{k} {_runs(v)}" for k, v in times.items())
+        firsts = ", ".join(f"{r['times']['first_step']:.1f}" for r in result["new"])
+        print(f"time grow {name}: {parts}; the new world's start (spawn to its last rank's "
+              f"entry) {result['start_s'] * 1e3:.0f} ms; the first step, ranks 0-{n_new - 1}: "
+              f"{firsts} ms [{label}]", flush=True)
+    print(f"grow: launches on its main path (every rank's steps in both worlds): {total}",
+          flush=True)
+    return total
+
+
+def phase_dryrun(card: str) -> dict:
+    """Phase 9b: ``entry.dryrun_multichip(DRYRUN["N"])`` on the card, the
+    reference's sections on N ranks, then the 16-rank stretch over the H100
+    plan; each section's loss and errors against its limit, the launches
+    of each kernel per rank (each section's count checked), and the time
+    of each spawn with the ranks' start. Returns the launches on its main
+    path (every rank's sharded steps, as phases 7-8 count theirs)."""
+    torch.cuda.empty_cache()
+    n = DRYRUN["N"]
+    result = dryrun_multichip(n, backend=DRYRUN["BACKEND"], timeout_s=DRYRUN["TIMEOUT_S"])
+    total = dict.fromkeys(("flash_fwd", "dq", "dkv"), 0)
+    n_layers = check_config().n_layers
+    dp, sp = result["seq_shape"]
+    secs = result["seconds"]
+    print(f"dryrun: {n} ranks, then the stretch's {result['plan'].total_gpus} "
+          f"({result['plan'].mesh_shape} (data, model): {result['plan'].num_hosts} hosts of "
+          f"{result['plan'].gpus_per_host} {result['plan'].accel_type}), all on one card over "
+          f"{DRYRUN['BACKEND']}; sections {secs['sections']:.1f} s, stretch {secs['stretch']:.1f} s, "
+          f"each with its ranks' start [{card}]", flush=True)
+    for r in result["sections"]:
+        tp, seq, pipe = r["tp"], r["seq"], r["pipeline"]
+        _expect_launches(f"dryrun tp_checks rank {r['rank']}", tp["launches"], n_layers)
+        _expect_launches(f"dryrun MoE flagship rank {r['rank']}", tp["moe_launches"], n_layers)
+        _expect_launches(f"dryrun seq_checks rank {r['rank']}", seq["launches"],
+                         (r["rank"] % sp + 1) * n_layers)
+        line = (f"dryrun rank {r['rank']}: tp_checks loss {tp['loss']:.4f}, grads through the "
+                f"kernels vs the plain attention max abs err {tp['max_grad_err']:.3g} (limit "
+                f"{TRAIN_GRAD_ATOL}), (q, kv) heads {tp['heads'][0]}, MoE flagship loss "
+                f"{tp['moe_loss']:.4f}, make_moe_step losses "
+                f"{', '.join(f'{x:.4f}' for x in tp['moe_step_losses'])}, launches "
+                f"{tp['launches']} + {tp['moe_launches']}; seq_checks on ({dp}, {sp}) loss "
+                f"{seq['loss']:.4f} vs unsharded |diff| {seq['loss_err']:.3g} (limit "
+                f"{SHARDED_LOSS_ATOL}), ring {seq['ring_err']:.3g} and ring-flash "
+                f"{seq['ring_flash_err']:.3g} (limit {RING_TOL['atol']}), launches {seq['launches']}")
+        for k in total:
+            total[k] += tp["launches"][k] + tp["moe_launches"][k] + seq["launches"][k]
+        if pipe is not None:
+            _expect_launches(f"dryrun pipeline_checks rank {r['rank']}", pipe["launches"],
+                             pipe["n_micro"] * 2)
+            line += (f"; pipeline_checks ({result['pipe_stages']} stages, n_micro "
+                     f"{pipe['n_micro']}) loss {pipe['loss']:.4f} vs unsharded |diff| "
+                     f"{pipe['loss_err']:.3g} (limit {SHARDED_LOSS_ATOL}), GPipe err "
+                     f"{pipe['gpipe_err']:.3g} (limit 1e-6), launches {pipe['launches']}")
+            _add_launches(total, pipe["launches"])
+        print(line, flush=True)
+    for r in result["stretch"]:
+        _expect_launches(f"dryrun stretch rank {r['rank']}", r["launches"], n_layers)
+        _add_launches(total, r["launches"])
+        print(f"dryrun stretch rank {r['rank']} {r['coords']}: loss {r['loss']:.4f} vs unsharded "
+              f"{r['loss_unsharded']:.4f} (|diff| {r['loss_err']:.3g}, limit "
+              f"{SHARDED_LOSS_ATOL}), launches {r['launches']}, collectives "
+              f"{r['collectives']['calls']}", flush=True)
+    print(f"dryrun: launches on its main path (every rank's sharded steps): {total}", flush=True)
+    return total
+
+
 def phase_forward_timing(cfg, params, tokens, card, what="forward") -> None:
     fwd_ms = _time_ms(lambda: forward(params, tokens, cfg), 5, warmup=1)
     tok_s = tokens.numel() / (fwd_ms / 1e3)
@@ -2232,8 +2348,9 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     stages = ["1 (build)"]
+    t0 = time.perf_counter()
     try:
-        _phases(stages)
+        _phases(stages, t0)
     except Exception as err:
         message = f"chip_smoke: FAILED in phase {stages[-1]}: {type(err).__name__}: {err}"
         print(message, flush=True)
@@ -2242,9 +2359,10 @@ def main() -> int:
     return 0
 
 
-def _phases(stage: list) -> None:
+def _phases(stage: list, t0: float) -> None:
     """Every phase in order; the name of each is appended to `stage` before
-    it runs, so that a failure names it."""
+    it runs, so that a failure names it. t0: the script's start (host
+    clock), for the whole run's time."""
     torch.backends.cuda.matmul.allow_tf32 = False
     card = _card()
     phase_build(card)
@@ -2297,6 +2415,11 @@ def _phases(stage: list) -> None:
     sharded_launches = phase_sharded(card)
     stage.append("8 (sequence and pipeline parallelism, 4 ranks sharing the card)")
     seq_pipe_launches = phase_seq_pipeline(card)
+    stage.append("9 (the mesh-growing hot-add and the multichip dryrun, ranks sharing the card)")
+    grow_launches = phase_grow(card)
+    dryrun_launches = phase_dryrun(card)
+    sharded = {k: sharded_launches[k] + seq_pipe_launches[k] + grow_launches[k]
+               + dryrun_launches[k] for k in sharded_launches}
 
     stage.append("the kernels line")
     print(f"launches on the main paths: flash_fwd {launches} (forward) + "
@@ -2307,26 +2430,26 @@ def _phases(stage: list) -> None:
           f"{moe_dkv}; moe_ffn vs moe_ffn_plain bf16 max abs err {moe_ffn_err:.3g}; the "
           f"handoff phase (its children and the uninterrupted runs): {handoff_launches}; "
           f"the sharded phase (every rank's sharded steps): {sharded_launches}; the "
-          f"seq/pipeline phase (every rank's dp x sp and pipeline steps): {seq_pipe_launches}",
-          flush=True)
+          f"seq/pipeline phase (every rank's dp x sp and pipeline steps): {seq_pipe_launches}; "
+          f"the grow phase (every rank's steps in both worlds): {grow_launches}; the dryrun "
+          f"(every rank's sharded steps): {dryrun_launches}", flush=True)
+    print(f"chip_smoke: phases 1-9 took {time.perf_counter() - t0:.1f} s, the kernels' build "
+          f"included [{card}]", flush=True)
     bwd_source = "gpumounter_tpu_torch/ops/csrc/flash_bwd.cu"
     print(json.dumps({"kernels": [{
         "name": "flash_fwd", "route": "cuda",
         "source": "gpumounter_tpu_torch/ops/csrc/flash_fwd.cu",
         "replaces": "gpumounter_tpu/ops/flash_attention.py:84",
         "launches": (launches + prefill_launches + train_fwd + moe_launches + moe_prefill
-                     + moe_fwd + handoff_launches["flash_fwd"]
-                     + sharded_launches["flash_fwd"] + seq_pipe_launches["flash_fwd"]),
+                     + moe_fwd + handoff_launches["flash_fwd"] + sharded["flash_fwd"]),
         "max_abs_err": max_abs_err, **times}, {
         "name": "flash_bwd_dq", "route": "cuda", "source": bwd_source,
         "replaces": "gpumounter_tpu/ops/flash_attention.py:182",
-        "launches": (train_dq + moe_dq + handoff_launches["dq"] + sharded_launches["dq"]
-                     + seq_pipe_launches["dq"]),
+        "launches": train_dq + moe_dq + handoff_launches["dq"] + sharded["dq"],
         "max_abs_err": bwd_errs[0], **bwd_times["dq"]}, {
         "name": "flash_bwd_dkv", "route": "cuda", "source": bwd_source,
         "replaces": "gpumounter_tpu/ops/flash_attention.py:236",
-        "launches": (train_dkv + moe_dkv + handoff_launches["dkv"] + sharded_launches["dkv"]
-                     + seq_pipe_launches["dkv"]),
+        "launches": train_dkv + moe_dkv + handoff_launches["dkv"] + sharded["dkv"],
         "max_abs_err": bwd_errs[1], **bwd_times["dkv"]}, {
         "name": "flash_decode", "route": "cuda",
         "source": "gpumounter_tpu_torch/ops/csrc/flash_decode.cu",

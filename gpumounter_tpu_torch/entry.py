@@ -2,15 +2,19 @@
 it, and the training checks of the reference's dryrun, dense
 (``train_check``), MoE (``moe_check``) and sharded over a mesh of ranks:
 dp x tp and expert parallelism (``tp_train_check``), dp x sp with ring
-attention and the pipelines (``seq_pipeline_check``)."""
+attention and the pipelines (``seq_pipeline_check``), all of them with the
+stretch over an H100 topology plan (``dryrun_multichip``); and the
+hot-add that grows a job's mesh (``grow_check``)."""
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from gpumounter_tpu_torch._device import resolve_device
 from gpumounter_tpu_torch.models.probe import (TransformerConfig, _attend, _block, _embed,
@@ -30,9 +34,14 @@ from gpumounter_tpu_torch.parallel.pipeline_train import (make_pipeline_train_st
                                                           shard_pipeline_params,
                                                           to_pipeline_params)
 from gpumounter_tpu_torch.parallel.ring_attention import reference_attention, ring_attention
-from gpumounter_tpu_torch.parallel.train_step import (loss_and_grads, make_train_step,
+from gpumounter_tpu_torch.parallel.train_step import (gather_params, loss_and_grads,
+                                                      make_train_step, make_train_step_optim,
                                                       param_specs, shard_params,
-                                                      step_collectives, tree_leaves, tree_map)
+                                                      step_collectives, tree_leaves, tree_map,
+                                                      tree_names)
+from gpumounter_tpu_torch.topology import lookup
+from gpumounter_tpu_torch.torchside.resume import (HotResumable, load_optimizer_state,
+                                                   optimizer_state_specs, optimizer_state_tree)
 
 TRAIN_GRAD_ATOL = 5e-3  # the reference's kernel-vs-xla grad limit
 # The dryrun's limits: a sharded first-step loss against the unsharded loss
@@ -48,6 +57,33 @@ RING_TOL = dict(rtol=5e-2, atol=5e-2)
 # with gaps below 0.005); a token whose top-1/top-2 gap exceeds this δ must
 # route the same in both runs.
 MOE_ROUTE_GAP = 0.05
+# A sharded SGD step against the one-process step on the same card, weights
+# and tokens. Each new weight is p − lr·g rounded to bf16. g differs by a
+# few bf16 ulps (g sums wo's and w2's bf16 partial products where one
+# matmul rounds once, and the data shards' bf16 grads are summed in bf16),
+# lr·g is far below an ulp of p, but the rounding can land on p's
+# neighbour: each leaf within 1 bf16 ulp of its max |value| (2^-7 of it).
+# An AdamW update is about lr whatever g, so ``grow_restore`` holds one to
+# this limit only with the same gradients on both sides.
+SHARDED_PARAM_OF_MAX = 2**-7
+# The loss, dense: the mean of 4 x 2047 NLLs of logits about an ulp apart
+# (the forward's limit, 1e-3). MoE: a routing flip between the two runs
+# moves its position's NLL by about a nat, the mean over 8188 positions by
+# about 1.2e-4; 0.01 allows 80 flips, 1% of a layer's tokens (0.1-0.3%
+# flipped between two attentions an ulp apart on an H100; MOE_ROUTE_GAP).
+ONE_PROCESS_LOSS_ATOL = {"dense": 1e-3, "MoE": 0.01}
+# The grow check's optimizer: the reference's optax.adamw(1e-3,
+# weight_decay=1e-4); and the seed of its weights and token batches.
+GROW_ADAMW = dict(lr=1e-3, weight_decay=1e-4)
+GROW_SEED = 400
+# Host-clock parts of a hot-add that are cheap to repeat, each timed so
+# often (the median is reported).
+GROW_REPEATS = 3
+# The dryrun's token batch: (8, 16), as the reference's.
+DRYRUN_TOKENS = (8, 16)
+# The dryrun's stretch: the reference's v5litepod-16 run over 16 devices,
+# laid out by the H100 plan (2 hosts of 8).
+STRETCH = dict(ACCEL="nvidia-h100-80gb", GPUS=16, SEED=2)
 
 
 def entry(device="cuda"):
@@ -75,9 +111,12 @@ def check_config(**changes) -> TransformerConfig:
     return dataclasses.replace(cfg, **changes)
 
 
-def check_tokens(cfg) -> torch.Tensor:
-    """The checks' batch: tokens (8, 16) from numpy seed 0, on the CPU."""
-    return torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (8, 16)))
+def check_tokens(cfg, split: int = 1) -> torch.Tensor:
+    """The checks' batch: tokens (8, 16) from numpy seed 0, on the CPU; its
+    first split·⌊8/split⌋ rows, so that they split `split` ways (all of
+    them where split divides 8)."""
+    tokens = np.random.default_rng(0).integers(0, cfg.vocab, DRYRUN_TOKENS)
+    return torch.from_numpy(tokens[:split * (DRYRUN_TOKENS[0] // split)])
 
 
 def train_check(device="cuda") -> dict:
@@ -250,6 +289,11 @@ def moe_check(device="cuda") -> dict:
 # --- sharded: the dryrun's dp x tp and expert-parallel sections ---
 
 
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
 def kernel_launches() -> dict:
     """The training kernels' launch counts in this process."""
     bwd = flash_attention_bwd_kernel
@@ -289,9 +333,7 @@ def local_shapes(cfg: TransformerConfig, mesh) -> list[tuple]:
 def _check_equal_over(local: dict, mesh, axis: str, keys=None) -> None:
     """Raises unless each leaf named in `keys` (every leaf by default) is
     bit-equal on every rank along `axis`."""
-    names = [k for k in sorted(local) if k != "blocks"] + [
-        f"blocks[{i}].{k}" for i, blk in enumerate(local["blocks"]) for k in sorted(blk)]
-    for name, leaf in zip(names, tree_leaves(local), strict=True):
+    for name, leaf in zip(tree_names(local), tree_leaves(local), strict=True):
         if keys is None or name.rsplit(".", 1)[-1] in keys:
             for r, other in enumerate(all_gather(leaf, mesh, axis)):
                 if not torch.equal(other, leaf):
@@ -320,8 +362,7 @@ def sharded_step_check(cfg: TransformerConfig, mesh, params: dict, tokens: torch
     mesh.reset_counts()
     reset_kernel_launches()
     new, loss = step(local, tokens)
-    if mesh.device.type == "cuda":
-        torch.cuda.synchronize(mesh.device)
+    _sync(mesh.device)
     counts = {"calls": dict(mesh.calls), "bytes": dict(mesh.bytes)}
     launches = kernel_launches()
     if not math.isfinite(loss.item()):
@@ -356,10 +397,13 @@ def tp_checks(mesh) -> dict:
        (2 experts a rank of "expert", 2 ranks on it where the world is
        even), 3 steps of d_model 32, d_ff 64 on bf16 ones (8, 32).
 
+    Each batch is its first rows that split over "data" (all 8 unless the
+    data axis does not divide 8).
+
     Returns {"loss", "max_grad_err", "heads", "launches", "collectives",
     "moe_loss", "moe_launches", "moe_collectives", "moe_step_losses"}."""
     cfg = check_config()
-    tokens = check_tokens(cfg)
+    tokens = check_tokens(cfg, mesh.size("data"))
     params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     dense = sharded_step_check(cfg, mesh, params, tokens)
 
@@ -390,7 +434,8 @@ def tp_checks(mesh) -> dict:
     step = make_moe_step(2 * ep, 32, 64, mesh=expert_mesh)
     moe_params = shard_moe_params(init_moe_params(
         torch.Generator().manual_seed(1), 2 * ep, 32, 64, torch.bfloat16, "cpu"), expert_mesh)
-    xs = torch.ones((8, 32), dtype=torch.bfloat16)
+    n_data = world // ep
+    xs = torch.ones((n_data * (DRYRUN_TOKENS[0] // n_data), 32), dtype=torch.bfloat16)
     moe_losses = []
     for _ in range(3):
         moe_params, moe_loss = step(moe_params, xs, xs)
@@ -476,6 +521,8 @@ def seq_checks(mesh) -> dict:
        attn_parallel "seq" (seed 4), its loss against the unsharded loss
        of the same weights and tokens within 1e-2; on a CUDA rank at seq
        coordinate c each training kernel launches (c + 1)·n_layers times.
+       The batch is the check batch's first rows that split over data, all
+       8 unless the data axis does not divide 8 (``seq_mesh_shape``).
     2. Ring attention over a ("seq",) mesh of every rank: q, k, v (2, 2,
        8n, D) against reference_attention within 5e-2, D = 8 (32 on the
        card).
@@ -487,13 +534,12 @@ def seq_checks(mesh) -> dict:
     "ring_flash_err"}."""
     device = mesh.device
     cfg = _dryrun_config(device, window=None, attn_parallel="seq")
-    tokens = check_tokens(cfg)
+    tokens = check_tokens(cfg, mesh.size(mesh.axis_names[0]))
     params = init_params(cfg, torch.Generator().manual_seed(4), "cpu")
     local = shard_params(params, mesh, cfg)
     reset_kernel_launches()
     _, loss = make_train_step(cfg, mesh=mesh)(local, tokens)
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+    _sync(device)
     launches = kernel_launches()
     if not math.isfinite(loss.item()):
         raise RuntimeError(f"rank {mesh.rank}: non-finite seq-parallel loss {loss.item()}")
@@ -556,7 +602,7 @@ def pipeline_checks(mesh) -> dict:
     if not bubble["interleaved"] < bubble["gpipe"]:
         raise RuntimeError(f"interleaving does not shrink the bubble: {bubble}")
     cfg = _dryrun_config(device, n_layers=n_stages * n_virtual)
-    tokens = check_tokens(cfg)[:n_micro * (8 // n_micro)]
+    tokens = check_tokens(cfg, n_micro)
     params = init_params(cfg, torch.Generator().manual_seed(5), "cpu")
     local = shard_pipeline_params(to_pipeline_params(params, n_stages, n_virtual), mesh,
                                   mesh.axis_names[0])
@@ -564,8 +610,7 @@ def pipeline_checks(mesh) -> dict:
                                     n_virtual=n_virtual)
     reset_kernel_launches()
     _, loss = step(local, tokens)
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+    _sync(device)
     launches = kernel_launches()
     if not math.isfinite(loss.item()):
         raise RuntimeError(f"rank {mesh.rank}: non-finite pipeline loss {loss.item()}")
@@ -604,3 +649,381 @@ def seq_pipeline_check(n_data: int, n_seq: int, device="cuda", *, backend: str,
         if len(losses) != 1:
             raise RuntimeError(f"the ranks' {part} losses differ: {sorted(losses)}")
     return results
+
+
+# --- the hot-add that grows a job's mesh ---
+
+
+def _timed(fn, device: torch.device) -> tuple:
+    """(fn(), host ms from the call to its end on `device`)."""
+    _sync(device)
+    t0 = time.perf_counter()
+    value = fn()
+    _sync(device)
+    return value, (time.perf_counter() - t0) * 1e3
+
+
+def _adamw(cfg: TransformerConfig, mesh=None):
+    return make_train_step_optim(cfg, lambda ps: torch.optim.AdamW(ps, **GROW_ADAMW), mesh)
+
+
+def _grow_specs(cfg: TransformerConfig) -> tuple:
+    """The spec trees of a packed (params, optimizer state) pair."""
+    specs = param_specs(cfg)
+    return specs, optimizer_state_specs(specs)
+
+
+def _moments(opt_tree: dict, params: dict, key: str) -> dict:
+    """The optimizer state's `key` ("exp_avg" or "exp_avg_sq") of every
+    parameter, as a tree of the params' layout."""
+    state = iter([opt_tree["state"][str(i)][key] for i in range(len(tree_leaves(params)))])
+    return tree_map(lambda _: next(state), params)
+
+
+def _bit_equal(what: str, got: dict, want: dict, rank: int) -> None:
+    for name, g, w in zip(tree_names(want), tree_leaves(got), tree_leaves(want), strict=True):
+        if g.dtype != w.dtype or g.shape != w.shape or not torch.equal(g.to(w.device), w):
+            raise RuntimeError(f"rank {rank}: {what} {name} is not bit-equal to what it should "
+                               f"be ({g.dtype} {tuple(g.shape)} against {w.dtype} "
+                               f"{tuple(w.shape)})")
+
+
+def against_one_process(what: str, new_full: dict, loss: float, want: dict, want_loss: float,
+                        loss_atol: float) -> dict:
+    """A sharded step's gathered new params and loss against the
+    one-process step's (want, want_loss) from the same state: each leaf
+    within SHARDED_PARAM_OF_MAX of its max |value|, the loss within
+    loss_atol. Returns {"loss_one_process", "loss_err", "worst_param":
+    (share of max, leaf)}; raises RuntimeError beyond a limit."""
+    worst, bad = (0.0, ""), []
+    for leaf, g, w in zip(tree_names(want), tree_leaves(new_full), tree_leaves(want),
+                          strict=True):
+        share = (g.float() - w.float()).abs().max().item() / w.float().abs().max().item()
+        worst = max(worst, (share, leaf))
+        if not share <= SHARDED_PARAM_OF_MAX:
+            bad.append(leaf)
+    loss_err = abs(loss - want_loss)
+    if bad or not loss_err <= loss_atol:
+        raise RuntimeError(f"{what} vs the one-process step: params {bad} beyond "
+                           f"{SHARDED_PARAM_OF_MAX} of their max |value| (worst {worst}), loss "
+                           f"{loss} vs {want_loss} (limit {loss_atol})")
+    return {"loss_one_process": want_loss, "loss_err": loss_err, "worst_param": worst}
+
+
+def _kind(cfg: TransformerConfig) -> str:
+    return "dense" if cfg.n_experts is None else "MoE"
+
+
+def grow_pack(mesh, cfg: TransformerConfig, params: dict, batches: list, path: str) -> dict:
+    """The first world of a mesh-growing hot-add, on this rank of a
+    ("data", "model") mesh; every rank calls it together. Shards the whole
+    `params` (on the CPU), takes one AdamW step (GROW_ADAMW) a batch
+    (numpy tokens), packs the params and the optimizer's state through
+    their specs (``HotResumable.pack`` over the mesh: every leaf gathered
+    whole on every rank), and rank 0 saves to `path` while the others wait
+    at a barrier. The pack and the save are each timed GROW_REPEATS times
+    (host ms). Returns {"losses", "launches" (this rank's training kernels
+    in the steps), "names" (``tree_leaves`` order), "times": {"pack",
+    "save"}, "state" (the packed HotResumable)}."""
+    local = shard_params(params, mesh, cfg)
+    init_fn, step_fn = _adamw(cfg, mesh)
+    opt = init_fn(local)
+    reset_kernel_launches()
+    losses = []
+    for tokens in batches:
+        local, opt, loss = step_fn(local, opt, torch.from_numpy(tokens))
+        losses.append(loss.item())
+    launches = kernel_launches()
+    specs = _grow_specs(cfg)
+    times = {"pack": [], "save": []}
+    for _ in range(GROW_REPEATS):
+        state, ms = _timed(lambda: HotResumable.pack(local, optimizer_state_tree(opt),
+                                                     specs=specs, mesh=mesh), mesh.device)
+        times["pack"].append(ms)
+    if mesh.rank == 0:  # one writer: save's flock would serialise every rank's
+        for _ in range(GROW_REPEATS):
+            times["save"].append(_timed(lambda: state.save(path), mesh.device)[1])
+    dist.barrier()
+    return {"losses": losses, "launches": launches, "names": tree_names(local),
+            "times": times, "state": state}
+
+
+def _one_process_step(state: HotResumable, cfg: TransformerConfig, tokens: np.ndarray,
+                      grads: dict, device: torch.device) -> tuple:
+    """In this process, from the packed state whole on `device`: the loss of
+    the params on `tokens`, and one AdamW update of the params with the
+    given whole `grads` (the state's optimizer, loaded as
+    ``load_optimizer_state`` does). Returns (new params, loss)."""
+    params, opt_tree = state.restore(device)
+    with torch.no_grad():
+        loss = loss_fn(params, torch.from_numpy(tokens).to(device), cfg).item()
+    init_fn, _ = _adamw(cfg)
+    opt = init_fn(params)
+    load_optimizer_state(opt, opt_tree)
+    for leaf, grad in zip(tree_leaves(params), tree_leaves(grads), strict=True):
+        leaf.grad = grad
+    opt.step()
+    return params, loss
+
+
+def grow_restore(mesh, cfg: TransformerConfig, batches: list, path: str) -> dict:
+    """The second world of a mesh-growing hot-add, on this rank of the new
+    ("data", "model") mesh; every rank calls it together. Loads the
+    checkpoint at `path` and restores this rank's shards of the params and
+    the optimizer's state (``HotResumable.restore`` with specs on the
+    mesh), and raises unless they are bit-equal to ``shard_params`` of the
+    packed whole params and moments, and the params gathered again
+    bit-equal to the packed ones. Then builds AdamW over the shards, loads
+    the state (each moment bit-equal to its restored shard) and takes one
+    step a batch. The first step is held against one process from the
+    same state on rank 0's device (``against_one_process``): its loss
+    against the whole params' loss (ONE_PROCESS_LOSS_ATOL), and its
+    gathered new params against the whole optimizer's update with the
+    step's gathered gradients (SHARDED_PARAM_OF_MAX): the restored state
+    must give the update one process gives. The gradients themselves are
+    the sharded step's, which ``tp_checks`` and ``sharded_step_check`` hold
+    (a whole AdamW step of its own would differ wherever a top-1 route
+    flips between the two runs, since AdamW scales each element's update to
+    about lr whatever its gradient). Load, restore and the
+    optimizer's state are each timed GROW_REPEATS times, the first step
+    once (host ms). Returns {"losses", "launches" (this rank's training
+    kernels in its steps), "names", "times": {"load", "restore",
+    "optimizer", "first_step"}, "one_process" (rank 0's comparison, else
+    {}), "local" (the new shards)}."""
+    device, rank = mesh.device, mesh.rank
+    times = {"load": [], "restore": [], "optimizer": []}
+    for _ in range(GROW_REPEATS):
+        state, ms = _timed(lambda: HotResumable.load(path), device)
+        times["load"].append(ms)
+    specs = _grow_specs(cfg)
+    for _ in range(GROW_REPEATS):
+        (local, opt_tree), ms = _timed(lambda: state.restore(specs=specs, mesh=mesh), device)
+        times["restore"].append(ms)
+    whole, whole_opt = state.host_state
+    _bit_equal("restored params", local, shard_params(whole, mesh, cfg), rank)
+    for key in ("exp_avg", "exp_avg_sq"):
+        _bit_equal(f"restored {key}", _moments(opt_tree, local, key),
+                   shard_params(_moments(whole_opt, whole, key), mesh, cfg), rank)
+    _bit_equal("gathered restored params", gather_params(local, mesh, cfg), whole, rank)
+
+    init_fn, step_fn = _adamw(cfg, mesh)
+
+    def optimizer():
+        opt = init_fn(local)
+        load_optimizer_state(opt, opt_tree)
+        return opt
+
+    for _ in range(GROW_REPEATS):
+        opt, ms = _timed(optimizer, device)
+        times["optimizer"].append(ms)
+    for key in ("exp_avg", "exp_avg_sq"):
+        loaded = tree_map(lambda leaf: opt.state[leaf][key], local)
+        _bit_equal(f"loaded {key}", loaded, _moments(opt_tree, local, key), rank)
+
+    reset_kernel_launches()
+    (local, opt, loss), times["first_step"] = _timed(
+        lambda: step_fn(local, opt, torch.from_numpy(batches[0])), device)
+    launches = kernel_launches()
+    losses = [loss.item()]
+    new_whole = gather_params(local, mesh, cfg)
+    grads = gather_params(tree_map(lambda leaf: leaf.grad, local), mesh, cfg)
+    one_process = {}
+    if rank == 0:
+        want, want_loss = _one_process_step(state, cfg, batches[0], grads, device)
+        one_process = against_one_process(f"rank 0: the grown {_kind(cfg)} world's first step",
+                                          new_whole, losses[0], want, want_loss,
+                                          ONE_PROCESS_LOSS_ATOL[_kind(cfg)])
+    del new_whole, grads
+    reset_kernel_launches()
+    for tokens in batches[1:]:
+        local, opt, loss = step_fn(local, opt, torch.from_numpy(tokens))
+        losses.append(loss.item())
+    launches = {k: v + kernel_launches()[k] for k, v in launches.items()}
+    return {"losses": losses, "launches": launches, "names": tree_names(local), "times": times,
+            "one_process": one_process, "local": local}
+
+
+def _grow_rank_a(shape, device, cfg, path, batches) -> dict:
+    mesh = build_mesh(shape, device=device)
+    params = init_params(cfg, torch.Generator().manual_seed(GROW_SEED), "cpu")
+    out = grow_pack(mesh, cfg, params, batches, path)
+    del out["state"]
+    return {"rank": mesh.rank, **out}
+
+
+def _grow_rank_b(shape, device, cfg, path, batches) -> dict:
+    entered = time.time()
+    mesh = build_mesh(shape, device=device)
+    out = grow_restore(mesh, cfg, batches, path)
+    del out["local"]
+    return {"rank": mesh.rank, "entered": entered, **out}
+
+
+def grow_check(old_shape: tuple, new_shape: tuple, device="cuda", *, backend: str, path: str,
+               cfg: TransformerConfig | None = None, steps: tuple = (2, 2),
+               batch: tuple = DRYRUN_TOKENS, timeout_s: float = 600.0) -> dict:
+    """The hot-add that grows a training job's mesh: the port's form of the
+    reference's ``test_hot_resume_grows_mesh`` (4 -> 8 chips), with the
+    optimizer. A hot-add is a new process image in the port
+    (``torchside.visibility.handoff``); for a job of several ranks that is
+    a new world.
+
+    1. World A: prod(old_shape) ranks (``parallel.launch.run_ranks``, a
+       process group of `backend`) on an old_shape ("data", "model") mesh,
+       each running ``grow_pack``: the seeded whole params of cfg
+       (default ``check_config()``), steps[0] AdamW steps (lr 1e-3, weight
+       decay 1e-4), the pack, rank 0's save to `path`. The processes exit.
+    2. World B: prod(new_shape) ranks on a new_shape mesh, each running
+       ``grow_restore``: load, restore its shards, hold them bit-equal,
+       load the optimizer's state, steps[1] more steps, the first held
+       against the one-process step.
+    3. Every rank's losses equal in each world, and both worlds'
+       ``tree_leaves`` order the same (the optimizer's state is keyed by
+       it).
+
+    Batches: numpy tokens of shape `batch` from seed GROW_SEED, one a
+    step. The caller names the backend; nothing here swaps one for another.
+    Runs on the card unless the caller passes device="cpu". Returns {"old":
+    world A's per-rank results, "new": world B's, "start_s": host s from
+    world B's spawn to its last rank's entry (processes, imports and the
+    process group's set-up)}; raises when a check fails or a rank fails,
+    naming it."""
+    if torch.device(device).type == "cuda":
+        resolve_device(device)
+    if min(steps) < 1:
+        raise ValueError(f"steps {steps}: each world takes at least one step")
+    cfg = cfg if cfg is not None else check_config()
+    rng = np.random.default_rng(GROW_SEED)
+    batches = [rng.integers(0, cfg.vocab, batch) for _ in range(sum(steps))]
+    old = run_ranks(_grow_rank_a, math.prod(old_shape), backend=backend,
+                    args=(tuple(old_shape), device, cfg, path, batches[:steps[0]]),
+                    timeout_s=timeout_s)
+    spawned = time.time()
+    new = run_ranks(_grow_rank_b, math.prod(new_shape), backend=backend,
+                    args=(tuple(new_shape), device, cfg, path, batches[steps[0]:]),
+                    timeout_s=timeout_s)
+    for world, results in (("old", old), ("new", new)):
+        if len({tuple(r["losses"]) for r in results}) != 1:
+            raise RuntimeError(f"the {world} world's ranks' losses differ: "
+                               f"{[r['losses'] for r in results]}")
+    if old[0]["names"] != new[0]["names"]:
+        raise RuntimeError(f"the worlds order the leaves differently: {old[0]['names']} "
+                           f"against {new[0]['names']}")
+    return {"old": old, "new": new, "start_s": max(r["entered"] for r in new) - spawned}
+
+
+# --- the reference's multichip dryrun ---
+
+
+def seq_mesh_shape(n: int) -> tuple[int, int]:
+    """The dryrun's (data, seq) mesh for n ranks. The reference's is (dsp,
+    n/dsp), dsp 2 for even n >= 4, else 1 (``__graft_entry__.py:207``);
+    where n/dsp does not divide the 16 tokens of a row (n 3, 5, 6, 7) its
+    section fails. There the port takes the largest seq axis that divides
+    both n and 16, gcd(n, 16), and puts the rest on data: (3, 2) for n 6.
+    ``seq_checks`` then runs the check batch's first rows that split over
+    data (6 of 8 at n 6)."""
+    dsp = 2 if n % 2 == 0 and n >= 4 else 1
+    if DRYRUN_TOKENS[1] % (n // dsp) == 0:
+        return dsp, n // dsp
+    seq = math.gcd(n, DRYRUN_TOKENS[1])
+    return n // seq, seq
+
+
+def _section(name: str, fn, *args):
+    """fn(*args); a failure is raised again naming the dryrun's section and
+    this rank."""
+    try:
+        return fn(*args)
+    except Exception as err:
+        raise RuntimeError(f"dryrun section {name} failed on rank {dist.get_rank()}: "
+                           f"{type(err).__name__}: {err}") from err
+
+
+def _dryrun_rank(n: int, device) -> dict:
+    out = {"rank": dist.get_rank()}
+    out["tp"] = _section("tp_checks", lambda: tp_checks(build_mesh(device=device)))
+    out["seq"] = _section("seq_checks", lambda: seq_checks(
+        build_mesh(seq_mesh_shape(n), ("data", "seq"), device)))
+    pipe = build_mesh((min(4, n),), ("pipe",), device)
+    out["pipeline"] = None if pipe is None else _section("pipeline_checks", pipeline_checks, pipe)
+    return out
+
+
+def stretch_check(mesh, cfg: TransformerConfig, params: dict, tokens: torch.Tensor) -> dict:
+    """The dryrun's stretch on this rank: one ``sharded_step_check`` of the
+    whole `params` over `mesh`, its loss against the unsharded loss
+    (``loss_fn`` of the whole params and batch in this one process) within
+    SHARDED_LOSS_ATOL. Returns sharded_step_check's results with
+    "loss_unsharded" and "loss_err"."""
+    result = sharded_step_check(cfg, mesh, params, tokens)
+    with torch.no_grad():
+        ref = loss_fn(tree_map(lambda t: t.to(mesh.device), params), tokens.to(mesh.device),
+                      cfg).item()
+    err = abs(result["loss"] - ref)
+    if not err < SHARDED_LOSS_ATOL:
+        raise RuntimeError(f"rank {mesh.rank}: stretch loss {result['loss']} vs unsharded "
+                           f"{ref} (|d|={err})")
+    return {**result, "loss_unsharded": ref, "loss_err": err}
+
+
+def _stretch_rank(plan, device) -> dict:
+    mesh = build_mesh(plan.mesh_shape, plan.mesh_axes, device)
+    cfg = _dryrun_config(mesh.device)
+    params = init_params(cfg, torch.Generator().manual_seed(STRETCH["SEED"]), "cpu")
+    result = _section("stretch", stretch_check, mesh, cfg, params, check_tokens(cfg))
+    del result["local"]
+    return {"rank": mesh.rank, "coords": dict(mesh.coords), **result}
+
+
+def dryrun_multichip(n: int, device="cuda", *, backend: str, timeout_s: float = 600.0) -> dict:
+    """The counterpart of the reference's ``dryrun_multichip(n)``
+    (``__graft_entry__.py:110-336``), over processes joined by a process
+    group of `backend`, in two spawns (``parallel.launch.run_ranks``), each
+    with its own time limit.
+
+    1. n ranks, each running the reference's sections on its meshes for n:
+       ``tp_checks`` on ``build_mesh()`` (``mesh_shape_for(n)``: the dp x
+       tp step, its grads through the kernels against the plain
+       attention's, the MoE flagship, ``make_moe_step`` over (data,
+       expert)); ``seq_checks`` on ``seq_mesh_shape(n)``; and
+       ``pipeline_checks`` on a ("pipe",) mesh of the first min(4, n)
+       ranks.
+    2. The stretch: the reference's v5litepod-16 run, laid out by the H100
+       plan ``topology.lookup("nvidia-h100-80gb", 16)``: 16 ranks on a (2,
+       8) (data, model) mesh, hosts on data and a host's GPUs on model,
+       each running ``stretch_check`` of ``_dryrun_config`` (seed 2).
+
+    The reference's check against involuntary rematerialisation belongs to
+    GSPMD's compiler; its counterpart is ``sharded_step_check``'s in every
+    dp x tp step: the collectives of each step are ``step_collectives``',
+    no weight is gathered, and the replicas are bit-equal.
+
+    The caller names the backend; nothing here swaps one for another. Runs
+    on the card unless the caller passes device="cpu". Returns {"sections":
+    every rank's {"rank", "tp", "seq", "pipeline" (None outside the pipe
+    mesh)}, "stretch": every rank's, "seq_shape", "pipe_stages", "plan",
+    "seconds": {"sections", "stretch"} (host s of each spawn, the ranks'
+    start included)}; raises, naming the section and the rank, when a
+    check fails, and when a section's ranks' losses differ."""
+    if torch.device(device).type == "cuda":
+        resolve_device(device)
+    t0 = time.perf_counter()
+    sections = run_ranks(_dryrun_rank, n, backend=backend, args=(n, device),
+                         timeout_s=timeout_s)
+    t1 = time.perf_counter()
+    plan = lookup(STRETCH["ACCEL"], STRETCH["GPUS"])
+    stretch = run_ranks(_stretch_rank, plan.total_gpus, backend=backend, args=(plan, device),
+                        timeout_s=timeout_s)
+    t2 = time.perf_counter()
+    for name, losses in (
+            ("tp_checks", [r["tp"]["loss"] for r in sections]),
+            ("seq_checks", [r["seq"]["loss"] for r in sections]),
+            ("pipeline_checks", [r["pipeline"].get("loss") for r in sections
+                                 if r["pipeline"] is not None]),
+            ("stretch", [r["loss"] for r in stretch])):
+        if len(set(losses)) != 1:
+            raise RuntimeError(f"dryrun section {name}: the ranks' losses differ: {losses}")
+    return {"sections": sections, "stretch": stretch, "seq_shape": seq_mesh_shape(n),
+            "pipe_stages": min(4, n), "plan": plan,
+            "seconds": {"sections": t1 - t0, "stretch": t2 - t1}}

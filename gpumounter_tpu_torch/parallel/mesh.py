@@ -83,15 +83,17 @@ class Mesh:
 
 def build_mesh(shape: tuple[int, ...] | None = None,
                axis_names: tuple[str, ...] = ("data", "model"),
-               device="cuda") -> Mesh:
+               device="cuda") -> Mesh | None:
     """This rank's Mesh over the initialised default process group.
 
     The caller starts torch.distributed with the backend it chooses; this
     never picks or swaps one. shape, of one axis or two, defaults to
-    ``mesh_shape_for(world size)`` and must multiply to the world size;
-    axis_names has one name per axis (a one-axis mesh is the reference's
-    ``Mesh(devices, ("pipe",))``). Every rank must call this, in the same
-    order as its other group creations: each axis's groups are made with
+    ``mesh_shape_for(world size)``; axis_names has one name per axis (a
+    one-axis mesh is the reference's ``Mesh(devices, ("pipe",))``). The
+    mesh holds the first prod(shape) ranks, the whole world unless the
+    shape is smaller (the reference's ``Mesh(devices[:n])``); a rank
+    outside it gets None. Every rank must call this, in the same order as
+    its other group creations: each axis's groups are made with
     ``dist.new_group`` on all ranks. The device is
     ``cuda:(LOCAL_RANK % device_count)`` (LOCAL_RANK from the environment,
     else the global rank), or the CPU when the caller passes device="cpu".
@@ -102,11 +104,11 @@ def build_mesh(shape: tuple[int, ...] | None = None,
     world, rank = dist.get_world_size(), dist.get_rank()
     shape = tuple(shape) if shape is not None else mesh_shape_for(world)
     if (len(shape) not in (1, 2) or len(axis_names) != len(shape)
-            or math.prod(shape) != world):
-        raise ValueError(f"mesh shape {shape} over axes {axis_names} does not "
-                         f"hold the world of {world} ranks")
+            or not 1 <= math.prod(shape) <= world):
+        raise ValueError(f"mesh shape {shape} over axes {axis_names} does not fit "
+                         f"the world of {world} ranks")
     if len(shape) == 1:
-        sets_by_axis = [(axis_names[0], [list(range(world))])]
+        sets_by_axis = [(axis_names[0], [list(range(shape[0]))])]
     else:
         n_data, n_model = shape
         rows = [[d * n_model + m for m in range(n_model)] for d in range(n_data)]
@@ -118,6 +120,8 @@ def build_mesh(shape: tuple[int, ...] | None = None,
             group = dist.new_group(ranks)
             if rank in ranks:
                 groups[axis] = group
+    if rank >= math.prod(shape):
+        return None
     device = resolve_device(device)
     if device.type == "cuda" and device.index is None:
         local = int(os.environ.get("LOCAL_RANK", rank))
@@ -125,33 +129,84 @@ def build_mesh(shape: tuple[int, ...] | None = None,
     return Mesh(axis_names, shape, rank, groups, device)
 
 
+class HeadSplit(tuple):
+    """The spec of the fused ``wqkv``: as a tuple it is the reference's
+    ``(None, "model")`` (and compares equal to it), and it also carries the
+    heads, so that ``shard_leaf`` and ``gather_leaf`` cut its columns by
+    heads. The columns hold, left to right, the q heads', then the k
+    heads', then the v heads' (n_heads, n_kv_heads, n_kv_heads blocks of
+    d_head). The reference's contiguous column blocks leave GSPMD to move
+    the data where each head needs it; a contiguous half here would hold
+    only q. So rank r's block is its share of each of the three: its own q
+    heads' columns, then its k heads', then its v heads', whole heads and
+    whole GQA groups."""
+
+    def __new__(cls, spec, n_heads: int, n_kv_heads: int, d_head: int):
+        self = super().__new__(cls, spec)
+        self.n_heads, self.n_kv_heads, self.d_head = n_heads, n_kv_heads, d_head
+        return self
+
+    def __getnewargs__(self):
+        return tuple(self), self.n_heads, self.n_kv_heads, self.d_head
+
+    def segments(self, axis: str, n: int) -> list[int]:
+        """The widths of the q, k and v column blocks; raises ValueError
+        unless both head counts divide the axis of size n."""
+        if self.n_heads % n or self.n_kv_heads % n:
+            raise ValueError(f"heads must divide the {axis!r} axis evenly: H={self.n_heads}, "
+                             f"H_kv={self.n_kv_heads}, axis size {n}")
+        return [h * self.d_head for h in (self.n_heads, self.n_kv_heads, self.n_kv_heads)]
+
+
+def _segments(shape: tuple, spec: tuple, dim: int, axis: str, n: int) -> list[int]:
+    """The widths of the blocks of a tensor's dim (whole shape `shape`)
+    that are each cut into n equal parts, one a rank: the q, k and v
+    columns of a ``HeadSplit``, else the whole dim."""
+    if isinstance(spec, HeadSplit):
+        widths = spec.segments(axis, n)
+        if sum(widths) != shape[dim]:
+            raise ValueError(f"dim {dim} of shape {shape} is not the {widths} columns of "
+                             f"q, k and v")
+        return widths
+    if shape[dim] % n:
+        raise ValueError(f"dim {dim} of shape {shape} does not split evenly "
+                         f"over the {axis!r} axis of size {n}")
+    return [shape[dim]]
+
+
 def shard_leaf(x: torch.Tensor, spec: tuple, mesh: Mesh) -> torch.Tensor:
     """This rank's shard of x, a new contiguous tensor on the mesh's device.
 
     spec names, per dim of x, the mesh axis it is split over, or None (the
-    reference's PartitionSpec as a tuple); a dim split over an axis of size
-    n is cut into n equal blocks, and the rank keeps the block at its
-    coordinate on that axis."""
-    if len(spec) != x.dim():
+    reference's PartitionSpec as a tuple; dims past its end are whole, so
+    ``()`` is the replicated ``P()``). A dim split over an axis of size n
+    is cut into n equal blocks, and the rank keeps the block at its
+    coordinate on that axis; a ``HeadSplit`` cuts each of q, k and v so."""
+    if len(spec) > x.dim():
         raise ValueError(f"spec {spec} for a tensor of shape {tuple(x.shape)}")
     for dim, axis in enumerate(spec):
         if axis is None:
             continue
-        n = mesh.size(axis)
-        if x.shape[dim] % n:
-            raise ValueError(f"dim {dim} of shape {tuple(x.shape)} does not split "
-                             f"evenly over the {axis!r} axis of size {n}")
-        size = x.shape[dim] // n
-        x = x.narrow(dim, mesh.coord(axis) * size, size)
+        n, c = mesh.size(axis), mesh.coord(axis)
+        parts = [seg.narrow(dim, c * seg.shape[dim] // n, seg.shape[dim] // n)
+                 for seg in x.split(_segments(tuple(x.shape), spec, dim, axis, n), dim)]
+        x = parts[0] if len(parts) == 1 else torch.cat(parts, dim)
     return x.to(mesh.device, copy=True).contiguous()
 
 
 def gather_leaf(x: torch.Tensor, spec: tuple, mesh: Mesh) -> torch.Tensor:
     """The whole tensor of which x is this rank's ``shard_leaf`` shard (x
-    itself when spec splits nothing). Every rank of the axis must call it."""
+    itself when spec splits nothing). Every rank of each axis that spec
+    names must call it together."""
     for dim, axis in enumerate(spec):
-        if axis is not None:
-            x = torch.cat(all_gather(x, mesh, axis), dim=dim)
+        if axis is None:
+            continue
+        pieces = all_gather(x, mesh, axis)
+        n = len(pieces)
+        whole = tuple(x.shape[:dim]) + (x.shape[dim] * n,) + tuple(x.shape[dim + 1:])
+        widths = [w // n for w in _segments(whole, spec, dim, axis, n)]
+        x = torch.cat([torch.cat([p.split(widths, dim)[s] for p in pieces], dim)
+                       for s in range(len(widths))], dim)
     return x
 
 

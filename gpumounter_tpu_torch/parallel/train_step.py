@@ -19,12 +19,12 @@ reference's shards and derives its collectives; here ``models.probe``
 states them (f and g, ``parallel.collectives``), every rank runs the
 kernels on its own heads, and the gradients are averaged over "data".
 
-The fused ``wqkv`` holds, left to right, the q heads' columns, then k's,
-then v's. The reference's ``P(None, "model")`` cuts it into contiguous
-column blocks and lets GSPMD move the data where the heads need it; a
-contiguous half here would hold only q. So rank r's shard is its own q
-heads' columns, then its k heads', then its v heads' (``_wqkv_columns``):
-whole heads, and whole GQA groups, since H and H_kv both divide the axis.
+The fused ``wqkv``'s spec is a ``parallel.mesh.HeadSplit``: the
+reference's ``(None, "model")``, cut by heads (rank r holds its own q
+heads' columns, then its k heads', then its v heads'). Every placement of
+a leaf, here (``shard_params``, ``gather_params``) and in a checkpoint's
+pack and restore (``torchside.resume``), goes through
+``parallel.mesh.shard_leaf`` and ``gather_leaf`` on these specs.
 
 dp x sp (the reference's "seq" layout over (data, seq), any axis names):
 the params are whole on every rank, the batch is split over data, and each
@@ -43,11 +43,10 @@ from __future__ import annotations
 
 import torch
 
-from gpumounter_tpu_torch.models.probe import (TransformerConfig, check_seq_split,
-                                               local_heads, loss_fn)
+from gpumounter_tpu_torch.models.probe import TransformerConfig, check_seq_split, loss_fn
 from gpumounter_tpu_torch.ops.flash_attention import flash_attention
-from gpumounter_tpu_torch.parallel.collectives import all_gather, mean_over_data, sum_over
-from gpumounter_tpu_torch.parallel.mesh import gather_leaf, shard_batch, shard_leaf
+from gpumounter_tpu_torch.parallel.collectives import mean_over_data, sum_over
+from gpumounter_tpu_torch.parallel.mesh import HeadSplit, gather_leaf, shard_batch, shard_leaf
 from gpumounter_tpu_torch.parallel.moe import moe_param_specs
 
 
@@ -80,12 +79,15 @@ def tree_map(fn, params, *rest):
     return fn(params, *rest)
 
 
-def _map_keyed(fn, params: dict, specs: dict) -> dict:
-    """A params dict of fn(key, leaf, spec)."""
-    out = {key: fn(key, params[key], specs[key]) for key in sorted(params) if key != "blocks"}
-    out["blocks"] = [{key: fn(key, blk[key], spec[key]) for key in sorted(blk)}
-                     for blk, spec in zip(params["blocks"], specs["blocks"], strict=True)]
-    return out
+def tree_names(params, prefix: str = "") -> list[str]:
+    """Names of ``tree_leaves(params)``, in its order: e.g. "embed",
+    "blocks[0].wqkv", "stages.w1"."""
+    if isinstance(params, list):
+        return [n for i, item in enumerate(params) for n in tree_names(item, f"{prefix}[{i}]")]
+    if isinstance(params, dict):
+        return [n for key in _keys(params)
+                for n in tree_names(params[key], f"{prefix}.{key}" if prefix else key)]
+    return [prefix]
 
 
 def param_specs(cfg: TransformerConfig) -> dict:
@@ -93,9 +95,12 @@ def param_specs(cfg: TransformerConfig) -> dict:
     mesh axis a dim is split over, or None. Dense blocks: wqkv and w1
     split by columns (the output dim), wo and w2 by rows (the input dim).
     MoE blocks: the stacked experts' expert dim over "model", the router
-    replicated (``parallel.moe.moe_param_specs``). In the seq layout every
-    leaf is replicated: the parallelism lives in the activations."""
-    block = {"wqkv": (None, "model"), "wo": ("model", None), "ln1": (None,), "ln2": (None,)}
+    replicated (``parallel.moe.moe_param_specs``). wqkv's spec is a
+    ``HeadSplit``, equal to the reference's and cut by heads. In the seq
+    layout every leaf is replicated: the parallelism lives in the
+    activations."""
+    block = {"wqkv": HeadSplit((None, "model"), cfg.n_heads, cfg.kv_heads, cfg.d_head),
+             "wo": ("model", None), "ln1": (None,), "ln2": (None,)}
     if cfg.n_experts is None:
         block.update(w1=(None, "model"), w2=("model", None))
     else:
@@ -108,38 +113,16 @@ def param_specs(cfg: TransformerConfig) -> dict:
     return specs
 
 
-def _wqkv_columns(cfg: TransformerConfig, mesh) -> list[torch.Tensor]:
-    """Per rank along "model", the columns of the full wqkv its shard
-    holds: its q heads', then its k heads', then its v heads'."""
-    n_q, n_kv = local_heads(cfg, mesh)
-    q, kv = n_q * cfg.d_head, n_kv * cfg.d_head
-    k0, v0 = cfg.n_heads * cfg.d_head, (cfg.n_heads + cfg.kv_heads) * cfg.d_head
-    return [torch.cat([torch.arange(r * q, (r + 1) * q),
-                       torch.arange(k0 + r * kv, k0 + (r + 1) * kv),
-                       torch.arange(v0 + r * kv, v0 + (r + 1) * kv)])
-            for r in range(mesh.size("model"))]
-
-
 def shard_params(params: dict, mesh, cfg: TransformerConfig) -> dict:
-    """This rank's shards of full params, as new tensors on the mesh's
-    device (the full ones may live on the CPU, so that the device never
-    holds them). Raises ValueError where a split is uneven: the heads, d_ff
-    or the experts over "model". In the seq layout every leaf is a whole
-    copy."""
-    if cfg.attn_parallel == "seq":
-        return _map_keyed(lambda _, leaf, spec: shard_leaf(leaf, spec, mesh), params,
-                          param_specs(cfg))
-    if mesh.axis_names[1] != "model":
+    """This rank's shards of full params (``param_specs`` through
+    ``shard_leaf``), as new tensors on the mesh's device (the full ones may
+    live on the CPU, so that the device never holds them). Raises
+    ValueError where a split is uneven: the heads, d_ff or the experts over
+    "model". In the seq layout every leaf is a whole copy."""
+    if cfg.attn_parallel != "seq" and mesh.axis_names[1] != "model":
         raise ValueError(f"the dp x tp layout shards over a 'model' axis, got "
                          f"{mesh.axis_names}")
-    columns = _wqkv_columns(cfg, mesh)[mesh.coord("model")]
-
-    def shard(key, leaf, spec):
-        if key == "wqkv":
-            return leaf[:, columns.to(leaf.device)].to(mesh.device)
-        return shard_leaf(leaf, spec, mesh)
-
-    return _map_keyed(shard, params, param_specs(cfg))
+    return tree_map(lambda leaf, spec: shard_leaf(leaf, spec, mesh), params, param_specs(cfg))
 
 
 def gather_params(local: dict, mesh, cfg: TransformerConfig) -> dict:
@@ -147,19 +130,7 @@ def gather_params(local: dict, mesh, cfg: TransformerConfig) -> dict:
     (``shard_params``), on every rank of the model group, which must all
     call it together; for checks and checkpoints. In the seq layout every
     leaf is whole already."""
-    if cfg.attn_parallel == "seq":
-        return local
-    columns = _wqkv_columns(cfg, mesh)
-
-    def gather(key, leaf, spec):
-        if key != "wqkv":
-            return gather_leaf(leaf, spec, mesh)
-        full = leaf.new_empty((leaf.shape[0], sum(len(c) for c in columns)))
-        for cols, piece in zip(columns, all_gather(leaf, mesh, "model"), strict=True):
-            full[:, cols.to(leaf.device)] = piece
-        return full
-
-    return _map_keyed(gather, local, param_specs(cfg))
+    return tree_map(lambda leaf, spec: gather_leaf(leaf, spec, mesh), local, param_specs(cfg))
 
 
 def loss_and_grads(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,

@@ -22,6 +22,7 @@ from gpumounter_tpu_torch.torchside.visibility import (
 from gpumounter_tpu_torch.torchside.resume import (
     HotResumable,
     load_optimizer_state,
+    optimizer_state_specs,
     optimizer_state_tree,
 )
 from gpumounter_tpu_torch.torchside.heal import (
@@ -45,6 +46,7 @@ __all__ = [
     "handoff",
     "load_optimizer_state",
     "migration_signal",
+    "optimizer_state_specs",
     "optimizer_state_tree",
     "refresh_devices",
     "reinit_distributed",

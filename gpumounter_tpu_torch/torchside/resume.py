@@ -10,6 +10,12 @@ touched CUDA. Hot-adding a GPU to a PyTorch job is therefore
     wait_for_gpus(expected)
     params, opt_tree = HotResumable.load(path).restore("cuda")     # host → device
 
+A job of several ranks grows its mesh the same way: every rank packs
+through its mesh (``pack(..., specs=..., mesh=...)`` gathers each leaf
+whole), one rank saves, and every rank of the new, larger world loads the
+checkpoint and restores its own shards (``restore(specs=..., mesh=...)``),
+the optimizer's with ``optimizer_state_specs``.
+
 The on-disk layout is the JAX package's (``jaxside/resume.py``): the same
 ``structure.json`` skeleton, ``v-<uuid>`` version directories, an atomic
 ``LATEST`` pointer, the same fsync order and sweep, an advisory ``flock``
@@ -33,6 +39,8 @@ import numpy as np
 import torch
 
 from gpumounter_tpu_torch._device import resolve_device
+from gpumounter_tpu_torch.parallel.mesh import gather_leaf, shard_leaf
+from gpumounter_tpu_torch.parallel.train_step import tree_leaves
 
 logger = logging.getLogger(__name__)
 
@@ -51,31 +59,60 @@ class HotResumable:
     host_state: Any
 
     @classmethod
-    def pack(cls, *trees: Any) -> "HotResumable":
+    def pack(cls, *trees: Any, specs: Any = None, mesh=None) -> "HotResumable":
         """Copy every leaf to host memory (the copy survives the process
-        image that made it, through ``save``)."""
-        host = tuple(_map_tree(_to_host, tree) for tree in trees)
+        image that made it, through ``save``).
+
+        With a mesh and `specs` (one spec tree a tree, as ``restore`` takes
+        them), each leaf is this rank's shard and is gathered whole first
+        (``parallel.mesh.gather_leaf``): every rank of the mesh calls pack
+        together, and every rank gets the whole host state, as the
+        reference's pack sees global arrays. Without specs the leaves are
+        taken as they are."""
+        if specs is not None and mesh is None:
+            raise ValueError("pack with specs gathers shards over a mesh: pass mesh=")
+        if specs is None:
+            host = tuple(_map_tree(_to_host, tree) for tree in trees)
+        else:
+            def gather(leaf, spec):
+                if isinstance(leaf, torch.Tensor):
+                    leaf = gather_leaf(leaf, spec, mesh)
+                return _to_host(leaf)
+
+            host = tuple(_map_with_specs(gather, tree, tree_specs)
+                         for tree, tree_specs in zip(trees, specs, strict=True))
         logger.debug("packed %d tree(s) to host", len(trees))
         return cls(host_state=host)
 
-    def restore(self, device="cuda", specs: Any = None) -> tuple:
-        """Copy every leaf onto `device` (default the current CUDA device;
-        raises when CUDA is not available, unless the caller asks for the
-        CPU). Returns the packed trees as a tuple.
+    def restore(self, device="cuda", specs: Any = None, *, mesh=None) -> tuple:
+        """Copy every leaf onto a device; returns the packed trees as a
+        tuple. The counterpart of the reference's ``restore(mesh, specs)``.
 
-        Sharded restore, over a device mesh with one placement per leaf,
-        comes with multi-GPU parallelism over torch.distributed
-        (ROADMAP.md §1, item 6); a non-None `specs` raises until then."""
-        if specs is not None:
-            raise NotImplementedError(
-                "sharded restore (a device mesh and per-leaf specs) comes with "
-                "multi-GPU parallelism over torch.distributed (ROADMAP.md §1, "
-                "item 6: parallel/ across several GPUs); restore takes one "
-                "device")
-        device = resolve_device(device)
-        out = tuple(_map_tree(lambda t: t.to(device, copy=True), tree)
-                    for tree in self.host_state)
-        logger.info("restored %d tree(s) onto %s", len(out), device)
+        No mesh: every leaf whole on `device` (default the current CUDA
+        device; raises when CUDA is not available, unless the caller asks
+        for the CPU). A mesh (``parallel.mesh.Mesh``) and no specs: every
+        leaf whole on the mesh's device, the reference's replicated
+        ``P()``. A mesh and `specs`: one spec tree a packed tree, mirroring
+        it (a spec where the tree has a container holds for every leaf
+        under it, and a spec dict may name keys the tree lacks), and each
+        leaf becomes this rank's shard through ``parallel.mesh.shard_leaf``
+        (``param_specs`` for params, ``optimizer_state_specs`` for an
+        optimizer's state). Every rank restores from its own copy of the
+        whole state, so no collective runs. Specs without a mesh raise
+        ValueError."""
+        if specs is not None and mesh is None:
+            raise ValueError("restore with specs places shards on a mesh, and no mesh "
+                             "was given: pass mesh=")
+        if specs is None:
+            device = resolve_device(device) if mesh is None else mesh.device
+            out = tuple(_map_tree(lambda t: t.to(device, copy=True), tree)
+                        for tree in self.host_state)
+        else:
+            out = tuple(_map_with_specs(lambda t, spec: shard_leaf(t, spec, mesh), tree,
+                                        tree_specs)
+                        for tree, tree_specs in zip(self.host_state, specs, strict=True))
+        logger.info("restored %d tree(s) onto %s", len(out),
+                    device if specs is None else f"mesh {mesh.shape} on {mesh.device}")
         return out
 
     def save(self, path: str) -> None:
@@ -304,6 +341,36 @@ def _map_tree(fn, tree):
     return fn(tree)
 
 
+def _is_spec(node) -> bool:
+    """A leaf's spec: a tuple of mesh axis names and None (``()`` is
+    replicated)."""
+    return isinstance(node, tuple) and all(a is None or isinstance(a, str) for a in node)
+
+
+def _map_with_specs(fn, tree, specs):
+    """`tree` with fn(leaf, spec) applied to every leaf, spec the node of
+    `specs` at the leaf's place; a spec where `tree` has a container holds
+    for every leaf under it. Walks in ``_map_tree``'s order."""
+    if tree is None:
+        return None
+    if _is_spec(specs) and isinstance(tree, (dict, list, tuple)):
+        return _map_tree(lambda leaf: fn(leaf, specs), tree)
+    if isinstance(tree, dict):
+        missing = sorted(set(tree) - set(specs))
+        if missing:
+            raise ValueError(f"the specs name no {missing}")
+        return {key: _map_with_specs(fn, tree[key], specs[key]) for key in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        items = [_map_with_specs(fn, x, s) for x, s in zip(tree, specs, strict=True)]
+        if hasattr(tree, "_fields"):
+            return type(tree)(*items)
+        return type(tree)(items)
+    if not _is_spec(specs):
+        raise ValueError(f"a leaf's spec is a tuple of axis names and None, got {specs!r}")
+    _check_leaf(tree)
+    return fn(tree, specs)
+
+
 def _encode_tree(tree):
     """(leaves, skeleton): walk `tree` depositing leaves in order (dict
     keys sorted, matching the load-side walk)."""
@@ -405,6 +472,18 @@ def optimizer_state_tree(opt: torch.optim.Optimizer) -> dict:
     groups = [_map_tree(check, group) for group in sd["param_groups"]]
     return {"state": {str(key): val for key, val in sd["state"].items()},
             "param_groups": groups}
+
+
+def optimizer_state_specs(param_specs) -> dict:
+    """The specs of ``optimizer_state_tree``'s tree for an Adam or AdamW
+    built over ``parallel.train_step.tree_leaves(params)``, from the
+    params' spec tree: parameter i's ``exp_avg`` and ``exp_avg_sq`` take
+    its spec (i in ``tree_leaves`` order), and ``step`` and
+    ``param_groups`` are replicated. For ``pack`` and ``restore`` over a
+    mesh."""
+    return {"state": {str(i): {"step": (), "exp_avg": spec, "exp_avg_sq": spec}
+                      for i, spec in enumerate(tree_leaves(param_specs))},
+            "param_groups": ()}
 
 
 def load_optimizer_state(opt: torch.optim.Optimizer, tree: dict) -> None:

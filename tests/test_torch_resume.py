@@ -190,10 +190,10 @@ def test_save_refuses_non_str_keys_and_unknown_leaves(tmp_path):
         HotResumable(host_state=({"x": "text"},)).save(str(tmp_path / "b"))
 
 
-def test_restore_takes_one_device(tmp_path):
+def test_restore_with_specs_needs_a_mesh(tmp_path):
     state = HotResumable.pack({"w": torch.ones(2)})
-    with pytest.raises(NotImplementedError, match="item 6"):
-        state.restore("cpu", specs=({"w": None},))
+    with pytest.raises(ValueError, match="no mesh was given"):
+        state.restore("cpu", specs=({"w": ("model",)},))
     (tree,) = state.restore("cpu")
     tree["w"].add_(1)  # a copy: the snapshot is not touched
     assert torch.equal(state.host_state[0]["w"], torch.ones(2))

@@ -248,3 +248,92 @@ def pipeline_checks_rank() -> dict:
     from gpumounter_tpu_torch.entry import pipeline_checks
     torch.set_num_threads(1)
     return pipeline_checks(build_mesh((dist.get_world_size(),), ("pipe",), "cpu"))
+
+
+def _state_numpy(state) -> dict:
+    """A packed (params, optimizer state) pair as numpy: the params, and
+    each moment as a list in ``tree_leaves`` order."""
+    params, opt = state.host_state
+    n = len(tree_leaves(params))
+    return {"params": _numpy(params),
+            **{key: [opt["state"][str(i)][key].numpy() for i in range(n)]
+               for key in ("exp_avg", "exp_avg_sq")}}
+
+
+def grow_world_a(shape, cases: dict, root: str) -> dict:
+    """The first world of each grow case on a ("data", "model") mesh of this
+    shape: ``entry.grow_pack`` of the reference's weights over the case's
+    first batches, saved to root/<case>; the losses, the leaf names and the
+    packed whole state (numpy)."""
+    from gpumounter_tpu_torch.entry import grow_pack
+    torch.set_num_threads(1)
+    mesh = build_mesh(shape, device="cpu")
+    out = {}
+    for name, case in cases.items():
+        cfg = config(case["fields"])
+        full = params_from_jax(case["tree"], cfg, "cpu")
+        result = grow_pack(mesh, cfg, full, case["before"], f"{root}/{name}")
+        out[name] = {"losses": result["losses"], "names": result["names"],
+                     "packed": _state_numpy(result["state"])}
+    return out
+
+
+def grow_world_b(shape, cases: dict, root: str) -> dict:
+    """The second world of each grow case on a ("data", "model") mesh of
+    this shape: ``entry.grow_restore`` from root/<case> over the case's
+    last batches (it raises unless the restored shards and the gathered
+    params are bit-equal to what was packed); the losses, the leaf names,
+    the gathered params after the steps and rank 0's one-process
+    comparison. Then the reference's initial weights packed whole and
+    restored with ``param_specs`` onto this mesh: whether every shard
+    equals ``shard_params``', the params gathered again, and each block's
+    wqkv shard (numpy)."""
+    from gpumounter_tpu_torch.entry import grow_restore
+    from gpumounter_tpu_torch.parallel.train_step import param_specs
+    from gpumounter_tpu_torch.torchside.resume import HotResumable
+    torch.set_num_threads(1)
+    mesh = build_mesh(shape, device="cpu")
+    out = {}
+    for name, case in cases.items():
+        cfg = config(case["fields"])
+        result = grow_restore(mesh, cfg, case["after"], f"{root}/{name}")
+        full = params_from_jax(case["tree"], cfg, "cpu")
+        (local,) = HotResumable.pack(full).restore(specs=(param_specs(cfg),), mesh=mesh)
+        want = shard_params(full, mesh, cfg)
+        out[name] = {
+            "losses": result["losses"], "names": result["names"],
+            "one_process": result["one_process"],
+            "params": _numpy(gather_params(result["local"], mesh, cfg)),
+            "init_shards_equal": all(torch.equal(a, b) for a, b in zip(
+                tree_leaves(local), tree_leaves(want), strict=True)),
+            "init_gathered": _numpy(gather_params(local, mesh, cfg)),
+            "wqkv": [blk["wqkv"].numpy() for blk in local["blocks"]],
+            "coords": dict(mesh.coords)}
+    return out
+
+
+def stretch_rank(cases: dict) -> dict:
+    """``entry.stretch_check`` of each case on the H100 plan's (2, 8)
+    ("data", "model") mesh of 16 ranks: the loss, the unsharded loss and
+    the gathered new params (numpy)."""
+    from gpumounter_tpu_torch.entry import STRETCH, stretch_check
+    from gpumounter_tpu_torch.topology import lookup
+    torch.set_num_threads(1)
+    plan = lookup(STRETCH["ACCEL"], STRETCH["GPUS"])
+    mesh = build_mesh(plan.mesh_shape, plan.mesh_axes, "cpu")
+    out = {}
+    for name, case in cases.items():
+        cfg = config(case["fields"])
+        result = stretch_check(mesh, cfg, params_from_jax(case["tree"], cfg, "cpu"),
+                               torch.from_numpy(case["tokens"]))
+        out[name] = {"loss": result["loss"], "loss_unsharded": result["loss_unsharded"],
+                     "params": _numpy(gather_params(result["local"], mesh, cfg)),
+                     "collectives": result["collectives"]}
+    return out
+
+
+def dryrun_sections_rank(n: int) -> dict:
+    """The dryrun's sections (``entry._dryrun_rank``) on n CPU ranks."""
+    from gpumounter_tpu_torch.entry import _dryrun_rank
+    torch.set_num_threads(1)
+    return _dryrun_rank(n, "cpu")
