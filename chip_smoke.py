@@ -123,7 +123,31 @@ Phases, each raising on failure (any failure exits non-zero):
       sections on 8 ranks (``tp_checks`` on (1, 8): 2 q heads and 1 kv head
       a rank; ``seq_checks`` on (2, 4); ``pipeline_checks`` on 4 stages),
       then the stretch, 16 ranks on the H100 plan's (2, 8) mesh; each
-      section's numbers against its limits and its launches per rank.
+      section's numbers against its limits and its launches per rank;
+10. the control plane's hot-mount of a GPU on one node, in process (no
+    gRPC: the card's machine has none):
+    a. the live ``NvidiaDeviceBackend`` on /dev (identity from the
+       driver's procfs where it lists the GPUs, else NVML): exactly one
+       GPU, its UUID and PCI bus id equal to nvidia-smi's, its node's and
+       every companion's major:minor equal to os.stat's; each nvidia*
+       node printed with what it was tied to (a node of no GPU's minor is
+       no device);
+    b. this process (CUDA open) among the GPU's holders in a /proc scan,
+       ``probe_device`` healthy; one scan and one namespace entry timed;
+    c. ``entry.mount_check``: ``GpuMountService`` over a ``FakeCluster``
+       of the live backend; add_gpu(1) into a tmpfs directory through this
+       process's mount namespace, granting on a child of the cgroup-v1
+       devices hierarchy where one is writable: with CAP_MKNOD (read from
+       CapEff first) the node and its companions land as character devices
+       with the card's numbers and remove_gpu takes them away and releases
+       the slave pod; without it add_gpu fails with the refusal naming
+       CAP_MKNOD and is rolled back; 3 times each, timed; the same flows on
+       a fake host of 8 GPUs (add_gpu(1) and add_gpu(8));
+    d. a tenant child (``--mount-child``) with CUDA_VISIBLE_DEVICES set to
+       the UUID the worker assigned, after ``gpus_visible_in_dev`` read 1:
+       CUDA's device 0 has that UUID, and phase 3's first forward runs
+       through ``flash_fwd`` (2 launches, NLL in phase 3's range); its
+       exec -> CUDA ready printed beside phase 6's.
 
 The last lines are a JSON object per kernel (``{"kernels": [...]}``) and
 ``{"ok": true, "device": {...}}``, and the exit code is 0. A failing check
@@ -159,14 +183,18 @@ except ModuleNotFoundError as err:
     print("chip_smoke: the package gpumounter_tpu_torch is not beside this script; "
           "run it from the root of the repository", file=sys.stderr)
     sys.exit(2)
+from gpumounter_tpu_torch.cgroup import detect_cgroup_version
+from gpumounter_tpu_torch.device.backend import NvidiaDeviceBackend
 from gpumounter_tpu_torch.entry import (MOE_ROUTE_GAP, ONE_PROCESS_LOSS_ATOL,
                                         RING_TOL, SHARDED_LOSS_ATOL, SHARDED_PARAM_OF_MAX,
                                         TRAIN_GRAD_ATOL, _check_equal_over, _masked_err,
-                                        against_one_process, check_config, dryrun_multichip,
-                                        grow_check,
-                                        kernel_launches, moe_blocks_vs_plain, moe_check,
-                                        reset_kernel_launches, route_flips,
+                                        against_one_process, busy_health_check, check_config,
+                                        dryrun_multichip, grow_check, has_cap_mknod,
+                                        inventory_check, kernel_launches, make_identity,
+                                        moe_blocks_vs_plain, moe_check, mount_check,
+                                        pick_identity, reset_kernel_launches, route_flips,
                                         sharded_step_check, tp_checks, train_check)
+from gpumounter_tpu_torch.nsutil.ns import run_in_mount_ns
 from gpumounter_tpu_torch.models.probe import (TransformerConfig, _attend, _attend_decode,
                                                _decoder, _embed, _finish_block, _forward_impl,
                                                _picker, decode_step, forward, generate,
@@ -197,9 +225,10 @@ from gpumounter_tpu_torch.parallel.train_step import (gather_params, loss_and_gr
                                                       tree_leaves, tree_map, tree_names)
 from gpumounter_tpu_torch.ops.flash_decode import (flash_decode_kernel,
                                                    flash_decode_plain)
-from gpumounter_tpu_torch.torchside import (HotResumable, handoff, load_optimizer_state,
-                                            optimizer_state_tree, refresh_devices,
-                                            set_visibility_env, wait_for_gpus)
+from gpumounter_tpu_torch.torchside import (HotResumable, gpus_visible_in_dev, handoff,
+                                            load_optimizer_state, optimizer_state_tree,
+                                            refresh_devices, set_visibility_env,
+                                            wait_for_gpus)
 from gpumounter_tpu_torch.torchside.visibility import HANDOFF_AT_ENV
 
 # H100 SXM peaks (NVIDIA data sheet, dense): the bound of a kernel is the
@@ -1664,8 +1693,10 @@ def phase_handoff(card: str) -> dict:
     handoff; b, c. RUNS handoffs of the full-width dense and MoE trainers,
     held bit for bit against this process's uninterrupted run, and the
     median time of each part. Returns the launches on this phase's path
-    (the children's and the uninterrupted runs')."""
+    (the children's and the uninterrupted runs') and the median exec -> CUDA
+    ready time of the new images, dense and MoE."""
     total = dict.fromkeys(("flash_fwd", "dq", "dkv", "flash_decode"), 0)
+    ready_ms = {}
 
     def add(counts):
         for key in total:
@@ -1749,10 +1780,11 @@ def phase_handoff(card: str) -> dict:
                       f"{note} [{card}; checkpoint on {fs}]", flush=True)
             print(f"time handoff {name} steady step in the new image: "
                   f"{_runs([r['steady_step_ms'] for r in runs])} [{card}]", flush=True)
+            ready_ms[name] = statistics.median(r["ms"]["exec_to_cuda_ready"] for r in runs)
             del params, leaves
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    return total
+    return total, ready_ms
 
 
 # --- phase 7: dp x tp and expert parallelism, 4 ranks sharing the card ---
@@ -2333,6 +2365,179 @@ def phase_dryrun(card: str) -> dict:
     return total
 
 
+# --- phase 10: the hot-mount on the card (the control plane's one-node flows) ---
+
+# add_gpu and remove_gpu are timed so many times (the median is printed),
+# on the card and on a fake host of FAKE_GPUS (the H100 node of topology.py).
+MOUNT = dict(REPEATS=3, FAKE_GPUS=8)
+
+
+def _mount_child(spec: dict) -> None:
+    """The tenant of phase 10, started with CUDA_VISIBLE_DEVICES=<the UUID
+    the worker assigned>: CUDA's one device must be that GPU; then one
+    full-width probe forward (phase 3's weights and first batch) through
+    flash_fwd. Prints one JSON line; a failure raises (exit code 1)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.init()
+    props = torch.cuda.get_device_properties(0)
+    torch.cuda.synchronize()
+    t_ready = time.time()
+    uuid = f"GPU-{props.uuid}"
+    if uuid != spec["uuid"] or torch.cuda.device_count() != 1:
+        raise RuntimeError(f"CUDA_VISIBLE_DEVICES={os.environ.get('CUDA_VISIBLE_DEVICES')!r}: "
+                           f"{torch.cuda.device_count()} device(s), device 0 is {uuid}, the "
+                           f"worker assigned {spec['uuid']}")
+    cfg = full_width_config()
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cuda")
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (FULL["B"], FULL["L"]))).cuda()
+    _reset_kernel_counts()
+    logits = forward(params, tokens, cfg)
+    torch.cuda.synchronize()
+    print(json.dumps({"mount_child": {
+        "ready_at": t_ready, "uuid": uuid, "device": torch.cuda.get_device_name(0),
+        "launches": _kernel_counts(), "nll": next_token_nll(logits, tokens).item(),
+        "finite": bool(torch.isfinite(logits).all()),
+        "shape": list(logits.shape)}}))
+
+
+def _tenant_child(uuid: str) -> dict:
+    """Run the tenant child on `uuid`; check its device, launches and NLL.
+    Returns its report with exec_to_cuda_ready_ms (from just before the
+    spawn to CUDA ready in the child, host clock)."""
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": uuid}
+    t_spawn = time.time()
+    out = subprocess.run([sys.executable, os.path.abspath(__file__), "--mount-child",
+                          json.dumps({"uuid": uuid})], capture_output=True, text=True,
+                         timeout=600, env=env)
+    if out.returncode != 0:
+        raise RuntimeError(f"tenant child exited {out.returncode}:\n{out.stdout[-2000:]}\n"
+                           f"{out.stderr[-4000:]}")
+    report = next(json.loads(line) for line in out.stdout.splitlines()
+                  if line.startswith("{"))["mount_child"]
+    cfg = full_width_config()
+    _check_counts("tenant child", report["launches"],
+                  {"flash_fwd": cfg.n_layers, "dq": 0, "dkv": 0, "flash_decode": 0})
+    nll = report["nll"]
+    if not (report["finite"] and report["shape"] == [FULL["B"], FULL["L"], cfg.vocab]
+            and 0 <= nll - math.log(cfg.vocab) < NLL_ABOVE_UNIFORM):
+        raise RuntimeError(f"tenant child's forward: {report}")
+    report["exec_to_cuda_ready_ms"] = (report["ready_at"] - t_spawn) * 1e3
+    return report
+
+
+def phase_mount(card: str, handoff_ready_ms: dict) -> int:
+    """Phase 10: the live NvidiaDeviceBackend's inventory against
+    nvidia-smi and stat(2); this process among the GPU's holders and the
+    GPU healthy; the worker's add_gpu / remove_gpu in process over a
+    FakeCluster on the live backend (round trip with CAP_MKNOD, refusal and
+    rollback without), into a tmpfs directory that stands for the tenant's
+    /dev (a container's /dev is a tmpfs; the checkout's filesystem may
+    refuse device nodes) through the mount namespace of this process, with
+    the grant on a child of the cgroup-v1 devices hierarchy where one is
+    writable; the same flows on a fake host of 8 GPUs; and a tenant child
+    on the worker's UUID running the forward through flash_fwd. Returns
+    the child's flash_fwd launches."""
+    t_phase = time.perf_counter()
+    identity = pick_identity()
+    print(f"mount inventory: identity source {identity} (/proc/driver/nvidia/gpus "
+          f"{'lists the GPUs' if identity == 'procfs' else 'absent'}) [{card}]", flush=True)
+    inv = inventory_check(identity)
+    scan = inv["scan"]
+    for dev in scan.devices:
+        smi = inv["smi"][dev.index]
+        print(f"mount inventory: /dev/{dev.basename} {dev.major}:{dev.minor} -> GPU NVML index "
+              f"{dev.index}, {dev.uuid}, PCI {dev.pci_bus_id or '(not given)'}; nvidia-smi: "
+              f"{smi['uuid']}, PCI {smi['pci_bus_id']}; numbers equal to stat's", flush=True)
+        for comp in dev.companions:
+            print(f"mount inventory: companion /dev/{comp.rel_path} {comp.major}:{comp.minor} "
+                  f"(stat's)", flush=True)
+    for name, major, minor, why in scan.unbound:
+        print(f"mount inventory: /dev/{name} {major}:{minor} is not a device: {why}", flush=True)
+    for name, why in sorted(scan.absent_companions.items()):
+        print(f"mount inventory: companion /dev/{name} left out: {why}", flush=True)
+    if len(scan.devices) != 1 or scan.missing:
+        raise RuntimeError(f"the live backend lists {len(scan.devices)} GPU(s), GPUs without "
+                           f"a node {scan.missing}; one card expected")
+    dev = scan.devices[0]
+    busy = busy_health_check(NvidiaDeviceBackend("/dev", make_identity(identity)), dev)
+    print(f"mount busy and health: holders of {dev.device_path} {busy['holders']} include "
+          f"this process ({os.getpid()}); probe_device healthy", flush=True)
+    print(f"time mount /proc scan: {busy['scan_ms']:.3f} ms over {busy['pids']} processes "
+          f"[{card}]", flush=True)
+    fork_ms = []
+    for _ in range(MOUNT["REPEATS"]):
+        t = time.perf_counter()
+        run_in_mount_ns(os.getpid(), lambda: None)
+        fork_ms.append((time.perf_counter() - t) * 1e3)
+    print(f"time mount namespace entry (fork of this process with CUDA open, setns, _exit, "
+          f"wait): {_runs(fork_ms)} [{card}]", flush=True)
+
+    cap = has_cap_mknod()
+    dev_dir = tempfile.mkdtemp(prefix="tenant-dev-", dir="/dev/shm")
+    devices_root = "/sys/fs/cgroup/devices"
+    cgroup_dir = None
+    if detect_cgroup_version() == 1 and os.access(devices_root, os.W_OK):
+        cgroup_dir = os.path.join(devices_root, f"tpumounter-phase10-{os.getpid()}")
+        os.mkdir(cgroup_dir)
+    print(f"mount flow: CapEff {'has' if cap else 'lacks'} CAP_MKNOD, so the "
+          f"{'round trip (inject, then remove)' if cap else 'refusal and rollback'} case runs; "
+          f"target {dev_dir} ({_filesystem(dev_dir)}) through the mount namespace of PID "
+          f"{os.getpid()}; cgroup "
+          f"{cgroup_dir or '(no writable v1 devices hierarchy: a stand-in directory)'}",
+          flush=True)
+    children = []
+
+    def on_mounted(uuids, target):
+        visible = gpus_visible_in_dev(target)
+        if visible != 1:
+            raise RuntimeError(f"gpus_visible_in_dev({target}) = {visible} with {uuids} mounted")
+        children.append({**_tenant_child(uuids[0]), "visible_in_dev": visible})
+
+    try:
+        report = mount_check("cuda", dev_dir=dev_dir, ns_pid=os.getpid(),
+                             cgroup_dirs=[cgroup_dir] if cgroup_dir else (),
+                             identity=identity, fake_gpus=MOUNT["FAKE_GPUS"],
+                             repeats=MOUNT["REPEATS"], on_mounted=on_mounted)
+    finally:
+        shutil.rmtree(dev_dir, ignore_errors=True)
+        if cgroup_dir:
+            os.rmdir(cgroup_dir)
+    live = report["live"]
+    if live["case"] == "round-trip":
+        print(f"mount flow: add_gpu(1) mounted {live['uuids']}: /dev/{dev.basename} and "
+              f"{len(dev.companions)} companion(s) landed as character devices with the card's "
+              f"numbers, gpus_visible_in_dev read {children[0]['visible_in_dev']}; remove_gpu "
+              f"took the node away and released the slave pod; {MOUNT['REPEATS']} round trips",
+              flush=True)
+    else:
+        print(f"mount flow: add_gpu(1) refused, {live['refusal']!r}; the slave pod deleted and "
+              f"the free count back to 1, {MOUNT['REPEATS']} times", flush=True)
+        children.append({**_tenant_child(dev.uuid), "visible_in_dev": None})
+    child = children[0]
+    print(f"mount tenant: CUDA_VISIBLE_DEVICES={child['uuid']} (the worker's UUID) gives "
+          f"device 0 {child['device']} of that UUID; full-width forward through flash_fwd, "
+          f"launches {child['launches']}, nll {child['nll']:.4f} (log V "
+          f"{math.log(full_width_config().vocab):.4f})", flush=True)
+    print(f"time mount tenant exec -> CUDA ready: {child['exec_to_cuda_ready_ms']:.1f} ms "
+          f"(spawn of python3 chip_smoke.py --mount-child to torch.cuda.init() done); phase 6's "
+          f"new image exec -> CUDA ready, median: "
+          + ", ".join(f"{k} {v:.1f} ms" for k, v in handoff_ready_ms.items()) + f" [{card}]",
+          flush=True)
+    for name, flow in [("live", live)] + [(f"fake {n}-GPU host ({MOUNT['FAKE_GPUS']} GPUs)", f)
+                                          for n, f in report["fake"].items()]:
+        what = f"add_gpu({flow['n']})" + (" refused" if flow["case"] == "refused" else "")
+        line = f"time mount {name} {what}: {_runs(flow['add_ms'])}"
+        if flow["remove_ms"]:
+            line += f"; remove_gpu: {_runs(flow['remove_ms'])}"
+        if flow["add_phases_ms"]:
+            line += (f"; last add phases {flow['add_phases_ms']}, remove phases "
+                     f"{flow['remove_phases_ms']}")
+        print(line + f" [{card}]", flush=True)
+    print(f"time mount phase 10: {time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
+    return sum(c["launches"]["flash_fwd"] for c in children)
+
+
 def phase_forward_timing(cfg, params, tokens, card, what="forward") -> None:
     fwd_ms = _time_ms(lambda: forward(params, tokens, cfg), 5, warmup=1)
     tok_s = tokens.numel() / (fwd_ms / 1e3)
@@ -2343,6 +2548,9 @@ def phase_forward_timing(cfg, params, tokens, card, what="forward") -> None:
 def main() -> int:
     if sys.argv[1:2] == ["--handoff-child"]:
         _handoff_child(json.loads(sys.argv[2]))
+        return 0
+    if sys.argv[1:2] == ["--mount-child"]:
+        _mount_child(json.loads(sys.argv[2]))
         return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2410,7 +2618,7 @@ def _phases(stage: list, t0: float) -> None:
     phase_serving_timings(moe_cfg, moe_params, prompt, moe_graph_ms, card)
     del moe_params, params
     stage.append("6 (the handoff)")
-    handoff_launches = phase_handoff(card)
+    handoff_launches, handoff_ready_ms = phase_handoff(card)
     stage.append("7 (dp x tp and expert parallelism, 4 ranks sharing the card)")
     sharded_launches = phase_sharded(card)
     stage.append("8 (sequence and pipeline parallelism, 4 ranks sharing the card)")
@@ -2418,6 +2626,8 @@ def _phases(stage: list, t0: float) -> None:
     stage.append("9 (the mesh-growing hot-add and the multichip dryrun, ranks sharing the card)")
     grow_launches = phase_grow(card)
     dryrun_launches = phase_dryrun(card)
+    stage.append("10 (the hot-mount on the card)")
+    mount_launches = phase_mount(card, handoff_ready_ms)
     sharded = {k: sharded_launches[k] + seq_pipe_launches[k] + grow_launches[k]
                + dryrun_launches[k] for k in sharded_launches}
 
@@ -2432,8 +2642,9 @@ def _phases(stage: list, t0: float) -> None:
           f"the sharded phase (every rank's sharded steps): {sharded_launches}; the "
           f"seq/pipeline phase (every rank's dp x sp and pipeline steps): {seq_pipe_launches}; "
           f"the grow phase (every rank's steps in both worlds): {grow_launches}; the dryrun "
-          f"(every rank's sharded steps): {dryrun_launches}", flush=True)
-    print(f"chip_smoke: phases 1-9 took {time.perf_counter() - t0:.1f} s, the kernels' build "
+          f"(every rank's sharded steps): {dryrun_launches}; the hot-mount's tenant child: "
+          f"flash_fwd {mount_launches}", flush=True)
+    print(f"chip_smoke: phases 1-10 took {time.perf_counter() - t0:.1f} s, the kernels' build "
           f"included [{card}]", flush=True)
     bwd_source = "gpumounter_tpu_torch/ops/csrc/flash_bwd.cu"
     print(json.dumps({"kernels": [{
@@ -2441,7 +2652,8 @@ def _phases(stage: list, t0: float) -> None:
         "source": "gpumounter_tpu_torch/ops/csrc/flash_fwd.cu",
         "replaces": "gpumounter_tpu/ops/flash_attention.py:84",
         "launches": (launches + prefill_launches + train_fwd + moe_launches + moe_prefill
-                     + moe_fwd + handoff_launches["flash_fwd"] + sharded["flash_fwd"]),
+                     + moe_fwd + handoff_launches["flash_fwd"] + sharded["flash_fwd"]
+                     + mount_launches),
         "max_abs_err": max_abs_err, **times}, {
         "name": "flash_bwd_dq", "route": "cuda", "source": bwd_source,
         "replaces": "gpumounter_tpu/ops/flash_attention.py:182",

@@ -3,13 +3,19 @@ it, and the training checks of the reference's dryrun, dense
 (``train_check``), MoE (``moe_check``) and sharded over a mesh of ranks:
 dp x tp and expert parallelism (``tp_train_check``), dp x sp with ring
 attention and the pipelines (``seq_pipeline_check``), all of them with the
-stretch over an H100 topology plan (``dryrun_multichip``); and the
-hot-add that grows a job's mesh (``grow_check``)."""
+stretch over an H100 topology plan (``dryrun_multichip``); the
+hot-add that grows a job's mesh (``grow_check``); and the control plane's
+one-node hot-mount of a GPU into a pod (``mount_check``)."""
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
+import shutil
+import stat as statmod
+import subprocess
+import tempfile
 import time
 
 import numpy as np
@@ -17,6 +23,9 @@ import torch
 import torch.distributed as dist
 
 from gpumounter_tpu_torch._device import resolve_device
+from gpumounter_tpu_torch.config import Config
+from gpumounter_tpu_torch.device.backend import NvidiaDeviceBackend, identity_from_config
+from gpumounter_tpu_torch.k8s.types import Pod
 from gpumounter_tpu_torch.models.probe import (TransformerConfig, _attend, _block, _embed,
                                                _finish_block, _rmsnorm, forward, init_params,
                                                local_heads, loss_fn, next_token_nll)
@@ -39,9 +48,13 @@ from gpumounter_tpu_torch.parallel.train_step import (gather_params, loss_and_gr
                                                       param_specs, shard_params,
                                                       step_collectives, tree_leaves, tree_map,
                                                       tree_names)
+from gpumounter_tpu_torch.rpc.api import (AddGPURequest, AddGPUResult, RemoveGPURequest,
+                                          RemoveGPUResult)
+from gpumounter_tpu_torch.testing.cluster import FakeCluster
 from gpumounter_tpu_torch.topology import lookup
 from gpumounter_tpu_torch.torchside.resume import (HotResumable, load_optimizer_state,
                                                    optimizer_state_specs, optimizer_state_tree)
+from gpumounter_tpu_torch.worker.server import ServiceError
 
 TRAIN_GRAD_ATOL = 5e-3  # the reference's kernel-vs-xla grad limit
 # The dryrun's limits: a sharded first-step loss against the unsharded loss
@@ -1027,3 +1040,211 @@ def dryrun_multichip(n: int, device="cuda", *, backend: str, timeout_s: float = 
     return {"sections": sections, "stretch": stretch, "seq_shape": seq_mesh_shape(n),
             "pipe_stages": min(4, n), "plan": plan,
             "seconds": {"sections": t1 - t0, "stretch": t2 - t1}}
+
+
+# --- the one-node hot-mount (the control plane's add and remove flows) ---
+
+#: the capability mknod(2) of a device node needs (linux/capability.h).
+CAP_MKNOD = 27
+
+
+def has_cap_mknod(status_path: str = "/proc/self/status") -> bool:
+    """Is CAP_MKNOD in this process's effective set (CapEff)?"""
+    with open(status_path) as f:
+        for line in f:
+            if line.startswith("CapEff:"):
+                return bool(int(line.split()[1], 16) >> CAP_MKNOD & 1)
+    raise RuntimeError(f"no CapEff line in {status_path}")
+
+
+def pick_identity(procfs_dir: str = "/proc/driver/nvidia/gpus") -> str:
+    """The identity source a host offers: the driver's procfs where it
+    lists the GPUs, else NVML (a sandboxed driver may show no procfs)."""
+    return "procfs" if os.path.isdir(procfs_dir) else "nvml"
+
+
+def make_identity(name: str):
+    return identity_from_config(Config(gpu_identity_source=name))
+
+
+def _smi_gpus() -> list[dict]:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=index,uuid,pci.bus_id",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60, check=True).stdout
+    gpus = []
+    for line in out.strip().splitlines():
+        index, uuid, pci = (x.strip() for x in line.split(","))
+        gpus.append({"index": int(index), "uuid": uuid, "pci_bus_id": pci})
+    return gpus
+
+
+def inventory_check(identity: str, device_dir: str = "/dev") -> dict:
+    """The live backend's inventory against nvidia-smi and stat(2): each
+    GPU's NVML index, UUID and PCI bus id equal to nvidia-smi's ("[N/A]"
+    there is "" here), and its node's and every companion's major:minor
+    equal to os.stat's. Returns {"identity", "scan" (the NodeScan),
+    "smi"}; raises on a mismatch."""
+    backend = NvidiaDeviceBackend(device_dir, identity=make_identity(identity))
+    scan = backend.scan()
+    smi = {g["index"]: g for g in _smi_gpus()}
+    if sorted(smi) != sorted(d.index for d in scan.devices):
+        raise RuntimeError(f"GPUs listed {[d.index for d in scan.devices]} (identity "
+                           f"{identity}), nvidia-smi lists {sorted(smi)}")
+    for dev in scan.devices:
+        want = smi[dev.index]
+        want_pci = "" if want["pci_bus_id"] == "[N/A]" else want["pci_bus_id"]
+        if dev.uuid != want["uuid"] or dev.pci_bus_id.lower() != want_pci.lower():
+            raise RuntimeError(f"GPU {dev.index}: uuid/pci {dev.uuid} {dev.pci_bus_id!r} "
+                               f"against nvidia-smi's {want['uuid']} {want['pci_bus_id']!r}")
+        for path, major, minor in [(dev.device_path, dev.major, dev.minor)] + [
+                (os.path.join(device_dir, c.rel_path), c.major, c.minor)
+                for c in dev.companions]:
+            st = os.stat(path)
+            if (os.major(st.st_rdev), os.minor(st.st_rdev)) != (major, minor):
+                raise RuntimeError(f"{path}: {major}:{minor} against stat's "
+                                   f"{os.major(st.st_rdev)}:{os.minor(st.st_rdev)}")
+    return {"identity": identity, "scan": scan, "smi": smi}
+
+
+def busy_health_check(backend, dev) -> dict:
+    """This process has CUDA open: the /proc scan must count it among the
+    GPU's holders, and the probe must find the GPU healthy. Returns
+    {"holders", "scan_ms" (one full /proc scan, host clock), "pids"
+    (processes under /proc)}."""
+    t0 = time.perf_counter()
+    holders = backend.running_pids(dev)
+    scan_ms = (time.perf_counter() - t0) * 1e3
+    if os.getpid() not in holders:
+        raise RuntimeError(f"the /proc scan of {dev.device_path} found holders {holders}, "
+                           f"not this process ({os.getpid()}), which has CUDA open")
+    healthy, why = backend.probe_device(dev)
+    if not healthy:
+        raise RuntimeError(f"probe_device of {dev.device_path}: unhealthy ({why})")
+    pids = sum(1 for e in os.listdir("/proc") if e.isdigit())
+    return {"holders": holders, "scan_ms": scan_ms, "pids": pids}
+
+
+def _released(cluster, pod, free_before: int) -> None:
+    slaves = cluster.kube.list_pods(cluster.cfg.pool_namespace,
+                                    label_selector=f"tpumounter.io/owner-uid={pod.uid}")
+    if slaves or cluster.free_gpu_count() != free_before:
+        raise RuntimeError(f"not released: slave pods {[Pod(s).name for s in slaves]}, "
+                           f"{cluster.free_gpu_count()} GPU(s) free, {free_before} before")
+
+
+def _check_nodes(backend, uuids: list[str], dev_dir: str, live: bool) -> None:
+    """Each GPU's node and companions in `dev_dir`: character devices with
+    the backend's numbers (a fake node may be a copy where mknod is
+    refused)."""
+    for uuid in uuids:
+        dev = backend.device_by_uuid(uuid)
+        for name, major, minor in [(dev.basename, dev.major, dev.minor)] + [
+                (c.rel_path, c.major, c.minor) for c in dev.companions]:
+            st = os.stat(os.path.join(dev_dir, name))
+            if statmod.S_ISCHR(st.st_mode):
+                if (os.major(st.st_rdev), os.minor(st.st_rdev)) != (major, minor):
+                    raise RuntimeError(f"injected {name}: {os.major(st.st_rdev)}:"
+                                       f"{os.minor(st.st_rdev)}, the GPU's {major}:{minor}")
+            elif live or not statmod.S_ISREG(st.st_mode):
+                raise RuntimeError(f"injected {name} is not a character device")
+
+
+def _mount_flow(cluster, service, dev_dir: str, n: int, repeats: int, expect: str,
+                on_mounted=None, live: bool = False) -> dict:
+    """`repeats` times: add_gpu(n) into a target pod, then (when it
+    mounted) remove_gpu, each checked; `expect` is "round-trip" or
+    "refused" (the mknod refusal naming CAP_MKNOD, with the allocation
+    rolled back). on_mounted(uuids, dev_dir) runs once, while mounted."""
+    pod = cluster.add_target_pod(f"tenant-{n}")
+    free = cluster.free_gpu_count()
+    out = {"case": expect, "n": n, "add_ms": [], "remove_ms": [], "uuids": None,
+           "refusal": None, "add_phases_ms": None, "remove_phases_ms": None}
+    for i in range(repeats):
+        t0 = time.perf_counter()
+        try:
+            added = service.add_gpu(AddGPURequest(pod.name, pod.namespace, n))
+        except ServiceError as exc:
+            out["add_ms"].append((time.perf_counter() - t0) * 1e3)
+            if expect != "refused" or "CAP_MKNOD" not in exc.message:
+                raise
+            _released(cluster, pod, free)
+            out["refusal"] = exc.message
+            continue
+        out["add_ms"].append((time.perf_counter() - t0) * 1e3)
+        if added.add_gpu_result != AddGPUResult.Success or len(added.uuids) != n:
+            raise RuntimeError(f"add_gpu({n}): {added}")
+        if expect == "refused":
+            raise RuntimeError(f"add_gpu({n}) mounted {added.uuids} without CAP_MKNOD")
+        _check_nodes(cluster.backend, added.uuids, dev_dir, live)
+        if cluster.free_gpu_count() != free - n:
+            raise RuntimeError(f"{cluster.free_gpu_count()} GPU(s) free after add_gpu({n}), "
+                               f"{free} before")
+        if on_mounted is not None and i == 0:
+            on_mounted(added.uuids, dev_dir)
+        t0 = time.perf_counter()
+        removed = service.remove_gpu(RemoveGPURequest(pod.name, pod.namespace, added.uuids))
+        out["remove_ms"].append((time.perf_counter() - t0) * 1e3)
+        if removed.remove_gpu_result != RemoveGPUResult.Success:
+            raise RuntimeError(f"remove_gpu({added.uuids}): {removed}")
+        for uuid in added.uuids:
+            if os.path.lexists(os.path.join(dev_dir, cluster.backend.device_by_uuid(uuid).basename)):
+                raise RuntimeError(f"{uuid}'s node still in {dev_dir} after remove_gpu")
+        _released(cluster, pod, free)
+        out.update(uuids=added.uuids, add_phases_ms=added.phases_ms,
+                   remove_phases_ms=removed.phases_ms)
+    return out
+
+
+def mount_check(device="cuda", *, dev_dir: str | None = None, ns_pid: int | None = None,
+                cgroup_dirs=(), identity: str = "nvml", fake_gpus: int = 8,
+                repeats: int = 3, on_mounted=None) -> dict:
+    """The worker's add and remove flows in process (``GpuMountService``
+    over a ``FakeCluster``), checked and timed.
+
+    On the card (device="cuda"): over the live ``NvidiaDeviceBackend`` on
+    /dev (identity "nvml" or "procfs"), add_gpu(1) into `dev_dir` (a new
+    temporary directory when None), entering the mount namespace of
+    `ns_pid` when given and granting on `cgroup_dirs` (cgroup v1; when
+    empty, a stand-in directory of the v1 files with no process in it: the
+    caller holds the card open, and a target without a cgroup would count
+    it among the GPU's holders, so remove_gpu would answer GPUBusy and a
+    rollback would kill the caller): with
+    CAP_MKNOD the GPU's node and companions must land as character devices
+    with its numbers, then remove_gpu must take the node away and release
+    the slave pod; without it add_gpu must fail with the refusal naming
+    CAP_MKNOD and roll the allocation back. on_mounted(uuids, dev_dir)
+    runs once while the GPU is mounted. Then, as with device="cpu", the
+    same flows of 1 and of `fake_gpus` GPUs on a ``FakeDeviceBackend`` of
+    `fake_gpus`. Runs on the card unless the caller passes device="cpu".
+
+    Returns {"live": the flow's report (card only), "cap_mknod", "fake":
+    {n: report}}; a report holds the case, add_ms and remove_ms (host
+    clock, each repeat), the UUIDs mounted, the refusal, and the last
+    flow's phase timings."""
+    device = resolve_device(device)
+    report = {"cap_mknod": has_cap_mknod()}
+    root = tempfile.mkdtemp(prefix="mount-check-")
+    try:
+        if device.type == "cuda":
+            backend = NvidiaDeviceBackend("/dev", identity=make_identity(identity))
+            cluster = FakeCluster(backend)
+            target = dev_dir or os.path.join(root, "tenant-dev")
+            os.makedirs(target, exist_ok=True)
+            if not cgroup_dirs:
+                cgroup_dirs = [os.path.join(root, "cgroup")]
+                os.makedirs(cgroup_dirs[0])
+                for name in ("cgroup.procs", "devices.allow", "devices.deny"):
+                    open(os.path.join(cgroup_dirs[0], name), "w").close()
+            service = cluster.service(target, ns_pid=ns_pid, cgroup_dirs=cgroup_dirs)
+            expect = "round-trip" if report["cap_mknod"] else "refused"
+            report["live"] = _mount_flow(cluster, service, target, 1, repeats, expect,
+                                         on_mounted=on_mounted, live=True)
+        fake = FakeCluster.with_fake_gpus(os.path.join(root, "fake"), fake_gpus)
+        fake_dir = os.path.join(root, "fake-tenant-dev")
+        os.makedirs(fake_dir)
+        service = fake.service(fake_dir)
+        report["fake"] = {n: _mount_flow(fake, service, fake_dir, n, repeats, "round-trip")
+                          for n in sorted({1, fake_gpus})}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return report

@@ -37,6 +37,23 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package(path):
         assert not bad, f"{path.name}:{node.lineno} imports {bad}"
 
 
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_port_imports_no_grpc(path):
+    """The card's machine has no grpc: the control plane's flows run in
+    process, and the wire comes with the transport."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [alias.name for alias in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module]
+        else:
+            continue
+        assert not [n for n in names if n.split(".")[0] == "grpc"], \
+            f"{path.name}:{node.lineno} imports {names}"
+
+
 def test_banned_names_match_exactly():
     assert _banned("gpumounter_tpu") and _banned("gpumounter_tpu.ops")
     assert _banned("jax.numpy") and _banned("jaxlib")
