@@ -124,8 +124,7 @@ Phases, each raising on failure (any failure exits non-zero):
       a rank; ``seq_checks`` on (2, 4); ``pipeline_checks`` on 4 stages),
       then the stretch, 16 ranks on the H100 plan's (2, 8) mesh; each
       section's numbers against its limits and its launches per rank;
-10. the control plane's hot-mount of a GPU on one node, in process (no
-    gRPC: the card's machine has none):
+10. the control plane's hot-mount of a GPU on one node, in process:
     a. the live ``NvidiaDeviceBackend`` on /dev (identity from the
        driver's procfs where it lists the GPUs, else NVML): exactly one
        GPU, its UUID and PCI bus id equal to nvidia-smi's, its node's and
@@ -133,21 +132,37 @@ Phases, each raising on failure (any failure exits non-zero):
        node printed with what it was tied to (a node of no GPU's minor is
        no device);
     b. this process (CUDA open) among the GPU's holders in a /proc scan,
-       ``probe_device`` healthy; one scan and one namespace entry timed;
+       ``probe_device`` healthy; one scan and one namespace entry (the
+       helper ``nsutil/nsexec.py`` in a new interpreter) timed;
     c. ``entry.mount_check``: ``GpuMountService`` over a ``FakeCluster``
        of the live backend; add_gpu(1) into a tmpfs directory through this
        process's mount namespace, granting on a child of the cgroup-v1
        devices hierarchy where one is writable: with CAP_MKNOD (read from
        CapEff first) the node and its companions land as character devices
-       with the card's numbers and remove_gpu takes them away and releases
-       the slave pod; without it add_gpu fails with the refusal naming
-       CAP_MKNOD and is rolled back; 3 times each, timed; the same flows on
-       a fake host of 8 GPUs (add_gpu(1) and add_gpu(8));
-    d. a tenant child (``--mount-child``) with CUDA_VISIBLE_DEVICES set to
-       the UUID the worker assigned, after ``gpus_visible_in_dev`` read 1:
-       CUDA's device 0 has that UUID, and phase 3's first forward runs
-       through ``flash_fwd`` (2 launches, NLL in phase 3's range); its
-       exec -> CUDA ready printed beside phase 6's.
+       with the card's numbers (``gpus_visible_in_dev`` reads 1) and
+       remove_gpu takes them away and releases the slave pod; without it
+       add_gpu fails with the refusal naming CAP_MKNOD and is rolled back;
+       3 times each, timed; the same flows on a fake host of 8 GPUs
+       (add_gpu(1) and add_gpu(8));
+11. the hot-mount through the master: ``entry.master_check``, the port's
+    ``MasterApp`` on an HTTP server on 127.0.0.1 routing to that
+    ``GpuMountService`` over the worker's gRPC server (the kubelet's
+    pod-resources over its gRPC socket too):
+    a. GET /addgpu/namespace/default/pod/<pod>/gpu/1/isEntireMount/false,
+       the node checked in the tenant directory, then POST
+       /removegpu/.../force/false with its UUID, the node gone and the
+       slave pod released; 3 times, each request's round trip printed
+       beside phase 10's in-process add_gpu(1) and remove_gpu (the
+       difference is the master, HTTP and the codec);
+    b. a tenant child (``--mount-child``) with CUDA_VISIBLE_DEVICES set to
+       the UUID the HTTP add mounted: CUDA's device 0 has that UUID, and
+       phase 3's first forward runs through ``flash_fwd`` (2 launches, NLL
+       in phase 3's range); its exec -> CUDA ready printed beside phase 6's;
+    c. the error mapping on the live host: gpu/2 on the one card answers 500
+       Insufficient (a second nvidiaN node of the card is no GPU), an
+       unknown pod 404, an unknown UUID 400, no token 401; the flows of 1
+       and 8 GPUs and the same errors on a fake host of 8 GPUs; the worker
+       call alone and the codec timed.
 
 The last lines are a JSON object per kernel (``{"kernels": [...]}``) and
 ``{"ok": true, "device": {...}}``, and the exit code is 0. A failing check
@@ -158,6 +173,7 @@ Needs a CUDA card; imports no JAX.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -191,9 +207,9 @@ from gpumounter_tpu_torch.entry import (MOE_ROUTE_GAP, ONE_PROCESS_LOSS_ATOL,
                                         against_one_process, busy_health_check, check_config,
                                         dryrun_multichip, grow_check, has_cap_mknod,
                                         inventory_check, kernel_launches, make_identity,
-                                        moe_blocks_vs_plain, moe_check, mount_check,
-                                        pick_identity, reset_kernel_launches, route_flips,
-                                        sharded_step_check, tp_checks, train_check)
+                                        master_check, moe_blocks_vs_plain, moe_check,
+                                        mount_check, pick_identity, reset_kernel_launches,
+                                        route_flips, sharded_step_check, tp_checks, train_check)
 from gpumounter_tpu_torch.nsutil.ns import run_in_mount_ns
 from gpumounter_tpu_torch.models.probe import (TransformerConfig, _attend, _attend_decode,
                                                _decoder, _embed, _finish_block, _forward_impl,
@@ -2426,7 +2442,7 @@ def _tenant_child(uuid: str) -> dict:
     return report
 
 
-def phase_mount(card: str, handoff_ready_ms: dict) -> int:
+def phase_mount(card: str) -> dict:
     """Phase 10: the live NvidiaDeviceBackend's inventory against
     nvidia-smi and stat(2); this process among the GPU's holders and the
     GPU healthy; the worker's add_gpu / remove_gpu in process over a
@@ -2435,9 +2451,9 @@ def phase_mount(card: str, handoff_ready_ms: dict) -> int:
     /dev (a container's /dev is a tmpfs; the checkout's filesystem may
     refuse device nodes) through the mount namespace of this process, with
     the grant on a child of the cgroup-v1 devices hierarchy where one is
-    writable; the same flows on a fake host of 8 GPUs; and a tenant child
-    on the worker's UUID running the forward through flash_fwd. Returns
-    the child's flash_fwd launches."""
+    writable; the same flows on a fake host of 8 GPUs. Returns
+    ``mount_check``'s report (phase 11 prints its times beside the HTTP
+    flows')."""
     t_phase = time.perf_counter()
     identity = pick_identity()
     print(f"mount inventory: identity source {identity} (/proc/driver/nvidia/gpus "
@@ -2468,62 +2484,33 @@ def phase_mount(card: str, handoff_ready_ms: dict) -> int:
     fork_ms = []
     for _ in range(MOUNT["REPEATS"]):
         t = time.perf_counter()
-        run_in_mount_ns(os.getpid(), lambda: None)
+        run_in_mount_ns(os.getpid(), [])
         fork_ms.append((time.perf_counter() - t) * 1e3)
-    print(f"time mount namespace entry (fork of this process with CUDA open, setns, _exit, "
-          f"wait): {_runs(fork_ms)} [{card}]", flush=True)
+    print(f"time mount namespace entry (the helper nsutil/nsexec.py in a new interpreter: "
+          f"spawn, setns, exit, wait): {_runs(fork_ms)} [{card}]", flush=True)
 
-    cap = has_cap_mknod()
-    dev_dir = tempfile.mkdtemp(prefix="tenant-dev-", dir="/dev/shm")
-    devices_root = "/sys/fs/cgroup/devices"
-    cgroup_dir = None
-    if detect_cgroup_version() == 1 and os.access(devices_root, os.W_OK):
-        cgroup_dir = os.path.join(devices_root, f"tpumounter-phase10-{os.getpid()}")
-        os.mkdir(cgroup_dir)
-    print(f"mount flow: CapEff {'has' if cap else 'lacks'} CAP_MKNOD, so the "
-          f"{'round trip (inject, then remove)' if cap else 'refusal and rollback'} case runs; "
-          f"target {dev_dir} ({_filesystem(dev_dir)}) through the mount namespace of PID "
-          f"{os.getpid()}; cgroup "
-          f"{cgroup_dir or '(no writable v1 devices hierarchy: a stand-in directory)'}",
-          flush=True)
-    children = []
+    seen = []
 
     def on_mounted(uuids, target):
         visible = gpus_visible_in_dev(target)
         if visible != 1:
             raise RuntimeError(f"gpus_visible_in_dev({target}) = {visible} with {uuids} mounted")
-        children.append({**_tenant_child(uuids[0]), "visible_in_dev": visible})
+        seen.append(visible)
 
-    try:
+    with _tenant_target("phase10") as (dev_dir, cgroup_dir):
         report = mount_check("cuda", dev_dir=dev_dir, ns_pid=os.getpid(),
                              cgroup_dirs=[cgroup_dir] if cgroup_dir else (),
                              identity=identity, fake_gpus=MOUNT["FAKE_GPUS"],
                              repeats=MOUNT["REPEATS"], on_mounted=on_mounted)
-    finally:
-        shutil.rmtree(dev_dir, ignore_errors=True)
-        if cgroup_dir:
-            os.rmdir(cgroup_dir)
     live = report["live"]
     if live["case"] == "round-trip":
         print(f"mount flow: add_gpu(1) mounted {live['uuids']}: /dev/{dev.basename} and "
               f"{len(dev.companions)} companion(s) landed as character devices with the card's "
-              f"numbers, gpus_visible_in_dev read {children[0]['visible_in_dev']}; remove_gpu "
-              f"took the node away and released the slave pod; {MOUNT['REPEATS']} round trips",
-              flush=True)
+              f"numbers, gpus_visible_in_dev read {seen[0]}; remove_gpu took the node away and "
+              f"released the slave pod; {MOUNT['REPEATS']} round trips", flush=True)
     else:
         print(f"mount flow: add_gpu(1) refused, {live['refusal']!r}; the slave pod deleted and "
               f"the free count back to 1, {MOUNT['REPEATS']} times", flush=True)
-        children.append({**_tenant_child(dev.uuid), "visible_in_dev": None})
-    child = children[0]
-    print(f"mount tenant: CUDA_VISIBLE_DEVICES={child['uuid']} (the worker's UUID) gives "
-          f"device 0 {child['device']} of that UUID; full-width forward through flash_fwd, "
-          f"launches {child['launches']}, nll {child['nll']:.4f} (log V "
-          f"{math.log(full_width_config().vocab):.4f})", flush=True)
-    print(f"time mount tenant exec -> CUDA ready: {child['exec_to_cuda_ready_ms']:.1f} ms "
-          f"(spawn of python3 chip_smoke.py --mount-child to torch.cuda.init() done); phase 6's "
-          f"new image exec -> CUDA ready, median: "
-          + ", ".join(f"{k} {v:.1f} ms" for k, v in handoff_ready_ms.items()) + f" [{card}]",
-          flush=True)
     for name, flow in [("live", live)] + [(f"fake {n}-GPU host ({MOUNT['FAKE_GPUS']} GPUs)", f)
                                           for n, f in report["fake"].items()]:
         what = f"add_gpu({flow['n']})" + (" refused" if flow["case"] == "refused" else "")
@@ -2535,6 +2522,106 @@ def phase_mount(card: str, handoff_ready_ms: dict) -> int:
                      f"{flow['remove_phases_ms']}")
         print(line + f" [{card}]", flush=True)
     print(f"time mount phase 10: {time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
+    report["device"] = dev
+    return report
+
+
+@contextlib.contextmanager
+def _tenant_target(tag: str):
+    """(dev_dir, cgroup_dir): a tmpfs directory standing for the tenant's
+    /dev, and a child of the cgroup-v1 devices hierarchy where one is
+    writable (else None); printed, and removed on exit."""
+    dev_dir = tempfile.mkdtemp(prefix="tenant-dev-", dir="/dev/shm")
+    devices_root = "/sys/fs/cgroup/devices"
+    cgroup_dir = None
+    if detect_cgroup_version() == 1 and os.access(devices_root, os.W_OK):
+        cgroup_dir = os.path.join(devices_root, f"tpumounter-{tag}-{os.getpid()}")
+        os.mkdir(cgroup_dir)
+    print(f"mount target ({tag}): CapEff {'has' if has_cap_mknod() else 'lacks'} CAP_MKNOD, "
+          f"so the {'round trip (inject, then remove)' if has_cap_mknod() else 'refusal and rollback'}"
+          f" case runs; {dev_dir} ({_filesystem(dev_dir)}) through the mount namespace of PID "
+          f"{os.getpid()}; cgroup "
+          f"{cgroup_dir or '(no writable v1 devices hierarchy: a stand-in directory)'}",
+          flush=True)
+    try:
+        yield dev_dir, cgroup_dir
+    finally:
+        shutil.rmtree(dev_dir, ignore_errors=True)
+        if cgroup_dir:
+            os.rmdir(cgroup_dir)
+
+
+def phase_master(card: str, mount_report: dict, handoff_ready_ms: dict) -> int:
+    """Phase 11: the hot-mount through the master. ``entry.master_check`` on
+    the card: GET /addgpu/.../gpu/1/isEntireMount/false to the port's
+    MasterApp on 127.0.0.1, routed to the node's GpuMountService over the
+    worker's gRPC server, into the same kind of target as phase 10; a tenant child on the UUID that request mounted (CUDA's device 0
+    that UUID, phase 3's first forward through flash_fwd); POST
+    /removegpu/.../force/false; the error mapping on the live host (gpu/2
+    on one card 500 Insufficient, an unknown pod 404, an unknown UUID 400,
+    no token 401); the same flows on a fake host of 8 GPUs. The HTTP add and
+    remove times are printed beside phase 10's in-process ones. Returns the
+    child's flash_fwd launches."""
+    t_phase = time.perf_counter()
+    dev = mount_report["device"]
+    children = []
+
+    def on_mounted(uuids, target):
+        visible = gpus_visible_in_dev(target)
+        if visible != 1:
+            raise RuntimeError(f"gpus_visible_in_dev({target}) = {visible} after the HTTP add "
+                               f"of {uuids}")
+        children.append({**_tenant_child(uuids[0]), "visible_in_dev": visible})
+
+    with _tenant_target("phase11") as (dev_dir, cgroup_dir):
+        report = master_check("cuda", dev_dir=dev_dir, ns_pid=os.getpid(),
+                              cgroup_dirs=[cgroup_dir] if cgroup_dir else (),
+                              identity=pick_identity(), fake_gpus=MOUNT["FAKE_GPUS"],
+                              repeats=MOUNT["REPEATS"], on_mounted=on_mounted)
+    print(f"master transport: gRPC (the worker's server and the kubelet's socket); the "
+          f"master's HTTP server on 127.0.0.1 answered every request [{card}]", flush=True)
+    live = report["live"]
+    if live["case"] == "round-trip":
+        print(f"master flow: GET /addgpu/namespace/default/pod/tenant-http-1/gpu/1/"
+              f"isEntireMount/false answered 200 'Add GPU Success', mounting {live['uuids']} "
+              f"(gpus_visible_in_dev read {children[0]['visible_in_dev']}); POST "
+              f"/removegpu/.../force/false with that UUID answered 200, the node gone and the "
+              f"slave pod released; {MOUNT['REPEATS']} round trips", flush=True)
+    else:
+        print(f"master flow: the HTTP add refused, {live['refusal']!r}; rolled back, "
+              f"{MOUNT['REPEATS']} times", flush=True)
+        children.append({**_tenant_child(dev.uuid), "visible_in_dev": None})
+    print("master errors on the live host: " + "; ".join(
+        f"{case} {status} {body!r}" for case, (status, body) in report["live_errors"].items()),
+        flush=True)
+    child = children[0]
+    print(f"mount tenant: CUDA_VISIBLE_DEVICES={child['uuid']} (the UUID the HTTP add mounted) "
+          f"gives device 0 {child['device']} of that UUID; full-width forward through "
+          f"flash_fwd, launches {child['launches']}, nll {child['nll']:.4f} (log V "
+          f"{math.log(full_width_config().vocab):.4f})", flush=True)
+    print(f"time mount tenant exec -> CUDA ready: {child['exec_to_cuda_ready_ms']:.1f} ms "
+          f"(spawn of python3 chip_smoke.py --mount-child to torch.cuda.init() done); phase 6's "
+          f"new image exec -> CUDA ready, median: "
+          + ", ".join(f"{k} {v:.1f} ms" for k, v in handoff_ready_ms.items()) + f" [{card}]",
+          flush=True)
+    in_process = mount_report["live"]
+    what = "refused" if live["case"] == "refused" else "round trip"
+    print(f"time master live HTTP add (GET /addgpu .../gpu/1, {what}): {_runs(live['add_ms'])}"
+          + (f"; HTTP remove: {_runs(live['remove_ms'])}" if live["remove_ms"] else "")
+          + f"; phase 10's in-process add_gpu(1): {_runs(in_process['add_ms'])}"
+          + (f", remove_gpu: {_runs(in_process['remove_ms'])}" if in_process["remove_ms"]
+             else "") + f" [{card}]", flush=True)
+    for n, flow in report["fake"].items():
+        base = mount_report["fake"][n]
+        print(f"time master fake {n}-GPU host ({MOUNT['FAKE_GPUS']} GPUs) HTTP add: "
+              f"{_runs(flow['add_ms'])}; HTTP remove: {_runs(flow['remove_ms'])}; phase 10's "
+              f"in process: add_gpu({n}) {_runs(base['add_ms'])}, remove_gpu "
+              f"{_runs(base['remove_ms'])} [{card}]", flush=True)
+    print(f"time master worker call alone (AddGPU of a missing pod over gRPC): "
+          f"live {_runs(report['call_ms']['live'])}, fake host {_runs(report['call_ms']['fake'])}"
+          f"; the wire codec, one AddGPU and one RemoveGPU exchange encoded and decoded: "
+          f"{report['codec_ms'] * 1e3:.1f} us [{card}]", flush=True)
+    print(f"time master phase 11: {time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
     return sum(c["launches"]["flash_fwd"] for c in children)
 
 
@@ -2627,7 +2714,9 @@ def _phases(stage: list, t0: float) -> None:
     grow_launches = phase_grow(card)
     dryrun_launches = phase_dryrun(card)
     stage.append("10 (the hot-mount on the card)")
-    mount_launches = phase_mount(card, handoff_ready_ms)
+    mount_report = phase_mount(card)
+    stage.append("11 (the hot-mount through the master)")
+    mount_launches = phase_master(card, mount_report, handoff_ready_ms)
     sharded = {k: sharded_launches[k] + seq_pipe_launches[k] + grow_launches[k]
                + dryrun_launches[k] for k in sharded_launches}
 
@@ -2642,9 +2731,10 @@ def _phases(stage: list, t0: float) -> None:
           f"the sharded phase (every rank's sharded steps): {sharded_launches}; the "
           f"seq/pipeline phase (every rank's dp x sp and pipeline steps): {seq_pipe_launches}; "
           f"the grow phase (every rank's steps in both worlds): {grow_launches}; the dryrun "
-          f"(every rank's sharded steps): {dryrun_launches}; the hot-mount's tenant child: "
-          f"flash_fwd {mount_launches}", flush=True)
-    print(f"chip_smoke: phases 1-10 took {time.perf_counter() - t0:.1f} s, the kernels' build "
+          f"(every rank's sharded steps): {dryrun_launches}; the hot-mount's tenant child "
+          f"(phase 11, on the UUID the HTTP add mounted): flash_fwd {mount_launches}",
+          flush=True)
+    print(f"chip_smoke: phases 1-11 took {time.perf_counter() - t0:.1f} s, the kernels' build "
           f"included [{card}]", flush=True)
     bwd_source = "gpumounter_tpu_torch/ops/csrc/flash_bwd.cu"
     print(json.dumps({"kernels": [{

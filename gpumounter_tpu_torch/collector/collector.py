@@ -15,9 +15,9 @@ strategy) or an NVML index (its index strategy). An index is matched only
 against the NVML index, never against the minor number or a node's name:
 the two orders differ on hosts where PCI order and the driver's minors do.
 
-Where the reference serves a device-only inventory when the kubelet cannot
-be asked, this one raises: it has no socket to lose yet, only the kubelet
-it is handed.
+Where the reference serves a device-only inventory with stale ownership when
+the kubelet cannot be asked, this one raises the kubelet's error: every
+caller here is a mount or remove flow that would act on the stale marks.
 """
 
 from __future__ import annotations
@@ -38,8 +38,9 @@ _INDEX_RE = re.compile(r"^\d+$")
 
 class GpuCollector:
     def __init__(self, backend: DeviceBackend, podresources, cfg=None):
-        """podresources: an object whose ``list()`` answers as the
-        kubelet's PodResourcesLister.List (``InMemoryKubelet``)."""
+        """podresources: what answers the kubelet's PodResourcesLister.List
+        through ``list()``: a ``PodResourcesClient`` on the kubelet's socket,
+        or an ``InMemoryKubelet``; the collector uses the one it is given."""
         self.cfg = cfg or Config()
         self.backend = backend
         self._podresources = podresources

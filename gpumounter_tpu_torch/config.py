@@ -1,12 +1,13 @@
-"""Configuration of the worker's one-node mount path.
+"""Configuration of the control plane's mount path and its transport.
 
 The counterpart of ``gpumounter_tpu/config/config.py``, holding only the
-fields the device layer, the collector, the allocator, the cgroup layer and
-the mounter read. Every field is an environment variable with the original
+fields the device layer, the collector, the allocator, the cgroup layer, the
+mounter, the transport, the master and the two daemons read. Every field is an environment variable with the original
 GPUMounter's value as default; the names are the reference's where the
 meaning is the same. NVIDIA-specific: the resource ``nvidia.com/gpu``
 (``pkg/util/gpu/types.go:10``), the pool namespace ``gpu-pool``
-(``types.go:18``), and where a GPU's identity is read.
+(``types.go:18``), the worker pods' label ``app=gpu-mounter-worker``, the
+request cap ``MAX_GPU_PER_REQUEST``, and where a GPU's identity is read.
 """
 
 from __future__ import annotations
@@ -58,3 +59,53 @@ class Config:
     slave_pod_timeout_s: float = field(default_factory=lambda: float(
         _env("SLAVE_POD_TIMEOUT_S", "120")))
     slave_pod_name_suffix: str = "-slave-pod-"
+
+    # --- the kubelet's pod-resources API ---
+    # the original's socket (types.go:6-7); "auto" asks v1, then v1alpha1
+    kubelet_socket: str = field(default_factory=lambda: _env(
+        "KUBELET_POD_RESOURCES_SOCKET", "/var/lib/kubelet/pod-resources/kubelet.sock"))
+    pod_resources_api: str = field(default_factory=lambda: _env("POD_RESOURCES_API", "auto"))
+    kubelet_conn_timeout_s: float = field(default_factory=lambda: float(
+        _env("KUBELET_CONN_TIMEOUT_S", "10")))
+
+    # --- the daemons' ports ---
+    worker_port: int = field(default_factory=lambda: int(_env("WORKER_PORT", "1200")))
+    master_port: int = field(default_factory=lambda: int(_env("MASTER_PORT", "8080")))
+    # the worker's ops port (/healthz)
+    metrics_port: int = field(default_factory=lambda: int(_env("METRICS_PORT", "9400")))
+
+    # --- the master ---
+    # the original parses gpuNum and never range-checks it
+    # (cmd/GPUMounter-master/main.go:31-43)
+    max_gpu_per_request: int = field(default_factory=lambda: int(
+        _env("MAX_GPU_PER_REQUEST", "64")))
+    worker_label_selector: str = field(default_factory=lambda: _env(
+        "WORKER_LABEL_SELECTOR", "app=gpu-mounter-worker"))
+    worker_namespace: str = field(default_factory=lambda: _env("WORKER_NAMESPACE", "kube-system"))
+
+    # --- master -> worker calls ---
+    # deadlines a method; bounded capped-exponential retries on UNAVAILABLE
+    # and DEADLINE_EXCEEDED; the breaker opens after this many transport
+    # failures in a row and lets one probe through after the reset
+    rpc_add_timeout_s: float = field(default_factory=lambda: float(
+        _env("RPC_ADD_TIMEOUT_S", "300")))
+    rpc_remove_timeout_s: float = field(default_factory=lambda: float(
+        _env("RPC_REMOVE_TIMEOUT_S", "120")))
+    rpc_max_attempts: int = field(default_factory=lambda: int(_env("RPC_MAX_ATTEMPTS", "3")))
+    rpc_retry_base_s: float = field(default_factory=lambda: float(
+        _env("RPC_RETRY_BASE_S", "0.1")))
+    rpc_retry_cap_s: float = field(default_factory=lambda: float(_env("RPC_RETRY_CAP_S", "2")))
+    breaker_failure_threshold: int = field(default_factory=lambda: int(
+        _env("BREAKER_FAILURE_THRESHOLD", "5")))
+    breaker_reset_s: float = field(default_factory=lambda: float(_env("BREAKER_RESET_S", "30")))
+    # the master's pooled channels: idle ones close after this long, and
+    # keepalive pings keep the others warm
+    channel_idle_evict_s: float = field(default_factory=lambda: float(
+        _env("CHANNEL_IDLE_EVICT_S", "300")))
+    channel_keepalive_time_s: float = field(default_factory=lambda: float(
+        _env("CHANNEL_KEEPALIVE_TIME_S", "30")))
+
+    # --- auth (utils/auth.py): "token" (the default) needs a secret ---
+    auth_mode: str = field(default_factory=lambda: _env("TPUMOUNTER_AUTH", "token"))
+    auth_token: str = field(default_factory=lambda: _env("TPUMOUNTER_AUTH_TOKEN", ""))
+    auth_token_file: str = field(default_factory=lambda: _env("TPUMOUNTER_AUTH_TOKEN_FILE", ""))

@@ -12,11 +12,16 @@ from __future__ import annotations
 import dataclasses
 import math
 import os
+import secrets
 import shutil
 import stat as statmod
 import subprocess
 import tempfile
+import threading
 import time
+import urllib.error
+import urllib.parse
+import urllib.request
 
 import numpy as np
 import torch
@@ -26,6 +31,7 @@ from gpumounter_tpu_torch._device import resolve_device
 from gpumounter_tpu_torch.config import Config
 from gpumounter_tpu_torch.device.backend import NvidiaDeviceBackend, identity_from_config
 from gpumounter_tpu_torch.k8s.types import Pod
+from gpumounter_tpu_torch.master.app import MasterApp, build_http_server
 from gpumounter_tpu_torch.models.probe import (TransformerConfig, _attend, _block, _embed,
                                                _finish_block, _rmsnorm, forward, init_params,
                                                local_heads, loss_fn, next_token_nll)
@@ -48,13 +54,14 @@ from gpumounter_tpu_torch.parallel.train_step import (gather_params, loss_and_gr
                                                       param_specs, shard_params,
                                                       step_collectives, tree_leaves, tree_map,
                                                       tree_names)
-from gpumounter_tpu_torch.rpc.api import (AddGPURequest, AddGPUResult, RemoveGPURequest,
+from gpumounter_tpu_torch.rpc.api import (AddGPURequest, AddGPUResponse, AddGPUResult,
+                                          RemoveGPURequest, RemoveGPUResponse,
                                           RemoveGPUResult)
 from gpumounter_tpu_torch.testing.cluster import FakeCluster
 from gpumounter_tpu_torch.topology import lookup
 from gpumounter_tpu_torch.torchside.resume import (HotResumable, load_optimizer_state,
                                                    optimizer_state_specs, optimizer_state_tree)
-from gpumounter_tpu_torch.worker.server import ServiceError
+from gpumounter_tpu_torch.worker.server import ServiceError, build_server
 
 TRAIN_GRAD_ATOL = 5e-3  # the reference's kernel-vs-xla grad limit
 # The dryrun's limits: a sharded first-step loss against the unsharded loss
@@ -1149,6 +1156,20 @@ def _check_nodes(backend, uuids: list[str], dev_dir: str, live: bool) -> None:
                 raise RuntimeError(f"injected {name} is not a character device")
 
 
+def _live_target(root: str, dev_dir: str | None, cgroup_dirs) -> tuple[str, list]:
+    """The live flows' tenant directory (`dev_dir`, else a new one under
+    `root`) and cgroup directories (`cgroup_dirs`, else a stand-in of the v1
+    files with no process in it)."""
+    target = dev_dir or os.path.join(root, "tenant-dev")
+    os.makedirs(target, exist_ok=True)
+    if not cgroup_dirs:
+        cgroup_dirs = [os.path.join(root, "cgroup")]
+        os.makedirs(cgroup_dirs[0])
+        for name in ("cgroup.procs", "devices.allow", "devices.deny"):
+            open(os.path.join(cgroup_dirs[0], name), "w").close()
+    return target, list(cgroup_dirs)
+
+
 def _mount_flow(cluster, service, dev_dir: str, n: int, repeats: int, expect: str,
                 on_mounted=None, live: bool = False) -> dict:
     """`repeats` times: add_gpu(n) into a target pod, then (when it
@@ -1226,15 +1247,8 @@ def mount_check(device="cuda", *, dev_dir: str | None = None, ns_pid: int | None
     root = tempfile.mkdtemp(prefix="mount-check-")
     try:
         if device.type == "cuda":
-            backend = NvidiaDeviceBackend("/dev", identity=make_identity(identity))
-            cluster = FakeCluster(backend)
-            target = dev_dir or os.path.join(root, "tenant-dev")
-            os.makedirs(target, exist_ok=True)
-            if not cgroup_dirs:
-                cgroup_dirs = [os.path.join(root, "cgroup")]
-                os.makedirs(cgroup_dirs[0])
-                for name in ("cgroup.procs", "devices.allow", "devices.deny"):
-                    open(os.path.join(cgroup_dirs[0], name), "w").close()
+            cluster = FakeCluster(NvidiaDeviceBackend("/dev", identity=make_identity(identity)))
+            target, cgroup_dirs = _live_target(root, dev_dir, cgroup_dirs)
             service = cluster.service(target, ns_pid=ns_pid, cgroup_dirs=cgroup_dirs)
             expect = "round-trip" if report["cap_mknod"] else "refused"
             report["live"] = _mount_flow(cluster, service, target, 1, repeats, expect,
@@ -1245,6 +1259,223 @@ def mount_check(device="cuda", *, dev_dir: str | None = None, ns_pid: int | None
         service = fake.service(fake_dir)
         report["fake"] = {n: _mount_flow(fake, service, fake_dir, n, repeats, "round-trip")
                           for n in sorted({1, fake_gpus})}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return report
+
+
+# --- the master's flows over HTTP ---
+
+def _http(base: str, method: str, path: str, token: str | None, form: dict | None = None
+          ) -> tuple[int, str, float]:
+    """(status, body, ms on the host clock) of one request."""
+    data = urllib.parse.urlencode(form, doseq=True).encode() if form is not None else None
+    headers = {"Authorization": f"Bearer {token}"} if token else {}
+    req = urllib.request.Request(base + path, data=data, method=method, headers=headers)
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=60) as resp:
+            status, body = resp.status, resp.read().decode()
+    except urllib.error.HTTPError as exc:
+        status, body = exc.code, exc.read().decode()
+    return status, body, (time.perf_counter() - t0) * 1e3
+
+
+def _add_path(pod, n: int) -> str:
+    return f"/addgpu/namespace/{pod.namespace}/pod/{pod.name}/gpu/{n}/isEntireMount/false"
+
+
+def _remove_path(pod) -> str:
+    return f"/removegpu/namespace/{pod.namespace}/pod/{pod.name}/force/false"
+
+
+class _MasterStack:
+    """A node's worker behind the master's HTTP API on 127.0.0.1, over the
+    worker's gRPC server and the kubelet's gRPC socket. Stops all it
+    started on exit."""
+
+    def __init__(self, cluster: FakeCluster, dev_dir: str, ns_pid: int | None = None,
+                 cgroup_dirs=()):
+        self.cluster, self.token = cluster, cluster.cfg.auth_token
+        self.service = cluster.service(dev_dir, ns_pid=ns_pid, cgroup_dirs=cgroup_dirs,
+                                       kubelet="grpc")
+        self.grpc_server = build_server(self.service, address="127.0.0.1:0")
+        self.grpc_server.start()
+        cluster.register_worker()
+        self.app = MasterApp(cluster.kube, cfg=dataclasses.replace(
+            cluster.cfg, worker_port=self.grpc_server.bound_port))
+        self.httpd = build_http_server(self.app, port=0, host="127.0.0.1")
+        threading.Thread(target=self.httpd.serve_forever, name="master-http",
+                         daemon=True).start()
+        self.base = f"http://127.0.0.1:{self.httpd.server_address[1]}"
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.httpd.shutdown()
+        self.httpd.server_close()
+        self.app.registry.stop()
+        self.grpc_server.stop(None).wait()
+        self.cluster.stop()
+        return False
+
+    def http(self, method: str, path: str, form: dict | None = None, token: str | None = ""
+             ) -> tuple[int, str, float]:
+        return _http(self.base, method, path, self.token if token == "" else token, form)
+
+    def call_ms(self, repeats: int) -> list[float]:
+        """The worker call alone, `repeats` times: AddGPU of a pod that does
+        not exist (PodNotFound), over this stack's client, host clock."""
+        address = self.app.registry.worker_address(self.cluster.node_name)
+        out = []
+        for _ in range(repeats):
+            t0 = time.perf_counter()
+            with self.app._client_factory(address) as client:
+                result = client.add_gpu("no-such-pod", "default", 1).add_gpu_result
+            out.append((time.perf_counter() - t0) * 1e3)
+            if result != AddGPUResult.PodNotFound:
+                raise RuntimeError(f"AddGPU of a missing pod over gRPC: {result}")
+        return out
+
+
+def _master_flow(stack: _MasterStack, dev_dir: str, n: int, repeats: int, expect: str,
+                 on_mounted=None, live: bool = False) -> dict:
+    """`repeats` times: GET /addgpu/.../gpu/`n` into a target pod, then (when
+    it mounted) POST /removegpu/... with its UUIDs, each answer and its
+    effect checked; `expect` is "round-trip" or "refused" (500 naming
+    CAP_MKNOD, the allocation rolled back). on_mounted(uuids, dev_dir) runs
+    once, while mounted."""
+    cluster, service = stack.cluster, stack.service
+    pod = cluster.add_target_pod(f"tenant-http-{n}")
+    free = cluster.free_gpu_count()
+    out = {"case": expect, "n": n, "add_ms": [], "remove_ms": [], "uuids": None,
+           "refusal": None}
+    for i in range(repeats):
+        status, body, ms = stack.http("GET", _add_path(pod, n))
+        out["add_ms"].append(ms)
+        if expect == "refused":
+            if status != 500 or "CAP_MKNOD" not in body:
+                raise RuntimeError(f"add of {n} without CAP_MKNOD: {status} {body!r}")
+            _released(cluster, pod, free)
+            out["refusal"] = body.strip()
+            continue
+        if (status, body) != (200, "Add GPU Success\n"):
+            raise RuntimeError(f"GET {_add_path(pod, n)}: {status} {body!r}")
+        uuids = [d.uuid for d in service.collector.get_pod_devices(pod.name, pod.namespace)]
+        if len(uuids) != n:
+            raise RuntimeError(f"{len(uuids)} GPU(s) held after the add of {n}: {uuids}")
+        _check_nodes(cluster.backend, uuids, dev_dir, live)
+        if cluster.free_gpu_count() != free - n:
+            raise RuntimeError(f"{cluster.free_gpu_count()} GPU(s) free after the add of {n}, "
+                               f"{free} before")
+        if on_mounted is not None and i == 0:
+            on_mounted(uuids, dev_dir)
+        status, body, ms = stack.http("POST", _remove_path(pod), {"uuids": ",".join(uuids)})
+        out["remove_ms"].append(ms)
+        if (status, body) != (200, f"Remove {n} GPUs Success\n"):
+            raise RuntimeError(f"POST {_remove_path(pod)} {uuids}: {status} {body!r}")
+        for uuid in uuids:
+            if os.path.lexists(os.path.join(dev_dir,
+                                            cluster.backend.device_by_uuid(uuid).basename)):
+                raise RuntimeError(f"{uuid}'s node still in {dev_dir} after the remove")
+        _released(cluster, pod, free)
+        out["uuids"] = uuids
+    return out
+
+
+def _master_errors(stack: _MasterStack, dev_dir: str) -> dict:
+    """The error mapping against the stack's node: more GPUs than it has
+    (500 Insufficient, nothing mounted, nothing left booked), a pod that
+    does not exist (404), a UUID it does not hold (400 Invalid UUIDs), no
+    token (401). Returns {case: (status, first line of the body)}."""
+    cluster = stack.cluster
+    pod = cluster.add_target_pod("tenant-http-errors")
+    free = cluster.free_gpu_count()
+    before = sorted(os.listdir(dev_dir))
+    want = {"insufficient": (500, "Insufficient GPU on Node: " + cluster.node_name),
+            "no pod": (404, "No pod: ghost in namespace: default"),
+            "unknown uuid": (400, "Invalid UUIDs: GPU-not-here"),
+            "no token": (401, "missing or invalid bearer token")}
+    ghost = Pod({"metadata": {"name": "ghost", "namespace": "default"}})
+    got = {"insufficient": stack.http("GET", _add_path(pod, len(cluster.assignment) + 1)),
+           "no pod": stack.http("GET", _add_path(ghost, 1)),
+           "unknown uuid": stack.http("POST", _remove_path(pod), {"uuids": "GPU-not-here"}),
+           "no token": stack.http("GET", _add_path(pod, 1), token=None)}
+    got = {k: (status, body.strip()) for k, (status, body, _) in got.items()}
+    if got != want:
+        raise RuntimeError(f"the master's error mapping: {got}, expected {want}")
+    if sorted(os.listdir(dev_dir)) != before:
+        raise RuntimeError(f"the refused calls left {sorted(os.listdir(dev_dir))} in {dev_dir}")
+    _released(cluster, pod, free)
+    return got
+
+
+def _codec_ms(iters: int = 2000) -> float:
+    """One AddGPU and one RemoveGPU exchange through the wire codec (each
+    request and response encoded and decoded), host clock, averaged."""
+    add_req = AddGPURequest("tenant", "default", 1, False, "add-0123456789abcdef")
+    add_resp = AddGPUResponse(AddGPUResult.Success, ["GPU-00000000-1111-2222-3333-444444444444"])
+    rm_req = RemoveGPURequest("tenant", "default", add_resp.uuids, idempotency_key="rm-01234567")
+    rm_resp = RemoveGPUResponse(RemoveGPUResult.Success)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        for msg in (add_req, add_resp, rm_req, rm_resp):
+            type(msg).decode(msg.encode())
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def master_check(device="cuda", *, dev_dir: str | None = None, ns_pid: int | None = None,
+                 cgroup_dirs=(), identity: str = "nvml", fake_gpus: int = 8,
+                 repeats: int = 3, on_mounted=None) -> dict:
+    """The master's flows over HTTP: ``MasterApp`` on
+    ``build_http_server(port=0, host="127.0.0.1")``, routing to the node's
+    ``GpuMountService`` over gRPC (the worker's gRPC server, the kubelet
+    over gRPC). Without grpcio it raises ``ModuleNotFoundError`` naming
+    grpcio.
+
+    On the card (device="cuda"): a ``FakeCluster`` over the live
+    ``NvidiaDeviceBackend`` (as ``mount_check`` wires it: `dev_dir`,
+    `ns_pid`, `cgroup_dirs`, `identity`); GET /addgpu/.../gpu/1/
+    isEntireMount/false, the node checked in the tenant directory and
+    on_mounted(uuids, dev_dir) called once; POST /removegpu/.../force/false
+    with the UUID, the node gone and the slave pod released (without
+    CAP_MKNOD: the add answers 500 naming it, rolled back); then the error
+    mapping on the live host (gpu/2 on one card 500 Insufficient, an unknown
+    pod 404, an unknown UUID 400, no token 401). On both devices: the flows
+    of 1 and of `fake_gpus` GPUs and the error mapping on a fake host of
+    `fake_gpus`. `repeats` times each flow. Runs on the card unless the
+    caller passes device="cpu".
+
+    Returns {"cap_mknod", "codec_ms", "live" and
+    "live_errors" (card only), "fake": {n: flow}, "fake_errors",
+    "call_ms": {"live"?, "fake"}}; a flow holds the case, add_ms and
+    remove_ms (each request's round trip, host clock), the UUIDs mounted and
+    the refusal."""
+    device = resolve_device(device)
+    cfg = Config(auth_mode="token", auth_token=secrets.token_hex(16))
+    report = {"cap_mknod": has_cap_mknod(),
+              "codec_ms": _codec_ms(), "call_ms": {}}
+    root = tempfile.mkdtemp(prefix="master-check-")
+    try:
+        if device.type == "cuda":
+            cluster = FakeCluster(NvidiaDeviceBackend("/dev", identity=make_identity(identity)),
+                                  cfg=cfg)
+            target, dirs = _live_target(root, dev_dir, cgroup_dirs)
+            expect = "round-trip" if report["cap_mknod"] else "refused"
+            with _MasterStack(cluster, target, ns_pid, dirs) as stack:
+                report["live"] = _master_flow(stack, target, 1, repeats, expect,
+                                              on_mounted=on_mounted, live=True)
+                report["live_errors"] = _master_errors(stack, target)
+                report["call_ms"]["live"] = stack.call_ms(repeats)
+        fake = FakeCluster.with_fake_gpus(os.path.join(root, "fake"), fake_gpus, cfg=cfg)
+        fake_dir = os.path.join(root, "fake-tenant-dev")
+        os.makedirs(fake_dir)
+        with _MasterStack(fake, fake_dir) as stack:
+            report["fake"] = {n: _master_flow(stack, fake_dir, n, repeats, "round-trip")
+                              for n in sorted({1, fake_gpus})}
+            report["fake_errors"] = _master_errors(stack, fake_dir)
+            report["call_ms"]["fake"] = stack.call_ms(repeats)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return report

@@ -1,1 +1,2 @@
-"""The Kubernetes layer: pod JSON, the client surface, an in-memory fake."""
+"""The Kubernetes layer: pod JSON, the client surface, the REST client and an
+in-memory fake."""

@@ -1,18 +1,35 @@
-"""The surface of a Kubernetes client that the mount path uses.
+"""A Kubernetes client: the surface the control plane uses, and the REST
+client that speaks it to an API server.
 
-The counterpart of ``KubeClient`` in ``gpumounter_tpu/k8s/client.py``: pods
+The counterpart of ``gpumounter_tpu/k8s/client.py``. ``KubeClient`` is pods
 get / create / delete / list / patch and a watch, with ``wait_for_pod``
-composed on top. The REST client that speaks to an API server comes with
-the transport; ``k8s/fake.py`` implements this surface in memory.
+composed on top; ``k8s/fake.py`` implements it in memory. ``RestKubeClient``
+(:265-711 of the reference) implements it over HTTPS with the standard
+library, in place of the original's client-go (``pkg/config/config.go:30-45``):
+a bearer token and the cluster's CA, one kept-alive connection a thread,
+and the watch as a stream of JSON lines (``_WatchStream``), where the
+original busy-polls a pod's phase. ``in_cluster_client`` reads the pod's
+service account, ``kubeconfig_client`` a kubeconfig (pyyaml), and
+``default_client`` picks the first where a service-account token exists.
+
+Leases, events and nodes come with ``master/shard.py``, ``k8s/events.py``
+and ``health/``.
 """
 
 from __future__ import annotations
 
 import abc
+import json
+import os
+import socket
+import ssl
+import threading
 import time
+import urllib.parse
 from collections.abc import Iterator
+from typing import Any
 
-from gpumounter_tpu_torch.k8s.errors import NotFoundError
+from gpumounter_tpu_torch.k8s.errors import GoneError, NotFoundError, raise_for
 from gpumounter_tpu_torch.utils.log import get_logger
 
 logger = get_logger("k8s")
@@ -81,3 +98,324 @@ class KubeClient(abc.ABC):
                     return obj
                 if time.monotonic() >= deadline:
                     return None
+
+
+SA_DIR = "/var/run/secrets/kubernetes.io/serviceaccount"
+
+
+class RestKubeClient(KubeClient):
+    #: methods that a connection gone stale under a kept-alive socket may
+    #: send again once (the server may have seen the first send)
+    _STALE_RETRY_METHODS = frozenset({"GET", "PUT", "DELETE", "PATCH"})
+
+    def __init__(self, host: str, port: int, token: str, ca_file: str | None = None,
+                 verify: bool = True):
+        self.host = host
+        self.port = port
+        self.token = token
+        if verify:
+            self.ctx = ssl.create_default_context(cafile=ca_file)
+        else:
+            self.ctx = ssl.create_default_context()
+            self.ctx.check_hostname = False
+            self.ctx.verify_mode = ssl.CERT_NONE
+        # one kept-alive connection a calling thread (http.client's are not
+        # thread-safe, and a lock would serialize every call on one socket)
+        self._conn_local = threading.local()
+
+    # --- the request ---
+
+    def _connect(self, timeout: float = 30.0):
+        import http.client
+        return http.client.HTTPSConnection(self.host, self.port, context=self.ctx,
+                                           timeout=timeout)
+
+    def _headers(self, body, content_type: str) -> dict:
+        headers = {"Authorization": f"Bearer {self.token}", "Accept": "application/json"}
+        if body is not None:
+            headers["Content-Type"] = content_type
+        return headers
+
+    @staticmethod
+    def _stale_exceptions() -> tuple:
+        import http.client
+        return (http.client.NotConnected, http.client.CannotSendRequest,
+                http.client.BadStatusLine, http.client.ImproperConnectionState,
+                ConnectionError, BrokenPipeError, ssl.SSLEOFError)
+
+    def _drop_pooled(self) -> None:
+        conn = getattr(self._conn_local, "conn", None)
+        self._conn_local.conn = None
+        if conn is not None:
+            conn.close()
+
+    def _json(self, method: str, path: str, query: dict | None = None,
+              body: dict | None = None, content_type: str = "application/json") -> dict:
+        """A request on this thread's kept-alive connection. One that went
+        stale is rebuilt and the request sent again once: always when the
+        send itself failed (the server never saw it), else only for the
+        idempotent methods."""
+        qs = ("?" + urllib.parse.urlencode(query)) if query else ""
+        headers = self._headers(body, content_type)
+        payload = json.dumps(body) if body is not None else None
+        stale = self._stale_exceptions()
+        for attempt in (1, 2):
+            conn = getattr(self._conn_local, "conn", None)
+            fresh = conn is None
+            if fresh:
+                conn = self._conn_local.conn = self._connect()
+            sent = False
+            try:
+                conn.request(method, path + qs, body=payload, headers=headers)
+                sent = True
+                resp = conn.getresponse()
+                data = resp.read().decode("utf-8", "replace")
+            except stale:
+                self._drop_pooled()
+                if fresh or (sent and method not in self._STALE_RETRY_METHODS) \
+                        or attempt == 2:
+                    raise
+                logger.debug("kept-alive connection stale; reconnecting")
+                continue
+            except Exception:
+                self._drop_pooled()
+                raise
+            if resp.status >= 400:
+                raise_for(resp.status, data)
+            return json.loads(data) if data else {}
+        raise AssertionError("unreachable")
+
+    # --- pods ---
+
+    def get_pod(self, namespace: str, name: str) -> dict:
+        return self._json("GET", f"/api/v1/namespaces/{namespace}/pods/{name}")
+
+    def create_pod(self, namespace: str, manifest: dict) -> dict:
+        return self._json("POST", f"/api/v1/namespaces/{namespace}/pods", body=manifest)
+
+    def delete_pod(self, namespace: str, name: str, grace_period_seconds: int = 0) -> None:
+        try:
+            self._json("DELETE", f"/api/v1/namespaces/{namespace}/pods/{name}",
+                       query={"gracePeriodSeconds": grace_period_seconds})
+        except NotFoundError:
+            pass  # delete of a missing pod is a no-op, as in the fake
+
+    def patch_pod(self, namespace: str, name: str, patch: dict) -> dict:
+        return self._json("PATCH", f"/api/v1/namespaces/{namespace}/pods/{name}",
+                          body=patch, content_type="application/merge-patch+json")
+
+    @staticmethod
+    def _pods_path(namespace: str | None) -> str:
+        return f"/api/v1/namespaces/{namespace}/pods" if namespace else "/api/v1/pods"
+
+    @staticmethod
+    def _selectors(label_selector: str, field_selector: str) -> dict[str, Any]:
+        query: dict[str, Any] = {}
+        if label_selector:
+            query["labelSelector"] = label_selector
+        if field_selector:
+            query["fieldSelector"] = field_selector
+        return query
+
+    def list_pods(self, namespace: str | None = None, label_selector: str = "",
+                  field_selector: str = "") -> list[dict]:
+        return self._json("GET", self._pods_path(namespace),
+                          query=self._selectors(label_selector, field_selector)
+                          ).get("items", [])
+
+    def watch_pods(self, namespace: str, *, label_selector: str = "",
+                   field_selector: str = "", timeout_s: float = 60.0,
+                   resource_version: str = "") -> Iterator[tuple[str, dict]]:
+        query: dict[str, Any] = {"watch": "true", "timeoutSeconds": max(1, int(timeout_s)),
+                                 **self._selectors(label_selector, field_selector)}
+        if resource_version:
+            query["resourceVersion"] = resource_version
+        # Opened now, before the first event is read: wait_for_pod opens
+        # the watch, then reads the pod, and relies on that order. A
+        # connection of its own, never this thread's kept-alive one.
+        conn = self._connect(timeout_s + 10.0)
+        conn.request("GET", self._pods_path(namespace) + "?" + urllib.parse.urlencode(query),
+                     headers=self._headers(None, ""))
+        resp = conn.getresponse()
+        if resp.status >= 400:
+            body = resp.read().decode("utf-8", "replace")
+            conn.close()
+            raise_for(resp.status, body)
+        return _WatchStream(conn, resp)
+
+
+class _WatchStream:
+    """The watch's events, one JSON object a line, read off the connection
+    it owns; ``close()`` releases it even when the stream was never read."""
+
+    def __init__(self, conn, resp):
+        self._conn = conn
+        self._resp = resp
+        self._buf = b""
+        self._done = False
+
+    def __iter__(self):
+        return self
+
+    def __next__(self) -> tuple[str, dict]:
+        if self._done:
+            raise StopIteration
+        while True:
+            while b"\n" in self._buf:
+                line, _, self._buf = self._buf.partition(b"\n")
+                if not line.strip():
+                    continue
+                event = json.loads(line)
+                etype, obj = event.get("type", ""), event.get("object", {})
+                if etype == "ERROR":
+                    # an expired resourceVersion comes as an ERROR Status
+                    # of code 410 inside the stream: LIST again
+                    self.close()
+                    code = int(obj.get("code", 0) or 0)
+                    if code == 410:
+                        raise GoneError(obj.get("message", "watch expired"))
+                    raise_for(code or 500, obj.get("message", ""))
+                return etype, obj
+            try:
+                chunk = self._resp.read1(65536)
+            except (socket.timeout, TimeoutError):
+                chunk = b""
+            if not chunk:
+                self.close()
+                raise StopIteration
+            self._buf += chunk
+
+    def close(self) -> None:
+        """Safe from another thread: the shutdown wakes a read in progress."""
+        if not self._done:
+            self._done = True
+            if self._conn.sock is not None:
+                try:
+                    self._conn.sock.shutdown(socket.SHUT_RDWR)
+                except OSError:
+                    pass  # already closed by the peer
+            self._conn.close()
+
+
+def kubeconfig_client(path: str | None = None, context: str | None = None) -> RestKubeClient:
+    """A client from a kubeconfig (out of the cluster), as the reference's
+    (``k8s/client.py:486-620``): path from the argument, $KUBECONFIG or
+    ~/.kube/config; the context given or the current one; the cluster's
+    https server, certificate-authority[-data] and insecure-skip-tls-verify;
+    the user's token or tokenFile, or client-certificate[-data] with
+    client-key[-data]. An exec plugin is refused: a privileged daemon runs
+    no credential helper."""
+    import base64
+    import shutil
+    import tempfile
+
+    import yaml
+
+    path = path or os.environ.get("KUBECONFIG") or os.path.expanduser("~/.kube/config")
+    with open(path, encoding="utf-8") as f:
+        cfg = yaml.safe_load(f) or {}
+
+    def _by_name(section: str, name: str) -> dict:
+        for entry in cfg.get(section, []):
+            if entry.get("name") == name:
+                return entry
+        raise ValueError(f"kubeconfig {path}: no {section!r} entry named {name!r}")
+
+    ctx_name = context or cfg.get("current-context")
+    if not ctx_name:
+        raise ValueError(f"kubeconfig {path}: no current-context and no context argument")
+    ctx = _by_name("contexts", ctx_name).get("context", {})
+    cluster = _by_name("clusters", ctx.get("cluster", "")).get("cluster", {})
+    user = _by_name("users", ctx.get("user", "")).get("user", {})
+
+    server = cluster.get("server", "")
+    parsed = urllib.parse.urlsplit(server)
+    if parsed.scheme != "https":
+        raise ValueError(f"kubeconfig cluster server must be https, got {server!r}")
+    ca_file = cluster.get("certificate-authority") or None
+    ca_data = None
+    if cluster.get("certificate-authority-data"):
+        ca_data = base64.b64decode(cluster["certificate-authority-data"]).decode()
+        ca_file = None
+    verify = not cluster.get("insecure-skip-tls-verify", False)
+
+    if "exec" in user:
+        raise ValueError("kubeconfig user uses an exec credential plugin; this client runs "
+                         "no external helper: put a token in the token field")
+    token = user.get("token", "")
+    if not token and user.get("tokenFile"):
+        with open(user["tokenFile"], encoding="utf-8") as f:
+            token = f.read().strip()
+    has_cert = bool(user.get("client-certificate") or user.get("client-certificate-data"))
+    has_key = bool(user.get("client-key") or user.get("client-key-data"))
+    if not token and not has_cert:
+        raise ValueError(f"kubeconfig user {ctx.get('user')!r} has neither a token nor a "
+                         f"client certificate")
+    if has_cert and not has_key:
+        raise ValueError("client-certificate given without client-key")
+
+    client = RestKubeClient(parsed.hostname or "", parsed.port or 443, token,
+                            ca_file=ca_file if verify else None, verify=verify)
+    if verify and ca_data:
+        client.ctx.load_verify_locations(cadata=ca_data)
+    if has_cert:
+        # load_cert_chain reads files: inline key material touches the disk
+        # only in a private directory removed before returning
+        tmp = None
+        try:
+            cert_path, key_path = user.get("client-certificate"), user.get("client-key")
+            if user.get("client-certificate-data") or user.get("client-key-data"):
+                tmp = tempfile.mkdtemp(prefix="kubeconfig-")
+                os.chmod(tmp, 0o700)
+                if user.get("client-certificate-data"):
+                    cert_path = os.path.join(tmp, "client.crt")
+                    with open(cert_path, "wb") as f:
+                        f.write(base64.b64decode(user["client-certificate-data"]))
+                if user.get("client-key-data"):
+                    key_path = os.path.join(tmp, "client.key")
+                    with open(key_path, "wb") as f:
+                        f.write(base64.b64decode(user["client-key-data"]))
+                    os.chmod(key_path, 0o600)
+            client.ctx.load_cert_chain(cert_path, key_path)
+        finally:
+            if tmp is not None:
+                shutil.rmtree(tmp, ignore_errors=True)
+    logger.info("kubeconfig client: context=%s server=%s auth=%s", ctx_name, server,
+                "mtls" if has_cert else "token")
+    return client
+
+
+def in_cluster_client() -> RestKubeClient:
+    """A client from the pod's service account. KUBERNETES_SERVICE_HOST and
+    _PORT, TPUMOUNTER_TOKEN_FILE and TPUMOUNTER_CA_FILE override where it
+    looks; without the CA it refuses, unless
+    TPUMOUNTER_INSECURE_SKIP_TLS_VERIFY=1."""
+    host = os.environ.get("KUBERNETES_SERVICE_HOST", "kubernetes.default.svc")
+    port = int(os.environ.get("KUBERNETES_SERVICE_PORT", "443"))
+    token_file = os.environ.get("TPUMOUNTER_TOKEN_FILE", os.path.join(SA_DIR, "token"))
+    ca_file = os.environ.get("TPUMOUNTER_CA_FILE", os.path.join(SA_DIR, "ca.crt"))
+    with open(token_file) as f:
+        token = f.read().strip()
+    if os.path.exists(ca_file):
+        return RestKubeClient(host, port, token, ca_file=ca_file, verify=True)
+    if os.environ.get("TPUMOUNTER_INSECURE_SKIP_TLS_VERIFY") == "1":
+        logger.warning("CA file %s missing; TLS verification DISABLED by "
+                       "TPUMOUNTER_INSECURE_SKIP_TLS_VERIFY=1", ca_file)
+        return RestKubeClient(host, port, token, verify=False)
+    raise FileNotFoundError(f"cluster CA not found at {ca_file}; set TPUMOUNTER_CA_FILE or "
+                            f"TPUMOUNTER_INSECURE_SKIP_TLS_VERIFY=1")
+
+
+def default_client() -> RestKubeClient:
+    """In the cluster where the service-account token exists (the
+    daemons), else from the kubeconfig."""
+    token_file = os.environ.get("TPUMOUNTER_TOKEN_FILE", os.path.join(SA_DIR, "token"))
+    if os.path.exists(token_file):
+        return in_cluster_client()
+    try:
+        return kubeconfig_client()
+    except Exception as exc:
+        raise RuntimeError(
+            f"no service-account token at {token_file} and no usable kubeconfig "
+            f"({type(exc).__name__}: {exc}); in a pod: check automountServiceAccountToken; "
+            f"outside: check $KUBECONFIG (pyyaml needed)") from exc

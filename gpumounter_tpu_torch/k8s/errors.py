@@ -1,7 +1,7 @@
 """Typed Kubernetes API errors.
 
 The counterpart of ``gpumounter_tpu/k8s/errors.py``, with the types the
-one-node mount path raises and catches. Each carries the HTTP ``status``,
+mount path, the REST client and the master raise and catch. Each carries the HTTP ``status``,
 which is how ``torchside/_kube.py`` reads any API error.
 """
 
@@ -27,3 +27,28 @@ class ConflictError(ApiError):
 
     def __init__(self, message: str = ""):
         super().__init__(409, message)
+
+
+class GoneError(ApiError):
+    """410: the watch's resourceVersion fell out of the API server's
+    window; the watcher must LIST again."""
+
+    def __init__(self, message: str = ""):
+        super().__init__(410, message)
+
+
+class ServerError(ApiError):
+    """5xx: the API server answered with a failure of its own."""
+
+
+def raise_for(status: int, body: str) -> None:
+    """An HTTP error status as the typed error."""
+    if status == 404:
+        raise NotFoundError(body)
+    if status == 409:
+        raise ConflictError(body)
+    if status == 410:
+        raise GoneError(body)
+    if status >= 500:
+        raise ServerError(status, body)
+    raise ApiError(status, body)

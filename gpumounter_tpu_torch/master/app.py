@@ -1,0 +1,459 @@
+"""The master: the HTTP API, routed to the right node's worker.
+
+The counterpart of ``gpumounter_tpu/master/app.py`` for the original
+GPUMounter's surface (``cmd/GPUMounter-master/main.go``):
+
+  * routes (main.go:232-234):
+      GET  /addgpu/namespace/:ns/pod/:pod/gpu/:n/isEntireMount/:bool
+      POST /removegpu/namespace/:ns/pod/:pod/force/:bool   (form: uuids,
+           repeated or comma-joined)
+      GET  /
+    plus /healthz and /workers (node -> worker address);
+  * the target pod is read to find its node (main.go:52-66): 404 when there
+    is no pod, 400 when it is not scheduled;
+  * the node's worker comes from ``WorkerRegistry`` (500 when there is
+    none), and the call goes over ``WorkerClient`` (main.go:82, 185), or
+    over whatever ``worker_client_factory`` the caller passes;
+  * results map to HTTP as the original's do (main.go:103-116, 206-224):
+    add Success 200 "Add GPU Success", InsufficientGPU 500, PodNotFound 400;
+    remove PodNotFound, GPUBusy and GPUNotFound 400, Success 200. A breaker
+    that is open answers 503 with Retry-After; any other failed call 500.
+
+As in the reference: gpuNum is range-checked against MAX_GPU_PER_REQUEST
+(the original never checks it), every route but the index and /healthz
+wants the bearer token (``utils/auth.py``), and a path of no route gets
+"404 page not found". The reference's other routes (slices, batch, shards,
+intents, migrations, audit, trace, timeline, fleet, SLO, capacity, tenants,
+recovery, health, defrag, shares, autoscale, /metrics, /apihealth) and its
+admission gate come with the packages that serve them; until then their
+paths get that 404.
+"""
+
+from __future__ import annotations
+
+import inspect
+import random
+import re
+import threading
+import time
+import urllib.parse
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+from gpumounter_tpu_torch.config import Config
+from gpumounter_tpu_torch.k8s.client import KubeClient, NotFoundError
+from gpumounter_tpu_torch.k8s.types import Pod
+from gpumounter_tpu_torch.rpc.api import AddGPUResult, RemoveGPUResult
+from gpumounter_tpu_torch.rpc.client import ChannelPool, WorkerClient
+from gpumounter_tpu_torch.rpc.resilience import BreakerOpenError, CircuitBreaker
+from gpumounter_tpu_torch.utils.auth import check_bearer, required_token
+from gpumounter_tpu_torch.utils.log import get_logger
+
+logger = get_logger("master")
+
+
+class WorkerRegistry:
+    """node name -> worker pod IP, kept current by a watch (an informer).
+
+    The original LISTs the worker pods on every request (main.go:68, 171).
+    Here one LIST primes the cache, then a watch of the worker pods
+    (WORKER_NAMESPACE, WORKER_LABEL_SELECTOR) applies ADDED, MODIFIED and
+    DELETED in place; a read is a cache hit, and a miss makes at most one
+    LIST a MISS_RELIST_INTERVAL_S, for a worker the watch has not shown
+    yet. Watch events that land while a LIST is in flight are replayed on
+    top of its result, so a delta between the LIST's answer and the swap is
+    not lost. A watch that fails or ends at once is opened again after a
+    jittered, growing delay.
+
+    The registry also owns the breaker and the channel pool that every
+    ``WorkerClient`` of the master shares: a worker that is gone takes its
+    breaker state and its channel with it, and a breaker that opens drops
+    the worker's channel."""
+
+    MISS_RELIST_INTERVAL_S = 1.0
+    WATCH_TIMEOUT_S = 60.0
+    MIN_HEALTHY_WATCH_S = 5.0
+    WATCH_BACKOFF_BASE_S = 0.5
+    WATCH_BACKOFF_CAP_S = 15.0
+
+    def __init__(self, kube: KubeClient, cfg=None):
+        self.kube = kube
+        self.cfg = cfg or Config()
+        self.breaker = CircuitBreaker(failure_threshold=self.cfg.breaker_failure_threshold,
+                                      reset_s=self.cfg.breaker_reset_s)
+        self.channel_pool = ChannelPool(cfg=self.cfg)
+        self.breaker.on_open = lambda key: self.channel_pool.invalidate(key, "breaker-open")
+        # node name -> (worker pod IP, worker pod name); the name makes a
+        # DELETED exact when its event carries no podIP
+        self._cache: dict[str, tuple[str, str]] = {}
+        self._lock = threading.Lock()
+        # serializes LISTs; taken before _lock
+        self._refresh_mu = threading.Lock()
+        self._primed = threading.Event()
+        self._last_list = 0.0
+        self._stop = threading.Event()
+        self._thread: threading.Thread | None = None
+        self._watch = None
+        self._journal: list[tuple[str, Pod]] | None = None
+
+    # --- lifecycle ---
+
+    def _ensure_started(self) -> None:
+        with self._lock:
+            if self._thread is None:
+                self._thread = threading.Thread(target=self._watch_loop,
+                                                name="worker-registry-watch", daemon=True)
+                self._thread.start()
+        # the first caller waits for the priming LIST, at most 10 s
+        self._primed.wait(10.0)
+
+    def stop(self) -> None:
+        """Stop the watch (a REST stream closes now; a fake's ends at its
+        next event or its timeout) and close every pooled channel."""
+        self._stop.set()
+        watch = self._watch
+        if watch is not None and not inspect.isgenerator(watch):
+            watch.close()
+        self.channel_pool.close_all()
+
+    # --- the cache ---
+
+    @staticmethod
+    def _apply_to(cache: dict[str, tuple[str, str]], etype: str, pod: Pod) -> None:
+        if not pod.node_name:
+            return
+        entry = cache.get(pod.node_name)
+        if etype == "DELETED":
+            # only if the entry is still this pod's: in a rolling update
+            # the new pod's ADDED may land before the old one's DELETED
+            if entry is not None and entry[1] == pod.name:
+                cache.pop(pod.node_name, None)
+            return
+        if pod.pod_ip:
+            cache[pod.node_name] = (pod.pod_ip, pod.name)
+
+    def _apply(self, etype: str, pod: Pod) -> None:
+        with self._lock:
+            old = self._cache.get(pod.node_name) if pod.node_name else None
+            self._apply_to(self._cache, etype, pod)
+            new = self._cache.get(pod.node_name) if pod.node_name else None
+            if self._journal is not None:  # a LIST is in flight
+                self._journal.append((etype, pod))
+        if old is not None and (new is None or new[0] != old[0]):
+            # the node's worker moved or went: its channel serves no more
+            self.channel_pool.invalidate(f"{old[0]}:{self.cfg.worker_port}", "address-change")
+        if etype == "DELETED":
+            self._prune()
+
+    def _refresh(self) -> None:
+        with self._refresh_mu:
+            self._refresh_locked()
+
+    def _refresh_locked(self) -> None:
+        """LIST, then the swap with the journal's deltas on top. The caller
+        holds _refresh_mu: a second LIST in flight would clobber the
+        journal."""
+        with self._lock:
+            self._journal = []
+        try:
+            pods = self.kube.list_pods(self.cfg.worker_namespace,
+                                       label_selector=self.cfg.worker_label_selector)
+            cache: dict[str, tuple[str, str]] = {}
+            for pod_json in pods:
+                p = Pod(pod_json)
+                if p.node_name and p.pod_ip:
+                    cache[p.node_name] = (p.pod_ip, p.name)
+            with self._lock:
+                for etype, pod in self._journal:
+                    self._apply_to(cache, etype, pod)
+                self._cache = cache
+                self._last_list = time.monotonic()
+        finally:
+            with self._lock:
+                self._journal = None
+        self._prune()
+        self._primed.set()
+
+    def _watch_backoff(self, failures: int) -> float:
+        cap = min(self.WATCH_BACKOFF_CAP_S,
+                  self.WATCH_BACKOFF_BASE_S * 2 ** max(0, failures - 1))
+        return random.uniform(cap / 2, cap)
+
+    def _watch_loop(self) -> None:
+        short_streams = 0
+        while not self._stop.is_set():
+            opened = time.monotonic()
+            try:
+                # (re)prime, then stream the deltas; a LIST at every open
+                # covers the window the last stream missed
+                self._refresh()
+                self._watch = self.kube.watch_pods(
+                    self.cfg.worker_namespace, label_selector=self.cfg.worker_label_selector,
+                    timeout_s=self.WATCH_TIMEOUT_S)
+                for etype, pod_json in self._watch:
+                    if self._stop.is_set():
+                        return
+                    self._apply(etype, Pod(pod_json))
+            except Exception as exc:  # noqa: BLE001 — the informer stays up
+                if self._stop.is_set():
+                    return
+                # a stream that lived long did its work: count afresh
+                healthy = time.monotonic() - opened >= self.MIN_HEALTHY_WATCH_S
+                short_streams = 1 if healthy else short_streams + 1
+                delay = self._watch_backoff(short_streams)
+                logger.warning("worker watch failed (%s); retrying in %.1fs", exc, delay)
+                self._stop.wait(delay)
+                continue
+            if time.monotonic() - opened >= self.MIN_HEALTHY_WATCH_S:
+                short_streams = 0
+                continue
+            # ended at once without an error (a trimmed backlog, a 410):
+            # back off before the LIST and the open
+            short_streams += 1
+            self._stop.wait(self._watch_backoff(short_streams))
+
+    def _prune(self) -> None:
+        with self._lock:
+            active = {f"{ip}:{self.cfg.worker_port}" for ip, _ in self._cache.values()}
+        self.breaker.prune(active)
+        self.channel_pool.retain(active)
+
+    # --- reads ---
+
+    def registry_snapshot(self) -> dict[str, str]:
+        self._ensure_started()
+        with self._lock:
+            return {node: ip for node, (ip, _) in self._cache.items()}
+
+    def _miss_refresh(self) -> None:
+        """One LIST for a miss, at most one a MISS_RELIST_INTERVAL_S: misses
+        at once wait here and re-check the stamp."""
+        with self._refresh_mu:
+            with self._lock:
+                if time.monotonic() - self._last_list <= self.MISS_RELIST_INTERVAL_S:
+                    return
+            self._refresh_locked()
+
+    def worker_address(self, node_name: str) -> str | None:
+        self._ensure_started()
+        with self._lock:
+            entry = self._cache.get(node_name)
+        if entry is None:
+            self._miss_refresh()
+            with self._lock:
+                entry = self._cache.get(node_name)
+        if entry is None:
+            return None
+        return f"{entry[0]}:{self.cfg.worker_port}"
+
+
+class _HttpError(Exception):
+    def __init__(self, status: int, message: str, headers: dict[str, str] | None = None):
+        super().__init__(message)
+        self.status = status
+        self.message = message
+        self.headers = headers or {}
+
+
+# the reference's route regexes (app.py:303-312), with the gpu names only
+_ROUTES: list[tuple[str, re.Pattern, str]] = [
+    ("GET", re.compile(r"^/addgpu/namespace/(?P<ns>[^/]+)/pod/(?P<pod>[^/]+)"
+                       r"/gpu/(?P<num>[^/]+)/isEntireMount/(?P<entire>[^/]+)$"), "add"),
+    ("POST", re.compile(r"^/removegpu/namespace/(?P<ns>[^/]+)/pod/(?P<pod>[^/]+)"
+                        r"/force/(?P<force>[^/]+)$"), "remove"),
+    ("GET", re.compile(r"^/$"), "index"),
+    ("GET", re.compile(r"^/healthz$"), "healthz"),
+    ("GET", re.compile(r"^/workers$"), "workers"),
+]
+
+
+def _parse_bool(raw: str, param: str) -> bool:
+    low = raw.lower()
+    if low in ("true", "1", "t"):
+        return True
+    if low in ("false", "0", "f"):
+        return False
+    raise _HttpError(400, f"Invalid param {param}: {raw} (should be true or false)")
+
+
+def _retry_after(seconds: float) -> dict[str, str]:
+    return {"Retry-After": str(max(1, int(seconds + 0.5)))}
+
+
+def _degraded_or_500(exc: Exception) -> _HttpError:
+    """A failed worker call as HTTP: a breaker that opened (or was found
+    open) during the call is 503 with Retry-After, anything else 500."""
+    if isinstance(exc, BreakerOpenError):
+        return _HttpError(503, f"worker degraded (circuit breaker open): {exc}",
+                          headers=_retry_after(exc.retry_after_s))
+    return _HttpError(500, f"Service Internal Error: {exc}")
+
+
+class MasterApp:
+    """The request handling, apart from the transport; ``build_http_server``
+    serves it."""
+
+    #: open without a token: the liveness surfaces (probes carry none)
+    UNAUTHENTICATED_ROUTES = frozenset({"index", "healthz"})
+
+    def __init__(self, kube: KubeClient, cfg=None, worker_client_factory=None,
+                 registry: WorkerRegistry | None = None):
+        """worker_client_factory(address) -> a client with add_gpu,
+        remove_gpu and the context-manager protocol; by default a
+        ``WorkerClient`` with the deploy's token, the registry's breaker and
+        its pooled channel. Without a token this raises AuthConfigError,
+        unless TPUMOUNTER_AUTH=insecure (fail-closed)."""
+        self.cfg = cfg or Config()
+        self._token = required_token(self.cfg, "master HTTP API")
+        self.kube = kube
+        self.registry = registry or WorkerRegistry(kube, self.cfg)
+        self._client_factory = worker_client_factory or (
+            lambda addr: WorkerClient(addr, token=self._token, cfg=self.cfg,
+                                      breaker=self.registry.breaker,
+                                      channel_pool=self.registry.channel_pool))
+
+    # --- plumbing ---
+
+    def handle(self, method: str, path: str, body: bytes, headers: dict[str, str]
+               ) -> tuple[int, str, str, dict[str, str]]:
+        """(status, content_type, body, response headers)."""
+        try:
+            for m, pattern, name in _ROUTES:
+                if m != method:
+                    continue
+                match = pattern.match(path)
+                if match:
+                    self._check_auth(name, headers)
+                    status, ctype, text = getattr(self, f"_route_{name}")(match, body)
+                    return status, ctype, text, {}
+            raise _HttpError(404, "404 page not found")
+        except _HttpError as exc:
+            return exc.status, "text/plain", exc.message + "\n", exc.headers
+        except Exception as exc:  # noqa: BLE001 — the HTTP boundary
+            logger.exception("unhandled error for %s %s", method, path)
+            return 500, "text/plain", f"Service Internal Error: {exc}\n", {}
+
+    def _check_auth(self, route: str, headers: dict[str, str]) -> None:
+        if route in self.UNAUTHENTICATED_ROUTES or self._token is None:
+            return
+        value = next((v for k, v in headers.items() if k.lower() == "authorization"), None)
+        if not check_bearer(value, self._token):
+            logger.warning("unauthenticated %s request refused", route)
+            raise _HttpError(401, "missing or invalid bearer token")
+
+    def _worker_for_pod(self, namespace: str, pod_name: str) -> tuple[str, str]:
+        """(worker address, node name), or the _HttpError of the miss."""
+        try:
+            pod = Pod(self.kube.get_pod(namespace, pod_name))
+        except NotFoundError:
+            raise _HttpError(404, f"No pod: {pod_name} in namespace: {namespace}")
+        node = pod.node_name
+        if not node:
+            raise _HttpError(400, f"Pod {pod_name} is not scheduled yet")
+        address = self.registry.worker_address(node)
+        if address is None:
+            logger.error("no gpu-mounter worker on node %s", node)
+            raise _HttpError(500, "Service Internal Error")
+        # a degraded worker: 503 now, not a call queued behind a dial known
+        # to hang; a pure read, so the half-open probe's slot stays for the
+        # call itself
+        retry_after = self.registry.breaker.retry_after(address)
+        if retry_after is not None:
+            raise _HttpError(503, f"worker on node {node} is degraded (circuit breaker "
+                                  f"open); retry in {retry_after:.0f}s",
+                             headers=_retry_after(retry_after))
+        return address, node
+
+    # --- routes ---
+
+    def _route_index(self, match, body):
+        return 200, "text/plain", "tpumounter master\n"
+
+    def _route_healthz(self, match, body):
+        return 200, "text/plain", "ok\n"
+
+    def _route_workers(self, match, body):
+        lines = [f"{node} {ip}" for node, ip in
+                 sorted(self.registry.registry_snapshot().items())]
+        return 200, "text/plain", "\n".join(lines) + "\n"
+
+    def _route_add(self, match, body):
+        ns, pod_name, num_raw = match.group("ns"), match.group("pod"), match.group("num")
+        try:
+            gpu_num = int(num_raw)
+        except ValueError:
+            raise _HttpError(400, f"Invalid param gpuNum: {num_raw}")
+        if not 0 < gpu_num <= self.cfg.max_gpu_per_request:
+            raise _HttpError(400, f"Invalid param gpuNum: {num_raw} (must be 1.."
+                                  f"{self.cfg.max_gpu_per_request})")
+        entire = _parse_bool(match.group("entire"), "isEntireMount")
+        logger.info("AddGPU request: %s/%s num=%d entire=%s", ns, pod_name, gpu_num, entire)
+        address, node = self._worker_for_pod(ns, pod_name)
+        with self._client_factory(address) as client:
+            try:
+                result = client.add_gpu(pod_name, ns, gpu_num, entire).add_gpu_result
+            except Exception as exc:  # noqa: BLE001 — the worker call's boundary
+                logger.error("worker AddGPU failed: %s", exc)
+                raise _degraded_or_500(exc)
+        if result == AddGPUResult.Success:
+            return 200, "text/plain", "Add GPU Success\n"
+        if result == AddGPUResult.InsufficientGPU:
+            raise _HttpError(500, f"Insufficient GPU on Node: {node}")
+        if result == AddGPUResult.PodNotFound:
+            raise _HttpError(400, f"No Pod {pod_name} on Node: {node}")
+        raise _HttpError(500, f"unknown worker result {result}")
+
+    def _route_remove(self, match, body):
+        ns, pod_name = match.group("ns"), match.group("pod")
+        force = _parse_bool(match.group("force"), "force")
+        raw_uuids = urllib.parse.parse_qs(body.decode("utf-8", "replace")).get("uuids")
+        if not raw_uuids:
+            raise _HttpError(400, "Invalid parameter")
+        uuids = [u for entry in raw_uuids for u in entry.split(",") if u]
+        logger.info("RemoveGPU request: %s/%s uuids=%s force=%s", ns, pod_name, uuids, force)
+        address, node = self._worker_for_pod(ns, pod_name)
+        with self._client_factory(address) as client:
+            try:
+                result = client.remove_gpu(pod_name, ns, uuids, force).remove_gpu_result
+            except Exception as exc:  # noqa: BLE001 — the worker call's boundary
+                logger.error("worker RemoveGPU failed: %s", exc)
+                raise _degraded_or_500(exc)
+        joined = ", ".join(uuids)
+        if result == RemoveGPUResult.Success:
+            return 200, "text/plain", f"Remove {len(uuids)} GPUs Success\n"
+        if result == RemoveGPUResult.PodNotFound:
+            raise _HttpError(400, f"No Pod {pod_name} on Node: {node}")
+        if result == RemoveGPUResult.GPUBusy:
+            raise _HttpError(400, f"Pod: {pod_name} has running processes on GPU: {joined}")
+        if result == RemoveGPUResult.GPUNotFound:
+            raise _HttpError(400, f"Invalid UUIDs: {joined}")
+        raise _HttpError(500, f"unknown worker result {result}")
+
+
+def build_http_server(app: MasterApp, port: int | None = None,
+                      host: str = "0.0.0.0") -> ThreadingHTTPServer:
+    """The API on a ThreadingHTTPServer (not yet serving): `port` None is
+    MASTER_PORT, 0 an ephemeral port (``server_address[1]``)."""
+
+    class Handler(BaseHTTPRequestHandler):
+        protocol_version = "HTTP/1.1"
+
+        def _dispatch(self):
+            length = int(self.headers.get("Content-Length") or 0)
+            body = self.rfile.read(length) if length else b""
+            status, ctype, text, extra = app.handle(self.command, self.path, body,
+                                                    dict(self.headers))
+            payload = text.encode()
+            self.send_response(status)
+            self.send_header("Content-Type", ctype)
+            self.send_header("Content-Length", str(len(payload)))
+            for key, value in extra.items():
+                self.send_header(key, value)
+            self.end_headers()
+            self.wfile.write(payload)
+
+        do_GET = do_POST = do_PUT = do_DELETE = _dispatch
+
+        def log_message(self, fmt, *args):
+            logger.debug("http: " + fmt, *args)
+
+    return ThreadingHTTPServer((host, app.cfg.master_port if port is None else port), Handler)

@@ -4,27 +4,32 @@ The counterpart of ``gpumounter_tpu/nsutil/ns.py``, and of the original's
 ``pkg/util/namespace/namespace.go``, which runs ``nsenter --target PID
 --mount sh -c "mknod -m 666 /dev/nvidiaN c 195 N"`` (:167-177), ``rm``
 (:179-189) and ``kill`` (:191-201), and so needs ``sh`` and ``mknod`` inside
-the target container. The reference enters the namespace with a C++ helper
-(``tpumounter-nsexec``); this module needs no build: a forked child enters
-the target's mount namespace with setns(2) (``os.setns``), makes the
-syscalls (mkdir, mknod, chmod, unlink, stat), and leaves with ``os._exit``.
-The child runs nothing else, which keeps a fork from a process with CUDA
-and threads safe: it takes no lock another thread may hold.
+the target container. As the reference runs its C++ helper
+(``tpumounter-nsexec``), this module runs ``nsutil/nsexec.py`` in a fresh
+interpreter (``python -I -S``, the standard library only) through
+``subprocess``: it enters the target's mount namespace with setns(2) and
+makes the syscalls (mkdir, mknod, chmod, unlink, stat), so the container
+needs no binaries and nothing needs a build. The worker never forks
+without an exec: a forked copy of a process that serves gRPC runs grpcio's
+fork handlers, which abort it (seen on the card's machine), and a copy of a
+process with CUDA open costs its pages.
 
 Two modes:
   * pid=None: a plain directory in our own namespace (dry runs, tests);
   * pid=N: the mount namespace of PID N.
 """
-
 from __future__ import annotations
 
+import json
 import os
 import shutil
 import signal as signalmod
 import stat as statmod
-import warnings
+import subprocess
+import sys
 
 from gpumounter_tpu_torch.device.gpu import DEVICE_FILE_MODE, GpuDevice
+from gpumounter_tpu_torch.nsutil import nsexec
 from gpumounter_tpu_torch.utils.log import get_logger
 
 logger = get_logger("nsutil")
@@ -34,55 +39,35 @@ class NamespaceError(RuntimeError):
     pass
 
 
-def run_in_mount_ns(pid: int, fn) -> str:
-    """Run `fn()` in a forked child that has entered PID `pid`'s mount
-    namespace; returns the string `fn` returns. An OSError of `fn` is
-    raised here with its errno and message; a failure to enter the
-    namespace, or any other failure of `fn`, raises NamespaceError."""
-    ns_fd = os.open(f"/proc/{pid}/ns/mnt", os.O_RDONLY | os.O_CLOEXEC)
+def _mount_ns_path(pid: int) -> str:
+    return f"/proc/{pid}/ns/mnt"
+
+
+def _helper_argv(ns_path: str, ops: list) -> list[str]:
+    return [sys.executable, "-I", "-S", nsexec.__file__, ns_path, json.dumps(ops)]
+
+
+def run_in_mount_ns(pid: int, ops: list) -> list:
+    """Run `ops` (``nsexec``'s: mknod, unlink, missing) in the mount
+    namespace of PID `pid`, in the helper's process; returns each op's
+    result. An OSError of an op is raised here with its errno, message and
+    file; a failure to enter the namespace, or any other failure, raises
+    NamespaceError."""
+    proc = subprocess.run(_helper_argv(_mount_ns_path(pid), ops), capture_output=True,
+                          text=True, timeout=60)
     try:
-        r, w = os.pipe()
-        # Python 3.12 warns on fork in a threaded process: the child could
-        # block on a lock another thread held. This child only makes
-        # syscalls and _exits, so it takes no such lock.
-        with warnings.catch_warnings():
-            warnings.simplefilter("ignore", DeprecationWarning)
-            child = os.fork()
-        if child == 0:  # pragma: no cover — runs in the child
-            code = 0
-            try:
-                os.close(r)
-                # A fork handler (gRPC's, say) may have started threads in
-                # the child that share its filesystem context, and setns
-                # into a mount namespace refuses a shared one (EINVAL).
-                os.unshare(os.CLONE_FS)
-                os.setns(ns_fd, os.CLONE_NEWNS)
-            except OSError as exc:
-                os.write(w, f"-1\tcannot enter the mount namespace: {exc}\t".encode())
-                os._exit(1)
-            try:
-                os.write(w, (fn() or "").encode())
-            except OSError as exc:
-                os.write(w, f"{exc.errno}\t{exc.strerror}\t{exc.filename or ''}".encode())
-                code = 1
-            except BaseException as exc:  # noqa: BLE001 — reported to the parent
-                os.write(w, f"-1\t{type(exc).__name__}: {exc}\t".encode())
-                code = 1
-            os._exit(code)
-        os.close(w)
-        with os.fdopen(r, "rb") as f:
-            report = f.read().decode(errors="replace")
-        _, status = os.waitpid(child, 0)
-    finally:
-        os.close(ns_fd)
-    if os.waitstatus_to_exitcode(status) != 0:
-        errno_s, _, rest = report.partition("\t")
-        message, _, filename = rest.partition("\t")
-        if errno_s and int(errno_s) > 0:
-            raise OSError(int(errno_s), message, filename or None)
-        raise NamespaceError(f"in the mount namespace of PID {pid}: "
-                             f"{message or f'child exited with status {status}'}")
-    return report
+        report = json.loads(proc.stdout.strip().splitlines()[-1])
+    except (IndexError, ValueError):
+        raise NamespaceError(f"in the mount namespace of PID {pid}: the helper exited "
+                             f"{proc.returncode}: {proc.stderr.strip()[-2000:]}") from None
+    if proc.returncode == 0 and "results" in report:
+        return report["results"]
+    if report.get("stage") == "enter":
+        raise NamespaceError(f"in the mount namespace of PID {pid}: cannot enter the mount "
+                             f"namespace: {report['message']}")
+    if report.get("errno", -1) > 0:
+        raise OSError(report["errno"], report["strerror"], report["filename"] or None)
+    raise NamespaceError(f"in the mount namespace of PID {pid}: {report.get('message')}")
 
 
 def device_node_path(dev_dir: str, dev: GpuDevice) -> str:
@@ -91,15 +76,7 @@ def device_node_path(dev_dir: str, dev: GpuDevice) -> str:
 
 def _mknod_here(target_path: str, major: int, minor: int) -> None:
     """Create one char device node, parents included; idempotent."""
-    if os.path.exists(target_path):
-        return
-    os.makedirs(os.path.dirname(target_path), exist_ok=True)
-    try:
-        os.mknod(target_path, DEVICE_FILE_MODE | statmod.S_IFCHR,
-                 os.makedev(major, minor))
-    except FileExistsError:
-        return  # two GPUs injecting one companion: the loser is fine
-    os.chmod(target_path, DEVICE_FILE_MODE)  # mknod's mode is umask-masked
+    nsexec.mknod_here(target_path, major, minor, DEVICE_FILE_MODE)
 
 
 def _refusal(target_path, major, minor, source_path, exc) -> NamespaceError:
@@ -172,37 +149,31 @@ def inject_device_files(target_dev_dir: str, devices: list[GpuDevice],
             _mknod_at(path, major, minor, source_path=source)
         return [p for p in gpu_paths if not os.path.exists(p)]
 
-    def make() -> str:
-        for path, major, minor, _ in plan:
-            _mknod_here(path, major, minor)
-        return "\n".join(p for p in gpu_paths if not os.path.exists(p))
-
+    ops = [["mknod", path, major, minor, DEVICE_FILE_MODE] for path, major, minor, _ in plan]
     try:
-        missing = run_in_mount_ns(pid, make)
+        results = run_in_mount_ns(pid, ops + [["missing", gpu_paths]])
     except OSError as exc:
         node = next((n for n in plan if n[0] == exc.filename), plan[0])
         raise _refusal(node[0], node[1], node[2], node[3], exc) from exc
-    return missing.split("\n") if missing else []
+    return results[-1]
 
 
-def remove_device_file(target_dev_dir: str, dev: GpuDevice,
-                       pid: int | None = None) -> None:
-    """Remove the GPU's node (RemoveGPUDeviceFile, namespace.go:179-189).
+def remove_device_files(target_dev_dir: str, devices: list[GpuDevice],
+                        pid: int | None = None) -> None:
+    """Remove the GPUs' nodes (RemoveGPUDeviceFile, namespace.go:179-189;
+    the reference's ``remove_device_file`` a GPU at a time), in order and
+    all in one entry into the namespace of `pid` when given. A node already
+    gone is fine. A failure raises OSError naming its file: the nodes
+    before it are gone, it and those after are not.
 
     The companions stay: other GPUs still mounted need them, and they
     grant no GPU once the GPU's node and its cgroup rule are gone."""
-    target_path = device_node_path(target_dev_dir, dev)
-
-    def unlink() -> None:
-        try:
-            os.unlink(target_path)
-        except FileNotFoundError:
-            pass
-
+    paths = [device_node_path(target_dev_dir, dev) for dev in devices]
     if pid is None:
-        unlink()
-    else:
-        run_in_mount_ns(pid, unlink)
+        for path in paths:
+            nsexec.unlink_here(path)
+    elif paths:
+        run_in_mount_ns(pid, [["unlink", path] for path in paths])
 
 
 def scan_container_dev_nodes(pid: int | None, dev_dir: str = "/dev",

@@ -1,0 +1,278 @@
+"""The master's gRPC client of the worker, and its pool of channels.
+
+The counterpart of ``gpumounter_tpu/rpc/client.py:62-210, 234-520``. The
+original master dials ``workerIP:1200`` insecure for each request and calls
+AddGPU / RemoveGPU (``cmd/GPUMounter-master/main.go:82-96, 185-199``). This
+client speaks the original's service names, and adds (``rpc/resilience.py``):
+
+  * a deadline a method from config (RPC_ADD_TIMEOUT_S, RPC_REMOVE_TIMEOUT_S);
+  * bounded capped-exponential retries on UNAVAILABLE and
+    DEADLINE_EXCEEDED, each mutation carrying one idempotency key across its
+    attempts, so a retry whose first attempt landed is answered from the
+    worker's record and mounts nothing twice (a worker built from the
+    original proto skips the key);
+  * the breaker it is given, told of every transport outcome;
+  * typed errors: DeadlineExceededError, WorkerUnavailableError,
+    BreakerOpenError, and RpcCallError with the status name for a call the
+    worker refused (FAILED_PRECONDITION, INVALID_ARGUMENT, INTERNAL,
+    UNAUTHENTICATED).
+
+Left out: ``probe``, ``quiesce_status`` and ``collect_telemetry`` (with
+``health/``, ``migrate/`` and ``obs/``), the failpoint sites (with
+``faults/``) and the pool's metrics (with ``obs/``). grpc is imported when
+a channel is built; without grpcio that raises ModuleNotFoundError naming
+grpcio, and nothing falls back.
+"""
+
+from __future__ import annotations
+
+import secrets
+import threading
+import time
+
+from gpumounter_tpu_torch.config import Config
+from gpumounter_tpu_torch.rpc import api
+from gpumounter_tpu_torch.rpc.resilience import (
+    BreakerOpenError,
+    CircuitBreaker,
+    DeadlineExceededError,
+    RetryPolicy,
+    RpcCallError,
+    WorkerUnavailableError,
+)
+from gpumounter_tpu_torch.utils.auth import resolve_token
+from gpumounter_tpu_torch.utils.lazy_grpc import grpc
+from gpumounter_tpu_torch.utils.log import get_logger
+
+logger = get_logger("rpc.client")
+
+#: transport codes worth another bounded attempt
+_RETRIABLE = frozenset({"UNAVAILABLE", "DEADLINE_EXCEEDED"})
+
+
+class ChannelPool:
+    """Cached gRPC channels, one an address, with keepalive and idle
+    eviction: the dial is paid once a worker, not once a request. A
+    ``WorkerClient`` built with ``channel_pool=`` borrows the address's
+    channel, and its close() only gives it back.
+
+      * ``invalidate(address)``: the breaker opened, or the worker's
+        address changed: the channel must serve no further call;
+      * ``retain(active)``: close the channels of workers that are gone;
+      * an idle channel with no borrower closes after CHANNEL_IDLE_EVICT_S."""
+
+    def __init__(self, cfg=None):
+        cfg = cfg or Config()
+        self.idle_evict_s = cfg.channel_idle_evict_s
+        self.keepalive_time_s = cfg.channel_keepalive_time_s
+        self._lock = threading.Lock()
+        #: address -> [channel, last_used_monotonic, borrowers]
+        self._channels: dict[str, list] = {}
+        self._shutdown = False
+
+    def channel(self, address: str):
+        now = time.monotonic()
+        to_close = []
+        try:
+            with self._lock:
+                if self._shutdown:
+                    raise RuntimeError("channel pool is shut down")
+                to_close = self._sweep_locked(now)
+                entry = self._channels.get(address)
+                if entry is not None:
+                    entry[1] = now
+                    entry[2] += 1
+                    return entry[0]
+                ch = grpc.insecure_channel(address, options=(
+                    ("grpc.keepalive_time_ms", int(self.keepalive_time_s * 1000)),
+                    ("grpc.keepalive_timeout_ms", 5000),
+                    ("grpc.keepalive_permit_without_calls", 1),
+                ))
+                self._channels[address] = [ch, now, 1]
+                return ch
+        finally:
+            self._close_channels(to_close)
+
+    def release(self, address: str) -> None:
+        """A borrower is done: the channel stays, its idle clock restarts."""
+        with self._lock:
+            entry = self._channels.get(address)
+            if entry is not None:
+                entry[1] = time.monotonic()
+                entry[2] = max(0, entry[2] - 1)
+
+    def _sweep_locked(self, now: float) -> list:
+        """Idle channels with no borrower, taken out under the lock and
+        returned to be closed outside it."""
+        if self.idle_evict_s <= 0:
+            return []
+        stale = [addr for addr, (_, used, refs) in self._channels.items()
+                 if refs <= 0 and now - used > self.idle_evict_s]
+        return [self._channels.pop(addr)[0] for addr in stale]
+
+    @staticmethod
+    def _close_channels(channels: list) -> None:
+        for ch in channels:
+            ch.close()
+
+    def invalidate(self, address: str, reason: str = "invalidated") -> None:
+        """Drop an address even while borrowed: its transport is dead or
+        wrong, and a call on it is failing anyway."""
+        with self._lock:
+            entry = self._channels.pop(address, None)
+        if entry is not None:
+            logger.info("channel to %s dropped (%s)", address, reason)
+            self._close_channels([entry[0]])
+
+    def retain(self, active_addresses) -> None:
+        """Close every channel whose address is not in the active set."""
+        active = set(active_addresses)
+        with self._lock:
+            stale = [a for a in self._channels if a not in active]
+            out = [self._channels.pop(a)[0] for a in stale]
+        self._close_channels(out)
+
+    def close_all(self) -> None:
+        with self._lock:
+            out = [entry[0] for entry in self._channels.values()]
+            self._channels.clear()
+            self._shutdown = True
+        self._close_channels(out)
+
+
+_TOKEN_FROM_CONFIG = object()
+
+
+def _code_name(exc: Exception) -> str:
+    code = getattr(exc, "code", None)
+    if callable(code):
+        return getattr(code(), "name", "") or "UNKNOWN"
+    return "UNKNOWN"
+
+
+def _details(exc: Exception) -> str:
+    details = getattr(exc, "details", None)
+    return str(details() or "") if callable(details) else str(exc)
+
+
+class WorkerClient:
+    def __init__(self, address: str, token=_TOKEN_FROM_CONFIG, cfg=None,
+                 breaker: CircuitBreaker | None = None,
+                 channel_pool: ChannelPool | None = None):
+        """token: the worker's bearer secret; by default TPUMOUNTER_AUTH_TOKEN
+        (or its file) from `cfg`; None sends none. breaker: a shared breaker
+        (the registry's), told of each outcome under the address.
+        channel_pool: borrow the address's pooled channel; else the client
+        dials and owns one."""
+        cfg = cfg or Config()
+        if token is _TOKEN_FROM_CONFIG:
+            token = resolve_token(cfg)
+        self._metadata = (("authorization", f"Bearer {token}"),) if token else None
+        self.address = address
+        self.timeouts = {api.ADD_METHOD: cfg.rpc_add_timeout_s,
+                         api.REMOVE_METHOD: cfg.rpc_remove_timeout_s}
+        self.retry = RetryPolicy(max_attempts=cfg.rpc_max_attempts,
+                                 base_s=cfg.rpc_retry_base_s, cap_s=cfg.rpc_retry_cap_s)
+        self.breaker = breaker
+        self._pool = channel_pool
+        if channel_pool is not None:
+            self._channel = channel_pool.channel(address)
+        else:
+            self._channel = grpc.insecure_channel(address)
+        self._stubs = {
+            api.ADD_METHOD: self._channel.unary_unary(
+                f"/{api.ADD_SERVICE}/{api.ADD_METHOD}",
+                request_serializer=lambda m: m.encode(),
+                response_deserializer=api.AddGPUResponse.decode),
+            api.REMOVE_METHOD: self._channel.unary_unary(
+                f"/{api.REMOVE_SERVICE}/{api.REMOVE_METHOD}",
+                request_serializer=lambda m: m.encode(),
+                response_deserializer=api.RemoveGPUResponse.decode),
+        }
+
+    def close(self) -> None:
+        channel, self._channel = self._channel, None
+        if channel is None:
+            return
+        if self._pool is not None:
+            self._pool.release(self.address)
+        else:
+            channel.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+        return False
+
+    # --- the call, with its deadline, retries and breaker ---
+
+    def _call(self, method: str, request):
+        if self._channel is None:
+            raise RuntimeError(f"WorkerClient for {self.address} is closed")
+        deadline = self.timeouts[method]
+        last_exc: Exception | None = None
+        for attempt in range(1, self.retry.max_attempts + 1):
+            if self.breaker is not None:
+                retry_after = self.breaker.allow(self.address)
+                if retry_after is not None:
+                    raise BreakerOpenError(
+                        f"worker {self.address} degraded (circuit open); retry in "
+                        f"{retry_after:.1f}s", retry_after, self.address, method) from last_exc
+            try:
+                response = self._stubs[method](request, timeout=deadline,
+                                               metadata=self._metadata)
+            except grpc.RpcError as exc:
+                code = _code_name(exc)
+                transport = code in _RETRIABLE
+                if self.breaker is not None:
+                    # only the transport's failures count against the
+                    # worker: a refusal proves it alive and answering
+                    if transport:
+                        self.breaker.record_failure(self.address)
+                    else:
+                        self.breaker.record_success(self.address)
+                if not transport or attempt >= self.retry.max_attempts:
+                    raise self._typed(exc, code, method) from exc
+                last_exc = exc
+                delay = self.retry.delay_for(attempt)
+                logger.warning("%s to %s failed (%s, attempt %d/%d); retrying in %.2fs",
+                               method, self.address, code, attempt,
+                               self.retry.max_attempts, delay)
+                time.sleep(delay)
+            else:
+                if self.breaker is not None:
+                    self.breaker.record_success(self.address)
+                return response
+        raise AssertionError("unreachable")
+
+    def _typed(self, exc: Exception, code: str, method: str) -> RpcCallError:
+        if code == "DEADLINE_EXCEEDED":
+            return DeadlineExceededError(f"{method} to {self.address} exceeded its deadline",
+                                         self.address, method)
+        if code == "UNAVAILABLE":
+            return WorkerUnavailableError(
+                f"{method} to {self.address}: worker unavailable ({_details(exc)})",
+                self.address, method)
+        return RpcCallError(_details(exc), code, self.address, method)
+
+    # --- methods ---
+
+    def add_gpu(self, pod_name: str, namespace: str, gpu_num: int,
+                is_entire_mount: bool = False,
+                idempotency_key: str | None = None) -> api.AddGPUResponse:
+        """AddGPU; the response's add_gpu_result and the UUIDs mounted. One
+        idempotency key covers every attempt."""
+        request = api.AddGPURequest(
+            pod_name, namespace, gpu_num, is_entire_mount,
+            idempotency_key=idempotency_key or f"add-{secrets.token_hex(8)}")
+        return self._call(api.ADD_METHOD, request)
+
+    def remove_gpu(self, pod_name: str, namespace: str, uuids: list[str],
+                   force: bool = False,
+                   idempotency_key: str | None = None) -> api.RemoveGPUResponse:
+        request = api.RemoveGPURequest(
+            pod_name, namespace, list(uuids), force,
+            idempotency_key=idempotency_key or f"rm-{secrets.token_hex(8)}")
+        return self._call(api.REMOVE_METHOD, request)

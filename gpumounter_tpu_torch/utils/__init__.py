@@ -1,1 +1,2 @@
-"""Logging, named locks and phase timing for the control plane."""
+"""Logging, named locks, phase timing, auth and the lazy grpc import for the
+control plane."""

@@ -1,1 +1,2 @@
-"""The worker: mount mechanics and the add/remove flows of one node."""
+"""The worker: mount mechanics, the add/remove flows of one node, their gRPC
+server, and the daemon."""

@@ -5,15 +5,16 @@ and of the original's ``pkg/util/util.go``:
 
   * ``mount_many`` (MountGPU, util.go:17-71): container -> cgroup path ->
     device permission -> first cgroup PID -> mknod in its namespace;
-  * ``unmount`` (UnmountGPU, util.go:73-150): busy gate unless forced ->
-    revoke -> remove the node -> kill the holders when forced;
+  * ``unmount_many`` (UnmountGPU, util.go:73-150): busy gate unless
+    forced -> revoke -> remove the nodes -> kill the holders when forced;
   * ``holder_pids`` (GetPodGPUProcesses, util.go:152-196): cgroup PIDs
     that hold the device;
   * ``can_mount`` (CanMount, util.go:207-226).
 
 Every container of the pod is handled, with docker and containerd IDs;
 the batch is granted first, then injected, and a failure anywhere undoes
-the whole batch. A ``MountTarget`` can also be a plain directory with no
+the whole batch. A batch enters the target's namespace once, to mount or to
+unmount. A ``MountTarget`` can also be a plain directory with no
 cgroup or namespace, for dry runs. cgroup v2 needs the eBPF controller,
 which is not here yet: a container target on a v2 host raises MountError.
 """
@@ -43,7 +44,12 @@ logger = get_logger("mounter")
 
 
 class MountError(RuntimeError):
-    pass
+    """A mount or unmount that failed. `unmounted` holds the GPUs of a
+    failed unmount batch that were revoked and removed before the failure."""
+
+    def __init__(self, message: str = "", unmounted=()):
+        super().__init__(message)
+        self.unmounted = list(unmounted)
 
 
 class GpuBusyError(MountError):
@@ -184,11 +190,11 @@ class GpuMounter:
                 holders.update(self.holder_pids(target, dev))
             except Exception as exc:  # noqa: BLE001 — the undo goes on
                 logger.error("rollback holder scan of %s failed: %s", dev.uuid, exc)
-        for dev in injected:
-            try:
-                nsutil.remove_device_file(target.dev_dir, dev, pid=target.ns_pid)
-            except Exception as exc:  # noqa: BLE001 — the undo goes on
-                logger.error("rollback node removal of %s failed: %s", dev.uuid, exc)
+        try:
+            nsutil.remove_device_files(target.dev_dir, injected, pid=target.ns_pid)
+        except Exception as exc:  # noqa: BLE001 — the undo goes on
+            logger.error("rollback node removal of %s failed: %s",
+                         [d.uuid for d in injected], exc)
         for cg, dev in granted:
             try:
                 self.controller.revoke(cg, dev)
@@ -202,29 +208,48 @@ class GpuMounter:
 
     # --- unmount (UnmountGPU, util.go:73-150) ---
 
-    def unmount(self, target: MountTarget, dev: GpuDevice, force: bool = False) -> dict:
+    def unmount_many(self, target: MountTarget, devices: list[GpuDevice],
+                     force: bool = False) -> dict:
+        """Revoke, then remove, a batch of GPUs, every node in one entry into
+        the target's namespace; when forced, kill their holders after. A
+        holder of any GPU refuses the whole batch with GpuBusyError, before
+        anything is touched, unless forced. Any other failure raises
+        MountError, whose `unmounted` holds the GPUs done before it.
+        Returns the phase timings (ms)."""
         timer = PhaseTimer()
         with timer.phase("busy_check"):
-            holders = self.holder_pids(target, dev)
-        if holders and not force:
-            raise GpuBusyError(f"{dev.device_path} held by PIDs {holders} in "
-                               f"{target.description}; use force")
+            busy = {dev.uuid: pids for dev in devices
+                    if (pids := self.holder_pids(target, dev))}
+        if busy and not force:
+            raise GpuBusyError(f"GPU(s) held in {target.description} (UUID: PIDs): {busy}; "
+                               "use force")
         self._check_grantable(target)
+        uuids = ",".join(d.uuid for d in devices)
+        done: list[GpuDevice] = []
         try:
             with timer.phase("cgroup_revoke"):
                 for cg in target.cgroup_dirs:
-                    self.controller.revoke(cg, dev)
+                    for dev in devices:
+                        self.controller.revoke(cg, dev)
             with timer.phase("device_remove"):
-                nsutil.remove_device_file(target.dev_dir, dev, pid=target.ns_pid)
-            if force and holders:
+                try:
+                    nsutil.remove_device_files(target.dev_dir, devices, pid=target.ns_pid)
+                except OSError as exc:
+                    paths = [nsutil.device_node_path(target.dev_dir, d) for d in devices]
+                    if exc.filename in paths:
+                        done = devices[:paths.index(exc.filename)]
+                    raise
+            # A GPU whose holders outlive a failed kill stays booked.
+            done = [d for d in devices if d.uuid not in busy]
+            if busy:
                 with timer.phase("kill_holders"):
-                    nsutil.kill_pids_in_ns(holders, pid=target.ns_pid)
-        except MountError:
-            raise
+                    nsutil.kill_pids_in_ns(sorted({p for pids in busy.values() for p in pids}),
+                                           pid=target.ns_pid)
+            done = list(devices)
         except Exception as exc:
-            raise MountError(f"unmount of {dev.uuid} from {target.description}: "
-                             f"{exc}") from exc
+            raise MountError(f"unmount of {uuids} from {target.description}: {exc}",
+                             unmounted=done) from exc
         summary = timer.summary_ms()
-        logger.info("unmounted %s from %s (%s)", dev, target.description, summary)
+        logger.info("unmounted %d GPU(s) [%s] from %s (%s)", len(devices), uuids,
+                    target.description, summary)
         return summary
-

@@ -154,7 +154,7 @@ def test_a_v2_host_raises_the_named_mount_error(tmp_path):
     target = MountTarget(dev_dir=str(tmp_path / "container"), cgroup_dirs=[str(tmp_path)],
                          description="ml/trainer")
     for call in (lambda: mounter.mount_many(target, [dev]),
-                 lambda: mounter.unmount(target, dev, force=True)):
+                 lambda: mounter.unmount_many(target, [dev], force=True)):
         with pytest.raises(MountError) as exc:
             call()
         assert V2_MISSING in str(exc.value)

@@ -40,8 +40,10 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package(path):
 @pytest.mark.parametrize("path", PORT_FILES,
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_port_imports_no_grpc(path):
-    """The card's machine has no grpc: the control plane's flows run in
-    process, and the wire comes with the transport."""
+    """No module imports grpc by name: it loads through
+    ``utils/lazy_grpc.py`` when a channel or server is built, so the mount
+    path and the master's app, which need no gRPC, import without it
+    (``tests/test_torch_daemons.py`` checks the modules loaded)."""
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):

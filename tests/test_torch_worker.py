@@ -12,6 +12,7 @@ the free count of the node. The two records must be equal.
 from __future__ import annotations
 
 import os
+import shutil
 import subprocess
 import sys
 import threading
@@ -295,12 +296,18 @@ def test_add_result_carries_uuids_and_phases(tmp_path):
     assert exc.value.code == "INVALID_ARGUMENT"
 
 
-def test_flows_through_the_namespace_entry(tmp_path):
+def test_flows_through_the_namespace_entry(tmp_path, monkeypatch):
     """The same flows with the target entered through a mount namespace:
-    this process's own (setns into it needs CAP_SYS_ADMIN)."""
+    this process's own (setns into it needs CAP_SYS_ADMIN). The add and
+    the remove of 2 GPUs each enter it once."""
+    from gpumounter_tpu_torch.nsutil import ns
     port = _Port(tmp_path)
     service = port.cluster.service(port.dev, ns_pid=os.getpid())
     port.add_pod("trainer")
+    entries = []
+    enter = ns.run_in_mount_ns
+    monkeypatch.setattr(ns, "run_in_mount_ns",
+                        lambda pid, ops: entries.append([op[0] for op in ops]) or enter(pid, ops))
     try:
         resp = service.add_gpu(api.AddGPURequest("trainer", "default", 2))
     except ServiceError as exc:
@@ -315,6 +322,33 @@ def test_flows_through_the_namespace_entry(tmp_path):
     removed = service.remove_gpu(api.RemoveGPURequest("trainer", "default", resp.uuids))
     assert removed.remove_gpu_result == api.RemoveGPUResult.Success
     assert port.visible() == 0 and port.free() == N
+    assert entries == [["mknod"] * 5 + ["missing"], ["unlink"] * 2]
+
+
+def test_a_remove_that_fails_part_way_releases_only_what_it_unmounted(tmp_path,
+                                                                      monkeypatch):
+    """The second of three unlinks fails: the call is INTERNAL, the first
+    GPU (revoked and removed) is released, the other two stay booked and
+    visible."""
+    from gpumounter_tpu_torch.nsutil import nsexec
+    port = _Port(tmp_path)
+    port.add_pod("trainer")
+    assert port.add("trainer", 3) == 0
+    uuids = port.held("trainer")
+    failing = port.node_path(uuids[1])
+    unlink = nsexec.unlink_here
+
+    def refuse_one(path):
+        if path == failing:
+            raise OSError(16, "Device or resource busy", path)
+        unlink(path)
+
+    monkeypatch.setattr(nsexec, "unlink_here", refuse_one)
+    with pytest.raises(ServiceError) as exc:
+        port.service.remove_gpu(api.RemoveGPURequest("trainer", "default", uuids))
+    assert exc.value.code == "INTERNAL" and failing in exc.value.message
+    assert sorted(port.held("trainer")) == sorted(uuids[1:])
+    assert port.visible() == 2 and port.free() == N - 2
 
 
 @pytest.mark.parametrize("n", [1, 3])
@@ -379,7 +413,18 @@ def test_a_real_device_without_cap_mknod_is_refused_and_rolled_back(tmp_path, mo
     def refuse(*args, **kwargs):
         raise PermissionError(1, "Operation not permitted")
 
-    monkeypatch.setattr(os, "mknod", refuse)
+    if through_ns:
+        # the namespace helper runs in a process of its own: drop CAP_MKNOD
+        # from it for real
+        from gpumounter_tpu_torch.nsutil import ns
+        if shutil.which("setpriv") is None:
+            pytest.skip("setpriv is needed to drop CAP_MKNOD from the namespace helper")
+        helper_argv = ns._helper_argv
+        monkeypatch.setattr(ns, "_helper_argv", lambda path, ops: [
+            "setpriv", "--bounding-set=-mknod", "--inh-caps=-mknod", "--",
+            *helper_argv(path, ops)])
+    else:
+        monkeypatch.setattr(os, "mknod", refuse)
     with pytest.raises(ServiceError) as exc:
         service.add_gpu(api.AddGPURequest("trainer", "default", 1))
     assert exc.value.code == "INTERNAL"
@@ -398,8 +443,7 @@ def test_a_node_not_visible_after_mknod_fails_and_rolls_back(tmp_path, monkeypat
     port = _Port(tmp_path)
     service = port.cluster.service(port.dev, ns_pid=os.getpid() if through_ns else None)
     port.add_pod("trainer")
-    monkeypatch.setattr(ns, "_mknod_here", lambda path, major, minor: None)
-    monkeypatch.setattr(ns, "_mknod_at", lambda path, major, minor, source_path="": None)
+    monkeypatch.setattr(ns, "_node_plan", lambda target_dev_dir, devices: [])
     with pytest.raises(ServiceError) as exc:
         service.add_gpu(api.AddGPURequest("trainer", "default", 2))
     assert "not visible" in exc.value.message
@@ -411,9 +455,7 @@ def test_a_namespace_that_cannot_be_entered_is_named(monkeypatch):
     """A failed setns is not reported as a mknod refusal."""
     from gpumounter_tpu_torch.nsutil import ns
 
-    def refuse(fd, nstype):
-        raise PermissionError(1, "Operation not permitted")
-
-    monkeypatch.setattr(os, "setns", refuse)
+    # a namespace of another type: setns(fd, CLONE_NEWNS) refuses it
+    monkeypatch.setattr(ns, "_mount_ns_path", lambda pid: f"/proc/{pid}/ns/net")
     with pytest.raises(ns.NamespaceError, match="cannot enter the mount namespace"):
-        ns.run_in_mount_ns(os.getpid(), lambda: "unreached")
+        ns.run_in_mount_ns(os.getpid(), [["missing", ["/unreached"]]])
