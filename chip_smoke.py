@@ -162,7 +162,30 @@ Phases, each raising on failure (any failure exits non-zero):
        Insufficient (a second nvidiaN node of the card is no GPU), an
        unknown pod 404, an unknown UUID 400, no token 401; the flows of 1
        and 8 GPUs and the same errors on a fake host of 8 GPUs; the worker
-       call alone and the codec timed.
+       call alone and the codec timed;
+12. the cgroup v2 device controller on the card's GPU,
+    ``entry.cgroup_v2_check`` (the card's machine runs cgroup v1, so the
+    phase shows what it can and prints which branch it took):
+    a. always: the live GPU and its companions as stat(2) gives them
+       (phase 10's inventory); the v2 program for them assembled, with the
+       defaults and with the telemetry and policy maps, timed; a grant and
+       the last revoke through ``V2DeviceController`` on the stubbed kernel
+       (``testing/bpf.py``), the legacy path and the map path, every
+       verdict from ``interpret_device_program``: rw on the GPU's node and
+       each companion admitted after the grant, a neighbouring minor
+       denied, and after the revoke runc's program back alone and all of
+       them denied; grant and revoke timed;
+    b. the kernel probed: a BPF map's creation and a device program's
+       load, a cgroup2 and a bpffs mount; each errno's name printed;
+    c. where all four succeed, the round trip on the kernel, in a child
+       cgroup2: runc's default program attached, a tenant child
+       (``--v2-child``) in that cgroup refused /dev/nvidiaN (EPERM),
+       ``grant_many``, the same child opening the node and the companions
+       and running phase 3's first forward through ``flash_fwd``, a
+       restarted controller restoring the grant from the pins and revoking
+       it, ``prog_query``'s ids as before the grant, the child refused
+       again; a failure of any step fails the run. Where one fails, the
+       phase goes on.
 
 The last lines are a JSON object per kernel (``{"kernels": [...]}``) and
 ``{"ok": true, "device": {...}}``, and the exit code is 0. A failing check
@@ -204,7 +227,8 @@ from gpumounter_tpu_torch.device.backend import NvidiaDeviceBackend
 from gpumounter_tpu_torch.entry import (MOE_ROUTE_GAP, ONE_PROCESS_LOSS_ATOL,
                                         RING_TOL, SHARDED_LOSS_ATOL, SHARDED_PARAM_OF_MAX,
                                         TRAIN_GRAD_ATOL, _check_equal_over, _masked_err,
-                                        against_one_process, busy_health_check, check_config,
+                                        against_one_process, busy_health_check, cgroup_v2_check,
+                                        check_config,
                                         dryrun_multichip, grow_check, has_cap_mknod,
                                         inventory_check, kernel_launches, make_identity,
                                         master_check, moe_blocks_vs_plain, moe_check,
@@ -234,6 +258,7 @@ from gpumounter_tpu_torch.parallel.pipeline_train import (make_pipeline_train_st
                                                           shard_pipeline_params,
                                                           to_pipeline_params)
 from gpumounter_tpu_torch.parallel.ring_attention import ring_attention
+from gpumounter_tpu_torch.testing import v2tenant
 from gpumounter_tpu_torch.parallel.train_step import (gather_params, loss_and_grads,
                                                       make_train_step, shard_params,
                                                       make_train_step_optim,
@@ -2403,6 +2428,14 @@ def _mount_child(spec: dict) -> None:
         raise RuntimeError(f"CUDA_VISIBLE_DEVICES={os.environ.get('CUDA_VISIBLE_DEVICES')!r}: "
                            f"{torch.cuda.device_count()} device(s), device 0 is {uuid}, the "
                            f"worker assigned {spec['uuid']}")
+    print(json.dumps({"mount_child": {"ready_at": t_ready, "uuid": uuid,
+                                      **_tenant_forward()}}))
+
+
+def _tenant_forward() -> dict:
+    """A tenant's full-width probe forward (phase 3's weights and first
+    batch) through flash_fwd on CUDA's device 0: its launches, NLL,
+    finiteness and shape."""
     cfg = full_width_config()
     params = init_params(cfg, torch.Generator().manual_seed(0), "cuda")
     rng = np.random.default_rng(0)
@@ -2410,11 +2443,27 @@ def _mount_child(spec: dict) -> None:
     _reset_kernel_counts()
     logits = forward(params, tokens, cfg)
     torch.cuda.synchronize()
-    print(json.dumps({"mount_child": {
-        "ready_at": t_ready, "uuid": uuid, "device": torch.cuda.get_device_name(0),
-        "launches": _kernel_counts(), "nll": next_token_nll(logits, tokens).item(),
-        "finite": bool(torch.isfinite(logits).all()),
-        "shape": list(logits.shape)}}))
+    return {"device": torch.cuda.get_device_name(0), "launches": _kernel_counts(),
+            "nll": next_token_nll(logits, tokens).item(),
+            "finite": bool(torch.isfinite(logits).all()), "shape": list(logits.shape)}
+
+
+def _check_tenant_forward(what: str, report: dict) -> None:
+    cfg = full_width_config()
+    _check_counts(what, report["launches"],
+                  {"flash_fwd": cfg.n_layers, "dq": 0, "dkv": 0, "flash_decode": 0})
+    nll = report["nll"]
+    if not (report["finite"] and report["shape"] == [FULL["B"], FULL["L"], cfg.vocab]
+            and 0 <= nll - math.log(cfg.vocab) < NLL_ABOVE_UNIFORM):
+        raise RuntimeError(f"{what}'s forward: {report}")
+
+
+def _v2_child(spec: dict) -> None:
+    """The tenant of phase 12's round trip on the kernel: joins the cgroup
+    and answers the check's requests (``testing/v2tenant.py``); its
+    workload is ``_tenant_forward``, CUDA first touched there."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    v2tenant.serve(spec, workload=_tenant_forward)
 
 
 def _tenant_child(uuid: str) -> dict:
@@ -2431,13 +2480,7 @@ def _tenant_child(uuid: str) -> dict:
                            f"{out.stderr[-4000:]}")
     report = next(json.loads(line) for line in out.stdout.splitlines()
                   if line.startswith("{"))["mount_child"]
-    cfg = full_width_config()
-    _check_counts("tenant child", report["launches"],
-                  {"flash_fwd": cfg.n_layers, "dq": 0, "dkv": 0, "flash_decode": 0})
-    nll = report["nll"]
-    if not (report["finite"] and report["shape"] == [FULL["B"], FULL["L"], cfg.vocab]
-            and 0 <= nll - math.log(cfg.vocab) < NLL_ABOVE_UNIFORM):
-        raise RuntimeError(f"tenant child's forward: {report}")
+    _check_tenant_forward("tenant child", report)
     report["exec_to_cuda_ready_ms"] = (report["ready_at"] - t_spawn) * 1e3
     return report
 
@@ -2625,6 +2668,53 @@ def phase_master(card: str, mount_report: dict, handoff_ready_ms: dict) -> int:
     return sum(c["launches"]["flash_fwd"] for c in children)
 
 
+def phase_cgroup_v2(card: str) -> int:
+    """Phase 12: ``entry.cgroup_v2_check`` on the card's GPU (see the
+    module's docstring); returns the flash_fwd launches of the kernel round
+    trip's tenant (0 where the kernel refused the probe)."""
+    t_phase = time.perf_counter()
+    report = cgroup_v2_check("cuda", identity=pick_identity(),
+                             tenant_argv=[sys.executable, os.path.abspath(__file__), "--v2-child"])
+    gpu = report["gpu"]
+    print(f"cgroup v2 inventory: /dev/{gpu.basename} {gpu.major}:{gpu.minor}, companions "
+          + ", ".join(f"/dev/{c.rel_path} {c.major}:{c.minor}" for c in gpu.companions)
+          + " (stat's)", flush=True)
+    asm = report["assembly_us"]
+    print(f"time cgroup v2 program assembly: static rules (defaults + the GPU's group) "
+          f"{asm['static_insns']} insns in {asm['static']:.1f} us; map path (defaults, telemetry "
+          f"and policy blocks) {asm['maps_insns']} insns in {asm['maps']:.1f} us [{card}]",
+          flush=True)
+    for path, flow in report["stub"].items():
+        print(f"cgroup v2 stubbed kernel, {path} path: after grant_many rw admitted on "
+              f"/dev/{gpu.basename} and its {len(gpu.companions)} companion(s) "
+              f"{flow['granted']}, neighbouring minor denied ({flow['neighbour']}); after the "
+              f"last revoke runc's program alone, all denied {flow['revoked']}", flush=True)
+        print(f"time cgroup v2 stubbed kernel, {path} path: grant {flow['grant_ms']:.3f} ms, "
+              f"revoke {flow['revoke_ms']:.3f} ms [{card}]", flush=True)
+    print("cgroup v2 kernel probe: " + ", ".join(f"{k} {v}" for k, v in report["probe"].items()),
+          flush=True)
+    flow = report["kernel"]
+    if flow is None:
+        refused = {k: v for k, v in report["probe"].items() if v != "ok"}
+        print(f"cgroup v2 branch: probe refused ({refused}); the round trip on the kernel is "
+              f"not run here", flush=True)
+        launches = 0
+    else:
+        _check_tenant_forward("phase 12's tenant", flow["run"])
+        launches = flow["run"]["launches"]["flash_fwd"]
+        print(f"cgroup v2 branch: kernel round trip: runc's program ids {flow['ids_before']}; "
+              f"the tenant's opens before the grant {flow['before']}, after {flow['granted']}, "
+              f"after the revoke {flow['after']}; ours {flow['ids_granted']}; a restarted "
+              f"controller restored {flow['restored']}; ids after the revoke "
+              f"{flow['ids_after']}; the tenant's forward: flash_fwd {launches}, nll "
+              f"{flow['run']['nll']:.4f}", flush=True)
+        print(f"time cgroup v2 kernel: grant {flow['grant_ms']:.3f} ms, revoke "
+              f"{flow['revoke_ms']:.3f} ms, the tenant's forward {flow['run_ms']:.1f} ms "
+              f"[{card}]", flush=True)
+    print(f"time cgroup v2 phase 12: {time.perf_counter() - t_phase:.3f} s [{card}]", flush=True)
+    return launches
+
+
 def phase_forward_timing(cfg, params, tokens, card, what="forward") -> None:
     fwd_ms = _time_ms(lambda: forward(params, tokens, cfg), 5, warmup=1)
     tok_s = tokens.numel() / (fwd_ms / 1e3)
@@ -2638,6 +2728,9 @@ def main() -> int:
         return 0
     if sys.argv[1:2] == ["--mount-child"]:
         _mount_child(json.loads(sys.argv[2]))
+        return 0
+    if sys.argv[1:2] == ["--v2-child"]:
+        _v2_child(json.loads(sys.argv[2]))
         return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2717,6 +2810,8 @@ def _phases(stage: list, t0: float) -> None:
     mount_report = phase_mount(card)
     stage.append("11 (the hot-mount through the master)")
     mount_launches = phase_master(card, mount_report, handoff_ready_ms)
+    stage.append("12 (the cgroup v2 device controller)")
+    v2_launches = phase_cgroup_v2(card)
     sharded = {k: sharded_launches[k] + seq_pipe_launches[k] + grow_launches[k]
                + dryrun_launches[k] for k in sharded_launches}
 
@@ -2732,9 +2827,9 @@ def _phases(stage: list, t0: float) -> None:
           f"seq/pipeline phase (every rank's dp x sp and pipeline steps): {seq_pipe_launches}; "
           f"the grow phase (every rank's steps in both worlds): {grow_launches}; the dryrun "
           f"(every rank's sharded steps): {dryrun_launches}; the hot-mount's tenant child "
-          f"(phase 11, on the UUID the HTTP add mounted): flash_fwd {mount_launches}",
-          flush=True)
-    print(f"chip_smoke: phases 1-11 took {time.perf_counter() - t0:.1f} s, the kernels' build "
+          f"(phase 11, on the UUID the HTTP add mounted): flash_fwd {mount_launches}; the "
+          f"cgroup v2 round trip's tenant (phase 12): flash_fwd {v2_launches}", flush=True)
+    print(f"chip_smoke: phases 1-12 took {time.perf_counter() - t0:.1f} s, the kernels' build "
           f"included [{card}]", flush=True)
     bwd_source = "gpumounter_tpu_torch/ops/csrc/flash_bwd.cu"
     print(json.dumps({"kernels": [{
@@ -2743,7 +2838,7 @@ def _phases(stage: list, t0: float) -> None:
         "replaces": "gpumounter_tpu/ops/flash_attention.py:84",
         "launches": (launches + prefill_launches + train_fwd + moe_launches + moe_prefill
                      + moe_fwd + handoff_launches["flash_fwd"] + sharded["flash_fwd"]
-                     + mount_launches),
+                     + mount_launches + v2_launches),
         "max_abs_err": max_abs_err, **times}, {
         "name": "flash_bwd_dq", "route": "cuda", "source": bwd_source,
         "replaces": "gpumounter_tpu/ops/flash_attention.py:182",

@@ -22,6 +22,7 @@ caller here is a mount or remove flow that would act on the stale marks.
 
 from __future__ import annotations
 
+import copy
 import re
 import threading
 
@@ -128,3 +129,9 @@ class GpuCollector:
             return [d for d in self.devices
                     if d.pod_name == slave_pod_name
                     and d.namespace == self.cfg.pool_namespace]
+
+    def snapshot(self) -> list[GpuDevice]:
+        """A copy of the inventory with its ownership marks, as the last
+        refresh left them."""
+        with self._lock:
+            return copy.deepcopy(self.devices)

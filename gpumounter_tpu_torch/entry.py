@@ -4,18 +4,24 @@ it, and the training checks of the reference's dryrun, dense
 dp x tp and expert parallelism (``tp_train_check``), dp x sp with ring
 attention and the pipelines (``seq_pipeline_check``), all of them with the
 stretch over an H100 topology plan (``dryrun_multichip``); the
-hot-add that grows a job's mesh (``grow_check``); and the control plane's
-one-node hot-mount of a GPU into a pod (``mount_check``)."""
+hot-add that grows a job's mesh (``grow_check``); the control plane's
+one-node hot-mount of a GPU into a pod (``mount_check``), through the
+master (``master_check``), and the cgroup v2 device controller on this
+host's GPU (``cgroup_v2_check``)."""
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
+import errno
+import json
 import math
 import os
 import secrets
 import shutil
 import stat as statmod
 import subprocess
+import sys
 import tempfile
 import threading
 import time
@@ -28,8 +34,11 @@ import torch
 import torch.distributed as dist
 
 from gpumounter_tpu_torch._device import resolve_device
+from gpumounter_tpu_torch.cgroup import ebpf
+from gpumounter_tpu_torch.cgroup.policy import interpret_device_program
 from gpumounter_tpu_torch.config import Config
 from gpumounter_tpu_torch.device.backend import NvidiaDeviceBackend, identity_from_config
+from gpumounter_tpu_torch.device.gpu import CompanionNode, GpuDevice
 from gpumounter_tpu_torch.k8s.types import Pod
 from gpumounter_tpu_torch.master.app import MasterApp, build_http_server
 from gpumounter_tpu_torch.models.probe import (TransformerConfig, _attend, _block, _embed,
@@ -57,6 +66,8 @@ from gpumounter_tpu_torch.parallel.train_step import (gather_params, loss_and_gr
 from gpumounter_tpu_torch.rpc.api import (AddGPURequest, AddGPUResponse, AddGPUResult,
                                           RemoveGPURequest, RemoveGPUResponse,
                                           RemoveGPUResult)
+from gpumounter_tpu_torch.testing import v2tenant
+from gpumounter_tpu_torch.testing.bpf import FakeBpf
 from gpumounter_tpu_torch.testing.cluster import FakeCluster
 from gpumounter_tpu_torch.topology import lookup
 from gpumounter_tpu_torch.torchside.resume import (HotResumable, load_optimizer_state,
@@ -1260,6 +1271,257 @@ def mount_check(device="cuda", *, dev_dir: str | None = None, ns_pid: int | None
         report["fake"] = {n: _mount_flow(fake, service, fake_dir, n, repeats, "round-trip")
                           for n in sorted({1, fake_gpus})}
     finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return report
+
+
+# --- the cgroup v2 device controller ---
+
+_libc = ctypes.CDLL(None, use_errno=True)
+MNT_DETACH = 2
+_CHAR = ebpf.BPF_DEVCG_DEV_CHAR
+_RW = ebpf.BPF_DEVCG_ACC_READ | ebpf.BPF_DEVCG_ACC_WRITE
+# The stand-in host of the CPU: nvidia0, nvidiactl, and an nvidia-uvm whose
+# major is dynamic on a real host (any number will do).
+_CPU_NODES = (("nvidia0", 195, 0), ("nvidiactl", 195, 255), ("nvidia-uvm", 511, 0))
+
+
+def _errno_name(err: int) -> str:
+    return errno.errorcode.get(err, str(err))
+
+
+def _mount(source: str, target: str, fstype: str) -> str:
+    """mount(2): "ok", or the errno's name."""
+    if _libc.mount(source.encode(), target.encode(), fstype.encode(), 0, None) == 0:
+        return "ok"
+    return _errno_name(ctypes.get_errno())
+
+
+def _cpu_gpu(root: str) -> GpuDevice:
+    """A GPU of the stand-in host: char nodes with no driver behind them,
+    made under `root` (mknod needs CAP_MKNOD)."""
+    os.makedirs(root)
+    for name, major, minor in _CPU_NODES:
+        os.mknod(os.path.join(root, name), 0o666 | statmod.S_IFCHR, os.makedev(major, minor))
+    (name, major, minor), companions = _CPU_NODES[0], _CPU_NODES[1:]
+    return GpuDevice(index=0, device_path=os.path.join(root, name), major=major, minor=minor,
+                     uuid="GPU-00000000-0000-0000-0000-000000000000",
+                     companions=[CompanionNode(*c) for c in companions])
+
+
+def _node_paths(gpu: GpuDevice) -> list[str]:
+    base = os.path.dirname(gpu.device_path)
+    return [gpu.device_path] + [os.path.join(base, c.rel_path) for c in gpu.companions]
+
+
+def _neighbour(gpu: GpuDevice) -> tuple[int, int]:
+    """A minor of the GPU's major that is neither the GPU nor a companion."""
+    taken = {(c.major, c.minor) for c in gpu.companions} | {(gpu.major, gpu.minor)}
+    return next((gpu.major, m) for m in (gpu.minor + 1, gpu.minor - 1, gpu.minor + 2)
+                if m >= 0 and (gpu.major, m) not in taken)
+
+
+def _v2_program_us(gpu: GpuDevice, iters: int = 200) -> dict:
+    """Host µs to assemble the program for this GPU: the static rule set
+    (defaults + the GPU's group, the legacy path), and the map path's
+    (defaults, the telemetry and policy blocks)."""
+    rules = list(ebpf.DEFAULT_CONTAINER_RULES) + [ebpf.device_rule(gpu)] + [
+        ebpf.DeviceRule("c", c.major, c.minor, "rw") for c in gpu.companions]
+    out = {}
+    for name, build in (("static", lambda: ebpf.build_device_program(rules)),
+                        ("maps", lambda: ebpf.build_device_program(
+                            ebpf.DEFAULT_CONTAINER_RULES, telemetry_map_fd=3, policy_map_fd=4))):
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            prog = build()
+        out[name] = (time.perf_counter() - t0) * 1e6 / iters
+        out[f"{name}_insns"] = len(prog) // ebpf.INSN_SIZE
+    return out
+
+
+def _v2_stub_flow(gpu: GpuDevice, root: str, maps: bool) -> dict:
+    """A grant and the last revoke of `gpu` through ``V2DeviceController`` on
+    the stubbed kernel, runc's default program attached first, every
+    verdict from ``interpret_device_program`` over the attached programs:
+    after the grant rw on the GPU and each companion is admitted and a
+    neighbouring minor denied; after the revoke runc's program is back
+    alone and the GPU and the companions are denied. Returns the verdicts
+    and the grant's and revoke's host ms."""
+    kernel = FakeBpf(maps=maps)
+    tag = "maps" if maps else "legacy"
+    cgroup = os.path.join(root, f"stub-cgroup-{tag}")
+    os.makedirs(cgroup)
+    kernel.preattach(cgroup, 7, ebpf.build_device_program(ebpf.DEFAULT_CONTAINER_RULES))
+    targets = [(gpu.major, gpu.minor)] + [(c.major, c.minor) for c in gpu.companions]
+
+    def verdicts():
+        return [kernel.verdict(interpret_device_program, cgroup, _CHAR, _RW, *t) for t in targets]
+
+    with kernel.installed(ebpf):
+        ctl = ebpf.V2DeviceController(pin_dir=os.path.join(root, f"stub-{tag}", "bpffs"),
+                                      state_dir=os.path.join(root, f"stub-{tag}", "state"))
+        try:
+            t0 = time.perf_counter()
+            ctl.grant_many(cgroup, [gpu], tenant="cgroup-v2-check")
+            grant_ms = (time.perf_counter() - t0) * 1e3
+            granted = verdicts()
+            neighbour = kernel.verdict(interpret_device_program, cgroup, _CHAR, _RW,
+                                       *_neighbour(gpu))
+            t0 = time.perf_counter()
+            ctl.revoke(cgroup, gpu)
+            revoke_ms = (time.perf_counter() - t0) * 1e3
+            revoked = verdicts()
+        finally:
+            ctl.close()
+    if granted != [1] * len(targets) or neighbour != 0 or revoked != [0] * len(targets) \
+            or kernel.attached[os.path.realpath(cgroup)] != [7]:
+        raise RuntimeError(f"cgroup v2 ({tag}, stubbed kernel): granted {granted}, neighbour "
+                           f"{neighbour}, revoked {revoked}, attached "
+                           f"{kernel.attached[os.path.realpath(cgroup)]}")
+    return {"granted": granted, "neighbour": neighbour, "revoked": revoked,
+            "grant_ms": grant_ms, "revoke_ms": revoke_ms}
+
+
+def v2_kernel_probe(root: str) -> dict:
+    """What this process may do: for a BPF map's creation, a device
+    program's load, a cgroup2 mount at <root>/cgroup2 and a bpffs mount at
+    <root>/bpffs, "ok" or the errno's name. The mounts that succeed stay
+    for the caller to undo."""
+    probe = {}
+    for name, make in (("map_create", lambda: ebpf.map_create(max_entries=1)),
+                       ("prog_load", lambda: ebpf.prog_load(
+                           ebpf.build_device_program(ebpf.DEFAULT_CONTAINER_RULES)))):
+        try:
+            os.close(make())
+            probe[name] = "ok"
+        except ebpf.BpfError as exc:
+            probe[name] = _errno_name(exc.errno)
+    for name, fstype in (("cgroup2", "cgroup2"), ("bpffs", "bpf")):
+        target = os.path.join(root, name)
+        os.makedirs(target)
+        probe[f"{name}_mount"] = _mount(fstype if fstype == "bpf" else "none", target, fstype)
+    return probe
+
+
+def _ask(child, command: str) -> dict:
+    child.stdin.write(command + "\n")
+    child.stdin.flush()
+    line = child.stdout.readline()
+    if not line:
+        raise RuntimeError(f"the tenant exited ({child.wait()}) on {command!r}")
+    return json.loads(line)
+
+
+def _v2_kernel_flow(gpu: GpuDevice, root: str, tenant_argv: list, tenant_env) -> dict:
+    """The round trip on the kernel, in a child of the cgroup2 mounted at
+    <root>/cgroup2 with bpffs at <root>/bpffs: runc's default program
+    attached; a tenant child in that cgroup denied the GPU's node (EPERM);
+    ``grant_many``; the same child opens the GPU's node and companions
+    (admitted: ok, or ENXIO/ENODEV with no driver behind a node) and runs
+    its workload; a restarted controller restores the grant from the pins
+    and the journal and revokes it; ``prog_query`` gives the ids from
+    before the grant; the child is denied again. Any failure raises."""
+    cgroup = os.path.join(root, "cgroup2", f"tpumounter-v2-check-{os.getpid()}")
+    os.mkdir(cgroup)
+    cg_fd = os.open(cgroup, os.O_RDONLY | os.O_DIRECTORY)
+    runc_fd = ebpf.prog_load(ebpf.build_device_program(ebpf.DEFAULT_CONTAINER_RULES))
+    controllers, child = [], None
+    paths = _node_paths(gpu)
+    out = {"paths": paths}
+    try:
+        ebpf.prog_attach(cg_fd, runc_fd)
+        out["ids_before"] = ebpf.prog_query(cg_fd)
+        state = dict(pin_dir=os.path.join(root, "bpffs"), state_dir=os.path.join(root, "state"))
+        controllers.append(ebpf.V2DeviceController(**state))
+        child = subprocess.Popen(tenant_argv + [json.dumps({"cgroup": cgroup, "paths": paths})],
+                                 stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True,
+                                 env=tenant_env)
+        if "ready" not in json.loads(child.stdout.readline() or "{}"):
+            raise RuntimeError(f"the tenant did not join {cgroup} ({child.wait()})")
+        out["before"] = _ask(child, "open")["open"]
+        t0 = time.perf_counter()
+        controllers[0].grant_many(cgroup, [gpu], tenant="cgroup-v2-check")
+        out["grant_ms"] = (time.perf_counter() - t0) * 1e3
+        out["ids_granted"] = ebpf.prog_query(cg_fd)
+        out["granted"] = _ask(child, "open")["open"]
+        t0 = time.perf_counter()
+        out["run"] = _ask(child, "run")["run"]
+        out["run_ms"] = (time.perf_counter() - t0) * 1e3
+        controllers.append(ebpf.V2DeviceController(**state))  # a restarted worker
+        out["restored"] = {os.path.basename(cg): sorted(g)
+                           for cg, g in controllers[1].enumerate_grants().items()}
+        t0 = time.perf_counter()
+        controllers[1].revoke(cgroup, gpu)
+        out["revoke_ms"] = (time.perf_counter() - t0) * 1e3
+        out["ids_after"] = ebpf.prog_query(cg_fd)
+        out["after"] = _ask(child, "open")["open"]
+        child.stdin.write("exit\n")
+        child.stdin.flush()
+        out["tenant_exit"] = child.wait(timeout=60)
+        # bpffs shows its own "maps.debug" and "progs.debug"; a pin never
+        # has a dot in its name
+        out["pins_left"] = sorted(p for p in os.listdir(state["pin_dir"]) if "." not in p)
+    finally:
+        if child is not None and child.poll() is None:
+            child.kill()
+            child.wait()
+        for ctl in controllers:
+            ctl.close()
+        if set(out.get("ids_before", ())) & set(ebpf.prog_query(cg_fd)):
+            ebpf.prog_detach(cg_fd, runc_fd)
+        os.close(runc_fd)
+        os.close(cg_fd)
+        os.rmdir(cgroup)
+    denied = out["before"][gpu.device_path] == "EPERM" == out["after"][gpu.device_path]
+    admitted = all(v in v2tenant.ADMITTED for v in out["granted"].values())
+    swapped = (len(out["ids_granted"]) == 1 and out["ids_granted"] != out["ids_before"])
+    restored = out["restored"] == {os.path.basename(cgroup): [(gpu.major, gpu.minor)]}
+    if not (denied and admitted and swapped and restored and out["ids_after"] == out["ids_before"]
+            and out["tenant_exit"] == 0 and out["pins_left"] == []):
+        raise RuntimeError(f"cgroup v2 on the kernel: {out}")
+    return out
+
+
+def cgroup_v2_check(device="cuda", *, identity: str = "nvml", tenant_argv=None,
+                    tenant_env=None) -> dict:
+    """The cgroup v2 device controller on this host's GPU: its inventory
+    (on the card the live ``NvidiaDeviceBackend``'s first GPU, its numbers
+    from stat(2); on the CPU a stand-in host of char nodes with no driver,
+    made with mknod); the program's assembly, timed; a grant and the last
+    revoke through ``V2DeviceController`` on the stubbed kernel, on both
+    paths, checked by the interpreter (``_v2_stub_flow``); the kernel
+    probed (``v2_kernel_probe``). Where all four probes answer "ok", the
+    round trip runs on the kernel (``_v2_kernel_flow``) with a tenant child
+    started as `tenant_argv` + [spec] (default: ``testing/v2tenant.py``,
+    no workload) in `tenant_env`; any failure there raises. Where one does
+    not, its errno is reported and nothing more is tried. Runs on the card
+    unless the caller passes device="cpu".
+
+    Returns {"gpu", "assembly_us", "stub": {"legacy", "maps"}, "probe",
+    "branch" ("kernel" or "probe refused"), "kernel" (the round trip's
+    report, or None)}."""
+    device = resolve_device(device)
+    root = tempfile.mkdtemp(prefix="cgroup-v2-check-")
+    mounted = []
+    try:
+        if device.type == "cuda":
+            gpu = NvidiaDeviceBackend("/dev", identity=make_identity(identity)).list_devices()[0]
+        else:
+            gpu = _cpu_gpu(os.path.join(root, "dev"))
+        report = {"gpu": gpu, "assembly_us": _v2_program_us(gpu),
+                  "stub": {"legacy": _v2_stub_flow(gpu, root, maps=False),
+                           "maps": _v2_stub_flow(gpu, root, maps=True)}}
+        probe = report["probe"] = v2_kernel_probe(root)
+        mounted = [os.path.join(root, name) for name in ("bpffs", "cgroup2")
+                   if probe[f"{name}_mount"] == "ok"]
+        report["kernel"] = None
+        report["branch"] = "kernel" if set(probe.values()) == {"ok"} else "probe refused"
+        if report["branch"] == "kernel":
+            argv = tenant_argv or [sys.executable, "-m", "gpumounter_tpu_torch.testing.v2tenant"]
+            report["kernel"] = _v2_kernel_flow(gpu, root, argv, tenant_env)
+    finally:
+        for target in mounted:
+            _libc.umount2(target.encode(), MNT_DETACH)
         shutil.rmtree(root, ignore_errors=True)
     return report
 

@@ -131,7 +131,13 @@ class RestKubeClient(KubeClient):
                                            timeout=timeout)
 
     def _headers(self, body, content_type: str) -> dict:
-        headers = {"Authorization": f"Bearer {self.token}", "Accept": "application/json"}
+        # A client that authenticates by its certificate alone has no token:
+        # it sends no Authorization header, since a bearer header with no
+        # credential is refused (401) by auth proxies and webhook
+        # authenticators.
+        headers = {"Accept": "application/json"}
+        if self.token:
+            headers["Authorization"] = f"Bearer {self.token}"
         if body is not None:
             headers["Content-Type"] = content_type
         return headers

@@ -21,8 +21,15 @@ from gpumounter_tpu_torch.k8s.client import KubeClient
 from gpumounter_tpu_torch.k8s.errors import ConflictError, NotFoundError
 from gpumounter_tpu_torch.k8s.types import Pod, match_label_selector
 from gpumounter_tpu_torch.utils.log import get_logger
+from gpumounter_tpu_torch.utils.metrics import REGISTRY
 
 logger = get_logger("k8s.fake")
+
+#: events trimmed out of the watch backlog while an open watcher had not
+#: read them yet: each is a future end of that watcher's stream (its 410).
+WATCH_BACKLOG_EVICTIONS = REGISTRY.counter(
+    "tpumounter_watch_backlog_evictions_total",
+    "watch events evicted past an open watcher's resume cursor")
 
 SchedulerHook = Callable[[dict], None]
 """Called with the stored pod dict (mutable) after create_pod, on the
@@ -73,6 +80,9 @@ class FakeKubeClient(KubeClient):
         self._lock = threading.Condition(threading.RLock())
         self._events: list[tuple[int, str, dict]] = []  # (seq, type, pod)
         self._seq = itertools.count(1)
+        # open watcher id -> the last seq it read, for the eviction count
+        self._watch_cursors: dict[int, int] = {}
+        self._watch_ids = itertools.count(1)
         self.scheduler_hook = scheduler_hook
         self.delete_hook = delete_hook
         self.scheduler_delay_s = scheduler_delay_s
@@ -93,7 +103,15 @@ class FakeKubeClient(KubeClient):
             pod.setdefault("metadata", {})["resourceVersion"] = str(seq)
             # One copy at emit: watchers read the payload outside the lock.
             self._events.append((seq, etype, copy.deepcopy(pod)))
-            del self._events[:max(0, len(self._events) - MAX_EVENTS)]
+            overflow = len(self._events) - MAX_EVENTS
+            if overflow > 0:
+                # count only what the slowest open watcher has not read
+                horizon = self._events[overflow - 1][0]
+                evicted = max([min(overflow, horizon - cursor)
+                               for cursor in self._watch_cursors.values()], default=0)
+                if evicted > 0:
+                    WATCH_BACKLOG_EVICTIONS.inc(evicted)
+                del self._events[:overflow]
             self._lock.notify_all()
 
     # --- KubeClient surface ---
@@ -173,31 +191,37 @@ class FakeKubeClient(KubeClient):
 
     def _watch_iter(self, namespace, label_selector, field_selector,
                     deadline, cursor) -> Iterator[tuple[str, dict]]:
-        while True:
-            with self._lock:
-                pending = self._pending_locked(cursor)
-                if pending == []:
-                    remaining = deadline - time.monotonic()
-                    if remaining <= 0:
-                        return
-                    self._lock.wait(timeout=min(remaining, 0.25))
+        watch_id = next(self._watch_ids)
+        try:
+            while True:
+                with self._lock:
+                    self._watch_cursors[watch_id] = cursor
                     pending = self._pending_locked(cursor)
-            if pending is None:
-                logger.warning("watch backlog trimmed past cursor %d; ending "
-                               "the stream", cursor)
-                return
-            for seq, etype, pod in pending:
-                cursor = max(cursor, seq)
-                p = Pod(pod)
-                if namespace and p.namespace != namespace:
-                    continue
-                if not match_label_selector(p.labels, label_selector):
-                    continue
-                if not _match_field_selector(pod, field_selector):
-                    continue
-                yield etype, copy.deepcopy(pod)
-            if time.monotonic() >= deadline:
-                return
+                    if pending == []:
+                        remaining = deadline - time.monotonic()
+                        if remaining <= 0:
+                            return
+                        self._lock.wait(timeout=min(remaining, 0.25))
+                        pending = self._pending_locked(cursor)
+                if pending is None:
+                    logger.warning("watch backlog trimmed past cursor %d; ending "
+                                   "the stream", cursor)
+                    return
+                for seq, etype, pod in pending:
+                    cursor = max(cursor, seq)
+                    p = Pod(pod)
+                    if namespace and p.namespace != namespace:
+                        continue
+                    if not match_label_selector(p.labels, label_selector):
+                        continue
+                    if not _match_field_selector(pod, field_selector):
+                        continue
+                    yield etype, copy.deepcopy(pod)
+                if time.monotonic() >= deadline:
+                    return
+        finally:
+            with self._lock:
+                self._watch_cursors.pop(watch_id, None)
 
     # --- the scheduler thread ---
 

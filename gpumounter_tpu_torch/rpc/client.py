@@ -19,7 +19,8 @@ client speaks the original's service names, and adds (``rpc/resilience.py``):
 
 Left out: ``probe``, ``quiesce_status`` and ``collect_telemetry`` (with
 ``health/``, ``migrate/`` and ``obs/``), the failpoint sites (with
-``faults/``) and the pool's metrics (with ``obs/``). grpc is imported when
+``faults/``). The pool's hits, misses, evictions and size are series of the
+registry (``utils/metrics.py``). grpc is imported when
 a channel is built; without grpcio that raises ModuleNotFoundError naming
 grpcio, and nothing falls back.
 """
@@ -33,6 +34,7 @@ import time
 from gpumounter_tpu_torch.config import Config
 from gpumounter_tpu_torch.rpc import api
 from gpumounter_tpu_torch.rpc.resilience import (
+    RPC_RETRIES,
     BreakerOpenError,
     CircuitBreaker,
     DeadlineExceededError,
@@ -43,8 +45,23 @@ from gpumounter_tpu_torch.rpc.resilience import (
 from gpumounter_tpu_torch.utils.auth import resolve_token
 from gpumounter_tpu_torch.utils.lazy_grpc import grpc
 from gpumounter_tpu_torch.utils.log import get_logger
+from gpumounter_tpu_torch.utils.metrics import REGISTRY
 
 logger = get_logger("rpc.client")
+
+CHANNEL_POOL_HITS = REGISTRY.counter(
+    "tpumounter_channel_pool_hits_total",
+    "Worker RPCs served over an already-established pooled channel")
+CHANNEL_POOL_MISSES = REGISTRY.counter(
+    "tpumounter_channel_pool_misses_total",
+    "Pool lookups that had to dial a fresh channel")
+CHANNEL_POOL_EVICTIONS = REGISTRY.counter(
+    "tpumounter_channel_pool_evictions_total",
+    "Pooled channels closed, by reason (idle / invalidated / pruned / "
+    "shutdown)")
+CHANNEL_POOL_SIZE = REGISTRY.gauge(
+    "tpumounter_channel_pool_size",
+    "Live channels currently held by the pool")
 
 #: transport codes worth another bounded attempt
 _RETRIABLE = frozenset({"UNAVAILABLE", "DEADLINE_EXCEEDED"})
@@ -82,6 +99,7 @@ class ChannelPool:
                 if entry is not None:
                     entry[1] = now
                     entry[2] += 1
+                    CHANNEL_POOL_HITS.inc()
                     return entry[0]
                 ch = grpc.insecure_channel(address, options=(
                     ("grpc.keepalive_time_ms", int(self.keepalive_time_s * 1000)),
@@ -89,9 +107,11 @@ class ChannelPool:
                     ("grpc.keepalive_permit_without_calls", 1),
                 ))
                 self._channels[address] = [ch, now, 1]
+                CHANNEL_POOL_MISSES.inc()
+                CHANNEL_POOL_SIZE.set(float(len(self._channels)))
                 return ch
         finally:
-            self._close_channels(to_close)
+            self._close_channels(to_close, "idle")
 
     def release(self, address: str) -> None:
         """A borrower is done: the channel stays, its idle clock restarts."""
@@ -108,21 +128,28 @@ class ChannelPool:
             return []
         stale = [addr for addr, (_, used, refs) in self._channels.items()
                  if refs <= 0 and now - used > self.idle_evict_s]
-        return [self._channels.pop(addr)[0] for addr in stale]
+        out = [self._channels.pop(addr)[0] for addr in stale]
+        if out:
+            CHANNEL_POOL_SIZE.set(float(len(self._channels)))
+        return out
 
     @staticmethod
-    def _close_channels(channels: list) -> None:
+    def _close_channels(channels: list, reason: str) -> None:
+        """Close channels already taken out of the pool, each an eviction
+        of `reason`."""
         for ch in channels:
             ch.close()
+            CHANNEL_POOL_EVICTIONS.inc(reason=reason)
 
     def invalidate(self, address: str, reason: str = "invalidated") -> None:
         """Drop an address even while borrowed: its transport is dead or
         wrong, and a call on it is failing anyway."""
         with self._lock:
             entry = self._channels.pop(address, None)
+            CHANNEL_POOL_SIZE.set(float(len(self._channels)))
         if entry is not None:
             logger.info("channel to %s dropped (%s)", address, reason)
-            self._close_channels([entry[0]])
+            self._close_channels([entry[0]], reason)
 
     def retain(self, active_addresses) -> None:
         """Close every channel whose address is not in the active set."""
@@ -130,14 +157,16 @@ class ChannelPool:
         with self._lock:
             stale = [a for a in self._channels if a not in active]
             out = [self._channels.pop(a)[0] for a in stale]
-        self._close_channels(out)
+            CHANNEL_POOL_SIZE.set(float(len(self._channels)))
+        self._close_channels(out, "pruned")
 
     def close_all(self) -> None:
         with self._lock:
             out = [entry[0] for entry in self._channels.values()]
             self._channels.clear()
             self._shutdown = True
-        self._close_channels(out)
+            CHANNEL_POOL_SIZE.set(0.0)
+        self._close_channels(out, "shutdown")
 
 
 _TOKEN_FROM_CONFIG = object()
@@ -237,6 +266,7 @@ class WorkerClient:
                     raise self._typed(exc, code, method) from exc
                 last_exc = exc
                 delay = self.retry.delay_for(attempt)
+                RPC_RETRIES.inc(method=method)
                 logger.warning("%s to %s failed (%s, attempt %d/%d); retrying in %.2fs",
                                method, self.address, code, attempt,
                                self.retry.max_attempts, delay)

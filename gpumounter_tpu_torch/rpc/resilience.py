@@ -15,8 +15,9 @@ Here every call gets
     master's routes answer 503 with Retry-After; after `reset_s` one
     half-open probe goes through, and its outcome closes or re-opens it.
 
-Left out: ``FencedError`` (fencing comes with ``master/shard.py``) and the
-breaker's metrics (with ``obs/``). Stdlib only.
+The breaker's state and trips, and the retries, are series of the
+registry (``utils/metrics.py``). Left out: ``FencedError`` (fencing comes
+with ``master/shard.py``). Stdlib only.
 """
 
 from __future__ import annotations
@@ -26,8 +27,19 @@ import time
 from dataclasses import dataclass
 
 from gpumounter_tpu_torch.utils.log import get_logger
+from gpumounter_tpu_torch.utils.metrics import REGISTRY
 
 logger = get_logger("rpc.resilience")
+
+BREAKER_OPEN = REGISTRY.gauge(
+    "tpumounter_worker_breaker_open",
+    "1 while the named worker's circuit breaker is open (degraded)")
+BREAKER_TRIPS = REGISTRY.counter(
+    "tpumounter_worker_breaker_trips_total",
+    "Circuit-breaker open transitions by worker")
+RPC_RETRIES = REGISTRY.counter(
+    "tpumounter_rpc_retries_total",
+    "Worker RPC attempts retried after a retriable transport failure")
 
 
 class RpcCallError(RuntimeError):
@@ -123,11 +135,15 @@ class CircuitBreaker:
             return remaining if remaining > 0 else None
 
     def prune(self, active_keys) -> None:
-        """Drop the state of workers that are gone."""
+        """Drop the state of workers that are gone; an open breaker's gauge
+        goes back to 0 with it."""
         active = set(active_keys)
         with self._lock:
-            for key in [k for k in self._entries if k not in active]:
-                del self._entries[key]
+            removed = [(k, self._entries.pop(k)) for k in list(self._entries)
+                       if k not in active]
+        for key, entry in removed:
+            if entry[1] is not None:
+                BREAKER_OPEN.set(0.0, worker=key)
 
     # --- the dialing contract ---
 
@@ -151,24 +167,27 @@ class CircuitBreaker:
             entry = self._entries.pop(key, None)
         if entry is not None and entry[1] is not None:
             logger.info("circuit breaker for %s closed (probe ok)", key)
+            BREAKER_OPEN.set(0.0, worker=key)
 
     def record_failure(self, key: str) -> None:
-        opened = False
+        tripped = reopened = False
         with self._lock:
             entry = self._entries.setdefault(key, [0, None, False])
             entry[0] += 1
             if entry[1] is not None:
                 # open or half-open: a failure (the probe's, or a racer's)
                 # re-opens and restarts the clock
-                opened = entry[2]
+                reopened = entry[2]
                 entry[1] = time.monotonic()
                 entry[2] = False
             elif entry[0] >= self.failure_threshold:
                 entry[1] = time.monotonic()
                 entry[2] = False
-                opened = True
-                logger.error("circuit breaker for %s OPEN after %d consecutive failures; "
-                             "failing fast for %.0f s", key, self.failure_threshold,
-                             self.reset_s)
-        if opened and self.on_open is not None:
+                tripped = True
+        if tripped:
+            logger.error("circuit breaker for %s OPEN after %d consecutive failures; "
+                         "failing fast for %.0f s", key, self.failure_threshold, self.reset_s)
+            BREAKER_TRIPS.inc(worker=key)
+            BREAKER_OPEN.set(1.0, worker=key)
+        if (tripped or reopened) and self.on_open is not None:
             self.on_open(key)

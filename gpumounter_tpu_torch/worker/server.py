@@ -41,6 +41,7 @@ from gpumounter_tpu_torch.allocator.allocator import (
     MountType,
     SlavePodError,
 )
+from gpumounter_tpu_torch.cgroup.ebpf import device_rule
 from gpumounter_tpu_torch.collector.collector import GpuCollector
 from gpumounter_tpu_torch.config import Config
 from gpumounter_tpu_torch.k8s.client import KubeClient, NotFoundError
@@ -57,10 +58,16 @@ from gpumounter_tpu_torch.rpc.api import (
 from gpumounter_tpu_torch.utils.auth import check_bearer, required_token
 from gpumounter_tpu_torch.utils.lazy_grpc import grpc
 from gpumounter_tpu_torch.utils.log import get_logger
+from gpumounter_tpu_torch.utils.metrics import REGISTRY
 from gpumounter_tpu_torch.utils.timing import PhaseTimer
 from gpumounter_tpu_torch.worker.mounter import GpuBusyError, GpuMounter, MountError
 
 logger = get_logger("worker.server")
+
+SLAVE_RELEASE_FAILURES = REGISTRY.counter(
+    "tpumounter_slave_release_failures_total",
+    "Slave-pod releases that exhausted their bounded retry — leaked "
+    "capacity until the reaper or the recovery plane sweeps it")
 
 
 class ServiceError(RuntimeError):
@@ -193,10 +200,14 @@ class GpuMountService:
                 return AddGPUResponse(AddGPUResult.InsufficientGPU)
             except SlavePodError as exc:
                 raise ServiceError("INTERNAL", str(exc)) from exc
+        # On v2 our device program replaces the container's: it must keep
+        # the GPUs the device plugin gave the pod itself.
+        base_rules = [device_rule(d) for d in self.collector.snapshot()
+                      if d.pod_name == pod.name and d.namespace == pod.namespace]
         try:
             with timer.phase("mount"):
                 target = self.mounter.resolve_target(pod)
-                self.mounter.mount_many(target, devices)
+                self.mounter.mount_many(target, devices, base_rules=base_rules)
         except MountError as exc:
             # The mounter undid the batch; what is left is the scheduler's
             # books (server.go:86-91).
@@ -281,6 +292,7 @@ class GpuMountService:
         try:
             self.allocator.delete_slave_pods(releasable)
         except Exception as exc:
+            SLAVE_RELEASE_FAILURES.inc(float(len(releasable)))
             raise ServiceError("INTERNAL", f"GPUs unmounted, but slave pod(s) "
                                f"{releasable} not released: {exc}") from exc
 

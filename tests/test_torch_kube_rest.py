@@ -175,6 +175,31 @@ def test_a_kubeconfig_gives_the_same_client(servers, tls, tmp_path):
         assert [c.get_pod("default", "a")["metadata"]["name"] for c in made] == ["a", "a"]
 
 
+def test_an_mtls_only_kubeconfig_sends_no_bearer_header(tls, tmp_path):
+    """A user with a client certificate and no token: the port's client
+    sends no Authorization header and its certificate is enough. The
+    reference sends `Bearer ` with nothing after it, which a server that
+    refuses an empty credential answers 401."""
+    cert, key = selfsigned(str(tmp_path), client=True)
+    server = FakeApiServer(FakeKubeClient(), *tls, client_ca=cert).start()
+    try:
+        server.kube.create_pod("default", _pod("a"))
+        user = {"client-certificate-data": base64.b64encode(open(cert, "rb").read()).decode(),
+                "client-key-data": base64.b64encode(open(key, "rb").read()).decode()}
+        path = _kubeconfig(tmp_path / "kc", f"https://127.0.0.1:{server.port}", user,
+                           ca_file=tls[0])
+        client = port_client.kubeconfig_client(path)
+        assert client.token == ""
+        assert client.get_pod("default", "a")["metadata"]["name"] == "a"
+        assert server.authorization == [None]
+        with pytest.raises(ref_errors.ApiError) as exc:
+            ref_client.kubeconfig_client(path).get_pod("default", "a")
+        assert exc.value.status == 401
+        assert server.authorization == [None, "Bearer "]
+    finally:
+        server.stop()
+
+
 @pytest.mark.parametrize("server, user", [
     ("http://127.0.0.1:1", {"token": "t"}),
     ("https://127.0.0.1:1", {"exec": {"command": "helper"}}),

@@ -56,6 +56,31 @@ def test_port_imports_no_grpc(path):
             f"{path.name}:{node.lineno} imports {names}"
 
 
+CGROUP_V2_MODULES = ["gpumounter_tpu_torch.utils.metrics", "gpumounter_tpu_torch.cgroup.ebpf",
+                     "gpumounter_tpu_torch.cgroup.policy", "gpumounter_tpu_torch.cgroup",
+                     "gpumounter_tpu_torch.worker.mounter"]
+
+
+def test_the_cgroup_v2_modules_load_no_jax_and_nothing_of_the_jax_package():
+    """The eBPF controller, the policy engine and the metrics registry are
+    the port's own copies (the reference's import no JAX either): the
+    import guard above covers their files, and a fresh interpreter that
+    imports them holds no module of JAX or of gpumounter_tpu."""
+    import subprocess
+    import sys
+    for module in CGROUP_V2_MODULES:
+        path = REPO / (module.replace(".", "/") + ".py")
+        assert (path if path.exists() else path.with_suffix("") / "__init__.py") in PORT_FILES
+    code = ("import importlib, sys\n"
+            "for m in sys.argv[1:]:\n    importlib.import_module(m)\n"
+            "print(sorted({n.split('.')[0] for n in sys.modules} & "
+            "{'jax', 'jaxlib', 'gpumounter_tpu'}))")
+    out = subprocess.run([sys.executable, "-c", code, *CGROUP_V2_MODULES], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip() == "[]"
+
+
 def test_banned_names_match_exactly():
     assert _banned("gpumounter_tpu") and _banned("gpumounter_tpu.ops")
     assert _banned("jax.numpy") and _banned("jaxlib")

@@ -11,7 +11,15 @@ clients can be held to the same wire.
 A watch whose resourceVersion is "expired" answers one ERROR event of code
 410, as an API server does for a version out of its window.
 
-``selfsigned(dir)`` makes a certificate for 127.0.0.1 with openssl.
+Authentication: the server's bearer token, or, for a server built with
+``client_ca``, a client certificate that CA verifies. It requires the
+certificate in the handshake, then accepts a request with no Authorization
+header; a bearer header that carries no credential (``Bearer `` alone)
+is answered 401, as an auth proxy or a webhook authenticator answers it.
+The Authorization header of every request is recorded (None when absent).
+
+``selfsigned(dir)`` makes a certificate for 127.0.0.1 with openssl;
+``selfsigned(dir, client=True)`` a client certificate, its own CA.
 """
 
 from __future__ import annotations
@@ -32,14 +40,16 @@ _POD = re.compile(r"^/api/v1/namespaces/(?P<ns>[^/]+)/pods/(?P<name>[^/]+)$")
 _PODS = re.compile(r"^/api/v1/(?:namespaces/(?P<ns>[^/]+)/)?pods$")
 
 
-def selfsigned(directory: str) -> tuple[str, str] | None:
-    """(cert, key) paths for CN=127.0.0.1 with that IP in its SAN; None
+def selfsigned(directory: str, client: bool = False) -> tuple[str, str] | None:
+    """(cert, key) paths for CN=127.0.0.1 with that IP in its SAN (with
+    `client`, CN=tpumounter-client, files client.crt and client.key); None
     without openssl."""
     if not shutil.which("openssl"):
         return None
-    cert, key = os.path.join(directory, "tls.crt"), os.path.join(directory, "tls.key")
+    stem, subject = ("client", "/CN=tpumounter-client") if client else ("tls", "/CN=127.0.0.1")
+    cert, key = os.path.join(directory, f"{stem}.crt"), os.path.join(directory, f"{stem}.key")
     subprocess.run(["openssl", "req", "-x509", "-newkey", "rsa:2048", "-nodes",
-                    "-keyout", key, "-out", cert, "-days", "1", "-subj", "/CN=127.0.0.1",
+                    "-keyout", key, "-out", cert, "-days", "1", "-subj", subject,
                     "-addext", "subjectAltName=IP:127.0.0.1"],
                    check=True, capture_output=True)
     return cert, key
@@ -51,10 +61,12 @@ def _status(code: int, message: str) -> dict:
 
 
 class FakeApiServer:
-    def __init__(self, kube, cert: str, key: str, token: str = "api-token"):
+    def __init__(self, kube, cert: str, key: str, token: str = "api-token",
+                 client_ca: str | None = None):
         self.kube = kube
         self.token = token
         self.requests: list[tuple[str, str, dict, object]] = []
+        self.authorization: list[str | None] = []
         self.connections = 0
         self._watches: list = []
         self._lock = threading.Lock()
@@ -81,9 +93,12 @@ class FakeApiServer:
                 query = dict(urllib.parse.parse_qsl(url.query))
                 length = int(self.headers.get("Content-Length") or 0)
                 body = json.loads(self.rfile.read(length)) if length else None
+                auth = self.headers.get("Authorization")
                 with server._lock:
                     server.requests.append((self.command, url.path, query, body))
-                if self.headers.get("Authorization") != f"Bearer {server.token}":
+                    server.authorization.append(auth)
+                by_cert = auth is None and bool(self.connection.getpeercert())
+                if auth != f"Bearer {server.token}" and not by_cert:
                     return self._send(401, _status(401, "Unauthorized"))
                 try:
                     return server._route(self, url.path, query, body)
@@ -97,6 +112,9 @@ class FakeApiServer:
 
         ctx = ssl.SSLContext(ssl.PROTOCOL_TLS_SERVER)
         ctx.load_cert_chain(cert, key)
+        if client_ca is not None:
+            ctx.verify_mode = ssl.CERT_REQUIRED
+            ctx.load_verify_locations(client_ca)
         self.httpd = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
         self.httpd.socket = ctx.wrap_socket(self.httpd.socket, server_side=True)
         self.port = self.httpd.server_address[1]
