@@ -549,6 +549,50 @@ def probe_map_support() -> bool:
     return True
 
 
+# --- what the kernel allows: bpf(2), and the cgroup2 and bpffs mounts ---
+
+MNT_DETACH = 2  # umount2 flag: detach now, free once nothing uses the mount
+
+
+def errno_name(err: int) -> str:
+    return errno.errorcode.get(err, str(err))
+
+
+def mount(fstype: str, target: str) -> str:
+    """mount(2) of a `fstype` ("cgroup2" or "bpf") at `target`: "ok", or
+    the errno's name."""
+    source = "bpf" if fstype == "bpf" else "none"
+    if _libc.mount(source.encode(), target.encode(), fstype.encode(), 0, None) == 0:
+        return "ok"
+    return errno_name(ctypes.get_errno())
+
+
+def unmount(target: str) -> None:
+    """umount2(2) of `target` with MNT_DETACH."""
+    _libc.umount2(target.encode(), MNT_DETACH)
+
+
+def kernel_probe(root: str) -> dict:
+    """What this process may do: for a BPF map's creation, a device
+    program's load, a cgroup2 mount at <root>/cgroup2 and a bpffs mount at
+    <root>/bpffs, "ok" or the errno's name. The mounts that succeed stay
+    for the caller to undo (``unmount``)."""
+    probe = {}
+    for name, make in (("map_create", lambda: map_create(max_entries=1)),
+                       ("prog_load", lambda: prog_load(
+                           build_device_program(DEFAULT_CONTAINER_RULES)))):
+        try:
+            os.close(make())
+            probe[name] = "ok"
+        except BpfError as exc:
+            probe[name] = errno_name(exc.errno)
+    for name, fstype in (("cgroup2", "cgroup2"), ("bpffs", "bpf")):
+        target = os.path.join(root, name)
+        os.makedirs(target)
+        probe[f"{name}_mount"] = mount(fstype, target)
+    return probe
+
+
 # --- per-tenant device-access telemetry (the read side) ---
 
 PROGRAM_SWAPS = REGISTRY.counter(

@@ -11,9 +11,7 @@ host's GPU (``cgroup_v2_check``)."""
 
 from __future__ import annotations
 
-import ctypes
 import dataclasses
-import errno
 import json
 import math
 import os
@@ -1277,24 +1275,11 @@ def mount_check(device="cuda", *, dev_dir: str | None = None, ns_pid: int | None
 
 # --- the cgroup v2 device controller ---
 
-_libc = ctypes.CDLL(None, use_errno=True)
-MNT_DETACH = 2
 _CHAR = ebpf.BPF_DEVCG_DEV_CHAR
 _RW = ebpf.BPF_DEVCG_ACC_READ | ebpf.BPF_DEVCG_ACC_WRITE
 # The stand-in host of the CPU: nvidia0, nvidiactl, and an nvidia-uvm whose
 # major is dynamic on a real host (any number will do).
 _CPU_NODES = (("nvidia0", 195, 0), ("nvidiactl", 195, 255), ("nvidia-uvm", 511, 0))
-
-
-def _errno_name(err: int) -> str:
-    return errno.errorcode.get(err, str(err))
-
-
-def _mount(source: str, target: str, fstype: str) -> str:
-    """mount(2): "ok", or the errno's name."""
-    if _libc.mount(source.encode(), target.encode(), fstype.encode(), 0, None) == 0:
-        return "ok"
-    return _errno_name(ctypes.get_errno())
 
 
 def _cpu_gpu(root: str) -> GpuDevice:
@@ -1382,27 +1367,6 @@ def _v2_stub_flow(gpu: GpuDevice, root: str, maps: bool) -> dict:
             "grant_ms": grant_ms, "revoke_ms": revoke_ms}
 
 
-def v2_kernel_probe(root: str) -> dict:
-    """What this process may do: for a BPF map's creation, a device
-    program's load, a cgroup2 mount at <root>/cgroup2 and a bpffs mount at
-    <root>/bpffs, "ok" or the errno's name. The mounts that succeed stay
-    for the caller to undo."""
-    probe = {}
-    for name, make in (("map_create", lambda: ebpf.map_create(max_entries=1)),
-                       ("prog_load", lambda: ebpf.prog_load(
-                           ebpf.build_device_program(ebpf.DEFAULT_CONTAINER_RULES)))):
-        try:
-            os.close(make())
-            probe[name] = "ok"
-        except ebpf.BpfError as exc:
-            probe[name] = _errno_name(exc.errno)
-    for name, fstype in (("cgroup2", "cgroup2"), ("bpffs", "bpf")):
-        target = os.path.join(root, name)
-        os.makedirs(target)
-        probe[f"{name}_mount"] = _mount(fstype if fstype == "bpf" else "none", target, fstype)
-    return probe
-
-
 def _ask(child, command: str) -> dict:
     child.stdin.write(command + "\n")
     child.stdin.flush()
@@ -1421,14 +1385,15 @@ def _v2_kernel_flow(gpu: GpuDevice, root: str, tenant_argv: list, tenant_env) ->
     its workload; a restarted controller restores the grant from the pins
     and the journal and revokes it; ``prog_query`` gives the ids from
     before the grant; the child is denied again. Any failure raises."""
-    cgroup = os.path.join(root, "cgroup2", f"tpumounter-v2-check-{os.getpid()}")
-    os.mkdir(cgroup)
-    cg_fd = os.open(cgroup, os.O_RDONLY | os.O_DIRECTORY)
-    runc_fd = ebpf.prog_load(ebpf.build_device_program(ebpf.DEFAULT_CONTAINER_RULES))
-    controllers, child = [], None
+    cgroup = v2tenant.check_cgroup(os.path.join(root, "cgroup2"), "v2-check")
+    cg_fd = runc_fd = child = None
+    controllers = []
     paths = _node_paths(gpu)
     out = {"paths": paths}
     try:
+        os.mkdir(cgroup)
+        cg_fd = os.open(cgroup, os.O_RDONLY | os.O_DIRECTORY)
+        runc_fd = ebpf.prog_load(ebpf.build_device_program(ebpf.DEFAULT_CONTAINER_RULES))
         ebpf.prog_attach(cg_fd, runc_fd)
         out["ids_before"] = ebpf.prog_query(cg_fd)
         state = dict(pin_dir=os.path.join(root, "bpffs"), state_dir=os.path.join(root, "state"))
@@ -1467,11 +1432,13 @@ def _v2_kernel_flow(gpu: GpuDevice, root: str, tenant_argv: list, tenant_env) ->
             child.wait()
         for ctl in controllers:
             ctl.close()
-        if set(out.get("ids_before", ())) & set(ebpf.prog_query(cg_fd)):
+        if cg_fd is not None and set(out.get("ids_before", ())) & set(ebpf.prog_query(cg_fd)):
             ebpf.prog_detach(cg_fd, runc_fd)
-        os.close(runc_fd)
-        os.close(cg_fd)
-        os.rmdir(cgroup)
+        for fd in (runc_fd, cg_fd):
+            if fd is not None:
+                os.close(fd)
+        if os.path.isdir(cgroup):
+            os.rmdir(cgroup)
     denied = out["before"][gpu.device_path] == "EPERM" == out["after"][gpu.device_path]
     admitted = all(v in v2tenant.ADMITTED for v in out["granted"].values())
     swapped = (len(out["ids_granted"]) == 1 and out["ids_granted"] != out["ids_before"])
@@ -1490,7 +1457,7 @@ def cgroup_v2_check(device="cuda", *, identity: str = "nvml", tenant_argv=None,
     made with mknod); the program's assembly, timed; a grant and the last
     revoke through ``V2DeviceController`` on the stubbed kernel, on both
     paths, checked by the interpreter (``_v2_stub_flow``); the kernel
-    probed (``v2_kernel_probe``). Where all four probes answer "ok", the
+    probed (``ebpf.kernel_probe``). Where all four probes answer "ok", the
     round trip runs on the kernel (``_v2_kernel_flow``) with a tenant child
     started as `tenant_argv` + [spec] (default: ``testing/v2tenant.py``,
     no workload) in `tenant_env`; any failure there raises. Where one does
@@ -1511,7 +1478,7 @@ def cgroup_v2_check(device="cuda", *, identity: str = "nvml", tenant_argv=None,
         report = {"gpu": gpu, "assembly_us": _v2_program_us(gpu),
                   "stub": {"legacy": _v2_stub_flow(gpu, root, maps=False),
                            "maps": _v2_stub_flow(gpu, root, maps=True)}}
-        probe = report["probe"] = v2_kernel_probe(root)
+        probe = report["probe"] = ebpf.kernel_probe(root)
         mounted = [os.path.join(root, name) for name in ("bpffs", "cgroup2")
                    if probe[f"{name}_mount"] == "ok"]
         report["kernel"] = None
@@ -1521,7 +1488,7 @@ def cgroup_v2_check(device="cuda", *, identity: str = "nvml", tenant_argv=None,
             report["kernel"] = _v2_kernel_flow(gpu, root, argv, tenant_env)
     finally:
         for target in mounted:
-            _libc.umount2(target.encode(), MNT_DETACH)
+            ebpf.unmount(target)
         shutil.rmtree(root, ignore_errors=True)
     return report
 

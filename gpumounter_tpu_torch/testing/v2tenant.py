@@ -12,6 +12,9 @@ answers one JSON line for each line on stdin:
   * ``run``: {"run": workload()} (null without a workload);
   * ``exit``: returns.
 
+``check_cgroup`` names the cgroup a check makes for its tenant, after
+removing those that checks which died left behind.
+
 Run alone: ``python -m gpumounter_tpu_torch.testing.v2tenant SPEC_JSON`` (no
 workload; imports no torch).
 """
@@ -21,10 +24,13 @@ from __future__ import annotations
 import errno
 import json
 import os
+import re
 import sys
 
 #: what open(2) of a device node answers once the device program admits it
 ADMITTED = frozenset({"ok", "ENXIO", "ENODEV"})
+#: the cgroups the checks make (``check_cgroup``), with their process's pid
+_CHECK_CGROUP = re.compile(r"tpumounter-(?:v2-check|kernel-test)-(\d+)")
 
 
 def try_open(path: str) -> str:
@@ -33,6 +39,31 @@ def try_open(path: str) -> str:
     except OSError as exc:
         return errno.errorcode.get(exc.errno, str(exc.errno))
     return "ok"
+
+
+def _alive(pid: int) -> bool:
+    try:
+        os.kill(pid, 0)
+    except ProcessLookupError:
+        return False
+    except PermissionError:
+        return True
+    return True
+
+
+def check_cgroup(cgroup2_root: str, tag: str) -> str:
+    """The path of this process's check cgroup, ``tpumounter-<tag>-<pid>``
+    under `cgroup2_root` (not made here). First removes the check cgroups
+    there whose process has died: one killed between its mkdir and rmdir
+    leaves its cgroup in the host's hierarchy."""
+    for name in os.listdir(cgroup2_root):
+        m = _CHECK_CGROUP.fullmatch(name)
+        if m and not _alive(int(m.group(1))):
+            try:
+                os.rmdir(os.path.join(cgroup2_root, name))
+            except OSError:
+                pass  # a process still in it
+    return os.path.join(cgroup2_root, f"tpumounter-{tag}-{os.getpid()}")
 
 
 def serve(spec: dict, workload=None) -> None:

@@ -26,6 +26,8 @@ from __future__ import annotations
 import ctypes
 import os
 import shutil
+import subprocess
+import sys
 from types import SimpleNamespace
 
 import numpy as np
@@ -38,6 +40,7 @@ from gpumounter_tpu.device.tpu import TpuDevice
 from gpumounter_tpu_torch.cgroup import ebpf, policy
 from gpumounter_tpu_torch.device.gpu import CompanionNode, GpuDevice
 from gpumounter_tpu_torch.testing.bpf import FakeBpf
+from gpumounter_tpu_torch.testing.v2tenant import check_cgroup
 from gpumounter_tpu_torch.utils.metrics import REGISTRY
 
 UVM_MAJOR = 511  # nvidia-uvm's major is dynamic: any number the host gave it
@@ -515,3 +518,18 @@ def test_pins_take_names_that_bpffs_accepts(tmp_path):
     assert seen["port"][:2] == (1, ["orig-0", "ours"])
     assert list(seen["port"][2].values()) == [{(195, 0)}]
     assert seen["reference"] == (0, ["orig-0"], {})  # a pin left with no journal
+
+
+def test_a_check_cgroup_left_by_a_dead_process_is_removed(tmp_path):
+    """A check killed between its cgroup's mkdir and rmdir leaves it in the
+    host's hierarchy; the next check's ``check_cgroup`` removes it, and no
+    cgroup of a live process or of another name."""
+    dead = subprocess.Popen([sys.executable, "-c", "pass"])
+    dead.wait()
+    names = [f"tpumounter-kernel-test-{dead.pid}", f"tpumounter-v2-check-{dead.pid}",
+             f"tpumounter-v2-check-{os.getppid()}", f"tpumounter-other-{dead.pid}"]
+    for name in names:
+        os.mkdir(tmp_path / name)
+    path = check_cgroup(str(tmp_path), "kernel-test")
+    assert path == str(tmp_path / f"tpumounter-kernel-test-{os.getpid()}")
+    assert sorted(os.listdir(tmp_path)) == sorted(names[2:])

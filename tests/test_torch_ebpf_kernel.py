@@ -2,7 +2,7 @@
 
 Gated: each test skips, naming the errno, unless this process is root, a
 cgroup2 hierarchy and a bpffs mount under tmp_path, and a BPF map's
-creation and a device program's load succeed (``entry.v2_kernel_probe``).
+creation and a device program's load succeed (``ebpf.kernel_probe``).
 Where they do:
 
   * the port's program, attached to a child cgroup, decides a tenant's
@@ -37,7 +37,7 @@ from gpumounter_tpu_torch import entry
 from gpumounter_tpu_torch.cgroup import ebpf
 from gpumounter_tpu_torch.cgroup.policy import interpret_device_program
 from gpumounter_tpu_torch.device.gpu import GpuDevice
-from gpumounter_tpu_torch.testing.v2tenant import ADMITTED
+from gpumounter_tpu_torch.testing.v2tenant import ADMITTED, check_cgroup
 
 CHAR = ebpf.BPF_DEVCG_DEV_CHAR
 RW = ebpf.BPF_DEVCG_ACC_READ | ebpf.BPF_DEVCG_ACC_WRITE
@@ -53,7 +53,7 @@ def kernel(tmp_path):
     gives no real bpf(2) and cgroup2."""
     if os.geteuid() != 0:
         pytest.skip("not root: a cgroup2 mount and bpf(2) need it")
-    probe = entry.v2_kernel_probe(str(tmp_path))
+    probe = ebpf.kernel_probe(str(tmp_path))
     mounted = [str(tmp_path / name) for name in ("bpffs", "cgroup2")
                if probe[f"{name}_mount"] == "ok"]
     try:
@@ -63,19 +63,24 @@ def kernel(tmp_path):
         yield tmp_path
     finally:
         for target in mounted:
-            entry._libc.umount2(target.encode(), entry.MNT_DETACH)
+            ebpf.unmount(target)
 
 
 @pytest.fixture()
 def cgroup(kernel):
-    path = kernel / "cgroup2" / f"tpumounter-kernel-test-{os.getpid()}"
-    os.mkdir(path)
-    fd = os.open(path, os.O_RDONLY | os.O_DIRECTORY)
+    """A child cgroup of the host's hierarchy, removed after the test (and
+    by the next run's ``check_cgroup`` if this process dies first)."""
+    path = check_cgroup(str(kernel / "cgroup2"), "kernel-test")
+    fd = None
     try:
-        yield str(path), fd
+        os.mkdir(path)
+        fd = os.open(path, os.O_RDONLY | os.O_DIRECTORY)
+        yield path, fd
     finally:
-        os.close(fd)
-        os.rmdir(path)
+        if fd is not None:
+            os.close(fd)
+        if os.path.isdir(path):
+            os.rmdir(path)
 
 
 class _Tenant:
