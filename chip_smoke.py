@@ -163,6 +163,22 @@ Phases, each raising on failure (any failure exits non-zero):
        unknown pod 404, an unknown UUID 400, no token 401; the flows of 1
        and 8 GPUs and the same errors on a fake host of 8 GPUs; the worker
        call alone and the codec timed;
+    d. the slice and batch routes, ``entry.slice_check``: the master in
+       front of one worker gRPC server a node. On the card, a slice of 1
+       host x 1 GPU: POST /addslice (acceleratorType nvidia-h100-80gb) into
+       a target pod at 127.0.0.1, the plan's env printed; a tenant child
+       (``--slice-child``) on the UUID it mounted, whose environment holds
+       the plan's worker env and no other distributed variable, calls
+       ``torchside.visibility.reinit_distributed(MASTER_ADDR:<port>,
+       WORLD_SIZE, NODE_RANK x NPROC_PER_NODE)``, all-reduces a CUDA tensor
+       (NCCL, world size 1) and runs phase 3's first forward through
+       ``flash_fwd``; POST /removeslice, the node gone and the slave pod
+       released. On a fake fleet of 4 hosts x 8 GPUs: the slice of all 32
+       added and removed; a slice of 4 x 1 with one host squatted, rolled
+       back (503); a batch of 8 targets on the 4 nodes and a pod that does
+       not exist (8 Success, 1 PodNotFound). 3 times each, every request's
+       round trip printed beside phase 11's /addgpu and /removegpu, with
+       the fan-out core's tasks by kind;
 12. the cgroup v2 device controller on the card's GPU,
     ``entry.cgroup_v2_check`` (the card's machine runs cgroup v1, so the
     phase shows what it can and prints which branch it took):
@@ -203,6 +219,7 @@ import math
 import os
 import re
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
@@ -233,7 +250,8 @@ from gpumounter_tpu_torch.entry import (MOE_ROUTE_GAP, ONE_PROCESS_LOSS_ATOL,
                                         inventory_check, kernel_launches, make_identity,
                                         master_check, moe_blocks_vs_plain, moe_check,
                                         mount_check, pick_identity, reset_kernel_launches,
-                                        route_flips, sharded_step_check, tp_checks, train_check)
+                                        route_flips, sharded_step_check, slice_check, tp_checks,
+                                        train_check)
 from gpumounter_tpu_torch.nsutil.ns import run_in_mount_ns
 from gpumounter_tpu_torch.models.probe import (TransformerConfig, _attend, _attend_decode,
                                                _decoder, _embed, _finish_block, _forward_impl,
@@ -270,7 +288,7 @@ from gpumounter_tpu_torch.torchside import (HotResumable, gpus_visible_in_dev, h
                                             load_optimizer_state, optimizer_state_tree,
                                             refresh_devices, set_visibility_env,
                                             wait_for_gpus)
-from gpumounter_tpu_torch.torchside.visibility import HANDOFF_AT_ENV
+from gpumounter_tpu_torch.torchside.visibility import HANDOFF_AT_ENV, reinit_distributed
 
 # H100 SXM peaks (NVIDIA data sheet, dense): the bound of a kernel is the
 # larger of its operations over the bf16 tensor-core rate and its bytes
@@ -2594,6 +2612,148 @@ def _tenant_target(tag: str):
             os.rmdir(cgroup_dir)
 
 
+#: what torch.distributed and torchrun read from the environment: the slice's
+#: tenant child gets these from the plan only
+DIST_ENV = ("MASTER_ADDR", "MASTER_PORT", "NNODES", "NODE_RANK", "NPROC_PER_NODE",
+            "WORLD_SIZE", "RANK", "LOCAL_RANK", "LOCAL_WORLD_SIZE", "GROUP_RANK",
+            "ACCELERATOR_TYPE")
+
+
+def _slice_child(spec: dict) -> None:
+    """The tenant of phase 11's live slice, started with
+    CUDA_VISIBLE_DEVICES=<the UUID /addslice mounted> and its worker's env
+    from the plan: CUDA's one device must be that GPU; the process group is
+    re-formed from the plan (``reinit_distributed`` at MASTER_ADDR and the
+    port in `spec`, the default backends: NCCL for CUDA tensors, which it
+    must name), one all-reduce of a CUDA tensor must give the sum of every
+    rank's rank + 1; then phase 3's first forward through flash_fwd. Prints
+    one JSON line; a failure raises (exit code 1)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    env = {k: os.environ[k] for k in DIST_ENV if k in os.environ}
+    uuid = f"GPU-{torch.cuda.get_device_properties(0).uuid}"
+    if uuid != spec["uuid"] or torch.cuda.device_count() != 1:
+        raise RuntimeError(f"CUDA_VISIBLE_DEVICES={os.environ.get('CUDA_VISIBLE_DEVICES')!r}: "
+                           f"{torch.cuda.device_count()} device(s), device 0 is {uuid}, "
+                           f"/addslice mounted {spec['uuid']}")
+    world, per_node = int(env["WORLD_SIZE"]), int(env["NPROC_PER_NODE"])
+    rank = int(env["NODE_RANK"]) * per_node
+    torch.cuda.set_device(0)
+    t0 = time.perf_counter()
+    reinit_distributed(f"{env['MASTER_ADDR']}:{spec['port']}", world, rank)
+    init_ms = (time.perf_counter() - t0) * 1e3
+    reduce_ms = []
+    for _ in range(2):  # the first makes NCCL's communicator
+        value = torch.full((4,), float(rank + 1), device="cuda")
+        t0 = time.perf_counter()
+        dist.all_reduce(value)
+        torch.cuda.synchronize()
+        reduce_ms.append((time.perf_counter() - t0) * 1e3)
+        got = value.tolist()
+        if got != [world * (world + 1) / 2] * 4:
+            raise RuntimeError(f"all_reduce over {world} rank(s): {got}")
+    backends = dist.get_backend_config()
+    dist.destroy_process_group()
+    if "cuda:nccl" not in backends:
+        raise RuntimeError(f"the slice's process group runs CUDA tensors on {backends!r}, "
+                           f"not NCCL")
+    print(json.dumps({"slice_child": {"uuid": uuid, "env": env, "rank": rank,
+                                      "backends": backends, "all_reduce": got[0],
+                                      "init_ms": init_ms, "all_reduce_ms": reduce_ms,
+                                      **_tenant_forward()}}))
+
+
+def _slice_tenant(plan: dict, uuid: str) -> dict:
+    """Run the slice's tenant child on `uuid` with the plan's first worker
+    env and no other distributed variable; check its env, device, launches
+    and NLL."""
+    worker = plan["workers"][0]
+    env = {k: v for k, v in os.environ.items() if k not in DIST_ENV}
+    env.update(worker["env"], CUDA_VISIBLE_DEVICES=uuid)
+    out = subprocess.run([sys.executable, os.path.abspath(__file__), "--slice-child",
+                          json.dumps({"uuid": uuid, "port": _free_port()})],
+                         capture_output=True, text=True, timeout=600, env=env)
+    if out.returncode != 0:
+        raise RuntimeError(f"slice tenant child exited {out.returncode}:\n"
+                           f"{out.stdout[-2000:]}\n{out.stderr[-4000:]}")
+    report = next(json.loads(line) for line in out.stdout.splitlines()
+                  if line.startswith("{"))["slice_child"]
+    if report["env"] != worker["env"]:
+        raise RuntimeError(f"the child read {report['env']}, the plan gave {worker['env']}")
+    _check_tenant_forward("slice tenant child", report)
+    return report
+
+
+def _free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def phase_slice(card: str, master_report: dict) -> int:
+    """Phase 11's slice and batch routes (``entry.slice_check`` on the card;
+    see the module's docstring, 11 d). Returns the slice tenant's flash_fwd
+    launches."""
+    t_phase = time.perf_counter()
+    children = []
+
+    def on_mounted(plan, uuids, target):
+        visible = gpus_visible_in_dev(target)
+        if visible != 1:
+            raise RuntimeError(f"gpus_visible_in_dev({target}) = {visible} after /addslice "
+                               f"mounted {uuids}")
+        print(f"master slice plan (live, 1 x 1): slice {json.dumps(plan['slice'])}; worker 0 "
+              f"env {json.dumps(plan['workers'][0]['env'])}", flush=True)
+        children.append(_slice_tenant(plan, uuids[0]))
+
+    with _tenant_target("phase11-slice") as (dev_dir, cgroup_dir):
+        report = slice_check("cuda", dev_dir=dev_dir, ns_pid=os.getpid(),
+                             cgroup_dirs=[cgroup_dir] if cgroup_dir else (),
+                             identity=pick_identity(), repeats=MOUNT["REPEATS"],
+                             on_mounted=on_mounted)
+    live = report["live"]
+    if live["case"] == "round-trip":
+        child = children[0]
+        print(f"master slice flow: POST /addslice (1 x 1, nvidia-h100-80gb) answered 200 with "
+              f"the plan, mounting {live['uuids']}; POST /removeslice answered 200 "
+              f"{{'tenant-slice': 'Success'}}, the node gone and the slave pod released; "
+              f"{MOUNT['REPEATS']} round trips", flush=True)
+        print(f"master slice tenant: CUDA_VISIBLE_DEVICES={child['uuid']} (the UUID /addslice "
+              f"mounted), env {child['env']} from the plan; reinit_distributed("
+              f"{child['env']['MASTER_ADDR']}:<port>, {child['env']['WORLD_SIZE']}, "
+              f"{child['rank']}) with backends {child['backends']} in {child['init_ms']:.1f} "
+              f"ms; all_reduce of a CUDA tensor = {child['all_reduce']} (expected 1.0), the "
+              f"first (NCCL's communicator made) {child['all_reduce_ms'][0]:.3f} ms, the second "
+              f"{child['all_reduce_ms'][1]:.3f} ms; full-width forward through flash_fwd, "
+              f"launches {child['launches']}, nll {child['nll']:.4f} (log V "
+              f"{math.log(full_width_config().vocab):.4f}) [{card}]", flush=True)
+    else:
+        print(f"master slice flow: /addslice refused, {live['refusal']!r}; rolled back, "
+              f"{MOUNT['REPEATS']} times", flush=True)
+    http_live = master_report["live"]
+    print(f"time master slice live 1 x 1 HTTP /addslice: {_runs(live['add_ms'])}"
+          + (f"; /removeslice: {_runs(live['remove_ms'])}" if live["remove_ms"] else "")
+          + f"; phase 11's /addgpu .../gpu/1: {_runs(http_live['add_ms'])}"
+          + (f", /removegpu: {_runs(http_live['remove_ms'])}" if http_live["remove_ms"] else "")
+          + f" [{card}]", flush=True)
+    fleet, fake8 = report["fleet"], master_report["fake"][MOUNT["FAKE_GPUS"]]
+    print(f"time master slice fleet {fleet['hosts']} x {fleet['gpus']} (fake hosts, one worker "
+          f"gRPC server each, in this process) HTTP /addslice: {_runs(fleet['add_ms'])}; "
+          f"/removeslice: {_runs(fleet['remove_ms'])}; phase 11's fake 8-GPU host /addgpu "
+          f".../gpu/8: {_runs(fake8['add_ms'])}, /removegpu: {_runs(fake8['remove_ms'])} "
+          f"[{card}]", flush=True)
+    rollback, batch = report["rollback"], report["batch"]
+    print(f"time master slice rolled back (4 x 1, one host squatted; {rollback['status']} "
+          f"{rollback['body']!r}, every other host free again): {_runs(rollback['ms'])} "
+          f"[{card}]", flush=True)
+    print(f"time master batch /batch/addgpu ({batch['targets']} targets on 4 nodes, byResult "
+          f"{batch['by_result']}, the books exact): {_runs(batch['ms'])} [{card}]", flush=True)
+    print(f"master fan-out tasks by kind (tpumounter_fanout_tasks_total during slice_check): "
+          f"{report['fanout_tasks']}", flush=True)
+    print(f"time master slice part of phase 11: {time.perf_counter() - t_phase:.1f} s [{card}]",
+          flush=True)
+    return sum(c["launches"]["flash_fwd"] for c in children)
+
+
 def phase_master(card: str, mount_report: dict, handoff_ready_ms: dict) -> int:
     """Phase 11: the hot-mount through the master. ``entry.master_check`` on
     the card: GET /addgpu/.../gpu/1/isEntireMount/false to the port's
@@ -2603,8 +2763,9 @@ def phase_master(card: str, mount_report: dict, handoff_ready_ms: dict) -> int:
     /removegpu/.../force/false; the error mapping on the live host (gpu/2
     on one card 500 Insufficient, an unknown pod 404, an unknown UUID 400,
     no token 401); the same flows on a fake host of 8 GPUs. The HTTP add and
-    remove times are printed beside phase 10's in-process ones. Returns the
-    child's flash_fwd launches."""
+    remove times are printed beside phase 10's in-process ones. Then the slice
+    and batch routes (``phase_slice``). Returns the flash_fwd launches of
+    both tenant children."""
     t_phase = time.perf_counter()
     dev = mount_report["device"]
     children = []
@@ -2664,8 +2825,9 @@ def phase_master(card: str, mount_report: dict, handoff_ready_ms: dict) -> int:
           f"live {_runs(report['call_ms']['live'])}, fake host {_runs(report['call_ms']['fake'])}"
           f"; the wire codec, one AddGPU and one RemoveGPU exchange encoded and decoded: "
           f"{report['codec_ms'] * 1e3:.1f} us [{card}]", flush=True)
+    slice_launches = phase_slice(card, report)
     print(f"time master phase 11: {time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
-    return sum(c["launches"]["flash_fwd"] for c in children)
+    return sum(c["launches"]["flash_fwd"] for c in children) + slice_launches
 
 
 def phase_cgroup_v2(card: str) -> int:
@@ -2728,6 +2890,9 @@ def main() -> int:
         return 0
     if sys.argv[1:2] == ["--mount-child"]:
         _mount_child(json.loads(sys.argv[2]))
+        return 0
+    if sys.argv[1:2] == ["--slice-child"]:
+        _slice_child(json.loads(sys.argv[2]))
         return 0
     if sys.argv[1:2] == ["--v2-child"]:
         _v2_child(json.loads(sys.argv[2]))
@@ -2826,8 +2991,9 @@ def _phases(stage: list, t0: float) -> None:
           f"the sharded phase (every rank's sharded steps): {sharded_launches}; the "
           f"seq/pipeline phase (every rank's dp x sp and pipeline steps): {seq_pipe_launches}; "
           f"the grow phase (every rank's steps in both worlds): {grow_launches}; the dryrun "
-          f"(every rank's sharded steps): {dryrun_launches}; the hot-mount's tenant child "
-          f"(phase 11, on the UUID the HTTP add mounted): flash_fwd {mount_launches}; the "
+          f"(every rank's sharded steps): {dryrun_launches}; the hot-mount's tenant children "
+          f"(phase 11: on the UUID the HTTP add mounted, and the slice's on the UUID /addslice "
+          f"mounted): flash_fwd {mount_launches}; the "
           f"cgroup v2 round trip's tenant (phase 12): flash_fwd {v2_launches}", flush=True)
     print(f"chip_smoke: phases 1-12 took {time.perf_counter() - t0:.1f} s, the kernels' build "
           f"included [{card}]", flush=True)

@@ -2,8 +2,9 @@
 
 The counterpart of ``gpumounter_tpu/config/config.py``, holding only the
 fields the device layer, the collector, the allocator, the cgroup layer, the
-mounter, the transport, the master and the two daemons read. Every field is an environment variable with the original
-GPUMounter's value as default; the names are the reference's where the
+mounter, the transport, the master (with its slice and batch routes and their
+fan-out core) and the two daemons read. Every field is an environment
+variable with the original GPUMounter's value as default; the names are the reference's where the
 meaning is the same. NVIDIA-specific: the resource ``nvidia.com/gpu``
 (``pkg/util/gpu/types.go:10``), the pool namespace ``gpu-pool``
 (``types.go:18``), the worker pods' label ``app=gpu-mounter-worker``, the
@@ -82,6 +83,15 @@ class Config:
     worker_label_selector: str = field(default_factory=lambda: _env(
         "WORKER_LABEL_SELECTOR", "app=gpu-mounter-worker"))
     worker_namespace: str = field(default_factory=lambda: _env("WORKER_NAMESPACE", "kube-system"))
+    # the target cap of one POST /batch/addgpu, and how many nodes one such
+    # request mounts on at once (one worker client a node)
+    bulk_max_targets: int = field(default_factory=lambda: int(_env("BULK_MAX_TARGETS", "256")))
+    bulk_node_fanout: int = field(default_factory=lambda: int(_env("BULK_NODE_FANOUT", "16")))
+
+    # --- the shared fan-out core (utils/fanout.py) ---
+    # its width (0: 4 x the CPU count, at least 32); the reference's
+    # TPUMOUNTER_FANOUT_SHARD_BUDGET comes with the owner shards (7h)
+    fanout_width: int = field(default_factory=lambda: int(_env("TPUMOUNTER_FANOUT_WIDTH", "0")))
 
     # --- master -> worker calls ---
     # deadlines a method; bounded capped-exponential retries on UNAVAILABLE

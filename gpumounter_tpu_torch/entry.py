@@ -6,7 +6,8 @@ attention and the pipelines (``seq_pipeline_check``), all of them with the
 stretch over an H100 topology plan (``dryrun_multichip``); the
 hot-add that grows a job's mesh (``grow_check``); the control plane's
 one-node hot-mount of a GPU into a pod (``mount_check``), through the
-master (``master_check``), and the cgroup v2 device controller on this
+master (``master_check``), the master's slice and batch routes over a fleet
+of nodes (``slice_check``), and the cgroup v2 device controller on this
 host's GPU (``cgroup_v2_check``)."""
 
 from __future__ import annotations
@@ -64,12 +65,14 @@ from gpumounter_tpu_torch.parallel.train_step import (gather_params, loss_and_gr
 from gpumounter_tpu_torch.rpc.api import (AddGPURequest, AddGPUResponse, AddGPUResult,
                                           RemoveGPURequest, RemoveGPUResponse,
                                           RemoveGPUResult)
+from gpumounter_tpu_torch.rpc.client import WorkerClient
 from gpumounter_tpu_torch.testing import v2tenant
 from gpumounter_tpu_torch.testing.bpf import FakeBpf
 from gpumounter_tpu_torch.testing.cluster import FakeCluster
 from gpumounter_tpu_torch.topology import lookup
 from gpumounter_tpu_torch.torchside.resume import (HotResumable, load_optimizer_state,
                                                    optimizer_state_specs, optimizer_state_tree)
+from gpumounter_tpu_torch.utils.fanout import FANOUT_TASKS
 from gpumounter_tpu_torch.worker.server import ServiceError, build_server
 
 TRAIN_GRAD_ATOL = 5e-3  # the reference's kernel-vs-xla grad limit
@@ -1495,11 +1498,15 @@ def cgroup_v2_check(device="cuda", *, identity: str = "nvml", tenant_argv=None,
 
 # --- the master's flows over HTTP ---
 
-def _http(base: str, method: str, path: str, token: str | None, form: dict | None = None
-          ) -> tuple[int, str, float]:
-    """(status, body, ms on the host clock) of one request."""
-    data = urllib.parse.urlencode(form, doseq=True).encode() if form is not None else None
+def _http(base: str, method: str, path: str, token: str | None, form: dict | None = None,
+          payload=None) -> tuple[int, str, float]:
+    """(status, body, ms on the host clock) of one request, its body the
+    url-encoded `form` or the JSON of `payload`."""
     headers = {"Authorization": f"Bearer {token}"} if token else {}
+    data = urllib.parse.urlencode(form, doseq=True).encode() if form is not None else None
+    if payload is not None:
+        data = json.dumps(payload).encode()
+        headers["Content-Type"] = "application/json"
     req = urllib.request.Request(base + path, data=data, method=method, headers=headers)
     t0 = time.perf_counter()
     try:
@@ -1519,20 +1526,31 @@ def _remove_path(pod) -> str:
 
 
 class _MasterStack:
-    """A node's worker behind the master's HTTP API on 127.0.0.1, over the
-    worker's gRPC server and the kubelet's gRPC socket. Stops all it
-    started on exit."""
+    """The master's HTTP API on 127.0.0.1 in front of one gRPC worker server
+    a node of `cluster`, each node's kubelet over gRPC, mounting into
+    `dev_dirs[node]`. Node i's worker registers at 10.0.0.<i + 1>; every
+    server listens on 127.0.0.1, so the master's worker_client_factory is
+    its default client with a registered IP mapped to its server's port.
+    Stops all it started on exit."""
 
-    def __init__(self, cluster: FakeCluster, dev_dir: str, ns_pid: int | None = None,
+    def __init__(self, cluster: FakeCluster, dev_dirs: dict[str, str], ns_pid: int | None = None,
                  cgroup_dirs=()):
-        self.cluster, self.token = cluster, cluster.cfg.auth_token
-        self.service = cluster.service(dev_dir, ns_pid=ns_pid, cgroup_dirs=cgroup_dirs,
-                                       kubelet="grpc")
-        self.grpc_server = build_server(self.service, address="127.0.0.1:0")
-        self.grpc_server.start()
-        cluster.register_worker()
-        self.app = MasterApp(cluster.kube, cfg=dataclasses.replace(
-            cluster.cfg, worker_port=self.grpc_server.bound_port))
+        self.cluster, self.cfg, self.token = cluster, cluster.cfg, cluster.cfg.auth_token
+        self.services, self.servers, self.port_by_ip = {}, [], {}
+        for i, node in enumerate(cluster.node_names):
+            service = cluster.service(dev_dirs[node], ns_pid=ns_pid, cgroup_dirs=cgroup_dirs,
+                                      kubelet="grpc", node=node)
+            server = build_server(service, address="127.0.0.1:0")
+            server.start()
+            self.services[node] = service
+            self.servers.append(server)
+            ip = f"10.0.0.{i + 1}"
+            self.port_by_ip[ip] = server.bound_port
+            cluster.register_worker(ip, node=node)
+        self.app = MasterApp(cluster.kube, cfg=self.cfg, worker_client_factory=lambda address: (
+            WorkerClient(f"127.0.0.1:{self.port_by_ip[address.rsplit(':', 1)[0]]}",
+                         token=self.token, cfg=self.cfg, breaker=self.app.registry.breaker,
+                         channel_pool=self.app.registry.channel_pool)))
         self.httpd = build_http_server(self.app, port=0, host="127.0.0.1")
         threading.Thread(target=self.httpd.serve_forever, name="master-http",
                          daemon=True).start()
@@ -1545,13 +1563,19 @@ class _MasterStack:
         self.httpd.shutdown()
         self.httpd.server_close()
         self.app.registry.stop()
-        self.grpc_server.stop(None).wait()
+        for server in self.servers:
+            server.stop(None).wait()
         self.cluster.stop()
         return False
 
-    def http(self, method: str, path: str, form: dict | None = None, token: str | None = ""
-             ) -> tuple[int, str, float]:
-        return _http(self.base, method, path, self.token if token == "" else token, form)
+    def http(self, method: str, path: str, form: dict | None = None, token: str | None = "",
+             payload=None) -> tuple[int, str, float]:
+        return _http(self.base, method, path, self.token if token == "" else token, form,
+                     payload)
+
+    def held(self, node: str, pod) -> list[str]:
+        return [d.uuid for d in
+                self.services[node].collector.get_pod_devices(pod.name, pod.namespace)]
 
     def call_ms(self, repeats: int) -> list[float]:
         """The worker call alone, `repeats` times: AddGPU of a pod that does
@@ -1575,7 +1599,8 @@ def _master_flow(stack: _MasterStack, dev_dir: str, n: int, repeats: int, expect
     effect checked; `expect` is "round-trip" or "refused" (500 naming
     CAP_MKNOD, the allocation rolled back). on_mounted(uuids, dev_dir) runs
     once, while mounted."""
-    cluster, service = stack.cluster, stack.service
+    cluster = stack.cluster
+    service = stack.services[cluster.node_name]
     pod = cluster.add_target_pod(f"tenant-http-{n}")
     free = cluster.free_gpu_count()
     out = {"case": expect, "n": n, "add_ms": [], "remove_ms": [], "uuids": None,
@@ -1692,7 +1717,7 @@ def master_check(device="cuda", *, dev_dir: str | None = None, ns_pid: int | Non
                                   cfg=cfg)
             target, dirs = _live_target(root, dev_dir, cgroup_dirs)
             expect = "round-trip" if report["cap_mknod"] else "refused"
-            with _MasterStack(cluster, target, ns_pid, dirs) as stack:
+            with _MasterStack(cluster, {cluster.node_name: target}, ns_pid, dirs) as stack:
                 report["live"] = _master_flow(stack, target, 1, repeats, expect,
                                               on_mounted=on_mounted, live=True)
                 report["live_errors"] = _master_errors(stack, target)
@@ -1700,11 +1725,243 @@ def master_check(device="cuda", *, dev_dir: str | None = None, ns_pid: int | Non
         fake = FakeCluster.with_fake_gpus(os.path.join(root, "fake"), fake_gpus, cfg=cfg)
         fake_dir = os.path.join(root, "fake-tenant-dev")
         os.makedirs(fake_dir)
-        with _MasterStack(fake, fake_dir) as stack:
+        with _MasterStack(fake, {fake.node_name: fake_dir}) as stack:
             report["fake"] = {n: _master_flow(stack, fake_dir, n, repeats, "round-trip")
                               for n in sorted({1, fake_gpus})}
             report["fake_errors"] = _master_errors(stack, fake_dir)
             report["call_ms"]["fake"] = stack.call_ms(repeats)
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    return report
+
+
+# --- the master's slice and batch routes over several nodes ---
+
+#: the fake fleet of slice_check: NODES hosts of GPUS fake GPUs each (the
+#: H100 host of topology.py)
+SLICE_FLEET = dict(NODES=4, GPUS=8)
+
+
+def _slices_released(cluster, pods, free: dict) -> None:
+    """No slave pod left for any of `pods`, and the free GPUs of each node
+    as in `free`."""
+    for pod in pods:
+        slaves = cluster.kube.list_pods(cluster.cfg.pool_namespace,
+                                        label_selector=f"tpumounter.io/owner-uid={pod.uid}")
+        if slaves:
+            raise RuntimeError(f"{pod.name}: slave pods {[Pod(s).name for s in slaves]} not "
+                               f"released")
+    got = {node: cluster.free_gpu_count(node) for node in free}
+    if got != free:
+        raise RuntimeError(f"free GPUs by node {got}, {free} before")
+
+
+def _check_plan(plan: dict, pods, gpus: int) -> None:
+    """The plan's workers in the request's order, each with its rank and the
+    shared torch.distributed env."""
+    hosts = len(pods)
+    want_env = {"MASTER_ADDR": pods[0].pod_ip, "NNODES": str(hosts),
+                "NPROC_PER_NODE": str(gpus), "WORLD_SIZE": str(hosts * gpus)}
+    workers = plan["workers"]
+    if [(w["pod"], w["node"], w["address"]) for w in workers] != [
+            (p.name, p.node_name, p.pod_ip) for p in pods]:
+        raise RuntimeError(f"the plan's workers {workers}, the pods {pods}")
+    for rank, worker in enumerate(workers):
+        env = {k: v for k, v in worker["env"].items() if k != "ACCELERATOR_TYPE"}
+        if env != {"NODE_RANK": str(rank), **want_env}:
+            raise RuntimeError(f"worker {rank}'s env {worker['env']}, expected {want_env}")
+
+
+def _slice_flow(stack: _MasterStack, pods, gpus: int, repeats: int, expect: str,
+                accel: str | None = None, on_mounted=None, live: bool = False) -> dict:
+    """`repeats` times: POST /addslice of `gpus` a pod (entire mounts), then
+    (when it mounted) POST /removeslice, each answer and its effect
+    checked on every node; `expect` is "round-trip" or "refused" (500 naming
+    CAP_MKNOD, rolled back). on_mounted(plan, uuids, dev_dir) runs once,
+    while mounted, with the first pod's UUIDs and directory."""
+    cluster = stack.cluster
+    nodes = [p.node_name for p in pods]
+    free = {node: cluster.free_gpu_count(node) for node in nodes}
+    body = {"pods": [{"namespace": p.namespace, "pod": p.name} for p in pods],
+            "gpusPerHost": gpus, **({"acceleratorType": accel} if accel else {})}
+    out = {"case": expect, "hosts": len(pods), "gpus": gpus, "add_ms": [], "remove_ms": [],
+           "plan": None, "uuids": None, "refusal": None}
+    for i in range(repeats):
+        status, text, ms = stack.http("POST", "/addslice", payload=body)
+        out["add_ms"].append(ms)
+        if expect == "refused":
+            if status != 500 or "CAP_MKNOD" not in text:
+                raise RuntimeError(f"/addslice without CAP_MKNOD: {status} {text!r}")
+            _slices_released(cluster, pods, free)
+            out["refusal"] = text.strip()
+            continue
+        if status != 200:
+            raise RuntimeError(f"/addslice {body}: {status} {text!r}")
+        plan = json.loads(text)
+        _check_plan(plan, pods, gpus)
+        uuids = {}
+        for pod in pods:
+            uuids[pod.name] = stack.held(pod.node_name, pod)
+            if len(uuids[pod.name]) != gpus or cluster.free_gpu_count(pod.node_name) != \
+                    free[pod.node_name] - gpus:
+                raise RuntimeError(f"{pod.name} on {pod.node_name} holds {uuids[pod.name]}, "
+                                   f"{cluster.free_gpu_count(pod.node_name)} free after the "
+                                   f"slice's add")
+            _check_nodes(cluster.node(pod.node_name).backend, uuids[pod.name],
+                         stack.services[pod.node_name].mounter.dev_dir, live)
+        if on_mounted is not None and i == 0:
+            on_mounted(plan, uuids[pods[0].name], stack.services[nodes[0]].mounter.dev_dir)
+        status, text, ms = stack.http("POST", "/removeslice", payload={"pods": body["pods"]})
+        out["remove_ms"].append(ms)
+        if (status, json.loads(text) if status == 200 else text) != (
+                200, {"removed": {p.name: "Success" for p in pods}}):
+            raise RuntimeError(f"/removeslice: {status} {text!r}")
+        for pod in pods:
+            dev_dir = stack.services[pod.node_name].mounter.dev_dir
+            backend = cluster.node(pod.node_name).backend
+            left = [u for u in uuids[pod.name]
+                    if os.path.lexists(os.path.join(dev_dir, backend.device_by_uuid(u).basename))]
+            if left:
+                raise RuntimeError(f"{left} still in {dev_dir} after /removeslice")
+        _slices_released(cluster, pods, free)
+        out.update(plan=plan, uuids=uuids)
+    return out
+
+
+def _squatted_slice(stack: _MasterStack, pods, squat: str, repeats: int) -> dict:
+    """A pod on node `squat` takes all its GPUs; then, `repeats` times,
+    /addslice of 1 GPU a pod must answer 503 naming InsufficientGPU on that
+    host, with every other host free again (rolled back). The squatter's GPUs
+    are removed at the end."""
+    cluster = stack.cluster
+    squatter = cluster.add_target_pod("squatter", node=squat)
+    status, text, _ = stack.http("POST", "/batch/addgpu", payload={"targets": [
+        {"pod": squatter.name, "gpus": cluster.free_gpu_count(squat)}]})
+    if status != 200 or json.loads(text)["summary"]["success"] != 1:
+        raise RuntimeError(f"the squatter's batch add: {status} {text!r}")
+    free = {p.node_name: cluster.free_gpu_count(p.node_name) for p in pods}
+    rank = next(p.name for p in pods if p.node_name == squat)
+    body = {"pods": [{"namespace": p.namespace, "pod": p.name} for p in pods], "gpusPerHost": 1}
+    out = {"ms": [], "status": None, "body": None}
+    for _ in range(repeats):
+        status, text, ms = stack.http("POST", "/addslice", payload=body)
+        out["ms"].append(ms)
+        want = f"slice mount failed ({rank}: InsufficientGPU)\n"
+        if (status, text) != (503, want):
+            raise RuntimeError(f"/addslice with {squat} squatted: {status} {text!r}")
+        _slices_released(cluster, pods, free)
+        out.update(status=status, body=text.strip())
+    _remove_all(stack, [(squatter, squat)])
+    return out
+
+
+def _remove_all(stack: _MasterStack, placed) -> None:
+    """POST /removegpu of every GPU each (pod, node) holds."""
+    for pod, node in placed:
+        uuids = stack.held(node, pod)
+        status, text, _ = stack.http("POST", _remove_path(pod), {"uuids": ",".join(uuids)})
+        if status != 200:
+            raise RuntimeError(f"remove of {pod.name}'s {uuids}: {status} {text!r}")
+
+
+def _batch_flow(stack: _MasterStack, repeats: int) -> dict:
+    """`repeats` times: POST /batch/addgpu of two targets a node (1 GPU and
+    2 GPUs) and a pod that does not exist, last; each target's result in
+    request order, the summary, and the books of every node checked, then
+    every mount removed."""
+    cluster = stack.cluster
+    placed = [(cluster.add_target_pod(f"batch-{j}", node=node), node)
+              for j, node in enumerate(cluster.node_names * 2)]
+    gpus = [1 + j // len(cluster.node_names) for j in range(len(placed))]
+    free = {node: cluster.free_gpu_count(node) for node in cluster.node_names}
+    body = {"targets": [{"namespace": p.namespace, "pod": p.name, "gpus": n}
+                        for (p, _), n in zip(placed, gpus)] + [{"pod": "ghost"}]}
+    out = {"ms": [], "by_result": None, "targets": len(body["targets"])}
+    for _ in range(repeats):
+        status, text, ms = stack.http("POST", "/batch/addgpu", payload=body)
+        out["ms"].append(ms)
+        if status != 200:
+            raise RuntimeError(f"/batch/addgpu: {status} {text!r}")
+        answer = json.loads(text)
+        results = answer["results"]
+        got = [(r["pod"], r.get("node"), r["result"], len(r.get("uuids", ()))) for r in results]
+        want = [(p.name, node, "Success", n) for (p, node), n in zip(placed, gpus)] + [
+            ("ghost", None, "PodNotFound", 0)]
+        if got != want or answer["summary"] != {
+                "total": len(want), "success": len(placed),
+                "byResult": {"Success": len(placed), "PodNotFound": 1}}:
+            raise RuntimeError(f"/batch/addgpu: {answer}")
+        for node in cluster.node_names:
+            taken = sum(n for (_, at), n in zip(placed, gpus) if at == node)
+            if cluster.free_gpu_count(node) != free[node] - taken:
+                raise RuntimeError(f"{node}: {cluster.free_gpu_count(node)} free after the "
+                                   f"batch, {free[node]} before, {taken} mounted")
+        _remove_all(stack, placed)
+        _slices_released(cluster, [p for p, _ in placed], free)
+        out["by_result"] = answer["summary"]["byResult"]
+    return out
+
+
+def slice_check(device="cuda", *, dev_dir: str | None = None, ns_pid: int | None = None,
+                cgroup_dirs=(), identity: str = "nvml", repeats: int = 3,
+                on_mounted=None) -> dict:
+    """The master's slice and batch routes over HTTP: ``MasterApp`` on
+    ``build_http_server(port=0, host="127.0.0.1")`` in front of one worker
+    gRPC server a node, each node's kubelet over gRPC. Without grpcio it
+    raises ``ModuleNotFoundError`` naming grpcio.
+
+    On the card (device="cuda"): a slice of 1 host x 1 GPU over the live
+    ``NvidiaDeviceBackend`` (wired as ``mount_check`` wires it: `dev_dir`,
+    `ns_pid`, `cgroup_dirs`, `identity`), whose target pod's IP is 127.0.0.1:
+    POST /addslice with acceleratorType nvidia-h100-80gb, the plan and the
+    node checked, on_mounted(plan, uuids, dev_dir) called once (the caller
+    starts its tenant there, on the plan's env); POST /removeslice, the node
+    gone and the slave pod released. Without CAP_MKNOD the add answers 500
+    naming it and the rollback leaves all free. On both devices, a fake fleet
+    of SLICE_FLEET["NODES"] hosts of SLICE_FLEET["GPUS"] GPUs: the slice of
+    every GPU of every host added and removed; a slice of 1 a host with one
+    host squatted, rolled back (503); a batch of two targets a node and a
+    pod that does not exist. `repeats` times each. Runs on the card unless
+    the caller passes device="cpu".
+
+    Returns {"cap_mknod", "live" (card only) and "fleet" (``_slice_flow``'s
+    reports: add_ms and remove_ms, host clock, each request's round trip;
+    the last plan; the UUIDs; the refusal), "rollback" (ms, status, body),
+    "batch" (ms, by_result, targets), "fanout_tasks" (the fan-out core's
+    tasks by kind during the check)}."""
+    device = resolve_device(device)
+    cfg = Config(auth_mode="token", auth_token=secrets.token_hex(16))
+    tasks_before = FANOUT_TASKS.snapshot()
+    report = {"cap_mknod": has_cap_mknod()}
+    root = tempfile.mkdtemp(prefix="slice-check-")
+    try:
+        if device.type == "cuda":
+            cluster = FakeCluster(NvidiaDeviceBackend("/dev", identity=make_identity(identity)),
+                                  cfg=cfg)
+            target, dirs = _live_target(root, dev_dir, cgroup_dirs)
+            with _MasterStack(cluster, {cluster.node_name: target}, ns_pid, dirs) as stack:
+                pod = cluster.add_target_pod("tenant-slice", ip="127.0.0.1")
+                report["live"] = _slice_flow(
+                    stack, [pod], 1, repeats,
+                    "round-trip" if report["cap_mknod"] else "refused",
+                    accel="nvidia-h100-80gb", on_mounted=on_mounted, live=True)
+        names = [f"host-{i}" for i in range(SLICE_FLEET["NODES"])]
+        fleet = FakeCluster.with_fake_gpus(os.path.join(root, "fleet"),
+                                           nodes={n: SLICE_FLEET["GPUS"] for n in names},
+                                           cfg=cfg)
+        dirs = {}
+        for name in names:
+            dirs[name] = os.path.join(root, f"tenant-dev-{name}")
+            os.makedirs(dirs[name])
+        with _MasterStack(fleet, dirs) as stack:
+            pods = [fleet.add_target_pod(f"rank-{i}", node=n) for i, n in enumerate(names)]
+            report["fleet"] = _slice_flow(stack, pods, SLICE_FLEET["GPUS"], repeats,
+                                          "round-trip", accel="nvidia-h100-80gb")
+            report["rollback"] = _squatted_slice(stack, pods, names[len(names) // 2], repeats)
+            report["batch"] = _batch_flow(stack, repeats)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    report["fanout_tasks"] = {dict(k)["kind"]: v - tasks_before.get(k, 0.0)
+                              for k, v in FANOUT_TASKS.snapshot().items()
+                              if v != tasks_before.get(k, 0.0)}
     return report

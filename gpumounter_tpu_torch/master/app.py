@@ -1,7 +1,8 @@
 """The master: the HTTP API, routed to the right node's worker.
 
 The counterpart of ``gpumounter_tpu/master/app.py`` for the original
-GPUMounter's surface (``cmd/GPUMounter-master/main.go``):
+GPUMounter's surface (``cmd/GPUMounter-master/main.go``) and the reference's
+multi-host routes:
 
   * routes (main.go:232-234):
       GET  /addgpu/namespace/:ns/pod/:pod/gpu/:n/isEntireMount/:bool
@@ -9,6 +10,18 @@ GPUMounter's surface (``cmd/GPUMounter-master/main.go``):
            repeated or comma-joined)
       GET  /
     plus /healthz and /workers (node -> worker address);
+  * the reference's slice and batch routes, JSON in and out
+    (``master/slice_ops.py``):
+      POST /addslice      {"pods": [{"namespace", "pod"}, ...],
+                           "gpusPerHost": 8, "isEntireMount": true,
+                           "acceleratorType": "nvidia-h100-80gb"}
+                          -> the plan of each worker's torch.distributed env
+      POST /removeslice   {"pods": [...], "force": false}
+                          -> {"removed": {pod: result}}
+      POST /batch/addgpu  {"targets": [{"namespace", "pod", "gpus",
+                           "isEntireMount"}, ...]}
+                          -> {"results": [...], "summary": {"total",
+                             "success", "byResult"}}
   * the target pod is read to find its node (main.go:52-66): 404 when there
     is no pod, 400 when it is not scheduled;
   * the node's worker comes from ``WorkerRegistry`` (500 when there is
@@ -18,20 +31,24 @@ GPUMounter's surface (``cmd/GPUMounter-master/main.go``):
     add Success 200 "Add GPU Success", InsufficientGPU 500, PodNotFound 400;
     remove PodNotFound, GPUBusy and GPUNotFound 400, Success 200. A breaker
     that is open answers 503 with Retry-After; any other failed call 500.
+    A slice answers the status of its ``SliceError``, with Retry-After when
+    a breaker was open.
 
-As in the reference: gpuNum is range-checked against MAX_GPU_PER_REQUEST
-(the original never checks it), every route but the index and /healthz
-wants the bearer token (``utils/auth.py``), and a path of no route gets
-"404 page not found". The reference's other routes (slices, batch, shards,
-intents, migrations, audit, trace, timeline, fleet, SLO, capacity, tenants,
-recovery, health, defrag, shares, autoscale, /metrics, /apihealth) and its
-admission gate come with the packages that serve them; until then their
-paths get that 404.
+As in the reference: gpuNum and a batch target's gpus are range-checked
+against MAX_GPU_PER_REQUEST (the original never checks it), a batch holds at
+most BULK_MAX_TARGETS targets, every route but the index and /healthz wants
+the bearer token (``utils/auth.py``), and a path of no route gets "404 page
+not found". The reference's other routes (shards, intents, migrations,
+audit, trace, timeline, fleet, SLO, capacity, tenants, recovery, health,
+defrag, shares, autoscale, /metrics, /apihealth), the batch's shard routing
+and proxying, and its admission gate come with the packages that serve them;
+until then their paths get that 404, /batch/addtpu among them.
 """
 
 from __future__ import annotations
 
 import inspect
+import json
 import random
 import re
 import threading
@@ -42,9 +59,17 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from gpumounter_tpu_torch.config import Config
 from gpumounter_tpu_torch.k8s.client import KubeClient, NotFoundError
 from gpumounter_tpu_torch.k8s.types import Pod
+from gpumounter_tpu_torch.master.slice_ops import (
+    BulkMountCoordinator,
+    BulkTarget,
+    SliceCoordinator,
+    SliceError,
+    SliceTarget,
+)
 from gpumounter_tpu_torch.rpc.api import AddGPUResult, RemoveGPUResult
 from gpumounter_tpu_torch.rpc.client import ChannelPool, WorkerClient
 from gpumounter_tpu_torch.rpc.resilience import BreakerOpenError, CircuitBreaker
+from gpumounter_tpu_torch.topology import GPUS_PER_HOST
 from gpumounter_tpu_torch.utils.auth import check_bearer, required_token
 from gpumounter_tpu_torch.utils.log import get_logger
 
@@ -263,7 +288,14 @@ _ROUTES: list[tuple[str, re.Pattern, str]] = [
     ("GET", re.compile(r"^/$"), "index"),
     ("GET", re.compile(r"^/healthz$"), "healthz"),
     ("GET", re.compile(r"^/workers$"), "workers"),
+    ("POST", re.compile(r"^/batch/addgpu$"), "batch_add"),
+    ("POST", re.compile(r"^/addslice$"), "addslice"),
+    ("POST", re.compile(r"^/removeslice$"), "removeslice"),
 ]
+
+#: a slice's GPUs per host when the request names none: an H100 host's 8
+#: (the reference's 4 is a v5e host's)
+DEFAULT_GPUS_PER_HOST = GPUS_PER_HOST["nvidia-h100-80gb"]
 
 
 def _parse_bool(raw: str, param: str) -> bool:
@@ -277,6 +309,20 @@ def _parse_bool(raw: str, param: str) -> bool:
 
 def _retry_after(seconds: float) -> dict[str, str]:
     return {"Retry-After": str(max(1, int(seconds + 0.5)))}
+
+
+def _slice_headers(exc: SliceError) -> dict[str, str] | None:
+    return None if exc.retry_after_s is None else _retry_after(exc.retry_after_s)
+
+
+def _json_body(body: bytes, what: str) -> dict:
+    try:
+        payload = json.loads(body or b"{}")
+    except ValueError:
+        raise _HttpError(400, "body must be JSON")
+    if not isinstance(payload, dict):
+        raise _HttpError(400, f'body must be a JSON object with a "{what}" list')
+    return payload
 
 
 def _degraded_or_500(exc: Exception) -> _HttpError:
@@ -427,6 +473,94 @@ class MasterApp:
         if result == RemoveGPUResult.GPUNotFound:
             raise _HttpError(400, f"Invalid UUIDs: {joined}")
         raise _HttpError(500, f"unknown worker result {result}")
+
+
+    # --- the slice and batch routes (master/slice_ops.py) ---
+
+    def _parse_slice_body(self, body: bytes) -> tuple[dict, list[SliceTarget]]:
+        payload = _json_body(body, "pods")
+        raw = payload.get("pods")
+        if not isinstance(raw, list) or not raw:
+            raise _HttpError(400, 'JSON body needs "pods": [{"namespace": ..., "pod": ...}, ...]')
+        targets = []
+        for entry in raw:
+            if not isinstance(entry, dict):
+                raise _HttpError(400, f'pods entries must be objects {{"namespace", "pod"}}: '
+                                      f"{entry!r}")
+            pod = entry.get("pod")
+            if not pod:
+                raise _HttpError(400, f"pods entry missing 'pod': {entry}")
+            targets.append(SliceTarget(namespace=entry.get("namespace", "default"), pod=pod))
+        return payload, targets
+
+    def _slice_coordinator(self) -> SliceCoordinator:
+        return SliceCoordinator(self.kube, self.registry, self._client_factory, self.cfg)
+
+    def _route_addslice(self, match, body):
+        payload, targets = self._parse_slice_body(body)
+        try:
+            gpus = int(payload.get("gpusPerHost", DEFAULT_GPUS_PER_HOST))
+        except (TypeError, ValueError):
+            raise _HttpError(400, f"Invalid gpusPerHost: {payload.get('gpusPerHost')!r}")
+        if gpus <= 0:
+            raise _HttpError(400, f"Invalid gpusPerHost: {gpus}")
+        try:
+            plan = self._slice_coordinator().mount_slice(
+                targets, gpus, bool(payload.get("isEntireMount", True)),
+                accel_type=payload.get("acceleratorType") or None)
+        except SliceError as exc:
+            raise _HttpError(exc.status, str(exc), headers=_slice_headers(exc))
+        return 200, "application/json", json.dumps(plan, indent=1) + "\n"
+
+    def _route_removeslice(self, match, body):
+        payload, targets = self._parse_slice_body(body)
+        try:
+            outcome = self._slice_coordinator().remove_slice(
+                targets, bool(payload.get("force", False)))
+        except SliceError as exc:
+            raise _HttpError(exc.status, str(exc), headers=_slice_headers(exc))
+        return 200, "application/json", json.dumps(outcome) + "\n"
+
+    def _parse_bulk_body(self, body: bytes) -> list[BulkTarget]:
+        raw = _json_body(body, "targets").get("targets")
+        if not isinstance(raw, list) or not raw:
+            raise _HttpError(400, 'JSON body needs "targets": [{"namespace", "pod", "gpus", '
+                                  '"isEntireMount"}, ...]')
+        if len(raw) > self.cfg.bulk_max_targets:
+            raise _HttpError(400, f"too many targets: {len(raw)} > "
+                                  f"{self.cfg.bulk_max_targets} (BULK_MAX_TARGETS)")
+        targets = []
+        for entry in raw:
+            if not isinstance(entry, dict) or not entry.get("pod"):
+                raise _HttpError(400, f"targets entries must be objects with a 'pod': "
+                                      f"{entry!r}")
+            try:
+                gpus = int(entry.get("gpus", 1))
+            except (TypeError, ValueError):
+                raise _HttpError(400, f"invalid gpus for {entry.get('pod')}: "
+                                      f"{entry.get('gpus')!r}")
+            if not 0 < gpus <= self.cfg.max_gpu_per_request:
+                raise _HttpError(400, f"invalid gpus {gpus} for {entry['pod']} "
+                                      f"(must be 1..{self.cfg.max_gpu_per_request})")
+            targets.append(BulkTarget(namespace=entry.get("namespace", "default"),
+                                      pod=entry["pod"], gpus=gpus,
+                                      entire=bool(entry.get("isEntireMount", False))))
+        return targets
+
+    def _route_batch_add(self, match, body):
+        """One request, many pods' mounts, a result for each: a bad pod or a
+        node without its worker never fails the rest of the batch."""
+        targets = self._parse_bulk_body(body)
+        results = BulkMountCoordinator(self.kube, self.registry, self._client_factory,
+                                       self.cfg).mount_bulk(targets)
+        by_result: dict[str, int] = {}
+        for entry in results:
+            by_result[entry.get("result", "Error")] = by_result.get(entry.get("result", "Error"),
+                                                                    0) + 1
+        payload = {"results": results,
+                   "summary": {"total": len(results), "success": by_result.get("Success", 0),
+                               "byResult": by_result}}
+        return 200, "application/json", json.dumps(payload, indent=1) + "\n"
 
 
 def build_http_server(app: MasterApp, port: int | None = None,

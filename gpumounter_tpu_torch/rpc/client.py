@@ -300,9 +300,12 @@ class WorkerClient:
         return self._call(api.ADD_METHOD, request)
 
     def remove_gpu(self, pod_name: str, namespace: str, uuids: list[str],
-                   force: bool = False,
+                   force: bool = False, remove_all: bool = False,
                    idempotency_key: str | None = None) -> api.RemoveGPUResponse:
+        """RemoveGPU; remove_all (field 5) removes every GPU the pod's slave
+        pods hold, whatever the mount type (the slice's remove). One
+        idempotency key covers every attempt."""
         request = api.RemoveGPURequest(
-            pod_name, namespace, list(uuids), force,
+            pod_name, namespace, list(uuids), force, remove_all=remove_all,
             idempotency_key=idempotency_key or f"rm-{secrets.token_hex(8)}")
         return self._call(api.REMOVE_METHOD, request)

@@ -1,17 +1,28 @@
-"""FakeCluster: one GPU node, end to end, in one process.
+"""FakeCluster: GPU nodes, end to end, in one process.
 
-The counterpart of ``gpumounter_tpu/testing/cluster.py`` for one node. It
-wires together:
+The counterpart of ``gpumounter_tpu/testing/cluster.py``. It wires together,
+for each node:
 
   * a device backend: a ``FakeDeviceBackend`` (fake nodes in a directory)
     for tests, or the live ``NvidiaDeviceBackend`` on a GPU host;
   * an ``InMemoryKubelet`` that answers pod-resources List;
-  * a ``FakeKubeClient`` whose scheduler hook plays the scheduler and the
-    NVIDIA device plugin: a pod requesting ``nvidia.com/gpu`` gets free GPUs
-    of the backend's inventory, by UUID in NVML index order, its claim
-    lands in the kubelet, and it runs; when too few are free it stays
-    Pending-Unschedulable, the signal the allocator maps to
-    InsufficientGPU (allocator.go:262-270). Deleting the pod frees them.
+
+and for all of them one ``FakeKubeClient``, whose scheduler hook plays the
+scheduler and the NVIDIA device plugin: a pod requesting ``nvidia.com/gpu``
+goes to the node its ``kubernetes.io/hostname`` selector names (else the
+first node with enough free GPUs) and gets free GPUs of that node's
+inventory, by UUID in NVML index order; its claim lands in that node's
+kubelet, and it runs. When too few are free it stays Pending-Unschedulable,
+the signal the allocator maps to InsufficientGPU (allocator.go:262-270).
+Deleting the pod frees them. ``FakeCluster(backend)`` is one node;
+``FakeCluster(nodes={name: backend})`` or ``with_fake_gpus(root,
+nodes={name: n})`` several. The one-node views (``node_name``, ``backend``,
+``kubelet``, ``assignment``) are the first node's.
+
+Every target pod runs with a pod IP, the address a slice's plan hands its
+tenants: the one given, else 10.8.<node's position>.<n + 1> for the node's
+n-th target pod, the same in every process (the reference draws it from
+``hash()``, which differs between processes).
 
 A target pod has no container behind it: ``DirTargetMounter`` mounts into a
 directory that stands for the container's /dev, in the mount namespace of
@@ -19,11 +30,11 @@ directory that stands for the container's /dev, in the mount namespace of
 
 For the transport (``tests/test_master.py:24-90`` of the reference):
 
-  * ``serve_kubelet`` serves the kubelet's claims over a real gRPC socket
+  * ``serve_kubelet(node)`` serves a node's claims over a real gRPC socket
     (``FakeKubeletServer``), and ``service(..., kubelet="grpc")`` gives the
     collector a ``PodResourcesClient`` on it in place of the in-memory one;
-  * ``register_worker`` creates the worker pod the way the DaemonSet would,
-    so the master's registry finds the node's worker;
+  * ``register_worker(ip, node)`` creates the node's worker pod the way the
+    DaemonSet would, so the master's registry finds the node's worker;
   * ``LoopbackWorkerClient`` reaches a ``GpuMountService`` without grpc, for
     hosts that have none (the card's machine): each call goes through the
     wire codec both ways, and a refused call raises as ``WorkerClient``
@@ -52,6 +63,8 @@ from gpumounter_tpu_torch.rpc.resilience import RpcCallError
 from gpumounter_tpu_torch.worker.mounter import GpuMounter, MountTarget
 from gpumounter_tpu_torch.worker.server import GpuMountService, ServiceError
 
+HOSTNAME_LABEL = "kubernetes.io/hostname"
+
 
 class DirTargetMounter(GpuMounter):
     """A mounter whose every target pod is one directory."""
@@ -69,83 +82,147 @@ class DirTargetMounter(GpuMounter):
                            pod=pod)
 
 
-class FakeCluster:
-    def __init__(self, backend: DeviceBackend, node_name: str = "gpu-node-0",
-                 scheduler_delay_s: float = 0.0, cfg: Config | None = None):
+class FakeNode:
+    """One node of the cluster: its backend, its kubelet, and its books."""
+
+    def __init__(self, name: str, position: int, backend: DeviceBackend):
+        self.name = name
+        self.position = position
         self.backend = backend
-        self.node_name = node_name
-        self.cfg = dataclasses.replace(cfg or Config(), slave_pod_timeout_s=10.0)
         self.kubelet = InMemoryKubelet()
-        self._alloc_lock = threading.Lock()
         # GPU UUID (the device plugin's device ID) -> (namespace, pod) or None
         self.assignment: dict[str, tuple[str, str] | None] = {
             d.uuid: None for d in backend.list_devices()}
+        self.target_pods = 0
+        self.kubelet_server: FakeKubeletServer | None = None
+        self.kubelet_dir: str | None = None
+
+    def free_ids(self) -> list[str]:
+        return [uuid for uuid, owner in self.assignment.items() if owner is None]
+
+
+def _selector(pod: dict) -> str | None:
+    return (pod.get("spec", {}).get("nodeSelector") or {}).get(HOSTNAME_LABEL)
+
+
+class FakeCluster:
+    def __init__(self, backend: DeviceBackend | None = None, node_name: str = "gpu-node-0",
+                 scheduler_delay_s: float = 0.0, cfg: Config | None = None,
+                 nodes: dict[str, DeviceBackend] | None = None):
+        if (backend is None) == (nodes is None):
+            raise ValueError("give a backend (one node) or nodes={name: backend}")
+        if nodes is None:
+            nodes = {node_name: backend}
+        self._nodes = {name: FakeNode(name, i, b) for i, (name, b) in enumerate(nodes.items())}
+        self.node_name = next(iter(self._nodes))
+        self.cfg = dataclasses.replace(cfg or Config(), slave_pod_timeout_s=10.0)
+        self._alloc_lock = threading.Lock()
         self.kube = FakeKubeClient(scheduler_hook=self._schedule, delete_hook=self._reap,
                                    scheduler_delay_s=scheduler_delay_s)
-        self._kubelet_server: FakeKubeletServer | None = None
-        self._kubelet_dir: str | None = None
         self._kubelet_clients: list[PodResourcesClient] = []
 
     @classmethod
-    def with_fake_gpus(cls, root: str, n_gpus: int = 4, **kwargs) -> "FakeCluster":
-        """A node of `n_gpus` fake GPUs under <root>/host-dev."""
-        return cls(FakeDeviceBackend.create(os.path.join(root, "host-dev"), n_gpus),
-                   **kwargs)
+    def with_fake_gpus(cls, root: str, n_gpus: int = 4, nodes: dict[str, int] | None = None,
+                       **kwargs) -> "FakeCluster":
+        """One node of `n_gpus` fake GPUs under <root>/host-dev, or with
+        `nodes` = {name: n}, a node of n under <root>/<name>/host-dev each."""
+        if nodes is None:
+            return cls(FakeDeviceBackend.create(os.path.join(root, "host-dev"), n_gpus),
+                       **kwargs)
+        return cls(nodes={name: FakeDeviceBackend.create(os.path.join(root, name, "host-dev"), n)
+                          for name, n in nodes.items()}, **kwargs)
+
+    # --- the nodes ---
+
+    def node(self, name: str | None = None) -> FakeNode:
+        return self._nodes[name or self.node_name]
+
+    @property
+    def node_names(self) -> list[str]:
+        return list(self._nodes)
+
+    @property
+    def backend(self) -> DeviceBackend:
+        return self.node().backend
+
+    @property
+    def kubelet(self) -> InMemoryKubelet:
+        return self.node().kubelet
+
+    @property
+    def assignment(self) -> dict[str, tuple[str, str] | None]:
+        return self.node().assignment
 
     # --- the scheduler and the device plugin ---
 
-    def _free_ids(self) -> list[str]:
-        return [uuid for uuid, owner in self.assignment.items() if owner is None]
+    def _pick_node(self, selector: str | None, want: int) -> FakeNode | None:
+        """The selector's node if it has `want` free GPUs, else (no
+        selector) the first node that has. The caller holds _alloc_lock."""
+        if selector:
+            candidates = [self._nodes[selector]] if selector in self._nodes else []
+        else:
+            candidates = list(self._nodes.values())
+        return next((n for n in candidates if len(n.free_ids()) >= want), None)
 
     def _schedule(self, pod: dict) -> None:
         p = Pod(pod)
         want = p.resource_limit(self.cfg.gpu_resource_name)
-        selector = (pod.get("spec", {}).get("nodeSelector") or {}).get(
-            "kubernetes.io/hostname")
+        selector = _selector(pod)
         if want == 0:
             pod.setdefault("spec", {}).setdefault("nodeName", selector or self.node_name)
             pod.setdefault("status", {})["phase"] = "Running"
             return
         with self._alloc_lock:
-            free = self._free_ids()
-            if (selector and selector != self.node_name) or len(free) < want:
+            node = self._pick_node(selector, want)
+            if node is None:
                 pod.setdefault("status", {}).update({
                     "phase": "Pending",
                     "conditions": [{
                         "type": "PodScheduled", "status": "False",
                         "reason": "Unschedulable",
-                        "message": f"0/1 nodes available: insufficient "
+                        "message": f"0/{len(self._nodes)} nodes available: insufficient "
                                    f"{self.cfg.gpu_resource_name}"}]})
                 return
-            assigned = free[:want]
+            assigned = node.free_ids()[:want]
             for uuid in assigned:
-                self.assignment[uuid] = (p.namespace, p.name)
-            self.kubelet.set_claim(p.name, p.namespace, self.cfg.gpu_resource_name,
-                                   assigned)
-        pod.setdefault("spec", {})["nodeName"] = self.node_name
+                node.assignment[uuid] = (p.namespace, p.name)
+            node.kubelet.set_claim(p.name, p.namespace, self.cfg.gpu_resource_name, assigned)
+        pod.setdefault("spec", {})["nodeName"] = node.name
         pod.setdefault("status", {})["phase"] = "Running"
 
     def _reap(self, pod: dict) -> None:
         p = Pod(pod)
         with self._alloc_lock:
-            for uuid, owner in self.assignment.items():
-                if owner == (p.namespace, p.name):
-                    self.assignment[uuid] = None
-            self.kubelet.drop_pod(p.name, p.namespace)
+            for node in self._nodes.values():
+                for uuid, owner in node.assignment.items():
+                    if owner == (p.namespace, p.name):
+                        node.assignment[uuid] = None
+                node.kubelet.drop_pod(p.name, p.namespace)
 
     # --- convenience ---
 
-    def free_gpu_count(self) -> int:
+    def free_gpu_count(self, node: str | None = None) -> int:
+        """Free GPUs of `node`, or of the whole cluster."""
         with self._alloc_lock:
-            return len(self._free_ids())
+            if node is not None:
+                return len(self._nodes[node].free_ids())
+            return sum(len(n.free_ids()) for n in self._nodes.values())
 
-    def add_target_pod(self, name: str, namespace: str = "default") -> Pod:
-        """A running workload pod (no GPU request) to hot-mount into."""
+    def add_target_pod(self, name: str, namespace: str = "default", node: str | None = None,
+                       ip: str | None = None) -> Pod:
+        """A running workload pod (no GPU request) to hot-mount into, on
+        `node` (the first node by default), at `ip` (by default the node's
+        next address of 10.8.<position>.0/24)."""
+        target = self.node(node)
         self.kube.create_pod(namespace, {
             "apiVersion": "v1", "kind": "Pod",
             "metadata": {"name": name, "namespace": namespace},
-            "spec": {"containers": [{"name": "main", "image": "app"}]}})
-        self.kube.set_pod_status(namespace, name, containerStatuses=[{
+            "spec": {"containers": [{"name": "main", "image": "app"}],
+                     **({"nodeSelector": {HOSTNAME_LABEL: node}} if node else {})}})
+        with self._alloc_lock:
+            target.target_pods += 1
+            ip = ip or f"10.8.{target.position}.{target.target_pods + 1}"
+        self.kube.set_pod_status(namespace, name, podIP=ip, containerStatuses=[{
             "name": "main", "containerID": f"containerd://{name}-cid",
             "state": {"running": {}}}])
         pod = self.kube.wait_for_pod(
@@ -156,59 +233,66 @@ class FakeCluster:
         return Pod(self.kube.get_pod(namespace, name))
 
     def service(self, dev_dir: str, ns_pid: int | None = None, cgroup_dirs=(),
-                kubelet: str = "memory") -> GpuMountService:
-        """The worker's service for this node, mounting into `dev_dir`. Its
-        collector reads the kubelet in memory ("memory"), or over gRPC on
-        the socket of ``serve_kubelet`` ("grpc")."""
+                kubelet: str = "memory", node: str | None = None) -> GpuMountService:
+        """The worker's service for `node` (the first by default), mounting
+        into `dev_dir`. Its collector reads the node's kubelet in memory
+        ("memory"), or over gRPC on the socket of ``serve_kubelet`` ("grpc")."""
+        target = self.node(node)
         if kubelet == "grpc":
-            podresources = PodResourcesClient(self.serve_kubelet().socket_path, timeout_s=5.0)
+            podresources = PodResourcesClient(self.serve_kubelet(target.name).socket_path,
+                                              timeout_s=5.0)
             self._kubelet_clients.append(podresources)
         elif kubelet == "memory":
-            podresources = self.kubelet
+            podresources = target.kubelet
         else:
             raise ValueError(f"kubelet {kubelet!r}: 'memory' or 'grpc'")
-        collector = GpuCollector(self.backend, podresources, cfg=self.cfg)
-        mounter = DirTargetMounter(self.backend, dev_dir, cfg=self.cfg, ns_pid=ns_pid,
+        collector = GpuCollector(target.backend, podresources, cfg=self.cfg)
+        mounter = DirTargetMounter(target.backend, dev_dir, cfg=self.cfg, ns_pid=ns_pid,
                                    cgroup_dirs=cgroup_dirs)
         return GpuMountService(self.kube, collector, mounter=mounter, cfg=self.cfg)
 
     # --- the transport ---
 
-    def serve_kubelet(self) -> FakeKubeletServer:
-        """The kubelet's pod-resources API (v1) over gRPC on a unix socket in
-        a new temporary directory, serving this node's claims; started once,
-        stopped by ``stop``."""
-        if self._kubelet_server is None:
-            self._kubelet_dir = tempfile.mkdtemp(prefix="kubelet-")
-            self._kubelet_server = FakeKubeletServer(
-                os.path.join(self._kubelet_dir, "kubelet.sock"), kubelet=self.kubelet).start()
-        return self._kubelet_server
+    def serve_kubelet(self, node: str | None = None) -> FakeKubeletServer:
+        """A node's kubelet pod-resources API (v1) over gRPC on a unix socket
+        in a new temporary directory, serving its claims; started once a
+        node, stopped by ``stop``."""
+        target = self.node(node)
+        if target.kubelet_server is None:
+            target.kubelet_dir = tempfile.mkdtemp(prefix="kubelet-")
+            target.kubelet_server = FakeKubeletServer(
+                os.path.join(target.kubelet_dir, "kubelet.sock"),
+                kubelet=target.kubelet).start()
+        return target.kubelet_server
 
-    def register_worker(self, ip: str = "127.0.0.1") -> dict:
-        """The node's worker pod, as the DaemonSet would create it: in
-        WORKER_NAMESPACE, labelled WORKER_LABEL_SELECTOR, on this node, at
-        `ip`. The master dials it at `ip`:WORKER_PORT of its config."""
+    def register_worker(self, ip: str = "127.0.0.1", node: str | None = None) -> dict:
+        """A node's worker pod, as the DaemonSet would create it: in
+        WORKER_NAMESPACE, labelled WORKER_LABEL_SELECTOR, on `node` (the
+        first by default), at `ip`. The master dials it at `ip`:WORKER_PORT
+        of its config."""
+        name = self.node(node).name
         labels = dict(clause.split("=", 1)
                       for clause in self.cfg.worker_label_selector.split(",") if clause)
         return self.kube.create_pod(self.cfg.worker_namespace, {
-            "metadata": {"name": f"gpu-mounter-worker-{self.node_name}",
+            "metadata": {"name": f"gpu-mounter-worker-{name}",
                          "namespace": self.cfg.worker_namespace,
                          "labels": labels},
-            "spec": {"nodeName": self.node_name, "containers": [{"name": "worker"}]},
+            "spec": {"nodeName": name, "containers": [{"name": "worker"}]},
             "status": {"phase": "Running", "podIP": ip}})
 
     def stop(self) -> None:
-        """Close the kubelet clients of ``service`` and stop the kubelet's
-        server."""
+        """Close the kubelet clients of ``service`` and stop every node's
+        kubelet server."""
         for client in self._kubelet_clients:
             client.close()
         self._kubelet_clients.clear()
-        if self._kubelet_server is not None:
-            self._kubelet_server.stop()
-            self._kubelet_server = None
-        if self._kubelet_dir is not None:
-            os.rmdir(self._kubelet_dir)
-            self._kubelet_dir = None
+        for node in self._nodes.values():
+            if node.kubelet_server is not None:
+                node.kubelet_server.stop()
+                node.kubelet_server = None
+            if node.kubelet_dir is not None:
+                os.rmdir(node.kubelet_dir)
+                node.kubelet_dir = None
 
 
 class LoopbackWorkerClient:
@@ -250,9 +334,10 @@ class LoopbackWorkerClient:
                           api.AddGPUResponse, api.ADD_METHOD)
 
     def remove_gpu(self, pod_name: str, namespace: str, uuids: list[str],
-                   force: bool = False, idempotency_key: str = ""
+                   force: bool = False, remove_all: bool = False, idempotency_key: str = ""
                    ) -> api.RemoveGPUResponse:
         return self._call(self.service.remove_gpu,
                           api.RemoveGPURequest(pod_name, namespace, list(uuids), force,
+                                               remove_all=remove_all,
                                                idempotency_key=idempotency_key),
                           api.RemoveGPUResponse, api.REMOVE_METHOD)

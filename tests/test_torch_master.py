@@ -12,9 +12,9 @@ port's gpu-node-0). The routes are the original GPUMounter's
 
 Then the registry's informer on both implementations: watch-based reads,
 recovery after a dropped watch, and a watch event racing a LIST; and
-``entry.master_check`` on the CPU, over gRPC, and its refusal on a host
-without grpcio. No test sleeps to wait for a state. Every comparison is
-exact.
+``entry.master_check`` and ``entry.slice_check`` on the CPU, over gRPC, and
+their refusal on a host without grpcio. No test sleeps to wait for a state.
+Every comparison is exact.
 """
 
 from __future__ import annotations
@@ -40,7 +40,7 @@ from gpumounter_tpu.worker.mounter import MountTarget as RefTarget
 from gpumounter_tpu.worker.mounter import TpuMounter
 from gpumounter_tpu.worker.server import TpuMountService
 from gpumounter_tpu.worker.server import build_server as ref_build_server
-from gpumounter_tpu_torch.entry import master_check
+from gpumounter_tpu_torch.entry import SLICE_FLEET, master_check, slice_check
 from gpumounter_tpu_torch.k8s.types import Pod
 from gpumounter_tpu_torch.master import app as port_app
 from gpumounter_tpu_torch.testing.cluster import FakeCluster, LoopbackWorkerClient
@@ -328,6 +328,8 @@ def test_the_port_serves_only_the_original_surface(stacks):
     assert http(s, "POST", "/batch/addtpu", {}) == (404, "404 page not found\n")
     assert http(s, "GET", "/workers") == (200, "gpu-node-0 127.0.0.1\n")
     assert http(s, "GET", "/workers", auth=False) == (401, "missing or invalid bearer token\n")
+    for path in ("/addslice", "/removeslice", "/batch/addgpu"):
+        assert http(s, "POST", path, {})[0] != 404, path
 
 
 def test_a_master_without_a_token_refuses_to_start(stacks):
@@ -507,3 +509,39 @@ def test_master_check_without_grpcio_raises_and_names_grpcio():
                          text=True, timeout=120, env={**os.environ, "PYTHONPATH": REPO})
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.startswith("raised grpc ") and "grpcio" in out.stdout
+
+
+def test_slice_check_without_grpcio_raises_and_names_grpcio():
+    """No fallback for the slice check either."""
+    prog = ("import sys\n"
+            "sys.modules['grpc'] = None\n"
+            "from gpumounter_tpu_torch.entry import slice_check\n"
+            "try:\n"
+            "    slice_check('cpu', repeats=1)\n"
+            "except ModuleNotFoundError as exc:\n"
+            "    print('raised', exc.name, exc)\n")
+    out = subprocess.run([sys.executable, "-c", prog], cwd=REPO, capture_output=True,
+                         text=True, timeout=120, env={**os.environ, "PYTHONPATH": REPO})
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.startswith("raised grpc ") and "grpcio" in out.stdout
+
+
+def test_slice_check_on_the_cpu():
+    """``entry.slice_check`` on the fake fleet of 4 hosts of 8 GPUs, over one
+    worker gRPC server a node: the slice of all 32 added and removed (the
+    plan's ranks checked), the squatted slice rolled back with 503 and every
+    other host free, the batch of 8 targets and a ghost, and the fan-out
+    core's tasks of each kind."""
+    report = slice_check("cpu", repeats=1)
+    assert "live" not in report
+    fleet = report["fleet"]
+    assert (fleet["case"], fleet["hosts"], fleet["gpus"]) == (
+        "round-trip", SLICE_FLEET["NODES"], SLICE_FLEET["GPUS"])
+    assert len(fleet["add_ms"]) == len(fleet["remove_ms"]) == 1
+    assert [w["env"]["NODE_RANK"] for w in fleet["plan"]["workers"]] == ["0", "1", "2", "3"]
+    assert fleet["plan"]["slice"]["WORLD_SIZE"] == "32"
+    assert report["rollback"]["status"] == 503
+    assert report["rollback"]["body"] == "slice mount failed (rank-2: InsufficientGPU)"
+    assert report["batch"]["by_result"] == {"Success": 8, "PodNotFound": 1}
+    # one task a host for each slice request; one a node group of each batch
+    assert report["fanout_tasks"] == {"slice-mount": 8, "slice-remove": 4, "bulk-mount": 5}

@@ -1,7 +1,9 @@
 """The master's flows over HTTP on a GPU host: ``entry.master_check`` on the
 live ``NvidiaDeviceBackend``, and a tenant child on the UUID that the HTTP
 add mounted, running ``flash_fwd`` (phase 11 of ``chip_smoke.py`` at a small
-shape). Imports no JAX. These need the card and skip elsewhere. On the card:
+shape); ``entry.slice_check``'s slice of 1 on the live backend, whose tenant
+re-forms its process group from the plan and all-reduces over NCCL. Imports
+no JAX. These need the card and skip elsewhere. On the card:
 
     python -m pytest tests/test_torch_master_gpu.py -q -m gpu
 """
@@ -18,7 +20,7 @@ import tempfile
 import pytest
 import torch
 
-from gpumounter_tpu_torch.entry import has_cap_mknod, master_check
+from gpumounter_tpu_torch.entry import has_cap_mknod, master_check, slice_check
 from gpumounter_tpu_torch.torchside.visibility import gpus_visible_in_dev
 
 pytestmark = pytest.mark.gpu
@@ -105,3 +107,57 @@ def test_a_tenant_child_on_the_mounted_uuid_runs_flash_fwd(cuda, tmpfs_dir, tmp_
     assert child["uuid"] == uuid and child["count"] == 1
     assert child["launches"] == 1
     assert child["max_abs_err"] < 2e-2  # bf16 output against the f32 plain version
+
+
+# The slice's tenant: only the plan's env (and the port of the test) tells it
+# its world; one NCCL all-reduce of a CUDA tensor, then one flash_fwd launch.
+SLICE_CHILD = r"""
+import json, os, sys, torch
+import torch.distributed as dist
+from gpumounter_tpu_torch.ops.flash_attention import flash_attention, flash_attention_kernel
+from gpumounter_tpu_torch.torchside.visibility import reinit_distributed
+torch.cuda.set_device(0)
+rank = int(os.environ["NODE_RANK"]) * int(os.environ["NPROC_PER_NODE"])
+reinit_distributed(f"{os.environ['MASTER_ADDR']}:{sys.argv[1]}", int(os.environ["WORLD_SIZE"]),
+                   rank)
+value = torch.full((2,), float(rank + 1), device="cuda")
+dist.all_reduce(value)
+backends = dist.get_backend_config()
+dist.destroy_process_group()
+q = torch.randn(1, 4, 256, 64, device="cuda", dtype=torch.bfloat16)
+flash_attention(q, q, q, causal=True)
+print(json.dumps({"uuid": "GPU-" + str(torch.cuda.get_device_properties(0).uuid),
+                  "sum": value.tolist(), "backends": backends,
+                  "launches": flash_attention_kernel.launches}))
+"""
+
+
+def test_slice_check_on_the_card(cuda, tmpfs_dir, tmp_path):
+    import socket
+    children = []
+
+    def on_mounted(plan, uuids, dev_dir):
+        assert gpus_visible_in_dev(dev_dir) == 1
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        env = {k: v for k, v in os.environ.items()
+               if k not in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_RANK")}
+        env.update(plan["workers"][0]["env"], CUDA_VISIBLE_DEVICES=uuids[0], PYTHONPATH=REPO)
+        out = subprocess.run([sys.executable, "-c", SLICE_CHILD, str(port)], capture_output=True,
+                             text=True, timeout=600, env=env, cwd=REPO)
+        assert out.returncode == 0, out.stderr[-4000:]
+        children.append((uuids[0], json.loads(out.stdout.strip().splitlines()[-1])))
+
+    report = slice_check("cuda", dev_dir=tmpfs_dir, ns_pid=os.getpid(),
+                         cgroup_dirs=_stand_in_cgroup(tmp_path), repeats=1,
+                         on_mounted=on_mounted)
+    live = report["live"]
+    assert live["case"] == ("round-trip" if has_cap_mknod() else "refused")
+    if live["case"] == "round-trip":
+        ((uuid, child),) = children
+        assert child["uuid"] == uuid and child["sum"] == [1.0, 1.0]
+        assert "cuda:nccl" in child["backends"] and child["launches"] == 1
+        assert live["plan"]["workers"][0]["env"]["MASTER_ADDR"] == "127.0.0.1"
+    assert report["rollback"]["status"] == 503
+    assert report["batch"]["by_result"] == {"Success": 8, "PodNotFound": 1}

@@ -106,7 +106,7 @@ def test_label_keys_and_formatting_equal_the_reference():
 
 # The port's modules that register series, beside the reference's that do.
 PORT_MODULES = ["cgroup.ebpf", "cgroup.policy", "rpc.resilience", "rpc.client", "k8s.fake",
-                "worker.server", "worker.mounter"]
+                "worker.server", "worker.mounter", "utils.fanout"]
 
 
 def test_every_series_of_the_port_is_the_references():
@@ -129,7 +129,8 @@ def test_every_series_of_the_port_is_the_references():
             "tpumounter_channel_pool_hits_total", "tpumounter_channel_pool_misses_total",
             "tpumounter_channel_pool_evictions_total", "tpumounter_channel_pool_size",
             "tpumounter_watch_backlog_evictions_total",
-            "tpumounter_slave_release_failures_total"} == set(seen)
+            "tpumounter_slave_release_failures_total", "tpumounter_fanout_tasks_total",
+            "tpumounter_fanout_inflight", "tpumounter_fanout_shard_waits_total"} == set(seen)
 
 
 # --- the series of the modules ported before the registry ---
