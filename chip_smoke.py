@@ -68,9 +68,9 @@ Phases, each raising on failure (any failure exits non-zero):
       (params and optimizer state), ``handoff``; the new image loads,
       restores, takes 3 more steps and a greedy ``generate``; losses, final
       params and tokens held bit for bit against the same run in this
-      process without a handoff, 3 handoffs each, the launch counts of
-      every image checked, and the median time of each part of the
-      handoff printed (pack, save, exec to CUDA ready, load, restore, the
+      process without a handoff, one handoff each (three until the script
+      neared its time limit), the launch counts of every image checked,
+      and the time of each part of the handoff printed (pack, save, exec to CUDA ready, load, restore, the
       optimizer's state, the first step, the tenant's whole side) with
       the checkpoint directory's filesystem (a ``tempfile.mkdtemp()``,
       removed after);
@@ -109,7 +109,8 @@ Phases, each raising on failure (any failure exits non-zero):
    shifts;
 9. the mesh-growing hot-add and the multichip dryrun, ranks sharing the
    card over gloo:
-   a. ``entry.grow_check`` at full width, dense then MoE: 2 ranks on a
+   a. ``entry.grow_checks`` at full width, dense then MoE in the same
+      two worlds: 2 ranks on a
       (1, 2) ("data", "model") mesh take 2 AdamW steps, pack params and
       optimizer state through the placement (every leaf gathered whole),
       rank 0 saves; 4 new ranks on (2, 2) load, restore their shards (held
@@ -201,7 +202,28 @@ Phases, each raising on failure (any failure exits non-zero):
        restarted controller restoring the grant from the pins and revoking
        it, ``prog_query``'s ids as before the grant, the child refused
        again; a failure of any step fails the run. Where one fails, the
-       phase goes on.
+       phase goes on;
+13. tracing, audit and failpoints on a live hot-mount, ``entry.obs_check``
+    through the master over gRPC as in phase 11 (no kernel runs):
+    a. 3 traced round trips of the live GPU: a trace id on each response;
+       /trace/<id> holds http.add -> rpc.AddGPU -> worker.AddGPU ->
+       mount.slave_pod_schedule, mount.cgroup_grant, mount.mknod,
+       mount.verify (and k8s.get_pod under http.add), each ok and parented
+       as listed, and the remove's spans likewise; no span left open; the
+       edge's and the worker's audit records under each id; /timeline; the
+       Events GPUMounted and GPUUnmounted; each span's ms, the worker's
+       spans' share of worker.AddGPU, and the traced add and remove beside
+       phase 11's;
+    b. faults, each ending with the GPU addable again:
+       worker.mount.after_grant (500, rolled back, nothing left, the error
+       audited under the same trace id), rpc.client.call (200 after one
+       retry under one idempotency key, the worker called once),
+       master.slice.mount on a live slice of 1 (500, nothing changed); on a
+       fake 8-GPU host an add of 2 under worker.mount.mknod=1*pass->1*error
+       (500, neither GPU mounted);
+    c. the costs on the card's host: fire() with nothing armed, one empty
+       span, one audited record, and from these an estimate of the spans'
+       and records' share of one add.
 
 The last lines are a JSON object per kernel (``{"kernels": [...]}``) and
 ``{"ok": true, "device": {...}}``, and the exit code is 0. A failing check
@@ -241,15 +263,17 @@ except ModuleNotFoundError as err:
     sys.exit(2)
 from gpumounter_tpu_torch.cgroup import detect_cgroup_version
 from gpumounter_tpu_torch.device.backend import NvidiaDeviceBackend
-from gpumounter_tpu_torch.entry import (MOE_ROUTE_GAP, ONE_PROCESS_LOSS_ATOL,
+from gpumounter_tpu_torch.entry import (ADD_TRACE, ADD_WORKER_SPANS, MOE_ROUTE_GAP,
+                                        OBS_COST_ITERS, ONE_PROCESS_LOSS_ATOL, REMOVE_TRACE,
                                         RING_TOL, SHARDED_LOSS_ATOL, SHARDED_PARAM_OF_MAX,
                                         TRAIN_GRAD_ATOL, _check_equal_over, _masked_err,
                                         against_one_process, busy_health_check, cgroup_v2_check,
                                         check_config,
-                                        dryrun_multichip, grow_check, has_cap_mknod,
+                                        dryrun_multichip, grow_checks, has_cap_mknod,
                                         inventory_check, kernel_launches, make_identity,
                                         master_check, moe_blocks_vs_plain, moe_check,
-                                        mount_check, pick_identity, reset_kernel_launches,
+                                        mount_check, obs_check, pick_identity,
+                                        reset_kernel_launches,
                                         route_flips, sharded_step_check, slice_check, tp_checks,
                                         train_check)
 from gpumounter_tpu_torch.nsutil.ns import run_in_mount_ns
@@ -363,6 +387,7 @@ SEQ_PIPE = dict(WORLD=4, SEQ_SHAPES=((2, 2), (1, 4)), BACKEND="gloo", SEED=300, 
 # grows as well as model), STEPS AdamW steps in each world; then the
 # reference's dryrun at the shape its __main__ runs (__graft_entry__.py:347), its
 # 16-rank stretch included. TIMEOUT_S: each spawn's own limit.
+# Both configs are grown in the same two worlds (``entry.grow_checks``).
 GROW = dict(OLD=(1, 2), NEW=(2, 2), STEPS=(2, 2), BACKEND="gloo", TIMEOUT_S=300.0)
 DRYRUN = dict(N=8, BACKEND="gloo", TIMEOUT_S=300.0)
 
@@ -1514,8 +1539,9 @@ def phase_moe_serving(cfg, params, prompt) -> tuple[int, int, torch.Tensor, torc
 # The handoff's training: full-width batches of B 4 x L 2048 (numpy seeds
 # SEED + step), AdamW (lr 1e-3, weight decay 1e-4), STEPS steps before the
 # handoff and STEPS in the new image, then a greedy generate of PROMPTS
-# prompts of T0 tokens + N_NEW; RUNS handoffs each, dense and MoE.
-HANDOFF = dict(B=4, L=2048, STEPS=3, RUNS=3, PROMPTS=2, T0=64, N_NEW=32, SEED=100)
+# prompts of T0 tokens + N_NEW; RUNS handoffs each, dense and MoE (RUNS was 3
+# until the script neared its time limit).
+HANDOFF = dict(B=4, L=2048, STEPS=3, RUNS=1, PROMPTS=2, T0=64, N_NEW=32, SEED=100)
 HANDOFF_ADAMW = dict(lr=1e-3, weight_decay=1e-4)
 HANDOFF_PARTS = ("pack", "save", "exec_to_cuda_ready", "load", "restore", "optimizer_load",
                  "first_step", "tenant_side")
@@ -2312,36 +2338,41 @@ def _expect_launches(what: str, got: dict, n: int) -> None:
 
 
 def phase_grow(card: str) -> dict:
-    """Phase 9a: ``entry.grow_check`` at full width, dense then MoE, from
-    GROW["OLD"] to GROW["NEW"] ranks on the card: its checks (restored
-    shards bit-equal, gathered again bit-equal, the first step against one
-    process), the launches of every rank's steps (n_layers a step), and the
-    host-clock parts of the hot-add. Returns the training kernels'
-    launches on its main path (every rank's steps in both worlds)."""
+    """Phase 9a: ``entry.grow_checks`` at full width, dense and MoE in the
+    same two worlds, from GROW["OLD"] to GROW["NEW"] ranks on the card: its
+    checks (restored shards bit-equal, gathered again bit-equal, the first
+    step against one process), the launches of every rank's steps
+    (n_layers a step), and the host-clock parts of the hot-add. Returns
+    the training kernels' launches on its main path (every rank's steps in
+    both worlds)."""
     total = dict.fromkeys(("flash_fwd", "dq", "dkv"), 0)
     old, new = GROW["OLD"], GROW["NEW"]
     n_old, n_new = math.prod(old), math.prod(new)
     label = (f"ranks sharing one H100 over {GROW['BACKEND']}, not a multi-GPU figure; "
              f"{old} -> {new} (data, model) [{card}]")
-    for name, n_experts in (("dense", None), ("MoE", MOE_EXPERTS)):
-        cfg = full_width_config(n_experts)
-        torch.cuda.empty_cache()
-        root = tempfile.mkdtemp()
-        try:
-            t0 = time.perf_counter()
-            result = grow_check(old, new, backend=GROW["BACKEND"], path=os.path.join(root, "ckpt"),
-                                cfg=cfg, steps=GROW["STEPS"], batch=(TRAIN["B"], TRAIN["L"]),
-                                timeout_s=GROW["TIMEOUT_S"])
-            seconds = time.perf_counter() - t0
-            fs = _filesystem(root)
-        finally:
-            shutil.rmtree(root, ignore_errors=True)
+    names = ("dense", "MoE")
+    cfgs = [full_width_config(None), full_width_config(MOE_EXPERTS)]
+    torch.cuda.empty_cache()
+    root = tempfile.mkdtemp()
+    try:
+        t0 = time.perf_counter()
+        result = grow_checks(old, new, cfgs, [os.path.join(root, n) for n in names],
+                             backend=GROW["BACKEND"], steps=GROW["STEPS"],
+                             batch=(TRAIN["B"], TRAIN["L"]), timeout_s=GROW["TIMEOUT_S"])
+        seconds = time.perf_counter() - t0
+        fs = _filesystem(root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"grow: dense then MoE in one world of {n_old} ranks, then one of {n_new}; "
+          f"{seconds:.1f} s with both worlds' start; the new world's start (spawn to its last "
+          f"rank's entry) {result['start_s'] * 1e3:.0f} ms [{label}]", flush=True)
+    for name, cfg, worlds in zip(names, cfgs, result["configs"], strict=True):
         for world, n_steps in (("old", GROW["STEPS"][0]), ("new", GROW["STEPS"][1])):
-            for r in result[world]:
+            for r in worlds[world]:
                 _expect_launches(f"grow {name}, {world} world, rank {r['rank']}", r["launches"],
                                  cfg.n_layers * n_steps)
                 _add_launches(total, r["launches"])
-        a, b = result["old"][0], result["new"][0]
+        a, b = worlds["old"][0], worlds["new"][0]
         one = b["one_process"]
         print(f"grow {name}: {n_old} -> {n_new} ranks, full width, AdamW; losses before the "
               f"hot-add {', '.join(f'{x:.4f}' for x in a['losses'])}, after "
@@ -2352,17 +2383,16 @@ def phase_grow(card: str) -> dict:
               f"{ONE_PROCESS_LOSS_ATOL[name]}), its update with the step's gradients worst "
               f"{one['worst_param'][1]} at {one['worst_param'][0]:.3g} of its max |value| "
               f"(limit {SHARDED_PARAM_OF_MAX:.3g}); launches a rank {a['launches']} then "
-              f"{b['launches']}; {seconds:.1f} s with both worlds' start", flush=True)
+              f"{b['launches']}", flush=True)
         times = {"pack (with its gather), rank 0": a["times"]["pack"],
                  f"save, rank 0 ({fs})": a["times"]["save"]}
-        for r in result["new"]:
+        for r in worlds["new"]:
             for part in ("load", "restore", "optimizer"):
                 times[f"{part}, rank {r['rank']}"] = r["times"][part]
         parts = "; ".join(f"{k} {_runs(v)}" for k, v in times.items())
-        firsts = ", ".join(f"{r['times']['first_step']:.1f}" for r in result["new"])
-        print(f"time grow {name}: {parts}; the new world's start (spawn to its last rank's "
-              f"entry) {result['start_s'] * 1e3:.0f} ms; the first step, ranks 0-{n_new - 1}: "
-              f"{firsts} ms [{label}]", flush=True)
+        firsts = ", ".join(f"{r['times']['first_step']:.1f}" for r in worlds["new"])
+        print(f"time grow {name}: {parts}; the first step, ranks 0-{n_new - 1}: {firsts} ms "
+              f"[{label}]", flush=True)
     print(f"grow: launches on its main path (every rank's steps in both worlds): {total}",
           flush=True)
     return total
@@ -2765,7 +2795,8 @@ def phase_master(card: str, mount_report: dict, handoff_ready_ms: dict) -> int:
     no token 401); the same flows on a fake host of 8 GPUs. The HTTP add and
     remove times are printed beside phase 10's in-process ones. Then the slice
     and batch routes (``phase_slice``). Returns the flash_fwd launches of
-    both tenant children."""
+    both tenant children, and the live flow's report (its add and remove
+    times, for phase 13)."""
     t_phase = time.perf_counter()
     dev = mount_report["device"]
     children = []
@@ -2827,7 +2858,7 @@ def phase_master(card: str, mount_report: dict, handoff_ready_ms: dict) -> int:
           f"{report['codec_ms'] * 1e3:.1f} us [{card}]", flush=True)
     slice_launches = phase_slice(card, report)
     print(f"time master phase 11: {time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
-    return sum(c["launches"]["flash_fwd"] for c in children) + slice_launches
+    return sum(c["launches"]["flash_fwd"] for c in children) + slice_launches, live
 
 
 def phase_cgroup_v2(card: str) -> int:
@@ -2875,6 +2906,91 @@ def phase_cgroup_v2(card: str) -> int:
               f"[{card}]", flush=True)
     print(f"time cgroup v2 phase 12: {time.perf_counter() - t_phase:.3f} s [{card}]", flush=True)
     return launches
+
+
+# --- phase 13: tracing, audit and failpoints on a live hot-mount ---
+
+#: phase 11's HTTP add and remove of the live GPU in the runs before
+#: any span existed (PERF.md section 5; ms, host clock, median of 3 a call)
+UNTRACED_ADD_MS = (64.9, 111.8)
+UNTRACED_REMOVE_MS = (63.7, 159.4)
+#: the audited records of one add: the master's edge record and the worker's
+ADD_AUDIT_RECORDS = 2
+
+
+def phase_obs(card: str, master_live: dict) -> None:
+    """Phase 13: ``entry.obs_check`` on the card. No kernel runs. (a) 3
+    traced round trips of the live GPU through the master over gRPC: each
+    request's trace id, /trace/<id>'s spans and parents (``ADD_TRACE``,
+    ``REMOVE_TRACE``), no open span, the edge's and the worker's audit
+    records under the id, /timeline, the Events; each span's ms, the
+    worker's spans' share of worker.AddGPU, the traced add and remove
+    beside phase 11's (this call's, and the range before spans). (b) the
+    faults, each ending with the GPU addable again: worker.mount.after_grant
+    (500, rolled back), rpc.client.call (200 after one retry),
+    master.slice.mount on a live slice of 1 (500, nothing changed); an add
+    of 2 under worker.mount.mknod=1*pass->1*error on the fake 8-GPU host.
+    (c) the instrumentation's costs on this host."""
+    t_phase = time.perf_counter()
+    with _tenant_target("phase13") as (dev_dir, cgroup_dir):
+        report = obs_check("cuda", dev_dir=dev_dir, ns_pid=os.getpid(),
+                           cgroup_dirs=[cgroup_dir] if cgroup_dir else (),
+                           identity=pick_identity(), fake_gpus=MOUNT["FAKE_GPUS"],
+                           repeats=MOUNT["REPEATS"])
+    flows = report["live"] or report["fake"]
+    where = ("the live GPU" if report["live"] else
+             f"the fake host of {MOUNT['FAKE_GPUS']} (no CAP_MKNOD: the live add is refused)")
+    rt = flows["round_trip"]
+    add_tid, rm_tid = rt["trace_ids"][0]
+    print(f"obs traced round trip on {where}, {MOUNT['REPEATS']} times: each response carried "
+          f"its own X-Tpumounter-Trace (first add {add_tid}, remove {rm_tid}); /trace/<id> held "
+          f"{' '.join(f'{n} <- {p or 'root'}' for n, p in ADD_TRACE.items())}, every span ok, "
+          f"and the remove's {len(REMOVE_TRACE)} spans likewise; no span open after; /audit under "
+          f"each id: the edge's record 'http 200' and the worker's 'Success'; /timeline under "
+          f"each id: the root span, both records and the Event; Events on the pod "
+          f"{rt['events']} [{card}]", flush=True)
+    for name in ADD_TRACE:
+        print(f"time obs span {name} (traced add of 1 GPU): {_runs(rt['span_ms'][name])} "
+              f"[{card}]", flush=True)
+    shares = [100 * s for s in rt["worker_share"]]
+    print(f"time obs the worker's spans ({', '.join(ADD_WORKER_SPANS)}) as a share of "
+          f"worker.AddGPU: {statistics.median(shares):.1f}% (runs "
+          f"{', '.join(f'{s:.1f}%' for s in shares)}) [{card}]", flush=True)
+    print(f"time obs traced HTTP add (GET /addgpu .../gpu/1): {_runs(rt['add_ms'])}; traced "
+          f"HTTP remove: {_runs(rt['remove_ms'])}; this call's phase 11 (traced too): add "
+          f"{_runs(master_live['add_ms'])}, remove {_runs(master_live['remove_ms'])}; phase "
+          f"11 before any span existed: add {UNTRACED_ADD_MS[0]}-{UNTRACED_ADD_MS[1]} ms, "
+          f"remove {UNTRACED_REMOVE_MS[0]}-{UNTRACED_REMOVE_MS[1]} ms [{card}]", flush=True)
+    ag, dc, sa = flows["after_grant"], flows["dropped_call"], flows["slice_admission"]
+    print(f"obs faults on {where}: worker.mount.after_grant=1*error -> {ag['status']} in "
+          f"{ag['ms']:.3f} ms, mount.rollback {ag['rollback_ms']:.3f} ms with no revoke "
+          f"failed (the v1 revoke: {'; '.join(ag['revoke']) or 'no cgroup'}), no node left, "
+          f"the slave pod released, audit {ag['outcomes']}; rpc.client.call=1*unavailable -> "
+          f"{dc['status']} in "
+          f"{dc['ms']:.3f} ms after {dc['retries']} retry under idempotency key "
+          f"{dc['idempotency_key']}, worker.AddGPU once; master.slice.mount=1*error on a slice "
+          f"of 1 -> {sa['status']} in {sa['ms']:.3f} ms, nothing changed; then a round trip "
+          f"again: add {_runs(flows['again']['add_ms'])}, remove "
+          f"{_runs(flows['again']['remove_ms'])} [{card}]", flush=True)
+    two = report["two_gpu_mknod"]
+    print(f"obs fault on the fake host of {MOUNT['FAKE_GPUS']}: an add of 2 under "
+          f"worker.mount.mknod=1*pass->1*error -> {two['status']} in {two['ms']:.3f} ms, the "
+          f"mknod span failed, the rollback ran, neither GPU mounted nor booked [{card}]",
+          flush=True)
+    costs = report["costs"]
+    # an estimate from the means above, not a measured difference: no
+    # untraced add runs in this process
+    est_ms = (len(ADD_TRACE) * costs["span_us"] + ADD_AUDIT_RECORDS * costs["audit_us"]) / 1e3
+    add_ms = statistics.median(rt["add_ms"])
+    print(f"time obs costs on the card's host: fire() with nothing armed "
+          f"{costs['fire_ns']:.1f} ns (mean of {OBS_COST_ITERS['FIRE']}), one empty span into "
+          f"a ring {costs['span_us']:.2f} us (mean of {OBS_COST_ITERS['SPAN']}), one audited "
+          f"record {costs['audit_us']:.2f} us (mean of {OBS_COST_ITERS['AUDIT']}); estimated "
+          f"from these, not measured: the {len(ADD_TRACE)} spans and {ADD_AUDIT_RECORDS} "
+          f"audited records of one add ~{est_ms:.3f} ms, {100 * est_ms / add_ms:.3f}% of its "
+          f"median {add_ms:.3f} ms (the flight recorder's records, the wire context and the "
+          f"Event post not counted) [{card}]", flush=True)
+    print(f"time obs phase 13: {time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
 
 
 def phase_forward_timing(cfg, params, tokens, card, what="forward") -> None:
@@ -2974,9 +3090,11 @@ def _phases(stage: list, t0: float) -> None:
     stage.append("10 (the hot-mount on the card)")
     mount_report = phase_mount(card)
     stage.append("11 (the hot-mount through the master)")
-    mount_launches = phase_master(card, mount_report, handoff_ready_ms)
+    mount_launches, master_live = phase_master(card, mount_report, handoff_ready_ms)
     stage.append("12 (the cgroup v2 device controller)")
     v2_launches = phase_cgroup_v2(card)
+    stage.append("13 (tracing, audit and failpoints on a live hot-mount)")
+    phase_obs(card, master_live)
     sharded = {k: sharded_launches[k] + seq_pipe_launches[k] + grow_launches[k]
                + dryrun_launches[k] for k in sharded_launches}
 
@@ -2995,7 +3113,7 @@ def _phases(stage: list, t0: float) -> None:
           f"(phase 11: on the UUID the HTTP add mounted, and the slice's on the UUID /addslice "
           f"mounted): flash_fwd {mount_launches}; the "
           f"cgroup v2 round trip's tenant (phase 12): flash_fwd {v2_launches}", flush=True)
-    print(f"chip_smoke: phases 1-12 took {time.perf_counter() - t0:.1f} s, the kernels' build "
+    print(f"chip_smoke: phases 1-13 took {time.perf_counter() - t0:.1f} s, the kernels' build "
           f"included [{card}]", flush=True)
     bwd_source = "gpumounter_tpu_torch/ops/csrc/flash_bwd.cu"
     print(json.dumps({"kernels": [{

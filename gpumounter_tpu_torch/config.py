@@ -3,7 +3,7 @@
 The counterpart of ``gpumounter_tpu/config/config.py``, holding only the
 fields the device layer, the collector, the allocator, the cgroup layer, the
 mounter, the transport, the master (with its slice and batch routes and their
-fan-out core) and the two daemons read. Every field is an environment
+fan-out core), the observability stores and the two daemons read. Every field is an environment
 variable with the original GPUMounter's value as default; the names are the reference's where the
 meaning is the same. NVIDIA-specific: the resource ``nvidia.com/gpu``
 (``pkg/util/gpu/types.go:10``), the pool namespace ``gpu-pool``
@@ -119,3 +119,20 @@ class Config:
     auth_mode: str = field(default_factory=lambda: _env("TPUMOUNTER_AUTH", "token"))
     auth_token: str = field(default_factory=lambda: _env("TPUMOUNTER_AUTH_TOKEN", ""))
     auth_token_file: str = field(default_factory=lambda: _env("TPUMOUNTER_AUTH_TOKEN_FILE", ""))
+
+    # --- observability (obs/) ---
+    # append-only JSONL sinks of finished spans and audit records ("": the
+    # in-memory rings only); the rings always run, and the last
+    # trace_ring_capacity spans / audit_capacity records answer /trace/<id>
+    # and /audit
+    trace_jsonl: str = field(default_factory=lambda: _env("TPUMOUNTER_TRACE_JSONL", ""))
+    audit_jsonl: str = field(default_factory=lambda: _env("TPUMOUNTER_AUDIT_JSONL", ""))
+    trace_ring_capacity: int = field(default_factory=lambda: int(_env(
+        "TPUMOUNTER_TRACE_RING", "2048")))
+    audit_capacity: int = field(default_factory=lambda: int(_env(
+        "TPUMOUNTER_AUDIT_CAPACITY", "4096")))
+    # the flight recorder's timeline (root and error spans, audit records,
+    # Events) and its optional JSONL spill
+    flight_capacity: int = field(default_factory=lambda: int(_env(
+        "TPUMOUNTER_FLIGHT_CAPACITY", "4096")))
+    flight_jsonl: str = field(default_factory=lambda: _env("TPUMOUNTER_FLIGHT_JSONL", ""))

@@ -12,7 +12,9 @@ host's GPU (``cgroup_v2_check``)."""
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -38,11 +40,13 @@ from gpumounter_tpu_torch.cgroup.policy import interpret_device_program
 from gpumounter_tpu_torch.config import Config
 from gpumounter_tpu_torch.device.backend import NvidiaDeviceBackend, identity_from_config
 from gpumounter_tpu_torch.device.gpu import CompanionNode, GpuDevice
+from gpumounter_tpu_torch.faults import failpoints
 from gpumounter_tpu_torch.k8s.types import Pod
 from gpumounter_tpu_torch.master.app import MasterApp, build_http_server
 from gpumounter_tpu_torch.models.probe import (TransformerConfig, _attend, _block, _embed,
                                                _finish_block, _rmsnorm, forward, init_params,
                                                local_heads, loss_fn, next_token_nll)
+from gpumounter_tpu_torch.obs import audit, trace
 from gpumounter_tpu_torch.ops.flash_attention import (attention_plain, flash_attention,
                                                       flash_attention_bwd_kernel,
                                                       flash_attention_kernel)
@@ -66,6 +70,7 @@ from gpumounter_tpu_torch.rpc.api import (AddGPURequest, AddGPUResponse, AddGPUR
                                           RemoveGPURequest, RemoveGPUResponse,
                                           RemoveGPUResult)
 from gpumounter_tpu_torch.rpc.client import WorkerClient
+from gpumounter_tpu_torch.rpc.resilience import RPC_RETRIES
 from gpumounter_tpu_torch.testing import v2tenant
 from gpumounter_tpu_torch.testing.bpf import FakeBpf
 from gpumounter_tpu_torch.testing.cluster import FakeCluster
@@ -73,6 +78,7 @@ from gpumounter_tpu_torch.topology import lookup
 from gpumounter_tpu_torch.torchside.resume import (HotResumable, load_optimizer_state,
                                                    optimizer_state_specs, optimizer_state_tree)
 from gpumounter_tpu_torch.utils.fanout import FANOUT_TASKS
+from gpumounter_tpu_torch.utils.metrics import MOUNT_ROLLBACK_FAILURES
 from gpumounter_tpu_torch.worker.server import ServiceError, build_server
 
 TRAIN_GRAD_ATOL = 5e-3  # the reference's kernel-vs-xla grad limit
@@ -875,20 +881,80 @@ def grow_restore(mesh, cfg: TransformerConfig, batches: list, path: str) -> dict
             "one_process": one_process, "local": local}
 
 
-def _grow_rank_a(shape, device, cfg, path, batches) -> dict:
+def _free(device) -> None:
+    """Give the finished config's memory back before the next one's."""
+    gc.collect()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def _grow_rank_a(shape, device, jobs) -> dict:
     mesh = build_mesh(shape, device=device)
-    params = init_params(cfg, torch.Generator().manual_seed(GROW_SEED), "cpu")
-    out = grow_pack(mesh, cfg, params, batches, path)
-    del out["state"]
-    return {"rank": mesh.rank, **out}
+    outs = []
+    for cfg, path, batches in jobs:
+        params = init_params(cfg, torch.Generator().manual_seed(GROW_SEED), "cpu")
+        out = grow_pack(mesh, cfg, params, batches, path)
+        del out["state"], params
+        _free(device)
+        outs.append(out)
+    return {"rank": mesh.rank, "configs": outs}
 
 
-def _grow_rank_b(shape, device, cfg, path, batches) -> dict:
+def _grow_rank_b(shape, device, jobs) -> dict:
     entered = time.time()
     mesh = build_mesh(shape, device=device)
-    out = grow_restore(mesh, cfg, batches, path)
-    del out["local"]
-    return {"rank": mesh.rank, "entered": entered, **out}
+    outs = []
+    for cfg, path, batches in jobs:
+        out = grow_restore(mesh, cfg, batches, path)
+        del out["local"]
+        _free(device)
+        outs.append(out)
+    return {"rank": mesh.rank, "entered": entered, "configs": outs}
+
+
+def grow_checks(old_shape: tuple, new_shape: tuple, cfgs: list, paths: list, device="cuda", *,
+                backend: str, steps: tuple = (2, 2), batch: tuple = DRYRUN_TOKENS,
+                timeout_s: float = 600.0) -> dict:
+    """``grow_check`` of each config of `cfgs` (its checkpoint at the same
+    place in `paths`), the configs one after the other in the same two
+    worlds: one spawn of old_shape's ranks packs and saves every config,
+    then one spawn of new_shape's ranks restores and steps every config.
+    Each config's steps, checks and batches are ``grow_check``'s. Returns
+    {"configs": [{"old", "new"} of each config, as ``grow_check``'s],
+    "start_s": world B's one start}."""
+    if torch.device(device).type == "cuda":
+        resolve_device(device)
+    if min(steps) < 1:
+        raise ValueError(f"steps {steps}: each world takes at least one step")
+    if len(cfgs) != len(paths):
+        raise ValueError(f"{len(cfgs)} configs, {len(paths)} checkpoint paths")
+    batches = []
+    for cfg in cfgs:
+        rng = np.random.default_rng(GROW_SEED)
+        batches.append([rng.integers(0, cfg.vocab, batch) for _ in range(sum(steps))])
+    old = run_ranks(_grow_rank_a, math.prod(old_shape), backend=backend,
+                    args=(tuple(old_shape), device,
+                          [(c, p, b[:steps[0]]) for c, p, b in zip(cfgs, paths, batches)]),
+                    timeout_s=timeout_s)
+    spawned = time.time()
+    new = run_ranks(_grow_rank_b, math.prod(new_shape), backend=backend,
+                    args=(tuple(new_shape), device,
+                          [(c, p, b[steps[0]:]) for c, p, b in zip(cfgs, paths, batches)]),
+                    timeout_s=timeout_s)
+    configs = []
+    for i, cfg in enumerate(cfgs):
+        worlds = {world: [{"rank": r["rank"], **r["configs"][i]} for r in results]
+                  for world, results in (("old", old), ("new", new))}
+        for world, results in worlds.items():
+            if len({tuple(r["losses"]) for r in results}) != 1:
+                raise RuntimeError(f"the {world} world's ranks' losses differ ({_kind(cfg)}): "
+                                   f"{[r['losses'] for r in results]}")
+        if worlds["old"][0]["names"] != worlds["new"][0]["names"]:
+            raise RuntimeError(f"the worlds order the leaves differently ({_kind(cfg)}): "
+                               f"{worlds['old'][0]['names']} against "
+                               f"{worlds['new'][0]['names']}")
+        configs.append(worlds)
+    return {"configs": configs, "start_s": max(r["entered"] for r in new) - spawned}
 
 
 def grow_check(old_shape: tuple, new_shape: tuple, device="cuda", *, backend: str, path: str,
@@ -919,29 +985,11 @@ def grow_check(old_shape: tuple, new_shape: tuple, device="cuda", *, backend: st
     world A's per-rank results, "new": world B's, "start_s": host s from
     world B's spawn to its last rank's entry (processes, imports and the
     process group's set-up)}; raises when a check fails or a rank fails,
-    naming it."""
-    if torch.device(device).type == "cuda":
-        resolve_device(device)
-    if min(steps) < 1:
-        raise ValueError(f"steps {steps}: each world takes at least one step")
-    cfg = cfg if cfg is not None else check_config()
-    rng = np.random.default_rng(GROW_SEED)
-    batches = [rng.integers(0, cfg.vocab, batch) for _ in range(sum(steps))]
-    old = run_ranks(_grow_rank_a, math.prod(old_shape), backend=backend,
-                    args=(tuple(old_shape), device, cfg, path, batches[:steps[0]]),
-                    timeout_s=timeout_s)
-    spawned = time.time()
-    new = run_ranks(_grow_rank_b, math.prod(new_shape), backend=backend,
-                    args=(tuple(new_shape), device, cfg, path, batches[steps[0]:]),
-                    timeout_s=timeout_s)
-    for world, results in (("old", old), ("new", new)):
-        if len({tuple(r["losses"]) for r in results}) != 1:
-            raise RuntimeError(f"the {world} world's ranks' losses differ: "
-                               f"{[r['losses'] for r in results]}")
-    if old[0]["names"] != new[0]["names"]:
-        raise RuntimeError(f"the worlds order the leaves differently: {old[0]['names']} "
-                           f"against {new[0]['names']}")
-    return {"old": old, "new": new, "start_s": max(r["entered"] for r in new) - spawned}
+    naming it. ``grow_checks`` grows several configs in the same worlds."""
+    out = grow_checks(old_shape, new_shape, [cfg if cfg is not None else check_config()],
+                      [path], device, backend=backend, steps=steps, batch=batch,
+                      timeout_s=timeout_s)
+    return {**out["configs"][0], "start_s": out["start_s"]}
 
 
 # --- the reference's multichip dryrun ---
@@ -1502,6 +1550,12 @@ def _http(base: str, method: str, path: str, token: str | None, form: dict | Non
           payload=None) -> tuple[int, str, float]:
     """(status, body, ms on the host clock) of one request, its body the
     url-encoded `form` or the JSON of `payload`."""
+    return _http_with_headers(base, method, path, token, form, payload)[:3]
+
+
+def _http_with_headers(base: str, method: str, path: str, token: str | None,
+                       form: dict | None = None, payload=None) -> tuple[int, str, float, dict]:
+    """``_http``'s answer and the response's headers."""
     headers = {"Authorization": f"Bearer {token}"} if token else {}
     data = urllib.parse.urlencode(form, doseq=True).encode() if form is not None else None
     if payload is not None:
@@ -1511,10 +1565,10 @@ def _http(base: str, method: str, path: str, token: str | None, form: dict | Non
     t0 = time.perf_counter()
     try:
         with urllib.request.urlopen(req, timeout=60) as resp:
-            status, body = resp.status, resp.read().decode()
+            status, body, got = resp.status, resp.read().decode(), dict(resp.headers)
     except urllib.error.HTTPError as exc:
-        status, body = exc.code, exc.read().decode()
-    return status, body, (time.perf_counter() - t0) * 1e3
+        status, body, got = exc.code, exc.read().decode(), dict(exc.headers)
+    return status, body, (time.perf_counter() - t0) * 1e3, got
 
 
 def _add_path(pod, n: int) -> str:
@@ -1572,6 +1626,14 @@ class _MasterStack:
              payload=None) -> tuple[int, str, float]:
         return _http(self.base, method, path, self.token if token == "" else token, form,
                      payload)
+
+    def traced(self, method: str, path: str, form: dict | None = None,
+               payload=None) -> tuple[int, str, float, str]:
+        """``http``'s answer and the trace id the master sent back."""
+        status, body, ms, headers = _http_with_headers(self.base, method, path, self.token,
+                                                       form, payload)
+        tid = next((v for k, v in headers.items() if k.lower() == trace.TRACE_HEADER), "")
+        return status, body, ms, tid
 
     def held(self, node: str, pod) -> list[str]:
         return [d.uuid for d in
@@ -1964,4 +2026,373 @@ def slice_check(device="cuda", *, dev_dir: str | None = None, ns_pid: int | None
     report["fanout_tasks"] = {dict(k)["kind"]: v - tasks_before.get(k, 0.0)
                               for k, v in FANOUT_TASKS.snapshot().items()
                               if v != tasks_before.get(k, 0.0)}
+    return report
+
+
+# --- the trace, audit and flight-recorder core, and the failpoints ---
+
+#: the spans of one traced add of 1 GPU, each by its parent's name ("" for
+#: the root), and of its remove
+ADD_TRACE = {"http.add": "", "k8s.get_pod": "http.add", "rpc.AddGPU": "http.add",
+             "worker.AddGPU": "rpc.AddGPU", "mount.slave_pod_schedule": "worker.AddGPU",
+             "mount.cgroup_grant": "worker.AddGPU", "mount.mknod": "worker.AddGPU",
+             "mount.verify": "worker.AddGPU"}
+REMOVE_TRACE = {"http.remove": "", "k8s.get_pod": "http.remove",
+                "rpc.RemoveGPU": "http.remove", "worker.RemoveGPU": "rpc.RemoveGPU",
+                "unmount.cgroup_revoke": "worker.RemoveGPU",
+                "unmount.device_remove": "worker.RemoveGPU"}
+#: the worker's spans under worker.AddGPU
+ADD_WORKER_SPANS = ("mount.slave_pod_schedule", "mount.cgroup_grant", "mount.mknod",
+                    "mount.verify")
+#: obs_check's cost loops: fire() calls, spans, audit records
+OBS_COST_ITERS = dict(FIRE=10**6, SPAN=10**4, AUDIT=10**4)
+
+
+def _trace_spans(stack: _MasterStack, tid: str) -> list[dict]:
+    status, text, _ = stack.http("GET", f"/trace/{tid}")
+    if status != 200:
+        raise RuntimeError(f"GET /trace/{tid}: {status} {text!r}")
+    return json.loads(text)["spans"]
+
+
+def _span_tree(spans: list[dict]) -> dict[str, str]:
+    """name -> its parent's name ("" for a root, the parent's id when the
+    parent is not in the trace)."""
+    names = {s["span_id"]: s["name"] for s in spans}
+    return {s["name"]: names.get(s["parent_id"], s["parent_id"]) for s in spans}
+
+
+def _audit_outcomes(stack: _MasterStack, tid: str) -> dict[str, list[str]]:
+    """operation -> the outcomes of its records under trace `tid`, over /audit."""
+    status, text, _ = stack.http("GET", f"/audit?trace={tid}")
+    if status != 200:
+        raise RuntimeError(f"GET /audit?trace={tid}: {status} {text!r}")
+    out: dict[str, list[str]] = {}
+    for rec in json.loads(text)["records"]:
+        out.setdefault(rec["operation"], []).append(rec["outcome"])
+    return out
+
+
+def _no_gpu_node(cluster, node: str, dev_dir: str, what: str) -> None:
+    left = [d.basename for d in cluster.node(node).backend.list_devices()
+            if os.path.lexists(os.path.join(dev_dir, d.basename))]
+    if left:
+        raise RuntimeError(f"{what}: {left} left in {dev_dir}")
+
+
+def _events_for(cluster, pod) -> list[str]:
+    return [m["reason"] for _, m in cluster.kube.events_posted
+            if m["involvedObject"]["name"] == pod.name]
+
+
+def _traced_round_trips(stack: _MasterStack, pod, dev_dir: str, repeats: int, live: bool) -> dict:
+    """`repeats` times: GET /addgpu/.../gpu/1 and POST /removegpu of its UUID,
+    each with its own trace id on the response; each trace's spans, parents
+    and status, both requests' audit records (the edge's and the worker's,
+    each with that trace id), the timeline under that id (the root span, both
+    records and the pod's Event), no open span after, and the Events on the
+    pod."""
+    cluster = stack.cluster
+    node = pod.node_name
+    free = cluster.free_gpu_count(node)
+    out = {"add_ms": [], "remove_ms": [], "span_ms": {}, "worker_share": [], "trace_ids": []}
+    for _ in range(repeats):
+        status, text, add_ms, add_tid = stack.traced("GET", _add_path(pod, 1))
+        if (status, text) != (200, "Add GPU Success\n") or len(add_tid) != 32:
+            raise RuntimeError(f"traced add: {status} {text!r}, trace {add_tid!r}")
+        uuids = stack.held(node, pod)
+        _check_nodes(cluster.node(node).backend, uuids, dev_dir, live)
+        status, text, remove_ms, rm_tid = stack.traced("POST", _remove_path(pod),
+                                                       {"uuids": ",".join(uuids)})
+        if (status, text) != (200, "Remove 1 GPUs Success\n") or rm_tid in ("", add_tid):
+            raise RuntimeError(f"traced remove: {status} {text!r}, trace {rm_tid!r}")
+        _no_gpu_node(cluster, node, dev_dir, "the traced remove")
+        _released(cluster, pod, free)
+        for tid, want, ops in ((add_tid, ADD_TRACE, ("http.add", "worker.AddGPU", "GPUMounted:")),
+                               (rm_tid, REMOVE_TRACE,
+                                ("http.remove", "worker.RemoveGPU", "GPUUnmounted:"))):
+            spans = _trace_spans(stack, tid)
+            tree = _span_tree(spans)
+            failed = [s["name"] for s in spans if s["status"] != "ok"]
+            if tree != want or failed:
+                raise RuntimeError(f"trace {tid}: {tree} (failed {failed}), expected {want}")
+            outcomes = _audit_outcomes(stack, tid)
+            if outcomes != {ops[0]: ["http 200"], ops[1]: ["Success"]}:
+                raise RuntimeError(f"audit under trace {tid}: {outcomes}")
+            status, text, _ = stack.http("GET", f"/timeline?trace={tid}")
+            records = json.loads(text)["records"] if status == 200 else []
+            kinds = sorted((r["kind"], r["summary"].split(" ")[0]) for r in records)
+            if kinds != sorted([("span", ops[0]), ("audit", ops[0]), ("audit", ops[1]),
+                                ("event", ops[2])]):
+                raise RuntimeError(f"/timeline?trace={tid}: {status} {kinds}")
+            if tid == add_tid:
+                by_name = {s["name"]: s for s in spans}
+                for s in spans:
+                    out["span_ms"].setdefault(s["name"], []).append(s["duration_s"] * 1e3)
+                out["worker_share"].append(
+                    sum(by_name[n]["duration_s"] for n in ADD_WORKER_SPANS)
+                    / by_name["worker.AddGPU"]["duration_s"])
+        if trace.TRACER.open_spans():
+            raise RuntimeError(f"open spans after the round trip: {trace.TRACER.open_spans()}")
+        out["add_ms"].append(add_ms)
+        out["remove_ms"].append(remove_ms)
+        out["trace_ids"].append((add_tid, rm_tid))
+    reasons = _events_for(cluster, pod)
+    if reasons.count("GPUMounted") < repeats or reasons.count("GPUUnmounted") < repeats:
+        raise RuntimeError(f"Events on {pod.name}: {reasons}")
+    out["events"] = sorted(set(reasons))
+    return out
+
+
+def _devices_list(cgroup_dir: str) -> list | None:
+    """The v1 rules `cgroup_dir` allows (its devices.list, one a line), or
+    None where it has no readable one (a stand-in of the v1 files)."""
+    try:
+        with open(os.path.join(cgroup_dir, "devices.list")) as f:
+            return [line.strip() for line in f if line.strip()]
+    except OSError:
+        return None
+
+
+def _v1_revoked(cgroup_dir: str, held: list | None, before: list | None, rule: str) -> str:
+    """What shows that a rolled-back grant of `rule` ("c <major>:<minor> ")
+    was revoked on `cgroup_dir`; raises where something shows it was not.
+    `held` and `before` are the cgroup's devices.list while an add held the
+    GPU and after its remove. Where devices.list showed that grant, it must
+    read as `before` after the rollback, without the rule. Where it did not
+    (a host that allows "a *:* rwm" hides any one rule), the revoke is not
+    verified. Without a devices.list (a stand-in of the v1 files), the
+    stand-in's devices.deny holds the last rule written, which must be the
+    GPU's. A real devices.deny is write-only."""
+    after = _devices_list(cgroup_dir)
+    if after is not None:
+        if held is None or not any(line.startswith(rule) for line in held):
+            return f"not verified: devices.list did not show the grant (it read {held})"
+        if after != before or any(line.startswith(rule) for line in after):
+            raise RuntimeError(f"{cgroup_dir}/devices.list after the rollback: {after}, before "
+                               f"the add {before}; expected no {rule.strip()!r} and no change")
+        return f"devices.list as before the add, without {rule.strip()!r}"
+    try:
+        with open(os.path.join(cgroup_dir, "devices.deny")) as f:
+            denied = f.read().strip()
+    except OSError:
+        denied = ""
+    if not denied:
+        return "not verified: neither devices.list nor devices.deny reads back"
+    if not denied.startswith(rule):
+        raise RuntimeError(f"{cgroup_dir}/devices.deny after the rollback: {denied!r}, "
+                           f"expected {rule.strip()!r}")
+    return f"the stand-in's devices.deny holds {denied!r}"
+
+
+def _fault_after_grant(stack: _MasterStack, pod, dev_dir: str, cgroup_dirs) -> dict:
+    """worker.mount.after_grant=1*error: 500; the mount.rollback span undid
+    the grant on every cgroup (no revoke failed, and ``_v1_revoked``'s
+    verdict on each), no node is left, the slave pod is released, and both
+    audit records under the trace id are failures."""
+    cluster, node = stack.cluster, pod.node_name
+    free = cluster.free_gpu_count(node)
+    failures = MOUNT_ROLLBACK_FAILURES.total()
+    # each cgroup's devices.list while a GPU is held, then after its remove
+    status, text, _ = stack.http("GET", _add_path(pod, 1))
+    if status != 200:
+        raise RuntimeError(f"add before the fault: {status} {text!r}")
+    held = [_devices_list(cg) for cg in cgroup_dirs]
+    status, text, _ = stack.http("POST", _remove_path(pod),
+                                 {"uuids": ",".join(stack.held(node, pod))})
+    if status != 200:
+        raise RuntimeError(f"remove before the fault: {status} {text!r}")
+    before = [_devices_list(cg) for cg in cgroup_dirs]
+    for cg, rules in zip(cgroup_dirs, before, strict=True):
+        if rules is None:  # a stand-in: empty devices.deny, so that it shows the rollback's write
+            with contextlib.suppress(OSError):
+                open(os.path.join(cg, "devices.deny"), "w").close()
+    with failpoints.armed({"worker.mount.after_grant": "1*error(injected after the grant)"}):
+        status, text, ms, tid = stack.traced("GET", _add_path(pod, 1))
+    if status != 500 or "injected after the grant" not in text:
+        raise RuntimeError(f"add under worker.mount.after_grant: {status} {text!r}")
+    spans = {s["name"]: s for s in _trace_spans(stack, tid)}
+    rollback = spans.get("mount.rollback")
+    if rollback is None or rollback["status"] != "ok" or \
+            rollback["attrs"]["cgroups"] != len(cgroup_dirs) or \
+            spans["worker.AddGPU"]["status"] != "error":
+        raise RuntimeError(f"trace {tid} of the failed add: {sorted(spans)}, rollback {rollback}")
+    if MOUNT_ROLLBACK_FAILURES.total() != failures:
+        raise RuntimeError("a grant's undo failed in the rollback")
+    gpu = cluster.node(node).backend.list_devices()[0]
+    revoke = [_v1_revoked(cg, h, b, f"c {gpu.major}:{gpu.minor} ")
+              for cg, h, b in zip(cgroup_dirs, held, before, strict=True)]
+    _no_gpu_node(cluster, node, dev_dir, "the rolled-back add")
+    if cluster.free_gpu_count(node) != free:
+        raise RuntimeError(f"{cluster.free_gpu_count(node)} free after the rollback, {free} before")
+    outcomes = _audit_outcomes(stack, tid)
+    if outcomes.get("http.add") != ["http 500"] or \
+            not outcomes.get("worker.AddGPU", [""])[0].startswith("error: ServiceError"):
+        raise RuntimeError(f"audit of the failed add: {outcomes}")
+    if "GPUMountFailed" not in _events_for(cluster, pod):
+        raise RuntimeError(f"no GPUMountFailed Event on {pod.name}: {_events_for(cluster, pod)}")
+    return {"status": status, "ms": ms, "rollback_ms": rollback["duration_s"] * 1e3,
+            "revoke": revoke, "outcomes": outcomes}
+
+
+def _fault_dropped_call(stack: _MasterStack, pod, dev_dir: str, live: bool) -> dict:
+    """rpc.client.call=1*unavailable: 200 after one retry; the worker ran
+    once, its one record under the call's one idempotency key; then the
+    remove."""
+    cluster, node = stack.cluster, pod.node_name
+    retries = RPC_RETRIES.get(method="AddGPU")
+    with failpoints.armed({"rpc.client.call": "1*unavailable(injected drop)"}):
+        status, text, ms, tid = stack.traced("GET", _add_path(pod, 1))
+    if (status, text) != (200, "Add GPU Success\n"):
+        raise RuntimeError(f"add under rpc.client.call: {status} {text!r}")
+    names = [s["name"] for s in _trace_spans(stack, tid)]
+    status_a, body, _ = stack.http("GET", f"/audit?trace={tid}&op=worker.")
+    keys = [r["idempotency_key"] for r in json.loads(body)["records"]]
+    if RPC_RETRIES.get(method="AddGPU") - retries != 1 or names.count("worker.AddGPU") != 1 \
+            or names.count("rpc.AddGPU") != 1 or len(keys) != 1 or not keys[0].startswith("add-"):
+        raise RuntimeError(f"the dropped call: retries "
+                           f"{RPC_RETRIES.get(method='AddGPU') - retries}, spans {names}, "
+                           f"worker records' keys {keys}")
+    uuids = stack.held(node, pod)
+    _check_nodes(cluster.node(node).backend, uuids, dev_dir, live)
+    status, text, _ = stack.http("POST", _remove_path(pod), {"uuids": ",".join(uuids)})
+    if status != 200:
+        raise RuntimeError(f"remove after the retried add: {status} {text!r}")
+    return {"status": 200, "ms": ms, "retries": 1, "idempotency_key": keys[0]}
+
+
+def _fault_two_gpu_mknod(stack: _MasterStack, pod, dev_dir: str) -> dict:
+    """worker.mount.mknod=1*pass->1*error on an add of 2: 500, neither GPU
+    mounted nor booked, the mknod span failed and the rollback ran."""
+    cluster, node = stack.cluster, pod.node_name
+    free = cluster.free_gpu_count(node)
+    with failpoints.armed({"worker.mount.mknod": "1*pass->1*error(injected at the 2nd GPU)"}):
+        status, text, ms, tid = stack.traced("GET", _add_path(pod, 2))
+    if status != 500 or "injected at the 2nd GPU" not in text:
+        raise RuntimeError(f"add of 2 under worker.mount.mknod: {status} {text!r}")
+    spans = {s["name"]: s["status"] for s in _trace_spans(stack, tid)}
+    if spans.get("mount.mknod") != "error" or spans.get("mount.rollback") != "ok":
+        raise RuntimeError(f"trace {tid} of the failed add of 2: {spans}")
+    _no_gpu_node(cluster, node, dev_dir, "the add of 2 that failed at its 2nd mknod")
+    if cluster.free_gpu_count(node) != free or stack.held(node, pod):
+        raise RuntimeError(f"the add of 2 left {stack.held(node, pod)} booked, "
+                           f"{cluster.free_gpu_count(node)} free of {free}")
+    return {"status": status, "ms": ms}
+
+
+def _fault_slice_admission(stack: _MasterStack, pod, dev_dir: str) -> dict:
+    """master.slice.mount=1*error on a slice of 1: 500 and nothing changed;
+    the edge's audit record holds the failpoint's error (an exception that
+    is no HTTP answer, as in the reference)."""
+    cluster, node = stack.cluster, pod.node_name
+    free = cluster.free_gpu_count(node)
+    body = {"pods": [{"namespace": pod.namespace, "pod": pod.name}], "gpusPerHost": 1}
+    with failpoints.armed({"master.slice.mount": "1*error(injected at the slice's admission)"}):
+        status, text, ms, tid = stack.traced("POST", "/addslice", payload=body)
+    if status != 500 or "injected at the slice's admission" not in text:
+        raise RuntimeError(f"/addslice under master.slice.mount: {status} {text!r}")
+    _no_gpu_node(cluster, node, dev_dir, "the refused slice")
+    if cluster.free_gpu_count(node) != free or stack.held(node, pod):
+        raise RuntimeError("the refused slice changed the books")
+    outcomes = _audit_outcomes(stack, tid)
+    if list(outcomes) != ["http.addslice"] or \
+            not outcomes["http.addslice"][0].startswith("error: FailpointError"):
+        raise RuntimeError(f"audit of the refused slice: {outcomes}")
+    return {"status": status, "ms": ms}
+
+
+def _obs_flows(stack: _MasterStack, dev_dir: str, cgroup_dirs, repeats: int, live: bool) -> dict:
+    """(a) the traced round trips, (b) the live faults but the add of 2,
+    each case ending with the GPU addable again (a last traced round trip)."""
+    pod = stack.cluster.add_target_pod("tenant-obs")
+    out = {"round_trip": _traced_round_trips(stack, pod, dev_dir, repeats, live)}
+    out["after_grant"] = _fault_after_grant(stack, pod, dev_dir, cgroup_dirs)
+    out["dropped_call"] = _fault_dropped_call(stack, pod, dev_dir, live)
+    out["slice_admission"] = _fault_slice_admission(stack, pod, dev_dir)
+    out["again"] = _traced_round_trips(stack, pod, dev_dir, 1, live)
+    if failpoints.active():
+        raise RuntimeError(f"failpoints left armed: {failpoints.active()}")
+    return out
+
+
+def _obs_costs() -> dict:
+    """What the instrumentation costs on this host: a fire() with nothing
+    armed (ns, mean of OBS_COST_ITERS["FIRE"]), one empty root span into a
+    ring and one audited record (us, means), each on a private store."""
+    if failpoints.active():
+        raise RuntimeError(f"the cost of an unarmed fire() with {failpoints.active()} armed")
+    n = OBS_COST_ITERS["FIRE"]
+    fire = failpoints.fire
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fire("worker.mount.mknod")
+    fire_ns = (time.perf_counter() - t0) / n * 1e9
+    n = OBS_COST_ITERS["SPAN"]
+    tracer = trace.Tracer(ring_capacity=n)
+    t0 = time.perf_counter()
+    for _ in range(n):
+        with trace.span("cost.empty", tracer=tracer):
+            pass
+    span_us = (time.perf_counter() - t0) / n * 1e6
+    n = OBS_COST_ITERS["AUDIT"]
+    log = audit.AuditLog(capacity=n)
+    t0 = time.perf_counter()
+    for _ in range(n):
+        with audit.audited("cost.op", log=log):
+            pass
+    audit_us = (time.perf_counter() - t0) / n * 1e6
+    return {"fire_ns": fire_ns, "span_us": span_us, "audit_us": audit_us}
+
+
+def obs_check(device="cuda", *, dev_dir: str | None = None, ns_pid: int | None = None,
+              cgroup_dirs=(), identity: str = "nvml", fake_gpus: int = 8,
+              repeats: int = 3) -> dict:
+    """The trace, audit and flight-recorder core and the failpoints, through
+    the master over gRPC (``_MasterStack``, as ``master_check`` wires it).
+    Without grpcio it raises ``ModuleNotFoundError`` naming grpcio.
+
+    (a) `repeats` traced round trips (GET /addgpu/.../gpu/1, POST /removegpu
+    of its UUID): a trace id on each response; /trace/<id> holds ADD_TRACE
+    (REMOVE_TRACE), each span ok and parented as listed; no span open after;
+    /audit under the id holds the edge's record ("http 200") and the worker's
+    ("Success"); /timeline under the id the root span and both records; the
+    pod's Events GPUMounted and GPUUnmounted. (b) worker.mount.after_grant
+    (500, rolled back: ``_fault_after_grant``), rpc.client.call (200 after
+    one retry: ``_fault_dropped_call``), master.slice.mount on a slice of 1
+    (500, nothing changed), then a round trip again; and on the fake host of
+    `fake_gpus`, an add of 2 under worker.mount.mknod=1*pass->1*error (500,
+    neither mounted). (c) ``_obs_costs``.
+
+    On the card (device="cuda", with CAP_MKNOD) (a) and (b) run on the live
+    ``NvidiaDeviceBackend`` (`dev_dir`, `ns_pid`, `cgroup_dirs`, `identity`
+    as in ``mount_check``), the add of 2 on the fake host; on the CPU, or
+    without CAP_MKNOD, all on the fake host. Runs on the card unless the
+    caller passes device="cpu".
+
+    Returns {"cap_mknod", "live" (or None), "fake", "two_gpu_mknod",
+    "costs"}; "live" and "fake" are ``_obs_flows``'s reports: add_ms and
+    remove_ms (host clock, each round trip), span_ms (each span's ms, each
+    round trip), worker_share, trace_ids, and each fault's status and ms."""
+    device = resolve_device(device)
+    cfg = Config(auth_mode="token", auth_token=secrets.token_hex(16))
+    report = {"cap_mknod": has_cap_mknod(), "live": None, "fake": None}
+    root = tempfile.mkdtemp(prefix="obs-check-")
+    try:
+        if device.type == "cuda" and report["cap_mknod"]:
+            cluster = FakeCluster(NvidiaDeviceBackend("/dev", identity=make_identity(identity)),
+                                  cfg=cfg)
+            target, dirs = _live_target(root, dev_dir, cgroup_dirs)
+            with _MasterStack(cluster, {cluster.node_name: target}, ns_pid, dirs) as stack:
+                report["live"] = _obs_flows(stack, target, dirs, repeats, live=True)
+        fake = FakeCluster.with_fake_gpus(os.path.join(root, "fake"), fake_gpus, cfg=cfg)
+        fake_dir = os.path.join(root, "fake-tenant-dev")
+        os.makedirs(fake_dir)
+        with _MasterStack(fake, {fake.node_name: fake_dir}) as stack:
+            if report["live"] is None:
+                report["fake"] = _obs_flows(stack, fake_dir, [], repeats, live=False)
+            pod = fake.add_target_pod("tenant-obs-2")
+            report["two_gpu_mknod"] = _fault_two_gpu_mknod(stack, pod, fake_dir)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    report["costs"] = _obs_costs()
     return report

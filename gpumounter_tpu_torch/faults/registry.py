@@ -1,0 +1,49 @@
+"""Declared failpoint sites of the port.
+
+The counterpart of ``gpumounter_tpu/faults/registry.py``. Every
+``failpoints.fire(...)`` / ``failpoints.value(...)`` site name in
+``gpumounter_tpu_torch/`` is declared here exactly once, and every declared
+name has a site and is armed by at least one test
+(``tests/test_torch_failpoints.py`` holds both rules, as the reference's
+tpulint rule ``failpoint-registry`` does). Sites built with f-strings are
+covered by DYNAMIC_PREFIXES; their arm specs carry the concrete suffix
+(``k8s.patch_pod.status``).
+
+The names are the reference's, but for one: ``worker.addtpu.rollback.skip``
+is ``worker.addgpu.rollback.skip``. The reference's sites of packages the
+port has not yet (the elastic reconciler, the migration machine, the
+defragmenter, the autoscaler, the warm pool, the health plane) come with
+those packages.
+
+This module is data: the runtime (``faults/failpoints.py``) does not read
+it, so an undeclared point still arms in a dev loop.
+"""
+
+from __future__ import annotations
+
+FAILPOINTS: dict[str, str] = {
+    # slice coordinator (master/slice_ops.py)
+    "master.slice.mount": "per-slice mount, before the pods are resolved",
+    "master.slice.rollback.skip": "value(): skip the slice rollback (leak "
+                                  "simulation for the chaos harness)",
+    # rpc client (rpc/client.py)
+    "rpc.client.call": "before every outbound worker RPC attempt",
+    "rpc.client.deadline": "value(): per-call deadline override",
+    # worker (worker/server.py, worker/mounter.py)
+    "worker.rpc": "top of every worker RPC handler (method= ctx)",
+    "worker.mount.before_grant": "mount batch: before the cgroup grant",
+    "worker.mount.after_grant": "mount batch: grant done, nodes not yet "
+                                "injected",
+    "worker.mount.mknod": "per-GPU, before the batch's one namespace entry",
+    "worker.mount.rollback": "per-cgroup grant undo during rollback",
+    "worker.addgpu.rollback.skip": "value(): skip mount rollback (leak "
+                                   "simulation)",
+    "worker.unmount.before_revoke": "unmount batch: before the cgroup "
+                                    "revoke",
+}
+
+#: f-string site families: a name starting with one of these prefixes is
+#: declared by the prefix (the suffix is data: a Kubernetes verb).
+DYNAMIC_PREFIXES: frozenset[str] = frozenset({
+    "k8s.",            # k8s/client.py: k8s.<op> and k8s.<op>.status
+})

@@ -12,8 +12,10 @@ original busy-polls a pod's phase. ``in_cluster_client`` reads the pod's
 service account, ``kubeconfig_client`` a kubeconfig (pyyaml), and
 ``default_client`` picks the first where a service-account token exists.
 
-Leases, events and nodes come with ``master/shard.py``, ``k8s/events.py``
-and ``health/``.
+``create_event`` posts a core/v1 Event (``k8s/events.py``), a no-op on the
+surface's default. ``inject_write_fault`` is the failpoint hook of every
+write, shared by both clients (``k8s.<op>`` and ``k8s.<op>.status``).
+Leases and nodes come with ``master/shard.py`` and ``health/``.
 """
 
 from __future__ import annotations
@@ -29,10 +31,25 @@ import urllib.parse
 from collections.abc import Iterator
 from typing import Any
 
+from gpumounter_tpu_torch.faults import failpoints
 from gpumounter_tpu_torch.k8s.errors import GoneError, NotFoundError, raise_for
 from gpumounter_tpu_torch.utils.log import get_logger
 
 logger = get_logger("k8s")
+
+
+def inject_write_fault(op: str, namespace: str, name: str) -> None:
+    """The failpoint hook of a write, shared by the REST client and the
+    fake, so that a chaos schedule hits either as it would an API server:
+
+      k8s.<op>           delay / error / crash at the write
+      k8s.<op>.status    return(409) -> ConflictError, return(5xx) -> ApiError
+
+    ops in use: create_pod, delete_pod, patch_pod."""
+    failpoints.fire(f"k8s.{op}", namespace=namespace, name=name)
+    status = failpoints.value(f"k8s.{op}.status", None, namespace=namespace, name=name)
+    if status is not None:
+        raise_for(int(status), f"failpoint k8s.{op}.status on {namespace}/{name}")
 
 
 class KubeClient(abc.ABC):
@@ -63,6 +80,11 @@ class KubeClient(abc.ABC):
         """Yield (event_type, pod_json) until timeout. Types: ADDED,
         MODIFIED, DELETED. The subscription is made at the call, before
         the first event is read."""
+
+    def create_event(self, namespace: str, manifest: dict) -> dict:
+        """Post a core/v1 Event. Advisory: the default is a no-op, so a
+        client with nowhere to post needs nothing."""
+        return {}
 
     def wait_for_pod(self, namespace: str, name: str, predicate,
                      timeout_s: float) -> dict | None:
@@ -197,18 +219,25 @@ class RestKubeClient(KubeClient):
         return self._json("GET", f"/api/v1/namespaces/{namespace}/pods/{name}")
 
     def create_pod(self, namespace: str, manifest: dict) -> dict:
+        inject_write_fault("create_pod", namespace, manifest.get("metadata", {}).get("name", ""))
         return self._json("POST", f"/api/v1/namespaces/{namespace}/pods", body=manifest)
 
     def delete_pod(self, namespace: str, name: str, grace_period_seconds: int = 0) -> None:
         try:
+            # inside the try: an injected 404 is a real one's no-op
+            inject_write_fault("delete_pod", namespace, name)
             self._json("DELETE", f"/api/v1/namespaces/{namespace}/pods/{name}",
                        query={"gracePeriodSeconds": grace_period_seconds})
         except NotFoundError:
             pass  # delete of a missing pod is a no-op, as in the fake
 
     def patch_pod(self, namespace: str, name: str, patch: dict) -> dict:
+        inject_write_fault("patch_pod", namespace, name)
         return self._json("PATCH", f"/api/v1/namespaces/{namespace}/pods/{name}",
                           body=patch, content_type="application/merge-patch+json")
+
+    def create_event(self, namespace: str, manifest: dict) -> dict:
+        return self._json("POST", f"/api/v1/namespaces/{namespace}/events", body=manifest)
 
     @staticmethod
     def _pods_path(namespace: str | None) -> str:

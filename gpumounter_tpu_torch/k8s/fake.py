@@ -3,7 +3,8 @@
 The counterpart of ``FakeKubeClient`` in ``gpumounter_tpu/k8s/fake.py``: the
 ``KubeClient`` surface over a dict of pods, with watch streams and a
 scheduler hook, so that the allocator and the worker's flows run in one
-process. The original GPUMounter has no such substrate: its tests need a
+process. Its writes pass the REST client's failpoint hook
+(``inject_write_fault``), and ``events_posted`` keeps every Event. The original GPUMounter has no such substrate: its tests need a
 live cluster.
 """
 
@@ -17,7 +18,7 @@ import time
 import uuid as uuidlib
 from collections.abc import Callable, Iterator
 
-from gpumounter_tpu_torch.k8s.client import KubeClient
+from gpumounter_tpu_torch.k8s.client import KubeClient, inject_write_fault
 from gpumounter_tpu_torch.k8s.errors import ConflictError, NotFoundError
 from gpumounter_tpu_torch.k8s.types import Pod, match_label_selector
 from gpumounter_tpu_torch.utils.log import get_logger
@@ -88,6 +89,8 @@ class FakeKubeClient(KubeClient):
         self.scheduler_delay_s = scheduler_delay_s
         self.create_calls = 0
         self.delete_calls = 0
+        #: (namespace, manifest) of every Event posted (k8s/events.py)
+        self.events_posted: list[tuple[str, dict]] = []
         # One scheduler thread drains a heap of due times (started on the
         # first create, retired when idle).
         self._sched_cv = threading.Condition()
@@ -124,6 +127,9 @@ class FakeKubeClient(KubeClient):
             return copy.deepcopy(pod)
 
     def create_pod(self, namespace: str, manifest: dict) -> dict:
+        # the REST client's injection surface, so that a chaos schedule hits
+        # the fake as it would an API server
+        inject_write_fault("create_pod", namespace, manifest.get("metadata", {}).get("name", ""))
         pod = copy.deepcopy(manifest)
         meta = pod.setdefault("metadata", {})
         meta.setdefault("namespace", namespace)
@@ -144,6 +150,10 @@ class FakeKubeClient(KubeClient):
         return out
 
     def delete_pod(self, namespace: str, name: str, grace_period_seconds: int = 0) -> None:
+        try:
+            inject_write_fault("delete_pod", namespace, name)
+        except NotFoundError:
+            return  # as the REST client: the delete of a missing pod is a no-op
         with self._lock:
             pod = self._pods.pop((namespace, name), None)
             self.delete_calls += 1
@@ -161,6 +171,7 @@ class FakeKubeClient(KubeClient):
                     and _match_field_selector(pod, field_selector)]
 
     def patch_pod(self, namespace: str, name: str, patch: dict) -> dict:
+        inject_write_fault("patch_pod", namespace, name)
         with self._lock:
             pod = self._pods.get((namespace, name))
             if pod is None:
@@ -168,6 +179,11 @@ class FakeKubeClient(KubeClient):
             _merge_patch(pod, patch)
             self._emit("MODIFIED", pod)
             return copy.deepcopy(pod)
+
+    def create_event(self, namespace: str, manifest: dict) -> dict:
+        with self._lock:
+            self.events_posted.append((namespace, copy.deepcopy(manifest)))
+        return manifest
 
     def watch_pods(self, namespace: str, *, label_selector: str = "",
                    field_selector: str = "", timeout_s: float = 60.0,

@@ -22,6 +22,26 @@ multi-host routes:
                            "isEntireMount"}, ...]}
                           -> {"results": [...], "summary": {"total",
                              "success", "byResult"}}
+  * the reference's observability reads (``obs/``), behind the bearer
+    token (the read token's scope comes with the fleet planes):
+      GET  /audit?namespace=&pod=&op=&trace=&outcome=&limit=
+                          -> {"records": [...]}, newest first
+      GET  /trace/<id>    -> {"trace", "spans"}: this process's ring, in
+                             start order (``obs.trace.trace_payload``, the
+                             worker ops port's contract; the reference's
+                             master assembles both daemons' spans, which
+                             comes with ``obs/assembly.py``); 404 when the
+                             ring holds none
+      GET  /timeline?node=&trace=&kind=&from=&to=&limit=
+                          -> {"records": [...]}, the flight recorder's;
+  * one root span ``http.<route>`` a request (after the auth check, so an
+    unauthenticated peer adds no span), its parent the caller's
+    ``x-tpumounter-trace`` header when that is valid, its trace id on the
+    response as ``X-Tpumounter-Trace``, a failure (an unhandled one too)
+    closing it as an error; /, /healthz and /timeline are not traced, as
+    in the reference. The pod's read is a ``k8s.get_pod`` span. The routes
+    that mutate (add, remove, batch_add, addslice, removeslice) leave an
+    edge audit record, its outcome "http <status>";
   * the target pod is read to find its node (main.go:52-66): 404 when there
     is no pod, 400 when it is not scheduled;
   * the node's worker comes from ``WorkerRegistry`` (500 when there is
@@ -39,10 +59,11 @@ against MAX_GPU_PER_REQUEST (the original never checks it), a batch holds at
 most BULK_MAX_TARGETS targets, every route but the index and /healthz wants
 the bearer token (``utils/auth.py``), and a path of no route gets "404 page
 not found". The reference's other routes (shards, intents, migrations,
-audit, trace, timeline, fleet, SLO, capacity, tenants, recovery, health,
-defrag, shares, autoscale, /metrics, /apihealth), the batch's shard routing
-and proxying, and its admission gate come with the packages that serve them;
-until then their paths get that 404, /batch/addtpu among them.
+fleet, SLO, capacity, tenants, recovery, health, defrag, shares, autoscale,
+/metrics, /apihealth), the batch's shard routing and proxying, and its
+admission gate (with its ``http.admission`` span) come with the packages
+that serve them; until then their paths get that 404, /batch/addtpu among
+them.
 """
 
 from __future__ import annotations
@@ -66,6 +87,8 @@ from gpumounter_tpu_torch.master.slice_ops import (
     SliceError,
     SliceTarget,
 )
+from gpumounter_tpu_torch.obs import audit, flight, trace
+from gpumounter_tpu_torch.obs.audit import audited
 from gpumounter_tpu_torch.rpc.api import AddGPUResult, RemoveGPUResult
 from gpumounter_tpu_torch.rpc.client import ChannelPool, WorkerClient
 from gpumounter_tpu_torch.rpc.resilience import BreakerOpenError, CircuitBreaker
@@ -291,6 +314,11 @@ _ROUTES: list[tuple[str, re.Pattern, str]] = [
     ("POST", re.compile(r"^/batch/addgpu$"), "batch_add"),
     ("POST", re.compile(r"^/addslice$"), "addslice"),
     ("POST", re.compile(r"^/removeslice$"), "removeslice"),
+    # the observability reads; /audit and /timeline take their own query
+    # string, since the dispatcher matches the raw path
+    ("GET", re.compile(r"^/audit(?:\?(?P<query>.*))?$"), "audit"),
+    ("GET", re.compile(r"^/trace/(?P<tid>[^/?]+)$"), "trace"),
+    ("GET", re.compile(r"^/timeline(?:\?(?P<query>.*))?$"), "timeline"),
 ]
 
 #: a slice's GPUs per host when the request names none: an H100 host's 8
@@ -340,6 +368,12 @@ class MasterApp:
 
     #: open without a token: the liveness surfaces (probes carry none)
     UNAUTHENTICATED_ROUTES = frozenset({"index", "healthz"})
+    #: never traced: probes, and the timeline a dashboard polls (their
+    #: spans would rotate the operations' traces out of the ring)
+    UNTRACED_ROUTES = frozenset({"index", "healthz", "timeline"})
+    #: the routes that mutate: their edge outcome goes into the audit trail
+    #: (the worker's records carry the GPUs of the same trace)
+    AUDITED_ROUTES = frozenset({"add", "remove", "batch_add", "addslice", "removeslice"})
 
     def __init__(self, kube: KubeClient, cfg=None, worker_client_factory=None,
                  registry: WorkerRegistry | None = None):
@@ -356,27 +390,67 @@ class MasterApp:
             lambda addr: WorkerClient(addr, token=self._token, cfg=self.cfg,
                                       breaker=self.registry.breaker,
                                       channel_pool=self.registry.channel_pool))
+        # root and error spans and audit records onto the timeline; idempotent
+        flight.install()
 
     # --- plumbing ---
 
     def handle(self, method: str, path: str, body: bytes, headers: dict[str, str]
                ) -> tuple[int, str, str, dict[str, str]]:
-        """(status, content_type, body, response headers)."""
+        """(status, content_type, body, response headers). A traced
+        request's answer carries its trace id, a failure's too."""
+        extra: dict[str, str] = {}
         try:
             for m, pattern, name in _ROUTES:
                 if m != method:
                     continue
                 match = pattern.match(path)
                 if match:
-                    self._check_auth(name, headers)
-                    status, ctype, text = getattr(self, f"_route_{name}")(match, body)
-                    return status, ctype, text, {}
+                    return self._dispatch(name, match, method, body, headers, extra)
             raise _HttpError(404, "404 page not found")
         except _HttpError as exc:
-            return exc.status, "text/plain", exc.message + "\n", exc.headers
+            return exc.status, "text/plain", exc.message + "\n", {**extra, **exc.headers}
         except Exception as exc:  # noqa: BLE001 — the HTTP boundary
             logger.exception("unhandled error for %s %s", method, path)
-            return 500, "text/plain", f"Service Internal Error: {exc}\n", {}
+            return 500, "text/plain", f"Service Internal Error: {exc}\n", extra
+
+    def _dispatch(self, name: str, match, method: str, body: bytes, headers: dict[str, str],
+                  extra: dict[str, str]) -> tuple[int, str, str, dict[str, str]]:
+        """One routed request, one root span; its trace id goes into
+        `extra`, the answer's headers, as soon as the span opens. The auth
+        check runs first: an unauthenticated peer must not churn the ring,
+        nor put spans into another's trace through the inbound header. A
+        failure leaves the span as an error and reaches ``handle``."""
+        self._check_auth(name, headers)
+        if name in self.UNTRACED_ROUTES:
+            status, ctype, text = getattr(self, f"_route_{name}")(match, body)
+            return status, ctype, text, {}
+        inbound = next((v for k, v in headers.items() if k.lower() == trace.TRACE_HEADER), None)
+        with trace.span(f"http.{name}", wire_parent=inbound, http_method=method) as ctx:
+            extra[trace.RESPONSE_HEADER] = ctx.trace_id
+            if name in self.AUDITED_ROUTES:
+                status, ctype, text = self._audited_route(name, match, body, headers)
+            else:
+                status, ctype, text = getattr(self, f"_route_{name}")(match, body)
+            return status, ctype, text, extra
+
+    def _audited_route(self, name: str, match, body: bytes,
+                       headers: dict[str, str]) -> tuple[int, str, str]:
+        """The route's edge record: the actor (the x-tpumounter-actor header,
+        else "http"), the pod when the path names one, "http <status>", the
+        time and the edge's trace id."""
+        groups = match.groupdict()
+        actor = next((v for k, v in headers.items() if k.lower() == "x-tpumounter-actor"),
+                     "") or "http"
+        with audited(f"http.{name}", actor=actor, namespace=groups.get("ns", ""),
+                     pod=groups.get("pod", "")) as rec:
+            try:
+                status, ctype, text = getattr(self, f"_route_{name}")(match, body)
+            except _HttpError as exc:
+                rec["outcome"] = f"http {exc.status}"
+                raise
+            rec["outcome"] = f"http {status}"
+            return status, ctype, text
 
     def _check_auth(self, route: str, headers: dict[str, str]) -> None:
         if route in self.UNAUTHENTICATED_ROUTES or self._token is None:
@@ -389,7 +463,8 @@ class MasterApp:
     def _worker_for_pod(self, namespace: str, pod_name: str) -> tuple[str, str]:
         """(worker address, node name), or the _HttpError of the miss."""
         try:
-            pod = Pod(self.kube.get_pod(namespace, pod_name))
+            with trace.span("k8s.get_pod", pod=f"{namespace}/{pod_name}"):
+                pod = Pod(self.kube.get_pod(namespace, pod_name))
         except NotFoundError:
             raise _HttpError(404, f"No pod: {pod_name} in namespace: {namespace}")
         node = pod.node_name
@@ -416,6 +491,35 @@ class MasterApp:
 
     def _route_healthz(self, match, body):
         return 200, "text/plain", "ok\n"
+
+    def _route_audit(self, match, body):
+        """The audit trail, filtered (``obs.audit.query_from_params``)."""
+        params = urllib.parse.parse_qs(match.group("query") or "")
+        try:
+            payload = audit.query_from_params(params)
+        except ValueError:
+            raise _HttpError(400, f"Invalid limit: {params.get('limit')!r}")
+        return 200, "application/json", json.dumps(payload, indent=1) + "\n"
+
+    def _route_trace(self, match, body):
+        """One trace's spans in this process's ring, in start order."""
+        tid = match.group("tid")
+        payload = trace.trace_payload(tid)
+        if payload is None:
+            raise _HttpError(404, f"no spans buffered for trace {tid} (expired from the "
+                                  f"ring, or minted elsewhere)")
+        return 200, "application/json", json.dumps(payload, indent=1) + "\n"
+
+    def _route_timeline(self, match, body):
+        """The flight recorder's timeline, filtered
+        (``obs.flight.query_from_params``)."""
+        params = urllib.parse.parse_qs(match.group("query") or "")
+        try:
+            payload = flight.query_from_params(params)
+        except ValueError:
+            raise _HttpError(400, f"Invalid timeline filter: {params!r} (from/to/limit must "
+                                  f"be numeric)")
+        return 200, "application/json", json.dumps(payload, indent=1) + "\n"
 
     def _route_workers(self, match, body):
         lines = [f"{node} {ip}" for node, ip in

@@ -25,12 +25,14 @@ holds what ``torch.distributed`` and ``torchrun`` read: ``MASTER_ADDR``,
 ``NNODES``, ``NODE_RANK``, ``NPROC_PER_NODE`` and ``WORLD_SIZE``. A worker's
 rank is its pod's place in the request: the caller fixes the order.
 
-Left out until their packages land: the failpoints
-(``master.slice.mount``, ``master.slice.rollback.skip``), the spans
-(``slice.mount_host``, ``slice.remove_host``, ``bulk.mount_node``) and the
-Warning event on each pod of a rolled-back slice (``k8s/events.py``) come
-with 7e; the fencing epoch and the shards' budgets (``shard_of`` by owner
-shard, with the core's per-shard budgets) with 7h. ``preferIci`` and the
+Each host's call is a span in the caller's trace (``slice.mount_host``,
+``slice.remove_host``, ``bulk.mount_node``), carried into the fan-out's
+threads with ``trace.attached``. The failpoint ``master.slice.mount`` fires
+before anything is resolved; ``master.slice.rollback.skip`` (a value) skips
+the rollback, the leak the chaos harness must detect. Each pod whose mount a
+rollback undid gets the Warning Event ``GPUSliceRollback``. Left out until
+their package lands: the fencing epoch and the shards' budgets (``shard_of``
+by owner shard, with the core's per-shard budgets), with 7h. ``preferIci`` and the
 ``topology`` hint are TPU torus geometry and stay out: a GPU host's GPUs are
 joined by NVSwitch (``topology.py``).
 """
@@ -40,8 +42,11 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 from gpumounter_tpu_torch import topology as topo
+from gpumounter_tpu_torch.faults import failpoints
 from gpumounter_tpu_torch.k8s.errors import ApiError, NotFoundError
+from gpumounter_tpu_torch.k8s.events import post_pod_event
 from gpumounter_tpu_torch.k8s.types import Pod
+from gpumounter_tpu_torch.obs import trace
 from gpumounter_tpu_torch.rpc.api import AddGPUResult, RemoveGPUResult
 from gpumounter_tpu_torch.rpc.resilience import BreakerOpenError
 from gpumounter_tpu_torch.utils.fanout import get_core
@@ -174,6 +179,8 @@ class BulkMountCoordinator:
         errors, by_node = self._resolve_bulk(targets)
         for i, err in errors.items():
             results[i] = {"namespace": targets[i].namespace, "pod": targets[i].pod, **err}
+        # contextvars stay in their thread: each node group re-attaches this
+        trace_ctx = trace.current()
 
         def _mount_node(node: str, indices: list[int]) -> None:
             def base(i: int) -> dict:
@@ -191,7 +198,9 @@ class BulkMountCoordinator:
                     results[i] = {**base(i), "result": "Degraded", "retryAfterS": retry_after,
                                   "error": f"worker on {node} degraded (circuit open)"}
                 return
-            with self.client_factory(address) as client:
+            with trace.attached(trace_ctx), \
+                    trace.span("bulk.mount_node", node=node, targets=len(indices)), \
+                    self.client_factory(address) as client:
                 for i in indices:
                     t, entry = targets[i], base(i)
                     try:
@@ -256,6 +265,7 @@ class SliceCoordinator:
         retry_after_s), 500 for any other failure, after the rollback."""
         if len(targets) < 1:
             raise SliceError("empty slice", 400)
+        failpoints.fire("master.slice.mount", pods=[t.pod for t in targets])
         resolved = self._resolve(targets)
         # the plan validates the request: a bad acceleratorType or host count
         # fails here, before any GPU is mounted
@@ -264,11 +274,15 @@ class SliceCoordinator:
                              accel_type=accel_type)
         # host index -> the AddGPU response, or the exception of the call
         results: dict[int, object] = {}
+        # contextvars stay in their thread: each host's call re-attaches this
+        trace_ctx = trace.current()
 
         def _mount(item) -> None:
             i, (t, _node, address, _ip) = item
             try:
-                with self.client_factory(address) as client:
+                with trace.attached(trace_ctx), \
+                        trace.span("slice.mount_host", pod=t.pod, gpus=gpus_per_host), \
+                        self.client_factory(address) as client:
                     results[i] = client.add_gpu(t.pod, t.namespace, gpus_per_host, entire)
             except Exception as exc:  # noqa: BLE001 — a host's call; the pass must not raise
                 results[i] = exc
@@ -285,6 +299,11 @@ class SliceCoordinator:
         succeeded = [i for i in results if i not in failures]
         logger.error("slice mount failed on %d/%d host(s); rolling back %d", len(failures),
                      len(targets), len(succeeded))
+        if failpoints.value("master.slice.rollback.skip", False):
+            # the deliberate leak of the chaos harness's control
+            logger.error("slice rollback SKIPPED by failpoint; %d host mount(s) leaked",
+                         len(succeeded))
+            succeeded = []
         for i in succeeded:
             t, _node, address, _ip = resolved[i]
             try:
@@ -321,6 +340,20 @@ class SliceCoordinator:
             return str(r) if isinstance(r, Exception) else AddGPUResult(r.add_gpu_result).name
 
         detail = "; ".join(f"{resolved[i][0].pod}: {_fmt(r)}" for i, r in failures.items())
+        # the rollback where operators look: a Warning Event on each pod
+        # whose mount was undone
+        for i in succeeded:
+            t = resolved[i][0]
+            try:
+                pod = Pod(self.kube.get_pod(t.namespace, t.pod))
+            except Exception as exc:  # noqa: BLE001 — the pod may be gone
+                logger.debug("rollback event read of %s/%s failed: %s", t.namespace, t.pod,
+                             exc)
+                continue
+            post_pod_event(self.kube, pod, "GPUSliceRollback",
+                           f"slice mount rolled back: {len(failures)}/{len(targets)} host(s) "
+                           f"failed ({detail}); removed the {gpus_per_host} GPU(s) mounted "
+                           f"here", event_type="Warning", component="tpumounter-master")
         insufficient = any(not isinstance(r, Exception)
                            and r.add_gpu_result == AddGPUResult.InsufficientGPU
                            for r in failures.values())
@@ -337,11 +370,13 @@ class SliceCoordinator:
         done; anything else is SliceError 503 (a breaker open) or 500."""
         resolved = self._resolve(targets)
         results: dict[int, object] = {}
+        trace_ctx = trace.current()
 
         def _remove(item) -> None:
             i, (t, _node, address, _ip) = item
             try:
-                with self.client_factory(address) as client:
+                with trace.attached(trace_ctx), trace.span("slice.remove_host", pod=t.pod), \
+                        self.client_factory(address) as client:
                     results[i] = RemoveGPUResult(client.remove_gpu(
                         t.pod, t.namespace, [], force=force, remove_all=True).remove_gpu_result)
             except Exception as exc:  # noqa: BLE001

@@ -9,9 +9,13 @@ reference's extension that makes the client's retries safe, and field 2 of
 AddGPUResponse, ``uuids``, its extension that names what was mounted. A peer
 built against the original proto skips both.
 
-Left out for the packages that carry them: ``prefer_ici`` (field 5, ICI
-placement), ``trace_context`` (7, ``obs/``), ``epoch`` (8, ``master/shard.py``)
-and the share fields (9-10, ``vchip/``). ``phases_ms`` is on no message of
+Field 7 of both requests, ``trace_context``, is the reference's too: the
+client's ``rpc.<Method>`` span as ``<trace_id>-<span_id>`` (``obs/trace.py``),
+which the worker's span takes as its parent; proto3 leaves the empty string
+off the wire, so an untraced call's bytes are a peer's of the original
+proto. Left out for the packages that carry them: ``prefer_ici`` (field 5,
+ICI placement), ``epoch`` (8, ``master/shard.py``) and the share fields
+(9-10, ``vchip/``). ``phases_ms`` is on no message of
 the reference: it stays off the wire, an in-process reading of the worker's
 phase timings.
 
@@ -44,19 +48,22 @@ class RemoveGPUResult(enum.IntEnum):
 
 
 class AddGPURequest(Message):
-    # AddGPURequest (api.proto:4-9), plus field 6
+    # AddGPURequest (api.proto:4-9), plus fields 6 and 7
     FIELDS = [
         Field(1, "pod_name", "string"),
         Field(2, "namespace", "string"),
         Field(3, "gpu_num", "int32"),
         Field(4, "is_entire_mount", "bool"),
         Field(6, "idempotency_key", "string"),
+        Field(7, "trace_context", "string"),
     ]
 
     def __init__(self, pod_name: str = "", namespace: str = "", gpu_num: int = 0,
-                 is_entire_mount: bool = False, idempotency_key: str = ""):
+                 is_entire_mount: bool = False, idempotency_key: str = "",
+                 trace_context: str = ""):
         super().__init__(pod_name=pod_name, namespace=namespace, gpu_num=gpu_num,
-                         is_entire_mount=is_entire_mount, idempotency_key=idempotency_key)
+                         is_entire_mount=is_entire_mount, idempotency_key=idempotency_key,
+                         trace_context=trace_context)
 
 
 class AddGPUResponse(Message):
@@ -75,7 +82,7 @@ class AddGPUResponse(Message):
 
 class RemoveGPURequest(Message):
     # RemoveGPURequest (api.proto:25-30), plus field 5 (the reference's:
-    # remove every slave-held GPU whatever the mount type) and field 6
+    # remove every slave-held GPU whatever the mount type), fields 6 and 7
     FIELDS = [
         Field(1, "pod_name", "string"),
         Field(2, "namespace", "string"),
@@ -83,14 +90,15 @@ class RemoveGPURequest(Message):
         Field(4, "force", "bool"),
         Field(5, "remove_all", "bool"),
         Field(6, "idempotency_key", "string"),
+        Field(7, "trace_context", "string"),
     ]
 
     def __init__(self, pod_name: str = "", namespace: str = "", uuids=(),
                  force: bool = False, remove_all: bool = False,
-                 idempotency_key: str = ""):
+                 idempotency_key: str = "", trace_context: str = ""):
         super().__init__(pod_name=pod_name, namespace=namespace, uuids=list(uuids),
                          force=force, remove_all=remove_all,
-                         idempotency_key=idempotency_key)
+                         idempotency_key=idempotency_key, trace_context=trace_context)
 
 
 class RemoveGPUResponse(Message):

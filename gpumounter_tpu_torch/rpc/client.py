@@ -15,14 +15,19 @@ client speaks the original's service names, and adds (``rpc/resilience.py``):
   * typed errors: DeadlineExceededError, WorkerUnavailableError,
     BreakerOpenError, and RpcCallError with the status name for a call the
     worker refused (FAILED_PRECONDITION, INVALID_ARGUMENT, INTERNAL,
-    UNAUTHENTICATED).
+    UNAUTHENTICATED);
+  * one ``rpc.<Method>`` span a call, stamped on the request as its
+    ``trace_context`` (field 7), so that the worker's span is its child;
+  * the failpoint sites ``rpc.client.deadline`` (a value: the deadline) and
+    ``rpc.client.call`` (before each attempt); an injected drop
+    (``InjectedUnavailable``) is retried as UNAVAILABLE is, under the same
+    idempotency key.
 
 Left out: ``probe``, ``quiesce_status`` and ``collect_telemetry`` (with
-``health/``, ``migrate/`` and ``obs/``), the failpoint sites (with
-``faults/``). The pool's hits, misses, evictions and size are series of the
-registry (``utils/metrics.py``). grpc is imported when
-a channel is built; without grpcio that raises ModuleNotFoundError naming
-grpcio, and nothing falls back.
+``health/``, ``migrate/`` and the fleet planes). The pool's hits, misses,
+evictions and size are series of the registry (``utils/metrics.py``). grpc
+is imported when a channel is built; without grpcio that raises
+ModuleNotFoundError naming grpcio, and nothing falls back.
 """
 
 from __future__ import annotations
@@ -32,6 +37,8 @@ import threading
 import time
 
 from gpumounter_tpu_torch.config import Config
+from gpumounter_tpu_torch.faults import failpoints
+from gpumounter_tpu_torch.obs import trace
 from gpumounter_tpu_torch.rpc import api
 from gpumounter_tpu_torch.rpc.resilience import (
     RPC_RETRIES,
@@ -173,6 +180,8 @@ _TOKEN_FROM_CONFIG = object()
 
 
 def _code_name(exc: Exception) -> str:
+    if isinstance(exc, failpoints.InjectedUnavailable):
+        return "UNAVAILABLE"
     code = getattr(exc, "code", None)
     if callable(code):
         return getattr(code(), "name", "") or "UNKNOWN"
@@ -240,7 +249,15 @@ class WorkerClient:
     def _call(self, method: str, request):
         if self._channel is None:
             raise RuntimeError(f"WorkerClient for {self.address} is closed")
-        deadline = self.timeouts[method]
+        with trace.span(f"rpc.{method}", address=self.address):
+            # the span just opened goes on the wire: the worker's span is
+            # its child, not the caller's
+            request.trace_context = trace.wire_context()
+            return self._call_attempts(method, request)
+
+    def _call_attempts(self, method: str, request):
+        deadline = float(failpoints.value("rpc.client.deadline", self.timeouts[method],
+                                          method=method))
         last_exc: Exception | None = None
         for attempt in range(1, self.retry.max_attempts + 1):
             if self.breaker is not None:
@@ -250,9 +267,10 @@ class WorkerClient:
                         f"worker {self.address} degraded (circuit open); retry in "
                         f"{retry_after:.1f}s", retry_after, self.address, method) from last_exc
             try:
+                failpoints.fire("rpc.client.call", method=method, address=self.address)
                 response = self._stubs[method](request, timeout=deadline,
                                                metadata=self._metadata)
-            except grpc.RpcError as exc:
+            except (grpc.RpcError, failpoints.InjectedUnavailable) as exc:
                 code = _code_name(exc)
                 transport = code in _RETRIABLE
                 if self.breaker is not None:

@@ -70,8 +70,8 @@ class DirTargetMounter(GpuMounter):
     """A mounter whose every target pod is one directory."""
 
     def __init__(self, backend: DeviceBackend, dev_dir: str, cfg=None,
-                 ns_pid: int | None = None, cgroup_dirs=()):
-        super().__init__(backend, cfg=cfg)
+                 ns_pid: int | None = None, cgroup_dirs=(), kube=None):
+        super().__init__(backend, cfg=cfg, kube=kube)
         self.dev_dir = dev_dir
         self.ns_pid = ns_pid
         self.cgroup_dirs = list(cgroup_dirs)
@@ -248,7 +248,7 @@ class FakeCluster:
             raise ValueError(f"kubelet {kubelet!r}: 'memory' or 'grpc'")
         collector = GpuCollector(target.backend, podresources, cfg=self.cfg)
         mounter = DirTargetMounter(target.backend, dev_dir, cfg=self.cfg, ns_pid=ns_pid,
-                                   cgroup_dirs=cgroup_dirs)
+                                   cgroup_dirs=cgroup_dirs, kube=self.kube)
         return GpuMountService(self.kube, collector, mounter=mounter, cfg=self.cfg)
 
     # --- the transport ---

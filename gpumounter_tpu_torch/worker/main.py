@@ -8,25 +8,28 @@ FAKE_DEVICE_DIR), serve gRPC on WORKER_PORT (1200) and /healthz on the ops
 port (METRICS_PORT), and stop on SIGTERM. The Kubernetes client is
 ``k8s.client.default_client``: the pod's service account in the cluster.
 
-The ops port's /metrics, /audit, /trace and /telemetry come with ``obs/``;
-the ledger, its replay and the reaper with the worker's ledger slice.
+The trace ring, the audit trail and the flight recorder take their
+capacities and JSONL sinks from config (TPUMOUNTER_TRACE_RING,
+TPUMOUNTER_TRACE_JSONL, ...). The ops port's /metrics, /audit, /trace,
+/timeline and /telemetry come with the fleet planes; the ledger, its replay
+and the reaper with the worker's ledger slice.
 
     python -m gpumounter_tpu_torch.worker.main
 """
 
 from __future__ import annotations
 
-import logging
 import signal
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
+from gpumounter_tpu_torch import obs
 from gpumounter_tpu_torch.collector.collector import GpuCollector
 from gpumounter_tpu_torch.collector.podresources import PodResourcesClient
 from gpumounter_tpu_torch.config import Config
 from gpumounter_tpu_torch.device.backend import backend_from_config
 from gpumounter_tpu_torch.k8s.client import default_client
-from gpumounter_tpu_torch.utils.log import get_logger
+from gpumounter_tpu_torch.utils.log import get_logger, init_logger
 from gpumounter_tpu_torch.worker.server import GpuMountService, build_server
 
 logger = get_logger("worker.main")
@@ -65,9 +68,9 @@ def build_service(cfg: Config) -> GpuMountService:
 
 
 def main() -> None:
-    logging.basicConfig(level=logging.INFO,
-                        format="%(asctime)s %(levelname)s %(name)s: %(message)s")
+    init_logger()
     cfg = Config()
+    obs.configure(cfg)
     service = build_service(cfg)
     server = build_server(service)
     ops = serve_ops(cfg.metrics_port)

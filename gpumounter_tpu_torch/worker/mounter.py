@@ -22,6 +22,22 @@ The grant goes through the controller of the host's cgroup version: v1's
 which replaces the container's own program and so must carry the devices
 the container was started with (``_v2_base_rules``). Mounts and unmounts
 move the registry's mount series (``utils/metrics.py``).
+
+Each phase is a span (``obs/trace.py``): ``mount.cgroup_grant``,
+``mount.mknod``, ``mount.verify`` and ``mount.rollback``;
+``unmount.cgroup_revoke`` and ``unmount.device_remove``. The failpoint sites
+(``faults/registry.py``) are the reference's: ``worker.mount.before_grant``,
+``after_grant``, ``mknod`` (once a GPU), ``rollback`` (once a grant undone),
+``worker.addgpu.rollback.skip`` and ``worker.unmount.before_revoke``. An
+injected ``CrashError`` is re-raised before any undo, as a process that
+died would run none. One namespace entry a batch means one ``mount.mknod``
+and one ``unmount.device_remove`` span a batch, whose ``device`` attribute
+names every UUID in it, where the reference has one a GPU; the
+``worker.mount.mknod`` site still fires a GPU at a time before the entry,
+and the GPUs before one that fails are injected, then the failure raised,
+as the reference's GPUs before it are. A grant whose undo fails posts the
+Warning Event ``GPUMountRollbackFailed`` on the pod when the mounter has a
+Kubernetes client.
 """
 
 from __future__ import annotations
@@ -46,8 +62,11 @@ from gpumounter_tpu_torch.cgroup.policy import POLICY_ENGINE
 from gpumounter_tpu_torch.config import Config
 from gpumounter_tpu_torch.device.backend import DeviceBackend, scan_proc_for_device
 from gpumounter_tpu_torch.device.gpu import GpuDevice
+from gpumounter_tpu_torch.faults import failpoints
+from gpumounter_tpu_torch.faults.failpoints import CrashError
 from gpumounter_tpu_torch.k8s.types import Pod
 from gpumounter_tpu_torch.nsutil import ns as nsutil
+from gpumounter_tpu_torch.obs import trace
 from gpumounter_tpu_torch.utils.log import get_logger
 from gpumounter_tpu_torch.utils.metrics import (
     MOUNT_LATENCY,
@@ -113,8 +132,11 @@ class MountTarget:
 
 
 class GpuMounter:
-    def __init__(self, backend: DeviceBackend, cfg=None):
+    def __init__(self, backend: DeviceBackend, cfg=None, kube=None):
+        """kube: a KubeClient on which a failed grant undo posts its Warning
+        Event on the target pod; None posts none."""
         self.cfg = cfg or Config()
+        self.kube = kube
         self.backend = backend
         version = self.cfg.cgroup_version
         self.cgroup_version = (detect_cgroup_version(self.cfg.cgroup_root)
@@ -222,15 +244,20 @@ class GpuMounter:
         injected: list[GpuDevice] = []
         uuids = ",".join(d.uuid for d in devices)
         try:
-            with timer.phase("cgroup_grant"):
+            # a worker that dies here leaves nothing (before) or grants
+            # without nodes (after)
+            failpoints.fire("worker.mount.before_grant", device=uuids, target=target.description)
+            with timer.phase("cgroup_grant"), \
+                    trace.span("mount.cgroup_grant", device=uuids, gpus=len(devices),
+                               target=target.description):
                 self._grant_batch(target, devices, base_rules, granted, policy=policy)
+            failpoints.fire("worker.mount.after_grant", device=uuids, target=target.description)
             with timer.phase("device_inject"):
-                injected.extend(devices)  # before: a half-made batch is undone too
-                missing = nsutil.inject_device_files(target.dev_dir, devices,
-                                                     pid=target.ns_pid)
-                if missing:
-                    raise MountError(f"injected node(s) {missing} not visible in "
-                                     f"{target.description} after mknod")
+                self._inject_batch(target, devices, injected)
+        except CrashError:
+            # a simulated death: a real one runs no undo
+            MOUNT_TOTAL.inc(float(len(devices)), result="error")
+            raise
         except Exception as exc:
             self._rollback_batch(target, granted, injected)
             MOUNT_TOTAL.inc(float(len(devices)), result="error")
@@ -241,7 +268,8 @@ class GpuMounter:
             # scheduler's books fires on one exception type.
             raise MountError(f"mount of {uuids} into {target.description}: {exc}") from exc
         MOUNT_TOTAL.inc(float(len(devices)), result="success")
-        MOUNT_LATENCY.observe(timer.total())
+        # the exemplar: the batch's trace id on the bucket it landed in
+        MOUNT_LATENCY.observe(timer.total(), trace_id=trace.current_trace_id())
         # The grant events of the per-tenant access telemetry: beside the
         # kernel's attempt counts on v2 with maps, the whole signal elsewhere.
         DEVICE_TELEMETRY.record(target.description, "grant", len(devices))
@@ -251,6 +279,39 @@ class GpuMounter:
         logger.info("mounted %d GPU(s) [%s] into %s (%s)", len(devices), uuids,
                     target.description, summary)
         return summary
+
+    def _inject_batch(self, target: MountTarget, devices: list[GpuDevice],
+                      injected: list[GpuDevice]) -> None:
+        """The batch's nodes in one entry into the target's namespace, then
+        the check that the tenant sees them (a mknod into a namespace being
+        torn down). The mknod site fires a GPU at a time first; the GPUs
+        before one that fails are injected, then its failure is raised.
+        `injected` takes the GPUs before their entry, so that the caller's
+        rollback also undoes a half-made entry."""
+        uuids = ",".join(d.uuid for d in devices)
+        ready: list[GpuDevice] = []
+        failure: Exception | None = None
+        with trace.span("mount.mknod", device=uuids, target=target.description):
+            for dev in devices:
+                try:
+                    failpoints.fire("worker.mount.mknod", device=dev.uuid,
+                                    target=target.description)
+                except Exception as exc:  # noqa: BLE001 — raised after the entry
+                    failure = exc
+                    break
+                ready.append(dev)
+            missing = []
+            if ready:
+                injected.extend(ready)
+                missing = nsutil.inject_device_files(target.dev_dir, ready, pid=target.ns_pid)
+            if failure is not None:
+                raise failure
+        # the helper looked for the nodes in the same entry; this span holds
+        # the verdict on its answer
+        with trace.span("mount.verify", device=uuids, target=target.description):
+            if missing:
+                raise MountError(f"injected node(s) {missing} not visible in "
+                                 f"{target.description} after mknod")
 
     def _grant_batch(self, target: MountTarget, devices: list[GpuDevice],
                      base_rules: list[DeviceRule] | None,
@@ -303,32 +364,52 @@ class GpuMounter:
         """Undo a failed batch: kill whatever opened an injected node in the
         meantime (a revoke only gates later opens), remove the nodes,
         revoke the rules. Each undo step that fails is logged and the rest
-        still run; the caller raises the failure that started it."""
-        holders: set[int] = set()
-        for dev in injected:
+        still run; the caller raises the failure that started it. The
+        worker.addgpu.rollback.skip failpoint skips it whole: the leak the
+        chaos harness must detect."""
+        if failpoints.value("worker.addgpu.rollback.skip", False):
+            logger.error("batch rollback SKIPPED by failpoint; %d grant(s) / %d injected "
+                         "node(s) leaked", len(granted), len(injected))
+            return
+        with trace.span("mount.rollback", cgroups=len(granted), injected=len(injected)):
+            holders: set[int] = set()
+            for dev in injected:
+                try:
+                    holders.update(self.holder_pids(target, dev))
+                except Exception as exc:  # noqa: BLE001 — the undo goes on
+                    logger.error("rollback holder scan of %s failed: %s", dev.uuid, exc)
             try:
-                holders.update(self.holder_pids(target, dev))
+                nsutil.remove_device_files(target.dev_dir, injected, pid=target.ns_pid)
             except Exception as exc:  # noqa: BLE001 — the undo goes on
-                logger.error("rollback holder scan of %s failed: %s", dev.uuid, exc)
-        try:
-            nsutil.remove_device_files(target.dev_dir, injected, pid=target.ns_pid)
-        except Exception as exc:  # noqa: BLE001 — the undo goes on
-            logger.error("rollback node removal of %s failed: %s",
-                         [d.uuid for d in injected], exc)
-        for cg, dev in granted:
-            try:
-                self.controller.revoke(cg, dev)
-            except Exception as exc:  # noqa: BLE001 — the undo goes on
-                # A leaked grant: the container keeps kernel access to a GPU
-                # the scheduler is about to book again. The counter is what
-                # an alert reads.
-                MOUNT_ROLLBACK_FAILURES.inc()
-                logger.error("grant rollback of %s on %s failed: %s; the container "
-                             "keeps kernel access to the GPU", dev.uuid, cg, exc)
-        if holders:
-            logger.warning("rollback killing %d holder PID(s): %s", len(holders),
-                           sorted(holders))
-            nsutil.kill_pids_in_ns(sorted(holders), pid=target.ns_pid)
+                logger.error("rollback node removal of %s failed: %s",
+                             [d.uuid for d in injected], exc)
+            for cg, dev in granted:
+                try:
+                    failpoints.fire("worker.mount.rollback", cgroup=cg, device=dev.uuid)
+                    self.controller.revoke(cg, dev)
+                except Exception as exc:  # noqa: BLE001 — the undo goes on
+                    self._rollback_failed(target, dev, cg, exc)
+            if holders:
+                logger.warning("rollback killing %d holder PID(s): %s", len(holders),
+                               sorted(holders))
+                nsutil.kill_pids_in_ns(sorted(holders), pid=target.ns_pid)
+
+    def _rollback_failed(self, target: MountTarget, dev: GpuDevice, cgroup: str,
+                         exc: Exception) -> None:
+        """A grant undo failed: the container keeps kernel access to a GPU
+        the scheduler is about to book again. The counter is what an alert
+        reads; the Warning Event is what `kubectl describe pod` shows."""
+        MOUNT_ROLLBACK_FAILURES.inc()
+        logger.error("grant rollback of %s on %s failed: %s; the container keeps kernel "
+                     "access to the GPU", dev.uuid, cgroup, exc)
+        if self.kube is not None and target.pod is not None:
+            from gpumounter_tpu_torch.k8s.events import post_pod_event
+            post_pod_event(
+                self.kube, target.pod, "GPUMountRollbackFailed",
+                f"could not revoke {dev.uuid} from cgroup {cgroup} after a failed mount "
+                f"({exc}); the container retains kernel access to the GPU — revoke "
+                f"manually or restart the pod",
+                event_type="Warning", component="tpumounter-worker")
 
     # --- unmount (UnmountGPU, util.go:73-150) ---
 
@@ -355,11 +436,17 @@ class GpuMounter:
         uuids = ",".join(d.uuid for d in devices)
         done: list[GpuDevice] = []
         try:
-            with timer.phase("cgroup_revoke"):
+            failpoints.fire("worker.unmount.before_revoke", device=uuids,
+                            target=target.description)
+            with timer.phase("cgroup_revoke"), \
+                    trace.span("unmount.cgroup_revoke", device=uuids,
+                               target=target.description):
                 for cg in target.cgroup_dirs:
                     for dev in devices:
                         self.controller.revoke(cg, dev)
-            with timer.phase("device_remove"):
+            with timer.phase("device_remove"), \
+                    trace.span("unmount.device_remove", device=uuids,
+                               target=target.description):
                 try:
                     nsutil.remove_device_files(target.dev_dir, devices, pid=target.ns_pid)
                 except OSError as exc:
@@ -374,6 +461,9 @@ class GpuMounter:
                     nsutil.kill_pids_in_ns(sorted({p for pids in busy.values() for p in pids}),
                                            pid=target.ns_pid)
             done = list(devices)
+        except CrashError:
+            UNMOUNT_TOTAL.inc(float(len(devices)), result="error")
+            raise  # a simulated death: no wrapping, no cleanup
         except Exception as exc:
             if done:
                 UNMOUNT_TOTAL.inc(float(len(done)), result="success")

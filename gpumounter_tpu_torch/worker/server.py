@@ -14,6 +14,15 @@ The counterpart of ``TpuMountService`` in
     pod's namespace -> release the slave pods whose GPUs are all unmounted
     (:155-175).
 
+Each call is a ``worker.AddGPU`` / ``worker.RemoveGPU`` span whose parent is
+the client's span off the wire (``trace_context``, field 7; a fresh trace
+when it is absent or malformed), and leaves an audit record whatever its end
+(``obs/audit.py``), with the ``worker.rpc`` failpoint at its top. The slave
+pods' scheduling is the ``mount.slave_pod_schedule`` span. Outcomes post the
+Events ``GPUMounted``, ``GPUUnmounted`` and ``GPUMountFailed`` on the pod
+(``k8s/events.py``; the reference's ``TPU*``), and the service installs the
+flight recorder's hooks (``obs/flight.py``).
+
 Each pod's flows are serialized (keyed by UID), so two entire mounts of one
 pod cannot both pass the gate. A refused call raises ``ServiceError`` with
 its gRPC status code. A call that carries an idempotency key and succeeded
@@ -44,8 +53,12 @@ from gpumounter_tpu_torch.allocator.allocator import (
 from gpumounter_tpu_torch.cgroup.ebpf import device_rule
 from gpumounter_tpu_torch.collector.collector import GpuCollector
 from gpumounter_tpu_torch.config import Config
+from gpumounter_tpu_torch.faults import failpoints
 from gpumounter_tpu_torch.k8s.client import KubeClient, NotFoundError
+from gpumounter_tpu_torch.k8s.events import post_pod_event
 from gpumounter_tpu_torch.k8s.types import Pod
+from gpumounter_tpu_torch.obs import flight, trace
+from gpumounter_tpu_torch.obs.audit import audited
 from gpumounter_tpu_torch.rpc import api
 from gpumounter_tpu_torch.rpc.api import (
     AddGPURequest,
@@ -148,14 +161,29 @@ class GpuMountService:
         self.kube = kube
         self.collector = collector
         self.allocator = allocator or GpuAllocator(kube, collector, cfg=self.cfg)
-        self.mounter = mounter or GpuMounter(collector.backend, cfg=self.cfg)
+        self.mounter = mounter or GpuMounter(collector.backend, cfg=self.cfg, kube=kube)
         self._pod_locks = _KeyedLocks()
         self._idem = _IdempotencyCache()
+        # root and error spans and audit records onto the timeline; idempotent
+        flight.install()
 
     # --- AddGPU (server.go:34-99) ---
 
     def add_gpu(self, request: AddGPURequest) -> AddGPUResponse:
+        """The span joins the trace the client stamped on the wire, and
+        every end (an answer, a refusal, a crash) leaves an audit record."""
+        with trace.span("worker.AddGPU", wire_parent=request.trace_context,
+                        pod=f"{request.namespace}/{request.pod_name}"), \
+                audited("worker.AddGPU", actor="rpc", namespace=request.namespace,
+                        pod=request.pod_name, idempotency_key=request.idempotency_key) as rec:
+            response = self._add_gpu_op(request)
+            rec["chips"] = list(response.uuids)
+            rec["outcome"] = AddGPUResult(response.add_gpu_result).name
+            return response
+
+    def _add_gpu_op(self, request: AddGPURequest) -> AddGPUResponse:
         timer = PhaseTimer()
+        failpoints.fire("worker.rpc", method="AddGPU", pod=request.pod_name)
         logger.info("AddGPU %s/%s num=%d entire=%s", request.namespace,
                     request.pod_name, request.gpu_num, request.is_entire_mount)
         if request.gpu_num <= 0:
@@ -191,7 +219,8 @@ class GpuMountService:
         if not ok:
             raise ServiceError("FAILED_PRECONDITION", why)
         per_pod = request.gpu_num if request.is_entire_mount else 1
-        with timer.phase("slave_pod_schedule"):
+        with timer.phase("slave_pod_schedule"), \
+                trace.span("mount.slave_pod_schedule", gpus=request.gpu_num):
             try:
                 devices, slaves = self.allocator.get_available_gpus(
                     pod, request.gpu_num, per_pod)
@@ -214,16 +243,32 @@ class GpuMountService:
             logger.error("mount failed (batch rolled back), releasing %d slave "
                          "pod(s): %s", len(slaves), exc)
             self.allocator.delete_slave_pods(slaves, wait=False)
+            self._post_event(pod, "GPUMountFailed", str(exc), "Warning")
             raise ServiceError("INTERNAL", str(exc)) from exc
         phases = timer.summary_ms()
         logger.info("AddGPU done: %s", phases)
+        self._post_event(pod, "GPUMounted",
+                         f"hot-mounted {len(devices)} GPU(s): "
+                         f"{', '.join(d.uuid for d in devices)} (phases ms: {phases})")
         return AddGPUResponse(AddGPUResult.Success, uuids=[d.uuid for d in devices],
                               phases_ms=phases)
 
     # --- RemoveGPU (server.go:101-179) ---
 
     def remove_gpu(self, request: RemoveGPURequest) -> RemoveGPUResponse:
+        """add_gpu's span and audit record, for the remove."""
+        with trace.span("worker.RemoveGPU", wire_parent=request.trace_context,
+                        pod=f"{request.namespace}/{request.pod_name}"), \
+                audited("worker.RemoveGPU", actor="rpc", namespace=request.namespace,
+                        pod=request.pod_name, chips=list(request.uuids),
+                        idempotency_key=request.idempotency_key) as rec:
+            response = self._remove_gpu_op(request)
+            rec["outcome"] = RemoveGPUResult(response.remove_gpu_result).name
+            return response
+
+    def _remove_gpu_op(self, request: RemoveGPURequest) -> RemoveGPUResponse:
         timer = PhaseTimer()
+        failpoints.fire("worker.rpc", method="RemoveGPU", pod=request.pod_name)
         logger.info("RemoveGPU %s/%s uuids=%s force=%s", request.namespace,
                     request.pod_name, request.uuids, request.force)
         key = f"rm:{request.idempotency_key}" if request.idempotency_key else ""
@@ -274,7 +319,18 @@ class GpuMountService:
             raise ServiceError("INTERNAL", str(exc)) from exc
         with timer.phase("slave_pod_release"):
             self._release_slaves_for(devices, devices)
+        self._post_event(pod, "GPUUnmounted",
+                         f"hot-removed {len(devices)} GPU(s): "
+                         f"{', '.join(d.uuid for d in devices)}"
+                         + (" (forced)" if request.force else ""))
         return RemoveGPUResult.Success
+
+    def _post_event(self, pod: Pod, reason: str, message: str,
+                    event_type: str = "Normal") -> None:
+        """An outcome as an Event on the target pod, where `kubectl describe
+        pod` shows it; advisory, never raises."""
+        post_pod_event(self.kube, pod, reason, message, event_type,
+                       component="tpumounter-worker")
 
     def _release_slaves_for(self, requested: list, unmounted: list) -> None:
         """Delete the slave pods whose every requested GPU was unmounted. A

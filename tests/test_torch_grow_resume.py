@@ -306,3 +306,28 @@ def test_grow_check_runs_on_the_cpu(tmp_path):
     with pytest.raises(ValueError, match="at least one step"):
         entry.grow_check((1, 2), (2, 2), device="cpu", backend="gloo",
                          path=str(tmp_path / "x"), steps=(0, 2))
+
+
+def test_grow_checks_grows_dense_and_moe_in_one_pair_of_worlds(tmp_path):
+    """``grow_checks`` as the smoke calls it: the dense and the MoE config
+    (the expert and router shards through the grow's specs) packed by one
+    spawn of 2 ranks and restored by one spawn of 4; each config's checks
+    run inside, and each config's results equal its own ``grow_check``'s
+    in losses."""
+    cfgs = [entry.check_config(d_model=64), entry.check_config(d_model=64, n_experts=4)]
+    paths = [str(tmp_path / "dense"), str(tmp_path / "moe")]
+    result = entry.grow_checks((1, 2), (2, 2), cfgs, paths, device="cpu", backend="gloo",
+                               timeout_s=SPAWN_TIMEOUT_S)
+    assert len(result["configs"]) == 2 and result["start_s"] > 0
+    for worlds in result["configs"]:
+        assert [r["rank"] for r in worlds["old"]] == [0, 1]
+        assert [r["rank"] for r in worlds["new"]] == [0, 1, 2, 3]
+        assert worlds["new"][0]["one_process"]["loss_err"] < entry.ONE_PROCESS_LOSS_ATOL["MoE"]
+    dense, moe = result["configs"]
+    assert dense["old"][0]["losses"] != moe["old"][0]["losses"]
+    assert any("router" in name for name in moe["new"][0]["names"])
+    alone = entry.grow_check((1, 2), (2, 2), device="cpu", backend="gloo",
+                             path=str(tmp_path / "alone"), cfg=cfgs[1], timeout_s=SPAWN_TIMEOUT_S)
+    assert alone["new"][0]["losses"] == moe["new"][0]["losses"]
+    with pytest.raises(ValueError, match="2 configs, 1 checkpoint paths"):
+        entry.grow_checks((1, 2), (2, 2), cfgs, paths[:1], device="cpu", backend="gloo")

@@ -239,3 +239,48 @@ def test_the_in_cluster_environment_gives_the_same_client(tmp_path, monkeypatch,
         with pytest.raises(RuntimeError, match="automountServiceAccountToken"):
             mod.default_client()
     assert not os.path.exists(tmp_path / "none")
+
+
+def _events_and_write_faults(kube, errors, fp) -> list:
+    """An Event posted, then writes under injected API statuses: each
+    answer, or the typed error and its status."""
+    manifest = {"apiVersion": "v1", "kind": "Event", "metadata": {"name": "p.tpumounter.1",
+                                                                   "namespace": "default"},
+                "involvedObject": {"kind": "Pod", "name": "p", "namespace": "default"},
+                "reason": "GPUMounted", "message": "m", "type": "Normal", "count": 1}
+    out = [kube.create_event("default", manifest)]
+    kube.create_pod("default", _pod("a"))
+    for schedule, call in (({"k8s.create_pod.status": "1*return(409)"},
+                            lambda: kube.create_pod("default", _pod("c"))),
+                           ({"k8s.patch_pod.status": "1*return(503)"},
+                            lambda: kube.patch_pod("default", "a", {"metadata": {}})),
+                           ({"k8s.delete_pod.status": "1*return(404)"},
+                            lambda: kube.delete_pod("default", "a")),
+                           ({"k8s.delete_pod": "1*error(injected)"},
+                            lambda: kube.delete_pod("default", "a"))):
+        with fp.armed(schedule):
+            try:
+                out.append(call())
+            except errors.ApiError as exc:
+                out.append((type(exc).__name__, exc.status))
+            except fp.FailpointError as exc:
+                out.append(str(exc))
+    out.append([p["metadata"]["name"] for p in kube.list_pods("default")])
+    return out
+
+
+def test_events_and_injected_write_statuses_are_the_same(servers, tls):
+    """create_event posts to /api/v1/namespaces/<ns>/events; a write under
+    k8s.<op>.status raises the typed error before any request (a 404 on a
+    delete is the no-op of a missing pod), and k8s.<op> fails the write."""
+    from gpumounter_tpu.faults import failpoints as ref_failpoints
+    from gpumounter_tpu_torch.faults import failpoints
+    fps = {"port": failpoints, "reference": ref_failpoints}
+    got = {name: _events_and_write_faults(_client(name, servers[name], tls), CLIENTS[name][1],
+                                          fps[name]) for name in CLIENTS}
+    assert got["port"] == got["reference"]
+    assert got["port"][1:4] == [("ConflictError", 409), ("ServerError", 503), None]
+    assert servers["port"].requests == servers["reference"].requests
+    assert [(m, p) for m, p, _, _ in servers["port"].requests][:2] == [
+        ("POST", "/api/v1/namespaces/default/events"), ("POST", "/api/v1/namespaces/default/pods")]
+    assert servers["port"].kube.events_posted == servers["reference"].kube.events_posted

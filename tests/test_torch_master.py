@@ -20,6 +20,7 @@ Every comparison is exact.
 from __future__ import annotations
 
 import dataclasses
+import json
 import os
 import subprocess
 import sys
@@ -320,7 +321,8 @@ def test_the_breaker_answers_503_with_retry_after(stacks):
 
 def test_the_port_serves_only_the_original_surface(stacks):
     """The reference's other routes wait for their packages: their paths get
-    the structured 404. /workers lists the node's worker."""
+    the structured 404. /workers lists the node's worker. The observability
+    reads (/audit, /trace/<id>, /timeline) are served, and want the token."""
     s = stacks["port"]
     for path in ("/metrics", "/apihealth", "/shards", "/fleet", "/capacity",
                  "/addtpu/namespace/default/pod/p/tpu/1/isEntireMount/false"):
@@ -330,6 +332,13 @@ def test_the_port_serves_only_the_original_surface(stacks):
     assert http(s, "GET", "/workers", auth=False) == (401, "missing or invalid bearer token\n")
     for path in ("/addslice", "/removeslice", "/batch/addgpu"):
         assert http(s, "POST", path, {})[0] != 404, path
+    for path in ("/audit", "/audit?op=http.&limit=5", "/timeline", "/timeline?kind=span"):
+        status, body = http(s, "GET", path)
+        assert status == 200 and "records" in json.loads(body), path
+        assert http(s, "GET", path, auth=False) == (401, "missing or invalid bearer token\n")
+    assert http(s, "GET", "/trace/" + "0" * 32)[0] == 404  # served: no spans for that id
+    assert http(s, "GET", "/trace/" + "0" * 32, auth=False) == (
+        401, "missing or invalid bearer token\n")
 
 
 def test_a_master_without_a_token_refuses_to_start(stacks):

@@ -106,7 +106,8 @@ def test_label_keys_and_formatting_equal_the_reference():
 
 # The port's modules that register series, beside the reference's that do.
 PORT_MODULES = ["cgroup.ebpf", "cgroup.policy", "rpc.resilience", "rpc.client", "k8s.fake",
-                "worker.server", "worker.mounter", "utils.fanout"]
+                "worker.server", "worker.mounter", "utils.fanout", "faults.failpoints",
+                "obs.trace", "obs.flight"]
 
 
 def test_every_series_of_the_port_is_the_references():
@@ -130,7 +131,9 @@ def test_every_series_of_the_port_is_the_references():
             "tpumounter_channel_pool_evictions_total", "tpumounter_channel_pool_size",
             "tpumounter_watch_backlog_evictions_total",
             "tpumounter_slave_release_failures_total", "tpumounter_fanout_tasks_total",
-            "tpumounter_fanout_inflight", "tpumounter_fanout_shard_waits_total"} == set(seen)
+            "tpumounter_fanout_inflight", "tpumounter_fanout_shard_waits_total",
+            "tpumounter_failpoint_fires_total", "tpumounter_trace_ring_evictions_total",
+            "tpumounter_flight_records_total"} == set(seen)
 
 
 # --- the series of the modules ported before the registry ---

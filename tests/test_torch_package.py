@@ -81,6 +81,30 @@ def test_the_cgroup_v2_modules_load_no_jax_and_nothing_of_the_jax_package():
     assert out.stdout.strip() == "[]"
 
 
+OBS_FILES = sorted([*(REPO / "gpumounter_tpu_torch/faults").glob("*.py"),
+                    *(REPO / "gpumounter_tpu_torch/obs").glob("*.py")])
+
+
+@pytest.mark.parametrize("path", OBS_FILES, ids=lambda p: f"{p.parent.name}/{p.name}")
+def test_faults_and_obs_import_only_the_stdlib_and_utils(path):
+    """The failpoints and the trace, audit and flight stores are on the mount
+    path: the standard library, the port's utils/ and each other only, as
+    in the reference."""
+    import sys
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module]
+        else:
+            continue
+        for name in names:
+            top = name.split(".")[0]
+            assert top in sys.stdlib_module_names or name.startswith((
+                "gpumounter_tpu_torch.utils", "gpumounter_tpu_torch.faults",
+                "gpumounter_tpu_torch.obs")), f"{path.name}:{node.lineno} imports {name}"
+
+
 def test_banned_names_match_exactly():
     assert _banned("gpumounter_tpu") and _banned("gpumounter_tpu.ops")
     assert _banned("jax.numpy") and _banned("jaxlib")

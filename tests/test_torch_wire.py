@@ -98,15 +98,17 @@ def test_pod_resources_list_is_the_references_bytes():
 
 def test_the_references_extra_fields_are_skipped():
     """A reference request with fields the port leaves out (prefer_ici,
-    trace_context, epoch, the share fields) decodes to the fields it has."""
+    epoch, the share fields) decodes to the fields it has, field 7
+    (trace_context) among them."""
     ref = ref_api.AddTPURequest(pod_name="p", namespace="n", tpu_num=3, is_entire_mount=True,
                                 prefer_ici=True, idempotency_key="k", trace_context="t-s",
                                 epoch=-7, share_weight=2, share_rate_budget=9)
     ours = api.AddGPURequest.decode(ref.encode())
     assert _values(ours) == dict(pod_name="p", namespace="n", gpu_num=3, is_entire_mount=True,
-                                 idempotency_key="k")
+                                 idempotency_key="k", trace_context="t-s")
     ref_rm = ref_api.RemoveTPURequest(pod_name="p", uuids=["a"], trace_context="x", epoch=4)
-    assert api.RemoveGPURequest.decode(ref_rm.encode()) == api.RemoveGPURequest("p", uuids=["a"])
+    assert api.RemoveGPURequest.decode(ref_rm.encode()) == api.RemoveGPURequest(
+        "p", uuids=["a"], trace_context="x")
 
 
 def test_phases_stay_off_the_wire():
@@ -201,7 +203,8 @@ def _protobuf_classes():
                               (2, "namespace", F.TYPE_STRING, False),
                               (3, "gpu_num", F.TYPE_INT32, False),
                               (4, "is_entire_mount", F.TYPE_BOOL, False),
-                              (6, "idempotency_key", F.TYPE_STRING, False)])
+                              (6, "idempotency_key", F.TYPE_STRING, False),
+                              (7, "trace_context", F.TYPE_STRING, False)])
     message("AddGPUResponse", [(1, "add_gpu_result", F.TYPE_ENUM, False),
                                (2, "uuids", F.TYPE_STRING, True)])
     message("RemoveGPURequest", [(1, "pod_name", F.TYPE_STRING, False),
@@ -209,7 +212,8 @@ def _protobuf_classes():
                                  (3, "uuids", F.TYPE_STRING, True),
                                  (4, "force", F.TYPE_BOOL, False),
                                  (5, "remove_all", F.TYPE_BOOL, False),
-                                 (6, "idempotency_key", F.TYPE_STRING, False)])
+                                 (6, "idempotency_key", F.TYPE_STRING, False),
+                                 (7, "trace_context", F.TYPE_STRING, False)])
     message("Zigzag", [(1, "s32", F.TYPE_SINT32, False), (2, "s64", F.TYPE_SINT64, False)])
     pool.Add(fdp)
     return lambda name: message_factory.GetMessageClass(
@@ -217,7 +221,8 @@ def _protobuf_classes():
 
 
 PROTOBUF = [(api.AddGPURequest, dict(pod_name="p", namespace="ns", gpu_num=4,
-                                     is_entire_mount=True, idempotency_key="k")),
+                                     is_entire_mount=True, idempotency_key="k",
+                                     trace_context="0123456789abcdef0123456789abcdef-0123456789abcdef")),
             (api.AddGPURequest, dict(pod_name="p", gpu_num=-2)),
             (api.AddGPUResponse, dict(add_gpu_result=2, uuids=["GPU-a", "GPU-b"])),
             (api.RemoveGPURequest, dict(pod_name="p", namespace="ns", uuids=["a", "b"],

@@ -3,7 +3,7 @@
 ``FakeApiServer`` serves the pod calls of the core/v1 REST API over HTTPS
 (standard library only) from a ``FakeKubeClient`` of the port: get, list
 with label and field selectors (one namespace or all), create, delete,
-merge-patch, and watch as a stream of JSON lines. Errors are Status
+merge-patch, and watch as a stream of JSON lines; and the POST of an Event. Errors are Status
 objects with the API's codes (404, 409, 415). Every request is recorded as
 (method, path, query, body) and every TLS connection counted, so two
 clients can be held to the same wire.
@@ -38,6 +38,7 @@ from gpumounter_tpu_torch.k8s.errors import ApiError, ConflictError, NotFoundErr
 
 _POD = re.compile(r"^/api/v1/namespaces/(?P<ns>[^/]+)/pods/(?P<name>[^/]+)$")
 _PODS = re.compile(r"^/api/v1/(?:namespaces/(?P<ns>[^/]+)/)?pods$")
+_EVENTS = re.compile(r"^/api/v1/namespaces/(?P<ns>[^/]+)/events$")
 
 
 def selfsigned(directory: str, client: bool = False) -> tuple[str, str] | None:
@@ -149,6 +150,9 @@ class FakeApiServer:
                 return h._send(201, self.kube.create_pod(many["ns"], body))
             except ConflictError as exc:
                 raise ApiError(409, exc.message)
+        events = _EVENTS.match(path)
+        if events and h.command == "POST":
+            return h._send(201, self.kube.create_event(events["ns"], body))
         if many and h.command == "GET" and query.get("watch") == "true":
             return self._watch(h, many["ns"] or "", query)
         if many and h.command == "GET":
