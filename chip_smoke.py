@@ -75,7 +75,8 @@ Phases, each raising on failure (any failure exits non-zero):
       the checkpoint directory's filesystem (a ``tempfile.mkdtemp()``,
       removed after);
 7. dp x tp and expert parallelism (``parallel/``): 4 ranks started once
-   (``parallel.launch.run_ranks``) on a 2 x 2 ("data", "model") mesh, all
+   for this phase and the next (``parallel.launch.run_ranks``; each rank
+   runs phase 7's work, then phase 8's) on a 2 x 2 ("data", "model") mesh, all
    sharing the one card over gloo (NCCL refuses two ranks on one device;
    gloo's all-reduce takes CUDA tensors by way of the host). In them:
    ``entry.tp_checks`` (the dryrun's sharded sections at ``train_check``'s
@@ -90,7 +91,7 @@ Phases, each raising on failure (any failure exits non-zero):
    mesh, and each rank's step time, gloo all-reduce time and gradient
    sums' time;
 8. sequence and pipeline parallelism (``parallel/ring_attention.py``,
-   ``pipeline.py``, ``pipeline_train.py``): 4 ranks started once on the
+   ``pipeline.py``, ``pipeline_train.py``): phase 7's 4 ranks on the
    card over gloo (its point-to-point calls take no CUDA tensor, so the
    ring's shifts go by way of host buffers), with (data, seq) meshes of
    2 x 2 and 1 x 4 and a ("pipe",) mesh of 4. In them: ring attention on
@@ -223,7 +224,39 @@ Phases, each raising on failure (any failure exits non-zero):
        (500, neither GPU mounted);
     c. the costs on the card's host: fire() with nothing armed, one empty
        span, one audited record, and from these an estimate of the spans'
-       and records' share of one add.
+       and records' share of one add;
+14. the worker's durability on a live hot-mount, ``entry.durability_check``
+    through the master over gRPC as in phase 11, each worker's ledger in a
+    directory beside this script (the machine's disk, not the tmpfs):
+    a. what the ledger costs: 3 HTTP adds and removes of the live GPU with
+       the ledger and 3 without, in turns, each median with its runs, the
+       ledger's appends an add and a remove (2 each), one append's fsync,
+       and from these the ledger's share of an add;
+    b. worker.mount.after_grant=1*crash on a live add (500, one txn open);
+       a new ``GpuMountService`` over the same ledger and
+       ``LedgerResync.replay_once()`` (timed): one open txn,
+       replayed-completed, the GPU's node in the target's /dev, books ==
+       mounts == ledger; a tenant child (``--mount-child``) on that GPU runs
+       phase 3's first forward through ``flash_fwd`` (its launches counted
+       in the kernels line);
+    c. on the fake 8-GPU host, worker.mount.before_grant=1*crash on an add
+       of 2, the slave pods deleted before the restart: replayed-rolled-back,
+       no node, no booking, no open txn;
+    d. drain() from another thread while a live add is inside the namespace
+       helper (its mount.mknod span): the add finishes, a second add gets
+       UNAVAILABLE "worker draining", a reopened ledger reads a clean
+       shutdown with no open txn;
+    e. over real gRPC, an add with epoch 5 mounts, a remove with epoch 3
+       raises ``FencedError`` (tpumounter_fenced_writes_total + 1, nothing
+       changed), a master whose client stamps epoch 3 answers 503 with
+       Retry-After 1, and after a restart the ledger reads epoch 5 back;
+    f. on the fake host, a remove while the API refuses deletes: 200, the
+       release deferred into the ledger (the series + 1, one entry), the
+       queue emptied by ``retry_pending_releases()`` once healed; an owner
+       pod deleted: one ``SlaveReaper.reap_once()`` deletes its slave pod
+       and frees the GPU.
+    Cases a, b, d and e run on the card's own GPU: without CAP_MKNOD the
+    phase fails.
 
 The last lines are a JSON object per kernel (``{"kernels": [...]}``) and
 ``{"ok": true, "device": {...}}``, and the exit code is 0. A failing check
@@ -236,6 +269,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -268,7 +302,7 @@ from gpumounter_tpu_torch.entry import (ADD_TRACE, ADD_WORKER_SPANS, MOE_ROUTE_G
                                         RING_TOL, SHARDED_LOSS_ATOL, SHARDED_PARAM_OF_MAX,
                                         TRAIN_GRAD_ATOL, _check_equal_over, _masked_err,
                                         against_one_process, busy_health_check, cgroup_v2_check,
-                                        check_config,
+                                        check_config, durability_check,
                                         dryrun_multichip, grow_checks, has_cap_mknod,
                                         inventory_check, kernel_launches, make_identity,
                                         master_check, moe_blocks_vs_plain, moe_check,
@@ -1254,8 +1288,7 @@ def phase_serving_timings(cfg, params, prompt, graph_step_ms, card) -> None:
     gen = [host_ms(lambda: generate(params, prompt, cfg, n_new))[0] for _ in range(6)][1:]
     prefill_ms = _time_ms(lambda: prefill(params, prompt, cfg), 5, warmup=1)
     prefill_device_ms = _graph_ms([lambda: prefill(params, prompt, cfg)], calls=5)
-    eager = [host_ms(lambda: generate_loop(params, prompt, cfg, n_new, capture=False))[0]
-             for _ in range(3)]
+    eager = [host_ms(lambda: generate_loop(params, prompt, cfg, n_new, capture=False))[0]]
     eager_step_ms = (statistics.median(eager) - prefill_ms) / (n_new - 1)
     first, loop, reserved, enqueue, clocks = [], [], [], [], []
     for _ in range(3):
@@ -1990,20 +2023,42 @@ def _sharded_rank() -> dict:
     return out
 
 
-def phase_sharded(card: str) -> dict:
-    """Phase 7 (see the module's docstring): starts the 4 ranks once,
-    checks what they report, and returns the training kernels' launches
-    on its main path (every rank's sharded steps)."""
-    torch.cuda.empty_cache()  # this process's cache, for the ranks' sake
+def _parallel_rank() -> dict:
+    """One rank of phases 7 and 8, which share one world: phase 7's steps,
+    then phase 8's, so that the ranks start once for both."""
+    sharded = _sharded_rank()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"sharded": sharded, "seq_pipe": _seq_pipe_rank()}
+
+
+def phase_parallel(card: str) -> tuple[dict, dict]:
+    """Phases 7 and 8 (see the module's docstring) in one world of 4 ranks,
+    started once; returns each phase's training kernels' launches."""
     world = SHARDED["SHAPE"][0] * SHARDED["SHAPE"][1]
+    if (world, SHARDED["BACKEND"]) != (SEQ_PIPE["WORLD"], SEQ_PIPE["BACKEND"]):
+        raise RuntimeError(f"phases 7 and 8 share a world: {SHARDED} against {SEQ_PIPE}")
+    torch.cuda.empty_cache()  # this process's cache, for the ranks' sake
     t0 = time.perf_counter()
-    ranks = run_ranks(_sharded_rank, world, backend=SHARDED["BACKEND"], timeout_s=900.0)
+    ranks = run_ranks(_parallel_rank, world, backend=SHARDED["BACKEND"], timeout_s=900.0)
+    print(f"sharded and seq/pipeline: {world} ranks, one process each, all on "
+          f"{ranks[0]['sharded']['device']}, over {SHARDED['BACKEND']}, one world for phases 7 "
+          f"and 8: {time.perf_counter() - t0:.1f} s with the ranks' start", flush=True)
+    return (phase_sharded(card, [r["sharded"] for r in ranks]),
+            phase_seq_pipeline(card, [r["seq_pipe"] for r in ranks]))
+
+
+def phase_sharded(card: str, ranks: list) -> dict:
+    """Phase 7 (see the module's docstring): checks what the ranks
+    reported, and returns the training kernels' launches on its main path
+    (every rank's sharded steps)."""
+    world = len(ranks)
     label = (f"{world} ranks sharing one H100 over {SHARDED['BACKEND']}, not a {world}-GPU "
              f"figure; mesh {SHARDED['SHAPE']} (data, model) [{card}]")
     print(f"sharded: {world} ranks on a {SHARDED['SHAPE']} (data, model) mesh, one process "
           f"each, all on {ranks[0]['device']}, over {SHARDED['BACKEND']} (NCCL refuses two "
-          f"ranks on one device; gloo's all-reduce takes CUDA tensors by way of the host); "
-          f"{time.perf_counter() - t0:.1f} s with the ranks' start", flush=True)
+          f"ranks on one device; gloo's all-reduce takes CUDA tensors by way of the host)",
+          flush=True)
     total = dict.fromkeys(("flash_fwd", "dq", "dkv"), 0)
     for r in ranks:
         d = r["dialect"]
@@ -2249,20 +2304,16 @@ def _seq_pipe_rank() -> dict:
     return out
 
 
-def phase_seq_pipeline(card: str) -> dict:
-    """Phase 8 (see the module's docstring): starts the 4 ranks once,
-    prints what they measured, and returns the training kernels' launches
-    on its main path (every rank's dp x sp and pipeline steps)."""
-    torch.cuda.empty_cache()
-    world = SEQ_PIPE["WORLD"]
-    t0 = time.perf_counter()
-    ranks = run_ranks(_seq_pipe_rank, world, backend=SEQ_PIPE["BACKEND"], timeout_s=900.0)
+def phase_seq_pipeline(card: str, ranks: list) -> dict:
+    """Phase 8 (see the module's docstring): prints what the ranks
+    measured, and returns the training kernels' launches on its main path
+    (every rank's dp x sp and pipeline steps)."""
+    world = len(ranks)
     label = (f"{world} ranks sharing one H100 over {SEQ_PIPE['BACKEND']}, not a {world}-GPU "
              f"figure [{card}]")
     print(f"seq/pipeline: {world} ranks, one process each, all on {ranks[0]['device']}, over "
           f"{SEQ_PIPE['BACKEND']} (point-to-point by way of host buffers: gloo's send and recv "
-          f"take no CUDA tensor); {time.perf_counter() - t0:.1f} s with the ranks' start",
-          flush=True)
+          f"take no CUDA tensor)", flush=True)
     total = dict.fromkeys(("flash_fwd", "dq", "dkv"), 0)
     b, h, l, d = FULL["B"], FULL["H"], FULL["L"], FULL["D"]
     for r in ranks:
@@ -2993,6 +3044,87 @@ def phase_obs(card: str, master_live: dict) -> None:
     print(f"time obs phase 13: {time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
 
 
+# --- phase 14: the worker's durability on a live hot-mount ---
+
+def phase_durability(card: str) -> int:
+    """Phase 14: ``entry.durability_check`` on the card (see the module's
+    docstring), every case printed on a line of its own. Returns the
+    flash_fwd launches of the tenant child on the replayed GPU."""
+    t_phase = time.perf_counter()
+    children = []
+
+    def on_replayed(uuids, target):
+        visible = gpus_visible_in_dev(target)
+        if visible != 1:
+            raise RuntimeError(f"gpus_visible_in_dev({target}) = {visible} after the replay "
+                               f"of {uuids}")
+        children.append({**_tenant_child(uuids[0]), "visible_in_dev": visible})
+
+    ledger_root = os.path.dirname(os.path.abspath(__file__))
+    with _tenant_target("phase14") as (dev_dir, cgroup_dir):
+        report = durability_check("cuda", dev_dir=dev_dir, ns_pid=os.getpid(),
+                                  cgroup_dirs=[cgroup_dir] if cgroup_dir else (),
+                                  identity=pick_identity(), fake_gpus=MOUNT["FAKE_GPUS"],
+                                  repeats=MOUNT["REPEATS"], ledger_root=ledger_root,
+                                  on_replayed=on_replayed)
+    flows, where = report["live"], "the live GPU"
+    if flows is None or len(children) != 1:
+        raise RuntimeError(f"phase 14 ran no live replay with its tenant child on the card: "
+                           f"live {flows is not None}, {len(children)} child(ren)")
+    child = children[0]
+    cost = flows["cost"]
+    fsync_ms = statistics.median(cost["fsync_us"]) / 1e3
+    add_with, add_without = (statistics.median(cost[c]["add_ms"]) for c in ("with", "without"))
+    appends = statistics.median(cost["appends_add"])
+    print(f"time durability ledger cost on {where}, ledger in {ledger_root} "
+          f"({_filesystem(ledger_root)}): HTTP add with the ledger "
+          f"{_runs(cost['with']['add_ms'])}, without {_runs(cost['without']['add_ms'])}; "
+          f"remove with {_runs(cost['with']['remove_ms'])}, without "
+          f"{_runs(cost['without']['remove_ms'])}; appends an add {cost['appends_add']}, a "
+          f"remove {cost['appends_remove']}; one append's fsync {fsync_ms * 1e3:.1f} us "
+          f"(median of {len(cost['fsync_us'])}, runs {min(cost['fsync_us']):.1f}-"
+          f"{max(cost['fsync_us']):.1f}); the ledger's share of an add: from the fsyncs "
+          f"{100 * appends * fsync_ms / add_with:.2f}%, from the medians' difference "
+          f"{100 * (add_with - add_without) / add_with:.2f}% [{card}]", flush=True)
+    fwd = flows["forward"]
+    print(f"durability crash after the grant on {where}: the add answered "
+          f"{fwd['crash_status']} in {fwd['crash_ms']:.3f} ms with 1 txn open; a new "
+          f"GpuMountService over the same ledger, replay_once() {fwd['replay_ms']:.3f} ms: "
+          f"open {fwd['summary']['open']}, replayed-completed "
+          f"{len(fwd['summary']['completed'])}; {fwd['uuids']} in the target's /dev "
+          f"(gpus_visible_in_dev {child['visible_in_dev']}); books == mounts == ledger; the "
+          f"tenant child on {child['uuid']} ({child['device']}): flash_fwd "
+          f"{child['launches']['flash_fwd']} launch(es), nll {child['nll']:.4f} [{card}]",
+          flush=True)
+    rb = report["rolled_back"]
+    print(f"durability crash before the grant on the fake host of {MOUNT['FAKE_GPUS']}: add "
+          f"of 2 answered 500 in {rb['crash_ms']:.3f} ms; {rb['slaves_deleted']} slave pod(s) "
+          f"deleted while the worker was down; replay_once() {rb['replay_ms']:.3f} ms: open "
+          f"{rb['summary']['open']}, replayed-rolled-back {len(rb['summary']['rolled_back'])}; "
+          f"no node, no booking, no open txn [{card}]", flush=True)
+    dr = flows["drain"]
+    print(f"durability drain on {where}: drain() called while the add was inside "
+          f"mount.mknod returned clean in {dr['drain_ms']:.3f} ms; the add answered 200 in "
+          f"{dr['add_ms']:.3f} ms; the next add: {dr['refused']!r}; the reopened ledger reads "
+          f"a clean shutdown and no open txn [{card}]", flush=True)
+    fe = flows["fence"]
+    print(f"durability fencing on {where} over gRPC: add with epoch 5 in {fe['add_ms']:.3f} "
+          f"ms; remove with epoch 3 refused in {fe['fenced_ms']:.3f} ms ({fe['refusal']!r}), "
+          f"tpumounter_fenced_writes_total + 1, nothing changed; the stale master answered "
+          f"{fe['master'][0]} with Retry-After 1; after a restart the ledger reads epoch "
+          f"{fe['epoch_after_restart']} [{card}]", flush=True)
+    df = report["deferred"]
+    print(f"durability deferred release on the fake host: the remove while deletes answer "
+          f"503 took {df['remove_ms']:.3f} ms (3 attempts), answered 200, "
+          f"tpumounter_slave_release_deferred_total + {df['deferred']:.0f}, 1 entry pending; "
+          f"healed, retry_pending_releases() emptied it in {df['retry_ms']:.3f} ms; the "
+          f"owner pod deleted, reap_once() deleted {df['reaped']} in {df['reap_ms']:.3f} ms "
+          f"and the GPU is free [{card}]", flush=True)
+    print(f"time durability phase 14: {time.perf_counter() - t_phase:.1f} s [{card}]",
+          flush=True)
+    return child["launches"]["flash_fwd"]
+
+
 def phase_forward_timing(cfg, params, tokens, card, what="forward") -> None:
     fwd_ms = _time_ms(lambda: forward(params, tokens, cfg), 5, warmup=1)
     tok_s = tokens.numel() / (fwd_ms / 1e3)
@@ -3031,17 +3163,26 @@ def main() -> int:
 def _phases(stage: list, t0: float) -> None:
     """Every phase in order; the name of each is appended to `stage` before
     it runs, so that a failure names it. t0: the script's start (host
-    clock), for the whole run's time."""
+    clock), for the whole run's time. Each phase's time (host clock) is
+    printed as the next begins."""
+    began = [t0]
+
+    def begin(name: str) -> None:
+        now = time.perf_counter()
+        print(f"time phase {stage[-1]}: {now - began[0]:.1f} s", flush=True)
+        began[0] = now
+        stage.append(name)
+
     torch.backends.cuda.matmul.allow_tf32 = False
     card = _card()
     phase_build(card)
-    stage.append("2 (kernels against their plain versions)")
+    begin("2 (kernels against their plain versions)")
     gen = torch.Generator(device="cuda").manual_seed(0)
     max_abs_err = phase_kernel_vs_plain(gen)
     decode_err = phase_decode_vs_plain(gen)
     bwd_errs = phase_bwd_vs_plain(gen)
 
-    stage.append("3 (dense main paths: forward, serving)")
+    begin("3 (dense main paths: forward, serving)")
     cfg = full_width_config()
     params = init_params(cfg, torch.Generator().manual_seed(0), "cuda")
     rng = np.random.default_rng(0)
@@ -3050,13 +3191,13 @@ def _phases(stage: list, t0: float) -> None:
     launches = phase_main_path(cfg, params, batches)
     prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (SERVE["B"], SERVE["T0"]))).cuda()
     prefill_launches, decode_launches, tokens, ref = phase_serving(cfg, params, prompt)
-    stage.append("4 (captured decode step, then the MoE paths)")
+    begin("4 (captured decode step, then the MoE paths)")
     graph_step_ms = phase_graph(cfg, params, tokens, ref, card)
     del ref
-    stage.append("3 (dense training)")
+    begin("3 (dense training)")
     train_fwd, train_dq, train_dkv = phase_train(cfg, params, batches)
 
-    stage.append("4 (the MoE paths)")
+    begin("4 (the MoE paths)")
     moe_cfg = full_width_config(n_experts=MOE_EXPERTS)
     moe_params = init_params(moe_cfg, torch.Generator().manual_seed(0), "cuda")
     moe_ffn_err = phase_moe_ffn_vs_plain(gen)
@@ -3066,7 +3207,7 @@ def _phases(stage: list, t0: float) -> None:
     del moe_ref
     moe_fwd, moe_dq, moe_dkv = phase_moe_train(moe_cfg, moe_params, batches)
 
-    stage.append("5 (timings)")
+    begin("5 (timings)")
     times = phase_timings(gen, cfg, params, batches[0], card)
     bwd_times = phase_bwd_timings(gen, card)
     phase_train_timings(cfg, params, batches[0], card)
@@ -3078,27 +3219,28 @@ def _phases(stage: list, t0: float) -> None:
     phase_train_profile(moe_cfg, moe_params, batches[0], card)
     phase_serving_timings(moe_cfg, moe_params, prompt, moe_graph_ms, card)
     del moe_params, params
-    stage.append("6 (the handoff)")
+    begin("6 (the handoff)")
     handoff_launches, handoff_ready_ms = phase_handoff(card)
-    stage.append("7 (dp x tp and expert parallelism, 4 ranks sharing the card)")
-    sharded_launches = phase_sharded(card)
-    stage.append("8 (sequence and pipeline parallelism, 4 ranks sharing the card)")
-    seq_pipe_launches = phase_seq_pipeline(card)
-    stage.append("9 (the mesh-growing hot-add and the multichip dryrun, ranks sharing the card)")
+    begin("7 and 8 (dp x tp and expert parallelism, then sequence and pipeline "
+                 "parallelism, in one world of 4 ranks sharing the card)")
+    sharded_launches, seq_pipe_launches = phase_parallel(card)
+    begin("9 (the mesh-growing hot-add and the multichip dryrun, ranks sharing the card)")
     grow_launches = phase_grow(card)
     dryrun_launches = phase_dryrun(card)
-    stage.append("10 (the hot-mount on the card)")
+    begin("10 (the hot-mount on the card)")
     mount_report = phase_mount(card)
-    stage.append("11 (the hot-mount through the master)")
+    begin("11 (the hot-mount through the master)")
     mount_launches, master_live = phase_master(card, mount_report, handoff_ready_ms)
-    stage.append("12 (the cgroup v2 device controller)")
+    begin("12 (the cgroup v2 device controller)")
     v2_launches = phase_cgroup_v2(card)
-    stage.append("13 (tracing, audit and failpoints on a live hot-mount)")
+    begin("13 (tracing, audit and failpoints on a live hot-mount)")
     phase_obs(card, master_live)
+    begin("14 (the worker's durability on a live hot-mount)")
+    durability_launches = phase_durability(card)
     sharded = {k: sharded_launches[k] + seq_pipe_launches[k] + grow_launches[k]
                + dryrun_launches[k] for k in sharded_launches}
 
-    stage.append("the kernels line")
+    begin("the kernels line")
     print(f"launches on the main paths: flash_fwd {launches} (forward) + "
           f"{prefill_launches} (prefill) + {train_fwd} (training), flash_decode "
           f"{decode_launches}, flash_bwd dq {train_dq} and dk/dv {train_dkv} (training); "
@@ -3112,8 +3254,9 @@ def _phases(stage: list, t0: float) -> None:
           f"(every rank's sharded steps): {dryrun_launches}; the hot-mount's tenant children "
           f"(phase 11: on the UUID the HTTP add mounted, and the slice's on the UUID /addslice "
           f"mounted): flash_fwd {mount_launches}; the "
-          f"cgroup v2 round trip's tenant (phase 12): flash_fwd {v2_launches}", flush=True)
-    print(f"chip_smoke: phases 1-13 took {time.perf_counter() - t0:.1f} s, the kernels' build "
+          f"cgroup v2 round trip's tenant (phase 12): flash_fwd {v2_launches}; the replayed "
+          f"GPU's tenant (phase 14): flash_fwd {durability_launches}", flush=True)
+    print(f"chip_smoke: phases 1-14 took {time.perf_counter() - t0:.1f} s, the kernels' build "
           f"included [{card}]", flush=True)
     bwd_source = "gpumounter_tpu_torch/ops/csrc/flash_bwd.cu"
     print(json.dumps({"kernels": [{
@@ -3122,7 +3265,7 @@ def _phases(stage: list, t0: float) -> None:
         "replaces": "gpumounter_tpu/ops/flash_attention.py:84",
         "launches": (launches + prefill_launches + train_fwd + moe_launches + moe_prefill
                      + moe_fwd + handoff_launches["flash_fwd"] + sharded["flash_fwd"]
-                     + mount_launches + v2_launches),
+                     + mount_launches + v2_launches + durability_launches),
         "max_abs_err": max_abs_err, **times}, {
         "name": "flash_bwd_dq", "route": "cuda", "source": bwd_source,
         "replaces": "gpumounter_tpu/ops/flash_attention.py:182",

@@ -3,7 +3,8 @@
 The counterpart of ``gpumounter_tpu/config/config.py``, holding only the
 fields the device layer, the collector, the allocator, the cgroup layer, the
 mounter, the transport, the master (with its slice and batch routes and their
-fan-out core), the observability stores and the two daemons read. Every field is an environment
+fan-out core), the observability stores, the worker's ledger and drain, and the two daemons
+read. Every field is an environment
 variable with the original GPUMounter's value as default; the names are the reference's where the
 meaning is the same. NVIDIA-specific: the resource ``nvidia.com/gpu``
 (``pkg/util/gpu/types.go:10``), the pool namespace ``gpu-pool``
@@ -136,3 +137,20 @@ class Config:
     flight_capacity: int = field(default_factory=lambda: int(_env(
         "TPUMOUNTER_FLIGHT_CAPACITY", "4096")))
     flight_jsonl: str = field(default_factory=lambda: _env("TPUMOUNTER_FLIGHT_JSONL", ""))
+
+    # --- the worker's durability (worker/ledger.py, resync.py, server.py) ---
+    # the fsync'd mount ledger's directory ("": no ledger, no replay; the
+    # DaemonSet mounts a hostPath here) and the size past which it is
+    # compacted into a snapshot, the open transactions and the epoch
+    ledger_dir: str = field(default_factory=lambda: _env("TPUMOUNTER_LEDGER_DIR", ""))
+    ledger_max_bytes: int = field(default_factory=lambda: int(_env(
+        "TPUMOUNTER_LEDGER_MAX_BYTES", str(4 * 1024 * 1024))))
+    # SIGTERM: how long the drain waits for the batches in flight before it
+    # closes the ledger (new mutations are refused UNAVAILABLE from then on)
+    drain_timeout_s: float = field(default_factory=lambda: float(_env(
+        "WORKER_DRAIN_TIMEOUT_S", "20")))
+    # a slave pod's delete after an unmount is tried this many times; what
+    # still stands is deferred into the ledger's queue (or, without a
+    # ledger, counted as leaked)
+    slave_release_attempts: int = field(default_factory=lambda: int(_env(
+        "SLAVE_RELEASE_ATTEMPTS", "3")))

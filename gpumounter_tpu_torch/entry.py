@@ -7,8 +7,10 @@ stretch over an H100 topology plan (``dryrun_multichip``); the
 hot-add that grows a job's mesh (``grow_check``); the control plane's
 one-node hot-mount of a GPU into a pod (``mount_check``), through the
 master (``master_check``), the master's slice and batch routes over a fleet
-of nodes (``slice_check``), and the cgroup v2 device controller on this
-host's GPU (``cgroup_v2_check``)."""
+of nodes (``slice_check``), the cgroup v2 device controller on this
+host's GPU (``cgroup_v2_check``), the trace, audit and failpoint core
+(``obs_check``), and the worker's durability: its ledger, the replay after a
+death, the drain, the fence and the reaper (``durability_check``)."""
 
 from __future__ import annotations
 
@@ -73,13 +75,16 @@ from gpumounter_tpu_torch.rpc.client import WorkerClient
 from gpumounter_tpu_torch.rpc.resilience import RPC_RETRIES
 from gpumounter_tpu_torch.testing import v2tenant
 from gpumounter_tpu_torch.testing.bpf import FakeBpf
-from gpumounter_tpu_torch.testing.cluster import FakeCluster
+from gpumounter_tpu_torch.testing.cluster import FakeCluster, WorkerServers
 from gpumounter_tpu_torch.topology import lookup
 from gpumounter_tpu_torch.torchside.resume import (HotResumable, load_optimizer_state,
                                                    optimizer_state_specs, optimizer_state_tree)
 from gpumounter_tpu_torch.utils.fanout import FANOUT_TASKS
 from gpumounter_tpu_torch.utils.metrics import MOUNT_ROLLBACK_FAILURES
-from gpumounter_tpu_torch.worker.server import ServiceError, build_server
+from gpumounter_tpu_torch.worker.ledger import LEDGER_APPENDS, MountLedger
+from gpumounter_tpu_torch.worker.reaper import SlaveReaper
+from gpumounter_tpu_torch.worker.server import (FENCED_WRITES, SLAVE_RELEASE_DEFERRED,
+                                                ServiceError)
 
 TRAIN_GRAD_ATOL = 5e-3  # the reference's kernel-vs-xla grad limit
 # The dryrun's limits: a sharded first-step loss against the unsharded loss
@@ -1585,30 +1590,38 @@ class _MasterStack:
     `dev_dirs[node]`. Node i's worker registers at 10.0.0.<i + 1>; every
     server listens on 127.0.0.1, so the master's worker_client_factory is
     its default client with a registered IP mapped to its server's port.
-    Stops all it started on exit."""
+    ``restart(node)`` replaces a node's worker by a new one over the same
+    ledger, as after its death. Stops all it started on exit."""
 
     def __init__(self, cluster: FakeCluster, dev_dirs: dict[str, str], ns_pid: int | None = None,
                  cgroup_dirs=()):
         self.cluster, self.cfg, self.token = cluster, cluster.cfg, cluster.cfg.auth_token
-        self.services, self.servers, self.port_by_ip = {}, [], {}
+        self.dev_dirs, self.ns_pid, self.cgroup_dirs = dev_dirs, ns_pid, cgroup_dirs
+        self.workers = WorkerServers(self._service)
+        self.services = self.workers.services
         for i, node in enumerate(cluster.node_names):
-            service = cluster.service(dev_dirs[node], ns_pid=ns_pid, cgroup_dirs=cgroup_dirs,
-                                      kubelet="grpc", node=node)
-            server = build_server(service, address="127.0.0.1:0")
-            server.start()
-            self.services[node] = service
-            self.servers.append(server)
-            ip = f"10.0.0.{i + 1}"
-            self.port_by_ip[ip] = server.bound_port
-            cluster.register_worker(ip, node=node)
+            self.workers.start(node, f"10.0.0.{i + 1}")
+            cluster.register_worker(self.workers.ip_by_node[node], node=node)
         self.app = MasterApp(cluster.kube, cfg=self.cfg, worker_client_factory=lambda address: (
-            WorkerClient(f"127.0.0.1:{self.port_by_ip[address.rsplit(':', 1)[0]]}",
+            WorkerClient(self.workers.local_address(address),
                          token=self.token, cfg=self.cfg, breaker=self.app.registry.breaker,
                          channel_pool=self.app.registry.channel_pool)))
         self.httpd = build_http_server(self.app, port=0, host="127.0.0.1")
         threading.Thread(target=self.httpd.serve_forever, name="master-http",
                          daemon=True).start()
         self.base = f"http://127.0.0.1:{self.httpd.server_address[1]}"
+
+    def _service(self, node: str):
+        return self.cluster.service(self.dev_dirs[node], ns_pid=self.ns_pid,
+                                    cgroup_dirs=self.cgroup_dirs, kubelet="grpc", node=node)
+
+    def restart(self, node: str) -> tuple[dict, float]:
+        """``WorkerServers.restart`` of the node, the master's pooled channel
+        to the old server dropped."""
+        return self.workers.restart(node, self.app.registry.channel_pool)
+
+    def client(self, node: str):
+        return self.app._client_factory(self.app.registry.worker_address(node))
 
     def __enter__(self):
         return self
@@ -1617,8 +1630,7 @@ class _MasterStack:
         self.httpd.shutdown()
         self.httpd.server_close()
         self.app.registry.stop()
-        for server in self.servers:
-            server.stop(None).wait()
+        self.workers.stop()
         self.cluster.stop()
         return False
 
@@ -2159,7 +2171,9 @@ def _v1_revoked(cgroup_dir: str, held: list | None, before: list | None, rule: s
     was revoked on `cgroup_dir`; raises where something shows it was not.
     `held` and `before` are the cgroup's devices.list while an add held the
     GPU and after its remove. Where devices.list showed that grant, it must
-    read as `before` after the rollback, without the rule. Where it did not
+    hold `before`'s rules after the rollback (in any order: the list is a
+    set of rules, and a kernel may list them anew), without the rule. Where
+    it did not
     (a host that allows "a *:* rwm" hides any one rule), the revoke is not
     verified. Without a devices.list (a stand-in of the v1 files), the
     stand-in's devices.deny holds the last rule written, which must be the
@@ -2168,7 +2182,7 @@ def _v1_revoked(cgroup_dir: str, held: list | None, before: list | None, rule: s
     if after is not None:
         if held is None or not any(line.startswith(rule) for line in held):
             return f"not verified: devices.list did not show the grant (it read {held})"
-        if after != before or any(line.startswith(rule) for line in after):
+        if sorted(after) != sorted(before) or any(line.startswith(rule) for line in after):
             raise RuntimeError(f"{cgroup_dir}/devices.list after the rollback: {after}, before "
                                f"the add {before}; expected no {rule.strip()!r} and no change")
         return f"devices.list as before the add, without {rule.strip()!r}"
@@ -2378,7 +2392,7 @@ def obs_check(device="cuda", *, dev_dir: str | None = None, ns_pid: int | None =
     report = {"cap_mknod": has_cap_mknod(), "live": None, "fake": None}
     root = tempfile.mkdtemp(prefix="obs-check-")
     try:
-        if device.type == "cuda" and report["cap_mknod"]:
+        if device.type == "cuda":
             cluster = FakeCluster(NvidiaDeviceBackend("/dev", identity=make_identity(identity)),
                                   cfg=cfg)
             target, dirs = _live_target(root, dev_dir, cgroup_dirs)
@@ -2395,4 +2409,411 @@ def obs_check(device="cuda", *, dev_dir: str | None = None, ns_pid: int | None =
     finally:
         shutil.rmtree(root, ignore_errors=True)
     report["costs"] = _obs_costs()
+    return report
+
+
+# --- the worker's durability: the ledger, its replay, the reaper, the drain, the fence ---
+
+#: durability_check's fsync loop: appends timed in the ledger's directory
+FSYNC_ITERS = 20
+
+
+def _appends() -> float:
+    return LEDGER_APPENDS.total()
+
+
+def _fsync_us(directory: str, n: int = FSYNC_ITERS) -> list[float]:
+    """One ledger line's fsync in `directory`, `n` times (us, host clock):
+    what an append costs beyond its write(2)."""
+    path = os.path.join(directory, "fsync-probe.jsonl")
+    fd = os.open(path, os.O_WRONLY | os.O_CREAT | os.O_APPEND, 0o600)
+    out = []
+    try:
+        for i in range(n):
+            os.write(fd, json.dumps({"kind": "probe", "i": i}).encode() + b"\n")
+            t0 = time.perf_counter()
+            os.fsync(fd)
+            out.append((time.perf_counter() - t0) * 1e6)
+    finally:
+        os.close(fd)
+        os.unlink(path)
+    return out
+
+
+def _ledger_of(service, ledger) -> None:
+    """Attach `ledger` (or None) to the service and its mounter."""
+    service.ledger = service.mounter.ledger = ledger
+
+
+def _ledger_cost(stack: _MasterStack, pod, dev_dir: str, repeats: int, live: bool) -> dict:
+    """(a) `repeats` HTTP adds and removes of 1 GPU with the ledger and as
+    many without it, in turns (with, without, ...): each request's ms, the
+    ledger's appends per add and per remove, and one append's fsync (us) in
+    the ledger's directory."""
+    cluster, node = stack.cluster, pod.node_name
+    service = stack.services[node]
+    ledger = service.ledger
+    free = cluster.free_gpu_count(node)
+    out = {"with": {"add_ms": [], "remove_ms": []}, "without": {"add_ms": [], "remove_ms": []},
+           "appends_add": [], "appends_remove": []}
+    try:
+        for _ in range(repeats):
+            for case in ("with", "without"):
+                _ledger_of(service, ledger if case == "with" else None)
+                before = _appends()
+                status, text, add_ms = stack.http("GET", _add_path(pod, 1))
+                if (status, text) != (200, "Add GPU Success\n"):
+                    raise RuntimeError(f"add {case} the ledger: {status} {text!r}")
+                added = _appends()
+                uuids = stack.held(node, pod)
+                _check_nodes(cluster.node(node).backend, uuids, dev_dir, live)
+                status, text, rm_ms = stack.http("POST", _remove_path(pod),
+                                                 {"uuids": ",".join(uuids)})
+                if status != 200:
+                    raise RuntimeError(f"remove {case} the ledger: {status} {text!r}")
+                _no_gpu_node(cluster, node, dev_dir, f"the remove {case} the ledger")
+                _released(cluster, pod, free)
+                out[case]["add_ms"].append(add_ms)
+                out[case]["remove_ms"].append(rm_ms)
+                if case == "with":
+                    out["appends_add"].append(added - before)
+                    out["appends_remove"].append(_appends() - added)
+    finally:
+        _ledger_of(service, ledger)
+    if set(out["appends_add"]) != {2} or set(out["appends_remove"]) != {2}:
+        raise RuntimeError(f"ledger appends: {out['appends_add']} an add, "
+                           f"{out['appends_remove']} a remove; 2 each expected")
+    out["fsync_us"] = _fsync_us(ledger.directory)
+    if ledger.open_transactions():
+        raise RuntimeError(f"open txns after the round trips: {ledger.open_transactions()}")
+    return out
+
+
+def _books_mounts_ledger(stack: _MasterStack, pod, dev_dir: str) -> list[str]:
+    """The pod's GPUs, checked equal in the books, in `dev_dir` and in the
+    node's ledger (with no open txn); returns them."""
+    node = pod.node_name
+    ledger = stack.services[node].ledger
+    books = sorted(stack.held(node, pod))
+    mounts = sorted(d.uuid for d in stack.cluster.node(node).backend.list_devices()
+                    if os.path.lexists(os.path.join(dev_dir, d.basename)))
+    held = sorted(ledger.net_holdings().get((pod.namespace, pod.name), set()))
+    if not (books == mounts == held) or ledger.open_transactions():
+        raise RuntimeError(f"books {books}, mounts {mounts}, ledger {held}, open txns "
+                           f"{ledger.open_transactions()}")
+    return books
+
+
+def _crash_replayed_forward(stack: _MasterStack, pod, dev_dir: str, live: bool,
+                            on_replayed=None) -> dict:
+    """(b) worker.mount.after_grant=1*crash on an HTTP add (500, one txn
+    open), the worker restarted over its ledger and replayed: one open txn,
+    replayed-completed, the GPU's node in `dev_dir`, books == mounts ==
+    ledger; on_replayed(uuids, dev_dir); then the remove."""
+    cluster, node = stack.cluster, pod.node_name
+    free = cluster.free_gpu_count(node)
+    with failpoints.armed({"worker.mount.after_grant": "1*crash(a worker death after the grant)"}):
+        crash_status, text, crash_ms = stack.http("GET", _add_path(pod, 1))
+    open_txns = len(stack.services[node].ledger.open_transactions())
+    if crash_status != 500 or open_txns != 1:
+        raise RuntimeError(f"the crashed add: {crash_status} {text!r}, {open_txns} open txn(s)")
+    summary, replay_ms = stack.restart(node)
+    if (summary["open"], len(summary["completed"]), len(summary["rolled_back"])) != (1, 1, 0):
+        raise RuntimeError(f"the replay after the crash: {summary}")
+    uuids = _books_mounts_ledger(stack, pod, dev_dir)
+    if len(uuids) != 1:
+        raise RuntimeError(f"{uuids} held after the replayed add of 1")
+    _check_nodes(cluster.node(node).backend, uuids, dev_dir, live)
+    child = on_replayed(uuids, dev_dir) if on_replayed is not None else None
+    status, text, _ = stack.http("POST", _remove_path(pod), {"uuids": ",".join(uuids)})
+    if status != 200:
+        raise RuntimeError(f"remove of the replayed GPU: {status} {text!r}")
+    _released(cluster, pod, free)
+    return {"crash_status": crash_status, "crash_ms": crash_ms, "summary": summary,
+            "replay_ms": replay_ms, "uuids": uuids, "child": child}
+
+
+class _StampedClient:
+    """A worker client that stamps one epoch on every mutation: a master
+    replica whose view of the node's owner is old."""
+
+    def __init__(self, client, epoch: int):
+        self.client, self.epoch = client, epoch
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.client.close()
+        return False
+
+    def add_gpu(self, *args, **kwargs):
+        return self.client.add_gpu(*args, epoch=self.epoch, **kwargs)
+
+    def remove_gpu(self, *args, **kwargs):
+        return self.client.remove_gpu(*args, epoch=self.epoch, **kwargs)
+
+
+def _fenced(stack: _MasterStack, pod, dev_dir: str, live: bool) -> dict:
+    """(e) over gRPC: an add with epoch 5 mounts; a remove with epoch 3
+    raises FencedError, moves tpumounter_fenced_writes_total by 1 and
+    changes nothing; the master whose client stamps epoch 3 answers 503
+    with Retry-After 1; after a restart the ledger reads epoch 5 back; the
+    remove with epoch 5 goes through."""
+    from gpumounter_tpu_torch.rpc.resilience import FencedError
+    cluster, node = stack.cluster, pod.node_name
+    free = cluster.free_gpu_count(node)
+    with stack.client(node) as client:
+        t0 = time.perf_counter()
+        added = client.add_gpu(pod.name, pod.namespace, 1, epoch=5)
+        add_ms = (time.perf_counter() - t0) * 1e3
+        if added.add_gpu_result != AddGPUResult.Success:
+            raise RuntimeError(f"add with epoch 5: {added}")
+        fenced0 = FENCED_WRITES.total()
+        t0 = time.perf_counter()
+        try:
+            client.remove_gpu(pod.name, pod.namespace, list(added.uuids), epoch=3)
+        except FencedError as exc:
+            fenced_ms, refusal = (time.perf_counter() - t0) * 1e3, str(exc)
+        else:
+            raise RuntimeError("a remove with the stale epoch 3 went through")
+    if FENCED_WRITES.total() - fenced0 != 1 or stack.held(node, pod) != list(added.uuids):
+        raise RuntimeError(f"the fenced remove: {FENCED_WRITES.total() - fenced0} fenced, "
+                           f"{stack.held(node, pod)} held")
+    stale = MasterApp(cluster.kube, cfg=stack.cfg, worker_client_factory=lambda address:
+                      _StampedClient(stack.app._client_factory(address), 3))
+    try:
+        status, _, text, headers = stale.handle(
+            "POST", _remove_path(pod), urllib.parse.urlencode({"uuids": added.uuids[0]}).encode(),
+            {"Authorization": f"Bearer {stack.token}"})
+    finally:
+        stale.registry.stop()
+    if (status, headers.get("Retry-After")) != (503, "1") or \
+            stack.held(node, pod) != list(added.uuids):
+        raise RuntimeError(f"the stale master's remove: {status} {headers} {text!r}")
+    stack.restart(node)
+    epoch = stack.services[node].ledger.epoch()
+    if epoch != 5:
+        raise RuntimeError(f"the restarted worker's ledger reads epoch {epoch}, not 5")
+    with stack.client(node) as client:
+        removed = client.remove_gpu(pod.name, pod.namespace, list(added.uuids), epoch=5)
+    if removed.remove_gpu_result != RemoveGPUResult.Success:
+        raise RuntimeError(f"remove with epoch 5 after the restart: {removed}")
+    _no_gpu_node(cluster, node, dev_dir, "the remove with epoch 5")
+    _released(cluster, pod, free)
+    return {"add_ms": add_ms, "fenced_ms": fenced_ms, "refusal": refusal,
+            "master": (status, text.strip()), "epoch_after_restart": epoch}
+
+
+def _drain_during_add(stack: _MasterStack, pod, dev_dir: str, live: bool) -> dict:
+    """(d) an HTTP add, and drain() called from another thread once the add
+    is inside the namespace helper (its mount.mknod span open): the add
+    finishes (200), drain returns True, a second add over gRPC gets
+    UNAVAILABLE "worker draining", and a reopened ledger reads a clean
+    shutdown with no open txn. Then a new worker removes the GPU."""
+    from gpumounter_tpu_torch.rpc.resilience import WorkerUnavailableError
+    cluster, node = stack.cluster, pod.node_name
+    service = stack.services[node]
+    free = cluster.free_gpu_count(node)
+    answer: dict = {}
+
+    def add():
+        answer["http"] = stack.http("GET", _add_path(pod, 1))
+
+    drained: dict = {}
+
+    def drain():
+        t0 = time.perf_counter()
+        drained["clean"] = service.drain(timeout_s=20.0)
+        drained["ms"] = (time.perf_counter() - t0) * 1e3
+
+    # a fake node's mknod is in process and takes microseconds: there the
+    # site holds the add inside the span; the live helper takes ~80 ms
+    hold = {} if live else {"worker.mount.mknod": "1*delay(0.2)"}
+    with failpoints.armed(hold):
+        adder = threading.Thread(target=add, name="drained-add")
+        adder.start()
+        deadline = time.monotonic() + 60
+        while "mount.mknod" not in trace.TRACER.open_spans():
+            if time.monotonic() > deadline or not adder.is_alive():
+                adder.join(60)
+                raise RuntimeError(f"the add never reached mount.mknod: {answer}")
+            time.sleep(0.0005)
+        drainer = threading.Thread(target=drain, name="drain")
+        drainer.start()
+        drainer.join(60)
+        adder.join(60)
+    if adder.is_alive() or drainer.is_alive():
+        raise RuntimeError("the add or the drain did not end")
+    status, text, add_ms = answer["http"]
+    if (status, text) != (200, "Add GPU Success\n") or not drained.get("clean"):
+        raise RuntimeError(f"the add during the drain: {status} {text!r}; drain {drained}")
+    with stack.client(node) as client:
+        try:
+            client.add_gpu(pod.name, pod.namespace, 1)
+        except WorkerUnavailableError as exc:
+            refused = str(exc)
+        else:
+            raise RuntimeError("an add after the drain went through")
+    if "worker draining" not in refused:
+        raise RuntimeError(f"the add after the drain: {refused}")
+    reopened = MountLedger(service.ledger.directory)
+    clean, open_txns = reopened.was_clean_shutdown(), reopened.open_transactions()
+    reopened.abandon()
+    if not clean or open_txns:
+        raise RuntimeError(f"the drained ledger: clean {clean}, open txns {open_txns}")
+    uuids = stack.held(node, pod)
+    _check_nodes(cluster.node(node).backend, uuids, dev_dir, live)
+    summary, _ = stack.restart(node)
+    if summary["open"]:
+        raise RuntimeError(f"the replay after a clean drain: {summary}")
+    status, text, _ = stack.http("POST", _remove_path(pod), {"uuids": ",".join(uuids)})
+    if status != 200:
+        raise RuntimeError(f"remove after the drain: {status} {text!r}")
+    _released(cluster, pod, free)
+    return {"add_ms": add_ms, "drain_ms": drained["ms"], "refused": refused}
+
+
+def _crash_rolled_back(stack: _MasterStack, pod, dev_dir: str) -> dict:
+    """(c) worker.mount.before_grant=1*crash on an add of 2 (500, one txn
+    open), the slave pods deleted while the worker is down, the restart and
+    the replay: replayed-rolled-back, no node, no booking, no open txn."""
+    cluster, node = stack.cluster, pod.node_name
+    free = cluster.free_gpu_count(node)
+    with failpoints.armed({"worker.mount.before_grant": "1*crash(a worker death before the grant)"}):
+        status, text, crash_ms = stack.http("GET", _add_path(pod, 2))
+    if status != 500 or len(stack.services[node].ledger.open_transactions()) != 1:
+        raise RuntimeError(f"the crashed add of 2: {status} {text!r}")
+    slaves = [Pod(s).name for s in cluster.kube.list_pods(
+        cluster.cfg.pool_namespace, label_selector=f"tpumounter.io/owner-uid={pod.uid}")]
+    for name in slaves:
+        cluster.kube.delete_pod(cluster.cfg.pool_namespace, name)
+    summary, replay_ms = stack.restart(node)
+    if (summary["open"], len(summary["rolled_back"]), len(summary["completed"])) != (1, 1, 0):
+        raise RuntimeError(f"the replay with the bookings gone: {summary}")
+    _no_gpu_node(cluster, node, dev_dir, "the rolled-back replay")
+    _released(cluster, pod, free)
+    if _books_mounts_ledger(stack, pod, dev_dir):
+        raise RuntimeError("the rolled-back replay left holdings")
+    return {"slaves_deleted": len(slaves), "crash_ms": crash_ms, "summary": summary,
+            "replay_ms": replay_ms}
+
+
+def _deferred_and_reaped(stack: _MasterStack, dev_dir: str) -> dict:
+    """(f) a remove while the API refuses deletes (k8s.delete_pod.status=
+    return(503)): 200, the release deferred (the series moves, one entry
+    pending, the GPU still booked); healed, retry_pending_releases() empties
+    the queue and frees it. Then an owner pod deleted with a GPU held: one
+    reap_once() deletes its slave pod and frees the GPU."""
+    cluster = stack.cluster
+    node = cluster.node_name
+    service = stack.services[node]
+    free = cluster.free_gpu_count(node)
+    pod = cluster.add_target_pod("tenant-deferred")
+    status, text, _ = stack.http("GET", _add_path(pod, 1))
+    if status != 200:
+        raise RuntimeError(f"add before the refused deletes: {status} {text!r}")
+    deferred0 = SLAVE_RELEASE_DEFERRED.total()
+    with failpoints.armed({"k8s.delete_pod.status": "return(503)"}):
+        status, text, remove_ms = stack.http("POST", _remove_path(pod),
+                                             {"uuids": ",".join(stack.held(node, pod))})
+    pending = service.ledger.pending_releases()
+    deferred = SLAVE_RELEASE_DEFERRED.total() - deferred0
+    if status != 200 or len(pending) != 1 or deferred != 1 or \
+            cluster.free_gpu_count(node) != free - 1:
+        raise RuntimeError(f"the remove while deletes fail: {status} {text!r}, pending "
+                           f"{pending}, deferred {deferred}, {cluster.free_gpu_count(node)} free")
+    t0 = time.perf_counter()
+    retried = service.retry_pending_releases()
+    retry_ms = (time.perf_counter() - t0) * 1e3
+    if retried != {"completed": 1, "pending": 0} or service.ledger.pending_releases():
+        raise RuntimeError(f"the healed retry: {retried}")
+    _released(cluster, pod, free)
+    owner = cluster.add_target_pod("tenant-reaped")
+    status, text, _ = stack.http("GET", _add_path(owner, 1))
+    if status != 200:
+        raise RuntimeError(f"add before the owner's deletion: {status} {text!r}")
+    cluster.kube.delete_pod(owner.namespace, owner.name)
+    reaper = SlaveReaper(cluster.kube, cfg=cluster.cfg,
+                         device_controller=service.mounter.controller)
+    t0 = time.perf_counter()
+    reaped = reaper.reap_once()
+    reap_ms = (time.perf_counter() - t0) * 1e3
+    if len(reaped) != 1 or cluster.free_gpu_count(node) != free:
+        raise RuntimeError(f"the reap: {reaped}, {cluster.free_gpu_count(node)} free of {free}")
+    return {"remove_ms": remove_ms, "deferred": deferred, "retry_ms": retry_ms,
+            "reaped": reaped, "reap_ms": reap_ms}
+
+
+def _durability_flows(stack: _MasterStack, dev_dir: str, repeats: int, live: bool,
+                      on_replayed=None) -> dict:
+    """(a), (b), (e) and (d) on the stack's one node, in that order (the
+    drain last: it closes the worker)."""
+    pod = stack.cluster.add_target_pod("tenant-ledger")
+    return {"cost": _ledger_cost(stack, pod, dev_dir, repeats, live),
+            "forward": _crash_replayed_forward(stack, pod, dev_dir, live, on_replayed),
+            "fence": _fenced(stack, pod, dev_dir, live),
+            "drain": _drain_during_add(stack, pod, dev_dir, live)}
+
+
+def durability_check(device="cuda", *, dev_dir: str | None = None, ns_pid: int | None = None,
+                     cgroup_dirs=(), identity: str = "nvml", fake_gpus: int = 8,
+                     repeats: int = 3, ledger_root: str | None = None,
+                     on_replayed=None) -> dict:
+    """The worker's durability through the master over gRPC
+    (``_MasterStack``, as ``master_check`` wires it, each worker with a
+    ledger in a new directory under `ledger_root`, by default a temporary
+    one). Without grpcio it raises ``ModuleNotFoundError`` naming grpcio.
+
+    (a) ``_ledger_cost``: `repeats` HTTP round trips of 1 GPU with the
+    ledger and as many without, in turns, the appends an add and a remove
+    (2 each), and one append's fsync. (b) ``_crash_replayed_forward``: a
+    death after the grant, the restart and the replay, forward;
+    on_replayed(uuids, dev_dir) runs while the replayed GPU is mounted. (e)
+    ``_fenced``: epochs 5 and 3 over gRPC, the stale master's 503, epoch 5
+    after a restart. (d) ``_drain_during_add``. And on the fake host of
+    `fake_gpus`: (c) ``_crash_rolled_back``, a death before the grant whose
+    slave pods are deleted before the restart; (f) ``_deferred_and_reaped``.
+
+    On the card (device="cuda") (a), (b), (e) and (d) run on the live
+    ``NvidiaDeviceBackend`` (`dev_dir`, `ns_pid`, `cgroup_dirs`, `identity`
+    as in ``mount_check``), and without CAP_MKNOD it raises: (b)'s replayed
+    GPU must be the card's. On the CPU they run on the fake host. Runs on
+    the card unless the caller passes device="cpu".
+
+    Returns {"cap_mknod", "live" (the card's flows of (a), (b), (e), (d), or
+    None), "fake" (theirs on the fake host, or None), "rolled_back",
+    "deferred"}; ms on the host clock."""
+    device = resolve_device(device)
+    report = {"cap_mknod": has_cap_mknod(), "live": None, "fake": None}
+    if device.type == "cuda" and not report["cap_mknod"]:
+        raise RuntimeError("durability_check on the card needs CAP_MKNOD: the crashed add "
+                           "must be replayed onto the card's own GPU")
+    root = tempfile.mkdtemp(prefix="durability-check-")
+    ledgers = tempfile.mkdtemp(prefix="ledgers-", dir=ledger_root)
+    try:
+        def cfg(name: str) -> Config:
+            return Config(auth_mode="token", auth_token=secrets.token_hex(16),
+                          ledger_dir=os.path.join(ledgers, name))
+
+        if device.type == "cuda" and report["cap_mknod"]:
+            cluster = FakeCluster(NvidiaDeviceBackend("/dev", identity=make_identity(identity)),
+                                  cfg=cfg("live"))
+            target, dirs = _live_target(root, dev_dir, cgroup_dirs)
+            with _MasterStack(cluster, {cluster.node_name: target}, ns_pid, dirs) as stack:
+                report["live"] = _durability_flows(stack, target, repeats, True, on_replayed)
+        fake = FakeCluster.with_fake_gpus(os.path.join(root, "fake"), fake_gpus, cfg=cfg("fake"))
+        fake_dir = os.path.join(root, "fake-tenant-dev")
+        os.makedirs(fake_dir)
+        with _MasterStack(fake, {fake.node_name: fake_dir}) as stack:
+            if report["live"] is None:
+                report["fake"] = _durability_flows(stack, fake_dir, repeats, False)
+            pod = fake.add_target_pod("tenant-rolled-back")
+            report["rolled_back"] = _crash_rolled_back(stack, pod, fake_dir)
+            report["deferred"] = _deferred_and_reaped(stack, fake_dir)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        shutil.rmtree(ledgers, ignore_errors=True)
+    if failpoints.active():
+        raise RuntimeError(f"failpoints left armed: {failpoints.active()}")
     return report

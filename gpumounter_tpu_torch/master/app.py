@@ -91,7 +91,7 @@ from gpumounter_tpu_torch.obs import audit, flight, trace
 from gpumounter_tpu_torch.obs.audit import audited
 from gpumounter_tpu_torch.rpc.api import AddGPUResult, RemoveGPUResult
 from gpumounter_tpu_torch.rpc.client import ChannelPool, WorkerClient
-from gpumounter_tpu_torch.rpc.resilience import BreakerOpenError, CircuitBreaker
+from gpumounter_tpu_torch.rpc.resilience import BreakerOpenError, CircuitBreaker, FencedError
 from gpumounter_tpu_torch.topology import GPUS_PER_HOST
 from gpumounter_tpu_torch.utils.auth import check_bearer, required_token
 from gpumounter_tpu_torch.utils.log import get_logger
@@ -355,10 +355,15 @@ def _json_body(body: bytes, what: str) -> dict:
 
 def _degraded_or_500(exc: Exception) -> _HttpError:
     """A failed worker call as HTTP: a breaker that opened (or was found
-    open) during the call is 503 with Retry-After, anything else 500."""
+    open) during the call is 503 with Retry-After; a fenced call (this
+    master's view of the node's owner is stale) 503 with Retry-After 1, so
+    that a client retries against fresh routing; anything else 500."""
     if isinstance(exc, BreakerOpenError):
         return _HttpError(503, f"worker degraded (circuit breaker open): {exc}",
                           headers=_retry_after(exc.retry_after_s))
+    if isinstance(exc, FencedError):
+        return _HttpError(503, f"stale shard ownership (fenced by worker): {exc}",
+                          headers={"Retry-After": "1"})
     return _HttpError(500, f"Service Internal Error: {exc}")
 
 
@@ -540,6 +545,8 @@ class MasterApp:
         address, node = self._worker_for_pod(ns, pod_name)
         with self._client_factory(address) as client:
             try:
+                # no epoch (field 8) yet: nothing on the master stamps one
+                # before the owner shards (master/shard.py)
                 result = client.add_gpu(pod_name, ns, gpu_num, entire).add_gpu_result
             except Exception as exc:  # noqa: BLE001 — the worker call's boundary
                 logger.error("worker AddGPU failed: %s", exc)
@@ -563,6 +570,7 @@ class MasterApp:
         address, node = self._worker_for_pod(ns, pod_name)
         with self._client_factory(address) as client:
             try:
+                # no epoch, as in _route_add
                 result = client.remove_gpu(pod_name, ns, uuids, force).remove_gpu_result
             except Exception as exc:  # noqa: BLE001 — the worker call's boundary
                 logger.error("worker RemoveGPU failed: %s", exc)

@@ -13,9 +13,12 @@ Field 7 of both requests, ``trace_context``, is the reference's too: the
 client's ``rpc.<Method>`` span as ``<trace_id>-<span_id>`` (``obs/trace.py``),
 which the worker's span takes as its parent; proto3 leaves the empty string
 off the wire, so an untraced call's bytes are a peer's of the original
-proto. Left out for the packages that carry them: ``prefer_ici`` (field 5,
-ICI placement), ``epoch`` (8, ``master/shard.py``) and the share fields
-(9-10, ``vchip/``). ``phases_ms`` is on no message of
+proto. Field 8 of both requests, ``epoch`` (int64), is the reference's
+fencing epoch: the worker refuses a mutation whose non-zero epoch is older
+than the highest it has taken (FAILED_PRECONDITION "FENCED: ..."); a request
+without it decodes to 0, which is never fenced. Left out for the packages
+that carry them: ``prefer_ici`` (field 5, ICI placement) and the share
+fields (9-10, ``vchip/``). ``phases_ms`` is on no message of
 the reference: it stays off the wire, an in-process reading of the worker's
 phase timings.
 
@@ -48,7 +51,7 @@ class RemoveGPUResult(enum.IntEnum):
 
 
 class AddGPURequest(Message):
-    # AddGPURequest (api.proto:4-9), plus fields 6 and 7
+    # AddGPURequest (api.proto:4-9), plus fields 6-8
     FIELDS = [
         Field(1, "pod_name", "string"),
         Field(2, "namespace", "string"),
@@ -56,14 +59,15 @@ class AddGPURequest(Message):
         Field(4, "is_entire_mount", "bool"),
         Field(6, "idempotency_key", "string"),
         Field(7, "trace_context", "string"),
+        Field(8, "epoch", "int64"),
     ]
 
     def __init__(self, pod_name: str = "", namespace: str = "", gpu_num: int = 0,
                  is_entire_mount: bool = False, idempotency_key: str = "",
-                 trace_context: str = ""):
+                 trace_context: str = "", epoch: int = 0):
         super().__init__(pod_name=pod_name, namespace=namespace, gpu_num=gpu_num,
                          is_entire_mount=is_entire_mount, idempotency_key=idempotency_key,
-                         trace_context=trace_context)
+                         trace_context=trace_context, epoch=epoch)
 
 
 class AddGPUResponse(Message):
@@ -82,7 +86,7 @@ class AddGPUResponse(Message):
 
 class RemoveGPURequest(Message):
     # RemoveGPURequest (api.proto:25-30), plus field 5 (the reference's:
-    # remove every slave-held GPU whatever the mount type), fields 6 and 7
+    # remove every slave-held GPU whatever the mount type), fields 6-8
     FIELDS = [
         Field(1, "pod_name", "string"),
         Field(2, "namespace", "string"),
@@ -91,14 +95,16 @@ class RemoveGPURequest(Message):
         Field(5, "remove_all", "bool"),
         Field(6, "idempotency_key", "string"),
         Field(7, "trace_context", "string"),
+        Field(8, "epoch", "int64"),
     ]
 
     def __init__(self, pod_name: str = "", namespace: str = "", uuids=(),
                  force: bool = False, remove_all: bool = False,
-                 idempotency_key: str = "", trace_context: str = ""):
+                 idempotency_key: str = "", trace_context: str = "", epoch: int = 0):
         super().__init__(pod_name=pod_name, namespace=namespace, uuids=list(uuids),
                          force=force, remove_all=remove_all,
-                         idempotency_key=idempotency_key, trace_context=trace_context)
+                         idempotency_key=idempotency_key, trace_context=trace_context,
+                         epoch=epoch)
 
 
 class RemoveGPUResponse(Message):

@@ -13,9 +13,10 @@ client speaks the original's service names, and adds (``rpc/resilience.py``):
     original proto skips the key);
   * the breaker it is given, told of every transport outcome;
   * typed errors: DeadlineExceededError, WorkerUnavailableError,
-    BreakerOpenError, and RpcCallError with the status name for a call the
-    worker refused (FAILED_PRECONDITION, INVALID_ARGUMENT, INTERNAL,
-    UNAUTHENTICATED);
+    BreakerOpenError, FencedError (FAILED_PRECONDITION whose detail starts
+    "FENCED": the call's epoch, field 8, is stale; never retried), and
+    RpcCallError with the status name for a call the worker refused
+    (FAILED_PRECONDITION, INVALID_ARGUMENT, INTERNAL, UNAUTHENTICATED);
   * one ``rpc.<Method>`` span a call, stamped on the request as its
     ``trace_context`` (field 7), so that the worker's span is its child;
   * the failpoint sites ``rpc.client.deadline`` (a value: the deadline) and
@@ -45,6 +46,7 @@ from gpumounter_tpu_torch.rpc.resilience import (
     BreakerOpenError,
     CircuitBreaker,
     DeadlineExceededError,
+    FencedError,
     RetryPolicy,
     RpcCallError,
     WorkerUnavailableError,
@@ -303,27 +305,33 @@ class WorkerClient:
             return WorkerUnavailableError(
                 f"{method} to {self.address}: worker unavailable ({_details(exc)})",
                 self.address, method)
+        if code == "FAILED_PRECONDITION" and _details(exc).startswith("FENCED"):
+            # typed, so that a caller tells a stale shard view from a refusal
+            # like CanMount's
+            return FencedError(f"{method} to {self.address}: {_details(exc)}", self.address,
+                               method)
         return RpcCallError(_details(exc), code, self.address, method)
 
     # --- methods ---
 
     def add_gpu(self, pod_name: str, namespace: str, gpu_num: int,
                 is_entire_mount: bool = False,
-                idempotency_key: str | None = None) -> api.AddGPUResponse:
+                idempotency_key: str | None = None, epoch: int = 0) -> api.AddGPUResponse:
         """AddGPU; the response's add_gpu_result and the UUIDs mounted. One
-        idempotency key covers every attempt."""
+        idempotency key covers every attempt. epoch: the caller's fencing
+        epoch of the node (0: unfenced); a stale one raises FencedError."""
         request = api.AddGPURequest(
             pod_name, namespace, gpu_num, is_entire_mount,
-            idempotency_key=idempotency_key or f"add-{secrets.token_hex(8)}")
+            idempotency_key=idempotency_key or f"add-{secrets.token_hex(8)}", epoch=int(epoch))
         return self._call(api.ADD_METHOD, request)
 
     def remove_gpu(self, pod_name: str, namespace: str, uuids: list[str],
                    force: bool = False, remove_all: bool = False,
-                   idempotency_key: str | None = None) -> api.RemoveGPUResponse:
+                   idempotency_key: str | None = None, epoch: int = 0) -> api.RemoveGPUResponse:
         """RemoveGPU; remove_all (field 5) removes every GPU the pod's slave
         pods hold, whatever the mount type (the slice's remove). One
-        idempotency key covers every attempt."""
+        idempotency key covers every attempt. epoch: as add_gpu's."""
         request = api.RemoveGPURequest(
             pod_name, namespace, list(uuids), force, remove_all=remove_all,
-            idempotency_key=idempotency_key or f"rm-{secrets.token_hex(8)}")
+            idempotency_key=idempotency_key or f"rm-{secrets.token_hex(8)}", epoch=int(epoch))
         return self._call(api.REMOVE_METHOD, request)

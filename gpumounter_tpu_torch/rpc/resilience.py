@@ -16,8 +16,8 @@ Here every call gets
     half-open probe goes through, and its outcome closes or re-opens it.
 
 The breaker's state and trips, and the retries, are series of the
-registry (``utils/metrics.py``). Left out: ``FencedError`` (fencing comes
-with ``master/shard.py``). Stdlib only.
+registry (``utils/metrics.py``). A mutation the worker refuses as fenced (a
+stale epoch) raises ``FencedError``, which is never retried. Stdlib only.
 """
 
 from __future__ import annotations
@@ -75,6 +75,15 @@ class BreakerOpenError(RpcCallError):
                  method: str = ""):
         super().__init__(message, "BREAKER_OPEN", address, method)
         self.retry_after_s = retry_after_s
+
+
+class FencedError(RpcCallError):
+    """The worker refused a stale-epoch write (epoch fencing): another
+    master has taken over the node since this epoch was read. Never retried:
+    the answer is fresh routing, not the stale write again."""
+
+    def __init__(self, message: str, address: str = "", method: str = ""):
+        super().__init__(message, "FENCED", address, method)
 
 
 @dataclass(frozen=True)

@@ -35,6 +35,9 @@ For the transport (``tests/test_master.py:24-90`` of the reference):
     collector a ``PodResourcesClient`` on it in place of the in-memory one;
   * ``register_worker(ip, node)`` creates the node's worker pod the way the
     DaemonSet would, so the master's registry finds the node's worker;
+  * ``WorkerServers`` serves one gRPC worker a node on a local port behind
+    the node's registered IP, and ``restart(node, pool)`` is a worker's
+    death and restart over the same ledger, with its replay;
   * ``LoopbackWorkerClient`` reaches a ``GpuMountService`` without grpc, for
     hosts that have none (the card's machine): each call goes through the
     wire codec both ways, and a refused call raises as ``WorkerClient``
@@ -47,6 +50,7 @@ import dataclasses
 import os
 import tempfile
 import threading
+import time
 
 from gpumounter_tpu_torch.collector.collector import GpuCollector
 from gpumounter_tpu_torch.collector.podresources import (
@@ -59,9 +63,10 @@ from gpumounter_tpu_torch.device.backend import DeviceBackend, FakeDeviceBackend
 from gpumounter_tpu_torch.k8s.fake import FakeKubeClient
 from gpumounter_tpu_torch.k8s.types import Pod
 from gpumounter_tpu_torch.rpc import api
-from gpumounter_tpu_torch.rpc.resilience import RpcCallError
+from gpumounter_tpu_torch.rpc.resilience import FencedError, RpcCallError
 from gpumounter_tpu_torch.worker.mounter import GpuMounter, MountTarget
-from gpumounter_tpu_torch.worker.server import GpuMountService, ServiceError
+from gpumounter_tpu_torch.worker.resync import LedgerResync
+from gpumounter_tpu_torch.worker.server import GpuMountService, ServiceError, build_server
 
 HOSTNAME_LABEL = "kubernetes.io/hostname"
 
@@ -295,12 +300,70 @@ class FakeCluster:
                 node.kubelet_dir = None
 
 
+class WorkerServers:
+    """One gRPC worker server a node on `host`, at a local port behind the
+    node's registered IP (``local_address`` maps a registered worker's
+    address to it). ``build_service(node)`` makes a node's service; a
+    second one over the same ledger directory is the worker's restart."""
+
+    def __init__(self, build_service, host: str = "127.0.0.1"):
+        self.build_service = build_service
+        self.host = host
+        self.services: dict[str, GpuMountService] = {}
+        self.servers: dict = {}
+        self.ip_by_node: dict[str, str] = {}
+        self.port_by_ip: dict[str, int] = {}
+
+    def start(self, node: str, ip: str) -> None:
+        self.ip_by_node[node] = ip
+        self._serve(node, self.build_service(node))
+
+    def local_address(self, worker_address: str) -> str:
+        return f"{self.host}:{self.port_by_ip[worker_address.rsplit(':', 1)[0]]}"
+
+    def _serve(self, node: str, service: GpuMountService, pool=None) -> None:
+        """`service` on a new gRPC server at the node's address; the node's
+        server before it stops, and its channel in `pool` serves no more."""
+        server = build_server(service, address=f"{self.host}:0")
+        server.start()
+        ip = self.ip_by_node[node]
+        old, old_port = self.servers.get(node), self.port_by_ip.get(ip)
+        self.services[node], self.servers[node], self.port_by_ip[ip] = \
+            service, server, server.bound_port
+        if old is not None:
+            old.stop(None).wait()
+            if pool is not None:
+                pool.invalidate(f"{self.host}:{old_port}", "worker-restart")
+
+    def restart(self, node: str, pool=None) -> tuple[dict, float]:
+        """The node's worker dies (its ledger's fd abandoned, no clean
+        marker) and a new one starts over the same ledger: the replay, then
+        serving. Returns the replay's summary and its ms (host clock)."""
+        old = self.services[node]
+        if old.ledger is not None:
+            old.ledger.abandon()
+        service = self.build_service(node)
+        t0 = time.perf_counter()
+        summary = LedgerResync(service).replay_once()
+        replay_ms = (time.perf_counter() - t0) * 1e3
+        self._serve(node, service, pool)
+        return summary, replay_ms
+
+    def stop(self) -> None:
+        for server in self.servers.values():
+            server.stop(None).wait()
+        for service in self.services.values():
+            if service.ledger is not None:
+                service.ledger.abandon()
+
+
 class LoopbackWorkerClient:
     """A worker client with no network: each call encodes its request with
     the wire codec, decodes it on the service's side, calls the
     ``GpuMountService``, and encodes and decodes the response. A
     ``ServiceError`` raises as ``WorkerClient`` raises a refused call: an
-    ``RpcCallError`` with the status name and the message as its text.
+    ``RpcCallError`` with the status name and the message as its text, a
+    ``FencedError`` for a stale epoch.
     ``factory(service)`` is a master's ``worker_client_factory``."""
 
     def __init__(self, service: GpuMountService, address: str = "loopback"):
@@ -322,22 +385,25 @@ class LoopbackWorkerClient:
         try:
             response = method(wire_request)
         except ServiceError as exc:
+            if exc.code == "FAILED_PRECONDITION" and exc.message.startswith("FENCED"):
+                raise FencedError(f"{name} to {self.address}: {exc.message}", self.address,
+                                  name) from exc
             raise RpcCallError(exc.message, exc.code, self.address, name) from exc
         return response_cls.decode(response.encode())
 
     def add_gpu(self, pod_name: str, namespace: str, gpu_num: int,
-                is_entire_mount: bool = False, idempotency_key: str = ""
+                is_entire_mount: bool = False, idempotency_key: str = "", epoch: int = 0
                 ) -> api.AddGPUResponse:
         return self._call(self.service.add_gpu,
                           api.AddGPURequest(pod_name, namespace, gpu_num, is_entire_mount,
-                                            idempotency_key),
+                                            idempotency_key, epoch=epoch),
                           api.AddGPUResponse, api.ADD_METHOD)
 
     def remove_gpu(self, pod_name: str, namespace: str, uuids: list[str],
-                   force: bool = False, remove_all: bool = False, idempotency_key: str = ""
-                   ) -> api.RemoveGPUResponse:
+                   force: bool = False, remove_all: bool = False, idempotency_key: str = "",
+                   epoch: int = 0) -> api.RemoveGPUResponse:
         return self._call(self.service.remove_gpu,
                           api.RemoveGPURequest(pod_name, namespace, list(uuids), force,
                                                remove_all=remove_all,
-                                               idempotency_key=idempotency_key),
+                                               idempotency_key=idempotency_key, epoch=epoch),
                           api.RemoveGPUResponse, api.REMOVE_METHOD)

@@ -1,2 +1,2 @@
 """The worker: mount mechanics, the add/remove flows of one node, their gRPC
-server, and the daemon."""
+server, the mount ledger with its replay, the slave reaper, and the daemon."""

@@ -5,14 +5,23 @@ original's ``cmd/GPUMounter-worker/main.go``: build the collector (the
 kubelet's pod-resources API on KUBELET_POD_RESOURCES_SOCKET), the allocator
 and the mounter on the ``NvidiaDeviceBackend`` (or the fake one under
 FAKE_DEVICE_DIR), serve gRPC on WORKER_PORT (1200) and /healthz on the ops
-port (METRICS_PORT), and stop on SIGTERM. The Kubernetes client is
-``k8s.client.default_client``: the pod's service account in the cluster.
+port (METRICS_PORT). The Kubernetes client is ``k8s.client.default_client``:
+the pod's service account in the cluster.
+
+The reference's order (``gpumounter_tpu/worker/main.py:241-283``): with
+TPUMOUNTER_LEDGER_DIR set, the ledger's replay (``worker/resync.py``) runs
+before the server serves and before the reaper's first pass, so that the
+reaper sees the books as the replay left them, with a warning when the last
+process died with open transactions; then the slave reaper
+(``worker/reaper.py``) starts on the mounter's cgroup controller. On
+SIGTERM the reaper stops, the service drains (new mutations refused, those
+in flight finished, the ledger closed clean; WORKER_DRAIN_TIMEOUT_S), and
+then the gRPC server stops.
 
 The trace ring, the audit trail and the flight recorder take their
 capacities and JSONL sinks from config (TPUMOUNTER_TRACE_RING,
 TPUMOUNTER_TRACE_JSONL, ...). The ops port's /metrics, /audit, /trace,
-/timeline and /telemetry come with the fleet planes; the ledger, its replay
-and the reaper with the worker's ledger slice.
+/timeline and /telemetry come with the fleet planes.
 
     python -m gpumounter_tpu_torch.worker.main
 """
@@ -30,6 +39,8 @@ from gpumounter_tpu_torch.config import Config
 from gpumounter_tpu_torch.device.backend import backend_from_config
 from gpumounter_tpu_torch.k8s.client import default_client
 from gpumounter_tpu_torch.utils.log import get_logger, init_logger
+from gpumounter_tpu_torch.worker.reaper import SlaveReaper
+from gpumounter_tpu_torch.worker.resync import LedgerResync
 from gpumounter_tpu_torch.worker.server import GpuMountService, build_server
 
 logger = get_logger("worker.main")
@@ -72,8 +83,17 @@ def main() -> None:
     cfg = Config()
     obs.configure(cfg)
     service = build_service(cfg)
+    if service.ledger is not None:
+        replay = LedgerResync(service).replay_once()
+        if not service.ledger.was_clean_shutdown() and replay["open"]:
+            logger.warning("previous worker process crashed; replay converged %d open "
+                           "transaction(s)", replay["open"])
+        logger.info("ledger replay: %d open transaction(s), %d holding(s) corrected",
+                    replay["open"], replay["holdings_corrected"])
     server = build_server(service)
     ops = serve_ops(cfg.metrics_port)
+    reaper = SlaveReaper(service.kube, cfg=cfg,
+                         device_controller=service.mounter.controller).start()
     stop = threading.Event()
 
     def _term(signum, frame):
@@ -87,6 +107,10 @@ def main() -> None:
                 "inventory", server.bound_port, cfg.metrics_port,
                 len(service.collector.devices))
     stop.wait()
+    reaper.stop()
+    drained = service.drain(cfg.drain_timeout_s)
+    logger.info("drain %s; stopping gRPC", "clean" if drained else
+                "timed out (as a crash: the next start's replay converges it)")
     server.stop(grace=5).wait()
     ops.shutdown()
     ops.server_close()

@@ -30,7 +30,10 @@ Each phase is a span (``obs/trace.py``): ``mount.cgroup_grant``,
 ``after_grant``, ``mknod`` (once a GPU), ``rollback`` (once a grant undone),
 ``worker.addgpu.rollback.skip`` and ``worker.unmount.before_revoke``. An
 injected ``CrashError`` is re-raised before any undo, as a process that
-died would run none. One namespace entry a batch means one ``mount.mknod``
+died would run none, and leaves the batch's ledger txn open for the
+restart's replay (``worker/ledger.py``, ``worker/resync.py``): a mount batch
+is one txn, committed success or rolled-back; an unmount is one txn a GPU,
+committed success or error. One namespace entry a batch means one ``mount.mknod``
 and one ``unmount.device_remove`` span a batch, whose ``device`` attribute
 names every UUID in it, where the reference has one a GPU; the
 ``worker.mount.mknod`` site still fires a GPU at a time before the entry,
@@ -132,11 +135,13 @@ class MountTarget:
 
 
 class GpuMounter:
-    def __init__(self, backend: DeviceBackend, cfg=None, kube=None):
+    def __init__(self, backend: DeviceBackend, cfg=None, kube=None, ledger=None):
         """kube: a KubeClient on which a failed grant undo posts its Warning
-        Event on the target pod; None posts none."""
+        Event on the target pod; None posts none. ledger: the worker's
+        ``MountLedger``, which journals every batch; None journals none."""
         self.cfg = cfg or Config()
         self.kube = kube
+        self.ledger = ledger
         self.backend = backend
         version = self.cfg.cgroup_version
         self.cgroup_version = (detect_cgroup_version(self.cfg.cgroup_root)
@@ -243,6 +248,10 @@ class GpuMounter:
         granted: list[tuple[str, GpuDevice]] = []
         injected: list[GpuDevice] = []
         uuids = ",".join(d.uuid for d in devices)
+        # the intent before the first side effect: a death anywhere in the
+        # batch leaves this txn open, naming what the replay converges
+        txn = (self.ledger.begin("mount", target=target, devices=devices, policy=policy)
+               if self.ledger is not None else None)
         try:
             # a worker that dies here leaves nothing (before) or grants
             # without nodes (after)
@@ -255,12 +264,16 @@ class GpuMounter:
             with timer.phase("device_inject"):
                 self._inject_batch(target, devices, injected)
         except CrashError:
-            # a simulated death: a real one runs no undo
+            # a simulated death: a real one runs no undo, and its txn stays open
             MOUNT_TOTAL.inc(float(len(devices)), result="error")
             raise
         except Exception as exc:
             self._rollback_batch(target, granted, injected)
             MOUNT_TOTAL.inc(float(len(devices)), result="error")
+            if txn is not None:
+                # the undo ran (or the chaos failpoint skipped it): this
+                # process finished its batch
+                self.ledger.commit(txn, "rolled-back")
             if isinstance(exc, MountError):
                 raise
             # One type for every lower-layer failure (CgroupError, BpfError,
@@ -268,6 +281,8 @@ class GpuMounter:
             # scheduler's books fires on one exception type.
             raise MountError(f"mount of {uuids} into {target.description}: {exc}") from exc
         MOUNT_TOTAL.inc(float(len(devices)), result="success")
+        if txn is not None:
+            self.ledger.commit(txn, "success")
         # the exemplar: the batch's trace id on the bucket it landed in
         MOUNT_LATENCY.observe(timer.total(), trace_id=trace.current_trace_id())
         # The grant events of the per-tenant access telemetry: beside the
@@ -424,7 +439,11 @@ class GpuMounter:
 
         The unmount series counts GPUs, as the reference counts its one-GPU
         unmounts: a failure counts those done as success, the rest as
-        error."""
+        error. With a ledger each GPU is a txn of its own, committed the same
+        way, so that a failure part way leaves the reference's net holdings;
+        the txns are all logged after the busy gate (a busy batch has none)
+        and before the entry, and closed after it, where the reference's
+        alternate a GPU at a time."""
         timer = PhaseTimer()
         with timer.phase("busy_check"):
             busy = {dev.uuid: pids for dev in devices
@@ -434,6 +453,10 @@ class GpuMounter:
             raise GpuBusyError(f"GPU(s) held in {target.description} (UUID: PIDs): {busy}; "
                                "use force")
         uuids = ",".join(d.uuid for d in devices)
+        # one txn a GPU, as the reference journals its one-GPU unmounts, all
+        # logged after the read-only busy gate and before the first mutation
+        txns = ([self.ledger.begin("unmount", target=target, devices=[dev]) for dev in devices]
+                if self.ledger is not None else [])
         done: list[GpuDevice] = []
         try:
             failpoints.fire("worker.unmount.before_revoke", device=uuids,
@@ -463,14 +486,21 @@ class GpuMounter:
             done = list(devices)
         except CrashError:
             UNMOUNT_TOTAL.inc(float(len(devices)), result="error")
-            raise  # a simulated death: no wrapping, no cleanup
+            raise  # a simulated death: no wrapping, no cleanup, the txns open
         except Exception as exc:
             if done:
                 UNMOUNT_TOTAL.inc(float(len(done)), result="success")
             UNMOUNT_TOTAL.inc(float(len(devices) - len(done)), result="error")
+            # the GPUs done leave the holdings, as the reference's one-GPU
+            # unmounts before a failure do
+            unmounted = {d.uuid for d in done}
+            for dev, txn in zip(devices, txns):
+                self.ledger.commit(txn, "success" if dev.uuid in unmounted else "error")
             raise MountError(f"unmount of {uuids} from {target.description}: {exc}",
                              unmounted=done) from exc
         UNMOUNT_TOTAL.inc(float(len(devices)), result="success")
+        for txn in txns:
+            self.ledger.commit(txn, "success")
         # A revoked GPU's entry in the userspace engine must not outlive its
         # grant (on v2 the controller's revoke deletes the kernel map's).
         for dev in devices:

@@ -23,6 +23,19 @@ Events ``GPUMounted``, ``GPUUnmounted`` and ``GPUMountFailed`` on the pod
 (``k8s/events.py``; the reference's ``TPU*``), and the service installs the
 flight recorder's hooks (``obs/flight.py``).
 
+The service shares the node's ``MountLedger`` (``worker/ledger.py``, from
+TPUMOUNTER_LEDGER_DIR) with the mounter, which journals every batch into it.
+A mutation carries the master's fencing epoch (field 8): an older non-zero
+one than the highest taken is refused FAILED_PRECONDITION "FENCED: ..."
+(``tpumounter_fenced_writes_total``), a newer one kept in the ledger (a
+mutation whose epoch cannot be written there is refused UNAVAILABLE), 0
+never fenced. ``drain`` (SIGTERM) refuses new mutations UNAVAILABLE "worker
+draining", waits for those in flight and closes the ledger clean. A slave
+pod whose delete still fails after SLAVE_RELEASE_ATTEMPTS goes into the
+ledger's queue (``tpumounter_slave_release_deferred_total``), retried by the
+next release, ``retry_pending_releases`` and the restart's replay; without a
+ledger it is counted as leaked and the call raises.
+
 Each pod's flows are serialized (keyed by UID), so two entire mounts of one
 pod cannot both pass the gate. A refused call raises ``ServiceError`` with
 its gRPC status code. A call that carries an idempotency key and succeeded
@@ -73,14 +86,27 @@ from gpumounter_tpu_torch.utils.lazy_grpc import grpc
 from gpumounter_tpu_torch.utils.log import get_logger
 from gpumounter_tpu_torch.utils.metrics import REGISTRY
 from gpumounter_tpu_torch.utils.timing import PhaseTimer
+from gpumounter_tpu_torch.worker.ledger import open_ledger
 from gpumounter_tpu_torch.worker.mounter import GpuBusyError, GpuMounter, MountError
 
 logger = get_logger("worker.server")
 
+FENCED_WRITES = REGISTRY.counter(
+    "tpumounter_fenced_writes_total",
+    "Mutating RPCs rejected because they carried a stale fencing epoch "
+    "(a partitioned old shard owner trying to mutate this node)")
 SLAVE_RELEASE_FAILURES = REGISTRY.counter(
     "tpumounter_slave_release_failures_total",
     "Slave-pod releases that exhausted their bounded retry — leaked "
     "capacity until the reaper or the recovery plane sweeps it")
+SLAVE_RELEASE_DEFERRED = REGISTRY.counter(
+    "tpumounter_slave_release_deferred_total",
+    "Slave-pod releases deferred into the ledger-backed retry queue "
+    "after an API outage broke the delete (retried until the pods are "
+    "confirmed gone — not a leak)")
+
+#: the answer to a mutation that reaches a draining worker
+DRAINING = "worker draining (SIGTERM); retry elsewhere"
 
 
 class ServiceError(RuntimeError):
@@ -160,12 +186,99 @@ class GpuMountService:
         self.cfg = cfg or Config()
         self.kube = kube
         self.collector = collector
+        # the node's ledger, from cfg.ledger_dir (none when it is ""); the
+        # mounter journals every batch into it
+        self.ledger = open_ledger(self.cfg)
         self.allocator = allocator or GpuAllocator(kube, collector, cfg=self.cfg)
         self.mounter = mounter or GpuMounter(collector.backend, cfg=self.cfg, kube=kube)
+        self.mounter.ledger = self.ledger
         self._pod_locks = _KeyedLocks()
         self._idem = _IdempotencyCache()
+        # The fencing epoch: the highest any master stamped on a mutation,
+        # kept in the ledger so that a restart cannot forget it. A mutation
+        # with an older non-zero epoch is refused FENCED; 0 (the field
+        # absent: the original's single master) is never fenced.
+        self._epoch_lock = threading.Lock()
+        self._node_epoch = self.ledger.epoch() if self.ledger is not None else 0
+        # SIGTERM: once draining, new mutations are refused UNAVAILABLE while
+        # the batches in flight finish, so that the ledger closes clean
+        self._draining = threading.Event()
+        self._inflight = 0
+        self._inflight_cv = threading.Condition()
         # root and error spans and audit records onto the timeline; idempotent
         flight.install()
+
+    # --- the fence and the drain, for both mutations ---
+
+    def _check_epoch(self, epoch: int, method: str) -> None:
+        """Refuse a stale epoch; take and persist a newer one."""
+        epoch = int(epoch or 0)
+        if epoch <= 0:
+            return
+        if self._draining.is_set():
+            # after the drain closed the ledger, the drain's answer, not the
+            # persist's LedgerError (gRPC still delivers calls in the stop's
+            # grace)
+            raise ServiceError("UNAVAILABLE", DRAINING)
+        with self._epoch_lock:
+            stored = self._node_epoch if epoch < self._node_epoch else None
+            if stored is None:
+                # the bump in memory fences this process at once; the ledger
+                # writes only an epoch above its own, so a call with an epoch
+                # whose write failed writes it again
+                self._node_epoch = epoch
+                if self.ledger is not None:
+                    try:
+                        self.ledger.record_epoch(epoch)
+                    except Exception as exc:  # noqa: BLE001 — any failure to persist
+                        # a restart would forget this epoch and take a stale
+                        # master's write: no mutation until it is on disk
+                        logger.warning("epoch %d not persisted: %s", epoch, exc)
+                        raise ServiceError("UNAVAILABLE",
+                                           f"epoch {epoch} not persisted: {exc}") from exc
+        if stored is not None:
+            FENCED_WRITES.inc()
+            logger.warning("%s FENCED: stale epoch %d < %d (partitioned old shard owner?)",
+                           method, epoch, stored)
+            raise ServiceError("FAILED_PRECONDITION",
+                               f"FENCED: stale epoch {epoch} < {stored}; this node is owned by "
+                               f"a newer master — refresh shard routing")
+
+    @contextlib.contextmanager
+    def _mutation(self):
+        """The drain's gate and the count of mutations in flight."""
+        with self._inflight_cv:
+            if self._draining.is_set():
+                raise ServiceError("UNAVAILABLE", DRAINING)
+            self._inflight += 1
+        try:
+            yield
+        finally:
+            with self._inflight_cv:
+                self._inflight -= 1
+                self._inflight_cv.notify_all()
+
+    def drain(self, timeout_s: float = 20.0) -> bool:
+        """Refuse new mutations, wait for those in flight, then close the
+        ledger clean. Returns whether every one finished inside the timeout;
+        if not, the ledger is left open, as after a death, and the next
+        start's replay converges what they leave."""
+        self._draining.set()
+        deadline = time.monotonic() + timeout_s
+        with self._inflight_cv:
+            while self._inflight > 0:
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    break
+                self._inflight_cv.wait(timeout=remaining)
+            clean = self._inflight == 0
+        if not clean:
+            logger.error("drain timed out with %d mutation(s) in flight; the ledger will show "
+                         "them open (as a crash: the replay converges them on restart)",
+                         self._inflight)
+        if self.ledger is not None and clean:
+            self.ledger.close()
+        return clean
 
     # --- AddGPU (server.go:34-99) ---
 
@@ -184,6 +297,7 @@ class GpuMountService:
     def _add_gpu_op(self, request: AddGPURequest) -> AddGPUResponse:
         timer = PhaseTimer()
         failpoints.fire("worker.rpc", method="AddGPU", pod=request.pod_name)
+        self._check_epoch(request.epoch, "AddGPU")
         logger.info("AddGPU %s/%s num=%d entire=%s", request.namespace,
                     request.pod_name, request.gpu_num, request.is_entire_mount)
         if request.gpu_num <= 0:
@@ -199,7 +313,7 @@ class GpuMountService:
             pod = Pod(self.kube.get_pod(request.namespace, request.pod_name))
         except NotFoundError:
             return AddGPUResponse(AddGPUResult.PodNotFound)
-        with self._pod_locks.held(pod.uid):
+        with self._mutation(), self._pod_locks.held(pod.uid):
             # again under the pod's lock: a retry racing its first call
             # waits for it, then reads its answer
             cached = self._idem.get(key)
@@ -269,6 +383,7 @@ class GpuMountService:
     def _remove_gpu_op(self, request: RemoveGPURequest) -> RemoveGPUResponse:
         timer = PhaseTimer()
         failpoints.fire("worker.rpc", method="RemoveGPU", pod=request.pod_name)
+        self._check_epoch(request.epoch, "RemoveGPU")
         logger.info("RemoveGPU %s/%s uuids=%s force=%s", request.namespace,
                     request.pod_name, request.uuids, request.force)
         key = f"rm:{request.idempotency_key}" if request.idempotency_key else ""
@@ -279,7 +394,7 @@ class GpuMountService:
             pod = Pod(self.kube.get_pod(request.namespace, request.pod_name))
         except NotFoundError:
             return RemoveGPUResponse(RemoveGPUResult.PodNotFound)
-        with self._pod_locks.held(pod.uid):
+        with self._mutation(), self._pod_locks.held(pod.uid):
             cached = self._idem.get(key)
             if cached is not None:
                 logger.info("RemoveGPU %s/%s replay of idempotency key %s",
@@ -315,10 +430,10 @@ class GpuMountService:
         except MountError as exc:
             # Free what was unmounted before the failure: those GPUs are
             # revoked from the pod and must not stay booked.
-            self._release_slaves_for(devices, exc.unmounted)
+            self._release_slaves_for(devices, exc.unmounted, pod)
             raise ServiceError("INTERNAL", str(exc)) from exc
         with timer.phase("slave_pod_release"):
-            self._release_slaves_for(devices, devices)
+            self._release_slaves_for(devices, devices, pod)
         self._post_event(pod, "GPUUnmounted",
                          f"hot-removed {len(devices)} GPU(s): "
                          f"{', '.join(d.uuid for d in devices)}"
@@ -332,11 +447,21 @@ class GpuMountService:
         post_pod_event(self.kube, pod, reason, message, event_type,
                        component="tpumounter-worker")
 
-    def _release_slaves_for(self, requested: list, unmounted: list) -> None:
+    def _release_slaves_for(self, requested: list, unmounted: list, pod: Pod | None = None
+                            ) -> None:
         """Delete the slave pods whose every requested GPU was unmounted. A
         slave still holding a mounted GPU (a partial failure of an entire
-        mount) keeps its booking: the container still has the GPU. A
-        deletion that fails raises: the booking would otherwise leak."""
+        mount) keeps its booking: the container still has the GPU.
+
+        The delete is tried cfg.slave_release_attempts times. With a ledger,
+        the pods still standing go into its queue (a ``release`` record),
+        retried until they are gone: by the next release, by
+        ``retry_pending_releases`` and by the restart's replay. Without one
+        they are counted as leaked, the pod gets a Warning Event, and the
+        call raises."""
+        if not unmounted:
+            return
+        self._probe_pending_releases()
         unmounted_keys = {d.uuid for d in unmounted}
         by_slave: dict[str, list] = {}
         for dev in requested:
@@ -345,12 +470,93 @@ class GpuMountService:
                             if all(d.uuid in unmounted_keys for d in devs))
         if not releasable:
             return
-        try:
-            self.allocator.delete_slave_pods(releasable)
-        except Exception as exc:
-            SLAVE_RELEASE_FAILURES.inc(float(len(releasable)))
-            raise ServiceError("INTERNAL", f"GPUs unmounted, but slave pod(s) "
-                               f"{releasable} not released: {exc}") from exc
+        attempts = max(1, int(self.cfg.slave_release_attempts))
+        last_exc: Exception | None = None
+        for attempt in range(1, attempts + 1):
+            try:
+                self.allocator.delete_slave_pods(releasable)
+                return
+            except Exception as exc:  # noqa: BLE001 — SlavePodError (the wait timed
+                # out) and the API's failures alike leave the booking held
+                last_exc = exc
+                logger.warning("slave pod release attempt %d/%d failed: %s", attempt, attempts,
+                               exc)
+                if attempt < attempts:
+                    time.sleep(min(0.1 * 2 ** (attempt - 1), 2.0))
+        # count and name only what is still there: two of three deleted and
+        # one stuck is one leak, not three
+        leaked = []
+        for name in releasable:
+            try:
+                self.kube.get_pod(self.cfg.pool_namespace, name)
+                leaked.append(name)
+            except NotFoundError:
+                pass  # the delete landed; its wait timed out
+            except Exception as exc:  # noqa: BLE001 — unverifiable: taken as leaked
+                logger.debug("leak probe of %s inconclusive (%s); assuming leaked", name, exc)
+                leaked.append(name)
+        if not leaked:
+            return
+        if self.ledger is not None:
+            rel_id = self.ledger.queue_release(self.cfg.pool_namespace, leaked)
+            SLAVE_RELEASE_DEFERRED.inc(float(len(leaked)))
+            logger.warning("slave pod release failed after %d attempt(s); %d booking(s) "
+                           "deferred into the ledger retry queue as %s (%s): %s", attempts,
+                           len(leaked), rel_id, ", ".join(leaked), last_exc)
+            return
+        SLAVE_RELEASE_FAILURES.inc(float(len(leaked)))
+        logger.error("slave pod release failed after %d attempt(s); %d booking(s) stay "
+                     "leaked until reaped: %s", attempts, len(leaked), last_exc)
+        if pod is not None:
+            self._post_event(pod, "GPUSlaveReleaseFailed",
+                             f"could not release {len(leaked)} slave pod(s) "
+                             f"({', '.join(leaked)}) after unmount: {last_exc}; their GPU "
+                             f"bookings are leaked until deleted manually or reaped", "Warning")
+        raise ServiceError("INTERNAL", f"GPUs unmounted, but slave pod(s) {leaked} not "
+                           f"released: {last_exc}") from last_exc
+
+    def _probe_pending_releases(self) -> None:
+        """The next release is a natural "is the API back?" probe of the
+        releases deferred before it. One record is tried first; the rest
+        only when it went through, so that a long outage costs each unmount
+        one doomed delete, not one a pending record. (The reference asks its
+        ApiHealth machine, ``k8s/health.py``, which the port has not yet.)"""
+        if self.ledger is None or not self.ledger.pending_releases():
+            return
+        probe = self.retry_pending_releases(limit=1)
+        if probe["completed"] and probe["pending"]:
+            self.retry_pending_releases()
+
+    def retry_pending_releases(self, limit: int | None = None) -> dict:
+        """Drive the ledger's queue of deferred releases: delete every pod
+        still standing of each pending record, and close a record
+        (release_done) once all its pods are gone. Safe at any time: a
+        delete is idempotent and a pod already gone counts as released.
+        `limit` bounds the records tried. Returns {"completed": n,
+        "pending": m}."""
+        if self.ledger is None:
+            return {"completed": 0, "pending": 0}
+        pending = self.ledger.pending_releases()
+        total = len(pending)
+        if limit is not None:
+            pending = pending[:max(0, limit)]
+        completed = 0
+        for record in pending:
+            namespace = record.get("namespace", self.cfg.pool_namespace)
+            remaining = []
+            for name in record.get("pods", []):
+                try:
+                    # the delete of a missing pod is a no-op: here, the pod is gone
+                    self.kube.delete_pod(namespace, name, grace_period_seconds=0)
+                except Exception as exc:  # noqa: BLE001 — still failing
+                    remaining.append(name)
+                    logger.info("deferred release of %s still failing: %s", name, exc)
+            if not remaining:
+                self.ledger.complete_release(record.get("rel", ""))
+                completed += 1
+                logger.info("deferred slave release %s completed (%s)", record.get("rel"),
+                            ", ".join(record.get("pods", [])))
+        return {"completed": completed, "pending": total - completed}
 
 
 # --- the gRPC transport ---

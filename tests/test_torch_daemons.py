@@ -8,6 +8,9 @@ tenant is a real process in a mount namespace of its own with a tmpfs /dev,
 behind a cgroup-v1 directory that names it. One add and one remove go over
 HTTP to the master, which routes them over gRPC to the worker, which enters
 the tenant's namespace; then both daemons stop on SIGTERM with exit code 0.
+The worker keeps a ledger (TPUMOUNTER_LEDGER_DIR): after SIGTERM it is
+closed clean with no open transaction, and a worker started again over it
+replays nothing.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from torch_kube_fake import FakeApiServer, selfsigned
 
 from gpumounter_tpu_torch.cgroup import container_cgroup_dir
 from gpumounter_tpu_torch.testing.cluster import FakeCluster
+from gpumounter_tpu_torch.worker.ledger import MountLedger
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOKEN = "daemon-test-secret"
@@ -148,11 +152,12 @@ def test_the_daemons_mount_and_remove_over_http(tmp_path, tenant):
             with open(os.path.join(cg, name), "w") as f:
                 f.write(text)
         cluster.register_worker()
-        daemons.append(_Daemon("gpumounter_tpu_torch.worker.main", {
-            **env, "FAKE_DEVICE_DIR": cluster.backend.root,
-            "KUBELET_POD_RESOURCES_SOCKET": kubelet.socket_path,
-            "METRICS_PORT": str(ops_port), "CGROUP_ROOT": str(cgroup_root),
-            "CGROUP_DRIVER": "cgroupfs", "CGROUP_VERSION": "1"}, "serving gRPC"))
+        worker_env = {**env, "FAKE_DEVICE_DIR": cluster.backend.root,
+                      "KUBELET_POD_RESOURCES_SOCKET": kubelet.socket_path,
+                      "METRICS_PORT": str(ops_port), "CGROUP_ROOT": str(cgroup_root),
+                      "CGROUP_DRIVER": "cgroupfs", "CGROUP_VERSION": "1",
+                      "TPUMOUNTER_LEDGER_DIR": str(tmp_path / "ledger")}
+        daemons.append(_Daemon("gpumounter_tpu_torch.worker.main", worker_env, "serving gRPC"))
         daemons.append(_Daemon("gpumounter_tpu_torch.master.main",
                                {**env, "MASTER_PORT": str(master_port)}, "serving on"))
         for d in daemons:
@@ -176,6 +181,16 @@ def test_the_daemons_mount_and_remove_over_http(tmp_path, tenant):
         assert cluster.free_gpu_count() == 2
         assert cluster.kube.list_pods(cluster.cfg.pool_namespace) == []
         assert [d.stop() for d in daemons] == [0, 0], [d.log() for d in daemons]
+        assert "drain clean" in daemons[0].log(), daemons[0].log()
+        ledger = MountLedger(str(tmp_path / "ledger"))
+        assert ledger.was_clean_shutdown() and ledger.open_transactions() == []
+        assert ledger.net_holdings() == {}
+        ledger.abandon()
+        again = _Daemon("gpumounter_tpu_torch.worker.main", worker_env, "serving gRPC")
+        daemons.append(again)
+        assert again.ready.wait(120) and again.proc.poll() is None, again.log()
+        assert "ledger replay: 0 open transaction(s), 0 holding(s) corrected" in again.log()
+        assert again.stop() == 0, again.log()
     finally:
         for d in daemons:
             d.stop()

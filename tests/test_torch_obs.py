@@ -659,8 +659,10 @@ _GPU_RULE = "c 195:0 "
      RuntimeError),
     ({"devices.list": "a *:* rwm\n"}, ["a *:* rwm"], ["a *:* rwm"],
      "not verified: devices.list did not show the grant"),
+    ({"devices.list": "c 195:255 rw\nc 254:0 rw\n"}, ["c 254:0 rw", "c 195:255 rw", "c 195:0 rw"],
+     ["c 254:0 rw", "c 195:255 rw"], "devices.list as before the add, without 'c 195:0'"),
 ], ids=["stand-in revoked", "stand-in silent", "stand-in other rule", "list revoked",
-        "list still grants", "list changed", "list allows all"])
+        "list still grants", "list changed", "list allows all", "list reordered"])
 def test_the_v1_revoke_verdict_of_the_rolled_back_add(tmp_path, files, held, before, verdict):
     """phase 13's after-grant fault judges the v1 revoke only by what reads
     back: devices.list where it showed the grant, a stand-in's devices.deny,

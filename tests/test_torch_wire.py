@@ -97,18 +97,18 @@ def test_pod_resources_list_is_the_references_bytes():
 
 
 def test_the_references_extra_fields_are_skipped():
-    """A reference request with fields the port leaves out (prefer_ici,
-    epoch, the share fields) decodes to the fields it has, field 7
-    (trace_context) among them."""
+    """A reference request with fields the port leaves out (prefer_ici, the
+    share fields) decodes to the fields it has, field 7 (trace_context) and
+    field 8 (epoch) among them."""
     ref = ref_api.AddTPURequest(pod_name="p", namespace="n", tpu_num=3, is_entire_mount=True,
                                 prefer_ici=True, idempotency_key="k", trace_context="t-s",
                                 epoch=-7, share_weight=2, share_rate_budget=9)
     ours = api.AddGPURequest.decode(ref.encode())
     assert _values(ours) == dict(pod_name="p", namespace="n", gpu_num=3, is_entire_mount=True,
-                                 idempotency_key="k", trace_context="t-s")
+                                 idempotency_key="k", trace_context="t-s", epoch=-7)
     ref_rm = ref_api.RemoveTPURequest(pod_name="p", uuids=["a"], trace_context="x", epoch=4)
     assert api.RemoveGPURequest.decode(ref_rm.encode()) == api.RemoveGPURequest(
-        "p", uuids=["a"], trace_context="x")
+        "p", uuids=["a"], trace_context="x", epoch=4)
 
 
 def test_phases_stay_off_the_wire():
@@ -204,7 +204,8 @@ def _protobuf_classes():
                               (3, "gpu_num", F.TYPE_INT32, False),
                               (4, "is_entire_mount", F.TYPE_BOOL, False),
                               (6, "idempotency_key", F.TYPE_STRING, False),
-                              (7, "trace_context", F.TYPE_STRING, False)])
+                              (7, "trace_context", F.TYPE_STRING, False),
+                              (8, "epoch", F.TYPE_INT64, False)])
     message("AddGPUResponse", [(1, "add_gpu_result", F.TYPE_ENUM, False),
                                (2, "uuids", F.TYPE_STRING, True)])
     message("RemoveGPURequest", [(1, "pod_name", F.TYPE_STRING, False),
@@ -213,7 +214,8 @@ def _protobuf_classes():
                                  (4, "force", F.TYPE_BOOL, False),
                                  (5, "remove_all", F.TYPE_BOOL, False),
                                  (6, "idempotency_key", F.TYPE_STRING, False),
-                                 (7, "trace_context", F.TYPE_STRING, False)])
+                                 (7, "trace_context", F.TYPE_STRING, False),
+                                 (8, "epoch", F.TYPE_INT64, False)])
     message("Zigzag", [(1, "s32", F.TYPE_SINT32, False), (2, "s64", F.TYPE_SINT64, False)])
     pool.Add(fdp)
     return lambda name: message_factory.GetMessageClass(
@@ -223,10 +225,11 @@ def _protobuf_classes():
 PROTOBUF = [(api.AddGPURequest, dict(pod_name="p", namespace="ns", gpu_num=4,
                                      is_entire_mount=True, idempotency_key="k",
                                      trace_context="0123456789abcdef0123456789abcdef-0123456789abcdef")),
-            (api.AddGPURequest, dict(pod_name="p", gpu_num=-2)),
+            (api.AddGPURequest, dict(pod_name="p", gpu_num=-2, epoch=-5)),
             (api.AddGPUResponse, dict(add_gpu_result=2, uuids=["GPU-a", "GPU-b"])),
             (api.RemoveGPURequest, dict(pod_name="p", namespace="ns", uuids=["a", "b"],
-                                        force=True, remove_all=False, idempotency_key="r"))]
+                                        force=True, remove_all=False, idempotency_key="r",
+                                        epoch=2**40 + 3))]
 
 
 @pytest.mark.parametrize("cls, values", PROTOBUF, ids=lambda v: getattr(v, "__name__", None))

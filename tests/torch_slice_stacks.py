@@ -198,7 +198,7 @@ class PortSliceStack(_Stack):
             os.makedirs(dev)
         self.stack = entry._MasterStack(self.cluster, self.dev_dirs)
         self.kube, self.cfg, self.base = self.cluster.kube, self.cluster.cfg, self.stack.base
-        self.registry, self.port_by_ip = self.stack.app.registry, self.stack.port_by_ip
+        self.registry, self.port_by_ip = self.stack.app.registry, self.stack.workers.port_by_ip
         self.factory = self.stack.app._client_factory
 
     def close(self):
