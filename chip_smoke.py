@@ -257,6 +257,35 @@ Phases, each raising on failure (any failure exits non-zero):
        and frees the GPU.
     Cases a, b, d and e run on the card's own GPU: without CAP_MKNOD the
     phase fails.
+15. the master's store through an API outage on a live hot-mount,
+    ``entry.degraded_check`` through the master over gRPC as in phase 11,
+    with the default ``CachedMasterStore``, the worker's ledger and the
+    write-behind queue in a directory beside this script; the "API server"
+    is the cluster's in-process ``FakeKubeClient`` (this machine has none),
+    partitioned by ``set_partitioned`` and shared by the master and the
+    worker, with short ApiHealth thresholds (printed):
+    a. 3 live HTTP adds and removes through the store-backed registry, each
+       median beside phase 11's; /healthz "ok", /apihealth healthy with the
+       registry's cache age and an empty queue;
+    b. a write partition around a live remove: the write plane driven down
+       (timed); /healthz 200 "api: down"; 3 stamps and a CAS stamp (seq 1)
+       deferred (4 on disk, the series + 4); the remove 200, the GPU's node
+       gone, its slave release deferred into the ledger, the next release's
+       probe trying one record of 3; an add refused 500 (the reference's
+       code) with nothing mounted and no new slave pod; healed (a newer
+       writer's seq 5 first; timed), the flush applies the 3 once each and
+       drops the CAS one as lost-cas (timed), a queue reopened from disk holds
+       nothing, the releases retried, books == mounts == ledger;
+    c. a read partition around a live add: the registry answers from its
+       cache, the store's worker LIST is served stale (its age on
+       /apihealth), the add fails 500 at the pod read with no worker call, a
+       stamp lands directly; healed, the add mounts the GPU and a tenant
+       child (``--mount-child``) on it runs phase 3's first forward through
+       ``flash_fwd`` (its launches counted in the kernels line);
+    d. the costs on the card's host, medians of 20: one tracked call over
+       the raw fake, one read through the cache, one enqueue with its fsync.
+    Cases a, b and c run on the card's own GPU: without CAP_MKNOD the phase
+    fails.
 
 The last lines are a JSON object per kernel (``{"kernels": [...]}``) and
 ``{"ok": true, "device": {...}}``, and the exit code is 0. A failing check
@@ -302,7 +331,7 @@ from gpumounter_tpu_torch.entry import (ADD_TRACE, ADD_WORKER_SPANS, MOE_ROUTE_G
                                         RING_TOL, SHARDED_LOSS_ATOL, SHARDED_PARAM_OF_MAX,
                                         TRAIN_GRAD_ATOL, _check_equal_over, _masked_err,
                                         against_one_process, busy_health_check, cgroup_v2_check,
-                                        check_config, durability_check,
+                                        check_config, degraded_check, durability_check,
                                         dryrun_multichip, grow_checks, has_cap_mknod,
                                         inventory_check, kernel_launches, make_identity,
                                         master_check, moe_blocks_vs_plain, moe_check,
@@ -3125,6 +3154,82 @@ def phase_durability(card: str) -> int:
     return child["launches"]["flash_fwd"]
 
 
+# --- phase 15: the master's store through an API outage on a live hot-mount ---
+
+def phase_degraded(card: str, master_live: dict) -> int:
+    """Phase 15: ``entry.degraded_check`` on the card (see the module's
+    docstring), a line for each case. Returns the flash_fwd launches of the
+    tenant child on the GPU added after the read partition's heal."""
+    t_phase = time.perf_counter()
+    children = []
+
+    def on_healed(uuids, target):
+        visible = gpus_visible_in_dev(target)
+        if visible != 1:
+            raise RuntimeError(f"gpus_visible_in_dev({target}) = {visible} after the healed "
+                               f"add of {uuids}")
+        children.append({**_tenant_child(uuids[0]), "visible_in_dev": visible})
+
+    queue_root = os.path.dirname(os.path.abspath(__file__))
+    with _tenant_target("phase15") as (dev_dir, cgroup_dir):
+        report = degraded_check("cuda", dev_dir=dev_dir, ns_pid=os.getpid(),
+                                cgroup_dirs=[cgroup_dir] if cgroup_dir else (),
+                                identity=pick_identity(), repeats=MOUNT["REPEATS"],
+                                queue_root=queue_root, on_healed=on_healed)
+    flows = report["live"]
+    if flows is None or len(children) != 1:
+        raise RuntimeError(f"phase 15 ran no live flows with their tenant child on the card: "
+                           f"live {flows is not None}, {len(children)} child(ren)")
+    child = children[0]
+    med = statistics.median
+    print(f"degraded ApiHealth for the check: {report['health']}; the queue and the ledger in "
+          f"{queue_root} ({_filesystem(queue_root)}) [{card}]", flush=True)
+    ok = flows["healthy"]
+    print(f"time degraded (a) healthy through the store on the live GPU: HTTP add "
+          f"{_runs(ok['add_ms'])} against phase 11's {_runs(master_live['add_ms'])}; remove "
+          f"{_runs(ok['remove_ms'])} against {_runs(master_live['remove_ms'])}; "
+          f"/healthz {ok['healthz'].strip()!r}; /apihealth {ok['apihealth']['api']['state']}, "
+          f"cache ages {ok['apihealth']['store']['cacheAgesS']}, queue pending "
+          f"{ok['apihealth']['store']['writeBehind']['pending']}; {ok['registry_lists']} "
+          f"registry LIST(s) through the store [{card}]", flush=True)
+    w = flows["writes"]
+    print(f"time degraded (b) write partition around a live remove: the write plane down "
+          f"after {w['down_ms']:.3f} ms of failing writes; /healthz {w['healthz']!r}; "
+          f"{w['deferred']:.0f} stamps deferred (3 and a CAS seq 1), {w['on_disk']} on disk; "
+          f"the remove answered 200 in {w['remove_ms']:.3f} ms, the GPU's node gone, its slave "
+          f"release deferred into the ledger; the next release's probe tried "
+          f"{w['release_attempts'][0]} record of {w['probe']['pending']}; the add refused "
+          f"{w['refused'][0]} in {w['refused_ms']:.3f} ms, nothing mounted, no new slave pod; "
+          f"healed (a newer writer's seq 5 first) to healthy in {w['heal_ms']:.3f} ms; the "
+          f"flush {w['flush']} in {w['flush_ms']:.3f} ms; reopened queue pending "
+          f"{w['reopened_pending']}; releases retried {w['retried']}; books == mounts == "
+          f"ledger [{card}]", flush=True)
+    r = flows["reads"]
+    print(f"time degraded (c) read partition around a live add: the registry answered from "
+          f"its cache; the store's worker LIST served stale (tpumounter_store_stale_reads_total"
+          f" + {r['stale_reads']:.0f}, age {r['cache_age_s']} s on /apihealth); the add refused "
+          f"{r['refused'][0]} at the pod read in {r['refused_ms']:.3f} ms with "
+          f"{r['worker_calls']} worker call(s); a stamp landed directly ({r['queued']} queued); "
+          f"healed in {r['heal_ms']:.3f} ms; the add mounted {r['uuids']} in {r['add_ms']:.3f} "
+          f"ms (gpus_visible_in_dev {child['visible_in_dev']}); the tenant child on "
+          f"{child['uuid']} ({child['device']}): flash_fwd {child['launches']['flash_fwd']} "
+          f"launch(es), nll {child['nll']:.4f}, exec to CUDA ready "
+          f"{child['exec_to_cuda_ready_ms']:.1f} ms; the remove {r['remove_ms']:.3f} ms "
+          f"[{card}]", flush=True)
+    c = report["costs"]
+    print(f"time degraded (d) costs on the card's host, medians of {len(c['enqueue_us'])}: a "
+          f"get_pod on the raw fake {med(c['raw_call_us']):.1f} us, tracked "
+          f"{med(c['tracked_call_us']):.1f} us (overhead "
+          f"{med(c['tracked_call_us']) - med(c['raw_call_us']):.1f} us); a worker LIST through "
+          f"the cache {med(c['cached_read_us']):.1f} us, through the store it wraps "
+          f"{med(c['inner_read_us']):.1f} us; one enqueue with its fsync "
+          f"{med(c['enqueue_us']):.1f} us (runs {min(c['enqueue_us']):.1f}-"
+          f"{max(c['enqueue_us']):.1f}) [{card}]", flush=True)
+    print(f"time degraded phase 15: {time.perf_counter() - t_phase:.1f} s [{card}]",
+          flush=True)
+    return child["launches"]["flash_fwd"]
+
+
 def phase_forward_timing(cfg, params, tokens, card, what="forward") -> None:
     fwd_ms = _time_ms(lambda: forward(params, tokens, cfg), 5, warmup=1)
     tok_s = tokens.numel() / (fwd_ms / 1e3)
@@ -3237,6 +3342,8 @@ def _phases(stage: list, t0: float) -> None:
     phase_obs(card, master_live)
     begin("14 (the worker's durability on a live hot-mount)")
     durability_launches = phase_durability(card)
+    begin("15 (the master's store through an API outage on a live hot-mount)")
+    degraded_launches = phase_degraded(card, master_live)
     sharded = {k: sharded_launches[k] + seq_pipe_launches[k] + grow_launches[k]
                + dryrun_launches[k] for k in sharded_launches}
 
@@ -3255,8 +3362,9 @@ def _phases(stage: list, t0: float) -> None:
           f"(phase 11: on the UUID the HTTP add mounted, and the slice's on the UUID /addslice "
           f"mounted): flash_fwd {mount_launches}; the "
           f"cgroup v2 round trip's tenant (phase 12): flash_fwd {v2_launches}; the replayed "
-          f"GPU's tenant (phase 14): flash_fwd {durability_launches}", flush=True)
-    print(f"chip_smoke: phases 1-14 took {time.perf_counter() - t0:.1f} s, the kernels' build "
+          f"GPU's tenant (phase 14): flash_fwd {durability_launches}; the GPU added after the "
+          f"read partition's heal (phase 15): flash_fwd {degraded_launches}", flush=True)
+    print(f"chip_smoke: phases 1-15 took {time.perf_counter() - t0:.1f} s, the kernels' build "
           f"included [{card}]", flush=True)
     bwd_source = "gpumounter_tpu_torch/ops/csrc/flash_bwd.cu"
     print(json.dumps({"kernels": [{
@@ -3265,7 +3373,8 @@ def _phases(stage: list, t0: float) -> None:
         "replaces": "gpumounter_tpu/ops/flash_attention.py:84",
         "launches": (launches + prefill_launches + train_fwd + moe_launches + moe_prefill
                      + moe_fwd + handoff_launches["flash_fwd"] + sharded["flash_fwd"]
-                     + mount_launches + v2_launches + durability_launches),
+                     + mount_launches + v2_launches + durability_launches
+                     + degraded_launches),
         "max_abs_err": max_abs_err, **times}, {
         "name": "flash_bwd_dq", "route": "cuda", "source": bwd_source,
         "replaces": "gpumounter_tpu/ops/flash_attention.py:182",

@@ -3,8 +3,8 @@
 The counterpart of ``gpumounter_tpu/config/config.py``, holding only the
 fields the device layer, the collector, the allocator, the cgroup layer, the
 mounter, the transport, the master (with its slice and batch routes and their
-fan-out core), the observability stores, the worker's ledger and drain, and the two daemons
-read. Every field is an environment
+fan-out core), the observability stores, the worker's ledger and drain, the master's
+store with its API-outage degraded mode, and the two daemons read. Every field is an environment
 variable with the original GPUMounter's value as default; the names are the reference's where the
 meaning is the same. NVIDIA-specific: the resource ``nvidia.com/gpu``
 (``pkg/util/gpu/types.go:10``), the pool namespace ``gpu-pool``
@@ -109,6 +109,12 @@ class Config:
     breaker_failure_threshold: int = field(default_factory=lambda: int(
         _env("BREAKER_FAILURE_THRESHOLD", "5")))
     breaker_reset_s: float = field(default_factory=lambda: float(_env("BREAKER_RESET_S", "30")))
+    # --- Kubernetes write retries (store/k8s.py's annotation stamps) ---
+    # a merge-patch of an annotation re-applies safely after a 409 or a 5xx;
+    # this many attempts, capped-exponential from the base
+    k8s_write_attempts: int = field(default_factory=lambda: int(_env("K8S_WRITE_ATTEMPTS", "3")))
+    k8s_write_retry_base_s: float = field(default_factory=lambda: float(
+        _env("K8S_WRITE_RETRY_BASE_S", "0.1")))
     # the master's pooled channels: idle ones close after this long, and
     # keepalive pings keep the others warm
     channel_idle_evict_s: float = field(default_factory=lambda: float(
@@ -154,3 +160,43 @@ class Config:
     # ledger, counted as leaked)
     slave_release_attempts: int = field(default_factory=lambda: int(_env(
         "SLAVE_RELEASE_ATTEMPTS", "3")))
+
+    # --- the master's store (store/) and the API-outage degraded mode ---
+    # (k8s/health.py, store/cache.py, store/writebehind.py). ApiHealth: this
+    # many outage-shaped failures in a row (5xx, transport, timeout) make a
+    # plane degraded; a streak this long in seconds makes it down (writes
+    # then go straight into the write-behind queue); this many successes in
+    # a row bring it back (hysteresis)
+    api_health_degraded_failures: int = field(default_factory=lambda: int(_env(
+        "API_HEALTH_DEGRADED_FAILURES", "3")))
+    api_health_down_after_s: float = field(default_factory=lambda: float(_env(
+        "API_HEALTH_DOWN_AFTER_S", "10")))
+    api_health_recovery_successes: int = field(default_factory=lambda: int(_env(
+        "API_HEALTH_RECOVERY_SUCCESSES", "2")))
+    # while the write plane is unhealthy or writes are queued, the store
+    # probes it this often (a flush, else a lease touch); 0: no probe
+    api_health_probe_interval_s: float = field(default_factory=lambda: float(_env(
+        "API_HEALTH_PROBE_INTERVAL_S", "5")))
+    # a failed read is answered from the store's cache while the cached copy
+    # is younger than this; beyond it the failure propagates
+    api_cache_max_staleness_s: float = field(default_factory=lambda: float(_env(
+        "API_CACHE_MAX_STALENESS_S", "300")))
+    # the fsync'd write-behind queue's directory ("": in memory only, lost
+    # on restart) and the size past which it is compacted
+    writebehind_dir: str = field(default_factory=lambda: _env("TPUMOUNTER_WRITEBEHIND_DIR", ""))
+    writebehind_max_bytes: int = field(default_factory=lambda: int(_env(
+        "TPUMOUNTER_WRITEBEHIND_MAX_BYTES", str(4 * 1024 * 1024))))
+    # the watch-backed store (store/watch.py) in place of the list-backed
+    # one: off by default; one watch stream's timeout, the relist backoff
+    # after a 410 from base to cap, and how long a read waits for the first
+    # sync before it reads through the list-backed store
+    store_watch_enabled: bool = field(default_factory=lambda: _env(
+        "TPUMOUNTER_WATCH_STORE", "0") not in ("0", "false", ""))
+    store_watch_timeout_s: float = field(default_factory=lambda: float(_env(
+        "WATCH_STORE_TIMEOUT_S", "60")))
+    store_watch_relist_base_s: float = field(default_factory=lambda: float(_env(
+        "WATCH_STORE_RELIST_BASE_S", "0.5")))
+    store_watch_relist_cap_s: float = field(default_factory=lambda: float(_env(
+        "WATCH_STORE_RELIST_CAP_S", "30")))
+    store_watch_sync_timeout_s: float = field(default_factory=lambda: float(_env(
+        "WATCH_STORE_SYNC_TIMEOUT_S", "10")))

@@ -9,8 +9,11 @@ one-node hot-mount of a GPU into a pod (``mount_check``), through the
 master (``master_check``), the master's slice and batch routes over a fleet
 of nodes (``slice_check``), the cgroup v2 device controller on this
 host's GPU (``cgroup_v2_check``), the trace, audit and failpoint core
-(``obs_check``), and the worker's durability: its ledger, the replay after a
-death, the drain, the fence and the reaper (``durability_check``)."""
+(``obs_check``), the worker's durability: its ledger, the replay after a
+death, the drain, the fence and the reaper (``durability_check``), and the
+master's store through an API outage: ApiHealth, the bounded-staleness
+cache, the write-behind queue and the worker's deferred releases
+(``degraded_check``)."""
 
 from __future__ import annotations
 
@@ -43,6 +46,8 @@ from gpumounter_tpu_torch.config import Config
 from gpumounter_tpu_torch.device.backend import NvidiaDeviceBackend, identity_from_config
 from gpumounter_tpu_torch.device.gpu import CompanionNode, GpuDevice
 from gpumounter_tpu_torch.faults import failpoints
+from gpumounter_tpu_torch.k8s import health as k8s_health
+from gpumounter_tpu_torch.k8s.errors import PartitionError
 from gpumounter_tpu_torch.k8s.types import Pod
 from gpumounter_tpu_torch.master.app import MasterApp, build_http_server
 from gpumounter_tpu_torch.models.probe import (TransformerConfig, _attend, _block, _embed,
@@ -73,6 +78,8 @@ from gpumounter_tpu_torch.rpc.api import (AddGPURequest, AddGPUResponse, AddGPUR
                                           RemoveGPUResult)
 from gpumounter_tpu_torch.rpc.client import WorkerClient
 from gpumounter_tpu_torch.rpc.resilience import RPC_RETRIES
+from gpumounter_tpu_torch.store.cache import DEFERRED_WRITES, STALE_READS
+from gpumounter_tpu_torch.store.writebehind import QUEUE_FILE, WRITEBEHIND_REPLAYED, WriteBehindQueue
 from gpumounter_tpu_torch.testing import v2tenant
 from gpumounter_tpu_torch.testing.bpf import FakeBpf
 from gpumounter_tpu_torch.testing.cluster import FakeCluster, WorkerServers
@@ -1629,7 +1636,7 @@ class _MasterStack:
     def __exit__(self, *exc):
         self.httpd.shutdown()
         self.httpd.server_close()
-        self.app.registry.stop()
+        self.app.close()
         self.workers.stop()
         self.cluster.stop()
         return False
@@ -2587,7 +2594,7 @@ def _fenced(stack: _MasterStack, pod, dev_dir: str, live: bool) -> dict:
             "POST", _remove_path(pod), urllib.parse.urlencode({"uuids": added.uuids[0]}).encode(),
             {"Authorization": f"Bearer {stack.token}"})
     finally:
-        stale.registry.stop()
+        stale.close()
     if (status, headers.get("Retry-After")) != (503, "1") or \
             stack.held(node, pod) != list(added.uuids):
         raise RuntimeError(f"the stale master's remove: {status} {headers} {text!r}")
@@ -2816,4 +2823,354 @@ def durability_check(device="cuda", *, dev_dir: str | None = None, ns_pid: int |
         shutil.rmtree(ledgers, ignore_errors=True)
     if failpoints.active():
         raise RuntimeError(f"failpoints left armed: {failpoints.active()}")
+    return report
+
+
+# --- the master's store through an API outage: ApiHealth, the cache, the queue ---
+
+#: degraded_check's ApiHealth: degraded after 2 outage-shaped failures in a
+#: row, down after a streak of 0.5 s, healthy after 2 successes in a row; no
+#: write probe (the check drives the plane itself)
+DEGRADED_HEALTH = dict(api_health_degraded_failures=2, api_health_down_after_s=0.5,
+                       api_health_recovery_successes=2, api_health_probe_interval_s=0.0)
+#: the annotations the write partition's stamps defer, and the CAS one
+DEGRADED_STAMPS = ("tpumounter.io/migration-phase", "tpumounter.io/migration-ack",
+                   "tpumounter.io/migration-lock")
+DEGRADED_CAS = "tpumounter.io/chip-replaced"
+
+
+def _median_us(fn, iters: int) -> list[float]:
+    """fn() `iters` times after one warm call: each call's us, host clock."""
+    fn()
+    out = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        out.append((time.perf_counter() - t0) * 1e6)
+    return out
+
+
+def _slave_pods(cluster, pod) -> list[str]:
+    return sorted(Pod(p).name for p in cluster.kube.list_pods(
+        cluster.cfg.pool_namespace, label_selector=f"tpumounter.io/owner-uid={pod.uid}"))
+
+
+def _queued_on_disk(directory: str) -> int:
+    """The write records of the queue's file that no done record closes."""
+    open_seqs: set[int] = set()
+    with open(os.path.join(directory, QUEUE_FILE), encoding="utf-8") as f:
+        for line in f:
+            rec = json.loads(line)
+            if rec["kind"] == "write":
+                open_seqs.add(rec["seq"])
+            else:
+                open_seqs.discard(rec["seq"])
+    return len(open_seqs)
+
+
+def _until(predicate, timeout_s: float, what: str) -> float:
+    """Poll `predicate` every ms until it holds; the ms it took."""
+    t0 = time.perf_counter()
+    while not predicate():
+        if time.perf_counter() - t0 > timeout_s:
+            raise RuntimeError(f"{what} not within {timeout_s} s")
+        time.sleep(0.001)
+    return (time.perf_counter() - t0) * 1e3
+
+
+def _heal(stack: _MasterStack, pod) -> float:
+    """The partition lifted, then tracked calls on both planes until ApiHealth
+    reads healthy; the ms from the heal."""
+    app = stack.app
+    t0 = time.perf_counter()
+    stack.cluster.kube.set_partitioned(False)
+    for _ in range(10):
+        if app.apihealth.state() == "healthy":
+            break
+        app.kube.get_pod(pod.namespace, pod.name)
+        app.kube.patch_pod(pod.namespace, pod.name, {"metadata": {"labels": {}}})
+    if app.apihealth.state() != "healthy":
+        raise RuntimeError(f"ApiHealth after the heal: {app.apihealth.payload()}")
+    return (time.perf_counter() - t0) * 1e3
+
+
+def _apihealth(stack: _MasterStack) -> dict:
+    status, body, _ = stack.http("GET", "/apihealth")
+    if status != 200:
+        raise RuntimeError(f"/apihealth: {status} {body!r}")
+    return json.loads(body)
+
+
+def _degraded_healthy(stack: _MasterStack, dev_dir: str, repeats: int, live: bool,
+                      lists: list) -> dict:
+    """(a) `repeats` HTTP round trips of 1 GPU through the store-backed
+    registry; /healthz "ok", /apihealth healthy with the registry's cache
+    age and an empty queue; the registry's LIST counted through the store."""
+    flow = _master_flow(stack, dev_dir, 1, repeats, "round-trip", live=live)
+    status, body, _ = stack.http("GET", "/healthz", token=None)
+    pane = _apihealth(stack)
+    if (status, body) != (200, "ok\n") or pane["api"]["state"] != "healthy" \
+            or "worker_pods" not in pane["store"]["cacheAgesS"] \
+            or pane["store"]["writeBehind"]["pending"] != 0 or not lists \
+            or stack.app.registry.store is not stack.app.store:
+        raise RuntimeError(f"the healthy seam: /healthz {status} {body!r}, /apihealth {pane}, "
+                           f"{len(lists)} registry LIST(s) through the store")
+    return {"add_ms": flow["add_ms"], "remove_ms": flow["remove_ms"], "healthz": body,
+            "apihealth": pane, "registry_lists": len(lists)}
+
+
+def _degraded_writes(stack: _MasterStack, dev_dir: str, live: bool) -> dict:
+    """(b) A write partition around a remove: the plane driven down, 3 stamps
+    and a CAS stamp deferred (4 on disk), the remove 200 with its slave's
+    release deferred into the ledger and the next release's probe trying one
+    record, an add refused (500) with nothing mounted; healed, the flush
+    applies the 3 once each and drops the CAS one (a newer writer's seq 5),
+    the queue reopened from disk holds nothing, the releases retried, books
+    == mounts == ledger."""
+    cluster, app, node = stack.cluster, stack.app, stack.cluster.node_name
+    service, kube = stack.services[node], stack.cluster.kube
+    pod = cluster.add_target_pod("tenant-degraded-writes")
+    free = cluster.free_gpu_count(node)
+    status, text, _ = stack.http("GET", _add_path(pod, 1))
+    if status != 200:
+        raise RuntimeError(f"add before the write partition: {status} {text!r}")
+    uuids = stack.held(node, pod)
+    kube.set_partitioned(True, mode="writes")
+    t0 = time.perf_counter()
+    while app.apihealth.plane_state("write") != "down":
+        try:
+            app.kube.patch_pod(pod.namespace, pod.name, {"metadata": {"labels": {}}})
+        except PartitionError:
+            pass
+        if time.perf_counter() - t0 > 10.0:
+            raise RuntimeError(f"the write plane not down: {app.apihealth.payload()}")
+        time.sleep(0.01)
+    down_ms = (time.perf_counter() - t0) * 1e3
+    status, healthz, _ = stack.http("GET", "/healthz", token=None)
+    deferred0 = DEFERRED_WRITES.total()
+    for i, annotation in enumerate(DEGRADED_STAMPS):
+        app.store.stamp_annotation(pod.namespace, pod.name, annotation, f"stamp-{i}")
+    app.store.stamp_annotation(pod.namespace, pod.name, DEGRADED_CAS, json.dumps({"seq": 1}))
+    deferred = DEFERRED_WRITES.total() - deferred0
+    on_disk = _queued_on_disk(app.store.queue.directory)
+    if status != 200 or healthz != "ok\napi: down\n" or deferred != 4 or on_disk != 4:
+        raise RuntimeError(f"the write partition: /healthz {status} {healthz!r}, {deferred} "
+                           f"deferred, {on_disk} on disk")
+    released0 = SLAVE_RELEASE_DEFERRED.total()
+    status, text, remove_ms = stack.http("POST", _remove_path(pod), {"uuids": ",".join(uuids)})
+    _no_gpu_node(cluster, node, dev_dir, "the remove in the write partition")
+    pending = service.ledger.pending_releases()
+    if status != 200 or len(pending) != 1 or SLAVE_RELEASE_DEFERRED.total() - released0 != 1:
+        raise RuntimeError(f"the remove in the write partition: {status} {text!r}, pending "
+                           f"{pending}")
+    # the next release's probe, with two more records queued: one doomed delete
+    for i in range(2):
+        service.ledger.queue_release(cluster.cfg.pool_namespace, [f"{pod.name}-queued-{i}"])
+    attempts: list[str] = []
+    delete = kube.delete_pod
+    kube.delete_pod = lambda ns, name, **kw: (attempts.append(name), delete(ns, name, **kw))[1]
+    try:
+        probe = service.probe_pending_releases()
+    finally:
+        del kube.delete_pod
+    if len(attempts) != 1 or probe != {"completed": 0, "pending": 3}:
+        raise RuntimeError(f"the next release's probe: {attempts} tried, {probe}")
+    # the add: its slave pod cannot be made; the deferred one still books its GPU
+    slaves = _slave_pods(cluster, pod)
+    refused, refusal, refused_ms = stack.http("GET", _add_path(pod, 1))
+    if refused != 500 or _slave_pods(cluster, pod) != slaves or len(slaves) != 1 \
+            or cluster.free_gpu_count(node) != free - 1:
+        raise RuntimeError(f"the add in the write partition: {refused} {refusal!r}, slave pods "
+                           f"{_slave_pods(cluster, pod)}, {cluster.free_gpu_count(node)} free")
+    _no_gpu_node(cluster, node, dev_dir, "the refused add")
+    # the heal: a newer writer's CAS value first, then calls on both planes
+    kube.set_partitioned(False)
+    kube.patch_pod(pod.namespace, pod.name, {"metadata": {"annotations": {
+        DEGRADED_CAS: json.dumps({"seq": 5})}}})
+    patched: list[str] = []
+    patch = kube.patch_pod
+    kube.patch_pod = lambda ns, name, body: (patched.extend(
+        body.get("metadata", {}).get("annotations", {})), patch(ns, name, body))[1]
+    replayed0 = WRITEBEHIND_REPLAYED.snapshot()
+    healed_at: list[float] = []
+    # the store's subscriber starts the flush at the transition; this one
+    # (subscribed after it) stamps the transition's time
+    app.apihealth.subscribe(lambda old, new: healed_at.append(time.perf_counter())
+                            if new == "healthy" else None)
+    try:
+        heal_ms = _heal(stack, pod)
+        _until(lambda: app.store.queue.pending_count() == 0, 10.0, "the flush")
+        flush_ms = (time.perf_counter() - healed_at[0]) * 1e3
+    finally:
+        del kube.patch_pod
+    replayed = {dict(k).get("outcome"): v - replayed0.get(k, 0.0)
+                for k, v in WRITEBEHIND_REPLAYED.snapshot().items()}
+    flush = {"applied": int(replayed.get("applied", 0)),
+             "lost_cas": int(replayed.get("lost-cas", 0))}
+    annotations = Pod(kube.get_pod(pod.namespace, pod.name)).annotations
+    if flush != {"applied": 3, "lost_cas": 1} \
+            or sorted(a for a in patched if a in DEGRADED_STAMPS + (DEGRADED_CAS,)) \
+            != sorted(DEGRADED_STAMPS) \
+            or [annotations.get(a) for a in DEGRADED_STAMPS] != ["stamp-0", "stamp-1", "stamp-2"] \
+            or json.loads(annotations[DEGRADED_CAS]) != {"seq": 5}:
+        raise RuntimeError(f"the flush: {replayed}, patched {patched}, annotations "
+                           f"{annotations}")
+    reopened = WriteBehindQueue(app.store.queue.directory)
+    reopened_pending = reopened.pending_count()
+    reopened.close()
+    retried = service.retry_pending_releases()
+    if reopened_pending or retried != {"completed": 3, "pending": 0}:
+        raise RuntimeError(f"after the heal: {reopened_pending} pending on disk, the releases "
+                           f"{retried}")
+    _released(cluster, pod, free)
+    books = _books_mounts_ledger(stack, pod, dev_dir)
+    return {"down_ms": down_ms, "healthz": healthz, "deferred": deferred, "on_disk": on_disk,
+            "remove_ms": remove_ms, "release_attempts": [len(attempts)], "probe": probe,
+            "refused": (refused, refusal.strip()), "refused_ms": refused_ms, "heal_ms": heal_ms,
+            "flush": flush, "flush_ms": flush_ms, "reopened_pending": reopened_pending,
+            "retried": retried, "books": books}
+
+
+def _degraded_reads(stack: _MasterStack, dev_dir: str, live: bool, on_healed=None) -> dict:
+    """(c) A read partition around an add: the registry answers from its
+    cache, the store's worker LIST is served stale (its age on /apihealth),
+    the add fails fast at the pod read (500) with no worker call, a stamp
+    lands directly; healed, the add mounts the GPU (on_healed(uuids, dev_dir)
+    while it is mounted), and the remove."""
+    cluster, app, node = stack.cluster, stack.app, stack.cluster.node_name
+    kube = cluster.kube
+    pod = cluster.add_target_pod("tenant-degraded-reads")
+    free = cluster.free_gpu_count(node)
+    calls: list[str] = []
+    factory = app._client_factory
+    app._client_factory = lambda address: (calls.append(address), factory(address))[1]
+    stale0 = STALE_READS.total()
+    kube.set_partitioned(True, mode="reads")
+    try:
+        address = app.registry.worker_address(node)
+        stale = app.store.list_worker_pods()
+        pane = _apihealth(stack)
+        refused, refusal, refused_ms = stack.http("GET", _add_path(pod, 1))
+        app.store.stamp_annotation(pod.namespace, pod.name, DEGRADED_STAMPS[0], "direct")
+        queued = app.store.queue.pending_count()
+    finally:
+        app._client_factory = factory
+    stale_reads = STALE_READS.total() - stale0
+    if address is None or not stale or stale_reads != 1 or refused != 500 or calls \
+            or queued or "worker_pods" not in pane["store"]["cacheAgesS"]:
+        raise RuntimeError(f"the read partition: worker {address}, {len(stale)} stale worker(s), "
+                           f"{stale_reads} stale read(s), add {refused} {refusal!r}, worker calls "
+                           f"{calls}, {queued} queued, /apihealth {pane}")
+    heal_ms = _heal(stack, pod)
+    if Pod(kube.get_pod(pod.namespace, pod.name)).annotations.get(DEGRADED_STAMPS[0]) != "direct":
+        raise RuntimeError("the stamp in the read partition did not land")
+    status, text, add_ms = stack.http("GET", _add_path(pod, 1))
+    if status != 200:
+        raise RuntimeError(f"the add after the heal: {status} {text!r}")
+    uuids = _books_mounts_ledger(stack, pod, dev_dir)
+    _check_nodes(cluster.backend, uuids, dev_dir, live)
+    if on_healed is not None:
+        on_healed(uuids, dev_dir)
+    status, text, remove_ms = stack.http("POST", _remove_path(pod), {"uuids": ",".join(uuids)})
+    if status != 200:
+        raise RuntimeError(f"the remove after the heal: {status} {text!r}")
+    _no_gpu_node(cluster, node, dev_dir, "the remove after the heal")
+    _released(cluster, pod, free)
+    return {"stale_reads": stale_reads, "cache_age_s": pane["store"]["cacheAgesS"]["worker_pods"],
+            "refused": (refused, refusal.strip()), "refused_ms": refused_ms,
+            "worker_calls": len(calls), "queued": queued, "heal_ms": heal_ms,
+            "add_ms": add_ms, "remove_ms": remove_ms, "uuids": uuids}
+
+
+def _degraded_costs(stack: _MasterStack, queue_dir: str, iters: int) -> dict:
+    """(d) Each `iters` times (us, host clock): a get_pod on the raw fake and
+    through the health-tracked client, a worker LIST through the cached store
+    and through the store it wraps, and one enqueue with its fsync (a queue of
+    its own in `queue_dir`)."""
+    cluster, app = stack.cluster, stack.app
+    pod = cluster.add_target_pod("tenant-degraded-costs")
+    queue = WriteBehindQueue(queue_dir)
+    n = iter(range(10 ** 6))
+    try:
+        return {
+            "raw_call_us": _median_us(lambda: cluster.kube.get_pod(pod.namespace, pod.name),
+                                      iters),
+            "tracked_call_us": _median_us(lambda: app.kube.get_pod(pod.namespace, pod.name),
+                                          iters),
+            "inner_read_us": _median_us(app.store.inner.list_worker_pods, iters),
+            "cached_read_us": _median_us(app.store.list_worker_pods, iters),
+            "enqueue_us": _median_us(lambda: queue.enqueue(
+                pod.namespace, pod.name, f"tpumounter.io/cost-{next(n)}", "v"), iters)}
+    finally:
+        queue.close()
+
+
+def degraded_check(device="cuda", *, dev_dir: str | None = None, ns_pid: int | None = None,
+                   cgroup_dirs=(), identity: str = "nvml", repeats: int = 3,
+                   queue_root: str | None = None, cost_iters: int = 20,
+                   on_healed=None) -> dict:
+    """The master's store through an API outage, over HTTP and gRPC
+    (``_MasterStack`` with the default ``CachedMasterStore``, the worker with
+    a ledger, the write-behind queue and the ledger in a new directory under
+    `queue_root`, by default a temporary one). The "API server" is the
+    cluster's ``FakeKubeClient``, partitioned by ``set_partitioned`` and
+    shared by the master and the worker, whose calls feed the process's
+    ApiHealth; the check drops the process's machines first and last
+    (``k8s.health.reset_all``), so that its thresholds (DEGRADED_HEALTH) are
+    the ones in force. Without grpcio it raises ``ModuleNotFoundError``
+    naming grpcio.
+
+    (a) ``_degraded_healthy``: `repeats` round trips through the new seam.
+    (b) ``_degraded_writes``: a write partition around a remove. (c)
+    ``_degraded_reads``: a read partition around an add; on_healed(uuids,
+    dev_dir) runs while the GPU added after the heal is mounted. (d)
+    ``_degraded_costs``: `cost_iters` tracked calls, cached reads and
+    enqueues.
+
+    On the card (device="cuda") the flows run on the live
+    ``NvidiaDeviceBackend`` (`dev_dir`, `ns_pid`, `cgroup_dirs`, `identity`
+    as in ``mount_check``), and without CAP_MKNOD it raises; on the CPU on a
+    fake host of 8 GPUs. Runs on the card unless the caller passes
+    device="cpu".
+
+    Returns {"cap_mknod", "health" (the thresholds), "live" or "fake": {
+    "healthy", "writes", "reads"}, the other None, "costs"}; ms and us on
+    the host clock."""
+    device = resolve_device(device)
+    report = {"cap_mknod": has_cap_mknod(), "health": dict(DEGRADED_HEALTH), "live": None,
+              "fake": None}
+    if device.type == "cuda" and not report["cap_mknod"]:
+        raise RuntimeError("degraded_check on the card needs CAP_MKNOD: its adds and removes "
+                           "must be the card's own GPU's")
+    root = tempfile.mkdtemp(prefix="degraded-check-")
+    state = tempfile.mkdtemp(prefix="degraded-state-", dir=queue_root)
+    k8s_health.reset_all()
+    try:
+        cfg = Config(auth_mode="token", auth_token=secrets.token_hex(16),
+                     ledger_dir=os.path.join(state, "ledger"),
+                     writebehind_dir=os.path.join(state, "writebehind"), **DEGRADED_HEALTH)
+        if device.type == "cuda":
+            cluster = FakeCluster(NvidiaDeviceBackend("/dev", identity=make_identity(identity)),
+                                  cfg=cfg)
+            target, dirs = _live_target(root, dev_dir, cgroup_dirs)
+            live, key = True, "live"
+        else:
+            cluster = FakeCluster.with_fake_gpus(os.path.join(root, "fake"), 8, cfg=cfg)
+            target, dirs, ns_pid = os.path.join(root, "fake-tenant-dev"), [], None
+            os.makedirs(target)
+            live, key = False, "fake"
+        with _MasterStack(cluster, {cluster.node_name: target}, ns_pid, dirs) as stack:
+            lists: list[int] = []
+            list_workers = stack.app.store.list_worker_pods
+            stack.app.store.list_worker_pods = lambda: (lists.append(1), list_workers())[1]
+            report[key] = {"healthy": _degraded_healthy(stack, target, repeats, live, lists)}
+            del stack.app.store.list_worker_pods
+            report[key]["writes"] = _degraded_writes(stack, target, live)
+            report[key]["reads"] = _degraded_reads(stack, target, live, on_healed)
+            report["costs"] = _degraded_costs(stack, os.path.join(state, "cost-queue"),
+                                              cost_iters)
+    finally:
+        k8s_health.reset_all()
+        shutil.rmtree(root, ignore_errors=True)
+        shutil.rmtree(state, ignore_errors=True)
     return report

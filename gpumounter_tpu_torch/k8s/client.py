@@ -15,7 +15,15 @@ service account, ``kubeconfig_client`` a kubeconfig (pyyaml), and
 ``create_event`` posts a core/v1 Event (``k8s/events.py``), a no-op on the
 surface's default. ``inject_write_fault`` is the failpoint hook of every
 write, shared by both clients (``k8s.<op>`` and ``k8s.<op>.status``).
-Leases and nodes come with ``master/shard.py`` and ``health/``.
+``list_pods_with_rv`` is a LIST with the collection's resourceVersion (the
+watch store's cursor; the surface's default answers an empty one), and
+``patch_pod_with_retry`` the bounded retry of an annotation's merge patch.
+Leases (coordination.k8s.io/v1, with CAS on resourceVersion) hold the
+store's health state and its write probe; the surface's default raises
+NotImplementedError, as it does for nodes, which come with the recovery
+controller (``recovery/``). A transport failure leaves the REST client as
+the exception it is (a refused connection, a socket timeout);
+``k8s/errors.py``'s ``classify_exception`` types it for ApiHealth.
 """
 
 from __future__ import annotations
@@ -32,7 +40,13 @@ from collections.abc import Iterator
 from typing import Any
 
 from gpumounter_tpu_torch.faults import failpoints
-from gpumounter_tpu_torch.k8s.errors import GoneError, NotFoundError, raise_for
+from gpumounter_tpu_torch.k8s.errors import (
+    ApiError,
+    GoneError,
+    NotFoundError,
+    is_retriable,
+    raise_for,
+)
 from gpumounter_tpu_torch.utils.log import get_logger
 
 logger = get_logger("k8s")
@@ -45,11 +59,33 @@ def inject_write_fault(op: str, namespace: str, name: str) -> None:
       k8s.<op>           delay / error / crash at the write
       k8s.<op>.status    return(409) -> ConflictError, return(5xx) -> ApiError
 
-    ops in use: create_pod, delete_pod, patch_pod."""
+    ops in use: create_pod, delete_pod, patch_pod, create_lease, update_lease."""
     failpoints.fire(f"k8s.{op}", namespace=namespace, name=name)
     status = failpoints.value(f"k8s.{op}.status", None, namespace=namespace, name=name)
     if status is not None:
         raise_for(int(status), f"failpoint k8s.{op}.status on {namespace}/{name}")
+
+
+def patch_pod_with_retry(kube: "KubeClient", namespace: str, name: str, patch: dict,
+                         attempts: int = 3, base_s: float = 0.1, cap_s: float = 2.0) -> dict:
+    """A merge patch tried up to `attempts` times, capped-exponential delays
+    from `base_s` between: it carries no resourceVersion, so re-applying it
+    after a conflict or a 5xx is safe. A 404 and any other 4xx propagate at
+    once, as does the last failure."""
+    attempts = max(1, attempts)
+    for attempt in range(1, attempts + 1):
+        try:
+            return kube.patch_pod(namespace, name, patch)
+        except NotFoundError:
+            raise
+        except ApiError as exc:
+            if not is_retriable(exc) or attempt >= attempts:
+                raise
+            delay = min(base_s * 2 ** (attempt - 1), cap_s)
+            logger.warning("patch of %s/%s failed (%s, attempt %d/%d); retrying in %.2fs",
+                           namespace, name, exc.status, attempt, attempts, delay)
+            time.sleep(delay)
+    raise AssertionError("unreachable")
 
 
 class KubeClient(abc.ABC):
@@ -76,15 +112,45 @@ class KubeClient(abc.ABC):
     @abc.abstractmethod
     def watch_pods(self, namespace: str, *, label_selector: str = "",
                    field_selector: str = "", timeout_s: float = 60.0,
-                   ) -> Iterator[tuple[str, dict]]:
+                   resource_version: str = "") -> Iterator[tuple[str, dict]]:
         """Yield (event_type, pod_json) until timeout. Types: ADDED,
-        MODIFIED, DELETED. The subscription is made at the call, before
-        the first event is read."""
+        MODIFIED, DELETED; namespace "" watches all. The subscription is
+        made at the call, before the first event is read. A
+        resource_version resumes after it; one that fell out of the
+        server's window raises GoneError."""
+
+    def list_pods_with_rv(self, namespace: str | None = None, label_selector: str = "",
+                          field_selector: str = "") -> tuple[list[dict], str]:
+        """A LIST and the collection's resourceVersion it was taken at.
+        Default: the plain list and an empty cursor (watch from now)."""
+        return self.list_pods(namespace, label_selector=label_selector,
+                              field_selector=field_selector), ""
 
     def create_event(self, namespace: str, manifest: dict) -> dict:
         """Post a core/v1 Event. Advisory: the default is a no-op, so a
         client with nowhere to post needs nothing."""
         return {}
+
+    # --- coordination.k8s.io/v1 Leases ---
+
+    def get_lease(self, namespace: str, name: str) -> dict:
+        raise NotImplementedError(f"{type(self).__name__} does not support leases")
+
+    def create_lease(self, namespace: str, manifest: dict) -> dict:
+        raise NotImplementedError(f"{type(self).__name__} does not support leases")
+
+    def update_lease(self, namespace: str, name: str, manifest: dict) -> dict:
+        """A full replace (PUT): the manifest's metadata.resourceVersion must
+        be the server's, else ConflictError (the CAS)."""
+        raise NotImplementedError(f"{type(self).__name__} does not support leases")
+
+    # --- core/v1 Nodes (the recovery controller's readiness signal) ---
+
+    def get_node(self, name: str) -> dict:
+        raise NotImplementedError(f"{type(self).__name__} does not support nodes")
+
+    def list_nodes(self) -> list[dict]:
+        raise NotImplementedError(f"{type(self).__name__} does not support nodes")
 
     def wait_for_pod(self, namespace: str, name: str, predicate,
                      timeout_s: float) -> dict | None:
@@ -254,9 +320,29 @@ class RestKubeClient(KubeClient):
 
     def list_pods(self, namespace: str | None = None, label_selector: str = "",
                   field_selector: str = "") -> list[dict]:
-        return self._json("GET", self._pods_path(namespace),
-                          query=self._selectors(label_selector, field_selector)
-                          ).get("items", [])
+        return self.list_pods_with_rv(namespace, label_selector, field_selector)[0]
+
+    def list_pods_with_rv(self, namespace: str | None = None, label_selector: str = "",
+                          field_selector: str = "") -> tuple[list[dict], str]:
+        doc = self._json("GET", self._pods_path(namespace),
+                         query=self._selectors(label_selector, field_selector))
+        return doc.get("items", []), str(doc.get("metadata", {}).get("resourceVersion", "")
+                                          or "")
+
+    # --- leases ---
+
+    _LEASES = "/apis/coordination.k8s.io/v1/namespaces"
+
+    def get_lease(self, namespace: str, name: str) -> dict:
+        return self._json("GET", f"{self._LEASES}/{namespace}/leases/{name}")
+
+    def create_lease(self, namespace: str, manifest: dict) -> dict:
+        inject_write_fault("create_lease", namespace, manifest.get("metadata", {}).get("name", ""))
+        return self._json("POST", f"{self._LEASES}/{namespace}/leases", body=manifest)
+
+    def update_lease(self, namespace: str, name: str, manifest: dict) -> dict:
+        inject_write_fault("update_lease", namespace, name)
+        return self._json("PUT", f"{self._LEASES}/{namespace}/leases/{name}", body=manifest)
 
     def watch_pods(self, namespace: str, *, label_selector: str = "",
                    field_selector: str = "", timeout_s: float = 60.0,

@@ -6,6 +6,15 @@ scheduler hook, so that the allocator and the worker's flows run in one
 process. Its writes pass the REST client's failpoint hook
 (``inject_write_fault``), and ``events_posted`` keeps every Event. The original GPUMounter has no such substrate: its tests need a
 live cluster.
+
+As the reference's: ``set_partitioned(True, mode=...)`` makes the calls of
+a plane raise ``PartitionError`` (typed 503) until it is cleared: "full"
+every call, "reads" get, list and the opening of a watch, "writes" create,
+delete, patch and the lease writes; a watch already open runs on.
+``list_pods_with_rv`` answers the last event's sequence number as the
+collection's resourceVersion, and a watch given one resumes after it (one
+trimmed out of the backlog raises GoneError at the open). Leases keep a
+resourceVersion of their own, and ``update_lease`` is a CAS on it.
 """
 
 from __future__ import annotations
@@ -19,7 +28,12 @@ import uuid as uuidlib
 from collections.abc import Callable, Iterator
 
 from gpumounter_tpu_torch.k8s.client import KubeClient, inject_write_fault
-from gpumounter_tpu_torch.k8s.errors import ConflictError, NotFoundError
+from gpumounter_tpu_torch.k8s.errors import (
+    ConflictError,
+    GoneError,
+    NotFoundError,
+    PartitionError,
+)
 from gpumounter_tpu_torch.k8s.types import Pod, match_label_selector
 from gpumounter_tpu_torch.utils.log import get_logger
 from gpumounter_tpu_torch.utils.metrics import REGISTRY
@@ -76,6 +90,14 @@ class FakeKubeClient(KubeClient):
                  scheduler_delay_s: float = 0.0,
                  delete_hook: SchedulerHook | None = None):
         self._pods: dict[tuple[str, str], dict] = {}
+        self._leases: dict[tuple[str, str], dict] = {}
+        self._lease_rv = itertools.count(1)
+        # the API partition: off, or failing one plane ("full", "reads",
+        # "writes")
+        self._partitioned = False
+        self._partition_mode = "full"
+        # the last event's sequence number: a LIST's resourceVersion
+        self._last_seq = 0
         # Condition over an RLock: the scheduler thread emits while it
         # holds the store lock.
         self._lock = threading.Condition(threading.RLock())
@@ -103,6 +125,7 @@ class FakeKubeClient(KubeClient):
     def _emit(self, etype: str, pod: dict) -> None:
         with self._lock:
             seq = next(self._seq)
+            self._last_seq = seq
             pod.setdefault("metadata", {})["resourceVersion"] = str(seq)
             # One copy at emit: watchers read the payload outside the lock.
             self._events.append((seq, etype, copy.deepcopy(pod)))
@@ -117,9 +140,30 @@ class FakeKubeClient(KubeClient):
                 del self._events[:overflow]
             self._lock.notify_all()
 
+    # --- the API partition ---
+
+    def set_partitioned(self, partitioned: bool, mode: str = "full") -> None:
+        """Fail the calls of a plane with PartitionError until cleared:
+        "full" every call, "reads" only get/list/watch, "writes" only
+        create/delete/patch/update."""
+        if mode not in ("full", "reads", "writes"):
+            raise ValueError(f"unknown partition mode {mode!r}")
+        self._partitioned = bool(partitioned)
+        self._partition_mode = mode
+
+    def _check_partition(self, kind: str = "read") -> None:
+        if not self._partitioned:
+            return
+        mode = self._partition_mode
+        if mode == "full" or (mode == "reads" and kind == "read") \
+                or (mode == "writes" and kind == "write"):
+            raise PartitionError(f"fake apiserver partitioned (set_partitioned, mode={mode}, "
+                                 f"op={kind})")
+
     # --- KubeClient surface ---
 
     def get_pod(self, namespace: str, name: str) -> dict:
+        self._check_partition("read")
         with self._lock:
             pod = self._pods.get((namespace, name))
             if pod is None:
@@ -127,6 +171,7 @@ class FakeKubeClient(KubeClient):
             return copy.deepcopy(pod)
 
     def create_pod(self, namespace: str, manifest: dict) -> dict:
+        self._check_partition("write")
         # the REST client's injection surface, so that a chaos schedule hits
         # the fake as it would an API server
         inject_write_fault("create_pod", namespace, manifest.get("metadata", {}).get("name", ""))
@@ -150,6 +195,7 @@ class FakeKubeClient(KubeClient):
         return out
 
     def delete_pod(self, namespace: str, name: str, grace_period_seconds: int = 0) -> None:
+        self._check_partition("write")
         try:
             inject_write_fault("delete_pod", namespace, name)
         except NotFoundError:
@@ -164,13 +210,19 @@ class FakeKubeClient(KubeClient):
 
     def list_pods(self, namespace: str | None = None, label_selector: str = "",
                   field_selector: str = "") -> list[dict]:
+        return self.list_pods_with_rv(namespace, label_selector, field_selector)[0]
+
+    def list_pods_with_rv(self, namespace: str | None = None, label_selector: str = "",
+                          field_selector: str = "") -> tuple[list[dict], str]:
+        self._check_partition("read")
         with self._lock:
             return [copy.deepcopy(pod) for (ns, _), pod in self._pods.items()
                     if (not namespace or ns == namespace)
                     and match_label_selector(Pod(pod).labels, label_selector)
-                    and _match_field_selector(pod, field_selector)]
+                    and _match_field_selector(pod, field_selector)], str(self._last_seq)
 
     def patch_pod(self, namespace: str, name: str, patch: dict) -> dict:
+        self._check_partition("write")
         inject_write_fault("patch_pod", namespace, name)
         with self._lock:
             pod = self._pods.get((namespace, name))
@@ -187,12 +239,22 @@ class FakeKubeClient(KubeClient):
 
     def watch_pods(self, namespace: str, *, label_selector: str = "",
                    field_selector: str = "", timeout_s: float = 60.0,
-                   ) -> Iterator[tuple[str, dict]]:
+                   resource_version: str = "") -> Iterator[tuple[str, dict]]:
+        self._check_partition("read")
         # The cursor is taken now, not at the first next(): wait_for_pod
         # opens the watch, then re-reads, and relies on this.
         deadline = time.monotonic() + timeout_s
         with self._lock:
             cursor = self._events[-1][0] if self._events else 0
+            if resource_version:
+                try:
+                    cursor = int(resource_version)
+                except ValueError:
+                    pass  # not a version of this server: from now
+                else:
+                    if self._events and cursor < self._events[0][0] - 1:
+                        raise GoneError(f"resourceVersion {resource_version} is too old "
+                                        f"(backlog starts at {self._events[0][0]})")
         return self._watch_iter(namespace, label_selector, field_selector,
                                 deadline, cursor)
 
@@ -238,6 +300,52 @@ class FakeKubeClient(KubeClient):
         finally:
             with self._lock:
                 self._watch_cursors.pop(watch_id, None)
+
+    # --- leases (coordination.k8s.io/v1), CAS on resourceVersion ---
+
+    def get_lease(self, namespace: str, name: str) -> dict:
+        self._check_partition("read")
+        with self._lock:
+            lease = self._leases.get((namespace, name))
+            if lease is None:
+                raise NotFoundError(f"lease {namespace}/{name} not found")
+            return copy.deepcopy(lease)
+
+    def create_lease(self, namespace: str, manifest: dict) -> dict:
+        self._check_partition("write")
+        inject_write_fault("create_lease", namespace, manifest.get("metadata", {}).get("name", ""))
+        lease = copy.deepcopy(manifest)
+        meta = lease.setdefault("metadata", {})
+        meta.setdefault("namespace", namespace)
+        name = meta.get("name")
+        if not name:
+            raise ValueError("lease manifest missing metadata.name")
+        with self._lock:
+            if (namespace, name) in self._leases:
+                raise ConflictError(f"lease {namespace}/{name} already exists")
+            meta["resourceVersion"] = str(next(self._lease_rv))
+            self._leases[(namespace, name)] = lease
+            return copy.deepcopy(lease)
+
+    def update_lease(self, namespace: str, name: str, manifest: dict) -> dict:
+        self._check_partition("write")
+        inject_write_fault("update_lease", namespace, name)
+        with self._lock:
+            current = self._leases.get((namespace, name))
+            if current is None:
+                raise NotFoundError(f"lease {namespace}/{name} not found")
+            sent = manifest.get("metadata", {}).get("resourceVersion")
+            have = current["metadata"].get("resourceVersion")
+            if sent != have:
+                raise ConflictError(f"lease {namespace}/{name}: resourceVersion conflict "
+                                    f"(sent {sent}, have {have})")
+            lease = copy.deepcopy(manifest)
+            meta = lease.setdefault("metadata", {})
+            meta["resourceVersion"] = str(next(self._lease_rv))
+            meta.setdefault("namespace", namespace)
+            meta.setdefault("name", name)
+            self._leases[(namespace, name)] = lease
+            return copy.deepcopy(lease)
 
     # --- the scheduler thread ---
 

@@ -9,7 +9,13 @@ multi-host routes:
       POST /removegpu/namespace/:ns/pod/:pod/force/:bool   (form: uuids,
            repeated or comma-joined)
       GET  /
-    plus /healthz and /workers (node -> worker address);
+    plus /healthz (200 "ok", with "api: <verdict>" while the Kubernetes API
+    is unhealthy: restarting the master in an outage would dump its cache
+    and queue) and /workers (node -> worker address);
+  * the API-outage pane, as the reference's: GET /apihealth ->
+    {"api": ApiHealth's payload, "store": the store's cache ages, its
+    write-behind queue (and the watch store's sync)}; untraced, and behind
+    the bearer token;
   * the reference's slice and batch routes, JSON in and out
     (``master/slice_ops.py``):
       POST /addslice      {"pods": [{"namespace", "pod"}, ...],
@@ -47,6 +53,14 @@ multi-host routes:
   * the node's worker comes from ``WorkerRegistry`` (500 when there is
     none), and the call goes over ``WorkerClient`` (main.go:82, 185), or
     over whatever ``worker_client_factory`` the caller passes;
+  * every API call of the master feeds the process's ApiHealth
+    (``k8s/health.py``: its client is wrapped by ``wrap_health``), and its
+    durable state goes through one ``MasterStore`` (``store/``), by default
+    ``CachedMasterStore`` over the list-backed store (the watch-backed one
+    under TPUMOUNTER_WATCH_STORE): the registry LISTs and watches through
+    it, reads fall back to its bounded-staleness cache in an outage, and
+    annotation writes defer into its write-behind queue. A pod read that
+    fails in an outage answers 500, as the reference's;
   * results map to HTTP as the original's do (main.go:103-116, 206-224):
     add Success 200 "Add GPU Success", InsufficientGPU 500, PodNotFound 400;
     remove PodNotFound, GPUBusy and GPUNotFound 400, Success 200. A breaker
@@ -60,7 +74,7 @@ most BULK_MAX_TARGETS targets, every route but the index and /healthz wants
 the bearer token (``utils/auth.py``), and a path of no route gets "404 page
 not found". The reference's other routes (shards, intents, migrations,
 fleet, SLO, capacity, tenants, recovery, health, defrag, shares, autoscale,
-/metrics, /apihealth), the batch's shard routing and proxying, and its
+/metrics), the batch's shard routing and proxying, and its
 admission gate (with its ``http.admission`` span) come with the packages
 that serve them; until then their paths get that 404, /batch/addtpu among
 them.
@@ -79,6 +93,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 from gpumounter_tpu_torch.config import Config
 from gpumounter_tpu_torch.k8s.client import KubeClient, NotFoundError
+from gpumounter_tpu_torch.k8s.health import api_health, wrap_health
 from gpumounter_tpu_torch.k8s.types import Pod
 from gpumounter_tpu_torch.master.slice_ops import (
     BulkMountCoordinator,
@@ -92,6 +107,12 @@ from gpumounter_tpu_torch.obs.audit import audited
 from gpumounter_tpu_torch.rpc.api import AddGPUResult, RemoveGPUResult
 from gpumounter_tpu_torch.rpc.client import ChannelPool, WorkerClient
 from gpumounter_tpu_torch.rpc.resilience import BreakerOpenError, CircuitBreaker, FencedError
+from gpumounter_tpu_torch.store import (
+    CachedMasterStore,
+    KubeMasterStore,
+    MasterStore,
+    WatchMasterStore,
+)
 from gpumounter_tpu_torch.topology import GPUS_PER_HOST
 from gpumounter_tpu_torch.utils.auth import check_bearer, required_token
 from gpumounter_tpu_torch.utils.log import get_logger
@@ -105,7 +126,8 @@ class WorkerRegistry:
     The original LISTs the worker pods on every request (main.go:68, 171).
     Here one LIST primes the cache, then a watch of the worker pods
     (WORKER_NAMESPACE, WORKER_LABEL_SELECTOR) applies ADDED, MODIFIED and
-    DELETED in place; a read is a cache hit, and a miss makes at most one
+    DELETED in place, both through the ``MasterStore`` seam (the list-backed
+    store when none is given); a read is a cache hit, and a miss makes at most one
     LIST a MISS_RELIST_INTERVAL_S, for a worker the watch has not shown
     yet. Watch events that land while a LIST is in flight are replayed on
     top of its result, so a delta between the LIST's answer and the swap is
@@ -123,9 +145,10 @@ class WorkerRegistry:
     WATCH_BACKOFF_BASE_S = 0.5
     WATCH_BACKOFF_CAP_S = 15.0
 
-    def __init__(self, kube: KubeClient, cfg=None):
+    def __init__(self, kube: KubeClient, cfg=None, store: MasterStore | None = None):
         self.kube = kube
         self.cfg = cfg or Config()
+        self.store = store or KubeMasterStore(kube, self.cfg)
         self.breaker = CircuitBreaker(failure_threshold=self.cfg.breaker_failure_threshold,
                                       reset_s=self.cfg.breaker_reset_s)
         self.channel_pool = ChannelPool(cfg=self.cfg)
@@ -159,8 +182,9 @@ class WorkerRegistry:
         next event or its timeout) and close every pooled channel."""
         self._stop.set()
         watch = self._watch
-        if watch is not None and not inspect.isgenerator(watch):
-            watch.close()
+        close = getattr(watch, "close", None)
+        if close is not None and not inspect.isgenerator(watch):
+            close()
         self.channel_pool.close_all()
 
     # --- the cache ---
@@ -203,8 +227,7 @@ class WorkerRegistry:
         with self._lock:
             self._journal = []
         try:
-            pods = self.kube.list_pods(self.cfg.worker_namespace,
-                                       label_selector=self.cfg.worker_label_selector)
+            pods = self.store.list_worker_pods()
             cache: dict[str, tuple[str, str]] = {}
             for pod_json in pods:
                 p = Pod(pod_json)
@@ -234,9 +257,7 @@ class WorkerRegistry:
                 # (re)prime, then stream the deltas; a LIST at every open
                 # covers the window the last stream missed
                 self._refresh()
-                self._watch = self.kube.watch_pods(
-                    self.cfg.worker_namespace, label_selector=self.cfg.worker_label_selector,
-                    timeout_s=self.WATCH_TIMEOUT_S)
+                self._watch = self.store.watch_worker_pods(timeout_s=self.WATCH_TIMEOUT_S)
                 for etype, pod_json in self._watch:
                     if self._stop.is_set():
                         return
@@ -310,6 +331,7 @@ _ROUTES: list[tuple[str, re.Pattern, str]] = [
                         r"/force/(?P<force>[^/]+)$"), "remove"),
     ("GET", re.compile(r"^/$"), "index"),
     ("GET", re.compile(r"^/healthz$"), "healthz"),
+    ("GET", re.compile(r"^/apihealth$"), "apihealth"),
     ("GET", re.compile(r"^/workers$"), "workers"),
     ("POST", re.compile(r"^/batch/addgpu$"), "batch_add"),
     ("POST", re.compile(r"^/addslice$"), "addslice"),
@@ -373,30 +395,46 @@ class MasterApp:
 
     #: open without a token: the liveness surfaces (probes carry none)
     UNAUTHENTICATED_ROUTES = frozenset({"index", "healthz"})
-    #: never traced: probes, and the timeline a dashboard polls (their
-    #: spans would rotate the operations' traces out of the ring)
-    UNTRACED_ROUTES = frozenset({"index", "healthz", "timeline"})
+    #: never traced: probes, and the panes a dashboard polls (their spans
+    #: would rotate the operations' traces out of the ring)
+    UNTRACED_ROUTES = frozenset({"index", "healthz", "apihealth", "timeline"})
     #: the routes that mutate: their edge outcome goes into the audit trail
     #: (the worker's records carry the GPUs of the same trace)
     AUDITED_ROUTES = frozenset({"add", "remove", "batch_add", "addslice", "removeslice"})
 
     def __init__(self, kube: KubeClient, cfg=None, worker_client_factory=None,
-                 registry: WorkerRegistry | None = None):
+                 registry: WorkerRegistry | None = None, store: MasterStore | None = None):
         """worker_client_factory(address) -> a client with add_gpu,
         remove_gpu and the context-manager protocol; by default a
         ``WorkerClient`` with the deploy's token, the registry's breaker and
-        its pooled channel. Without a token this raises AuthConfigError,
-        unless TPUMOUNTER_AUTH=insecure (fail-closed)."""
+        its pooled channel. `store`: by default ``CachedMasterStore`` over
+        the list-backed store (the watch-backed one under
+        TPUMOUNTER_WATCH_STORE), on the health-tracked client. Without a
+        token this raises AuthConfigError, unless TPUMOUNTER_AUTH=insecure
+        (fail-closed)."""
         self.cfg = cfg or Config()
         self._token = required_token(self.cfg, "master HTTP API")
-        self.kube = kube
-        self.registry = registry or WorkerRegistry(kube, self.cfg)
+        self.apihealth = api_health(cfg=self.cfg)
+        self.kube = kube = wrap_health(kube, self.apihealth)
+        if store is None:
+            inner = (WatchMasterStore(kube, self.cfg) if self.cfg.store_watch_enabled
+                     else KubeMasterStore(kube, self.cfg))
+            store = CachedMasterStore(inner, cfg=self.cfg, apihealth=self.apihealth)
+        self.store = store
+        self.registry = registry or WorkerRegistry(kube, self.cfg, store=self.store)
         self._client_factory = worker_client_factory or (
             lambda addr: WorkerClient(addr, token=self._token, cfg=self.cfg,
                                       breaker=self.registry.breaker,
                                       channel_pool=self.registry.channel_pool))
-        # root and error spans and audit records onto the timeline; idempotent
-        flight.install()
+        # root and error spans, audit records and the API's transitions onto
+        # the timeline; idempotent
+        flight.install(apihealth=self.apihealth)
+
+    def close(self) -> None:
+        """Stop the registry's watch and its channels, and close the store
+        (its ApiHealth subscription, its probe, its watch and its queue)."""
+        self.registry.stop()
+        self.store.close()
 
     # --- plumbing ---
 
@@ -495,7 +533,17 @@ class MasterApp:
         return 200, "text/plain", "tpumounter master\n"
 
     def _route_healthz(self, match, body):
-        return 200, "text/plain", "ok\n"
+        # liveness stays 200 through an API outage; the verdict is in the body
+        state = self.apihealth.state()
+        if state == "healthy":
+            return 200, "text/plain", "ok\n"
+        return 200, "text/plain", f"ok\napi: {state}\n"
+
+    def _route_apihealth(self, match, body):
+        """ApiHealth's verdict, the store's cache ages and its write-behind
+        queue."""
+        payload = {"api": self.apihealth.payload(), "store": self.store.payload()}
+        return 200, "application/json", json.dumps(payload, indent=1) + "\n"
 
     def _route_audit(self, match, body):
         """The audit trail, filtered (``obs.audit.query_from_params``)."""

@@ -6,7 +6,15 @@ MASTER_PORT (8080) over the Kubernetes client of
 ``k8s.client.default_client`` (the pod's service account in the cluster),
 until SIGTERM. The trace ring, the audit trail and the flight recorder take
 their capacities and JSONL sinks from config (TPUMOUNTER_TRACE_RING,
-TPUMOUNTER_TRACE_JSONL, ...). The reference's background loops (elastic intents, recovery,
+TPUMOUNTER_TRACE_JSONL, ...). The master's store and its degraded mode read
+theirs from the environment too: the ApiHealth thresholds
+(API_HEALTH_DEGRADED_FAILURES, API_HEALTH_DOWN_AFTER_S,
+API_HEALTH_RECOVERY_SUCCESSES, API_HEALTH_PROBE_INTERVAL_S), the cache's bound
+(API_CACHE_MAX_STALENESS_S), the write-behind queue's directory and size
+(TPUMOUNTER_WRITEBEHIND_DIR, opened at start and replayed when the API is
+healthy; TPUMOUNTER_WRITEBEHIND_MAX_BYTES), the watch-backed store
+(TPUMOUNTER_WATCH_STORE, WATCH_STORE_*) and the annotation writes' retries
+(K8S_WRITE_ATTEMPTS, K8S_WRITE_RETRY_BASE_S). The reference's background loops (elastic intents, recovery,
 defragmenter, autoscaler, canary, fleet collection, shard leases) come with
 their packages.
 
@@ -41,12 +49,13 @@ def main() -> None:
 
     signal.signal(signal.SIGTERM, _term)
     signal.signal(signal.SIGINT, _term)
-    logger.info("gpu-mounter master serving on :%d", httpd.server_address[1])
+    logger.info("gpu-mounter master serving on :%d (write-behind queue %s)",
+                httpd.server_address[1], cfg.writebehind_dir or "in memory")
     try:
         httpd.serve_forever()
     finally:
         httpd.server_close()
-        app.registry.stop()
+        app.close()
 
 
 if __name__ == "__main__":

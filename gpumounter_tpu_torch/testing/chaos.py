@@ -175,7 +175,7 @@ class ChaosHarness:
     def stop(self) -> None:
         failpoints.disarm_all()
         if self.app is not None:
-            self.app.registry.stop()
+            self.app.close()
         self.channel_pool.close_all()
         self.workers.stop()
         self.cluster.stop()

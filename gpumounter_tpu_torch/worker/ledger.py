@@ -46,6 +46,8 @@ import os
 import secrets
 import time
 
+from gpumounter_tpu_torch.utils.jsonl import fsync_dir as _fsync_dir
+from gpumounter_tpu_torch.utils.jsonl import read_records
 from gpumounter_tpu_torch.utils.locks import OrderedLock
 from gpumounter_tpu_torch.utils.log import get_logger
 from gpumounter_tpu_torch.utils.metrics import REGISTRY
@@ -81,16 +83,6 @@ def _chip_record(dev, policy=None) -> dict:
     return record
 
 
-def _fsync_dir(directory: str) -> None:
-    """Make a directory's entries durable: a file created or renamed into
-    it survives a node crash only once the directory itself is fsync'd."""
-    fd = os.open(directory, os.O_RDONLY)
-    try:
-        os.fsync(fd)
-    finally:
-        os.close(fd)
-
-
 class MountLedger:
     """One worker's durable mount journal (see the module's docstring)."""
 
@@ -122,22 +114,16 @@ class MountLedger:
 
     def _load(self) -> None:
         """The open txns, holdings and epoch from the file. A torn last line
-        (a death in the middle of an append) is dropped: intents are written
-        before their side effects, so a torn intent's batch never began."""
+        (a death in the middle of an append) is dropped, and cut off the
+        file so that the next append starts a line of its own (the
+        reference leaves it, and the next record is lost with it at the
+        following reload): intents are written before their side effects,
+        so a torn intent's batch never began."""
         if not os.path.exists(self.path):
             return
-        dropped = 0
-        with open(self.path, encoding="utf-8") as f:
-            for line in f:
-                line = line.strip()
-                if not line:
-                    continue
-                try:
-                    record = json.loads(line)
-                except ValueError:
-                    dropped += 1
-                    continue
-                self._apply(record)
+        records, dropped = read_records(self.path)
+        for record in records:
+            self._apply(record)
         if dropped:
             logger.warning("ledger %s: dropped %d torn/corrupt line(s)", self.path, dropped)
 

@@ -20,8 +20,11 @@ then the gRPC server stops.
 
 The trace ring, the audit trail and the flight recorder take their
 capacities and JSONL sinks from config (TPUMOUNTER_TRACE_RING,
-TPUMOUNTER_TRACE_JSONL, ...). The ops port's /metrics, /audit, /trace,
-/timeline and /telemetry come with the fleet planes.
+TPUMOUNTER_TRACE_JSONL, ...), and the worker's ApiHealth (whose write plane
+gates the deferred releases' retry) its thresholds
+(API_HEALTH_DEGRADED_FAILURES, API_HEALTH_DOWN_AFTER_S,
+API_HEALTH_RECOVERY_SUCCESSES). The ops port's /apihealth, /metrics, /audit,
+/trace, /timeline and /telemetry come with the fleet planes.
 
     python -m gpumounter_tpu_torch.worker.main
 """

@@ -34,7 +34,10 @@ draining", waits for those in flight and closes the ledger clean. A slave
 pod whose delete still fails after SLAVE_RELEASE_ATTEMPTS goes into the
 ledger's queue (``tpumounter_slave_release_deferred_total``), retried by the
 next release, ``retry_pending_releases`` and the restart's replay; without a
-ledger it is counted as leaked and the call raises.
+ledger it is counted as leaked and the call raises. The service's API calls
+feed the process's ApiHealth (``k8s/health.py``; its client is wrapped by
+``wrap_health``): the next release retries every deferred record while the
+write plane is healthy, else one, as the reference's.
 
 Each pod's flows are serialized (keyed by UID), so two entire mounts of one
 pod cannot both pass the gate. A refused call raises ``ServiceError`` with
@@ -69,6 +72,7 @@ from gpumounter_tpu_torch.config import Config
 from gpumounter_tpu_torch.faults import failpoints
 from gpumounter_tpu_torch.k8s.client import KubeClient, NotFoundError
 from gpumounter_tpu_torch.k8s.events import post_pod_event
+from gpumounter_tpu_torch.k8s.health import api_health, wrap_health
 from gpumounter_tpu_torch.k8s.types import Pod
 from gpumounter_tpu_torch.obs import flight, trace
 from gpumounter_tpu_torch.obs.audit import audited
@@ -184,7 +188,9 @@ class GpuMountService:
                  allocator: GpuAllocator | None = None,
                  mounter: GpuMounter | None = None, cfg=None):
         self.cfg = cfg or Config()
-        self.kube = kube
+        # every API call of the worker feeds the process's ApiHealth
+        self.apihealth = api_health(cfg=self.cfg)
+        self.kube = kube = wrap_health(kube, self.apihealth)
         self.collector = collector
         # the node's ledger, from cfg.ledger_dir (none when it is ""); the
         # mounter journals every batch into it
@@ -205,8 +211,9 @@ class GpuMountService:
         self._draining = threading.Event()
         self._inflight = 0
         self._inflight_cv = threading.Condition()
-        # root and error spans and audit records onto the timeline; idempotent
-        flight.install()
+        # root and error spans, audit records and the API's transitions onto
+        # the timeline; idempotent
+        flight.install(apihealth=self.apihealth)
 
     # --- the fence and the drain, for both mutations ---
 
@@ -461,7 +468,7 @@ class GpuMountService:
         call raises."""
         if not unmounted:
             return
-        self._probe_pending_releases()
+        self.probe_pending_releases()
         unmounted_keys = {d.uuid for d in unmounted}
         by_slave: dict[str, list] = {}
         for dev in requested:
@@ -515,17 +522,14 @@ class GpuMountService:
         raise ServiceError("INTERNAL", f"GPUs unmounted, but slave pod(s) {leaked} not "
                            f"released: {last_exc}") from last_exc
 
-    def _probe_pending_releases(self) -> None:
-        """The next release is a natural "is the API back?" probe of the
-        releases deferred before it. One record is tried first; the rest
-        only when it went through, so that a long outage costs each unmount
-        one doomed delete, not one a pending record. (The reference asks its
-        ApiHealth machine, ``k8s/health.py``, which the port has not yet.)"""
-        if self.ledger is None or not self.ledger.pending_releases():
-            return
-        probe = self.retry_pending_releases(limit=1)
-        if probe["completed"] and probe["pending"]:
-            self.retry_pending_releases()
+    def probe_pending_releases(self) -> dict:
+        """What each release does first: the releases deferred before it,
+        every record while the write plane is healthy, else one (a doomed
+        delete costs a client timeout, and one a record in every unmount
+        would grow with the outage). ``retry_pending_releases``' summary."""
+        if self.apihealth.write_plane_ok():
+            return self.retry_pending_releases()
+        return self.retry_pending_releases(limit=1)
 
     def retry_pending_releases(self, limit: int | None = None) -> dict:
         """Drive the ledger's queue of deferred releases: delete every pod

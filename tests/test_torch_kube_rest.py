@@ -3,14 +3,17 @@ server (``tests/torch_kube_fake.py``, HTTPS with a self-signed certificate).
 
 The two clients make the same calls, each against its own fresh server over
 a ``FakeKubeClient``: they must send the same method, path, query and body,
-and return the same dicts, watch events included; a kubeconfig and the
-in-cluster environment must give the same host, port and token. Every
-comparison is exact.
+and return the same dicts, watch events, leases and a LIST's resourceVersion
+included; a kubeconfig and the in-cluster environment must give the same
+host, port and token; a server that is down or stalls must fail both alike,
+as errors ``classify_exception`` types as the reference's does and ApiHealth
+counts. Every comparison is exact.
 """
 
 from __future__ import annotations
 
 import base64
+import functools
 import os
 import threading
 
@@ -20,8 +23,10 @@ from torch_kube_fake import FakeApiServer, selfsigned
 
 from gpumounter_tpu.k8s import client as ref_client
 from gpumounter_tpu.k8s import errors as ref_errors
+from gpumounter_tpu.k8s import health as ref_health
 from gpumounter_tpu_torch.k8s import client as port_client
 from gpumounter_tpu_torch.k8s import errors as port_errors
+from gpumounter_tpu_torch.k8s import health as port_health
 from gpumounter_tpu_torch.k8s.fake import FakeKubeClient
 
 CLIENTS = {"port": (port_client, port_errors), "reference": (ref_client, ref_errors)}
@@ -284,3 +289,68 @@ def test_events_and_injected_write_statuses_are_the_same(servers, tls):
     assert [(m, p) for m, p, _, _ in servers["port"].requests][:2] == [
         ("POST", "/api/v1/namespaces/default/events"), ("POST", "/api/v1/namespaces/default/pods")]
     assert servers["port"].kube.events_posted == servers["reference"].kube.events_posted
+
+
+# --- leases, a LIST's resourceVersion, and transport failures ---
+
+def test_leases_and_a_listed_version_send_and_return_the_same(servers, tls):
+    got = {}
+    for name, server in servers.items():
+        kube, errors = _client(name, server, tls), CLIENTS[name][1]
+        out = [kube.list_pods_with_rv("default")]
+        kube.create_pod("default", _pod("a"))
+        out.append(kube.list_pods_with_rv("default"))
+        first = kube.create_lease("kube-system", {"metadata": {"name": "l"},
+                                                  "spec": {"holderIdentity": "a"}})
+        out += [first, kube.get_lease("kube-system", "l")]
+        out.append(kube.update_lease("kube-system", "l",
+                                     dict(first, spec={"holderIdentity": "b"})))
+        for call in (lambda: kube.update_lease("kube-system", "l", first),  # a stale version
+                     lambda: kube.create_lease("kube-system", {"metadata": {"name": "l"}}),
+                     lambda: kube.get_lease("kube-system", "ghost")):
+            with pytest.raises(errors.ApiError) as exc:
+                call()
+            out.append((type(exc.value).__name__, exc.value.status))
+        got[name] = (out, server.requests)
+    assert got["port"] == got["reference"]
+    out = got["port"][0]
+    assert out[0] == ([], "0") and out[1][1] == "1"
+    assert out[4]["metadata"]["resourceVersion"] == "2"
+    assert out[5:] == [("ConflictError", 409), ("ConflictError", 409), ("NotFoundError", 404)]
+
+
+@pytest.mark.parametrize("failure", ["stopped", "stalled"])
+def test_a_transport_failure_is_classified_and_counted_alike(servers, tls, failure):
+    """A server that is down (a refused connection) and one that does not
+    answer within the client's deadline (a socket timeout): both clients
+    raise the same exception, ``classify_exception`` makes it PartitionError
+    and ApiTimeoutError, and three of them make ApiHealth degraded."""
+    healths = {"port": port_health, "reference": ref_health}
+    got = {}
+    for name, server in servers.items():
+        kube, errors = _client(name, server, tls), CLIENTS[name][1]
+        kube._connect = functools.partial(kube._connect, timeout=0.3)
+        if failure == "stopped":
+            server.stop()
+        else:
+            server.stall_s = 1.0
+        machine = healths[name].ApiHealth(cfg=None)
+        tracked = healths[name].HealthTrackingKubeClient(kube, machine)
+        raised = []
+        for _ in range(3):
+            with pytest.raises(Exception) as exc:
+                tracked.get_pod("default", "a")
+            typed = errors.classify_exception(exc.value)
+            raised.append((type(exc.value).__name__, type(typed).__name__, typed.status,
+                           errors.is_outage(exc.value)))
+        got[name] = raised, machine.state(), machine.payload()["planes"]["read"]["state"]
+        if failure == "stopped":
+            server.start = lambda: server  # stopped for good: the fixture's stop is a no-op
+            server.stop = lambda: None
+        else:
+            server.stall_s = 0.0
+    assert got["port"] == got["reference"]
+    raised, state, _ = got["port"]
+    want = ("PartitionError", 503) if failure == "stopped" else ("ApiTimeoutError", 504)
+    assert {r[1:3] for r in raised} == {want} and all(r[3] for r in raised)
+    assert state == "degraded"

@@ -28,6 +28,7 @@ from gpumounter_tpu.cgroup import ebpf as ref_ebpf
 from gpumounter_tpu.config import Config as RefConfig
 from gpumounter_tpu.faults import failpoints as ref_failpoints
 from gpumounter_tpu.faults.failpoints import CrashError as RefCrashError
+from gpumounter_tpu.k8s.errors import PartitionError as RefPartitionError
 from gpumounter_tpu.worker import ledger as ref_ledger
 from gpumounter_tpu.worker import server as ref_server
 from gpumounter_tpu_torch.cgroup import ebpf
@@ -35,6 +36,7 @@ from gpumounter_tpu_torch.config import Config
 from gpumounter_tpu_torch.entry import durability_check
 from gpumounter_tpu_torch.faults import failpoints
 from gpumounter_tpu_torch.faults.failpoints import CrashError
+from gpumounter_tpu_torch.k8s.errors import PartitionError
 from gpumounter_tpu_torch.worker import ledger, server
 
 PACKAGES = {"reference": (ref_ledger, RefConfig), "port": (ledger, Config)}
@@ -183,6 +185,11 @@ def test_a_journal_case_reads_back_as_the_references(tmp_path, case):
             got[name] = case(mod, d, cfg_cls)
             continue
         got[name] = (case(mod, d), _lines(os.path.join(d, mod.LEDGER_FILE)))
+    if case is torn_final_line_is_dropped:
+        # the difference on purpose (below): the port's reload cut the torn
+        # tail off the file, the reference's left it
+        assert got["reference"][1][-1] == "<torn>" and "<torn>" not in got["port"][1]
+        got["reference"] = (got["reference"][0], got["reference"][1][:-1])
     assert got["port"] == got["reference"]
     if case is open_ledger_disabled_and_unwritable:
         assert got["port"] == {"disabled": None, "unwritable": None}
@@ -497,33 +504,41 @@ def test_durability_check_without_a_card_raises():
         durability_check()
 
 
-def test_the_next_release_probes_the_queue_with_one_record_first(tmp_path):
-    """Before a release, the port tries one deferred record; only when it
-    went through does it try the rest (the reference asks its ApiHealth
-    machine instead, which the port has not yet; ROADMAP.md section 3)."""
-    side = SIDES["port"](str(tmp_path))
-    try:
+def test_the_next_release_probes_the_queue_with_one_record_first(sides):
+    """Before a release, the worker retries one deferred record while its
+    ApiHealth's write plane is unhealthy, and every record once it is
+    healthy: the reference's rule (``write_plane_ok``), on both services.
+    The probe's own successes bring the plane back."""
+    got = {}
+    for name, side in sides().items():
         service = side.service
-        pool = side.cluster.cfg.pool_namespace
+        failure = (RefPartitionError if name == "reference" else PartitionError)("outage")
         for i in range(3):
-            service.ledger.queue_release(pool, [f"slave-{i}"])
+            service.ledger.queue_release(side.cluster.cfg.pool_namespace, [f"queued-{i}"])
         attempts = []
         delete = side.cluster.kube.delete_pod
 
-        def counting(namespace, pod, **kwargs):
-            attempts.append(pod)
-            return delete(namespace, pod, **kwargs)
+        def counting(namespace, pod, _delete=delete, **kwargs):
+            if pod.startswith("queued-"):
+                attempts.append(pod)
+            return _delete(namespace, pod, **kwargs)
 
         side.cluster.kube.delete_pod = counting
-        with _fail_deletes(side):
-            service._probe_pending_releases()
-        assert attempts == ["slave-0"] and len(service.ledger.pending_releases()) == 3
-        attempts.clear()
-        service._probe_pending_releases()
-        assert attempts == ["slave-0", "slave-1", "slave-2"]
-        assert service.ledger.pending_releases() == []
-    finally:
-        side.close()
+        side.add_pod("trainer")
+        steps = []
+        for degrade in (True, False):
+            assert side.add("trainer", 1) == 0
+            if degrade:  # the add's writes went through: the outage begins now
+                for _ in range(service.apihealth.degraded_failures):
+                    service.apihealth.record_failure(failure, kind="write")
+            steps.append(service.apihealth.write_plane_ok())
+            assert side.remove("trainer", side.mounted()) == 0
+            steps += [list(attempts), len(service.ledger.pending_releases()),
+                      service.apihealth.write_plane_ok()]
+            attempts.clear()
+        got[name] = steps
+    assert got["port"] == got["reference"] == [
+        False, ["queued-0"], 2, True, True, ["queued-1", "queued-2"], 0, True]
 
 
 def _fail_one_epoch_append(monkeypatch, journal):
@@ -575,6 +590,27 @@ def test_a_worker_refuses_a_mutation_whose_epoch_was_not_persisted(tmp_path, mon
         assert fenced.value.code == "FAILED_PRECONDITION" and side.free() == 3
     finally:
         side.close()
+
+
+def test_a_reload_cuts_the_torn_tail_so_the_next_txn_survives_the_next(tmp_path):
+    """After a death in an append, the reload cuts the fragment off the
+    file: the next batch's records start a line of their own, and a second
+    reload still holds its GPU. The reference leaves the fragment, the next
+    txn is appended onto it, and its second reload loses the mount."""
+    got = {}
+    for name, (mod, _) in PACKAGES.items():
+        d = str(tmp_path / name)
+        led = mod.MountLedger(d)
+        led.commit(led.begin("mount", target=_Target(), devices=[_Dev("gpu0")]), "success")
+        led.abandon()
+        with open(led.path, "a", encoding="utf-8") as f:
+            f.write('{"kind":"txn","txn":"torn-')  # a death in the middle of an append
+        led = mod.MountLedger(d)
+        led.commit(led.begin("mount", target=_Target(), devices=[_Dev("gpu1")]), "success")
+        led.abandon()
+        got[name] = _state(mod.MountLedger(d))["holdings"]
+    assert got["port"] == {("default", "pod-a"): {"gpu0", "gpu1"}}
+    assert got["reference"] == {("default", "pod-a"): {"gpu0"}}
 
 
 def test_the_ledger_fsyncs_its_directory_on_create_and_compaction(tmp_path, monkeypatch):

@@ -107,7 +107,8 @@ def test_label_keys_and_formatting_equal_the_reference():
 # The port's modules that register series, beside the reference's that do.
 PORT_MODULES = ["cgroup.ebpf", "cgroup.policy", "rpc.resilience", "rpc.client", "k8s.fake",
                 "worker.server", "worker.mounter", "worker.ledger", "worker.resync",
-                "utils.fanout", "faults.failpoints", "obs.trace", "obs.flight"]
+                "utils.fanout", "faults.failpoints", "obs.trace", "obs.flight", "k8s.health",
+                "store.writebehind", "store.cache", "store.watch"]
 
 
 def test_every_series_of_the_port_is_the_references():
@@ -136,7 +137,13 @@ def test_every_series_of_the_port_is_the_references():
             "tpumounter_flight_records_total", "tpumounter_fenced_writes_total",
             "tpumounter_slave_release_deferred_total", "tpumounter_ledger_appends_total",
             "tpumounter_ledger_open_transactions", "tpumounter_ledger_compactions_total",
-            "tpumounter_ledger_replays_total"} == set(seen)
+            "tpumounter_ledger_replays_total", "tpumounter_api_health_state",
+            "tpumounter_api_health_transitions_total", "tpumounter_api_call_failures_total",
+            "tpumounter_writebehind_pending", "tpumounter_writebehind_queued_total",
+            "tpumounter_writebehind_replayed_total", "tpumounter_store_stale_reads_total",
+            "tpumounter_store_deferred_writes_total", "tpumounter_watch_store_events_total",
+            "tpumounter_watch_store_relists_total", "tpumounter_watch_store_fallback_reads_total",
+            "tpumounter_watch_store_synced"} == set(seen)
 
 
 # --- the series of the modules ported before the registry ---

@@ -105,6 +105,33 @@ def test_faults_and_obs_import_only_the_stdlib_and_utils(path):
                 "gpumounter_tpu_torch.obs")), f"{path.name}:{node.lineno} imports {name}"
 
 
+STORE_FILES = sorted([*(REPO / "gpumounter_tpu_torch/store").glob("*.py"),
+                      *(REPO / "gpumounter_tpu_torch/elastic").glob("*.py"),
+                      *(REPO / "gpumounter_tpu_torch/migrate").glob("*.py"),
+                      REPO / "gpumounter_tpu_torch/k8s/health.py"])
+
+
+@pytest.mark.parametrize("path", STORE_FILES, ids=lambda p: f"{p.parent.name}/{p.name}")
+def test_the_store_and_degraded_mode_import_only_the_stdlib_config_utils_and_k8s(path):
+    """The master's store, ApiHealth, intents and journals: the standard
+    library, the port's config, utils/ and k8s/, and each other only, as in
+    the reference; so the mount path, which imports k8s/, still imports
+    without grpc."""
+    import sys
+    allowed = tuple(f"gpumounter_tpu_torch.{m}" for m in
+                    ("config", "utils", "k8s", "store", "elastic", "migrate"))
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module]
+        else:
+            continue
+        for name in names:
+            assert name.split(".")[0] in sys.stdlib_module_names or name.startswith(allowed), \
+                f"{path.name}:{node.lineno} imports {name}"
+
+
 def test_banned_names_match_exactly():
     assert _banned("gpumounter_tpu") and _banned("gpumounter_tpu.ops")
     assert _banned("jax.numpy") and _banned("jaxlib")

@@ -3,8 +3,11 @@
 ``FakeApiServer`` serves the pod calls of the core/v1 REST API over HTTPS
 (standard library only) from a ``FakeKubeClient`` of the port: get, list
 with label and field selectors (one namespace or all), create, delete,
-merge-patch, and watch as a stream of JSON lines; and the POST of an Event. Errors are Status
-objects with the API's codes (404, 409, 415). Every request is recorded as
+merge-patch, and watch as a stream of JSON lines; the POST of an Event; and the
+coordination.k8s.io/v1 leases (get, create, and the replace that is a CAS on
+the resourceVersion). A LIST carries the fake's collection resourceVersion.
+Errors are Status objects with the API's codes (404, 409, 415). With
+``stall_s`` set, every answer waits that long first (a stalled API server). Every request is recorded as
 (method, path, query, body) and every TLS connection counted, so two
 clients can be held to the same wire.
 
@@ -31,6 +34,7 @@ import shutil
 import ssl
 import subprocess
 import threading
+import time
 import urllib.parse
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
@@ -39,6 +43,8 @@ from gpumounter_tpu_torch.k8s.errors import ApiError, ConflictError, NotFoundErr
 _POD = re.compile(r"^/api/v1/namespaces/(?P<ns>[^/]+)/pods/(?P<name>[^/]+)$")
 _PODS = re.compile(r"^/api/v1/(?:namespaces/(?P<ns>[^/]+)/)?pods$")
 _EVENTS = re.compile(r"^/api/v1/namespaces/(?P<ns>[^/]+)/events$")
+_LEASES = re.compile(r"^/apis/coordination\.k8s\.io/v1/namespaces/(?P<ns>[^/]+)/leases"
+                     r"(?:/(?P<name>[^/]+))?$")
 
 
 def selfsigned(directory: str, client: bool = False) -> tuple[str, str] | None:
@@ -69,6 +75,7 @@ class FakeApiServer:
         self.requests: list[tuple[str, str, dict, object]] = []
         self.authorization: list[str | None] = []
         self.connections = 0
+        self.stall_s = 0.0
         self._watches: list = []
         self._lock = threading.Lock()
         server = self
@@ -101,12 +108,14 @@ class FakeApiServer:
                 by_cert = auth is None and bool(self.connection.getpeercert())
                 if auth != f"Bearer {server.token}" and not by_cert:
                     return self._send(401, _status(401, "Unauthorized"))
+                if server.stall_s:
+                    time.sleep(server.stall_s)
                 try:
                     return server._route(self, url.path, query, body)
                 except ApiError as exc:
                     return self._send(exc.status, _status(exc.status, exc.message))
 
-            do_GET = do_POST = do_DELETE = do_PATCH = _handle
+            do_GET = do_POST = do_DELETE = do_PATCH = do_PUT = _handle
 
             def log_message(self, fmt, *args):
                 pass
@@ -150,16 +159,23 @@ class FakeApiServer:
                 return h._send(201, self.kube.create_pod(many["ns"], body))
             except ConflictError as exc:
                 raise ApiError(409, exc.message)
+        leases = _LEASES.match(path)
+        if leases and leases["name"] and h.command == "GET":
+            return h._send(200, self.kube.get_lease(leases["ns"], leases["name"]))
+        if leases and leases["name"] and h.command == "PUT":
+            return h._send(200, self.kube.update_lease(leases["ns"], leases["name"], body))
+        if leases and not leases["name"] and h.command == "POST":
+            return h._send(201, self.kube.create_lease(leases["ns"], body))
         events = _EVENTS.match(path)
         if events and h.command == "POST":
             return h._send(201, self.kube.create_event(events["ns"], body))
         if many and h.command == "GET" and query.get("watch") == "true":
             return self._watch(h, many["ns"] or "", query)
         if many and h.command == "GET":
-            items = self.kube.list_pods(many["ns"], query.get("labelSelector", ""),
-                                        query.get("fieldSelector", ""))
+            items, rv = self.kube.list_pods_with_rv(many["ns"], query.get("labelSelector", ""),
+                                                    query.get("fieldSelector", ""))
             return h._send(200, {"kind": "PodList", "apiVersion": "v1",
-                                 "metadata": {"resourceVersion": "1"}, "items": items})
+                                 "metadata": {"resourceVersion": rv}, "items": items})
         raise NotFoundError(f"no route {h.command} {path}")
 
     def _watch(self, h, namespace: str, query: dict):

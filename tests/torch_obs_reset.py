@@ -3,8 +3,10 @@
 ``tests/conftest.py`` resets the reference's trace ring, audit trail, flight
 recorder and metrics after every test; the port's have their own. A test
 module that imports ``reset_port_obs`` gets it as an autouse fixture: the
-port's TRACER, AUDIT and FLIGHT are emptied and both packages' failpoints
-disarmed before and after each of its tests.
+port's TRACER, AUDIT and FLIGHT are emptied, its ApiHealth machines dropped
+(``k8s.health.reset_all``: one test's outage must leave no verdict to the
+next) and both packages' failpoints disarmed before and after each of its
+tests.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ import pytest
 
 from gpumounter_tpu.faults import failpoints as ref_failpoints
 from gpumounter_tpu_torch.faults import failpoints
+from gpumounter_tpu_torch.k8s import health
 from gpumounter_tpu_torch.obs import audit, flight, trace
 
 
@@ -24,6 +27,7 @@ def _reset() -> None:
     trace.TRACER.reset()
     audit.AUDIT.reset()
     flight.FLIGHT.reset()
+    health.reset_all()
 
 
 @pytest.fixture(autouse=True)
