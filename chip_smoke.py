@@ -286,6 +286,38 @@ Phases, each raising on failure (any failure exits non-zero):
        the raw fake, one read through the cache, one enqueue with its fsync.
     Cases a, b and c run on the card's own GPU: without CAP_MKNOD the phase
     fails.
+16. sharded masters and the warm pool on a live hot-mount,
+    ``entry.shard_pool_check`` through the master over gRPC as in phase 11,
+    the worker's ledger beside this script, the in-process
+    ``FakeKubeClient`` as the API (its scheduler places a pod in a few ms,
+    so the card cannot show what a warm holder saves against a real
+    scheduler's wait):
+    a. two replicas with shard_count 2 on their renew loops at the default
+       lease and renew interval, as the master daemon runs them (each
+       stack's start timed); the node's owner stamps its epoch, at least 1,
+       which must reach the worker's ledger, and still holds its shard after
+       the flow; the worker with a warm pool of 1 at the default backoff, its
+       holder Running: 3 live adds of 1 each adopt the holder
+       (a hit, no miss; the span's pool_hit 1), a tenant child on the first
+       pooled GPU runs phase 3's first forward through ``flash_fwd`` (its
+       launches counted in the kernels line), each remove and the refill
+       that restores the pool; then the pool drained and 3 cold adds (a
+       miss each); the medians of both adds and their slave_pod_schedule
+       spans beside phase 11's add;
+    b. two such replicas, a lease each: /addgpu at the
+       non-owner answers 307 to the owner (followed by
+       ``rpc/http_failover.py``, it mounts); /batch/addgpu at the non-owner
+       is proxied once to the owner (one trace over both replicas) and
+       mounts, 3 times beside 3 direct batches; a forwarded batch at the
+       non-owner answers NotOwner;
+    c. a stale owner (leases of 0.3 s, every lease pass by hand, no renew
+       loop): its live add held between its shard gate and its
+       worker call while its lease writes are partitioned, the other
+       replica's takeover at epoch + 1 (timed), the new owner's add mounts;
+       the held add goes on and is fenced by the worker: 503 with
+       Retry-After, nothing mounted, booked or written to the ledger (timed);
+       the new owner's remove frees the GPU.
+    Every case runs on the card's own GPU: without CAP_MKNOD the phase fails.
 
 The last lines are a JSON object per kernel (``{"kernels": [...]}``) and
 ``{"ok": true, "device": {...}}``, and the exit code is 0. A failing check
@@ -335,6 +367,7 @@ from gpumounter_tpu_torch.entry import (ADD_TRACE, ADD_WORKER_SPANS, MOE_ROUTE_G
                                         dryrun_multichip, grow_checks, has_cap_mknod,
                                         inventory_check, kernel_launches, make_identity,
                                         master_check, moe_blocks_vs_plain, moe_check,
+                                        shard_pool_check,
                                         mount_check, obs_check, pick_identity,
                                         reset_kernel_launches,
                                         route_flips, sharded_step_check, slice_check, tp_checks,
@@ -3230,6 +3263,74 @@ def phase_degraded(card: str, master_live: dict) -> int:
     return child["launches"]["flash_fwd"]
 
 
+def phase_shard_pool(card: str, master_live: dict) -> int:
+    """Phase 16: ``entry.shard_pool_check`` on the card (see the module's
+    docstring), a line for each case. Returns the flash_fwd launches of the
+    tenant child on the first pooled GPU."""
+    t_phase = time.perf_counter()
+    children = []
+
+    def on_pooled(uuids, target):
+        visible = gpus_visible_in_dev(target)
+        if visible != 1:
+            raise RuntimeError(f"gpus_visible_in_dev({target}) = {visible} after the pooled "
+                               f"add of {uuids}")
+        children.append({**_tenant_child(uuids[0]), "visible_in_dev": visible})
+
+    ledger_root = os.path.dirname(os.path.abspath(__file__))
+    with _tenant_target("phase16") as (dev_dir, cgroup_dir):
+        report = shard_pool_check("cuda", dev_dir=dev_dir, ns_pid=os.getpid(),
+                                  cgroup_dirs=[cgroup_dir] if cgroup_dir else (),
+                                  identity=pick_identity(), repeats=MOUNT["REPEATS"],
+                                  ledger_root=ledger_root, on_pooled=on_pooled)
+    flows = report["live"]
+    if flows is None or len(children) != 1:
+        raise RuntimeError(f"phase 16 ran no live flows with their tenant child on the card: "
+                           f"live {flows is not None}, {len(children)} child(ren)")
+    child = children[0]
+    p = flows["pool"]
+    warm, cold = p["warm"], p["cold"]
+    starts = ", ".join(f"{k} {v:.1f} ms" for k, v in flows["start_ms"].items())
+    print(f"time shard-pool stacks started (workers, replicas, first leases): {starts} "
+          f"[{card}]", flush=True)
+    print(f"time shard-pool (a) two replicas on their renew loops (lease {p['lease_s']:.0f} s, "
+          f"renew {p['renew_s']:.0f} s), the node's owner stamping epoch {p['epoch']}, in the "
+          f"worker's ledger ({p['ledger_epoch']}) and still held after the flow's "
+          f"{p['flow_s']:.1f} s; ensure_node {p['ensure_node_ms']:.3f} ms; the warm pool of 1 "
+          f"filled in {p['first_fill_ms']:.3f} ms; the tenant child {p['child_ms']:.1f} ms; "
+          f"{p['refill_failures']:.0f} refill(s) refused on the full node; "
+          f"warm (pooled) HTTP add {_runs([r['add_ms'] for r in warm])}"
+          f", its slave_pod_schedule span {_runs([r['schedule_ms'] for r in warm])}, remove "
+          f"{_runs([r['remove_ms'] for r in warm])}, the refill restoring the pool "
+          f"{_runs(p['refill_ms'])}; drained ({p['drained']} holder released), cold HTTP add "
+          f"{_runs([r['add_ms'] for r in cold])}, its slave_pod_schedule span "
+          f"{_runs([r['schedule_ms'] for r in cold])}, remove "
+          f"{_runs([r['remove_ms'] for r in cold])}; phase 11's add "
+          f"{_runs(master_live['add_ms'])}; each warm add a hit and no miss, each cold add a "
+          f"miss; the tenant child on "
+          f"the pooled {child['uuid']} ({child['device']}): flash_fwd "
+          f"{child['launches']['flash_fwd']} launch(es), nll {child['nll']:.4f}, exec to CUDA "
+          f"ready {child['exec_to_cuda_ready_ms']:.1f} ms (the fake scheduler places a pod in a "
+          f"few ms: no real scheduler's wait to save) [{card}]", flush=True)
+    r = flows["replicas"]
+    print(f"time shard-pool (b) two replicas, shard_count 2, the node's owner replica "
+          f"{r['owner']} (epochs {r['epochs']}): /addgpu at the non-owner 307 to "
+          f"{r['redirect']}, followed and mounted in {r['followed_ms']:.3f} ms; /batch/addgpu "
+          f"at the non-owner proxied once {_runs(r['proxied_ms'])} against a direct batch "
+          f"{_runs(r['direct_ms'])}; a forwarded batch at the non-owner {r['forwarded']} "
+          f"[{card}]", flush=True)
+    c = flows["stale"]
+    print(f"time shard-pool (c) a stale owner: its lease writes partitioned, the takeover at "
+          f"epoch {c['fresh_epoch']} (was {c['stale_epoch']}) in {c['takeover_ms']:.3f} ms; the "
+          f"new owner's add {c['new_add_ms']:.3f} ms; the stale add fenced by the worker in "
+          f"{c['fenced_ms']:.3f} ms: 503 {c['fenced']!r}, nothing mounted, booked or in the "
+          f"ledger (epoch {c['ledger_epoch']}); the new owner's remove {c['remove_ms']:.3f} ms, "
+          f"the GPU free [{card}]", flush=True)
+    print(f"time shard-pool phase 16: {time.perf_counter() - t_phase:.1f} s [{card}]",
+          flush=True)
+    return child["launches"]["flash_fwd"]
+
+
 def phase_forward_timing(cfg, params, tokens, card, what="forward") -> None:
     fwd_ms = _time_ms(lambda: forward(params, tokens, cfg), 5, warmup=1)
     tok_s = tokens.numel() / (fwd_ms / 1e3)
@@ -3344,6 +3445,8 @@ def _phases(stage: list, t0: float) -> None:
     durability_launches = phase_durability(card)
     begin("15 (the master's store through an API outage on a live hot-mount)")
     degraded_launches = phase_degraded(card, master_live)
+    begin("16 (sharded masters and the warm pool on a live hot-mount)")
+    pool_launches = phase_shard_pool(card, master_live)
     sharded = {k: sharded_launches[k] + seq_pipe_launches[k] + grow_launches[k]
                + dryrun_launches[k] for k in sharded_launches}
 
@@ -3363,8 +3466,9 @@ def _phases(stage: list, t0: float) -> None:
           f"mounted): flash_fwd {mount_launches}; the "
           f"cgroup v2 round trip's tenant (phase 12): flash_fwd {v2_launches}; the replayed "
           f"GPU's tenant (phase 14): flash_fwd {durability_launches}; the GPU added after the "
-          f"read partition's heal (phase 15): flash_fwd {degraded_launches}", flush=True)
-    print(f"chip_smoke: phases 1-15 took {time.perf_counter() - t0:.1f} s, the kernels' build "
+          f"read partition's heal (phase 15): flash_fwd {degraded_launches}; the first pooled "
+          f"GPU's tenant (phase 16): flash_fwd {pool_launches}", flush=True)
+    print(f"chip_smoke: phases 1-16 took {time.perf_counter() - t0:.1f} s, the kernels' build "
           f"included [{card}]", flush=True)
     bwd_source = "gpumounter_tpu_torch/ops/csrc/flash_bwd.cu"
     print(json.dumps({"kernels": [{
@@ -3374,7 +3478,7 @@ def _phases(stage: list, t0: float) -> None:
         "launches": (launches + prefill_launches + train_fwd + moe_launches + moe_prefill
                      + moe_fwd + handoff_launches["flash_fwd"] + sharded["flash_fwd"]
                      + mount_launches + v2_launches + durability_launches
-                     + degraded_launches),
+                     + degraded_launches + pool_launches),
         "max_abs_err": max_abs_err, **times}, {
         "name": "flash_bwd_dq", "route": "cuda", "source": bwd_source,
         "replaces": "gpumounter_tpu/ops/flash_attention.py:182",

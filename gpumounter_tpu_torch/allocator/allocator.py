@@ -18,7 +18,9 @@ The counterpart of ``TpuAllocator`` in
   * ``get_mount_type``: entire iff fewer slave pods than GPUs (:158-187).
 
 Waits are watches with a deadline, run concurrently, where the original
-busy-polls the phase (:246-317). The reference's choice among free
+busy-polls the phase (:246-317). With a warm pool (``allocator/pool.py``) a
+single-GPU allocation adopts pre-scheduled holders first, and only the cold
+remainder pays the create-and-wait. The reference's choice among free
 accelerators for an ICI-contiguous block is not ported: on an H100 host
 every pair of GPUs is one NVSwitch hop apart (``topology.py``), so no free
 GPU is a better pick than another.
@@ -94,10 +96,13 @@ def base_slave_manifest(cfg, name: str, node_name: str, gpu_num: int,
 
 
 class GpuAllocator:
-    def __init__(self, kube: KubeClient, collector: GpuCollector, cfg=None):
+    def __init__(self, kube: KubeClient, collector: GpuCollector, cfg=None, pool=None):
+        """pool: an optional ``WarmPodPool``, from which single-GPU slaves
+        are adopted before any is created."""
         self.kube = kube
         self.collector = collector
         self.cfg = cfg or Config()
+        self.pool = pool
         # Serializes slave-pod allocation on this node: two requests that
         # together exceed capacity would otherwise both create slaves, both
         # see Unschedulable and both roll back; serialized, the first wins
@@ -125,13 +130,17 @@ class GpuAllocator:
     # --- allocation (GetAvailableGPU, allocator.go:40-96) ---
 
     def get_available_gpus(self, owner: Pod, total_gpu_num: int,
-                           gpu_num_per_pod: int,
+                           gpu_num_per_pod: int, stats: dict | None = None,
                            ) -> tuple[list[GpuDevice], list[str]]:
-        """Create slave pods; returns (devices, slave_pod_names).
+        """Adopt warm holders or create slave pods; returns (devices,
+        slave_pod_names).
 
         total_gpu_num must be divisible by gpu_num_per_pod (an entire mount
         is one slave holding all; a single mount one slave per GPU,
-        server.go:61-66)."""
+        server.go:61-66). `stats`, when given, is filled with the warm
+        pool's outcome: pool_hit (slaves adopted warm), pool_gap (slaves
+        that paid the cold path) and pool_enabled, so that the caller's span
+        tells pool starvation from a plain scheduler wait."""
         if total_gpu_num <= 0 or total_gpu_num % gpu_num_per_pod != 0:
             raise ValueError(f"total_gpu_num={total_gpu_num} not divisible by "
                              f"gpu_num_per_pod={gpu_num_per_pod}")
@@ -139,17 +148,31 @@ class GpuAllocator:
             raise SlavePodError(f"owner pod {owner.namespace}/{owner.name} is not scheduled")
         with self._alloc_mutex:
             return self._allocate_locked(owner, gpu_num_per_pod,
-                                         total_gpu_num // gpu_num_per_pod)
+                                         total_gpu_num // gpu_num_per_pod, stats)
 
     def _allocate_locked(self, owner: Pod, gpu_num_per_pod: int, n_pods: int,
+                         stats: dict | None = None,
                          ) -> tuple[list[GpuDevice], list[str]]:
-        created: list[str] = []
+        # the warm fast path, for single-GPU slaves only (the pool stocks no
+        # pod holding several): adopted holders already run, so only the
+        # cold remainder waits for the scheduler
+        adopted: list[str] = []
+        if self.pool is not None and gpu_num_per_pod == 1:
+            adopted = self.pool.acquire(owner, n_pods)
+        if stats is not None:
+            stats["pool_enabled"] = (self.pool is not None and gpu_num_per_pod == 1
+                                     and self.pool.enabled)
+            stats["pool_hit"] = len(adopted)
+            stats["pool_gap"] = n_pods - len(adopted)
+        created: list[str] = list(adopted)
         try:
-            for _ in range(n_pods):
+            cold: list[str] = []
+            for _ in range(n_pods - len(adopted)):
                 manifest = self._slave_pod_manifest(owner, gpu_num_per_pod)
-                created.append(Pod(self.kube.create_pod(self.cfg.pool_namespace,
-                                                        manifest)).name)
-            self._wait_all_running(created)
+                cold.append(Pod(self.kube.create_pod(self.cfg.pool_namespace,
+                                                     manifest)).name)
+                created.append(cold[-1])
+            self._wait_all_running(cold)
             # One kubelet refresh for the whole batch, then per-slave reads.
             self.collector.update_status()
             devices: list[GpuDevice] = []
@@ -161,6 +184,8 @@ class GpuAllocator:
                         f"{gpu_num_per_pod} (device plugin lag?)")
                 devices.extend(devs)
         except Exception:
+            # adopted holders carry the owner's labels now: they roll back
+            # too, which frees their GPUs (the pool refills itself)
             self._rollback(created)
             raise
         logger.info("allocated %d GPU(s) via %d slave pod(s) for %s/%s",
@@ -239,15 +264,17 @@ class GpuAllocator:
                                      grace_period_seconds=0)
             except NotFoundError:
                 pass
-        if not wait:
-            return
-        for name in names:
-            gone = self.kube.wait_for_pod(self.cfg.pool_namespace, name,
-                                          lambda pod_json: pod_json is None,
-                                          timeout_s=self.cfg.slave_pod_timeout_s)
-            if gone is None:
-                raise SlavePodError(f"slave pod {name} not deleted within "
-                                    f"{self.cfg.slave_pod_timeout_s}s")
+        if wait:
+            for name in names:
+                gone = self.kube.wait_for_pod(self.cfg.pool_namespace, name,
+                                              lambda pod_json: pod_json is None,
+                                              timeout_s=self.cfg.slave_pod_timeout_s)
+                if gone is None:
+                    raise SlavePodError(f"slave pod {name} not deleted within "
+                                        f"{self.cfg.slave_pod_timeout_s}s")
+        if names and self.pool is not None:
+            # their GPUs are free again: a full node's refill backoff ends
+            self.pool.capacity_freed()
 
     def slave_pods_for(self, pod: Pod) -> list[Pod]:
         """Slave pods owned by this pod, by the owner-UID label (the

@@ -4,7 +4,8 @@ The counterpart of ``gpumounter_tpu/config/config.py``, holding only the
 fields the device layer, the collector, the allocator, the cgroup layer, the
 mounter, the transport, the master (with its slice and batch routes and their
 fan-out core), the observability stores, the worker's ledger and drain, the master's
-store with its API-outage degraded mode, and the two daemons read. Every field is an environment
+store with its API-outage degraded mode, the sharded masters, the warm pool, and the
+two daemons read. Every field is an environment
 variable with the original GPUMounter's value as default; the names are the reference's where the
 meaning is the same. NVIDIA-specific: the resource ``nvidia.com/gpu``
 (``pkg/util/gpu/types.go:10``), the pool namespace ``gpu-pool``
@@ -61,6 +62,17 @@ class Config:
     slave_pod_timeout_s: float = field(default_factory=lambda: float(
         _env("SLAVE_POD_TIMEOUT_S", "120")))
     slave_pod_name_suffix: str = "-slave-pod-"
+    # the warm pool (allocator/pool.py): this many single-GPU holder pods
+    # kept Running a node, so that a mount adopts one (a label patch)
+    # instead of paying create + schedule + wait; 0 (the default) is the
+    # cold path alone. Each warm holder books a GPU while idle. The worker's
+    # own node (downward API spec.nodeName), warmed at start when set
+    node_name: str = field(default_factory=lambda: _env("NODE_NAME", ""))
+    warm_pool_size: int = field(default_factory=lambda: int(_env("WARM_POOL_SIZE", "0")))
+    # the floor between refills of a node whose last refill failed (a full
+    # node must not see a hot loop of pod creates)
+    warm_pool_retry_s: float = field(default_factory=lambda: float(
+        _env("WARM_POOL_RETRY_S", "5")))
 
     # --- the kubelet's pod-resources API ---
     # the original's socket (types.go:6-7); "auto" asks v1, then v1alpha1
@@ -85,14 +97,51 @@ class Config:
         "WORKER_LABEL_SELECTOR", "app=gpu-mounter-worker"))
     worker_namespace: str = field(default_factory=lambda: _env("WORKER_NAMESPACE", "kube-system"))
     # the target cap of one POST /batch/addgpu, and how many nodes one such
-    # request mounts on at once (one worker client a node)
+    # request mounts on at once (one worker client a node) when the shards
+    # are inactive; with shards, fanout_shard_budget caps each owner shard
     bulk_max_targets: int = field(default_factory=lambda: int(_env("BULK_MAX_TARGETS", "256")))
     bulk_node_fanout: int = field(default_factory=lambda: int(_env("BULK_NODE_FANOUT", "16")))
+    # the deadline of a sub-batch proxied to the replica that owns its nodes
+    bulk_proxy_timeout_s: float = field(default_factory=lambda: float(
+        _env("BULK_PROXY_TIMEOUT_S", "330")))
+    # client requests one replica handles at once (0: unbounded); requests
+    # forwarded by a peer replica wait on a gate of their own
+    master_http_concurrency: int = field(default_factory=lambda: int(
+        _env("MASTER_HTTP_CONCURRENCY", "0")))
+
+    # --- sharded masters (master/shard.py) ---
+    # node ownership split over this many shards by consistent hashing, one
+    # leader a shard through a coordination.k8s.io/v1 Lease; 1 (the
+    # default) is one master owning every node, with no lease traffic
+    shard_count: int = field(default_factory=lambda: int(_env("TPUMOUNTER_SHARD_COUNT", "1")))
+    # the lease's TTL, and the renew cadence (0: a third of the TTL)
+    shard_lease_duration_s: float = field(default_factory=lambda: float(
+        _env("SHARD_LEASE_DURATION_S", "15")))
+    shard_renew_interval_s: float = field(default_factory=lambda: float(
+        _env("SHARD_RENEW_INTERVAL_S", "0")))
+    # the namespace of the tpumounter-shard-<i> leases ("": worker_namespace)
+    shard_lease_namespace: str = field(default_factory=lambda: _env("SHARD_LEASE_NAMESPACE", ""))
+    # this replica's identity in the leases: TPUMOUNTER_REPLICA_ID, else
+    # $HOSTNAME (a StatefulSet pod's name, stable across restarts), else ""
+    # (the shard manager then asks socket.gethostname())
+    replica_id: str = field(default_factory=lambda: _env(
+        "TPUMOUNTER_REPLICA_ID", "") or _env("HOSTNAME", ""))
+    # where peers and clients reach this replica: stamped into the lease, so
+    # a non-owner can redirect or proxy to the owner ("": a 503 instead)
+    advertise_url: str = field(default_factory=lambda: _env("TPUMOUNTER_ADVERTISE_URL", ""))
+    # the never-held shards this replica volunteers for: "auto" is its
+    # StatefulSet ordinal modulo the count, "" any, or a list "0,2"; an
+    # expired lease is open to every replica whatever this says
+    shard_preferred: str = field(default_factory=lambda: _env(
+        "TPUMOUNTER_SHARD_PREFERRED", "auto"))
 
     # --- the shared fan-out core (utils/fanout.py) ---
-    # its width (0: 4 x the CPU count, at least 32); the reference's
-    # TPUMOUNTER_FANOUT_SHARD_BUDGET comes with the owner shards (7h)
+    # its width (0: 4 x the CPU count, at least 32), and the slots the
+    # items of one shard may hold at once inside one pass (0: no cap): the
+    # sharded batch's node groups in flight of each owner shard
     fanout_width: int = field(default_factory=lambda: int(_env("TPUMOUNTER_FANOUT_WIDTH", "0")))
+    fanout_shard_budget: int = field(default_factory=lambda: int(_env(
+        "TPUMOUNTER_FANOUT_SHARD_BUDGET", "16")))
 
     # --- master -> worker calls ---
     # deadlines a method; bounded capped-exponential retries on UNAVAILABLE
@@ -200,3 +249,8 @@ class Config:
         "WATCH_STORE_RELIST_CAP_S", "30")))
     store_watch_sync_timeout_s: float = field(default_factory=lambda: float(_env(
         "WATCH_STORE_SYNC_TIMEOUT_S", "10")))
+    # the fake API server's watch backlog (k8s/fake.py): events kept for
+    # resumable watches, at least 64; a watcher that falls past it has its
+    # stream ended (the fake's 410)
+    watch_backlog_events: int = field(default_factory=lambda: int(_env(
+        "TPUMOUNTER_WATCH_BACKLOG", "8192")))

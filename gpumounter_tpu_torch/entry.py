@@ -49,7 +49,8 @@ from gpumounter_tpu_torch.faults import failpoints
 from gpumounter_tpu_torch.k8s import health as k8s_health
 from gpumounter_tpu_torch.k8s.errors import PartitionError
 from gpumounter_tpu_torch.k8s.types import Pod
-from gpumounter_tpu_torch.master.app import MasterApp, build_http_server
+from gpumounter_tpu_torch.master.app import FORWARDED_HEADER, MasterApp, build_http_server
+from gpumounter_tpu_torch.master.shard import ShardManager
 from gpumounter_tpu_torch.models.probe import (TransformerConfig, _attend, _block, _embed,
                                                _finish_block, _rmsnorm, forward, init_params,
                                                local_heads, loss_fn, next_token_nll)
@@ -1598,25 +1599,84 @@ class _MasterStack:
     server listens on 127.0.0.1, so the master's worker_client_factory is
     its default client with a registered IP mapped to its server's port.
     ``restart(node)`` replaces a node's worker by a new one over the same
-    ledger, as after its death. Stops all it started on exit."""
+    ledger, as after its death. Stops all it started on exit.
+
+    With `replicas` > 0 the master is that many sharded replicas
+    (``apps``, ``bases``; ``app`` and ``base`` are replica 0's): shard_count
+    `replicas`, replica i named m-<i> and volunteering for shard i, each
+    with its own HTTP server as its advertised URL, `shard_cfg` over the
+    cluster's config (the lease's duration, the admission gate). With
+    `renew_loop` each ShardManager runs its renew thread (``start``), as
+    ``master/main.py`` starts it, replica i once replica i - 1 holds its
+    shard, and the stack is ready when every replica holds its shard and
+    routes every node; without it they are active without a loop and the
+    caller drives ``acquire``. On exit each stops with release, then its
+    app closes, as in ``master/main.py``."""
 
     def __init__(self, cluster: FakeCluster, dev_dirs: dict[str, str], ns_pid: int | None = None,
-                 cgroup_dirs=()):
-        self.cluster, self.cfg, self.token = cluster, cluster.cfg, cluster.cfg.auth_token
+                 cgroup_dirs=(), replicas: int = 0, shard_cfg: dict | None = None,
+                 renew_loop: bool = False):
+        self.cluster, self.token = cluster, cluster.cfg.auth_token
+        self.cfg = (dataclasses.replace(cluster.cfg, shard_count=replicas, shard_preferred="",
+                                        **(shard_cfg or {})) if replicas else cluster.cfg)
         self.dev_dirs, self.ns_pid, self.cgroup_dirs = dev_dirs, ns_pid, cgroup_dirs
         self.workers = WorkerServers(self._service)
         self.services = self.workers.services
         for i, node in enumerate(cluster.node_names):
             self.workers.start(node, f"10.0.0.{i + 1}")
             cluster.register_worker(self.workers.ip_by_node[node], node=node)
-        self.app = MasterApp(cluster.kube, cfg=self.cfg, worker_client_factory=lambda address: (
-            WorkerClient(self.workers.local_address(address),
-                         token=self.token, cfg=self.cfg, breaker=self.app.registry.breaker,
-                         channel_pool=self.app.registry.channel_pool)))
-        self.httpd = build_http_server(self.app, port=0, host="127.0.0.1")
-        threading.Thread(target=self.httpd.serve_forever, name="master-http",
-                         daemon=True).start()
-        self.base = f"http://127.0.0.1:{self.httpd.server_address[1]}"
+        self.apps, self.httpds, self.bases = [], [], []
+        for i in range(max(1, replicas)):
+            shards = (ShardManager(cluster.kube, cfg=self.cfg, replica_id=f"m-{i}",
+                                   preferred={i}) if replicas else None)
+            app = MasterApp(cluster.kube, cfg=self.cfg, shards=shards,
+                            worker_client_factory=lambda address, i=i: WorkerClient(
+                                self.workers.local_address(address), token=self.token,
+                                cfg=self.cfg, breaker=self.apps[i].registry.breaker,
+                                channel_pool=self.apps[i].registry.channel_pool))
+            httpd = build_http_server(app, port=0, host="127.0.0.1")
+            threading.Thread(target=httpd.serve_forever, name="master-http",
+                             daemon=True).start()
+            self.apps.append(app)
+            self.httpds.append(httpd)
+            self.bases.append(f"http://127.0.0.1:{httpd.server_address[1]}")
+            if replicas:
+                shards.advertise_url = self.bases[-1]
+                if not renew_loop:
+                    shards.start_without_loop()
+        self.app, self.httpd, self.base = self.apps[0], self.httpds[0], self.bases[0]
+        if replicas and renew_loop:
+            self._start_renew_loops()
+        elif replicas:
+            self.acquire(2)  # each its own shard, then the peers' for redirects
+
+    def _start_renew_loops(self) -> None:
+        deadline = time.monotonic() + 2 * self.apps[0].shards.renew_interval_s + 5.0
+
+        def wait(what: str, ready) -> None:
+            while not ready():
+                if time.monotonic() > deadline:
+                    raise RuntimeError(f"the replicas' renew loops: {what} not reached, "
+                                       f"tables {[a.shards.table() for a in self.apps]}")
+                time.sleep(0.01)
+
+        for i, app in enumerate(self.apps):
+            app.shards.start()
+            wait(f"replica {i} holding shard {i}",
+                 lambda i=i, app=app: i in app.shards.owned_shards())
+        wait("every node routed by every replica",
+             lambda: all(app.shards.route(node)[0] != "unowned" for app in self.apps
+                         for node in self.cluster.node_names))
+
+    def acquire(self, passes: int = 1) -> None:
+        """`passes` lease passes of every replica, in turn."""
+        for _ in range(passes):
+            for app in self.apps:
+                app.shards.acquire_once()
+
+    def owner(self, node: str) -> int:
+        """The index of the replica that owns `node`."""
+        return next(i for i, app in enumerate(self.apps) if app.shards.owns_node(node))
 
     def _service(self, node: str):
         return self.cluster.service(self.dev_dirs[node], ns_pid=self.ns_pid,
@@ -1634,9 +1694,12 @@ class _MasterStack:
         return self
 
     def __exit__(self, *exc):
-        self.httpd.shutdown()
-        self.httpd.server_close()
-        self.app.close()
+        for httpd, app in zip(self.httpds, self.apps):
+            httpd.shutdown()
+            httpd.server_close()
+            if app.shards.active():
+                app.shards.stop(release=True)
+            app.close()
         self.workers.stop()
         self.cluster.stop()
         return False
@@ -3173,4 +3236,423 @@ def degraded_check(device="cuda", *, dev_dir: str | None = None, ns_pid: int | N
         k8s_health.reset_all()
         shutil.rmtree(root, ignore_errors=True)
         shutil.rmtree(state, ignore_errors=True)
+    return report
+
+
+# --- sharded masters, epoch stamping, the batch's owner routing, the warm pool ---
+
+#: the stale owner's lease (c): short, so that the takeover comes within a second
+SHARD_POOL_LEASE_S = 0.3
+
+
+class _NoRedirect(urllib.request.HTTPRedirectHandler):
+    """An opener's handler that leaves a 307 to the caller."""
+
+    def redirect_request(self, *args, **kwargs):
+        return None
+
+
+def _unfollowed(base: str, path: str, token: str) -> tuple[int, str, dict]:
+    """(status, body, headers) of a GET whose redirect is not followed."""
+    req = urllib.request.Request(base + path, headers={"Authorization": f"Bearer {token}"})
+    try:
+        with urllib.request.build_opener(_NoRedirect).open(req, timeout=60) as resp:
+            return resp.status, resp.read().decode(), dict(resp.headers)
+    except urllib.error.HTTPError as exc:
+        return exc.code, exc.read().decode(), dict(exc.headers)
+
+
+def _span(tid: str, name: str) -> dict:
+    """The last span named `name` of trace `tid` in this process's ring."""
+    spans = [s for s in trace.TRACER.ring.spans_for(tid) if s["name"] == name]
+    if not spans:
+        raise RuntimeError(f"trace {tid} holds no {name} span")
+    return spans[-1]
+
+
+def _held_uuids(service, pod) -> list[str]:
+    """The UUIDs the pod holds through its slave pods, found by owner label
+    (an adopted warm holder keeps its own name)."""
+    slaves = {p.name for p in service.allocator.slave_pods_for(pod)}
+    return [d.uuid for d in service.collector.get_pod_devices(pod.name, pod.namespace, slaves)]
+
+
+def _node_state(stack: _MasterStack, pod, dev_dir: str) -> tuple:
+    """What a refused call must leave as it was: the free GPUs, the pod's
+    slave pods, the target's entries, the ledger's appends and holdings."""
+    cluster = stack.cluster
+    ledger = stack.services[cluster.node_name].ledger
+    slaves = sorted(Pod(p).name for p in cluster.kube.list_pods(
+        cluster.cfg.pool_namespace, label_selector=f"tpumounter.io/owner-uid={pod.uid}"))
+    return (cluster.free_gpu_count(), slaves, sorted(os.listdir(dev_dir)),
+            LEDGER_APPENDS.total(), {k: sorted(v) for k, v in ledger.net_holdings().items()})
+
+
+def _pooled_round(stack: _MasterStack, pod, dev_dir: str, live: bool, warm: bool,
+                  base: str) -> dict:
+    """One HTTP add of 1 GPU at `base`, with the pool's outcome: a warm hit
+    (an adopted holder) or a cold miss, read off the counters and the add's
+    ``mount.slave_pod_schedule`` span."""
+    from gpumounter_tpu_torch.allocator.pool import WARM_POOL_HITS, WARM_POOL_MISSES
+    cluster = stack.cluster
+    service = stack.services[cluster.node_name]
+    hits, misses = WARM_POOL_HITS.total(), WARM_POOL_MISSES.total()
+    status, body, add_ms, headers = _http_with_headers(base, "GET", _add_path(pod, 1),
+                                                       stack.token)
+    tid = next((v for k, v in headers.items() if k.lower() == trace.TRACE_HEADER), "")
+    if (status, body) != (200, "Add GPU Success\n"):
+        raise RuntimeError(f"GET {_add_path(pod, 1)}: {status} {body!r}")
+    attrs = _span(tid, "mount.slave_pod_schedule")
+    got = (WARM_POOL_HITS.total() - hits, WARM_POOL_MISSES.total() - misses,
+           attrs["attrs"]["pool_hit"], attrs["attrs"]["pool_gap"])
+    if got != ((1.0, 0.0, 1, 0) if warm else (0.0, 1.0, 0, 1)):
+        raise RuntimeError(f"{'warm' if warm else 'cold'} add: hits, misses, the span's "
+                           f"pool_hit and pool_gap {got}")
+    uuids = _held_uuids(service, pod)
+    if len(uuids) != 1:
+        raise RuntimeError(f"{len(uuids)} GPU(s) held after the add of 1: {uuids}")
+    _check_nodes(cluster.backend, uuids, dev_dir, live)
+    slaves = [Pod(p) for p in cluster.kube.list_pods(
+        cluster.cfg.pool_namespace, label_selector=f"tpumounter.io/owner-uid={pod.uid}")]
+    if warm != all(s.name.startswith("warm-slave-") for s in slaves):
+        raise RuntimeError(f"the {'warm' if warm else 'cold'} add's slave pods: "
+                           f"{[s.name for s in slaves]}")
+    return {"add_ms": add_ms, "schedule_ms": attrs["duration_s"] * 1e3, "uuids": uuids,
+            "tid": tid}
+
+
+def _remove_one(stack: _MasterStack, pod, uuids: list[str], dev_dir: str,
+                base: str | None = None) -> float:
+    """The HTTP remove of `uuids`; the nodes must be gone."""
+    status, body, ms = _http(base or stack.base, "POST", _remove_path(pod), stack.token,
+                             {"uuids": ",".join(uuids)})
+    if (status, body) != (200, f"Remove {len(uuids)} GPUs Success\n"):
+        raise RuntimeError(f"POST {_remove_path(pod)} {uuids}: {status} {body!r}")
+    for uuid in uuids:
+        if os.path.lexists(os.path.join(dev_dir,
+                                        stack.cluster.backend.device_by_uuid(uuid).basename)):
+            raise RuntimeError(f"{uuid}'s node still in {dev_dir} after the remove")
+    return ms
+
+
+def _pool_flows(stack: _MasterStack, dev_dir: str, repeats: int, live: bool,
+                on_pooled) -> dict:
+    """(a): two replicas on their renew loops, the worker with a pool of 1.
+    The node's owner must stamp its shard's epoch into the worker's ledger.
+    `repeats` warm adds at the owner (each adopts the holder; the remove;
+    the refill restores it), then the node drained and `repeats` cold adds.
+    The set-up steps, the tenant child and the whole flow are timed, and
+    the refills refused on the way counted: the owner must still hold its
+    shard at the end, however long they took."""
+    cluster, node = stack.cluster, stack.cluster.node_name
+    service = stack.services[node]
+    pool = service.pool
+    owner = stack.owner(node)
+    shards = stack.apps[owner].shards
+    base = stack.bases[owner]
+    epoch = shards.node_epoch(node)
+    if epoch < 1 or shards.owned_shards() != {shards.owner_shard(node)}:
+        raise RuntimeError(f"the owner replica holds {shards.owned_shards()}, epoch {epoch}")
+    from gpumounter_tpu_torch.allocator.pool import WARM_POOL_REFILL_FAILURES
+    failures = WARM_POOL_REFILL_FAILURES.total()
+    t_flow = time.perf_counter()
+    pool.ensure_node(node)
+    t0 = time.perf_counter()
+    out = {"epoch": epoch, "ensure_node_ms": (t0 - t_flow) * 1e3, "warm": [], "cold": [],
+           "refill_ms": [], "child_ms": None}
+    if not pool.wait_ready(node, 1, timeout_s=30.0):
+        raise RuntimeError("the warm pool never filled")
+    out["first_fill_ms"] = (time.perf_counter() - t0) * 1e3
+    pod = cluster.add_target_pod("tenant-pooled")
+    for i in range(repeats):
+        got = _pooled_round(stack, pod, dev_dir, live, warm=True, base=base)
+        if service.ledger.epoch() != epoch:
+            raise RuntimeError(f"the worker's ledger holds epoch {service.ledger.epoch()}, the "
+                               f"replica stamped {epoch}")
+        if on_pooled is not None and i == 0:
+            t0 = time.perf_counter()
+            on_pooled(got["uuids"], dev_dir)
+            out["child_ms"] = (time.perf_counter() - t0) * 1e3
+        got["remove_ms"] = _remove_one(stack, pod, got["uuids"], dev_dir, base=base)
+        t0 = time.perf_counter()
+        if not pool.wait_ready(node, 1, timeout_s=30.0):
+            raise RuntimeError("the refill did not restore the pool after the remove")
+        out["refill_ms"].append((time.perf_counter() - t0) * 1e3)
+        out["warm"].append(got)
+    out["drained"] = pool.set_drained(node, True)
+    if out["drained"] != 1 or pool.ready_count(node) != 0:
+        raise RuntimeError(f"the drain released {out['drained']}, "
+                           f"{pool.ready_count(node)} ready")
+    for _ in range(repeats):
+        got = _pooled_round(stack, pod, dev_dir, live, warm=False, base=base)
+        got["remove_ms"] = _remove_one(stack, pod, got["uuids"], dev_dir, base=base)
+        out["cold"].append(got)
+    pool.set_drained(node, False)
+    out["ledger_epoch"] = service.ledger.epoch()
+    out["flow_s"] = time.perf_counter() - t_flow
+    # refills refused while the node's GPUs were all held (on a node of one
+    # GPU: each time a tenant held the adopted one)
+    out["refill_failures"] = WARM_POOL_REFILL_FAILURES.total() - failures
+    out["lease_s"], out["renew_s"] = shards.duration_s, shards.renew_interval_s
+    if shards.owner_shard(node) not in shards.owned_shards() or shards.node_epoch(node) != epoch:
+        raise RuntimeError(f"after {out['flow_s']:.1f} s the owner holds "
+                           f"{shards.owned_shards()} at epoch {shards.node_epoch(node)}")
+    return out
+
+
+def _two_replicas(stack: _MasterStack, dev_dir: str, repeats: int, live: bool) -> dict:
+    """(b): two replicas on their renew loops, one lease each. /addgpu at
+    the non-owner answers 307 to the owner (followed, it mounts);
+    /batch/addgpu at the non-owner is proxied once to the owner and mounts;
+    a direct batch beside it."""
+    from gpumounter_tpu_torch.rpc.http_failover import MasterEndpoints
+    cluster, node = stack.cluster, stack.cluster.node_name
+    owner = stack.owner(node)
+    other = 1 - owner
+    held = [sorted(app.shards.owned_shards()) for app in stack.apps]
+    if sorted(held) != [[0], [1]]:
+        raise RuntimeError(f"the replicas hold {held}")
+    pod = cluster.add_target_pod("tenant-sharded")
+    path = _add_path(pod, 1)
+    status, body, headers = _unfollowed(stack.bases[other], path, stack.token)
+    location = headers.get("Location")
+    if status != 307 or location != stack.bases[owner] + path:
+        raise RuntimeError(f"GET {path} at the non-owner: {status} {body!r}, Location "
+                           f"{location!r}")
+    t0 = time.perf_counter()
+    answer = MasterEndpoints(stack.bases[other], token=stack.token).request("GET", path)
+    followed_ms = (time.perf_counter() - t0) * 1e3
+    if answer != (200, "Add GPU Success\n"):
+        raise RuntimeError(f"the followed redirect: {answer}")
+    service = stack.services[node]
+    uuids = _held_uuids(service, pod)
+    _check_nodes(cluster.backend, uuids, dev_dir, live)
+    _remove_one(stack, pod, uuids, dev_dir, base=stack.bases[owner])
+    out = {"owner": owner, "redirect": location, "followed_ms": followed_ms, "proxied_ms": [],
+           "direct_ms": [], "epochs": [app.shards.node_epoch(node) for app in stack.apps]}
+    batch = {"targets": [{"namespace": pod.namespace, "pod": pod.name, "gpus": 1}]}
+    for _ in range(repeats):
+        for key, base in (("proxied_ms", stack.bases[other]), ("direct_ms", stack.bases[owner])):
+            status, text, ms, headers = _http_with_headers(base, "POST", "/batch/addgpu",
+                                                           stack.token, payload=batch)
+            results = json.loads(text)["results"] if status == 200 else text
+            if status != 200 or results[0].get("result") != "Success" or len(
+                    results[0].get("uuids", [])) != 1:
+                raise RuntimeError(f"{key[:-3]} batch: {status} {results}")
+            names = [s["name"] for s in trace.TRACER.ring.spans_for(
+                headers.get(trace.RESPONSE_HEADER, ""))]
+            want = 2 if key == "proxied_ms" else 1
+            if names.count("http.batch_add") != want or ("proxy.batch" in names) != (want == 2) \
+                    or "worker.AddGPU" not in names:
+                raise RuntimeError(f"{key[:-3]} batch's trace: {names}")
+            _check_nodes(cluster.backend, results[0]["uuids"], dev_dir, live)
+            out[key].append(ms)
+            _remove_one(stack, pod, results[0]["uuids"], dev_dir, base=stack.bases[owner])
+    forwarded = _forwarded_batch(stack.bases[other], stack.token, batch)
+    if forwarded != "NotOwner":
+        raise RuntimeError(f"a forwarded batch at the non-owner: {forwarded}")
+    out["forwarded"] = forwarded
+    return out
+
+
+def _forwarded_batch(base: str, token: str, batch: dict) -> str:
+    """The result of a batch that arrives forwarded (a peer's proxy): the
+    replica answers it itself, never hops again."""
+    req = urllib.request.Request(base + "/batch/addgpu", data=json.dumps(batch).encode(),
+                                 method="POST", headers={"Authorization": f"Bearer {token}",
+                                                         "Content-Type": "application/json",
+                                                         FORWARDED_HEADER: "1"})
+    with urllib.request.urlopen(req, timeout=60) as resp:
+        return json.loads(resp.read())["results"][0]["result"]
+
+
+class _LeaseWrites:
+    """A replica's view of the API whose lease writes can be cut off (the
+    fake's PartitionError), while every other call, and every other
+    replica's, goes through."""
+
+    def __init__(self, kube):
+        self._kube = kube
+        self.partitioned = False
+
+    def __getattr__(self, name):
+        return getattr(self._kube, name)
+
+    def update_lease(self, namespace: str, name: str, manifest: dict) -> dict:
+        if self.partitioned:
+            raise PartitionError(f"lease {namespace}/{name}: this replica's writes are "
+                                 f"partitioned")
+        return self._kube.update_lease(namespace, name, manifest)
+
+
+def _stale_owner(stack: _MasterStack, dev_dir: str, live: bool) -> dict:
+    """(c): the owner's live add is held between its shard gate and its
+    worker call (a paused process) while its lease writes are partitioned
+    and the other replica takes the shard over with epoch + 1; the new
+    owner's add mounts; then the held add goes on at the old epoch and is
+    fenced by the worker: 503 with Retry-After, and nothing mounted, booked
+    or written to the ledger. The new owner's remove frees the GPU."""
+    cluster, node = stack.cluster, stack.cluster.node_name
+    owner = stack.owner(node)
+    old, new = stack.apps[owner], stack.apps[1 - owner]
+    shard = old.shards.owner_shard(node)
+    leases = _LeaseWrites(cluster.kube)
+    old.shards.kube = leases
+    pod = cluster.add_target_pod("tenant-stale")
+    stale_epoch = old.shards.node_epoch(node)
+    # the old owner's add and remove: the worker keeps its epoch. A lease
+    # of 0.3 s: every request here is preceded by a renew pass
+    stack.acquire()
+    status, body, _ = _http(stack.bases[owner], "GET", _add_path(pod, 1), stack.token)
+    if (status, body) != (200, "Add GPU Success\n"):
+        raise RuntimeError(f"the owner's first add: {status} {body!r}")
+    service = stack.services[node]
+    uuids = _held_uuids(service, pod)
+    stack.acquire()
+    _remove_one(stack, pod, uuids, dev_dir, base=stack.bases[owner])
+    gate_passed, resume = threading.Event(), threading.Event()
+    factory = old._client_factory
+
+    def paused(address):
+        gate_passed.set()
+        if not resume.wait(30.0):
+            raise RuntimeError("the held add was never resumed")
+        return factory(address)
+
+    old._client_factory = paused
+    answer: dict = {}
+
+    def stale_add():
+        answer["got"] = _http_with_headers(stack.bases[owner], "GET", _add_path(pod, 1),
+                                           stack.token)
+
+    thread = threading.Thread(target=stale_add, name="stale-add", daemon=True)
+    stack.acquire()
+    thread.start()
+    try:
+        if not gate_passed.wait(30.0):
+            raise RuntimeError("the owner's add never passed its shard gate")
+        leases.partitioned = True
+        t0 = time.perf_counter()
+        while shard not in new.shards.owned_shards():
+            if time.perf_counter() - t0 > 10.0:
+                raise RuntimeError("the other replica never took the shard over")
+            stack.acquire()
+            time.sleep(0.02)
+        takeover_ms = (time.perf_counter() - t0) * 1e3
+        fresh_epoch = new.shards.node_epoch(node)
+        if fresh_epoch != stale_epoch + 1 or old.shards.node_epoch(node) != stale_epoch:
+            raise RuntimeError(f"epochs after the takeover: new {fresh_epoch}, old "
+                               f"{old.shards.node_epoch(node)}, before {stale_epoch}")
+        stack.acquire()
+        status, body, new_add_ms = _http(stack.bases[1 - owner], "GET", _add_path(pod, 1),
+                                         stack.token)
+        if (status, body) != (200, "Add GPU Success\n"):
+            raise RuntimeError(f"the new owner's add: {status} {body!r}")
+        uuids = _held_uuids(service, pod)
+        _check_nodes(cluster.backend, uuids, dev_dir, live)
+        before = _node_state(stack, pod, dev_dir)
+        fenced_before = FENCED_WRITES.total()
+        t0 = time.perf_counter()
+        resume.set()
+        thread.join(60.0)
+        fenced_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        resume.set()
+        old._client_factory = factory
+        leases.partitioned = False
+    status, body, _, headers = answer["got"]
+    if status != 503 or "fenced" not in body or headers.get("Retry-After") != "1":
+        raise RuntimeError(f"the stale owner's add: {status} {body!r} {headers}")
+    after = _node_state(stack, pod, dev_dir)
+    if after != before or FENCED_WRITES.total() != fenced_before + 1:
+        raise RuntimeError(f"the fenced add changed the node: {before} -> {after}")
+    if service.ledger.epoch() != fresh_epoch:
+        raise RuntimeError(f"the worker's epoch {service.ledger.epoch()}, the new owner's "
+                           f"{fresh_epoch}")
+    free = cluster.free_gpu_count()
+    stack.acquire()
+    remove_ms = _remove_one(stack, pod, uuids, dev_dir, base=stack.bases[1 - owner])
+    _released(cluster, pod, free + 1)
+    return {"stale_epoch": stale_epoch, "fresh_epoch": fresh_epoch, "takeover_ms": takeover_ms,
+            "fenced_ms": fenced_ms, "fenced": body.strip(), "new_add_ms": new_add_ms,
+            "remove_ms": remove_ms, "ledger_epoch": service.ledger.epoch()}
+
+
+def shard_pool_check(device="cuda", *, dev_dir: str | None = None, ns_pid: int | None = None,
+                     cgroup_dirs=(), identity: str = "nvml", repeats: int = 3,
+                     ledger_root: str | None = None, on_pooled=None) -> dict:
+    """Sharded masters, their epochs, the batch's owner routing and the warm
+    pool through the master over HTTP and gRPC (``_MasterStack``), the
+    worker with a ledger in a new directory under `ledger_root` (by default
+    a temporary one), the cluster's ``FakeKubeClient`` as the API. Without
+    grpcio it raises ``ModuleNotFoundError`` naming grpcio.
+
+    (a) ``_pool_flows``: two replicas on their renew loops at the default
+    lease (SHARD_LEASE_DURATION_S) and renew interval, as ``master/main.py``
+    runs them with shard_count 2; the node's owner must stamp its epoch into
+    the worker's ledger; the worker with a warm pool of 1 at the default
+    backoff: `repeats` warm adds of 1 (a hit each, the remove, the refill),
+    then the pool drained and `repeats` cold adds (a miss each);
+    on_pooled(uuids, dev_dir) runs while the first pooled GPU is mounted.
+    (b) ``_two_replicas``: the same replicas' 307 and proxied batch. (c)
+    ``_stale_owner``: leases of SHARD_POOL_LEASE_S, every pass by hand (no
+    renew loop), the takeover and the fenced add. Each stack's start is
+    timed (its workers, its replicas, their first leases).
+
+    On the card (device="cuda") the flows run on the live
+    ``NvidiaDeviceBackend`` (`dev_dir`, `ns_pid`, `cgroup_dirs`, `identity`
+    as in ``mount_check``), and without CAP_MKNOD it raises; on the CPU on a
+    fake host of 2 GPUs. Runs on the card unless the caller passes
+    device="cpu".
+
+    Returns {"cap_mknod", "live" or "fake": {"start_ms", "pool", "replicas", "stale"},
+    the other None}; ms on the host clock."""
+    device = resolve_device(device)
+    report = {"cap_mknod": has_cap_mknod(), "live": None, "fake": None}
+    if device.type == "cuda" and not report["cap_mknod"]:
+        raise RuntimeError("shard_pool_check on the card needs CAP_MKNOD: its adds and removes "
+                           "must be the card's own GPU's")
+    root = tempfile.mkdtemp(prefix="shard-pool-check-")
+    ledgers = tempfile.mkdtemp(prefix="shard-pool-ledgers-", dir=ledger_root)
+    flows: dict = {"start_ms": {}}
+    try:
+        def stack(name: str, shard_cfg: dict, renew_loop: bool, **knobs) -> _MasterStack:
+            t0 = time.perf_counter()
+            cfg = Config(auth_mode="token", auth_token=secrets.token_hex(16),
+                         ledger_dir=os.path.join(ledgers, name), **knobs)
+            if device.type == "cuda":
+                cluster = FakeCluster(NvidiaDeviceBackend(
+                    "/dev", identity=make_identity(identity)), cfg=cfg)
+                target, dirs = _live_target(os.path.join(root, name), dev_dir, cgroup_dirs)
+                made = _MasterStack(cluster, {cluster.node_name: target}, ns_pid, dirs,
+                                    replicas=2, shard_cfg=shard_cfg, renew_loop=renew_loop)
+            else:
+                cluster = FakeCluster.with_fake_gpus(os.path.join(root, name), 2, cfg=cfg)
+                target = os.path.join(root, f"{name}-tenant-dev")
+                os.makedirs(target)
+                made = _MasterStack(cluster, {cluster.node_name: target}, replicas=2,
+                                    shard_cfg=shard_cfg, renew_loop=renew_loop)
+            flows["start_ms"][name] = (time.perf_counter() - t0) * 1e3
+            return made
+
+        live = device.type == "cuda"
+        # node_name "": the pool warms the cluster's node only, whatever
+        # NODE_NAME the environment holds
+        with stack("pool", {}, True, warm_pool_size=1, node_name="") as s:
+            try:
+                flows["pool"] = _pool_flows(s, s.dev_dirs[s.cluster.node_name], repeats, live,
+                                            on_pooled)
+            finally:
+                s.services[s.cluster.node_name].pool.stop()
+        with stack("replicas", {}, True) as s:
+            flows["replicas"] = _two_replicas(s, s.dev_dirs[s.cluster.node_name], repeats, live)
+        with stack("stale", {"shard_lease_duration_s": SHARD_POOL_LEASE_S}, False) as s:
+            flows["stale"] = _stale_owner(s, s.dev_dirs[s.cluster.node_name], live)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        shutil.rmtree(ledgers, ignore_errors=True)
+    report["live" if device.type == "cuda" else "fake"] = flows
+    if failpoints.active():
+        raise RuntimeError(f"failpoints left armed: {failpoints.active()}")
     return report

@@ -12,8 +12,7 @@ covered by DYNAMIC_PREFIXES; their arm specs carry the concrete suffix
 The names are the reference's, but for one: ``worker.addtpu.rollback.skip``
 is ``worker.addgpu.rollback.skip``. The reference's sites of packages the
 port has not yet (the elastic reconciler, the migration machine, the
-defragmenter, the autoscaler, the warm pool, the health plane) come with
-those packages.
+defragmenter, the autoscaler, the health plane) come with those packages.
 
 This module is data: the runtime (``faults/failpoints.py``) does not read
 it, so an undeclared point still arms in a dev loop.
@@ -40,6 +39,8 @@ FAILPOINTS: dict[str, str] = {
                                    "simulation)",
     "worker.unmount.before_revoke": "unmount batch: before the cgroup "
                                     "revoke",
+    # warm pool (allocator/pool.py)
+    "pool.refill": "per-node warm-pool refill attempt",
 }
 
 #: f-string site families: a name starting with one of these prefixes is

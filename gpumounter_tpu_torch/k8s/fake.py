@@ -27,6 +27,7 @@ import time
 import uuid as uuidlib
 from collections.abc import Callable, Iterator
 
+from gpumounter_tpu_torch.config import Config
 from gpumounter_tpu_torch.k8s.client import KubeClient, inject_write_fault
 from gpumounter_tpu_torch.k8s.errors import (
     ConflictError,
@@ -35,6 +36,7 @@ from gpumounter_tpu_torch.k8s.errors import (
     PartitionError,
 )
 from gpumounter_tpu_torch.k8s.types import Pod, match_label_selector
+from gpumounter_tpu_torch.utils.locks import OrderedCondition
 from gpumounter_tpu_torch.utils.log import get_logger
 from gpumounter_tpu_torch.utils.metrics import REGISTRY
 
@@ -50,11 +52,6 @@ SchedulerHook = Callable[[dict], None]
 """Called with the stored pod dict (mutable) after create_pod, on the
 fake's scheduler thread, to play the scheduler: set spec.nodeName,
 status.phase, or an Unschedulable condition."""
-
-#: events kept for open watches; a watcher that falls further behind has
-#: its stream ended, as an API server's 410 Gone would.
-MAX_EVENTS = 8192
-
 
 def _match_field_selector(pod: dict, selector: str) -> bool:
     if not selector:
@@ -88,7 +85,11 @@ def _merge_patch(target: dict, patch: dict) -> None:
 class FakeKubeClient(KubeClient):
     def __init__(self, scheduler_hook: SchedulerHook | None = None,
                  scheduler_delay_s: float = 0.0,
-                 delete_hook: SchedulerHook | None = None):
+                 delete_hook: SchedulerHook | None = None, cfg=None):
+        # events kept for open watches (TPUMOUNTER_WATCH_BACKLOG); a watcher
+        # that falls further behind has its stream ended, as an API
+        # server's 410 Gone would
+        self._max_events = max(64, int((cfg or Config()).watch_backlog_events))
         self._pods: dict[tuple[str, str], dict] = {}
         self._leases: dict[tuple[str, str], dict] = {}
         self._lease_rv = itertools.count(1)
@@ -98,9 +99,9 @@ class FakeKubeClient(KubeClient):
         self._partition_mode = "full"
         # the last event's sequence number: a LIST's resourceVersion
         self._last_seq = 0
-        # Condition over an RLock: the scheduler thread emits while it
-        # holds the store lock.
-        self._lock = threading.Condition(threading.RLock())
+        # a condition over an RLock (the scheduler thread emits while it
+        # holds the store lock), in the lock-order graph
+        self._lock = OrderedCondition("k8s.fake.state")
         self._events: list[tuple[int, str, dict]] = []  # (seq, type, pod)
         self._seq = itertools.count(1)
         # open watcher id -> the last seq it read, for the eviction count
@@ -115,7 +116,7 @@ class FakeKubeClient(KubeClient):
         self.events_posted: list[tuple[str, dict]] = []
         # One scheduler thread drains a heap of due times (started on the
         # first create, retired when idle).
-        self._sched_cv = threading.Condition()
+        self._sched_cv = OrderedCondition("k8s.fake.sched")
         self._sched_q: list[tuple[float, int, str, str]] = []
         self._sched_seq = itertools.count(1)
         self._sched_thread: threading.Thread | None = None
@@ -129,7 +130,7 @@ class FakeKubeClient(KubeClient):
             pod.setdefault("metadata", {})["resourceVersion"] = str(seq)
             # One copy at emit: watchers read the payload outside the lock.
             self._events.append((seq, etype, copy.deepcopy(pod)))
-            overflow = len(self._events) - MAX_EVENTS
+            overflow = len(self._events) - self._max_events
             if overflow > 0:
                 # count only what the slowest open watcher has not read
                 horizon = self._events[overflow - 1][0]

@@ -68,20 +68,29 @@ multi-host routes:
     A slice answers the status of its ``SliceError``, with Retry-After when
     a breaker was open.
 
+Sharded masters (``master/shard.py``): with the shards active, /addgpu and
+/removegpu for a node another replica owns answer 307 to the owner's URL
+(503 with Retry-After when the shard has no live owner), the batch proxies
+each peer's sub-batch to it once with FORWARDED_HEADER and the trace
+context (a forwarded request never hops again: NotOwner), and every worker
+call carries the owner shard's fencing epoch. GET /shards serves the shard
+table (untraced). The admission gate (MASTER_HTTP_CONCURRENCY) bounds the
+requests a replica handles at once; a forwarded request waits on a gate of
+its own, and the wait is an ``http.admission`` span inside the edge span.
+
 As in the reference: gpuNum and a batch target's gpus are range-checked
 against MAX_GPU_PER_REQUEST (the original never checks it), a batch holds at
 most BULK_MAX_TARGETS targets, every route but the index and /healthz wants
 the bearer token (``utils/auth.py``), and a path of no route gets "404 page
-not found". The reference's other routes (shards, intents, migrations,
-fleet, SLO, capacity, tenants, recovery, health, defrag, shares, autoscale,
-/metrics), the batch's shard routing and proxying, and its
-admission gate (with its ``http.admission`` span) come with the packages
-that serve them; until then their paths get that 404, /batch/addtpu among
-them.
+not found". The reference's other routes (intents, migrations, fleet, SLO,
+capacity, tenants, recovery, health, defrag, shares, autoscale, /metrics)
+come with the packages that serve them; until then their paths get that
+404, /batch/addtpu among them.
 """
 
 from __future__ import annotations
 
+import contextlib
 import inspect
 import json
 import random
@@ -89,12 +98,14 @@ import re
 import threading
 import time
 import urllib.parse
+import urllib.request
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 from gpumounter_tpu_torch.config import Config
 from gpumounter_tpu_torch.k8s.client import KubeClient, NotFoundError
 from gpumounter_tpu_torch.k8s.health import api_health, wrap_health
 from gpumounter_tpu_torch.k8s.types import Pod
+from gpumounter_tpu_torch.master.shard import ShardManager, epoch_kwargs
 from gpumounter_tpu_torch.master.slice_ops import (
     BulkMountCoordinator,
     BulkTarget,
@@ -115,9 +126,16 @@ from gpumounter_tpu_torch.store import (
 )
 from gpumounter_tpu_torch.topology import GPUS_PER_HOST
 from gpumounter_tpu_torch.utils.auth import check_bearer, required_token
+from gpumounter_tpu_torch.utils.fanout import get_core
 from gpumounter_tpu_torch.utils.log import get_logger
 
 logger = get_logger("master")
+
+#: stamped on a sub-batch one replica proxies to another: a forwarded
+#: request is answered where it lands (a node it does not own gets a
+#: per-target NotOwner, never a second hop), so an ownership flap cannot
+#: turn into a proxy loop
+FORWARDED_HEADER = "x-tpumounter-forwarded"
 
 
 class WorkerRegistry:
@@ -333,6 +351,7 @@ _ROUTES: list[tuple[str, re.Pattern, str]] = [
     ("GET", re.compile(r"^/healthz$"), "healthz"),
     ("GET", re.compile(r"^/apihealth$"), "apihealth"),
     ("GET", re.compile(r"^/workers$"), "workers"),
+    ("GET", re.compile(r"^/shards$"), "shards"),
     ("POST", re.compile(r"^/batch/addgpu$"), "batch_add"),
     ("POST", re.compile(r"^/addslice$"), "addslice"),
     ("POST", re.compile(r"^/removeslice$"), "removeslice"),
@@ -397,21 +416,28 @@ class MasterApp:
     UNAUTHENTICATED_ROUTES = frozenset({"index", "healthz"})
     #: never traced: probes, and the panes a dashboard polls (their spans
     #: would rotate the operations' traces out of the ring)
-    UNTRACED_ROUTES = frozenset({"index", "healthz", "apihealth", "timeline"})
+    UNTRACED_ROUTES = frozenset({"index", "healthz", "apihealth", "timeline", "shards"})
+    #: never behind the admission gate: a liveness probe must answer while
+    #: a mount storm fills the replica (a gated /healthz would turn load
+    #: into restarts)
+    UNGATED_ROUTES = frozenset({"index", "healthz"})
     #: the routes that mutate: their edge outcome goes into the audit trail
     #: (the worker's records carry the GPUs of the same trace)
     AUDITED_ROUTES = frozenset({"add", "remove", "batch_add", "addslice", "removeslice"})
 
     def __init__(self, kube: KubeClient, cfg=None, worker_client_factory=None,
-                 registry: WorkerRegistry | None = None, store: MasterStore | None = None):
+                 registry: WorkerRegistry | None = None, store: MasterStore | None = None,
+                 shards: ShardManager | None = None):
         """worker_client_factory(address) -> a client with add_gpu,
         remove_gpu and the context-manager protocol; by default a
         ``WorkerClient`` with the deploy's token, the registry's breaker and
         its pooled channel. `store`: by default ``CachedMasterStore`` over
         the list-backed store (the watch-backed one under
-        TPUMOUNTER_WATCH_STORE), on the health-tracked client. Without a
-        token this raises AuthConfigError, unless TPUMOUNTER_AUTH=insecure
-        (fail-closed)."""
+        TPUMOUNTER_WATCH_STORE), on the health-tracked client. `shards`: a
+        ``ShardManager``, by default an inactive one (this master owns every
+        node and stamps epoch 0; ``master/main.py`` starts it when
+        TPUMOUNTER_SHARD_COUNT > 1). Without a token this raises
+        AuthConfigError, unless TPUMOUNTER_AUTH=insecure (fail-closed)."""
         self.cfg = cfg or Config()
         self._token = required_token(self.cfg, "master HTTP API")
         self.apihealth = api_health(cfg=self.cfg)
@@ -421,6 +447,16 @@ class MasterApp:
                      else KubeMasterStore(kube, self.cfg))
             store = CachedMasterStore(inner, cfg=self.cfg, apihealth=self.apihealth)
         self.store = store
+        self.shards = shards if shards is not None else ShardManager(kube, cfg=self.cfg)
+        # the admission gates (master_http_concurrency; 0: none). A peer's
+        # forwarded sub-batch waits on a gate of its own, never the clients':
+        # two replicas proxying to each other cannot deadlock on their own
+        # slots. Its depth is what every other replica's admitted load could
+        # forward here at once, so it trips only on a runaway peer
+        depth = int(self.cfg.master_http_concurrency)
+        self._client_gate = threading.BoundedSemaphore(depth) if depth > 0 else None
+        self._forward_gate = (threading.BoundedSemaphore(
+            depth * max(1, int(self.cfg.shard_count) - 1)) if depth > 0 else None)
         self.registry = registry or WorkerRegistry(kube, self.cfg, store=self.store)
         self._client_factory = worker_client_factory or (
             lambda addr: WorkerClient(addr, token=self._token, cfg=self.cfg,
@@ -466,16 +502,43 @@ class MasterApp:
         failure leaves the span as an error and reaches ``handle``."""
         self._check_auth(name, headers)
         if name in self.UNTRACED_ROUTES:
-            status, ctype, text = getattr(self, f"_route_{name}")(match, body)
+            with self._admission(name, headers):
+                status, ctype, text = getattr(self, f"_route_{name}")(match, body, headers)
             return status, ctype, text, {}
         inbound = next((v for k, v in headers.items() if k.lower() == trace.TRACE_HEADER), None)
         with trace.span(f"http.{name}", wire_parent=inbound, http_method=method) as ctx:
             extra[trace.RESPONSE_HEADER] = ctx.trace_id
-            if name in self.AUDITED_ROUTES:
-                status, ctype, text = self._audited_route(name, match, body, headers)
-            else:
-                status, ctype, text = getattr(self, f"_route_{name}")(match, body)
+            with self._admission(name, headers):
+                if name in self.AUDITED_ROUTES:
+                    status, ctype, text = self._audited_route(name, match, body, headers)
+                else:
+                    status, ctype, text = getattr(self, f"_route_{name}")(match, body, headers)
             return status, ctype, text, extra
+
+    @contextlib.contextmanager
+    def _admission(self, name: str, headers: dict[str, str]):
+        """The admission gate: at most master_http_concurrency requests at
+        once (0: no gate). A forwarded request takes a slot of its own gate.
+        Inside a traced route's edge span the wait for a slot is a span of
+        its own, ``http.admission``, so a saturated replica's queueing shows
+        as a phase instead of vanishing into the edge span."""
+        if name in self.UNGATED_ROUTES:
+            yield
+            return
+        forwarded = any(k.lower() == FORWARDED_HEADER for k in headers)
+        gate = self._forward_gate if forwarded else self._client_gate
+        if gate is None:
+            yield
+            return
+        if trace.current() is not None:
+            with trace.span("http.admission", route=name, forwarded=forwarded):
+                gate.acquire()
+        else:
+            gate.acquire()
+        try:
+            yield
+        finally:
+            gate.release()
 
     def _audited_route(self, name: str, match, body: bytes,
                        headers: dict[str, str]) -> tuple[int, str, str]:
@@ -488,7 +551,7 @@ class MasterApp:
         with audited(f"http.{name}", actor=actor, namespace=groups.get("ns", ""),
                      pod=groups.get("pod", "")) as rec:
             try:
-                status, ctype, text = getattr(self, f"_route_{name}")(match, body)
+                status, ctype, text = getattr(self, f"_route_{name}")(match, body, headers)
             except _HttpError as exc:
                 rec["outcome"] = f"http {exc.status}"
                 raise
@@ -503,8 +566,25 @@ class MasterApp:
             logger.warning("unauthenticated %s request refused", route)
             raise _HttpError(401, "missing or invalid bearer token")
 
-    def _worker_for_pod(self, namespace: str, pod_name: str) -> tuple[str, str]:
-        """(worker address, node name), or the _HttpError of the miss."""
+    def _shard_gate(self, node: str, path: str) -> None:
+        """Another replica owns the node: 307 to the owner's advertised URL
+        with `path` (``rpc/http_failover.py`` follows it, the body sent
+        again); a shard with no live owner (its lease expired, the renew
+        loops racing to claim it): 503 with Retry-After 1."""
+        kind, url = self.shards.route(node)
+        if kind == "local":
+            return
+        if kind == "remote" and url:
+            raise _HttpError(307, f"node {node} is owned by master replica at {url}",
+                             headers={"Location": url.rstrip("/") + path})
+        raise _HttpError(503, f"shard for node {node} has no live owner yet; retry",
+                         headers={"Retry-After": "1"})
+
+    def _worker_for_pod(self, namespace: str, pod_name: str,
+                        redirect_path: str | None = None) -> tuple[str, str]:
+        """(worker address, node name), or the _HttpError of the miss. With
+        `redirect_path`, a node this replica does not own answers the shard
+        gate's 307 or 503 before any worker is looked up."""
         try:
             with trace.span("k8s.get_pod", pod=f"{namespace}/{pod_name}"):
                 pod = Pod(self.kube.get_pod(namespace, pod_name))
@@ -513,6 +593,8 @@ class MasterApp:
         node = pod.node_name
         if not node:
             raise _HttpError(400, f"Pod {pod_name} is not scheduled yet")
+        if redirect_path is not None:
+            self._shard_gate(node, redirect_path)
         address = self.registry.worker_address(node)
         if address is None:
             logger.error("no gpu-mounter worker on node %s", node)
@@ -529,23 +611,23 @@ class MasterApp:
 
     # --- routes ---
 
-    def _route_index(self, match, body):
+    def _route_index(self, match, body, headers):
         return 200, "text/plain", "tpumounter master\n"
 
-    def _route_healthz(self, match, body):
+    def _route_healthz(self, match, body, headers):
         # liveness stays 200 through an API outage; the verdict is in the body
         state = self.apihealth.state()
         if state == "healthy":
             return 200, "text/plain", "ok\n"
         return 200, "text/plain", f"ok\napi: {state}\n"
 
-    def _route_apihealth(self, match, body):
+    def _route_apihealth(self, match, body, headers):
         """ApiHealth's verdict, the store's cache ages and its write-behind
         queue."""
         payload = {"api": self.apihealth.payload(), "store": self.store.payload()}
         return 200, "application/json", json.dumps(payload, indent=1) + "\n"
 
-    def _route_audit(self, match, body):
+    def _route_audit(self, match, body, headers):
         """The audit trail, filtered (``obs.audit.query_from_params``)."""
         params = urllib.parse.parse_qs(match.group("query") or "")
         try:
@@ -554,7 +636,7 @@ class MasterApp:
             raise _HttpError(400, f"Invalid limit: {params.get('limit')!r}")
         return 200, "application/json", json.dumps(payload, indent=1) + "\n"
 
-    def _route_trace(self, match, body):
+    def _route_trace(self, match, body, headers):
         """One trace's spans in this process's ring, in start order."""
         tid = match.group("tid")
         payload = trace.trace_payload(tid)
@@ -563,7 +645,7 @@ class MasterApp:
                                   f"ring, or minted elsewhere)")
         return 200, "application/json", json.dumps(payload, indent=1) + "\n"
 
-    def _route_timeline(self, match, body):
+    def _route_timeline(self, match, body, headers):
         """The flight recorder's timeline, filtered
         (``obs.flight.query_from_params``)."""
         params = urllib.parse.parse_qs(match.group("query") or "")
@@ -574,12 +656,16 @@ class MasterApp:
                                   f"be numeric)")
         return 200, "application/json", json.dumps(payload, indent=1) + "\n"
 
-    def _route_workers(self, match, body):
+    def _route_workers(self, match, body, headers):
         lines = [f"{node} {ip}" for node, ip in
                  sorted(self.registry.registry_snapshot().items())]
         return 200, "text/plain", "\n".join(lines) + "\n"
 
-    def _route_add(self, match, body):
+    def _route_shards(self, match, body, headers):
+        """The shard table: which replica holds which shard's lease."""
+        return 200, "application/json", json.dumps(self.shards.table(), indent=1) + "\n"
+
+    def _route_add(self, match, body, headers):
         ns, pod_name, num_raw = match.group("ns"), match.group("pod"), match.group("num")
         try:
             gpu_num = int(num_raw)
@@ -590,12 +676,13 @@ class MasterApp:
                                   f"{self.cfg.max_gpu_per_request})")
         entire = _parse_bool(match.group("entire"), "isEntireMount")
         logger.info("AddGPU request: %s/%s num=%d entire=%s", ns, pod_name, gpu_num, entire)
-        address, node = self._worker_for_pod(ns, pod_name)
+        address, node = self._worker_for_pod(ns, pod_name, redirect_path=match.string)
         with self._client_factory(address) as client:
             try:
-                # no epoch (field 8) yet: nothing on the master stamps one
-                # before the owner shards (master/shard.py)
-                result = client.add_gpu(pod_name, ns, gpu_num, entire).add_gpu_result
+                # the owner shard's fencing epoch (field 8; none when the
+                # shards are inactive: 0 never fences)
+                result = client.add_gpu(pod_name, ns, gpu_num, entire,
+                                        **epoch_kwargs(self.shards, node)).add_gpu_result
             except Exception as exc:  # noqa: BLE001 — the worker call's boundary
                 logger.error("worker AddGPU failed: %s", exc)
                 raise _degraded_or_500(exc)
@@ -607,7 +694,7 @@ class MasterApp:
             raise _HttpError(400, f"No Pod {pod_name} on Node: {node}")
         raise _HttpError(500, f"unknown worker result {result}")
 
-    def _route_remove(self, match, body):
+    def _route_remove(self, match, body, headers):
         ns, pod_name = match.group("ns"), match.group("pod")
         force = _parse_bool(match.group("force"), "force")
         raw_uuids = urllib.parse.parse_qs(body.decode("utf-8", "replace")).get("uuids")
@@ -615,11 +702,11 @@ class MasterApp:
             raise _HttpError(400, "Invalid parameter")
         uuids = [u for entry in raw_uuids for u in entry.split(",") if u]
         logger.info("RemoveGPU request: %s/%s uuids=%s force=%s", ns, pod_name, uuids, force)
-        address, node = self._worker_for_pod(ns, pod_name)
+        address, node = self._worker_for_pod(ns, pod_name, redirect_path=match.string)
         with self._client_factory(address) as client:
             try:
-                # no epoch, as in _route_add
-                result = client.remove_gpu(pod_name, ns, uuids, force).remove_gpu_result
+                result = client.remove_gpu(pod_name, ns, uuids, force,
+                                           **epoch_kwargs(self.shards, node)).remove_gpu_result
             except Exception as exc:  # noqa: BLE001 — the worker call's boundary
                 logger.error("worker RemoveGPU failed: %s", exc)
                 raise _degraded_or_500(exc)
@@ -654,9 +741,10 @@ class MasterApp:
         return payload, targets
 
     def _slice_coordinator(self) -> SliceCoordinator:
-        return SliceCoordinator(self.kube, self.registry, self._client_factory, self.cfg)
+        return SliceCoordinator(self.kube, self.registry, self._client_factory, self.cfg,
+                                shards=self.shards)
 
-    def _route_addslice(self, match, body):
+    def _route_addslice(self, match, body, headers):
         payload, targets = self._parse_slice_body(body)
         try:
             gpus = int(payload.get("gpusPerHost", DEFAULT_GPUS_PER_HOST))
@@ -672,7 +760,7 @@ class MasterApp:
             raise _HttpError(exc.status, str(exc), headers=_slice_headers(exc))
         return 200, "application/json", json.dumps(plan, indent=1) + "\n"
 
-    def _route_removeslice(self, match, body):
+    def _route_removeslice(self, match, body, headers):
         payload, targets = self._parse_slice_body(body)
         try:
             outcome = self._slice_coordinator().remove_slice(
@@ -707,20 +795,104 @@ class MasterApp:
                                       entire=bool(entry.get("isEntireMount", False))))
         return targets
 
-    def _route_batch_add(self, match, body):
-        """One request, many pods' mounts, a result for each: a bad pod or a
-        node without its worker never fails the rest of the batch."""
+    def _route_batch_add(self, match, body, headers):
+        """One request, many pods' mounts, a result for each: a bad pod, a
+        node without its worker or a dead shard never fails the rest of the
+        batch. Targets go by their node's owner shard: this replica's mount
+        here (grouped by node), a peer's are proxied to it as one sub-batch
+        each, overlapping the local mounts; a forwarded request mounts only
+        what this replica owns (NotOwner for the rest), and a shard with no
+        live owner answers Unowned with retryAfterS."""
         targets = self._parse_bulk_body(body)
-        results = BulkMountCoordinator(self.kube, self.registry, self._client_factory,
-                                       self.cfg).mount_bulk(targets)
+        forwarded = any(k.lower() == FORWARDED_HEADER for k in headers)
+        coordinator = BulkMountCoordinator(self.kube, self.registry, self._client_factory,
+                                           self.cfg, shards=self.shards)
+        results: list[dict | None] = [None] * len(targets)
+        resolve_errors, by_node = coordinator._resolve_bulk(targets)
+        for i, err in resolve_errors.items():
+            results[i] = {"namespace": targets[i].namespace, "pod": targets[i].pod, **err}
+        local_by_node: dict[str, list[int]] = {}
+        remote: dict[str, list[int]] = {}
+        for node, indices in by_node.items():
+            kind, url = self.shards.route(node)
+            if kind == "local":
+                local_by_node[node] = indices
+                continue
+            if kind == "remote" and url and not forwarded:
+                remote.setdefault(url, []).extend(indices)
+                continue
+            for i in indices:
+                entry = {"namespace": targets[i].namespace, "pod": targets[i].pod, "node": node}
+                if forwarded:  # never a second hop: the client retries
+                    entry.update(result="NotOwner", error=f"replica does not own node {node}")
+                else:
+                    entry.update(result="Unowned", retryAfterS=1,
+                                 error=f"shard for node {node} has no live owner yet")
+                results[i] = entry
+
+        forwards = []
+        if remote:
+            # contextvars stay in their thread: each forwarder re-attaches
+            # the edge span, so the owner joins this request's trace
+            edge_ctx = trace.current()
+
+            def _forward(item: tuple[str, list[int]]) -> None:
+                url, indices = item
+                with trace.attached(edge_ctx), \
+                        trace.span("proxy.batch", url=url, targets=len(indices)):
+                    entries = self._proxy_batch(url, [targets[i] for i in indices])
+                for i, entry in zip(indices, entries):
+                    results[i] = entry
+
+            core = get_core(self.cfg)
+            forwards = [core.submit(_forward, item, kind="batch-proxy")
+                        for item in remote.items()]
+        if local_by_node:
+            local = coordinator.mount_bulk(targets, resolution=({}, local_by_node))
+            for indices in local_by_node.values():
+                for i in indices:
+                    results[i] = local[i]
+        for fut in forwards:
+            fut.result()
+        out = [r if r is not None else
+               {"namespace": targets[i].namespace, "pod": targets[i].pod,
+                "result": "Error", "error": "internal: unprocessed"}
+               for i, r in enumerate(results)]
         by_result: dict[str, int] = {}
-        for entry in results:
+        for entry in out:
             by_result[entry.get("result", "Error")] = by_result.get(entry.get("result", "Error"),
                                                                     0) + 1
-        payload = {"results": results,
-                   "summary": {"total": len(results), "success": by_result.get("Success", 0),
+        payload = {"results": out,
+                   "summary": {"total": len(out), "success": by_result.get("Success", 0),
                                "byResult": by_result}}
         return 200, "application/json", json.dumps(payload, indent=1) + "\n"
+
+    def _proxy_batch(self, url: str, sub_targets: list[BulkTarget]) -> list[dict]:
+        """POST a sub-batch to the replica that owns its nodes, with
+        FORWARDED_HEADER and this request's trace context; its entries come
+        back in order. Any failure (transport, an answer that is not the
+        batch's) becomes a ProxyError entry a target, never an exception
+        out of the route."""
+        payload = {"targets": [{"namespace": t.namespace, "pod": t.pod, "gpus": t.gpus,
+                                "isEntireMount": t.entire} for t in sub_targets]}
+        request_headers = {"Content-Type": "application/json", FORWARDED_HEADER: "1",
+                           trace.TRACE_HEADER: trace.wire_context()}
+        if self._token:
+            request_headers["Authorization"] = f"Bearer {self._token}"
+        req = urllib.request.Request(url.rstrip("/") + "/batch/addgpu",
+                                     data=json.dumps(payload).encode(), method="POST",
+                                     headers=request_headers)
+        try:
+            with urllib.request.urlopen(req, timeout=self.cfg.bulk_proxy_timeout_s) as resp:
+                entries = json.loads(resp.read().decode()).get("results", [])
+            if len(entries) != len(sub_targets):
+                raise ValueError(f"peer answered {len(entries)} results for "
+                                 f"{len(sub_targets)} targets")
+            return entries
+        except Exception as exc:  # noqa: BLE001 — the peer's boundary
+            logger.error("bulk proxy to %s failed: %s", url, exc)
+            return [{"namespace": t.namespace, "pod": t.pod, "result": "ProxyError",
+                     "error": f"owner replica {url} unreachable: {exc}"} for t in sub_targets]
 
 
 def build_http_server(app: MasterApp, port: int | None = None,

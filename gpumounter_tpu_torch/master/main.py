@@ -14,9 +14,15 @@ API_HEALTH_RECOVERY_SUCCESSES, API_HEALTH_PROBE_INTERVAL_S), the cache's bound
 (TPUMOUNTER_WRITEBEHIND_DIR, opened at start and replayed when the API is
 healthy; TPUMOUNTER_WRITEBEHIND_MAX_BYTES), the watch-backed store
 (TPUMOUNTER_WATCH_STORE, WATCH_STORE_*) and the annotation writes' retries
-(K8S_WRITE_ATTEMPTS, K8S_WRITE_RETRY_BASE_S). The reference's background loops (elastic intents, recovery,
-defragmenter, autoscaler, canary, fleet collection, shard leases) come with
-their packages.
+(K8S_WRITE_ATTEMPTS, K8S_WRITE_RETRY_BASE_S). With TPUMOUNTER_SHARD_COUNT > 1 the
+replica runs the shard leases' renew loop (``master/shard.py``: SHARD_LEASE_*,
+TPUMOUNTER_REPLICA_ID or HOSTNAME, TPUMOUNTER_ADVERTISE_URL,
+TPUMOUNTER_SHARD_PREFERRED) and hands its leases back on exit, so a peer takes
+them over at once, and a batch's node groups in flight are capped by shard
+(TPUMOUNTER_FANOUT_SHARD_BUDGET, where BULK_NODE_FANOUT caps them all when
+the count is 1); MASTER_HTTP_CONCURRENCY sets the admission gate. The
+reference's other background loops (elastic intents, recovery, defragmenter,
+autoscaler, canary, fleet collection) come with their packages.
 
     python -m gpumounter_tpu_torch.master.main
 """
@@ -40,6 +46,10 @@ def main() -> None:
     cfg = Config()
     obs.configure(cfg)
     app = MasterApp(default_client(), cfg=cfg)
+    if cfg.shard_count > 1:
+        app.shards.start()
+        logger.info("shard manager on: %d shards, replica %s, lease %.0fs",
+                    app.shards.shard_count, app.shards.replica_id, app.shards.duration_s)
     httpd = build_http_server(app)
 
     def _term(signum, frame):
@@ -55,6 +65,9 @@ def main() -> None:
         httpd.serve_forever()
     finally:
         httpd.server_close()
+        if cfg.shard_count > 1:
+            # hand the leases back: the peers claim them now, not at expiry
+            app.shards.stop(release=True)
         app.close()
 
 

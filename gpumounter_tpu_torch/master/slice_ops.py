@@ -30,9 +30,11 @@ Each host's call is a span in the caller's trace (``slice.mount_host``,
 threads with ``trace.attached``. The failpoint ``master.slice.mount`` fires
 before anything is resolved; ``master.slice.rollback.skip`` (a value) skips
 the rollback, the leak the chaos harness must detect. Each pod whose mount a
-rollback undid gets the Warning Event ``GPUSliceRollback``. Left out until
-their package lands: the fencing epoch and the shards' budgets (``shard_of``
-by owner shard, with the core's per-shard budgets), with 7h. ``preferIci`` and the
+rollback undid gets the Warning Event ``GPUSliceRollback``. With a
+``ShardManager`` (``master/shard.py``), every worker call carries the node's
+fencing epoch (``epoch_kwargs``), so a worker refuses a stale replica's
+writes, and the batch's node groups are budgeted by owner shard on the
+fan-out core (one budget pool when the shards are inactive). ``preferIci`` and the
 ``topology`` hint are TPU torus geometry and stay out: a GPU host's GPUs are
 joined by NVSwitch (``topology.py``).
 """
@@ -46,6 +48,7 @@ from gpumounter_tpu_torch.faults import failpoints
 from gpumounter_tpu_torch.k8s.errors import ApiError, NotFoundError
 from gpumounter_tpu_torch.k8s.events import post_pod_event
 from gpumounter_tpu_torch.k8s.types import Pod
+from gpumounter_tpu_torch.master.shard import epoch_kwargs
 from gpumounter_tpu_torch.obs import trace
 from gpumounter_tpu_torch.rpc.api import AddGPUResult, RemoveGPUResult
 from gpumounter_tpu_torch.rpc.resilience import BreakerOpenError
@@ -139,13 +142,19 @@ class BulkMountCoordinator:
     Unlike a slice, the targets are independent: a result for each, no
     rollback, no plan. The mounts are grouped by node, so that each node's
     mounts ride one worker client in turn; at most ``bulk_node_fanout``
-    node groups mount at once, on the shared fan-out core."""
+    node groups mount at once, or ``fanout_shard_budget`` of each owner
+    shard when the shards are active, on the shared fan-out core."""
 
-    def __init__(self, kube, registry, client_factory, cfg):
+    def __init__(self, kube, registry, client_factory, cfg, shards=None):
         self.kube = kube
         self.registry = registry
         self.client_factory = client_factory
         self.cfg = cfg
+        #: an optional ShardManager: its epoch goes on every worker call
+        self.shards = shards
+
+    def _epoch(self, node: str) -> dict:
+        return epoch_kwargs(self.shards, node)
 
     def _resolve_bulk(self, targets: list[BulkTarget]
                       ) -> tuple[dict[int, dict], dict[str, list[int]]]:
@@ -170,13 +179,20 @@ class BulkMountCoordinator:
             by_node.setdefault(pod.node_name, []).append(i)
         return errors, by_node
 
-    def mount_bulk(self, targets: list[BulkTarget]) -> list[dict]:
+    def mount_bulk(self, targets: list[BulkTarget],
+                   resolution: tuple[dict[int, dict], dict[str, list[int]]] | None = None
+                   ) -> list[dict]:
         """A result for each target, in request order: namespace, pod and
         node, with result=Success and the UUIDs mounted, or a result and an
         error (PodNotFound, Error, NotScheduled, NoWorker, Degraded with
-        retryAfterS, or the worker's InsufficientGPU / PodNotFound)."""
+        retryAfterS, or the worker's InsufficientGPU / PodNotFound).
+
+        `resolution`: ``_resolve_bulk``'s pair when the caller has resolved
+        already (the batch route, to split by owner shard): resolving again
+        would read every pod twice and let a pod rescheduled in between
+        dodge the routing."""
         results: list[dict | None] = [None] * len(targets)
-        errors, by_node = self._resolve_bulk(targets)
+        errors, by_node = resolution if resolution is not None else self._resolve_bulk(targets)
         for i, err in errors.items():
             results[i] = {"namespace": targets[i].namespace, "pod": targets[i].pod, **err}
         # contextvars stay in their thread: each node group re-attaches this
@@ -204,7 +220,8 @@ class BulkMountCoordinator:
                 for i in indices:
                     t, entry = targets[i], base(i)
                     try:
-                        response = client.add_gpu(t.pod, t.namespace, t.gpus, t.entire)
+                        response = client.add_gpu(t.pod, t.namespace, t.gpus, t.entire,
+                                                  **self._epoch(node))
                         entry["result"] = AddGPUResult(response.add_gpu_result).name
                         if response.add_gpu_result == AddGPUResult.Success:
                             entry["uuids"] = list(response.uuids)
@@ -214,10 +231,18 @@ class BulkMountCoordinator:
                     results[i] = entry
 
         if by_node:
-            # the reference's one-pool branch: without shards (7h) at most
-            # bulk_node_fanout node groups are in flight at once
+            # at most fanout_shard_budget node groups in flight of each owner
+            # shard (0: no cap), or bulk_node_fanout of all when the shards
+            # are inactive (one key); a proxied sub-batch already on the core
+            # runs on transient threads
+            if self.shards is not None and self.shards.active():
+                shard_of = lambda pair: self.shards.owner_shard(pair[0])  # noqa: E731
+                budget = int(self.cfg.fanout_shard_budget)
+            else:
+                shard_of = lambda pair: 0  # noqa: E731 — one budget pool
+                budget = max(1, int(self.cfg.bulk_node_fanout))
             get_core(self.cfg).run(list(by_node.items()), lambda pair: _mount_node(*pair),
-                                   kind="bulk-mount", limit=max(1, int(self.cfg.bulk_node_fanout)))
+                                   kind="bulk-mount", shard_of=shard_of, shard_budget=budget)
         return [r if r is not None else
                 {"namespace": targets[i].namespace, "pod": targets[i].pod,
                  "result": "Error", "error": "internal: unprocessed"}
@@ -225,11 +250,16 @@ class BulkMountCoordinator:
 
 
 class SliceCoordinator:
-    def __init__(self, kube, registry, client_factory, cfg):
+    def __init__(self, kube, registry, client_factory, cfg, shards=None):
         self.kube = kube
         self.registry = registry
         self.client_factory = client_factory
         self.cfg = cfg
+        #: an optional ShardManager: its epoch goes on every worker call
+        self.shards = shards
+
+    def _epoch(self, node: str) -> dict:
+        return epoch_kwargs(self.shards, node)
 
     def _resolve(self, targets: list[SliceTarget]) -> list[tuple[SliceTarget, str, str, str]]:
         """[(target, node, worker address, pod IP)], every pod checked
@@ -278,12 +308,13 @@ class SliceCoordinator:
         trace_ctx = trace.current()
 
         def _mount(item) -> None:
-            i, (t, _node, address, _ip) = item
+            i, (t, node, address, _ip) = item
             try:
                 with trace.attached(trace_ctx), \
                         trace.span("slice.mount_host", pod=t.pod, gpus=gpus_per_host), \
                         self.client_factory(address) as client:
-                    results[i] = client.add_gpu(t.pod, t.namespace, gpus_per_host, entire)
+                    results[i] = client.add_gpu(t.pod, t.namespace, gpus_per_host, entire,
+                                                **self._epoch(node))
             except Exception as exc:  # noqa: BLE001 — a host's call; the pass must not raise
                 results[i] = exc
 
@@ -305,13 +336,14 @@ class SliceCoordinator:
                          len(succeeded))
             succeeded = []
         for i in succeeded:
-            t, _node, address, _ip = resolved[i]
+            t, node, address, _ip = resolved[i]
             try:
                 with self.client_factory(address) as client:
                     # exactly what this request mounted: an empty list would
                     # remove nothing of a single mount and too much of an
                     # entire mount that was there before
-                    client.remove_gpu(t.pod, t.namespace, results[i].uuids, force=True)
+                    client.remove_gpu(t.pod, t.namespace, results[i].uuids, force=True,
+                                      **self._epoch(node))
             except Exception as exc:  # noqa: BLE001
                 logger.error("slice rollback on %s failed: %s", t.pod, exc)
         # A transport failure (a deadline, a dropped connection) may have
@@ -324,7 +356,7 @@ class SliceCoordinator:
         for i, r in failures.items():
             if not isinstance(r, Exception):
                 continue  # the worker answered: nothing was mounted
-            t, _node, address, _ip = resolved[i]
+            t, node, address, _ip = resolved[i]
             if not entire:
                 logger.error("host %s failed at transport level during a single-mount slice; "
                              "cannot tell the slice's GPUs from earlier ones: a manual remove "
@@ -332,7 +364,7 @@ class SliceCoordinator:
                 continue
             try:
                 with self.client_factory(address) as client:
-                    client.remove_gpu(t.pod, t.namespace, [], force=True)
+                    client.remove_gpu(t.pod, t.namespace, [], force=True, **self._epoch(node))
             except Exception as exc:  # noqa: BLE001
                 logger.warning("post-timeout rollback probe on %s: %s", t.pod, exc)
 
@@ -373,12 +405,13 @@ class SliceCoordinator:
         trace_ctx = trace.current()
 
         def _remove(item) -> None:
-            i, (t, _node, address, _ip) = item
+            i, (t, node, address, _ip) = item
             try:
                 with trace.attached(trace_ctx), trace.span("slice.remove_host", pod=t.pod), \
                         self.client_factory(address) as client:
                     results[i] = RemoveGPUResult(client.remove_gpu(
-                        t.pod, t.namespace, [], force=force, remove_all=True).remove_gpu_result)
+                        t.pod, t.namespace, [], force=force, remove_all=True,
+                        **self._epoch(node)).remove_gpu_result)
             except Exception as exc:  # noqa: BLE001
                 results[i] = exc
 

@@ -85,7 +85,10 @@ class ChannelPool:
       * ``invalidate(address)``: the breaker opened, or the worker's
         address changed: the channel must serve no further call;
       * ``retain(active)``: close the channels of workers that are gone;
-      * an idle channel with no borrower closes after CHANNEL_IDLE_EVICT_S."""
+      * an idle channel with no borrower closes after CHANNEL_IDLE_EVICT_S.
+
+    The books are exact, ``dialed == live + closed`` at every moment, so
+    the chaos harness can hold the pool to no leaked channel (invariant 7)."""
 
     def __init__(self, cfg=None):
         cfg = cfg or Config()
@@ -94,6 +97,8 @@ class ChannelPool:
         self._lock = threading.Lock()
         #: address -> [channel, last_used_monotonic, borrowers]
         self._channels: dict[str, list] = {}
+        self._dialed = 0
+        self._closed = 0
         self._shutdown = False
 
     def channel(self, address: str):
@@ -116,6 +121,7 @@ class ChannelPool:
                     ("grpc.keepalive_permit_without_calls", 1),
                 ))
                 self._channels[address] = [ch, now, 1]
+                self._dialed += 1
                 CHANNEL_POOL_MISSES.inc()
                 CHANNEL_POOL_SIZE.set(float(len(self._channels)))
                 return ch
@@ -139,6 +145,7 @@ class ChannelPool:
                  if refs <= 0 and now - used > self.idle_evict_s]
         out = [self._channels.pop(addr)[0] for addr in stale]
         if out:
+            self._closed += len(out)
             CHANNEL_POOL_SIZE.set(float(len(self._channels)))
         return out
 
@@ -155,6 +162,8 @@ class ChannelPool:
         wrong, and a call on it is failing anyway."""
         with self._lock:
             entry = self._channels.pop(address, None)
+            if entry is not None:
+                self._closed += 1
             CHANNEL_POOL_SIZE.set(float(len(self._channels)))
         if entry is not None:
             logger.info("channel to %s dropped (%s)", address, reason)
@@ -166,16 +175,24 @@ class ChannelPool:
         with self._lock:
             stale = [a for a in self._channels if a not in active]
             out = [self._channels.pop(a)[0] for a in stale]
+            self._closed += len(out)
             CHANNEL_POOL_SIZE.set(float(len(self._channels)))
         self._close_channels(out, "pruned")
 
     def close_all(self) -> None:
         with self._lock:
             out = [entry[0] for entry in self._channels.values()]
+            self._closed += len(out)
             self._channels.clear()
             self._shutdown = True
             CHANNEL_POOL_SIZE.set(0.0)
         self._close_channels(out, "shutdown")
+
+    def stats(self) -> dict:
+        """The books: live channels, dialed and closed since the start."""
+        with self._lock:
+            return {"live": len(self._channels), "dialed": self._dialed,
+                    "closed": self._closed}
 
 
 _TOKEN_FROM_CONFIG = object()

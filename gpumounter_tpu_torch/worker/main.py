@@ -14,7 +14,7 @@ before the server serves and before the reaper's first pass, so that the
 reaper sees the books as the replay left them, with a warning when the last
 process died with open transactions; then the slave reaper
 (``worker/reaper.py``) starts on the mounter's cgroup controller. On
-SIGTERM the reaper stops, the service drains (new mutations refused, those
+SIGTERM the reaper and the warm pool's refiller stop, the service drains (new mutations refused, those
 in flight finished, the ledger closed clean; WORKER_DRAIN_TIMEOUT_S), and
 then the gRPC server stops.
 
@@ -111,6 +111,10 @@ def main() -> None:
                 len(service.collector.devices))
     stop.wait()
     reaper.stop()
+    if service.pool is not None:
+        # the warm holders stay Running: the next process re-adopts them
+        # (ensure_node's resync); only the refiller stops
+        service.pool.stop()
     drained = service.drain(cfg.drain_timeout_s)
     logger.info("drain %s; stopping gRPC", "clean" if drained else
                 "timed out (as a crash: the next start's replay converges it)")

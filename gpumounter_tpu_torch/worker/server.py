@@ -18,7 +18,10 @@ Each call is a ``worker.AddGPU`` / ``worker.RemoveGPU`` span whose parent is
 the client's span off the wire (``trace_context``, field 7; a fresh trace
 when it is absent or malformed), and leaves an audit record whatever its end
 (``obs/audit.py``), with the ``worker.rpc`` failpoint at its top. The slave
-pods' scheduling is the ``mount.slave_pod_schedule`` span. Outcomes post the
+pods' scheduling is the ``mount.slave_pod_schedule`` span, which carries the
+warm pool's outcome (``pool_hit``, ``pool_gap``, ``pool_enabled``: with
+WARM_POOL_SIZE > 0 the service builds an ``allocator/pool.py`` pool, from which
+single-GPU slaves are adopted first). Outcomes post the
 Events ``GPUMounted``, ``GPUUnmounted`` and ``GPUMountFailed`` on the pod
 (``k8s/events.py``; the reference's ``TPU*``), and the service installs the
 flight recorder's hooks (``obs/flight.py``).
@@ -60,6 +63,7 @@ import threading
 import time
 from concurrent import futures
 
+from gpumounter_tpu_torch.allocator.pool import WarmPodPool
 from gpumounter_tpu_torch.allocator.allocator import (
     GpuAllocator,
     InsufficientGpuError,
@@ -186,7 +190,12 @@ class _IdempotencyCache:
 class GpuMountService:
     def __init__(self, kube: KubeClient, collector: GpuCollector,
                  allocator: GpuAllocator | None = None,
-                 mounter: GpuMounter | None = None, cfg=None):
+                 mounter: GpuMounter | None = None, cfg=None, pool: WarmPodPool | None = None):
+        """pool: the node's warm pool; by default one is built when
+        WARM_POOL_SIZE > 0 (it warms NODE_NAME at once when that is set),
+        unless an `allocator` is given, which keeps whatever pool it was
+        built with (a pool it never draws from would book GPUs for
+        nothing)."""
         self.cfg = cfg or Config()
         # every API call of the worker feeds the process's ApiHealth
         self.apihealth = api_health(cfg=self.cfg)
@@ -195,7 +204,10 @@ class GpuMountService:
         # the node's ledger, from cfg.ledger_dir (none when it is ""); the
         # mounter journals every batch into it
         self.ledger = open_ledger(self.cfg)
-        self.allocator = allocator or GpuAllocator(kube, collector, cfg=self.cfg)
+        if pool is None and allocator is None and self.cfg.warm_pool_size > 0:
+            pool = WarmPodPool(kube, cfg=self.cfg, apihealth=self.apihealth)
+        self.pool = pool
+        self.allocator = allocator or GpuAllocator(kube, collector, cfg=self.cfg, pool=pool)
         self.mounter = mounter or GpuMounter(collector.backend, cfg=self.cfg, kube=kube)
         self.mounter.ledger = self.ledger
         self._pod_locks = _KeyedLocks()
@@ -340,11 +352,17 @@ class GpuMountService:
         if not ok:
             raise ServiceError("FAILED_PRECONDITION", why)
         per_pod = request.gpu_num if request.is_entire_mount else 1
+        pool_stats: dict = {}
         with timer.phase("slave_pod_schedule"), \
                 trace.span("mount.slave_pod_schedule", gpus=request.gpu_num):
             try:
                 devices, slaves = self.allocator.get_available_gpus(
-                    pod, request.gpu_num, per_pod)
+                    pod, request.gpu_num, per_pod, stats=pool_stats)
+                # the warm pool's outcome on the span: pool starvation
+                # (pool_gap > 0) against a plain scheduler wait
+                trace.set_attrs(pool_hit=pool_stats.get("pool_hit", 0),
+                                pool_gap=pool_stats.get("pool_gap", 0),
+                                pool_enabled=pool_stats.get("pool_enabled", False))
             except InsufficientGpuError as exc:
                 logger.warning("insufficient GPU: %s", exc)
                 return AddGPUResponse(AddGPUResult.InsufficientGPU)

@@ -27,7 +27,6 @@ from gpumounter_tpu.master import app as ref_app
 from gpumounter_tpu.worker import ledger as ref_ledger
 from gpumounter_tpu.worker import server as ref_server
 import gpumounter_tpu_torch.entry as entry
-from gpumounter_tpu_torch.k8s import fake as port_fake
 from gpumounter_tpu_torch.master import app as port_app
 from gpumounter_tpu_torch.worker import ledger as port_ledger
 from gpumounter_tpu_torch.worker import server as port_server
@@ -271,12 +270,9 @@ def test_leases_are_a_cas_on_the_resource_version_as_the_references():
         {"holder": "b"}]
 
 
-def test_a_list_gives_the_version_to_watch_from_as_the_references(monkeypatch):
-    monkeypatch.setattr(port_fake, "MAX_EVENTS", 64)
-
+def test_a_list_gives_the_version_to_watch_from_as_the_references():
     def case(side):
-        fake = (side.FakeKubeClient(cfg=fresh(side, watch_backlog_events=64))
-                if side.kind == "reference" else side.FakeKubeClient())
+        fake = side.FakeKubeClient(cfg=fresh(side, watch_backlog_events=64))
         before = fake.list_pods_with_rv("ns")
         pod(fake, "seed", namespace="ns")
         pods, rv = fake.list_pods_with_rv("ns")

@@ -7,7 +7,10 @@ slice's admission failpoint fails clean, and the skipped slice rollback
 leaves one host's GPU mounted and booked. Then the port's seeded mount
 scenario at three seeds, whose invariants 1-3, 5 and 6 must hold (its pool
 holds the reference's crash terms, converged by the ledger's replay), and the
-reproducibility of its schedule.
+reproducibility of its schedule. Then invariants 7 (the channel pool's
+books), 15 (the lock order) and 22 (the watch store against a fresh list,
+with its poisoned-index control) on both harnesses, and invariant 9 (one
+owner a shard) on the reference's seeds, its decisions the reference's.
 """
 
 from __future__ import annotations
@@ -130,3 +133,134 @@ def test_an_open_span_and_a_traceless_record_are_violations(tmp_path):
     message = str(err.value)
     assert "seed=5" in message and "never.closed" in message
     assert "audit record without outcome" in message and "without trace id" in message
+
+
+# --- invariants 7, 15 and 22 ---
+
+
+def _watch_round(name, root, seed, poison=False, **sizes):
+    """The watch-store scenario on one package's harness: its rounds, its
+    intent and journal index sizes, its relists, and the invariants' verdict
+    (the first violation's text when they fail)."""
+    mod = ref_chaos if name == "reference" else chaos
+    with mod.ChaosHarness(root, seed=seed) as h:
+        out = h.run_watch_store_scenario(**sizes)
+        if poison:
+            h.poison_watch_index()
+        try:
+            h.check_invariants()
+            verdict = "held"
+        except mod.InvariantViolation as exc:
+            verdict = str(exc)
+    indexes = out["payload"]["indexes"]
+    return out["rounds"], indexes["intents"], indexes["journals"], out["relists_total"], verdict
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_watch_store_chaos_as_the_references(tmp_path, seed):
+    """Invariant 22 holds on both harnesses after the storm (a real 410:
+    at least three relists), the restart and the churn, in the same seeded
+    order and with the same intent and journal populations."""
+    got = {name: _watch_round(name, str(tmp_path / name), seed) for name in SIDES}
+    for rounds, _, _, relists, verdict in got.values():
+        assert verdict == "held"
+        assert set(rounds) == {"storm", "restart", "steady"}
+        assert relists >= 3
+    assert got["port"][:3] == got["reference"][:3]
+
+
+def test_the_poisoned_watch_index_is_flagged_as_the_reference_flags_it(tmp_path):
+    got = {name: _watch_round(name, str(tmp_path / name), 3, poison=True,
+                              churn_per_round=10, storm_events=80) for name in SIDES}
+    for *_, verdict in got.values():
+        assert "invariant 22" in verdict and "intent index diverges" in verdict
+        assert "seed=3" in verdict
+
+
+def test_the_channel_pools_books_hold_under_chaos_as_the_references(tmp_path):
+    """Invariant 7 after the mount scenario: every dialed channel is live or
+    closed, on both harnesses, and neither pool holds more live channels
+    than its two workers."""
+    stats = {}
+    for name in SIDES:
+        mod = ref_chaos if name == "reference" else chaos
+        with mod.ChaosHarness(str(tmp_path / name), seed=7) as h:
+            h.run_mount_scenario(n_ops=6)
+            h.check_invariants()
+            stats[name] = h.channel_pool.stats()
+    for books in stats.values():  # the scenarios' draws differ: not the counts
+        assert books["dialed"] == books["live"] + books["closed"]
+        assert 1 <= books["live"] <= 2
+
+
+def test_a_channel_off_the_books_is_a_violation(tmp_path):
+    """Invariant 7 has teeth: a channel dialed outside the books, and more
+    live channels than workers, are each named."""
+    with ChaosHarness(str(tmp_path), seed=11) as h:
+        h.channel_pool._dialed += 1
+        with pytest.raises(InvariantViolation) as err:
+            h.check_invariants()
+        assert "channel-pool books off" in str(err.value)
+        h.channel_pool._dialed -= 1
+        for i in range(3):
+            h.channel_pool.channel(f"127.0.0.1:{1 + i}")
+        with pytest.raises(InvariantViolation) as err:
+            h.check_invariants()
+        assert "channel leak: 3 live channel(s) for 2 worker(s)" in str(err.value)
+
+
+@pytest.mark.parametrize("name", list(SIDES))
+def test_a_reversed_acquisition_is_a_lock_order_violation(tmp_path, name):
+    """Invariant 15 on either harness: two locks taken in both orders make
+    a cycle, named with its path. The global recorder is cleared after, so
+    the seeded cycle fails no later test."""
+    from gpumounter_tpu.utils import locks as ref_locks
+    from gpumounter_tpu_torch.utils import locks as port_locks
+    mod, lk = (ref_chaos, ref_locks) if name == "reference" else (chaos, port_locks)
+    a, b = lk.OrderedLock("fixture.a"), lk.OrderedLock("fixture.b")
+    with mod.ChaosHarness(str(tmp_path), seed=13) as h:
+        try:
+            with a, b:
+                pass
+            with b, a:
+                pass
+            with pytest.raises(mod.InvariantViolation) as err:
+                h.check_invariants()
+        finally:
+            lk.RECORDER.clear()
+    assert "lock-order" in str(err.value) and "fixture.a" in str(err.value)
+
+
+def test_the_runs_lock_order_is_acyclic_and_names_the_ports_sites(tmp_path):
+    """A mount scenario records real nestings of the port's named locks, and
+    they form no cycle."""
+    from gpumounter_tpu_torch.utils import locks as port_locks
+    with ChaosHarness(str(tmp_path), seed=1337) as h:
+        h.run_mount_scenario(n_ops=4)
+        h.check_invariants()
+    edges = port_locks.RECORDER.edges()
+    assert edges and port_locks.find_cycle(edges) is None
+
+
+# --- invariant 9: one owner a shard ---
+
+
+def _decisions(schedule):
+    return [step.split("->")[0].split("(")[0].strip() for step in schedule]
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_shard_lease_chaos(seed):
+    """Crashes, restarts and takeovers of master replicas: no shard is ever
+    claimed by two views, every shard ends owned, and the port's scenario
+    makes the reference's decisions on the same seed."""
+    from gpumounter_tpu.testing.chaos import run_shard_scenario as ref_run
+    schedule = chaos.run_shard_scenario(seed)
+    assert any("converged" in step for step in schedule)
+    ops = [d for d in _decisions(schedule) if not d.startswith("converged")]
+    ref_ops = [d for d in _decisions(ref_run(seed)) if not d.startswith("converged")]
+    assert ops == ref_ops
+
+
+def test_shard_scenario_is_reproducible():
+    assert _decisions(chaos.run_shard_scenario(99)) == _decisions(chaos.run_shard_scenario(99))

@@ -201,3 +201,33 @@ def test_every_declared_name_is_armed_by_a_test():
     for prefix in registry.DYNAMIC_PREFIXES:
         assert re.search(rf'"{re.escape(prefix)}(create_pod|delete_pod|patch_pod)(\.status)?(=|")',
                          blob), prefix
+
+
+def test_the_pool_refill_site_fires_as_the_references():
+    """``pool.refill`` fires before each refill's create, with the node: an
+    armed error fails the pass on both pools, creates nothing, counts one
+    failure and one hit, and backs the node off."""
+    import dataclasses
+
+    from gpumounter_tpu.allocator import pool as ref_pool
+    from gpumounter_tpu.config import Config as RefConfig
+    from gpumounter_tpu.k8s.fake import FakeKubeClient as RefFake
+    from gpumounter_tpu_torch.allocator import pool
+    from gpumounter_tpu_torch.config import Config
+    from gpumounter_tpu_torch.k8s.fake import FakeKubeClient
+
+    seen = {}
+    for name, fp, mod, kube, cfg in (
+            ("reference", ref_failpoints, ref_pool, RefFake(),
+             RefConfig().replace(warm_pool_size=2, warm_pool_retry_s=30.0)),
+            ("port", failpoints, pool, FakeKubeClient(),
+             dataclasses.replace(Config(), warm_pool_size=2, warm_pool_retry_s=30.0))):
+        mod.WARM_POOL_REFILL_FAILURES._values.clear()
+        warm = mod.WarmPodPool(kube, cfg=cfg, refill_async=False)
+        warm.ensure_node("n1")
+        with fp.armed({"pool.refill": "error(refill boom)"}):
+            added = warm.refill_once()
+            hits = fp.hits("pool.refill")
+        seen[name] = (added, kube.create_calls, hits,
+                      mod.WARM_POOL_REFILL_FAILURES._values.get((), 0.0), warm.refill_once())
+    assert seen["port"] == seen["reference"] == (0, 0, 1, 1.0, 0)

@@ -54,11 +54,9 @@ def _each(cores, fn) -> dict:
 
 
 def _limited(mod, core, items, fn, kind: str, limit: int) -> list:
-    """A pass of at most `limit` items in flight: the reference's call is
-    its batch's, every item in shard 0 under a budget of `limit`."""
-    if mod is ref_fanout:
-        return core.run(items, fn, kind=kind, shard_of=lambda i: 0, shard_budget=limit)
-    return core.run(items, fn, kind=kind, limit=limit)
+    """A pass of at most `limit` items in flight: the batch's call without
+    active shards, every item in shard 0 under a budget of `limit`."""
+    return core.run(items, fn, kind=kind, shard_of=lambda i: 0, shard_budget=limit)
 
 
 def test_results_keep_the_items_order(cores):
@@ -198,3 +196,63 @@ def test_a_crowded_core_loses_no_task(cores):
         sys.setswitchinterval(interval)
     assert records["port"][:3] == records["reference"][:3] == (True, 2000.0, 0.0)
     assert records["port"][3] > 0 and records["reference"][3] > 0
+
+
+def test_each_shard_holds_at_most_its_budget(cores):
+    """Three shards of 8 items under a budget of 2 on a core of width 8: no
+    shard ever holds more than 2 slots, each reaches 2, and the items parked
+    behind a budget are counted; a broken shard key leaves its item
+    unbudgeted; the config's budget is the default."""
+    def run(mod, core):
+        now, most, lock = {}, {}, threading.Lock()
+
+        def fn(item):
+            shard, i = item
+            with lock:
+                now[shard] = now.get(shard, 0) + 1
+                most[shard] = max(most.get(shard, 0), now[shard])
+            time.sleep(0.01)
+            with lock:
+                now[shard] -= 1
+            return shard * 100 + i
+
+        items = [(s, i) for i in range(8) for s in range(3)]
+        out = core.run(items, fn, kind="shards", shard_of=lambda it: it[0], shard_budget=2)
+
+        def broken(item):
+            raise KeyError(item)
+
+        unkeyed = core.run(range(4), lambda i: i, kind="unkeyed", shard_of=broken,
+                           shard_budget=1)
+        return (out, most, mod.FANOUT_SHARD_WAITS.total(), unkeyed, core.shard_budget,
+                _rendered(mod))
+
+    records = _each(cores, run)
+    assert records["port"] == records["reference"]
+    out, most, waits, unkeyed, budget, _ = records["port"]
+    assert out == [s * 100 + i for i in range(8) for s in range(3)]
+    assert most == {0: 2, 1: 2, 2: 2} and waits == 18
+    assert unkeyed == [0, 1, 2, 3] and budget == 16
+
+
+def test_submit_runs_one_task_and_from_a_core_task_too(cores):
+    """``submit`` returns a future of one task on the core, unbudgeted; from
+    inside a core task it runs on a transient thread, so a task that waits
+    on its own submission ends on a core of width 1."""
+    def run(mod, core):
+        first = core.submit(lambda x: x * 3, 7, kind="one").result(timeout=10)
+        tiny = mod.FanoutCore(RefConfig().replace(fanout_width=1) if mod is ref_fanout
+                              else dataclasses.replace(Config(), fanout_width=1))
+        try:
+            nested = tiny.submit(
+                lambda x: tiny.submit(lambda y: y + 1, x, kind="inner").result(timeout=10),
+                1, kind="outer").result(timeout=20)
+            with pytest.raises(ZeroDivisionError):
+                tiny.submit(lambda x: 1 / x, 0, kind="fails").result(timeout=10)
+        finally:
+            tiny.shutdown()
+        return first, nested, _rendered(mod)
+
+    records = _each(cores, run)
+    assert records["port"] == records["reference"]
+    assert records["port"][:2] == (21, 2)

@@ -322,13 +322,17 @@ def test_the_breaker_answers_503_with_retry_after(stacks):
 def test_the_port_serves_only_the_original_surface(stacks):
     """The reference's other routes wait for their packages: their paths get
     the structured 404. /workers lists the node's worker. The observability
-    reads (/audit, /trace/<id>, /timeline) and the API-outage pane
-    (/apihealth) are served, and want the token."""
+    reads (/audit, /trace/<id>, /timeline), the API-outage pane (/apihealth)
+    and the shard table (/shards, an inactive manager's here) are served,
+    and want the token."""
     s = stacks["port"]
     status, body = http(s, "GET", "/apihealth")
     assert status == 200 and set(json.loads(body)) == {"api", "store"}
     assert http(s, "GET", "/apihealth", auth=False) == (401, "missing or invalid bearer token\n")
-    for path in ("/metrics", "/shards", "/fleet", "/capacity",
+    status, body = http(s, "GET", "/shards")
+    assert status == 200 and json.loads(body)["active"] is False
+    assert http(s, "GET", "/shards", auth=False) == (401, "missing or invalid bearer token\n")
+    for path in ("/metrics", "/fleet", "/capacity",
                  "/addtpu/namespace/default/pod/p/tpu/1/isEntireMount/false"):
         assert http(s, "GET", path) == (404, "404 page not found\n"), path
     assert http(s, "POST", "/batch/addtpu", {}) == (404, "404 page not found\n")

@@ -108,7 +108,8 @@ def test_label_keys_and_formatting_equal_the_reference():
 PORT_MODULES = ["cgroup.ebpf", "cgroup.policy", "rpc.resilience", "rpc.client", "k8s.fake",
                 "worker.server", "worker.mounter", "worker.ledger", "worker.resync",
                 "utils.fanout", "faults.failpoints", "obs.trace", "obs.flight", "k8s.health",
-                "store.writebehind", "store.cache", "store.watch"]
+                "store.writebehind", "store.cache", "store.watch", "master.shard",
+                "allocator.pool"]
 
 
 def test_every_series_of_the_port_is_the_references():
@@ -143,7 +144,12 @@ def test_every_series_of_the_port_is_the_references():
             "tpumounter_writebehind_replayed_total", "tpumounter_store_stale_reads_total",
             "tpumounter_store_deferred_writes_total", "tpumounter_watch_store_events_total",
             "tpumounter_watch_store_relists_total", "tpumounter_watch_store_fallback_reads_total",
-            "tpumounter_watch_store_synced"} == set(seen)
+            "tpumounter_watch_store_synced", "tpumounter_shards_owned",
+            "tpumounter_shard_takeovers_total", "tpumounter_shard_renew_failures_total",
+            "tpumounter_warm_pool_hits_total", "tpumounter_warm_pool_misses_total",
+            "tpumounter_warm_pool_ready", "tpumounter_warm_pool_refills_total",
+            "tpumounter_warm_pool_refill_failures_total",
+            "tpumounter_warm_pool_drained_total"} == set(seen)
 
 
 # --- the series of the modules ported before the registry ---
@@ -222,15 +228,15 @@ def test_a_retried_call_counts_its_retries():
     assert RPC_RETRIES.snapshot() == {(("method", api.ADD_METHOD),): 2.0}
 
 
-def test_watch_backlog_evictions_count_as_the_reference(monkeypatch):
+def test_watch_backlog_evictions_count_as_the_reference():
     """Events trimmed past an open watcher's cursor count; history no open
     watcher needs does not."""
     from gpumounter_tpu.config import Config as RefConfig
     from gpumounter_tpu.k8s import fake as ref_fake
     from gpumounter_tpu_torch.k8s import fake
-    monkeypatch.setattr(fake, "MAX_EVENTS", 64)
+    from gpumounter_tpu_torch.config import Config
     seen = []
-    for mod, kube in ((fake, fake.FakeKubeClient()),
+    for mod, kube in ((fake, fake.FakeKubeClient(cfg=Config(watch_backlog_events=64))),
                       (ref_fake, ref_fake.FakeKubeClient(
                           cfg=RefConfig().replace(watch_backlog_events=64)))):
         mod.WATCH_BACKLOG_EVICTIONS.reset()

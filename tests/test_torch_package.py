@@ -132,6 +132,34 @@ def test_the_store_and_degraded_mode_import_only_the_stdlib_config_utils_and_k8s
                 f"{path.name}:{node.lineno} imports {name}"
 
 
+#: the modules of sharding and the warm pool, and what each may import
+#: besides the standard library: as in the reference, none reaches grpc,
+#: torch or the worker's mount machinery
+SHARD_POOL_FILES = {
+    "utils/locks.py": (),
+    "rpc/http_failover.py": ("utils",),
+    "master/shard.py": ("config", "k8s", "utils"),
+    "allocator/pool.py": ("config", "faults", "k8s", "utils", "allocator"),
+}
+
+
+@pytest.mark.parametrize("rel", list(SHARD_POOL_FILES))
+def test_the_shard_and_pool_modules_import_only_the_stdlib_and_the_ports_basics(rel):
+    import sys
+    allowed = tuple(f"gpumounter_tpu_torch.{m}" for m in SHARD_POOL_FILES[rel])
+    path = REPO / "gpumounter_tpu_torch" / rel
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module]
+        else:
+            continue
+        for name in names:
+            assert name.split(".")[0] in sys.stdlib_module_names or (
+                allowed and name.startswith(allowed)), f"{rel}:{node.lineno} imports {name}"
+
+
 def test_banned_names_match_exactly():
     assert _banned("gpumounter_tpu") and _banned("gpumounter_tpu.ops")
     assert _banned("jax.numpy") and _banned("jaxlib")

@@ -8,7 +8,8 @@ worker over its ledger and replay; the replay's summary, the GPUs mounted,
 booked and held in the ledger, and the invariants' verdict must be equal.
 Then the port's seeded crash scenario at the reference's three seeds, and
 the negative control of ``tests/test_recovery_chaos.py``: a death with no
-replay after it must be named by invariant 10, on both.
+replay after it must be named by invariant 10, on both. Last, invariant 12:
+a stale shard owner's writes fenced by the worker, on the reference's seeds.
 """
 
 from __future__ import annotations
@@ -111,3 +112,19 @@ def test_worker_crash_scenario_detects_broken_replay(tmp_path):
     got = {name: _crash_site(name, tmp_path, site, action, replay=False) for name in SIDES}
     assert got["port"] == got["reference"]
     assert got["port"][2] == (True, True)
+
+
+# --- invariant 12: a stale shard owner, fenced ---
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_fencing_chaos(seed):
+    """A ghost owner's writes at its stale epoch are all fenced and change
+    nothing, while the successor's land; the port's scenario draws the
+    reference's stale operations and live adds on the same seed."""
+    def ops(schedule):
+        return [step for step in schedule if "FENCED" in step or step.startswith("new owner add")]
+
+    schedule = chaos.run_fencing_scenario(seed)
+    assert any("fencing held" in step for step in schedule)
+    assert ops(schedule) == ops(ref_chaos.run_fencing_scenario(seed))

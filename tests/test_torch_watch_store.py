@@ -21,7 +21,6 @@ from torch_obs_reset import reset_port_obs  # noqa: F401 — the autouse fixture
 from torch_store_sides import SIDES, fresh, pod, worker_pod
 
 from gpumounter_tpu.master import app as ref_app
-from gpumounter_tpu_torch.k8s import fake as port_fake
 from gpumounter_tpu_torch.master import app as port_app
 
 WATCH = dict(store_watch_timeout_s=0.2, store_watch_relist_base_s=0.05,
@@ -30,16 +29,13 @@ DESIRED = "tpumounter.io/desired-chips"
 
 
 @pytest.fixture()
-def small_backlog(monkeypatch):
-    """A watch backlog of 64 events on both fakes: the reference's from its
-    config, the port's from its module's bound."""
-    monkeypatch.setattr(port_fake, "MAX_EVENTS", 64)
+def small_backlog():
+    """A watch backlog of 64 events on both fakes, each from its config
+    (``_kube``)."""
 
 
 def _kube(side):
-    if side.kind == "reference":
-        return side.FakeKubeClient(cfg=fresh(side, watch_backlog_events=64))
-    return side.FakeKubeClient()
+    return side.FakeKubeClient(cfg=fresh(side, watch_backlog_events=64))
 
 
 def _counting_lists(kube) -> list:
