@@ -318,6 +318,32 @@ Phases, each raising on failure (any failure exits non-zero):
        Retry-After, nothing mounted, booked or written to the ledger (timed);
        the new owner's remove frees the GPU.
     Every case runs on the card's own GPU: without CAP_MKNOD the phase fails.
+17. the fleet planes on a live hot-mount, ``entry.fleet_check`` through the
+    master over gRPC as in phase 11, the master with a read token beside its
+    mutate token and the worker's ops port on a free port:
+    a. 3 live HTTP adds and removes of the card, each add's trace id kept;
+    b. while the first is mounted, a tenant child (``--fleet-child``) on
+       that GPU runs ``FLEET["STEPS"]`` full-width forwards through
+       ``flash_fwd`` (its launches counted in the kernels line) and
+       publishes its ``TenantTelemetry`` snapshot to the ops port's POST
+       /tenant-telemetry with the mutate token;
+    c. the collector's passes over the worker's CollectTelemetry, then, with
+       the read token: /fleet (the node's mounts are the 3 adds, the total the
+       nodes' sum), an exemplar naming an add in /fleet and in /metrics as
+       OpenMetrics, /tenants (the child's tenant with its steps), /trace/<id>
+       of the first add (complete, its worker spans federated through the
+       remote store, its phases summing to its wall time within max(2 ms,
+       5%)), /slo (each verdict the one its objective gives the phase's own
+       adds, a breach with its GPUSLOBurnRate Event and audit record); the
+       read token refused (401) on /addgpu and on POST /tenant-telemetry, and
+       every read of both daemons refused without a token;
+    d. a second worker on the same service without CollectTelemetry: a
+       collector of its own scrapes its counters through the ops port, with
+       no span and no tenant.
+    The lines time a collection pass, one CollectTelemetry call with its
+    payload's bytes, one POST /tenant-telemetry, one /trace/<id> assembly,
+    the scrape fallback and one snapshot (its share of phase 11's add),
+    medians of 3 on the host clock. Without CAP_MKNOD the phase fails.
 
 The last lines are a JSON object per kernel (``{"kernels": [...]}``) and
 ``{"ok": true, "device": {...}}``, and the exit code is 0. A failing check
@@ -358,13 +384,15 @@ except ModuleNotFoundError as err:
     sys.exit(2)
 from gpumounter_tpu_torch.cgroup import detect_cgroup_version
 from gpumounter_tpu_torch.device.backend import NvidiaDeviceBackend
-from gpumounter_tpu_torch.entry import (ADD_TRACE, ADD_WORKER_SPANS, MOE_ROUTE_GAP,
+from gpumounter_tpu_torch.entry import (ADD_TRACE, ADD_WORKER_SPANS, FLEET_SLO_WINDOW_S,
+                                        MOE_ROUTE_GAP,
                                         OBS_COST_ITERS, ONE_PROCESS_LOSS_ATOL, REMOVE_TRACE,
                                         RING_TOL, SHARDED_LOSS_ATOL, SHARDED_PARAM_OF_MAX,
                                         TRAIN_GRAD_ATOL, _check_equal_over, _masked_err,
                                         against_one_process, busy_health_check, cgroup_v2_check,
                                         check_config, degraded_check, durability_check,
-                                        dryrun_multichip, grow_checks, has_cap_mknod,
+                                        dryrun_multichip, fleet_check, grow_checks,
+                                        has_cap_mknod,
                                         inventory_check, kernel_launches, make_identity,
                                         master_check, moe_blocks_vs_plain, moe_check,
                                         shard_pool_check,
@@ -408,6 +436,7 @@ from gpumounter_tpu_torch.torchside import (HotResumable, gpus_visible_in_dev, h
                                             load_optimizer_state, optimizer_state_tree,
                                             refresh_devices, set_visibility_env,
                                             wait_for_gpus)
+from gpumounter_tpu_torch.torchside.telemetry import TenantTelemetry
 from gpumounter_tpu_torch.torchside.visibility import HANDOFF_AT_ENV, reinit_distributed
 
 # H100 SXM peaks (NVIDIA data sheet, dense): the bound of a kernel is the
@@ -3331,6 +3360,153 @@ def phase_shard_pool(card: str, master_live: dict) -> int:
     return child["launches"]["flash_fwd"]
 
 
+#: the fleet phase's tenant: full-width forwards, each a TenantTelemetry step
+FLEET = dict(STEPS=4)
+#: the environment variable that hands the fleet child the mutate token
+TENANT_TOKEN_ENV = "TPUMOUNTER_TENANT_TOKEN"
+
+
+def _fleet_child(spec: dict) -> None:
+    """The tenant of phase 17, started with CUDA_VISIBLE_DEVICES=<the UUID
+    the worker assigned>: CUDA's one device must be that GPU; then
+    spec["steps"] full-width forwards (phase 3's weights and first batch)
+    through flash_fwd, each a ``TenantTelemetry`` step, and the snapshot
+    POSTed to the worker's ops port with the mutate token from the
+    environment. Prints one JSON line; a failure raises (exit code 1)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.init()
+    props = torch.cuda.get_device_properties(0)
+    torch.cuda.synchronize()
+    t_ready = time.time()
+    uuid = f"GPU-{props.uuid}"
+    if uuid != spec["uuid"] or torch.cuda.device_count() != 1:
+        raise RuntimeError(f"CUDA_VISIBLE_DEVICES={os.environ.get('CUDA_VISIBLE_DEVICES')!r}: "
+                           f"{torch.cuda.device_count()} device(s), device 0 is {uuid}, the "
+                           f"worker assigned {spec['uuid']}")
+    cfg = full_width_config()
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cuda")
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (FULL["B"], FULL["L"]))).cuda()
+    tel = TenantTelemetry(spec["tenant"], namespace=spec["namespace"], pod=spec["pod"],
+                          token=os.environ[TENANT_TOKEN_ENV])
+    _reset_kernel_counts()
+    step_ms = []
+    for _ in range(spec["steps"]):
+        t0 = time.perf_counter()
+        with tel.step(tokens=float(tokens.numel())):
+            logits = forward(params, tokens, cfg)
+            torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = _kernel_counts()
+    t0 = time.perf_counter()
+    published = tel.publish(spec["url"])
+    print(json.dumps({"fleet_child": {
+        "ready_at": t_ready, "uuid": uuid, "device": torch.cuda.get_device_name(0),
+        "launches": launches, "nll": next_token_nll(logits, tokens).item(),
+        "finite": bool(torch.isfinite(logits).all()), "shape": list(logits.shape),
+        "tenant": spec["tenant"], "steps": spec["steps"], "step_ms": step_ms,
+        "published": published, "publish_ms": (time.perf_counter() - t0) * 1e3}}))
+
+
+def _fleet_tenant(uuid: str, url: str, token: str) -> dict:
+    """Run the fleet child on `uuid`, publishing to `url`; check its device,
+    launches (FLEET["STEPS"] forwards), NLL and publish. Returns its report
+    with exec_to_cuda_ready_ms."""
+    spec = {"uuid": uuid, "url": url, "tenant": "default/tenant-fleet",
+            "namespace": "default", "pod": "tenant-fleet", "steps": FLEET["STEPS"]}
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": uuid, TENANT_TOKEN_ENV: token}
+    t_spawn = time.time()
+    out = subprocess.run([sys.executable, os.path.abspath(__file__), "--fleet-child",
+                          json.dumps(spec)], capture_output=True, text=True, timeout=600,
+                         env=env)
+    if out.returncode != 0:
+        raise RuntimeError(f"fleet child exited {out.returncode}:\n{out.stdout[-2000:]}\n"
+                           f"{out.stderr[-4000:]}")
+    report = next(json.loads(line) for line in out.stdout.splitlines()
+                  if line.startswith("{"))["fleet_child"]
+    cfg = full_width_config()
+    _check_counts("fleet child", report["launches"],
+                  {"flash_fwd": cfg.n_layers * FLEET["STEPS"], "dq": 0, "dkv": 0,
+                   "flash_decode": 0})
+    nll = report["nll"]
+    if not (report["finite"] and report["shape"] == [FULL["B"], FULL["L"], cfg.vocab]
+            and 0 <= nll - math.log(cfg.vocab) < NLL_ABOVE_UNIFORM and report["published"]):
+        raise RuntimeError(f"the fleet child's forwards or its publish: {report}")
+    report["exec_to_cuda_ready_ms"] = (report["ready_at"] - t_spawn) * 1e3
+    return report
+
+
+def phase_fleet(card: str, master_live: dict) -> int:
+    """Phase 17: ``entry.fleet_check`` on the card (see the module's
+    docstring), a line for each case. Returns the flash_fwd launches of the
+    tenant child."""
+    t_phase = time.perf_counter()
+    children = []
+
+    def on_mounted(uuids, target, url, token):
+        visible = gpus_visible_in_dev(target)
+        if visible != 1:
+            raise RuntimeError(f"gpus_visible_in_dev({target}) = {visible} after the add of "
+                               f"{uuids}")
+        children.append(_fleet_tenant(uuids[0], url, token))
+        return {"tenant": children[-1]["tenant"], "steps": children[-1]["steps"]}
+
+    with _tenant_target("phase17") as (dev_dir, cgroup_dir):
+        report = fleet_check("cuda", dev_dir=dev_dir, ns_pid=os.getpid(),
+                             cgroup_dirs=[cgroup_dir] if cgroup_dir else (),
+                             identity=pick_identity(), repeats=MOUNT["REPEATS"],
+                             on_mounted=on_mounted)
+    f = report["live"]
+    if f is None or len(children) != 1:
+        raise RuntimeError(f"phase 17 ran no live flows with their tenant child on the card: "
+                           f"live {f is not None}, {len(children)} child(ren)")
+    child = children[0]
+    med = statistics.median
+    node, tr = f["node"], f["trace"]
+    print(f"time fleet (a) {len(f['add_ms'])} live HTTP adds {_runs(f['add_ms'])}, removes "
+          f"{_runs(f['remove_ms'])}; phase 11's add {_runs(master_live['add_ms'])} [{card}]",
+          flush=True)
+    print(f"time fleet (b) the tenant child on {child['uuid']} ({child['device']}): "
+          f"{child['steps']} forwards through flash_fwd ({child['launches']['flash_fwd']} "
+          f"launches), steps {_runs(child['step_ms'])}, nll {child['nll']:.4f}, exec to CUDA "
+          f"ready {child['exec_to_cuda_ready_ms']:.1f} ms; its POST /tenant-telemetry "
+          f"{child['publish_ms']:.3f} ms; /tenants lists {child['tenant']} on "
+          f"{f['tenant_seen']['node']} with {f['tenant_seen']['steps']} step(s), "
+          f"{f['tenant_seen']['tokens_per_s']:.0f} tokens/s [{card}]", flush=True)
+    print(f"time fleet (c) collection pass over CollectTelemetry {_runs(f['collect_ms'])}; "
+          f"/fleet's {node['mode']} node: {node['mount']['count']} mounts in the process, "
+          f"p50 {node['mount']['p50_ms']} ms, p95 {node['mount']['p95_ms']} ms, this phase's "
+          f"{len(f['add_ms'])} adds among them, the total the nodes' sum; the exemplar "
+          f"{f['exemplar']} (an add's trace) in /fleet and in /metrics as OpenMetrics; "
+          f"/trace/<first add> complete, {tr['remote_spans']} span(s) federated through the "
+          f"remote store, wall {tr['wall_ms']:.3f} ms, phases {tr['phases']} (sum within "
+          f"max(2 ms, 5%)), dominant {tr['dominant']['phase']} "
+          f"({tr['dominant']['share']:.0%}); one /trace/<id> assembly "
+          f"{_runs(f['trace_ms'])} [{card}]", flush=True)
+    print(f"time fleet (c) /slo over the phase's adds (windows {FLEET_SLO_WINDOW_S} s): "
+          f"{f['slo']}; breach Events {f['breach_messages']} [{card}]", flush=True)
+    scopes = f["scopes"]
+    print(f"time fleet (c) the read scope: the read token on /addgpu "
+          f"{scopes['read_on_add']}, on POST /tenant-telemetry "
+          f"{scopes['read_on_tenant_post']}; without a token "
+          f"{sorted(set(scopes['no_token'].values()))} on all {len(scopes['no_token'])} reads "
+          f"of both daemons [{card}]", flush=True)
+    c, sc = f["costs"], f["scrape"]
+    add_ms = med(master_live["add_ms"])
+    print(f"time fleet (c) costs, medians of {len(c['call_ms'])}: one CollectTelemetry call "
+          f"{_runs(c['call_ms'])} with {med(c['payload_bytes']):.0f} bytes of payload; one "
+          f"POST /tenant-telemetry {_runs(c['post_ms'])}; one snapshot "
+          f"{med(c['snapshot_us']):.1f} us, "
+          f"{100 * med(c['snapshot_us']) / 1e3 / add_ms:.3f}% of phase 11's add "
+          f"({add_ms:.3f} ms; stated, not gated) [{card}]", flush=True)
+    print(f"time fleet (d) a worker without CollectTelemetry: mode {sc['mode']}, "
+          f"{sc['mount_count']:.0f} mounts and {sc['success']:.0f} successes as the RPC's "
+          f"rollup, {sc['spans']} spans, tenants {sc['tenants']}; the scrape pass "
+          f"{_runs(sc['scrape_ms'])} [{card}]", flush=True)
+    print(f"time fleet phase 17: {time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
+    return child["launches"]["flash_fwd"]
+
+
 def phase_forward_timing(cfg, params, tokens, card, what="forward") -> None:
     fwd_ms = _time_ms(lambda: forward(params, tokens, cfg), 5, warmup=1)
     tok_s = tokens.numel() / (fwd_ms / 1e3)
@@ -3350,6 +3526,9 @@ def main() -> int:
         return 0
     if sys.argv[1:2] == ["--v2-child"]:
         _v2_child(json.loads(sys.argv[2]))
+        return 0
+    if sys.argv[1:2] == ["--fleet-child"]:
+        _fleet_child(json.loads(sys.argv[2]))
         return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3447,6 +3626,8 @@ def _phases(stage: list, t0: float) -> None:
     degraded_launches = phase_degraded(card, master_live)
     begin("16 (sharded masters and the warm pool on a live hot-mount)")
     pool_launches = phase_shard_pool(card, master_live)
+    begin("17 (the fleet planes on a live hot-mount)")
+    fleet_launches = phase_fleet(card, master_live)
     sharded = {k: sharded_launches[k] + seq_pipe_launches[k] + grow_launches[k]
                + dryrun_launches[k] for k in sharded_launches}
 
@@ -3467,8 +3648,9 @@ def _phases(stage: list, t0: float) -> None:
           f"cgroup v2 round trip's tenant (phase 12): flash_fwd {v2_launches}; the replayed "
           f"GPU's tenant (phase 14): flash_fwd {durability_launches}; the GPU added after the "
           f"read partition's heal (phase 15): flash_fwd {degraded_launches}; the first pooled "
-          f"GPU's tenant (phase 16): flash_fwd {pool_launches}", flush=True)
-    print(f"chip_smoke: phases 1-16 took {time.perf_counter() - t0:.1f} s, the kernels' build "
+          f"GPU's tenant (phase 16): flash_fwd {pool_launches}; the fleet phase's tenant "
+          f"(phase 17): flash_fwd {fleet_launches}", flush=True)
+    print(f"chip_smoke: phases 1-17 took {time.perf_counter() - t0:.1f} s, the kernels' build "
           f"included [{card}]", flush=True)
     bwd_source = "gpumounter_tpu_torch/ops/csrc/flash_bwd.cu"
     print(json.dumps({"kernels": [{
@@ -3478,7 +3660,7 @@ def _phases(stage: list, t0: float) -> None:
         "launches": (launches + prefill_launches + train_fwd + moe_launches + moe_prefill
                      + moe_fwd + handoff_launches["flash_fwd"] + sharded["flash_fwd"]
                      + mount_launches + v2_launches + durability_launches
-                     + degraded_launches + pool_launches),
+                     + degraded_launches + pool_launches + fleet_launches),
         "max_abs_err": max_abs_err, **times}, {
         "name": "flash_bwd_dq", "route": "cuda", "source": bwd_source,
         "replaces": "gpumounter_tpu/ops/flash_attention.py:182",

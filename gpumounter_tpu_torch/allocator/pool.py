@@ -29,8 +29,10 @@ cold create-and-wait.
   * warm holders carry no owner labels, so the slave reaper leaves them be.
 
 ``set_drained`` (a node quarantined by the master's health plane) releases a
-node's holders and pauses its refills; its RPC caller comes with the fleet
-planes. The pool lists and patches pods through the worker's kube client.
+node's holders and pauses its refills; its caller is the worker's
+CollectTelemetry, whose request carries the master's verdict
+(``worker/server.py``). The pool lists and patches pods through the
+worker's kube client.
 
 Failpoint ``pool.refill``: fired before each refill's pod create (ctx: node),
 to show that a failing refill stays off the mount path.

@@ -4,10 +4,10 @@ The counterpart of ``gpumounter_tpu/config/config.py``, holding only the
 fields the device layer, the collector, the allocator, the cgroup layer, the
 mounter, the transport, the master (with its slice and batch routes and their
 fan-out core), the observability stores, the worker's ledger and drain, the master's
-store with its API-outage degraded mode, the sharded masters, the warm pool, and the
-two daemons read. Every field is an environment
-variable with the original GPUMounter's value as default; the names are the reference's where the
-meaning is the same. NVIDIA-specific: the resource ``nvidia.com/gpu``
+store with its API-outage degraded mode, the sharded masters, the warm pool, the
+fleet planes (telemetry, SLOs, tenants, the trace assembly) and the two daemons
+read. Every field is an environment variable with the original GPUMounter's value
+as default; the names are the reference's where the meaning is the same. NVIDIA-specific: the resource ``nvidia.com/gpu``
 (``pkg/util/gpu/types.go:10``), the pool namespace ``gpu-pool``
 (``types.go:18``), the worker pods' label ``app=gpu-mounter-worker``, the
 request cap ``MAX_GPU_PER_REQUEST``, and where a GPU's identity is read.
@@ -151,6 +151,10 @@ class Config:
         _env("RPC_ADD_TIMEOUT_S", "300")))
     rpc_remove_timeout_s: float = field(default_factory=lambda: float(
         _env("RPC_REMOVE_TIMEOUT_S", "120")))
+    # CollectTelemetry reads memory: it fails fast, so that one wedged
+    # worker cannot stall a fleet pass
+    rpc_telemetry_timeout_s: float = field(default_factory=lambda: float(
+        _env("RPC_TELEMETRY_TIMEOUT_S", "10")))
     rpc_max_attempts: int = field(default_factory=lambda: int(_env("RPC_MAX_ATTEMPTS", "3")))
     rpc_retry_base_s: float = field(default_factory=lambda: float(
         _env("RPC_RETRY_BASE_S", "0.1")))
@@ -175,6 +179,13 @@ class Config:
     auth_mode: str = field(default_factory=lambda: _env("TPUMOUNTER_AUTH", "token"))
     auth_token: str = field(default_factory=lambda: _env("TPUMOUNTER_AUTH_TOKEN", ""))
     auth_token_file: str = field(default_factory=lambda: _env("TPUMOUNTER_AUTH_TOKEN_FILE", ""))
+    # the read scope of the observability routes (/metrics, /fleet, /slo,
+    # /tenants, /audit, /trace, /timeline, /apihealth, /shards and the
+    # worker's ops port): a credential that reads and never mutates; unset,
+    # /metrics stays open and the other reads want the mutate token
+    auth_read_token: str = field(default_factory=lambda: _env("TPUMOUNTER_AUTH_READ_TOKEN", ""))
+    auth_read_token_file: str = field(default_factory=lambda: _env(
+        "TPUMOUNTER_AUTH_READ_TOKEN_FILE", ""))
 
     # --- observability (obs/) ---
     # append-only JSONL sinks of finished spans and audit records ("": the
@@ -192,6 +203,30 @@ class Config:
     flight_capacity: int = field(default_factory=lambda: int(_env(
         "TPUMOUNTER_FLIGHT_CAPACITY", "4096")))
     flight_jsonl: str = field(default_factory=lambda: _env("TPUMOUNTER_FLIGHT_JSONL", ""))
+    # the fleet's trace plane (obs/assembly.py): the newest spans a worker
+    # sends a CollectTelemetry snapshot (0: none), and the master's store
+    # of the spans federated from the workers
+    span_export_max: int = field(default_factory=lambda: int(_env(
+        "TPUMOUNTER_SPAN_EXPORT_MAX", "512")))
+    remote_span_capacity: int = field(default_factory=lambda: int(_env(
+        "TPUMOUNTER_REMOTE_SPAN_CAPACITY", "8192")))
+    # the fleet collector's period (obs/fleet.py), also the age past which
+    # a /fleet, /slo or /tenants read collects first
+    fleet_scrape_interval_s: float = field(default_factory=lambda: float(
+        _env("FLEET_SCRAPE_INTERVAL_S", "15")))
+    # the SLO objectives as a JSON list (obs/slo.py; "": the defaults), and
+    # the two-window burn rate: a breach needs the burn over the threshold
+    # in both windows
+    slo_objectives: str = field(default_factory=lambda: _env("TPUMOUNTER_SLO_OBJECTIVES", ""))
+    slo_fast_window_s: float = field(default_factory=lambda: float(
+        _env("SLO_FAST_WINDOW_S", "300")))
+    slo_slow_window_s: float = field(default_factory=lambda: float(
+        _env("SLO_SLOW_WINDOW_S", "3600")))
+    slo_burn_threshold: float = field(default_factory=lambda: float(
+        _env("SLO_BURN_THRESHOLD", "2.0")))
+    # the worker's tenant store (obs/tenants.py): snapshots from more
+    # distinct tenants than this fold into one _overflow entry
+    tenant_max: int = field(default_factory=lambda: int(_env("TPUMOUNTER_TENANT_MAX", "256")))
 
     # --- the worker's durability (worker/ledger.py, resync.py, server.py) ---
     # the fsync'd mount ledger's directory ("": no ledger, no replay; the

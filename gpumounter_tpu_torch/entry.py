@@ -13,7 +13,11 @@ host's GPU (``cgroup_v2_check``), the trace, audit and failpoint core
 death, the drain, the fence and the reaper (``durability_check``), and the
 master's store through an API outage: ApiHealth, the bounded-staleness
 cache, the write-behind queue and the worker's deferred releases
-(``degraded_check``)."""
+(``degraded_check``), sharded masters and the warm pool
+(``shard_pool_check``), and the fleet planes: the collector over
+CollectTelemetry and its scrape fallback, the SLOs, the tenants' telemetry
+through the worker's ops port and the trace assembly under the read scope
+(``fleet_check``)."""
 
 from __future__ import annotations
 
@@ -54,7 +58,8 @@ from gpumounter_tpu_torch.master.shard import ShardManager
 from gpumounter_tpu_torch.models.probe import (TransformerConfig, _attend, _block, _embed,
                                                _finish_block, _rmsnorm, forward, init_params,
                                                local_heads, loss_fn, next_token_nll)
-from gpumounter_tpu_torch.obs import audit, trace
+from gpumounter_tpu_torch.obs import assembly, audit, trace
+from gpumounter_tpu_torch.obs.fleet import FleetCollector, worker_telemetry_snapshot
 from gpumounter_tpu_torch.ops.flash_attention import (attention_plain, flash_attention,
                                                       flash_attention_bwd_kernel,
                                                       flash_attention_kernel)
@@ -91,8 +96,9 @@ from gpumounter_tpu_torch.utils.fanout import FANOUT_TASKS
 from gpumounter_tpu_torch.utils.metrics import MOUNT_ROLLBACK_FAILURES
 from gpumounter_tpu_torch.worker.ledger import LEDGER_APPENDS, MountLedger
 from gpumounter_tpu_torch.worker.reaper import SlaveReaper
+from gpumounter_tpu_torch.worker.main import serve_ops
 from gpumounter_tpu_torch.worker.server import (FENCED_WRITES, SLAVE_RELEASE_DEFERRED,
-                                                ServiceError)
+                                                ServiceError, build_server)
 
 TRAIN_GRAD_ATOL = 5e-3  # the reference's kernel-vs-xla grad limit
 # The dryrun's limits: a sharded first-step loss against the unsharded loss
@@ -1567,9 +1573,13 @@ def _http(base: str, method: str, path: str, token: str | None, form: dict | Non
 
 
 def _http_with_headers(base: str, method: str, path: str, token: str | None,
-                       form: dict | None = None, payload=None) -> tuple[int, str, float, dict]:
-    """``_http``'s answer and the response's headers."""
+                       form: dict | None = None, payload=None,
+                       accept: str = "") -> tuple[int, str, float, dict]:
+    """``_http``'s answer and the response's headers; `accept`, the
+    request's Accept header."""
     headers = {"Authorization": f"Bearer {token}"} if token else {}
+    if accept:
+        headers["Accept"] = accept
     data = urllib.parse.urlencode(form, doseq=True).encode() if form is not None else None
     if payload is not None:
         data = json.dumps(payload).encode()
@@ -1596,9 +1606,9 @@ class _MasterStack:
     """The master's HTTP API on 127.0.0.1 in front of one gRPC worker server
     a node of `cluster`, each node's kubelet over gRPC, mounting into
     `dev_dirs[node]`. Node i's worker registers at 10.0.0.<i + 1>; every
-    server listens on 127.0.0.1, so the master's worker_client_factory is
-    its default client with a registered IP mapped to its server's port.
-    ``restart(node)`` replaces a node's worker by a new one over the same
+    server listens on 127.0.0.1, so the master's worker_client_factory and
+    its telemetry_client_factory are its default clients with a registered
+    IP mapped to its server's port. ``restart(node)`` replaces a node's worker by a new one over the same
     ledger, as after its death. Stops all it started on exit.
 
     With `replicas` > 0 the master is that many sharded replicas
@@ -1633,7 +1643,10 @@ class _MasterStack:
                             worker_client_factory=lambda address, i=i: WorkerClient(
                                 self.workers.local_address(address), token=self.token,
                                 cfg=self.cfg, breaker=self.apps[i].registry.breaker,
-                                channel_pool=self.apps[i].registry.channel_pool))
+                                channel_pool=self.apps[i].registry.channel_pool),
+                            telemetry_client_factory=lambda address: WorkerClient(
+                                self.workers.local_address(address), token=self.token,
+                                cfg=self.cfg))
             httpd = build_http_server(app, port=0, host="127.0.0.1")
             threading.Thread(target=httpd.serve_forever, name="master-http",
                              daemon=True).start()
@@ -3655,4 +3668,306 @@ def shard_pool_check(device="cuda", *, dev_dir: str | None = None, ns_pid: int |
     report["live" if device.type == "cuda" else "fake"] = flows
     if failpoints.active():
         raise RuntimeError(f"failpoints left armed: {failpoints.active()}")
+    return report
+
+
+# --- the fleet planes: telemetry, SLOs, tenants and the trace assembly ---
+
+#: the SLO windows of fleet_check: short enough that the collection before
+#: the adds falls out of them by the final pass, so the burn rates judge the
+#: check's own adds and not the process's earlier mounts
+FLEET_SLO_WINDOW_S = 1.0
+#: the read routes of the master and of the worker's ops port: every one
+#: answers 401 without a token
+MASTER_READ_ROUTES = ("/metrics", "/fleet", "/slo", "/tenants", "/audit", "/timeline",
+                      "/apihealth", "/shards")
+OPS_READ_ROUTES = ("/metrics", "/telemetry", "/audit", "/timeline", "/apihealth")
+#: the fleet check's times are the host's
+_HOST = torch.device("cpu")
+
+
+class _StaticWorkers:
+    """A registry of fixed node -> worker IP, for a collector of its own."""
+
+    def __init__(self, nodes: dict[str, str]):
+        self.nodes = dict(nodes)
+
+    def registry_snapshot(self) -> dict[str, str]:
+        return dict(self.nodes)
+
+
+def _expected_verdicts(before: dict, after: dict, cfg) -> dict[str, bool]:
+    """The breach verdicts of the mount objectives over the check's own
+    adds, from two rollups: the share of mounts within 50 ms (the latency
+    objective's bucket) and of successes, each against its budget at
+    SLO_BURN_THRESHOLD; an objective with no traffic in the window cannot
+    breach."""
+
+    def delta(key: str) -> float:
+        return float(after["fleet"][key]) - float(before["fleet"][key])
+
+    def within(rollup: dict, bound: float) -> float:
+        return sum(c for b, c in rollup["fleet"]["mount_buckets"] if abs(b - bound) < 1e-12)
+
+    def breached(good: float, total: float, target: float) -> bool:
+        return total > 0 and ((total - good) / total) / (1 - target) >= cfg.slo_burn_threshold
+
+    total = delta("mount_count")
+    return {"mount-latency-50ms": breached(within(after, 0.05) - within(before, 0.05), total,
+                                           0.95),
+            "mount-success": breached(delta("mount_success"),
+                                      delta("mount_success") + delta("mount_error"), 0.999)}
+
+
+def _fleet_flows(stack: _MasterStack, dev_dir: str, ops_base: str, read: str, repeats: int,
+                 live: bool, on_mounted) -> dict:
+    """(a) `repeats` HTTP adds and removes of one GPU, the first with
+    on_mounted(uuids, dev_dir, ops_base, token) -> {"tenant", "steps", ...}
+    while it is mounted; (c) the collection and every read with the read
+    token, each checked. Returns the flows' numbers."""
+    cluster, app = stack.cluster, stack.app
+    node = cluster.node_name
+    pod = cluster.add_target_pod("tenant-fleet")
+    free = cluster.free_gpu_count()
+    # the baseline: a pass of a collector of its own, into the engine as a
+    # sample and not evaluated, so that the engine's breaches are the
+    # check's adds' and not the process's earlier mounts'
+    before = FleetCollector(app.registry, app.fleet.client_factory,
+                            cfg=app.cfg).collect_once()
+    app.slo.ingest(before)
+    t_before = time.monotonic()
+    events_before = len(cluster.kube.events_posted)
+    records_before = len(audit.AUDIT.query(operation="slo.breach"))
+    out: dict = {"add_ms": [], "remove_ms": [], "trace_ids": [], "tenant": None}
+    for i in range(repeats):
+        status, body, ms, tid = stack.traced("GET", _add_path(pod, 1))
+        if (status, body) != (200, "Add GPU Success\n"):
+            raise RuntimeError(f"GET {_add_path(pod, 1)}: {status} {body!r}")
+        out["add_ms"].append(ms)
+        out["trace_ids"].append(tid)
+        uuids = stack.held(node, pod)
+        _check_nodes(cluster.backend, uuids, dev_dir, live)
+        if on_mounted is not None and i == 0:
+            out["tenant"] = on_mounted(uuids, dev_dir, ops_base, stack.token)
+        status, body, ms = stack.http("POST", _remove_path(pod), {"uuids": ",".join(uuids)})
+        if (status, body) != (200, "Remove 1 GPUs Success\n"):
+            raise RuntimeError(f"POST {_remove_path(pod)} {uuids}: {status} {body!r}")
+        out["remove_ms"].append(ms)
+        _released(cluster, pod, free)
+    # the baseline's sample must be out of the SLO windows by the final pass
+    time.sleep(max(0.0, FLEET_SLO_WINDOW_S - (time.monotonic() - t_before)))
+    passes = [_timed(app.fleet.collect_once, _HOST) for _ in range(repeats)]
+    out["collect_ms"] = [ms for _, ms in passes]
+
+    def read_json(path: str):
+        status, body, ms = stack.http("GET", path, token=read)
+        if status != 200:
+            raise RuntimeError(f"GET {path} with the read token: {status} {body!r}")
+        return json.loads(body), ms
+
+    # /slo first: the passes' samples are inside its windows, the baseline's
+    # out of them
+    slo, _ = read_json("/slo")
+    verdicts = {o["name"]: o["breached"] for o in slo["objectives"]}
+    expected = {name: False for name in verdicts}
+    expected.update(_expected_verdicts(before, passes[-1][0], app.cfg))
+    if verdicts != expected:
+        raise RuntimeError(f"/slo's verdicts {verdicts} over the check's adds, expected "
+                           f"{expected}")
+    breaches = [m for _, m in cluster.kube.events_posted[events_before:]
+                if m.get("reason") == "GPUSLOBurnRate"]
+    records = len(audit.AUDIT.query(operation="slo.breach")) - records_before
+    if len(breaches) != sum(verdicts.values()) or records != len(breaches):
+        raise RuntimeError(f"{sum(verdicts.values())} breach(es) but {len(breaches)} "
+                           f"GPUSLOBurnRate Event(s) and {records} audit record(s)")
+    out["slo"] = {o["name"]: {k: o[k] for k in ("breached", "sli", "burn_fast")}
+                  for o in slo["objectives"] if o["total_events"]}
+    out["breach_messages"] = [m["message"] for m in breaches]
+    fleet, _ = read_json("/fleet")
+    entry = fleet["nodes"].get(node) or {}
+    out["node"] = {k: entry.get(k) for k in ("mode", "breaker", "mount", "warm_pool")}
+    adds = entry.get("mount", {}).get("count", 0) - before["nodes"][node]["mount"]["count"]
+    if entry.get("mode") != "rpc" or adds != repeats:
+        raise RuntimeError(f"/fleet's {node}: mode {entry.get('mode')!r}, {adds} mount(s) "
+                           f"counted for the {repeats} add(s): {entry}")
+    node_sum = sum(e["mount"]["count"] for e in fleet["nodes"].values())
+    if fleet["fleet"]["mount_count"] != node_sum:
+        raise RuntimeError(f"/fleet's total {fleet['fleet']['mount_count']} != the nodes' sum "
+                           f"{node_sum}")
+    exemplars = {ex["trace_id"] for ex in entry.get("exemplars", [])}
+    out["exemplar"] = next((t for t in out["trace_ids"] if t in exemplars), None)
+    if out["exemplar"] is None:
+        raise RuntimeError(f"no exemplar of /fleet names an add's trace: {exemplars} against "
+                           f"{out['trace_ids']}")
+    status, metrics, _, headers = _http_with_headers(stack.base, "GET", "/metrics", read,
+                                                     accept="application/openmetrics-text")
+    ctype = next((v for k, v in headers.items() if k.lower() == "content-type"), "")
+    if status != 200 or not ctype.startswith("application/openmetrics-text") \
+            or f'trace_id="{out["exemplar"]}"' not in metrics:
+        raise RuntimeError(f"/metrics as OpenMetrics ({status}, {ctype!r}) carries no exemplar "
+                           f"of the adds")
+    if out["tenant"] is not None:
+        tenants, _ = read_json("/tenants")
+        seen = tenants["tenants"].get(out["tenant"]["tenant"])
+        if seen is None or seen["steps"] != out["tenant"]["steps"] or seen["node"] != node:
+            raise RuntimeError(f"/tenants: {out['tenant']['tenant']} -> {seen}, the tenant took "
+                               f"{out['tenant']['steps']} step(s) on {node}")
+        out["tenant_seen"] = {k: seen[k] for k in ("node", "steps", "tokens_per_s")}
+    tid = out["trace_ids"][0]
+    remote = [s for s in assembly.REMOTE_SPANS.spans_for(tid) if s.get("node") == node]
+    tree, _ = read_json(f"/trace/{tid}")
+    phase_sum = sum(tree["phases"].values())
+    if not tree["complete"] or not any(s["name"].startswith("worker.") for s in remote) \
+            or abs(phase_sum - tree["wall_ms"]) > max(2.0, 0.05 * tree["wall_ms"]):
+        raise RuntimeError(f"/trace/{tid}: complete {tree['complete']}, {len(remote)} span(s) "
+                           f"federated from {node}, phases {tree['phases']} summing to "
+                           f"{phase_sum:.3f} of {tree['wall_ms']:.3f} ms")
+    out["trace"] = {"wall_ms": tree["wall_ms"], "phases": tree["phases"],
+                    "dominant": tree["dominant"], "remote_spans": len(remote)}
+    out["trace_ms"] = [read_json(f"/trace/{tid}")[1] for _ in range(repeats)]
+    return out
+
+
+def _fleet_scopes(stack: _MasterStack, ops_base: str, read: str, tid: str) -> dict:
+    """The scopes: the read token refused on a mutation of each daemon, and
+    every read of each refused without a token."""
+    pod = Pod({"metadata": {"name": "scope-probe", "namespace": "default"}})
+    out = {"read_on_add": stack.http("GET", _add_path(pod, 1), token=read)[0],
+           "read_on_tenant_post": _http(ops_base, "POST", "/tenant-telemetry", read,
+                                        payload={"schema": "tpumounter-tenant/1",
+                                                 "tenant": "forged"})[0]}
+    out["no_token"] = {f"master {p}": stack.http("GET", p, token=None)[0]
+                       for p in MASTER_READ_ROUTES + (f"/trace/{tid}",)}
+    out["no_token"].update({f"ops {p}": _http(ops_base, "GET", p, None)[0]
+                            for p in OPS_READ_ROUTES + (f"/trace/{tid}",)})
+    refused = {k: v for k, v in out["no_token"].items() if v != 401}
+    if out["read_on_add"] != 401 or out["read_on_tenant_post"] != 401 or refused:
+        raise RuntimeError(f"the read scope: the read token on /addgpu {out['read_on_add']} "
+                           f"and on POST /tenant-telemetry {out['read_on_tenant_post']}, reads "
+                           f"without a token answered {refused}")
+    return out
+
+
+def _fleet_costs(stack: _MasterStack, ops_base: str, repeats: int) -> dict:
+    """One CollectTelemetry call and its payload's bytes, one POST
+    /tenant-telemetry of a snapshot, one snapshot built, `repeats` times."""
+    from gpumounter_tpu_torch.torchside.telemetry import TenantTelemetry
+    address = stack.app.registry.worker_address(stack.cluster.node_name)
+    out = {"call_ms": [], "payload_bytes": [], "post_ms": [], "snapshot_us": []}
+    probe = TenantTelemetry("fleet-check/post-probe", pod="post-probe", token=stack.token)
+    probe.record_step(0.01, tokens=1.0)
+    for _ in range(repeats):
+        # the collector's own client: a channel dialled for the call
+        with stack.app.fleet.client_factory(address) as client:
+            resp, ms = _timed(client.collect_telemetry, _HOST)
+        out["call_ms"].append(ms)
+        out["payload_bytes"].append(len(resp.telemetry.encode()))
+        ok, ms = _timed(lambda: probe.publish(ops_base), _HOST)
+        if not ok:
+            raise RuntimeError(f"POST {ops_base}/tenant-telemetry with the mutate token failed")
+        out["post_ms"].append(ms)
+        _, ms = _timed(lambda: worker_telemetry_snapshot(cfg=stack.cfg), _HOST)
+        out["snapshot_us"].append(ms * 1e3)
+    return out
+
+
+def _scrape_fallback(stack: _MasterStack, ops_port: int, repeats: int, rpc_count) -> dict:
+    """(d) A second worker on the node's service without CollectTelemetry
+    (``build_server(include_telemetry=False)``): a collector of its own
+    must scrape its /metrics through the ops port with the read token, and
+    find the same mount count as the RPC's rollup, no span and no tenant."""
+    node, service = stack.cluster.node_name, stack.services[stack.cluster.node_name]
+    legacy = build_server(service, address="127.0.0.1:0", include_telemetry=False)
+    legacy.start()
+    try:
+        cfg = dataclasses.replace(stack.cfg, worker_port=legacy.bound_port,
+                                  metrics_port=ops_port)
+        spans = assembly.RemoteSpanStore()
+        collector = FleetCollector(
+            _StaticWorkers({node: "127.0.0.1"}),
+            lambda address: WorkerClient(address, token=stack.token, cfg=cfg), cfg=cfg,
+            span_store=spans)
+        runs = [_timed(collector.collect_once, _HOST) for _ in range(repeats)]
+    finally:
+        legacy.stop(None).wait()
+    entry = runs[-1][0]["nodes"][node]
+    out = {"scrape_ms": [ms for _, ms in runs], "mode": entry.get("mode"),
+           "mount_count": entry["mount"]["count"], "success": entry["mount"]["success"],
+           "spans": len(spans), "tenants": entry.get("tenants"),
+           "exemplars": entry.get("exemplars")}
+    if (out["mode"], out["spans"], out["tenants"], out["exemplars"]) != ("scrape", 0, {}, []) \
+            or out["mount_count"] != rpc_count or out["success"] < 1:
+        raise RuntimeError(f"the scrape fallback: {out}, the RPC's rollup counted {rpc_count}")
+    return out
+
+
+def fleet_check(device="cuda", *, dev_dir: str | None = None, ns_pid: int | None = None,
+                cgroup_dirs=(), identity: str = "nvml", repeats: int = 3,
+                on_mounted=None) -> dict:
+    """The fleet planes on a live hot-mount (``_MasterStack`` over HTTP and
+    gRPC, the master with a read token beside its mutate token, the worker's
+    ops port on a free port of 127.0.0.1). Without grpcio it raises
+    ``ModuleNotFoundError`` naming grpcio.
+
+    (a) `repeats` HTTP adds and removes of one GPU, each add's trace id
+    kept; (b) on_mounted(uuids, dev_dir, ops_url, mutate_token) while the
+    first is mounted: a tenant that publishes its steps to the ops port and
+    returns {"tenant", "steps", ...}; (c) the collector's passes over the
+    worker's CollectTelemetry, then /fleet (the node's mounts == the adds,
+    the total == the nodes' sum), an exemplar naming an add (in /fleet and
+    in /metrics as OpenMetrics), /tenants (the tenant's steps), /trace/<id>
+    of the first add (complete, its worker spans federated through the
+    remote store, its phases summing to its wall time within max(2 ms,
+    5%)), /slo (each verdict the one its objective gives the check's own
+    adds, FLEET_SLO_WINDOW_S windows; a breach with its GPUSLOBurnRate Event
+    and audit record), all with the read token; the read token refused on
+    /addgpu and POST /tenant-telemetry, every read refused without a token;
+    the costs (one CollectTelemetry call and its bytes, one POST, one
+    snapshot); (d) a second worker without CollectTelemetry, scraped.
+
+    On the card (device="cuda") on the live ``NvidiaDeviceBackend`` (as
+    ``master_check``: `dev_dir`, `ns_pid`, `cgroup_dirs`, `identity`), and
+    without CAP_MKNOD it raises; on the CPU on a fake host of 2 GPUs. Runs
+    on the card unless the caller passes device="cpu".
+
+    Returns {"cap_mknod", "live" or "fake": the flows, the other None}; ms
+    on the host clock."""
+    device = resolve_device(device)
+    report = {"cap_mknod": has_cap_mknod(), "live": None, "fake": None}
+    live = device.type == "cuda"
+    if live and not report["cap_mknod"]:
+        raise RuntimeError("fleet_check on the card needs CAP_MKNOD: its adds and removes must "
+                           "be the card's own GPU's")
+    read = secrets.token_hex(16)
+    cfg = Config(auth_mode="token", auth_token=secrets.token_hex(16), auth_read_token=read,
+                 slo_fast_window_s=FLEET_SLO_WINDOW_S, slo_slow_window_s=FLEET_SLO_WINDOW_S,
+                 fleet_scrape_interval_s=3600.0, node_name="")
+    root = tempfile.mkdtemp(prefix="fleet-check-")
+    try:
+        if live:
+            cluster = FakeCluster(NvidiaDeviceBackend("/dev", identity=make_identity(identity)),
+                                  cfg=cfg)
+            target, dirs = _live_target(root, dev_dir, cgroup_dirs)
+            stack = _MasterStack(cluster, {cluster.node_name: target}, ns_pid, dirs)
+        else:
+            cluster = FakeCluster.with_fake_gpus(os.path.join(root, "fake"), 2, cfg=cfg)
+            target = os.path.join(root, "fake-tenant-dev")
+            os.makedirs(target)
+            stack = _MasterStack(cluster, {cluster.node_name: target})
+        ops = serve_ops(0, cfg, host="127.0.0.1")
+        ops_base = f"http://127.0.0.1:{ops.server_address[1]}"
+        try:
+            with stack:
+                flows = _fleet_flows(stack, target, ops_base, read, repeats, live, on_mounted)
+                flows["scopes"] = _fleet_scopes(stack, ops_base, read, flows["trace_ids"][0])
+                flows["costs"] = _fleet_costs(stack, ops_base, repeats)
+                flows["scrape"] = _scrape_fallback(
+                    stack, ops.server_address[1], repeats,
+                    stack.app.fleet.payload()["nodes"][cluster.node_name]["mount"]["count"])
+        finally:
+            ops.shutdown()
+            ops.server_close()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    report["live" if live else "fake"] = flows
     return report

@@ -14,8 +14,8 @@ multi-host routes:
     and queue) and /workers (node -> worker address);
   * the API-outage pane, as the reference's: GET /apihealth ->
     {"api": ApiHealth's payload, "store": the store's cache ages, its
-    write-behind queue (and the watch store's sync)}; untraced, and behind
-    the bearer token;
+    write-behind queue (and the watch store's sync)}; untraced, in the read
+    scope;
   * the reference's slice and batch routes, JSON in and out
     (``master/slice_ops.py``):
       POST /addslice      {"pods": [{"namespace", "pod"}, ...],
@@ -28,26 +28,40 @@ multi-host routes:
                            "isEntireMount"}, ...]}
                           -> {"results": [...], "summary": {"total",
                              "success", "byResult"}}
-  * the reference's observability reads (``obs/``), behind the bearer
-    token (the read token's scope comes with the fleet planes):
+  * the reference's observability reads (``obs/``), in the read scope:
       GET  /audit?namespace=&pod=&op=&trace=&outcome=&limit=
                           -> {"records": [...]}, newest first
-      GET  /trace/<id>    -> {"trace", "spans"}: this process's ring, in
-                             start order (``obs.trace.trace_payload``, the
-                             worker ops port's contract; the reference's
-                             master assembles both daemons' spans, which
-                             comes with ``obs/assembly.py``); 404 when the
-                             ring holds none
+      GET  /trace/<id>    -> the assembled trace (``obs.assembly.assemble``):
+                             this process's ring joined with the spans the
+                             fleet collector federated from the workers, as
+                             a waterfall with the wall time by phase and
+                             whether it is complete; an incomplete one is
+                             assembled again after one fleet pass (at most
+                             one a second); 404 when neither holds any
       GET  /timeline?node=&trace=&kind=&from=&to=&limit=
                           -> {"records": [...]}, the flight recorder's;
+  * the fleet planes (``obs/fleet.py``, ``obs/slo.py``), in the read scope
+    and untraced:
+      GET  /metrics       -> the exposition (OpenMetrics, with the
+                             histograms' trace-id exemplars, when the
+                             Accept header asks for it)
+      GET  /fleet         -> the ``FleetCollector``'s rollup, collected
+                             first when older than FLEET_SCRAPE_INTERVAL_S
+      GET  /slo           -> the ``SloEngine``'s burn rates over it
+      GET  /tenants       -> each tenant's steps and disruption windows;
+  * the read scope: with TPUMOUNTER_AUTH_READ_TOKEN set, the reads above
+    and /shards take it or the mutate token (which implies read), and
+    nothing else; without it /metrics stays open and the other reads want
+    the mutate token. The read token never authorizes a mutation;
   * one root span ``http.<route>`` a request (after the auth check, so an
     unauthenticated peer adds no span), its parent the caller's
     ``x-tpumounter-trace`` header when that is valid, its trace id on the
     response as ``X-Tpumounter-Trace``, a failure (an unhandled one too)
-    closing it as an error; /, /healthz and /timeline are not traced, as
-    in the reference. The pod's read is a ``k8s.get_pod`` span. The routes
-    that mutate (add, remove, batch_add, addslice, removeslice) leave an
-    edge audit record, its outcome "http <status>";
+    closing it as an error; /, /healthz, /timeline, /apihealth, /shards and
+    the fleet planes' reads are not traced, as in the reference. The pod's
+    read is a ``k8s.get_pod`` span. The routes that mutate (add, remove,
+    batch_add, addslice, removeslice) leave an edge audit record, its
+    outcome "http <status>";
   * the target pod is read to find its node (main.go:52-66): 404 when there
     is no pod, 400 when it is not scheduled;
   * the node's worker comes from ``WorkerRegistry`` (500 when there is
@@ -70,7 +84,8 @@ multi-host routes:
 
 Sharded masters (``master/shard.py``): with the shards active, /addgpu and
 /removegpu for a node another replica owns answer 307 to the owner's URL
-(503 with Retry-After when the shard has no live owner), the batch proxies
+(503 with Retry-After when the shard has no live owner), the fleet
+collector collects the nodes this replica owns, the batch proxies
 each peer's sub-batch to it once with FORWARDED_HEADER and the trace
 context (a forwarded request never hops again: NotOwner), and every worker
 call carries the owner shard's fencing epoch. GET /shards serves the shard
@@ -81,11 +96,10 @@ its own, and the wait is an ``http.admission`` span inside the edge span.
 As in the reference: gpuNum and a batch target's gpus are range-checked
 against MAX_GPU_PER_REQUEST (the original never checks it), a batch holds at
 most BULK_MAX_TARGETS targets, every route but the index and /healthz wants
-the bearer token (``utils/auth.py``), and a path of no route gets "404 page
-not found". The reference's other routes (intents, migrations, fleet, SLO,
-capacity, tenants, recovery, health, defrag, shares, autoscale, /metrics)
-come with the packages that serve them; until then their paths get that
-404, /batch/addtpu among them.
+a bearer token (``utils/auth.py``), and a path of no route gets "404 page
+not found". The reference's other routes (intents, migrations, capacity,
+recovery, health, defrag, shares, autoscale) come with the packages that
+serve them; until then their paths get that 404, /batch/addtpu among them.
 """
 
 from __future__ import annotations
@@ -113,8 +127,10 @@ from gpumounter_tpu_torch.master.slice_ops import (
     SliceError,
     SliceTarget,
 )
-from gpumounter_tpu_torch.obs import audit, flight, trace
+from gpumounter_tpu_torch.obs import assembly, audit, flight, trace
 from gpumounter_tpu_torch.obs.audit import audited
+from gpumounter_tpu_torch.obs.fleet import FleetCollector
+from gpumounter_tpu_torch.obs.slo import SloEngine
 from gpumounter_tpu_torch.rpc.api import AddGPUResult, RemoveGPUResult
 from gpumounter_tpu_torch.rpc.client import ChannelPool, WorkerClient
 from gpumounter_tpu_torch.rpc.resilience import BreakerOpenError, CircuitBreaker, FencedError
@@ -125,9 +141,10 @@ from gpumounter_tpu_torch.store import (
     WatchMasterStore,
 )
 from gpumounter_tpu_torch.topology import GPUS_PER_HOST
-from gpumounter_tpu_torch.utils.auth import check_bearer, required_token
+from gpumounter_tpu_torch.utils.auth import check_bearer, required_token, resolve_read_token
 from gpumounter_tpu_torch.utils.fanout import get_core
 from gpumounter_tpu_torch.utils.log import get_logger
+from gpumounter_tpu_torch.utils.metrics import REGISTRY
 
 logger = get_logger("master")
 
@@ -360,6 +377,11 @@ _ROUTES: list[tuple[str, re.Pattern, str]] = [
     ("GET", re.compile(r"^/audit(?:\?(?P<query>.*))?$"), "audit"),
     ("GET", re.compile(r"^/trace/(?P<tid>[^/?]+)$"), "trace"),
     ("GET", re.compile(r"^/timeline(?:\?(?P<query>.*))?$"), "timeline"),
+    # the fleet planes (obs/fleet.py, obs/slo.py)
+    ("GET", re.compile(r"^/metrics$"), "metrics"),
+    ("GET", re.compile(r"^/fleet$"), "fleet"),
+    ("GET", re.compile(r"^/slo$"), "slo"),
+    ("GET", re.compile(r"^/tenants$"), "tenants"),
 ]
 
 #: a slice's GPUs per host when the request names none: an H100 host's 8
@@ -414,24 +436,36 @@ class MasterApp:
 
     #: open without a token: the liveness surfaces (probes carry none)
     UNAUTHENTICATED_ROUTES = frozenset({"index", "healthz"})
+    #: the read scope: the read token or the mutate token; without a read
+    #: token /metrics is open and the others want the mutate token (they
+    #: name pods, tenants and GPUs)
+    READ_ROUTES = frozenset({"metrics", "audit", "trace", "timeline", "apihealth", "shards",
+                             "fleet", "slo", "tenants"})
     #: never traced: probes, and the panes a dashboard polls (their spans
     #: would rotate the operations' traces out of the ring)
-    UNTRACED_ROUTES = frozenset({"index", "healthz", "apihealth", "timeline", "shards"})
-    #: never behind the admission gate: a liveness probe must answer while
-    #: a mount storm fills the replica (a gated /healthz would turn load
-    #: into restarts)
-    UNGATED_ROUTES = frozenset({"index", "healthz"})
+    UNTRACED_ROUTES = frozenset({"index", "healthz", "metrics", "fleet", "slo", "tenants",
+                                 "apihealth", "timeline", "shards"})
+    #: never behind the admission gate: a liveness probe or a scrape must
+    #: answer while a mount storm fills the replica (a gated /healthz would
+    #: turn load into restarts)
+    UNGATED_ROUTES = frozenset({"index", "healthz", "metrics"})
     #: the routes that mutate: their edge outcome goes into the audit trail
     #: (the worker's records carry the GPUs of the same trace)
     AUDITED_ROUTES = frozenset({"add", "remove", "batch_add", "addslice", "removeslice"})
 
     def __init__(self, kube: KubeClient, cfg=None, worker_client_factory=None,
                  registry: WorkerRegistry | None = None, store: MasterStore | None = None,
-                 shards: ShardManager | None = None):
+                 shards: ShardManager | None = None, telemetry_client_factory=None):
         """worker_client_factory(address) -> a client with add_gpu,
         remove_gpu and the context-manager protocol; by default a
         ``WorkerClient`` with the deploy's token, the registry's breaker and
-        its pooled channel. `store`: by default ``CachedMasterStore`` over
+        its pooled channel. telemetry_client_factory(address) -> the fleet
+        collector's client, with collect_telemetry; by default a
+        ``WorkerClient`` with the deploy's token, a channel of its own and no
+        breaker, so that a pass over a worker that is down neither counts
+        against the mount path's breaker nor leaves the pooled channel in
+        gRPC's reconnect backoff (the reference shares both); when only
+        worker_client_factory is given, that one. `store`: by default ``CachedMasterStore`` over
         the list-backed store (the watch-backed one under
         TPUMOUNTER_WATCH_STORE), on the health-tracked client. `shards`: a
         ``ShardManager``, by default an inactive one (this master owns every
@@ -440,6 +474,7 @@ class MasterApp:
         AuthConfigError, unless TPUMOUNTER_AUTH=insecure (fail-closed)."""
         self.cfg = cfg or Config()
         self._token = required_token(self.cfg, "master HTTP API")
+        self._read_token = resolve_read_token(self.cfg)
         self.apihealth = api_health(cfg=self.cfg)
         self.kube = kube = wrap_health(kube, self.apihealth)
         if store is None:
@@ -462,13 +497,25 @@ class MasterApp:
             lambda addr: WorkerClient(addr, token=self._token, cfg=self.cfg,
                                       breaker=self.registry.breaker,
                                       channel_pool=self.registry.channel_pool))
+        if telemetry_client_factory is None:
+            telemetry_client_factory = worker_client_factory or (
+                lambda addr: WorkerClient(addr, token=self._token, cfg=self.cfg))
+        # the fleet planes: the collector pulls every owned worker's telemetry
+        # and feeds the SLO engine; its loop runs only after fleet.start()
+        # (master/main.py), and the reads collect on demand when the rollup
+        # is stale
+        self.slo = SloEngine(cfg=self.cfg, kube=kube)
+        self.fleet = FleetCollector(self.registry, telemetry_client_factory, cfg=self.cfg,
+                                    slo=self.slo, shards=self.shards)
         # root and error spans, audit records and the API's transitions onto
         # the timeline; idempotent
         flight.install(apihealth=self.apihealth)
 
     def close(self) -> None:
-        """Stop the registry's watch and its channels, and close the store
-        (its ApiHealth subscription, its probe, its watch and its queue)."""
+        """Stop the fleet collector's loop, the registry's watch and its
+        channels, and close the store (its ApiHealth subscription, its probe,
+        its watch and its queue)."""
+        self.fleet.stop()
         self.registry.stop()
         self.store.close()
 
@@ -559,9 +606,20 @@ class MasterApp:
             return status, ctype, text
 
     def _check_auth(self, route: str, headers: dict[str, str]) -> None:
-        if route in self.UNAUTHENTICATED_ROUTES or self._token is None:
+        if route in self.UNAUTHENTICATED_ROUTES:
             return
         value = next((v for k, v in headers.items() if k.lower() == "authorization"), None)
+        if route in self.READ_ROUTES:
+            if self._read_token is not None:
+                if check_bearer(value, self._read_token) or (
+                        self._token is not None and check_bearer(value, self._token)):
+                    return
+                logger.warning("unauthorized %s read refused", route)
+                raise _HttpError(401, "missing or invalid bearer token (read scope)")
+            if route == "metrics":
+                return  # the scrape surface stays open without a read token
+        if self._token is None:
+            return
         if not check_bearer(value, self._token):
             logger.warning("unauthenticated %s request refused", route)
             raise _HttpError(401, "missing or invalid bearer token")
@@ -637,9 +695,18 @@ class MasterApp:
         return 200, "application/json", json.dumps(payload, indent=1) + "\n"
 
     def _route_trace(self, match, body, headers):
-        """One trace's spans in this process's ring, in start order."""
+        """The assembled trace: this process's ring joined with the workers'
+        federated spans. An incomplete one (a worker's half not collected
+        yet) is assembled again after one fleet pass, at most one a second
+        (a polling dashboard must not turn into a scrape storm)."""
         tid = match.group("tid")
-        payload = trace.trace_payload(tid)
+        payload = assembly.assemble(tid)
+        if payload is not None and not payload["complete"]:
+            try:
+                self.fleet.refresh_if_stale(max_age_s=1.0)
+            except Exception:  # noqa: BLE001 — the join still answers
+                logger.exception("fleet refresh for /trace/%s failed", tid)
+            payload = assembly.assemble(tid)
         if payload is None:
             raise _HttpError(404, f"no spans buffered for trace {tid} (expired from the "
                                   f"ring, or minted elsewhere)")
@@ -654,6 +721,31 @@ class MasterApp:
         except ValueError:
             raise _HttpError(400, f"Invalid timeline filter: {params!r} (from/to/limit must "
                                   f"be numeric)")
+        return 200, "application/json", json.dumps(payload, indent=1) + "\n"
+
+    def _route_metrics(self, match, body, headers):
+        """The exposition; OpenMetrics, with the histograms' trace-id
+        exemplars, when the Accept header asks for it."""
+        accept = next((v for k, v in headers.items() if k.lower() == "accept"), "")
+        if "application/openmetrics-text" in accept:
+            return (200, "application/openmetrics-text; version=1.0.0",
+                    REGISTRY.render(openmetrics=True))
+        return 200, "text/plain; version=0.0.4", REGISTRY.render()
+
+    def _route_fleet(self, match, body, headers):
+        """The fleet's rollup, collected first when stale."""
+        payload = self.fleet.payload(max_age_s=self.cfg.fleet_scrape_interval_s)
+        return 200, "application/json", json.dumps(payload, indent=1) + "\n"
+
+    def _route_slo(self, match, body, headers):
+        """The burn rates, over a rollup refreshed first when stale."""
+        self.fleet.refresh_if_stale(self.cfg.fleet_scrape_interval_s)
+        return 200, "application/json", json.dumps(self.slo.payload(), indent=1) + "\n"
+
+    def _route_tenants(self, match, body, headers):
+        """Each tenant's steps and disruption windows, joined to the trace
+        plane."""
+        payload = self.fleet.tenants_payload(max_age_s=self.cfg.fleet_scrape_interval_s)
         return 200, "application/json", json.dumps(payload, indent=1) + "\n"
 
     def _route_workers(self, match, body, headers):

@@ -20,9 +20,13 @@ TPUMOUNTER_REPLICA_ID or HOSTNAME, TPUMOUNTER_ADVERTISE_URL,
 TPUMOUNTER_SHARD_PREFERRED) and hands its leases back on exit, so a peer takes
 them over at once, and a batch's node groups in flight are capped by shard
 (TPUMOUNTER_FANOUT_SHARD_BUDGET, where BULK_NODE_FANOUT caps them all when
-the count is 1); MASTER_HTTP_CONCURRENCY sets the admission gate. The
-reference's other background loops (elastic intents, recovery, defragmenter,
-autoscaler, canary, fleet collection) come with their packages.
+the count is 1); MASTER_HTTP_CONCURRENCY sets the admission gate. The fleet
+collector (``obs/fleet.py``) pulls every owned worker's telemetry each
+FLEET_SCRAPE_INTERVAL_S into the rollup of /fleet and the SLO engine's burn
+rates (TPUMOUNTER_SLO_OBJECTIVES, SLO_*), and stops before the app closes;
+the read scope is TPUMOUNTER_AUTH_READ_TOKEN. The reference's other
+background loops (elastic intents, recovery, defragmenter, autoscaler,
+canary) come with their packages.
 
     python -m gpumounter_tpu_torch.master.main
 """
@@ -50,6 +54,7 @@ def main() -> None:
         app.shards.start()
         logger.info("shard manager on: %d shards, replica %s, lease %.0fs",
                     app.shards.shard_count, app.shards.replica_id, app.shards.duration_s)
+    app.fleet.start()
     httpd = build_http_server(app)
 
     def _term(signum, frame):
@@ -68,7 +73,7 @@ def main() -> None:
         if cfg.shard_count > 1:
             # hand the leases back: the peers claim them now, not at expiry
             app.shards.stop(release=True)
-        app.close()
+        app.close()  # the fleet collector's loop first
 
 
 if __name__ == "__main__":

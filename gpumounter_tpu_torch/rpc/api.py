@@ -22,6 +22,12 @@ fields (9-10, ``vchip/``). ``phases_ms`` is on no message of
 the reference: it stays off the wire, an in-process reading of the worker's
 phase timings.
 
+The reference's ``CollectTelemetry`` service (the fleet collector's pull:
+field 1 ``trace_context``, field 2 ``quarantined`` of the request; fields
+1-3 of the response) is here under ``gpu_mount.TelemetryService``; its
+``ProbeTPU`` and ``QuiesceStatus`` come with the health plane and the
+migration machine.
+
 Services and methods are the original's, ``gpu_mount.AddGPUService/AddGPU``
 and ``gpu_mount.RemoveGPUService/RemoveGPU``, which the reference's worker
 also registers (its legacy names), so the reference's client with
@@ -119,8 +125,52 @@ class RemoveGPUResponse(Message):
         self.phases_ms = dict(phases_ms or {})
 
 
-# gRPC names (api.proto:21-23, 43-45)
+# --- the fleet collector's pull (the reference's extension,
+# gpumounter_tpu/rpc/api.py:189-247) ---
+#
+# The payload is one JSON document in a string field (``obs/fleet.py``'s
+# tpumounter-telemetry/1): the rollup's shape changes faster than the wire
+# should. A worker without the service answers UNIMPLEMENTED, and a payload
+# that does not parse is treated the same: the collector scrapes the
+# worker's /metrics instead.
+
+
+class CollectTelemetryResult(enum.IntEnum):
+    Success = 0
+
+
+class CollectTelemetryRequest(Message):
+    FIELDS = [
+        Field(1, "trace_context", "string"),
+        # the master's quarantine verdict on the node it dials: while true
+        # the worker drains its warm holders and pauses their refill; absent
+        # (an older master) is not quarantined
+        Field(2, "quarantined", "bool"),
+    ]
+
+    def __init__(self, trace_context: str = "", quarantined: bool = False):
+        super().__init__(trace_context=trace_context, quarantined=quarantined)
+
+
+class CollectTelemetryResponse(Message):
+    FIELDS = [
+        Field(1, "collect_telemetry_result", "enum"),
+        Field(2, "node_name", "string"),   # informational: the collector keys
+                                           # by the node it dialed
+        Field(3, "telemetry", "string"),   # the JSON snapshot
+    ]
+
+    def __init__(self, collect_telemetry_result: int = CollectTelemetryResult.Success,
+                 node_name: str = "", telemetry: str = ""):
+        super().__init__(collect_telemetry_result=collect_telemetry_result,
+                         node_name=node_name, telemetry=telemetry)
+
+
+# gRPC names (api.proto:21-23, 43-45); the telemetry service has no name in
+# the original, and takes its package's
 ADD_SERVICE = "gpu_mount.AddGPUService"
 REMOVE_SERVICE = "gpu_mount.RemoveGPUService"
+TELEMETRY_SERVICE = "gpu_mount.TelemetryService"
 ADD_METHOD = "AddGPU"
 REMOVE_METHOD = "RemoveGPU"
+TELEMETRY_METHOD = "CollectTelemetry"

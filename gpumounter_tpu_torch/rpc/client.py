@@ -5,7 +5,8 @@ original master dials ``workerIP:1200`` insecure for each request and calls
 AddGPU / RemoveGPU (``cmd/GPUMounter-master/main.go:82-96, 185-199``). This
 client speaks the original's service names, and adds (``rpc/resilience.py``):
 
-  * a deadline a method from config (RPC_ADD_TIMEOUT_S, RPC_REMOVE_TIMEOUT_S);
+  * a deadline a method from config (RPC_ADD_TIMEOUT_S, RPC_REMOVE_TIMEOUT_S,
+    RPC_TELEMETRY_TIMEOUT_S);
   * bounded capped-exponential retries on UNAVAILABLE and
     DEADLINE_EXCEEDED, each mutation carrying one idempotency key across its
     attempts, so a retry whose first attempt landed is answered from the
@@ -24,8 +25,9 @@ client speaks the original's service names, and adds (``rpc/resilience.py``):
     (``InjectedUnavailable``) is retried as UNAVAILABLE is, under the same
     idempotency key.
 
-Left out: ``probe``, ``quiesce_status`` and ``collect_telemetry`` (with
-``health/``, ``migrate/`` and the fleet planes). The pool's hits, misses,
+``collect_telemetry`` is the fleet collector's pull (``obs/fleet.py``).
+Left out: ``probe`` and ``quiesce_status`` (with ``health/`` and
+``migrate/``). The pool's hits, misses,
 evictions and size are series of the registry (``utils/metrics.py``). grpc
 is imported when a channel is built; without grpcio that raises
 ModuleNotFoundError naming grpcio, and nothing falls back.
@@ -227,7 +229,8 @@ class WorkerClient:
         self._metadata = (("authorization", f"Bearer {token}"),) if token else None
         self.address = address
         self.timeouts = {api.ADD_METHOD: cfg.rpc_add_timeout_s,
-                         api.REMOVE_METHOD: cfg.rpc_remove_timeout_s}
+                         api.REMOVE_METHOD: cfg.rpc_remove_timeout_s,
+                         api.TELEMETRY_METHOD: cfg.rpc_telemetry_timeout_s}
         self.retry = RetryPolicy(max_attempts=cfg.rpc_max_attempts,
                                  base_s=cfg.rpc_retry_base_s, cap_s=cfg.rpc_retry_cap_s)
         self.breaker = breaker
@@ -245,6 +248,12 @@ class WorkerClient:
                 f"/{api.REMOVE_SERVICE}/{api.REMOVE_METHOD}",
                 request_serializer=lambda m: m.encode(),
                 response_deserializer=api.RemoveGPUResponse.decode),
+            # a worker without the service answers UNIMPLEMENTED, and the
+            # fleet collector scrapes its /metrics instead (obs/fleet.py)
+            api.TELEMETRY_METHOD: self._channel.unary_unary(
+                f"/{api.TELEMETRY_SERVICE}/{api.TELEMETRY_METHOD}",
+                request_serializer=lambda m: m.encode(),
+                response_deserializer=api.CollectTelemetryResponse.decode),
         }
 
     def close(self) -> None:
@@ -352,3 +361,12 @@ class WorkerClient:
             pod_name, namespace, list(uuids), force, remove_all=remove_all,
             idempotency_key=idempotency_key or f"rm-{secrets.token_hex(8)}", epoch=int(epoch))
         return self._call(api.REMOVE_METHOD, request)
+
+    def collect_telemetry(self, quarantined: bool = False) -> api.CollectTelemetryResponse:
+        """The worker's telemetry snapshot (the raw response: its JSON in
+        `telemetry` parses with ``obs.fleet.parse_telemetry``). A read,
+        retried like one. `quarantined` carries the master's verdict on the
+        node: the worker drains its warm pool while it is set. Its
+        ``rpc.CollectTelemetry`` span has no worker half in the assembly."""
+        return self._call(api.TELEMETRY_METHOD,
+                          api.CollectTelemetryRequest(quarantined=bool(quarantined)))

@@ -17,6 +17,9 @@ schedule drawn from one seed, then checks the global invariants:
      migration machine.
  7. the channel pool's books: every channel dialed is live or closed, and
      no more are live than there are workers,
+  8. the fleet rollup counts no node twice: two fresh ``FleetCollector``s
+     (the second a restarted collector) agree with the workers, node for
+     node, and each one's total is its nodes' sum,
  10. ledger agreement (``run_worker_crash_scenario``): after a worker death
      at any seeded site of a mount batch, a restart and the ledger's replay
      (``worker/resync.py``), books == mounts == ledger on every node: no
@@ -24,6 +27,11 @@ schedule drawn from one seed, then checks the global invariants:
      bookings,
  15. lock order: the nested ``OrderedLock`` / ``OrderedCondition``
      acquisitions the whole run observed form no cycle,
+ 16. trace assembly: every clean operation of the mount scenario (no fault
+     armed, no exception), run under a ``chaos.<op>`` root span, assembles
+     complete (``obs/assembly.py``: no orphan, no rpc span without its
+     worker half) and its phases sum to its wall time within max(2 ms, 5%);
+     ``drop_worker_spans`` is its negative control,
  22. watch-store parity (``run_watch_store_scenario``): after a severed
      watch with a storm past the backlog (a 410), a restart and steady
      churn, the ``WatchMasterStore``'s indexes equal a fresh list-backed
@@ -31,8 +39,8 @@ schedule drawn from one seed, then checks the global invariants:
 
 Two more run on their own, not on the harness: ``run_fencing_scenario``
 (invariant 12, no stale-epoch write applied) and ``run_shard_scenario``
-(invariant 9, one owner a shard). The reference's invariants 4, 8, 11, 13,
-14 and 16-21 come with their packages.
+(invariant 9, one owner a shard). The reference's invariants 4, 11, 13, 14
+and 17-21 come with their packages.
 
 Every node's worker keeps its ledger in a directory of the run; building a
 second service over it is the worker's restart (``restart_worker``). Every
@@ -67,8 +75,10 @@ from gpumounter_tpu_torch.k8s.types import Pod
 from gpumounter_tpu_torch.master.app import MasterApp
 from gpumounter_tpu_torch.master.slice_ops import SliceCoordinator, SliceTarget
 from gpumounter_tpu_torch.nsutil.ns import device_node_path
-from gpumounter_tpu_torch.obs import trace
+from gpumounter_tpu_torch.obs import assembly, trace
+from gpumounter_tpu_torch.obs.assembly import REMOTE_SPANS
 from gpumounter_tpu_torch.obs.audit import AUDIT
+from gpumounter_tpu_torch.obs.fleet import FleetCollector
 from gpumounter_tpu_torch.obs.flight import FLIGHT
 from gpumounter_tpu_torch.rpc.api import AddGPUResult
 from gpumounter_tpu_torch.rpc.client import ChannelPool, WorkerClient
@@ -139,6 +149,9 @@ class ChaosHarness:
         #: run_worker_crash_scenario sets it: check_invariants then holds
         #: invariant 10 too
         self.check_ledgers = False
+        #: the clean operations run under a chaos.<op> root span, each
+        #: {"trace", "span", "op"}: invariant 16 assembles every one
+        self.traced_ops: list[dict] = []
         #: run_watch_store_scenario sets it: check_invariants then holds
         #: invariant 22 too
         self.watchstore_armed = False
@@ -167,6 +180,7 @@ class ChaosHarness:
     def start(self) -> "ChaosHarness":
         # this run's spans, records, timeline and policies only
         trace.TRACER.reset()
+        REMOTE_SPANS.reset()
         AUDIT.reset()
         FLIGHT.reset()
         POLICY_ENGINE.reset()
@@ -227,19 +241,33 @@ class ChaosHarness:
     def client_for_node(self, node: str) -> WorkerClient:
         return self.app._client_factory(self.app.registry.worker_address(node))
 
-    def _op(self, description: str, fn, fault_p: float = 0.7) -> None:
+    def _op(self, description: str, fn, fault_p: float = 0.7,
+            capture_trace: bool = False) -> None:
         """One operation: maybe arm a fault from the pool, run, log the
-        outcome, disarm whatever did not fire."""
-        if self.rng.random() < fault_p:
+        outcome, disarm whatever did not fire. With capture_trace an
+        operation with no fault armed runs under a ``chaos.<description>``
+        root span, and if it ends without an exception its trace goes into
+        ``traced_ops`` for invariant 16 (a failed one may rightly have no
+        worker half to join)."""
+        armed = self.rng.random() < fault_p
+        if armed:
             name, action = self.rng.choice(FAULTS_COMMON)
             self.record(f"arm {name}={action}")
             failpoints.arm(name, action)
+        ctx = None
         try:
-            fn()
+            if capture_trace and not armed:
+                with trace.span(f"chaos.{description}") as ctx:
+                    fn()
+            else:
+                fn()
         except Exception as exc:  # noqa: BLE001 — the failures are the test
             self.record(f"{description} -> {type(exc).__name__}: {exc}")
         else:
             self.record(f"{description} -> ok")
+            if ctx is not None:
+                self.traced_ops.append({"trace": ctx.trace_id, "span": ctx.span_id,
+                                        "op": description})
         finally:
             failpoints.disarm_all()
 
@@ -259,7 +287,8 @@ class ChaosHarness:
                 n = self.rng.randint(1, 2)
                 self._op(f"add {n} to {name}",
                          lambda t=SliceTarget(namespace=ns, pod=name), n=n:
-                         self.coordinator().mount_slice([t], n, entire=False))
+                         self.coordinator().mount_slice([t], n, entire=False),
+                         capture_trace=True)
                 continue
             held = sorted(self.held_gpus()[(ns, name)])
             if not held:
@@ -270,7 +299,7 @@ class ChaosHarness:
                 with self.client_for_node(node) as client:
                     client.remove_gpu(name, ns, [uuid], force=True)
 
-            self._op(f"remove {uuid} from {name}", _remove)
+            self._op(f"remove {uuid} from {name}", _remove, capture_trace=True)
         self.converge()
 
     #: the windows of a mount batch a real worker death can land in, each
@@ -542,6 +571,28 @@ class ChaosHarness:
 
     # --- what the tenants see, what the books say ---
 
+    def drop_worker_spans(self) -> int:
+        """The negative control of invariant 16: both span stores (the ring,
+        and the remote store that invariant 8's passes fill) rewritten
+        without any worker.* span, as if a worker's export were lost
+        everywhere; check_invariants() must then find every traced
+        operation incomplete. Returns how many spans were dropped."""
+        ring = trace.TRACER.ring
+        spans = ring.snapshot()
+        kept = [s for s in spans if not s.get("name", "").startswith("worker.")]
+        ring.clear()
+        for span in kept:
+            ring.export(span)
+        dropped = len(spans) - len(kept)
+        remote = REMOTE_SPANS.snapshot()
+        REMOTE_SPANS.reset()
+        for span in remote:
+            if span.get("name", "").startswith("worker."):
+                dropped += 1
+                continue
+            REMOTE_SPANS.ingest(span.get("node", ""), [span])
+        return dropped
+
     def held_gpus(self) -> dict[tuple[str, str], set[str]]:
         """(namespace, pod) -> the UUIDs whose node is in the pod's /dev."""
         held = {}
@@ -603,6 +654,45 @@ class ChaosHarness:
             if not rec.get("trace_id"):
                 violations.append(f"audit record without trace id: seq={rec['seq']} "
                                   f"op={rec['operation']} pod={rec['pod']}")
+        # 8. two fresh collectors, the second a restarted one: the rollup is
+        # keyed by node and the workers report absolute counters, so they
+        # must agree
+        rollups = [FleetCollector(self.app.registry, self.app._client_factory,
+                                  cfg=self.cfg).collect_once() for _ in range(2)]
+        expected_nodes = set(self.services)
+        for which, rollup in zip(("first", "second"), rollups):
+            if set(rollup["nodes"]) != expected_nodes:
+                violations.append(f"fleet rollup ({which}) nodes {sorted(rollup['nodes'])} != "
+                                  f"workers {sorted(expected_nodes)}")
+            node_sum = sum(e.get("mount", {}).get("count", 0) for e in rollup["nodes"].values())
+            if rollup["fleet"]["mount_count"] != node_sum:
+                violations.append(f"fleet rollup ({which}) total "
+                                  f"{rollup['fleet']['mount_count']} != per-node sum {node_sum} "
+                                  f"(a node counted twice or dropped)")
+        first, second = rollups
+        for node in expected_nodes & set(first["nodes"]) & set(second["nodes"]):
+            a = first["nodes"][node].get("mount", {}).get("count", 0)
+            b = second["nodes"][node].get("mount", {}).get("count", 0)
+            if a != b:
+                violations.append(f"collector restart changed node {node} mount count {a} -> "
+                                  f"{b} (rollup not restart-stable)")
+        # 16.
+        for op in self.traced_ops:
+            tree = assembly.assemble(op["trace"])
+            if tree is None:
+                violations.append(f"traced op {op['op']!r} (trace {op['trace']}) expired from "
+                                  f"the span stores before assembly")
+                continue
+            if not tree["complete"]:
+                violations.append(f"traced op {op['op']!r} (trace {op['trace']}) assembles "
+                                  f"INCOMPLETE: {len(tree['orphans'])} orphan span(s) "
+                                  f"{tree['orphans']}, {len(tree['missing_worker_halves'])} rpc "
+                                  f"span(s) missing their worker half")
+                continue
+            phase_sum, wall = sum(tree["phases"].values()), tree["wall_ms"]
+            if abs(phase_sum - wall) > max(2.0, 0.05 * wall):
+                violations.append(f"traced op {op['op']!r} (trace {op['trace']}): critical-path "
+                                  f"phase sum {phase_sum:.3f}ms != edge wall {wall:.3f}ms")
         # 10.
         if self.check_ledgers:
             for node, service in self.services.items():

@@ -407,3 +407,8 @@ class LoopbackWorkerClient:
                                                remove_all=remove_all,
                                                idempotency_key=idempotency_key, epoch=epoch),
                           api.RemoveGPUResponse, api.REMOVE_METHOD)
+
+    def collect_telemetry(self, quarantined: bool = False) -> api.CollectTelemetryResponse:
+        return self._call(self.service.collect_telemetry,
+                          api.CollectTelemetryRequest(quarantined=quarantined),
+                          api.CollectTelemetryResponse, api.TELEMETRY_METHOD)

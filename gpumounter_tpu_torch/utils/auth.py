@@ -14,8 +14,11 @@ serves its control plane open (the master dials the worker insecure,
   * it fails closed: in the default "token" mode a daemon with no secret
     refuses to start; serving open takes TPUMOUNTER_AUTH=insecure.
 
-The read-only scope (TPUMOUNTER_AUTH_READ_TOKEN) comes with /metrics and
-``obs/``. Comparisons are constant-time.
+A second secret, optional, is the read scope (TPUMOUNTER_AUTH_READ_TOKEN
+or the file TPUMOUNTER_AUTH_READ_TOKEN_FILE): the master's observability
+reads (/metrics, /fleet, /slo, /tenants, /audit, /trace, /timeline,
+/apihealth, /shards) and the worker's ops port take it, and no mutation
+does; the mutate secret implies read. Comparisons are constant-time.
 """
 
 from __future__ import annotations
@@ -49,6 +52,26 @@ def resolve_token(cfg) -> str | None:
             raise AuthConfigError(f"auth token file {path!r} unreadable: {exc}") from exc
         if not token:
             raise AuthConfigError(f"auth token file {path!r} is empty")
+        return token
+    return None
+
+
+def resolve_read_token(cfg) -> str | None:
+    """The read scope's secret, or None when none is configured (then
+    /metrics stays open and the other reads want the mutate secret).
+    TPUMOUNTER_AUTH_READ_TOKEN wins over TPUMOUNTER_AUTH_READ_TOKEN_FILE,
+    whose content is stripped."""
+    if cfg.auth_read_token:
+        return cfg.auth_read_token
+    path = cfg.auth_read_token_file
+    if path:
+        try:
+            with open(path, encoding="utf-8") as f:
+                token = f.read().strip()
+        except OSError as exc:
+            raise AuthConfigError(f"read token file {path!r} unreadable: {exc}") from exc
+        if not token:
+            raise AuthConfigError(f"read token file {path!r} is empty")
         return token
     return None
 

@@ -48,10 +48,18 @@ its gRPC status code. A call that carries an idempotency key and succeeded
 is remembered: the same key again is answered from the first call's
 response and mounts or unmounts nothing (the client's retries depend on it).
 
+``collect_telemetry`` answers the fleet collector's CollectTelemetry (the
+reference's ``worker/server.py:552-599``): the process's telemetry snapshot
+(``obs/fleet.py``) in a ``worker.CollectTelemetry`` span, with the
+``worker.rpc`` failpoint; the request's ``quarantined`` drains the node's
+warm pool (``WarmPodPool.set_drained``) or lets it refill.
+
 ``build_server`` serves the service over gRPC (the counterpart of the
 reference's ``build_server``, ``worker/server.py:854-954``): the original's
 ``gpu_mount.AddGPUService/AddGPU`` and ``gpu_mount.RemoveGPUService/RemoveGPU``,
-the health service, and the bearer-token interceptor; a ``ServiceError``
+``gpu_mount.TelemetryService/CollectTelemetry`` (left out with
+``include_telemetry=False``), the health service, and the bearer-token
+interceptor; a ``ServiceError``
 becomes an abort with its code. grpc is imported there, on first use
 (``utils/lazy_grpc.py``), never when this module is.
 """
@@ -59,6 +67,7 @@ becomes an abort with its code. grpc is imported there, on first use
 from __future__ import annotations
 
 import contextlib
+import json
 import threading
 import time
 from concurrent import futures
@@ -298,6 +307,31 @@ class GpuMountService:
         if self.ledger is not None and clean:
             self.ledger.close()
         return clean
+
+    # --- CollectTelemetry (the fleet collector's pull) ---
+
+    def collect_telemetry(self, request: api.CollectTelemetryRequest
+                          ) -> api.CollectTelemetryResponse:
+        """This worker's telemetry snapshot as one JSON payload
+        (``obs.fleet.worker_telemetry_snapshot``): the mount-latency
+        histogram with its exemplars, the counters, the device-access table
+        (read, never swapped), the tenants' snapshots and the newest spans.
+        The master's quarantine verdict rides the request: while it is set
+        the node's warm holders are drained and their refill paused, and a
+        failure of that toggle does not fail the answer. The reference's
+        ``capacity`` section comes with the capacity plane."""
+        from gpumounter_tpu_torch.obs.fleet import worker_telemetry_snapshot
+        with trace.span("worker.CollectTelemetry", wire_parent=request.trace_context):
+            failpoints.fire("worker.rpc", method="CollectTelemetry")
+            if self.pool is not None and self.cfg.node_name:
+                try:
+                    self.pool.set_drained(self.cfg.node_name, bool(request.quarantined))
+                except Exception:  # noqa: BLE001 — a side effect: never the answer
+                    logger.exception("warm-pool drain toggle failed")
+            return api.CollectTelemetryResponse(
+                collect_telemetry_result=api.CollectTelemetryResult.Success,
+                node_name=self.cfg.node_name or "",
+                telemetry=json.dumps(worker_telemetry_snapshot(cfg=self.cfg)))
 
     # --- AddGPU (server.go:34-99) ---
 
@@ -623,12 +657,16 @@ def _aborting(method):
 
 
 def build_server(service: GpuMountService, port: int | None = None,
-                 address: str | None = None, max_workers: int = 8):
+                 address: str | None = None, max_workers: int = 8,
+                 include_telemetry: bool = True):
     """A gRPC server (not started) with the service under the original's
-    names, the health service, and, unless TPUMOUNTER_AUTH=insecure, the
-    bearer interceptor: with no secret configured this raises
-    AuthConfigError (fail-closed). Binds `address`, else [::]:`port`, else
-    [::]:WORKER_PORT; the bound port is `server.bound_port` (for ":0")."""
+    names, the telemetry service, the health service, and, unless
+    TPUMOUNTER_AUTH=insecure, the bearer interceptor: with no secret
+    configured this raises AuthConfigError (fail-closed). Binds `address`,
+    else [::]:`port`, else [::]:WORKER_PORT; the bound port is
+    `server.bound_port` (for ":0"). include_telemetry=False builds a
+    worker without CollectTelemetry (as the original's), which answers it
+    UNIMPLEMENTED: the fleet collector then scrapes its /metrics."""
     token = required_token(service.cfg, "worker gRPC server")
     server = grpc.server(futures.ThreadPoolExecutor(max_workers=max_workers),
                          interceptors=[_bearer_interceptor(token)] if token else [])
@@ -643,6 +681,9 @@ def build_server(service: GpuMountService, port: int | None = None,
         api.REMOVE_SERVICE: {api.REMOVE_METHOD: _handler(service.remove_gpu,
                                                          RemoveGPURequest)},
     }
+    if include_telemetry:
+        registrations[api.TELEMETRY_SERVICE] = {api.TELEMETRY_METHOD: _handler(
+            service.collect_telemetry, api.CollectTelemetryRequest)}
     for name, methods in registrations.items():
         server.add_generic_rpc_handlers((grpc.method_handlers_generic_handler(name, methods),))
     from gpumounter_tpu_torch.rpc.health import add_health_service

@@ -195,18 +195,21 @@ def test_the_channel_pools_books_hold_under_chaos_as_the_references(tmp_path):
 
 def test_a_channel_off_the_books_is_a_violation(tmp_path):
     """Invariant 7 has teeth: a channel dialed outside the books, and more
-    live channels than workers, are each named."""
+    live channels than workers, are each named. Invariant 8's collections,
+    which run before 7, hold one live channel a worker: three more make
+    five for two workers."""
     with ChaosHarness(str(tmp_path), seed=11) as h:
         h.channel_pool._dialed += 1
         with pytest.raises(InvariantViolation) as err:
             h.check_invariants()
         assert "channel-pool books off" in str(err.value)
         h.channel_pool._dialed -= 1
+        assert h.channel_pool.stats()["live"] == 2  # invariant 8's, one a worker
         for i in range(3):
             h.channel_pool.channel(f"127.0.0.1:{1 + i}")
         with pytest.raises(InvariantViolation) as err:
             h.check_invariants()
-        assert "channel leak: 3 live channel(s) for 2 worker(s)" in str(err.value)
+        assert "channel leak: 5 live channel(s) for 2 worker(s)" in str(err.value)
 
 
 @pytest.mark.parametrize("name", list(SIDES))
@@ -264,3 +267,127 @@ def test_shard_lease_chaos(seed):
 
 def test_shard_scenario_is_reproducible():
     assert _decisions(chaos.run_shard_scenario(99)) == _decisions(chaos.run_shard_scenario(99))
+
+
+# --- invariants 8 and 16: the fleet rollup and the trace assembly ---
+
+
+def _drive_clean_ops(name, h, pod, n=2):
+    """A few fault-free adds and removes of one GPU on NODE_A, each under a
+    chaos.<op> root span (fault_p 0: captured whenever it succeeds), on
+    either package's harness."""
+    target = SIDES[name][2]
+    h.add_pod(pod, NODE_A)
+    for _ in range(n):
+        coordinator = h._coordinator() if name == "reference" else h.coordinator()
+        args = ([],) if name == "reference" else ()
+        h._op(*args, f"add 1 to {pod}",
+              lambda c=coordinator: c.mount_slice([target(namespace="default", pod=pod)], 1,
+                                                  entire=False),
+              fault_p=0.0, capture_trace=True)
+        held = ([c.uuid for c in h.probe("default", pod)] if name == "reference"
+                else sorted(h.held_gpus()[("default", pod)]))
+        if not held:
+            continue
+
+        def _remove(uuid=held[0]):
+            if name == "reference":
+                with h._client_for_node(NODE_A) as client:
+                    client.remove_tpu(pod, "default", [uuid], force=True)
+            else:
+                with h.client_for_node(NODE_A) as client:
+                    client.remove_gpu(pod, "default", [uuid], force=True)
+
+        h._op(*args, f"remove {held[0]} from {pod}", _remove, fault_p=0.0, capture_trace=True)
+
+
+def _assembled(name, root, seed, drop=False):
+    """The clean ops on one package's harness: the ops captured, the phases
+    of the first one's assembled tree, and the invariants' verdict (after
+    the negative control's drop, with `drop`)."""
+    from gpumounter_tpu.obs import assembly as ref_assembly
+    from gpumounter_tpu_torch.obs import assembly
+    mod = ref_chaos if name == "reference" else chaos
+    with mod.ChaosHarness(root, seed=seed) as h:
+        _drive_clean_ops(name, h, "tr-pod", n=1 if drop else 2)
+        h.check_invariants()  # clean before any corruption
+        tree = (ref_assembly if name == "reference" else assembly).assemble(
+            h.traced_ops[0]["trace"])
+        verdict = "held"
+        if drop:
+            assert h.drop_worker_spans() > 0
+            try:
+                h.check_invariants()
+            except mod.InvariantViolation as exc:
+                verdict = str(exc)
+    return [op["op"].split(" ")[0] for op in h.traced_ops], tree, verdict
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_every_clean_op_assembles_complete_as_the_references(tmp_path, seed):
+    """Invariant 16 on a population that is never empty: each clean add and
+    remove assembles complete on both harnesses, its phases sum to its wall
+    time, and the first add's tree carries the same phases in both
+    packages (the worker's grant and mknod among them)."""
+    got = {name: _assembled(name, str(tmp_path / name), seed) for name in SIDES}
+    (ops, tree, verdict), (ref_ops, ref_tree, ref_verdict) = got["port"], got["reference"]
+    assert verdict == ref_verdict == "held"
+    assert ops == ref_ops == ["add", "remove", "add", "remove"]
+    assert tree["complete"] and ref_tree["complete"]
+    assert {"cgroup_grant", "mknod"} <= set(tree["phases"])
+    assert set(tree["phases"]) == set(ref_tree["phases"])
+    assert abs(sum(tree["phases"].values()) - tree["wall_ms"]) <= max(2.0,
+                                                                      0.05 * tree["wall_ms"])
+
+
+def test_dropped_worker_spans_are_an_incomplete_assembly_as_in_the_reference(tmp_path):
+    """16's negative control: the worker spans dropped from the ring and the
+    remote store, every traced op assembles INCOMPLETE, with the seed."""
+    for name in SIDES:
+        _, _, verdict = _assembled(name, str(tmp_path / name), 5, drop=True)
+        assert "INCOMPLETE" in verdict and "missing their worker half" in verdict, name
+        assert "seed=5" in verdict
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_two_fresh_collectors_agree_as_the_references(tmp_path, seed):
+    """Invariant 8 after the mount scenario on both harnesses: two fresh
+    collectors see both workers over CollectTelemetry, the totals are the
+    nodes' sums, and a third collector of the port's reads the same node
+    counts again."""
+    from gpumounter_tpu.obs.fleet import FleetCollector as RefCollector
+    from gpumounter_tpu_torch.obs.fleet import FleetCollector
+    for name in SIDES:
+        mod = ref_chaos if name == "reference" else chaos
+        with mod.ChaosHarness(str(tmp_path / name), seed=seed) as h:
+            h.run_mount_scenario(n_ops=6)
+            h.check_invariants()
+            collector = RefCollector if name == "reference" else FleetCollector
+            a, b = (collector(h.app.registry, h.app._client_factory, cfg=h.cfg).collect_once()
+                    for _ in range(2))
+        assert set(a["nodes"]) == set(b["nodes"]) == {NODE_A, NODE_B}, name
+        assert {e["mode"] for e in a["nodes"].values()} == {"rpc"}, name
+        for rollup in (a, b):
+            assert rollup["fleet"]["mount_count"] == sum(
+                e["mount"]["count"] for e in rollup["nodes"].values())
+        assert {n: e["mount"]["count"] for n, e in a["nodes"].items()} == \
+            {n: e["mount"]["count"] for n, e in b["nodes"].items()}
+
+
+def test_a_node_counted_twice_is_an_invariant_8_violation(tmp_path, monkeypatch):
+    """Invariant 8 has teeth: a rollup whose total doubles a node is named,
+    with the seed."""
+    from gpumounter_tpu_torch.obs import fleet
+    real = fleet.FleetCollector.payload
+
+    def doubled(self, max_age_s=None):
+        out = real(self, max_age_s)
+        out["fleet"]["mount_count"] += next(iter(out["nodes"].values()))["mount"]["count"] + 1
+        return out
+
+    with ChaosHarness(str(tmp_path), seed=7) as h:
+        _drive_clean_ops("port", h, "dbl-pod", n=1)
+        monkeypatch.setattr(fleet.FleetCollector, "payload", doubled)
+        with pytest.raises(InvariantViolation) as err:
+            h.check_invariants()
+    assert "a node counted twice or dropped" in str(err.value) and "seed=7" in str(err.value)

@@ -322,9 +322,12 @@ def test_the_breaker_answers_503_with_retry_after(stacks):
 def test_the_port_serves_only_the_original_surface(stacks):
     """The reference's other routes wait for their packages: their paths get
     the structured 404. /workers lists the node's worker. The observability
-    reads (/audit, /trace/<id>, /timeline), the API-outage pane (/apihealth)
-    and the shard table (/shards, an inactive manager's here) are served,
-    and want the token."""
+    reads (/audit, /trace/<id>, /timeline), the API-outage pane (/apihealth),
+    the shard table (/shards, an inactive manager's here) and the fleet
+    planes (/fleet, /slo, /tenants) are served, and want the mutate token
+    while no read token is configured; /metrics is then open. With a read
+    token every one of those reads takes it or the mutate token, nothing
+    else, and the read token opens no mutation."""
     s = stacks["port"]
     status, body = http(s, "GET", "/apihealth")
     assert status == 200 and set(json.loads(body)) == {"api", "store"}
@@ -332,9 +335,30 @@ def test_the_port_serves_only_the_original_surface(stacks):
     status, body = http(s, "GET", "/shards")
     assert status == 200 and json.loads(body)["active"] is False
     assert http(s, "GET", "/shards", auth=False) == (401, "missing or invalid bearer token\n")
-    for path in ("/metrics", "/fleet", "/capacity",
-                 "/addtpu/namespace/default/pod/p/tpu/1/isEntireMount/false"):
+    for path in ("/capacity", "/addtpu/namespace/default/pod/p/tpu/1/isEntireMount/false"):
         assert http(s, "GET", path) == (404, "404 page not found\n"), path
+    status, body = http(s, "GET", "/metrics", auth=False)
+    assert status == 200 and "tpumounter_mount_total" in body
+    for path, key in (("/fleet", "nodes"), ("/slo", "objectives"), ("/tenants", "tenants")):
+        status, body = http(s, "GET", path)
+        assert status == 200 and key in json.loads(body), path
+        assert http(s, "GET", path, auth=False) == (401, "missing or invalid bearer token\n")
+    read = {"Authorization": "Bearer read-only-scope"}
+    scoped = s.make_app(auth_read_token="read-only-scope")
+    try:
+        for route in ("/metrics", "/fleet", "/slo", "/tenants", "/audit", "/timeline",
+                      "/apihealth", "/shards"):
+            assert scoped.handle("GET", route, b"", read)[0] == 200, route
+            assert scoped.handle("GET", route, b"", dict(AUTH_HEADER))[0] == 200, route
+            assert scoped.handle("GET", route, b"", {})[:3] == (
+                401, "text/plain", "missing or invalid bearer token (read scope)\n"), route
+        assert scoped.handle("GET", "/trace/" + "0" * 32, b"", read)[0] == 404
+        assert scoped.handle("GET", "/addgpu/namespace/default/pod/p/gpu/1/isEntireMount/"
+                                    "false", b"", read)[:3] == (
+            401, "text/plain", "missing or invalid bearer token\n")
+        assert scoped.handle("GET", "/workers", b"", read)[0] == 401
+    finally:
+        scoped.close()
     assert http(s, "POST", "/batch/addtpu", {}) == (404, "404 page not found\n")
     assert http(s, "GET", "/workers") == (200, "gpu-node-0 127.0.0.1\n")
     assert http(s, "GET", "/workers", auth=False) == (401, "missing or invalid bearer token\n")

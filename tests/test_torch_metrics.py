@@ -109,7 +109,7 @@ PORT_MODULES = ["cgroup.ebpf", "cgroup.policy", "rpc.resilience", "rpc.client", 
                 "worker.server", "worker.mounter", "worker.ledger", "worker.resync",
                 "utils.fanout", "faults.failpoints", "obs.trace", "obs.flight", "k8s.health",
                 "store.writebehind", "store.cache", "store.watch", "master.shard",
-                "allocator.pool"]
+                "allocator.pool", "obs.tenants", "obs.assembly", "obs.fleet", "obs.slo"]
 
 
 def test_every_series_of_the_port_is_the_references():
@@ -149,7 +149,12 @@ def test_every_series_of_the_port_is_the_references():
             "tpumounter_warm_pool_hits_total", "tpumounter_warm_pool_misses_total",
             "tpumounter_warm_pool_ready", "tpumounter_warm_pool_refills_total",
             "tpumounter_warm_pool_refill_failures_total",
-            "tpumounter_warm_pool_drained_total"} == set(seen)
+            "tpumounter_warm_pool_drained_total", "tpumounter_tenant_snapshots_total",
+            "tpumounter_tenant_snapshots_rejected_total", "tpumounter_tenants_tracked",
+            "tpumounter_remote_spans_ingested_total", "tpumounter_remote_span_evictions_total",
+            "tpumounter_fleet_collections_total", "tpumounter_fleet_nodes",
+            "tpumounter_fleet_collect_duration_seconds", "tpumounter_slo_burn_rate",
+            "tpumounter_slo_breaches_total", "tpumounter_slo_breached"} == set(seen)
 
 
 # --- the series of the modules ported before the registry ---

@@ -169,6 +169,7 @@ def test_a_retried_add_under_one_key_mounts_once(port_worker):
     class LosesTheFirstReply:
         cfg = service.cfg
         remove_gpu = service.remove_gpu
+        collect_telemetry = service.collect_telemetry  # the server's third method
 
         def add_gpu(self, request):
             calls.append(request.idempotency_key)
