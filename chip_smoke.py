@@ -344,6 +344,39 @@ Phases, each raising on failure (any failure exits non-zero):
     payload's bytes, one POST /tenant-telemetry, one /trace/<id> assembly,
     the scrape fallback and one snapshot (its share of phase 11's add),
     medians of 3 on the host clock. Without CAP_MKNOD the phase fails.
+18. health and recovery on a live hot-mount, ``entry.health_check``
+    through the master over gRPC as in phase 11, the worker with a warm pool
+    of 1 on its node and its ledger beside this script, the master with a
+    read token, the in-process ``FakeKubeClient`` as the API:
+    a. the node quarantined by hand (POST /health/quarantine/<node>, the
+       mutate token); this process runs phase 3's first forward through
+       ``flash_fwd`` (its launches counted in the kernels line) and holds
+       the card; ``CanaryProber.probe_once`` mounts the H100 into the canary
+       pod's target through the whole worker path, ProbeGPU answers it
+       healthy with holder_count >= 1 (this process, which the canary pod's
+       cgroup stand-in lists while the GPU is probed), and the canary's
+       remove unmounts it, its ms beside phase 11's add; again with the
+       GPU's node deleted from the target's /dev between the add and the
+       probe: unhealthy ("injected device node vanished"), a canary failure;
+    b. one collection pass after the quarantine carries ``quarantined`` to
+       the worker: its warm pool drains (ready 0, the drained series + 1);
+       the operator's release and the pool's refill; then two dropped
+       attempts of a live add open the mount path's breaker, two passes
+       score the node suspect and quarantined (``breaker_open``), and after
+       the breaker's reset two clean canaries and the probation passes bring
+       it to rehabilitating and back to healthy; /health/nodes and the
+       flight recorder's ``health`` records show each transition with its
+       signals;
+    c. a worker's death: the node's worker becomes a child process
+       (``testing/worker_process.py``, over a stand-in API server on the
+       in-process API), a live add through the master and that process, the
+       node quarantined by hand, the process killed with SIGKILL, its
+       worker pod deleted and its Node NotReady in the API; ``check_once``
+       passes until the recovery
+       controller evacuates the node (the kill to the evacuation timed): the
+       add's slave pod released, /recovery listing the evacuation, and the
+       operator's release of the node refused (409, evacuated).
+    Every case runs on the card's own GPU: without CAP_MKNOD the phase fails.
 
 The last lines are a JSON object per kernel (``{"kernels": [...]}``) and
 ``{"ok": true, "device": {...}}``, and the exit code is 0. A failing check
@@ -392,7 +425,7 @@ from gpumounter_tpu_torch.entry import (ADD_TRACE, ADD_WORKER_SPANS, FLEET_SLO_W
                                         against_one_process, busy_health_check, cgroup_v2_check,
                                         check_config, degraded_check, durability_check,
                                         dryrun_multichip, fleet_check, grow_checks,
-                                        has_cap_mknod,
+                                        has_cap_mknod, health_check,
                                         inventory_check, kernel_launches, make_identity,
                                         master_check, moe_blocks_vs_plain, moe_check,
                                         shard_pool_check,
@@ -3507,6 +3540,72 @@ def phase_fleet(card: str, master_live: dict) -> int:
     return child["launches"]["flash_fwd"]
 
 
+def _holder_forward() -> dict:
+    """Phase 3's first forward in this process, through flash_fwd, its
+    launches counted: this process holds the card while the canary probes
+    it."""
+    cfg = full_width_config()
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cuda")
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (FULL["B"], FULL["L"]))).cuda()
+    _reset_kernel_counts()
+    t0 = time.perf_counter()
+    logits = forward(params, tokens, cfg)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = _kernel_counts()
+    _check_counts("phase 18's forward", launches,
+                  {"flash_fwd": cfg.n_layers, "dq": 0, "dkv": 0, "flash_decode": 0})
+    nll = next_token_nll(logits, tokens).item()
+    if not (torch.isfinite(logits).all() and 0 <= nll - math.log(cfg.vocab) < NLL_ABOVE_UNIFORM):
+        raise RuntimeError(f"phase 18's forward: nll {nll}")
+    return {"launches": launches["flash_fwd"], "nll": nll, "ms": ms}
+
+
+def phase_health(card: str, master_live: dict) -> int:
+    """Phase 18: ``entry.health_check`` on the card (see the module's
+    docstring), a line for each case. Returns the flash_fwd launches of the
+    forward that holds the card."""
+    t_phase = time.perf_counter()
+    ledger_root = os.path.dirname(os.path.abspath(__file__))
+    with _tenant_target("phase18") as (dev_dir, _cgroup_dir):
+        report = health_check("cuda", dev_dir=dev_dir, ns_pid=os.getpid(),
+                              identity=pick_identity(), ledger_root=ledger_root,
+                              before_canary=_holder_forward)
+    h = report["live"]
+    if h is None:
+        raise RuntimeError("phase 18 ran no live flows on the card")
+    m, sc, d = h["manual"], h["scored"], h["death"]
+    fwd, clean, vanished = m["before_canary"], m["clean"], m["vanished"]
+    chip, lost = clean["probe"]["chips"][0], vanished["probe"]["chips"][0]
+    print(f"time health (a) the node quarantined by hand (POST /health/quarantine, "
+          f"{m['quarantine_ms']:.3f} ms); this process's forward through flash_fwd "
+          f"({fwd['launches']} launches, {fwd['ms']:.1f} ms, nll {fwd['nll']:.4f}) holds the "
+          f"card; the canary (add, ProbeGPU, remove) {clean['ms']:.3f} ms against phase 11's "
+          f"add {_runs(master_live['add_ms'])}: {chip['uuid']} healthy, holder_count "
+          f"{chip['holder_count']}, mounted {clean['mounted']}, then unmounted; with the node "
+          f"deleted between the add and the probe ({vanished['ms']:.3f} ms): healthy "
+          f"{lost['healthy']}, {lost['reason']!r}, the plane's canary failures "
+          f"{vanished['canary']['consecutive_failures']} ({vanished['canary']['detail']!r}) "
+          f"[{card}]", flush=True)
+    print(f"time health (b) one collection pass after the quarantine "
+          f"({m['pass_ms']:.3f} ms) drained the warm pool ({m['drained']:.0f} holder, ready 0); "
+          f"released by hand, the pool refilled in {m['refill_ms']:.3f} ms; two dropped "
+          f"attempts of a live add opened the breaker, and the passes took the node through "
+          f"{sc['states']} (clean canaries {_runs(sc['canary_ms'])}); the flight recorder's "
+          f"health records: {[(r['from'], r['to'], r['signals']) for r in h['records']]} "
+          f"[{card}]", flush=True)
+    print(f"time health (c) a worker's death (the worker a child process, pid {d['pid']}, "
+          f"serving {d['spawn_ms']:.1f} ms after its start, killed with SIGKILL; its pod "
+          f"deleted, its Node NotReady): the live add through it "
+          f"{d['add_ms']:.3f} ms; the kill to the evacuation {d['evacuation_ms']:.3f} ms over "
+          f"{d['passes']} recovery pass(es) ({d['reason']}); released {d['released']}, listed "
+          f"by /recovery; the release refused: {d['release_refused']!r} [{card}]", flush=True)
+    print(f"time health phase 18: {time.perf_counter() - t_phase:.1f} s (the stack's start "
+          f"{h['start_ms']:.1f} ms) [{card}]", flush=True)
+    return fwd["launches"]
+
+
 def phase_forward_timing(cfg, params, tokens, card, what="forward") -> None:
     fwd_ms = _time_ms(lambda: forward(params, tokens, cfg), 5, warmup=1)
     tok_s = tokens.numel() / (fwd_ms / 1e3)
@@ -3628,6 +3727,8 @@ def _phases(stage: list, t0: float) -> None:
     pool_launches = phase_shard_pool(card, master_live)
     begin("17 (the fleet planes on a live hot-mount)")
     fleet_launches = phase_fleet(card, master_live)
+    begin("18 (health and recovery on a live hot-mount)")
+    health_launches = phase_health(card, master_live)
     sharded = {k: sharded_launches[k] + seq_pipe_launches[k] + grow_launches[k]
                + dryrun_launches[k] for k in sharded_launches}
 
@@ -3649,8 +3750,9 @@ def _phases(stage: list, t0: float) -> None:
           f"GPU's tenant (phase 14): flash_fwd {durability_launches}; the GPU added after the "
           f"read partition's heal (phase 15): flash_fwd {degraded_launches}; the first pooled "
           f"GPU's tenant (phase 16): flash_fwd {pool_launches}; the fleet phase's tenant "
-          f"(phase 17): flash_fwd {fleet_launches}", flush=True)
-    print(f"chip_smoke: phases 1-17 took {time.perf_counter() - t0:.1f} s, the kernels' build "
+          f"(phase 17): flash_fwd {fleet_launches}; the forward that holds the card under "
+          f"the canary (phase 18): flash_fwd {health_launches}", flush=True)
+    print(f"chip_smoke: phases 1-18 took {time.perf_counter() - t0:.1f} s, the kernels' build "
           f"included [{card}]", flush=True)
     bwd_source = "gpumounter_tpu_torch/ops/csrc/flash_bwd.cu"
     print(json.dumps({"kernels": [{
@@ -3660,7 +3762,8 @@ def _phases(stage: list, t0: float) -> None:
         "launches": (launches + prefill_launches + train_fwd + moe_launches + moe_prefill
                      + moe_fwd + handoff_launches["flash_fwd"] + sharded["flash_fwd"]
                      + mount_launches + v2_launches + durability_launches
-                     + degraded_launches + pool_launches + fleet_launches),
+                     + degraded_launches + pool_launches + fleet_launches
+                     + health_launches),
         "max_abs_err": max_abs_err, **times}, {
         "name": "flash_bwd_dq", "route": "cuda", "source": bwd_source,
         "replaces": "gpumounter_tpu/ops/flash_attention.py:182",

@@ -5,8 +5,8 @@ fields the device layer, the collector, the allocator, the cgroup layer, the
 mounter, the transport, the master (with its slice and batch routes and their
 fan-out core), the observability stores, the worker's ledger and drain, the master's
 store with its API-outage degraded mode, the sharded masters, the warm pool, the
-fleet planes (telemetry, SLOs, tenants, the trace assembly) and the two daemons
-read. Every field is an environment variable with the original GPUMounter's value
+fleet planes (telemetry, SLOs, tenants, the trace assembly), the recovery
+controller, the gray-failure health plane and the two daemons read. Every field is an environment variable with the original GPUMounter's value
 as default; the names are the reference's where the meaning is the same. NVIDIA-specific: the resource ``nvidia.com/gpu``
 (``pkg/util/gpu/types.go:10``), the pool namespace ``gpu-pool``
 (``types.go:18``), the worker pods' label ``app=gpu-mounter-worker``, the
@@ -155,6 +155,9 @@ class Config:
     # worker cannot stall a fleet pass
     rpc_telemetry_timeout_s: float = field(default_factory=lambda: float(
         _env("RPC_TELEMETRY_TIMEOUT_S", "10")))
+    # ProbeGPU is a read-only scan of the pod's GPUs: it fails fast too
+    rpc_probe_timeout_s: float = field(default_factory=lambda: float(
+        _env("RPC_PROBE_TIMEOUT_S", "15")))
     rpc_max_attempts: int = field(default_factory=lambda: int(_env("RPC_MAX_ATTEMPTS", "3")))
     rpc_retry_base_s: float = field(default_factory=lambda: float(
         _env("RPC_RETRY_BASE_S", "0.1")))
@@ -284,6 +287,74 @@ class Config:
         "WATCH_STORE_RELIST_CAP_S", "30")))
     store_watch_sync_timeout_s: float = field(default_factory=lambda: float(_env(
         "WATCH_STORE_SYNC_TIMEOUT_S", "10")))
+    # --- the recovery controller (recovery/controller.py) ---
+    # on by default (TPUMOUNTER_RECOVERY=0 turns the master's loop off): it
+    # probes every tracked node each RECOVERY_INTERVAL_S and evacuates one
+    # confirmed dead, which takes this many failed passes in a row AND
+    # RECOVERY_GRACE_S of failure AND the Node NotReady or its worker pod
+    # gone (a worker that crashed on a Ready node is left to its replay);
+    # the liveness probe (CollectTelemetry) has its own deadline
+    recovery_enabled: bool = field(default_factory=lambda: _env(
+        "TPUMOUNTER_RECOVERY", "1") not in ("0", "false", ""))
+    recovery_interval_s: float = field(default_factory=lambda: float(_env(
+        "RECOVERY_INTERVAL_S", "10")))
+    recovery_confirm_failures: int = field(default_factory=lambda: int(_env(
+        "RECOVERY_CONFIRM_FAILURES", "3")))
+    recovery_grace_s: float = field(default_factory=lambda: float(_env(
+        "RECOVERY_GRACE_S", "30")))
+    recovery_probe_timeout_s: float = field(default_factory=lambda: float(_env(
+        "RECOVERY_PROBE_TIMEOUT_S", "5")))
+
+    # --- the gray-failure health plane (health/plane.py) ---
+    # on by default (TPUMOUNTER_HEALTH=0 turns it off, and all it gates
+    # fails open). A node's mount p95 is an outlier past both multiplier x
+    # the fleet's median and median + floor_ms, each signal wanting this
+    # many samples; the error ratio past which mounts count as failing
+    health_enabled: bool = field(default_factory=lambda: _env(
+        "TPUMOUNTER_HEALTH", "1") not in ("0", "false", ""))
+    health_p95_multiplier: float = field(default_factory=lambda: float(_env(
+        "HEALTH_P95_MULTIPLIER", "8")))
+    health_p95_floor_ms: float = field(default_factory=lambda: float(_env(
+        "HEALTH_P95_FLOOR_MS", "50")))
+    health_min_samples: int = field(default_factory=lambda: int(_env(
+        "HEALTH_MIN_SAMPLES", "5")))
+    health_error_ratio: float = field(default_factory=lambda: float(_env(
+        "HEALTH_ERROR_RATIO", "0.2")))
+    # hysteresis, in scoring passes in a row: bad ones to suspect, bad ones
+    # to quarantined, clean ones back to healthy
+    health_suspect_strikes: int = field(default_factory=lambda: int(_env(
+        "HEALTH_SUSPECT_STRIKES", "2")))
+    health_quarantine_strikes: int = field(default_factory=lambda: int(_env(
+        "HEALTH_QUARANTINE_STRIKES", "4")))
+    health_clear_passes: int = field(default_factory=lambda: int(_env(
+        "HEALTH_CLEAR_PASSES", "2")))
+    # the fraction of the fleet the scorer may quarantine on its own (at
+    # least 1 node; an operator's quarantine is exempt), and the fraction of
+    # fresh entries below which a pass is skipped (fail-open)
+    health_quarantine_budget: float = field(default_factory=lambda: float(_env(
+        "HEALTH_QUARANTINE_BUDGET", "0.10")))
+    health_min_fresh_fraction: float = field(default_factory=lambda: float(_env(
+        "HEALTH_MIN_FRESH_FRACTION", "0.5")))
+    # the canary prober: its period (0: no loop) and deadline, and the pod
+    # it mounts into on node N, <prefix>N in the namespace
+    health_canary_interval_s: float = field(default_factory=lambda: float(_env(
+        "HEALTH_CANARY_INTERVAL_S", "30")))
+    health_canary_timeout_s: float = field(default_factory=lambda: float(_env(
+        "HEALTH_CANARY_TIMEOUT_S", "5")))
+    health_canary_namespace: str = field(default_factory=lambda: _env(
+        "HEALTH_CANARY_NAMESPACE", "kube-system"))
+    health_canary_pod_prefix: str = field(default_factory=lambda: _env(
+        "HEALTH_CANARY_POD_PREFIX", "tpumounter-canary-"))
+    # canary passes in a row to leave quarantine (clean passive passes when
+    # no prober runs), clean passes of probation before healthy, and the
+    # passes quarantined and still an outlier before a drain is recommended
+    health_rehab_canary_passes: int = field(default_factory=lambda: int(_env(
+        "HEALTH_REHAB_CANARY_PASSES", "3")))
+    health_probation_passes: int = field(default_factory=lambda: int(_env(
+        "HEALTH_PROBATION_PASSES", "3")))
+    health_drain_burn_passes: int = field(default_factory=lambda: int(_env(
+        "HEALTH_DRAIN_BURN_PASSES", "3")))
+
     # the fake API server's watch backlog (k8s/fake.py): events kept for
     # resumable watches, at least 64; a watcher that falls past it has its
     # stream ended (the fake's 410)

@@ -17,7 +17,10 @@ cache, the write-behind queue and the worker's deferred releases
 (``shard_pool_check``), and the fleet planes: the collector over
 CollectTelemetry and its scrape fallback, the SLOs, the tenants' telemetry
 through the worker's ops port and the trace assembly under the read scope
-(``fleet_check``)."""
+(``fleet_check``), and health and recovery: the operator's quarantine
+riding the pull to the warm pool, the canary over ProbeGPU, the scorer's
+quarantine and rehabilitation, and a worker's death evacuated by the
+recovery controller (``health_check``)."""
 
 from __future__ import annotations
 
@@ -29,6 +32,7 @@ import math
 import os
 import secrets
 import shutil
+import signal
 import stat as statmod
 import subprocess
 import sys
@@ -58,7 +62,7 @@ from gpumounter_tpu_torch.master.shard import ShardManager
 from gpumounter_tpu_torch.models.probe import (TransformerConfig, _attend, _block, _embed,
                                                _finish_block, _rmsnorm, forward, init_params,
                                                local_heads, loss_fn, next_token_nll)
-from gpumounter_tpu_torch.obs import assembly, audit, trace
+from gpumounter_tpu_torch.obs import assembly, audit, flight, trace
 from gpumounter_tpu_torch.obs.fleet import FleetCollector, worker_telemetry_snapshot
 from gpumounter_tpu_torch.ops.flash_attention import (attention_plain, flash_attention,
                                                       flash_attention_bwd_kernel,
@@ -89,6 +93,8 @@ from gpumounter_tpu_torch.store.writebehind import QUEUE_FILE, WRITEBEHIND_REPLA
 from gpumounter_tpu_torch.testing import v2tenant
 from gpumounter_tpu_torch.testing.bpf import FakeBpf
 from gpumounter_tpu_torch.testing.cluster import FakeCluster, WorkerServers
+from gpumounter_tpu_torch.testing.kube_api import FakeApiServer, selfsigned
+from gpumounter_tpu_torch.testing.worker_process import WorkerProcess
 from gpumounter_tpu_torch.topology import lookup
 from gpumounter_tpu_torch.torchside.resume import (HotResumable, load_optimizer_state,
                                                    optimizer_state_specs, optimizer_state_tree)
@@ -1608,8 +1614,12 @@ class _MasterStack:
     `dev_dirs[node]`. Node i's worker registers at 10.0.0.<i + 1>; every
     server listens on 127.0.0.1, so the master's worker_client_factory and
     its telemetry_client_factory are its default clients with a registered
-    IP mapped to its server's port. ``restart(node)`` replaces a node's worker by a new one over the same
-    ledger, as after its death. Stops all it started on exit.
+    IP mapped to its server's port; the mount path's breaker keys a worker
+    by its registered address, as the master's gate and the fleet
+    collector read it. ``restart(node)`` replaces a node's worker by a new
+    one over the same ledger, as after its death, ``spawn(node, ...)`` by a
+    child process, and ``kill(node)`` is its death. Stops all it started on
+    exit.
 
     With `replicas` > 0 the master is that many sharded replicas
     (``apps``, ``bases``; ``app`` and ``base`` are replica 0's): shard_count
@@ -1630,6 +1640,7 @@ class _MasterStack:
         self.cfg = (dataclasses.replace(cluster.cfg, shard_count=replicas, shard_preferred="",
                                         **(shard_cfg or {})) if replicas else cluster.cfg)
         self.dev_dirs, self.ns_pid, self.cgroup_dirs = dev_dirs, ns_pid, cgroup_dirs
+        self.api: FakeApiServer | None = None  # the stand-in API of spawn's processes
         self.workers = WorkerServers(self._service)
         self.services = self.workers.services
         for i, node in enumerate(cluster.node_names):
@@ -1643,7 +1654,8 @@ class _MasterStack:
                             worker_client_factory=lambda address, i=i: WorkerClient(
                                 self.workers.local_address(address), token=self.token,
                                 cfg=self.cfg, breaker=self.apps[i].registry.breaker,
-                                channel_pool=self.apps[i].registry.channel_pool),
+                                channel_pool=self.apps[i].registry.channel_pool,
+                                breaker_key=address),
                             telemetry_client_factory=lambda address: WorkerClient(
                                 self.workers.local_address(address), token=self.token,
                                 cfg=self.cfg))
@@ -1703,6 +1715,47 @@ class _MasterStack:
     def client(self, node: str):
         return self.app._client_factory(self.app.registry.worker_address(node))
 
+    def spawn(self, node: str, workdir: str, **cfg_fields) -> WorkerProcess:
+        """The node's worker becomes a child process
+        (``testing.worker_process``): the node's mounter and kubelet socket,
+        the node's config with `cfg_fields` (its backend's), no warm pool,
+        a ledger under `workdir`, and the cluster's API through a stand-in
+        API server (started at the first call, its certificate in
+        `workdir`). The in-process worker drains its warm pool (its holders
+        released) and stops; each master's channel to it serves no more."""
+        if self.api is None:
+            tls = selfsigned(workdir)
+            if tls is None:
+                raise RuntimeError("a worker process needs openssl: the stand-in API server's "
+                                   "certificate")
+            self.api, self._api_ca = FakeApiServer(self.cluster.kube, *tls).start(), tls[0]
+        service = self.services[node]
+        if service.pool is not None:
+            service.pool.set_drained(node, True)
+            service.pool.stop()
+        cfg = dataclasses.replace(
+            service.cfg, warm_pool_size=0, ledger_dir=os.path.join(workdir, f"ledger-{node}"),
+            kubelet_socket=self.cluster.serve_kubelet(node).socket_path, **cfg_fields)
+        child = WorkerProcess({"cfg": dataclasses.asdict(cfg),
+                               "api": {"port": self.api.port, "token": self.api.token,
+                                       "ca": self._api_ca},
+                               "dev_dir": self.dev_dirs[node], "ns_pid": self.ns_pid,
+                               "cgroup_dirs": list(self.cgroup_dirs)},
+                              os.path.join(workdir, f"worker-{node}.log"))
+        self.workers.adopt(node, child, child.port,
+                           [app.registry.channel_pool for app in self.apps])
+        return child
+
+    def kill(self, node: str) -> None:
+        """The node's worker dies, as the control plane sees it
+        (``WorkerServers.kill``: a worker process is killed with SIGKILL),
+        and its in-process warm pool stops."""
+        self.workers.kill(node, self.cluster.kube, self.cfg,
+                          [app.registry.channel_pool for app in self.apps])
+        service = self.services[node]
+        if service.pool is not None:
+            service.pool.stop()
+
     def __enter__(self):
         return self
 
@@ -1714,6 +1767,8 @@ class _MasterStack:
                 app.shards.stop(release=True)
             app.close()
         self.workers.stop()
+        if self.api is not None:
+            self.api.stop()
         self.cluster.stop()
         return False
 
@@ -3970,4 +4025,355 @@ def fleet_check(device="cuda", *, dev_dir: str | None = None, ns_pid: int | None
     finally:
         shutil.rmtree(root, ignore_errors=True)
     report["live" if live else "fake"] = flows
+    return report
+
+
+# --- health and recovery: the quarantine, the canary, an evacuation ---
+
+#: the health check's knobs: a breaker that opens on two transport failures
+#: and half-opens after HEALTH_BREAKER_RESET_S, two attempts a call, and the
+#: plane's hysteresis at one strike to suspect, two to quarantined, two
+#: canary passes to rehabilitating and two clean passes of probation
+HEALTH_BREAKER_RESET_S = 0.5
+HEALTH_KNOBS = dict(breaker_failure_threshold=2, breaker_reset_s=HEALTH_BREAKER_RESET_S,
+                    rpc_max_attempts=2, rpc_retry_base_s=0.02, rpc_retry_cap_s=0.05,
+                    health_suspect_strikes=1, health_quarantine_strikes=2,
+                    health_clear_passes=1, health_rehab_canary_passes=2,
+                    health_probation_passes=2, health_canary_interval_s=3600.0,
+                    recovery_confirm_failures=2, recovery_grace_s=0.0,
+                    recovery_probe_timeout_s=2.0, fleet_scrape_interval_s=3600.0)
+#: a dead node's evacuation must land within this, from the kill
+EVACUATION_DEADLINE_S = 30.0
+
+
+class _ProbeRecorder:
+    """A canary client that keeps what each ProbeGPU answered. While the
+    probe runs, the canary pod's cgroup stand-in (`procs`) lists this
+    process, which holds the GPU: the probe's holder scan counts it; the
+    list is empty again before the canary's remove, whose force kills the
+    pod's holders. With `vanish`, the GPU's node is first deleted from the
+    target's /dev (between the add and the probe, as a runtime that lost
+    it)."""
+
+    def __init__(self, inner, dev_dir: str, backend, seen: list, vanish: bool, procs: str):
+        self.inner, self.dev_dir, self.backend = inner, dev_dir, backend
+        self.seen, self.vanish, self.procs = seen, vanish, procs
+
+    def __enter__(self):
+        self.inner.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        return self.inner.__exit__(*exc)
+
+    def add_gpu(self, *args, **kwargs):
+        response = self.inner.add_gpu(*args, **kwargs)
+        self.seen.append({"uuids": list(response.uuids), "nodes_in_dev": sorted(
+            os.listdir(self.dev_dir))})
+        return response
+
+    def probe_gpu(self, *args, **kwargs):
+        if self.vanish:
+            for uuid in self.seen[-1]["uuids"]:
+                os.unlink(os.path.join(self.dev_dir, self.backend.device_by_uuid(uuid).basename))
+        with open(self.procs, "w") as f:
+            f.write(f"{os.getpid()}\n")
+        try:
+            result, chips = self.inner.probe_gpu(*args, **kwargs)
+        finally:
+            open(self.procs, "w").close()
+        self.seen[-1]["probe"] = {"result": result.name, "chips": [
+            {"uuid": c.uuid, "healthy": c.healthy, "reason": c.reason,
+             "holder_count": c.holder_count} for c in chips]}
+        return result, chips
+
+    def remove_gpu(self, *args, **kwargs):
+        return self.inner.remove_gpu(*args, **kwargs)
+
+
+def _canary_pass(stack: _MasterStack, dev_dir: str, vanish: bool) -> dict:
+    """One ``CanaryProber.probe_once`` through the app's prober, its client
+    wrapped by ``_ProbeRecorder``; the pass's ms (host clock), what the probe
+    answered, the node's canary streaks after, and the GPU gone from the
+    target's /dev and from the books."""
+    app, cluster, node = stack.app, stack.cluster, stack.cluster.node_name
+    from gpumounter_tpu_torch.health.plane import CANARY_FAILURES, CANARY_PROBES
+    seen: list = []
+    inner = app.canary.client_factory
+    procs = os.path.join(stack.cgroup_dirs[0], "cgroup.procs")
+    app.canary.client_factory = lambda address: _ProbeRecorder(
+        inner(address), dev_dir, stack.services[node].collector.backend, seen, vanish, procs)
+    probes, failures = CANARY_PROBES.total(), CANARY_FAILURES.total()
+    try:
+        t0 = time.perf_counter()
+        driven = app.canary.probe_once()
+        ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        app.canary.client_factory = inner
+    canary = app.health.payload()["nodes"][node]["canary"]
+    pod = Pod(cluster.kube.get_pod(app.cfg.health_canary_namespace,
+                                   f"{app.cfg.health_canary_pod_prefix}{node}"))
+    if driven != 1 or len(seen) != 1 or "probe" not in seen[0]:
+        raise RuntimeError(f"the canary pass drove {driven} probe(s): {seen}")
+    backend = stack.services[node].collector.backend
+    left = [name for name in (backend.device_by_uuid(u).basename for u in seen[0]["uuids"])
+            if os.path.exists(os.path.join(dev_dir, name))]
+    if stack.held(node, pod) or _slave_pods(cluster, pod) or left:
+        raise RuntimeError(f"the canary left {stack.held(node, pod)} held, slave pods "
+                           f"{_slave_pods(cluster, pod)}, {left} in the target")
+    return {"ms": ms, "probe": seen[0]["probe"], "mounted": seen[0]["nodes_in_dev"],
+            "canary": canary, "probes": CANARY_PROBES.total() - probes,
+            "failures": CANARY_FAILURES.total() - failures}
+
+
+def _health_records(node: str) -> list[dict]:
+    return [{"from": r["details"]["from_state"], "to": r["details"]["to_state"],
+             "signals": r["details"]["signals"]}
+            for r in flight.FLIGHT.snapshot() if r["kind"] == "health" and r["node"] == node]
+
+
+def _manual_and_canary(stack: _MasterStack, dev_dir: str, read: str, before_canary) -> dict:
+    """(a) and the first half of (b): the operator's quarantine, the pull's
+    drain of the warm pool, a clean canary (this process holding the GPU
+    while it is probed), a canary whose node vanished, the operator's
+    release and the pool's refill."""
+    from gpumounter_tpu_torch.allocator.pool import WARM_POOL_DRAINED
+    app, node = stack.app, stack.cluster.node_name
+    pool = stack.services[node].pool
+    if not pool.wait_ready(node, 1, timeout_s=30.0):
+        raise RuntimeError("the warm pool never filled")
+    out: dict = {}
+    status, body, out["quarantine_ms"] = stack.http(
+        "POST", f"/health/quarantine/{node}",
+        payload={"action": "quarantine", "reason": "health check"})
+    pane = json.loads(body)["health"] if status == 200 else None
+    if status != 200 or pane["state"] != "quarantined" or not pane["manual"]:
+        raise RuntimeError(f"POST /health/quarantine/{node}: {status} {body}")
+    drained = WARM_POOL_DRAINED.total()
+    t0 = time.perf_counter()
+    app.fleet.collect_once()
+    out["pass_ms"] = (time.perf_counter() - t0) * 1e3
+    out["drained"] = WARM_POOL_DRAINED.total() - drained
+    if not pool.drained(node) or pool.ready_count(node) != 0 or out["drained"] != 1:
+        raise RuntimeError(f"the pull did not drain the pool: drained {pool.drained(node)}, "
+                           f"{pool.ready_count(node)} ready, {out['drained']} released")
+    out["before_canary"] = before_canary() if before_canary is not None else None
+    out["clean"] = _canary_pass(stack, dev_dir, vanish=False)
+    chips = out["clean"]["probe"]["chips"]
+    if out["clean"]["probe"]["result"] != "Success" or len(chips) != 1 \
+            or not chips[0]["healthy"] or chips[0]["holder_count"] < 1 \
+            or out["clean"]["canary"]["consecutive_ok"] != 1 or out["clean"]["failures"]:
+        raise RuntimeError(f"the clean canary: {out['clean']}")
+    out["vanished"] = _canary_pass(stack, dev_dir, vanish=True)
+    chips = out["vanished"]["probe"]["chips"]
+    if len(chips) != 1 or chips[0]["healthy"] \
+            or "injected device node vanished" not in chips[0]["reason"] \
+            or out["vanished"]["canary"]["consecutive_failures"] != 1 \
+            or out["vanished"]["failures"] != 1:
+        raise RuntimeError(f"the canary whose node vanished: {out['vanished']}")
+    status, body, _ = stack.http("POST", f"/health/quarantine/{node}",
+                                 payload={"action": "release"})
+    if status != 200 or json.loads(body)["health"]["state"] != "healthy":
+        raise RuntimeError(f"the release: {status} {body}")
+    app.fleet.collect_once()  # the pull un-drains
+    out["refill_ms"] = _until(lambda: pool.ready_count(node) == 1, 30.0,
+                              "the refill after the release")
+    status, body, _ = stack.http("GET", "/health/nodes", token=read)
+    out["pane"] = json.loads(body)["nodes"][node] if status == 200 else None
+    if out["pane"] is None or out["pane"]["state"] != "healthy":
+        raise RuntimeError(f"/health/nodes after the release: {status} {body}")
+    return out
+
+
+def _scored_and_rehabilitated(stack: _MasterStack, dev_dir: str) -> dict:
+    """The rest of (b): two transport failures of a real add open the mount
+    path's breaker; the collector's passes score it (suspect, then
+    quarantined, by the budget); after the breaker's reset two clean
+    canaries, then passes of probation, bring the node back to healthy."""
+    app, cluster, node = stack.app, stack.cluster, stack.cluster.node_name
+    pod = cluster.add_target_pod("tenant-breaker")
+    pool = stack.services[node].pool
+    with failpoints.armed({"rpc.client.call": "2*unavailable(health check drop)"}):
+        status, body, _ = stack.http("GET", _add_path(pod, 1))
+    address = app.registry.worker_address(node)
+    if status not in (500, 503) or app.registry.breaker.state(address) != "open":
+        raise RuntimeError(f"the dropped add: {status} {body}, breaker "
+                           f"{app.registry.breaker.state(address)}")
+    states = []
+
+    def collect() -> str:
+        app.fleet.collect_once()
+        states.append(app.health.payload()["nodes"][node]["state"])
+        return states[-1]
+
+    if (collect(), collect()) != ("suspect", "quarantined"):
+        raise RuntimeError(f"the scorer's passes over the open breaker: {states}")
+    time.sleep(HEALTH_BREAKER_RESET_S)
+    canaries = []
+    for _ in range(app.cfg.health_rehab_canary_passes):
+        canaries.append(_canary_pass(stack, dev_dir, vanish=False))
+        if not pool.drained(node):
+            # the canary adopted the warm holder: its refill lands before the
+            # next pass drains the pool (one GPU on the card: a refill still
+            # in flight would book it under the next canary's add)
+            _until(lambda: pool.ready_count(node) == 1, 30.0, "the refill after a canary")
+        collect()
+    if states[-1] != "rehabilitating":
+        raise RuntimeError(f"after {len(canaries)} clean canaries: {states}")
+    while states[-1] == "rehabilitating" and len(states) < 10:
+        collect()
+    if states[-1] != "healthy":
+        raise RuntimeError(f"the probation: {states}")
+    # no longer quarantined, the pull un-drained the pool: its refill lands
+    # before the next add
+    _until(lambda: pool.ready_count(node) == 1, 30.0, "the refill after the rehabilitation")
+    return {"states": states, "canary_ms": [c["ms"] for c in canaries],
+            "breaker": app.registry.breaker.state(address)}
+
+
+def _worker_death(stack: _MasterStack, read: str, workdir: str, backend_cfg: dict) -> dict:
+    """(c): the node's worker becomes a child process (``_MasterStack.spawn``
+    with `backend_cfg`, its files in `workdir`); a GPU mounted through the
+    master and that process, the node quarantined by hand; the process is
+    killed with SIGKILL, its worker pod deleted and its Node NotReady in the
+    API; recovery passes until the node is evacuated. The add's slave pod
+    must be released, the evacuation listed by /recovery, and a release of
+    the node refused."""
+    app, cluster, node = stack.app, stack.cluster, stack.cluster.node_name
+    t0 = time.perf_counter()
+    child = stack.spawn(node, workdir, **backend_cfg)
+    spawn_ms = (time.perf_counter() - t0) * 1e3
+    pod = cluster.add_target_pod("tenant-dies")
+    status, body, add_ms = stack.http("GET", _add_path(pod, 1))
+    slaves = _slave_pods(cluster, pod)
+    if status != 200 or len(slaves) != 1:
+        raise RuntimeError(f"the add before the death: {status} {body}, slave pods {slaves}; "
+                           f"the worker process's log: {child.log_tail()}")
+    status, body, _ = stack.http("POST", f"/health/quarantine/{node}",
+                                 payload={"action": "quarantine", "reason": "before death"})
+    if status != 200:
+        raise RuntimeError(f"the quarantine before the death: {status} {body}")
+    if app.recovery.check_once()["evacuated"] or \
+            app.recovery.payload()["nodes"][node]["status"] != "healthy":
+        raise RuntimeError(f"the live node's recovery pass: {app.recovery.payload()}")
+    t0 = time.perf_counter()
+    stack.kill(node)
+    if child.proc.returncode != -signal.SIGKILL:
+        raise RuntimeError(f"the worker process's end: {child.proc.returncode}, not SIGKILL")
+    passes = []
+    deadline = time.monotonic() + EVACUATION_DEADLINE_S
+    while time.monotonic() < deadline:
+        passes.append(app.recovery.check_once())
+        if node in passes[-1]["evacuated"]:
+            break
+        time.sleep(0.05)
+    evacuation_ms = (time.perf_counter() - t0) * 1e3
+    if node not in passes[-1]["evacuated"]:
+        raise RuntimeError(f"{node} not evacuated within {EVACUATION_DEADLINE_S} s: "
+                           f"{app.recovery.payload()}")
+    left = [Pod(p).name for p in cluster.kube.list_pods(cluster.cfg.pool_namespace)
+            if Pod(p).node_name == node]
+    status, body, _ = stack.http("GET", "/recovery", token=read)
+    listed = [e for e in json.loads(body)["evacuations"] if e["node"] == node] \
+        if status == 200 else []
+    if left or not listed or slaves[0] not in listed[-1]["released_bookings"]:
+        raise RuntimeError(f"after the evacuation: pool pods {left} on {node}, /recovery "
+                           f"{status} {body}")
+    status, body, _ = stack.http("POST", f"/health/quarantine/{node}",
+                                 payload={"action": "release"})
+    if status != 409 or "evacuated" not in body:
+        raise RuntimeError(f"the release of the evacuated node: {status} {body}")
+    return {"spawn_ms": spawn_ms, "pid": child.proc.pid, "add_ms": add_ms,
+            "evacuation_ms": evacuation_ms, "passes": len(passes),
+            "released": listed[-1]["released_bookings"], "reason": listed[-1]["reason"],
+            "release_refused": body.strip()}
+
+
+def health_check(device="cuda", *, dev_dir: str | None = None, ns_pid: int | None = None,
+                 identity: str = "nvml", ledger_root: str | None = None,
+                 before_canary=None) -> dict:
+    """Health and recovery on a live hot-mount (``_MasterStack`` over HTTP and
+    gRPC, the master with a read token, the worker with a warm pool of 1 on
+    its node and a ledger in a new directory under `ledger_root`, the
+    cluster's ``FakeKubeClient`` as the API, HEALTH_KNOBS). Without grpcio it
+    raises ``ModuleNotFoundError`` naming grpcio.
+
+    (a) POST /health/quarantine/<node> with the mutate token; one collection
+    pass carries ``quarantined`` to the worker, whose pool drains (ready 0,
+    ``tpumounter_warm_pool_drained_total`` + 1); before_canary() (its result
+    kept); then ``CanaryProber.probe_once``: the canary pod's add, ProbeGPU
+    (healthy, holder_count >= 1: this process holds the GPU's node, and the
+    canary pod's cgroup stand-in lists it while the GPU is probed) and the
+    remove; again
+    with the node deleted from the target's /dev between the add and the
+    probe: unhealthy ("injected device node vanished"), a canary failure;
+    then the operator's release and the pool's refill. (b) two dropped
+    attempts of a real add open the breaker; the passes score it suspect,
+    then quarantined; after the breaker's reset two clean canaries make it
+    rehabilitating and probation healthy, every transition a flight record
+    with its signals. (c) ``_worker_death``: the worker a child process,
+    killed with SIGKILL (it needs openssl, for the stand-in API server's
+    certificate).
+
+    On the card (device="cuda") on the live ``NvidiaDeviceBackend`` mounting
+    into `dev_dir` through the mount namespace of `ns_pid` (as
+    ``mount_check``), and without CAP_MKNOD it raises; on the CPU on a fake
+    host of 2 GPUs, whose nodes this process holds open. Runs on the card
+    unless the caller passes device="cpu".
+
+    Returns {"cap_mknod", "live" or "fake": {"start_ms", "manual", "scored",
+    "death", "records"}, the other None}; ms on the host clock."""
+    device = resolve_device(device)
+    live = device.type == "cuda"
+    report = {"cap_mknod": has_cap_mknod(), "live": None, "fake": None}
+    if live and not report["cap_mknod"]:
+        raise RuntimeError("health_check on the card needs CAP_MKNOD: its canary's adds and "
+                           "removes must be the card's own GPU's")
+    k8s_health.reset_all()
+    read = secrets.token_hex(16)
+    root = tempfile.mkdtemp(prefix="health-check-")
+    ledgers = tempfile.mkdtemp(prefix="health-ledgers-", dir=ledger_root)
+    held_open: list[int] = []
+    try:
+        t0 = time.perf_counter()
+        cfg = Config(auth_mode="token", auth_token=secrets.token_hex(16), auth_read_token=read,
+                     ledger_dir=ledgers, warm_pool_size=1, node_name="gpu-node-0",
+                     **HEALTH_KNOBS)
+        if live:
+            cluster = FakeCluster(NvidiaDeviceBackend("/dev", identity=make_identity(identity)),
+                                  cfg=cfg, node_name=cfg.node_name)
+        else:
+            cluster = FakeCluster.with_fake_gpus(os.path.join(root, "fake"), 2, cfg=cfg)
+            # this process holds the fake GPUs' nodes, as a tenant with CUDA
+            # open holds the card's
+            held_open = [os.open(d.device_path, os.O_RDONLY)
+                         for d in cluster.backend.list_devices()]
+        # the pods' cgroup: a stand-in, which lists this process only while a
+        # canary's GPU is probed (``_ProbeRecorder``)
+        target, cgroup_dirs = _live_target(root, dev_dir, ())
+        cluster.add_target_pod(f"{cfg.health_canary_pod_prefix}{cluster.node_name}",
+                               namespace=cfg.health_canary_namespace)
+        with _MasterStack(cluster, {cluster.node_name: target}, ns_pid if live else None,
+                          cgroup_dirs) as stack:
+            try:
+                flows = {"start_ms": (time.perf_counter() - t0) * 1e3}
+                stack.app.canary.start()  # canary_active; its loop's period is an hour
+                flows["manual"] = _manual_and_canary(stack, target, read, before_canary)
+                flows["scored"] = _scored_and_rehabilitated(stack, target)
+                flows["records"] = _health_records(cluster.node_name)
+                flows["death"] = _worker_death(
+                    stack, read, root,
+                    {"gpu_identity_source": identity} if live
+                    else {"fake_device_dir": cluster.backend.root})
+            finally:
+                stack.services[cluster.node_name].pool.stop()
+    finally:
+        for fd in held_open:
+            os.close(fd)
+        shutil.rmtree(root, ignore_errors=True)
+        shutil.rmtree(ledgers, ignore_errors=True)
+        k8s_health.reset_all()
+    report["live" if live else "fake"] = flows
+    if failpoints.active():
+        raise RuntimeError(f"failpoints left armed: {failpoints.active()}")
     return report

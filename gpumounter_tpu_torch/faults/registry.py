@@ -12,7 +12,7 @@ covered by DYNAMIC_PREFIXES; their arm specs carry the concrete suffix
 The names are the reference's, but for one: ``worker.addtpu.rollback.skip``
 is ``worker.addgpu.rollback.skip``. The reference's sites of packages the
 port has not yet (the elastic reconciler, the migration machine, the
-defragmenter, the autoscaler, the health plane) come with those packages.
+defragmenter, the autoscaler) come with those packages.
 
 This module is data: the runtime (``faults/failpoints.py``) does not read
 it, so an undeclared point still arms in a dev loop.
@@ -41,6 +41,12 @@ FAILPOINTS: dict[str, str] = {
                                     "revoke",
     # warm pool (allocator/pool.py)
     "pool.refill": "per-node warm-pool refill attempt",
+    # health plane (health/plane.py)
+    "health.observe": "top of one gray-failure scoring pass (nodes= "
+                      "ctx); armed with pdrop/pdelay by the gray chaos "
+                      "scenario",
+    "health.canary": "canary probe, before the synthetic mount dials "
+                     "the worker (node= ctx)",
 }
 
 #: f-string site families: a name starting with one of these prefixes is

@@ -19,9 +19,9 @@ write, shared by both clients (``k8s.<op>`` and ``k8s.<op>.status``).
 watch store's cursor; the surface's default answers an empty one), and
 ``patch_pod_with_retry`` the bounded retry of an annotation's merge patch.
 Leases (coordination.k8s.io/v1, with CAS on resourceVersion) hold the
-store's health state and its write probe; the surface's default raises
-NotImplementedError, as it does for nodes, which come with the recovery
-controller (``recovery/``). A transport failure leaves the REST client as
+store's health state and its write probe; nodes (core/v1, get and list)
+are the recovery controller's readiness signal (``recovery/``); the
+surface's default raises NotImplementedError for both. A transport failure leaves the REST client as
 the exception it is (a refused connection, a socket timeout);
 ``k8s/errors.py``'s ``classify_exception`` types it for ApiHealth.
 """
@@ -328,6 +328,14 @@ class RestKubeClient(KubeClient):
                          query=self._selectors(label_selector, field_selector))
         return doc.get("items", []), str(doc.get("metadata", {}).get("resourceVersion", "")
                                           or "")
+
+    # --- nodes ---
+
+    def get_node(self, name: str) -> dict:
+        return self._json("GET", f"/api/v1/nodes/{name}")
+
+    def list_nodes(self) -> list[dict]:
+        return self._json("GET", "/api/v1/nodes").get("items", [])
 
     # --- leases ---
 

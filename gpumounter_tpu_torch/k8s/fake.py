@@ -14,7 +14,10 @@ delete, patch and the lease writes; a watch already open runs on.
 ``list_pods_with_rv`` answers the last event's sequence number as the
 collection's resourceVersion, and a watch given one resumes after it (one
 trimmed out of the backlog raises GoneError at the open). Leases keep a
-resourceVersion of their own, and ``update_lease`` is a CAS on it.
+resourceVersion of their own, and ``update_lease`` is a CAS on it. Nodes
+are Node objects with a Ready condition: ``create_node``, ``set_node_ready``
+(a kubelet whose heartbeats stopped) and ``delete_node`` are the tests'
+helpers, ``get_node`` and ``list_nodes`` reads of the read plane.
 """
 
 from __future__ import annotations
@@ -92,6 +95,7 @@ class FakeKubeClient(KubeClient):
         self._max_events = max(64, int((cfg or Config()).watch_backlog_events))
         self._pods: dict[tuple[str, str], dict] = {}
         self._leases: dict[tuple[str, str], dict] = {}
+        self._nodes: dict[str, dict] = {}
         self._lease_rv = itertools.count(1)
         # the API partition: off, or failing one plane ("full", "reads",
         # "writes")
@@ -347,6 +351,48 @@ class FakeKubeClient(KubeClient):
             meta.setdefault("name", name)
             self._leases[(namespace, name)] = lease
             return copy.deepcopy(lease)
+
+    # --- core/v1 Nodes (the recovery controller's readiness signal) ---
+
+    def get_node(self, name: str) -> dict:
+        self._check_partition("read")
+        with self._lock:
+            node = self._nodes.get(name)
+            if node is None:
+                raise NotFoundError(f"node {name} not found")
+            return copy.deepcopy(node)
+
+    def list_nodes(self) -> list[dict]:
+        self._check_partition("read")
+        with self._lock:
+            return [copy.deepcopy(n) for n in self._nodes.values()]
+
+    def create_node(self, name: str, ready: bool = True) -> dict:
+        """A Node object with its Ready condition (a test's helper)."""
+        node = {
+            "apiVersion": "v1", "kind": "Node",
+            "metadata": {"name": name, "uid": str(uuidlib.uuid4())},
+            "status": {"conditions": [{"type": "Ready",
+                                       "status": "True" if ready else "False"}]},
+        }
+        with self._lock:
+            self._nodes[name] = node
+            return copy.deepcopy(node)
+
+    def set_node_ready(self, name: str, ready: bool, reason: str = "") -> None:
+        """Flip the node's Ready condition: a kubelet that stopped its
+        heartbeats, as the API server shows it."""
+        with self._lock:
+            node = self._nodes.get(name)
+            if node is None:
+                raise NotFoundError(f"node {name} not found")
+            node["status"]["conditions"] = [{
+                "type": "Ready", "status": "True" if ready else "False",
+                **({"reason": reason} if reason else {})}]
+
+    def delete_node(self, name: str) -> None:
+        with self._lock:
+            self._nodes.pop(name, None)
 
     # --- the scheduler thread ---
 

@@ -49,6 +49,20 @@ multi-host routes:
                              first when older than FLEET_SCRAPE_INTERVAL_S
       GET  /slo           -> the ``SloEngine``'s burn rates over it
       GET  /tenants       -> each tenant's steps and disruption windows;
+  * the recovery and health planes (``recovery/controller.py``,
+    ``health/plane.py``), the reads in the read scope and untraced:
+      GET  /recovery      -> each node's liveness verdict, the evacuations
+      POST /recovery/evacuate/<node>
+                          -> the evacuation's record (manual: no
+                             confirmation window, no suspension)
+      GET  /health/nodes  -> each node's health state, signals and canary
+                             streaks, the quarantine budget, the last pass
+      POST /health/quarantine/<node>   {"action": "quarantine" | "release",
+                                        "reason": ...}
+                          -> {"node", "action", "health": the node's pane};
+                             409 for a release the plane refuses (the node
+                             is not quarantined, or was evacuated);
+    both POSTs are shard-gated like /addgpu and leave an edge audit record;
   * the read scope: with TPUMOUNTER_AUTH_READ_TOKEN set, the reads above
     and /shards take it or the mutate token (which implies read), and
     nothing else; without it /metrics stays open and the other reads want
@@ -60,8 +74,8 @@ multi-host routes:
     closing it as an error; /, /healthz, /timeline, /apihealth, /shards and
     the fleet planes' reads are not traced, as in the reference. The pod's
     read is a ``k8s.get_pod`` span. The routes that mutate (add, remove,
-    batch_add, addslice, removeslice) leave an edge audit record, its
-    outcome "http <status>";
+    batch_add, addslice, removeslice, recovery_evacuate, health_quarantine)
+    leave an edge audit record, its outcome "http <status>";
   * the target pod is read to find its node (main.go:52-66): 404 when there
     is no pod, 400 when it is not scheduled;
   * the node's worker comes from ``WorkerRegistry`` (500 when there is
@@ -98,8 +112,18 @@ against MAX_GPU_PER_REQUEST (the original never checks it), a batch holds at
 most BULK_MAX_TARGETS targets, every route but the index and /healthz wants
 a bearer token (``utils/auth.py``), and a path of no route gets "404 page
 not found". The reference's other routes (intents, migrations, capacity,
-recovery, health, defrag, shares, autoscale) come with the packages that
-serve them; until then their paths get that 404, /batch/addtpu among them.
+defrag, shares, autoscale) come with the packages that serve them; until
+then their paths get that 404, /batch/addtpu among them.
+
+The recovery controller and the health plane are built here, as the
+reference's (``gpumounter_tpu/master/app.py:577-602``): the controller over
+the mount path's client factory, the store, the shards and ApiHealth; the
+plane with it and the store, its persisted quarantine set loaded at once;
+the plane the fleet collector's ``health`` observer and the controller's
+``health``; the canary prober over the mount path's client. Their loops run
+only after ``recovery.start()`` and ``canary.start()`` (``master/main.py``).
+The controller's ``elastic`` and ``migrations`` stay None until those
+packages are ported.
 """
 
 from __future__ import annotations
@@ -116,6 +140,7 @@ import urllib.request
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 from gpumounter_tpu_torch.config import Config
+from gpumounter_tpu_torch.health import CanaryProber, HealthPlane
 from gpumounter_tpu_torch.k8s.client import KubeClient, NotFoundError
 from gpumounter_tpu_torch.k8s.health import api_health, wrap_health
 from gpumounter_tpu_torch.k8s.types import Pod
@@ -131,6 +156,7 @@ from gpumounter_tpu_torch.obs import assembly, audit, flight, trace
 from gpumounter_tpu_torch.obs.audit import audited
 from gpumounter_tpu_torch.obs.fleet import FleetCollector
 from gpumounter_tpu_torch.obs.slo import SloEngine
+from gpumounter_tpu_torch.recovery import RecoveryController
 from gpumounter_tpu_torch.rpc.api import AddGPUResult, RemoveGPUResult
 from gpumounter_tpu_torch.rpc.client import ChannelPool, WorkerClient
 from gpumounter_tpu_torch.rpc.resilience import BreakerOpenError, CircuitBreaker, FencedError
@@ -382,6 +408,11 @@ _ROUTES: list[tuple[str, re.Pattern, str]] = [
     ("GET", re.compile(r"^/fleet$"), "fleet"),
     ("GET", re.compile(r"^/slo$"), "slo"),
     ("GET", re.compile(r"^/tenants$"), "tenants"),
+    # the recovery and health planes (recovery/controller.py, health/plane.py)
+    ("GET", re.compile(r"^/recovery$"), "recovery"),
+    ("POST", re.compile(r"^/recovery/evacuate/(?P<node>[^/]+)$"), "recovery_evacuate"),
+    ("GET", re.compile(r"^/health/nodes$"), "health_nodes"),
+    ("POST", re.compile(r"^/health/quarantine/(?P<node>[^/]+)$"), "health_quarantine"),
 ]
 
 #: a slice's GPUs per host when the request names none: an H100 host's 8
@@ -440,18 +471,20 @@ class MasterApp:
     #: token /metrics is open and the others want the mutate token (they
     #: name pods, tenants and GPUs)
     READ_ROUTES = frozenset({"metrics", "audit", "trace", "timeline", "apihealth", "shards",
-                             "fleet", "slo", "tenants"})
+                             "fleet", "slo", "tenants", "recovery", "health_nodes"})
     #: never traced: probes, and the panes a dashboard polls (their spans
     #: would rotate the operations' traces out of the ring)
     UNTRACED_ROUTES = frozenset({"index", "healthz", "metrics", "fleet", "slo", "tenants",
-                                 "apihealth", "timeline", "shards"})
+                                 "apihealth", "timeline", "shards", "recovery",
+                                 "health_nodes"})
     #: never behind the admission gate: a liveness probe or a scrape must
     #: answer while a mount storm fills the replica (a gated /healthz would
     #: turn load into restarts)
     UNGATED_ROUTES = frozenset({"index", "healthz", "metrics"})
     #: the routes that mutate: their edge outcome goes into the audit trail
     #: (the worker's records carry the GPUs of the same trace)
-    AUDITED_ROUTES = frozenset({"add", "remove", "batch_add", "addslice", "removeslice"})
+    AUDITED_ROUTES = frozenset({"add", "remove", "batch_add", "addslice", "removeslice",
+                                "recovery_evacuate", "health_quarantine"})
 
     def __init__(self, kube: KubeClient, cfg=None, worker_client_factory=None,
                  registry: WorkerRegistry | None = None, store: MasterStore | None = None,
@@ -460,7 +493,8 @@ class MasterApp:
         remove_gpu and the context-manager protocol; by default a
         ``WorkerClient`` with the deploy's token, the registry's breaker and
         its pooled channel. telemetry_client_factory(address) -> the fleet
-        collector's client, with collect_telemetry; by default a
+        collector's and the recovery probe's client, with
+        collect_telemetry; by default a
         ``WorkerClient`` with the deploy's token, a channel of its own and no
         breaker, so that a pass over a worker that is down neither counts
         against the mount path's breaker nor leaves the pooled channel in
@@ -507,14 +541,35 @@ class MasterApp:
         self.slo = SloEngine(cfg=self.cfg, kube=kube)
         self.fleet = FleetCollector(self.registry, telemetry_client_factory, cfg=self.cfg,
                                     slo=self.slo, shards=self.shards)
+        # the recovery plane: liveness verdicts and evacuations; its probe
+        # reads the registry's breaker and calls over the collector's client,
+        # so that a worker not serving yet neither opens the mount path's
+        # breaker nor backs its pooled channel off; its loop runs only after
+        # recovery.start() (master/main.py)
+        self.recovery = RecoveryController(kube, self.registry, telemetry_client_factory,
+                                           cfg=self.cfg, store=self.store, shards=self.shards,
+                                           apihealth=self.apihealth)
+        # the gray-failure plane: scores every collection pass, its quarantine
+        # set restored from the store (a takeover keeps it); the canary's loop
+        # runs only after canary.start(). The controller learns the plane so
+        # that an evacuation retires its record; quarantined is not dead
+        self.health = HealthPlane(self.cfg, recovery=self.recovery, store=self.store)
+        self.health.load()
+        self.fleet.health = self.health
+        self.recovery.health = self.health
+        self.canary = CanaryProber(self.health, self.registry, self._client_factory,
+                                   cfg=self.cfg)
         # root and error spans, audit records and the API's transitions onto
         # the timeline; idempotent
         flight.install(apihealth=self.apihealth)
 
     def close(self) -> None:
-        """Stop the fleet collector's loop, the registry's watch and its
-        channels, and close the store (its ApiHealth subscription, its probe,
-        its watch and its queue)."""
+        """Stop the canary's, the recovery controller's and the fleet
+        collector's loops, the registry's watch and its channels, and close
+        the store (its ApiHealth subscription, its probe, its watch and its
+        queue)."""
+        self.canary.stop()
+        self.recovery.stop()
         self.fleet.stop()
         self.registry.stop()
         self.store.close()
@@ -747,6 +802,54 @@ class MasterApp:
         plane."""
         payload = self.fleet.tenants_payload(max_age_s=self.cfg.fleet_scrape_interval_s)
         return 200, "application/json", json.dumps(payload, indent=1) + "\n"
+
+    def _route_recovery(self, match, body, headers):
+        """The recovery plane: each node's liveness verdict, the evacuations,
+        the confirmation settings."""
+        return 200, "application/json", json.dumps(self.recovery.payload(), indent=1) + "\n"
+
+    def _route_recovery_evacuate(self, match, body, headers):
+        """A manual evacuation, for an operator who confirmed the death out of
+        band: no confirmation window. Shard-gated: the node's owner runs it."""
+        node = match.group("node")
+        self._shard_gate(node, f"/recovery/evacuate/{node}")
+        record = self.recovery.evacuate(node, reason="manual")
+        return 200, "application/json", json.dumps(record, indent=1) + "\n"
+
+    def _route_health_nodes(self, match, body, headers):
+        """The health plane's pane: each node's state, signals and canary
+        streaks (node names ride here, never a series' labels), the budget,
+        the last pass's verdict."""
+        return 200, "application/json", json.dumps(self.health.payload(), indent=1) + "\n"
+
+    def _route_health_quarantine(self, match, body, headers):
+        """An operator's quarantine or release (body {"action": "quarantine" |
+        "release", "reason": ...}; quarantine by default). Shard-gated. A
+        release the plane refuses (the node is not quarantined, or was
+        evacuated) is 409."""
+        node = match.group("node")
+        self._shard_gate(node, f"/health/quarantine/{node}")
+        try:
+            req = json.loads(body.decode() or "{}")
+        except ValueError:
+            raise _HttpError(400, "body is not valid JSON")
+        if not isinstance(req, dict):
+            raise _HttpError(400, "body must be a JSON object")
+        action = str(req.get("action") or "quarantine")
+        actor = next((v for k, v in headers.items() if k.lower() == "x-tpumounter-actor"),
+                     "") or "http"
+        try:
+            if action == "quarantine":
+                pane = self.health.quarantine(node, reason=str(req.get("reason") or ""),
+                                              actor=actor)
+            elif action == "release":
+                pane = self.health.release(node, actor=actor)
+            else:
+                raise _HttpError(400, f"unknown action {action!r} (quarantine or release)")
+        except ValueError as exc:
+            raise _HttpError(409, str(exc))
+        return 200, "application/json", json.dumps(
+            {"node": node, "action": action, "health": pane}, indent=1) + "\n"
 
     def _route_workers(self, match, body, headers):
         lines = [f"{node} {ip}" for node, ip in

@@ -24,9 +24,15 @@ the count is 1); MASTER_HTTP_CONCURRENCY sets the admission gate. The fleet
 collector (``obs/fleet.py``) pulls every owned worker's telemetry each
 FLEET_SCRAPE_INTERVAL_S into the rollup of /fleet and the SLO engine's burn
 rates (TPUMOUNTER_SLO_OBJECTIVES, SLO_*), and stops before the app closes;
-the read scope is TPUMOUNTER_AUTH_READ_TOKEN. The reference's other
-background loops (elastic intents, recovery, defragmenter, autoscaler,
-canary) come with their packages.
+the read scope is TPUMOUNTER_AUTH_READ_TOKEN. The recovery controller
+(``recovery/controller.py``) runs its pass each RECOVERY_INTERVAL_S unless
+TPUMOUNTER_RECOVERY=0 (RECOVERY_CONFIRM_FAILURES, RECOVERY_GRACE_S,
+RECOVERY_PROBE_TIMEOUT_S), and the health plane's canary prober
+(``health/plane.py``) each HEALTH_CANARY_INTERVAL_S while TPUMOUNTER_HEALTH is
+on and the interval above 0 (the scorer rides the fleet collector's passes,
+HEALTH_*); both stop before the app closes. The reference's other
+background loops (elastic intents, defragmenter, autoscaler) come with their
+packages.
 
     python -m gpumounter_tpu_torch.master.main
 """
@@ -54,6 +60,15 @@ def main() -> None:
         app.shards.start()
         logger.info("shard manager on: %d shards, replica %s, lease %.0fs",
                     app.shards.shard_count, app.shards.replica_id, app.shards.duration_s)
+    if cfg.recovery_enabled:
+        app.recovery.start()
+        logger.info("recovery controller on (interval %.0fs, confirm %d failures + %.0fs "
+                    "grace)", cfg.recovery_interval_s, cfg.recovery_confirm_failures,
+                    cfg.recovery_grace_s)
+    if cfg.health_enabled and cfg.health_canary_interval_s > 0:
+        app.canary.start()
+        logger.info("health plane on (canary every %.0fs, quarantine budget %.0f%%)",
+                    cfg.health_canary_interval_s, cfg.health_quarantine_budget * 100)
     app.fleet.start()
     httpd = build_http_server(app)
 
@@ -73,7 +88,7 @@ def main() -> None:
         if cfg.shard_count > 1:
             # hand the leases back: the peers claim them now, not at expiry
             app.shards.stop(release=True)
-        app.close()  # the fleet collector's loop first
+        app.close()  # the canary's, recovery's and fleet collector's loops first
 
 
 if __name__ == "__main__":

@@ -74,6 +74,15 @@ def device_node_path(dev_dir: str, dev: GpuDevice) -> str:
     return os.path.join(dev_dir, dev.basename)
 
 
+def device_node_exists(path: str, pid: int | None = None) -> bool:
+    """Whether the node exists: in the mount namespace of `pid` when given
+    (the helper's "missing" op), else in ours. The worker's ProbeGPU asks it
+    of a GPU's node in the target's /dev."""
+    if pid is None:
+        return os.path.exists(path)
+    return not run_in_mount_ns(pid, [["missing", [path]]])[0]
+
+
 def _mknod_here(target_path: str, major: int, minor: int) -> None:
     """Create one char device node, parents included; idempotent."""
     nsexec.mknod_here(target_path, major, minor, DEVICE_FILE_MODE)

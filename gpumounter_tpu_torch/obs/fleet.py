@@ -18,12 +18,12 @@ invariant 8). An active sharded replica (``master/shard.py``) collects only
 the nodes it owns, on the fan-out core (``utils/fanout.py``) with its
 per-shard budgets.
 
-The reference's ``capacity`` hook (its capacity plane, ``obs/capacity.py``),
-``health`` (the gray-failure plane) and ``autoscale_model`` stay None until
-those packages are ported: each would observe the same pass, and the
-health plane's quarantined nodes are the ones whose pull sets the request's
-``quarantined`` (the worker then drains its warm pool). The snapshot's
-``capacity`` section is left out with them; the scrape fallback's is None,
+``health``, the gray-failure plane (``health/plane.py``), observes every
+pass, and its quarantined nodes (``excluded_hosts()``) are the ones whose
+pull sets the request's ``quarantined``: the worker then drains its warm
+pool. The reference's ``capacity`` hook (its capacity plane,
+``obs/capacity.py``) and ``autoscale_model`` stay None until those packages
+are ported. The snapshot's ``capacity`` section is left out with them; the scrape fallback's is None,
 as the reference's. Standard library only: the worker imports the snapshot
 half on its mount path, and the RPC comes in through the client factory.
 """
@@ -351,8 +351,10 @@ class FleetCollector:
         self.span_store = assembly.REMOTE_SPANS if span_store is None else span_store
         #: a ShardManager: an active replica collects the nodes it owns
         self.shards = shards
-        #: the observers of each pass; the packages that fill them are not
-        #: ported yet (capacity and autoscale_model: ROADMAP 7l; health: 7j)
+        #: the observers of each pass, exception-isolated: ``health`` (the
+        #: ``HealthPlane``, which MasterApp sets) scores it, and its
+        #: quarantined nodes ride their pulls; capacity and autoscale_model
+        #: wait for their packages (ROADMAP 7l)
         self.capacity = None
         self.health = None
         self.autoscale_model = None
@@ -407,9 +409,13 @@ class FleetCollector:
         entry = {"address": address, "collected_at": round(time.time(), 3)}
         snapshot = None
         mode = "rpc"
+        quarantined = self.health is not None and node in self.health.excluded_hosts()
         try:
             with self.client_factory(address) as client:
-                resp = client.collect_telemetry()
+                # the flag only when set: absent is not quarantined on the
+                # wire, and a stub without the keyword still answers
+                resp = (client.collect_telemetry(quarantined=True) if quarantined
+                        else client.collect_telemetry())
             snapshot = parse_telemetry(resp.telemetry)
             if snapshot is None:
                 logger.warning("worker %s answered CollectTelemetry with an absent or "

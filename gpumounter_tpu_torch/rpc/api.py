@@ -24,9 +24,11 @@ phase timings.
 
 The reference's ``CollectTelemetry`` service (the fleet collector's pull:
 field 1 ``trace_context``, field 2 ``quarantined`` of the request; fields
-1-3 of the response) is here under ``gpu_mount.TelemetryService``; its
-``ProbeTPU`` and ``QuiesceStatus`` come with the health plane and the
-migration machine.
+1-3 of the response) is here under ``gpu_mount.TelemetryService``, and its
+``ProbeTPU`` (the canary's and the heal's eyes on a pod's accelerators) as
+``gpu_mount.ProbeGPUService/ProbeGPU``, its messages the reference's field
+for field (``ProbeGPURequest`` 1-3, ``ChipHealth`` 1-4, ``ProbeGPUResponse``
+1-2). ``QuiesceStatus`` comes with the migration machine.
 
 Services and methods are the original's, ``gpu_mount.AddGPUService/AddGPU``
 and ``gpu_mount.RemoveGPUService/RemoveGPU``, which the reference's worker
@@ -166,11 +168,63 @@ class CollectTelemetryResponse(Message):
                          node_name=node_name, telemetry=telemetry)
 
 
-# gRPC names (api.proto:21-23, 43-45); the telemetry service has no name in
-# the original, and takes its package's
+# --- a pod's GPUs probed (the reference's extension,
+# gpumounter_tpu/rpc/api.py:127-155) ---
+#
+# The canary's and the heal's eyes on a node: which GPUs the pod holds and
+# whether each is alive. Alive: the host's node still stats as the same char
+# device and the node injected into the target's /dev is still there;
+# holder_count is the /proc scan's, so a caller tells a dead GPU a process
+# still holds from an idle one.
+
+
+class ProbeGPUResult(enum.IntEnum):
+    Success = 0
+    PodNotFound = 1
+
+
+class ProbeGPURequest(Message):
+    FIELDS = [
+        Field(1, "pod_name", "string"),
+        Field(2, "namespace", "string"),
+        Field(3, "trace_context", "string"),
+    ]
+
+    def __init__(self, pod_name: str = "", namespace: str = "", trace_context: str = ""):
+        super().__init__(pod_name=pod_name, namespace=namespace, trace_context=trace_context)
+
+
+class ChipHealth(Message):
+    # the reference's name: the persisted wire contract
+    FIELDS = [
+        Field(1, "uuid", "string"),
+        Field(2, "healthy", "bool"),
+        Field(3, "reason", "string"),
+        Field(4, "holder_count", "int32"),
+    ]
+
+    def __init__(self, uuid: str = "", healthy: bool = False, reason: str = "",
+                 holder_count: int = 0):
+        super().__init__(uuid=uuid, healthy=healthy, reason=reason, holder_count=holder_count)
+
+
+class ProbeGPUResponse(Message):
+    FIELDS = [
+        Field(1, "probe_gpu_result", "enum"),
+        Field(2, "chips", "message", repeated=True, message=ChipHealth),
+    ]
+
+    def __init__(self, probe_gpu_result: int = ProbeGPUResult.Success, chips=()):
+        super().__init__(probe_gpu_result=probe_gpu_result, chips=list(chips))
+
+
+# gRPC names (api.proto:21-23, 43-45); the telemetry and probe services have
+# no name in the original, and take its package's
 ADD_SERVICE = "gpu_mount.AddGPUService"
 REMOVE_SERVICE = "gpu_mount.RemoveGPUService"
 TELEMETRY_SERVICE = "gpu_mount.TelemetryService"
+PROBE_SERVICE = "gpu_mount.ProbeGPUService"
 ADD_METHOD = "AddGPU"
 REMOVE_METHOD = "RemoveGPU"
 TELEMETRY_METHOD = "CollectTelemetry"
+PROBE_METHOD = "ProbeGPU"

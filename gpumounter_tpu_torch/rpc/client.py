@@ -6,7 +6,7 @@ AddGPU / RemoveGPU (``cmd/GPUMounter-master/main.go:82-96, 185-199``). This
 client speaks the original's service names, and adds (``rpc/resilience.py``):
 
   * a deadline a method from config (RPC_ADD_TIMEOUT_S, RPC_REMOVE_TIMEOUT_S,
-    RPC_TELEMETRY_TIMEOUT_S);
+    RPC_TELEMETRY_TIMEOUT_S, RPC_PROBE_TIMEOUT_S);
   * bounded capped-exponential retries on UNAVAILABLE and
     DEADLINE_EXCEEDED, each mutation carrying one idempotency key across its
     attempts, so a retry whose first attempt landed is answered from the
@@ -25,9 +25,11 @@ client speaks the original's service names, and adds (``rpc/resilience.py``):
     (``InjectedUnavailable``) is retried as UNAVAILABLE is, under the same
     idempotency key.
 
-``collect_telemetry`` is the fleet collector's pull (``obs/fleet.py``).
-Left out: ``probe`` and ``quiesce_status`` (with ``health/`` and
-``migrate/``). The pool's hits, misses,
+``collect_telemetry`` is the fleet collector's pull (``obs/fleet.py``) and
+the recovery controller's liveness probe; ``probe_gpu`` the health plane's
+canary read (RPC_PROBE_TIMEOUT_S). Every method takes a ``timeout_s`` that
+overrides its method's deadline for the call. Left out: ``quiesce_status``
+(with ``migrate/``). The pool's hits, misses,
 evictions and size are series of the registry (``utils/metrics.py``). grpc
 is imported when a channel is built; without grpcio that raises
 ModuleNotFoundError naming grpcio, and nothing falls back.
@@ -217,10 +219,12 @@ def _details(exc: Exception) -> str:
 class WorkerClient:
     def __init__(self, address: str, token=_TOKEN_FROM_CONFIG, cfg=None,
                  breaker: CircuitBreaker | None = None,
-                 channel_pool: ChannelPool | None = None):
+                 channel_pool: ChannelPool | None = None, breaker_key: str | None = None):
         """token: the worker's bearer secret; by default TPUMOUNTER_AUTH_TOKEN
         (or its file) from `cfg`; None sends none. breaker: a shared breaker
-        (the registry's), told of each outcome under the address.
+        (the registry's), told of each outcome under `breaker_key` (by
+        default the address: the registry's address of the worker, where a
+        test dials it elsewhere).
         channel_pool: borrow the address's pooled channel; else the client
         dials and owns one."""
         cfg = cfg or Config()
@@ -230,10 +234,12 @@ class WorkerClient:
         self.address = address
         self.timeouts = {api.ADD_METHOD: cfg.rpc_add_timeout_s,
                          api.REMOVE_METHOD: cfg.rpc_remove_timeout_s,
-                         api.TELEMETRY_METHOD: cfg.rpc_telemetry_timeout_s}
+                         api.TELEMETRY_METHOD: cfg.rpc_telemetry_timeout_s,
+                         api.PROBE_METHOD: cfg.rpc_probe_timeout_s}
         self.retry = RetryPolicy(max_attempts=cfg.rpc_max_attempts,
                                  base_s=cfg.rpc_retry_base_s, cap_s=cfg.rpc_retry_cap_s)
         self.breaker = breaker
+        self.breaker_key = breaker_key or address
         self._pool = channel_pool
         if channel_pool is not None:
             self._channel = channel_pool.channel(address)
@@ -254,6 +260,10 @@ class WorkerClient:
                 f"/{api.TELEMETRY_SERVICE}/{api.TELEMETRY_METHOD}",
                 request_serializer=lambda m: m.encode(),
                 response_deserializer=api.CollectTelemetryResponse.decode),
+            api.PROBE_METHOD: self._channel.unary_unary(
+                f"/{api.PROBE_SERVICE}/{api.PROBE_METHOD}",
+                request_serializer=lambda m: m.encode(),
+                response_deserializer=api.ProbeGPUResponse.decode),
         }
 
     def close(self) -> None:
@@ -274,22 +284,23 @@ class WorkerClient:
 
     # --- the call, with its deadline, retries and breaker ---
 
-    def _call(self, method: str, request):
+    def _call(self, method: str, request, timeout_s: float | None = None):
         if self._channel is None:
             raise RuntimeError(f"WorkerClient for {self.address} is closed")
         with trace.span(f"rpc.{method}", address=self.address):
             # the span just opened goes on the wire: the worker's span is
             # its child, not the caller's
             request.trace_context = trace.wire_context()
-            return self._call_attempts(method, request)
+            return self._call_attempts(method, request, timeout_s)
 
-    def _call_attempts(self, method: str, request):
-        deadline = float(failpoints.value("rpc.client.deadline", self.timeouts[method],
-                                          method=method))
+    def _call_attempts(self, method: str, request, timeout_s: float | None = None):
+        deadline = float(failpoints.value(
+            "rpc.client.deadline", self.timeouts[method] if timeout_s is None else timeout_s,
+            method=method))
         last_exc: Exception | None = None
         for attempt in range(1, self.retry.max_attempts + 1):
             if self.breaker is not None:
-                retry_after = self.breaker.allow(self.address)
+                retry_after = self.breaker.allow(self.breaker_key)
                 if retry_after is not None:
                     raise BreakerOpenError(
                         f"worker {self.address} degraded (circuit open); retry in "
@@ -305,9 +316,9 @@ class WorkerClient:
                     # only the transport's failures count against the
                     # worker: a refusal proves it alive and answering
                     if transport:
-                        self.breaker.record_failure(self.address)
+                        self.breaker.record_failure(self.breaker_key)
                     else:
-                        self.breaker.record_success(self.address)
+                        self.breaker.record_success(self.breaker_key)
                 if not transport or attempt >= self.retry.max_attempts:
                     raise self._typed(exc, code, method) from exc
                 last_exc = exc
@@ -319,7 +330,7 @@ class WorkerClient:
                 time.sleep(delay)
             else:
                 if self.breaker is not None:
-                    self.breaker.record_success(self.address)
+                    self.breaker.record_success(self.breaker_key)
                 return response
         raise AssertionError("unreachable")
 
@@ -342,31 +353,42 @@ class WorkerClient:
 
     def add_gpu(self, pod_name: str, namespace: str, gpu_num: int,
                 is_entire_mount: bool = False,
-                idempotency_key: str | None = None, epoch: int = 0) -> api.AddGPUResponse:
+                idempotency_key: str | None = None, epoch: int = 0,
+                timeout_s: float | None = None) -> api.AddGPUResponse:
         """AddGPU; the response's add_gpu_result and the UUIDs mounted. One
         idempotency key covers every attempt. epoch: the caller's fencing
         epoch of the node (0: unfenced); a stale one raises FencedError."""
         request = api.AddGPURequest(
             pod_name, namespace, gpu_num, is_entire_mount,
             idempotency_key=idempotency_key or f"add-{secrets.token_hex(8)}", epoch=int(epoch))
-        return self._call(api.ADD_METHOD, request)
+        return self._call(api.ADD_METHOD, request, timeout_s)
 
     def remove_gpu(self, pod_name: str, namespace: str, uuids: list[str],
                    force: bool = False, remove_all: bool = False,
-                   idempotency_key: str | None = None, epoch: int = 0) -> api.RemoveGPUResponse:
+                   idempotency_key: str | None = None, epoch: int = 0,
+                   timeout_s: float | None = None) -> api.RemoveGPUResponse:
         """RemoveGPU; remove_all (field 5) removes every GPU the pod's slave
         pods hold, whatever the mount type (the slice's remove). One
         idempotency key covers every attempt. epoch: as add_gpu's."""
         request = api.RemoveGPURequest(
             pod_name, namespace, list(uuids), force, remove_all=remove_all,
             idempotency_key=idempotency_key or f"rm-{secrets.token_hex(8)}", epoch=int(epoch))
-        return self._call(api.REMOVE_METHOD, request)
+        return self._call(api.REMOVE_METHOD, request, timeout_s)
 
-    def collect_telemetry(self, quarantined: bool = False) -> api.CollectTelemetryResponse:
+    def collect_telemetry(self, quarantined: bool = False,
+                          timeout_s: float | None = None) -> api.CollectTelemetryResponse:
         """The worker's telemetry snapshot (the raw response: its JSON in
         `telemetry` parses with ``obs.fleet.parse_telemetry``). A read,
         retried like one. `quarantined` carries the master's verdict on the
         node: the worker drains its warm pool while it is set. Its
         ``rpc.CollectTelemetry`` span has no worker half in the assembly."""
         return self._call(api.TELEMETRY_METHOD,
-                          api.CollectTelemetryRequest(quarantined=bool(quarantined)))
+                          api.CollectTelemetryRequest(quarantined=bool(quarantined)), timeout_s)
+
+    def probe_gpu(self, pod_name: str, namespace: str, timeout_s: float | None = None
+                  ) -> tuple[api.ProbeGPUResult, list[api.ChipHealth]]:
+        """ProbeGPU: (the result, the health of every GPU the pod holds). A
+        read, retried like one."""
+        response = self._call(api.PROBE_METHOD, api.ProbeGPURequest(pod_name, namespace),
+                              timeout_s)
+        return api.ProbeGPUResult(response.probe_gpu_result), list(response.chips)

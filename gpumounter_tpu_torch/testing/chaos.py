@@ -25,6 +25,12 @@ schedule drawn from one seed, then checks the global invariants:
      (``worker/resync.py``), books == mounts == ledger on every node: no
      open txn, and each pod's net holdings equal its injected nodes and its
      bookings,
+ 11. node-kill detection and evacuation (``run_node_kill_scenario``, its
+     first half): a node tracked while alive and then killed (server gone,
+     worker pod gone, Node NotReady) is confirmed and evacuated by the
+     recovery controller within the deadline, and none of its pool pods is
+     left; the re-convergence of its stranded intents on a healthy node
+     comes with the elastic reconciler (ROADMAP 7k),
  15. lock order: the nested ``OrderedLock`` / ``OrderedCondition``
      acquisitions the whole run observed form no cycle,
  16. trace assembly: every clean operation of the mount scenario (no fault
@@ -32,6 +38,12 @@ schedule drawn from one seed, then checks the global invariants:
      complete (``obs/assembly.py``: no orphan, no rpc span without its
      worker half) and its phases sum to its wall time within max(2 ms, 5%);
      ``drop_worker_spans`` is its negative control,
+ 20. gray-failure attribution (``run_gray_scenario``): every automatic
+     quarantine of the health plane is a flight record with at least one
+     concrete signal, no node outside the degraded set is ever quarantined,
+     and every degraded node ends quarantined; a disabled scorer
+     (``disable_scorer=True``, the negative control) reads as a missed
+     detection,
  22. watch-store parity (``run_watch_store_scenario``): after a severed
      watch with a storm past the backlog (a 410), a restart and steady
      churn, the ``WatchMasterStore``'s indexes equal a fresh list-backed
@@ -39,8 +51,9 @@ schedule drawn from one seed, then checks the global invariants:
 
 Two more run on their own, not on the harness: ``run_fencing_scenario``
 (invariant 12, no stale-epoch write applied) and ``run_shard_scenario``
-(invariant 9, one owner a shard). The reference's invariants 4, 11, 13, 14
-and 17-21 come with their packages.
+(invariant 9, one owner a shard). The reference's invariants 4, 13, 14, 17-19
+and 21 come with their packages. A killed node (``kill_node``) is out of the
+books' reach: invariants 1-3, 8 and 10 skip it and its pods.
 
 Every node's worker keeps its ledger in a directory of the run; building a
 second service over it is the worker's restart (``restart_worker``). Every
@@ -70,6 +83,7 @@ import time
 from gpumounter_tpu_torch.cgroup.policy import POLICY_ENGINE
 from gpumounter_tpu_torch.collector.collector import GpuCollector
 from gpumounter_tpu_torch.faults import failpoints
+from gpumounter_tpu_torch.k8s import health as k8s_health
 from gpumounter_tpu_torch.k8s.client import NotFoundError
 from gpumounter_tpu_torch.k8s.types import Pod
 from gpumounter_tpu_torch.master.app import MasterApp
@@ -137,9 +151,15 @@ class ChaosHarness:
         self.cluster = FakeCluster.with_fake_gpus(os.path.join(root, "cluster"),
                                                   nodes=nodes or {NODE_A: 6, NODE_B: 6})
         # quick retries; a high breaker threshold, since chaos drops calls on
-        # purpose and the breaker has tests of its own
+        # purpose and the breaker has tests of its own; a recovery that
+        # confirms a death in two passes with no grace; the health plane off
+        # (every node runs in this one process, whose registry folds all
+        # the nodes' mounts together: run_gray_scenario turns it on over
+        # entries it measures itself)
         self.cfg = dataclasses.replace(self.cluster.cfg, rpc_retry_base_s=0.02,
-                                       rpc_retry_cap_s=0.1, breaker_failure_threshold=50)
+                                       rpc_retry_cap_s=0.1, breaker_failure_threshold=50,
+                                       recovery_confirm_failures=2, recovery_grace_s=0.0,
+                                       recovery_probe_timeout_s=2.0, health_enabled=False)
         self.workers = WorkerServers(self._build_node_service, host="localhost")
         self.services: dict[str, GpuMountService] = self.workers.services
         self.channel_pool = ChannelPool(cfg=self.cfg)
@@ -149,6 +169,12 @@ class ChaosHarness:
         #: run_worker_crash_scenario sets it: check_invariants then holds
         #: invariant 10 too
         self.check_ledgers = False
+        #: nodes killed by kill_node (the books' checks skip them)
+        self.dead_nodes: set[str] = set()
+        #: run_gray_scenario sets them: check_invariants then holds invariant
+        #: 20 over the nodes it degraded
+        self.gray_armed = False
+        self.gray_nodes: set[str] = set()
         #: the clean operations run under a chaos.<op> root span, each
         #: {"trace", "span", "op"}: invariant 16 assembles every one
         self.traced_ops: list[dict] = []
@@ -178,7 +204,8 @@ class ChaosHarness:
         return GpuMountService(self.cluster.kube, collector, mounter=mounter, cfg=cfg)
 
     def start(self) -> "ChaosHarness":
-        # this run's spans, records, timeline and policies only
+        # this run's spans, records, timeline, policies and API verdicts only
+        k8s_health.reset_all()
         trace.TRACER.reset()
         REMOTE_SPANS.reset()
         AUDIT.reset()
@@ -206,6 +233,13 @@ class ChaosHarness:
         summary, _ = self.workers.restart(name, self.channel_pool)
         self.record(f"restart worker {name}: replay {summary}")
         return summary
+
+    def kill_node(self, name: str) -> None:
+        """A node's death as the control plane sees it
+        (``WorkerServers.kill``), kept out of the invariants' live nodes."""
+        self.workers.kill(name, self.cluster.kube, self.cfg, [self.channel_pool])
+        self.dead_nodes.add(name)
+        self.record(f"kill node {name}")
 
     def stop(self) -> None:
         failpoints.disarm_all()
@@ -358,16 +392,218 @@ class ChaosHarness:
         self.converge()
 
     def converge(self, timeout_s: float = 10.0) -> None:
-        """Disarm everything, restart every worker whose ledger holds an
+        """Disarm everything, restart every live worker whose ledger holds an
         open txn (a simulated death's: its replay converges it), and wait
         for the slave pods' releases to land."""
         failpoints.disarm_all()
         for name, service in list(self.services.items()):
-            if service.ledger is not None and service.ledger.open_transactions():
+            if name not in self.dead_nodes and service.ledger is not None \
+                    and service.ledger.open_transactions():
                 self.restart_worker(name)
         deadline = time.monotonic() + timeout_s
-        while time.monotonic() < deadline and self.held_gpus() != self.booked_gpus():
+        while time.monotonic() < deadline:
+            held, booked = self.held_gpus(), self.booked_gpus()
+            if all(held[key] == booked[key] for key in self._live_pods()):
+                break
             time.sleep(0.02)
+
+    def _live_pods(self) -> list[tuple[str, str]]:
+        """The pods on nodes that were not killed."""
+        return [key for key, node in self.pods.items() if node not in self.dead_nodes]
+
+    # --- invariant 20: a gray failure, scored and quarantined ---
+
+    #: degradation armed only around the limping nodes' operations, drawn
+    #: from the seeded failpoint RNG: a gray failure is intermittent
+    #: slowness, not an outage (the reference's GRAY_FAULTS)
+    GRAY_FAULTS = [
+        ("worker.mount.mknod", "pdelay([0.9, 0.2])"),
+        ("worker.rpc", "pdelay([0.5, 0.06])"),
+        ("rpc.client.call", "pdrop(0.2)"),
+    ]
+    #: the p95 floor of the scenario's outlier bar, max(3 x median, median +
+    #: floor). The reference's 20 ms is crossed by a healthy node's stall on
+    #: a loaded host (its healthy-fleet control failed under six xdist
+    #: workers); a limping pass's p95 (the max of its few samples) sits
+    #: >= 200 ms over the median, the mknod's injected delay. 150 ms is 7.5x
+    #: the reference's floor and 50 ms under the limp
+    GRAY_P95_FLOOR_MS = 150.0
+
+    def run_gray_scenario(self, limping: tuple = (NODE_B,), n_rounds: int = 4,
+                          mounts_per_round: int = 3, disable_scorer: bool = False) -> dict:
+        """Real adds and removes of one GPU through the whole worker path on
+        every node, GRAY_FAULTS armed only around the limping nodes', and a
+        scoring pass of the app's real ``HealthPlane`` after each round over
+        entries the harness measured itself (every node runs in this one
+        process, whose registry folds their mounts together; a worker of its
+        own reports its own). Needs at least 4 nodes: a healthy herd of 3
+        keeps the fleet's median a healthy one.
+
+        disable_scorer=False: the limping nodes must end quarantined, and
+        check_invariants() holds invariant 20. disable_scorer=True is its
+        negative control: the plane is off while the node limps, and
+        invariant 20 must name the missed detection. Returns {"states": each
+        node's final state, "passes": the scoring passes}."""
+        if len(self.services) < 4:
+            raise ValueError("run_gray_scenario needs a >=4-node cluster (a 3-node healthy herd "
+                             "for the fleet median); build the harness with nodes={...4 "
+                             "entries...}")
+        failpoints.seed(self.seed)
+        self.gray_armed = True
+        self.gray_nodes.update(limping)
+        self.app.health.cfg = dataclasses.replace(
+            self.cfg, health_enabled=not disable_scorer, health_min_samples=3,
+            health_p95_multiplier=3.0, health_p95_floor_ms=self.GRAY_P95_FLOOR_MS,
+            health_suspect_strikes=2, health_quarantine_strikes=3, health_clear_passes=2)
+        if disable_scorer:
+            self.record("negative control: health scorer disabled")
+        pods_by_node: dict[str, tuple[str, str]] = {}
+        for i, node in enumerate(sorted(self.services)):
+            name = f"gf-{i}"
+            self.add_pod(name, node)
+            pods_by_node[node] = ("default", name)
+        passes = 0
+        for _round in range(n_rounds):
+            # each pass scores the round just run, where the reference's
+            # scores every sample since the scenario began: a p95 of a few
+            # samples is their max, so there one healthy node's stall stays
+            # the p95 of every later pass (a strike each, quarantined after
+            # three; a loaded host stalled one for 256 ms against a median
+            # of 49, past the floor). A limping node's round carries the
+            # injected delay in nearly every round (0.9 a mknod)
+            samples: dict[str, list[float]] = {n: [] for n in pods_by_node}
+            errors: dict[str, int] = {n: 0 for n in pods_by_node}
+            for node, (ns, name) in sorted(pods_by_node.items()):
+                for _ in range(mounts_per_round):
+                    if node in limping:
+                        for site, action in self.GRAY_FAULTS:
+                            failpoints.arm(site, action)
+                    started = time.monotonic()
+                    ok = False
+                    try:
+                        with self.client_for_node(node) as client:
+                            response = client.add_gpu(name, ns, 1)
+                        ok = response.add_gpu_result == AddGPUResult.Success
+                        if ok and response.uuids:
+                            with self.client_for_node(node) as client:
+                                client.remove_gpu(name, ns, list(response.uuids), force=True)
+                    except Exception as exc:  # noqa: BLE001 — the limp
+                        self.record(f"gray mount on {node} -> {type(exc).__name__}")
+                    finally:
+                        failpoints.disarm_all()
+                    samples[node].append((time.monotonic() - started) * 1000.0)
+                    if not ok:
+                        errors[node] += 1
+            self.app.health.observe(self._gray_entries(samples, errors))
+            passes += 1
+            states = {n: p["state"] for n, p in self.app.health.payload()["nodes"].items()}
+            self.record(f"gray pass {passes}: {states}")
+        self.converge()
+        return {"states": {n: p["state"] for n, p in
+                           self.app.health.payload()["nodes"].items()},
+                "passes": passes}
+
+    def _gray_entries(self, samples: dict[str, list[float]],
+                      errors: dict[str, int]) -> dict[str, dict]:
+        """CollectTelemetry-shaped entries a node from the harness's own
+        measurements (the reference's ``_gray_entries``)."""
+        entries: dict[str, dict] = {}
+        for node, vals in samples.items():
+            if node in self.dead_nodes:
+                continue
+            ordered = sorted(vals)
+            p95 = ordered[min(len(ordered) - 1, int(0.95 * len(ordered)))] if ordered else None
+            entries[node] = {"mount": {"count": len(vals), "p95_ms": p95,
+                                       "success": len(vals) - errors[node],
+                                       "error": errors[node]},
+                             "breaker": "closed"}
+        return entries
+
+    def _gray_attribution(self) -> list[str]:
+        """Invariant 20 over the app's health plane and the flight recorder."""
+        out: list[str] = []
+        panes = self.app.health.payload()["nodes"]
+        quarantined_now = {n for n, p in panes.items()
+                           if p["state"] == "quarantined" and not p["evacuated"]}
+        for rec in FLIGHT.snapshot():
+            if rec.get("kind") != "health":
+                continue
+            det = rec.get("details") or {}
+            if det.get("to_state") != "quarantined" or det.get("from_state") == "quarantined":
+                continue
+            node = rec.get("node")
+            if not det.get("signals"):
+                out.append(f"quarantine of {node} carries no concrete signal in the flight "
+                           f"record (unattributed quarantine): {rec.get('summary')}")
+            if node not in self.gray_nodes:
+                out.append(f"false quarantine: {node} was quarantined but no gray fault was "
+                           f"armed on it (signals: {det.get('signals')})")
+        if quarantined_now - self.gray_nodes:
+            out.append(f"false quarantine set: {sorted(quarantined_now - self.gray_nodes)} "
+                       f"quarantined without an armed gray fault")
+        for node in sorted(self.gray_nodes):
+            if node not in quarantined_now:
+                out.append(f"gray failure NOT detected: {node} limped through the whole "
+                           f"scenario but ended {panes.get(node, {}).get('state', 'untracked')!r}"
+                           f" instead of quarantined")
+        return out
+
+    # --- invariant 11, its first half: a node's death, detected and evacuated ---
+
+    def run_node_kill_scenario(self, n_pods: int = 2, deadline_s: float = 30.0) -> dict:
+        """Kill NODE_A while `n_pods` victims hold GPUs there: the recovery
+        controller must have tracked it alive, then confirm and evacuate it
+        within `deadline_s`, and none of its pool pods may be left. Each
+        victim's GPUs (1 or 2: the reference's draw for its intent on the same
+        seed) are mounted through the worker's add; a survivor on NODE_B holds
+        one. The re-convergence on NODE_B of the victims' intents comes with
+        the elastic reconciler (ROADMAP 7k). Returns {"detect_passes",
+        "detect_ms" (host clock, the kill to the evacuation), "evacuation",
+        "victims": {name: GPUs}}."""
+        victims: dict[str, int] = {}
+        for i in range(n_pods):
+            name = f"nk-{i}"
+            self.add_pod(name, NODE_A)
+            desired = self.rng.randint(1, 2)
+            with self.client_for_node(NODE_A) as client:
+                response = client.add_gpu(name, "default", desired)
+            if response.add_gpu_result != AddGPUResult.Success \
+                    or len(response.uuids) != desired:
+                raise InvariantViolation(f"pre-kill add of {desired} to {name} failed "
+                                         f"(seed={self.seed}): "
+                                         f"{AddGPUResult(response.add_gpu_result).name}")
+            victims[name] = desired
+            self.record(f"pre-kill {name}: mounted {desired}")
+        self.add_pod("survivor", NODE_B)
+        with self.client_for_node(NODE_B) as client:
+            client.add_gpu("survivor", "default", 1)
+        # the controller runs all the time: every node is tracked before it
+        # can die (killed first, the registry's watch could drop the worker
+        # before the node was ever tracked)
+        primed = self.app.recovery.check_once()
+        if NODE_A not in self.app.recovery.payload()["nodes"]:
+            raise InvariantViolation(f"recovery never tracked {NODE_A} while alive: {primed}")
+        t0 = time.perf_counter()
+        self.kill_node(NODE_A)
+        passes = 0
+        evacuated = False
+        deadline = time.monotonic() + deadline_s
+        while time.monotonic() < deadline and not evacuated:
+            passes += 1
+            evacuated = NODE_A in self.app.recovery.check_once()["evacuated"]
+            if not evacuated:
+                time.sleep(0.05)
+        detect_ms = (time.perf_counter() - t0) * 1e3
+        if not evacuated:
+            raise InvariantViolation(f"node {NODE_A} never evacuated (seed={self.seed}); "
+                                     f"recovery state: {self.app.recovery.payload()}")
+        self.record(f"evacuated {NODE_A} after {passes} pass(es)")
+        leftover = [Pod(p).name for p in self.cluster.kube.list_pods(self.cfg.pool_namespace)
+                    if Pod(p).node_name == NODE_A]
+        if leftover:
+            raise InvariantViolation(f"evacuation left bookings on {NODE_A}: {leftover}")
+        return {"detect_passes": passes, "detect_ms": detect_ms,
+                "evacuation": self.app.recovery.payload()["evacuations"], "victims": victims}
 
     # --- invariant 22: watch-store index parity under stream chaos ---
 
@@ -623,16 +859,19 @@ class ChaosHarness:
     def check_invariants(self) -> None:
         violations: list[str] = []
         held, booked = self.held_gpus(), self.booked_gpus()
-        # 1. a GPU is (node, uuid): the fake nodes reuse UUIDs
+        # 1. a GPU is (node, uuid): the fake nodes reuse UUIDs. A killed
+        # node's pods are out of the books' reach (its evacuation released
+        # their bookings on dead hardware)
+        live = self._live_pods()
         owners: dict[tuple[str, str], list[tuple[str, str]]] = {}
-        for key, uuids in held.items():
-            for uuid in uuids:
+        for key in live:
+            for uuid in held[key]:
                 owners.setdefault((self.pods[key], uuid), []).append(key)
         for (node, uuid), holders in owners.items():
             if len(holders) > 1:
                 violations.append(f"double-hold: GPU {uuid} on {node} mounted in "
                                   f"{[f'{ns}/{p}' for ns, p in holders]}")
-        for key in self.pods:
+        for key in live:
             namespace, name = key
             leaked = held[key] - booked[key]
             if leaked:  # 2.
@@ -659,9 +898,9 @@ class ChaosHarness:
         # must agree
         rollups = [FleetCollector(self.app.registry, self.app._client_factory,
                                   cfg=self.cfg).collect_once() for _ in range(2)]
-        expected_nodes = set(self.services)
+        expected_nodes = set(self.services) - self.dead_nodes
         for which, rollup in zip(("first", "second"), rollups):
-            if set(rollup["nodes"]) != expected_nodes:
+            if set(rollup["nodes"]) - self.dead_nodes != expected_nodes:
                 violations.append(f"fleet rollup ({which}) nodes {sorted(rollup['nodes'])} != "
                                   f"workers {sorted(expected_nodes)}")
             node_sum = sum(e.get("mount", {}).get("count", 0) for e in rollup["nodes"].values())
@@ -696,6 +935,8 @@ class ChaosHarness:
         # 10.
         if self.check_ledgers:
             for node, service in self.services.items():
+                if node in self.dead_nodes:
+                    continue
                 open_txns = service.ledger.open_transactions()
                 if open_txns:
                     violations.append(f"ledger on {node} left open txn(s) after convergence: "
@@ -713,6 +954,9 @@ class ChaosHarness:
                         violations.append(f"ledger/books disagree for {key[0]}/{key[1]} on "
                                           f"{node}: ledger {sorted(ledger_view)} != booked "
                                           f"{sorted(booked[key])}")
+        # 20.
+        if self.gray_armed:
+            violations.extend(self._gray_attribution())
         # 22. the store's stream has settled once no index disagrees
         if self.watchstore_armed and self.watch_store is not None:
             deadline = time.monotonic() + 4.0

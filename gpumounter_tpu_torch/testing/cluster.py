@@ -41,7 +41,12 @@ For the transport (``tests/test_master.py:24-90`` of the reference):
   * ``LoopbackWorkerClient`` reaches a ``GpuMountService`` without grpc, for
     hosts that have none (the card's machine): each call goes through the
     wire codec both ways, and a refused call raises as ``WorkerClient``
-    raises it. The master uses it only where a caller passes it.
+    raises it (a ``timeout_s`` is taken and has nothing to bound). The
+    master uses it only where a caller passes it.
+
+Every node of the cluster has its Node object in the fake API, Ready, as the
+recovery controller reads it (``kube.set_node_ready`` plays a kubelet whose
+heartbeats stopped).
 """
 
 from __future__ import annotations
@@ -124,6 +129,8 @@ class FakeCluster:
         self._alloc_lock = threading.Lock()
         self.kube = FakeKubeClient(scheduler_hook=self._schedule, delete_hook=self._reap,
                                    scheduler_delay_s=scheduler_delay_s)
+        for name in self._nodes:
+            self.kube.create_node(name, ready=True)
         self._kubelet_clients: list[PodResourcesClient] = []
 
     @classmethod
@@ -326,14 +333,36 @@ class WorkerServers:
         server before it stops, and its channel in `pool` serves no more."""
         server = build_server(service, address=f"{self.host}:0")
         server.start()
+        self.services[node] = service
+        self.adopt(node, server, server.bound_port, [pool] if pool is not None else ())
+
+    def adopt(self, node: str, server, port: int, channel_pools=()) -> None:
+        """`server`, already serving on `port` of the host (a gRPC server,
+        or a ``worker_process.WorkerProcess``), is the node's worker from
+        now on; the node's server before it stops, and each of
+        `channel_pools` drops its channel to it."""
         ip = self.ip_by_node[node]
         old, old_port = self.servers.get(node), self.port_by_ip.get(ip)
-        self.services[node], self.servers[node], self.port_by_ip[ip] = \
-            service, server, server.bound_port
+        self.servers[node], self.port_by_ip[ip] = server, port
         if old is not None:
             old.stop(None).wait()
-            if pool is not None:
+            for pool in channel_pools:
                 pool.invalidate(f"{self.host}:{old_port}", "worker-restart")
+
+    def kill(self, node: str, kube, cfg, channel_pools=()) -> None:
+        """The node's death, as the control plane sees it: its worker's
+        server stops without grace (a worker process is killed), each of
+        `channel_pools` drops its channel to it, its worker pod is deleted
+        from `kube` and its Node goes NotReady. What it held stays on disk,
+        as on dead hardware."""
+        server = self.servers.pop(node, None)
+        if server is not None:
+            server.stop(None).wait()
+        port = self.port_by_ip.get(self.ip_by_node[node])
+        for pool in channel_pools:
+            pool.invalidate(f"{self.host}:{port}", "node-kill")
+        kube.delete_pod(cfg.worker_namespace, f"gpu-mounter-worker-{node}")
+        kube.set_node_ready(node, False, reason="KubeletStopped")
 
     def restart(self, node: str, pool=None) -> tuple[dict, float]:
         """The node's worker dies (its ledger's fd abandoned, no clean
@@ -392,8 +421,8 @@ class LoopbackWorkerClient:
         return response_cls.decode(response.encode())
 
     def add_gpu(self, pod_name: str, namespace: str, gpu_num: int,
-                is_entire_mount: bool = False, idempotency_key: str = "", epoch: int = 0
-                ) -> api.AddGPUResponse:
+                is_entire_mount: bool = False, idempotency_key: str = "", epoch: int = 0,
+                timeout_s: float | None = None) -> api.AddGPUResponse:
         return self._call(self.service.add_gpu,
                           api.AddGPURequest(pod_name, namespace, gpu_num, is_entire_mount,
                                             idempotency_key, epoch=epoch),
@@ -401,14 +430,22 @@ class LoopbackWorkerClient:
 
     def remove_gpu(self, pod_name: str, namespace: str, uuids: list[str],
                    force: bool = False, remove_all: bool = False, idempotency_key: str = "",
-                   epoch: int = 0) -> api.RemoveGPUResponse:
+                   epoch: int = 0, timeout_s: float | None = None) -> api.RemoveGPUResponse:
         return self._call(self.service.remove_gpu,
                           api.RemoveGPURequest(pod_name, namespace, list(uuids), force,
                                                remove_all=remove_all,
                                                idempotency_key=idempotency_key, epoch=epoch),
                           api.RemoveGPUResponse, api.REMOVE_METHOD)
 
-    def collect_telemetry(self, quarantined: bool = False) -> api.CollectTelemetryResponse:
+    def collect_telemetry(self, quarantined: bool = False,
+                          timeout_s: float | None = None) -> api.CollectTelemetryResponse:
         return self._call(self.service.collect_telemetry,
                           api.CollectTelemetryRequest(quarantined=quarantined),
                           api.CollectTelemetryResponse, api.TELEMETRY_METHOD)
+
+    def probe_gpu(self, pod_name: str, namespace: str, timeout_s: float | None = None
+                  ) -> tuple[api.ProbeGPUResult, list[api.ChipHealth]]:
+        response = self._call(self.service.probe_gpu,
+                              api.ProbeGPURequest(pod_name, namespace),
+                              api.ProbeGPUResponse, api.PROBE_METHOD)
+        return api.ProbeGPUResult(response.probe_gpu_result), list(response.chips)

@@ -1,11 +1,13 @@
-"""A stand-in Kubernetes API server for the REST clients' tests.
+"""A stand-in Kubernetes API server for the REST clients' tests and for a
+worker run as a child process (``testing/worker_process.py``).
 
 ``FakeApiServer`` serves the pod calls of the core/v1 REST API over HTTPS
 (standard library only) from a ``FakeKubeClient`` of the port: get, list
 with label and field selectors (one namespace or all), create, delete,
 merge-patch, and watch as a stream of JSON lines; the POST of an Event; and the
 coordination.k8s.io/v1 leases (get, create, and the replace that is a CAS on
-the resourceVersion). A LIST carries the fake's collection resourceVersion.
+the resourceVersion); the core/v1 nodes (get and list). A LIST carries the
+fake's collection resourceVersion.
 Errors are Status objects with the API's codes (404, 409, 415). With
 ``stall_s`` set, every answer waits that long first (a stalled API server). Every request is recorded as
 (method, path, query, body) and every TLS connection counted, so two
@@ -43,6 +45,7 @@ from gpumounter_tpu_torch.k8s.errors import ApiError, ConflictError, NotFoundErr
 _POD = re.compile(r"^/api/v1/namespaces/(?P<ns>[^/]+)/pods/(?P<name>[^/]+)$")
 _PODS = re.compile(r"^/api/v1/(?:namespaces/(?P<ns>[^/]+)/)?pods$")
 _EVENTS = re.compile(r"^/api/v1/namespaces/(?P<ns>[^/]+)/events$")
+_NODES = re.compile(r"^/api/v1/nodes(?:/(?P<name>[^/]+))?$")
 _LEASES = re.compile(r"^/apis/coordination\.k8s\.io/v1/namespaces/(?P<ns>[^/]+)/leases"
                      r"(?:/(?P<name>[^/]+))?$")
 
@@ -166,6 +169,12 @@ class FakeApiServer:
             return h._send(200, self.kube.update_lease(leases["ns"], leases["name"], body))
         if leases and not leases["name"] and h.command == "POST":
             return h._send(201, self.kube.create_lease(leases["ns"], body))
+        nodes = _NODES.match(path)
+        if nodes and nodes["name"] and h.command == "GET":
+            return h._send(200, self.kube.get_node(nodes["name"]))
+        if nodes and h.command == "GET":
+            return h._send(200, {"kind": "NodeList", "apiVersion": "v1",
+                                 "items": self.kube.list_nodes()})
         events = _EVENTS.match(path)
         if events and h.command == "POST":
             return h._send(201, self.kube.create_event(events["ns"], body))

@@ -54,9 +54,15 @@ reference's ``worker/server.py:552-599``): the process's telemetry snapshot
 ``worker.rpc`` failpoint; the request's ``quarantined`` drains the node's
 warm pool (``WarmPodPool.set_drained``) or lets it refill.
 
+``probe_gpu`` answers ProbeGPU (the reference's ``probe_tpu``,
+``worker/server.py:440-502``): the health of every GPU a pod holds, in a
+``worker.ProbeGPU`` span with the ``worker.rpc`` failpoint; the health
+plane's canary reads it between its add and its remove.
+
 ``build_server`` serves the service over gRPC (the counterpart of the
 reference's ``build_server``, ``worker/server.py:854-954``): the original's
 ``gpu_mount.AddGPUService/AddGPU`` and ``gpu_mount.RemoveGPUService/RemoveGPU``,
+``gpu_mount.ProbeGPUService/ProbeGPU``,
 ``gpu_mount.TelemetryService/CollectTelemetry`` (left out with
 ``include_telemetry=False``), the health service, and the bearer-token
 interceptor; a ``ServiceError``
@@ -87,6 +93,7 @@ from gpumounter_tpu_torch.k8s.client import KubeClient, NotFoundError
 from gpumounter_tpu_torch.k8s.events import post_pod_event
 from gpumounter_tpu_torch.k8s.health import api_health, wrap_health
 from gpumounter_tpu_torch.k8s.types import Pod
+from gpumounter_tpu_torch.nsutil import ns as nsutil
 from gpumounter_tpu_torch.obs import flight, trace
 from gpumounter_tpu_torch.obs.audit import audited
 from gpumounter_tpu_torch.rpc import api
@@ -332,6 +339,53 @@ class GpuMountService:
                 collect_telemetry_result=api.CollectTelemetryResult.Success,
                 node_name=self.cfg.node_name or "",
                 telemetry=json.dumps(worker_telemetry_snapshot(cfg=self.cfg)))
+
+    # --- ProbeGPU (the health plane's canary read; no original analog) ---
+
+    def _pod_devices_and_target(self, pod: Pod):
+        """One collector refresh, the pod's GPUs (its slave pods' included)
+        and its container's target; None for a container that is gone or
+        restarting (the GPU-level facts are still reported, the checks inside
+        the container are not)."""
+        self.collector.update_status()
+        slave_names = {s.name for s in self.allocator.slave_pods_for(pod)}
+        devices = self.collector.get_pod_devices(pod.name, pod.namespace,
+                                                 slave_pod_names=slave_names, refresh=False)
+        try:
+            target = self.mounter.resolve_target(pod)
+        except MountError:
+            target = None
+        return devices, target
+
+    def _holder_pids(self, target, dev) -> list[int]:
+        if target is not None:
+            return self.mounter.holder_pids(target, dev)
+        return self.collector.backend.running_pids(dev)
+
+    def probe_gpu(self, request: api.ProbeGPURequest) -> api.ProbeGPUResponse:
+        """The health of every GPU the pod holds: the host's node stats as
+        the same char device (``backend.probe_device``), the node injected
+        into the target's /dev is still there (read in the target's mount
+        namespace when it has one), and the /proc scan's holders. Read-only:
+        what to do about a dead GPU is the master's to decide."""
+        with trace.span("worker.ProbeGPU", wire_parent=request.trace_context,
+                        pod=f"{request.namespace}/{request.pod_name}"):
+            failpoints.fire("worker.rpc", method="ProbeGPU", pod=request.pod_name)
+            try:
+                pod = Pod(self.kube.get_pod(request.namespace, request.pod_name))
+            except NotFoundError:
+                return api.ProbeGPUResponse(api.ProbeGPUResult.PodNotFound)
+            devices, target = self._pod_devices_and_target(pod)
+            chips = []
+            for dev in devices:
+                healthy, reason = self.collector.backend.probe_device(dev)
+                if healthy and target is not None and not nsutil.device_node_exists(
+                        nsutil.device_node_path(target.dev_dir, dev), pid=target.ns_pid):
+                    healthy = False
+                    reason = "injected device node vanished from target /dev"
+                chips.append(api.ChipHealth(uuid=dev.uuid, healthy=healthy, reason=reason,
+                                            holder_count=len(self._holder_pids(target, dev))))
+            return api.ProbeGPUResponse(api.ProbeGPUResult.Success, chips=chips)
 
     # --- AddGPU (server.go:34-99) ---
 
@@ -681,6 +735,8 @@ def build_server(service: GpuMountService, port: int | None = None,
         api.REMOVE_SERVICE: {api.REMOVE_METHOD: _handler(service.remove_gpu,
                                                          RemoveGPURequest)},
     }
+    registrations[api.PROBE_SERVICE] = {api.PROBE_METHOD: _handler(service.probe_gpu,
+                                                                   api.ProbeGPURequest)}
     if include_telemetry:
         registrations[api.TELEMETRY_SERVICE] = {api.TELEMETRY_METHOD: _handler(
             service.collect_telemetry, api.CollectTelemetryRequest)}

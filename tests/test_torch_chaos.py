@@ -391,3 +391,115 @@ def test_a_node_counted_twice_is_an_invariant_8_violation(tmp_path, monkeypatch)
         with pytest.raises(InvariantViolation) as err:
             h.check_invariants()
     assert "a node counted twice or dropped" in str(err.value) and "seed=7" in str(err.value)
+
+
+# --- invariant 20: a gray failure, scored and quarantined ---
+
+#: 4 nodes: a healthy herd of 3 keeps the fleet's median a healthy one
+GRAY_NODES = {NODE_A: 4, NODE_B: 4, "chaos-c": 4, "chaos-d": 4}
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_gray_failure_chaos(tmp_path, seed):
+    """NODE_B limps under the reference's seeded GRAY_FAULTS while the rest
+    serve clean traffic: the app's health plane quarantines exactly it, and
+    invariant 20 holds (every quarantine flight-attributed to a signal, no
+    false one)."""
+    assert ChaosHarness.GRAY_FAULTS == ref_chaos.ChaosHarness.GRAY_FAULTS
+    with ChaosHarness(str(tmp_path), seed, nodes=dict(GRAY_NODES)) as h:
+        out = h.run_gray_scenario()
+        h.check_invariants()
+    assert out["states"][NODE_B] == "quarantined" and out["passes"] == 4
+    assert [s for n, s in out["states"].items() if n != NODE_B] == ["healthy"] * 3
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_gray_chaos_healthy_fleet_no_false_quarantine(tmp_path, seed):
+    """The same scenario with no node degraded ends with no quarantine."""
+    with ChaosHarness(str(tmp_path), seed, nodes=dict(GRAY_NODES)) as h:
+        out = h.run_gray_scenario(limping=(), n_rounds=3)
+        h.check_invariants()
+    assert all(s != "quarantined" for s in out["states"].values()), out["states"]
+
+
+def test_gray_chaos_detects_disabled_scorer(tmp_path):
+    """The negative control: the scorer off while NODE_B limps; invariant 20
+    names the missed detection, with the seed."""
+    with ChaosHarness(str(tmp_path), seed=7, nodes=dict(GRAY_NODES)) as h:
+        h.run_gray_scenario(disable_scorer=True)
+        with pytest.raises(InvariantViolation) as err:
+            h.check_invariants()
+    assert "gray failure NOT detected" in str(err.value)
+    assert "seed=7" in str(err.value)
+
+
+@pytest.mark.parametrize("node,quarantined_by", [
+    ("healthy, one stall", {"cumulative": True, "round": False}),
+    ("limping", {"cumulative": True, "round": True})])
+def test_each_gray_pass_scores_its_own_round_where_the_reference_scores_them_all(
+        node, quarantined_by):
+    """The difference on purpose: the port's gray scenario scores each pass
+    over the round just run, the reference's over every sample since the
+    scenario began. Three rounds of 3 mounts, a herd of 3 at 49 ms and the
+    floor of 150 ms (bar 199 ms): a healthy node that stalled once to 256 ms
+    in the first round (as a loaded host stalled one) is quarantined by the
+    cumulative window, whose p95 stays 256 ms, and not by the round's; a
+    limping node whose every round carries the 200 ms mknod delay is
+    quarantined by both."""
+    import dataclasses
+    import types
+
+    from gpumounter_tpu_torch.config import Config
+    from gpumounter_tpu_torch.health import HealthPlane
+
+    rounds = {"healthy, one stall": [[49.0, 256.0, 49.0], [49.0] * 3, [49.0] * 3],
+              "limping": [[251.0, 60.0, 49.0], [49.0, 255.0, 49.0], [49.0, 49.0, 262.0]]}[node]
+    harness = types.SimpleNamespace(dead_nodes=set())
+
+    def quarantined(window: str) -> bool:
+        cfg = dataclasses.replace(Config(), health_enabled=True, health_min_samples=3,
+                                  health_p95_multiplier=3.0,
+                                  health_p95_floor_ms=ChaosHarness.GRAY_P95_FLOOR_MS,
+                                  health_suspect_strikes=2, health_quarantine_strikes=3,
+                                  health_clear_passes=2)
+        plane = HealthPlane(cfg)
+        seen: list[float] = []
+        for samples in rounds:
+            seen += samples
+            probe = seen if window == "cumulative" else samples
+            by_node = {f"h-{j}": [49.0] * len(probe) for j in range(3)}
+            by_node["probe"] = list(probe)
+            plane.observe(ChaosHarness._gray_entries(harness, by_node,
+                                                     {n: 0 for n in by_node}))
+        return plane.payload()["nodes"]["probe"]["state"] == "quarantined"
+
+    assert {w: quarantined(w) for w in quarantined_by} == quarantined_by
+
+
+def test_the_gray_p95_floor_clears_a_loaded_hosts_stall_and_stays_under_the_limp():
+    """The difference on purpose: the port's gray scenario scores with a p95
+    floor of 150 ms, the reference's with 20 ms. With a healthy herd at a 10
+    ms p95, a healthy node that stalled once to 45 ms (a loaded host's
+    hiccup) is an outlier under 20 ms (bar 30 ms) and not under 150 ms (bar
+    160 ms); a limping node whose p95 carries the injected 200 ms mknod delay
+    (210 ms) is one under both, so its quarantine is kept."""
+    import dataclasses
+
+    from gpumounter_tpu_torch.config import Config
+    from gpumounter_tpu_torch.health import HealthPlane
+
+    assert ChaosHarness.GRAY_P95_FLOOR_MS == 150.0
+    herd = {n: {"mount": {"count": 6, "p95_ms": 10.0, "success": 6, "error": 0},
+                "breaker": "closed"} for n in ("h-0", "h-1", "h-2")}
+
+    def signals(floor, p95):
+        cfg = dataclasses.replace(Config(), health_enabled=True, health_min_samples=3,
+                                  health_p95_multiplier=3.0, health_p95_floor_ms=floor,
+                                  health_suspect_strikes=1)
+        plane = HealthPlane(cfg)
+        plane.observe(dict(herd, probe={"mount": {"count": 6, "p95_ms": p95, "success": 6,
+                                                  "error": 0}, "breaker": "closed"}))
+        return plane.payload()["nodes"]["probe"]["signals"]
+
+    assert signals(20.0, 45.0) and not signals(ChaosHarness.GRAY_P95_FLOOR_MS, 45.0)
+    assert signals(20.0, 210.0) and signals(ChaosHarness.GRAY_P95_FLOOR_MS, 210.0)

@@ -1,7 +1,7 @@
 """The two daemons as processes, and the lazy grpc import.
 
 ``python -m gpumounter_tpu_torch.worker.main`` and ``...master.main`` run
-against a stand-in API server (``tests/torch_kube_fake.py``, HTTPS, over a
+against a stand-in API server (``gpumounter_tpu_torch/testing/kube_api.py``, HTTPS, over a
 ``FakeCluster``'s fake Kubernetes, whose scheduler plays the device plugin)
 and the cluster's kubelet served over gRPC (``FakeKubeletServer``). The
 tenant is a real process in a mount namespace of its own with a tmpfs /dev,
@@ -26,7 +26,7 @@ import urllib.parse
 import urllib.request
 
 import pytest
-from torch_kube_fake import FakeApiServer, selfsigned
+from gpumounter_tpu_torch.testing.kube_api import FakeApiServer, selfsigned
 
 from gpumounter_tpu_torch.cgroup import container_cgroup_dir
 from gpumounter_tpu_torch.testing.cluster import FakeCluster

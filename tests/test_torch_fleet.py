@@ -214,7 +214,25 @@ def _unstamped(payload: dict) -> dict:
     return out
 
 
-def test_two_collectors_of_the_same_stub_fleet_roll_up_equal():
+@pytest.fixture()
+def port_master_counters_zeroed():
+    """The rollup's master counters are process-global in both packages;
+    the reference's are zeroed after every test (``tests/conftest.py``), the
+    port's hold what earlier tests of the worker left (the master, slice and
+    transport tests trip breakers). Zeroed here, and put back after."""
+    saved = []
+    for name, _ in fleet._MASTER_COUNTER_NAMES:
+        metric = metrics.REGISTRY.find(name)
+        if metric is not None:
+            saved.append((metric, metric.snapshot()))
+            metric.reset()
+    yield
+    for metric, values in saved:
+        metric.reset()
+        metric._values.update(values)
+
+
+def test_two_collectors_of_the_same_stub_fleet_roll_up_equal(port_master_counters_zeroed):
     rng = np.random.default_rng(7)
     snaps = {f"10.0.0.{i}": _random_snapshot(rng, f"n{i}") for i in range(1, 4)}
     workers = _Workers({f"n{i}": f"10.0.0.{i}" for i in range(1, 4)})
@@ -316,11 +334,12 @@ def test_a_worker_without_the_rpc_is_scraped_through_its_ops_port(tmp_path, ops_
 
 
 def test_a_worker_down_for_a_pass_does_not_refuse_the_next_add(tmp_path):
-    """Over real gRPC, the master's own collector: two passes over a worker
-    that is not serving yet (a master started first, a worker restarting)
-    mark its entry stale, count nothing against the mount path's breaker
-    and leave its pooled channel alone, so the add once the worker serves
-    answers 200 and the next pass is over the RPC."""
+    """Over real gRPC, the master's own collector and recovery controller:
+    two passes of each over a worker that is not serving yet (a master
+    started first, a worker restarting) mark its entry stale and the node
+    suspect, count nothing against the mount path's breaker and leave its
+    pooled channel alone, so the add once the worker serves answers 200 and
+    the next pass is over the RPC."""
     from conftest import AUTH_HEADER
 
     from gpumounter_tpu_torch.master.app import MasterApp
@@ -339,6 +358,10 @@ def test_a_worker_down_for_a_pass_does_not_refuse_the_next_add(tmp_path):
         for _ in range(2):
             entry = app.fleet.collect_once()["nodes"][cluster.node_name]
             assert entry["stale"] is True and entry["breaker"] == "closed", entry
+        for _ in range(2):
+            assert app.recovery.check_once()["evacuated"] == []
+            assert app.recovery.payload()["nodes"][cluster.node_name]["status"] == "suspect"
+        assert app.registry.breaker.state(f"127.0.0.1:{port}") == "closed"
         server = build_server(service, address=f"127.0.0.1:{port}")
         server.start()
         status, _, body, _ = app.handle(

@@ -1,5 +1,5 @@
 """The port's ``RestKubeClient`` against the reference's, on one stand-in API
-server (``tests/torch_kube_fake.py``, HTTPS with a self-signed certificate).
+server (``gpumounter_tpu_torch/testing/kube_api.py``, HTTPS with a self-signed certificate).
 
 The two clients make the same calls, each against its own fresh server over
 a ``FakeKubeClient``: they must send the same method, path, query and body,
@@ -19,7 +19,7 @@ import threading
 
 import pytest
 import yaml
-from torch_kube_fake import FakeApiServer, selfsigned
+from gpumounter_tpu_torch.testing.kube_api import FakeApiServer, selfsigned
 
 from gpumounter_tpu.k8s import client as ref_client
 from gpumounter_tpu.k8s import errors as ref_errors

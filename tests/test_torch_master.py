@@ -323,11 +323,13 @@ def test_the_port_serves_only_the_original_surface(stacks):
     """The reference's other routes wait for their packages: their paths get
     the structured 404. /workers lists the node's worker. The observability
     reads (/audit, /trace/<id>, /timeline), the API-outage pane (/apihealth),
-    the shard table (/shards, an inactive manager's here) and the fleet
-    planes (/fleet, /slo, /tenants) are served, and want the mutate token
-    while no read token is configured; /metrics is then open. With a read
-    token every one of those reads takes it or the mutate token, nothing
-    else, and the read token opens no mutation."""
+    the shard table (/shards, an inactive manager's here), the fleet planes
+    (/fleet, /slo, /tenants) and the recovery and health panes (/recovery,
+    /health/nodes) are served, and want the mutate token while no read token
+    is configured; /metrics is then open. With a read token every one of
+    those reads takes it or the mutate token, nothing else, and the read
+    token opens no mutation: not /addgpu, and not the two POSTs of the
+    recovery and health planes. 21 of the reference's 41 routes are served."""
     s = stacks["port"]
     status, body = http(s, "GET", "/apihealth")
     assert status == 200 and set(json.loads(body)) == {"api", "store"}
@@ -339,7 +341,8 @@ def test_the_port_serves_only_the_original_surface(stacks):
         assert http(s, "GET", path) == (404, "404 page not found\n"), path
     status, body = http(s, "GET", "/metrics", auth=False)
     assert status == 200 and "tpumounter_mount_total" in body
-    for path, key in (("/fleet", "nodes"), ("/slo", "objectives"), ("/tenants", "tenants")):
+    for path, key in (("/fleet", "nodes"), ("/slo", "objectives"), ("/tenants", "tenants"),
+                      ("/recovery", "evacuations"), ("/health/nodes", "quarantine_budget")):
         status, body = http(s, "GET", path)
         assert status == 200 and key in json.loads(body), path
         assert http(s, "GET", path, auth=False) == (401, "missing or invalid bearer token\n")
@@ -347,7 +350,7 @@ def test_the_port_serves_only_the_original_surface(stacks):
     scoped = s.make_app(auth_read_token="read-only-scope")
     try:
         for route in ("/metrics", "/fleet", "/slo", "/tenants", "/audit", "/timeline",
-                      "/apihealth", "/shards"):
+                      "/apihealth", "/shards", "/recovery", "/health/nodes"):
             assert scoped.handle("GET", route, b"", read)[0] == 200, route
             assert scoped.handle("GET", route, b"", dict(AUTH_HEADER))[0] == 200, route
             assert scoped.handle("GET", route, b"", {})[:3] == (
@@ -357,6 +360,9 @@ def test_the_port_serves_only_the_original_surface(stacks):
                                     "false", b"", read)[:3] == (
             401, "text/plain", "missing or invalid bearer token\n")
         assert scoped.handle("GET", "/workers", b"", read)[0] == 401
+        for path in ("/recovery/evacuate/gpu-node-0", "/health/quarantine/gpu-node-0"):
+            assert scoped.handle("POST", path, b"", read)[:3] == (
+                401, "text/plain", "missing or invalid bearer token\n"), path
     finally:
         scoped.close()
     assert http(s, "POST", "/batch/addtpu", {}) == (404, "404 page not found\n")

@@ -109,7 +109,8 @@ PORT_MODULES = ["cgroup.ebpf", "cgroup.policy", "rpc.resilience", "rpc.client", 
                 "worker.server", "worker.mounter", "worker.ledger", "worker.resync",
                 "utils.fanout", "faults.failpoints", "obs.trace", "obs.flight", "k8s.health",
                 "store.writebehind", "store.cache", "store.watch", "master.shard",
-                "allocator.pool", "obs.tenants", "obs.assembly", "obs.fleet", "obs.slo"]
+                "allocator.pool", "obs.tenants", "obs.assembly", "obs.fleet", "obs.slo",
+                "health.plane", "recovery.controller"]
 
 
 def test_every_series_of_the_port_is_the_references():
@@ -154,7 +155,13 @@ def test_every_series_of_the_port_is_the_references():
             "tpumounter_remote_spans_ingested_total", "tpumounter_remote_span_evictions_total",
             "tpumounter_fleet_collections_total", "tpumounter_fleet_nodes",
             "tpumounter_fleet_collect_duration_seconds", "tpumounter_slo_burn_rate",
-            "tpumounter_slo_breaches_total", "tpumounter_slo_breached"} == set(seen)
+            "tpumounter_slo_breaches_total", "tpumounter_slo_breached",
+            "tpumounter_node_health_state", "tpumounter_canary_probes_total",
+            "tpumounter_canary_failures_total", "tpumounter_quarantine_transitions_total",
+            "tpumounter_health_scorer_skips_total", "tpumounter_quarantine_budget_denials_total",
+            "tpumounter_recovery_nodes_tracked", "tpumounter_recovery_nodes_suspect",
+            "tpumounter_nodes_evacuated_total", "tpumounter_evacuated_bookings_total",
+            "tpumounter_evacuated_intents_total"} == set(seen)
 
 
 # --- the series of the modules ported before the registry ---

@@ -8,8 +8,11 @@ worker over its ledger and replay; the replay's summary, the GPUs mounted,
 booked and held in the ledger, and the invariants' verdict must be equal.
 Then the port's seeded crash scenario at the reference's three seeds, and
 the negative control of ``tests/test_recovery_chaos.py``: a death with no
-replay after it must be named by invariant 10, on both. Last, invariant 12:
+replay after it must be named by invariant 10, on both. Then invariant 12:
 a stale shard owner's writes fenced by the worker, on the reference's seeds.
+Last, invariant 11's first half: a node killed under live mounts is
+evacuated by the recovery controller, its counts the reference's on the same
+seeds, and a node that never confirms dead is named.
 """
 
 from __future__ import annotations
@@ -128,3 +131,55 @@ def test_fencing_chaos(seed):
     schedule = chaos.run_fencing_scenario(seed)
     assert any("fencing held" in step for step in schedule)
     assert ops(schedule) == ops(ref_chaos.run_fencing_scenario(seed))
+
+
+# --- invariant 11, its first half: a node's death, detected and evacuated ---
+
+def _reference_node_kill(seed: int) -> dict:
+    """The reference's whole node-kill scenario on the same seed (under a
+    short root: its kubelets' unix sockets)."""
+    root = short_root()
+    try:
+        with ref_chaos.ChaosHarness(root, seed) as h:
+            out = h.run_node_kill_scenario(n_pods=2)
+            h.check_invariants()
+        return out
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_node_kill_chaos(tmp_path, seed):
+    """NODE_A dies under two victims holding GPUs: tracked while alive,
+    evacuated within the deadline, none of its pool pods left, and the
+    invariants hold on the live nodes. Held to the reference's run on the
+    same seed: the victims' GPU counts are its draws (its re-converged
+    intents), and its evacuation released as many bookings in as many
+    passes. Its re-convergence half comes with the elastic reconciler."""
+    with ChaosHarness(str(tmp_path), seed) as h:
+        out = h.run_node_kill_scenario(n_pods=2)
+        h.check_invariants()
+    assert len(out["evacuation"]) == 1 and out["evacuation"][0]["node"] == chaos.NODE_A
+    assert out["detect_ms"] < 30_000
+    ref = _reference_node_kill(seed)
+    assert out["victims"] == {name: r["actual"] for name, r in ref["reconverged"].items()}
+    assert out["detect_passes"] == ref["detect_passes"]
+    assert len(out["evacuation"][0]["released_bookings"]) == \
+        len(ref["evacuation"][0]["released_bookings"]) == sum(out["victims"].values())
+
+
+def test_a_node_kill_without_recovery_is_detected(tmp_path):
+    """A chaos check that cannot fail proves nothing: a killed node whose
+    controller never confirms (a Ready Node, as a worker's crash looks) is
+    named by the scenario, with the seed."""
+    with ChaosHarness(str(tmp_path), seed=7) as h:
+        real_kill = h.kill_node
+
+        def kill_but_ready(name):
+            real_kill(name)
+            h.cluster.kube.set_node_ready(name, True)
+
+        h.kill_node = kill_but_ready
+        with pytest.raises(chaos.InvariantViolation) as err:
+            h.run_node_kill_scenario(n_pods=1, deadline_s=1.0)
+    assert "never evacuated" in str(err.value) and "seed=7" in str(err.value)

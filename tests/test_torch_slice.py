@@ -243,10 +243,10 @@ def test_every_call_of_a_rolled_back_slice_has_its_own_key(stacks, monkeypatch):
     lock = threading.Lock()
     real_call = port_client.WorkerClient._call
 
-    def recording(self, method, request):
+    def recording(self, method, request, *rest):
         with lock:
             keys.append((method, request.idempotency_key))
-        return real_call(self, method, request)
+        return real_call(self, method, request, *rest)
 
     monkeypatch.setattr(port_client.WorkerClient, "_call", recording)
     squatter = _squat(stack, "host-0", "keys")

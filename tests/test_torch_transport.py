@@ -170,6 +170,7 @@ def test_a_retried_add_under_one_key_mounts_once(port_worker):
         cfg = service.cfg
         remove_gpu = service.remove_gpu
         collect_telemetry = service.collect_telemetry  # the server's third method
+        probe_gpu = service.probe_gpu  # and its fourth
 
         def add_gpu(self, request):
             calls.append(request.idempotency_key)

@@ -314,15 +314,10 @@ def serves_bounded_stale_reads(side, d):
 
 def never_caches_node_readiness(side, d):
     store, fake, _ = _store(side, d)
-    node = {"metadata": {"name": "n1"}}
-    fake.get_node = lambda name: node
+    fake.create_node("n1", ready=False)
     first = store.get_node("n1")
     fake.set_partitioned(True)
-
-    def down(name):
-        fake._check_partition("read")
-    fake.get_node = down
-    return first, store.get_node("n1")
+    return (first["metadata"]["name"], first["status"]["conditions"]), store.get_node("n1")
 
 
 def intents_are_never_deferred(side, d):
@@ -427,7 +422,7 @@ STORE_EXPECTED = {
     "short_circuits_when_the_write_plane_is_down": ("down", 1, []),
     "keeps_order_once_a_key_is_queued": (1, "newest"),
     "serves_bounded_stale_reads": (["w1"], ["w1"], ["worker_pods"]),
-    "never_caches_node_readiness": ({"metadata": {"name": "n1"}}, None),
+    "never_caches_node_readiness": (("n1", [{"type": "Ready", "status": "False"}]), None),
     "intents_are_never_deferred": 0,
     "flushes_on_recovery": (1, 0, "auto"),
     "not_found_evicts": [],
