@@ -377,6 +377,45 @@ Phases, each raising on failure (any failure exits non-zero):
        add's slave pod released, /recovery listing the evacuation, and the
        operator's release of the node refused (409, evacuated).
     Every case runs on the card's own GPU: without CAP_MKNOD the phase fails.
+19. the elastic controller and the live migration on a live hot-mount,
+    ``entry.elastic_migrate_check`` through the master over gRPC as in
+    phase 11, the worker's ledger and the tenant's pack beside this script,
+    the in-process ``FakeKubeClient`` as the API:
+    a. PUT /intents/default/<pod> (1 GPU, min 1); a pass of the reconciler
+       grows the pod through the slice coordinator, GET /intents shows it
+       converged and ProbeGPU healthy; the GPU's node deleted from the
+       target's /dev, ProbeGPU unhealthy ("injected device node vanished");
+       the next pass heals: force-remove, the grow again (the only free GPU
+       is the same H100, healthy at the host), ``tpumounter.io/chip-replaced``
+       at generation 1, the ``elastic.heal`` record, the GPUChipReplaced
+       Event, ``tpumounter_chips_healed_total`` + 1, and a
+       ``torchside.watch_chip_replacements`` watcher on the pod fires once;
+       the heal's ms beside phase 11's add;
+    b. a tenant process at each end (``testing/migrate_tenant.py``, on the
+       GPU through CUDA_VISIBLE_DEVICES, watching its pod over the stand-in
+       API server): the source's runs phase 3's first forward through
+       ``flash_fwd``; POST /migrate with the checkpoint: the source packs
+       with ``HotResumable`` on the quiesce and saves the pack beside this
+       script on the checkpoint, acking each (read through QuiesceStatus);
+       the drain force-removes the H100 from the source, the remount mounts
+       it into the destination, whose tenant loads and restores the pack on
+       the resume, acks, and runs the same forward: its logits' sha256 equal
+       to the source's (launches of both counted in the kernels line);
+       verify probes; the journal ends succeeded, the intent of (a) is on
+       the destination, its lock cleared, and /trace/<id> holds every phase
+       under the /migrate edge; each phase's time and the downtime;
+    c. ``migrate.phase.verify`` armed to fail, the GPU migrated back, no
+       tenant (the acks time out at 0.3 s): the machine rolls back to the
+       pod that holds the intent, the journal ends rolled-back with its
+       GPUMigrationRolledBack Event, and the books, the ledger and the
+       mounts agree.
+    Phase 15 also prints (b'): a second write partition lands while POST
+    /migrate's machine waits in the quiesce; PUT /intents is refused (a
+    user's CRUD is never deferred), the machine's journal persists (the
+    phase's and the pause's, paused_for_api) defer with the GPU still on
+    the source, and after the heal the flush lands them and the machine
+    moves the GPU to the destination.
+    Every case runs on the card's own GPU: without CAP_MKNOD the phase fails.
 
 The last lines are a JSON object per kernel (``{"kernels": [...]}``) and
 ``{"ok": true, "device": {...}}``, and the exit code is 0. A failing check
@@ -424,7 +463,8 @@ from gpumounter_tpu_torch.entry import (ADD_TRACE, ADD_WORKER_SPANS, FLEET_SLO_W
                                         TRAIN_GRAD_ATOL, _check_equal_over, _masked_err,
                                         against_one_process, busy_health_check, cgroup_v2_check,
                                         check_config, degraded_check, durability_check,
-                                        dryrun_multichip, fleet_check, grow_checks,
+                                        dryrun_multichip, elastic_migrate_check, fleet_check,
+                                        grow_checks,
                                         has_cap_mknod, health_check,
                                         inventory_check, kernel_launches, make_identity,
                                         master_check, moe_blocks_vs_plain, moe_check,
@@ -3299,6 +3339,19 @@ def phase_degraded(card: str, master_live: dict) -> int:
           f"flush {w['flush']} in {w['flush_ms']:.3f} ms; reopened queue pending "
           f"{w['reopened_pending']}; releases retried {w['retried']}; books == mounts == "
           f"ledger [{card}]", flush=True)
+    t = flows["migration_traffic"]
+    print(f"time degraded (b') the elastic and migration routes' writes in a second write "
+          f"partition, landing while POST /migrate's machine ({t['id']}, begun in "
+          f"{t['begin_ms']:.3f} ms) waits in the quiesce: PUT /intents refused "
+          f"{t['put_refused'][0]} in {t['put_ms']:.3f} ms (a user's CRUD is never deferred); "
+          f"the quiesce's journal persist and the pause's (paused_for_api at "
+          f"{t['paused_phase']}) deferred ({t['deferred']:.0f}) in "
+          f"{', '.join(f'{ms:.3f}' for ms in t['persist_ms'])} ms (their spans), the GPU "
+          f"still on the source; healed in {t['heal_ms']:.3f} ms, the flush applied "
+          f"{t['applied']:.0f} write(s) {t['flush_ms']:.3f} ms after the transition, beside (b)'s "
+          f"flush {w['flush_ms']:.3f} ms; the machine then {t['outcome']} (phases "
+          f"{t['phases_s']} s), the GPU on the destination, books == mounts == ledger "
+          f"[{card}]", flush=True)
     r = flows["reads"]
     print(f"time degraded (c) read partition around a live add: the registry answered from "
           f"its cache; the store's worker LIST served stale (tpumounter_store_stale_reads_total"
@@ -3606,6 +3659,59 @@ def phase_health(card: str, master_live: dict) -> int:
     return fwd["launches"]
 
 
+def phase_elastic_migrate(card: str, master_live: dict) -> int:
+    """Phase 19: ``entry.elastic_migrate_check`` on the card (see the module's
+    docstring), a line for each case. Returns the flash_fwd launches of the
+    two tenants (the source's forward and the destination's after the
+    restore)."""
+    t_phase = time.perf_counter()
+    cfg = full_width_config()
+    tenant = {"model": {"vocab": cfg.vocab, "d_model": cfg.d_model, "n_heads": cfg.n_heads,
+                        "n_layers": cfg.n_layers, "d_ff": cfg.d_ff, "max_len": cfg.max_len,
+                        "rope": cfg.rope},
+              "tokens": [FULL["B"], FULL["L"]]}
+    ledger_root = os.path.dirname(os.path.abspath(__file__))
+    with _tenant_target("phase19") as (dev_dir, _cgroup_dir):
+        report = elastic_migrate_check("cuda", dev_dir=dev_dir, ns_pid=os.getpid(),
+                                       identity=pick_identity(), ledger_root=ledger_root,
+                                       tenant=tenant)
+    f = report["live"]
+    if f is None:
+        raise RuntimeError("phase 19 ran no live flows on the card")
+    h, m, rb = f["heal"], f["migration"], f["rollback"]
+    src, dst = m["source"], m["destination"]
+    for what, t in (("phase 19's source tenant", src), ("phase 19's destination tenant", dst)):
+        if t["launches"] != cfg.n_layers or t["shape"] != [FULL["B"], FULL["L"], cfg.vocab] \
+                or not 0 <= t["nll"] - math.log(cfg.vocab) < NLL_ABOVE_UNIFORM:
+            raise RuntimeError(f"{what}'s forward: {t}")
+    print(f"time elastic (a) PUT /intents {h['put_ms']:.3f} ms; the reconciler's pass grew "
+          f"the pod to {h['uuid']} in {h['grow_ms']:.3f} ms (phase 11's add "
+          f"{_runs(master_live['add_ms'])}); its node deleted from the target's /dev, ProbeGPU "
+          f"answered healthy {h['vanished']['healthy']} ({h['vanished']['reason']!r}); the "
+          f"heal (force-remove, grow, probe) {h['heal_ms']:.3f} ms: removed "
+          f"{h['outcome']['removed_dead']}, added {h['outcome']['added']}, chip-replaced "
+          f"generation {h['marker']['generation']}, the elastic.heal record, the Event "
+          f"{h['event']!r}, tpumounter_chips_healed_total + 1; the torchside heal watcher fired "
+          f"once [{card}]", flush=True)
+    print(f"time elastic (b) the tenants (processes on the GPU) watching their pods "
+          f"{m['tenants_ready_ms']:.1f} ms from their start; the source's forward through "
+          f"flash_fwd ({src['launches']} launches, {src['forward_ms']:.1f} ms, nll "
+          f"{src['nll']:.4f}); POST /migrate (checkpoint) {m['begin_ms']:.3f} ms; the source "
+          f"packed in {src['pack_ms']:.1f} ms and saved in {src['save_ms']:.1f} ms; the "
+          f"destination loaded in {dst['load_ms']:.1f} ms, restored in {dst['restore_ms']:.1f} "
+          f"ms and ran the forward ({dst['launches']} launches, {dst['forward_ms']:.1f} ms): its "
+          f"logits' sha256 {dst['sha256'][:16]} equal to the source's; phases (s) "
+          f"{m['phases_s']}, downtime {m['downtime_s']} s; /trace/<id> holds "
+          f"{[n for n in m['spans'] if n.startswith(('migrate.', 'http.'))]} [{card}]",
+          flush=True)
+    print(f"time elastic (c) migrate.phase.verify armed: rolled back in {rb['wait_ms']:.3f} ms "
+          f"(phases (s) {rb['phases_s']}), the Event {rb['event']!r}; books == ledger == "
+          f"mounts {rb['books']} [{card}]", flush=True)
+    print(f"time elastic phase 19: {time.perf_counter() - t_phase:.1f} s (the stack's start "
+          f"{f['start_ms']:.1f} ms) [{card}]", flush=True)
+    return m["launches"]
+
+
 def phase_forward_timing(cfg, params, tokens, card, what="forward") -> None:
     fwd_ms = _time_ms(lambda: forward(params, tokens, cfg), 5, warmup=1)
     tok_s = tokens.numel() / (fwd_ms / 1e3)
@@ -3729,6 +3835,8 @@ def _phases(stage: list, t0: float) -> None:
     fleet_launches = phase_fleet(card, master_live)
     begin("18 (health and recovery on a live hot-mount)")
     health_launches = phase_health(card, master_live)
+    begin("19 (the elastic controller and the live migration on a live hot-mount)")
+    migrate_launches = phase_elastic_migrate(card, master_live)
     sharded = {k: sharded_launches[k] + seq_pipe_launches[k] + grow_launches[k]
                + dryrun_launches[k] for k in sharded_launches}
 
@@ -3751,8 +3859,9 @@ def _phases(stage: list, t0: float) -> None:
           f"read partition's heal (phase 15): flash_fwd {degraded_launches}; the first pooled "
           f"GPU's tenant (phase 16): flash_fwd {pool_launches}; the fleet phase's tenant "
           f"(phase 17): flash_fwd {fleet_launches}; the forward that holds the card under "
-          f"the canary (phase 18): flash_fwd {health_launches}", flush=True)
-    print(f"chip_smoke: phases 1-18 took {time.perf_counter() - t0:.1f} s, the kernels' build "
+          f"the canary (phase 18): flash_fwd {health_launches}; the migrated tenant's two "
+          f"ends (phase 19): flash_fwd {migrate_launches}", flush=True)
+    print(f"chip_smoke: phases 1-19 took {time.perf_counter() - t0:.1f} s, the kernels' build "
           f"included [{card}]", flush=True)
     bwd_source = "gpumounter_tpu_torch/ops/csrc/flash_bwd.cu"
     print(json.dumps({"kernels": [{
@@ -3763,7 +3872,7 @@ def _phases(stage: list, t0: float) -> None:
                      + moe_fwd + handoff_launches["flash_fwd"] + sharded["flash_fwd"]
                      + mount_launches + v2_launches + durability_launches
                      + degraded_launches + pool_launches + fleet_launches
-                     + health_launches),
+                     + health_launches + migrate_launches),
         "max_abs_err": max_abs_err, **times}, {
         "name": "flash_bwd_dq", "route": "cuda", "source": bwd_source,
         "replaces": "gpumounter_tpu/ops/flash_attention.py:182",

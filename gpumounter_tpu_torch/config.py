@@ -6,7 +6,8 @@ mounter, the transport, the master (with its slice and batch routes and their
 fan-out core), the observability stores, the worker's ledger and drain, the master's
 store with its API-outage degraded mode, the sharded masters, the warm pool, the
 fleet planes (telemetry, SLOs, tenants, the trace assembly), the recovery
-controller, the gray-failure health plane and the two daemons read. Every field is an environment variable with the original GPUMounter's value
+controller, the gray-failure health plane, the elastic reconciler, the live
+migration and the two daemons read. Every field is an environment variable with the original GPUMounter's value
 as default; the names are the reference's where the meaning is the same. NVIDIA-specific: the resource ``nvidia.com/gpu``
 (``pkg/util/gpu/types.go:10``), the pool namespace ``gpu-pool``
 (``types.go:18``), the worker pods' label ``app=gpu-mounter-worker``, the
@@ -158,6 +159,9 @@ class Config:
     # ProbeGPU is a read-only scan of the pod's GPUs: it fails fast too
     rpc_probe_timeout_s: float = field(default_factory=lambda: float(
         _env("RPC_PROBE_TIMEOUT_S", "15")))
+    # QuiesceStatus reads the tenant's ack: the migration machine polls it
+    rpc_quiesce_timeout_s: float = field(default_factory=lambda: float(
+        _env("RPC_QUIESCE_TIMEOUT_S", "15")))
     rpc_max_attempts: int = field(default_factory=lambda: int(_env("RPC_MAX_ATTEMPTS", "3")))
     rpc_retry_base_s: float = field(default_factory=lambda: float(
         _env("RPC_RETRY_BASE_S", "0.1")))
@@ -354,6 +358,34 @@ class Config:
         "HEALTH_PROBATION_PASSES", "3")))
     health_drain_burn_passes: int = field(default_factory=lambda: int(_env(
         "HEALTH_DRAIN_BURN_PASSES", "3")))
+
+    # --- the elastic reconciler (elastic/reconciler.py) ---
+    # every intent enters the work queue again this often (a restarted
+    # reconciler or a missed edge corrects itself); a failed pass backs off
+    # from the base, doubling to the cap, with jitter; the queue hands out
+    # at most one key a min interval, whatever the keys
+    elastic_resync_interval_s: float = field(default_factory=lambda: float(
+        _env("ELASTIC_RESYNC_INTERVAL_S", "10")))
+    elastic_backoff_base_s: float = field(default_factory=lambda: float(
+        _env("ELASTIC_BACKOFF_BASE_S", "0.5")))
+    elastic_backoff_cap_s: float = field(default_factory=lambda: float(
+        _env("ELASTIC_BACKOFF_CAP_S", "60")))
+    elastic_min_reconcile_interval_s: float = field(default_factory=lambda: float(
+        _env("ELASTIC_MIN_RECONCILE_INTERVAL_S", "0.05")))
+
+    # --- the live migration (migrate/orchestrator.py) ---
+    # how long the machine waits for the tenant's quiesce, checkpoint and
+    # resume acks before it goes on without them (the drain is forced
+    # either way: a tenant without the watcher loses the warm pack, not
+    # the migration), and its poll of QuiesceStatus
+    migrate_quiesce_timeout_s: float = field(default_factory=lambda: float(
+        _env("MIGRATE_QUIESCE_TIMEOUT_S", "30")))
+    migrate_resume_timeout_s: float = field(default_factory=lambda: float(
+        _env("MIGRATE_RESUME_TIMEOUT_S", "30")))
+    migrate_checkpoint_timeout_s: float = field(default_factory=lambda: float(
+        _env("MIGRATE_CHECKPOINT_TIMEOUT_S", "30")))
+    migrate_poll_interval_s: float = field(default_factory=lambda: float(
+        _env("MIGRATE_POLL_INTERVAL_S", "0.2")))
 
     # the fake API server's watch backlog (k8s/fake.py): events kept for
     # resumable watches, at least 64; a watcher that falls past it has its

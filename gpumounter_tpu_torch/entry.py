@@ -20,7 +20,10 @@ through the worker's ops port and the trace assembly under the read scope
 (``fleet_check``), and health and recovery: the operator's quarantine
 riding the pull to the warm pool, the canary over ProbeGPU, the scorer's
 quarantine and rehabilitation, and a worker's death evacuated by the
-recovery controller (``health_check``)."""
+recovery controller (``health_check``), and the elastic controller and the
+live migration: an intent converged and healed over ProbeGPU, a tenant
+moved between pods with its state packed and restored, and a rollback
+(``elastic_migrate_check``)."""
 
 from __future__ import annotations
 
@@ -3162,6 +3165,106 @@ def _degraded_writes(stack: _MasterStack, dev_dir: str, live: bool) -> dict:
             "retried": retried, "books": books}
 
 
+#: (b')'s machine: the quiesce's ack wait, long enough for the write plane
+#: to go down inside it (DEGRADED_HEALTH's 0.5 s), and no wait on the resume
+DEGRADED_MIGRATE_KNOBS = dict(migrate_quiesce_timeout_s=3.0, migrate_resume_timeout_s=0.3,
+                              migrate_poll_interval_s=0.02)
+
+
+def _degraded_migration_traffic(stack: _MasterStack, dev_dir: str) -> dict:
+    """(b') The elastic and migration routes' writes in a write partition. A
+    GPU added to a source pod, then POST /migrate to a destination pod on the
+    node; while the machine waits in the quiesce for an ack no tenant sends,
+    the write plane goes down: PUT /intents is refused (500; a user's CRUD is
+    never deferred, as the reference's), and the quiesce's end meets the
+    partition, its journal persist and the pause's (``paused_for_api``)
+    defer into the write-behind queue, the GPU still on the source. Healed,
+    the flush lands the journal once, and the machine drains, remounts and
+    verifies: succeeded, the GPU on the destination (books == mounts ==
+    ledger), then removed. The two deferred persists' ms are their
+    ``migrate.journal_persist`` spans on the migration's trace."""
+    from gpumounter_tpu_torch.migrate.journal import ANNOT_JOURNAL, parse_journal
+    cluster, app, kube, node = stack.cluster, stack.app, stack.cluster.kube, \
+        stack.cluster.node_name
+    src = cluster.add_target_pod("tenant-degraded-mig-src")
+    dst = cluster.add_target_pod("tenant-degraded-mig-dst")
+    status, text, _ = stack.http("GET", _add_path(src, 1))
+    if status != 200:
+        raise RuntimeError(f"add before the migration: {status} {text!r}")
+    uuids = stack.held(node, src)
+    cfg = app.migrations.cfg
+    app.migrations.cfg = dataclasses.replace(cfg, **DEGRADED_MIGRATE_KNOBS)
+    try:
+        status, body, begin_ms = stack.http("POST", "/migrate", payload={
+            "source": {"namespace": src.namespace, "pod": src.name},
+            "destination": {"namespace": dst.namespace, "pod": dst.name}})
+        if status != 200:
+            raise RuntimeError(f"POST /migrate: {status} {body}")
+        mid = json.loads(body)["id"]
+        _until(lambda: "tpumounter.io/migration-phase" in Pod(kube.get_pod(
+            src.namespace, src.name)).annotations, 10.0, "the quiesce's stamp")
+        kube.set_partitioned(True, mode="writes")
+        partitioned_at = time.time()
+        t0 = time.perf_counter()
+        while app.apihealth.plane_state("write") != "down":
+            try:
+                app.kube.patch_pod(src.namespace, src.name, {"metadata": {"labels": {}}})
+            except PartitionError:
+                pass
+            if time.perf_counter() - t0 > 10.0:
+                raise RuntimeError(f"the write plane not down: {app.apihealth.payload()}")
+            time.sleep(0.01)
+        put_status, refusal, put_ms = stack.http(
+            "PUT", f"/intents/{src.namespace}/{src.name}", payload={"desiredChips": 1})
+        deferred0, replayed0 = DEFERRED_WRITES.total(), WRITEBEHIND_REPLAYED.snapshot()
+        if (app.migrations.get(mid) or {}).get("phase") != "quiesce":
+            raise RuntimeError(f"the machine left the quiesce before the write plane went "
+                               f"down: {app.migrations.get(mid)}")
+        _until(lambda: (app.migrations.get(mid) or {}).get("paused_for_api"), 30.0,
+               "the machine's pause")
+        paused = app.migrations.get(mid)
+        deferred = DEFERRED_WRITES.total() - deferred0
+        stored = parse_journal(Pod(kube.get_pod(src.namespace, src.name)).annotations)
+        if put_status != 500 or deferred != 2 or app.store.queue.pending_count() < 1 \
+                or stored is None or stored["phase"] != "quiesce" or paused["outcome"] \
+                or stack.held(node, src) != uuids or stack.held(node, dst):
+            raise RuntimeError(f"the write partition: PUT /intents {put_status} {refusal!r}, "
+                               f"{deferred} deferred, {app.store.queue.pending_count()} "
+                               f"pending, the stored journal {stored}, the machine {paused}")
+        healed_at: list[float] = []
+        app.apihealth.subscribe(lambda old, new: healed_at.append(time.perf_counter())
+                                if new == "healthy" else None)
+        heal_ms = _heal(stack, src)
+        healed_wall = time.time()
+        _until(lambda: app.store.queue.pending_count() == 0, 10.0, "the journal's flush")
+        flush_ms = (time.perf_counter() - healed_at[0]) * 1e3
+        journal = app.migrations.wait(mid, timeout_s=120.0)
+    finally:
+        app.migrations.cfg = cfg
+    applied = sum(v - replayed0.get(k, 0.0) for k, v in WRITEBEHIND_REPLAYED.snapshot().items()
+                  if dict(k).get("outcome") == "applied")
+    landed = parse_journal(Pod(kube.get_pod(src.namespace, src.name)).annotations)
+    persists = [sp for sp in _trace_spans(stack, journal["trace_id"])
+                if sp["name"] == "migrate.journal_persist"
+                and partitioned_at <= sp["start"] < healed_wall]
+    if journal.get("outcome") != "succeeded" or journal["dest_chips"] != uuids \
+            or applied < 1 or landed is None or landed["outcome"] != "succeeded" \
+            or len(persists) != 2 or ANNOT_JOURNAL not in Pod(kube.get_pod(
+                src.namespace, src.name)).annotations:
+        raise RuntimeError(f"after the heal: journal {journal}, {applied} applied, landed "
+                           f"{landed}, the deferred persists' spans {persists}")
+    books = _books_mounts_ledger(stack, dst, dev_dir)
+    status, text, _ = stack.http("POST", _remove_path(dst), {"uuids": ",".join(uuids)})
+    if books != uuids or status != 200 or stack.held(node, dst):
+        raise RuntimeError(f"the destination: books {books}, the remove {status} {text!r}")
+    return {"put_refused": (put_status, refusal.strip()),
+            "put_ms": put_ms, "begin_ms": begin_ms, "deferred": deferred,
+            "persist_ms": [sp["duration_s"] * 1e3 for sp in persists],
+            "paused_phase": paused["phase"], "heal_ms": heal_ms, "flush_ms": flush_ms,
+            "applied": applied, "outcome": journal["outcome"],
+            "phases_s": journal["phase_durations_s"], "id": mid}
+
+
 def _degraded_reads(stack: _MasterStack, dev_dir: str, live: bool, on_healed=None) -> dict:
     """(c) A read partition around an add: the registry answers from its
     cache, the store's worker LIST is served stale (its age on /apihealth),
@@ -3252,7 +3355,10 @@ def degraded_check(device="cuda", *, dev_dir: str | None = None, ns_pid: int | N
     naming grpcio.
 
     (a) ``_degraded_healthy``: `repeats` round trips through the new seam.
-    (b) ``_degraded_writes``: a write partition around a remove. (c)
+    (b) ``_degraded_writes``: a write partition around a remove, then
+    ``_degraded_migration_traffic``: an intent's PUT refused and a
+    migration's journal persists deferred while its machine pauses, in a
+    second write partition, then the migration finished after the heal. (c)
     ``_degraded_reads``: a read partition around an add; on_healed(uuids,
     dev_dir) runs while the GPU added after the heal is mounted. (d)
     ``_degraded_costs``: `cost_iters` tracked calls, cached reads and
@@ -3265,7 +3371,8 @@ def degraded_check(device="cuda", *, dev_dir: str | None = None, ns_pid: int | N
     device="cpu".
 
     Returns {"cap_mknod", "health" (the thresholds), "live" or "fake": {
-    "healthy", "writes", "reads"}, the other None, "costs"}; ms and us on
+    "healthy", "writes", "migration_traffic", "reads"}, the other None,
+    "costs"}; ms and us on
     the host clock."""
     device = resolve_device(device)
     report = {"cap_mknod": has_cap_mknod(), "health": dict(DEGRADED_HEALTH), "live": None,
@@ -3297,6 +3404,7 @@ def degraded_check(device="cuda", *, dev_dir: str | None = None, ns_pid: int | N
             report[key] = {"healthy": _degraded_healthy(stack, target, repeats, live, lists)}
             del stack.app.store.list_worker_pods
             report[key]["writes"] = _degraded_writes(stack, target, live)
+            report[key]["migration_traffic"] = _degraded_migration_traffic(stack, target)
             report[key]["reads"] = _degraded_reads(stack, target, live, on_healed)
             report["costs"] = _degraded_costs(stack, os.path.join(state, "cost-queue"),
                                               cost_iters)
@@ -4372,6 +4480,374 @@ def health_check(device="cuda", *, dev_dir: str | None = None, ns_pid: int | Non
             os.close(fd)
         shutil.rmtree(root, ignore_errors=True)
         shutil.rmtree(ledgers, ignore_errors=True)
+        k8s_health.reset_all()
+    report["live" if live else "fake"] = flows
+    if failpoints.active():
+        raise RuntimeError(f"failpoints left armed: {failpoints.active()}")
+    return report
+
+
+# --- the elastic controller and the live migration ---
+
+#: the reconciler's and the machine's knobs of the check: no resync while it
+#: drives the passes, the tenants' acks waited for long enough for a child
+#: process's start on the card (its imports alone take seconds)
+ELASTIC_MIGRATE_KNOBS = dict(elastic_resync_interval_s=3600.0, elastic_backoff_base_s=0.05,
+                             elastic_backoff_cap_s=0.2, elastic_min_reconcile_interval_s=0.0,
+                             migrate_quiesce_timeout_s=300.0,
+                             migrate_checkpoint_timeout_s=300.0,
+                             migrate_resume_timeout_s=300.0, migrate_poll_interval_s=0.02,
+                             rpc_retry_base_s=0.02, rpc_retry_cap_s=0.05)
+#: the rollback's acks: no tenant answers them, and the machine goes on
+ROLLBACK_ACK_TIMEOUT_S = 0.3
+#: a tenant's model and tokens on the CPU (the card's come from the caller)
+MIGRATE_TENANT_CPU = dict(model=dict(vocab=256, d_model=64, n_heads=4, n_layers=2, d_ff=128,
+                                     max_len=32, rope=True), tokens=[2, 32])
+#: a tenant's deadline, from its start to its report
+MIGRATE_TENANT_TIMEOUT_S = 600.0
+
+
+class _MigrateTenant:
+    """One end of the move (``testing/migrate_tenant.py``): a thread over the
+    in-process API on the CPU, or on the card a process with
+    CUDA_VISIBLE_DEVICES set to the GPU, over the stand-in API (`api`), its
+    stderr in `log_path`."""
+
+    def __init__(self, spec: dict, kube=None, api: dict | None = None, uuid: str = "",
+                 log_path: str = ""):
+        from gpumounter_tpu_torch.testing import migrate_tenant
+        self.ready, self.ended = threading.Event(), threading.Event()
+        self.report: dict | None = None
+        self.error: str | None = None
+        self.proc = None
+        if api is None:
+            def body():
+                try:
+                    self.report = migrate_tenant.run(
+                        kube, {**spec, "on_ready": lambda r: self.ready.set()}, "cpu")
+                except Exception as exc:  # noqa: BLE001 — handed to result()
+                    self.error = f"{type(exc).__name__}: {exc}"
+                finally:
+                    self.ended.set()
+
+            threading.Thread(target=body, name=f"tenant-{spec['role']}", daemon=True).start()
+            return
+        repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        env = {**os.environ, "CUDA_VISIBLE_DEVICES": uuid, "PYTHONPATH": os.pathsep.join(
+            p for p in (repo, os.environ.get("PYTHONPATH", "")) if p)}
+        self.log_path = log_path
+        self._log = open(log_path, "w")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "gpumounter_tpu_torch.testing.migrate_tenant",
+             json.dumps({**spec, "api": api})], cwd=repo, env=env, stdin=subprocess.DEVNULL,
+            stdout=subprocess.PIPE, stderr=self._log, text=True)
+        threading.Thread(target=self._read, name=f"tenant-{spec['role']}-out",
+                         daemon=True).start()
+
+    def _read(self) -> None:
+        for line in self.proc.stdout:
+            if line.startswith("{"):
+                msg = json.loads(line)
+                if "ready" in msg:
+                    self.ready.set()
+                elif "report" in msg:
+                    self.report = msg["report"]
+        if self.proc.wait() != 0 or self.report is None:
+            self._log.flush()
+            with open(self.log_path, errors="replace") as f:
+                self.error = f"exit {self.proc.returncode}: {f.read()[-3000:]}"
+        self._log.close()
+        self.ended.set()
+
+    def wait_ready(self, timeout_s: float, what: str) -> None:
+        deadline = time.monotonic() + timeout_s
+        while not self.ready.wait(0.05):
+            if self.ended.is_set() or time.monotonic() > deadline:
+                raise RuntimeError(f"the {what} never watched its pod: {self.error}")
+
+    def result(self, timeout_s: float, what: str) -> dict:
+        if not self.ended.wait(timeout_s) or self.error is not None:
+            self.stop()
+            raise RuntimeError(f"the {what}: {self.error or 'no report in time'}")
+        return self.report
+
+    def stop(self) -> None:
+        if self.proc is not None and self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+
+def _intent_and_heal(stack: _MasterStack, dev_dir: str, pod) -> dict:
+    """(a) PUT /intents of 1 GPU for `pod`, a pass of the reconciler's loop
+    grows it (the slice coordinator's add), GET /intents shows it converged
+    and ProbeGPU healthy; the GPU's node deleted from the target's /dev,
+    ProbeGPU unhealthy, and the next pass heals: force-remove, the grow
+    again (the only free GPU is the same, healthy at the host), the
+    chip-replaced marker at generation 1, the ``elastic.heal`` record, the
+    Event, one more ``tpumounter_chips_healed_total``; a
+    ``torchside.watch_chip_replacements`` watcher on the pod fires once."""
+    from gpumounter_tpu_torch.elastic.intents import ANNOT_REPLACED
+    from gpumounter_tpu_torch.elastic.reconciler import CHIPS_HEALED, REPLACED_REASON
+    from gpumounter_tpu_torch.torchside.heal import watch_chip_replacements
+    app, cluster, node = stack.app, stack.cluster, stack.cluster.node_name
+    path, key = f"/intents/{pod.namespace}/{pod.name}", f"{pod.namespace}/{pod.name}"
+    status, body, put_ms = stack.http("PUT", path, payload={"desiredChips": 1, "minChips": 1})
+    if status != 200 or json.loads(body)["desiredChips"] != 1:
+        raise RuntimeError(f"PUT {path}: {status} {body}")
+    t0 = time.perf_counter()
+    app.elastic._process(key)
+    grow_ms = (time.perf_counter() - t0) * 1e3
+    status, body, _ = stack.http("GET", path)
+    grown = json.loads(body).get("status", {}) if status == 200 else {}
+    uuids = stack.held(node, pod)
+    if grown.get("phase") != "converged" or grown.get("actual") != 1 or len(uuids) != 1:
+        raise RuntimeError(f"the grow: GET {path} {status} {body}, held {uuids}")
+    uuid = uuids[0]
+
+    def probe() -> dict:
+        with stack.client(node) as client:
+            result, chips = client.probe_gpu(pod.name, pod.namespace)
+        if result.name != "Success" or len(chips) != 1:
+            raise RuntimeError(f"ProbeGPU of {key}: {result.name} {chips}")
+        return {"uuid": chips[0].uuid, "healthy": chips[0].healthy, "reason": chips[0].reason}
+
+    before = probe()
+    fired: list[dict] = []
+    stop = threading.Event()
+    watcher = threading.Thread(target=watch_chip_replacements,
+                               args=(cluster.kube, pod.namespace, pod.name, fired.append),
+                               kwargs=dict(stop=stop, watch_timeout_s=1.0), daemon=True)
+    watcher.start()
+    try:
+        basename = stack.services[node].collector.backend.device_by_uuid(uuid).basename
+        os.unlink(os.path.join(dev_dir, basename))
+        vanished = probe()
+        if not before["healthy"] or vanished["healthy"] \
+                or "injected device node vanished" not in vanished["reason"]:
+            raise RuntimeError(f"ProbeGPU before {before}, after the node's deletion {vanished}")
+        healed0, events0 = CHIPS_HEALED.total(), len(cluster.kube.events_posted)
+        t0 = time.perf_counter()
+        app.elastic._process(key)
+        heal_ms = (time.perf_counter() - t0) * 1e3
+        outcome = app.elastic.status_for(pod.namespace, pod.name) or {}
+        marker = json.loads(Pod(cluster.kube.get_pod(pod.namespace, pod.name))
+                            .annotations.get(ANNOT_REPLACED, "{}"))
+        records = [r for r in audit.AUDIT.snapshot()
+                   if r["operation"] == "elastic.heal" and r["pod"] == pod.name]
+        events = [m for _, m in cluster.kube.events_posted[events0:]
+                  if m.get("reason") == REPLACED_REASON]
+        after = probe()
+        if outcome.get("phase") != "converged" or outcome.get("healed") != 1 \
+                or outcome.get("removed_dead") != [uuid] or outcome.get("added") != [uuid] \
+                or marker.get("generation") != 1 or not marker.get("trace_id") \
+                or len(records) != 1 or len(events) != 1 \
+                or CHIPS_HEALED.total() - healed0 != 1 or not after["healthy"] \
+                or not os.path.lexists(os.path.join(dev_dir, basename)):
+            raise RuntimeError(f"the heal: outcome {outcome}, marker {marker}, records "
+                               f"{records}, events {events}, probe {after}")
+        watch_ms = _until(lambda: len(fired) >= 1, 10.0, "the heal watcher")
+        if len(fired) != 1 or fired[0]["generation"] != 1:
+            raise RuntimeError(f"the heal watcher fired {fired}")
+    finally:
+        stop.set()
+        watcher.join(timeout=5.0)
+    return {"uuid": uuid, "put_ms": put_ms, "grow_ms": grow_ms, "heal_ms": heal_ms,
+            "vanished": vanished, "outcome": outcome, "marker": marker,
+            "record": records[0], "event": events[0]["message"], "watcher_ms": watch_ms}
+
+
+def _live_migration(stack: _MasterStack, src, dst, uuid: str, pack_dir: str, tenant: dict,
+                    api: dict | None, workdir: str) -> dict:
+    """(b) A tenant on each end (``_MigrateTenant``): the source's forward,
+    then POST /migrate with the checkpoint; the source packs on the
+    quiesce, saves on the checkpoint, acks each; the drain removes the GPU
+    from the source, the remount mounts it into the destination, whose
+    tenant restores on the resume, acks and runs the same forward: its
+    logits' sha256 must be the source's. The journal ends succeeded after
+    verify, the intent is on the destination, its lock is cleared, and
+    /migrations/<mid> and /trace/<id> show every phase under the /migrate
+    edge's trace."""
+    from gpumounter_tpu_torch.migrate.journal import ANNOT_LOCK
+    from gpumounter_tpu_torch.migrate.orchestrator import MIGRATIONS_TOTAL
+    app, cluster, node = stack.app, stack.cluster, stack.cluster.node_name
+    kube = cluster.kube
+    specs = {role: {"role": role, "namespace": pod.namespace, "pod": pod.name,
+                    "pack_dir": pack_dir, "seed": 0, "timeout_s": MIGRATE_TENANT_TIMEOUT_S,
+                    **tenant}
+             for role, pod in (("source", src), ("destination", dst))}
+    t0 = time.perf_counter()
+    tenants = {role: _MigrateTenant(spec, kube=kube, api=api, uuid=uuid,
+                                    log_path=os.path.join(workdir, f"tenant-{role}.log"))
+               for role, spec in specs.items()}
+    try:
+        for role, t in tenants.items():
+            t.wait_ready(MIGRATE_TENANT_TIMEOUT_S, f"{role}'s tenant")
+        ready_ms = (time.perf_counter() - t0) * 1e3
+        succeeded0 = MIGRATIONS_TOTAL.get(phase="verify", outcome="succeeded")
+        status, body, begin_ms, tid = stack.traced("POST", "/migrate", payload={
+            "source": {"namespace": src.namespace, "pod": src.name},
+            "destination": {"namespace": dst.namespace, "pod": dst.name}, "checkpoint": True})
+        if status != 200:
+            raise RuntimeError(f"POST /migrate: {status} {body}")
+        mid = json.loads(body)["id"]
+        journal = app.migrations.wait(mid, timeout_s=MIGRATE_TENANT_TIMEOUT_S)
+        reports = {role: t.result(60.0, f"{role}'s tenant") for role, t in tenants.items()}
+    finally:
+        for t in tenants.values():
+            t.stop()
+    status, body, _ = stack.http("GET", f"/migrations/{mid}")
+    listed = json.loads(body) if status == 200 else {}
+    src_annotations = Pod(kube.get_pod(src.namespace, src.name)).annotations
+    dst_annotations = Pod(kube.get_pod(dst.namespace, dst.name)).annotations
+    status_src, _, _ = stack.http("GET", f"/intents/{src.namespace}/{src.name}")
+    status_dst, body_dst, _ = stack.http("GET", f"/intents/{dst.namespace}/{dst.name}")
+    trace_status, trace_body, _ = stack.http("GET", f"/trace/{journal['trace_id']}")
+    spans = sorted({s["name"] for s in json.loads(trace_body).get("spans", [])}) \
+        if trace_status == 200 else []
+    phases = ["quiesce", "checkpoint", "drain", "remount", "resume", "verify"]
+    source, dest = reports["source"], reports["destination"]
+    if journal.get("outcome") != "succeeded" or listed.get("outcome") != "succeeded" \
+            or journal["trace_id"] != tid or journal["chips"] != [uuid] \
+            or journal["dest_chips"] != [uuid] or not journal["quiesced"] \
+            or not journal["checkpointed"] or not journal["resumed"] \
+            or stack.held(node, src) or stack.held(node, dst) != [uuid] \
+            or status_src != 404 or status_dst != 200 \
+            or json.loads(body_dst)["desiredChips"] != 1 or ANNOT_LOCK in dst_annotations \
+            or json.loads(src_annotations["tpumounter.io/migration-phase"])["phase"] != "done" \
+            or MIGRATIONS_TOTAL.get(phase="verify", outcome="succeeded") - succeeded0 != 1 \
+            or not {f"migrate.{p}" for p in phases} | {"http.migrate_start"} <= set(spans):
+        raise RuntimeError(f"the migration: journal {journal}, /migrations/{mid} {listed}, "
+                           f"intents {status_src} {status_dst}, lock "
+                           f"{dst_annotations.get(ANNOT_LOCK)}, spans {spans}")
+    if source["signals"] != ["quiesce", "checkpoint"] or dest["signals"] != ["resume"] \
+            or not dest["checkpointed"] or dest["chips"] != [uuid] \
+            or source["trace_id"] != tid or dest["sha256"] != source["sha256"] \
+            or not (source["finite"] and dest["finite"]):
+        raise RuntimeError(f"the tenants: source {source}, destination {dest}")
+    return {"id": mid, "trace_id": tid, "begin_ms": begin_ms, "tenants_ready_ms": ready_ms,
+            "phases_s": journal["phase_durations_s"], "downtime_s": journal["downtime_s"],
+            "spans": spans, "source": source, "destination": dest,
+            "launches": source["launches"] + dest["launches"]}
+
+
+def _rollback(stack: _MasterStack, src, dst, uuid: str, dev_dir: str) -> dict:
+    """(c) ``migrate.phase.verify`` armed to fail, the GPU migrated back from
+    `src` (which holds the intent now) to `dst`, no tenant (the acks time
+    out in ROLLBACK_ACK_TIMEOUT_S): the machine rolls back, the GPU is in
+    `src` again, the journal ends rolled-back with its Event, and the books,
+    the ledger and the mounts agree."""
+    from gpumounter_tpu_torch.migrate.orchestrator import ROLLED_BACK_REASON
+    app, kube = stack.app, stack.cluster.kube
+    cfg = app.migrations.cfg
+    app.migrations.cfg = dataclasses.replace(
+        cfg, migrate_quiesce_timeout_s=ROLLBACK_ACK_TIMEOUT_S,
+        migrate_checkpoint_timeout_s=ROLLBACK_ACK_TIMEOUT_S,
+        migrate_resume_timeout_s=ROLLBACK_ACK_TIMEOUT_S)
+    events0 = len(kube.events_posted)
+    try:
+        with failpoints.armed({"migrate.phase.verify": "1*error(check rollback)"}):
+            status, body, begin_ms = stack.http("POST", "/migrate", payload={
+                "source": {"namespace": src.namespace, "pod": src.name},
+                "destination": {"namespace": dst.namespace, "pod": dst.name}})
+            if status != 200:
+                raise RuntimeError(f"POST /migrate back: {status} {body}")
+            mid = json.loads(body)["id"]
+            t0 = time.perf_counter()
+            journal = app.migrations.wait(mid, timeout_s=120.0)
+            wait_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        app.migrations.cfg = cfg
+    events = [m for _, m in kube.events_posted[events0:] if m.get("reason") == ROLLED_BACK_REASON]
+    node = stack.cluster.node_name
+    # the node's target holds the GPU for `src` alone: `dst`, which shares
+    # the directory, has nothing booked or in the ledger
+    books = {src.name: _books_mounts_ledger(stack, src, dev_dir), dst.name: sorted(
+        stack.held(node, dst)) + sorted(stack.services[node].ledger.net_holdings().get(
+            (dst.namespace, dst.name), set()))}
+    if journal.get("outcome") != "rolled-back" or "check rollback" not in journal["error"] \
+            or journal.get("rollback_healthy") != 1 or books != {src.name: [uuid], dst.name: []} \
+            or len(events) != 1:
+        raise RuntimeError(f"the rollback: journal {journal}, books {books}, events {events}")
+    return {"id": mid, "begin_ms": begin_ms, "wait_ms": wait_ms, "error": journal["error"],
+            "phases_s": journal["phase_durations_s"], "event": events[0]["message"],
+            "books": books}
+
+
+def elastic_migrate_check(device="cuda", *, dev_dir: str | None = None,
+                          ns_pid: int | None = None, identity: str = "nvml",
+                          ledger_root: str | None = None, tenant: dict | None = None) -> dict:
+    """The elastic controller and the live migration on a live hot-mount
+    (``_MasterStack`` over HTTP and gRPC, a ledger in a new directory under
+    `ledger_root`, the cluster's ``FakeKubeClient`` as the API,
+    ELASTIC_MIGRATE_KNOBS). Without grpcio it raises ``ModuleNotFoundError``
+    naming grpcio.
+
+    (a) ``_intent_and_heal``: an intent converged and then healed over
+    ProbeGPU. (b) ``_live_migration`` to a second pod on the node, with a
+    tenant at each end: on the card each is a process on the GPU
+    (CUDA_VISIBLE_DEVICES, ``testing/migrate_tenant.py``) over a stand-in
+    API server (it needs openssl, for its certificate), running `tenant`'s
+    model ({"model": the ``TransformerConfig`` fields, "tokens": [B, L]})
+    through flash_fwd; on the CPU a thread over the in-process API with
+    MIGRATE_TENANT_CPU. The pack is saved in a new directory under
+    `ledger_root`. (c) ``_rollback``: the GPU migrated back with verify
+    failing.
+
+    On the card (device="cuda") on the live ``NvidiaDeviceBackend`` mounting
+    into `dev_dir` through the mount namespace of `ns_pid` (as
+    ``mount_check``), and without CAP_MKNOD it raises; on the CPU on a fake
+    host of 1 GPU. Runs on the card unless the caller passes device="cpu".
+
+    Returns {"cap_mknod", "live" or "fake": {"start_ms", "heal", "migration",
+    "rollback"}, the other None}; ms on the host clock."""
+    device = resolve_device(device)
+    live = device.type == "cuda"
+    report = {"cap_mknod": has_cap_mknod(), "live": None, "fake": None}
+    if live and not report["cap_mknod"]:
+        raise RuntimeError("elastic_migrate_check on the card needs CAP_MKNOD: its heal and "
+                           "its migration mount the card's own GPU")
+    if live and tenant is None:
+        raise ValueError("elastic_migrate_check on the card needs the tenants' model: "
+                         "tenant={'model': ..., 'tokens': [B, L]}")
+    k8s_health.reset_all()
+    root = tempfile.mkdtemp(prefix="elastic-migrate-check-")
+    ledgers = tempfile.mkdtemp(prefix="elastic-migrate-ledgers-", dir=ledger_root)
+    packs = tempfile.mkdtemp(prefix="migrate-pack-", dir=ledger_root)
+    api = None
+    try:
+        t0 = time.perf_counter()
+        cfg = Config(auth_mode="token", auth_token=secrets.token_hex(16), ledger_dir=ledgers,
+                     node_name="gpu-node-0", **ELASTIC_MIGRATE_KNOBS)
+        if live:
+            cluster = FakeCluster(NvidiaDeviceBackend("/dev", identity=make_identity(identity)),
+                                  cfg=cfg, node_name=cfg.node_name)
+        else:
+            cluster = FakeCluster.with_fake_gpus(os.path.join(root, "fake"), 1, cfg=cfg)
+        target, cgroup_dirs = _live_target(root, dev_dir, ())
+        src = cluster.add_target_pod("tenant-intent")
+        dst = cluster.add_target_pod("tenant-destination")
+        if live:
+            tls = selfsigned(root)
+            if tls is None:
+                raise RuntimeError("the tenants' stand-in API server needs openssl")
+            server = FakeApiServer(cluster.kube, *tls).start()
+            api = {"server": server, "port": server.port, "token": server.token,
+                   "ca": tls[0]}
+        with _MasterStack(cluster, {cluster.node_name: target}, ns_pid if live else None,
+                          cgroup_dirs) as stack:
+            flows = {"start_ms": (time.perf_counter() - t0) * 1e3}
+            flows["heal"] = _intent_and_heal(stack, target, src)
+            uuid = flows["heal"]["uuid"]
+            flows["migration"] = _live_migration(
+                stack, src, dst, uuid, packs, tenant or MIGRATE_TENANT_CPU,
+                {k: v for k, v in api.items() if k != "server"} if api else None, root)
+            flows["rollback"] = _rollback(stack, dst, src, uuid, target)
+    finally:
+        if api is not None:
+            api["server"].stop()
+        shutil.rmtree(root, ignore_errors=True)
+        shutil.rmtree(ledgers, ignore_errors=True)
+        shutil.rmtree(packs, ignore_errors=True)
         k8s_health.reset_all()
     report["live" if live else "fake"] = flows
     if failpoints.active():

@@ -11,8 +11,8 @@ covered by DYNAMIC_PREFIXES; their arm specs carry the concrete suffix
 
 The names are the reference's, but for one: ``worker.addtpu.rollback.skip``
 is ``worker.addgpu.rollback.skip``. The reference's sites of packages the
-port has not yet (the elastic reconciler, the migration machine, the
-defragmenter, the autoscaler) come with those packages.
+port has not yet (the defragmenter, the autoscaler) come with those
+packages.
 
 This module is data: the runtime (``faults/failpoints.py``) does not read
 it, so an undeclared point still arms in a dev loop.
@@ -21,10 +21,16 @@ it, so an undeclared point still arms in a dev loop.
 from __future__ import annotations
 
 FAILPOINTS: dict[str, str] = {
+    # elastic reconciler (elastic/reconciler.py)
+    "elastic.reconcile": "top of one reconcile pass for a keyed intent",
+    "elastic.before_grow": "after the dead GPUs' removal, before the grow "
+                           "mounts fire",
     # slice coordinator (master/slice_ops.py)
     "master.slice.mount": "per-slice mount, before the pods are resolved",
     "master.slice.rollback.skip": "value(): skip the slice rollback (leak "
                                   "simulation for the chaos harness)",
+    # migration machine (migrate/orchestrator.py)
+    "migrate.persist": "before a journal annotation persist",
     # rpc client (rpc/client.py)
     "rpc.client.call": "before every outbound worker RPC attempt",
     "rpc.client.deadline": "value(): per-call deadline override",
@@ -50,7 +56,9 @@ FAILPOINTS: dict[str, str] = {
 }
 
 #: f-string site families: a name starting with one of these prefixes is
-#: declared by the prefix (the suffix is data: a Kubernetes verb).
+#: declared by the prefix (the suffix is data: a Kubernetes verb, a
+#: migration's phase).
 DYNAMIC_PREFIXES: frozenset[str] = frozenset({
     "k8s.",            # k8s/client.py: k8s.<op> and k8s.<op>.status
+    "migrate.phase.",  # migrate/orchestrator.py: migrate.phase.<phase>
 })

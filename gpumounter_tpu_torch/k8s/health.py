@@ -176,6 +176,12 @@ class ApiHealth:
         with self._lock:
             return self._state == HEALTHY
 
+    def failing(self) -> bool:
+        """A streak of outage-shaped failures in progress on some plane,
+        below the verdict's threshold or past it."""
+        with self._lock:
+            return any(plane.failures for plane in self._planes.values())
+
     def is_down(self) -> bool:
         with self._lock:
             return self._state == DOWN

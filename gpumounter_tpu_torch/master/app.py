@@ -111,9 +111,39 @@ As in the reference: gpuNum and a batch target's gpus are range-checked
 against MAX_GPU_PER_REQUEST (the original never checks it), a batch holds at
 most BULK_MAX_TARGETS targets, every route but the index and /healthz wants
 a bearer token (``utils/auth.py``), and a path of no route gets "404 page
-not found". The reference's other routes (intents, migrations, capacity,
-defrag, shares, autoscale) come with the packages that serve them; until
-then their paths get that 404, /batch/addtpu among them.
+not found". The reference's other routes (capacity, defrag, shares,
+autoscale) come with the packages that serve them; until then their paths
+get that 404, /batch/addtpu among them.
+
+The elastic intents and the live migration (``elastic/``, ``migrate/``), as
+the reference's routes (``gpumounter_tpu/master/app.py:328-343,
+1559-1680``), JSON in and out:
+
+      GET    /intents                 -> {"intents": [{"namespace", "pod",
+                                          "desiredChips", "minChips",
+                                          "priority", "status"?}, ...]}
+      GET    /intents/<ns>/<pod>      -> the intent and the reconciler's last
+                                         outcome; 404 without one
+      PUT    /intents/<ns>/<pod>      {"desiredChips", "minChips", "priority"}
+                                      -> the intent (400 for a bad one, 404
+                                         for no pod); the pod is queued
+      DELETE /intents/<ns>/<pod>      -> {"deleted": bool}
+      POST   /migrate                 {"source": {"namespace", "pod"},
+                                       "destination": {...}, "checkpoint"}
+                                      -> the journal as begun (400, 404, 409
+                                         before anything moved)
+      GET    /migrations              -> {"migrations": [journal, ...]}
+      GET    /migrations/<mid>        -> the journal; 404
+      POST   /migrations/<mid>/abort  -> {"id", "aborting": true}; 404, 409
+
+They want the mutate token (they name pods and GPUs), the writes leave an
+edge audit record, and none is shard-gated, as in the reference: the
+reconciler parks a pod on a node it does not own, and a migration's journal
+is adopted by the source node's owner. The reconciler and the machine are
+built here over the mount path's clients, the store, the shards and
+ApiHealth, and handed to the recovery controller, whose evacuation re-drives
+their intents and journals; the reconciler's loop runs only after
+``elastic.start()``.
 
 The recovery controller and the health plane are built here, as the
 reference's (``gpumounter_tpu/master/app.py:577-602``): the controller over
@@ -122,8 +152,6 @@ plane with it and the store, its persisted quarantine set loaded at once;
 the plane the fleet collector's ``health`` observer and the controller's
 ``health``; the canary prober over the mount path's client. Their loops run
 only after ``recovery.start()`` and ``canary.start()`` (``master/main.py``).
-The controller's ``elastic`` and ``migrations`` stay None until those
-packages are ported.
 """
 
 from __future__ import annotations
@@ -140,6 +168,7 @@ import urllib.request
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 from gpumounter_tpu_torch.config import Config
+from gpumounter_tpu_torch.elastic import ElasticReconciler, Intent, IntentError, IntentStore
 from gpumounter_tpu_torch.health import CanaryProber, HealthPlane
 from gpumounter_tpu_torch.k8s.client import KubeClient, NotFoundError
 from gpumounter_tpu_torch.k8s.health import api_health, wrap_health
@@ -152,6 +181,7 @@ from gpumounter_tpu_torch.master.slice_ops import (
     SliceError,
     SliceTarget,
 )
+from gpumounter_tpu_torch.migrate import MigrationCoordinator, MigrationError
 from gpumounter_tpu_torch.obs import assembly, audit, flight, trace
 from gpumounter_tpu_torch.obs.audit import audited
 from gpumounter_tpu_torch.obs.fleet import FleetCollector
@@ -413,6 +443,16 @@ _ROUTES: list[tuple[str, re.Pattern, str]] = [
     ("POST", re.compile(r"^/recovery/evacuate/(?P<node>[^/]+)$"), "recovery_evacuate"),
     ("GET", re.compile(r"^/health/nodes$"), "health_nodes"),
     ("POST", re.compile(r"^/health/quarantine/(?P<node>[^/]+)$"), "health_quarantine"),
+    # the elastic intents (elastic/): CRUD over the pods' annotations
+    ("GET", re.compile(r"^/intents$"), "intents_list"),
+    ("GET", re.compile(r"^/intents/(?P<ns>[^/]+)/(?P<pod>[^/]+)$"), "intent_get"),
+    ("PUT", re.compile(r"^/intents/(?P<ns>[^/]+)/(?P<pod>[^/]+)$"), "intent_put"),
+    ("DELETE", re.compile(r"^/intents/(?P<ns>[^/]+)/(?P<pod>[^/]+)$"), "intent_delete"),
+    # the live migration (migrate/)
+    ("POST", re.compile(r"^/migrate$"), "migrate_start"),
+    ("GET", re.compile(r"^/migrations$"), "migrations_list"),
+    ("GET", re.compile(r"^/migrations/(?P<mid>[^/]+)$"), "migration_get"),
+    ("POST", re.compile(r"^/migrations/(?P<mid>[^/]+)/abort$"), "migration_abort"),
 ]
 
 #: a slice's GPUs per host when the request names none: an H100 host's 8
@@ -484,7 +524,8 @@ class MasterApp:
     #: the routes that mutate: their edge outcome goes into the audit trail
     #: (the worker's records carry the GPUs of the same trace)
     AUDITED_ROUTES = frozenset({"add", "remove", "batch_add", "addslice", "removeslice",
-                                "recovery_evacuate", "health_quarantine"})
+                                "intent_put", "intent_delete", "migrate_start",
+                                "migration_abort", "recovery_evacuate", "health_quarantine"})
 
     def __init__(self, kube: KubeClient, cfg=None, worker_client_factory=None,
                  registry: WorkerRegistry | None = None, store: MasterStore | None = None,
@@ -534,6 +575,18 @@ class MasterApp:
         if telemetry_client_factory is None:
             telemetry_client_factory = worker_client_factory or (
                 lambda addr: WorkerClient(addr, token=self._token, cfg=self.cfg))
+        # the elastic reconciler: the routes and its loop share one store and
+        # one queue; its loop runs only after elastic.start() (master/main.py),
+        # and tests drive reconcile_once themselves
+        self.elastic = ElasticReconciler(kube, self.registry, self._client_factory, cfg=self.cfg,
+                                         store=IntentStore(kube, self.cfg, backend=self.store),
+                                         shards=self.shards, apihealth=self.apihealth)
+        # the migration machine, over the same registry and clients; the
+        # interrupted ones are adopted by migrations.resume_interrupted()
+        # (master/main.py, once the shards are owned)
+        self.migrations = MigrationCoordinator(kube, self.registry, self._client_factory,
+                                               cfg=self.cfg, store=self.store,
+                                               shards=self.shards, apihealth=self.apihealth)
         # the fleet planes: the collector pulls every owned worker's telemetry
         # and feeds the SLO engine; its loop runs only after fleet.start()
         # (master/main.py), and the reads collect on demand when the rollup
@@ -548,6 +601,7 @@ class MasterApp:
         # recovery.start() (master/main.py)
         self.recovery = RecoveryController(kube, self.registry, telemetry_client_factory,
                                            cfg=self.cfg, store=self.store, shards=self.shards,
+                                           elastic=self.elastic, migrations=self.migrations,
                                            apihealth=self.apihealth)
         # the gray-failure plane: scores every collection pass, its quarantine
         # set restored from the store (a takeover keeps it); the canary's loop
@@ -564,12 +618,14 @@ class MasterApp:
         flight.install(apihealth=self.apihealth)
 
     def close(self) -> None:
-        """Stop the canary's, the recovery controller's and the fleet
-        collector's loops, the registry's watch and its channels, and close
-        the store (its ApiHealth subscription, its probe, its watch and its
-        queue)."""
+        """Stop the canary's, the recovery controller's, the reconciler's
+        and the fleet collector's loops, wait for the migrations' machines,
+        stop the registry's watch and its channels, and close the store (its
+        ApiHealth subscription, its probe, its watch and its queue)."""
         self.canary.stop()
         self.recovery.stop()
+        self.elastic.stop()
+        self.migrations.stop()
         self.fleet.stop()
         self.registry.stop()
         self.store.close()
@@ -859,6 +915,107 @@ class MasterApp:
     def _route_shards(self, match, body, headers):
         """The shard table: which replica holds which shard's lease."""
         return 200, "application/json", json.dumps(self.shards.table(), indent=1) + "\n"
+
+    # --- the elastic intents (elastic/) ---
+
+    def _intent_status(self, ns: str, pod: str, intent: Intent) -> dict:
+        entry = {"namespace": ns, "pod": pod, **intent.to_json()}
+        status = self.elastic.status_for(ns, pod)
+        if status is not None:
+            entry["status"] = status
+        return entry
+
+    def _route_intents_list(self, match, body, headers):
+        items = [self._intent_status(ns, pod, intent)
+                 for ns, pod, intent in self.elastic.store.list()]
+        return 200, "application/json", json.dumps({"intents": items}, indent=1) + "\n"
+
+    def _route_intent_get(self, match, body, headers):
+        ns, pod = match.group("ns"), match.group("pod")
+        try:
+            intent = self.elastic.store.get(ns, pod)
+        except NotFoundError:
+            raise _HttpError(404, f"No pod: {pod} in namespace: {ns}")
+        if intent is None:
+            raise _HttpError(404, f"no intent declared for {ns}/{pod}")
+        return 200, "application/json", json.dumps(self._intent_status(ns, pod, intent),
+                                                   indent=1) + "\n"
+
+    def _route_intent_put(self, match, body, headers):
+        """Declare (or replace) the pod's intent, body {"desiredChips",
+        "minChips", "priority"}, and queue the pod for a pass."""
+        ns, pod = match.group("ns"), match.group("pod")
+        try:
+            payload = json.loads(body or b"{}")
+        except ValueError:
+            raise _HttpError(400, "body must be JSON")
+        try:
+            intent = Intent.from_json(payload)
+            self.elastic.store.put(ns, pod, intent)
+        except IntentError as exc:
+            raise _HttpError(400, str(exc))
+        except NotFoundError:
+            raise _HttpError(404, f"No pod: {pod} in namespace: {ns}")
+        logger.info("intent declared: %s/%s -> %s", ns, pod, intent.to_json())
+        self.elastic.enqueue(ns, pod, priority=intent.priority)
+        return 200, "application/json", json.dumps(self._intent_status(ns, pod, intent),
+                                                   indent=1) + "\n"
+
+    def _route_intent_delete(self, match, body, headers):
+        """Drop the intent (the pod keeps its GPUs)."""
+        ns, pod = match.group("ns"), match.group("pod")
+        try:
+            had = self.elastic.store.delete(ns, pod)
+        except NotFoundError:
+            raise _HttpError(404, f"No pod: {pod} in namespace: {ns}")
+        return 200, "application/json", json.dumps({"deleted": had}) + "\n"
+
+    # --- the live migration (migrate/) ---
+
+    def _route_migrate_start(self, match, body, headers):
+        """Body {"source": {"namespace", "pod"}, "destination": {...},
+        "checkpoint": false}; the journal as begun."""
+        try:
+            payload = json.loads(body or b"{}")
+        except ValueError:
+            raise _HttpError(400, "body must be JSON")
+        if not isinstance(payload, dict):
+            raise _HttpError(400, 'body must be a JSON object with "source" and "destination"')
+
+        def _ref(key):
+            entry = payload.get(key)
+            if not isinstance(entry, dict) or not entry.get("pod"):
+                raise _HttpError(400, f'"{key}" must be {{"namespace": ..., "pod": ...}}')
+            return entry.get("namespace", "default"), entry["pod"]
+
+        src_ns, src_pod = _ref("source")
+        dst_ns, dst_pod = _ref("destination")
+        checkpoint = payload.get("checkpoint", False)
+        if not isinstance(checkpoint, bool):
+            raise _HttpError(400, '"checkpoint" must be a boolean')
+        try:
+            journal = self.migrations.begin(src_ns, src_pod, dst_ns, dst_pod,
+                                            checkpoint=checkpoint)
+        except MigrationError as exc:
+            raise _HttpError(exc.status, str(exc))
+        return 200, "application/json", json.dumps(journal, indent=1) + "\n"
+
+    def _route_migrations_list(self, match, body, headers):
+        return 200, "application/json", json.dumps(
+            {"migrations": self.migrations.list_migrations()}, indent=1) + "\n"
+
+    def _route_migration_get(self, match, body, headers):
+        journal = self.migrations.get(match.group("mid"))
+        if journal is None:
+            raise _HttpError(404, f"no migration {match.group('mid')}")
+        return 200, "application/json", json.dumps(journal, indent=1) + "\n"
+
+    def _route_migration_abort(self, match, body, headers):
+        try:
+            out = self.migrations.abort(match.group("mid"))
+        except MigrationError as exc:
+            raise _HttpError(exc.status, str(exc))
+        return 200, "application/json", json.dumps(out) + "\n"
 
     def _route_add(self, match, body, headers):
         ns, pod_name, num_raw = match.group("ns"), match.group("pod"), match.group("num")

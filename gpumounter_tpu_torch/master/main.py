@@ -30,9 +30,12 @@ TPUMOUNTER_RECOVERY=0 (RECOVERY_CONFIRM_FAILURES, RECOVERY_GRACE_S,
 RECOVERY_PROBE_TIMEOUT_S), and the health plane's canary prober
 (``health/plane.py``) each HEALTH_CANARY_INTERVAL_S while TPUMOUNTER_HEALTH is
 on and the interval above 0 (the scorer rides the fleet collector's passes,
-HEALTH_*); both stop before the app closes. The reference's other
-background loops (elastic intents, defragmenter, autoscaler) come with their
-packages.
+HEALTH_*); both stop before the app closes. The elastic reconciler's loop
+always runs (ELASTIC_RESYNC_INTERVAL_S, ELASTIC_BACKOFF_*,
+ELASTIC_MIN_RECONCILE_INTERVAL_S), and the interrupted migrations are adopted
+once at start and at every shard takeover (MIGRATE_*); the reconciler stops
+and the machines are waited for before the app closes. The reference's other
+background loops (defragmenter, autoscaler) come with their packages.
 
     python -m gpumounter_tpu_torch.master.main
 """
@@ -57,9 +60,22 @@ def main() -> None:
     obs.configure(cfg)
     app = MasterApp(default_client(), cfg=cfg)
     if cfg.shard_count > 1:
+        # a takeover (the first claims and a dead peer's shards alike) drives
+        # that shard's interrupted migrations on from their journals; the
+        # intents follow at the reconciler's next resync
+        def _on_takeover(shards: set) -> None:
+            adopted_now = app.migrations.resume_interrupted()
+            if adopted_now:
+                logger.warning("shard takeover %s: re-driving %d interrupted migration(s): %s",
+                               sorted(shards), len(adopted_now), ", ".join(adopted_now))
+
+        app.shards.on_takeover = _on_takeover
         app.shards.start()
         logger.info("shard manager on: %d shards, replica %s, lease %.0fs",
                     app.shards.shard_count, app.shards.replica_id, app.shards.duration_s)
+    # the reconciler reads the intents from the pods' annotations when it
+    # starts: they outlive a master's restart with no store of their own
+    app.elastic.start()
     if cfg.recovery_enabled:
         app.recovery.start()
         logger.info("recovery controller on (interval %.0fs, confirm %d failures + %.0fs "
@@ -70,6 +86,12 @@ def main() -> None:
         logger.info("health plane on (canary every %.0fs, quarantine budget %.0f%%)",
                     cfg.health_canary_interval_s, cfg.health_quarantine_budget * 100)
     app.fleet.start()
+    # a master that died in a migration adopts it and drives it on from its
+    # journaled phase, rather than leave a tenant half drained
+    adopted = app.migrations.resume_interrupted()
+    if adopted:
+        logger.warning("re-driving %d interrupted migration(s): %s", len(adopted),
+                       ", ".join(adopted))
     httpd = build_http_server(app)
 
     def _term(signum, frame):
@@ -88,7 +110,9 @@ def main() -> None:
         if cfg.shard_count > 1:
             # hand the leases back: the peers claim them now, not at expiry
             app.shards.stop(release=True)
-        app.close()  # the canary's, recovery's and fleet collector's loops first
+        # the canary's, recovery's, reconciler's and fleet collector's loops
+        # and the migrations' machines first
+        app.close()
 
 
 if __name__ == "__main__":

@@ -36,10 +36,9 @@ one grace window, and every action of an evacuation is idempotent. The
 health plane (``health/plane.py``) is told of an evacuation, which
 supersedes its quarantine; its verdict is never evidence of death here.
 
-The elastic reconciler and the migration machine are not ported yet
-(ROADMAP 7k): ``MasterApp`` leaves ``elastic`` and ``migrations`` None, and
-an evacuation then re-drives nothing (a caller may pass objects with the
-reference's ``store.list()`` / ``enqueue`` and ``resume_interrupted``).
+``MasterApp`` hands it its elastic reconciler and its migration machine
+(``elastic``, ``migrations``), as the reference's does; without them (None)
+an evacuation re-drives nothing.
 """
 
 from __future__ import annotations

@@ -28,7 +28,10 @@ field 1 ``trace_context``, field 2 ``quarantined`` of the request; fields
 ``ProbeTPU`` (the canary's and the heal's eyes on a pod's accelerators) as
 ``gpu_mount.ProbeGPUService/ProbeGPU``, its messages the reference's field
 for field (``ProbeGPURequest`` 1-3, ``ChipHealth`` 1-4, ``ProbeGPUResponse``
-1-2). ``QuiesceStatus`` comes with the migration machine.
+1-2), and its ``QuiesceStatus`` (the migration machine's read of the
+tenant's ack) as ``gpu_mount.QuiesceStatusService/QuiesceStatus``, its
+messages the reference's too (``QuiesceStatusRequest`` 1-3,
+``QuiesceStatusResponse`` 1-5).
 
 Services and methods are the original's, ``gpu_mount.AddGPUService/AddGPU``
 and ``gpu_mount.RemoveGPUService/RemoveGPU``, which the reference's worker
@@ -218,13 +221,59 @@ class ProbeGPUResponse(Message):
         super().__init__(probe_gpu_result=probe_gpu_result, chips=list(chips))
 
 
-# gRPC names (api.proto:21-23, 43-45); the telemetry and probe services have
-# no name in the original, and take its package's
+# --- the migration's read-back of the tenant (the reference's extension,
+# gpumounter_tpu/rpc/api.py:160-185) ---
+#
+# The migration machine signals the tenant through the
+# tpumounter.io/migration-phase annotation and reads the other side here:
+# did the tenant ack the phase (it packs its state and stamps
+# tpumounter.io/migration-ack), and does any process still hold the GPUs.
+# The worker reads both: it resolves the pod's container and runs the /proc
+# scan already.
+
+
+class QuiesceStatusResult(enum.IntEnum):
+    Success = 0
+    PodNotFound = 1
+
+
+class QuiesceStatusRequest(Message):
+    FIELDS = [
+        Field(1, "pod_name", "string"),
+        Field(2, "namespace", "string"),
+        Field(3, "trace_context", "string"),
+    ]
+
+    def __init__(self, pod_name: str = "", namespace: str = "", trace_context: str = ""):
+        super().__init__(pod_name=pod_name, namespace=namespace, trace_context=trace_context)
+
+
+class QuiesceStatusResponse(Message):
+    FIELDS = [
+        Field(1, "quiesce_status_result", "enum"),
+        Field(2, "acked_id", "string"),      # the migration id the tenant acked
+        Field(3, "acked_phase", "string"),   # "quiesced", "checkpointed", "resumed", ""
+        Field(4, "holder_count", "int32"),   # the PIDs holding any of the GPUs
+        Field(5, "chip_count", "int32"),     # the GPUs the pod holds
+    ]
+
+    def __init__(self, quiesce_status_result: int = QuiesceStatusResult.Success,
+                 acked_id: str = "", acked_phase: str = "", holder_count: int = 0,
+                 chip_count: int = 0):
+        super().__init__(quiesce_status_result=quiesce_status_result, acked_id=acked_id,
+                         acked_phase=acked_phase, holder_count=holder_count,
+                         chip_count=chip_count)
+
+
+# gRPC names (api.proto:21-23, 43-45); the telemetry, probe and quiesce
+# services have no name in the original, and take its package's
 ADD_SERVICE = "gpu_mount.AddGPUService"
 REMOVE_SERVICE = "gpu_mount.RemoveGPUService"
 TELEMETRY_SERVICE = "gpu_mount.TelemetryService"
 PROBE_SERVICE = "gpu_mount.ProbeGPUService"
+QUIESCE_SERVICE = "gpu_mount.QuiesceStatusService"
 ADD_METHOD = "AddGPU"
 REMOVE_METHOD = "RemoveGPU"
 TELEMETRY_METHOD = "CollectTelemetry"
 PROBE_METHOD = "ProbeGPU"
+QUIESCE_METHOD = "QuiesceStatus"

@@ -6,7 +6,7 @@ AddGPU / RemoveGPU (``cmd/GPUMounter-master/main.go:82-96, 185-199``). This
 client speaks the original's service names, and adds (``rpc/resilience.py``):
 
   * a deadline a method from config (RPC_ADD_TIMEOUT_S, RPC_REMOVE_TIMEOUT_S,
-    RPC_TELEMETRY_TIMEOUT_S, RPC_PROBE_TIMEOUT_S);
+    RPC_TELEMETRY_TIMEOUT_S, RPC_PROBE_TIMEOUT_S, RPC_QUIESCE_TIMEOUT_S);
   * bounded capped-exponential retries on UNAVAILABLE and
     DEADLINE_EXCEEDED, each mutation carrying one idempotency key across its
     attempts, so a retry whose first attempt landed is answered from the
@@ -27,9 +27,10 @@ client speaks the original's service names, and adds (``rpc/resilience.py``):
 
 ``collect_telemetry`` is the fleet collector's pull (``obs/fleet.py``) and
 the recovery controller's liveness probe; ``probe_gpu`` the health plane's
-canary read (RPC_PROBE_TIMEOUT_S). Every method takes a ``timeout_s`` that
-overrides its method's deadline for the call. Left out: ``quiesce_status``
-(with ``migrate/``). The pool's hits, misses,
+canary read and the reconciler's (RPC_PROBE_TIMEOUT_S); ``quiesce_status``
+the migration machine's poll of the tenant's ack (RPC_QUIESCE_TIMEOUT_S).
+Every method takes a ``timeout_s`` that overrides its method's deadline for
+the call. The pool's hits, misses,
 evictions and size are series of the registry (``utils/metrics.py``). grpc
 is imported when a channel is built; without grpcio that raises
 ModuleNotFoundError naming grpcio, and nothing falls back.
@@ -235,7 +236,8 @@ class WorkerClient:
         self.timeouts = {api.ADD_METHOD: cfg.rpc_add_timeout_s,
                          api.REMOVE_METHOD: cfg.rpc_remove_timeout_s,
                          api.TELEMETRY_METHOD: cfg.rpc_telemetry_timeout_s,
-                         api.PROBE_METHOD: cfg.rpc_probe_timeout_s}
+                         api.PROBE_METHOD: cfg.rpc_probe_timeout_s,
+                         api.QUIESCE_METHOD: cfg.rpc_quiesce_timeout_s}
         self.retry = RetryPolicy(max_attempts=cfg.rpc_max_attempts,
                                  base_s=cfg.rpc_retry_base_s, cap_s=cfg.rpc_retry_cap_s)
         self.breaker = breaker
@@ -264,6 +266,10 @@ class WorkerClient:
                 f"/{api.PROBE_SERVICE}/{api.PROBE_METHOD}",
                 request_serializer=lambda m: m.encode(),
                 response_deserializer=api.ProbeGPUResponse.decode),
+            api.QUIESCE_METHOD: self._channel.unary_unary(
+                f"/{api.QUIESCE_SERVICE}/{api.QUIESCE_METHOD}",
+                request_serializer=lambda m: m.encode(),
+                response_deserializer=api.QuiesceStatusResponse.decode),
         }
 
     def close(self) -> None:
@@ -392,3 +398,12 @@ class WorkerClient:
         response = self._call(api.PROBE_METHOD, api.ProbeGPURequest(pod_name, namespace),
                               timeout_s)
         return api.ProbeGPUResult(response.probe_gpu_result), list(response.chips)
+
+    def quiesce_status(self, pod_name: str, namespace: str, timeout_s: float | None = None
+                       ) -> tuple[api.QuiesceStatusResult, api.QuiesceStatusResponse]:
+        """QuiesceStatus: (the result, the response: the tenant's acked
+        migration id and phase, the holders of its GPUs, their count). A
+        read, retried like one."""
+        response = self._call(api.QUIESCE_METHOD, api.QuiesceStatusRequest(pod_name, namespace),
+                              timeout_s)
+        return api.QuiesceStatusResult(response.quiesce_status_result), response

@@ -2,19 +2,22 @@
 
 The counterpart of ``gpumounter_tpu/testing/chaos.py``'s ``ChaosHarness``
 for the packages the port has. It runs the real control plane (``MasterApp``
-and its slice coordinator, over real gRPC to one worker server a node on
-localhost) on a two-node ``testing/cluster.py`` fleet, under a failpoint
-schedule drawn from one seed, then checks the global invariants:
+with its slice coordinator, elastic reconciler and migration machine, over
+real gRPC to one worker server a node on localhost) on a two-node
+``testing/cluster.py`` fleet, under a failpoint schedule drawn from one
+seed, then checks the global invariants:
 
   1. no GPU held by two pods (no node of one GPU in two pods' /dev),
   2. no ownerless grant (every injected node is backed by a booking of the
      scheduler: a node without one is a leaked mount),
   3. books against mounts (every GPU booked to a pod is mounted in it),
+  4. every migration's journal is terminal: succeeded, rolled-back or
+     aborted, with phase done (never stranded, never half rolled back),
   5. no open span: every span entered was exited, through injected
      failures too,
-  6. every audit record carries an outcome and a trace id. The reference's
-     other half of 6 (each terminal migration has its record) waits for the
-     migration machine.
+  6. every terminal migration has its ``migrate`` audit record (a machine
+     adopted after a crash too), and every audit record an outcome and a
+     trace id,
  7. the channel pool's books: every channel dialed is live or closed, and
      no more are live than there are workers,
   8. the fleet rollup counts no node twice: two fresh ``FleetCollector``s
@@ -25,12 +28,21 @@ schedule drawn from one seed, then checks the global invariants:
      (``worker/resync.py``), books == mounts == ledger on every node: no
      open txn, and each pod's net holdings equal its injected nodes and its
      bookings,
- 11. node-kill detection and evacuation (``run_node_kill_scenario``, its
-     first half): a node tracked while alive and then killed (server gone,
-     worker pod gone, Node NotReady) is confirmed and evacuated by the
-     recovery controller within the deadline, and none of its pool pods is
-     left; the re-convergence of its stranded intents on a healthy node
-     comes with the elastic reconciler (ROADMAP 7k),
+ 11. a node's death (``run_node_kill_scenario``): a node tracked while
+     alive and then killed (server gone, worker pod gone, Node NotReady) is
+     confirmed and evacuated by the recovery controller within the
+     deadline, none of its pool pods is left, and every intent stranded on
+     it converges on a healthy node once its pod is rescheduled there,
+ 13. the tenants' disruption (armed by ``attach_tenant``): after a terminal
+     migration, heal or evacuation no fake tenant's window is open, and
+     every window of a signalled cause carries the control plane's trace
+     id, which resolves in the ring,
+ 14. the API server's outage (``run_api_outage_scenario``, in the flavors
+     mount, migrate, heal and recovery): in the partition no destructive
+     mutation lands from stale reads and no booking leaks; after the heal
+     every deferred write lands once (the newest wins) and books == mounts
+     == ledger == intents; with the replay disabled (the negative control)
+     the divergence is named,
  15. lock order: the nested ``OrderedLock`` / ``OrderedCondition``
      acquisitions the whole run observed form no cycle,
  16. trace assembly: every clean operation of the mount scenario (no fault
@@ -51,22 +63,29 @@ schedule drawn from one seed, then checks the global invariants:
 
 Two more run on their own, not on the harness: ``run_fencing_scenario``
 (invariant 12, no stale-epoch write applied) and ``run_shard_scenario``
-(invariant 9, one owner a shard). The reference's invariants 4, 13, 14, 17-19
-and 21 come with their packages. A killed node (``kill_node``) is out of the
-books' reach: invariants 1-3, 8 and 10 skip it and its pods.
+(invariant 9, one owner a shard). The reference's invariants 17-19 and 21
+come with their packages. A killed node (``kill_node``) is out of the books'
+reach: invariants 1-3, 8 and 10 skip it and its pods.
+
+The scenarios: ``run_mount_scenario`` (adds, removes and reconciles of pods
+with declared intents), ``run_worker_crash_scenario`` (worker deaths in
+mount batches), ``run_elastic_scenario`` (GPU deaths healed by the
+reconciler under ``FAULTS_ELASTIC``), ``run_migrate_scenario`` (migrations
+crashed at their phase boundaries, ``FAULTS_MIGRATE``, driven to their end by
+``resume_interrupted``), ``run_node_kill_scenario``, ``run_gray_scenario``,
+``run_watch_store_scenario`` and ``run_api_outage_scenario``. ``TenantSim``
+is the reference's fake tenant on the port's ``torchside`` watchers and
+telemetry.
 
 Every node's worker keeps its ledger in a directory of the run; building a
 second service over it is the worker's restart (``restart_worker``). Every
 fault is a count-limited one-shot armed just before its operation and
-disarmed right after it, so none leaks into the check. The pool is the
-reference's ``FAULTS_COMMON``, its two ``crash`` terms
-(``worker.mount.before_grant`` and ``after_grant``) among them: a simulated
-death leaves grants or slave pods, which ``converge`` hands to the ledger's
-replay, restarting every worker whose ledger holds an open txn (the
-reference converges the mount scenario through its elastic intents, which
-come with the reconciler). The crash scenario's intents and ``reconcile``
-steps are left out for the same reason; a forced remove takes the
-reconcile's share of its draws.
+disarmed right after it, so none leaks into the check. The pools are the
+reference's ``FAULTS_COMMON``, ``FAULTS_ELASTIC`` and ``FAULTS_MIGRATE``.
+``converge`` is the reference's: every migration driven to its end (the
+interrupted ones adopted again, as a restarted master does), then every
+intent reconciled until it converges (what a simulated death left, grants
+or slave pods, a heal removes), then the slave pods' releases waited for.
 
 All randomness comes from ``random.Random(seed)``; the schedule is logged
 step by step and an ``InvariantViolation`` carries the seed and the
@@ -76,12 +95,15 @@ schedule, so a failing run replays from its seed.
 from __future__ import annotations
 
 import dataclasses
+import json
 import os
 import random
+import threading
 import time
 
 from gpumounter_tpu_torch.cgroup.policy import POLICY_ENGINE
 from gpumounter_tpu_torch.collector.collector import GpuCollector
+from gpumounter_tpu_torch.elastic.intents import Intent
 from gpumounter_tpu_torch.faults import failpoints
 from gpumounter_tpu_torch.k8s import health as k8s_health
 from gpumounter_tpu_torch.k8s.client import NotFoundError
@@ -123,8 +145,111 @@ FAULTS_COMMON = [
 ]
 
 
+FAULTS_ELASTIC = FAULTS_COMMON + [
+    ("elastic.reconcile", "1*crash(chaos)"),
+    ("elastic.before_grow", "1*crash(chaos)"),
+]
+FAULTS_MIGRATE = FAULTS_COMMON + [
+    ("migrate.phase.quiesce", "1*crash(chaos)"),
+    ("migrate.phase.checkpoint", "1*crash(chaos)"),
+    ("migrate.phase.drain", "1*crash(chaos)"),
+    ("migrate.phase.remount", "1*crash(chaos)"),
+    ("migrate.phase.resume", "1*crash(chaos)"),
+    ("migrate.phase.verify", "1*crash(chaos)"),
+    ("migrate.persist", "1*error(chaos persist)"),
+]
+
+
 class InvariantViolation(AssertionError):
     """A global invariant did not hold after the scenario."""
+
+
+class TenantSim:
+    """A fake tenant over the fake cluster (the reference's ``TenantSim``):
+    a paced step loop and the port's real watchers
+    (``torchside.watch_migration``, ``watch_chip_replacements``,
+    ``watch_disruptions``) driving its real ``TenantTelemetry``, so the
+    harness measures the code a tenant runs.
+
+    The loop pauses on the quiesce signal (its state packed) and resumes on
+    the resume signal (restored), so a migration's downtime is a gap it
+    measured. `extra_pods` are watched too: a tenant spans both ends of a
+    move."""
+
+    def __init__(self, kube, namespace: str, pod: str, extra_pods: tuple = (),
+                 step_s: float = 0.004, publish_url: str | None = None,
+                 token: str | None = None):
+        from gpumounter_tpu_torch.torchside.heal import watch_chip_replacements
+        from gpumounter_tpu_torch.torchside.migrate import watch_migration
+        from gpumounter_tpu_torch.torchside.telemetry import TenantTelemetry, watch_disruptions
+        self.kube = kube
+        self.namespace = namespace
+        self.pod = pod
+        # stalls seen at half a second, the minute's books rolled every 2 s,
+        # so that short runs count them
+        self.telemetry = TenantTelemetry(tenant=f"{namespace}/{pod}", namespace=namespace,
+                                         pod=pod, publish_url=publish_url, token=token,
+                                         stall_min_s=0.5, minute_s=2.0)
+        self._step_s = step_s
+        self._stop = threading.Event()
+        self._pause = threading.Event()
+        self._threads: list[threading.Thread] = []
+
+        def _stepper() -> None:
+            while not self._stop.is_set():
+                if self._pause.is_set():
+                    self._stop.wait(0.002)
+                    continue
+                with self.telemetry.step(tokens=256.0, queue_depth=1.0):
+                    self._stop.wait(self._step_s)
+
+        def _on_quiesce(signal: dict) -> None:
+            self._pause.set()      # HotResumable.pack's stand-in
+            time.sleep(0.005)
+
+        def _on_checkpoint(signal: dict) -> None:
+            time.sleep(0.002)      # the host-side save's stand-in
+
+        def _on_resume(signal: dict) -> None:
+            # warm: copy the packed host buffers; cold: rebuild the state
+            time.sleep(0.005 if signal.get("checkpointed") else 0.08)
+            self._pause.clear()
+
+        def _on_heal(marker: dict) -> None:
+            self._pause.set()      # the repack and restore block the loop
+            time.sleep(0.005)
+            self._pause.clear()
+
+        def _spawn(target, *args, **kwargs) -> None:
+            thread = threading.Thread(target=target, args=args, kwargs=kwargs, daemon=True)
+            self._threads.append(thread)
+            thread.start()
+
+        _spawn(_stepper)
+        for ns, name in [(namespace, pod)] + [tuple(p) for p in extra_pods]:
+            _spawn(watch_migration, kube, ns, name,
+                   self.telemetry.migration_quiesce(_on_quiesce),
+                   on_resume=self.telemetry.migration_resume(_on_resume), stop=self._stop,
+                   watch_timeout_s=1.0, on_checkpoint=_on_checkpoint)
+            _spawn(watch_chip_replacements, kube, ns, name, self.telemetry.heal(_on_heal),
+                   stop=self._stop, watch_timeout_s=1.0)
+            _spawn(watch_disruptions, kube, ns, name, self.telemetry.external_disruption,
+                   stop=self._stop, watch_timeout_s=1.0)
+
+    def settle(self, timeout_s: float = 5.0) -> None:
+        """Until no disruption window is open (the step loop closes them),
+        or the deadline."""
+        deadline = time.monotonic() + timeout_s
+        while time.monotonic() < deadline:
+            if not self.telemetry.snapshot()["disruption"]["open"]:
+                return
+            time.sleep(0.02)
+
+    def stop(self) -> None:
+        self._stop.set()
+        self._pause.clear()
+        for thread in self._threads:
+            thread.join(timeout=3.0)
 
 
 class _PodDirMounter(GpuMounter):
@@ -156,10 +281,21 @@ class ChaosHarness:
         # (every node runs in this one process, whose registry folds all
         # the nodes' mounts together: run_gray_scenario turns it on over
         # entries it measures itself)
-        self.cfg = dataclasses.replace(self.cluster.cfg, rpc_retry_base_s=0.02,
-                                       rpc_retry_cap_s=0.1, breaker_failure_threshold=50,
-                                       recovery_confirm_failures=2, recovery_grace_s=0.0,
-                                       recovery_probe_timeout_s=2.0, health_enabled=False)
+        # the migration's acks and the reconciler's backoff at test speed; an
+        # ApiHealth that is degraded after 2 outage-shaped failures and down
+        # after 50 ms of them, its deferred writes in a queue under the run's
+        # root (invariant 14 reads it across the heal)
+        self.cfg = dataclasses.replace(
+            self.cluster.cfg, rpc_retry_base_s=0.02, rpc_retry_cap_s=0.1,
+            breaker_failure_threshold=50, recovery_confirm_failures=2, recovery_grace_s=0.0,
+            recovery_probe_timeout_s=2.0, health_enabled=False,
+            migrate_quiesce_timeout_s=0.3, migrate_checkpoint_timeout_s=0.3,
+            migrate_resume_timeout_s=0.3, migrate_poll_interval_s=0.02,
+            elastic_resync_interval_s=30.0, elastic_backoff_base_s=0.05,
+            elastic_backoff_cap_s=0.2, elastic_min_reconcile_interval_s=0.0,
+            rpc_probe_timeout_s=5.0, rpc_quiesce_timeout_s=5.0, k8s_write_retry_base_s=0.02,
+            api_health_degraded_failures=2, api_health_down_after_s=0.05,
+            api_health_recovery_successes=2, writebehind_dir=os.path.join(root, "writebehind"))
         self.workers = WorkerServers(self._build_node_service, host="localhost")
         self.services: dict[str, GpuMountService] = self.workers.services
         self.channel_pool = ChannelPool(cfg=self.cfg)
@@ -171,6 +307,9 @@ class ChaosHarness:
         self.check_ledgers = False
         #: nodes killed by kill_node (the books' checks skip them)
         self.dead_nodes: set[str] = set()
+        #: (namespace, pod) -> TenantSim: fake tenants on the port's real
+        #: telemetry; any arms invariant 13
+        self.tenant_sims: dict[tuple[str, str], TenantSim] = {}
         #: run_gray_scenario sets them: check_invariants then holds invariant
         #: 20 over the nodes it degraded
         self.gray_armed = False
@@ -241,8 +380,22 @@ class ChaosHarness:
         self.dead_nodes.add(name)
         self.record(f"kill node {name}")
 
+    def attach_tenant(self, namespace: str, pod: str, extra_pods: tuple = (),
+                      publish_url: str | None = None, token: str | None = None) -> TenantSim:
+        """A fake tenant (its step loop and the real watchers) for a target
+        pod that exists; arms invariant 13."""
+        sim = TenantSim(self.cluster.kube, namespace, pod, extra_pods=extra_pods,
+                        publish_url=publish_url, token=token)
+        self.tenant_sims[(namespace, pod)] = sim
+        return sim
+
+    def stop_tenants(self) -> None:
+        for sim in self.tenant_sims.values():
+            sim.stop()
+
     def stop(self) -> None:
         failpoints.disarm_all()
+        self.stop_tenants()
         if self.watch_store is not None:
             self.watch_store.stop()
         if self.app is not None:
@@ -275,9 +428,20 @@ class ChaosHarness:
     def client_for_node(self, node: str) -> WorkerClient:
         return self.app._client_factory(self.app.registry.worker_address(node))
 
+    def probe(self, namespace: str, pod: str):
+        """The pod's GPUs as its worker's ProbeGPU reports them."""
+        with self.client_for_node(self.pods[(namespace, pod)]) as client:
+            _, chips = client.probe_gpu(pod, namespace)
+        return chips
+
+    def _arm_random(self, pool) -> None:
+        name, action = self.rng.choice(pool)
+        self.record(f"arm {name}={action}")
+        failpoints.arm(name, action)
+
     def _op(self, description: str, fn, fault_p: float = 0.7,
-            capture_trace: bool = False) -> None:
-        """One operation: maybe arm a fault from the pool, run, log the
+            capture_trace: bool = False, pool=FAULTS_COMMON) -> None:
+        """One operation: maybe arm a fault from `pool`, run, log the
         outcome, disarm whatever did not fire. With capture_trace an
         operation with no fault armed runs under a ``chaos.<description>``
         root span, and if it ends without an exception its trace goes into
@@ -285,9 +449,7 @@ class ChaosHarness:
         worker half to join)."""
         armed = self.rng.random() < fault_p
         if armed:
-            name, action = self.rng.choice(FAULTS_COMMON)
-            self.record(f"arm {name}={action}")
-            failpoints.arm(name, action)
+            self._arm_random(pool)
         ctx = None
         try:
             if capture_trace and not armed:
@@ -308,23 +470,35 @@ class ChaosHarness:
     # --- the scenario ---
 
     def run_mount_scenario(self, n_ops: int = 8) -> None:
-        """Adds (a slice of one pod, 1 or 2 single mounts) and forced removes
-        of one held GPU, on three pods (two share NODE_A, so that invariant
-        1 has teeth), each under a fault drawn from the pool."""
+        """Adds (a slice of one pod, 1 or 2 single mounts), forced removes of
+        one held GPU and reconcile passes, on three pods (two share NODE_A,
+        so that invariant 1 has teeth) whose declared intents are the repair:
+        whatever the faults leave, converging on the intents restores the
+        invariants. Each operation under a fault drawn from the pool (a
+        reconcile from FAULTS_ELASTIC)."""
         pods = [("default", "m-a", NODE_A), ("default", "m-b", NODE_B),
                 ("default", "m-c", NODE_A)]
         for ns, name, node in pods:
             self.add_pod(name, node, namespace=ns)
+            desired = self.rng.randint(1, 2)
+            self.app.elastic.store.put(ns, name, Intent(desired_chips=desired, min_chips=1))
+            self.record(f"intent {ns}/{name} desired={desired}")
         for _ in range(n_ops):
             ns, name, node = self.rng.choice(pods)
-            if self.rng.choice(["add", "remove"]) == "add":
+            kind = self.rng.choice(["add", "remove", "reconcile"])
+            if kind == "add":
                 n = self.rng.randint(1, 2)
                 self._op(f"add {n} to {name}",
                          lambda t=SliceTarget(namespace=ns, pod=name), n=n:
                          self.coordinator().mount_slice([t], n, entire=False),
                          capture_trace=True)
                 continue
-            held = sorted(self.held_gpus()[(ns, name)])
+            if kind == "reconcile":
+                self._op(f"reconcile {name}",
+                         lambda ns=ns, name=name: self.app.elastic.reconcile_once(ns, name),
+                         pool=FAULTS_ELASTIC)
+                continue
+            held = [c.uuid for c in self.probe(ns, name)]
             if not held:
                 continue
             uuid = self.rng.choice(held)
@@ -355,6 +529,9 @@ class ChaosHarness:
                 ("default", "wc-c", NODE_A)]
         for ns, name, node in pods:
             self.add_pod(name, node, namespace=ns)
+            desired = self.rng.randint(1, 2)
+            self.app.elastic.store.put(ns, name, Intent(desired_chips=desired, min_chips=1))
+            self.record(f"intent {ns}/{name} desired={desired}")
         for _ in range(n_ops):
             ns, name, node = self.rng.choice(pods)
             roll = self.rng.random()
@@ -379,28 +556,125 @@ class ChaosHarness:
                          lambda t=SliceTarget(namespace=ns, pod=name), n=n:
                          self.coordinator().mount_slice([t], n, entire=False), fault_p=0.0)
             else:
-                held = sorted(self.held_gpus()[(ns, name)])
-                if not held:
-                    continue
-                uuid = self.rng.choice(held)
-
-                def _remove(ns=ns, name=name, node=node, uuid=uuid):
-                    with self.client_for_node(node) as client:
-                        client.remove_gpu(name, ns, [uuid], force=True)
-
-                self._op(f"remove {uuid} from {name}", _remove, fault_p=0.0)
+                self._op(f"reconcile {name}",
+                         lambda ns=ns, name=name: self.app.elastic.reconcile_once(ns, name),
+                         fault_p=0.0)
         self.converge()
 
-    def converge(self, timeout_s: float = 10.0) -> None:
-        """Disarm everything, restart every live worker whose ledger holds an
-        open txn (a simulated death's: its replay converges it), and wait
-        for the slave pods' releases to land."""
-        failpoints.disarm_all()
-        for name, service in list(self.services.items()):
-            if name not in self.dead_nodes and service.ledger is not None \
-                    and service.ledger.open_transactions():
-                self.restart_worker(name)
+    # --- the elastic and migrate scenarios ---
+
+    def run_elastic_scenario(self, n_ops: int = 10) -> None:
+        """Declarative convergence under GPU deaths and induced faults: two
+        pods with intents of 2, at most two GPU deaths, intent edits, and
+        reconcile passes under FAULTS_ELASTIC."""
+        pods = [("default", "e-a", NODE_A), ("default", "e-b", NODE_B)]
+        for ns, name, node in pods:
+            self.add_pod(name, node, namespace=ns)
+            self.app.elastic.store.put(ns, name, Intent(desired_chips=2, min_chips=1))
+        kills = 0
+        for _ in range(n_ops):
+            ns, name, node = self.rng.choice(pods)
+            roll = self.rng.random()
+            if roll < 0.2 and kills < 2:
+                # kill a GPU the pod holds: the heal must converge through it
+                held = self.probe(ns, name)
+                if held:
+                    victim = self.rng.choice(held)
+                    index = next((d.index for d in self.cluster.node(node).backend.list_devices()
+                                  if d.uuid == victim.uuid), None)
+                    if index is not None:
+                        self.record(f"kill chip {victim.uuid} on {node}")
+                        self.cluster.kill_gpu(index, node)
+                        kills += 1
+                        continue
+            amount = self.rng.choice([1, 2, 3])
+            if roll < 0.35:
+                self.record(f"intent {name} desired={amount}")
+                self.app.elastic.store.put(ns, name, Intent(desired_chips=amount, min_chips=1))
+            self._op(f"reconcile {name}",
+                     lambda ns=ns, name=name: self.app.elastic.reconcile_once(ns, name),
+                     pool=FAULTS_ELASTIC)
+        self.converge()
+
+    def run_migrate_scenario(self, n_migrations: int = 2) -> None:
+        """Live migrations of a pod's 2 GPUs between NODE_A and NODE_B, each
+        under a crash at a journal phase's boundary (p 0.8, FAULTS_MIGRATE),
+        half with the checkpoint phase (no tenant acks it: the machine must
+        go on to the classic drain); every journal must end terminal through
+        resume_interrupted."""
+        self.add_pod("src", NODE_A)
+        self.add_pod("dst", NODE_B)
+        self.coordinator().mount_slice([SliceTarget(namespace="default", pod="src")], 2,
+                                       entire=False)
+        self.record("mounted 2 chips on default/src")
+        source, dest = ("default", "src"), ("default", "dst")
+        for _ in range(n_migrations):
+            if self.rng.random() < 0.8:
+                self._arm_random(FAULTS_MIGRATE)
+            checkpoint = self.rng.random() < 0.5
+            try:
+                journal = self.app.migrations.begin(source[0], source[1], dest[0], dest[1],
+                                                    checkpoint=checkpoint)
+            except Exception as exc:  # noqa: BLE001 — a refusal is an outcome
+                self.record(f"migrate begin -> {type(exc).__name__}: {exc}")
+                failpoints.disarm_all()
+                continue
+            mid = journal["id"]
+            self.record(f"migrate {mid}: {source[1]} -> {dest[1]}")
+            self._drive_to_terminal(mid)
+            failpoints.disarm_all()
+            final = self.app.migrations.get(mid) or {}
+            self.record(f"migrate {mid} -> {final.get('outcome')}")
+            if final.get("outcome") == "succeeded":
+                source, dest = dest, source  # and back
+        self.converge()
+
+    def _drive_to_terminal(self, mid: str, timeout_s: float = 60.0) -> None:
+        """Wait out the machine; after a simulated master crash adopt it
+        again (the failpoints cleared first: the restarted master is
+        clean)."""
         deadline = time.monotonic() + timeout_s
+        while time.monotonic() < deadline:
+            journal = self.app.migrations.wait(mid, timeout_s=5.0)
+            if journal is not None and journal.get("outcome"):
+                return
+            failpoints.disarm_all()
+            adopted = self.app.migrations.resume_interrupted()
+            if adopted:
+                self.record(f"resumed interrupted: {adopted}")
+
+    def converge(self, timeout_s: float = 30.0) -> None:
+        """Disarm everything, drive every migration to its end (adopting the
+        interrupted ones, as a restarted master does), reconcile every
+        declared intent until it converges, and wait for the slave pods'
+        releases to land. A pod on a killed node is left out: the node-kill
+        scenario reschedules it."""
+        failpoints.disarm_all()
+        deadline = time.monotonic() + timeout_s
+        while time.monotonic() < deadline:
+            pending = [j for j in self.app.migrations.list_migrations() if not j.get("outcome")]
+            if not pending:
+                break
+            self.app.migrations.resume_interrupted()
+            for journal in pending:
+                self.app.migrations.wait(journal["id"], timeout_s=5.0)
+        try:
+            intents = self.app.elastic.store.list()
+        except Exception:  # noqa: BLE001 — the pods' books below still settle
+            intents = []
+        for namespace, pod_name, _intent in intents:
+            if self.pods.get((namespace, pod_name)) in self.dead_nodes:
+                continue
+            while time.monotonic() < deadline:
+                try:
+                    outcome = self.app.elastic.reconcile_once(namespace, pod_name)
+                except Exception as exc:  # noqa: BLE001 — driven again
+                    self.record(f"converge {pod_name}: retrying ({exc})")
+                    time.sleep(0.05)
+                    continue
+                if outcome.get("phase") in ("converged", "unmanaged", "gone", "invalid"):
+                    break
+                time.sleep(0.05)
         while time.monotonic() < deadline:
             held, booked = self.held_gpus(), self.booked_gpus()
             if all(held[key] == booked[key] for key in self._live_pods()):
@@ -494,10 +768,16 @@ class ChaosHarness:
                     samples[node].append((time.monotonic() - started) * 1000.0)
                     if not ok:
                         errors[node] += 1
-            self.app.health.observe(self._gray_entries(samples, errors))
+            entries = self._gray_entries(samples, errors)
+            self.app.health.observe(entries)
             passes += 1
-            states = {n: p["state"] for n, p in self.app.health.payload()["nodes"].items()}
-            self.record(f"gray pass {passes}: {states}")
+            pane = self.app.health.payload()
+            states = {n: p["state"] for n, p in pane["nodes"].items()}
+            # the pass's evidence, named by a missed detection: each node's
+            # p95 and errors against the fleet's median
+            p95s = {n: round(e["mount"]["p95_ms"], 1) for n, e in entries.items()}
+            self.record(f"gray pass {passes}: {states} p95_ms={p95s} errors={errors} "
+                        f"median_ms={pane['last_pass']['median_p95_ms']}")
         self.converge()
         return {"states": {n: p["state"] for n, p in
                            self.app.health.payload()["nodes"].items()},
@@ -545,38 +825,37 @@ class ChaosHarness:
             if node not in quarantined_now:
                 out.append(f"gray failure NOT detected: {node} limped through the whole "
                            f"scenario but ended {panes.get(node, {}).get('state', 'untracked')!r}"
-                           f" instead of quarantined")
+                           f" instead of quarantined; "
+                           + "; ".join(line for line in self.schedule
+                                       if line.startswith("gray pass")))
         return out
 
-    # --- invariant 11, its first half: a node's death, detected and evacuated ---
+    # --- invariant 11: a node's death, its evacuation, the re-convergence ---
 
     def run_node_kill_scenario(self, n_pods: int = 2, deadline_s: float = 30.0) -> dict:
-        """Kill NODE_A while `n_pods` victims hold GPUs there: the recovery
-        controller must have tracked it alive, then confirm and evacuate it
-        within `deadline_s`, and none of its pool pods may be left. Each
-        victim's GPUs (1 or 2: the reference's draw for its intent on the same
-        seed) are mounted through the worker's add; a survivor on NODE_B holds
-        one. The re-convergence on NODE_B of the victims' intents comes with
-        the elastic reconciler (ROADMAP 7k). Returns {"detect_passes",
-        "detect_ms" (host clock, the kill to the evacuation), "evacuation",
-        "victims": {name: GPUs}}."""
+        """Kill NODE_A under `n_pods` live intents (1 or 2 GPUs each, drawn
+        from the seed, converged before the kill; a survivor of 1 on NODE_B):
+        the recovery controller must have tracked it alive, then confirm and
+        evacuate it within `deadline_s`, none of its pool pods may be left,
+        and every stranded intent must converge on NODE_B once its pod is
+        rescheduled there. Returns {"detect_passes", "detect_ms" (host clock,
+        the kill to the evacuation), "evacuation", "victims": {name: GPUs},
+        "reconverged": {name: the converging pass's outcome}}."""
         victims: dict[str, int] = {}
         for i in range(n_pods):
             name = f"nk-{i}"
             self.add_pod(name, NODE_A)
             desired = self.rng.randint(1, 2)
-            with self.client_for_node(NODE_A) as client:
-                response = client.add_gpu(name, "default", desired)
-            if response.add_gpu_result != AddGPUResult.Success \
-                    or len(response.uuids) != desired:
-                raise InvariantViolation(f"pre-kill add of {desired} to {name} failed "
-                                         f"(seed={self.seed}): "
-                                         f"{AddGPUResult(response.add_gpu_result).name}")
+            self.app.elastic.store.put("default", name, Intent(desired_chips=desired,
+                                                               min_chips=1))
             victims[name] = desired
-            self.record(f"pre-kill {name}: mounted {desired}")
+            outcome = self.app.elastic.reconcile_once("default", name)
+            self.record(f"pre-kill {name}: {outcome.get('phase')} desired={desired}")
+            if outcome.get("phase") != "converged":
+                raise InvariantViolation(f"pre-kill convergence failed for {name}: {outcome}")
         self.add_pod("survivor", NODE_B)
-        with self.client_for_node(NODE_B) as client:
-            client.add_gpu("survivor", "default", 1)
+        self.app.elastic.store.put("default", "survivor", Intent(desired_chips=1, min_chips=1))
+        self.app.elastic.reconcile_once("default", "survivor")
         # the controller runs all the time: every node is tracked before it
         # can die (killed first, the registry's watch could drop the worker
         # before the node was ever tracked)
@@ -602,8 +881,356 @@ class ChaosHarness:
                     if Pod(p).node_name == NODE_A]
         if leftover:
             raise InvariantViolation(f"evacuation left bookings on {NODE_A}: {leftover}")
+        # the workload's controller reschedules each victim on NODE_B (the
+        # same name, a new pod), its intent declared again as a pod template
+        # that carries the annotations would
+        reconverged = {}
+        for name, desired in victims.items():
+            self.cluster.kube.delete_pod("default", name)
+            self.add_pod(name, NODE_B)
+            self.app.elastic.store.put("default", name, Intent(desired_chips=desired,
+                                                               min_chips=1))
+            outcome: dict = {}
+            deadline = time.monotonic() + deadline_s
+            while time.monotonic() < deadline:
+                try:
+                    outcome = self.app.elastic.reconcile_once("default", name)
+                except Exception as exc:  # noqa: BLE001 — driven again
+                    self.record(f"re-drive {name}: retrying ({exc})")
+                    time.sleep(0.05)
+                    continue
+                if outcome.get("phase") == "converged":
+                    break
+                time.sleep(0.05)
+            if outcome.get("phase") != "converged" or outcome.get("actual") != desired:
+                raise InvariantViolation(f"evacuated intent default/{name} never re-converged "
+                                         f"(seed={self.seed}): {outcome}")
+            reconverged[name] = outcome
+            self.record(f"re-converged {name} on {NODE_B}: actual={outcome.get('actual')}")
         return {"detect_passes": passes, "detect_ms": detect_ms,
-                "evacuation": self.app.recovery.payload()["evacuations"], "victims": victims}
+                "evacuation": self.app.recovery.payload()["evacuations"], "victims": victims,
+                "reconverged": reconverged}
+
+    # --- invariant 14: the API server's outage, the degraded mode, the heal ---
+
+    #: the phases a migrate flavor's partition lands in, one drawn from the
+    #: seed (the reference's lands wherever a race between the machine and
+    #: the partition reaches)
+    OUTAGE_MIGRATE_PHASES = ("drain", "remount", "resume", "verify")
+
+    def _gate_phase(self, phase: str) -> tuple[threading.Event, threading.Event]:
+        """Hold the migration machine inside `phase`, before its first call:
+        (entered, release). The partition then lands while the machine is
+        in the phase, and the machine's first call after the release meets
+        it with ApiHealth's verdict still healthy, whatever a loaded host's
+        stalls."""
+        entered, release = threading.Event(), threading.Event()
+        coordinator = self.app.migrations
+        inner = getattr(coordinator, f"_phase_{phase}")
+
+        def gated(journal: dict) -> str:
+            if not release.is_set():
+                entered.set()
+                release.wait(60.0)
+            return inner(journal)
+
+        setattr(coordinator, f"_phase_{phase}", gated)
+        return entered, release
+
+    def _await(self, what: str, cond, timeout_s: float = 30.0) -> None:
+        """Until cond() holds, polled every 5 ms: a wait on state, with a
+        deadline well clear of a loaded host's stalls."""
+        deadline = time.monotonic() + timeout_s
+        while not cond():
+            if time.monotonic() > deadline:
+                raise InvariantViolation(f"{what} not reached within {timeout_s:.0f}s "
+                                         f"(seed={self.seed})")
+            time.sleep(0.005)
+
+    def run_api_outage_scenario(self, flavor: str = "mount",
+                                replay_enabled: bool = True) -> dict:
+        """Partition the fake API server in the middle of a mount, a
+        migration, a heal or a node's death (`flavor`) and hold invariant
+        14: in the outage no destructive mutation lands from stale reads (the
+        reconciler parks read only, the migration machine holds at a
+        journaled phase boundary, the evacuation is suspended) and no booking
+        leaks (a slave release defers into the ledger's queue); after the
+        heal every deferred annotation write lands once (the newest value
+        wins, a CAS loser is dropped) and books == mounts == ledger ==
+        intents.
+
+        The migrate flavor's machine is held inside a phase drawn from the
+        seed (``OUTAGE_MIGRATE_PHASES``) while the partition lands, and
+        released before ApiHealth's verdict leaves healthy: its own failing
+        calls are the first of the streak, the race the reference's machine
+        loses now and then by rolling back in the outage. Every wait is on
+        state with a 30 s deadline (the reference's waits by sleeps).
+
+        replay_enabled=False is the negative control: the write-behind
+        queue's flush does nothing, and the scenario must name the
+        divergence (writes that never landed) with an InvariantViolation."""
+        assert flavor in ("mount", "migrate", "heal", "recovery"), flavor
+        self.check_ledgers = True
+        store = self.app.store
+        kube_raw = self.cluster.kube
+        tracked = self.app.kube  # the health-tracked client
+
+        # the converged start: one pod with an intent a node
+        intent_pods = [("default", "ao-a", NODE_A), ("default", "ao-b", NODE_B)]
+        desired_by_pod: dict[str, int] = {}
+        for ns, name, node in intent_pods:
+            self.add_pod(name, node, namespace=ns)
+            desired = self.rng.randint(1, 2)
+            desired_by_pod[name] = desired
+            self.app.elastic.store.put(ns, name, Intent(desired_chips=desired, min_chips=1))
+            outcome = self.app.elastic.reconcile_once(ns, name)
+            if outcome.get("phase") != "converged":
+                raise InvariantViolation(f"pre-outage convergence failed for {name}: {outcome}")
+            self.record(f"pre-outage {name} converged desired={desired}")
+
+        mode = "writes" if flavor == "heal" else "full"
+        mid = None
+        dead_uuid = None
+        release = None
+        if flavor == "migrate":
+            self.add_pod("ao-src", NODE_A)
+            self.add_pod("ao-dst", NODE_B)
+            self.coordinator().mount_slice([SliceTarget(namespace="default", pod="ao-src")], 2,
+                                           entire=False)
+            phase = self.rng.choice(self.OUTAGE_MIGRATE_PHASES)
+            entered, release = self._gate_phase(phase)
+            mid = self.app.migrations.begin("default", "ao-src", "default", "ao-dst")["id"]
+            self._await(f"migration {mid} in phase {phase}", entered.is_set)
+            self.record(f"migration {mid} held in phase {phase}")
+        elif flavor == "heal":
+            # a dead GPU the reconciler wants to heal, and must not touch
+            # while the API is unhealthy (its intent may be stale)
+            victim = self.probe("default", "ao-a")[0]
+            index = next(d.index for d in self.cluster.node(NODE_A).backend.list_devices()
+                         if d.uuid == victim.uuid)
+            self.cluster.kill_gpu(index, NODE_A)
+            dead_uuid = victim.uuid
+            self.record(f"killed chip {dead_uuid} on {NODE_A}")
+        elif flavor == "recovery":
+            # a real node's death the partition swallows at once: every
+            # reason to evacuate, all its evidence stale
+            self.app.recovery.check_once()  # tracked while alive
+            self.kill_node(NODE_B)
+
+        if flavor == "mount":
+            # the partition lands while the mount runs
+            def _racing_mount():
+                try:
+                    self.coordinator().mount_slice([SliceTarget(namespace="default",
+                                                                pod="ao-a")], 1, entire=False)
+                except Exception as exc:  # noqa: BLE001 — the point
+                    self.record(f"mid-outage mount -> {type(exc).__name__}")
+
+            racer = threading.Thread(target=_racing_mount, daemon=True)
+            racer.start()
+            time.sleep(0.005)
+            kube_raw.set_partitioned(True, mode=mode)
+            self.record(f"partitioned mid-mount (mode={mode})")
+            racer.join(timeout=30.0)
+        else:
+            kube_raw.set_partitioned(True, mode=mode)
+            self.record(f"partitioned (mode={mode}, flavor={flavor})")
+        held_at_partition = self.held_gpus()
+        if release is not None:
+            # the held phase meets the partition under a healthy verdict;
+            # the machine's own failures flip it, and it pauses
+            release.set()
+            self._await(f"migration {mid} paused at a phase boundary",
+                        lambda: (self.app.migrations.get(mid) or {}).get("paused_for_api")
+                        or (self.app.migrations.get(mid) or {}).get("outcome"))
+
+        # the health machine to its verdict, with real failing calls (the
+        # daemons' loops would supply them)
+        deadline = time.monotonic() + 30.0
+        while time.monotonic() < deadline and self.app.apihealth.ok():
+            try:
+                if mode == "writes":
+                    tracked.patch_pod("default", "ao-a", {"metadata": {}})
+                else:
+                    tracked.get_pod("default", "ao-a")
+            except Exception:  # noqa: BLE001 — the failures are the feed
+                pass
+            time.sleep(0.01)
+        if self.app.apihealth.ok():
+            raise InvariantViolation(f"api health never left healthy under partition "
+                                     f"(seed={self.seed})")
+        self.record(f"api health: {self.app.apihealth.state()}")
+
+        # --- in the outage ---
+
+        # 1. the annotation writes defer into the durable queue
+        queued_annotations: dict[str, str] = {}
+        for i in range(3):
+            annot = f"tpumounter.io/outage-test-{i}"
+            payload = json.dumps({"v": i, "flavor": flavor})
+            store.stamp_annotation("default", "ao-a", annot, payload)
+            queued_annotations[annot] = payload
+        # a CAS-carrying write that must lose to a newer writer after the
+        # heal (seq 1 against 5)
+        store.stamp_annotation("default", "ao-a", "tpumounter.io/outage-cas",
+                               json.dumps({"seq": 1, "from": "outage"}))
+        if store.queue.pending_count() < len(queued_annotations) + 1:
+            raise InvariantViolation(f"writes were not deferred during the outage: "
+                                     f"{store.queue.stats()}")
+        self.record(f"deferred {store.queue.pending_count()} write(s)")
+
+        # 2. the reconcile passes stay read only
+        for ns, name, node in intent_pods:
+            if node in self.dead_nodes:
+                continue
+            try:
+                outcome = self.app.elastic.reconcile_once(ns, name)
+            except Exception as exc:  # noqa: BLE001 — a full partition fails
+                # even the pod's GET, and a failed pass mutates nothing
+                self.record(f"outage reconcile {name} -> {type(exc).__name__}")
+                continue
+            self.record(f"outage reconcile {name} -> {outcome.get('phase')}")
+            if outcome.get("healed") or outcome.get("removed_excess") or outcome.get("added"):
+                raise InvariantViolation(f"destructive reconcile during outage: {outcome}")
+        if flavor == "heal":
+            held_now = self.held_gpus()[("default", "ao-a")]
+            if dead_uuid not in held_now:
+                raise InvariantViolation(f"dead chip {dead_uuid} was removed during the outage "
+                                         f"(heal must park): held={sorted(held_now)}")
+
+        # 3. no evacuation in the outage
+        for _ in range(4):
+            out = self.app.recovery.check_once()
+            if out["evacuated"]:
+                raise InvariantViolation(f"evacuation during api outage (stale evidence): {out}")
+            time.sleep(0.02)
+        if self.app.recovery.payload()["evacuations"]:
+            raise InvariantViolation("evacuation recorded during the outage")
+
+        # 4. the machine holds at a boundary, journaled, never terminal
+        if mid is not None:
+            self._await(f"migration {mid} paused at a phase boundary",
+                        lambda: (self.app.migrations.get(mid) or {}).get("paused_for_api")
+                        or (self.app.migrations.get(mid) or {}).get("outcome"))
+            j = self.app.migrations.get(mid) or {}
+            if j.get("outcome"):
+                raise InvariantViolation(f"migration went terminal during the outage: {j}")
+            self.record(f"migration {mid} holding at phase {j.get('phase')} "
+                        f"(paused_for_api={j.get('paused_for_api')})")
+
+        # 5. nothing landed from stale reads
+        if self.held_gpus() != held_at_partition:
+            raise InvariantViolation(f"held chips changed during the outage: "
+                                     f"{held_at_partition} -> {self.held_gpus()}")
+
+        # 6. a slave release in the outage defers into the ledger's queue
+        # (heal: writes partitioned, the unmount itself is the node's); an
+        # operator's remove, after the stale-read check
+        if flavor == "heal":
+            removable = sorted(self.held_gpus()[("default", "ao-b")])
+            with self.client_for_node(NODE_B) as client:
+                client.remove_gpu("ao-b", "default", [removable[0]], force=True)
+            pending_rel = self.services[NODE_B].ledger.pending_releases()
+            if not pending_rel:
+                raise InvariantViolation("slave release during outage neither completed nor "
+                                         "deferred into the ledger queue")
+            self.record(f"slave release deferred: {pending_rel[0].get('pods')}")
+
+        # --- the heal ---
+        kube_raw.set_partitioned(False)
+        self.record("partition healed")
+        if not replay_enabled:
+            # the negative control: the replay does nothing
+            store.flush_writes = lambda: {"applied": 0, "pending": store.queue.pending_count()}
+        # a newer writer moves the CAS counter before the queued seq 1 replays
+        kube_raw.patch_pod("default", "ao-a", {"metadata": {"annotations": {
+            "tpumounter.io/outage-cas": json.dumps({"seq": 5, "from": "post-heal"})}}})
+        deadline = time.monotonic() + 30.0
+        while time.monotonic() < deadline and not self.app.apihealth.ok():
+            try:
+                tracked.get_pod("default", "ao-a")
+                tracked.patch_pod("default", "ao-a", {"metadata": {}})
+            except Exception:  # noqa: BLE001
+                pass
+            time.sleep(0.01)
+        if not self.app.apihealth.ok():
+            raise InvariantViolation("api health never recovered after the partition healed")
+        flush = store.flush_writes()
+        self.record(f"post-heal flush: {flush}")
+
+        if flavor == "recovery":
+            # the evidence is fresh now: the node must be evacuated, and its
+            # stranded intent converge once rescheduled
+            deadline = time.monotonic() + 30.0
+            evacuated = False
+            while time.monotonic() < deadline and not evacuated:
+                evacuated = NODE_B in self.app.recovery.check_once()["evacuated"]
+                if not evacuated:
+                    time.sleep(0.05)
+            if not evacuated:
+                raise InvariantViolation(f"{NODE_B} never evacuated after the api healed: "
+                                         f"{self.app.recovery.payload()}")
+            self.record(f"post-heal evacuation of {NODE_B}")
+            self.cluster.kube.delete_pod("default", "ao-b")
+            self.add_pod("ao-b", NODE_A)
+            self.app.elastic.store.put("default", "ao-b",
+                                       Intent(desired_chips=desired_by_pod["ao-b"], min_chips=1))
+        if mid is not None:
+            self._drive_to_terminal(mid)
+            j = self.app.migrations.get(mid) or {}
+            if not j.get("outcome"):
+                raise InvariantViolation(f"migration {mid} never went terminal after the heal: "
+                                         f"{j}")
+            self.record(f"migration {mid} -> {j.get('outcome')}")
+        for node, service in self.services.items():
+            if node in self.dead_nodes or service.ledger is None:
+                continue
+            service.retry_pending_releases()
+        self.converge()
+        # a write queued while the first flush was mid-pass must not be left
+        # pending at the check
+        if replay_enabled:
+            store.flush_writes()
+
+        # --- invariant 14: the agreement after the heal ---
+        violations: list[str] = []
+        annotations_a = Pod(kube_raw.get_pod("default", "ao-a")).annotations
+        if not replay_enabled:
+            missing = [a for a in queued_annotations if a not in annotations_a]
+            if missing or store.queue.pending_count():
+                raise InvariantViolation(
+                    f"write-behind divergence detected (replay disabled): {missing} never "
+                    f"landed, {store.queue.pending_count()} write(s) stranded in the queue "
+                    f"(seed={self.seed})")
+            raise InvariantViolation("negative control failed: replay was disabled yet no "
+                                     "divergence exists")
+        if store.queue.pending_count():
+            violations.append(f"write-behind queue not drained after heal: "
+                              f"{store.queue.stats()}")
+        for annot, payload in queued_annotations.items():
+            if annotations_a.get(annot) != payload:
+                violations.append(f"queued write {annot} did not land exactly once: "
+                                  f"{annotations_a.get(annot)!r} != {payload!r}")
+        cas_raw = annotations_a.get("tpumounter.io/outage-cas", "{}")
+        if json.loads(cas_raw).get("seq") != 5:
+            violations.append(f"CAS replay rolled a newer write backward: {cas_raw}")
+        if self.app.apihealth.state() != "healthy":
+            violations.append(f"api health stuck {self.app.apihealth.state()} after heal")
+        for node, service in self.services.items():
+            if node in self.dead_nodes or service.ledger is None:
+                continue
+            if service.ledger.pending_releases():
+                violations.append(f"deferred slave release never completed on {node}: "
+                                  f"{service.ledger.pending_releases()}")
+        if violations:
+            tail = "\n  ".join(self.schedule[-25:])
+            raise InvariantViolation(f"invariant 14 violated (seed={self.seed}, flavor={flavor}):"
+                                     f"\n- " + "\n- ".join(violations)
+                                     + f"\nschedule tail:\n  {tail}")
+        # books == mounts == ledger == intents: the shared checks
+        self.check_invariants()
+        return {"flavor": flavor, "flush": flush, "apihealth": self.app.apihealth.payload(),
+                "migration": mid, "queue": store.queue.stats()}
 
     # --- invariant 22: watch-store index parity under stream chaos ---
 
@@ -881,12 +1508,29 @@ class ChaosHarness:
             if phantom:  # 3.
                 violations.append(f"accounting mismatch: {namespace}/{name} books "
                                   f"{sorted(phantom)} but the node(s) are not mounted")
+        # 4. every migration's journal is terminal and clean
+        journals = self.app.migrations.list_migrations()
+        for journal in journals:
+            outcome = journal.get("outcome")
+            if outcome not in ("succeeded", "rolled-back", "aborted") \
+                    or journal.get("phase") != "done":
+                violations.append(f"journal {journal.get('id')} not terminal/clean: "
+                                  f"phase={journal.get('phase')} outcome={outcome} "
+                                  f"error={journal.get('error')}")
         # 5.
         orphans = trace.TRACER.open_spans()
         if orphans:
             violations.append(f"orphan open span(s): {orphans}")
-        # 6.
-        for rec in AUDIT.snapshot():
+        # 6. every terminal journal has its record (a machine adopted after a
+        # crash too), and every record an outcome and a trace id
+        records = AUDIT.snapshot()
+        migrate_ids = {r.get("details", {}).get("id") for r in records
+                       if r["operation"] == "migrate"}
+        for journal in journals:
+            if journal.get("outcome") and journal["id"] not in migrate_ids:
+                violations.append(f"migration {journal['id']} finished ({journal['outcome']}) "
+                                  f"but left no terminal audit record")
+        for rec in records:
             if not rec.get("outcome"):
                 violations.append(f"audit record without outcome: seq={rec['seq']} "
                                   f"op={rec['operation']} pod={rec['pod']}")
@@ -915,6 +1559,29 @@ class ChaosHarness:
             if a != b:
                 violations.append(f"collector restart changed node {node} mount count {a} -> "
                                   f"{b} (rollup not restart-stable)")
+        # 13. after a terminal migration, heal or evacuation no tenant's
+        # window is open, and every window of a signalled cause carries a
+        # trace id that resolves in the ring
+        if self.tenant_sims:
+            from gpumounter_tpu_torch.torchside.telemetry import SIGNALLED_CAUSES
+            for sim in self.tenant_sims.values():
+                sim.settle()
+                snap = sim.telemetry.snapshot()
+                tenant = sim.telemetry.tenant
+                for window in snap["disruption"]["open"]:
+                    violations.append(f"tenant {tenant}: disruption window left open after "
+                                      f"convergence: {window}")
+                for window in snap["disruption"]["windows"]:
+                    if window["cause"] not in SIGNALLED_CAUSES:
+                        continue
+                    if not window["trace_id"]:
+                        violations.append(f"tenant {tenant}: {window['cause']} window without "
+                                          f"a control-plane trace id (unattributed downtime): "
+                                          f"{window}")
+                    elif trace.trace_payload(window["trace_id"]) is None:
+                        violations.append(f"tenant {tenant}: {window['cause']} window trace "
+                                          f"{window['trace_id']} does not resolve in the trace "
+                                          f"ring")
         # 16.
         for op in self.traced_ops:
             tree = assembly.assemble(op["trace"])

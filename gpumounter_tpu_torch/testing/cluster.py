@@ -44,6 +44,9 @@ For the transport (``tests/test_master.py:24-90`` of the reference):
     raises it (a ``timeout_s`` is taken and has nothing to bound). The
     master uses it only where a caller passes it.
 
+``kill_gpu(index, node)`` marks a fake GPU dead: the backend's probe reports
+it and the scheduler skips it from then on.
+
 Every node of the cluster has its Node object in the fake API, Ready, as the
 recovery controller reads it (``kube.set_node_ready`` plays a kubelet whose
 heartbeats stopped).
@@ -104,11 +107,14 @@ class FakeNode:
         self.assignment: dict[str, tuple[str, str] | None] = {
             d.uuid: None for d in backend.list_devices()}
         self.target_pods = 0
+        #: UUIDs killed by ``FakeCluster.kill_gpu``: never assigned again
+        self.dead: set[str] = set()
         self.kubelet_server: FakeKubeletServer | None = None
         self.kubelet_dir: str | None = None
 
     def free_ids(self) -> list[str]:
-        return [uuid for uuid, owner in self.assignment.items() if owner is None]
+        return [uuid for uuid, owner in self.assignment.items()
+                if owner is None and uuid not in self.dead]
 
 
 def _selector(pod: dict) -> str | None:
@@ -210,6 +216,25 @@ class FakeCluster:
                     if owner == (p.namespace, p.name):
                         node.assignment[uuid] = None
                 node.kubelet.drop_pod(p.name, p.namespace)
+
+    # --- fault injection ---
+
+    def kill_gpu(self, index: int | str, node: str | None = None) -> str:
+        """A GPU's death (the reference's ``kill_chip``): the GPU of NVML
+        index `index` on `node` is marked dead on the fake backend, so that
+        ``probe_device`` reports it unhealthy, and the scheduler never
+        assigns it again (a dead GPU does not come back). Its owner keeps
+        its claim: the state the reconciler's probe must find and heal.
+        Returns its UUID."""
+        target = self.node(node)
+        dev = next((d for d in target.backend.list_devices() if str(d.index) == str(index)),
+                   None)
+        if dev is None:
+            raise KeyError(f"no GPU {index} on node {target.name}")
+        with self._alloc_lock:
+            target.dead.add(dev.uuid)
+        target.backend.mark_dead(dev.basename)
+        return dev.uuid
 
     # --- convenience ---
 
@@ -449,3 +474,10 @@ class LoopbackWorkerClient:
                               api.ProbeGPURequest(pod_name, namespace),
                               api.ProbeGPUResponse, api.PROBE_METHOD)
         return api.ProbeGPUResult(response.probe_gpu_result), list(response.chips)
+
+    def quiesce_status(self, pod_name: str, namespace: str, timeout_s: float | None = None
+                       ) -> tuple[api.QuiesceStatusResult, api.QuiesceStatusResponse]:
+        response = self._call(self.service.quiesce_status,
+                              api.QuiesceStatusRequest(pod_name, namespace),
+                              api.QuiesceStatusResponse, api.QUIESCE_METHOD)
+        return api.QuiesceStatusResult(response.quiesce_status_result), response

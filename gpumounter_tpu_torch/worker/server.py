@@ -57,12 +57,18 @@ warm pool (``WarmPodPool.set_drained``) or lets it refill.
 ``probe_gpu`` answers ProbeGPU (the reference's ``probe_tpu``,
 ``worker/server.py:440-502``): the health of every GPU a pod holds, in a
 ``worker.ProbeGPU`` span with the ``worker.rpc`` failpoint; the health
-plane's canary reads it between its add and its remove.
+plane's canary reads it between its add and its remove, and the elastic
+reconciler before and after each pass. ``quiesce_status`` answers
+QuiesceStatus (the reference's ``worker/server.py:504-547``): the tenant's ack
+of a migration's phase (``tpumounter.io/migration-ack``), the holders of the
+pod's GPUs and their count, in a ``worker.QuiesceStatus`` span with the
+``worker.rpc`` failpoint; the migration machine polls it.
 
 ``build_server`` serves the service over gRPC (the counterpart of the
 reference's ``build_server``, ``worker/server.py:854-954``): the original's
 ``gpu_mount.AddGPUService/AddGPU`` and ``gpu_mount.RemoveGPUService/RemoveGPU``,
 ``gpu_mount.ProbeGPUService/ProbeGPU``,
+``gpu_mount.QuiesceStatusService/QuiesceStatus``,
 ``gpu_mount.TelemetryService/CollectTelemetry`` (left out with
 ``include_telemetry=False``), the health service, and the bearer-token
 interceptor; a ``ServiceError``
@@ -128,6 +134,10 @@ SLAVE_RELEASE_DEFERRED = REGISTRY.counter(
     "Slave-pod releases deferred into the ledger-backed retry queue "
     "after an API outage broke the delete (retried until the pods are "
     "confirmed gone — not a leak)")
+
+#: the tenant's answer to the migration's signal (migrate/journal.py's
+#: ANNOT_ACK; the worker keeps its own name, as the reference's)
+ANNOT_MIGRATION_ACK = "tpumounter.io/migration-ack"
 
 #: the answer to a mutation that reaches a draining worker
 DRAINING = "worker draining (SIGTERM); retry elsewhere"
@@ -386,6 +396,42 @@ class GpuMountService:
                 chips.append(api.ChipHealth(uuid=dev.uuid, healthy=healthy, reason=reason,
                                             holder_count=len(self._holder_pids(target, dev))))
             return api.ProbeGPUResponse(api.ProbeGPUResult.Success, chips=chips)
+
+    # --- QuiesceStatus (the migration machine's read-back; no original analog) ---
+
+    def quiesce_status(self, request: api.QuiesceStatusRequest) -> api.QuiesceStatusResponse:
+        """What the migration machine cannot see from the master: the
+        tenant's ack annotation, and whether any process still holds the
+        pod's GPUs. Read-only, as ``probe_gpu``."""
+        with trace.span("worker.QuiesceStatus", wire_parent=request.trace_context,
+                        pod=f"{request.namespace}/{request.pod_name}"):
+            return self._quiesce_status_op(request)
+
+    def _quiesce_status_op(self, request: api.QuiesceStatusRequest
+                           ) -> api.QuiesceStatusResponse:
+        failpoints.fire("worker.rpc", method="QuiesceStatus", pod=request.pod_name)
+        try:
+            pod = Pod(self.kube.get_pod(request.namespace, request.pod_name))
+        except NotFoundError:
+            return api.QuiesceStatusResponse(api.QuiesceStatusResult.PodNotFound)
+        acked_id = acked_phase = ""
+        raw = pod.annotations.get(ANNOT_MIGRATION_ACK)
+        if raw:
+            try:
+                ack = json.loads(raw)
+                if isinstance(ack, dict):
+                    acked_id = str(ack.get("id", ""))
+                    acked_phase = str(ack.get("phase", ""))
+            except ValueError:
+                logger.warning("unparseable %s annotation on %s/%s: %r", ANNOT_MIGRATION_ACK,
+                               pod.namespace, pod.name, raw)
+        devices, target = self._pod_devices_and_target(pod)
+        holders: set[int] = set()
+        for dev in devices:
+            holders.update(self._holder_pids(target, dev))
+        return api.QuiesceStatusResponse(api.QuiesceStatusResult.Success, acked_id=acked_id,
+                                         acked_phase=acked_phase, holder_count=len(holders),
+                                         chip_count=len(devices))
 
     # --- AddGPU (server.go:34-99) ---
 
@@ -737,6 +783,8 @@ def build_server(service: GpuMountService, port: int | None = None,
     }
     registrations[api.PROBE_SERVICE] = {api.PROBE_METHOD: _handler(service.probe_gpu,
                                                                    api.ProbeGPURequest)}
+    registrations[api.QUIESCE_SERVICE] = {api.QUIESCE_METHOD: _handler(
+        service.quiesce_status, api.QuiesceStatusRequest)}
     if include_telemetry:
         registrations[api.TELEMETRY_SERVICE] = {api.TELEMETRY_METHOD: _handler(
             service.collect_telemetry, api.CollectTelemetryRequest)}

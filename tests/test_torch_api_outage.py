@@ -11,12 +11,19 @@ jittered backoff, its bound on streams that end at once, and its reset after
 a stream that lived; the deferred releases' retry, one record while the
 write plane is down, on both services; the fake's partition by plane,
 leases with CAS, and a LIST's resourceVersion to watch from. Then
-``entry.degraded_check`` on the fake host.
+``entry.degraded_check`` on the fake host. Then the migration machine: its
+pause at a phase boundary, its scan of the memory's journals when the store
+cannot answer, and a phase failing in an outage (rolled back under a verdict
+still healthy, held under one that is down), on both packages; and chaos
+invariant 14, ``run_api_outage_scenario`` in its four flavors on the
+reference's seeds with its negative control, on the port's harness, whose
+migrate flavor meets the machine in a phase drawn from the seed.
 """
 
 from __future__ import annotations
 
 import tempfile
+import threading
 import time
 
 import pytest
@@ -24,10 +31,12 @@ from torch_obs_reset import reset_port_obs  # noqa: F401 — the autouse fixture
 from torch_store_sides import SIDES, both, fresh, pod, worker_pod
 
 from gpumounter_tpu.master import app as ref_app
+from gpumounter_tpu.migrate import orchestrator as ref_orchestrator
 from gpumounter_tpu.worker import ledger as ref_ledger
 from gpumounter_tpu.worker import server as ref_server
 import gpumounter_tpu_torch.entry as entry
 from gpumounter_tpu_torch.master import app as port_app
+from gpumounter_tpu_torch.migrate import orchestrator as port_orchestrator
 from gpumounter_tpu_torch.worker import ledger as port_ledger
 from gpumounter_tpu_torch.worker import server as port_server
 
@@ -322,8 +331,10 @@ def test_degraded_check_on_the_cpu():
     """All of entry.degraded_check on the fake host: the healthy round trips
     through the store, a write partition around a remove (4 writes deferred,
     the release deferred, the next release's probe one record of 3, the add
-    refused; healed, the flush applies 3 and drops the CAS one), a read
-    partition around an add, and the costs."""
+    refused; healed, the flush applies 3 and drops the CAS one), a second
+    write partition that a migration's machine meets in the quiesce (its
+    two journal persists deferred, the machine paused; healed, it
+    succeeds), a read partition around an add, and the costs."""
     report = entry.degraded_check("cpu", repeats=2, cost_iters=5)
     assert report["live"] is None
     flows = report["fake"]
@@ -340,6 +351,265 @@ def test_degraded_check_on_the_cpu():
     assert writes["books"] == [] and len(reads["uuids"]) == 1
     assert reads["stale_reads"] == 1 and reads["refused"][0] == 500 and reads["queued"] == 0
     assert reads["worker_calls"] == 0
+    traffic = flows["migration_traffic"]
+    assert traffic["put_refused"][0] == 500 and traffic["deferred"] == 2
+    assert len(traffic["persist_ms"]) == 2 and traffic["paused_phase"] == "drain"
+    assert traffic["applied"] >= 1 and traffic["outcome"] == "succeeded"
     costs = report["costs"]
     assert len(costs["tracked_call_us"]) == len(costs["cached_read_us"]) == 5
     assert len(costs["enqueue_us"]) == 5
+
+
+# --- the migration machine in an outage ---
+
+ORCHESTRATORS = {"reference": ref_orchestrator, "port": port_orchestrator}
+
+
+def _paused_at_boundary(side) -> list:
+    """The machine's pause, alone: with the verdict down it holds before the
+    next phase and journals the pause; two successes release it."""
+    health = side.ApiHealth(cfg=fresh(side, **CFG))
+    coordinator = ORCHESTRATORS[side.kind].MigrationCoordinator.__new__(
+        ORCHESTRATORS[side.kind].MigrationCoordinator)
+    coordinator.cfg = fresh(side, **CFG, migrate_poll_interval_s=0.01)
+    coordinator.apihealth = health
+    coordinator._aborts = set()
+    persisted = []
+    coordinator._persist = lambda j: persisted.append(dict(j))
+    journal = {"id": "mig-x", "phase": "drain"}
+    for _ in range(2):
+        health.record_failure(side.errors.PartitionError("outage"))
+    released = threading.Event()
+
+    def wait():
+        coordinator._await_api_healthy(journal)
+        released.set()
+
+    thread = threading.Thread(target=wait, daemon=True)
+    thread.start()
+    time.sleep(0.1)
+    held = not released.is_set()
+    health.record_success()
+    health.record_success()
+    out = [held, persisted[0]["paused_for_api"], released.wait(5.0),
+           "paused_for_api" in journal, persisted[-1].get("paused_for_api")]
+    thread.join(timeout=5.0)
+    return out
+
+
+def test_migration_pauses_at_phase_boundary_unit():
+    got = both(_paused_at_boundary)
+    assert got["port"] == got["reference"] == [True, True, True, False, None]
+
+
+def _scan_in_an_outage(side) -> list:
+    """A store that cannot answer (no cache, the API down): /migrations
+    serves the memory's journals, and resume_interrupted adopts nothing."""
+
+    class RaisingStore:
+        def scan_journals(self):
+            raise side.errors.PartitionError("no cache, api down")
+
+    coordinator = ORCHESTRATORS[side.kind].MigrationCoordinator(
+        side.FakeKubeClient(), None, lambda addr: None, cfg=fresh(side, **CFG),
+        store=RaisingStore())
+    out = [coordinator.list_migrations(), coordinator.resume_interrupted()]
+    with coordinator._lock:
+        coordinator._journals["m-1"] = {"id": "m-1", "phase": "drain", "created_at": 1.0}
+    return out + [[j["id"] for j in coordinator.list_migrations()],
+                  coordinator.get("m-1")["phase"]]
+
+
+def test_migration_scan_degrades_to_memory_view_during_outage():
+    got = both(_scan_in_an_outage)
+    assert got["port"] == got["reference"] == [[], [], ["m-1"], "drain"]
+
+
+def _a_phase_failing_in_an_outage(side, verdict_down: bool) -> str:
+    """A phase that fails with the API's outage error: with the verdict still
+    healthy the machine rolls back (the race the reference's migrate flavor
+    can lose: its partition lands before ApiHealth's verdict); with it down
+    by then the machine holds at the boundary and runs the phase again after
+    the heal. Returns the outcome, or "held"."""
+    mod = ORCHESTRATORS[side.kind]
+    health = side.ApiHealth(cfg=fresh(side, **CFG))
+    coordinator = mod.MigrationCoordinator(side.FakeKubeClient(), None, lambda addr: None,
+                                           cfg=fresh(side, **CFG, migrate_poll_interval_s=0.01),
+                                           apihealth=health)
+    calls = []
+
+    def drain(journal):
+        calls.append(1)
+        if len(calls) == 1:
+            if verdict_down:  # the verdict goes down before the failure is judged
+                for _ in range(2):
+                    health.record_failure(side.errors.PartitionError("outage"))
+            raise side.errors.PartitionError("the partition")
+        raise RuntimeError("stop here")
+
+    coordinator._phase_drain = drain
+    coordinator._persist = lambda j: None
+    coordinator._rollback = lambda j, reason, outcome="rolled-back": j.update(
+        outcome=outcome, phase="done")
+    journal = side.journal.new_journal("mig-race", "default", "a", "default", "b")
+    journal["phase"] = "drain"
+    done = threading.Event()
+    thread = threading.Thread(target=lambda: (coordinator._run_traced(journal), done.set()),
+                              daemon=True)
+    thread.start()
+    time.sleep(0.2)
+    if not done.is_set():
+        outcome = "held" if len(calls) == 1 else f"{len(calls)} calls"
+        health.record_success()
+        health.record_success()
+        done.wait(5.0)
+        return outcome
+    return journal.get("outcome")
+
+
+@pytest.mark.parametrize("verdict_down", [False, True], ids=["verdict-healthy", "verdict-down"])
+def test_a_phase_failing_in_an_outage_rolls_back_unless_the_verdict_is_down(verdict_down):
+    got = both(_a_phase_failing_in_an_outage, verdict_down)
+    assert got["port"] == got["reference"] == ("held" if verdict_down else "rolled-back")
+
+
+def _a_phase_meeting_the_partition_first(side):
+    """A phase whose calls fail through the health-tracked client, each
+    recording its failure: the first meets a healthy verdict (a streak of 1
+    under the threshold of 2). Returns the outcome, or the held machine's
+    ("held", the phase's runs, its journaled pause)."""
+    mod = ORCHESTRATORS[side.kind]
+    health = side.ApiHealth(cfg=fresh(side, **CFG))
+    coordinator = mod.MigrationCoordinator(side.FakeKubeClient(), None, lambda addr: None,
+                                           cfg=fresh(side, **CFG, migrate_poll_interval_s=0.01),
+                                           apihealth=health)
+    partitioned, calls = [True], []
+
+    def drain(journal):
+        calls.append(1)
+        if partitioned[0]:
+            exc = side.errors.PartitionError("the partition")
+            health.record_failure(exc)
+            raise exc
+        raise RuntimeError("stop here")
+
+    coordinator._phase_drain = drain
+    coordinator._persist = lambda j: None
+    coordinator._rollback = lambda j, reason, outcome="rolled-back": j.update(
+        outcome=outcome, phase="done")
+    journal = side.journal.new_journal("mig-first", "default", "a", "default", "b")
+    journal["phase"] = "drain"
+    done = threading.Event()
+    thread = threading.Thread(target=lambda: (coordinator._run_traced(journal), done.set()),
+                              daemon=True)
+    thread.start()
+    deadline = time.monotonic() + 10.0
+    while not (done.is_set() or journal.get("paused_for_api")) \
+            and time.monotonic() < deadline:
+        time.sleep(0.005)
+    if done.is_set():
+        return journal.get("outcome")
+    out = ("held", len(calls), journal.get("paused_for_api"))
+    partitioned[0] = False
+    health.record_success()
+    health.record_success()
+    done.wait(5.0)
+    return out
+
+
+def test_a_phase_meeting_the_partition_before_the_verdict_holds():
+    """The port's fix of the reference's race (ROADMAP §3): the machine
+    holds on the API's failure streak under the verdict's threshold, runs the
+    phase again, and its second failure flips the verdict and pauses it;
+    the reference's rolls back in the outage."""
+    got = both(_a_phase_meeting_the_partition_first)
+    assert got == {"reference": "rolled-back", "port": ("held", 2, True)}
+
+
+def test_a_failure_that_is_not_the_apis_still_rolls_back_under_a_short_streak():
+    """The hold is bounded: a phase that fails again and again while the
+    API's streak stays under the verdict (one blip; the failure has another
+    cause) rolls back after the threshold's count of extra runs."""
+    side = SIDES["port"]
+    health = side.ApiHealth(cfg=fresh(side, **CFG))
+    coordinator = port_orchestrator.MigrationCoordinator(
+        side.FakeKubeClient(), None, lambda addr: None,
+        cfg=fresh(side, **CFG, migrate_poll_interval_s=0.01), apihealth=health)
+    health.record_failure(side.errors.PartitionError("one blip"))
+    calls = []
+
+    def drain(journal):
+        calls.append(1)
+        raise RuntimeError("a worker's refusal")
+
+    coordinator._phase_drain = drain
+    coordinator._persist = lambda j: None
+    coordinator._rollback = lambda j, reason, outcome="rolled-back": j.update(
+        outcome=outcome, phase="done", error=reason)
+    journal = side.journal.new_journal("mig-bounded", "default", "a", "default", "b")
+    journal["phase"] = "drain"
+    coordinator._run_traced(journal)
+    assert (journal["outcome"], journal["error"], len(calls)) == \
+        ("rolled-back", "a worker's refusal", 3)
+    assert health.ok()
+
+
+# --- chaos invariant 14 ---
+
+OUTAGE_SEEDS = [101, 202, 303]
+FLAVORS = ["mount", "migrate", "heal", "recovery"]
+
+
+@pytest.mark.parametrize("seed", OUTAGE_SEEDS)
+@pytest.mark.parametrize("flavor", FLAVORS)
+def test_invariant14_api_outage(tmp_path, seed, flavor):
+    from gpumounter_tpu_torch.testing.chaos import ChaosHarness
+    with ChaosHarness(str(tmp_path), seed=seed) as harness:
+        out = harness.run_api_outage_scenario(flavor=flavor)
+        schedule = harness.schedule
+    assert out["apihealth"]["state"] == "healthy"
+    assert out["queue"]["pending"] == 0
+    if flavor == "migrate":
+        held = [line for line in schedule if " held in phase " in line]
+        holding = [line for line in schedule if " holding at phase " in line]
+        assert len(held) == 1 and len(holding) == 1 and "paused_for_api=True" in holding[0]
+        assert any(line.endswith("-> succeeded") for line in schedule), schedule
+
+
+def test_invariant14_negative_control_detects_broken_replay(tmp_path):
+    from gpumounter_tpu_torch.testing.chaos import ChaosHarness, InvariantViolation
+    with ChaosHarness(str(tmp_path), seed=OUTAGE_SEEDS[0]) as harness:
+        with pytest.raises(InvariantViolation, match="divergence"):
+            harness.run_api_outage_scenario(flavor="mount", replay_enabled=False)
+
+
+def test_the_migrate_outage_meets_the_machine_in_a_seeded_phase(tmp_path):
+    """The port's migrate flavor holds the machine inside a phase drawn from
+    the seed while the partition lands, and releases it under a healthy
+    verdict (ROADMAP §3): the phase is the seed's draw, the pause is
+    journaled at it, and the same seed draws it again."""
+    from gpumounter_tpu_torch.testing.chaos import ChaosHarness
+    phases = []
+    for run in range(2):
+        with ChaosHarness(str(tmp_path / str(run)), seed=202) as harness:
+            harness.run_api_outage_scenario(flavor="migrate")
+            held = next(line for line in harness.schedule if " held in phase " in line)
+            holding = next(line for line in harness.schedule if " holding at phase " in line)
+            phases.append((held.rsplit(" ", 1)[1], holding.split(" holding at phase ")[1]
+                           .split(" ")[0]))
+    assert phases[0] == phases[1]
+    held_phase, paused_phase = phases[0]
+    assert held_phase in ChaosHarness.OUTAGE_MIGRATE_PHASES and paused_phase == held_phase
+
+
+@pytest.mark.parametrize("seed", OUTAGE_SEEDS)
+def test_invariant14_detects_a_machine_that_rolls_back_before_the_verdict(tmp_path, seed):
+    """The migrate flavor's control: with the hold on the API's early
+    streak taken out (the reference's rule, the verdict alone), the machine
+    meets the partition under a healthy verdict, rolls back in the outage,
+    and the scenario names it."""
+    from gpumounter_tpu_torch.testing.chaos import ChaosHarness, InvariantViolation
+    with ChaosHarness(str(tmp_path), seed=seed) as harness:
+        harness.app.apihealth.failing = lambda: False
+        with pytest.raises(InvariantViolation, match="terminal during the outage"):
+            harness.run_api_outage_scenario(flavor="migrate")

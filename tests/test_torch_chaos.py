@@ -4,10 +4,14 @@ The counterparts of ``tests/test_chaos.py``'s controls run on both
 packages' harnesses, and what each found must be the same: the disabled
 rollback is detected (an ownerless grant, with the seed in the message), the
 slice's admission failpoint fails clean, and the skipped slice rollback
-leaves one host's GPU mounted and booked. Then the port's seeded mount
-scenario at three seeds, whose invariants 1-3, 5 and 6 must hold (its pool
-holds the reference's crash terms, converged by the ledger's replay), and the
-reproducibility of its schedule. Then invariants 7 (the channel pool's
+leaves one host's GPU mounted and booked. Then the port's seeded mount,
+elastic and migrate scenarios at three seeds, whose invariants 1-6 must hold
+(converged, as the reference's, through the declared intents and the
+migrations' journals), each drawing the reference's decisions on the same
+seed, and the reproducibility of its schedule; invariants 4 and 6 name a
+stranded journal and a terminal one without its record, and invariant 13
+(the tenants' disruption windows) holds on a migration under a tenant and
+names an unattributed window. Then invariants 7 (the channel pool's
 books), 15 (the lock order) and 22 (the watch store against a fresh list,
 with its poisoned-index control) on both harnesses, and invariant 9 (one
 owner a shard) on the reference's seeds, its decisions the reference's.
@@ -15,15 +19,21 @@ owner a shard) on the reference's seeds, its decisions the reference's.
 
 from __future__ import annotations
 
+import shutil
+import time
+
 import pytest
+from torch_durability import short_root
 from torch_obs_reset import reset_port_obs  # noqa: F401 — the autouse fixture
 
 from gpumounter_tpu.faults import failpoints as ref_failpoints
 from gpumounter_tpu.master.slice_ops import SliceError as RefSliceError
 from gpumounter_tpu.master.slice_ops import SliceTarget as RefTarget
+from gpumounter_tpu.migrate import journal as ref_journal
 from gpumounter_tpu.testing import chaos as ref_chaos
 from gpumounter_tpu_torch.faults import failpoints
 from gpumounter_tpu_torch.master.slice_ops import SliceError, SliceTarget
+from gpumounter_tpu_torch.migrate import journal
 from gpumounter_tpu_torch.testing import chaos
 from gpumounter_tpu_torch.testing.chaos import NODE_A, NODE_B, ChaosHarness, InvariantViolation
 
@@ -92,12 +102,123 @@ def test_a_control_ends_as_the_references(tmp_path, case):
         assert got["port"] == got["reference"] == want
 
 
+def _draws(schedule) -> list[str]:
+    """The seeded draws of a schedule: the faults armed (their actions), the
+    intents declared and the GPUs killed."""
+    return ["kill" if line.startswith("kill chip") else line.split("(")[0]
+            for line in schedule if line.startswith(("arm ", "intent ", "kill chip"))]
+
+
+def _reference_draws(scenario: str, seed: int, **kwargs) -> list[str]:
+    root = short_root()
+    try:
+        with ref_chaos.ChaosHarness(root, seed) as h:
+            getattr(h, scenario)(**kwargs)
+            h.check_invariants()
+            return _draws(h.schedule)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 @pytest.mark.parametrize("seed", SEEDS)
 def test_mount_chaos(tmp_path, seed):
+    """Adds, removes and reconciles of pods with intents; the faults' deaths
+    converged through the intents, as the reference's; the reference's
+    draws."""
     with ChaosHarness(str(tmp_path), seed) as h:
         h.run_mount_scenario(n_ops=8)
         h.check_invariants()
         assert any(line.startswith("arm ") for line in h.schedule), h.schedule
+        assert any(line.startswith("reconcile ") for line in h.schedule), h.schedule
+        assert _draws(h.schedule) == _reference_draws("run_mount_scenario", seed,
+                                                              n_ops=8)
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_elastic_chaos(tmp_path, seed):
+    """GPU deaths healed and intents converged under FAULTS_ELASTIC; the
+    reference's draws on the same seed."""
+    with ChaosHarness(str(tmp_path), seed) as h:
+        h.run_elastic_scenario(n_ops=8)
+        h.check_invariants()
+        assert _draws(h.schedule) == _reference_draws("run_elastic_scenario", seed,
+                                                              n_ops=8)
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_migrate_chaos(tmp_path, seed):
+    """Migrations crashed at their boundaries end terminal through
+    resume_interrupted (invariant 4), each with its record (6); the
+    reference's draws on the same seed."""
+    with ChaosHarness(str(tmp_path), seed) as h:
+        h.run_migrate_scenario(n_migrations=2)
+        h.check_invariants()
+        journals = h.app.migrations.list_migrations()
+        assert journals and all(j["phase"] == "done" for j in journals)
+        assert _draws(h.schedule) == _reference_draws("run_migrate_scenario", seed,
+                                                              n_migrations=2)
+
+
+def test_the_elastic_and_migrate_pools_are_the_references():
+    assert chaos.FAULTS_ELASTIC == ref_chaos.FAULTS_ELASTIC
+    assert chaos.FAULTS_MIGRATE == ref_chaos.FAULTS_MIGRATE
+
+
+@pytest.mark.parametrize("name", list(SIDES))
+def test_a_stranded_journal_and_a_recordless_one_are_violations(tmp_path, name):
+    """Invariants 4 and 6 have teeth, on both harnesses: a journal left in
+    flight and a terminal one with no ``migrate`` record are named."""
+    mod = ref_chaos if name == "reference" else chaos
+    jmod = ref_journal if name == "reference" else journal
+    root = short_root() if name == "reference" else str(tmp_path)
+    try:
+        with mod.ChaosHarness(root, seed=4) as h:
+            h.add_pod("src", mod.NODE_A)
+            h.add_pod("done", mod.NODE_A)
+            stranded = jmod.new_journal("mig-stranded", "default", "src", "default", "x")
+            finished = jmod.new_journal("mig-quiet", "default", "done", "default", "x")
+            finished.update(phase="done", outcome="succeeded")
+            for pod, j in (("src", stranded), ("done", finished)):
+                h.cluster.kube.patch_pod("default", pod, {"metadata": {"annotations": {
+                    jmod.ANNOT_JOURNAL: jmod.dump(j)}}})
+            with pytest.raises(mod.InvariantViolation) as err:
+                h.check_invariants()
+    finally:
+        if name == "reference":
+            shutil.rmtree(root, ignore_errors=True)
+    message = str(err.value)
+    assert "journal mig-stranded not terminal/clean: phase=quiesce outcome=None" in message
+    assert "migration mig-quiet finished (succeeded) but left no terminal audit record" \
+        in message and "seed=4" in message
+
+
+def test_invariant_13_attributes_a_tenants_migration_downtime(tmp_path):
+    """A live migration under a tenant on the port's telemetry and watchers:
+    its migration window carries the journal's trace, which resolves, and
+    invariant 13 holds; a fabricated unattributed window is named (the
+    reference's ``test_chaos_invariant_13_attributes_tenant_downtime``)."""
+    from gpumounter_tpu_torch.obs import trace
+    with ChaosHarness(str(tmp_path), seed=5) as h:
+        h.add_pod("src", NODE_A)
+        h.add_pod("dst", NODE_B)
+        h.coordinator().mount_slice([SliceTarget(namespace="default", pod="src")], 2,
+                                    entire=False)
+        sim = h.attach_tenant("default", "src", extra_pods=(("default", "dst"),))
+        time.sleep(0.1)
+        begun = h.app.migrations.begin("default", "src", "default", "dst")
+        final = h.app.migrations.wait(begun["id"], timeout_s=60.0)
+        assert final and final["outcome"] == "succeeded", final
+        h.converge()
+        h.check_invariants()
+        windows = [w for w in sim.telemetry.snapshot()["disruption"]["windows"]
+                   if w["cause"] == "migration"]
+        assert windows and all(w["trace_id"] == begun["trace_id"] for w in windows)
+        assert trace.trace_payload(begun["trace_id"]) is not None
+        assert final["quiesced"] and final["resumed"]
+        sim.telemetry.begin_disruption("heal", trace_id="")
+        sim.telemetry.end_disruption("heal")
+        with pytest.raises(InvariantViolation, match="without a control-plane"):
+            h.check_invariants()
 
 
 def test_the_schedule_replays_from_its_seed(tmp_path):

@@ -198,9 +198,11 @@ def test_every_declared_name_is_armed_by_a_test():
     blob = "\n".join(texts)
     for name in registry.FAILPOINTS:
         assert re.search(rf'"{re.escape(name)}(=|")', blob), name
+    members = {"k8s.": r"(create_pod|delete_pod|patch_pod)(\.status)?",
+               "migrate.phase.": "(quiesce|checkpoint|drain|remount|resume|verify)"}
+    assert set(members) == set(registry.DYNAMIC_PREFIXES)
     for prefix in registry.DYNAMIC_PREFIXES:
-        assert re.search(rf'"{re.escape(prefix)}(create_pod|delete_pod|patch_pod)(\.status)?(=|")',
-                         blob), prefix
+        assert re.search(rf'"{re.escape(prefix)}{members[prefix]}(=|")', blob), prefix
 
 
 def test_the_pool_refill_site_fires_as_the_references():

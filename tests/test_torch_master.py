@@ -329,8 +329,23 @@ def test_the_port_serves_only_the_original_surface(stacks):
     is configured; /metrics is then open. With a read token every one of
     those reads takes it or the mutate token, nothing else, and the read
     token opens no mutation: not /addgpu, and not the two POSTs of the
-    recovery and health planes. 21 of the reference's 41 routes are served."""
+    recovery and health planes. The intents and migrations (/intents,
+    /intents/<ns>/<pod>, /migrate, /migrations, /migrations/<mid> and its
+    abort) are served and want the mutate token, whatever the read token,
+    as the reference's. 29 of the reference's 41 routes are served, each
+    under the reference's name."""
+    served = [name for _, _, name in port_app._ROUTES]
+    assert len(served) == 29 and len(ref_app._ROUTES) == 41
+    assert set(served) <= {name for _, _, name in ref_app._ROUTES}
     s = stacks["port"]
+    for method, path, want in (("GET", "/intents", 200), ("GET", "/migrations", 200),
+                               ("GET", "/migrations/mig-none", 404),
+                               ("POST", "/migrations/mig-none/abort", 404),
+                               ("GET", "/intents/default/no-such-pod", 404),
+                               ("DELETE", "/intents/default/no-such-pod", 404),
+                               ("POST", "/migrate", 400)):
+        assert http(s, method, path, {} if method == "POST" else None)[0] == want, path
+        assert http(s, method, path, auth=False) == (401, "missing or invalid bearer token\n")
     status, body = http(s, "GET", "/apihealth")
     assert status == 200 and set(json.loads(body)) == {"api", "store"}
     assert http(s, "GET", "/apihealth", auth=False) == (401, "missing or invalid bearer token\n")
@@ -360,8 +375,13 @@ def test_the_port_serves_only_the_original_surface(stacks):
                                     "false", b"", read)[:3] == (
             401, "text/plain", "missing or invalid bearer token\n")
         assert scoped.handle("GET", "/workers", b"", read)[0] == 401
-        for path in ("/recovery/evacuate/gpu-node-0", "/health/quarantine/gpu-node-0"):
+        for path in ("/recovery/evacuate/gpu-node-0", "/health/quarantine/gpu-node-0",
+                     "/migrate", "/migrations/mig-none/abort"):
             assert scoped.handle("POST", path, b"", read)[:3] == (
+                401, "text/plain", "missing or invalid bearer token\n"), path
+        for method, path in (("GET", "/intents"), ("GET", "/migrations"),
+                             ("PUT", "/intents/default/p"), ("DELETE", "/intents/default/p")):
+            assert scoped.handle(method, path, b"", read)[:3] == (
                 401, "text/plain", "missing or invalid bearer token\n"), path
     finally:
         scoped.close()

@@ -110,7 +110,8 @@ PORT_MODULES = ["cgroup.ebpf", "cgroup.policy", "rpc.resilience", "rpc.client", 
                 "utils.fanout", "faults.failpoints", "obs.trace", "obs.flight", "k8s.health",
                 "store.writebehind", "store.cache", "store.watch", "master.shard",
                 "allocator.pool", "obs.tenants", "obs.assembly", "obs.fleet", "obs.slo",
-                "health.plane", "recovery.controller"]
+                "health.plane", "recovery.controller", "elastic.reconciler",
+                "migrate.orchestrator"]
 
 
 def test_every_series_of_the_port_is_the_references():
@@ -161,7 +162,12 @@ def test_every_series_of_the_port_is_the_references():
             "tpumounter_health_scorer_skips_total", "tpumounter_quarantine_budget_denials_total",
             "tpumounter_recovery_nodes_tracked", "tpumounter_recovery_nodes_suspect",
             "tpumounter_nodes_evacuated_total", "tpumounter_evacuated_bookings_total",
-            "tpumounter_evacuated_intents_total"} == set(seen)
+            "tpumounter_evacuated_intents_total",
+            "tpumounter_reconcile_duration_seconds", "tpumounter_reconcile_queue_depth",
+            "tpumounter_chips_healed_total", "tpumounter_chips_heal_failures_total",
+            "tpumounter_intents_registered", "tpumounter_migrations_total",
+            "tpumounter_migration_phase_duration_seconds",
+            "tpumounter_migration_downtime_seconds"} == set(seen)
 
 
 # --- the series of the modules ported before the registry ---

@@ -115,10 +115,22 @@ def test_faults_and_obs_import_only_the_stdlib_and_utils(path):
                 f"{path.name}:{node.lineno} imports {name}"
 
 
-STORE_FILES = sorted([*(REPO / "gpumounter_tpu_torch/store").glob("*.py"),
-                      *(REPO / "gpumounter_tpu_torch/elastic").glob("*.py"),
-                      *(REPO / "gpumounter_tpu_torch/migrate").glob("*.py"),
-                      REPO / "gpumounter_tpu_torch/k8s/health.py"])
+#: the elastic reconciler and the migration machine, and what each may import
+#: besides the standard library: as in the reference, the worker's calls go
+#: through the messages of ``rpc/api.py`` and the mounts through the slice
+#: coordinator, so neither reaches grpc, torch or the worker's machinery
+CONTROLLER_FILES = {
+    "elastic/reconciler.py": ("config", "utils", "k8s", "store", "elastic", "migrate", "faults",
+                              "obs", "rpc.api", "master.shard", "master.slice_ops"),
+    "migrate/orchestrator.py": ("config", "utils", "k8s", "store", "elastic", "migrate",
+                                "faults", "obs", "rpc.api", "master.shard",
+                                "master.slice_ops"),
+}
+STORE_FILES = sorted(p for p in [*(REPO / "gpumounter_tpu_torch/store").glob("*.py"),
+                                 *(REPO / "gpumounter_tpu_torch/elastic").glob("*.py"),
+                                 *(REPO / "gpumounter_tpu_torch/migrate").glob("*.py"),
+                                 REPO / "gpumounter_tpu_torch/k8s/health.py"]
+                     if f"{p.parent.name}/{p.name}" not in CONTROLLER_FILES)
 
 
 @pytest.mark.parametrize("path", STORE_FILES, ids=lambda p: f"{p.parent.name}/{p.name}")
@@ -140,6 +152,24 @@ def test_the_store_and_degraded_mode_import_only_the_stdlib_config_utils_and_k8s
         for name in names:
             assert name.split(".")[0] in sys.stdlib_module_names or name.startswith(allowed), \
                 f"{path.name}:{node.lineno} imports {name}"
+
+
+@pytest.mark.parametrize("rel", list(CONTROLLER_FILES))
+def test_the_reconciler_and_the_machine_import_only_the_control_planes_modules(rel):
+    import sys
+    allowed = tuple(f"gpumounter_tpu_torch.{m}" for m in CONTROLLER_FILES[rel])
+    path = REPO / "gpumounter_tpu_torch" / rel
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            # `from pkg import module` names the module
+            names = [f"{node.module}.{a.name}" for a in node.names]
+        else:
+            continue
+        for name in names:
+            assert name.split(".")[0] in sys.stdlib_module_names or name.startswith(allowed), \
+                f"{rel}:{node.lineno} imports {name}"
 
 
 #: the modules of sharding and the warm pool, and what each may import

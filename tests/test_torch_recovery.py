@@ -4,12 +4,13 @@ against the reference's (``gpumounter_tpu/recovery/controller.py``).
 Each case of ``tests/test_recovery.py`` is a function of a side, run on both
 packages over each one's fake API, worker registry and store, with the
 reference's stubs for the liveness probe, the elastic intents and the
-migrations (the port's elastic reconciler and migration machine come with
-ROADMAP 7k, so ``MasterApp`` leaves those hooks None; the stubs drive the
-intent re-drive, the disruption stamp and its Event here). What each side
-returns must be equal, the reference's Event reason read with the GPU name
-(``GPUNodeEvacuated``, ROADMAP §3), and the reference test's expectations
-must hold on the port's.
+migrations (the stubs drive the intent re-drive, the disruption stamp and
+its Event). What each side returns must be equal, the reference's Event
+reason read with the GPU name (``GPUNodeEvacuated``, ROADMAP §3), and the
+reference test's expectations must hold on the port's. Every case runs again
+with each side's real ``ElasticReconciler`` and ``MigrationCoordinator`` as
+the controller's hooks, as ``MasterApp`` wires them: the evacuation enqueues
+the real reconciler's key and drives the real machine's resume scan.
 """
 
 from __future__ import annotations
@@ -25,11 +26,13 @@ from torch_obs_reset import reset_port_obs  # noqa: F401 — the autouse fixture
 
 from gpumounter_tpu.allocator import pool as ref_pool
 from gpumounter_tpu.config import Config as RefConfig
+from gpumounter_tpu.elastic import ElasticReconciler as RefReconciler
 from gpumounter_tpu.elastic.intents import Intent as RefIntent
 from gpumounter_tpu.health import HealthPlane as RefHealthPlane
 from gpumounter_tpu.k8s.fake import FakeKubeClient as RefFake
 from gpumounter_tpu.master.app import MasterApp as RefApp
 from gpumounter_tpu.master.app import WorkerRegistry as RefRegistry
+from gpumounter_tpu.migrate import MigrationCoordinator as RefMigrations
 from gpumounter_tpu.obs.audit import AUDIT as REF_AUDIT
 from gpumounter_tpu.recovery import RecoveryController as RefController
 from gpumounter_tpu.recovery import controller as ref_controller
@@ -38,10 +41,12 @@ from gpumounter_tpu.store import KubeMasterStore as RefStore
 from gpumounter_tpu.worker.reaper import SlaveReaper as RefReaper
 from gpumounter_tpu_torch.allocator import pool
 from gpumounter_tpu_torch.config import Config
+from gpumounter_tpu_torch.elastic import ElasticReconciler
 from gpumounter_tpu_torch.elastic.intents import Intent
 from gpumounter_tpu_torch.health import HealthPlane
 from gpumounter_tpu_torch.k8s.fake import FakeKubeClient
 from gpumounter_tpu_torch.master.app import MasterApp, WorkerRegistry
+from gpumounter_tpu_torch.migrate import MigrationCoordinator
 from gpumounter_tpu_torch.obs.audit import AUDIT
 from gpumounter_tpu_torch.recovery import RecoveryController
 from gpumounter_tpu_torch.recovery import controller
@@ -57,6 +62,7 @@ SIDES = {
         kind="reference", cfg=lambda **kw: RefConfig().replace(**kw), Fake=RefFake,
         Registry=RefRegistry, Controller=RefController, controller=ref_controller,
         Unavailable=RefUnavailable, Store=RefStore, Intent=RefIntent, Plane=RefHealthPlane,
+        Reconciler=RefReconciler, Migrations=RefMigrations,
         App=RefApp, AUDIT=REF_AUDIT, Reaper=RefReaper, pool=ref_pool,
         worker_labels={"app": "tpu-mounter-worker"}, pool_app="tpu-pool"),
     "port": types.SimpleNamespace(
@@ -64,6 +70,7 @@ SIDES = {
         Registry=WorkerRegistry, Controller=RecoveryController, controller=controller,
         Unavailable=WorkerUnavailableError, Store=KubeMasterStore, Intent=Intent,
         Plane=HealthPlane, App=MasterApp, AUDIT=AUDIT, Reaper=SlaveReaper, pool=pool,
+        Reconciler=ElasticReconciler, Migrations=MigrationCoordinator,
         worker_labels={"app": "gpu-mounter-worker"}, pool_app="gpu-pool"),
 }
 
@@ -118,10 +125,46 @@ class _MigrationsStub:
         return []
 
 
+class _RealElastic:
+    """The side's ``ElasticReconciler`` behind the stub's surface: the
+    intents are declared on the pods, and `enqueued` drains its queue."""
+
+    def __init__(self, rec):
+        self.rec = rec
+
+    @property
+    def _intents(self):
+        return self.rec.store.list()
+
+    @_intents.setter
+    def _intents(self, intents):
+        for namespace, pod, intent in intents:
+            self.rec.store.put(namespace, pod, intent)
+
+    @property
+    def enqueued(self) -> list[tuple[str, str]]:
+        keys = []
+        while self.rec.queue.depth():
+            keys.append(tuple(self.rec.queue.get(1.0).split("/", 1)))
+        return keys
+
+
+class _RealMigrations:
+    """The side's ``MigrationCoordinator``, its resume scans counted."""
+
+    def __init__(self, coordinator):
+        self.coordinator = coordinator
+        self.resumes = 0
+
+    def resume_interrupted(self):
+        self.resumes += 1
+        return self.coordinator.resume_interrupted()
+
+
 class _Stack:
     """tests/test_recovery.py's fixture, for one side."""
 
-    def __init__(self, side):
+    def __init__(self, side, real: bool = False):
         self.side = side
         self.cfg = side.cfg(recovery_confirm_failures=2, recovery_grace_s=0.0,
                             recovery_probe_timeout_s=1.0)
@@ -135,11 +178,19 @@ class _Stack:
                 "status": {"phase": "Running", "podIP": ip}})
         self.registry = side.Registry(self.kube, self.cfg)
         self.factory = _StubClientFactory(side.Unavailable)
-        self.elastic = _ElasticStub([])
-        self.migrations = _MigrationsStub()
+        if real:
+            self.elastic = _RealElastic(side.Reconciler(self.kube, self.registry, self.factory,
+                                                        cfg=self.cfg))
+            self.migrations = _RealMigrations(side.Migrations(
+                self.kube, self.registry, self.factory, cfg=self.cfg,
+                store=side.Store(self.kube, self.cfg)))
+            hooks = dict(elastic=self.elastic.rec, migrations=self.migrations)
+        else:
+            self.elastic = _ElasticStub([])
+            self.migrations = _MigrationsStub()
+            hooks = dict(elastic=self.elastic, migrations=self.migrations)
         self.controller = side.Controller(self.kube, self.registry, self.factory, cfg=self.cfg,
-                                          store=side.Store(self.kube, self.cfg),
-                                          elastic=self.elastic, migrations=self.migrations)
+                                          store=side.Store(self.kube, self.cfg), **hooks)
 
     def addr(self, node):
         pod = self.kube.get_pod(self.cfg.worker_namespace, f"w-{node}")
@@ -390,15 +441,30 @@ EXPECTED = {
 }
 
 
-@pytest.mark.parametrize("case", RECOVERY_CASES, ids=lambda c: c.__name__)
-def test_a_recovery_case_runs_as_the_references(case):
+def _run_case(case, real: bool = False) -> dict:
     got = {}
     for name, side in SIDES.items():
-        stack = _Stack(side)
+        stack = _Stack(side, real=real)
         try:
             got[name] = case(stack)
         finally:
             stack.close()
+    return got
+
+
+@pytest.mark.parametrize("case", RECOVERY_CASES, ids=lambda c: c.__name__)
+def test_a_recovery_case_runs_on_the_real_reconciler_and_machine(case):
+    """The case with each side's real reconciler and machine as the hooks:
+    the answers are both sides' equal, and equal to the stubs' run."""
+    real = _run_case(case, real=True)
+    assert real["port"] == real["reference"]
+    if case in (confirmed_node_death_evacuates,):
+        assert real["port"] == _run_case(case)["port"]
+
+
+@pytest.mark.parametrize("case", RECOVERY_CASES, ids=lambda c: c.__name__)
+def test_a_recovery_case_runs_as_the_references(case):
+    got = _run_case(case)
     assert got["port"] == got["reference"]
     port = got["port"]
     if case.__name__ in EXPECTED:

@@ -10,9 +10,10 @@ Then the port's seeded crash scenario at the reference's three seeds, and
 the negative control of ``tests/test_recovery_chaos.py``: a death with no
 replay after it must be named by invariant 10, on both. Then invariant 12:
 a stale shard owner's writes fenced by the worker, on the reference's seeds.
-Last, invariant 11's first half: a node killed under live mounts is
-evacuated by the recovery controller, its counts the reference's on the same
-seeds, and a node that never confirms dead is named.
+Last, invariant 11: a node killed under live intents is evacuated by the
+recovery controller, and the stranded intents converge on the other node once
+their pods are rescheduled, its counts and outcomes the reference's on the
+same seeds; a node that never confirms dead is named.
 """
 
 from __future__ import annotations
@@ -99,12 +100,30 @@ def test_the_crash_sites_are_the_references():
     assert chaos.ChaosHarness.CRASH_SITES == ref_chaos.ChaosHarness.CRASH_SITES
 
 
+def _draws(schedule) -> list[str]:
+    return [line.split("(")[0] for line in schedule
+            if line.startswith(("arm ", "intent ", "crash-mount", "reconcile "))]
+
+
 @pytest.mark.parametrize("seed", SEEDS)
 def test_worker_crash_chaos(tmp_path, seed):
+    """Deaths in mount batches, restarts and replays, between healthy adds
+    and reconciles of the pods' intents; converged through the intents, as
+    the reference's, on its draws."""
     with ChaosHarness(str(tmp_path), seed) as h:
         h.run_worker_crash_scenario(n_ops=6)
         h.check_invariants()
         assert any(line.startswith("restart worker") for line in h.schedule), h.schedule
+        port = _draws(h.schedule)
+    root = short_root()
+    try:
+        with ref_chaos.ChaosHarness(root, seed) as h:
+            h.run_worker_crash_scenario(n_ops=6)
+            h.check_invariants()
+            ref = _draws(h.schedule)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    assert [d.split(" ->")[0] for d in port] == [d.split(" ->")[0] for d in ref]
 
 
 def test_worker_crash_scenario_detects_broken_replay(tmp_path):
@@ -150,19 +169,28 @@ def _reference_node_kill(seed: int) -> dict:
 
 @pytest.mark.parametrize("seed", SEEDS)
 def test_node_kill_chaos(tmp_path, seed):
-    """NODE_A dies under two victims holding GPUs: tracked while alive,
-    evacuated within the deadline, none of its pool pods left, and the
-    invariants hold on the live nodes. Held to the reference's run on the
-    same seed: the victims' GPU counts are its draws (its re-converged
-    intents), and its evacuation released as many bookings in as many
-    passes. Its re-convergence half comes with the elastic reconciler."""
+    """NODE_A dies under two victims' intents: tracked while alive,
+    evacuated within the deadline, none of its pool pods left; each victim,
+    rescheduled on NODE_B, converges there, and the invariants hold. Held to
+    the reference's run on the same seed: the victims' counts are its draws,
+    its re-converged outcomes (phase, desired, actual, healed) are the
+    port's, and its evacuation released as many bookings in as many
+    passes."""
     with ChaosHarness(str(tmp_path), seed) as h:
         out = h.run_node_kill_scenario(n_pods=2)
         h.check_invariants()
+        held = h.held_gpus()
     assert len(out["evacuation"]) == 1 and out["evacuation"][0]["node"] == chaos.NODE_A
     assert out["detect_ms"] < 30_000
     ref = _reference_node_kill(seed)
     assert out["victims"] == {name: r["actual"] for name, r in ref["reconverged"].items()}
+
+    def shape(outcomes):
+        return {name: (o["phase"], o["desired"], o["actual"], o["healed"])
+                for name, o in outcomes.items()}
+
+    assert shape(out["reconverged"]) == shape(ref["reconverged"])
+    assert {name: len(held[("default", name)]) for name in out["victims"]} == out["victims"]
     assert out["detect_passes"] == ref["detect_passes"]
     assert len(out["evacuation"][0]["released_bookings"]) == \
         len(ref["evacuation"][0]["released_bookings"]) == sum(out["victims"].values())

@@ -171,6 +171,7 @@ def test_a_retried_add_under_one_key_mounts_once(port_worker):
         remove_gpu = service.remove_gpu
         collect_telemetry = service.collect_telemetry  # the server's third method
         probe_gpu = service.probe_gpu  # and its fourth
+        quiesce_status = service.quiesce_status  # and its fifth
 
         def add_gpu(self, request):
             calls.append(request.idempotency_key)
