@@ -416,6 +416,40 @@ Phases, each raising on failure (any failure exits non-zero):
     the source, and after the heal the flush lands them and the machine
     moves the GPU to the destination.
     Every case runs on the card's own GPU: without CAP_MKNOD the phase fails.
+20. the capacity plane and a metered share on a live hot-mount,
+    ``entry.capacity_share_check`` through the master over gRPC as in phase
+    11, the master with a read token, the worker's ledger beside this
+    script, the in-process ``FakeKubeClient`` as the API, the collector's
+    passes by hand:
+    a. a pass, then /capacity: the H100 free, ``nvidia-h100-80gb-1``
+       admissible and tracked, no multi-host size tracked, the fleet's index
+       0 (NVSwitch: a host's free GPUs are one block); the pass's ms beside
+       phase 17's, and one capacity snapshot's share of phase 11's add;
+    b. POST /shares books a decode tenant (weight 40, budget 64) on the
+       H100's UUID; the worker's AddGPU with share_weight 40 and
+       share_rate_budget 64 mounts it into its pod; the master's books, the
+       ledger's share record and the policy engine's entry agree (invariant
+       19; the userspace engine, since the card's machine has no bpf(2)),
+       /shares shows the books, and the throttle decides alike in the engine
+       and in the device program; a tenant child (``--mount-child``) on the
+       shared GPU runs phase 3's first forward through ``flash_fwd`` (its
+       launches counted in the kernels line);
+    c. after a pass, /capacity reads the H100 held by the pod's slave pod,
+       the headroom exhausted, the slice-feasibility counter advanced;
+    d. a second pod's /addgpu answers 500, with one ``capacity.reject``
+       record of cause exhaustion, on /timeline too;
+    e. a re-grant at weight 60 is books-only, as the reference's: POST
+       /shares on the tenant's own GPU answers 409, and ``ShareRegistry.add``
+       changes the master's books in place while the ledger and the engine
+       keep weight 40 (no route or RPC carries a re-grant to the worker), no
+       program swap; the forced remove and DELETE /shares/<ns>/<pod> clear
+       the three ledgers, and /capacity reads the H100 free again.
+    Every case runs on the card's own GPU: without CAP_MKNOD the phase fails.
+
+A tenant child (``--<mode>-child``) imports only what its mode runs: the
+model and its kernels, and what its mode adds; never ``entry`` and the
+control plane behind it (``CHILD_MODE``). Each child's exec to CUDA ready is
+printed.
 
 The last lines are a JSON object per kernel (``{"kernels": [...]}``) and
 ``{"ok": true, "device": {...}}``, and the exit code is 0. A failing check
@@ -443,8 +477,14 @@ import time
 
 import numpy as np
 import torch
-import torch.distributed as dist
-import torch.nn.functional as F
+
+#: the mode of a tenant child (``python3 chip_smoke.py --<mode>-child``, which
+#: a phase starts), "" for the script itself. A child is a process start in
+#: the script's budget, so it imports only what its mode runs: the model
+#: and its kernels (every child), and what its mode adds; never the control
+#: plane (``entry`` and everything behind it), the parallel steps or the
+#: profiler's phases, which only the script runs.
+CHILD_MODE = next((a for a in sys.argv[1:2] if a.endswith("-child")), "")
 
 try:
     import gpumounter_tpu_torch  # noqa: F401
@@ -454,63 +494,77 @@ except ModuleNotFoundError as err:
     print("chip_smoke: the package gpumounter_tpu_torch is not beside this script; "
           "run it from the root of the repository", file=sys.stderr)
     sys.exit(2)
-from gpumounter_tpu_torch.cgroup import detect_cgroup_version
-from gpumounter_tpu_torch.device.backend import NvidiaDeviceBackend
-from gpumounter_tpu_torch.entry import (ADD_TRACE, ADD_WORKER_SPANS, FLEET_SLO_WINDOW_S,
-                                        MOE_ROUTE_GAP,
-                                        OBS_COST_ITERS, ONE_PROCESS_LOSS_ATOL, REMOVE_TRACE,
-                                        RING_TOL, SHARDED_LOSS_ATOL, SHARDED_PARAM_OF_MAX,
-                                        TRAIN_GRAD_ATOL, _check_equal_over, _masked_err,
-                                        against_one_process, busy_health_check, cgroup_v2_check,
-                                        check_config, degraded_check, durability_check,
-                                        dryrun_multichip, elastic_migrate_check, fleet_check,
-                                        grow_checks,
-                                        has_cap_mknod, health_check,
-                                        inventory_check, kernel_launches, make_identity,
-                                        master_check, moe_blocks_vs_plain, moe_check,
-                                        shard_pool_check,
-                                        mount_check, obs_check, pick_identity,
-                                        reset_kernel_launches,
-                                        route_flips, sharded_step_check, slice_check, tp_checks,
-                                        train_check)
-from gpumounter_tpu_torch.nsutil.ns import run_in_mount_ns
 from gpumounter_tpu_torch.models.probe import (TransformerConfig, _attend, _attend_decode,
                                                _decoder, _embed, _finish_block, _forward_impl,
                                                _picker, decode_step, forward, generate,
                                                generate_loop, init_params, local_heads,
                                                loss_fn, next_token_nll, prefill)
-from gpumounter_tpu_torch.parallel import collectives
-from gpumounter_tpu_torch.parallel.collectives import all_gather, all_reduce, ring_shift
-from gpumounter_tpu_torch.parallel.launch import run_ranks
-from gpumounter_tpu_torch.parallel.mesh import build_mesh, shard_qkv
-from gpumounter_tpu_torch.parallel.moe import _route, init_moe_params, moe_ffn, moe_ffn_plain
-from gpumounter_tpu_torch.ops import _build
 from gpumounter_tpu_torch.ops import flash_attention as fa, flash_decode as fd
-from gpumounter_tpu_torch.ops.graphs import capture
 from gpumounter_tpu_torch.ops.flash_attention import (_band_mask, _bwd_launch,
                                                       attention_bwd_plain,
                                                       attention_plain, flash_attention,
                                                       flash_attention_bwd_kernel,
                                                       flash_attention_kernel)
-from gpumounter_tpu_torch.parallel.pipeline import schedule_info
-from gpumounter_tpu_torch.parallel.pipeline_train import (make_pipeline_train_step,
-                                                          shard_pipeline_params,
-                                                          to_pipeline_params)
-from gpumounter_tpu_torch.parallel.ring_attention import ring_attention
-from gpumounter_tpu_torch.testing import v2tenant
-from gpumounter_tpu_torch.parallel.train_step import (gather_params, loss_and_grads,
-                                                      make_train_step, shard_params,
-                                                      make_train_step_optim,
-                                                      sgd_update, step_collectives,
-                                                      tree_leaves, tree_map, tree_names)
 from gpumounter_tpu_torch.ops.flash_decode import (flash_decode_kernel,
                                                    flash_decode_plain)
-from gpumounter_tpu_torch.torchside import (HotResumable, gpus_visible_in_dev, handoff,
-                                            load_optimizer_state, optimizer_state_tree,
-                                            refresh_devices, set_visibility_env,
-                                            wait_for_gpus)
-from gpumounter_tpu_torch.torchside.telemetry import TenantTelemetry
-from gpumounter_tpu_torch.torchside.visibility import HANDOFF_AT_ENV, reinit_distributed
+from gpumounter_tpu_torch.ops.launches import TRAINING
+from gpumounter_tpu_torch.ops.launches import launch_counts as _kernel_counts
+from gpumounter_tpu_torch.ops.launches import reset_launch_counts as _reset_kernel_counts
+
+if CHILD_MODE in ("", "--handoff-child"):
+    import torch.nn.functional as F
+    from gpumounter_tpu_torch.parallel.train_step import (gather_params, loss_and_grads,
+                                                          make_train_step, shard_params,
+                                                          make_train_step_optim,
+                                                          sgd_update, step_collectives,
+                                                          tree_leaves, tree_map, tree_names)
+    from gpumounter_tpu_torch.torchside import (HotResumable, gpus_visible_in_dev, handoff,
+                                                load_optimizer_state, optimizer_state_tree,
+                                                refresh_devices, set_visibility_env,
+                                                wait_for_gpus)
+    from gpumounter_tpu_torch.torchside.visibility import HANDOFF_AT_ENV
+if CHILD_MODE in ("", "--slice-child"):
+    import torch.distributed as dist
+    from gpumounter_tpu_torch.torchside.visibility import reinit_distributed
+if CHILD_MODE in ("", "--v2-child"):
+    from gpumounter_tpu_torch.testing import v2tenant
+if CHILD_MODE in ("", "--fleet-child"):
+    from gpumounter_tpu_torch.torchside.telemetry import TenantTelemetry
+if not CHILD_MODE:
+    from gpumounter_tpu_torch.cgroup import detect_cgroup_version
+    from gpumounter_tpu_torch.device.backend import NvidiaDeviceBackend
+    from gpumounter_tpu_torch.entry import (ADD_TRACE, ADD_WORKER_SPANS, FLEET_SLO_WINDOW_S,
+                                            MOE_ROUTE_GAP,
+                                            OBS_COST_ITERS, ONE_PROCESS_LOSS_ATOL, REMOVE_TRACE,
+                                            RING_TOL, SHARDED_LOSS_ATOL, SHARDED_PARAM_OF_MAX,
+                                            SHARE, SHARE_REGRANT_WEIGHT,
+                                            TRAIN_GRAD_ATOL, _check_equal_over, _masked_err,
+                                            against_one_process, busy_health_check,
+                                            capacity_share_check, cgroup_v2_check,
+                                            check_config, degraded_check, durability_check,
+                                            dryrun_multichip, elastic_migrate_check,
+                                            fleet_check, grow_checks,
+                                            has_cap_mknod, health_check,
+                                            inventory_check, make_identity,
+                                            master_check, moe_blocks_vs_plain, moe_check,
+                                            shard_pool_check,
+                                            mount_check, obs_check, pick_identity,
+                                            route_flips, sharded_step_check, slice_check,
+                                            tp_checks, train_check)
+    from gpumounter_tpu_torch.nsutil.ns import run_in_mount_ns
+    from gpumounter_tpu_torch.parallel import collectives
+    from gpumounter_tpu_torch.parallel.collectives import all_gather, all_reduce, ring_shift
+    from gpumounter_tpu_torch.parallel.launch import run_ranks
+    from gpumounter_tpu_torch.parallel.mesh import build_mesh, shard_qkv
+    from gpumounter_tpu_torch.parallel.moe import (_route, init_moe_params, moe_ffn,
+                                                   moe_ffn_plain)
+    from gpumounter_tpu_torch.ops import _build
+    from gpumounter_tpu_torch.ops.graphs import capture
+    from gpumounter_tpu_torch.parallel.pipeline import schedule_info
+    from gpumounter_tpu_torch.parallel.pipeline_train import (make_pipeline_train_step,
+                                                              shard_pipeline_params,
+                                                              to_pipeline_params)
+    from gpumounter_tpu_torch.parallel.ring_attention import ring_attention
 
 # H100 SXM peaks (NVIDIA data sheet, dense): the bound of a kernel is the
 # larger of its operations over the bf16 tensor-core rate and its bytes
@@ -1744,15 +1798,6 @@ HANDOFF_PARTS = ("pack", "save", "exec_to_cuda_ready", "load", "restore", "optim
                  "first_step", "tenant_side")
 
 
-def _kernel_counts() -> dict:
-    return {**kernel_launches(), "flash_decode": flash_decode_kernel.launches}
-
-
-def _reset_kernel_counts() -> None:
-    reset_kernel_launches()
-    flash_decode_kernel.launches = 0
-
-
 def _handoff_batch(cfg, step: int) -> torch.Tensor:
     rng = np.random.default_rng(HANDOFF["SEED"] + step)
     return torch.from_numpy(rng.integers(0, cfg.vocab, (HANDOFF["B"], HANDOFF["L"]))).cuda()
@@ -2274,10 +2319,10 @@ def phase_sharded(card: str, ranks: list) -> dict:
 def _kernel_counts_of(fn) -> tuple:
     """(fn()'s value, the training kernels' launches in it), the counts set
     to 0 just before and read just after."""
-    reset_kernel_launches()
+    _reset_kernel_counts(TRAINING)
     value = fn()
     torch.cuda.synchronize()
-    return value, kernel_launches()
+    return value, _kernel_counts(TRAINING)
 
 
 def _grads_within(what, got, want, limit) -> float:
@@ -2692,7 +2737,16 @@ def _mount_child(spec: dict) -> None:
                            f"{torch.cuda.device_count()} device(s), device 0 is {uuid}, the "
                            f"worker assigned {spec['uuid']}")
     print(json.dumps({"mount_child": {"ready_at": t_ready, "uuid": uuid,
-                                      **_tenant_forward()}}))
+                                      "imports": _imports_at_ready(), **_tenant_forward()}}))
+
+
+def _imports_at_ready() -> dict:
+    """What a child had imported when CUDA was ready: its modules, the
+    port's among them, and whether torch._dynamo was one."""
+    names = list(sys.modules)
+    return {"modules": len(names),
+            "port": sum(1 for n in names if n.startswith("gpumounter_tpu_torch")),
+            "dynamo": "torch._dynamo" in sys.modules}
 
 
 def _tenant_forward() -> dict:
@@ -2876,6 +2930,8 @@ def _slice_child(spec: dict) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     env = {k: os.environ[k] for k in DIST_ENV if k in os.environ}
     uuid = f"GPU-{torch.cuda.get_device_properties(0).uuid}"
+    torch.cuda.synchronize()
+    t_ready = time.time()
     if uuid != spec["uuid"] or torch.cuda.device_count() != 1:
         raise RuntimeError(f"CUDA_VISIBLE_DEVICES={os.environ.get('CUDA_VISIBLE_DEVICES')!r}: "
                            f"{torch.cuda.device_count()} device(s), device 0 is {uuid}, "
@@ -2901,7 +2957,8 @@ def _slice_child(spec: dict) -> None:
     if "cuda:nccl" not in backends:
         raise RuntimeError(f"the slice's process group runs CUDA tensors on {backends!r}, "
                            f"not NCCL")
-    print(json.dumps({"slice_child": {"uuid": uuid, "env": env, "rank": rank,
+    print(json.dumps({"slice_child": {"ready_at": t_ready, "uuid": uuid, "env": env,
+                                      "rank": rank,
                                       "backends": backends, "all_reduce": got[0],
                                       "init_ms": init_ms, "all_reduce_ms": reduce_ms,
                                       **_tenant_forward()}}))
@@ -2914,6 +2971,7 @@ def _slice_tenant(plan: dict, uuid: str) -> dict:
     worker = plan["workers"][0]
     env = {k: v for k, v in os.environ.items() if k not in DIST_ENV}
     env.update(worker["env"], CUDA_VISIBLE_DEVICES=uuid)
+    t_spawn = time.time()
     out = subprocess.run([sys.executable, os.path.abspath(__file__), "--slice-child",
                           json.dumps({"uuid": uuid, "port": _free_port()})],
                          capture_output=True, text=True, timeout=600, env=env)
@@ -2925,6 +2983,7 @@ def _slice_tenant(plan: dict, uuid: str) -> dict:
     if report["env"] != worker["env"]:
         raise RuntimeError(f"the child read {report['env']}, the plan gave {worker['env']}")
     _check_tenant_forward("slice tenant child", report)
+    report["exec_to_cuda_ready_ms"] = (report["ready_at"] - t_spawn) * 1e3
     return report
 
 
@@ -2963,7 +3022,8 @@ def phase_slice(card: str, master_report: dict) -> int:
               f"{{'tenant-slice': 'Success'}}, the node gone and the slave pod released; "
               f"{MOUNT['REPEATS']} round trips", flush=True)
         print(f"master slice tenant: CUDA_VISIBLE_DEVICES={child['uuid']} (the UUID /addslice "
-              f"mounted), env {child['env']} from the plan; reinit_distributed("
+              f"mounted), exec -> CUDA ready {child['exec_to_cuda_ready_ms']:.1f} ms, env "
+              f"{child['env']} from the plan; reinit_distributed("
               f"{child['env']['MASTER_ADDR']}:<port>, {child['env']['WORLD_SIZE']}, "
               f"{child['rank']}) with backends {child['backends']} in {child['init_ms']:.1f} "
               f"ms; all_reduce of a CUDA tensor = {child['all_reduce']} (expected 1.0), the "
@@ -3049,8 +3109,11 @@ def phase_master(card: str, mount_report: dict, handoff_ready_ms: dict) -> int:
           f"gives device 0 {child['device']} of that UUID; full-width forward through "
           f"flash_fwd, launches {child['launches']}, nll {child['nll']:.4f} (log V "
           f"{math.log(full_width_config().vocab):.4f})", flush=True)
+    imports = child["imports"]
     print(f"time mount tenant exec -> CUDA ready: {child['exec_to_cuda_ready_ms']:.1f} ms "
-          f"(spawn of python3 chip_smoke.py --mount-child to torch.cuda.init() done); phase 6's "
+          f"(spawn of python3 chip_smoke.py --mount-child to torch.cuda.init() done; "
+          f"{imports['modules']} modules loaded, {imports['port']} of the port, torch._dynamo "
+          f"{'among them' if imports['dynamo'] else 'not'}); phase 6's "
           f"new image exec -> CUDA ready, median: "
           + ", ".join(f"{k} {v:.1f} ms" for k, v in handoff_ready_ms.items()) + f" [{card}]",
           flush=True)
@@ -3525,7 +3588,7 @@ def _fleet_tenant(uuid: str, url: str, token: str) -> dict:
 def phase_fleet(card: str, master_live: dict) -> int:
     """Phase 17: ``entry.fleet_check`` on the card (see the module's
     docstring), a line for each case. Returns the flash_fwd launches of the
-    tenant child."""
+    tenant child and the collection passes' ms."""
     t_phase = time.perf_counter()
     children = []
 
@@ -3590,7 +3653,7 @@ def phase_fleet(card: str, master_live: dict) -> int:
           f"rollup, {sc['spans']} spans, tenants {sc['tenants']}; the scrape pass "
           f"{_runs(sc['scrape_ms'])} [{card}]", flush=True)
     print(f"time fleet phase 17: {time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
-    return child["launches"]["flash_fwd"]
+    return child["launches"]["flash_fwd"], f["collect_ms"]
 
 
 def _holder_forward() -> dict:
@@ -3710,6 +3773,70 @@ def phase_elastic_migrate(card: str, master_live: dict) -> int:
     print(f"time elastic phase 19: {time.perf_counter() - t_phase:.1f} s (the stack's start "
           f"{f['start_ms']:.1f} ms) [{card}]", flush=True)
     return m["launches"]
+
+
+def phase_capacity_share(card: str, master_live: dict, fleet_pass_ms: list) -> int:
+    """Phase 20: ``entry.capacity_share_check`` on the card (see the module's
+    docstring), a line for each case; the metered share's tenant is a
+    ``--mount-child`` on the shared GPU. Returns its flash_fwd launches."""
+    t_phase = time.perf_counter()
+    children = []
+
+    def on_mounted(uuids, target):
+        visible = gpus_visible_in_dev(target)
+        if visible < 1:
+            raise RuntimeError(f"gpus_visible_in_dev({target}) = {visible} with {uuids} "
+                               f"mounted")
+        children.append(_tenant_child(uuids[0]))
+        return {k: children[-1][k] for k in ("uuid", "launches", "nll")}
+
+    ledger_root = os.path.dirname(os.path.abspath(__file__))
+    with _tenant_target("phase20") as (dev_dir, cgroup_dir):
+        report = capacity_share_check("cuda", dev_dir=dev_dir, ns_pid=os.getpid(),
+                                      cgroup_dirs=[cgroup_dir] if cgroup_dir else (),
+                                      identity=pick_identity(), ledger_root=ledger_root,
+                                      on_mounted=on_mounted)
+    f = report["live"]
+    if f is None or len(children) != 1:
+        raise RuntimeError(f"phase 20 ran no live flows with their tenant child on the card: "
+                           f"live {f is not None}, {len(children)} child(ren)")
+    child, inv, held = children[0], f["inventory"], f["held"]
+    add_ms = statistics.median(master_live["add_ms"])
+    snap_ms = statistics.median(f["snapshot_us"]) / 1e3
+    print(f"time capacity (a) a collection pass {f['pass_ms']:.3f} ms (phase 17's passes "
+          f"{_runs(fleet_pass_ms)}); /capacity: {inv['total']} GPU(s), free {inv['free']}, "
+          f"the fleet's index {inv['index']}; nvidia-h100-80gb-1 "
+          f"{inv['verdicts']['nvidia-h100-80gb-1']} and tracked, no multi-host size tracked; "
+          f"the capacity snapshot {snap_ms * 1e3:.1f} us (runs "
+          f"{', '.join(f'{v:.1f}' for v in f['snapshot_us'])}), {100 * snap_ms / add_ms:.3f}% "
+          f"of phase 11's add ({add_ms:.3f} ms; stated, not gated) [{card}]", flush=True)
+    print(f"time capacity (b) POST /shares {f['admit_ms']:.3f} ms booked {SHARE['pod']} "
+          f"({SHARE['profile']}, weight {SHARE['weight']}, budget {SHARE['rate_budget']}); "
+          f"AddGPU with share_weight {SHARE['weight']} and share_rate_budget "
+          f"{SHARE['rate_budget']} {f['add_ms']:.3f} ms; books {f['ledgers']['books']} == "
+          f"ledger {f['ledgers']['ledger']} == engine {f['ledgers']['engine']} (invariant 19); "
+          f"the throttle alike in the engine and the device program {f['throttle']}; the "
+          f"tenant child on {child['uuid']} ({child['device']}): exec to CUDA ready "
+          f"{child['exec_to_cuda_ready_ms']:.1f} ms, flash_fwd "
+          f"{child['launches']['flash_fwd']} launches, nll {child['nll']:.4f} [{card}]",
+          flush=True)
+    print(f"time capacity (c) a pass {f['held_pass_ms']:.3f} ms; /capacity reads the GPU held "
+          f"by {held['owners']}, the headroom {held['forecast']}, slice_feasible "
+          f"+{held['slice_feasible']:.0f}, slice_infeasible +{held['slice_infeasible']:.0f}; "
+          f"the shares' view {held['shares']} [{card}]", flush=True)
+    print(f"time capacity (d) a second pod's /addgpu answered 500 in {f['refused_ms']:.3f} ms "
+          f"with capacity.reject ({f['rejection']['cause']}): {f['rejection']['outcome']!r}, "
+          f"on /timeline too [{card}]", flush=True)
+    regrant = f["regrant"]
+    print(f"time capacity (e) POST /shares on the tenant's own GPU: 409; the re-grant at weight "
+          f"{SHARE_REGRANT_WEIGHT} (ShareRegistry.add) {f['regrant_us']:.1f} us, books-only as "
+          f"the reference's: books {regrant['books']}, ledger {regrant['ledger']}, engine "
+          f"{regrant['engine']}, no program swap; the forced remove {f['remove_ms']:.3f} ms and "
+          f"DELETE /shares {f['release_ms']:.3f} ms cleared the three ledgers; /capacity reads "
+          f"free {f['freed']} again [{card}]", flush=True)
+    print(f"time capacity phase 20: {time.perf_counter() - t_phase:.1f} s (the stack's start "
+          f"{f['start_ms']:.1f} ms) [{card}]", flush=True)
+    return child["launches"]["flash_fwd"]
 
 
 def phase_forward_timing(cfg, params, tokens, card, what="forward") -> None:
@@ -3832,11 +3959,13 @@ def _phases(stage: list, t0: float) -> None:
     begin("16 (sharded masters and the warm pool on a live hot-mount)")
     pool_launches = phase_shard_pool(card, master_live)
     begin("17 (the fleet planes on a live hot-mount)")
-    fleet_launches = phase_fleet(card, master_live)
+    fleet_launches, fleet_pass_ms = phase_fleet(card, master_live)
     begin("18 (health and recovery on a live hot-mount)")
     health_launches = phase_health(card, master_live)
     begin("19 (the elastic controller and the live migration on a live hot-mount)")
     migrate_launches = phase_elastic_migrate(card, master_live)
+    begin("20 (the capacity plane and a metered share of the card's GPU)")
+    share_launches = phase_capacity_share(card, master_live, fleet_pass_ms)
     sharded = {k: sharded_launches[k] + seq_pipe_launches[k] + grow_launches[k]
                + dryrun_launches[k] for k in sharded_launches}
 
@@ -3860,8 +3989,9 @@ def _phases(stage: list, t0: float) -> None:
           f"GPU's tenant (phase 16): flash_fwd {pool_launches}; the fleet phase's tenant "
           f"(phase 17): flash_fwd {fleet_launches}; the forward that holds the card under "
           f"the canary (phase 18): flash_fwd {health_launches}; the migrated tenant's two "
-          f"ends (phase 19): flash_fwd {migrate_launches}", flush=True)
-    print(f"chip_smoke: phases 1-19 took {time.perf_counter() - t0:.1f} s, the kernels' build "
+          f"ends (phase 19): flash_fwd {migrate_launches}; the metered share's tenant child "
+          f"(phase 20): flash_fwd {share_launches}", flush=True)
+    print(f"chip_smoke: phases 1-20 took {time.perf_counter() - t0:.1f} s, the kernels' build "
           f"included [{card}]", flush=True)
     bwd_source = "gpumounter_tpu_torch/ops/csrc/flash_bwd.cu"
     print(json.dumps({"kernels": [{
@@ -3872,7 +4002,7 @@ def _phases(stage: list, t0: float) -> None:
                      + moe_fwd + handoff_launches["flash_fwd"] + sharded["flash_fwd"]
                      + mount_launches + v2_launches + durability_launches
                      + degraded_launches + pool_launches + fleet_launches
-                     + health_launches + migrate_launches),
+                     + health_launches + migrate_launches + share_launches),
         "max_abs_err": max_abs_err, **times}, {
         "name": "flash_bwd_dq", "route": "cuda", "source": bwd_source,
         "replaces": "gpumounter_tpu/ops/flash_attention.py:182",

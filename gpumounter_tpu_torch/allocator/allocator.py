@@ -140,12 +140,26 @@ class GpuAllocator:
         server.go:61-66). `stats`, when given, is filled with the warm
         pool's outcome: pool_hit (slaves adopted warm), pool_gap (slaves
         that paid the cold path) and pool_enabled, so that the caller's span
-        tells pool starvation from a plain scheduler wait."""
+        tells pool starvation from a plain scheduler wait, and
+        defrag_blocked_host (the owner's node is one the capacity plane
+        names as blocking)."""
         if total_gpu_num <= 0 or total_gpu_num % gpu_num_per_pod != 0:
             raise ValueError(f"total_gpu_num={total_gpu_num} not divisible by "
                              f"gpu_num_per_pod={gpu_num_per_pod}")
         if not owner.node_name:
             raise SlavePodError(f"owner pod {owner.namespace}/{owner.name} is not scheduled")
+        # The owner pins the host, so the capacity plane's blocked hosts
+        # (where a defragmentation needs quiet) are advisory here: flagged on
+        # the stats and logged, never refused. A registered plane is a
+        # master's; a worker process has none and sees the empty set.
+        from gpumounter_tpu_torch.obs import capacity as capacity_plane
+        blocked = capacity_plane.blocked_hosts()
+        if owner.node_name in blocked:
+            logger.warning("placing %s/%s on defrag-blocked host %s (no host choice: the "
+                           "owner is pinned there)", owner.namespace, owner.name,
+                           owner.node_name)
+        if stats is not None:
+            stats["defrag_blocked_host"] = owner.node_name in blocked
         with self._alloc_mutex:
             return self._allocate_locked(owner, gpu_num_per_pod,
                                          total_gpu_num // gpu_num_per_pod, stats)

@@ -7,7 +7,7 @@ fan-out core), the observability stores, the worker's ledger and drain, the mast
 store with its API-outage degraded mode, the sharded masters, the warm pool, the
 fleet planes (telemetry, SLOs, tenants, the trace assembly), the recovery
 controller, the gray-failure health plane, the elastic reconciler, the live
-migration and the two daemons read. Every field is an environment variable with the original GPUMounter's value
+migration, the capacity plane, the fractional shares and the two daemons read. Every field is an environment variable with the original GPUMounter's value
 as default; the names are the reference's where the meaning is the same. NVIDIA-specific: the resource ``nvidia.com/gpu``
 (``pkg/util/gpu/types.go:10``), the pool namespace ``gpu-pool``
 (``types.go:18``), the worker pods' label ``app=gpu-mounter-worker``, the
@@ -386,6 +386,30 @@ class Config:
         _env("MIGRATE_CHECKPOINT_TIMEOUT_S", "30")))
     migrate_poll_interval_s: float = field(default_factory=lambda: float(
         _env("MIGRATE_POLL_INTERVAL_S", "0.2")))
+
+    # --- the capacity plane (obs/capacity.py) ---
+    # how many blocking hosts a feasibility verdict names; free / total under
+    # the tight ratio (or a queue deeper than the free GPUs) reads "tight";
+    # the trailing passes the headroom's trend is taken over
+    capacity_blocking_hosts_max: int = field(default_factory=lambda: int(
+        _env("CAPACITY_BLOCKING_HOSTS_MAX", "8")))
+    capacity_tight_free_ratio: float = field(default_factory=lambda: float(
+        _env("CAPACITY_TIGHT_FREE_RATIO", "0.1")))
+    capacity_trend_samples: int = field(default_factory=lambda: int(
+        _env("CAPACITY_TREND_SAMPLES", "64")))
+
+    # --- fractional shares (vchip/) ---
+    # off: /shares' admission answers 503 and every grant stays whole-GPU;
+    # the weight one GPU can carry (100 reads as percent); the books' bound;
+    # a share's default token budget (0: unmetered)
+    vchip_enabled: bool = field(default_factory=lambda: _env(
+        "TPUMOUNTER_VCHIP", "true").lower() in ("1", "true", "yes"))
+    vchip_weight_capacity: int = field(default_factory=lambda: int(
+        _env("VCHIP_WEIGHT_CAPACITY", "100")))
+    vchip_max_shares: int = field(default_factory=lambda: int(
+        _env("VCHIP_MAX_SHARES", "1024")))
+    vchip_rate_budget: int = field(default_factory=lambda: int(
+        _env("VCHIP_RATE_BUDGET", "0")))
 
     # the fake API server's watch backlog (k8s/fake.py): events kept for
     # resumable watches, at least 64; a watcher that falls past it has its

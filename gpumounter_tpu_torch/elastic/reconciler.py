@@ -27,10 +27,10 @@ across passes (the removal landed, the grow failed) is kept in
 failpoints ``elastic.reconcile`` (top of a pass) and ``elastic.before_grow``
 (between the removal and the grow) are the chaos harness's crash sites.
 
-The capacity plane's verdict on a grow refused for capacity
-(``capacity_obs.record_rejection``, ``reconciler.py:476-495``) comes with
-that plane; here it is the named no-op ``record_rejection``, which is what
-the reference's does when no plane is registered.
+A grow refused for capacity below the intent's floor stamps the capacity
+plane's verdict (``obs.capacity.record_rejection``: a ``capacity.reject``
+record when the master registered its plane, nothing without one), as the
+reference's (``reconciler.py:476-495``).
 """
 
 from __future__ import annotations
@@ -48,6 +48,7 @@ from gpumounter_tpu_torch.k8s.events import post_pod_event
 from gpumounter_tpu_torch.k8s.types import Pod
 from gpumounter_tpu_torch.master.shard import epoch_kwargs
 from gpumounter_tpu_torch.migrate.journal import migration_active
+from gpumounter_tpu_torch.obs import capacity as capacity_obs
 from gpumounter_tpu_torch.obs import trace
 from gpumounter_tpu_torch.obs.audit import AUDIT
 from gpumounter_tpu_torch.rpc import api
@@ -84,14 +85,6 @@ _QUIET_PHASES = ("converged", "unmanaged", "gone", "not-owned", "degraded-api")
 
 class ReconcileError(RuntimeError):
     """One pass failed; its key enters the queue again with backoff."""
-
-
-def record_rejection(node: str, namespace: str, pod: str, gpus: int) -> None:
-    """The capacity plane's seam: a grow refused for capacity stamps the
-    plane's feasibility verdict into the audit trail. The port has no
-    capacity plane yet (ROADMAP 7l), so this does nothing, as the
-    reference's ``obs.capacity.record_rejection`` does when no plane is
-    registered."""
 
 
 class ElasticReconciler:
@@ -419,9 +412,9 @@ class ElasticReconciler:
                                intent.min_chips, intent.desired_chips)
                 return False
             except SliceError as exc:
-                record_rejection(pod.node_name, pod.namespace, pod.name, floor_gap)
+                capacity_obs.record_rejection(pod.node_name, pod.namespace, pod.name, floor_gap)
                 raise ReconcileError(f"floor mount of {floor_gap} chip(s) failed: {exc}")
-        record_rejection(pod.node_name, pod.namespace, pod.name, gap)
+        capacity_obs.record_rejection(pod.node_name, pod.namespace, pod.name, gap)
         raise ReconcileError(f"insufficient capacity for {gap} chip(s) "
                              f"(actual={actual}, min={intent.min_chips})")
 

@@ -23,7 +23,9 @@ quarantine and rehabilitation, and a worker's death evacuated by the
 recovery controller (``health_check``), and the elastic controller and the
 live migration: an intent converged and healed over ProbeGPU, a tenant
 moved between pods with its state packed and restored, and a rollback
-(``elastic_migrate_check``)."""
+(``elastic_migrate_check``), and the capacity plane with a metered share of
+a GPU: the inventory through CollectTelemetry, a share booked, mounted with
+its policy and released, a refusal's verdict (``capacity_share_check``)."""
 
 from __future__ import annotations
 
@@ -67,9 +69,8 @@ from gpumounter_tpu_torch.models.probe import (TransformerConfig, _attend, _bloc
                                                local_heads, loss_fn, next_token_nll)
 from gpumounter_tpu_torch.obs import assembly, audit, flight, trace
 from gpumounter_tpu_torch.obs.fleet import FleetCollector, worker_telemetry_snapshot
-from gpumounter_tpu_torch.ops.flash_attention import (attention_plain, flash_attention,
-                                                      flash_attention_bwd_kernel,
-                                                      flash_attention_kernel)
+from gpumounter_tpu_torch.ops.flash_attention import attention_plain, flash_attention
+from gpumounter_tpu_torch.ops.launches import TRAINING, launch_counts, reset_launch_counts
 from gpumounter_tpu_torch.parallel.collectives import all_gather
 from gpumounter_tpu_torch.parallel.launch import run_ranks
 from gpumounter_tpu_torch.parallel.mesh import build_mesh, shard_qkv
@@ -103,6 +104,7 @@ from gpumounter_tpu_torch.torchside.resume import (HotResumable, load_optimizer_
                                                    optimizer_state_specs, optimizer_state_tree)
 from gpumounter_tpu_torch.utils.fanout import FANOUT_TASKS
 from gpumounter_tpu_torch.utils.metrics import MOUNT_ROLLBACK_FAILURES
+from gpumounter_tpu_torch.vchip import Share
 from gpumounter_tpu_torch.worker.ledger import LEDGER_APPENDS, MountLedger
 from gpumounter_tpu_torch.worker.reaper import SlaveReaper
 from gpumounter_tpu_torch.worker.main import serve_ops
@@ -362,14 +364,11 @@ def _sync(device: torch.device) -> None:
 
 def kernel_launches() -> dict:
     """The training kernels' launch counts in this process."""
-    bwd = flash_attention_bwd_kernel
-    return {"flash_fwd": flash_attention_kernel.launches, "dq": bwd.dq_launches,
-            "dkv": bwd.dkv_launches}
+    return launch_counts(TRAINING)
 
 
 def reset_kernel_launches() -> None:
-    flash_attention_kernel.launches = 0
-    flash_attention_bwd_kernel.dq_launches = flash_attention_bwd_kernel.dkv_launches = 0
+    reset_launch_counts(TRAINING)
 
 
 def local_shapes(cfg: TransformerConfig, mesh) -> list[tuple]:
@@ -3234,8 +3233,10 @@ def _degraded_migration_traffic(stack: _MasterStack, dev_dir: str) -> dict:
         healed_at: list[float] = []
         app.apihealth.subscribe(lambda old, new: healed_at.append(time.perf_counter())
                                 if new == "healthy" else None)
+        # the persists made in the partition start before its lift: the
+        # machine, resumed by the heal, may persist again before _heal returns
+        lifted_wall = time.time()
         heal_ms = _heal(stack, src)
-        healed_wall = time.time()
         _until(lambda: app.store.queue.pending_count() == 0, 10.0, "the journal's flush")
         flush_ms = (time.perf_counter() - healed_at[0]) * 1e3
         journal = app.migrations.wait(mid, timeout_s=120.0)
@@ -3246,7 +3247,7 @@ def _degraded_migration_traffic(stack: _MasterStack, dev_dir: str) -> dict:
     landed = parse_journal(Pod(kube.get_pod(src.namespace, src.name)).annotations)
     persists = [sp for sp in _trace_spans(stack, journal["trace_id"])
                 if sp["name"] == "migrate.journal_persist"
-                and partitioned_at <= sp["start"] < healed_wall]
+                and partitioned_at <= sp["start"] < lifted_wall]
     if journal.get("outcome") != "succeeded" or journal["dest_chips"] != uuids \
             or applied < 1 or landed is None or landed["outcome"] != "succeeded" \
             or len(persists) != 2 or ANNOT_JOURNAL not in Pod(kube.get_pod(
@@ -4852,4 +4853,268 @@ def elastic_migrate_check(device="cuda", *, dev_dir: str | None = None,
     report["live" if live else "fake"] = flows
     if failpoints.active():
         raise RuntimeError(f"failpoints left armed: {failpoints.active()}")
+    return report
+
+
+
+# --- the capacity plane and a metered share ---
+
+#: the metered tenant's share: decode, weight 40 and 64 tokens, as the
+#: chaos harness's (invariant 19); its re-grant's weight
+SHARE = dict(namespace="default", pod="tenant-share", profile="decode", weight=40,
+             rate_budget=64)
+SHARE_REGRANT_WEIGHT = 60
+
+
+def _capacity_read(stack: _MasterStack, read: str, path: str = "/capacity") -> dict:
+    status, body, _ = stack.http("GET", path, token=read)
+    if status != 200:
+        raise RuntimeError(f"GET {path} with the read token: {status} {body!r}")
+    return json.loads(body)
+
+
+def _share_ledgers(stack: _MasterStack, uuid: str) -> dict:
+    """Invariant 19's three ledgers for the tenant: the master's books, the
+    worker ledger's share records and the policy engine's entries."""
+    node, tenant = stack.cluster.node_name, f"{SHARE['namespace']}/{SHARE['pod']}"
+    service = stack.services[node]
+    dev = stack.cluster.backend.device_by_uuid(uuid)
+    from gpumounter_tpu_torch.cgroup.policy import POLICY_ENGINE
+    entries = POLICY_ENGINE.entries(tenant)
+    key = ebpf.telemetry_key(dev.major, dev.minor)
+    return {
+        "books": stack.app.shares.books().get(tenant, {}),
+        "ledger": service.ledger.share_holdings().get((SHARE["namespace"], SHARE["pod"]), {}),
+        "engine": ({uuid: (ebpf.policy_weight(entries[key]), ebpf.policy_tokens(entries[key]))}
+                   if key in entries else {}),
+        "engine_keys": len(entries),
+    }
+
+
+def _throttle_parity(tenant: str, dev, weight: int) -> list[bool]:
+    """Invariant 19's throttle walk (``testing.chaos.throttle_walk``) on the
+    metered share: the program's decisions, which must be the engine's and
+    deny past the budget. The engine's budget is put back after."""
+    from gpumounter_tpu_torch.cgroup.policy import POLICY_ENGINE
+    from gpumounter_tpu_torch.testing.chaos import THROTTLE_TOKENS, throttle_walk
+    before = POLICY_ENGINE.entries(tenant)[ebpf.telemetry_key(dev.major, dev.minor)]
+    decisions, left_engine, left_kernel = throttle_walk(tenant, dev, weight, THROTTLE_TOKENS)
+    POLICY_ENGINE.refill(tenant, dev.major, dev.minor, ebpf.policy_tokens(before))
+    if any(e != k for e, k in decisions) or any(k for _, k in decisions[THROTTLE_TOKENS:]) \
+            or left_engine != left_kernel:
+        raise RuntimeError(f"the throttle of a {THROTTLE_TOKENS}-token budget: (engine, device "
+                           f"program) an access {decisions}, tokens left {left_engine} and "
+                           f"{left_kernel}")
+    return [k for _, k in decisions]
+
+
+def _capacity_flows(stack: _MasterStack, dev_dir: str, read: str, live: bool,
+                    on_mounted) -> dict:
+    """(a)-(e) of ``capacity_share_check``; raises on the first check that
+    does not hold."""
+    from gpumounter_tpu_torch.obs import capacity as capacity_obs
+    cluster, app = stack.cluster, stack.app
+    node = cluster.node_name
+    service = stack.services[node]
+    total = len(cluster.backend.list_devices())
+    out: dict = {}
+    # (a) the inventory: a pass, then /capacity
+    _, out["pass_ms"] = _timed(app.fleet.collect_once, _HOST)
+    cap = _capacity_read(stack, read)
+    host = cap["nodes"].get(node) or {}
+    table = cap["feasibility"]
+    multi = {k: v["tracked"] for k, v in table.items() if v["hosts_needed"] > 1}
+    if (host.get("free"), host.get("held"), host.get("fenced"), host.get("total")) != \
+            (total, 0, 0, total) or cap["fleet"]["fragmentation_index"] != 0.0 \
+            or table["nvidia-h100-80gb-1"]["verdict"] != "admissible" \
+            or not table["nvidia-h100-80gb-1"]["tracked"] or any(multi.values()):
+        raise RuntimeError(f"(a) /capacity on a free node: {host}, fleet {cap['fleet']}, "
+                           f"the one-GPU row {table['nvidia-h100-80gb-1']}, multi-host "
+                           f"tracked {multi}")
+    out["inventory"] = {"free": host["free_indices"], "total": total,
+                        "verdicts": {k: v["verdict"] for k, v in table.items()},
+                        "index": cap["fleet"]["fragmentation_index"]}
+    snap_us = []
+    for _ in range(5):
+        _, ms = _timed(lambda: capacity_obs.node_capacity_snapshot(
+            service.collector, pool=service.pool, cfg=service.cfg), _HOST)
+        snap_us.append(ms * 1e3)
+    out["snapshot_us"] = snap_us
+    # (b) a metered share: booked, mounted with its policy, the ledgers
+    uuid = cluster.backend.list_devices()[0].uuid
+    pod = cluster.add_target_pod(SHARE["pod"], namespace=SHARE["namespace"])
+    free = cluster.free_gpu_count()
+    status, body, out["admit_ms"] = stack.http("POST", "/shares", payload={
+        "namespace": SHARE["namespace"], "pod": SHARE["pod"], "profile": SHARE["profile"],
+        "chips": 1, "weight": SHARE["weight"], "rate_budget": SHARE["rate_budget"],
+        "inventory": {uuid: node}})
+    if status != 200 or [s["chip_uuid"] for s in json.loads(body)["admitted"]] != [uuid]:
+        raise RuntimeError(f"(b) POST /shares: {status} {body!r}")
+    with stack.client(node) as client:
+        response, out["add_ms"] = _timed(lambda: client.add_gpu(
+            SHARE["pod"], SHARE["namespace"], 1, share_weight=SHARE["weight"],
+            share_rate_budget=SHARE["rate_budget"]), _HOST)
+    if response.add_gpu_result != AddGPUResult.Success or list(response.uuids) != [uuid]:
+        raise RuntimeError(f"(b) AddGPU with share_weight {SHARE['weight']}: "
+                           f"{AddGPUResult(response.add_gpu_result).name} {list(response.uuids)}")
+    _check_nodes(cluster.backend, [uuid], dev_dir, live)
+    ledgers = _share_ledgers(stack, uuid)
+    want = {uuid: (SHARE["weight"], SHARE["rate_budget"])}
+    if (ledgers["books"], ledgers["ledger"], ledgers["engine"]) != (want, want, want):
+        raise RuntimeError(f"(b) invariant 19: books, ledger and engine disagree: {ledgers}")
+    out["ledgers"] = {k: {u: list(v) for u, v in ledgers[k].items()}
+                      for k in ("books", "ledger", "engine")}
+    shares_pane = json.loads(stack.http("GET", "/shares", token=read)[1])
+    if shares_pane["totals"] != {"shares": 1, "chips": 1, "shared_chips": 0}:
+        raise RuntimeError(f"(b) /shares: {shares_pane['totals']}")
+    dev = cluster.backend.device_by_uuid(uuid)
+    out["throttle"] = _throttle_parity(f"{SHARE['namespace']}/{SHARE['pod']}", dev,
+                                       SHARE["weight"])
+    out["tenant"] = on_mounted([uuid], dev_dir) if on_mounted is not None else None
+    # (c) the plane sees it, after a pass
+    before = app.fleet.payload(max_age_s=None)["master"]
+    _, out["held_pass_ms"] = _timed(app.fleet.collect_once, _HOST)
+    cap = _capacity_read(stack, read)
+    host, fleet = cap["nodes"][node], app.fleet.payload(max_age_s=None)
+    section = fleet["nodes"][node].get("capacity") or {}
+    slaves = {f"{cluster.cfg.pool_namespace}/{s.name}"
+              for s in service.allocator.slave_pods_for(pod)}
+    owners = set((section.get("held") or {}).values())
+    feasible = fleet["master"]["slice_feasible"] - before["slice_feasible"]
+    if (host["free"], host["held"]) != (total - 1, 1) or not owners or not owners <= slaves \
+            or (total == 1 and cap["headroom"]["forecast"] != "exhausted") or feasible < 1:
+        raise RuntimeError(f"(c) /capacity with the share mounted: {host}, held by {owners} "
+                           f"(the pod's slave pods {slaves}), headroom "
+                           f"{cap['headroom']['forecast']}, slice_feasible +{feasible}")
+    out["held"] = {"owners": sorted(owners), "forecast": cap["headroom"]["forecast"],
+                   "slice_feasible": feasible,
+                   "slice_infeasible": fleet["master"]["slice_infeasible"]
+                   - before["slice_infeasible"], "shares": cap.get("shares")}
+    # (d) a second pod refused for capacity: the verdict in the audit trail
+    # and on the timeline
+    other = cluster.add_target_pod("tenant-refused")
+    status, body, out["refused_ms"] = stack.http("GET", _add_path(other, total))
+    rejections = [r for r in audit.AUDIT.query(operation="capacity.reject", limit=10)
+                  if r["pod"] == other.name]
+    status_t, body_t, _ = stack.http("GET", "/timeline?kind=audit&limit=50", token=read)
+    on_timeline = any("capacity.reject" in r.get("summary", "") and other.name in
+                      r.get("summary", "") for r in json.loads(body_t)["records"])
+    if status != 500 or len(rejections) != 1 or \
+            rejections[0]["details"].get("cause") != "exhaustion" or not on_timeline:
+        raise RuntimeError(f"(d) the refused add: {status} {body!r}, its capacity.reject "
+                           f"records {rejections}, on /timeline {on_timeline} ({status_t})")
+    out["rejection"] = {"outcome": rejections[0]["outcome"],
+                        "cause": rejections[0]["details"]["cause"]}
+    # (e) a re-grant at another weight, as the reference makes one: the
+    # master's books in place, the worker not reached (no route or RPC
+    # carries a re-grant: POST /shares passes over a tenant's own GPUs);
+    # then the forced remove and the release clear all three ledgers
+    swaps = ebpf.PROGRAM_SWAPS.get()
+    status, body, _ = stack.http("POST", "/shares", payload={
+        "namespace": SHARE["namespace"], "pod": SHARE["pod"], "profile": SHARE["profile"],
+        "chips": 1, "weight": SHARE_REGRANT_WEIGHT, "rate_budget": SHARE["rate_budget"],
+        "inventory": {uuid: node}})
+    if status != 409:
+        raise RuntimeError(f"(e) POST /shares on the tenant's own GPU: {status} {body!r}")
+    _, ms = _timed(lambda: app.shares.add(Share(
+        namespace=SHARE["namespace"], pod=SHARE["pod"], chip_uuid=uuid, node=node,
+        weight=SHARE_REGRANT_WEIGHT, rate_budget=SHARE["rate_budget"],
+        profile=SHARE["profile"])), _HOST)
+    out["regrant_us"] = ms * 1e3
+    ledgers = _share_ledgers(stack, uuid)
+    regranted = {uuid: (SHARE_REGRANT_WEIGHT, SHARE["rate_budget"])}
+    if ebpf.PROGRAM_SWAPS.get() != swaps or (ledgers["books"], ledgers["ledger"],
+                                             ledgers["engine"]) != (regranted, want, want) \
+            or len(app.shares.payload()["shares"]) != 1:
+        raise RuntimeError(f"(e) the re-grant: program swaps {swaps} -> "
+                           f"{ebpf.PROGRAM_SWAPS.get()}, {ledgers}")
+    out["regrant"] = {k: {u: list(v) for u, v in ledgers[k].items()}
+                      for k in ("books", "ledger", "engine")}
+    status, body, out["remove_ms"] = stack.http(
+        "POST", f"/removegpu/namespace/{pod.namespace}/pod/{pod.name}/force/true",
+        {"uuids": uuid})
+    if (status, body) != (200, "Remove 1 GPUs Success\n"):
+        raise RuntimeError(f"(e) the forced remove: {status} {body!r}")
+    status, body, out["release_ms"] = stack.http(
+        "DELETE", f"/shares/{SHARE['namespace']}/{SHARE['pod']}")
+    if status != 200 or [s["chip_uuid"] for s in json.loads(body)["released"]] != [uuid]:
+        raise RuntimeError(f"(e) DELETE /shares: {status} {body!r}")
+    _released(cluster, pod, free)
+    ledgers = _share_ledgers(stack, uuid)
+    if (ledgers["books"], ledgers["ledger"], ledgers["engine"], ledgers["engine_keys"]) != \
+            ({}, {}, {}, 0):
+        raise RuntimeError(f"(e) the release left {ledgers}")
+    app.fleet.collect_once()
+    host = _capacity_read(stack, read)["nodes"][node]
+    if (host["free"], host["held"]) != (total, 0):
+        raise RuntimeError(f"(e) /capacity after the release: {host}")
+    out["freed"] = host["free_indices"]
+    return out
+
+
+def capacity_share_check(device="cuda", *, dev_dir: str | None = None,
+                         ns_pid: int | None = None, cgroup_dirs=(), identity: str = "nvml",
+                         ledger_root: str | None = None, on_mounted=None) -> dict:
+    """The capacity plane and a metered share on a live hot-mount
+    (``_MasterStack`` over HTTP and gRPC, the master with a read token beside
+    its mutate token, the worker with a ledger in a new directory under
+    `ledger_root`, the cluster's ``FakeKubeClient`` as the API, the
+    collector's passes by hand). Without grpcio it raises
+    ``ModuleNotFoundError`` naming grpcio.
+
+    (a) a pass, then /capacity: every GPU free, the one-GPU shape admissible
+    and tracked, no multi-host shape tracked, the index 0; the snapshot's
+    cost. (b) POST /shares books the decode tenant (SHARE: weight 40, budget
+    64) on the first GPU; the worker's AddGPU with share_weight and
+    share_rate_budget mounts it; the master's books, the ledger's share
+    record and the policy engine's entry agree (invariant 19), /shares shows
+    it, the throttle decides alike in the engine and the device program;
+    on_mounted([uuid], dev_dir) runs while it is mounted (on the card a
+    tenant process on the GPU). (c) after a pass /capacity reads the GPU
+    held by the pod's slave pod, the headroom exhausted on a one-GPU host,
+    the slice-feasibility counter advanced. (d) a second pod's /addgpu
+    answers 500 with one ``capacity.reject`` of cause exhaustion, on
+    /timeline too. (e) POST /shares on the tenant's own GPU answers 409 (the
+    packer passes over it), and the re-grant at SHARE_REGRANT_WEIGHT
+    (``ShareRegistry.add``, as the reference's) changes the books in place
+    and nothing on the worker: the ledger and the engine keep the first
+    weight, no program swap; the forced remove and DELETE /shares clear the
+    three ledgers, and /capacity reads the GPU free again.
+
+    On the card (device="cuda") on the live ``NvidiaDeviceBackend`` mounting
+    into `dev_dir` through the mount namespace of `ns_pid` (as
+    ``mount_check``), and without CAP_MKNOD it raises; on the CPU on a fake
+    host of 1 GPU. Runs on the card unless the caller passes device="cpu".
+
+    Returns {"cap_mknod", "live" or "fake": {"start_ms", and (a)-(e)'s
+    numbers}, the other None}; ms on the host clock."""
+    device = resolve_device(device)
+    live = device.type == "cuda"
+    report = {"cap_mknod": has_cap_mknod(), "live": None, "fake": None}
+    if live and not report["cap_mknod"]:
+        raise RuntimeError("capacity_share_check on the card needs CAP_MKNOD: its share is "
+                           "the card's own GPU, mounted")
+    k8s_health.reset_all()
+    root = tempfile.mkdtemp(prefix="capacity-share-check-")
+    ledgers = tempfile.mkdtemp(prefix="capacity-share-ledgers-", dir=ledger_root)
+    read = secrets.token_hex(16)
+    try:
+        t0 = time.perf_counter()
+        cfg = Config(auth_mode="token", auth_token=secrets.token_hex(16), auth_read_token=read,
+                     ledger_dir=ledgers, node_name="gpu-node-0", fleet_scrape_interval_s=3600.0)
+        if live:
+            cluster = FakeCluster(NvidiaDeviceBackend("/dev", identity=make_identity(identity)),
+                                  cfg=cfg, node_name=cfg.node_name)
+        else:
+            cluster = FakeCluster.with_fake_gpus(os.path.join(root, "fake"), 1, cfg=cfg)
+        target, dirs = _live_target(root, dev_dir, cgroup_dirs)
+        with _MasterStack(cluster, {cluster.node_name: target}, ns_pid if live else None,
+                          dirs) as stack:
+            flows = {"start_ms": (time.perf_counter() - t0) * 1e3}
+            flows.update(_capacity_flows(stack, target, read, live, on_mounted))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        shutil.rmtree(ledgers, ignore_errors=True)
+        k8s_health.reset_all()
+    report["live" if live else "fake"] = flows
     return report

@@ -111,9 +111,34 @@ As in the reference: gpuNum and a batch target's gpus are range-checked
 against MAX_GPU_PER_REQUEST (the original never checks it), a batch holds at
 most BULK_MAX_TARGETS targets, every route but the index and /healthz wants
 a bearer token (``utils/auth.py``), and a path of no route gets "404 page
-not found". The reference's other routes (capacity, defrag, shares,
-autoscale) come with the packages that serve them; until then their paths
-get that 404, /batch/addtpu among them.
+not found". The reference's other routes (defrag, autoscale) come with the
+packages that serve them; until then their paths get that 404, /batch/addtpu
+among them.
+
+The capacity plane and the fractional shares (``obs/capacity.py``,
+``vchip/``), as the reference's routes (``gpumounter_tpu/master/app.py:926-949,
+1150-1226``), JSON out:
+
+      GET    /capacity?accel_type=    -> the capacity pane: each node's GPUs
+                                         (free, held, warm, fenced), the
+                                         fleet's, the feasibility table over
+                                         ``topology.FEASIBILITY_SHAPES`` (one
+                                         row with accel_type, 404 for an
+                                         unknown one), the headroom, the
+                                         intents' demand, the shares' view
+      GET    /shares                  -> the share books
+      POST   /shares                  {"namespace", "pod", "profile", "chips",
+                                       "weight", "rate_budget", "inventory"}
+                                      -> {"admitted": [...]}; 409 when the
+                                         packer refuses, 503 with vchip off
+      DELETE /shares/<ns>/<pod>       -> {"released": [...]}; 404
+
+The reads are in the read scope and untraced; the writes want the mutate
+token and leave an edge audit record. The plane is built here over the fleet
+collector and the reconciler, observes each of the collector's passes and is
+registered for the process (``capacity_obs.register_plane``), so that the
+reconciler's refusals stamp its verdict; /addgpu's InsufficientGPU stamps it
+too (``capacity.reject``) before its 500.
 
 The elastic intents and the live migration (``elastic/``, ``migrate/``), as
 the reference's routes (``gpumounter_tpu/master/app.py:328-343,
@@ -183,6 +208,7 @@ from gpumounter_tpu_torch.master.slice_ops import (
 )
 from gpumounter_tpu_torch.migrate import MigrationCoordinator, MigrationError
 from gpumounter_tpu_torch.obs import assembly, audit, flight, trace
+from gpumounter_tpu_torch.obs import capacity as capacity_obs
 from gpumounter_tpu_torch.obs.audit import audited
 from gpumounter_tpu_torch.obs.fleet import FleetCollector
 from gpumounter_tpu_torch.obs.slo import SloEngine
@@ -201,6 +227,7 @@ from gpumounter_tpu_torch.utils.auth import check_bearer, required_token, resolv
 from gpumounter_tpu_torch.utils.fanout import get_core
 from gpumounter_tpu_torch.utils.log import get_logger
 from gpumounter_tpu_torch.utils.metrics import REGISTRY
+from gpumounter_tpu_torch.vchip import PackRefused, ShareLimitError, SharePacker, ShareRegistry
 
 logger = get_logger("master")
 
@@ -453,6 +480,11 @@ _ROUTES: list[tuple[str, re.Pattern, str]] = [
     ("GET", re.compile(r"^/migrations$"), "migrations_list"),
     ("GET", re.compile(r"^/migrations/(?P<mid>[^/]+)$"), "migration_get"),
     ("POST", re.compile(r"^/migrations/(?P<mid>[^/]+)/abort$"), "migration_abort"),
+    # the capacity plane (obs/capacity.py) and the fractional shares (vchip/)
+    ("GET", re.compile(r"^/capacity(?:\?(?P<query>.*))?$"), "capacity"),
+    ("GET", re.compile(r"^/shares$"), "shares"),
+    ("POST", re.compile(r"^/shares$"), "shares_admit"),
+    ("DELETE", re.compile(r"^/shares/(?P<ns>[^/]+)/(?P<pod>[^/]+)$"), "shares_release"),
 ]
 
 #: a slice's GPUs per host when the request names none: an H100 host's 8
@@ -511,12 +543,13 @@ class MasterApp:
     #: token /metrics is open and the others want the mutate token (they
     #: name pods, tenants and GPUs)
     READ_ROUTES = frozenset({"metrics", "audit", "trace", "timeline", "apihealth", "shards",
-                             "fleet", "slo", "tenants", "recovery", "health_nodes"})
+                             "fleet", "slo", "tenants", "recovery", "health_nodes", "capacity",
+                             "shares"})
     #: never traced: probes, and the panes a dashboard polls (their spans
     #: would rotate the operations' traces out of the ring)
     UNTRACED_ROUTES = frozenset({"index", "healthz", "metrics", "fleet", "slo", "tenants",
                                  "apihealth", "timeline", "shards", "recovery",
-                                 "health_nodes"})
+                                 "health_nodes", "capacity", "shares"})
     #: never behind the admission gate: a liveness probe or a scrape must
     #: answer while a mount storm fills the replica (a gated /healthz would
     #: turn load into restarts)
@@ -525,7 +558,8 @@ class MasterApp:
     #: (the worker's records carry the GPUs of the same trace)
     AUDITED_ROUTES = frozenset({"add", "remove", "batch_add", "addslice", "removeslice",
                                 "intent_put", "intent_delete", "migrate_start",
-                                "migration_abort", "recovery_evacuate", "health_quarantine"})
+                                "migration_abort", "recovery_evacuate", "health_quarantine",
+                                "shares_admit", "shares_release"})
 
     def __init__(self, kube: KubeClient, cfg=None, worker_client_factory=None,
                  registry: WorkerRegistry | None = None, store: MasterStore | None = None,
@@ -594,6 +628,13 @@ class MasterApp:
         self.slo = SloEngine(cfg=self.cfg, kube=kube)
         self.fleet = FleetCollector(self.registry, telemetry_client_factory, cfg=self.cfg,
                                     slo=self.slo, shards=self.shards)
+        # the capacity plane observes every pass and serves /capacity from its
+        # node entries; registered for the process, so that the reconciler's
+        # refusals stamp its verdict
+        self.capacity = capacity_obs.CapacityPlane(self.fleet, cfg=self.cfg,
+                                                   elastic=self.elastic)
+        self.fleet.capacity = self.capacity
+        capacity_obs.register_plane(self.capacity)
         # the recovery plane: liveness verdicts and evacuations; its probe
         # reads the registry's breaker and calls over the collector's client,
         # so that a worker not serving yet neither opens the mount path's
@@ -613,6 +654,11 @@ class MasterApp:
         self.recovery.health = self.health
         self.canary = CanaryProber(self.health, self.registry, self._client_factory,
                                    cfg=self.cfg)
+        # the fractional shares: the books and the admission behind /shares;
+        # the capacity plane reads the books for its fractional view
+        self.shares = ShareRegistry(cfg=self.cfg)
+        self.packer = SharePacker(self.shares, cfg=self.cfg)
+        self.capacity.shares = self.shares
         # root and error spans, audit records and the API's transitions onto
         # the timeline; idempotent
         flight.install(apihealth=self.apihealth)
@@ -621,7 +667,9 @@ class MasterApp:
         """Stop the canary's, the recovery controller's, the reconciler's
         and the fleet collector's loops, wait for the migrations' machines,
         stop the registry's watch and its channels, and close the store (its
-        ApiHealth subscription, its probe, its watch and its queue)."""
+        ApiHealth subscription, its probe, its watch and its queue). Its
+        capacity plane stops being the process's."""
+        capacity_obs.unregister_plane(self.capacity)
         self.canary.stop()
         self.recovery.stop()
         self.elastic.stop()
@@ -859,6 +907,77 @@ class MasterApp:
         payload = self.fleet.tenants_payload(max_age_s=self.cfg.fleet_scrape_interval_s)
         return 200, "application/json", json.dumps(payload, indent=1) + "\n"
 
+    def _route_capacity(self, match, body, headers):
+        """The capacity pane (``obs/capacity.py``) over the fleet's rollup,
+        collected first when stale; ?accel_type= keeps one row of the
+        feasibility table, 404 for a shape the table does not have."""
+        params = urllib.parse.parse_qs(match.group("query") or "")
+        accel = params.get("accel_type", [None])[-1]
+        try:
+            payload = self.capacity.payload(max_age_s=self.cfg.fleet_scrape_interval_s,
+                                            accel_type=accel)
+        except KeyError:
+            # only the filter raises KeyError by contract; any other stays a 500
+            if accel is None:
+                raise
+            raise _HttpError(404, f"unknown accelerator type {accel!r}; see topology.py's "
+                                  f"FEASIBILITY_SHAPES for the known shapes")
+        return 200, "application/json", json.dumps(payload, indent=1) + "\n"
+
+    def _route_shares(self, match, body, headers):
+        """The share books: every (tenant, GPU, weight, budget), each GPU's
+        load and headroom, the totals."""
+        return 200, "application/json", json.dumps(self.shares.payload(), indent=1) + "\n"
+
+    def _route_shares_admit(self, match, body, headers):
+        """Book a tenant's shares: {"namespace", "pod", "profile", "chips",
+        "weight", "rate_budget"?, "inventory": {uuid: node}?}. The packer
+        passes over the capacity plane's blocked hosts and the health
+        plane's quarantined ones, and ranks its probation hosts last; its
+        refusal is 409 (nothing booked), and 503 with vchip off."""
+        if not self.cfg.vchip_enabled:
+            raise _HttpError(503, "fractional shares are disabled (TPUMOUNTER_VCHIP=false)")
+        try:
+            payload = json.loads(body or b"{}")
+        except ValueError:
+            raise _HttpError(400, "body must be JSON")
+        if not isinstance(payload, dict):
+            raise _HttpError(400, "body must be a JSON object")
+        namespace, pod = payload.get("namespace"), payload.get("pod")
+        if not namespace or not pod:
+            raise _HttpError(400, "namespace and pod are required")
+        inventory = payload.get("inventory") or {}
+        if not isinstance(inventory, dict) or not all(
+                isinstance(k, str) and isinstance(v, str) for k, v in inventory.items()):
+            raise _HttpError(400, "inventory must map chip uuid -> node name")
+        try:
+            chips = int(payload.get("chips", 1))
+            weight = int(payload.get("weight", 0))
+            rate_budget = int(payload.get("rate_budget", 0))
+        except (TypeError, ValueError):
+            raise _HttpError(400, "chips, weight and rate_budget must be integers")
+        try:
+            booked = self.packer.admit(
+                str(namespace), str(pod), str(payload.get("profile", "balanced")), chips,
+                weight, rate_budget=rate_budget, inventory=inventory,
+                blocked_hosts=self.capacity.blocked_hosts(
+                    max_age_s=self.cfg.fleet_scrape_interval_s),
+                excluded_hosts=self.health.excluded_hosts(),
+                probation_hosts=self.health.probation_hosts())
+        except (PackRefused, ShareLimitError) as exc:
+            raise _HttpError(409, str(exc))
+        return 200, "application/json", json.dumps(
+            {"admitted": [s.to_json() for s in booked]}, indent=1) + "\n"
+
+    def _route_shares_release(self, match, body, headers):
+        """Every share of a tenant off the books; 404 when it holds none."""
+        ns, pod = match.group("ns"), match.group("pod")
+        released = self.packer.release(ns, pod)
+        if not released:
+            raise _HttpError(404, f"{ns}/{pod} holds no shares")
+        return 200, "application/json", json.dumps(
+            {"released": [s.to_json() for s in released]}, indent=1) + "\n"
+
     def _route_recovery(self, match, body, headers):
         """The recovery plane: each node's liveness verdict, the evacuations,
         the confirmation settings."""
@@ -1041,6 +1160,9 @@ class MasterApp:
         if result == AddGPUResult.Success:
             return 200, "text/plain", "Add GPU Success\n"
         if result == AddGPUResult.InsufficientGPU:
+            # refused for capacity: the plane's verdict (its last rollup) into
+            # the audit trail and the timeline, before the 500
+            self.capacity.record_rejection(node, ns, pod_name, gpu_num)
             raise _HttpError(500, f"Insufficient GPU on Node: {node}")
         if result == AddGPUResult.PodNotFound:
             raise _HttpError(400, f"No Pod {pod_name} on Node: {node}")

@@ -18,14 +18,16 @@ invariant 8). An active sharded replica (``master/shard.py``) collects only
 the nodes it owns, on the fan-out core (``utils/fanout.py``) with its
 per-shard budgets.
 
-``health``, the gray-failure plane (``health/plane.py``), observes every
-pass, and its quarantined nodes (``excluded_hosts()``) are the ones whose
-pull sets the request's ``quarantined``: the worker then drains its warm
-pool. The reference's ``capacity`` hook (its capacity plane,
-``obs/capacity.py``) and ``autoscale_model`` stay None until those packages
-are ported. The snapshot's ``capacity`` section is left out with them; the scrape fallback's is None,
-as the reference's. Standard library only: the worker imports the snapshot
-half on its mount path, and the RPC comes in through the client factory.
+``capacity``, the capacity plane (``obs/capacity.py``), observes every pass
+first, so that the feasibility counters it moves ride this pass's rollup;
+``health``, the gray-failure plane (``health/plane.py``), observes it next,
+and its quarantined nodes (``excluded_hosts()``) are the ones whose pull sets
+the request's ``quarantined``: the worker then drains its warm pool. The
+reference's ``autoscale_model`` stays None until its package is ported. The
+worker's snapshot carries its GPUs in a ``capacity`` section; the scrape
+fallback's is None, as the reference's. Standard library only: the worker
+imports the snapshot half on its mount path, and the RPC comes in through
+the client factory.
 """
 
 from __future__ import annotations
@@ -79,14 +81,17 @@ _COUNTER_NAMES = (
     ("tpumounter_ebpf_program_swaps_total", "ebpf_program_swaps"),
 )
 
-#: the master's counters in the rollup; the heal and migration ones are
-#: registered by packages not ported yet and read 0 until then (the
-#: reference's capacity counters come with the capacity plane)
+#: the master's counters in the rollup: the heals and the migrations, the
+#: breakers' trips, and the capacity plane's feasibility evaluations (the
+#: slice-feasibility SLO's good and bad events); a series not registered in
+#: the process reads 0
 _MASTER_COUNTER_NAMES = (
     ("tpumounter_chips_healed_total", "heals"),
     ("tpumounter_chips_heal_failures_total", "heal_failures"),
     ("tpumounter_migrations_total", "migrations"),
     ("tpumounter_worker_breaker_trips_total", "breaker_trips"),
+    ("tpumounter_capacity_size_feasible_total", "slice_feasible"),
+    ("tpumounter_capacity_size_infeasible_total", "slice_infeasible"),
 )
 
 
@@ -351,10 +356,12 @@ class FleetCollector:
         self.span_store = assembly.REMOTE_SPANS if span_store is None else span_store
         #: a ShardManager: an active replica collects the nodes it owns
         self.shards = shards
-        #: the observers of each pass, exception-isolated: ``health`` (the
-        #: ``HealthPlane``, which MasterApp sets) scores it, and its
-        #: quarantined nodes ride their pulls; capacity and autoscale_model
-        #: wait for their packages (ROADMAP 7l)
+        #: the observers of each pass, exception-isolated, in this order:
+        #: ``capacity`` (the ``CapacityPlane``) derives /capacity's view and
+        #: moves the slice-feasibility counters before the rollup is taken;
+        #: ``health`` (the ``HealthPlane``) scores the pass, and its
+        #: quarantined nodes ride their pulls; MasterApp sets both.
+        #: autoscale_model waits for its package
         self.capacity = None
         self.health = None
         self.autoscale_model = None

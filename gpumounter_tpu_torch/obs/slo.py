@@ -88,9 +88,8 @@ class Objective:
             raise ObjectiveError(f"{self.name}: ratio needs good and bad keys")
 
 
-#: the built-in objectives, the reference's but its slice-feasibility one,
-#: which reads the capacity plane's counters and comes with that plane
-#: (TPUMOUNTER_SLO_OBJECTIVES replaces them)
+#: the built-in objectives, the reference's (TPUMOUNTER_SLO_OBJECTIVES
+#: replaces them)
 DEFAULT_OBJECTIVES: tuple[Objective, ...] = (
     Objective(name="mount-latency-50ms", kind="latency", threshold_s=0.05, target=0.95,
               description="95% of hot-mounts complete within 50 ms "
@@ -112,6 +111,16 @@ DEFAULT_OBJECTIVES: tuple[Objective, ...] = (
               bad="tenant_disrupted_minutes",
               description="99.9% of tenant wall-clock minutes are "
                           "disruption-free"),
+    # the capacity plane's per-pass evaluations (obs/capacity.py): bad events
+    # are denials a defragmentation would lift, never a full fleet; a master
+    # without the plane sees no traffic
+    Objective(name="slice-feasibility", kind="ratio", target=0.9,
+              good="slice_feasible", bad="slice_infeasible",
+              description="90% of per-pass accelerator-size "
+                          "feasibility evaluations are not denied by "
+                          "fragmentation alone (large-block "
+                          "admissibility: burn means defrag would "
+                          "unlock blocked slice shapes)"),
 )
 
 

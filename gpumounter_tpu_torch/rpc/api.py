@@ -62,7 +62,11 @@ class RemoveGPUResult(enum.IntEnum):
 
 
 class AddGPURequest(Message):
-    # AddGPURequest (api.proto:4-9), plus fields 6-8
+    # AddGPURequest (api.proto:4-9), plus fields 6-10. Fields 9-10 are the
+    # reference's share policy: a share_weight > 0 makes every GPU of the
+    # request a fractional grant (a policy entry of that weight and token
+    # budget, 0 unmetered) recorded in the ledger's share records; 0, every
+    # older caller's, keeps the whole-GPU grant
     FIELDS = [
         Field(1, "pod_name", "string"),
         Field(2, "namespace", "string"),
@@ -71,14 +75,18 @@ class AddGPURequest(Message):
         Field(6, "idempotency_key", "string"),
         Field(7, "trace_context", "string"),
         Field(8, "epoch", "int64"),
+        Field(9, "share_weight", "int32"),
+        Field(10, "share_rate_budget", "int32"),
     ]
 
     def __init__(self, pod_name: str = "", namespace: str = "", gpu_num: int = 0,
                  is_entire_mount: bool = False, idempotency_key: str = "",
-                 trace_context: str = "", epoch: int = 0):
+                 trace_context: str = "", epoch: int = 0, share_weight: int = 0,
+                 share_rate_budget: int = 0):
         super().__init__(pod_name=pod_name, namespace=namespace, gpu_num=gpu_num,
                          is_entire_mount=is_entire_mount, idempotency_key=idempotency_key,
-                         trace_context=trace_context, epoch=epoch)
+                         trace_context=trace_context, epoch=epoch, share_weight=share_weight,
+                         share_rate_budget=share_rate_budget)
 
 
 class AddGPUResponse(Message):

@@ -360,13 +360,17 @@ class WorkerClient:
     def add_gpu(self, pod_name: str, namespace: str, gpu_num: int,
                 is_entire_mount: bool = False,
                 idempotency_key: str | None = None, epoch: int = 0,
-                timeout_s: float | None = None) -> api.AddGPUResponse:
+                timeout_s: float | None = None, share_weight: int = 0,
+                share_rate_budget: int = 0) -> api.AddGPUResponse:
         """AddGPU; the response's add_gpu_result and the UUIDs mounted. One
         idempotency key covers every attempt. epoch: the caller's fencing
-        epoch of the node (0: unfenced); a stale one raises FencedError."""
+        epoch of the node (0: unfenced); a stale one raises FencedError.
+        share_weight, share_rate_budget: a fractional grant's policy (fields
+        9-10; a weight of 0 is a whole-GPU grant, a budget of 0 unmetered)."""
         request = api.AddGPURequest(
             pod_name, namespace, gpu_num, is_entire_mount,
-            idempotency_key=idempotency_key or f"add-{secrets.token_hex(8)}", epoch=int(epoch))
+            idempotency_key=idempotency_key or f"add-{secrets.token_hex(8)}", epoch=int(epoch),
+            share_weight=int(share_weight), share_rate_budget=int(share_rate_budget))
         return self._call(api.ADD_METHOD, request, timeout_s)
 
     def remove_gpu(self, pod_name: str, namespace: str, uuids: list[str],

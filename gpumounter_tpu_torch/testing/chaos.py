@@ -50,6 +50,19 @@ seed, then checks the global invariants:
      complete (``obs/assembly.py``: no orphan, no rpc span without its
      worker half) and its phases sum to its wall time within max(2 ms, 5%);
      ``drop_worker_spans`` is its negative control,
+ 17. the capacity plane's agreement: after every scenario the ``capacity``
+     section of each live node's CollectTelemetry (invariant 8's first
+     pass) equals the fake scheduler's ground truth: free GPUs, held and
+     warm together, fenced (dead) ones, by index; ``withhold_unmount`` (a
+     held GPU's kubelet claim erased, its booking kept, as a lost unmount
+     leaves it) is its negative control,
+ 19. the shares' agreement (``run_share_scenario``): the master's share
+     books == the policy entries (the userspace engine, the fake backends'
+     kernel map) == the worker ledger's share records, GPU for GPU and
+     value for value, and a metered share driven past its budget is
+     throttled alike by the engine and by the interpreter running the real
+     device program; ``disable_enforcement`` (the engine a bookkeeper) is
+     its negative control,
  20. gray-failure attribution (``run_gray_scenario``): every automatic
      quarantine of the health plane is a flight record with at least one
      concrete signal, no node outside the degraded set is ever quarantined,
@@ -63,9 +76,9 @@ seed, then checks the global invariants:
 
 Two more run on their own, not on the harness: ``run_fencing_scenario``
 (invariant 12, no stale-epoch write applied) and ``run_shard_scenario``
-(invariant 9, one owner a shard). The reference's invariants 17-19 and 21
-come with their packages. A killed node (``kill_node``) is out of the books'
-reach: invariants 1-3, 8 and 10 skip it and its pods.
+(invariant 9, one owner a shard). The reference's invariants 18 and 21 come
+with their packages. A killed node (``kill_node``) is out of the books'
+reach: invariants 1-3, 8, 10, 17 and 19 skip it and its pods.
 
 The scenarios: ``run_mount_scenario`` (adds, removes and reconciles of pods
 with declared intents), ``run_worker_crash_scenario`` (worker deaths in
@@ -73,7 +86,9 @@ mount batches), ``run_elastic_scenario`` (GPU deaths healed by the
 reconciler under ``FAULTS_ELASTIC``), ``run_migrate_scenario`` (migrations
 crashed at their phase boundaries, ``FAULTS_MIGRATE``, driven to their end by
 ``resume_interrupted``), ``run_node_kill_scenario``, ``run_gray_scenario``,
-``run_watch_store_scenario`` and ``run_api_outage_scenario``. ``TenantSim``
+``run_watch_store_scenario``, ``run_api_outage_scenario`` and
+``run_share_scenario`` (fractional mounts, re-grants, releases and worker
+deaths of two complementary tenants). ``TenantSim``
 is the reference's fake tenant on the port's ``torchside`` watchers and
 telemetry.
 
@@ -101,7 +116,8 @@ import random
 import threading
 import time
 
-from gpumounter_tpu_torch.cgroup.policy import POLICY_ENGINE
+from gpumounter_tpu_torch.cgroup import ebpf
+from gpumounter_tpu_torch.cgroup.policy import POLICY_ENGINE, interpret_device_program
 from gpumounter_tpu_torch.collector.collector import GpuCollector
 from gpumounter_tpu_torch.elastic.intents import Intent
 from gpumounter_tpu_torch.faults import failpoints
@@ -121,6 +137,7 @@ from gpumounter_tpu_torch.rpc.client import ChannelPool, WorkerClient
 from gpumounter_tpu_torch.testing.cluster import FakeCluster, WorkerServers
 from gpumounter_tpu_torch.utils import locks
 from gpumounter_tpu_torch.utils.log import get_logger
+from gpumounter_tpu_torch.vchip import Share
 from gpumounter_tpu_torch.worker.mounter import GpuMounter, MountTarget
 from gpumounter_tpu_torch.worker.server import GpuMountService
 
@@ -317,6 +334,9 @@ class ChaosHarness:
         #: the clean operations run under a chaos.<op> root span, each
         #: {"trace", "span", "op"}: invariant 16 assembles every one
         self.traced_ops: list[dict] = []
+        #: run_share_scenario sets it: check_invariants then holds invariant
+        #: 19 too
+        self.vchip_armed = False
         #: run_watch_store_scenario sets it: check_invariants then holds
         #: invariant 22 too
         self.watchstore_armed = False
@@ -349,7 +369,10 @@ class ChaosHarness:
         REMOTE_SPANS.reset()
         AUDIT.reset()
         FLIGHT.reset()
+        # an empty engine that enforces: a negative control's bookkeeper
+        # (disable_enforcement) must not outlive its run
         POLICY_ENGINE.reset()
+        POLICY_ENGINE.enforce = True
         for i, name in enumerate(self.cluster.node_names):
             self.workers.start(name, f"10.9.0.{i + 1}")
             self.cluster.register_worker(self.workers.ip_by_node[name], node=name)
@@ -395,6 +418,7 @@ class ChaosHarness:
 
     def stop(self) -> None:
         failpoints.disarm_all()
+        POLICY_ENGINE.enforce = True
         self.stop_tenants()
         if self.watch_store is not None:
             self.watch_store.stop()
@@ -560,6 +584,159 @@ class ChaosHarness:
                          lambda ns=ns, name=name: self.app.elastic.reconcile_once(ns, name),
                          fault_p=0.0)
         self.converge()
+
+    # --- invariant 19: fractional shares, books == policy == ledger ---
+
+    #: the two complementary tenants: (namespace, pod, profile, weight,
+    #: budget), fixed a tenant so that the books' resync is idempotent; the
+    #: decode tenant is metered, so that the throttle check has a share
+    SHARE_TENANTS = [
+        ("default", "vc-prefill", "prefill", 60, 0),
+        ("default", "vc-decode", "decode", 40, 64),
+    ]
+
+    #: the shares' fault pool: the reference's FAULTS_SHARE, no crash (the
+    #: deaths are driven, with the restart and the replay)
+    FAULTS_SHARE = [
+        ("rpc.client.call", "1*unavailable(chaos drop)"),
+        ("rpc.client.call", "1*delay(0.05)"),
+        ("worker.rpc", "1*delay(0.05)"),
+        ("worker.mount.mknod", "1*error(chaos mknod)"),
+        ("worker.unmount.before_revoke", "1*error(chaos revoke)"),
+        ("k8s.patch_pod.status", "1*return(409)"),
+    ]
+
+    def run_share_scenario(self, n_ops: int = 10) -> None:
+        """Fractional traffic under faults, as the reference's: the two
+        tenants' policy-carrying mounts on NODE_A over gRPC (share_weight and
+        share_rate_budget on the wire, the mounter's policy, the ledger's
+        share records and the engine's entries), worker deaths mid-mount
+        with the restart and the replay, forced releases and re-grants in
+        place; the master's books resynced from ProbeGPU after each
+        operation, then one clean restart (the replay re-arms the engine).
+        check_invariants() then holds invariant 19 (and 10)."""
+        self.vchip_armed = True
+        self.check_ledgers = True
+        for ns, name, _profile, _weight, _budget in self.SHARE_TENANTS:
+            self.add_pod(name, NODE_A, namespace=ns)
+        for _ in range(n_ops):
+            ns, name, profile, weight, budget = self.rng.choice(self.SHARE_TENANTS)
+            roll = self.rng.random()
+            if roll < 0.25:
+                site, action = self.rng.choice(self.CRASH_SITES)
+                self.record(f"arm {site}={action}")
+                failpoints.arm(site, action)
+                try:
+                    self._share_mount(ns, name, weight, budget)
+                except Exception as exc:  # noqa: BLE001 — the death is the test
+                    self.record(f"crash share-mount {name} -> {type(exc).__name__}")
+                else:
+                    self.record(f"crash share-mount {name} -> ok (fault unfired)")
+                finally:
+                    failpoints.disarm_all()
+                self.restart_worker(NODE_A)
+            elif roll < 0.55:
+                self._op(f"share-mount {name}",
+                         lambda ns=ns, name=name, weight=weight, budget=budget:
+                         self._share_mount(ns, name, weight, budget), pool=self.FAULTS_SHARE)
+            elif roll < 0.8:
+                held = [c.uuid for c in self.probe(ns, name)]
+                if held:
+                    uuid = self.rng.choice(held)
+
+                    def _release(ns=ns, name=name, uuid=uuid):
+                        with self.client_for_node(NODE_A) as client:
+                            client.remove_gpu(name, ns, [uuid], force=True)
+
+                    self._op(f"share-release {uuid} from {name}", _release,
+                             pool=self.FAULTS_SHARE)
+            else:
+                # a re-grant in place: the books take no new slot
+                held = [c.uuid for c in self.probe(ns, name)]
+                if held:
+                    uuid = self.rng.choice(held)
+                    self.app.shares.add(Share(namespace=ns, pod=name, chip_uuid=uuid,
+                                              node=NODE_A, weight=weight, rate_budget=budget,
+                                              profile=profile))
+                    self.record(f"re-grant {ns}/{name}/{uuid}")
+            self._sync_share_books(ns, name, profile, weight, budget)
+        # the throttle check needs a metered share: the decode tenant ends
+        # holding a GPU (a prefill GPU freed first when the node is full)
+        ns, name, profile, weight, budget = self.SHARE_TENANTS[1]
+        if not self.probe(ns, name):
+            result, _ = self._share_mount(ns, name, weight, budget)
+            if result != AddGPUResult.Success:
+                p_ns, p_name = self.SHARE_TENANTS[0][:2]
+                p_held = [c.uuid for c in self.probe(p_ns, p_name)]
+                if p_held:
+                    with self.client_for_node(NODE_A) as client:
+                        client.remove_gpu(p_name, p_ns, [p_held[0]], force=True)
+                    self._sync_share_books(p_ns, p_name, *self.SHARE_TENANTS[0][2:])
+                self._share_mount(ns, name, weight, budget)
+            self._sync_share_books(ns, name, profile, weight, budget)
+        # one clean restart: the share policies come back from the ledger
+        summary = self.restart_worker(NODE_A)
+        if not summary.get("share_policies_replayed"):
+            self.record("WARNING: restart replayed no share policies")
+        for ns, name, profile, weight, budget in self.SHARE_TENANTS:
+            self._sync_share_books(ns, name, profile, weight, budget)
+        self.converge()
+
+    def _share_mount(self, ns: str, name: str, weight: int, budget: int, n: int = 1):
+        """One fractional mount over gRPC; (result, uuids)."""
+        with self.client_for_node(NODE_A) as client:
+            response = client.add_gpu(name, ns, n, share_weight=weight,
+                                      share_rate_budget=budget)
+        result = AddGPUResult(response.add_gpu_result)
+        self.record(f"share-mount {ns}/{name} w={weight} b={budget} -> {result.name} "
+                    f"{list(response.uuids)}")
+        return result, list(response.uuids)
+
+    def _sync_share_books(self, ns: str, name: str, profile: str, weight: int,
+                          budget: int) -> None:
+        """The master's books for one tenant brought to the worker's truth
+        (ProbeGPU), as a share controller resyncs after faults: the worker's
+        ledger and engine say what is granted."""
+        held = {c.uuid for c in self.probe(ns, name)}
+        booked = {s.chip_uuid for s in self.app.shares.by_tenant(ns, name)}
+        for uuid in sorted(held - booked):
+            self.app.shares.add(Share(namespace=ns, pod=name, chip_uuid=uuid,
+                                      node=self.pods[(ns, name)], weight=weight,
+                                      rate_budget=budget, profile=profile))
+        for uuid in sorted(booked - held):
+            self.app.shares.remove(ns, name, uuid)
+
+    def disable_enforcement(self) -> None:
+        """The negative control of invariant 19: the userspace engine a
+        bookkeeper that admits past an exhausted budget, as a broken
+        enforcement would; check_invariants() must name the divergence from
+        the device program."""
+        POLICY_ENGINE.enforce = False
+        self.record("negative control: policy enforcement disabled")
+
+    def withhold_unmount(self, node_name: str = NODE_A) -> str | None:
+        """The negative control of invariant 17: one held GPU's kubelet claim
+        erased, with no unmount and its booking kept, the divergence a lost
+        unmount leaves (the worker's snapshot reads it free while the
+        scheduler still books it). Returns its UUID (None when the node
+        holds nothing)."""
+        node = self.cluster.node(node_name)
+        index_of = {d.uuid: d.index for d in node.backend.list_devices()}
+        with self.cluster._alloc_lock:
+            victim = next((uuid for uuid, owner in sorted(node.assignment.items(),
+                                                          key=lambda kv: index_of[kv[0]])
+                           if owner is not None and uuid not in node.dead), None)
+            if victim is None:
+                return None
+            trimmed = []
+            for pod, ns, container, resource, ids in node.kubelet.claims:
+                kept = [i for i in ids if i != victim]
+                if kept or not ids:
+                    trimmed.append((pod, ns, container, resource, kept))
+            node.kubelet.claims = trimmed
+        self.record(f"withhold unmount of chip {victim} on {node_name} "
+                    f"(kubelet claim erased, booking kept)")
+        return victim
 
     # --- the elastic and migrate scenarios ---
 
@@ -1559,6 +1736,10 @@ class ChaosHarness:
             if a != b:
                 violations.append(f"collector restart changed node {node} mount count {a} -> "
                                   f"{b} (rollup not restart-stable)")
+        # 17. the capacity section of each live node's pull (the first
+        # pass's) against the fake scheduler, by index: free, held and warm
+        # together, fenced
+        violations.extend(self._capacity_agreement(first, expected_nodes))
         # 13. after a terminal migration, heal or evacuation no tenant's
         # window is open, and every window of a signalled cause carries a
         # trace id that resolves in the ring
@@ -1621,6 +1802,9 @@ class ChaosHarness:
                         violations.append(f"ledger/books disagree for {key[0]}/{key[1]} on "
                                           f"{node}: ledger {sorted(ledger_view)} != booked "
                                           f"{sorted(booked[key])}")
+        # 19.
+        if self.vchip_armed:
+            violations.extend(self._share_agreement())
         # 20.
         if self.gray_armed:
             violations.extend(self._gray_attribution())
@@ -1650,6 +1834,144 @@ class ChaosHarness:
             raise InvariantViolation(
                 f"chaos invariants violated (seed={self.seed}):\n- " + "\n- ".join(violations)
                 + "\nschedule:\n  " + "\n  ".join(self.schedule))
+
+
+    def _capacity_agreement(self, rollup: dict, nodes: set[str]) -> list[str]:
+        """Invariant 17 over one collector pass's node entries."""
+        out = []
+        for node in sorted(nodes & set(rollup["nodes"])):
+            cap = rollup["nodes"][node].get("capacity")
+            if not isinstance(cap, dict):
+                out.append(f"capacity divergence on {node}: node reported no capacity section")
+                continue
+            fake = self.cluster.node(node)
+            index_of = {d.uuid: d.index for d in fake.backend.list_devices()}
+            with self.cluster._alloc_lock:
+                free_truth = sorted(index_of[u] for u in fake.free_ids())
+                held_truth = sorted(index_of[u] for u, owner in fake.assignment.items()
+                                    if owner is not None and u not in fake.dead)
+                fenced_truth = sorted(index_of[u] for u in fake.dead)
+            free = sorted(int(i) for i in cap.get("free") or [])
+            booked = sorted([int(i) for i in cap.get("held") or {}]
+                            + [int(i) for i in cap.get("warm") or []])
+            fenced = sorted(int(i) for i in cap.get("fenced") or [])
+            if free != free_truth:
+                out.append(f"capacity divergence on {node}: reported free {free} != ground "
+                           f"truth {free_truth}")
+            if booked != held_truth:
+                out.append(f"capacity divergence on {node}: reported held+warm {booked} != "
+                           f"ground-truth bookings {held_truth}")
+            if fenced != fenced_truth:
+                out.append(f"capacity divergence on {node}: reported fenced {fenced} != "
+                           f"ground-truth dead {fenced_truth}")
+        return out
+
+    def _share_agreement(self) -> list[str]:
+        """Invariant 19: the master's books against each live tenant's ledger
+        share records (value for value) and its policy entries (at the map's
+        (major, minor) keys: the fake GPUs share device numbers, so distinct
+        GPUs may land on one key, as in a kernel map; the weight equal, the
+        metering alike, since the engine's tokens are spent), no engine
+        scope without books; then the throttle's decisions."""
+        out = []
+        books = self.app.shares.books()
+        for scope in POLICY_ENGINE.scopes():
+            if scope not in books:
+                out.append(f"policy engine scope {scope!r} has entries but no master share "
+                           f"books (leaked policy)")
+        for (ns, name), node in sorted(self.pods.items()):
+            if node in self.dead_nodes:
+                continue
+            tenant = f"{ns}/{name}"
+            want = books.get(tenant, {})
+            service = self.services[node]
+            ledger = (service.ledger.share_holdings().get((ns, name), {})
+                      if service.ledger is not None else {})
+            if set(want) != set(ledger):
+                out.append(f"share books/ledger diverge for {tenant}: books {sorted(want)} != "
+                           f"ledger {sorted(ledger)}")
+            else:
+                for uuid, value in sorted(want.items()):
+                    if ledger[uuid] != value:
+                        out.append(f"ledger share record diverges for {tenant} chip {uuid}: "
+                                   f"{ledger[uuid]} != books {value}")
+            devs = {d.uuid: d for d in self.cluster.node(node).backend.list_devices()}
+            expected: dict[int, set[tuple[int, bool]]] = {}
+            for uuid, (weight, budget) in want.items():
+                dev = devs.get(uuid)
+                if dev is None:
+                    out.append(f"booked share chip {uuid} for {tenant} is not a device {node} "
+                               f"has")
+                    continue
+                expected.setdefault(ebpf.telemetry_key(dev.major, dev.minor), set()).add(
+                    (weight, budget > 0))
+            entries = POLICY_ENGINE.entries(tenant)
+            if set(entries) != set(expected):
+                out.append(f"share policy keys diverge for {tenant}: books project to "
+                           f"{sorted(hex(k) for k in expected)} != policy entries "
+                           f"{sorted(hex(k) for k in entries)}")
+                continue
+            for key, value in sorted(entries.items()):
+                got = (ebpf.policy_weight(value),
+                       ebpf.policy_tokens(value) != ebpf.POLICY_UNMETERED)
+                if got not in expected[key]:
+                    out.append(f"share policy value diverges for {tenant} key {key:#x}: entry "
+                               f"(weight, metered) {got} not among booked {expected[key]}")
+        out.extend(self._throttle_agreement(books))
+        return out
+
+    def _throttle_agreement(self, books: dict) -> list[str]:
+        """Invariant 19's decisions (``throttle_walk``) on the first metered
+        share of the books: any access the engine and the device program
+        decide apart, any access past the budget admitted, and any
+        difference in the tokens left, are violations. The walk refills
+        first, so a second check repeats it."""
+        target = next(((tenant, uuid, weight) for tenant, held in sorted(books.items())
+                       for uuid, (weight, budget) in sorted(held.items()) if budget > 0),
+                      None)
+        if target is None:
+            return ["share scenario converged with no metered share left to probe throttling"]
+        tenant, uuid, weight = target
+        ns, name = tenant.split("/", 1)
+        dev = next(d for d in self.cluster.node(self.pods[(ns, name)]).backend.list_devices()
+                   if d.uuid == uuid)
+        decisions, left_engine, left_kernel = throttle_walk(tenant, dev, weight, THROTTLE_TOKENS)
+        out = []
+        for step, (engine, kernel) in enumerate(decisions, start=1):
+            if engine != kernel:
+                out.append(f"throttle divergence for {tenant} chip {uuid} at access {step} of "
+                           f"a {THROTTLE_TOKENS}-token budget: engine admits={engine} != "
+                           f"in-kernel program admits={kernel}")
+            if step > THROTTLE_TOKENS and kernel:
+                out.append(f"tenant {tenant} chip {uuid} NOT throttled in-kernel past its "
+                           f"{THROTTLE_TOKENS}-token budget (access {step} admitted)")
+        if left_engine != left_kernel:
+            out.append(f"throttle post-state diverges for {tenant} chip {uuid}: engine tokens "
+                       f"left {left_engine} != map tokens left {left_kernel}")
+        return out
+
+
+#: the budget invariant 19's throttle walk refills a metered share to
+THROTTLE_TOKENS = 3
+
+
+def throttle_walk(tenant: str, dev, weight: int, tokens: int) -> tuple[list, int, int]:
+    """A metered share refilled to `tokens` in the userspace engine and
+    driven tokens + 2 times through the engine and through the interpreter
+    running the real device program over dict maps: ([(engine admits,
+    program admits)] an access, the engine's tokens left, the map's)."""
+    key = ebpf.telemetry_key(dev.major, dev.minor)
+    POLICY_ENGINE.refill(tenant, dev.major, dev.minor, tokens)
+    tmap_fd, pmap_fd = 5, 7
+    prog = ebpf.build_device_program((), telemetry_map_fd=tmap_fd, policy_map_fd=pmap_fd)
+    maps = {tmap_fd: {key: 0}, pmap_fd: {key: ebpf.policy_value(weight, tokens)}}
+    rw = ebpf.BPF_DEVCG_ACC_READ | ebpf.BPF_DEVCG_ACC_WRITE
+    decisions = [(bool(POLICY_ENGINE.admit(tenant, dev.major, dev.minor)),
+                  bool(interpret_device_program(prog, maps, ebpf.BPF_DEVCG_DEV_CHAR, rw,
+                                                dev.major, dev.minor)))
+                 for _ in range(tokens + 2)]
+    return (decisions, ebpf.policy_tokens(POLICY_ENGINE.entries(tenant).get(key, 0)),
+            ebpf.policy_tokens(maps[pmap_fd][key]))
 
 
 # --- invariant 12: a stale shard owner, fenced (run on its own) ---

@@ -447,10 +447,13 @@ class LoopbackWorkerClient:
 
     def add_gpu(self, pod_name: str, namespace: str, gpu_num: int,
                 is_entire_mount: bool = False, idempotency_key: str = "", epoch: int = 0,
-                timeout_s: float | None = None) -> api.AddGPUResponse:
+                timeout_s: float | None = None, share_weight: int = 0,
+                share_rate_budget: int = 0) -> api.AddGPUResponse:
         return self._call(self.service.add_gpu,
                           api.AddGPURequest(pod_name, namespace, gpu_num, is_entire_mount,
-                                            idempotency_key, epoch=epoch),
+                                            idempotency_key, epoch=epoch,
+                                            share_weight=share_weight,
+                                            share_rate_budget=share_rate_budget),
                           api.AddGPUResponse, api.ADD_METHOD)
 
     def remove_gpu(self, pod_name: str, namespace: str, uuids: list[str],

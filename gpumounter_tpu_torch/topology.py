@@ -13,6 +13,13 @@ sources define it: GKE's A3 machine type ``a3-highgpu-8g`` (8 H100 80GB a
 VM, under the node label ``cloud.google.com/gke-accelerator:
 nvidia-h100-80gb``) and NVIDIA's DGX H100 / HGX H100 8-GPU board (8 GPUs on
 four NVSwitch chips).
+
+``FEASIBILITY_SHAPES`` is the counterpart of the reference's ``_TOPOLOGIES``
+for the capacity plane's feasibility table (``obs/capacity.py``): the H100's
+one-host sizes 1, 2, 4 and 8 (GKE's A3 machine types ``a3-highgpu-1g``,
+``-2g``, ``-4g`` and ``-8g``) and whole hosts from 2 to 32 (16-256 GPUs;
+256 is where the reference's v5e table ends), each built by ``lookup`` and
+named ``<type>-<n>``, as the reference names a v5e shape by its chips.
 """
 
 from __future__ import annotations
@@ -68,3 +75,20 @@ def lookup(accel_type: str, n_gpus: int) -> GpuTopology:
         raise TopologyError(f"{n_gpus} GPUs of {norm} are not a whole number of hosts of "
                             f"{per_host}")
     return GpuTopology(norm, n_gpus // per_host, per_host)
+
+
+#: the GPU counts of the feasibility table: one host's A3 sizes, then 2-32
+#: whole hosts
+FEASIBILITY_GPUS = (1, 2, 4, 8, 16, 32, 64, 128, 256)
+
+
+def _feasibility_shapes() -> dict[str, GpuTopology]:
+    out: dict[str, GpuTopology] = {}
+    for accel_type in sorted(GPUS_PER_HOST):
+        for n in FEASIBILITY_GPUS:
+            out[f"{accel_type}-{n}"] = lookup(accel_type, n)
+    return out
+
+
+#: "<type>-<n>" -> its layout, the shapes the capacity plane judges each pass
+FEASIBILITY_SHAPES: dict[str, GpuTopology] = _feasibility_shapes()

@@ -50,7 +50,8 @@ response and mounts or unmounts nothing (the client's retries depend on it).
 
 ``collect_telemetry`` answers the fleet collector's CollectTelemetry (the
 reference's ``worker/server.py:552-599``): the process's telemetry snapshot
-(``obs/fleet.py``) in a ``worker.CollectTelemetry`` span, with the
+(``obs/fleet.py``) with the node's GPUs in its ``capacity`` section
+(``obs/capacity.py``), in a ``worker.CollectTelemetry`` span, with the
 ``worker.rpc`` failpoint; the request's ``quarantined`` drains the node's
 warm pool (``WarmPodPool.set_drained``) or lets it refill.
 
@@ -335,8 +336,12 @@ class GpuMountService:
         (read, never swapped), the tenants' snapshots and the newest spans.
         The master's quarantine verdict rides the request: while it is set
         the node's warm holders are drained and their refill paused, and a
-        failure of that toggle does not fail the answer. The reference's
-        ``capacity`` section comes with the capacity plane."""
+        failure of that toggle does not fail the answer. The snapshot's
+        ``capacity`` section is this service's GPUs by index, free, held,
+        warm or fenced (``obs.capacity.node_capacity_snapshot``): it is
+        attached here, not in the snapshot's builder, since the registry's
+        series are the process's and the inventory is this node's."""
+        from gpumounter_tpu_torch.obs.capacity import node_capacity_snapshot
         from gpumounter_tpu_torch.obs.fleet import worker_telemetry_snapshot
         with trace.span("worker.CollectTelemetry", wire_parent=request.trace_context):
             failpoints.fire("worker.rpc", method="CollectTelemetry")
@@ -345,10 +350,13 @@ class GpuMountService:
                     self.pool.set_drained(self.cfg.node_name, bool(request.quarantined))
                 except Exception:  # noqa: BLE001 — a side effect: never the answer
                     logger.exception("warm-pool drain toggle failed")
+            snapshot = worker_telemetry_snapshot(cfg=self.cfg)
+            snapshot["capacity"] = node_capacity_snapshot(self.collector, pool=self.pool,
+                                                           cfg=self.cfg)
             return api.CollectTelemetryResponse(
                 collect_telemetry_result=api.CollectTelemetryResult.Success,
                 node_name=self.cfg.node_name or "",
-                telemetry=json.dumps(worker_telemetry_snapshot(cfg=self.cfg)))
+                telemetry=json.dumps(snapshot))
 
     # --- ProbeGPU (the health plane's canary read; no original analog) ---
 
@@ -506,10 +514,16 @@ class GpuMountService:
         # the GPUs the device plugin gave the pod itself.
         base_rules = [device_rule(d) for d in self.collector.snapshot()
                       if d.pod_name == pod.name and d.namespace == pod.namespace]
+        # a fractional grant (fields 9-10): a share_weight makes each GPU of
+        # the batch a policy entry, kept in the ledger's share records
+        policy = None
+        if request.share_weight > 0:
+            policy = {d.uuid: (int(request.share_weight), int(request.share_rate_budget))
+                      for d in devices}
         try:
             with timer.phase("mount"):
                 target = self.mounter.resolve_target(pod)
-                self.mounter.mount_many(target, devices, base_rules=base_rules)
+                self.mounter.mount_many(target, devices, base_rules=base_rules, policy=policy)
         except MountError as exc:
             # The mounter undid the batch; what is left is the scheduler's
             # books (server.go:86-91).

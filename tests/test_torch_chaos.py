@@ -624,3 +624,66 @@ def test_the_gray_p95_floor_clears_a_loaded_hosts_stall_and_stays_under_the_limp
 
     assert signals(20.0, 45.0) and not signals(ChaosHarness.GRAY_P95_FLOOR_MS, 45.0)
     assert signals(20.0, 210.0) and signals(ChaosHarness.GRAY_P95_FLOOR_MS, 210.0)
+
+
+# --- invariant 17: the capacity plane against the scheduler's books ---
+
+
+@pytest.mark.parametrize("name", list(SIDES))
+def test_capacity_invariant_detects_withheld_unmount(tmp_path, name):
+    """Invariant 17 holds after a clean mount on both harnesses, and a held
+    GPU's kubelet claim erased without its unmount (a lost unmount) is named
+    as capacity divergence, with the seed. The positive side runs in every
+    check_invariants of this file's scenarios."""
+    mod, _, target, _, coordinator = SIDES[name]
+    root = short_root() if name == "reference" else str(tmp_path)
+    try:
+        with mod.ChaosHarness(root, seed=3) as h:
+            h.add_pod("cap-pod", mod.NODE_A)
+            coordinator(h).mount_slice([target(namespace="default", pod="cap-pod")], 1,
+                                       entire=False)
+            h.check_invariants()
+            assert h.withhold_unmount(mod.NODE_A) is not None
+            with pytest.raises(mod.InvariantViolation) as err:
+                h.check_invariants()
+    finally:
+        if name == "reference":
+            shutil.rmtree(root, ignore_errors=True)
+    message = str(err.value)
+    assert "capacity divergence on chaos-a: reported free" in message and "seed=3" in message
+
+
+# --- invariant 19: fractional shares, books == policy == ledger ---
+
+
+def test_the_share_pool_and_tenants_are_the_references():
+    assert ChaosHarness.FAULTS_SHARE == ref_chaos.ChaosHarness.FAULTS_SHARE
+    assert ChaosHarness.SHARE_TENANTS == ref_chaos.ChaosHarness.SHARE_TENANTS
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_share_chaos(tmp_path, seed):
+    """Policy-carrying mounts over gRPC, re-grants, releases and worker deaths
+    with the replay, then invariant 19 (books == policy entries == ledger
+    share records, the throttle alike in the engine and the device program)
+    and invariant 17; the reference's draws on the same seed."""
+    with ChaosHarness(str(tmp_path), seed) as h:
+        h.run_share_scenario()
+        h.check_invariants()
+        assert h.app.shares.books(), h.schedule
+        assert _draws(h.schedule) == _reference_draws("run_share_scenario", seed)
+
+
+def test_share_chaos_detects_disabled_enforcement(tmp_path):
+    """The engine a bookkeeper (admits past an exhausted budget): the
+    throttle half of invariant 19 names the divergence from the device
+    program."""
+    with ChaosHarness(str(tmp_path), seed=7) as h:
+        h.run_share_scenario(n_ops=6)
+        h.check_invariants()
+        h.disable_enforcement()
+        with pytest.raises(InvariantViolation) as err:
+            h.check_invariants()
+    assert "throttle divergence" in str(err.value) and "seed=7" in str(err.value)
+    from gpumounter_tpu_torch.cgroup.policy import POLICY_ENGINE
+    assert POLICY_ENGINE.enforce is True  # the harness's stop puts it back

@@ -540,11 +540,43 @@ def test_the_series_are_the_references():
 
 
 def test_record_rejection_is_the_capacity_planes_seam_and_does_nothing():
-    """No capacity plane yet (ROADMAP 7l): the reference's record_rejection
-    does nothing with no plane registered, and so does the port's seam."""
-    from gpumounter_tpu.obs import capacity
-    assert capacity.record_rejection("n", "default", "p", 2) is None
-    assert reconciler.record_rejection("n", "default", "p", 2) is None
+    """The reconciler's refusals go through ``obs.capacity.record_rejection``
+    (``reconciler.capacity_obs``), as the reference's: with no plane
+    registered it does nothing on both sides (the reference's
+    ``test_module_level_rejection_is_noop_without_plane``); with one, each
+    records one ``capacity.reject`` of the same outcome."""
+    from gpumounter_tpu.config import Config as RefConfig
+    from gpumounter_tpu.obs import capacity as ref_capacity
+    from gpumounter_tpu.obs.audit import AUDIT as REF_AUDIT
+    from gpumounter_tpu_torch.obs import capacity
+    from gpumounter_tpu_torch.obs.audit import AUDIT
+    assert reconciler.capacity_obs is capacity
+
+    class _Fleet:
+        def payload(self, max_age_s=None):
+            return {"nodes": {"n": {"capacity": {"total": 4, "free": [0], "warm": [],
+                                                 "fenced": [], "held": {}}}}}
+
+    saved = ref_capacity._PLANE
+    try:
+        for mod in (ref_capacity, capacity):
+            mod.register_plane(None)
+            assert mod.record_rejection("n", "default", "p", 2) is None
+        assert [r for r in REF_AUDIT.snapshot() if r["operation"] == "capacity.reject"] == []
+        assert AUDIT.query(operation="capacity.reject") == []
+        ref_capacity.register_plane(ref_capacity.CapacityPlane(_Fleet(), cfg=RefConfig()))
+        capacity.register_plane(capacity.CapacityPlane(_Fleet(), cfg=Config()))
+        for mod in (ref_capacity, capacity):
+            assert mod.record_rejection("n", "default", "p", 2) is None
+        ref = [r for r in REF_AUDIT.snapshot() if r["operation"] == "capacity.reject"]
+        ours = AUDIT.query(operation="capacity.reject")
+        assert len(ref) == len(ours) == 1
+        assert (ours[0]["outcome"], ours[0]["details"]) == (ref[0]["outcome"],
+                                                            ref[0]["details"])
+        assert "cause: exhaustion" in ours[0]["outcome"]
+    finally:
+        ref_capacity.register_plane(saved)
+        capacity.register_plane(None)
 
 
 def test_elastic_migrate_check_on_the_cpu():

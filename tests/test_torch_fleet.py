@@ -245,10 +245,10 @@ def test_two_collectors_of_the_same_stub_fleet_roll_up_equal(port_master_counter
                else Config(fleet_scrape_interval_s=3600.0))
         payloads[name] = _unstamped(
             mod.FleetCollector(workers, _stub_client(answers), cfg=cfg).collect_once())
-    # the reference's capacity counters come with its capacity plane
-    capacity = {k: payloads["reference"]["master"].pop(k)
-                for k in ("slice_feasible", "slice_infeasible")}
-    assert capacity == {"slice_feasible": 0.0, "slice_infeasible": 0.0}
+    # the capacity plane's counters ride both rollups (no plane here: 0)
+    for side in payloads.values():
+        assert {k: side["master"][k] for k in ("slice_feasible", "slice_infeasible")} == \
+            {"slice_feasible": 0.0, "slice_infeasible": 0.0}
     assert payloads["port"] == payloads["reference"]
     assert payloads["port"]["fleet"]["mount_count"] == sum(
         s["mount_latency"]["count"] for s in snaps.values())
@@ -418,9 +418,19 @@ def test_quarantined_drains_the_warm_pool_and_lets_it_refill(tmp_path):
         resp = service.collect_telemetry(api.CollectTelemetryRequest(quarantined=True))
         assert fleet.parse_telemetry(resp.telemetry) is not None and resp.node_name == node
         assert pool.drained(node) and pool.ready_count(node) == 0
+        # the pull's capacity section: the node's GPUs by index, read after
+        # the drain released both warm holders
+        section = json.loads(resp.telemetry)["capacity"]
+        assert {k: section[k] for k in ("schema", "total", "free", "warm", "fenced", "held",
+                                        "warm_ready", "ownership_known")} == {
+            "schema": "tpumounter-capacity/1", "total": 4, "free": [0, 1, 2, 3], "warm": [],
+            "fenced": [], "held": {}, "warm_ready": 0, "ownership_known": True}
         assert pool.refill_once() == 0
         service.collect_telemetry(api.CollectTelemetryRequest(quarantined=False))
         assert not pool.drained(node) and pool.refill_once() == 2
+        resp = service.collect_telemetry(api.CollectTelemetryRequest(quarantined=False))
+        section = json.loads(resp.telemetry)["capacity"]
+        assert (len(section["warm"]), len(section["free"]), section["warm_ready"]) == (2, 2, 2)
         pool.set_drained = lambda *a: (_ for _ in ()).throw(RuntimeError("toggle broke"))
         resp = service.collect_telemetry(api.CollectTelemetryRequest(quarantined=True))
         assert fleet.parse_telemetry(resp.telemetry)["schema"] == "tpumounter-telemetry/1"

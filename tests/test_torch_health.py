@@ -784,3 +784,47 @@ def test_health_check_on_the_cpu():
     d = h["death"]
     assert d["released"] and d["passes"] >= 2 and "evacuated" in d["release_refused"]
     assert d["pid"] != os.getpid() and d["spawn_ms"] > 0
+
+
+# --- the share packer: the health plane's placement consumer ---
+
+
+def _share_packer(side):
+    from gpumounter_tpu.vchip import packer as ref_packer
+    from gpumounter_tpu.vchip import shares as ref_shares
+    from gpumounter_tpu_torch.vchip import packer, shares
+    pmod, smod = (ref_packer, ref_shares) if side.kind == "reference" else (packer, shares)
+    cfg = _cfg(side)
+    return pmod, pmod.SharePacker(smod.ShareRegistry(cfg=cfg), cfg=cfg)
+
+
+def test_packer_hard_excludes_quarantined_hosts():
+    """``excluded_hosts`` (the plane's quarantined) is a hard exclusion:
+    their GPUs are never candidates, even when the refusal is the
+    alternative; as the reference's."""
+    got = {}
+    for name, side in SIDES.items():
+        pmod, packer = _share_packer(side)
+        with pytest.raises(pmod.PackRefused) as err:
+            packer.admit("default", "p", "balanced", 1, 50, inventory={"chip-q": "node-q"},
+                         excluded_hosts={"node-q"})
+        booked = packer.admit("default", "p", "balanced", 1, 50,
+                              inventory={"chip-q": "node-q", "chip-ok": "node-ok"},
+                              excluded_hosts={"node-q"})
+        got[name] = (str(err.value), [s.chip_uuid for s in booked])
+    assert got["port"] == got["reference"]
+    assert got["port"][1] == ["chip-ok"]
+
+
+def test_packer_probation_hosts_rank_last_but_stay_placeable():
+    got = {}
+    for name, side in SIDES.items():
+        _, packer = _share_packer(side)
+        inventory = {"a-rehab": "node-r", "b-clear": "node-ok"}
+        first = packer.admit("default", "p", "balanced", 1, 50, inventory=inventory,
+                             probation_hosts={"node-r"})
+        # probation beats a refusal when it is all that is left
+        second = packer.admit("default", "q", "balanced", 1, 60, inventory=inventory,
+                              probation_hosts={"node-r"})
+        got[name] = ([s.chip_uuid for s in first], [s.chip_uuid for s in second])
+    assert got["port"] == got["reference"] == (["b-clear"], ["a-rehab"])

@@ -332,10 +332,13 @@ def test_the_port_serves_only_the_original_surface(stacks):
     recovery and health planes. The intents and migrations (/intents,
     /intents/<ns>/<pod>, /migrate, /migrations, /migrations/<mid> and its
     abort) are served and want the mutate token, whatever the read token,
-    as the reference's. 29 of the reference's 41 routes are served, each
-    under the reference's name."""
+    as the reference's. So are the capacity pane and the share books
+    (/capacity, /shares), reads in the read scope, and the shares' admission
+    and release (POST /shares, DELETE /shares/<ns>/<pod>), which want the
+    mutate token. 33 of the reference's 41 routes are served, each under the
+    reference's name; its defrag and autoscale routes get the 404."""
     served = [name for _, _, name in port_app._ROUTES]
-    assert len(served) == 29 and len(ref_app._ROUTES) == 41
+    assert len(served) == 33 and len(ref_app._ROUTES) == 41
     assert set(served) <= {name for _, _, name in ref_app._ROUTES}
     s = stacks["port"]
     for method, path, want in (("GET", "/intents", 200), ("GET", "/migrations", 200),
@@ -352,12 +355,19 @@ def test_the_port_serves_only_the_original_surface(stacks):
     status, body = http(s, "GET", "/shards")
     assert status == 200 and json.loads(body)["active"] is False
     assert http(s, "GET", "/shards", auth=False) == (401, "missing or invalid bearer token\n")
-    for path in ("/capacity", "/addtpu/namespace/default/pod/p/tpu/1/isEntireMount/false"):
+    for path in ("/defrag", "/autoscale",
+                 "/addtpu/namespace/default/pod/p/tpu/1/isEntireMount/false"):
         assert http(s, "GET", path) == (404, "404 page not found\n"), path
+    for path in ("/defrag/plan", "/autoscale/pause"):
+        assert http(s, "POST", path, {}) == (404, "404 page not found\n"), path
+    assert set(served) == {name for _, _, name in ref_app._ROUTES} - {
+        "defrag", "defrag_plan", "defrag_run", "defrag_pause", "autoscale",
+        "autoscale_pause", "autoscale_resume", "autoscale_evaluate"}
     status, body = http(s, "GET", "/metrics", auth=False)
     assert status == 200 and "tpumounter_mount_total" in body
     for path, key in (("/fleet", "nodes"), ("/slo", "objectives"), ("/tenants", "tenants"),
-                      ("/recovery", "evacuations"), ("/health/nodes", "quarantine_budget")):
+                      ("/recovery", "evacuations"), ("/health/nodes", "quarantine_budget"),
+                      ("/capacity", "feasibility"), ("/shares", "totals")):
         status, body = http(s, "GET", path)
         assert status == 200 and key in json.loads(body), path
         assert http(s, "GET", path, auth=False) == (401, "missing or invalid bearer token\n")
@@ -365,7 +375,8 @@ def test_the_port_serves_only_the_original_surface(stacks):
     scoped = s.make_app(auth_read_token="read-only-scope")
     try:
         for route in ("/metrics", "/fleet", "/slo", "/tenants", "/audit", "/timeline",
-                      "/apihealth", "/shards", "/recovery", "/health/nodes"):
+                      "/apihealth", "/shards", "/recovery", "/health/nodes", "/capacity",
+                      "/shares"):
             assert scoped.handle("GET", route, b"", read)[0] == 200, route
             assert scoped.handle("GET", route, b"", dict(AUTH_HEADER))[0] == 200, route
             assert scoped.handle("GET", route, b"", {})[:3] == (
@@ -376,11 +387,12 @@ def test_the_port_serves_only_the_original_surface(stacks):
             401, "text/plain", "missing or invalid bearer token\n")
         assert scoped.handle("GET", "/workers", b"", read)[0] == 401
         for path in ("/recovery/evacuate/gpu-node-0", "/health/quarantine/gpu-node-0",
-                     "/migrate", "/migrations/mig-none/abort"):
+                     "/migrate", "/migrations/mig-none/abort", "/shares"):
             assert scoped.handle("POST", path, b"", read)[:3] == (
                 401, "text/plain", "missing or invalid bearer token\n"), path
         for method, path in (("GET", "/intents"), ("GET", "/migrations"),
-                             ("PUT", "/intents/default/p"), ("DELETE", "/intents/default/p")):
+                             ("PUT", "/intents/default/p"), ("DELETE", "/intents/default/p"),
+                             ("DELETE", "/shares/default/p")):
             assert scoped.handle(method, path, b"", read)[:3] == (
                 401, "text/plain", "missing or invalid bearer token\n"), path
     finally:

@@ -111,7 +111,7 @@ PORT_MODULES = ["cgroup.ebpf", "cgroup.policy", "rpc.resilience", "rpc.client", 
                 "store.writebehind", "store.cache", "store.watch", "master.shard",
                 "allocator.pool", "obs.tenants", "obs.assembly", "obs.fleet", "obs.slo",
                 "health.plane", "recovery.controller", "elastic.reconciler",
-                "migrate.orchestrator"]
+                "migrate.orchestrator", "obs.capacity", "vchip.shares"]
 
 
 def test_every_series_of_the_port_is_the_references():
@@ -167,7 +167,13 @@ def test_every_series_of_the_port_is_the_references():
             "tpumounter_chips_healed_total", "tpumounter_chips_heal_failures_total",
             "tpumounter_intents_registered", "tpumounter_migrations_total",
             "tpumounter_migration_phase_duration_seconds",
-            "tpumounter_migration_downtime_seconds"} == set(seen)
+            "tpumounter_migration_downtime_seconds",
+            "tpumounter_capacity_free_chips", "tpumounter_capacity_fragmentation_index",
+            "tpumounter_capacity_size_feasible_total",
+            "tpumounter_capacity_size_infeasible_total",
+            "tpumounter_vchip_shares_active", "tpumounter_vchip_shared_chips",
+            "tpumounter_vchip_share_admits_total",
+            "tpumounter_vchip_share_releases_total"} == set(seen)
 
 
 # --- the series of the modules ported before the registry ---

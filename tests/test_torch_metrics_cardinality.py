@@ -132,3 +132,45 @@ def test_the_device_access_table_folds_past_its_cap(device_table):
     assert len({t for t, _ in counts}) == device_table.max_tenants + 1
     assert counts[(ebpf.TELEMETRY_OVERFLOW_TENANT, "grant")] == 2.0 * device_table.max_tenants
     assert REGISTRY.series_count() - before <= device_table.max_tenants + 1
+
+
+def test_capacity_and_shares_over_many_nodes_and_tenants_grow_only_their_fixed_series():
+    """/capacity and /shares carry node names, GPU indices and tenants on the
+    JSON plane only, as the reference's: 200 nodes of 8 GPUs observed and
+    served, and 300 shares of 150 tenants over 100 GPUs booked, admitted and
+    served, add the plane's two gauges and two counters and the shares'
+    four series, and nothing a node, a GPU or a tenant."""
+    from gpumounter_tpu_torch.obs import capacity
+    from gpumounter_tpu_torch.vchip import ShareRegistry, SharePacker
+
+    class Fleet:
+        def __init__(self, nodes):
+            self.nodes = nodes
+
+        def payload(self, max_age_s=None):
+            return {"at": 1.0, "nodes": self.nodes}
+
+    nodes = {f"node-{i:03d}": {"capacity": {
+        "schema": capacity.CAPACITY_SCHEMA, "total": 8, "free": list(range(i % 9)),
+        "warm": [], "fenced": [], "held": {str(g): f"ns/p-{i}-{g}" for g in range(i % 9, 8)},
+        "warm_ready": 0, "ownership_known": True}} for i in range(200)}
+    cfg = Config()
+    registry = ShareRegistry(cfg=cfg)
+    packer = SharePacker(registry, cfg=cfg)
+    plane = capacity.CapacityPlane(Fleet(nodes), cfg=cfg, shares=registry)
+    plane.observe(nodes)
+    packer.admit("churn", "warmup", "decode", 1, 10, inventory={"GPU-x": "node-000"})
+    before = REGISTRY.series_count()
+    for i in range(150):
+        packer.admit("churn", f"tenant-{i}", "prefill" if i % 2 else "decode", 2, 30,
+                     inventory={f"GPU-{(i * 2 + k) % 100:03d}": f"node-{(i + k) % 200:03d}"
+                                for k in range(2)})
+    plane.observe(nodes)
+    payload = plane.payload()
+    assert len(payload["nodes"]) == 200 and payload["shares"]["shares"] == 301
+    assert len(registry.payload()["shares"]) == 301
+    assert REGISTRY.series_count() - before == 0
+    classic = REGISTRY.render()
+    assert "node-1" not in classic and "tenant-1" not in classic and "GPU-0" not in classic
+    assert {"tpumounter_capacity_free_chips", "tpumounter_vchip_shares_active"} <= {
+        line.split(" ")[0] for line in classic.splitlines() if not line.startswith("#")}

@@ -85,10 +85,17 @@ OBS_FILES = sorted([*(REPO / "gpumounter_tpu_torch/faults").glob("*.py"),
                     *(REPO / "gpumounter_tpu_torch/obs").glob("*.py")])
 
 
-#: the fleet planes' modules, which also read the config and the device-access
-#: table (``cgroup/ebpf.py``, standard library only), as the reference's
-#: ``obs/fleet.py`` and ``obs/slo.py`` do
-FLEET_PLANE_FILES = {"fleet.py", "slo.py", "tenants.py", "assembly.py"}
+#: what obs/ modules may import besides the standard library, utils/, faults/
+#: and obs/: the fleet planes the config and the device-access table
+#: (``cgroup/ebpf.py``, standard library only), as the reference's
+#: ``obs/fleet.py`` and ``obs/slo.py`` do; the capacity plane the config and
+#: the topology's feasibility shapes (``topology.py``, standard library
+#: only), where the reference reads its config and ``master/topology.py``
+OBS_EXTRAS = {
+    **{name: ("gpumounter_tpu_torch.config", "gpumounter_tpu_torch.cgroup.ebpf")
+       for name in ("fleet.py", "slo.py", "tenants.py", "assembly.py")},
+    "capacity.py": ("gpumounter_tpu_torch.config", "gpumounter_tpu_torch.topology"),
+}
 
 
 @pytest.mark.parametrize("path", OBS_FILES, ids=lambda p: f"{p.parent.name}/{p.name}")
@@ -96,12 +103,13 @@ def test_faults_and_obs_import_only_the_stdlib_and_utils(path):
     """The failpoints and the trace, audit and flight stores are on the mount
     path: the standard library, the port's utils/ and each other only, as
     in the reference. The fleet planes may also import the config and the
-    device-access table's module."""
+    device-access table's module, the capacity plane the config and the
+    topology."""
     import sys
     allowed = ("gpumounter_tpu_torch.utils", "gpumounter_tpu_torch.faults",
                "gpumounter_tpu_torch.obs")
-    if path.parent.name == "obs" and path.name in FLEET_PLANE_FILES:
-        allowed += ("gpumounter_tpu_torch.config", "gpumounter_tpu_torch.cgroup.ebpf")
+    if path.parent.name == "obs":
+        allowed += OBS_EXTRAS.get(path.name, ())
     for node in ast.walk(ast.parse(path.read_text())):
         if isinstance(node, ast.Import):
             names = [a.name for a in node.names]
@@ -170,6 +178,43 @@ def test_the_reconciler_and_the_machine_import_only_the_control_planes_modules(r
         for name in names:
             assert name.split(".")[0] in sys.stdlib_module_names or name.startswith(allowed), \
                 f"{rel}:{node.lineno} imports {name}"
+
+
+VCHIP_FILES = sorted((REPO / "gpumounter_tpu_torch/vchip").glob("*.py"))
+
+
+@pytest.mark.parametrize("path", VCHIP_FILES, ids=lambda p: p.name)
+def test_the_shares_import_only_the_stdlib_config_and_utils(path):
+    """The share books and the packer: the standard library, the port's
+    config, utils/ and each other only, as the reference's ``vchip/``."""
+    import sys
+    allowed = tuple(f"gpumounter_tpu_torch.{m}" for m in ("config", "utils", "vchip"))
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module]
+        else:
+            continue
+        for name in names:
+            assert name.split(".")[0] in sys.stdlib_module_names or name.startswith(allowed), \
+                f"{path.name}:{node.lineno} imports {name}"
+
+
+def test_the_capacity_plane_imports_without_torch_or_grpc():
+    """The worker imports the snapshot half on its telemetry path: the
+    plane, the topology's shapes and the shares load with neither torch nor
+    grpc."""
+    import subprocess
+    import sys
+    code = ("import sys; import gpumounter_tpu_torch.obs.capacity as c, "
+            "gpumounter_tpu_torch.vchip, gpumounter_tpu_torch.topology; "
+            "c.CapacityPlane(None).blocked_hosts(); "
+            "print(sorted(m for m in ('torch', 'grpc', 'numpy') if m in sys.modules))")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         cwd=REPO, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip() == "[]"
 
 
 #: the modules of sharding and the warm pool, and what each may import
@@ -322,3 +367,70 @@ def test_chip_smoke_without_cuda_exits_1_and_prints_no_result():
     out = _run_chip_smoke(REPO)
     assert out.returncode == 1 and out.stdout == ""
     assert "no CUDA device" in out.stderr
+
+
+#: chip_smoke.py's tenant children: each mode and the function it runs
+CHILD_ENTRIES = {"--handoff-child": "_handoff_child", "--mount-child": "_mount_child",
+                 "--slice-child": "_slice_child", "--v2-child": "_v2_child",
+                 "--fleet-child": "_fleet_child"}
+
+
+def _imported_names(stmts) -> set[str]:
+    out = set()
+    for node in stmts:
+        if isinstance(node, ast.Import):
+            out |= {a.asname or a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom):
+            out |= {a.asname or a.name for a in node.names}
+    return out
+
+
+def _free_names(fn) -> set[str]:
+    """The names a function reads that it does not bind itself."""
+    loads, local = set(), set()
+    for node in ast.walk(fn):
+        if isinstance(node, ast.Name):
+            (loads if isinstance(node.ctx, ast.Load) else local).add(node.id)
+        elif isinstance(node, ast.arg):
+            local.add(node.arg)
+        elif isinstance(node, ast.ExceptHandler) and node.name:
+            local.add(node.name)
+        elif isinstance(node, (ast.Import, ast.ImportFrom)):
+            local |= _imported_names([node])
+        elif isinstance(node, (ast.FunctionDef, ast.ClassDef)) and node is not fn:
+            local.add(node.name)
+    return loads - local
+
+
+@pytest.mark.parametrize("mode", list(CHILD_ENTRIES))
+def test_each_child_mode_imports_what_it_runs(mode):
+    """chip_smoke.py imports for a tenant child only what its mode runs
+    (``CHILD_MODE``): every module-level name the child's function reaches,
+    through the script's own functions, must be bound in that mode. A name
+    missing there would raise only on the card, after CUDA's start."""
+    import builtins
+    tree = ast.parse((REPO / "chip_smoke.py").read_text())
+    funcs = {n.name: n for n in tree.body if isinstance(n, (ast.FunctionDef, ast.ClassDef))}
+    bound = set(dir(builtins)) | set(funcs) | {"__file__"} | _imported_names(
+        n for n in tree.body if isinstance(n, (ast.Import, ast.ImportFrom)))
+    modules = set()
+    for node in tree.body:
+        if isinstance(node, (ast.Assign, ast.AnnAssign)):
+            targets = node.targets if isinstance(node, ast.Assign) else [node.target]
+            bound |= {t.id for target in targets for t in ast.walk(target)
+                      if isinstance(t, ast.Name)}
+        elif isinstance(node, ast.If) and eval(ast.unparse(node.test), {"CHILD_MODE": mode}):
+            bound |= _imported_names(node.body)
+            modules |= {n.module for n in node.body if isinstance(n, ast.ImportFrom)}
+        elif isinstance(node, ast.Try):
+            bound |= _imported_names(node.body)
+    reached, todo, names = set(), [CHILD_ENTRIES[mode]], set()
+    while todo:
+        name = todo.pop()
+        if name not in reached:
+            reached.add(name)
+            free = _free_names(funcs[name])
+            todo.extend(free & set(funcs))
+            names |= free - set(funcs)
+    assert sorted(names - bound) == [], f"{mode} reaches names its imports leave unbound"
+    assert "gpumounter_tpu_torch.entry" not in modules

@@ -42,30 +42,22 @@ class _Kube:
         self.events.append((namespace, manifest))
 
 
-#: the reference's default objectives that come with its capacity plane,
-#: which the port has not yet (its counters are that plane's)
-CAPACITY_OBJECTIVES = {"slice-feasibility"}
-
-
-def _without_capacity(objectives):
-    return tuple(o for o in objectives if o.name not in CAPACITY_OBJECTIVES)
-
-
 def _engines(clock, kube=(None, None), **knobs):
     """(reference engine, port engine) on one clock, over the same default
     objectives."""
     knobs = {**SLO_KNOBS, **knobs}
     return (ref_slo.SloEngine(cfg=RefConfig().replace(**knobs), kube=kube[0],
-                              objectives=_without_capacity(ref_slo.DEFAULT_OBJECTIVES),
+                              objectives=ref_slo.DEFAULT_OBJECTIVES,
                               clock=lambda: clock[0]),
             slo.SloEngine(cfg=Config(**knobs), kube=kube[1], clock=lambda: clock[0]))
 
 
 def _rollup(count=0, buckets=(), success=0.0, error=0.0, heals=0.0, heal_failures=0.0,
-            clean=0.0, disrupted=0.0, downtime=None):
+            clean=0.0, disrupted=0.0, downtime=None, feasible=0.0, infeasible=0.0):
     return {"fleet": {"mount_count": count, "mount_buckets": [list(b) for b in buckets],
                       "mount_success": success, "mount_error": error},
-            "master": {"heals": heals, "heal_failures": heal_failures},
+            "master": {"heals": heals, "heal_failures": heal_failures,
+                       "slice_feasible": feasible, "slice_infeasible": infeasible},
             "tenants_fleet": {"tenant_clean_minutes": clean,
                               "tenant_disrupted_minutes": disrupted,
                               "downtime": downtime or {}}}
@@ -75,6 +67,9 @@ def _random_rollups(seed: int, n: int = 30):
     """(dt, rollup) steps: cumulative counts that grow, with a reset now and
     then (a worker's restart)."""
     rng = np.random.default_rng(seed)
+    # the capacity plane's evaluations: 9 shapes a pass, some denied
+    feasibility = np.random.default_rng(seed + 1000)
+    feasible = infeasible = 0.0
     fast = slow = success = error = heals = fails = clean = bad = windows = quick = 0.0
     out = []
     for _ in range(n):
@@ -95,9 +90,13 @@ def _random_rollups(seed: int, n: int = 30):
         quick = min(windows, quick + float(rng.integers(0, 3)))
         downtime = {"migration": {"buckets": [[1.0, quick], [2.5, quick], [5.0, windows]],
                                   "count": windows}}
+        denied = float(feasibility.integers(0, 3)) if feasibility.random() < 0.3 else 0.0
+        feasible += 9.0 - denied
+        infeasible += denied
         out.append((float(rng.choice([0.1, 0.4, 0.9, 2.5])),
                     _rollup(fast + slow, [(0.025, fast), (0.05, fast), (0.1, fast + slow)],
-                            success, error, heals, fails, clean, bad, downtime)))
+                            success, error, heals, fails, clean, bad, downtime,
+                            feasible, infeasible)))
     return out
 
 
@@ -238,11 +237,11 @@ def test_objectives_from_config_takes_and_refuses_what_the_reference_does(case):
     got = _declared(slo, Config(slo_objectives=raw))
     want = _declared(ref_slo, RefConfig().replace(slo_objectives=raw))
     if case == "the defaults":
-        want = [o for o in want if o["name"] not in CAPACITY_OBJECTIVES]
         assert got == [dataclasses.asdict(o) for o in slo.DEFAULT_OBJECTIVES]
     assert got == want
     if case == "the defaults":
-        assert len(got) == len(ref_slo.DEFAULT_OBJECTIVES) - len(CAPACITY_OBJECTIVES)
+        assert len(got) == len(ref_slo.DEFAULT_OBJECTIVES)
+        assert "slice-feasibility" in {o["name"] for o in got}
     elif case in ("one ratio", "a tenant downtime"):
         assert len(got) == 1
     else:

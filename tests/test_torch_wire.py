@@ -37,6 +37,13 @@ MESSAGES = [
     (api.AddGPURequest, ref_api.AddTPURequest, dict(pod_name="p", gpu_num=-3)),
     (api.AddGPURequest, ref_api.AddTPURequest, dict(pod_name="ünïcode-pod", gpu_num=2**31 - 1)),
     (api.AddGPURequest, ref_api.AddTPURequest, dict()),
+    # fields 9-10, the share policy: a weight and a budget, and a negative
+    # budget's 10-byte varint
+    (api.AddGPURequest, ref_api.AddTPURequest, dict(
+        pod_name="vc-decode", namespace="default", gpu_num=1, idempotency_key="add-s",
+        epoch=3, share_weight=40, share_rate_budget=64)),
+    (api.AddGPURequest, ref_api.AddTPURequest, dict(pod_name="p", share_weight=100,
+                                                    share_rate_budget=-1)),
     (api.AddGPUResponse, ref_api.AddTPUResponse, dict(
         add_gpu_result=api.AddGPUResult.Success, uuids=["GPU-a", "GPU-b"])),
     (api.AddGPUResponse, ref_api.AddTPUResponse, dict(
@@ -97,15 +104,17 @@ def test_pod_resources_list_is_the_references_bytes():
 
 
 def test_the_references_extra_fields_are_skipped():
-    """A reference request with fields the port leaves out (prefer_ici, the
-    share fields) decodes to the fields it has, field 7 (trace_context) and
-    field 8 (epoch) among them."""
+    """A reference request with the field the port leaves out (prefer_ici,
+    field 5) decodes to the fields it has, field 7 (trace_context), field 8
+    (epoch) and the share fields 9-10 among them."""
     ref = ref_api.AddTPURequest(pod_name="p", namespace="n", tpu_num=3, is_entire_mount=True,
                                 prefer_ici=True, idempotency_key="k", trace_context="t-s",
                                 epoch=-7, share_weight=2, share_rate_budget=9)
     ours = api.AddGPURequest.decode(ref.encode())
     assert _values(ours) == dict(pod_name="p", namespace="n", gpu_num=3, is_entire_mount=True,
-                                 idempotency_key="k", trace_context="t-s", epoch=-7)
+                                 idempotency_key="k", trace_context="t-s", epoch=-7,
+                                 share_weight=2, share_rate_budget=9)
+    assert 5 not in {f.number for f in api.AddGPURequest.FIELDS}
     ref_rm = ref_api.RemoveTPURequest(pod_name="p", uuids=["a"], trace_context="x", epoch=4)
     assert api.RemoveGPURequest.decode(ref_rm.encode()) == api.RemoveGPURequest(
         "p", uuids=["a"], trace_context="x", epoch=4)
@@ -205,7 +214,9 @@ def _protobuf_classes():
                               (4, "is_entire_mount", F.TYPE_BOOL, False),
                               (6, "idempotency_key", F.TYPE_STRING, False),
                               (7, "trace_context", F.TYPE_STRING, False),
-                              (8, "epoch", F.TYPE_INT64, False)])
+                              (8, "epoch", F.TYPE_INT64, False),
+                              (9, "share_weight", F.TYPE_INT32, False),
+                              (10, "share_rate_budget", F.TYPE_INT32, False)])
     message("AddGPUResponse", [(1, "add_gpu_result", F.TYPE_ENUM, False),
                                (2, "uuids", F.TYPE_STRING, True)])
     message("RemoveGPURequest", [(1, "pod_name", F.TYPE_STRING, False),
@@ -226,6 +237,8 @@ PROTOBUF = [(api.AddGPURequest, dict(pod_name="p", namespace="ns", gpu_num=4,
                                      is_entire_mount=True, idempotency_key="k",
                                      trace_context="0123456789abcdef0123456789abcdef-0123456789abcdef")),
             (api.AddGPURequest, dict(pod_name="p", gpu_num=-2, epoch=-5)),
+            (api.AddGPURequest, dict(pod_name="p", gpu_num=1, share_weight=40,
+                                     share_rate_budget=64)),
             (api.AddGPUResponse, dict(add_gpu_result=2, uuids=["GPU-a", "GPU-b"])),
             (api.RemoveGPURequest, dict(pod_name="p", namespace="ns", uuids=["a", "b"],
                                         force=True, remove_all=False, idempotency_key="r",
