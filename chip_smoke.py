@@ -408,7 +408,14 @@ Phases, each raising on failure (any failure exits non-zero):
        tenant (the acks time out at 0.3 s): the machine rolls back to the
        pod that holds the intent, the journal ends rolled-back with its
        GPUMigrationRolledBack Event, and the books, the ledger and the
-       mounts agree.
+       mounts agree;
+    d. the defragmenter over HTTP on the same stack: GET /defrag (its
+       gates open), POST /defrag/plan over the node's real capacity view (a
+       host of one H100 is never blocked for a block of 4: a no-op plan, no
+       blocked host, index 0), POST /defrag/run of that plan, which ends
+       completed with 0 moves and stamps no capacity.recovered; the ms of
+       each. A real move needs two hosts, which the card's machine does not
+       have.
     Phase 15 also prints (b'): a second write partition lands while POST
     /migrate's machine waits in the quiesce; PUT /intents is refused (a
     user's CRUD is never deferred), the machine's journal persists (the
@@ -3770,6 +3777,11 @@ def phase_elastic_migrate(card: str, master_live: dict) -> int:
     print(f"time elastic (c) migrate.phase.verify armed: rolled back in {rb['wait_ms']:.3f} ms "
           f"(phases (s) {rb['phases_s']}), the Event {rb['event']!r}; books == ledger == "
           f"mounts {rb['books']} [{card}]", flush=True)
+    d = f["defrag"]
+    print(f"time elastic (d) GET /defrag {d['get_ms']:.3f} ms; POST /defrag/plan "
+          f"{d['plan_ms']:.3f} ms (block {d['target_block']}, no move, no blocked host, the "
+          f"node's view {d['host']}); POST /defrag/run {d['run_ms']:.3f} ms, {d['status']} with "
+          f"{d['moves']} moves {d['done_ms']:.3f} ms after it [{card}]", flush=True)
     print(f"time elastic phase 19: {time.perf_counter() - t_phase:.1f} s (the stack's start "
           f"{f['start_ms']:.1f} ms) [{card}]", flush=True)
     return m["launches"]

@@ -398,6 +398,29 @@ class Config:
     capacity_trend_samples: int = field(default_factory=lambda: int(
         _env("CAPACITY_TREND_SAMPLES", "64")))
 
+    # --- the defragmenter (defrag/) ---
+    # the background loop is off unless TPUMOUNTER_DEFRAG (a run migrates
+    # live tenants; GET and POST /defrag work either way) and runs every
+    # DEFRAG_INTERVAL_S; a plan moves at most DEFRAG_MAX_MOVES tenants and
+    # each at most DEFRAG_TENANT_MOVE_BUDGET times; a snapshot or an adopted
+    # plan older than DEFRAG_SNAPSHOT_MAX_AGE_S is refused; the block
+    # recovered by default is 4 GPUs on one host (nvidia-h100-80gb-4);
+    # DEFRAG_GROUP_FANOUT groups whose hosts are disjoint run at once
+    defrag_enabled: bool = field(default_factory=lambda: _env(
+        "TPUMOUNTER_DEFRAG", "false").lower() in ("1", "true", "yes"))
+    defrag_interval_s: float = field(default_factory=lambda: float(
+        _env("DEFRAG_INTERVAL_S", "300")))
+    defrag_max_moves: int = field(default_factory=lambda: int(
+        _env("DEFRAG_MAX_MOVES", "8")))
+    defrag_tenant_move_budget: int = field(default_factory=lambda: int(
+        _env("DEFRAG_TENANT_MOVE_BUDGET", "1")))
+    defrag_snapshot_max_age_s: float = field(default_factory=lambda: float(
+        _env("DEFRAG_SNAPSHOT_MAX_AGE_S", "60")))
+    defrag_target_block: int = field(default_factory=lambda: int(
+        _env("DEFRAG_TARGET_BLOCK", "4")))
+    defrag_group_fanout: int = field(default_factory=lambda: int(
+        _env("DEFRAG_GROUP_FANOUT", "2")))
+
     # --- fractional shares (vchip/) ---
     # off: /shares' admission answers 503 and every grant stays whole-GPU;
     # the weight one GPU can carry (100 reads as percent); the books' bound;

@@ -4774,6 +4774,54 @@ def _rollback(stack: _MasterStack, src, dst, uuid: str, dev_dir: str) -> dict:
             "books": books}
 
 
+#: how long (d) waits for the run of its no-op plan to reach the history
+DEFRAG_RUN_DEADLINE_S = 10.0
+
+
+def _defrag_noop(stack: _MasterStack) -> dict:
+    """(d) the defragmenter over HTTP on the stack's own node, after (c):
+    GET /defrag (the gates open, nothing adopted), POST /defrag/plan over
+    the node's real capacity view (a host of this stack's GPUs is never
+    blocked for the default block of 4, so the plan is a no-op with no
+    blocked host), POST /defrag/run of that plan, which reaches the history
+    completed with 0 moves and stamps no ``capacity.recovered``. Raises on
+    the first check that does not hold; the ms of each call on the host
+    clock, and of the run's end from its POST."""
+    node = stack.cluster.node_name
+    status, body, get_ms = stack.http("GET", "/defrag")
+    pane = json.loads(body) if status == 200 else {}
+    gates = pane.get("gates") or {}
+    if status != 200 or not gates.get("api_ok") or gates.get("slo_burning")             or pane.get("plan") is not None or pane.get("run") is not None:
+        raise RuntimeError(f"(d) GET /defrag: {status} {body!r}")
+    host = json.loads(stack.http("GET", "/capacity")[1])["nodes"][node]
+    status, body, plan_ms = stack.http("POST", "/defrag/plan", payload={})
+    plan = json.loads(body) if status == 200 else {}
+    if status != 200 or plan.get("blocked_hosts") != [] or plan.get("moves") != []             or plan.get("fragmentation_before") != 0.0:
+        raise RuntimeError(f"(d) POST /defrag/plan: {status} {body!r}")
+    status, body, run_ms = stack.http("POST", "/defrag/run", payload={"plan_id": plan["id"]})
+    if status != 200:
+        raise RuntimeError(f"(d) POST /defrag/run: {status} {body!r}")
+    t0 = time.perf_counter()
+    run = None
+    while run is None and time.perf_counter() - t0 < DEFRAG_RUN_DEADLINE_S:
+        history = json.loads(stack.http("GET", "/defrag")[1])["history"]
+        run = next((r for r in history if r["plan_id"] == plan["id"]), None)
+        if run is None:
+            time.sleep(0.005)
+    done_ms = (time.perf_counter() - t0) * 1e3
+    recovered = [r for r in audit.AUDIT.query(operation="capacity.recovered")
+                 if (r.get("details") or {}).get("plan_id") == plan["id"]]
+    records = [r["outcome"] for r in audit.AUDIT.query(operation="defrag.run")
+               if (r.get("details") or {}).get("plan_id") == plan["id"]]
+    if run is None or run["status"] != "completed" or run["moves"] != []             or [b["fragmentation_index"] for b in run["barriers"]] != [0.0, 0.0]             or recovered or records != ["completed: 0/0 move(s)"]:
+        raise RuntimeError(f"(d) the run of {plan['id']}: {run}, defrag.run records {records}, "
+                           f"capacity.recovered {recovered}")
+    return {"get_ms": get_ms, "plan_ms": plan_ms, "run_ms": run_ms, "done_ms": done_ms,
+            "plan_id": plan["id"], "status": run["status"], "moves": len(run["moves"]),
+            "target_block": plan["target_block"],
+            "host": {k: host[k] for k in ("total", "free", "held", "warm")}}
+
+
 def elastic_migrate_check(device="cuda", *, dev_dir: str | None = None,
                           ns_pid: int | None = None, identity: str = "nvml",
                           ledger_root: str | None = None, tenant: dict | None = None) -> dict:
@@ -4792,7 +4840,8 @@ def elastic_migrate_check(device="cuda", *, dev_dir: str | None = None,
     through flash_fwd; on the CPU a thread over the in-process API with
     MIGRATE_TENANT_CPU. The pack is saved in a new directory under
     `ledger_root`. (c) ``_rollback``: the GPU migrated back with verify
-    failing.
+    failing. (d) ``_defrag_noop``: the defragmenter's routes on the node,
+    a no-op plan and its run.
 
     On the card (device="cuda") on the live ``NvidiaDeviceBackend`` mounting
     into `dev_dir` through the mount namespace of `ns_pid` (as
@@ -4800,7 +4849,7 @@ def elastic_migrate_check(device="cuda", *, dev_dir: str | None = None,
     host of 1 GPU. Runs on the card unless the caller passes device="cpu".
 
     Returns {"cap_mknod", "live" or "fake": {"start_ms", "heal", "migration",
-    "rollback"}, the other None}; ms on the host clock."""
+    "rollback", "defrag"}, the other None}; ms on the host clock."""
     device = resolve_device(device)
     live = device.type == "cuda"
     report = {"cap_mknod": has_cap_mknod(), "live": None, "fake": None}
@@ -4811,6 +4860,14 @@ def elastic_migrate_check(device="cuda", *, dev_dir: str | None = None,
         raise ValueError("elastic_migrate_check on the card needs the tenants' model: "
                          "tenant={'model': ..., 'tokens': [B, L]}")
     k8s_health.reset_all()
+    # the slice-feasibility objective gates (d), and its counters are the
+    # process's: a master of its own starts them at zero, where an earlier
+    # stack in this process (health_check's warm pool of 1: its one GPU warm,
+    # admissible-after-defrag) left bad events this stack's engine would read
+    # as its own from its first sample
+    from gpumounter_tpu_torch.obs import capacity as capacity_obs
+    capacity_obs.CAPACITY_SIZE_FEASIBLE.reset()
+    capacity_obs.CAPACITY_SIZE_INFEASIBLE.reset()
     root = tempfile.mkdtemp(prefix="elastic-migrate-check-")
     ledgers = tempfile.mkdtemp(prefix="elastic-migrate-ledgers-", dir=ledger_root)
     packs = tempfile.mkdtemp(prefix="migrate-pack-", dir=ledger_root)
@@ -4843,6 +4900,7 @@ def elastic_migrate_check(device="cuda", *, dev_dir: str | None = None,
                 stack, src, dst, uuid, packs, tenant or MIGRATE_TENANT_CPU,
                 {k: v for k, v in api.items() if k != "server"} if api else None, root)
             flows["rollback"] = _rollback(stack, dst, src, uuid, target)
+            flows["defrag"] = _defrag_noop(stack)
     finally:
         if api is not None:
             api["server"].stop()

@@ -10,9 +10,8 @@ covered by DYNAMIC_PREFIXES; their arm specs carry the concrete suffix
 (``k8s.patch_pod.status``).
 
 The names are the reference's, but for one: ``worker.addtpu.rollback.skip``
-is ``worker.addgpu.rollback.skip``. The reference's sites of packages the
-port has not yet (the defragmenter, the autoscaler) come with those
-packages.
+is ``worker.addgpu.rollback.skip``. The reference's site of the package the
+port has not yet (the autoscaler's ``autoscale.pass``) comes with it.
 
 This module is data: the runtime (``faults/failpoints.py``) does not read
 it, so an undeclared point still arms in a dev loop.
@@ -31,6 +30,9 @@ FAILPOINTS: dict[str, str] = {
                                   "simulation for the chaos harness)",
     # migration machine (migrate/orchestrator.py)
     "migrate.persist": "before a journal annotation persist",
+    # defragmenter (defrag/controller.py)
+    "defrag.run": "top of a defrag plan execution, before the first "
+                  "barrier sample",
     # rpc client (rpc/client.py)
     "rpc.client.call": "before every outbound worker RPC attempt",
     "rpc.client.deadline": "value(): per-call deadline override",

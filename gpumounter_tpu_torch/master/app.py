@@ -111,8 +111,8 @@ As in the reference: gpuNum and a batch target's gpus are range-checked
 against MAX_GPU_PER_REQUEST (the original never checks it), a batch holds at
 most BULK_MAX_TARGETS targets, every route but the index and /healthz wants
 a bearer token (``utils/auth.py``), and a path of no route gets "404 page
-not found". The reference's other routes (defrag, autoscale) come with the
-packages that serve them; until then their paths get that 404, /batch/addtpu
+not found". The reference's other routes (the autoscaler's) come with the
+package that serves them; until then their paths get that 404, /batch/addtpu
 among them.
 
 The capacity plane and the fractional shares (``obs/capacity.py``,
@@ -177,6 +177,27 @@ plane with it and the store, its persisted quarantine set loaded at once;
 the plane the fleet collector's ``health`` observer and the controller's
 ``health``; the canary prober over the mount path's client. Their loops run
 only after ``recovery.start()`` and ``canary.start()`` (``master/main.py``).
+
+The defragmenter (``defrag/``), as the reference's routes
+(``gpumounter_tpu/master/app.py:380-387, 1030-1096``), JSON out:
+
+      GET  /defrag            -> the gates, the adopted plan, the run in
+                                 flight with its barrier samples, the last
+                                 runs
+      POST /defrag/plan       {"target_block": n} (optional; 400 unless a
+                               positive integer) -> the plan, adopted
+      POST /defrag/run        {"plan_id": "dfp-..."} (optional) -> the pane;
+                               the moves run on a thread of their own
+      POST /defrag/pause      -> the pane
+
+GET is in the read scope and untraced; the POSTs want the mutate token and
+leave an edge audit record. A refusal answers its own status: 409 (a stale
+snapshot or plan, no plan, busy), 503 with Retry-After (the API degraded,
+an objective burning). The controller is built after the recovery
+controller, over the migration machine, the capacity plane and the fleet
+collector, with the health plane, so that quarantined hosts are no move's
+destination; its loop runs only after ``defrag.start()`` (``master/main.py``,
+under TPUMOUNTER_DEFRAG).
 """
 
 from __future__ import annotations
@@ -193,6 +214,7 @@ import urllib.request
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 from gpumounter_tpu_torch.config import Config
+from gpumounter_tpu_torch.defrag import DefragController, DefragRefused
 from gpumounter_tpu_torch.elastic import ElasticReconciler, Intent, IntentError, IntentStore
 from gpumounter_tpu_torch.health import CanaryProber, HealthPlane
 from gpumounter_tpu_torch.k8s.client import KubeClient, NotFoundError
@@ -485,6 +507,11 @@ _ROUTES: list[tuple[str, re.Pattern, str]] = [
     ("GET", re.compile(r"^/shares$"), "shares"),
     ("POST", re.compile(r"^/shares$"), "shares_admit"),
     ("DELETE", re.compile(r"^/shares/(?P<ns>[^/]+)/(?P<pod>[^/]+)$"), "shares_release"),
+    # the defragmenter (defrag/): one pane and three verbs
+    ("GET", re.compile(r"^/defrag$"), "defrag"),
+    ("POST", re.compile(r"^/defrag/plan$"), "defrag_plan"),
+    ("POST", re.compile(r"^/defrag/run$"), "defrag_run"),
+    ("POST", re.compile(r"^/defrag/pause$"), "defrag_pause"),
 ]
 
 #: a slice's GPUs per host when the request names none: an H100 host's 8
@@ -544,12 +571,12 @@ class MasterApp:
     #: name pods, tenants and GPUs)
     READ_ROUTES = frozenset({"metrics", "audit", "trace", "timeline", "apihealth", "shards",
                              "fleet", "slo", "tenants", "recovery", "health_nodes", "capacity",
-                             "shares"})
+                             "shares", "defrag"})
     #: never traced: probes, and the panes a dashboard polls (their spans
     #: would rotate the operations' traces out of the ring)
     UNTRACED_ROUTES = frozenset({"index", "healthz", "metrics", "fleet", "slo", "tenants",
                                  "apihealth", "timeline", "shards", "recovery",
-                                 "health_nodes", "capacity", "shares"})
+                                 "health_nodes", "capacity", "shares", "defrag"})
     #: never behind the admission gate: a liveness probe or a scrape must
     #: answer while a mount storm fills the replica (a gated /healthz would
     #: turn load into restarts)
@@ -559,7 +586,8 @@ class MasterApp:
     AUDITED_ROUTES = frozenset({"add", "remove", "batch_add", "addslice", "removeslice",
                                 "intent_put", "intent_delete", "migrate_start",
                                 "migration_abort", "recovery_evacuate", "health_quarantine",
-                                "shares_admit", "shares_release"})
+                                "shares_admit", "shares_release", "defrag_plan", "defrag_run",
+                                "defrag_pause"})
 
     def __init__(self, kube: KubeClient, cfg=None, worker_client_factory=None,
                  registry: WorkerRegistry | None = None, store: MasterStore | None = None,
@@ -654,6 +682,14 @@ class MasterApp:
         self.recovery.health = self.health
         self.canary = CanaryProber(self.health, self.registry, self._client_factory,
                                    cfg=self.cfg)
+        # the defragmenter: plans over the capacity plane's verdicts and
+        # drives the moves through the migration machine; quarantined hosts
+        # are no destination. Its loop runs only after defrag.start()
+        # (master/main.py, under TPUMOUNTER_DEFRAG); the routes call plan()
+        # and run() themselves
+        self.defrag = DefragController(kube, self.migrations, self.capacity, self.fleet,
+                                       slo=self.slo, apihealth=self.apihealth,
+                                       shards=self.shards, cfg=self.cfg, health=self.health)
         # the fractional shares: the books and the admission behind /shares;
         # the capacity plane reads the books for its fractional view
         self.shares = ShareRegistry(cfg=self.cfg)
@@ -664,12 +700,14 @@ class MasterApp:
         flight.install(apihealth=self.apihealth)
 
     def close(self) -> None:
-        """Stop the canary's, the recovery controller's, the reconciler's
-        and the fleet collector's loops, wait for the migrations' machines,
+        """Stop the defragmenter's, the canary's, the recovery controller's,
+        the reconciler's and the fleet collector's loops, wait for the
+        migrations' machines,
         stop the registry's watch and its channels, and close the store (its
         ApiHealth subscription, its probe, its watch and its queue). Its
         capacity plane stops being the process's."""
         capacity_obs.unregister_plane(self.capacity)
+        self.defrag.stop()
         self.canary.stop()
         self.recovery.stop()
         self.elastic.stop()
@@ -1025,6 +1063,51 @@ class MasterApp:
             raise _HttpError(409, str(exc))
         return 200, "application/json", json.dumps(
             {"node": node, "action": action, "health": pane}, indent=1) + "\n"
+
+    # --- the defragmenter (defrag/) ---
+
+    def _route_defrag(self, match, body, headers):
+        """The defragmenter's pane: the gates, the adopted plan, the run in
+        flight with its barrier samples, the last runs."""
+        return 200, "application/json", json.dumps(self.defrag.payload(), indent=1) + "\n"
+
+    def _defrag_call(self, fn, *args, **kwargs):
+        """A DefragRefused answers its own status; a 503 (parked) carries
+        Retry-After, the loop's interval, so that a script backs off."""
+        try:
+            return fn(*args, **kwargs)
+        except DefragRefused as exc:
+            headers = ({"Retry-After": str(int(self.cfg.defrag_interval_s))}
+                       if exc.status == 503 else {})
+            raise _HttpError(exc.status, str(exc), headers=headers)
+
+    def _defrag_body(self, body: bytes) -> dict:
+        try:
+            payload = json.loads(body or b"{}")
+        except ValueError:
+            raise _HttpError(400, "body must be JSON")
+        if not isinstance(payload, dict):
+            raise _HttpError(400, "body must be a JSON object")
+        return payload
+
+    def _route_defrag_plan(self, match, body, headers):
+        """Compute and adopt a plan from a fresh capacity snapshot; the
+        body's "target_block" overrides DEFRAG_TARGET_BLOCK for this plan."""
+        target = self._defrag_body(body).get("target_block")
+        if target is not None and (not isinstance(target, int) or target < 1):
+            raise _HttpError(400, f"target_block must be a positive integer, got {target!r}")
+        plan = self._defrag_call(self.defrag.plan, target_block=target)
+        return 200, "application/json", json.dumps(plan, indent=1) + "\n"
+
+    def _route_defrag_run(self, match, body, headers):
+        """Execute the adopted plan on a thread of its own; the body's
+        "plan_id" pins the run to that plan (409 when another was adopted
+        since)."""
+        out = self._defrag_call(self.defrag.run, plan_id=self._defrag_body(body).get("plan_id"))
+        return 200, "application/json", json.dumps(out, indent=1) + "\n"
+
+    def _route_defrag_pause(self, match, body, headers):
+        return 200, "application/json", json.dumps(self.defrag.pause(), indent=1) + "\n"
 
     def _route_workers(self, match, body, headers):
         lines = [f"{node} {ip}" for node, ip in

@@ -34,8 +34,12 @@ HEALTH_*); both stop before the app closes. The elastic reconciler's loop
 always runs (ELASTIC_RESYNC_INTERVAL_S, ELASTIC_BACKOFF_*,
 ELASTIC_MIN_RECONCILE_INTERVAL_S), and the interrupted migrations are adopted
 once at start and at every shard takeover (MIGRATE_*); the reconciler stops
-and the machines are waited for before the app closes. The reference's other
-background loops (defragmenter, autoscaler) come with their packages.
+and the machines are waited for before the app closes. The defragmenter's
+loop (``defrag/controller.py``) runs each DEFRAG_INTERVAL_S only under
+TPUMOUNTER_DEFRAG (DEFRAG_MAX_MOVES, DEFRAG_TENANT_MOVE_BUDGET,
+DEFRAG_SNAPSHOT_MAX_AGE_S, DEFRAG_TARGET_BLOCK, DEFRAG_GROUP_FANOUT), and stops
+first when the app closes. The reference's autoscaler loop comes with its
+package.
 
     python -m gpumounter_tpu_torch.master.main
 """
@@ -86,6 +90,12 @@ def main() -> None:
         logger.info("health plane on (canary every %.0fs, quarantine budget %.0f%%)",
                     cfg.health_canary_interval_s, cfg.health_quarantine_budget * 100)
     app.fleet.start()
+    # plans are in memory and cheap to compute again after a restart; a
+    # move's migration journal is what recovers, through the adoption below
+    if cfg.defrag_enabled:
+        app.defrag.start()
+        logger.info("defragmenter on (interval %.0fs, target block %d, max %d moves/plan)",
+                    cfg.defrag_interval_s, cfg.defrag_target_block, cfg.defrag_max_moves)
     # a master that died in a migration adopts it and drives it on from its
     # journaled phase, rather than leave a tenant half drained
     adopted = app.migrations.resume_interrupted()
@@ -110,8 +120,8 @@ def main() -> None:
         if cfg.shard_count > 1:
             # hand the leases back: the peers claim them now, not at expiry
             app.shards.stop(release=True)
-        # the canary's, recovery's, reconciler's and fleet collector's loops
-        # and the migrations' machines first
+        # the defragmenter's, canary's, recovery's, reconciler's and fleet
+        # collector's loops and the migrations' machines first
         app.close()
 
 

@@ -56,6 +56,14 @@ seed, then checks the global invariants:
      warm together, fenced (dead) ones, by index; ``withhold_unmount`` (a
      held GPU's kubelet claim erased, its booking kept, as a lost unmount
      leaves it) is its negative control,
+ 18. the defragmenter's closure (``run_defrag_scenario``): after a defrag
+     run the fleet's fragmentation index sampled at the plan's barriers
+     never rose, the run completed, every move succeeded, and every move's
+     tenant window is attributed: its trace assembles with migrate-phase
+     wall time (books == mounts == ledger == capacity over the same run are
+     invariants 1-3 and 17). On NVSwitch the index is 0 throughout, so the
+     monotone clause cannot fire; ``drop_defrag_traces`` (the moves' spans
+     lost) and a move that rolled back are its negative controls,
  19. the shares' agreement (``run_share_scenario``): the master's share
      books == the policy entries (the userspace engine, the fake backends'
      kernel map) == the worker ledger's share records, GPU for GPU and
@@ -76,8 +84,8 @@ seed, then checks the global invariants:
 
 Two more run on their own, not on the harness: ``run_fencing_scenario``
 (invariant 12, no stale-epoch write applied) and ``run_shard_scenario``
-(invariant 9, one owner a shard). The reference's invariants 18 and 21 come
-with their packages. A killed node (``kill_node``) is out of the books'
+(invariant 9, one owner a shard). The reference's invariant 21 comes with the
+autoscaler. A killed node (``kill_node``) is out of the books'
 reach: invariants 1-3, 8, 10, 17 and 19 skip it and its pods.
 
 The scenarios: ``run_mount_scenario`` (adds, removes and reconciles of pods
@@ -86,9 +94,11 @@ mount batches), ``run_elastic_scenario`` (GPU deaths healed by the
 reconciler under ``FAULTS_ELASTIC``), ``run_migrate_scenario`` (migrations
 crashed at their phase boundaries, ``FAULTS_MIGRATE``, driven to their end by
 ``resume_interrupted``), ``run_node_kill_scenario``, ``run_gray_scenario``,
-``run_watch_store_scenario``, ``run_api_outage_scenario`` and
+``run_watch_store_scenario``, ``run_api_outage_scenario``,
 ``run_share_scenario`` (fractional mounts, re-grants, releases and worker
-deaths of two complementary tenants). ``TenantSim``
+deaths of two complementary tenants) and ``run_defrag_scenario`` (a host
+blocked by warm holders, recovered by the real defrag controller's move to
+a standby on the other node). ``TenantSim``
 is the reference's fake tenant on the port's ``torchside`` watchers and
 telemetry.
 
@@ -116,9 +126,11 @@ import random
 import threading
 import time
 
+from gpumounter_tpu_torch.allocator.pool import WarmPodPool
 from gpumounter_tpu_torch.cgroup import ebpf
 from gpumounter_tpu_torch.cgroup.policy import POLICY_ENGINE, interpret_device_program
 from gpumounter_tpu_torch.collector.collector import GpuCollector
+from gpumounter_tpu_torch.defrag import ANNOT_DEFRAG_DEST
 from gpumounter_tpu_torch.elastic.intents import Intent
 from gpumounter_tpu_torch.faults import failpoints
 from gpumounter_tpu_torch.k8s import health as k8s_health
@@ -144,6 +156,10 @@ from gpumounter_tpu_torch.worker.server import GpuMountService
 logger = get_logger("testing.chaos")
 
 NODE_A, NODE_B = "chaos-a", "chaos-b"
+
+#: the defrag scenario's fleet: NODE_A an 8-GPU host (a warm pool of 2, 2
+#: free GPUs and two tenants of 2), NODE_B the default 6
+DEFRAG_NODES = {NODE_A: 8, NODE_B: 6}
 
 #: (failpoint, action) pairs the scenario draws from: the reference's
 #: FAULTS_COMMON. All count-limited, so an armed fault that did not fire
@@ -270,16 +286,27 @@ class TenantSim:
 
 
 class _PodDirMounter(GpuMounter):
-    """A mounter whose target pod is a directory of its own under `root`."""
+    """A mounter whose target pod is a directory of its own under `root`.
+    Each batch it mounts appends its own time (ms: the grant and the
+    injection, what a worker's mount latency observes) to
+    ``mount_ms[<ns>/<pod>]``."""
 
-    def __init__(self, backend, root: str, cfg=None, kube=None):
+    def __init__(self, backend, root: str, cfg=None, kube=None,
+                 mount_ms: dict[str, list[float]] | None = None):
         super().__init__(backend, cfg=cfg, kube=kube)
         self.root = root
+        self.mount_ms = mount_ms if mount_ms is not None else {}
 
     def resolve_target(self, pod: Pod) -> MountTarget:
         dev_dir = os.path.join(self.root, f"{pod.namespace}-{pod.name}")
         os.makedirs(dev_dir, exist_ok=True)
         return MountTarget(dev_dir=dev_dir, description=f"{pod.namespace}/{pod.name}", pod=pod)
+
+    def mount_many(self, target: MountTarget, devices, base_rules=None, policy=None) -> dict:
+        phases = super().mount_many(target, devices, base_rules=base_rules, policy=policy)
+        if phases:
+            self.mount_ms.setdefault(target.description, []).append(phases["total"])
+        return phases
 
 
 class ChaosHarness:
@@ -331,6 +358,12 @@ class ChaosHarness:
         #: 20 over the nodes it degraded
         self.gray_armed = False
         self.gray_nodes: set[str] = set()
+        #: terminal defrag runs (run_defrag_scenario appends): any arms
+        #: invariant 18
+        self.defrag_runs: list[dict] = []
+        #: <ns>/<pod> -> the mounters' own time of each batch mounted into
+        #: it (ms), every node's: the gray scenario's samples
+        self.mount_ms: dict[str, list[float]] = {}
         #: the clean operations run under a chaos.<op> root span, each
         #: {"trace", "span", "op"}: invariant 16 assembles every one
         self.traced_ops: list[dict] = []
@@ -359,7 +392,7 @@ class ChaosHarness:
                                   ledger_dir=os.path.join(self.root, f"ledger-{name}"))
         collector = GpuCollector(node.backend, node.kubelet, cfg=cfg)
         mounter = _PodDirMounter(node.backend, self._dev_root(name), cfg=cfg,
-                                 kube=self.cluster.kube)
+                                 kube=self.cluster.kube, mount_ms=self.mount_ms)
         return GpuMountService(self.cluster.kube, collector, mounter=mounter, cfg=cfg)
 
     def start(self) -> "ChaosHarness":
@@ -820,6 +853,116 @@ class ChaosHarness:
             if adopted:
                 self.record(f"resumed interrupted: {adopted}")
 
+    # --- invariant 18: the defragmenter's closure ---
+
+    def seed_fragmentation(self) -> None:
+        """Block NODE_A for a 4-GPU block in the NVSwitch form and provision
+        the standby destination on NODE_B. The reference's layout (free {0,
+        1, 4, 5}) is one block on NVSwitch, so NODE_A holds two tenants of 2
+        GPUs (df-t1, df-t2), a warm pool of 2 (its worker's ``WarmPodPool``)
+        and 2 free GPUs: free + warm reach 4, free alone does not. NODE_B
+        holds df-fill's 3 GPUs and a standby annotated ANNOT_DEFRAG_DEST, so
+        its 3 free GPUs take a move of 2 but hold no block of 4:
+        nvidia-h100-80gb-4 reads admissible-after-defrag until a move frees
+        NODE_A."""
+        if len(self.cluster.node(NODE_A).backend.list_devices()) < 8:
+            raise ValueError("seed_fragmentation needs an 8-GPU NODE_A; build the harness "
+                             "with nodes=DEFRAG_NODES")
+        # healthy history first: the slice-feasibility objective is a ratio
+        # over the passes' evaluations and gates the controller, so the one
+        # blocked pass must not be the whole window
+        for _ in range(20):
+            self.app.fleet.refresh_if_stale(0.0)
+        coordinator = self.coordinator()
+        for name in ("df-t1", "df-t2"):
+            self.add_pod(name, NODE_A)
+            coordinator.mount_slice([SliceTarget(namespace="default", pod=name)], 2,
+                                    entire=False)
+        pool = WarmPodPool(self.cluster.kube, refill_async=False,
+                           cfg=dataclasses.replace(self.cfg, warm_pool_size=2, node_name=NODE_A))
+        pool.refill_once()
+        # the node's worker reads its pool's book under its own node name
+        service = self.services[NODE_A]
+        service.cfg = dataclasses.replace(service.cfg, node_name=NODE_A)
+        service.pool = service.allocator.pool = pool
+        self.add_pod("df-fill", NODE_B)
+        coordinator.mount_slice([SliceTarget(namespace="default", pod="df-fill")], 3,
+                                entire=False)
+        self.add_pod("df-standby", NODE_B)
+        self.cluster.kube.patch_pod("default", "df-standby", {
+            "metadata": {"annotations": {ANNOT_DEFRAG_DEST: "ready"}}})
+        self.record(f"blocked NODE_A: {pool.ready_count(NODE_A)} warm holder(s) beside df-t1 "
+                    f"and df-t2; standby df-standby on NODE_B beside df-fill")
+        self.app.fleet.refresh_if_stale(0.0)
+
+    def run_defrag_scenario(self, target_block: int = 4) -> dict:
+        """seed_fragmentation, then the real defrag controller plans and
+        runs the recovery (a checkpoint-assisted move to the standby on
+        NODE_B); the run is recorded for invariant 18. Returns the run."""
+        self.seed_fragmentation()
+        plan = self.app.defrag.plan(target_block=target_block)
+        self.record(f"defrag plan {plan['id']}: {len(plan['moves'])} move(s), predicted "
+                    f"fragmentation {plan['fragmentation_before']} -> "
+                    f"{plan['fragmentation_after']}")
+        self.app.defrag.run(plan["id"], wait=True)
+        run = self.app.defrag.payload()["history"][-1]
+        self.defrag_runs.append(run)
+        self.record(f"defrag run {run['plan_id']} -> {run['status']}")
+        self.converge()
+        return run
+
+    def drop_defrag_traces(self) -> int:
+        """The negative control of invariant 18: both span stores rewritten
+        without the recorded moves' traces, as if their export were lost;
+        check_invariants() must then name every move unattributed. Returns
+        how many spans were dropped."""
+        lost = {m.get("trace_id") for run in self.defrag_runs for m in run.get("moves", [])}
+        ring = trace.TRACER.ring
+        spans = ring.snapshot()
+        kept = [s for s in spans if s.get("trace_id") not in lost]
+        ring.clear()
+        for span in kept:
+            ring.export(span)
+        dropped = len(spans) - len(kept)
+        remote = REMOTE_SPANS.snapshot()
+        REMOTE_SPANS.reset()
+        for span in remote:
+            if span.get("trace_id") in lost:
+                dropped += 1
+                continue
+            REMOTE_SPANS.ingest(span.get("node", ""), [span])
+        return dropped
+
+    def _defrag_closure(self) -> list[str]:
+        """Invariant 18 over the recorded runs (the reference's)."""
+        out: list[str] = []
+        for run in self.defrag_runs:
+            samples = [b["fragmentation_index"] for b in run.get("barriers", [])
+                       if "fragmentation_index" in b]
+            for earlier, later in zip(samples, samples[1:]):
+                if later > earlier + 1e-9:
+                    out.append(f"defrag {run.get('plan_id')}: fragmentation index rose across "
+                               f"a barrier point ({earlier} -> {later}; samples {samples})")
+            if run.get("status") != "completed":
+                out.append(f"defrag {run.get('plan_id')} did not complete: "
+                           f"{run.get('status')!r} ({run.get('error')})")
+            for move in run.get("moves", []):
+                who = f"{move.get('namespace')}/{move.get('pod')}"
+                if move.get("outcome") != "succeeded":
+                    out.append(f"defrag {run.get('plan_id')}: move of {who} -> "
+                               f"{move.get('dest_node')} ended {move.get('outcome')!r}")
+                    continue
+                tree = assembly.assemble(move.get("trace_id") or "")
+                if tree is None:
+                    out.append(f"defrag {run.get('plan_id')}: move of {who} (trace "
+                               f"{move.get('trace_id')}) does not assemble — unattributed "
+                               f"tenant window")
+                elif not tree["phases"].get("migrate"):
+                    out.append(f"defrag {run.get('plan_id')}: move of {who} (trace "
+                               f"{move.get('trace_id')}) assembled without migrate-phase wall "
+                               f"time: {tree['phases']}")
+        return out
+
     def converge(self, timeout_s: float = 30.0) -> None:
         """Disarm everything, drive every migration to its end (adopting the
         interrupted ones, as a restarted master does), reconcile every
@@ -887,8 +1030,14 @@ class ChaosHarness:
         scoring pass of the app's real ``HealthPlane`` after each round over
         entries the harness measured itself (every node runs in this one
         process, whose registry folds their mounts together; a worker of its
-        own reports its own). Needs at least 4 nodes: a healthy herd of 3
-        keeps the fleet's median a healthy one.
+        own reports its own). A sample is the mounter's own time of the add's
+        batch (``mount_ms``), what a worker's ``mount.p95_ms`` reports: the
+        limp's mknod delay lies inside it, and the host's cost around it (the
+        clients' dials, the gRPC round trip, the scheduler's slave pod, the
+        remove) outside, where the reference times the whole add and remove
+        on the client. An add that fails is an error with no sample. Needs at
+        least 4 nodes: a healthy herd of 3 keeps the fleet's median a healthy
+        one.
 
         disable_scorer=False: the limping nodes must end quarantined, and
         check_invariants() holds invariant 20. disable_scorer=True is its
@@ -929,7 +1078,8 @@ class ChaosHarness:
                     if node in limping:
                         for site, action in self.GRAY_FAULTS:
                             failpoints.arm(site, action)
-                    started = time.monotonic()
+                    timed = self.mount_ms.setdefault(f"{ns}/{name}", [])
+                    seen = len(timed)
                     ok = False
                     try:
                         with self.client_for_node(node) as client:
@@ -942,7 +1092,7 @@ class ChaosHarness:
                         self.record(f"gray mount on {node} -> {type(exc).__name__}")
                     finally:
                         failpoints.disarm_all()
-                    samples[node].append((time.monotonic() - started) * 1000.0)
+                    samples[node].extend(timed[seen:])
                     if not ok:
                         errors[node] += 1
             entries = self._gray_entries(samples, errors)
@@ -963,7 +1113,9 @@ class ChaosHarness:
     def _gray_entries(self, samples: dict[str, list[float]],
                       errors: dict[str, int]) -> dict[str, dict]:
         """CollectTelemetry-shaped entries a node from the harness's own
-        measurements (the reference's ``_gray_entries``)."""
+        measurements (the reference's ``_gray_entries``), as a worker's
+        rollup reads: the count and p95 over the mounts that completed, the
+        failed adds as errors."""
         entries: dict[str, dict] = {}
         for node, vals in samples.items():
             if node in self.dead_nodes:
@@ -971,8 +1123,7 @@ class ChaosHarness:
             ordered = sorted(vals)
             p95 = ordered[min(len(ordered) - 1, int(0.95 * len(ordered)))] if ordered else None
             entries[node] = {"mount": {"count": len(vals), "p95_ms": p95,
-                                       "success": len(vals) - errors[node],
-                                       "error": errors[node]},
+                                       "success": len(vals), "error": errors[node]},
                              "breaker": "closed"}
         return entries
 
@@ -1802,6 +1953,8 @@ class ChaosHarness:
                         violations.append(f"ledger/books disagree for {key[0]}/{key[1]} on "
                                           f"{node}: ledger {sorted(ledger_view)} != booked "
                                           f"{sorted(booked[key])}")
+        # 18.
+        violations.extend(self._defrag_closure())
         # 19.
         if self.vchip_armed:
             violations.extend(self._share_agreement())

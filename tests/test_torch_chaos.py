@@ -543,6 +543,39 @@ def test_gray_chaos_healthy_fleet_no_false_quarantine(tmp_path, seed):
     assert all(s != "quarantined" for s in out["states"].values()), out["states"]
 
 
+#: a loaded host's cost around every sample: the client stalls this long
+#: before each add
+HOST_STALL_S = 0.15
+
+
+@pytest.mark.parametrize("limping", [(NODE_B,), ()], ids=["limping", "healthy-fleet"])
+def test_a_host_stall_around_every_sample_neither_hides_the_limp_nor_quarantines(
+        tmp_path, monkeypatch, limping):
+    """The gray scenario samples the mounter's own time of each add, so a
+    fixed stall of the host's around every sample of every node (here the
+    client's, 150 ms before each add) moves no sample: NODE_B's limp is still
+    quarantined and the other three stay healthy, and the healthy fleet
+    under the same stall quarantines nothing. Timed on the client, a
+    healthy sample of ~190 ms puts the bar at 3 x median, past the limp's
+    200 ms."""
+    from gpumounter_tpu_torch.rpc.client import WorkerClient
+    add_gpu = WorkerClient.add_gpu
+
+    def stalled(self, *args, **kwargs):
+        time.sleep(HOST_STALL_S)
+        return add_gpu(self, *args, **kwargs)
+
+    monkeypatch.setattr(WorkerClient, "add_gpu", stalled)
+    with ChaosHarness(str(tmp_path), 7, nodes=dict(GRAY_NODES)) as h:
+        out = h.run_gray_scenario(limping=limping, n_rounds=4 if limping else 3)
+        h.check_invariants()
+    assert {n: s == "quarantined" for n, s in out["states"].items()} == \
+        {n: n in limping for n in GRAY_NODES}, out["states"]
+    if limping:
+        assert out["passes"] == 4
+        assert [s for n, s in out["states"].items() if n != NODE_B] == ["healthy"] * 3
+
+
 def test_gray_chaos_detects_disabled_scorer(tmp_path):
     """The negative control: the scorer off while NODE_B limps; invariant 20
     names the missed detection, with the seed."""

@@ -583,7 +583,8 @@ def test_elastic_migrate_check_on_the_cpu():
     """``entry.elastic_migrate_check("cpu")`` on a fake host of 1 GPU,
     through the master and the worker over gRPC: the heal of the vanished
     node, the migration with a tenant thread at each end (their logits'
-    sha256 equal after the restore), and the rollback."""
+    sha256 equal after the restore), the rollback, and the defragmenter's
+    no-op plan and its run over HTTP on the node."""
     from gpumounter_tpu_torch.entry import elastic_migrate_check
     report = elastic_migrate_check("cpu")
     f = report["fake"]
@@ -595,3 +596,20 @@ def test_elastic_migrate_check_on_the_cpu():
                                                "resume", "verify"}
     assert f["rollback"]["books"] == {"tenant-destination": [f["heal"]["uuid"]],
                                       "tenant-intent": []}
+    d = f["defrag"]
+    assert (d["status"], d["moves"], d["target_block"]) == ("completed", 0, 4)
+    assert d["host"] == {"total": 1, "free": 0, "held": 1, "warm": 0}
+
+
+def test_elastic_migrate_checks_defrag_leg_reads_its_own_masters_counters():
+    """The capacity plane's counters are the process's: bad slice-feasibility
+    events an earlier stack left (a warm pool's only GPU reads
+    admissible-after-defrag, as ``health_check``'s does on the card) do not
+    park (d)'s plan, since the check's master starts them at zero, as a
+    master process does."""
+    from gpumounter_tpu_torch.entry import elastic_migrate_check
+    from gpumounter_tpu_torch.obs import capacity
+    capacity.CAPACITY_SIZE_INFEASIBLE.inc(50.0)
+    report = elastic_migrate_check("cpu")
+    assert (report["fake"]["defrag"]["status"], report["fake"]["defrag"]["moves"]) == \
+        ("completed", 0)

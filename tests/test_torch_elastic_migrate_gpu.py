@@ -51,6 +51,7 @@ def test_elastic_migrate_check_on_the_card(tmpfs_dir, tmp_path):
     assert m["source"]["sha256"] == m["destination"]["sha256"]
     assert m["launches"] == 2 * TENANT["model"]["n_layers"]
     assert f["rollback"]["books"]["tenant-destination"] == [f["heal"]["uuid"]]
+    assert (f["defrag"]["status"], f["defrag"]["moves"]) == ("completed", 0)
 
 
 def test_elastic_migrate_check_refuses_the_card_without_a_gpu_host():

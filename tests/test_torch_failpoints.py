@@ -233,3 +233,36 @@ def test_the_pool_refill_site_fires_as_the_references():
         seen[name] = (added, kube.create_calls, hits,
                       mod.WARM_POOL_REFILL_FAILURES._values.get((), 0.0), warm.refill_once())
     assert seen["port"] == seen["reference"] == (0, 0, 1, 1.0, 0)
+
+
+def test_the_defrag_run_site_fires_as_the_references():
+    """``defrag.run`` fires at the top of a run, with the plan's id: an armed
+    error fails the run on both controllers before its first barrier, with
+    the reference's status and error, and consumes the plan."""
+    import dataclasses
+    import time
+
+    from gpumounter_tpu.config import Config as RefConfig
+    from gpumounter_tpu.defrag import DefragController as RefController
+    from gpumounter_tpu_torch.config import Config
+    from gpumounter_tpu_torch.defrag import DefragController
+
+    class _Capacity:
+        def payload(self, max_age_s=None):
+            return {"fleet": {"fragmentation_index": 0.0}}
+
+    seen = {}
+    for name, fp, ctrl in (
+            ("reference", ref_failpoints, RefController(None, None, _Capacity(), None,
+                                                        cfg=RefConfig())),
+            ("port", failpoints, DefragController(None, None, _Capacity(), None,
+                                                  cfg=dataclasses.replace(Config())))):
+        ctrl._plan = {"id": "dfp-1", "created_at": time.time(), "moves": [], "groups": []}
+        with fp.armed({"defrag.run": "1*error(defrag abort)"}):
+            ctrl.run("dfp-1", wait=True)
+            hits = fp.hits("defrag.run")
+        run = ctrl.payload()["history"][-1]
+        seen[name] = (hits, run["status"], run["error"], [b["label"] for b in run["barriers"]],
+                      ctrl.payload()["plan"])
+    assert seen["port"] == seen["reference"]
+    assert seen["port"][:2] == (1, "failed") and seen["port"][3] == ["end"]

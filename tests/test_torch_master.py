@@ -335,10 +335,12 @@ def test_the_port_serves_only_the_original_surface(stacks):
     as the reference's. So are the capacity pane and the share books
     (/capacity, /shares), reads in the read scope, and the shares' admission
     and release (POST /shares, DELETE /shares/<ns>/<pod>), which want the
-    mutate token. 33 of the reference's 41 routes are served, each under the
-    reference's name; its defrag and autoscale routes get the 404."""
+    mutate token. So is the defragmenter: its pane (/defrag) a read in the
+    read scope, its verbs (POST /defrag/plan, /defrag/run, /defrag/pause)
+    wanting the mutate token. 37 of the reference's 41 routes are served,
+    each under the reference's name; its autoscale routes get the 404."""
     served = [name for _, _, name in port_app._ROUTES]
-    assert len(served) == 33 and len(ref_app._ROUTES) == 41
+    assert len(served) == 37 and len(ref_app._ROUTES) == 41
     assert set(served) <= {name for _, _, name in ref_app._ROUTES}
     s = stacks["port"]
     for method, path, want in (("GET", "/intents", 200), ("GET", "/migrations", 200),
@@ -355,19 +357,19 @@ def test_the_port_serves_only_the_original_surface(stacks):
     status, body = http(s, "GET", "/shards")
     assert status == 200 and json.loads(body)["active"] is False
     assert http(s, "GET", "/shards", auth=False) == (401, "missing or invalid bearer token\n")
-    for path in ("/defrag", "/autoscale",
+    for path in ("/autoscale",
                  "/addtpu/namespace/default/pod/p/tpu/1/isEntireMount/false"):
         assert http(s, "GET", path) == (404, "404 page not found\n"), path
-    for path in ("/defrag/plan", "/autoscale/pause"):
+    for path in ("/autoscale/pause", "/autoscale/resume", "/autoscale/evaluate"):
         assert http(s, "POST", path, {}) == (404, "404 page not found\n"), path
     assert set(served) == {name for _, _, name in ref_app._ROUTES} - {
-        "defrag", "defrag_plan", "defrag_run", "defrag_pause", "autoscale",
-        "autoscale_pause", "autoscale_resume", "autoscale_evaluate"}
+        "autoscale", "autoscale_pause", "autoscale_resume", "autoscale_evaluate"}
     status, body = http(s, "GET", "/metrics", auth=False)
     assert status == 200 and "tpumounter_mount_total" in body
     for path, key in (("/fleet", "nodes"), ("/slo", "objectives"), ("/tenants", "tenants"),
                       ("/recovery", "evacuations"), ("/health/nodes", "quarantine_budget"),
-                      ("/capacity", "feasibility"), ("/shares", "totals")):
+                      ("/capacity", "feasibility"), ("/shares", "totals"),
+                      ("/defrag", "gates")):
         status, body = http(s, "GET", path)
         assert status == 200 and key in json.loads(body), path
         assert http(s, "GET", path, auth=False) == (401, "missing or invalid bearer token\n")
@@ -376,7 +378,7 @@ def test_the_port_serves_only_the_original_surface(stacks):
     try:
         for route in ("/metrics", "/fleet", "/slo", "/tenants", "/audit", "/timeline",
                       "/apihealth", "/shards", "/recovery", "/health/nodes", "/capacity",
-                      "/shares"):
+                      "/shares", "/defrag"):
             assert scoped.handle("GET", route, b"", read)[0] == 200, route
             assert scoped.handle("GET", route, b"", dict(AUTH_HEADER))[0] == 200, route
             assert scoped.handle("GET", route, b"", {})[:3] == (
@@ -387,7 +389,8 @@ def test_the_port_serves_only_the_original_surface(stacks):
             401, "text/plain", "missing or invalid bearer token\n")
         assert scoped.handle("GET", "/workers", b"", read)[0] == 401
         for path in ("/recovery/evacuate/gpu-node-0", "/health/quarantine/gpu-node-0",
-                     "/migrate", "/migrations/mig-none/abort", "/shares"):
+                     "/migrate", "/migrations/mig-none/abort", "/shares", "/defrag/plan",
+                     "/defrag/run", "/defrag/pause"):
             assert scoped.handle("POST", path, b"", read)[:3] == (
                 401, "text/plain", "missing or invalid bearer token\n"), path
         for method, path in (("GET", "/intents"), ("GET", "/migrations"),

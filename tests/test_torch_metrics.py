@@ -111,7 +111,7 @@ PORT_MODULES = ["cgroup.ebpf", "cgroup.policy", "rpc.resilience", "rpc.client", 
                 "store.writebehind", "store.cache", "store.watch", "master.shard",
                 "allocator.pool", "obs.tenants", "obs.assembly", "obs.fleet", "obs.slo",
                 "health.plane", "recovery.controller", "elastic.reconciler",
-                "migrate.orchestrator", "obs.capacity", "vchip.shares"]
+                "migrate.orchestrator", "obs.capacity", "vchip.shares", "defrag.controller"]
 
 
 def test_every_series_of_the_port_is_the_references():
@@ -173,7 +173,9 @@ def test_every_series_of_the_port_is_the_references():
             "tpumounter_capacity_size_infeasible_total",
             "tpumounter_vchip_shares_active", "tpumounter_vchip_shared_chips",
             "tpumounter_vchip_share_admits_total",
-            "tpumounter_vchip_share_releases_total"} == set(seen)
+            "tpumounter_vchip_share_releases_total", "tpumounter_defrag_plans_total",
+            "tpumounter_defrag_moves_total", "tpumounter_defrag_refusals_total",
+            "tpumounter_defrag_running"} == set(seen)
 
 
 # --- the series of the modules ported before the registry ---
