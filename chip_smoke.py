@@ -452,6 +452,24 @@ Phases, each raising on failure (any failure exits non-zero):
        program swap; the forced remove and DELETE /shares/<ns>/<pod> clear
        the three ledgers, and /capacity reads the H100 free again.
     Every case runs on the card's own GPU: without CAP_MKNOD the phase fails.
+21. the autoscaler on a live hot-mount, ``entry.autoscale_check`` through the
+    master over gRPC as in phase 11, the master with a read token, the
+    worker's ops port, its ledger beside this script, the collector's passes
+    by hand, the autoscaler's loop off: an HTTP add mounts the H100 into a
+    pod and PUT /intents declares it (desired 1, min 1); a tenant child
+    (``--autoscale-child``) on its UUID runs phase 3's weights at L 2048
+    through ``flash_fwd`` in windows of B 1, 1, 2, 4 and 8, 40 steps each
+    (more than the 32 token marks of ``TenantTelemetry``), each step a
+    telemetry step at queue depth 64, publishes after each window and waits
+    while the check runs a collection pass, which feeds the autoscaler's
+    throughput model; GET /autoscale shows the tenant's fit ``ok`` with 4
+    samples, and its r_max, b_half, rmse and utilization are printed with
+    the card's name and power limit; two POST /autoscale/evaluate end in
+    the reasons the reference's rule gives that fit (hysteresis, then
+    infeasible at a utilization of 0.85 or more: the one GPU is held; else
+    steady), the intent and the mount unchanged; POST /autoscale/pause makes
+    evaluate answer 409 (paused) and the resume 200. The child's flash_fwd
+    launches (2 layers a step) go into the kernels line.
 
 A tenant child (``--<mode>-child``) imports only what its mode runs: the
 model and its kernels, and what its mode adds; never ``entry`` and the
@@ -480,6 +498,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -535,18 +554,22 @@ if CHILD_MODE in ("", "--slice-child"):
     from gpumounter_tpu_torch.torchside.visibility import reinit_distributed
 if CHILD_MODE in ("", "--v2-child"):
     from gpumounter_tpu_torch.testing import v2tenant
-if CHILD_MODE in ("", "--fleet-child"):
+if CHILD_MODE in ("", "--fleet-child", "--autoscale-child"):
     from gpumounter_tpu_torch.torchside.telemetry import TenantTelemetry
 if not CHILD_MODE:
     from gpumounter_tpu_torch.cgroup import detect_cgroup_version
     from gpumounter_tpu_torch.device.backend import NvidiaDeviceBackend
-    from gpumounter_tpu_torch.entry import (ADD_TRACE, ADD_WORKER_SPANS, FLEET_SLO_WINDOW_S,
+    from gpumounter_tpu_torch.entry import (ADD_TRACE, ADD_WORKER_SPANS, AUTOSCALE_QUEUE,
+                                            AUTOSCALE_REFIT_RTOL, AUTOSCALE_STEPS,
+                                            AUTOSCALE_WINDOWS,
+                                            FLEET_SLO_WINDOW_S,
                                             MOE_ROUTE_GAP,
                                             OBS_COST_ITERS, ONE_PROCESS_LOSS_ATOL, REMOVE_TRACE,
                                             RING_TOL, SHARDED_LOSS_ATOL, SHARDED_PARAM_OF_MAX,
                                             SHARE, SHARE_REGRANT_WEIGHT,
                                             TRAIN_GRAD_ATOL, _check_equal_over, _masked_err,
-                                            against_one_process, busy_health_check,
+                                            against_one_process, autoscale_check,
+                                            busy_health_check,
                                             capacity_share_check, cgroup_v2_check,
                                             check_config, degraded_check, durability_check,
                                             dryrun_multichip, elastic_migrate_check,
@@ -3227,9 +3250,10 @@ def phase_obs(card: str, master_live: dict) -> None:
              f"the fake host of {MOUNT['FAKE_GPUS']} (no CAP_MKNOD: the live add is refused)")
     rt = flows["round_trip"]
     add_tid, rm_tid = rt["trace_ids"][0]
+    spans = " ".join(f"{n} <- {p or 'root'}" for n, p in ADD_TRACE.items())
     print(f"obs traced round trip on {where}, {MOUNT['REPEATS']} times: each response carried "
           f"its own X-Tpumounter-Trace (first add {add_tid}, remove {rm_tid}); /trace/<id> held "
-          f"{' '.join(f'{n} <- {p or 'root'}' for n, p in ADD_TRACE.items())}, every span ok, "
+          f"{spans}, every span ok, "
           f"and the remove's {len(REMOVE_TRACE)} spans likewise; no span open after; /audit under "
           f"each id: the edge's record 'http 200' and the worker's 'Success'; /timeline under "
           f"each id: the root span, both records and the Event; Events on the pod "
@@ -3851,6 +3875,210 @@ def phase_capacity_share(card: str, master_live: dict, fleet_pass_ms: list) -> i
     return child["launches"]["flash_fwd"]
 
 
+def _autoscale_child(spec: dict) -> None:
+    """The tenant of phase 21, started with CUDA_VISIBLE_DEVICES=<the UUID
+    the worker assigned>: CUDA's one device must be that GPU; then, for each
+    window's B, spec["steps"] full-width forwards (phase 3's weights) of B
+    random rows of L tokens through flash_fwd, each a ``TenantTelemetry``
+    step of B * L tokens at spec["queue"] timed on the host clock, its
+    forward between two CUDA events and, on the host clock, the forward's
+    call until it returns (its launches queued); after the window the snapshot is
+    POSTed to the worker's ops port, the last step's logits are held
+    against the plain-attention forward of the same tokens, a JSON line is
+    printed and a line of stdin awaited (the check's collection pass).
+    Prints one JSON line of its report last; a failure raises (exit code
+    1)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.init()
+    props = torch.cuda.get_device_properties(0)
+    torch.cuda.synchronize()
+    t_ready = time.time()
+    uuid = f"GPU-{props.uuid}"
+    if uuid != spec["uuid"] or torch.cuda.device_count() != 1:
+        raise RuntimeError(f"CUDA_VISIBLE_DEVICES={os.environ.get('CUDA_VISIBLE_DEVICES')!r}: "
+                           f"{torch.cuda.device_count()} device(s), device 0 is {uuid}, the "
+                           f"worker assigned {spec['uuid']}")
+    cfg = full_width_config()
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cuda")
+    rng = np.random.default_rng(0)
+    tel = TenantTelemetry(spec["tenant"], namespace=spec["namespace"], pod=spec["pod"],
+                          token=os.environ[TENANT_TOKEN_ENV])
+    _reset_kernel_counts()
+    windows, nll, finite = [], [], True
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    for b in spec["windows"]:
+        tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (b, FULL["L"]))).cuda()
+        step_ms, device_ms, enqueue_ms = [], [], []
+        for _ in range(spec["steps"]):
+            t0 = time.perf_counter()
+            with tel.step(tokens=float(tokens.numel()), queue_depth=spec["queue"]):
+                start.record()
+                t1 = time.perf_counter()
+                logits = forward(params, tokens, cfg)
+                enqueue_ms.append((time.perf_counter() - t1) * 1e3)
+                end.record()
+                torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            device_ms.append(start.elapsed_time(end))
+        published = tel.publish(spec["url"])
+        tokens_per_s = tel.snapshot()["tokens_per_s"]
+        # the last step's logits against the plain-attention forward, after
+        # the publish and outside the timed steps (no kernel launch)
+        finite = finite and bool(torch.isfinite(logits).all())
+        nll.append(next_token_nll(logits, tokens).item())
+        plain = forward(params, tokens, cfg, attention=attention_plain)
+        vs_plain = {"err": (logits - plain).abs().max().item(),
+                    "limit": LOGITS_RTOL_OF_MAX * plain.abs().max().item(),
+                    "nll": nll[-1], "nll_plain": next_token_nll(plain, tokens).item()}
+        del logits, plain
+        windows.append({"B": b, "tokens_per_s": tokens_per_s, "step_ms": step_ms,
+                        "device_ms": device_ms, "enqueue_ms": enqueue_ms, "vs_plain": vs_plain,
+                        "published": published})
+        print(json.dumps({"window": len(windows) - 1, "published": published}), flush=True)
+        if not sys.stdin.readline():
+            raise RuntimeError("the check closed the tenant's stdin before its last window")
+    print(json.dumps({"autoscale_child": {
+        "ready_at": t_ready, "uuid": uuid, "device": torch.cuda.get_device_name(0),
+        "launches": _kernel_counts(), "nll": nll, "finite": finite, "vocab": cfg.vocab,
+        "tenant": spec["tenant"], "steps": spec["steps"] * len(windows),
+        "windows": windows}}), flush=True)
+
+
+def _autoscale_tenant(uuid: str, url: str, token: str, collect) -> dict:
+    """Run the autoscale child on `uuid`, publishing to `url`, and collect()
+    after each of its windows; check its device, launches (n_layers a step),
+    NLL, publishes, and each window's logits against the plain-attention
+    forward (LOGITS_RTOL_OF_MAX, NLL_ATOL). Returns its report with
+    exec_to_cuda_ready_ms."""
+    spec = {"uuid": uuid, "url": url, "tenant": "default/tenant-autoscale",
+            "namespace": "default", "pod": "tenant-autoscale",
+            "windows": list(AUTOSCALE_WINDOWS), "steps": AUTOSCALE_STEPS,
+            "queue": AUTOSCALE_QUEUE}
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": uuid, TENANT_TOKEN_ENV: token}
+    with tempfile.TemporaryFile("w+") as err:
+        t_spawn = time.time()
+        proc = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                 "--autoscale-child", json.dumps(spec)],
+                                stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=err,
+                                text=True, env=env)
+        watchdog = threading.Timer(600.0, proc.kill)
+        watchdog.start()
+        try:
+            lines = []
+            for _ in spec["windows"]:
+                while True:
+                    line = proc.stdout.readline()
+                    if not line:
+                        raise RuntimeError(f"the autoscale child ended before its window "
+                                           f"{len(lines)}")
+                    if line.startswith('{"window"'):
+                        lines.append(json.loads(line))
+                        break
+                collect()
+                proc.stdin.write("\n")
+                proc.stdin.flush()
+            rest = proc.stdout.read()
+            code = proc.wait()
+        except Exception as exc:
+            proc.kill()
+            proc.wait()
+            err.seek(0)
+            raise RuntimeError(f"the autoscale child: {exc}\n{err.read()[-4000:]}") from exc
+        finally:
+            watchdog.cancel()
+        if code != 0:
+            err.seek(0)
+            raise RuntimeError(f"autoscale child exited {code}:\n{rest[-2000:]}\n"
+                               f"{err.read()[-4000:]}")
+    report = next(json.loads(line) for line in rest.splitlines()
+                  if line.startswith('{"autoscale_child"'))["autoscale_child"]
+    cfg = full_width_config()
+    _check_counts("autoscale child", report["launches"],
+                  {"flash_fwd": cfg.n_layers * report["steps"], "dq": 0, "dkv": 0,
+                   "flash_decode": 0})
+    if not (report["finite"] and all(0 <= v - math.log(report["vocab"]) < NLL_ABOVE_UNIFORM
+                                     for v in report["nll"])
+            and all(w["published"] for w in report["windows"])):
+        raise RuntimeError(f"the autoscale child's forwards or its publishes: {report}")
+    for w in report["windows"]:
+        p = w["vs_plain"]
+        if not (p["err"] <= p["limit"] and abs(p["nll"] - p["nll_plain"]) <= NLL_ATOL):
+            raise RuntimeError(f"the autoscale child's window B{w['B']} vs the plain-attention "
+                               f"forward: logits max abs err {p['err']} (limit {p['limit']}), "
+                               f"nll {p['nll']} vs {p['nll_plain']} (limit {NLL_ATOL})")
+    report["exec_to_cuda_ready_ms"] = (report["ready_at"] - t_spawn) * 1e3
+    return report
+
+
+def phase_autoscale(card: str) -> int:
+    """Phase 21: ``entry.autoscale_check`` on the card (see the module's
+    docstring), a line for each part. Returns the flash_fwd launches of the
+    tenant child."""
+    t_phase = time.perf_counter()
+    children = []
+
+    def on_mounted(uuids, target, url, token, collect):
+        visible = gpus_visible_in_dev(target)
+        if visible != 1:
+            raise RuntimeError(f"gpus_visible_in_dev({target}) = {visible} after the add of "
+                               f"{uuids}")
+        children.append(_autoscale_tenant(uuids[0], url, token, collect))
+        return {k: children[-1][k] for k in ("tenant", "steps", "windows")}
+
+    ledger_root = os.path.dirname(os.path.abspath(__file__))
+    with _tenant_target("phase21") as (dev_dir, cgroup_dir):
+        report = autoscale_check("cuda", dev_dir=dev_dir, ns_pid=os.getpid(),
+                                 cgroup_dirs=[cgroup_dir] if cgroup_dir else (),
+                                 identity=pick_identity(), ledger_root=ledger_root,
+                                 on_mounted=on_mounted)
+    f = report["live"]
+    if f is None or len(children) != 1:
+        raise RuntimeError(f"phase 21 ran no live flows with their tenant child on the card: "
+                           f"live {f is not None}, {len(children)} child(ren)")
+    child, fit = children[0], f["fit"]
+    med = statistics.median
+    print(f"time autoscale (a) HTTP add {f['add_ms']:.3f} ms, PUT /intents {f['put_ms']:.3f} ms; "
+          f"the tenant child on {child['uuid']} ({child['device']}): exec to CUDA ready "
+          f"{child['exec_to_cuda_ready_ms']:.1f} ms, {child['steps']} forwards through "
+          f"flash_fwd ({child['launches']['flash_fwd']} launches), nll "
+          f"{', '.join(f'{v:.4f}' for v in child['nll'])} [{card}]", flush=True)
+    for w in child["windows"]:
+        host, dev, p = med(w["step_ms"]), med(w["device_ms"]), w["vs_plain"]
+        print(f"time autoscale (a) window B{w['B']} L{FULL['L']}: {len(w['step_ms'])} steps, "
+              f"median step {host:.3f} ms (min {min(w['step_ms']):.3f}, max "
+              f"{max(w['step_ms']):.3f}), its forward between CUDA events median "
+              f"{dev:.3f} ms (min {min(w['device_ms']):.3f}, max {max(w['device_ms']):.3f}), "
+              f"the forward's call until its launches are queued median "
+              f"{med(w['enqueue_ms']):.3f} ms (host clock); published tokens/s "
+              f"{w['tokens_per_s']:.1f}; the last step's logits vs the plain-attention "
+              f"forward max abs err {p['err']:.3g} (limit {p['limit']:.3g}), nll {p['nll']:.4f} "
+              f"vs {p['nll_plain']:.4f} [{card}]", flush=True)
+    vs = f["fit_vs_windows"]
+    vs_windows = ", ".join(f"B{r['B']} {r['predicted']:.1f}/{r['rate']:.1f}"
+                           for r in vs["windows"])
+    print(f"time autoscale (b) collection passes {_runs(f['collect_ms'])}; GET /autoscale "
+          f"{f['get_ms']:.3f} ms: {child['tenant']} fit {fit['verdict']} on {fit['samples']} "
+          f"samples, r_max {fit['r_max']} tokens/s, b_half {fit['b_half']} tokens, rmse "
+          f"{fit['rmse']}, utilization {fit['utilization']} (last batch {fit['last_batch']}, "
+          f"last rate {fit['last_rate']}); against its windows: predicted/published "
+          f"{vs_windows}, largest gap {max(r['rel_err'] for r in vs['windows']):.4f}, r_max "
+          f"{vs['r_max_over_seen']:.3f} x the fastest (both reported, not gated), numpy's "
+          f"refit within {vs['refit_err']:.3g} (limit {AUTOSCALE_REFIT_RTOL}) [{card}]",
+          flush=True)
+    ev, pause = f["evaluate"], f["pause"]
+    evaluate_ms = ", ".join(f"{e['ms']:.3f}" for e in ev)
+    print(f"time autoscale (c) POST /autoscale/evaluate x2 "
+          f"{evaluate_ms} ms: {[e['reason'] for e in ev]} (the "
+          f"rule's {f['expected']}; the second's feasibility {ev[-1]['feasibility']}), intent "
+          f"and mount unchanged; pause {pause['pause'][0]}, evaluate while paused "
+          f"{pause['paused'][0]} ({pause['paused'][1]:.3f} ms), resume {pause['resume'][0]}, "
+          f"evaluate {pause['resumed'][0]} ({pause['resumed'][1]:.3f} ms); remove "
+          f"{f['remove_ms']:.3f} ms [{card}]", flush=True)
+    print(f"time autoscale phase 21: {time.perf_counter() - t_phase:.1f} s (the stack's start "
+          f"{f['start_ms']:.1f} ms) [{card}]", flush=True)
+    return child["launches"]["flash_fwd"]
+
+
 def phase_forward_timing(cfg, params, tokens, card, what="forward") -> None:
     fwd_ms = _time_ms(lambda: forward(params, tokens, cfg), 5, warmup=1)
     tok_s = tokens.numel() / (fwd_ms / 1e3)
@@ -3873,6 +4101,9 @@ def main() -> int:
         return 0
     if sys.argv[1:2] == ["--fleet-child"]:
         _fleet_child(json.loads(sys.argv[2]))
+        return 0
+    if sys.argv[1:2] == ["--autoscale-child"]:
+        _autoscale_child(json.loads(sys.argv[2]))
         return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3978,6 +4209,8 @@ def _phases(stage: list, t0: float) -> None:
     migrate_launches = phase_elastic_migrate(card, master_live)
     begin("20 (the capacity plane and a metered share of the card's GPU)")
     share_launches = phase_capacity_share(card, master_live, fleet_pass_ms)
+    begin("21 (the autoscaler on a live hot-mount)")
+    autoscale_launches = phase_autoscale(card)
     sharded = {k: sharded_launches[k] + seq_pipe_launches[k] + grow_launches[k]
                + dryrun_launches[k] for k in sharded_launches}
 
@@ -4002,8 +4235,9 @@ def _phases(stage: list, t0: float) -> None:
           f"(phase 17): flash_fwd {fleet_launches}; the forward that holds the card under "
           f"the canary (phase 18): flash_fwd {health_launches}; the migrated tenant's two "
           f"ends (phase 19): flash_fwd {migrate_launches}; the metered share's tenant child "
-          f"(phase 20): flash_fwd {share_launches}", flush=True)
-    print(f"chip_smoke: phases 1-20 took {time.perf_counter() - t0:.1f} s, the kernels' build "
+          f"(phase 20): flash_fwd {share_launches}; the autoscaled tenant's windows (phase 21): "
+          f"flash_fwd {autoscale_launches}", flush=True)
+    print(f"chip_smoke: phases 1-21 took {time.perf_counter() - t0:.1f} s, the kernels' build "
           f"included [{card}]", flush=True)
     bwd_source = "gpumounter_tpu_torch/ops/csrc/flash_bwd.cu"
     print(json.dumps({"kernels": [{
@@ -4014,7 +4248,8 @@ def _phases(stage: list, t0: float) -> None:
                      + moe_fwd + handoff_launches["flash_fwd"] + sharded["flash_fwd"]
                      + mount_launches + v2_launches + durability_launches
                      + degraded_launches + pool_launches + fleet_launches
-                     + health_launches + migrate_launches + share_launches),
+                     + health_launches + migrate_launches + share_launches
+                     + autoscale_launches),
         "max_abs_err": max_abs_err, **times}, {
         "name": "flash_bwd_dq", "route": "cuda", "source": bwd_source,
         "replaces": "gpumounter_tpu/ops/flash_attention.py:182",

@@ -421,6 +421,44 @@ class Config:
     defrag_group_fanout: int = field(default_factory=lambda: int(
         _env("DEFRAG_GROUP_FANOUT", "2")))
 
+    # --- the autoscaler (autoscale/) ---
+    # the loop is off unless TPUMOUNTER_AUTOSCALE (a decision moves live
+    # tenants' GPUs; GET /autoscale and the verbs work either way) and runs
+    # every AUTOSCALE_INTERVAL_S; after a decision a tenant waits
+    # AUTOSCALE_COOLDOWN_S; telemetry older than AUTOSCALE_STALE_S, or fewer
+    # than AUTOSCALE_MIN_SAMPLES samples, is refused; a tenant keeps
+    # AUTOSCALE_HISTORY samples and the model AUTOSCALE_MAX_TENANTS tenants; a
+    # grow wants the queue at AUTOSCALE_QUEUE_GROW and the utilization at
+    # AUTOSCALE_UTIL_GROW, a shrink both at or under their _SHRINK; a signal
+    # holds AUTOSCALE_HYSTERESIS passes in a row before it fires, and a
+    # decision moves at most AUTOSCALE_MAX_STEP GPUs
+    autoscale_enabled: bool = field(default_factory=lambda: _env(
+        "TPUMOUNTER_AUTOSCALE", "false").lower() in ("1", "true", "yes"))
+    autoscale_interval_s: float = field(default_factory=lambda: float(
+        _env("AUTOSCALE_INTERVAL_S", "60")))
+    autoscale_cooldown_s: float = field(default_factory=lambda: float(
+        _env("AUTOSCALE_COOLDOWN_S", "300")))
+    autoscale_stale_s: float = field(default_factory=lambda: float(
+        _env("AUTOSCALE_STALE_S", "120")))
+    autoscale_min_samples: int = field(default_factory=lambda: int(
+        _env("AUTOSCALE_MIN_SAMPLES", "4")))
+    autoscale_history: int = field(default_factory=lambda: int(
+        _env("AUTOSCALE_HISTORY", "64")))
+    autoscale_max_tenants: int = field(default_factory=lambda: int(
+        _env("AUTOSCALE_MAX_TENANTS", "256")))
+    autoscale_queue_grow: float = field(default_factory=lambda: float(
+        _env("AUTOSCALE_QUEUE_GROW", "32")))
+    autoscale_queue_shrink: float = field(default_factory=lambda: float(
+        _env("AUTOSCALE_QUEUE_SHRINK", "2")))
+    autoscale_util_grow: float = field(default_factory=lambda: float(
+        _env("AUTOSCALE_UTIL_GROW", "0.85")))
+    autoscale_util_shrink: float = field(default_factory=lambda: float(
+        _env("AUTOSCALE_UTIL_SHRINK", "0.35")))
+    autoscale_hysteresis: int = field(default_factory=lambda: int(
+        _env("AUTOSCALE_HYSTERESIS", "2")))
+    autoscale_max_step: int = field(default_factory=lambda: int(
+        _env("AUTOSCALE_MAX_STEP", "2")))
+
     # --- fractional shares (vchip/) ---
     # off: /shares' admission answers 503 and every grant stays whole-GPU;
     # the weight one GPU can carry (100 reads as percent); the books' bound;

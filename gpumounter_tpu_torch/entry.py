@@ -25,7 +25,10 @@ live migration: an intent converged and healed over ProbeGPU, a tenant
 moved between pods with its state packed and restored, and a rollback
 (``elastic_migrate_check``), and the capacity plane with a metered share of
 a GPU: the inventory through CollectTelemetry, a share booked, mounted with
-its policy and released, a refusal's verdict (``capacity_share_check``)."""
+its policy and released, a refusal's verdict (``capacity_share_check``), and
+the autoscaler: a tenant's curve fitted from its published steps, the
+decisions its rule gives on a held GPU, the pause and the resume
+(``autoscale_check``)."""
 
 from __future__ import annotations
 
@@ -5170,6 +5173,273 @@ def capacity_share_check(device="cuda", *, dev_dir: str | None = None,
                           dirs) as stack:
             flows = {"start_ms": (time.perf_counter() - t0) * 1e3}
             flows.update(_capacity_flows(stack, target, read, live, on_mounted))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        shutil.rmtree(ledgers, ignore_errors=True)
+        k8s_health.reset_all()
+    report["live" if live else "fake"] = flows
+    return report
+
+
+# --- the autoscaler on a live hot-mount ---
+
+#: the tenant's batch windows (rows of AUTOSCALE_ROW tokens), each of
+#: AUTOSCALE_STEPS steps: more than the 32 token marks ``TenantTelemetry``
+#: keeps, so that each window's published tokens/s is its own; the first is
+#: the model's baseline (a first sighting derives no sample), so the fit has
+#: four samples
+AUTOSCALE_WINDOWS = (1, 1, 2, 4, 8)
+AUTOSCALE_STEPS = 40
+AUTOSCALE_ROW = 2048
+#: the queue depth the tenant reports with every step (AUTOSCALE_QUEUE_GROW
+#: is 32, so only the utilization decides between a grow and steady)
+AUTOSCALE_QUEUE = 64.0
+#: the CPU's stand-in tenant: a server on rate(b) = r_max * b / (b + b_half)
+#: (tokens/s over tokens a step), its steps timed on a clock of its own, so
+#: that the fit must find this curve again
+AUTOSCALE_CPU_CURVE = {"r_max": 3.35e6, "b_half": 2048.0}
+#: the fit held against the windows it was fitted on: r_max and b_half
+#: within AUTOSCALE_REFIT_RTOL of a least squares of the windows' own
+#: (batch, rate) pairs made here with numpy. How well the curve describes
+#: them is reported, not gated: an H100 tenant's rate rises linearly while
+#: each step costs the host's ≈ 2-3 ms of launches and flattens once the
+#: forward costs more, a shape the curve cannot take, and the host's noise
+#: moves each window's miss and the plateau's distance past the fastest
+AUTOSCALE_REFIT_RTOL = 1e-6
+
+
+def autoscale_tenant_cpu(uuids, dev_dir, url, token, collect,
+                         tenant: str = "default/tenant-autoscale") -> dict:
+    """The stand-in tenant of ``autoscale_check`` on the CPU: the windows of
+    AUTOSCALE_WINDOWS, each step recorded on a clock of its own at the rate
+    AUTOSCALE_CPU_CURVE gives its tokens, the snapshot published to `url`
+    after each window and collect() called. Returns {"tenant", "steps",
+    "windows": [{"B", "tokens_per_s", "published"}]}."""
+    from gpumounter_tpu_torch.torchside.telemetry import TenantTelemetry
+    now = [1000.0]
+    namespace, pod = tenant.split("/", 1)
+    tel = TenantTelemetry(tenant, namespace=namespace, pod=pod, token=token,
+                          clock=lambda: now[0])
+    r_max, b_half = AUTOSCALE_CPU_CURVE["r_max"], AUTOSCALE_CPU_CURVE["b_half"]
+    windows = []
+    for b in AUTOSCALE_WINDOWS:
+        tokens = float(b * AUTOSCALE_ROW)
+        for _ in range(AUTOSCALE_STEPS):
+            duration = tokens / (r_max * tokens / (tokens + b_half))
+            now[0] += duration
+            tel.record_step(duration, tokens=tokens, queue_depth=AUTOSCALE_QUEUE)
+        published = tel.publish(url)
+        windows.append({"B": b, "tokens_per_s": tel.snapshot()["tokens_per_s"],
+                        "published": published})
+        collect()
+    return {"tenant": tenant, "steps": AUTOSCALE_STEPS * len(AUTOSCALE_WINDOWS),
+            "windows": windows}
+
+
+def _expected_reasons(fit: dict, queue: float, cfg) -> list[str]:
+    """The reference's rule for a tenant with a fit that may be acted on, one
+    GPU held and none free or warm, over two passes: a grow signal holds for
+    the hysteresis and then finds the fleet infeasible, a hold that restarts
+    the streak; otherwise steady (the queue is over AUTOSCALE_QUEUE_SHRINK,
+    so no shrink)."""
+    util = float(fit["utilization"])
+    if queue <= cfg.autoscale_queue_shrink and util <= cfg.autoscale_util_shrink:
+        raise RuntimeError(f"a shrink signal at queue {queue}: the check wants a deep queue")
+    if queue < cfg.autoscale_queue_grow or util < cfg.autoscale_util_grow:
+        return ["steady", "steady"]
+    reasons, streak = [], 0
+    for _ in range(2):
+        streak += 1
+        reasons.append("hysteresis" if streak < cfg.autoscale_hysteresis else "infeasible")
+        streak = 0 if reasons[-1] == "infeasible" else streak
+    return reasons
+
+
+def _refit(pairs: list[tuple[float, float]]) -> dict:
+    """rate = r_max * b / (b + b_half) through numpy's least squares of 1/r
+    on 1/b, apart from the model's code; a non-positive intercept gives the
+    mean rate as the plateau, as the model's rule does."""
+    inv_b, inv_r = (np.array([1.0 / v for v in col]) for col in zip(*pairs))
+    slope, intercept = np.polyfit(inv_b, inv_r, 1)
+    if intercept <= 1e-12:
+        return {"r_max": float(np.mean([r for _, r in pairs])), "b_half": 0.0}
+    return {"r_max": float(1.0 / intercept), "b_half": float(max(0.0, slope / intercept))}
+
+
+def _fit_vs_windows(fit: dict, windows: list[dict]) -> dict:
+    """The fit against the tenant's windows that made its samples (all but
+    the first, the model's baseline): numpy's refit of their (batch, rate)
+    pairs, which r_max and b_half must meet within AUTOSCALE_REFIT_RTOL (it
+    raises otherwise); each window's rate, the fit's prediction at its batch
+    and their relative gap; and r_max over the fastest rate."""
+    from gpumounter_tpu_torch.autoscale.model import predict
+    rows = []
+    for w in windows[1:]:
+        rate = float(w["tokens_per_s"])
+        modelled = predict(fit, float(w["B"] * AUTOSCALE_ROW))
+        rows.append({"B": w["B"], "rate": rate, "predicted": modelled,
+                     "rel_err": abs(modelled - rate) / rate})
+    refit = _refit([(float(r["B"] * AUTOSCALE_ROW), r["rate"]) for r in rows])
+    refit_err = max(abs(float(fit[k]) - refit[k]) / max(abs(refit[k]), 1e-9)
+                    for k in ("r_max", "b_half"))
+    if refit_err > AUTOSCALE_REFIT_RTOL:
+        raise RuntimeError(f"the fit {fit} against the tenant's windows {rows}: numpy's "
+                           f"refit {refit}, off by {refit_err:.3g} (limit "
+                           f"{AUTOSCALE_REFIT_RTOL})")
+    return {"windows": rows, "refit": refit, "refit_err": refit_err,
+            "r_max_over_seen": float(fit["r_max"]) / max(r["rate"] for r in rows)}
+
+
+def _autoscale_flows(stack: _MasterStack, dev_dir: str, ops_base: str, read: str, live: bool,
+                     on_mounted) -> dict:
+    """The flows of ``autoscale_check``; raises on the first check that does
+    not hold."""
+    cluster, app = stack.cluster, stack.app
+    node = cluster.node_name
+    pod = cluster.add_target_pod("tenant-autoscale")
+    tenant = f"{pod.namespace}/{pod.name}"
+    intent_path = f"/intents/{pod.namespace}/{pod.name}"
+    free = cluster.free_gpu_count()
+    out: dict = {"collect_ms": []}
+    status, body, out["add_ms"] = stack.http("GET", _add_path(pod, 1))
+    if (status, body) != (200, "Add GPU Success\n"):
+        raise RuntimeError(f"GET {_add_path(pod, 1)}: {status} {body!r}")
+    uuids = stack.held(node, pod)
+    _check_nodes(cluster.backend, uuids, dev_dir, live)
+    status, body, out["put_ms"] = stack.http("PUT", intent_path,
+                                             payload={"desiredChips": 1, "minChips": 1})
+    if status != 200 or json.loads(body)["desiredChips"] != 1:
+        raise RuntimeError(f"PUT {intent_path}: {status} {body}")
+
+    def collect() -> float:
+        _, ms = _timed(app.fleet.collect_once, _HOST)
+        out["collect_ms"].append(ms)
+        return ms
+
+    out["tenant"] = on_mounted(uuids, dev_dir, ops_base, stack.token, collect)
+    if len(out["collect_ms"]) != len(AUTOSCALE_WINDOWS):
+        raise RuntimeError(f"the tenant ran {len(out['collect_ms'])} collection pass(es) for "
+                           f"{len(AUTOSCALE_WINDOWS)} windows")
+    status, body, out["get_ms"] = stack.http("GET", "/autoscale", token=read)
+    pane = json.loads(body) if status == 200 else {}
+    fit = (pane.get("model") or {}).get("tenants", {}).get(tenant) or {}
+    if status != 200 or fit.get("verdict") != "ok" or fit.get("samples") != 4:
+        raise RuntimeError(f"GET /autoscale with the read token: {status}, {tenant}'s fit "
+                           f"{fit}")
+    out["fit"] = fit
+    out["fit_vs_windows"] = _fit_vs_windows(fit, out["tenant"]["windows"])
+    out["expected"] = _expected_reasons(fit, AUTOSCALE_QUEUE, app.cfg)
+    records_before = len(audit.AUDIT.query(operation="autoscale.decision"))
+    out["evaluate"] = []
+    for want in out["expected"]:
+        status, body, ms = stack.http("POST", "/autoscale/evaluate")
+        record = json.loads(body) if status == 200 else {}
+        (decision,) = [d for d in record.get("decisions", []) if d["tenant"] == tenant] or [{}]
+        if status != 200 or decision.get("action") != "hold" or decision.get("reason") != want:
+            raise RuntimeError(f"POST /autoscale/evaluate: {status}, {tenant}'s decision "
+                               f"{decision}, the rule's {want!r}")
+        out["evaluate"].append({"ms": ms, "reason": decision["reason"],
+                                "queue_depth": decision.get("queue_depth"),
+                                "feasibility": decision.get("feasibility")})
+    status, body, _ = stack.http("GET", intent_path)
+    if status != 200 or json.loads(body)["desiredChips"] != 1 \
+            or stack.held(node, pod) != uuids \
+            or len(audit.AUDIT.query(operation="autoscale.decision")) != records_before:
+        raise RuntimeError(f"the holds moved something: GET {intent_path} {status} {body}, "
+                           f"held {stack.held(node, pod)} (was {uuids})")
+    # the pause: evaluate refused with its cause until the resume
+    codes = {}
+    for step, path in (("pause", "/autoscale/pause"), ("paused", "/autoscale/evaluate"),
+                       ("resume", "/autoscale/resume"), ("resumed", "/autoscale/evaluate")):
+        status, body, ms = stack.http("POST", path)
+        codes[step] = (status, ms)
+        if step == "paused" and (status, "operator-paused" in body) != (409, True):
+            raise RuntimeError(f"POST {path} while paused: {status} {body!r}")
+        if step != "paused" and status != 200:
+            raise RuntimeError(f"POST {path}: {status} {body!r}")
+    out["pause"] = codes
+    status, body, _ = stack.http("DELETE", intent_path)
+    if status != 200:
+        raise RuntimeError(f"DELETE {intent_path}: {status} {body!r}")
+    status, body, out["remove_ms"] = stack.http("POST", _remove_path(pod),
+                                                {"uuids": ",".join(uuids)})
+    if (status, body) != (200, "Remove 1 GPUs Success\n"):
+        raise RuntimeError(f"POST {_remove_path(pod)} {uuids}: {status} {body!r}")
+    _released(cluster, pod, free)
+    out["uuids"] = uuids
+    return out
+
+
+def autoscale_check(device="cuda", *, dev_dir: str | None = None, ns_pid: int | None = None,
+                    cgroup_dirs=(), identity: str = "nvml", ledger_root: str | None = None,
+                    on_mounted=None) -> dict:
+    """The autoscaler on a live hot-mount (``_MasterStack`` over HTTP and
+    gRPC, the master with a read token beside its mutate token, the worker's
+    ops port on a free port of 127.0.0.1, a ledger in a new directory under
+    `ledger_root`, the collector's passes by hand, the autoscaler's loop
+    off). Without grpcio it raises ``ModuleNotFoundError`` naming grpcio.
+
+    An HTTP add mounts one GPU into a pod and PUT /intents declares it
+    (desired 1, min 1). on_mounted(uuids, dev_dir, ops_url, token, collect)
+    is the tenant: it runs the AUTOSCALE_WINDOWS windows of AUTOSCALE_STEPS
+    steps, each step of B rows of AUTOSCALE_ROW tokens at the queue depth
+    AUTOSCALE_QUEUE, publishes its snapshot to the ops port after each
+    window and calls collect() (one pass of the fleet collector, whose
+    throughput observer is the autoscaler's model); on the card a process on
+    the GPU, on the CPU ``autoscale_tenant_cpu`` by default. Then GET
+    /autoscale (the read token) shows the tenant's fit ``ok`` with 4
+    samples, and the fit describes the windows it came from
+    (``_fit_vs_windows``); two POST /autoscale/evaluate end in the reasons the
+    reference's rule gives that fit and queue (``_expected_reasons``:
+    hysteresis then infeasible at a utilization of AUTOSCALE_UTIL_GROW or
+    more, the one GPU being held; else steady), and neither moves the
+    intent, the mount or the audit trail's decisions; POST /autoscale/pause
+    makes evaluate answer 409 (operator-paused), and the resume 200. The
+    intent is deleted and the GPU removed.
+
+    On the card (device="cuda") on the live ``NvidiaDeviceBackend`` mounting
+    into `dev_dir` through the mount namespace of `ns_pid` (as
+    ``mount_check``), and without CAP_MKNOD it raises; on the CPU on a fake
+    host of 1 GPU. Runs on the card unless the caller passes device="cpu".
+
+    Returns {"cap_mknod", "live" or "fake": {"start_ms", "add_ms", "put_ms",
+    "tenant", "collect_ms", "get_ms", "fit", "fit_vs_windows", "expected", "evaluate",
+    "pause", "remove_ms", "uuids"}, the other None}; ms on the host
+    clock."""
+    device = resolve_device(device)
+    live = device.type == "cuda"
+    report = {"cap_mknod": has_cap_mknod(), "live": None, "fake": None}
+    if live and not report["cap_mknod"]:
+        raise RuntimeError("autoscale_check on the card needs CAP_MKNOD: its tenant runs on "
+                           "the card's own GPU, mounted")
+    if live and on_mounted is None:
+        raise ValueError("autoscale_check on the card needs its tenant: on_mounted(uuids, "
+                         "dev_dir, ops_url, token, collect) running on the GPU")
+    k8s_health.reset_all()
+    root = tempfile.mkdtemp(prefix="autoscale-check-")
+    ledgers = tempfile.mkdtemp(prefix="autoscale-ledgers-", dir=ledger_root)
+    read = secrets.token_hex(16)
+    try:
+        t0 = time.perf_counter()
+        cfg = Config(auth_mode="token", auth_token=secrets.token_hex(16), auth_read_token=read,
+                     ledger_dir=ledgers, node_name="gpu-node-0", fleet_scrape_interval_s=3600.0)
+        if live:
+            cluster = FakeCluster(NvidiaDeviceBackend("/dev", identity=make_identity(identity)),
+                                  cfg=cfg, node_name=cfg.node_name)
+        else:
+            cluster = FakeCluster.with_fake_gpus(os.path.join(root, "fake"), 1, cfg=cfg)
+        target, dirs = _live_target(root, dev_dir, cgroup_dirs)
+        ops = serve_ops(0, cfg, host="127.0.0.1")
+        try:
+            with _MasterStack(cluster, {cluster.node_name: target}, ns_pid if live else None,
+                              dirs) as stack:
+                flows = {"start_ms": (time.perf_counter() - t0) * 1e3}
+                flows.update(_autoscale_flows(
+                    stack, target, f"http://127.0.0.1:{ops.server_address[1]}", read, live,
+                    on_mounted or autoscale_tenant_cpu))
+        finally:
+            ops.shutdown()
+            ops.server_close()
     finally:
         shutil.rmtree(root, ignore_errors=True)
         shutil.rmtree(ledgers, ignore_errors=True)

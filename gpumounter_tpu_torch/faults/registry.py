@@ -9,9 +9,8 @@ tpulint rule ``failpoint-registry`` does). Sites built with f-strings are
 covered by DYNAMIC_PREFIXES; their arm specs carry the concrete suffix
 (``k8s.patch_pod.status``).
 
-The names are the reference's, but for one: ``worker.addtpu.rollback.skip``
-is ``worker.addgpu.rollback.skip``. The reference's site of the package the
-port has not yet (the autoscaler's ``autoscale.pass``) comes with it.
+The names are the reference's, every one of its sites among them, but for
+one: ``worker.addtpu.rollback.skip`` is ``worker.addgpu.rollback.skip``.
 
 This module is data: the runtime (``faults/failpoints.py``) does not read
 it, so an undeclared point still arms in a dev loop.
@@ -33,6 +32,9 @@ FAILPOINTS: dict[str, str] = {
     # defragmenter (defrag/controller.py)
     "defrag.run": "top of a defrag plan execution, before the first "
                   "barrier sample",
+    # autoscaler (autoscale/controller.py)
+    "autoscale.pass": "top of one evaluate pass, before any tenant is "
+                      "considered",
     # rpc client (rpc/client.py)
     "rpc.client.call": "before every outbound worker RPC attempt",
     "rpc.client.deadline": "value(): per-call deadline override",

@@ -111,9 +111,8 @@ As in the reference: gpuNum and a batch target's gpus are range-checked
 against MAX_GPU_PER_REQUEST (the original never checks it), a batch holds at
 most BULK_MAX_TARGETS targets, every route but the index and /healthz wants
 a bearer token (``utils/auth.py``), and a path of no route gets "404 page
-not found". The reference's other routes (the autoscaler's) come with the
-package that serves them; until then their paths get that 404, /batch/addtpu
-among them.
+not found", /addtpu and /batch/addtpu among them: the port serves the
+reference's 41 routes under its names, with the GPU's names for the mounts.
 
 The capacity plane and the fractional shares (``obs/capacity.py``,
 ``vchip/``), as the reference's routes (``gpumounter_tpu/master/app.py:926-949,
@@ -198,6 +197,26 @@ controller, over the migration machine, the capacity plane and the fleet
 collector, with the health plane, so that quarantined hosts are no move's
 destination; its loop runs only after ``defrag.start()`` (``master/main.py``,
 under TPUMOUNTER_DEFRAG).
+
+The autoscaler (``autoscale/``), as the reference's routes
+(``gpumounter_tpu/master/app.py:395-401, 1098-1150``), JSON out:
+
+      GET  /autoscale          -> the gates, the model's fits, the last pass,
+                                  the recent decisions, the cooldowns
+      POST /autoscale/pause    -> the pane
+      POST /autoscale/resume   -> the pane
+      POST /autoscale/evaluate -> one pass now: its record
+
+GET is in the read scope and untraced; the POSTs want the mutate token and
+leave an edge audit record (pause and resume theirs too, with the caller's
+X-Tpumounter-Actor). A refusal answers its own status: 409 (paused, busy),
+503 with Retry-After of AUTOSCALE_INTERVAL_S (the API degraded, an objective
+burning, the fleet's view failed). The controller is built after the
+defragmenter, over the reconciler, the capacity plane and the fleet
+collector, with the SLO engine, ApiHealth, the health plane and the
+defragmenter; its model is the collector's ``autoscale_model``, so that
+every pass feeds it. Its loop runs only after ``autoscale.start()``
+(``master/main.py``, under TPUMOUNTER_AUTOSCALE).
 """
 
 from __future__ import annotations
@@ -213,6 +232,7 @@ import urllib.parse
 import urllib.request
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
+from gpumounter_tpu_torch.autoscale import AutoscaleController, AutoscaleRefused
 from gpumounter_tpu_torch.config import Config
 from gpumounter_tpu_torch.defrag import DefragController, DefragRefused
 from gpumounter_tpu_torch.elastic import ElasticReconciler, Intent, IntentError, IntentStore
@@ -512,6 +532,11 @@ _ROUTES: list[tuple[str, re.Pattern, str]] = [
     ("POST", re.compile(r"^/defrag/plan$"), "defrag_plan"),
     ("POST", re.compile(r"^/defrag/run$"), "defrag_run"),
     ("POST", re.compile(r"^/defrag/pause$"), "defrag_pause"),
+    # the autoscaler (autoscale/): one pane and three verbs
+    ("GET", re.compile(r"^/autoscale$"), "autoscale"),
+    ("POST", re.compile(r"^/autoscale/pause$"), "autoscale_pause"),
+    ("POST", re.compile(r"^/autoscale/resume$"), "autoscale_resume"),
+    ("POST", re.compile(r"^/autoscale/evaluate$"), "autoscale_evaluate"),
 ]
 
 #: a slice's GPUs per host when the request names none: an H100 host's 8
@@ -526,6 +551,13 @@ def _parse_bool(raw: str, param: str) -> bool:
     if low in ("false", "0", "f"):
         return False
     raise _HttpError(400, f"Invalid param {param}: {raw} (should be true or false)")
+
+
+def _actor(headers: dict[str, str]) -> str:
+    """The caller the audit trail names: the X-Tpumounter-Actor header, else
+    "http"."""
+    return next((v for k, v in headers.items() if k.lower() == "x-tpumounter-actor"),
+                "") or "http"
 
 
 def _retry_after(seconds: float) -> dict[str, str]:
@@ -571,12 +603,13 @@ class MasterApp:
     #: name pods, tenants and GPUs)
     READ_ROUTES = frozenset({"metrics", "audit", "trace", "timeline", "apihealth", "shards",
                              "fleet", "slo", "tenants", "recovery", "health_nodes", "capacity",
-                             "shares", "defrag"})
+                             "shares", "defrag", "autoscale"})
     #: never traced: probes, and the panes a dashboard polls (their spans
     #: would rotate the operations' traces out of the ring)
     UNTRACED_ROUTES = frozenset({"index", "healthz", "metrics", "fleet", "slo", "tenants",
                                  "apihealth", "timeline", "shards", "recovery",
-                                 "health_nodes", "capacity", "shares", "defrag"})
+                                 "health_nodes", "capacity", "shares", "defrag",
+                                 "autoscale"})
     #: never behind the admission gate: a liveness probe or a scrape must
     #: answer while a mount storm fills the replica (a gated /healthz would
     #: turn load into restarts)
@@ -587,7 +620,8 @@ class MasterApp:
                                 "intent_put", "intent_delete", "migrate_start",
                                 "migration_abort", "recovery_evacuate", "health_quarantine",
                                 "shares_admit", "shares_release", "defrag_plan", "defrag_run",
-                                "defrag_pause"})
+                                "defrag_pause", "autoscale_pause", "autoscale_resume",
+                                "autoscale_evaluate"})
 
     def __init__(self, kube: KubeClient, cfg=None, worker_client_factory=None,
                  registry: WorkerRegistry | None = None, store: MasterStore | None = None,
@@ -695,18 +729,29 @@ class MasterApp:
         self.shares = ShareRegistry(cfg=self.cfg)
         self.packer = SharePacker(self.shares, cfg=self.cfg)
         self.capacity.shares = self.shares
+        # the autoscaler: fits the tenants' curves from the fleet's /tenants
+        # telemetry and turns queue and utilization into gated intents; its
+        # model rides every collection pass, so that it learns while the loop
+        # is off. Its loop runs only after autoscale.start() (master/main.py,
+        # under TPUMOUNTER_AUTOSCALE); the routes work either way
+        self.autoscale = AutoscaleController(self.elastic, self.capacity, self.fleet,
+                                             slo=self.slo, apihealth=self.apihealth,
+                                             health=self.health, defrag=self.defrag,
+                                             cfg=self.cfg)
+        self.fleet.autoscale_model = self.autoscale.model
         # root and error spans, audit records and the API's transitions onto
         # the timeline; idempotent
         flight.install(apihealth=self.apihealth)
 
     def close(self) -> None:
-        """Stop the defragmenter's, the canary's, the recovery controller's,
-        the reconciler's and the fleet collector's loops, wait for the
-        migrations' machines,
-        stop the registry's watch and its channels, and close the store (its
-        ApiHealth subscription, its probe, its watch and its queue). Its
-        capacity plane stops being the process's."""
+        """Stop the autoscaler's, the defragmenter's, the canary's, the
+        recovery controller's, the reconciler's and the fleet collector's
+        loops, wait for the migrations' machines, stop the registry's watch
+        and its channels, and close the store (its ApiHealth subscription,
+        its probe, its watch and its queue). Its capacity plane stops being
+        the process's."""
         capacity_obs.unregister_plane(self.capacity)
+        self.autoscale.stop()
         self.defrag.stop()
         self.canary.stop()
         self.recovery.stop()
@@ -790,8 +835,7 @@ class MasterApp:
         else "http"), the pod when the path names one, "http <status>", the
         time and the edge's trace id."""
         groups = match.groupdict()
-        actor = next((v for k, v in headers.items() if k.lower() == "x-tpumounter-actor"),
-                     "") or "http"
+        actor = _actor(headers)
         with audited(f"http.{name}", actor=actor, namespace=groups.get("ns", ""),
                      pod=groups.get("pod", "")) as rec:
             try:
@@ -1049,8 +1093,7 @@ class MasterApp:
         if not isinstance(req, dict):
             raise _HttpError(400, "body must be a JSON object")
         action = str(req.get("action") or "quarantine")
-        actor = next((v for k, v in headers.items() if k.lower() == "x-tpumounter-actor"),
-                     "") or "http"
+        actor = _actor(headers)
         try:
             if action == "quarantine":
                 pane = self.health.quarantine(node, reason=str(req.get("reason") or ""),
@@ -1071,14 +1114,14 @@ class MasterApp:
         flight with its barrier samples, the last runs."""
         return 200, "application/json", json.dumps(self.defrag.payload(), indent=1) + "\n"
 
-    def _defrag_call(self, fn, *args, **kwargs):
-        """A DefragRefused answers its own status; a 503 (parked) carries
-        Retry-After, the loop's interval, so that a script backs off."""
+    def _refusable_call(self, refused, interval_s, fn, *args, **kwargs):
+        """A loop's refusal (DefragRefused, AutoscaleRefused) answers its own
+        status (409 paused or busy, 503 parked); a 503 carries Retry-After,
+        the loop's interval `interval_s`, so that a script backs off."""
         try:
             return fn(*args, **kwargs)
-        except DefragRefused as exc:
-            headers = ({"Retry-After": str(int(self.cfg.defrag_interval_s))}
-                       if exc.status == 503 else {})
+        except refused as exc:
+            headers = ({"Retry-After": str(int(interval_s))} if exc.status == 503 else {})
             raise _HttpError(exc.status, str(exc), headers=headers)
 
     def _defrag_body(self, body: bytes) -> dict:
@@ -1096,18 +1139,44 @@ class MasterApp:
         target = self._defrag_body(body).get("target_block")
         if target is not None and (not isinstance(target, int) or target < 1):
             raise _HttpError(400, f"target_block must be a positive integer, got {target!r}")
-        plan = self._defrag_call(self.defrag.plan, target_block=target)
+        plan = self._refusable_call(DefragRefused, self.cfg.defrag_interval_s,
+                                    self.defrag.plan, target_block=target)
         return 200, "application/json", json.dumps(plan, indent=1) + "\n"
 
     def _route_defrag_run(self, match, body, headers):
         """Execute the adopted plan on a thread of its own; the body's
         "plan_id" pins the run to that plan (409 when another was adopted
         since)."""
-        out = self._defrag_call(self.defrag.run, plan_id=self._defrag_body(body).get("plan_id"))
+        out = self._refusable_call(DefragRefused, self.cfg.defrag_interval_s, self.defrag.run,
+                                   plan_id=self._defrag_body(body).get("plan_id"))
         return 200, "application/json", json.dumps(out, indent=1) + "\n"
 
     def _route_defrag_pause(self, match, body, headers):
         return 200, "application/json", json.dumps(self.defrag.pause(), indent=1) + "\n"
+
+    # --- the autoscaler (autoscale/) ---
+
+    def _route_autoscale(self, match, body, headers):
+        """The autoscaler's pane: the gates, the model's fits with their
+        verdicts, the last pass, the recent decisions, the cooldowns."""
+        return 200, "application/json", json.dumps(self.autoscale.payload(), indent=1) + "\n"
+
+    def _route_autoscale_pause(self, match, body, headers):
+        actor = _actor(headers)
+        return 200, "application/json", json.dumps(self.autoscale.pause(actor=actor),
+                                                   indent=1) + "\n"
+
+    def _route_autoscale_resume(self, match, body, headers):
+        actor = _actor(headers)
+        return 200, "application/json", json.dumps(self.autoscale.resume(actor=actor),
+                                                   indent=1) + "\n"
+
+    def _route_autoscale_evaluate(self, match, body, headers):
+        """One pass now rather than at the loop's interval; nothing fires
+        through a closed gate."""
+        out = self._refusable_call(AutoscaleRefused, self.cfg.autoscale_interval_s,
+                                   self.autoscale.evaluate_once)
+        return 200, "application/json", json.dumps(out, indent=1) + "\n"
 
     def _route_workers(self, match, body, headers):
         lines = [f"{node} {ip}" for node, ip in

@@ -37,9 +37,12 @@ once at start and at every shard takeover (MIGRATE_*); the reconciler stops
 and the machines are waited for before the app closes. The defragmenter's
 loop (``defrag/controller.py``) runs each DEFRAG_INTERVAL_S only under
 TPUMOUNTER_DEFRAG (DEFRAG_MAX_MOVES, DEFRAG_TENANT_MOVE_BUDGET,
-DEFRAG_SNAPSHOT_MAX_AGE_S, DEFRAG_TARGET_BLOCK, DEFRAG_GROUP_FANOUT), and stops
-first when the app closes. The reference's autoscaler loop comes with its
-package.
+DEFRAG_SNAPSHOT_MAX_AGE_S, DEFRAG_TARGET_BLOCK, DEFRAG_GROUP_FANOUT). The
+autoscaler's loop (``autoscale/controller.py``) runs each AUTOSCALE_INTERVAL_S
+only under TPUMOUNTER_AUTOSCALE (AUTOSCALE_COOLDOWN_S, AUTOSCALE_STALE_S,
+AUTOSCALE_MIN_SAMPLES, AUTOSCALE_HYSTERESIS, AUTOSCALE_MAX_STEP and the rest of
+AUTOSCALE_*); its model learns from every collection pass either way. When the
+app closes the autoscaler stops first, then the defragmenter.
 
     python -m gpumounter_tpu_torch.master.main
 """
@@ -96,6 +99,12 @@ def main() -> None:
         app.defrag.start()
         logger.info("defragmenter on (interval %.0fs, target block %d, max %d moves/plan)",
                     cfg.defrag_interval_s, cfg.defrag_target_block, cfg.defrag_max_moves)
+    # the decision state is in memory: a restarted master passes quietly a
+    # few times while its fits learn again from live telemetry
+    if cfg.autoscale_enabled:
+        app.autoscale.start()
+        logger.info("autoscaler on (interval %.0fs, cooldown %.0fs, max step %d)",
+                    cfg.autoscale_interval_s, cfg.autoscale_cooldown_s, cfg.autoscale_max_step)
     # a master that died in a migration adopts it and drives it on from its
     # journaled phase, rather than leave a tenant half drained
     adopted = app.migrations.resume_interrupted()
@@ -120,8 +129,9 @@ def main() -> None:
         if cfg.shard_count > 1:
             # hand the leases back: the peers claim them now, not at expiry
             app.shards.stop(release=True)
-        # the defragmenter's, canary's, recovery's, reconciler's and fleet
-        # collector's loops and the migrations' machines first
+        # the autoscaler's, defragmenter's, canary's, recovery's,
+        # reconciler's and fleet collector's loops and the migrations'
+        # machines first
         app.close()
 
 

@@ -22,9 +22,11 @@ per-shard budgets.
 first, so that the feasibility counters it moves ride this pass's rollup;
 ``health``, the gray-failure plane (``health/plane.py``), observes it next,
 and its quarantined nodes (``excluded_hosts()``) are the ones whose pull sets
-the request's ``quarantined``: the worker then drains its warm pool. The
-reference's ``autoscale_model`` stays None until its package is ported. The
-worker's snapshot carries its GPUs in a ``capacity`` section; the scrape
+the request's ``quarantined``: the worker then drains its warm pool;
+``autoscale_model``, the autoscaler's throughput model
+(``autoscale/model.py``), folds the tenants' snapshots of every pass last
+(its ``observe_nodes``), so that the curves learn while the decision loop is
+off. The worker's snapshot carries its GPUs in a ``capacity`` section; the scrape
 fallback's is None, as the reference's. Standard library only: the worker
 imports the snapshot half on its mount path, and the RPC comes in through
 the client factory.
@@ -360,8 +362,9 @@ class FleetCollector:
         #: ``capacity`` (the ``CapacityPlane``) derives /capacity's view and
         #: moves the slice-feasibility counters before the rollup is taken;
         #: ``health`` (the ``HealthPlane``) scores the pass, and its
-        #: quarantined nodes ride their pulls; MasterApp sets both.
-        #: autoscale_model waits for its package
+        #: quarantined nodes ride their pulls; ``autoscale_model`` (the
+        #: ``ThroughputModel``) folds the tenants' snapshots. MasterApp sets
+        #: the three
         self.capacity = None
         self.health = None
         self.autoscale_model = None

@@ -77,6 +77,13 @@ seed, then checks the global invariants:
      and every degraded node ends quarantined; a disabled scorer
      (``disable_scorer=True``, the negative control) reads as a missed
      detection,
+ 21. the autoscaler's closure (``run_autoscale_scenario``): every decision
+     that fired carries a trace id with its ``autoscale.decision`` audit
+     record (the same pod and action), none fired through a gate it
+     recorded closed (paused, the API degraded, an objective burning), and
+     after convergence every autoscaled tenant's mounted GPUs equal its
+     intent; ``disable_gates=True`` (enforcement off while paused) is its
+     negative control,
  22. watch-store parity (``run_watch_store_scenario``): after a severed
      watch with a storm past the backlog (a 410), a restart and steady
      churn, the ``WatchMasterStore``'s indexes equal a fresh list-backed
@@ -84,9 +91,8 @@ seed, then checks the global invariants:
 
 Two more run on their own, not on the harness: ``run_fencing_scenario``
 (invariant 12, no stale-epoch write applied) and ``run_shard_scenario``
-(invariant 9, one owner a shard). The reference's invariant 21 comes with the
-autoscaler. A killed node (``kill_node``) is out of the books'
-reach: invariants 1-3, 8, 10, 17 and 19 skip it and its pods.
+(invariant 9, one owner a shard). A killed node (``kill_node``) is out of
+the books' reach: invariants 1-3, 8, 10, 17 and 19 skip it and its pods.
 
 The scenarios: ``run_mount_scenario`` (adds, removes and reconciles of pods
 with declared intents), ``run_worker_crash_scenario`` (worker deaths in
@@ -96,9 +102,11 @@ crashed at their phase boundaries, ``FAULTS_MIGRATE``, driven to their end by
 ``resume_interrupted``), ``run_node_kill_scenario``, ``run_gray_scenario``,
 ``run_watch_store_scenario``, ``run_api_outage_scenario``,
 ``run_share_scenario`` (fractional mounts, re-grants, releases and worker
-deaths of two complementary tenants) and ``run_defrag_scenario`` (a host
-blocked by warm holders, recovered by the real defrag controller's move to
-a standby on the other node). ``TenantSim``
+deaths of two complementary tenants), ``run_autoscale_scenario`` (the real
+autoscale controller grows a saturated tenant and shrinks an idle one, the
+reconciles that carry its decisions under ``FAULTS_ELASTIC``) and
+``run_defrag_scenario`` (a host blocked by warm holders, recovered by the
+real defrag controller's move to a standby on the other node). ``TenantSim``
 is the reference's fake tenant on the port's ``torchside`` watchers and
 telemetry.
 
@@ -370,6 +378,11 @@ class ChaosHarness:
         #: run_share_scenario sets it: check_invariants then holds invariant
         #: 19 too
         self.vchip_armed = False
+        #: run_autoscale_scenario sets it: check_invariants then holds
+        #: invariant 21 over its pass records and tenants
+        self.autoscale_armed = False
+        self.autoscale_passes: list[dict] = []
+        self.autoscale_pods: list[tuple[str, str]] = []
         #: run_watch_store_scenario sets it: check_invariants then holds
         #: invariant 22 too
         self.watchstore_armed = False
@@ -962,6 +975,133 @@ class ChaosHarness:
                                f"{move.get('trace_id')}) assembled without migrate-phase wall "
                                f"time: {tree['phases']}")
         return out
+
+    # --- invariant 21: the autoscaler's closure ---
+
+    class _TenantOverlayFleet:
+        """The real fleet rollup with the tenants' telemetry laid over it:
+        every fake node runs in this one process, so the harness writes the
+        tenant sections itself, on the collected rollup, and capacity and
+        health stay the real ones."""
+
+        def __init__(self, fleet, tenants_by_node):
+            self.fleet = fleet
+            self.tenants_by_node = tenants_by_node
+
+        def payload(self, max_age_s=None):
+            rollup = self.fleet.payload(max_age_s=max_age_s)
+            for node, snaps in self.tenants_by_node.items():
+                entry = rollup.get("nodes", {}).get(node)
+                if entry is not None:
+                    entry["tenants"] = {t: dict(s) for t, s in snaps.items()}
+            return rollup
+
+    def run_autoscale_scenario(self, n_passes: int = 8, disable_gates: bool = False) -> dict:
+        """The real autoscale controller over the live harness: ``as-grow``
+        on NODE_A (intent 2, a deep queue, its rate on its learned plateau)
+        must grow, ``as-shrink`` on NODE_B (intent 3, no queue, low
+        utilization) must shrink to its floor; each decision's reconcile runs
+        under a fault drawn from FAULTS_ELASTIC. The cooldown is 0 (a pass
+        stands for an interval); the rest is the default config.
+
+        disable_gates=True is the negative control: enforcement off while
+        the controller is paused, so that its decisions fire through a gate
+        recorded closed, which invariant 21 must name.
+
+        Returns {"passes": the pass records, "fired": the decisions fired}."""
+        from gpumounter_tpu_torch.autoscale import AutoscaleRefused
+        failpoints.seed(self.seed)
+        self.autoscale_armed = True
+        ctrl = self.app.autoscale
+        ctrl.cfg = dataclasses.replace(self.cfg, autoscale_cooldown_s=0.0)
+        ctrl.model.cfg = ctrl.cfg
+        pods = [("default", "as-grow", NODE_A, 2, 50.0, 160.0),
+                ("default", "as-shrink", NODE_B, 3, 0.0, 3.0)]
+        tenants_by_node: dict[str, dict[str, dict]] = {}
+        cumulative: dict[str, dict] = {}
+        for ns, name, node, desired, queue, batch in pods:
+            self.add_pod(name, node, namespace=ns)
+            self.autoscale_pods.append((ns, name))
+            self.app.elastic.store.put(ns, name, Intent(desired_chips=desired, min_chips=1))
+            self.app.elastic.reconcile_once(ns, name)
+            cumulative[f"{ns}/{name}"] = {"node": node, "steps": 0.0, "tokens": 0.0,
+                                          "queue": queue, "batch": batch}
+        ctrl.fleet = self._TenantOverlayFleet(self.app.fleet, tenants_by_node)
+        if disable_gates:
+            ctrl.enforce_gates = False
+            ctrl.pause(actor="chaos-negative-control")
+            self.record("negative control: autoscale gate enforcement disabled while "
+                        "operator-paused")
+        fired = 0
+        for n in range(n_passes):
+            for tenant, state in sorted(cumulative.items()):
+                # the batch wiggles around its profile, so that the fit sees
+                # curvature; the rate sits on 100 * b / (b + 10)
+                batch = state["batch"] * (1.0 + 0.25 * self.rng.random())
+                state["steps"] += 1.0
+                state["tokens"] += batch
+                tenants_by_node.setdefault(state["node"], {})[tenant] = {
+                    "steps": {"count": state["steps"]}, "tokens_total": state["tokens"],
+                    "tokens_per_s": 100.0 * batch / (batch + 10.0),
+                    "queue_depth": state["queue"], "at": time.time()}
+            try:
+                record = ctrl.evaluate_once()
+            except AutoscaleRefused as exc:
+                self.record(f"autoscale pass {n} refused: {exc.cause}")
+                continue
+            self.autoscale_passes.append(record)
+            for decision in record["decisions"]:
+                if decision["action"] not in ("grow", "shrink"):
+                    continue
+                fired += 1
+                self.record(f"autoscale {decision['action']} {decision['tenant']}: "
+                            f"{decision['from_chips']} -> {decision['to_chips']}")
+                ns, name = decision["namespace"], decision["pod"]
+                self._op(f"reconcile {name}",
+                         lambda ns=ns, name=name: self.app.elastic.reconcile_once(ns, name),
+                         pool=FAULTS_ELASTIC)
+        self.converge()
+        return {"passes": self.autoscale_passes, "fired": fired}
+
+    def _autoscale_closure(self) -> list[str]:
+        """Invariant 21 over the recorded passes and the autoscaled pods."""
+        violations = []
+        audit_by_trace: dict[str, list[dict]] = {}
+        for rec in AUDIT.snapshot():
+            if rec["operation"] == "autoscale.decision":
+                audit_by_trace.setdefault(rec.get("trace_id") or "", []).append(rec)
+        for record in self.autoscale_passes:
+            for decision in record.get("decisions", []):
+                if decision["action"] not in ("grow", "shrink"):
+                    continue
+                who, action = decision["tenant"], decision["action"]
+                gates = decision.get("gates") or {}
+                if gates.get("paused") or not gates.get("api_ok") or gates.get("slo_burning"):
+                    violations.append(f"autoscale {action} of {who} fired through a closed "
+                                      f"gate: {gates}")
+                trace_id = decision.get("trace_id")
+                if not trace_id:
+                    violations.append(f"autoscale {action} of {who} carries no trace id "
+                                      f"(unattributable decision)")
+                    continue
+                if not any(r["pod"] == decision["pod"]
+                           and r.get("details", {}).get("action") == action
+                           for r in audit_by_trace.get(trace_id, [])):
+                    violations.append(f"autoscale {action} of {who} (trace {trace_id}) left "
+                                      f"no matching autoscale.decision audit record")
+        for ns, name in self.autoscale_pods:
+            if self.pods.get((ns, name)) in self.dead_nodes:
+                continue
+            intent = self.app.elastic.store.get(ns, name)
+            if intent is None:
+                violations.append(f"autoscale tenant {ns}/{name} lost its intent")
+                continue
+            mounted = len(self.probe(ns, name))
+            if mounted != intent.desired_chips:
+                violations.append(f"autoscale tenant {ns}/{name} diverged: intent desires "
+                                  f"{intent.desired_chips} GPU(s) but {mounted} are mounted "
+                                  f"after convergence")
+        return violations
 
     def converge(self, timeout_s: float = 30.0) -> None:
         """Disarm everything, drive every migration to its end (adopting the
@@ -1961,6 +2101,9 @@ class ChaosHarness:
         # 20.
         if self.gray_armed:
             violations.extend(self._gray_attribution())
+        # 21.
+        if self.autoscale_armed:
+            violations.extend(self._autoscale_closure())
         # 22. the store's stream has settled once no index disagrees
         if self.watchstore_armed and self.watch_store is not None:
             deadline = time.monotonic() + 4.0

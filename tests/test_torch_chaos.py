@@ -14,7 +14,9 @@ stranded journal and a terminal one without its record, and invariant 13
 names an unattributed window. Then invariants 7 (the channel pool's
 books), 15 (the lock order) and 22 (the watch store against a fresh list,
 with its poisoned-index control) on both harnesses, and invariant 9 (one
-owner a shard) on the reference's seeds, its decisions the reference's.
+owner a shard) on the reference's seeds, its decisions the reference's, and
+invariant 21 (the autoscaler's closure) on them, its fired decisions the
+reference's, with its gate-bypass control.
 """
 
 from __future__ import annotations
@@ -720,3 +722,63 @@ def test_share_chaos_detects_disabled_enforcement(tmp_path):
     assert "throttle divergence" in str(err.value) and "seed=7" in str(err.value)
     from gpumounter_tpu_torch.cgroup.policy import POLICY_ENGINE
     assert POLICY_ENGINE.enforce is True  # the harness's stop puts it back
+
+
+def _fired(passes) -> list[tuple]:
+    """The decisions that fired, in order: (tenant, action, from, to)."""
+    return [(d["tenant"], d["action"], d["from_chips"], d["to_chips"])
+            for r in passes for d in r["decisions"] if d["action"] in ("grow", "shrink")]
+
+
+def _reference_autoscale(seed: int, **kwargs) -> dict:
+    root = short_root()
+    try:
+        with ref_chaos.ChaosHarness(root, seed) as h:
+            out = h.run_autoscale_scenario(**kwargs)
+            if not kwargs.get("disable_gates"):
+                h.check_invariants()
+            return {"fired": _fired(out["passes"]), "draws": _draws(h.schedule),
+                    "floor": h.app.elastic.store.get("default", "as-shrink").desired_chips}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_autoscale_chaos(tmp_path, seed):
+    """The real autoscaler grows the saturated ``as-grow`` and shrinks the
+    idle ``as-shrink`` to its floor, each decision's reconcile under an
+    elastic fault; invariant 21 holds (every fired decision traced and
+    audited, none through a closed gate, intents == mounts after
+    convergence). The decisions fired, in order and by size, and the
+    fault draws are the reference's on the same seed; the nodes of 6 GPUs
+    hold ``as-grow``'s 6."""
+    with ChaosHarness(str(tmp_path), seed) as h:
+        out = h.run_autoscale_scenario()
+        h.check_invariants()
+        fired = _fired(out["passes"])
+        floor = h.app.elastic.store.get("default", "as-shrink")
+        draws = _draws(h.schedule)
+        grown = len(h.probe("default", "as-grow"))
+    assert out["fired"] == len(fired) >= 2, h.schedule[-20:]
+    assert {(t, a) for t, a, _, _ in fired} == {("default/as-grow", "grow"),
+                                                 ("default/as-shrink", "shrink")}
+    assert floor is not None and floor.desired_chips >= 1
+    ref = _reference_autoscale(seed)
+    assert (fired, draws, floor.desired_chips) == (ref["fired"], ref["draws"], ref["floor"])
+    assert grown == [to for _, action, _, to in fired if action == "grow"][-1] == 6
+
+
+def test_autoscale_chaos_detects_gate_bypass(tmp_path):
+    """Negative control: enforcement off while the controller is paused.
+    Decisions fire through a gate they recorded closed, and invariant 21
+    flags them, with the seed; the reference's control fires the same."""
+    with ChaosHarness(str(tmp_path), seed=7) as h:
+        out = h.run_autoscale_scenario(disable_gates=True)
+        assert out["fired"] >= 1, h.schedule[-20:]
+        with pytest.raises(InvariantViolation) as err:
+            h.check_invariants()
+        fired = _fired(out["passes"])
+    message = str(err.value)
+    assert "fired through a closed gate" in message and "seed=7" in message
+    assert message.count("fired through a closed gate") == len(fired)
+    assert fired == _reference_autoscale(7, disable_gates=True)["fired"]

@@ -17,6 +17,7 @@ import ast
 import pathlib
 import re
 import time
+import types
 
 import pytest
 from torch_obs_reset import reset_port_obs  # noqa: F401 — the autouse fixture
@@ -183,10 +184,10 @@ def test_every_site_is_declared_once_and_every_declared_name_has_a_site():
     keys = [k.value for k in ast.parse((REPO / "gpumounter_tpu_torch/faults/registry.py")
                                        .read_text()).body[2].value.keys]
     assert len(keys) == len(set(keys)) == len(registry.FAILPOINTS)
-    # the reference's names, but worker.addtpu.rollback.skip
+    # the reference's names, every one, but worker.addtpu.rollback.skip
     from gpumounter_tpu.faults import registry as ref_registry
     renamed = {n.replace("addtpu", "addgpu") for n in ref_registry.FAILPOINTS}
-    assert set(registry.FAILPOINTS) <= renamed
+    assert set(registry.FAILPOINTS) == renamed
 
 
 def test_every_declared_name_is_armed_by_a_test():
@@ -266,3 +267,40 @@ def test_the_defrag_run_site_fires_as_the_references():
                       ctrl.payload()["plan"])
     assert seen["port"] == seen["reference"]
     assert seen["port"][:2] == (1, "failed") and seen["port"][3] == ["end"]
+
+
+def test_the_autoscale_pass_site_fires_as_the_references():
+    """``autoscale.pass`` fires at the top of a pass, after the gates: an
+    armed error aborts the pass on both controllers before the fleet is
+    read, and the one-shot action leaves the next pass clean."""
+    import dataclasses
+
+    from gpumounter_tpu.autoscale import AutoscaleController as RefController
+    from gpumounter_tpu.config import Config as RefConfig
+    from gpumounter_tpu_torch.autoscale import AutoscaleController
+    from gpumounter_tpu_torch.config import Config
+
+    class _Fleet:
+        def __init__(self):
+            self.reads = 0
+
+        def payload(self, max_age_s=None):
+            self.reads += 1
+            return {"nodes": {}}
+
+    class _Elastic:
+        store = types.SimpleNamespace(list=lambda: [])
+
+    seen = {}
+    for name, fp, cls, cfg in (("reference", ref_failpoints, RefController, RefConfig()),
+                               ("port", failpoints, AutoscaleController,
+                                dataclasses.replace(Config()))):
+        fleet = _Fleet()
+        ctrl = cls(_Elastic(), None, fleet, cfg=cfg)
+        with fp.armed({"autoscale.pass": "1*error(autoscale abort)"}):
+            with pytest.raises(Exception, match="autoscale abort"):
+                ctrl.evaluate_once()
+            hits, reads = fp.hits("autoscale.pass"), fleet.reads
+            status = ctrl.evaluate_once()["status"]
+        seen[name] = (hits, reads, status, fleet.reads)
+    assert seen["port"] == seen["reference"] == (1, 0, "completed", 1)

@@ -320,8 +320,8 @@ def test_the_breaker_answers_503_with_retry_after(stacks):
 
 
 def test_the_port_serves_only_the_original_surface(stacks):
-    """The reference's other routes wait for their packages: their paths get
-    the structured 404. /workers lists the node's worker. The observability
+    """A path of no route gets the structured 404. /workers lists the node's
+    worker. The observability
     reads (/audit, /trace/<id>, /timeline), the API-outage pane (/apihealth),
     the shard table (/shards, an inactive manager's here), the fleet planes
     (/fleet, /slo, /tenants) and the recovery and health panes (/recovery,
@@ -337,11 +337,14 @@ def test_the_port_serves_only_the_original_surface(stacks):
     and release (POST /shares, DELETE /shares/<ns>/<pod>), which want the
     mutate token. So is the defragmenter: its pane (/defrag) a read in the
     read scope, its verbs (POST /defrag/plan, /defrag/run, /defrag/pause)
-    wanting the mutate token. 37 of the reference's 41 routes are served,
-    each under the reference's name; its autoscale routes get the 404."""
+    wanting the mutate token. So is the autoscaler: its pane (/autoscale) a
+    read in the read scope, its verbs (POST /autoscale/pause, /resume,
+    /evaluate) wanting the mutate token and leaving their edge audit records.
+    All 41 of the reference's routes are served, each under the reference's
+    name."""
     served = [name for _, _, name in port_app._ROUTES]
-    assert len(served) == 37 and len(ref_app._ROUTES) == 41
-    assert set(served) <= {name for _, _, name in ref_app._ROUTES}
+    assert len(served) == 41 and len(ref_app._ROUTES) == 41
+    assert set(served) == {name for _, _, name in ref_app._ROUTES}
     s = stacks["port"]
     for method, path, want in (("GET", "/intents", 200), ("GET", "/migrations", 200),
                                ("GET", "/migrations/mig-none", 404),
@@ -357,19 +360,29 @@ def test_the_port_serves_only_the_original_surface(stacks):
     status, body = http(s, "GET", "/shards")
     assert status == 200 and json.loads(body)["active"] is False
     assert http(s, "GET", "/shards", auth=False) == (401, "missing or invalid bearer token\n")
-    for path in ("/autoscale",
-                 "/addtpu/namespace/default/pod/p/tpu/1/isEntireMount/false"):
-        assert http(s, "GET", path) == (404, "404 page not found\n"), path
-    for path in ("/autoscale/pause", "/autoscale/resume", "/autoscale/evaluate"):
-        assert http(s, "POST", path, {}) == (404, "404 page not found\n"), path
-    assert set(served) == {name for _, _, name in ref_app._ROUTES} - {
-        "autoscale", "autoscale_pause", "autoscale_resume", "autoscale_evaluate"}
+    assert http(s, "GET", "/addtpu/namespace/default/pod/p/tpu/1/isEntireMount/false") == (
+        404, "404 page not found\n")
+    from gpumounter_tpu_torch.obs.audit import AUDIT
+
+    def edge_records(op: str) -> int:
+        return sum(r["operation"] == f"http.{op}" for r in AUDIT.snapshot())
+
+    edge_before = {op: edge_records(op)
+                   for op in ("autoscale_pause", "autoscale_resume", "autoscale_evaluate")}
+    for path, key, value in (("/autoscale/pause", "paused", True),
+                             ("/autoscale/resume", "paused", False),
+                             ("/autoscale/evaluate", "status", "completed")):
+        assert http(s, "POST", path, auth=False) == (401, "missing or invalid bearer token\n")
+        status, body = http(s, "POST", path, {})
+        assert status == 200 and json.loads(body)[key] == value, path
+    for op, n in edge_before.items():
+        assert edge_records(op) == n + 1, op
     status, body = http(s, "GET", "/metrics", auth=False)
     assert status == 200 and "tpumounter_mount_total" in body
     for path, key in (("/fleet", "nodes"), ("/slo", "objectives"), ("/tenants", "tenants"),
                       ("/recovery", "evacuations"), ("/health/nodes", "quarantine_budget"),
                       ("/capacity", "feasibility"), ("/shares", "totals"),
-                      ("/defrag", "gates")):
+                      ("/defrag", "gates"), ("/autoscale", "gates")):
         status, body = http(s, "GET", path)
         assert status == 200 and key in json.loads(body), path
         assert http(s, "GET", path, auth=False) == (401, "missing or invalid bearer token\n")
@@ -378,7 +391,7 @@ def test_the_port_serves_only_the_original_surface(stacks):
     try:
         for route in ("/metrics", "/fleet", "/slo", "/tenants", "/audit", "/timeline",
                       "/apihealth", "/shards", "/recovery", "/health/nodes", "/capacity",
-                      "/shares", "/defrag"):
+                      "/shares", "/defrag", "/autoscale"):
             assert scoped.handle("GET", route, b"", read)[0] == 200, route
             assert scoped.handle("GET", route, b"", dict(AUTH_HEADER))[0] == 200, route
             assert scoped.handle("GET", route, b"", {})[:3] == (
@@ -390,7 +403,8 @@ def test_the_port_serves_only_the_original_surface(stacks):
         assert scoped.handle("GET", "/workers", b"", read)[0] == 401
         for path in ("/recovery/evacuate/gpu-node-0", "/health/quarantine/gpu-node-0",
                      "/migrate", "/migrations/mig-none/abort", "/shares", "/defrag/plan",
-                     "/defrag/run", "/defrag/pause"):
+                     "/defrag/run", "/defrag/pause", "/autoscale/pause", "/autoscale/resume",
+                     "/autoscale/evaluate"):
             assert scoped.handle("POST", path, b"", read)[:3] == (
                 401, "text/plain", "missing or invalid bearer token\n"), path
         for method, path in (("GET", "/intents"), ("GET", "/migrations"),

@@ -111,7 +111,8 @@ PORT_MODULES = ["cgroup.ebpf", "cgroup.policy", "rpc.resilience", "rpc.client", 
                 "store.writebehind", "store.cache", "store.watch", "master.shard",
                 "allocator.pool", "obs.tenants", "obs.assembly", "obs.fleet", "obs.slo",
                 "health.plane", "recovery.controller", "elastic.reconciler",
-                "migrate.orchestrator", "obs.capacity", "vchip.shares", "defrag.controller"]
+                "migrate.orchestrator", "obs.capacity", "vchip.shares", "defrag.controller",
+                "autoscale.controller"]
 
 
 def test_every_series_of_the_port_is_the_references():
@@ -175,7 +176,9 @@ def test_every_series_of_the_port_is_the_references():
             "tpumounter_vchip_share_admits_total",
             "tpumounter_vchip_share_releases_total", "tpumounter_defrag_plans_total",
             "tpumounter_defrag_moves_total", "tpumounter_defrag_refusals_total",
-            "tpumounter_defrag_running"} == set(seen)
+            "tpumounter_defrag_running", "tpumounter_autoscale_decisions_total",
+            "tpumounter_autoscale_skips_total", "tpumounter_autoscale_refusals_total",
+            "tpumounter_autoscale_passes_total", "tpumounter_autoscale_paused"} == set(seen)
 
 
 # --- the series of the modules ported before the registry ---

@@ -174,3 +174,65 @@ def test_capacity_and_shares_over_many_nodes_and_tenants_grow_only_their_fixed_s
     assert "node-1" not in classic and "tenant-1" not in classic and "GPU-0" not in classic
     assert {"tpumounter_capacity_free_chips", "tpumounter_vchip_shares_active"} <= {
         line.split(" ")[0] for line in classic.splitlines() if not line.startswith("#")}
+
+
+def test_autoscale_plane_series_are_bounded():
+    """The reference's autoscale guard: 300 tenants under intents, five
+    passes, an operator pause, a refused pass and the resume grow the
+    exposition only by the autoscaler's fixed series (decisions by action,
+    skips by SKIP_REASONS, refusals by the five causes, the passes counter,
+    the paused gauge); no tenant name, trace id or cooldown key becomes a
+    label, and the model's table stops at its bound."""
+    from gpumounter_tpu_torch.autoscale import (
+        SKIP_REASONS,
+        AutoscaleController,
+        AutoscaleRefused,
+    )
+    from gpumounter_tpu_torch.elastic.intents import Intent
+
+    class Store:
+        def __init__(self, intents):
+            self.intents = intents
+
+        def put(self, namespace, pod_name, intent):
+            self.intents[(namespace, pod_name)] = intent
+            return intent
+
+        def list(self):
+            return [(ns, pod, i) for (ns, pod), i in sorted(self.intents.items())]
+
+    class Elastic:
+        def __init__(self, store):
+            self.store = store
+
+        def enqueue(self, namespace, pod_name):
+            pass
+
+    class Fleet:
+        """One node publishing one sparse snapshot each for 300 tenants."""
+
+        def payload(self, max_age_s=None):
+            tenants = {f"churn/as-{i}": {"steps": {"count": 10 + i}, "tokens_total": 100.0 + i,
+                                         "tokens_per_s": 50.0, "queue_depth": 40.0,
+                                         "at": 1000.0} for i in range(300)}
+            return {"nodes": {"card-as-host": {
+                "capacity": {"free": list(range(8)), "held": {}, "warm": [], "fenced": [],
+                             "total": 8},
+                "tenants": tenants}}}
+
+    before = REGISTRY.series_count()
+    intents = {("churn", f"as-{i}"): Intent(desired_chips=2, min_chips=1) for i in range(300)}
+    ctrl = AutoscaleController(Elastic(Store(intents)), None, Fleet(), cfg=Config(),
+                               clock=lambda: 1010.0)
+    for _ in range(5):
+        ctrl.evaluate_once()
+    ctrl.pause(actor="card-drill")
+    with pytest.raises(AutoscaleRefused):
+        ctrl.evaluate_once()
+    ctrl.resume(actor="card-drill")
+    grown = REGISTRY.series_count() - before
+    assert grown <= 2 + len(SKIP_REASONS) + 5 + 2, (
+        f"the autoscaler grew {grown} series: an unbounded label?")
+    classic = REGISTRY.render()
+    assert "churn/as-" not in classic and "card-as-host" not in classic
+    assert ctrl.model.payload(now=1010.0)["tracked"] <= Config().autoscale_max_tenants
