@@ -470,6 +470,28 @@ Phases, each raising on failure (any failure exits non-zero):
     steady), the intent and the mount unchanged; POST /autoscale/pause makes
     evaluate answer 409 (paused) and the resume 200. The child's flash_fwd
     launches (2 layers a step) go into the kernels line.
+22. the operator's verbs against the live stack, ``entry.cli_check``: each
+    verb ``python -m gpumounter_tpu_torch.cli`` in a process of its own, the
+    mutate token in TPUMOUNTER_AUTH_TOKEN and --read-token on the reads,
+    every exit code asserted. `devices --busy` names CUDA's UUID at
+    /dev/nvidia<minor> (major 195) with this process among its holders;
+    `probe` reports 1 GPU, the identity source this script picked and this
+    process's cgroup version; `add --num 1` mounts the H100 into the same
+    kind of target as phase 10 and a tenant child (``--mount-child``) on
+    that UUID runs phase 3's first forward through ``flash_fwd``; `audit`
+    shows the add, `trace` and `why` of its trace id exit 0 (`why` naming
+    the dominant phase), `trace` of 32 zeros 2; `capacity` 0 with the GPU
+    held, `--accel-type nvidia-h100-80gb-1` as the reference's rule gives
+    its verdict, `--accel-type v5litepod-4` 2; `add --num 2` 1 (500
+    Insufficient), `--token ''` 1 (401); `remove` 0; `fleet`, `apihealth`
+    and `shards` 0. Each verb's time from spawn to exit, the CLI's import
+    alone (no torch, numpy or grpc loaded), and its add and remove beside
+    the HTTP ones are printed.
+
+Every tenant forward through ``_tenant_forward`` (phases 11, 11 d, 12, 14-16,
+18, 20 and 22) is held, as phase 3's are, against the plain-attention forward of
+the same tokens (LOGITS_RTOL_OF_MAX, NLL_ATOL), and its logits bit-equal to
+phase 3's (their SHA-256); the count is printed before the kernels line.
 
 A tenant child (``--<mode>-child``) imports only what its mode runs: the
 model and its kernels, and what its mode adds; never ``entry`` and the
@@ -488,6 +510,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import gc
+import hashlib
 import json
 import math
 import os
@@ -571,7 +594,9 @@ if not CHILD_MODE:
                                             against_one_process, autoscale_check,
                                             busy_health_check,
                                             capacity_share_check, cgroup_v2_check,
-                                            check_config, degraded_check, durability_check,
+                                            check_config, cli_check, CLI_SHAPE,
+                                            CLI_UNKNOWN_SHAPE, degraded_check,
+                                            durability_check,
                                             dryrun_multichip, elastic_migrate_check,
                                             fleet_check, grow_checks,
                                             has_cap_mknod, health_check,
@@ -928,6 +953,7 @@ def phase_main_path(cfg, params, batches) -> int:
     outs = [forward(params, tokens, cfg) for tokens in batches]
     torch.cuda.synchronize()
     launches = flash_attention_kernel.launches
+    PHASE3_LOGITS["sha256"] = _logits_sha256(outs[0])
     want_launches = cfg.n_layers * len(batches)
     if launches != want_launches:
         raise RuntimeError(f"flash_fwd launched {launches} times on the main "
@@ -2779,23 +2805,64 @@ def _imports_at_ready() -> dict:
             "dynamo": "torch._dynamo" in sys.modules}
 
 
+def _logits_sha256(logits: torch.Tensor) -> str:
+    """The SHA-256 of a tensor's bytes: two forwards whose logits hash the
+    same are bit-equal."""
+    data = logits.contiguous().view(torch.uint8).cpu().numpy().tobytes()
+    return hashlib.sha256(data).hexdigest()
+
+
+def _vs_plain(cfg, params, tokens, logits) -> dict:
+    """`logits` (the forward through flash_fwd) against the plain-attention
+    forward of the same tokens (no kernel launch): the max abs error and its
+    limit (LOGITS_RTOL_OF_MAX x max |plain|), both NLLs."""
+    plain = forward(params, tokens, cfg, attention=attention_plain)
+    return {"err": (logits - plain).abs().max().item(),
+            "limit": LOGITS_RTOL_OF_MAX * plain.abs().max().item(),
+            "nll": next_token_nll(logits, tokens).item(),
+            "nll_plain": next_token_nll(plain, tokens).item()}
+
+
+def _check_vs_plain(what: str, p: dict) -> None:
+    if not (p["err"] <= p["limit"] and abs(p["nll"] - p["nll_plain"]) <= NLL_ATOL):
+        raise RuntimeError(f"{what} vs the plain-attention forward: logits max abs err "
+                           f"{p['err']} (limit {p['limit']}), nll {p['nll']} vs "
+                           f"{p['nll_plain']} (limit {NLL_ATOL})")
+
+
+#: the SHA-256 of phase 3's first forward's logits (None until phase 3 ran),
+#: and whether each tenant forward held against it since was bit-equal
+PHASE3_LOGITS = {"sha256": None, "tenants": []}
+
+
 def _tenant_forward() -> dict:
     """A tenant's full-width probe forward (phase 3's weights and first
     batch) through flash_fwd on CUDA's device 0: its launches, NLL,
-    finiteness and shape."""
+    finiteness and shape, its time (the call until the device is done, host
+    clock), the SHA-256 of its logits and its logits against the
+    plain-attention forward (``_vs_plain``)."""
     cfg = full_width_config()
     params = init_params(cfg, torch.Generator().manual_seed(0), "cuda")
     rng = np.random.default_rng(0)
     tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (FULL["B"], FULL["L"]))).cuda()
     _reset_kernel_counts()
+    t0 = time.perf_counter()
     logits = forward(params, tokens, cfg)
     torch.cuda.synchronize()
-    return {"device": torch.cuda.get_device_name(0), "launches": _kernel_counts(),
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = _kernel_counts()
+    return {"device": torch.cuda.get_device_name(0), "launches": launches, "ms": ms,
             "nll": next_token_nll(logits, tokens).item(),
-            "finite": bool(torch.isfinite(logits).all()), "shape": list(logits.shape)}
+            "finite": bool(torch.isfinite(logits).all()), "shape": list(logits.shape),
+            "sha256": _logits_sha256(logits), "vs_plain": _vs_plain(cfg, params, tokens, logits)}
 
 
 def _check_tenant_forward(what: str, report: dict) -> None:
+    """The tenant's forward held: its launches (n_layers of flash_fwd), its
+    shape, NLL and finiteness, its logits against the plain-attention
+    forward within LOGITS_RTOL_OF_MAX and NLL_ATOL, as phase 3 holds its
+    own, and, once phase 3 ran, bit-equal to phase 3's (the same weights,
+    tokens, kernel and card: flash_fwd's forward is deterministic there)."""
     cfg = full_width_config()
     _check_counts(what, report["launches"],
                   {"flash_fwd": cfg.n_layers, "dq": 0, "dkv": 0, "flash_decode": 0})
@@ -2803,6 +2870,12 @@ def _check_tenant_forward(what: str, report: dict) -> None:
     if not (report["finite"] and report["shape"] == [FULL["B"], FULL["L"], cfg.vocab]
             and 0 <= nll - math.log(cfg.vocab) < NLL_ABOVE_UNIFORM):
         raise RuntimeError(f"{what}'s forward: {report}")
+    _check_vs_plain(f"{what}'s forward", report["vs_plain"])
+    want = PHASE3_LOGITS["sha256"]
+    PHASE3_LOGITS["tenants"].append(report["sha256"] == want)
+    if want is not None and report["sha256"] != want:
+        raise RuntimeError(f"{what}'s logits are not bit-equal to phase 3's: SHA-256 "
+                           f"{report['sha256']} against {want}")
 
 
 def _v2_child(spec: dict) -> None:
@@ -3690,23 +3763,11 @@ def phase_fleet(card: str, master_live: dict) -> int:
 def _holder_forward() -> dict:
     """Phase 3's first forward in this process, through flash_fwd, its
     launches counted: this process holds the card while the canary probes
-    it."""
-    cfg = full_width_config()
-    params = init_params(cfg, torch.Generator().manual_seed(0), "cuda")
-    rng = np.random.default_rng(0)
-    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (FULL["B"], FULL["L"]))).cuda()
-    _reset_kernel_counts()
-    t0 = time.perf_counter()
-    logits = forward(params, tokens, cfg)
-    torch.cuda.synchronize()
-    ms = (time.perf_counter() - t0) * 1e3
-    launches = _kernel_counts()
-    _check_counts("phase 18's forward", launches,
-                  {"flash_fwd": cfg.n_layers, "dq": 0, "dkv": 0, "flash_decode": 0})
-    nll = next_token_nll(logits, tokens).item()
-    if not (torch.isfinite(logits).all() and 0 <= nll - math.log(cfg.vocab) < NLL_ABOVE_UNIFORM):
-        raise RuntimeError(f"phase 18's forward: nll {nll}")
-    return {"launches": launches["flash_fwd"], "nll": nll, "ms": ms}
+    it. Held as a tenant's forward (``_check_tenant_forward``)."""
+    report = _tenant_forward()
+    _check_tenant_forward("phase 18's forward", report)
+    return {"launches": report["launches"]["flash_fwd"], "nll": report["nll"],
+            "ms": report["ms"]}
 
 
 def phase_health(card: str, master_live: dict) -> int:
@@ -3925,12 +3986,9 @@ def _autoscale_child(spec: dict) -> None:
         # the last step's logits against the plain-attention forward, after
         # the publish and outside the timed steps (no kernel launch)
         finite = finite and bool(torch.isfinite(logits).all())
-        nll.append(next_token_nll(logits, tokens).item())
-        plain = forward(params, tokens, cfg, attention=attention_plain)
-        vs_plain = {"err": (logits - plain).abs().max().item(),
-                    "limit": LOGITS_RTOL_OF_MAX * plain.abs().max().item(),
-                    "nll": nll[-1], "nll_plain": next_token_nll(plain, tokens).item()}
-        del logits, plain
+        vs_plain = _vs_plain(cfg, params, tokens, logits)
+        nll.append(vs_plain["nll"])
+        del logits
         windows.append({"B": b, "tokens_per_s": tokens_per_s, "step_ms": step_ms,
                         "device_ms": device_ms, "enqueue_ms": enqueue_ms, "vs_plain": vs_plain,
                         "published": published})
@@ -4001,11 +4059,7 @@ def _autoscale_tenant(uuid: str, url: str, token: str, collect) -> dict:
             and all(w["published"] for w in report["windows"])):
         raise RuntimeError(f"the autoscale child's forwards or its publishes: {report}")
     for w in report["windows"]:
-        p = w["vs_plain"]
-        if not (p["err"] <= p["limit"] and abs(p["nll"] - p["nll_plain"]) <= NLL_ATOL):
-            raise RuntimeError(f"the autoscale child's window B{w['B']} vs the plain-attention "
-                               f"forward: logits max abs err {p['err']} (limit {p['limit']}), "
-                               f"nll {p['nll']} vs {p['nll_plain']} (limit {NLL_ATOL})")
+        _check_vs_plain(f"the autoscale child's window B{w['B']}", w["vs_plain"])
     report["exec_to_cuda_ready_ms"] = (report["ready_at"] - t_spawn) * 1e3
     return report
 
@@ -4076,6 +4130,86 @@ def phase_autoscale(card: str) -> int:
           f"{f['remove_ms']:.3f} ms [{card}]", flush=True)
     print(f"time autoscale phase 21: {time.perf_counter() - t_phase:.1f} s (the stack's start "
           f"{f['start_ms']:.1f} ms) [{card}]", flush=True)
+    return child["launches"]["flash_fwd"]
+
+
+def phase_cli(card: str, master_live: dict) -> int:
+    """Phase 22: the operator's verbs against the live stack,
+    ``entry.cli_check`` on the card (each verb ``python -m
+    gpumounter_tpu_torch.cli`` in a process of its own, every exit code
+    asserted): `devices --busy` names CUDA's UUID and this process among
+    its holders, `probe` the identity source this script picked, `add`
+    mounts the card's GPU into the same kind of target as phase 10 and a
+    tenant child runs phase 3's forward through flash_fwd on that UUID
+    (held against the plain-attention forward), then `audit`, `trace`,
+    `why`, `capacity`, the refusals, `remove`, `fleet`, `apihealth` and
+    `shards`. Its times beside phase 11's HTTP add and remove. Returns the
+    flash_fwd launches of the tenant child."""
+    t_phase = time.perf_counter()
+    identity = pick_identity()
+    children = []
+
+    def on_mounted(uuids, target):
+        visible = gpus_visible_in_dev(target)
+        if visible != 1:
+            raise RuntimeError(f"gpus_visible_in_dev({target}) = {visible} after the CLI's add "
+                               f"of {uuids}")
+        children.append({**_tenant_child(uuids[0]), "visible_in_dev": visible})
+        return children[-1]["uuid"]
+
+    with _tenant_target("phase22") as (dev_dir, cgroup_dir):
+        report = cli_check("cuda", dev_dir=dev_dir, ns_pid=os.getpid(),
+                           cgroup_dirs=[cgroup_dir] if cgroup_dir else (), identity=identity,
+                           repeats=MOUNT["REPEATS"], on_mounted=on_mounted)
+    c = report["live"]
+    if c["refusal"] is not None:
+        # without CAP_MKNOD the add is refused and rolled back, as in phase 11:
+        # the tenant child runs on the card's own UUID
+        children.append({**_tenant_child(c["devices"]["uuid"]), "visible_in_dev": None})
+    if len(children) != 1:
+        raise RuntimeError(f"phase 22 ran {len(children)} tenant children, one expected")
+    child, dev, probe = children[0], c["devices"], c["probe"]
+    print(f"cli devices --busy: {dev['path']} {dev['major']}:{dev['minor']} {dev['uuid']} "
+          f"(CUDA's device 0), holders {dev['holder_pids']} include this process "
+          f"({os.getpid()}), as the backend's /proc scan finds them; probe: {probe} "
+          f"(identity source picked here: {identity}) [{card}]", flush=True)
+    if c["refusal"] is None:
+        cap = c["capacity"]
+        print(f"cli add --num 1 (tenant-cli-1) exit 0 'Add GPU Success', mounting {c['uuids']} "
+              f"(gpus_visible_in_dev read {child['visible_in_dev']}); audit --pod shows http.add "
+              f"and worker.AddGPU under trace {c['trace_id']}; trace exit 0; why exit 0, "
+              f"dominant phase {c['dominant']}; trace of 32 zeros exit 2; capacity exit 0 with "
+              f"the GPU held (fleet {cap['fleet']}), --accel-type {CLI_SHAPE} {cap['verdict']} "
+              f"exit {cap['exit']}, --accel-type {CLI_UNKNOWN_SHAPE} exit 2; add --num 2 exit 1 "
+              f"(500 Insufficient), add --token '' exit 1 (401); remove exit 0, the node gone "
+              f"and the slave pod released; fleet, apihealth, shards exit 0; "
+              f"{MOUNT['REPEATS']} CLI round trips [{card}]", flush=True)
+    else:
+        print(f"cli add refused, exit 1, {c['refusal']!r}; rolled back, {MOUNT['REPEATS']} "
+              f"times; audit, trace of 32 zeros, fleet, apihealth, shards as expected [{card}]",
+              flush=True)
+    p = child["vs_plain"]
+    print(f"cli tenant: CUDA_VISIBLE_DEVICES={child['uuid']} gives device 0 {child['device']}; "
+          f"full-width forward through flash_fwd, launches {child['launches']}, nll "
+          f"{child['nll']:.4f}, logits vs the plain-attention forward max abs err "
+          f"{p['err']:.3g} (limit {p['limit']:.3g}), nll vs {p['nll_plain']:.4f}; bit-equal to "
+          f"phase 3's logits: {child['sha256'] == PHASE3_LOGITS['sha256']} [{card}]",
+          flush=True)
+    print(f"time cli import of gpumounter_tpu_torch.cli alone (python -c, torch, numpy and "
+          f"grpc not loaded): {_runs(report['import_ms'])} [{card}]", flush=True)
+    print("time cli verbs, spawn to exit: " + "; ".join(
+        f"{name} {_runs(ms)}" for name, ms in c["verb_ms"].items()) + f" [{card}]", flush=True)
+    print(f"time cli add {_runs(c['cli_add_ms'])}, remove "
+          f"{_runs(c['cli_remove_ms']) if c['cli_remove_ms'] else '(none)'}; the same stack's "
+          f"HTTP add from this process "
+          f"{_runs(c['http_add_ms']) if c['http_add_ms'] else '(none)'}, remove "
+          f"{_runs(c['http_remove_ms']) if c['http_remove_ms'] else '(none)'}; phase 11's HTTP "
+          f"add {_runs(master_live['add_ms'])}"
+          + (f", remove {_runs(master_live['remove_ms'])}" if master_live["remove_ms"] else "")
+          + f" [{card}]", flush=True)
+    print(f"time cli tenant exec -> CUDA ready: {child['exec_to_cuda_ready_ms']:.1f} ms; its "
+          f"forward {child['ms']:.1f} ms [{card}]", flush=True)
+    print(f"time cli phase 22: {time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
     return child["launches"]["flash_fwd"]
 
 
@@ -4211,6 +4345,8 @@ def _phases(stage: list, t0: float) -> None:
     share_launches = phase_capacity_share(card, master_live, fleet_pass_ms)
     begin("21 (the autoscaler on a live hot-mount)")
     autoscale_launches = phase_autoscale(card)
+    begin("22 (the operator's CLI against the live stack)")
+    cli_launches = phase_cli(card, master_live)
     sharded = {k: sharded_launches[k] + seq_pipe_launches[k] + grow_launches[k]
                + dryrun_launches[k] for k in sharded_launches}
 
@@ -4236,8 +4372,12 @@ def _phases(stage: list, t0: float) -> None:
           f"the canary (phase 18): flash_fwd {health_launches}; the migrated tenant's two "
           f"ends (phase 19): flash_fwd {migrate_launches}; the metered share's tenant child "
           f"(phase 20): flash_fwd {share_launches}; the autoscaled tenant's windows (phase 21): "
-          f"flash_fwd {autoscale_launches}", flush=True)
-    print(f"chip_smoke: phases 1-21 took {time.perf_counter() - t0:.1f} s, the kernels' build "
+          f"flash_fwd {autoscale_launches}; the tenant on the GPU the CLI mounted (phase 22): "
+          f"flash_fwd {cli_launches}", flush=True)
+    held = PHASE3_LOGITS["tenants"]
+    print(f"tenant forwards held against the plain-attention forward and bit-equal to phase "
+          f"3's logits: {sum(held)} of {len(held)}", flush=True)
+    print(f"chip_smoke: phases 1-22 took {time.perf_counter() - t0:.1f} s, the kernels' build "
           f"included [{card}]", flush=True)
     bwd_source = "gpumounter_tpu_torch/ops/csrc/flash_bwd.cu"
     print(json.dumps({"kernels": [{
@@ -4249,7 +4389,7 @@ def _phases(stage: list, t0: float) -> None:
                      + mount_launches + v2_launches + durability_launches
                      + degraded_launches + pool_launches + fleet_launches
                      + health_launches + migrate_launches + share_launches
-                     + autoscale_launches),
+                     + autoscale_launches + cli_launches),
         "max_abs_err": max_abs_err, **times}, {
         "name": "flash_bwd_dq", "route": "cuda", "source": bwd_source,
         "replaces": "gpumounter_tpu/ops/flash_attention.py:182",

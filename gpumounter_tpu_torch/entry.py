@@ -25,10 +25,11 @@ live migration: an intent converged and healed over ProbeGPU, a tenant
 moved between pods with its state packed and restored, and a rollback
 (``elastic_migrate_check``), and the capacity plane with a metered share of
 a GPU: the inventory through CollectTelemetry, a share booked, mounted with
-its policy and released, a refusal's verdict (``capacity_share_check``), and
+its policy and released, a refusal's verdict (``capacity_share_check``),
 the autoscaler: a tenant's curve fitted from its published steps, the
 decisions its rule gives on a held GPU, the pause and the resume
-(``autoscale_check``)."""
+(``autoscale_check``), and the operator's CLI: each verb a process against
+the live stack (``cli_check``)."""
 
 from __future__ import annotations
 
@@ -5444,5 +5445,301 @@ def autoscale_check(device="cuda", *, dev_dir: str | None = None, ns_pid: int | 
         shutil.rmtree(root, ignore_errors=True)
         shutil.rmtree(ledgers, ignore_errors=True)
         k8s_health.reset_all()
+    report["live" if live else "fake"] = flows
+    return report
+
+
+# --- the operator's CLI against the live stack ---
+
+#: the CLI as the operator runs it
+CLI_MODULE = "gpumounter_tpu_torch.cli"
+#: what importing the CLI may not load: the daemons' images carry none of
+#: them, and each verb is a process start in the operator's loop
+CLI_UNLOADED = ("torch", "numpy", "grpc")
+#: the capacity shape of one GPU, and a shape the port does not know
+CLI_SHAPE, CLI_UNKNOWN_SHAPE = "nvidia-h100-80gb-1", "v5litepod-4"
+#: the keys of `devices --busy`, as the reference's
+CLI_DEVICE_KEYS = {"index", "uuid", "path", "major", "minor", "holder_pids"}
+#: the keys of `probe`, the port's (ROADMAP §3)
+CLI_PROBE_KEYS = {"identity_source", "nvml", "gpus", "cgroup_version", "cgroup_driver",
+                  "nsexec"}
+
+
+def _package_parent() -> str:
+    return os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+class _Cli:
+    """``python -m gpumounter_tpu_torch.cli`` in a process of its own, one a
+    verb, from the package's parent directory: the mutate token in
+    TPUMOUNTER_AUTH_TOKEN (no other TPUMOUNTER_AUTH* of this process's),
+    `env` over this process's environment. ``ms`` holds each verb's wall
+    time from spawn to exit (host clock) under its name."""
+
+    def __init__(self, token: str, env: dict):
+        self.env = {k: v for k, v in os.environ.items() if not k.startswith("TPUMOUNTER_AUTH")}
+        path = self.env.get("PYTHONPATH")
+        self.env["PYTHONPATH"] = _package_parent() + (os.pathsep + path if path else "")
+        self.env.update(TPUMOUNTER_AUTH_TOKEN=token, **env)
+        self.ms: dict[str, list[float]] = {}
+
+    def run(self, argv: list[str], name: str | None = None) -> tuple[int, str, str]:
+        t0 = time.perf_counter()
+        out = subprocess.run(argv, capture_output=True, text=True, timeout=120, env=self.env,
+                             cwd=_package_parent())
+        self.ms.setdefault(name or argv[-1], []).append((time.perf_counter() - t0) * 1e3)
+        return out.returncode, out.stdout, out.stderr
+
+    def __call__(self, *args: str, want: int | None = 0, name: str | None = None
+                 ) -> tuple[int, str, str]:
+        """One verb; raises unless it exits `want` (None: any code)."""
+        code, stdout, stderr = self.run([sys.executable, "-m", CLI_MODULE, *args],
+                                        name or args[0])
+        if want is not None and code != want:
+            raise RuntimeError(f"cli {' '.join(args)}: exit {code}, expected {want}\n"
+                               f"{stdout[-2000:]}\n{stderr[-2000:]}")
+        return code, stdout, stderr
+
+
+def _cli_devices(cli: _Cli, backend, dev, live: bool) -> dict:
+    """`devices --busy`: every GPU of the backend with the reference's keys,
+    this process among the holders of `dev`, as the backend's own /proc
+    scan finds it (the card: this process holds a CUDA context; a fake
+    host: this process holds the node open). On the card the UUID is
+    CUDA's own and the node /dev/nvidia<minor> of major 195."""
+    held = None if live else open(dev.device_path, "rb")
+    try:
+        _, stdout, _ = cli("devices", "--busy")
+        scan = backend.running_pids(dev)
+    finally:
+        if held is not None:
+            held.close()
+    listed = json.loads(stdout)
+    want = {d.uuid: d for d in backend.list_devices()}
+    if sorted(e["uuid"] for e in listed) != sorted(want) \
+            or any(set(e) != CLI_DEVICE_KEYS for e in listed):
+        raise RuntimeError(f"devices --busy: {listed}, the backend's {sorted(want)}")
+    (entry,) = [e for e in listed if e["uuid"] == dev.uuid]
+    if (entry["path"], entry["major"], entry["minor"]) != (dev.device_path, dev.major, dev.minor) \
+            or os.getpid() not in entry["holder_pids"] or os.getpid() not in scan:
+        raise RuntimeError(f"devices --busy: {entry}; this process {os.getpid()}, the scan's "
+                           f"holders {scan}")
+    if live:
+        cuda = f"GPU-{torch.cuda.get_device_properties(0).uuid}"
+        if (entry["uuid"], entry["path"], entry["major"]) != (
+                cuda, f"/dev/nvidia{entry['minor']}", 195):
+            raise RuntimeError(f"devices --busy: {entry}, CUDA's device 0 is {cuda}")
+    return entry
+
+
+def _cli_probe(cli: _Cli, backend, identity: str) -> dict:
+    """`probe`: the port's keys, the backend's GPU count, the identity
+    source the env names, this process's cgroup version and the package's
+    namespace helper."""
+    from gpumounter_tpu_torch.cgroup import detect_cgroup_version
+    from gpumounter_tpu_torch.nsutil import nsexec
+
+    _, stdout, _ = cli("probe")
+    report = json.loads(stdout)
+    want = {"gpus": len(backend.list_devices()), "identity_source": identity,
+            "cgroup_version": detect_cgroup_version(), "nsexec": nsexec.__file__}
+    if set(report) != CLI_PROBE_KEYS or any(report[k] != v for k, v in want.items()):
+        raise RuntimeError(f"probe: {report}, expected {want} among {sorted(CLI_PROBE_KEYS)}")
+    return report
+
+
+def _cli_trace(cli: _Cli, base: str, read: list[str], pod) -> dict:
+    """`audit --pod` shows the add's records (http.add and the worker's
+    AddGPU under one trace id); `trace <id>` and `why <id>` exit 0, `why`
+    naming the dominant phase and its share; `trace` of 32 zeros exits 2."""
+    _, stdout, _ = cli("audit", "--master", base, *read, "--pod", pod.name)
+    records = json.loads(stdout)["records"]
+    ops = {r["operation"]: r for r in records}
+    if "http.add" not in ops or "worker.AddGPU" not in ops \
+            or ops["http.add"]["trace_id"] != ops["worker.AddGPU"]["trace_id"]:
+        raise RuntimeError(f"audit --pod {pod.name}: {records}")
+    tid = ops["http.add"]["trace_id"]
+    _, stdout, _ = cli("trace", "--master", base, *read, tid)
+    if json.loads(stdout).get("op") != "http.add":
+        raise RuntimeError(f"trace {tid}: {stdout[:2000]}")
+    _, stdout, _ = cli("why", "--master", base, *read, tid)
+    dominant = [line for line in stdout.splitlines() if line.startswith("dominant phase: ")]
+    if len(dominant) != 1 or "% of wall time)" not in dominant[0]:
+        raise RuntimeError(f"why {tid}: {stdout!r}")
+    cli("trace", "--master", base, *read, "0" * 32, want=2, name="trace (unknown id)")
+    return {"trace_id": tid, "dominant": dominant[0][len("dominant phase: "):]}
+
+
+def _cli_capacity(cli: _Cli, base: str, read: list[str], total: int) -> dict:
+    """`capacity` exits 0 with the GPU held (the fleet pass before it saw
+    the add); `--accel-type` of one GPU exits as the reference's rule gives
+    for the pane it printed (3 when infeasible, else 0); an unknown shape
+    exits 2."""
+    _, stdout, _ = cli("capacity", "--master", base, *read)
+    fleet = json.loads(stdout)["fleet"]
+    if (fleet["total"], fleet["held"]) != (total, 1):
+        raise RuntimeError(f"capacity: fleet {fleet}, {total} GPU(s) with one held expected")
+    code, stdout, _ = cli("capacity", "--master", base, *read, "--accel-type", CLI_SHAPE,
+                          want=None, name=f"capacity --accel-type {CLI_SHAPE}")
+    verdict = json.loads(stdout)["feasibility"][CLI_SHAPE]["verdict"]
+    if code != (3 if verdict == "infeasible" else 0):
+        raise RuntimeError(f"capacity --accel-type {CLI_SHAPE}: exit {code}, verdict {verdict}")
+    cli("capacity", "--master", base, *read, "--accel-type", CLI_UNKNOWN_SHAPE, want=2,
+        name=f"capacity --accel-type {CLI_UNKNOWN_SHAPE}")
+    return {"fleet": fleet, "verdict": verdict, "exit": code}
+
+
+def _cli_flows(stack: _MasterStack, cli: _Cli, target: str, live: bool, identity: str,
+               repeats: int, on_mounted) -> dict:
+    """Phase 22's steps on `stack` (see ``cli_check``)."""
+    cluster, base = stack.cluster, stack.base
+    read = ["--read-token", stack.cfg.auth_read_token]
+    backend = cluster.backend
+    node = cluster.node_name
+    dev = backend.list_devices()[0]
+    out = {"devices": _cli_devices(cli, backend, dev, live),
+           "probe": _cli_probe(cli, backend, identity)}
+    cap = has_cap_mknod() or not live
+    pod = cluster.add_target_pod("tenant-cli-1")
+    free = cluster.free_gpu_count()
+    add = ["add", "--master", base, "--pod", pod.name, "--num", "1"]
+    out.update(cli_add_ms=[], cli_remove_ms=[], uuids=None, refusal=None, tenant=None)
+    for i in range(repeats):
+        code, stdout, _ = cli(*add, want=None)
+        out["cli_add_ms"].append(cli.ms["add"][-1])
+        if not cap:
+            if code != 1 or "CAP_MKNOD" not in stdout:
+                raise RuntimeError(f"cli add without CAP_MKNOD: exit {code} {stdout!r}")
+            _released(cluster, pod, free)
+            out["refusal"] = stdout.strip()
+            continue
+        if (code, stdout) != (0, "Add GPU Success\n"):
+            raise RuntimeError(f"cli {' '.join(add)}: exit {code} {stdout!r}")
+        uuids = stack.held(node, pod)
+        if len(uuids) != 1 or cluster.free_gpu_count() != free - 1:
+            raise RuntimeError(f"cli add: {uuids} held, {cluster.free_gpu_count()} free of "
+                               f"{free}")
+        _check_nodes(backend, uuids, target, live)
+        if i == 0:
+            if on_mounted is not None:
+                out["tenant"] = on_mounted(uuids, target)
+            out.update(_cli_trace(cli, base, read, pod))
+            stack.app.fleet.collect_once()
+            out["capacity"] = _cli_capacity(cli, base, read, len(backend.list_devices()))
+            n = len(cluster.assignment) + 1
+            _, stdout, _ = cli("add", "--master", base, "--pod", pod.name, "--num", str(n),
+                               want=1, name=f"add --num {n}")
+            if not stdout.startswith("Insufficient GPU on Node: "):
+                raise RuntimeError(f"cli add --num {n}: {stdout!r}")
+            _, stdout, _ = cli(*add, "--token", "", want=1, name="add --token ''")
+            if stdout.strip() != "missing or invalid bearer token":
+                raise RuntimeError(f"cli add --token '': {stdout!r}")
+        code, stdout, _ = cli("remove", "--master", base, "--pod", pod.name, "--uuids",
+                              uuids[0], want=None)
+        out["cli_remove_ms"].append(cli.ms["remove"][-1])
+        if (code, stdout) != (0, "Remove 1 GPUs Success\n"):
+            raise RuntimeError(f"cli remove {uuids}: exit {code} {stdout!r}")
+        if os.path.lexists(os.path.join(target, backend.device_by_uuid(uuids[0]).basename)):
+            raise RuntimeError(f"{uuids[0]}'s node still in {target} after cli remove")
+        _released(cluster, pod, free)
+        out["uuids"] = uuids
+    if not cap:
+        cli("audit", "--master", base, *read, "--pod", pod.name)
+        cli("trace", "--master", base, *read, "0" * 32, want=2, name="trace (unknown id)")
+    stack.app.fleet.collect_once()
+    for verb in ("fleet", "apihealth", "shards"):
+        cli(verb, "--master", base, *read)
+    # the same add and remove over HTTP from this process, on the same stack
+    http_pod = cluster.add_target_pod("tenant-http-cli")
+    out["http_add_ms"], out["http_remove_ms"] = [], []
+    for _ in range(repeats if cap else 0):
+        status, body, ms = stack.http("GET", _add_path(http_pod, 1))
+        out["http_add_ms"].append(ms)
+        if (status, body) != (200, "Add GPU Success\n"):
+            raise RuntimeError(f"GET {_add_path(http_pod, 1)}: {status} {body!r}")
+        status, body, ms = stack.http("POST", _remove_path(http_pod),
+                                      {"uuids": ",".join(stack.held(node, http_pod))})
+        out["http_remove_ms"].append(ms)
+        if (status, body) != (200, "Remove 1 GPUs Success\n"):
+            raise RuntimeError(f"POST {_remove_path(http_pod)}: {status} {body!r}")
+    return out
+
+
+def cli_check(device="cuda", *, dev_dir: str | None = None, ns_pid: int | None = None,
+              cgroup_dirs=(), identity: str = "nvml", fake_gpus: int = 8, repeats: int = 3,
+              on_mounted=None) -> dict:
+    """The operator's verbs against the live stack: ``_MasterStack`` (the
+    master over HTTP with a read token beside its mutate token, the worker
+    over gRPC), each verb ``python -m gpumounter_tpu_torch.cli`` in a process
+    of its own with the mutate token in TPUMOUNTER_AUTH_TOKEN and the read
+    verbs given --read-token, every exit code asserted. Without grpcio it
+    raises ``ModuleNotFoundError`` naming grpcio.
+
+    In order: `devices --busy` lists the host's GPUs with the reference's
+    keys and this process among the first one's holders; `probe` reports the
+    backend's count, the identity source, this process's cgroup version and
+    the namespace helper; `add --num 1` into tenant-cli-1 mounts a GPU (the
+    node in the target directory; on_mounted(uuids, dev_dir) runs once,
+    its return kept as "tenant"), `audit --pod` shows the add's records,
+    `trace` and `why` of its trace id exit 0 (`why` naming the dominant
+    phase), `trace` of 32 zeros exits 2; after a fleet pass `capacity`
+    exits 0 with the GPU held, `--accel-type nvidia-h100-80gb-1` as the
+    reference's rule gives its verdict, an unknown shape 2; `add` of one GPU
+    more than the host has exits 1 (500 Insufficient), `add --token ''` 1
+    (401); `remove --uuids` exits 0 (the node gone, the slave pod
+    released); after a second pass `fleet`, `apihealth` and `shards` exit
+    0. The add and remove run `repeats` times (the steps between them the
+    first time only), and as many HTTP adds and removes from this process
+    on the same stack for comparison. Without CAP_MKNOD each add exits 1
+    naming it, rolled back, and nothing is removed.
+
+    On the card (device="cuda") on the live ``NvidiaDeviceBackend`` (its
+    `identity`) mounting into `dev_dir` through the mount namespace of
+    `ns_pid` (as ``mount_check``): `devices` names CUDA's UUID at
+    /dev/nvidia<minor>, major 195; on the CPU on a fake host of `fake_gpus`
+    GPUs (FAKE_DEVICE_DIR), this process holding the first node open. Runs
+    on the card unless the caller passes device="cpu".
+
+    Returns {"cap_mknod", "import_ms" (`python -c "import
+    gpumounter_tpu_torch.cli"`, asserting that none of CLI_UNLOADED is
+    loaded, `repeats` times), "live" or "fake": {"devices", "probe",
+    "cli_add_ms", "cli_remove_ms", "http_add_ms", "http_remove_ms", "uuids",
+    "refusal", "tenant", "trace_id", "dominant", "capacity", "verb_ms"
+    (each verb's spawn-to-exit times)}, the other None}; ms on the host
+    clock."""
+    device = resolve_device(device)
+    live = device.type == "cuda"
+    report = {"cap_mknod": has_cap_mknod(), "live": None, "fake": None}
+    cfg = Config(auth_mode="token", auth_token=secrets.token_hex(16),
+                 auth_read_token=secrets.token_hex(16), fleet_scrape_interval_s=3600.0)
+    root = tempfile.mkdtemp(prefix="cli-check-")
+    try:
+        if live:
+            cluster = FakeCluster(NvidiaDeviceBackend("/dev", identity=make_identity(identity)),
+                                  cfg=cfg)
+            env = {"GPU_IDENTITY_SOURCE": identity}
+        else:
+            cluster = FakeCluster.with_fake_gpus(os.path.join(root, "fake"), fake_gpus, cfg=cfg)
+            env = {"GPU_IDENTITY_SOURCE": identity, "FAKE_DEVICE_DIR": cluster.backend.root}
+        cli = _Cli(cfg.auth_token, env)
+        probe = ("import sys, " + CLI_MODULE + "\n"
+                 f"loaded = [m for m in {CLI_UNLOADED!r} if m in sys.modules]\n"
+                 "assert not loaded, loaded\n")
+        for _ in range(repeats):
+            code, _, stderr = cli.run([sys.executable, "-c", probe], "import")
+            if code != 0:
+                raise RuntimeError(f"import {CLI_MODULE}: {stderr[-2000:]}")
+        report["import_ms"] = cli.ms.pop("import")
+        if live:
+            target, dirs = _live_target(root, dev_dir, cgroup_dirs)
+        else:
+            target, dirs = os.path.join(root, "tenant-dev"), ()
+            os.makedirs(target)
+        with _MasterStack(cluster, {cluster.node_name: target}, ns_pid if live else None,
+                          dirs) as stack:
+            flows = _cli_flows(stack, cli, target, live, identity, repeats, on_mounted)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    flows["verb_ms"] = cli.ms
     report["live" if live else "fake"] = flows
     return report

@@ -1,6 +1,6 @@
 """The capacity plane (``gpumounter_tpu_torch/obs/capacity.py``) against the
 reference's (``gpumounter_tpu/obs/capacity.py``): ``tests/test_capacity.py``
-ported but its two CLI cases (``cli.py`` is ROADMAP 7m).
+ported; its two CLI cases run on the port's CLI in ``tests/test_torch_cli.py``.
 
 Both planes run on the same node entries and their payloads, counters and
 records are compared. The one difference is the NVSwitch block: a host's

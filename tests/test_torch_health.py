@@ -755,15 +755,23 @@ def test_health_check_on_the_cpu():
     worker a child process, killed with SIGKILL."""
     from gpumounter_tpu_torch.entry import health_check
     from gpumounter_tpu_torch.rpc.resilience import BREAKER_TRIPS
+    from gpumounter_tpu_torch.utils.metrics import MOUNT_TOTAL
 
     # the check opens the breaker twice; the process's series of breaker trips
-    # is read whole by the fleet rollup's tests, so it is left as it was
-    trips = dict(BREAKER_TRIPS._values)
+    # is read whole by the fleet rollup's tests, so it is left as it was. The
+    # scorer reads the worker's mount counters, which in one process are also
+    # every earlier test's (a test file that failed 15 of 30 mounts before it
+    # reads as a node's mount_error_ratio): the check starts from none, and
+    # they are put back after
+    trips, mounts = dict(BREAKER_TRIPS._values), dict(MOUNT_TOTAL._values)
+    MOUNT_TOTAL._values.clear()
     try:
         report = health_check("cpu")
     finally:
         BREAKER_TRIPS._values.clear()
         BREAKER_TRIPS._values.update(trips)
+        MOUNT_TOTAL._values.clear()
+        MOUNT_TOTAL._values.update(mounts)
     h = report["fake"]
     assert report["live"] is None
     m = h["manual"]

@@ -2,8 +2,8 @@
 reference's (``gpumounter_tpu/vchip/``): ``tests/test_vchip.py`` ported,
 each case run on both packages with the same inputs and compared.
 
-Left out, as CHANGES.md counts them: the seven CLI cases (``cli.py`` is
-ROADMAP 7m), the four ``placement.defrag_aware_block`` cases (the port
+The seven CLI cases run on the port's CLI in ``tests/test_torch_cli.py``.
+Left out, as CHANGES.md counts them: the four ``placement.defrag_aware_block`` cases (the port
 leaves ``allocator/placement.py`` out: on NVSwitch no free GPU is a better
 pick) and the three ``disjoint_batches`` cases (``DefragController``,
 ROADMAP 7l2). The three V2DeviceController cases run on the port's fake map
