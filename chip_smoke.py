@@ -127,15 +127,21 @@ Phases, each raising on failure (any failure exits non-zero):
       then the stretch, 16 ranks on the H100 plan's (2, 8) mesh; each
       section's numbers against its limits and its launches per rank;
 10. the control plane's hot-mount of a GPU on one node, in process:
+    0. the native layer built first (g++ from
+       ``gpumounter_tpu_torch/native/``: the namespace helper and the /proc
+       scan's library; its build time printed beside the kernels'), then
+       the namespace entry timed, 3 runs with the compiled helper and 3
+       with its plain version (``nsutil/nsexec.py`` in a new interpreter);
+       phases 10-22 enter namespaces through the compiled helper;
     a. the live ``NvidiaDeviceBackend`` on /dev (identity from the
        driver's procfs where it lists the GPUs, else NVML): exactly one
        GPU, its UUID and PCI bus id equal to nvidia-smi's, its node's and
        every companion's major:minor equal to os.stat's; each nvidia*
        node printed with what it was tied to (a node of no GPU's minor is
        no device);
-    b. this process (CUDA open) among the GPU's holders in a /proc scan,
-       ``probe_device`` healthy; one scan and one namespace entry (the
-       helper ``nsutil/nsexec.py`` in a new interpreter) timed;
+    b. this process (CUDA open) among the GPU's holders in the native
+       /proc scan, which finds the holders the plain scan finds over the
+       same processes, ``probe_device`` healthy; one scan of each timed;
     c. ``entry.mount_check``: ``GpuMountService`` over a ``FakeCluster``
        of the live backend; add_gpu(1) into a tmpfs directory through this
        process's mount namespace, granting on a child of the cgroup-v1
@@ -606,7 +612,8 @@ if not CHILD_MODE:
                                             mount_check, obs_check, pick_identity,
                                             route_flips, sharded_step_check, slice_check,
                                             tp_checks, train_check)
-    from gpumounter_tpu_torch.nsutil.ns import run_in_mount_ns
+    from gpumounter_tpu_torch import native
+    from gpumounter_tpu_torch.nsutil.ns import plain_helper_argv, run_helper, run_in_mount_ns
     from gpumounter_tpu_torch.parallel import collectives
     from gpumounter_tpu_torch.parallel.collectives import all_gather, all_reduce, ring_shift
     from gpumounter_tpu_torch.parallel.launch import run_ranks
@@ -849,11 +856,12 @@ def _ptxas_lines(log: str) -> list[str]:
     return lines
 
 
-def phase_build(card: str) -> None:
+def phase_build(card: str) -> float:
     """Build every kernel; beside the build, compile the wgmma sources once
     more with ptxas's -v report and print each instance's registers and
     spills, and ptxas's other notes. Fails on a warning that the
-    warp-specialised structure broke."""
+    warp-specialised structure broke. Returns the kernels' build time (s,
+    host clock)."""
     print(card, flush=True)
     t0 = time.perf_counter()
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -864,8 +872,8 @@ def phase_build(card: str) -> None:
             _build.nvcc_command(_build.CSRC / f"{name}.cu", report_so) + ["-Xptxas", "-v"],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     paths = _build.build(sorted(src.stem for src in _build.CSRC.glob("*.cu")))
-    print(f"build: {time.perf_counter() - t0:.1f} s ({', '.join(p.name for p in paths.values())})",
-          flush=True)
+    build_s = time.perf_counter() - t0
+    print(f"build: {build_s:.1f} s ({', '.join(p.name for p in paths.values())})", flush=True)
     for name, (report_so, report) in reports.items():
         log, _ = report.communicate()
         report_so.unlink(missing_ok=True)
@@ -881,6 +889,7 @@ def phase_build(card: str) -> None:
                        and not line.endswith("spill stores 0 B, spill loads 0 B")]:
             raise RuntimeError(f"{name}.cu: wgmma instances spill: {spilled}")
     print(f"ptxas reports: {time.perf_counter() - t0:.1f} s", flush=True)
+    return build_s
 
 
 def phase_kernel_vs_plain(gen) -> float:
@@ -2905,8 +2914,49 @@ def _tenant_child(uuid: str) -> dict:
     return report
 
 
-def phase_mount(card: str) -> dict:
-    """Phase 10: the live NvidiaDeviceBackend's inventory against
+def phase_native(card: str, kernel_build_s: float) -> dict:
+    """Phase 10's first part: build the native layer (the namespace helper
+    and the /proc scan's library, g++ from the checkout's sources) and
+    print its build time beside the kernels'; then time the namespace entry
+    with the compiled helper and, for the record, with its plain version
+    (``nsexec.py`` in a new interpreter), in turns, MOUNT["REPEATS"] runs
+    each, an empty batch into this process's own mount namespace. Returns
+    the times."""
+    before = native.status()
+    t0 = time.perf_counter()
+    paths = native.build()
+    build_s = time.perf_counter() - t0
+    fresh = [kind for kind in native.ARTIFACTS if not before[f"{kind}_built"]]
+    print(f"build native layer: {build_s:.2f} s ({native.compiler()} "
+          f"{' '.join(native.CXX_FLAGS)}; compiled {fresh or 'nothing, built at an earlier use'}: "
+          f"{', '.join(p.name for p in paths.values())}), beside the kernels' build "
+          f"{kernel_build_s:.1f} s in phase 1 [{card}]", flush=True)
+    ns_path = f"/proc/{os.getpid()}/ns/mnt"
+
+    def plain_entry() -> None:
+        code, report, stderr = run_helper(plain_helper_argv(ns_path, []))
+        if (code, report) != (0, {"results": []}):
+            raise RuntimeError(f"the plain helper: exit {code}, {report}, {stderr[-2000:]}")
+
+    entries = [("compiled", lambda: run_in_mount_ns(os.getpid(), [])), ("plain", plain_entry)]
+    times = {"compiled": [], "plain": []}
+    for i in range(MOUNT["REPEATS"]):  # in turns, so that a slow spell of the host hits both
+        for kind, entry in entries if i % 2 == 0 else entries[::-1]:
+            t = time.perf_counter()
+            entry()
+            times[kind].append((time.perf_counter() - t) * 1e3)
+    entry_ms, plain_ms = times["compiled"], times["plain"]
+    print(f"time mount namespace entry, in turns with the plain helper (compiled, plain, plain, "
+          f"compiled, ...): the compiled helper {paths['nsexec'].name} (exec, setns, exit, "
+          f"wait) {_runs(entry_ms)}; the plain helper, for the record (nsutil/nsexec.py in a new "
+          f"interpreter) {_runs(plain_ms)} [{card}]", flush=True)
+    return {"build_s": build_s, "compiled": fresh, "entry_ms": entry_ms,
+            "plain_entry_ms": plain_ms}
+
+
+def phase_mount(card: str, kernel_build_s: float) -> dict:
+    """Phase 10: the native layer's build and namespace entry
+    (``phase_native``); the live NvidiaDeviceBackend's inventory against
     nvidia-smi and stat(2); this process among the GPU's holders and the
     GPU healthy; the worker's add_gpu / remove_gpu in process over a
     FakeCluster on the live backend (round trip with CAP_MKNOD, refusal and
@@ -2918,6 +2968,7 @@ def phase_mount(card: str) -> dict:
     ``mount_check``'s report (phase 11 prints its times beside the HTTP
     flows')."""
     t_phase = time.perf_counter()
+    native_report = phase_native(card, kernel_build_s)
     identity = pick_identity()
     print(f"mount inventory: identity source {identity} (/proc/driver/nvidia/gpus "
           f"{'lists the GPUs' if identity == 'procfs' else 'absent'}) [{card}]", flush=True)
@@ -2942,15 +2993,9 @@ def phase_mount(card: str) -> dict:
     busy = busy_health_check(NvidiaDeviceBackend("/dev", make_identity(identity)), dev)
     print(f"mount busy and health: holders of {dev.device_path} {busy['holders']} include "
           f"this process ({os.getpid()}); probe_device healthy", flush=True)
-    print(f"time mount /proc scan: {busy['scan_ms']:.3f} ms over {busy['pids']} processes "
-          f"[{card}]", flush=True)
-    fork_ms = []
-    for _ in range(MOUNT["REPEATS"]):
-        t = time.perf_counter()
-        run_in_mount_ns(os.getpid(), [])
-        fork_ms.append((time.perf_counter() - t) * 1e3)
-    print(f"time mount namespace entry (the helper nsutil/nsexec.py in a new interpreter: "
-          f"spawn, setns, exit, wait): {_runs(fork_ms)} [{card}]", flush=True)
+    print(f"time mount /proc scan, in turns (native, plain, plain, native, ...): native "
+          f"{_runs(busy['scan_runs_ms'])}, plain {_runs(busy['plain_scan_runs_ms'])}, the same "
+          f"holders each time, over {busy['pids']} processes [{card}]", flush=True)
 
     seen = []
 
@@ -2986,6 +3031,8 @@ def phase_mount(card: str) -> dict:
         print(line + f" [{card}]", flush=True)
     print(f"time mount phase 10: {time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
     report["device"] = dev
+    report["native"] = {**native_report, "scan_ms": busy["scan_runs_ms"],
+                        "plain_scan_ms": busy["plain_scan_runs_ms"], "pids": busy["pids"]}
     return report
 
 
@@ -4269,7 +4316,7 @@ def _phases(stage: list, t0: float) -> None:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     card = _card()
-    phase_build(card)
+    kernel_build_s = phase_build(card)
     begin("2 (kernels against their plain versions)")
     gen = torch.Generator(device="cuda").manual_seed(0)
     max_abs_err = phase_kernel_vs_plain(gen)
@@ -4322,7 +4369,7 @@ def _phases(stage: list, t0: float) -> None:
     grow_launches = phase_grow(card)
     dryrun_launches = phase_dryrun(card)
     begin("10 (the hot-mount on the card)")
-    mount_report = phase_mount(card)
+    mount_report = phase_mount(card, kernel_build_s)
     begin("11 (the hot-mount through the master)")
     mount_launches, master_live = phase_master(card, mount_report, handoff_ready_ms)
     begin("12 (the cgroup v2 device controller)")
@@ -4351,6 +4398,16 @@ def _phases(stage: list, t0: float) -> None:
                + dryrun_launches[k] for k in sharded_launches}
 
     begin("the kernels line")
+    nat = mount_report["native"]
+    print("native layer (no GPU kernel; phase 10): " + json.dumps({
+        "card": card, "build_s": nat["build_s"], "compiled": nat["compiled"],
+        "nsexec": {"source": "gpumounter_tpu_torch/native/nsexec.cpp",
+                   "replaces": "gpumounter_tpu_torch/nsutil/nsexec.py in a new interpreter",
+                   "entry_ms": nat["entry_ms"], "plain_entry_ms": nat["plain_entry_ms"]},
+        "native_lib": {"source": "gpumounter_tpu_torch/native/gpumounter_native.cpp",
+                       "replaces": "scan_proc_for_device_plain",
+                       "scan_ms": nat["scan_ms"], "plain_scan_ms": nat["plain_scan_ms"],
+                       "pids": nat["pids"]}}), flush=True)
     print(f"launches on the main paths: flash_fwd {launches} (forward) + "
           f"{prefill_launches} (prefill) + {train_fwd} (training), flash_decode "
           f"{decode_launches}, flash_bwd dq {train_dq} and dk/dv {train_dkv} (training); "

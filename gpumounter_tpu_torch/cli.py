@@ -122,9 +122,12 @@ def cmd_probe(args) -> int:
     GPU_IDENTITY_SOURCE), `nvml` ("loaded" when NVML_LIBRARY, by default
     libnvidia-ml.so.1, loads, else "unavailable"), `gpus` (the backend's
     count), `cgroup_version` and `cgroup_driver` (as the worker detects
-    them under CGROUP_ROOT) and `nsexec` (the namespace helper's path, run
-    with this interpreter). Where the identity source cannot list the GPUs
-    (no driver, no NVML), `gpus` is 0 and `identity_error` says why."""
+    them under CGROUP_ROOT), and the native layer as the reference reports
+    its `native_lib`: `nsexec` and `native_lib` (the namespace helper's and
+    the /proc scan library's paths, the configured ones or where the build
+    puts them) with `nsexec_built` and `native_lib_built` (whether each is
+    there; probe builds nothing). Where the identity source cannot list the
+    GPUs (no driver, no NVML), `gpus` is 0 and `identity_error` says why."""
     from gpumounter_tpu_torch.cgroup.naming import (
         detect_cgroup_driver,
         detect_cgroup_version,
@@ -134,7 +137,7 @@ def cmd_probe(args) -> int:
         NvmlIdentity,
         identity_from_config,
     )
-    from gpumounter_tpu_torch.nsutil import nsexec
+    from gpumounter_tpu_torch import native
 
     cfg = Config()
     identity = identity_from_config(cfg)
@@ -143,7 +146,7 @@ def cmd_probe(args) -> int:
         "nvml": _nvml_loads(cfg.nvml_library),
         "cgroup_version": detect_cgroup_version(cfg.cgroup_root),
         "cgroup_driver": detect_cgroup_driver(cfg.cgroup_root),
-        "nsexec": nsexec.__file__,
+        **native.status(),
     }
     try:
         report["gpus"] = len(_backend().list_devices())

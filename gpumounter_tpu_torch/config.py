@@ -51,6 +51,14 @@ class Config:
     nvidia_procfs_dir: str = field(default_factory=lambda: _env(
         "NVIDIA_PROCFS_DIR", "/proc/driver/nvidia/gpus"))
 
+    # --- native layer (native/) ---
+    # Prebuilt artifacts (the worker image's): the namespace helper and the
+    # /proc scan's library. Unset, each is built from the package's sources
+    # at first use; set to a path that does not exist, its first use raises.
+    # The native layer reads them from the environment at each use.
+    nsexec_bin: str = field(default_factory=lambda: _env("TPUMOUNTER_NSEXEC", ""))
+    native_lib: str = field(default_factory=lambda: _env("TPUMOUNTER_NATIVE_LIB", ""))
+
     # --- cgroup layer ---
     # CGROUP_DRIVER in {systemd, cgroupfs} (cgroup.go:78-84); "auto" sniffs
     # /sys/fs/cgroup. CGROUP_VERSION "auto" detects v1 against v2.

@@ -24,6 +24,7 @@ import re
 import stat as statmod
 from dataclasses import dataclass
 
+from gpumounter_tpu_torch import native
 from gpumounter_tpu_torch.device.gpu import (
     CompanionNode,
     GpuDevice,
@@ -473,12 +474,20 @@ class FakeDeviceBackend(DeviceBackend):
 
 def scan_proc_for_device(major: int | None, minor: int | None,
                          path_hint: str = "", proc_root: str = "/proc") -> list[int]:
-    """PIDs with an open fd on the given device (by rdev and/or path).
+    """PIDs with an open fd on the given device (by rdev and/or path), by
+    the native scan (``native.scan_device_holders``).
 
     Matching by st_rdev catches the device whatever path the opener used
     (bind mounts, other mount namespaces); ``path_hint`` matches the fd's
     link target exactly. rdev 0:0 (or None) matches by path only.
     """
+    return native.scan_device_holders(major, minor, path_hint, proc_root)
+
+
+def scan_proc_for_device_plain(major: int | None, minor: int | None,
+                               path_hint: str = "", proc_root: str = "/proc") -> list[int]:
+    """:func:`scan_proc_for_device`'s plain version, which tests hold the
+    native scan against; nothing on the mount path calls it."""
     pids: list[int] = []
     want_rdev = None
     if major is not None and minor is not None and (major, minor) != (0, 0):

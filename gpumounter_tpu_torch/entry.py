@@ -43,6 +43,7 @@ import secrets
 import shutil
 import signal
 import stat as statmod
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -1204,14 +1205,32 @@ def inventory_check(identity: str, device_dir: str = "/dev") -> dict:
     return {"identity": identity, "scan": scan, "smi": smi}
 
 
-def busy_health_check(backend, dev) -> dict:
+def busy_health_check(backend, dev, runs: int = 3) -> dict:
     """This process has CUDA open: the /proc scan must count it among the
-    GPU's holders, and the probe must find the GPU healthy. Returns
-    {"holders", "scan_ms" (one full /proc scan, host clock), "pids"
-    (processes under /proc)}."""
-    t0 = time.perf_counter()
-    holders = backend.running_pids(dev)
-    scan_ms = (time.perf_counter() - t0) * 1e3
+    GPU's holders and find the holders the plain scan finds over the same
+    processes, and the probe must find the GPU healthy. The two scans take
+    turns, `runs` each (native, plain, plain, native, ...), the library
+    loaded before. Returns {"holders", "scan_ms" and "plain_scan_ms" (the
+    medians of full /proc scans, host clock), "scan_runs_ms",
+    "plain_scan_runs_ms", "pids" (processes under /proc)}."""
+    from gpumounter_tpu_torch import native
+    from gpumounter_tpu_torch.device.backend import scan_proc_for_device_plain
+
+    native.library()
+    scans = [("native", lambda: backend.running_pids(dev)),
+             ("plain", lambda: scan_proc_for_device_plain(dev.major, dev.minor,
+                                                          path_hint=dev.device_path))]
+    times = {"native": [], "plain": []}
+    for i in range(runs):
+        found = {}
+        for kind, scan in scans if i % 2 == 0 else scans[::-1]:
+            t0 = time.perf_counter()
+            found[kind] = sorted(scan())
+            times[kind].append((time.perf_counter() - t0) * 1e3)
+        if found["native"] != found["plain"]:
+            raise RuntimeError(f"the native /proc scan of {dev.device_path} found "
+                               f"{found['native']}, the plain scan {found['plain']}")
+    holders = found["native"]
     if os.getpid() not in holders:
         raise RuntimeError(f"the /proc scan of {dev.device_path} found holders {holders}, "
                            f"not this process ({os.getpid()}), which has CUDA open")
@@ -1219,7 +1238,9 @@ def busy_health_check(backend, dev) -> dict:
     if not healthy:
         raise RuntimeError(f"probe_device of {dev.device_path}: unhealthy ({why})")
     pids = sum(1 for e in os.listdir("/proc") if e.isdigit())
-    return {"holders": holders, "scan_ms": scan_ms, "pids": pids}
+    return {"holders": holders, "scan_ms": statistics.median(times["native"]),
+            "plain_scan_ms": statistics.median(times["plain"]),
+            "scan_runs_ms": times["native"], "plain_scan_runs_ms": times["plain"], "pids": pids}
 
 
 def _released(cluster, pod, free_before: int) -> None:
@@ -5462,7 +5483,7 @@ CLI_SHAPE, CLI_UNKNOWN_SHAPE = "nvidia-h100-80gb-1", "v5litepod-4"
 CLI_DEVICE_KEYS = {"index", "uuid", "path", "major", "minor", "holder_pids"}
 #: the keys of `probe`, the port's (ROADMAP §3)
 CLI_PROBE_KEYS = {"identity_source", "nvml", "gpus", "cgroup_version", "cgroup_driver",
-                  "nsexec"}
+                  "nsexec", "nsexec_built", "native_lib", "native_lib_built"}
 
 
 def _package_parent() -> str:
@@ -5534,15 +5555,15 @@ def _cli_devices(cli: _Cli, backend, dev, live: bool) -> dict:
 
 def _cli_probe(cli: _Cli, backend, identity: str) -> dict:
     """`probe`: the port's keys, the backend's GPU count, the identity
-    source the env names, this process's cgroup version and the package's
-    namespace helper."""
+    source the env names, this process's cgroup version and the native
+    layer's paths and whether each is built, as this process sees them."""
+    from gpumounter_tpu_torch import native
     from gpumounter_tpu_torch.cgroup import detect_cgroup_version
-    from gpumounter_tpu_torch.nsutil import nsexec
 
     _, stdout, _ = cli("probe")
     report = json.loads(stdout)
     want = {"gpus": len(backend.list_devices()), "identity_source": identity,
-            "cgroup_version": detect_cgroup_version(), "nsexec": nsexec.__file__}
+            "cgroup_version": detect_cgroup_version(), **native.status()}
     if set(report) != CLI_PROBE_KEYS or any(report[k] != v for k, v in want.items()):
         raise RuntimeError(f"probe: {report}, expected {want} among {sorted(CLI_PROBE_KEYS)}")
     return report

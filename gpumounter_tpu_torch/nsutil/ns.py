@@ -5,14 +5,14 @@ The counterpart of ``gpumounter_tpu/nsutil/ns.py``, and of the original's
 --mount sh -c "mknod -m 666 /dev/nvidiaN c 195 N"`` (:167-177), ``rm``
 (:179-189) and ``kill`` (:191-201), and so needs ``sh`` and ``mknod`` inside
 the target container. As the reference runs its C++ helper
-(``tpumounter-nsexec``), this module runs ``nsutil/nsexec.py`` in a fresh
-interpreter (``python -I -S``, the standard library only) through
-``subprocess``: it enters the target's mount namespace with setns(2) and
-makes the syscalls (mkdir, mknod, chmod, unlink, stat), so the container
-needs no binaries and nothing needs a build. The worker never forks
-without an exec: a forked copy of a process that serves gRPC runs grpcio's
-fork handlers, which abort it (seen on the card's machine), and a copy of a
-process with CUDA open costs its pages.
+(``tpumounter-nsexec``), this module execs the port's, ``gpumounter-nsexec``
+(``native/nsexec.cpp``, built at first use by ``native``), through
+``subprocess``, once a batch: it enters the target's mount namespace with
+setns(2) and makes the syscalls (mkdir, mknod, chmod, unlink, stat), so the
+container needs no binaries. The worker never forks without an exec: a
+forked copy of a process that serves gRPC runs grpcio's fork handlers, which
+abort it (seen on the card's machine), and a copy of a process with CUDA
+open costs its pages.
 
 Two modes:
   * pid=None: a plain directory in our own namespace (dry runs, tests);
@@ -28,6 +28,7 @@ import stat as statmod
 import subprocess
 import sys
 
+from gpumounter_tpu_torch import native
 from gpumounter_tpu_torch.device.gpu import DEVICE_FILE_MODE, GpuDevice
 from gpumounter_tpu_torch.nsutil import nsexec
 from gpumounter_tpu_torch.utils.log import get_logger
@@ -44,23 +45,42 @@ def _mount_ns_path(pid: int) -> str:
 
 
 def _helper_argv(ns_path: str, ops: list) -> list[str]:
-    return [sys.executable, "-I", "-S", nsexec.__file__, ns_path, json.dumps(ops)]
+    return [native.helper_path(), ns_path, *nsexec.encode_ops(ops)]
+
+
+def plain_helper_argv(ns_path: str, ops: list) -> list[str]:
+    """The helper's plain version, ``nsexec.py`` in a fresh interpreter, on
+    the same argv: tests hold the compiled helper against it and the card's
+    check times it beside; nothing on the mount path runs it."""
+    return [sys.executable, "-I", "-S", nsexec.__file__, ns_path, *nsexec.encode_ops(ops)]
+
+
+def run_helper(argv: list[str]) -> tuple[int, dict | None, str]:
+    """Exec the helper: (exit code, its report (the last line of stdout) or
+    None, stderr). Paths come back as this process decodes its own."""
+    try:
+        proc = subprocess.run(argv, capture_output=True, timeout=60)
+    except OSError as exc:
+        raise native.NativeError(f"cannot exec the namespace helper {argv[0]}: {exc}") from exc
+    stdout, stderr = (os.fsdecode(out) for out in (proc.stdout, proc.stderr))
+    try:
+        report = json.loads(stdout.strip().splitlines()[-1])
+    except (IndexError, ValueError):
+        report = None
+    return proc.returncode, report, stderr
 
 
 def run_in_mount_ns(pid: int, ops: list) -> list:
     """Run `ops` (``nsexec``'s: mknod, unlink, missing) in the mount
-    namespace of PID `pid`, in the helper's process; returns each op's
+    namespace of PID `pid`, in one exec of the helper; returns each op's
     result. An OSError of an op is raised here with its errno, message and
     file; a failure to enter the namespace, or any other failure, raises
-    NamespaceError."""
-    proc = subprocess.run(_helper_argv(_mount_ns_path(pid), ops), capture_output=True,
-                          text=True, timeout=60)
-    try:
-        report = json.loads(proc.stdout.strip().splitlines()[-1])
-    except (IndexError, ValueError):
+    NamespaceError; a helper that cannot be built or run, NativeError."""
+    code, report, stderr = run_helper(_helper_argv(_mount_ns_path(pid), ops))
+    if report is None:
         raise NamespaceError(f"in the mount namespace of PID {pid}: the helper exited "
-                             f"{proc.returncode}: {proc.stderr.strip()[-2000:]}") from None
-    if proc.returncode == 0 and "results" in report:
+                             f"{code}: {stderr.strip()[-2000:]}")
+    if code == 0 and "results" in report:
         return report["results"]
     if report.get("stage") == "enter":
         raise NamespaceError(f"in the mount namespace of PID {pid}: cannot enter the mount "

@@ -1,8 +1,8 @@
 """One import point for grpc, deferred until the first attribute access.
 
 The counterpart of ``gpumounter_tpu/utils/lazy_grpc.py``. The mount path
-(``worker/mounter.py``, ``nsutil/``, whose helper ``nsexec.py`` runs in a
-fresh interpreter on the standard library alone) and ``master/app.py`` need
+(``worker/mounter.py``, ``nsutil/``, whose helper is the compiled
+``gpumounter-nsexec``, exec'd) and ``master/app.py`` need
 no gRPC, so they import without it, and a process that runs only them
 never loads grpcio. No module of the package
 imports grpc at its top; each does

@@ -26,8 +26,8 @@ Per open txn:
   unmount                 finished (an unmount that began was meant to
                           happen): closed ``replayed-unmounted``.
 
-Each txn's nodes go in one entry into the namespace (the entry is an exec'd
-helper, ``nsutil/nsexec.py``), not one a GPU. Then the fractional policies
+Each txn's nodes go in one entry into the namespace (the entry is an exec of
+the compiled helper, ``native/nsexec.cpp``), not one a GPU. Then the fractional policies
 are re-armed in the userspace engine, and the net holdings are reconciled
 with the books: GPUs the ledger holds for a pod the books no longer back
 (the pod went while the worker was down) are forgotten with a durable

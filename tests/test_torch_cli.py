@@ -785,17 +785,31 @@ def test_devices_lists_the_reference_keys(fake_host):
     assert listed[1]["holder_pids"] == [os.getpid()] and listed[0]["holder_pids"] == []
 
 
-def test_probe_reports_the_port_keys(fake_host, monkeypatch):
-    from gpumounter_tpu_torch.nsutil import nsexec
+def test_probe_reports_the_port_keys(fake_host, monkeypatch, tmp_path):
+    """`probe` names the native layer's artifacts, the configured ones or
+    where the build puts them, and whether each is there; it builds
+    nothing."""
+    from gpumounter_tpu_torch import native
     monkeypatch.setenv("GPU_IDENTITY_SOURCE", "procfs")
     code, out, _ = _run(cli.main, ["probe"])
     report = json.loads(out)
     assert code == 0
     assert set(report) == {"identity_source", "nvml", "gpus", "cgroup_version",
-                           "cgroup_driver", "nsexec"}
-    assert (report["identity_source"], report["gpus"], report["nsexec"]) == (
-        "procfs", 4, nsexec.__file__)
+                           "cgroup_driver", "nsexec", "nsexec_built", "native_lib",
+                           "native_lib_built"}
+    assert (report["identity_source"], report["gpus"], report["nsexec"],
+            report["native_lib"]) == ("procfs", 4, str(native.artifact_path("nsexec")),
+                                      str(native.artifact_path("native_lib")))
     assert report["nvml"] in ("loaded", "unavailable")
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setenv("TPUMOUNTER_NSEXEC", str(tmp_path / "prebuilt-nsexec"))
+    code, out, _ = _run(cli.main, ["probe"])
+    report = json.loads(out)
+    assert (report["nsexec"], report["nsexec_built"]) == (str(tmp_path / "prebuilt-nsexec"),
+                                                          False)
+    assert (report["native_lib"], report["native_lib_built"]) == (
+        str(native.artifact_path("native_lib")), False)
+    assert not (tmp_path / "build").exists()
 
 
 def test_mount_then_unmount_and_a_busy_unmount(fake_host):

@@ -7,7 +7,8 @@ that ``gpumounter_tpu_torch/config.py`` reads (or one of the NVIDIA
 runtime's two), the worker pods carry the label the master selects, the pool
 namespace is the config's, the worker tolerates ``nvidia.com/gpu`` and books
 none, the sharded replicas advertise their names under the headless service,
-each image copies the port alone and its entry module imports, and the
+each image copies the port alone and its entry module imports, the worker's
+build stage compiles the native layer as the port builds it, and the
 daemons' builders serve an add and a remove with torch and numpy blocked:
 the images' contents suffice.
 """
@@ -49,6 +50,13 @@ def _containers():
             spec = doc.get("spec", {}).get("template", {}).get("spec", {})
             for container in spec.get("containers", []):
                 yield name, container
+
+
+def _config_line(field: str) -> str:
+    """The line of config.py that declares `field`."""
+    with open(os.path.join(REPO, "gpumounter_tpu_torch", "config.py")) as f:
+        (line,) = [line for line in f if line.lstrip().startswith(f"{field}:")]
+    return line
 
 
 def _config_env_names() -> set[str]:
@@ -209,13 +217,25 @@ def _dockerfile(role: str) -> list[tuple[str, str]]:
             if line.strip() and not line.lstrip().startswith("#")]
 
 
+def _stages(role: str) -> list[list[tuple[str, str]]]:
+    """The Dockerfile's stages, each its lines from its FROM on."""
+    stages = []
+    for op, rest in _dockerfile(role):
+        if op == "FROM":
+            stages.append([])
+        stages[-1].append((op, rest))
+    return stages
+
+
 def test_each_image_copies_the_port_alone_and_runs_its_daemon():
+    """The image's last stage: the port, grpcio and, from the worker's build
+    stage only, the native layer's artifacts."""
     for role, module in ENTRY_MODULES.items():
-        lines = _dockerfile(role)
+        lines = _stages(role)[-1]
         assert [rest for op, rest in lines if op == "FROM"] == ["python:3.12-slim"]
         assert [rest for op, rest in lines if op == "RUN"] == ["pip install --no-cache-dir grpcio"]
-        assert [rest for op, rest in lines if op == "COPY"] == [
-            "gpumounter_tpu_torch/ gpumounter_tpu_torch/"]
+        assert [rest for op, rest in lines if op == "COPY" and not rest.startswith("--from=")
+                ] == ["gpumounter_tpu_torch/ gpumounter_tpu_torch/"]
         (entry,) = [rest for op, rest in lines if op == "ENTRYPOINT"]
         assert entry == f'["python", "-m", "{module}"]'
         commands = [c["command"] for _, c in _containers() if c.get("command")
@@ -223,6 +243,40 @@ def test_each_image_copies_the_port_alone_and_runs_its_daemon():
         assert commands and all(c == ["python", "-m", module] for c in commands), role
     for _, container in _containers():
         assert container["command"][-1] in ENTRY_MODULES.values()
+    assert len(_stages("master")) == 1
+
+
+def test_the_worker_image_builds_the_native_layer_from_the_port_sources():
+    """The worker's build stage compiles each of the native layer's sources
+    with the flags ``native`` builds it with, and the image's env points the
+    config's variables at the artifacts the last stage copies."""
+    from gpumounter_tpu_torch import native
+
+    build, final = _stages("worker")
+    assert build[0] == ("FROM", "python:3.12-slim AS build")
+    assert ("COPY", "gpumounter_tpu_torch/native/ native/") in build
+    compiles = [cmd.split() for op, rest in build if op == "RUN"
+                for cmd in rest.split("&&") if cmd.split()[0] == "g++"]
+    built = {}
+    for cmd in compiles:
+        out = cmd[cmd.index("-o") + 1]
+        source = cmd[-1]
+        (kind,) = [k for k, a in native.ARTIFACTS.items() if f"native/{a[0]}" == source]
+        assert tuple(cmd[1:cmd.index("-o")]) == native.flags(kind), cmd
+        built[kind] = out
+    assert set(built) == set(native.ARTIFACTS)
+    assert {a[0] for a in native.ARTIFACTS.values()} <= set(
+        os.listdir(os.path.join(REPO, "gpumounter_tpu_torch", "native")))
+    copied = {}
+    for op, rest in final:
+        if op == "COPY" and rest.startswith("--from=build "):
+            src, dest = rest.split()[1:]
+            copied[os.path.basename(src)] = os.path.join(dest, os.path.basename(src))
+    (env,) = [rest for op, rest in final if op == "ENV"]
+    env = dict(pair.split("=", 1) for pair in env.split())
+    for kind, artifact in native.ARTIFACTS.items():
+        name = re.search(r'_env\("([A-Z_]+)"', _config_line(artifact[4])).group(1)
+        assert env[name] == copied[built[kind]], (kind, name)
 
 
 #: with torch and numpy blocked, as the images hold neither: the worker's
