@@ -21,17 +21,21 @@ Phases, each raising on failure (any failure exits non-zero):
    - the forward on 3 batches of 4 x 2048 random tokens, its logits held
      against the same forward with the plain attention;
    - serving: greedy ``generate`` from 4 random prompts of 1536 tokens, 512
-     new tokens (up to max_len), the first decode step eager and the other
-     510 replays of one captured step, the launch counts following the
-     replays (``ops.graphs``); teacher-forced ``prefill`` + ``decode_step``
-     logits held against ``forward`` at every generated position; the
+     new tokens (up to max_len), the prefill and the first decode step run
+     as the eager warm-ups of their captures and the other 510 steps
+     replays of the step's graph, both graphs cached for later calls, the
+     launch counts following the replays (``ops.graphs``); teacher-forced
+     ``prefill`` + ``decode_step`` logits held against ``forward`` at every
+     generated position; the
      captured loop's tokens held bit for bit against ``generate_loop`` with
      capture=False, greedy and seeded (a CUDA generator, 512 tokens), seeded
      sampling reproducible per seed and different across seeds, and
      ``torch.cuda.memory_allocated()`` unchanged over repeated calls;
    - training: 3 SGD steps of ``make_train_step`` on 4 x 2048 random
-     tokens, the grads of one batch held leaf by leaf against the grads
-     through the plain attention; then ``entry.train_check()``;
+     tokens (the first the eager warm-up of the step's capture, the others
+     replays of its cached graph), the grads of one batch held leaf by
+     leaf against the grads through the plain attention; then
+     ``entry.train_check()``;
 4. capture one greedy ``decode_step`` as a CUDA graph and replay it at two
    cache lengths, each against an eager step and the forward (a raw
    replay goes through no wrapper; a counted replay adds n_layers
@@ -493,6 +497,21 @@ Phases, each raising on failure (any failure exits non-zero):
     and `shards` 0. Each verb's time from spawn to exit, the CLI's import
     alone (no torch, numpy or grpc loaded), and its add and remove beside
     the HTTP ones are printed.
+23. the reference's jitted programs as the port runs them on the card: CUDA
+    graphs that ``ops.graphs`` caches per key (``phase_graphs``), at full
+    width, dense and MoE. 3 SGD steps of ``make_train_step`` (one capture)
+    bit-equal, loss and every leaf, to its eager body (``capture=False``),
+    the step's ms captured and eager by CUDA events, the first call with
+    its capture by the host clock and the graph's replay alone (the step's
+    device ms); ``forward`` at B 1, 2, 4 and 8 (L 2048): one capture each,
+    logits of the first call and of the replays bit-equal to the eager
+    forward's, each call's host ms (the call until the device is done) and
+    the graph's device ms; greedy ``generate`` (4 prompts of 1536 + 512):
+    the first call (two captures) and the second (none), each timed on the
+    host clock and bit-equal to the eager loop's tokens; the memory the
+    graphs and their buffers reserve. The captured runs' launches (counts
+    set to 0 just before each, read just after, each equal to its eager
+    run's) go into the kernels line.
 
 Every tenant forward through ``_tenant_forward`` (phases 11, 11 d, 12, 14-16,
 18, 20 and 22) is held, as phase 3's are, against the plain-attention forward of
@@ -621,7 +640,8 @@ if not CHILD_MODE:
     from gpumounter_tpu_torch.parallel.moe import (_route, init_moe_params, moe_ffn,
                                                    moe_ffn_plain)
     from gpumounter_tpu_torch.ops import _build
-    from gpumounter_tpu_torch.ops.graphs import capture
+    from gpumounter_tpu_torch.ops import graphs
+    from gpumounter_tpu_torch.ops.graphs import capture, clear_graphs
     from gpumounter_tpu_torch.parallel.pipeline import schedule_info
     from gpumounter_tpu_torch.parallel.pipeline_train import (make_pipeline_train_step,
                                                               shard_pipeline_params,
@@ -704,6 +724,9 @@ SEQ_PIPE = dict(WORLD=4, SEQ_SHAPES=((2, 2), (1, 4)), BACKEND="gloo", SEED=300, 
 # Both configs are grown in the same two worlds (``entry.grow_checks``).
 GROW = dict(OLD=(1, 2), NEW=(2, 2), STEPS=(2, 2), BACKEND="gloo", TIMEOUT_S=300.0)
 DRYRUN = dict(N=8, BACKEND="gloo", TIMEOUT_S=300.0)
+# Phase 23: the cached programs at full width, RUNS timed calls of each;
+# forward at each B of FORWARD_B (L 2048); the batches from numpy SEED.
+GRAPHS = dict(RUNS=5, FORWARD_B=(1, 2, 4, 8), SEED=500)
 
 
 def _card(query: str = "name,power.limit") -> str:
@@ -725,6 +748,15 @@ def _time_ms(fn, iters: int, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _host_ms(fn) -> tuple:
+    """(ms, fn()): the call until the device is done, on the host clock."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) * 1e3, out
 
 
 def _attention_pairs(l_q, l_k, causal=True, window=None):
@@ -789,7 +821,7 @@ def _graph_ms(fns, calls: int = 20, replays: int = 5) -> float:
     one eager warm-up call) and the graph's replays timed with CUDA
     events."""
     call = _cycle(fns)
-    graph, _, _ = capture(lambda: [call() for _ in range(calls)])
+    graph = capture(lambda: [call() for _ in range(calls)])[0]
     return _time_ms(graph.replay, replays, warmup=1) / calls
 
 
@@ -1250,8 +1282,10 @@ def _check_captured_loop(cfg, params, prompt, tokens, what) -> None:
     """generate's captured loop against generate_loop(capture=False), bit
     for bit: greedy (`tokens`, the counted run's) and seeded (a CUDA
     generator, T=1); seeded sampling reproducible per seed and different
-    across seeds; torch.cuda.memory_allocated() the same after two more
-    greedy calls (each call's graph and pool go with it)."""
+    across seeds (one cached decoder, each seed's state copied in);
+    torch.cuda.memory_allocated() after a greedy call (which evicts the
+    sampled decoder, its generator's device state with it, for a greedy
+    one) the same after each of two more, which replay it."""
     n_new = SERVE["N_NEW"]
     eager = generate_loop(params, prompt, cfg, n_new, capture=False)
     if not torch.equal(tokens, eager):
@@ -1269,9 +1303,8 @@ def _check_captured_loop(cfg, params, prompt, tokens, what) -> None:
                            f"reproducible {torch.equal(a, b)}, equal across seeds "
                            f"{torch.equal(a, c)}, in range {0 <= a.min() and a.max() < cfg.vocab}")
     del a, b, c, e, eager
-    torch.cuda.synchronize()
-    allocated = [torch.cuda.memory_allocated()]
-    for _ in range(2):
+    allocated = []
+    for _ in range(3):
         if not torch.equal(generate(params, prompt, cfg, n_new), tokens):
             raise RuntimeError(f"{what}: a repeated greedy generate gave other tokens")
         torch.cuda.synchronize()
@@ -1296,7 +1329,7 @@ def phase_graph(cfg, params, tokens, ref, card) -> float:
     token = tokens[:, lens[0]].clone()
     cur_len = torch.full((), lens[0], dtype=torch.int32, device="cuda")
     before = flash_decode_kernel.launches
-    graph, replay, logits = capture(lambda: decode_step(params, caches, token, cur_len, cfg))
+    graph, replay, logits, _ = capture(lambda: decode_step(params, caches, token, cur_len, cfg))
     # The eager warm-up counts its launches; the capture's are taken out,
     # and a counted replay adds them once.
     if flash_decode_kernel.launches - before != cfg.n_layers:
@@ -1443,9 +1476,10 @@ def phase_bwd_timings(gen, card) -> dict:
 
 
 def phase_train_profile(cfg, params, tokens, card, top: int = 15) -> None:
-    """The device kernels of one SGD step by torch.profiler: name, calls
-    and device ms of the `top` slowest, and their sum. Printed only."""
-    step = make_train_step(cfg, TRAIN["LR"])
+    """The device kernels of one eager SGD step by torch.profiler: name,
+    calls and device ms of the `top` slowest, and their sum. Printed
+    only."""
+    step = make_train_step(cfg, TRAIN["LR"], capture=False)
     step(params, tokens)
     torch.cuda.synchronize()
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -1464,10 +1498,14 @@ def phase_train_profile(cfg, params, tokens, card, top: int = 15) -> None:
 
 
 def phase_train_timings(cfg, params, tokens, card) -> None:
-    """The SGD step as make_train_step runs it, and the same step with CUDA
-    events between its forward (loss_fn), backward (autograd) and update."""
-    step = make_train_step(cfg, TRAIN["LR"])
+    """The SGD step as make_train_step runs it on the card (one cached
+    graph, the params and tokens copied in and the new params out) and as
+    its eager body (capture=False), each by CUDA events over 5 calls; and
+    the eager step with CUDA events between its forward (loss_fn), backward
+    (autograd) and update."""
+    step, eager = make_train_step(cfg, TRAIN["LR"]), make_train_step(cfg, TRAIN["LR"], capture=False)
     step_ms = _time_ms(lambda: step(params, tokens), 5, warmup=1)
+    eager_ms = _time_ms(lambda: eager(params, tokens), 5, warmup=1)
 
     def split():
         events = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
@@ -1487,9 +1525,10 @@ def phase_train_timings(cfg, params, tokens, card) -> None:
     fwd, bwd, upd = (sum(e[i].elapsed_time(e[i + 1]) for e in runs) / len(runs)
                      for i in range(3))
     print(f"time{' MoE' if cfg.n_experts else ''} train step B{tokens.shape[0]} L{tokens.shape[1]} "
-          f"(SGD): {step_ms:.3f} ms, "
-          f"{tokens.numel() / (step_ms / 1e3):.0f} tokens/s; split: forward {fwd:.3f} ms, "
-          f"backward {bwd:.3f} ms, update {upd:.3f} ms [{card}]", flush=True)
+          f"(SGD): captured {step_ms:.3f} ms, {tokens.numel() / (step_ms / 1e3):.0f} tokens/s; "
+          f"eager {eager_ms:.3f} ms, {tokens.numel() / (eager_ms / 1e3):.0f} tokens/s; eager "
+          f"split: forward {fwd:.3f} ms, backward {bwd:.3f} ms, update {upd:.3f} ms [{card}]",
+          flush=True)
 
 
 def phase_decode_timings(gen, card) -> dict:
@@ -1550,35 +1589,31 @@ def _runs(values) -> str:
 
 def phase_serving_timings(cfg, params, prompt, graph_step_ms, card) -> None:
     """The whole greedy generate, each call by the host's clock between two
-    synchronizes; prefill alone (eagerly, and its device time by graph
-    replay); then generate's pieces as it runs them (``probe._decoder``,
-    ``ops.graphs.capture``, the counted replays): the first step and the
-    capture by the host's clock, and the replayed loop by CUDA events
-    around its replays. The replayed graph of one decode_step (phase 4) is
-    the step's device time, so its share of a step of the loop is how busy
-    the loop keeps the card. Then the eager loop (generate_loop with
-    capture=False) beside it."""
+    synchronizes: the first call for its key (the prefill's and the step's
+    captures included) alone, then five calls that replay the cached
+    prefill and step graphs; prefill alone (eagerly, and its device time by
+    graph replay); then the first call's decode pieces as it runs them
+    (``probe._decoder``, ``ops.graphs.capture``, the counted replays): the
+    first step and the capture by the host's clock, and the replayed loop
+    by CUDA events around its replays. The replayed graph of one
+    decode_step (phase 4) is the step's device time, so its share of a step
+    of the loop is how busy the loop keeps the card. Then the eager loop
+    (generate_loop with capture=False) beside it."""
     n_new, b = SERVE["N_NEW"], prompt.shape[0]
     moe = " MoE" if cfg.n_experts else ""
-
-    def host_ms(fn):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t) * 1e3, out
-
-    gen = [host_ms(lambda: generate(params, prompt, cfg, n_new))[0] for _ in range(6)][1:]
+    clear_graphs()
+    first_gen, *gen = [_host_ms(lambda: generate(params, prompt, cfg, n_new))[0] for _ in range(6)]
     prefill_ms = _time_ms(lambda: prefill(params, prompt, cfg), 5, warmup=1)
     prefill_device_ms = _graph_ms([lambda: prefill(params, prompt, cfg)], calls=5)
-    eager = [host_ms(lambda: generate_loop(params, prompt, cfg, n_new, capture=False))[0]]
+    eager = [_host_ms(lambda: generate_loop(params, prompt, cfg, n_new, capture=False))[0]]
     eager_step_ms = (statistics.median(eager) - prefill_ms) / (n_new - 1)
     first, loop, reserved, enqueue, clocks = [], [], [], [], []
     for _ in range(3):
-        step, out = _decoder(params, prompt, cfg, n_new, _picker(None, None))
+        begin, step, out = _decoder(params, prompt, cfg, n_new, _picker(None, None))
+        begin()
         # What the capture's empty_cache (torch.cuda.graph's) may free.
         reserved.append(torch.cuda.memory_reserved() / 2**30)
-        ms, (_, replay, _) = host_ms(lambda: capture(step))
+        ms, (_, replay, _, _) = _host_ms(lambda: capture(step))
         first.append(ms)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
@@ -1591,16 +1626,17 @@ def phase_serving_timings(cfg, params, prompt, graph_step_ms, card) -> None:
         clocks.append(_card("clocks.sm,power.draw"))
         torch.cuda.synchronize()
         loop.append(start.elapsed_time(end))
-        del step, out, replay
+        del begin, step, out, replay
     gen_ms, loop_ms = statistics.median(gen), statistics.median(loop)
     replay_ms = loop_ms / (n_new - 2)
-    decode_ms = gen_ms - prefill_ms
-    print(f"time{moe} serving B{b} prompt {prompt.shape[1]} n_new {n_new}: generate "
-          f"{_runs(gen)}, prefill {prefill_ms:.3f} ms (device, graph-replayed: "
-          f"{prefill_device_ms:.3f} ms), decode {decode_ms:.3f} ms = "
-          f"{b * (n_new - 1) / (decode_ms / 1e3):.0f} decode tokens/s over {n_new - 1} steps "
-          f"(the first eager, the capture included) [{card}]", flush=True)
-    print(f"time{moe} captured loop: first step + capture {_runs(first)}, the capture alone ≈ "
+    decode_ms = gen_ms - prefill_device_ms
+    print(f"time{moe} serving B{b} prompt {prompt.shape[1]} n_new {n_new}: generate, the "
+          f"first call for its key (the captures included) {first_gen:.3f} ms, the cached "
+          f"graphs replayed {_runs(gen)}; prefill eager {prefill_ms:.3f} ms (device, "
+          f"graph-replayed: {prefill_device_ms:.3f} ms); decode {decode_ms:.3f} ms (generate "
+          f"less the replayed prefill) = {b * (n_new - 1) / (decode_ms / 1e3):.0f} decode "
+          f"tokens/s over {n_new - 1} replayed steps [{card}]", flush=True)
+    print(f"time{moe} a first call's decode: first step + capture {_runs(first)}, the capture alone ≈ "
           f"{statistics.median(first) - eager_step_ms:.3f} ms (less an eager step; the allocator "
           f"held {', '.join(f'{x:.2f}' for x in reserved)} GiB before each); replayed "
           f"loop {_runs(loop)} by CUDA events = {replay_ms:.4f} ms per step over {n_new - 2} "
@@ -4260,6 +4296,146 @@ def phase_cli(card: str, master_live: dict) -> int:
     return child["launches"]["flash_fwd"]
 
 
+def _counted(fn, total: dict) -> tuple:
+    """(fn(), its launches): the counts set to 0 just before fn and read
+    just after; each count is added to `total`."""
+    _reset_kernel_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    launches = _kernel_counts()
+    _add_launches(total, launches)
+    return out, launches
+
+
+def _graph_steps(cfg, params, batches, card, launches: dict) -> None:
+    """Phase 23 (a): the captured SGD steps against the eager ones."""
+    what = "MoE" if cfg.n_experts else "dense"
+    captured, eager = make_train_step(cfg, TRAIN["LR"]), make_train_step(cfg, TRAIN["LR"], capture=False)
+    before = graphs.capture.captures
+
+    def steps(step, first_ms=None):
+        p, out = params, []
+        for i, tokens in enumerate(batches):
+            if i == 0 and first_ms is not None:
+                ms, (p, loss) = _host_ms(lambda: step(p, tokens))
+                first_ms.append(ms)
+            else:
+                p, loss = step(p, tokens)
+            out.append((loss, p))
+        return out
+
+    first_ms = []
+    got, counts = _counted(lambda: steps(captured, first_ms), launches)
+    want, eager_counts = _counted(lambda: steps(eager), {})
+    if counts != eager_counts or graphs.capture.captures - before != 1:
+        raise RuntimeError(f"{what} captured steps: launches {counts} (eager {eager_counts}), "
+                           f"{graphs.capture.captures - before} captures, expected 1")
+    for i, ((loss, p), (want_loss, w)) in enumerate(zip(got, want)):
+        bad = [n for n, a, b in zip(tree_names(p), tree_leaves(p), tree_leaves(w)) if not torch.equal(a, b)]
+        if bad or not torch.equal(loss, want_loss):
+            raise RuntimeError(f"{what} captured step {i}: loss {loss.item()} vs eager "
+                               f"{want_loss.item()}, leaves not bit-equal: {bad}")
+    tokens = batches[0]
+    step_ms = _time_ms(lambda: captured(params, tokens), GRAPHS["RUNS"], warmup=0)
+    eager_ms = _time_ms(lambda: eager(params, tokens), GRAPHS["RUNS"], warmup=1)
+    device_ms = _time_ms(graphs.cached("train_step").graph.replay, GRAPHS["RUNS"], warmup=1)
+    print(f"graphs {what} SGD step B{tokens.shape[0]} L{tokens.shape[1]}: {len(batches)} captured "
+          f"steps bit-equal to eager (loss and {len(tree_leaves(params))} leaves each), 1 capture, "
+          f"launches {counts} = eager's; captured {step_ms:.3f} ms, eager {eager_ms:.3f} ms (CUDA "
+          f"events, {GRAPHS['RUNS']} calls); first call with its capture {first_ms[0]:.1f} ms "
+          f"(host clock); the graph's replay alone {device_ms:.3f} ms (device ms; the copies in "
+          f"and out {step_ms - device_ms:.3f} ms) [{card}]", flush=True)
+
+
+def _graph_forwards(cfg, params, card, launches: dict) -> None:
+    """Phase 23 (b): the captured forward against the eager one at each B."""
+    what = "MoE" if cfg.n_experts else "dense"
+    rng = np.random.default_rng(GRAPHS["SEED"])
+    for b in GRAPHS["FORWARD_B"]:
+        tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (b, FULL["L"]))).cuda()
+        eager_runs = [_host_ms(lambda: forward(params, tokens, cfg, capture=False))
+                      for _ in range(GRAPHS["RUNS"])]
+        want = eager_runs[0][1]
+        before = graphs.capture.captures
+        (first_ms, first), counts = _counted(lambda: _host_ms(lambda: forward(params, tokens, cfg)),
+                                             launches)
+        runs = [_host_ms(lambda: forward(params, tokens, cfg)) for _ in range(GRAPHS["RUNS"])]
+        if counts["flash_fwd"] != cfg.n_layers or graphs.capture.captures - before != 1:
+            raise RuntimeError(f"{what} forward B{b}: launches {counts}, "
+                               f"{graphs.capture.captures - before} captures, expected "
+                               f"{cfg.n_layers} and 1")
+        unequal = [i for i, (_, out) in enumerate([(first_ms, first)] + runs)
+                   if not torch.equal(out, want)]
+        if unequal:
+            raise RuntimeError(f"{what} forward B{b}: calls {unequal} (0 the first) differ from "
+                               f"the eager forward's logits")
+        device_ms = _time_ms(graphs.cached("forward").graph.replay, GRAPHS["RUNS"], warmup=1)
+        captured_ms = statistics.median(ms for ms, _ in runs)
+        print(f"graphs {what} forward B{b} L{FULL['L']}: logits bit-equal to eager (the first "
+              f"call and {len(runs)} replays), 1 capture; host ms (the call until the device is "
+              f"done) captured {_runs([ms for ms, _ in runs])}, eager "
+              f"{_runs([ms for ms, _ in eager_runs])}, the first call with its capture "
+              f"{first_ms:.3f} ms; the graph's replay alone {device_ms:.3f} ms = "
+              f"{tokens.numel() / (device_ms / 1e3):.0f} tokens/s (device), captured "
+              f"{tokens.numel() / (captured_ms / 1e3):.0f} tokens/s (host) [{card}]", flush=True)
+        del want, first, runs, eager_runs
+
+
+def _graph_generate(cfg, params, card, launches: dict) -> None:
+    """Phase 23 (c): generate's first and second call against the eager
+    loop."""
+    what = "MoE" if cfg.n_experts else "dense"
+    rng = np.random.default_rng(GRAPHS["SEED"] + 1)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (SERVE["B"], SERVE["T0"]))).cuda()
+    n_new = SERVE["N_NEW"]
+    calls = []
+    for _ in range(2):
+        before = graphs.capture.captures
+        (ms, tokens), counts = _counted(lambda: _host_ms(lambda: generate(params, prompt, cfg, n_new)),
+                                        launches)
+        calls.append((ms, tokens, counts, graphs.capture.captures - before))
+    eager_ms, eager = _host_ms(lambda: generate_loop(params, prompt, cfg, n_new, capture=False))
+    want = {"flash_fwd": cfg.n_layers, "dq": 0, "dkv": 0, "flash_decode": cfg.n_layers * (n_new - 1)}
+    if ([c[3] for c in calls] != [2, 0] or any(c[2] != want for c in calls)
+            or not all(torch.equal(c[1], eager) for c in calls)):
+        raise RuntimeError(f"{what} generate: captures {[c[3] for c in calls]} (expected 2, 0), "
+                           f"launches {[c[2] for c in calls]} (expected {want}), tokens equal to "
+                           f"the eager loop's {[torch.equal(c[1], eager) for c in calls]}")
+    print(f"graphs {what} generate B{SERVE['B']} prompt {SERVE['T0']} n_new {n_new}: first call "
+          f"{calls[0][0]:.1f} ms (2 captures: the prefill and the step), second {calls[1][0]:.1f} "
+          f"ms (0 captures), the eager loop {eager_ms:.1f} ms (host clock); tokens of both calls "
+          f"bit-equal to the eager loop's; launches {want} a call [{card}]", flush=True)
+
+
+def phase_graphs(card: str) -> dict:
+    """Phase 23: the reference's jitted programs as cached CUDA graphs
+    (see the module's docstring), dense then MoE. Returns the captured
+    runs' launches by kernel."""
+    t_phase = time.perf_counter()
+    clear_graphs()
+    launches = dict.fromkeys(_kernel_counts(), 0)
+    for n_experts in (None, MOE_EXPERTS):
+        cfg = full_width_config(n_experts)
+        params = init_params(cfg, torch.Generator().manual_seed(0), "cuda")
+        rng = np.random.default_rng(GRAPHS["SEED"])
+        batches = [torch.from_numpy(rng.integers(0, cfg.vocab, (TRAIN["B"], TRAIN["L"]))).cuda()
+                   for _ in range(TRAIN["STEPS"])]
+        _graph_steps(cfg, params, batches, card, launches)
+        _graph_forwards(cfg, params, card, launches)
+        _graph_generate(cfg, params, card, launches)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_reserved()
+        clear_graphs()
+        freed = held - torch.cuda.memory_reserved()
+        print(f"graphs {'MoE' if n_experts else 'dense'}: the cached programs (the train step, "
+              f"forward at B{GRAPHS['FORWARD_B'][-1]}, generate) reserve {freed / 2**30:.3f} GiB, "
+              f"handed back by clear_graphs() [{card}]", flush=True)
+        del params, batches
+    print(f"time graphs phase 23: {time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
+    return launches
+
+
 def phase_forward_timing(cfg, params, tokens, card, what="forward") -> None:
     fwd_ms = _time_ms(lambda: forward(params, tokens, cfg), 5, warmup=1)
     tok_s = tokens.numel() / (fwd_ms / 1e3)
@@ -4360,6 +4536,7 @@ def _phases(stage: list, t0: float) -> None:
     phase_train_profile(moe_cfg, moe_params, batches[0], card)
     phase_serving_timings(moe_cfg, moe_params, prompt, moe_graph_ms, card)
     del moe_params, params
+    clear_graphs()  # phases 6-9 start processes that share the card's memory
     begin("6 (the handoff)")
     handoff_launches, handoff_ready_ms = phase_handoff(card)
     begin("7 and 8 (dp x tp and expert parallelism, then sequence and pipeline "
@@ -4394,6 +4571,8 @@ def _phases(stage: list, t0: float) -> None:
     autoscale_launches = phase_autoscale(card)
     begin("22 (the operator's CLI against the live stack)")
     cli_launches = phase_cli(card, master_live)
+    begin("23 (the reference's jitted programs as cached CUDA graphs)")
+    graph_launches = phase_graphs(card)
     sharded = {k: sharded_launches[k] + seq_pipe_launches[k] + grow_launches[k]
                + dryrun_launches[k] for k in sharded_launches}
 
@@ -4430,11 +4609,12 @@ def _phases(stage: list, t0: float) -> None:
           f"ends (phase 19): flash_fwd {migrate_launches}; the metered share's tenant child "
           f"(phase 20): flash_fwd {share_launches}; the autoscaled tenant's windows (phase 21): "
           f"flash_fwd {autoscale_launches}; the tenant on the GPU the CLI mounted (phase 22): "
-          f"flash_fwd {cli_launches}", flush=True)
+          f"flash_fwd {cli_launches}; the cached graphs' runs (phase 23): {graph_launches}",
+          flush=True)
     held = PHASE3_LOGITS["tenants"]
     print(f"tenant forwards held against the plain-attention forward and bit-equal to phase "
           f"3's logits: {sum(held)} of {len(held)}", flush=True)
-    print(f"chip_smoke: phases 1-22 took {time.perf_counter() - t0:.1f} s, the kernels' build "
+    print(f"chip_smoke: phases 1-23 took {time.perf_counter() - t0:.1f} s, the kernels' build "
           f"included [{card}]", flush=True)
     bwd_source = "gpumounter_tpu_torch/ops/csrc/flash_bwd.cu"
     print(json.dumps({"kernels": [{
@@ -4446,20 +4626,23 @@ def _phases(stage: list, t0: float) -> None:
                      + mount_launches + v2_launches + durability_launches
                      + degraded_launches + pool_launches + fleet_launches
                      + health_launches + migrate_launches + share_launches
-                     + autoscale_launches + cli_launches),
+                     + autoscale_launches + cli_launches + graph_launches["flash_fwd"]),
         "max_abs_err": max_abs_err, **times}, {
         "name": "flash_bwd_dq", "route": "cuda", "source": bwd_source,
         "replaces": "gpumounter_tpu/ops/flash_attention.py:182",
-        "launches": train_dq + moe_dq + handoff_launches["dq"] + sharded["dq"],
+        "launches": (train_dq + moe_dq + handoff_launches["dq"] + sharded["dq"]
+                     + graph_launches["dq"]),
         "max_abs_err": bwd_errs[0], **bwd_times["dq"]}, {
         "name": "flash_bwd_dkv", "route": "cuda", "source": bwd_source,
         "replaces": "gpumounter_tpu/ops/flash_attention.py:236",
-        "launches": train_dkv + moe_dkv + handoff_launches["dkv"] + sharded["dkv"],
+        "launches": (train_dkv + moe_dkv + handoff_launches["dkv"] + sharded["dkv"]
+                     + graph_launches["dkv"]),
         "max_abs_err": bwd_errs[1], **bwd_times["dkv"]}, {
         "name": "flash_decode", "route": "cuda",
         "source": "gpumounter_tpu_torch/ops/csrc/flash_decode.cu",
         "replaces": "gpumounter_tpu/ops/flash_decode.py:48",
-        "launches": decode_launches + moe_decode + handoff_launches["flash_decode"],
+        "launches": (decode_launches + moe_decode + handoff_launches["flash_decode"]
+                     + graph_launches["flash_decode"]),
         "max_abs_err": decode_err,
         **decode_times}]}))
     print(json.dumps({"ok": True, "device": {

@@ -162,7 +162,9 @@ STRETCH = dict(ACCEL="nvidia-h100-80gb", GPUS=16, SEED=2)
 def entry(device="cuda"):
     """(fn, example_args): the forward step of the default probe config,
     seeded weights, zero tokens (4, 32). Runs on the card unless the caller
-    passes device="cpu"."""
+    passes device="cpu". On the card fn is what the reference's harness
+    jits: its first call captures the forward as a CUDA graph, and later
+    calls with tokens of that shape replay it (``ops.graphs``)."""
     device = resolve_device(device)
     cfg = TransformerConfig()
     params = init_params(cfg, torch.Generator().manual_seed(0), device)

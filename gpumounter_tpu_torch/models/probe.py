@@ -11,11 +11,18 @@ across without transposes (``weights.params_from_jax``).
 
 Serving: ``prefill`` fills a fixed-shape cache per layer, ``decode_step``
 adds one token at a cache length held on the device (no host sync, so a
-step can be captured as one CUDA graph), and ``generate`` loops them: on
-a CUDA prompt as replays of one captured step, the counterpart of the
-reference's jitted scan. The port updates the caches, the token, the
-length and the output in place where the reference threads new arrays
-through its scan.
+step can be captured as one CUDA graph), and ``generate`` loops them. The
+port updates the caches, the token, the length and the output in place
+where the reference threads new arrays through its scan.
+
+Compiled once per key: the reference jits ``forward`` and ``generate``.
+On CUDA tensors the port runs each as CUDA graphs cached by
+``ops.graphs`` (captured on the first call for a key, replayed on every
+later one): ``forward`` as one graph per (cfg, token layout, parameter
+storage), ``generate`` as a prefill graph and a decode-step graph per (cfg,
+prompt layout, n_new, greedy or sampled, parameter storage), the step
+replayed once per new token. ``capture=False`` runs the eager bodies, which
+CPU tensors always run.
 
 Training: ``loss_fn`` is the mean next-token NLL of ``forward``, which is
 differentiable end to end; under grad every block's attention runs the
@@ -61,9 +68,9 @@ import torch
 import torch.nn.functional as F
 
 from gpumounter_tpu_torch._device import resolve_device
+from gpumounter_tpu_torch.ops import graphs
 from gpumounter_tpu_torch.ops.flash_attention import flash_attention
 from gpumounter_tpu_torch.ops.flash_decode import flash_decode
-from gpumounter_tpu_torch.ops.graphs import capture as capture_graph
 from gpumounter_tpu_torch.parallel.collectives import copy_to, reduce_from
 from gpumounter_tpu_torch.parallel.moe import init_moe_params, moe_ffn
 from gpumounter_tpu_torch.parallel.ring_attention import ring_attention
@@ -355,9 +362,30 @@ def _forward_impl(params, tokens, cfg, attention, mesh=None):
     return (x @ params["embed"].T).float(), aux_total / max(1, cfg.n_layers)
 
 
+def _check_capture(capture: bool, tensor: torch.Tensor, what: str) -> None:
+    if capture and not tensor.is_cuda:
+        raise ValueError(f"capture needs a CUDA {what}, got one on {tensor.device}")
+
+
+def forward_key(params: dict, tokens: torch.Tensor, cfg: TransformerConfig) -> tuple:
+    """The key of ``forward``'s cached graph: cfg, the tokens' layout (they
+    are copied in) and the storage of every parameter (read in place)."""
+    return graphs.graph_key((cfg,), copied=(tokens,), read=params)
+
+
 def forward(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
-            attention=flash_attention, mesh=None) -> torch.Tensor:
+            attention=flash_attention, mesh=None, capture: bool | None = None) -> torch.Tensor:
     """float32 logits (batch, seq, vocab) for integer tokens (batch, seq).
+
+    capture: True runs the forward as the CUDA graph ``ops.graphs`` caches
+    under ``forward_key``, the counterpart of the reference's jitted
+    forward: captured on the first call for the key (whose eager warm-up
+    gives that call's logits), replayed on every later one; the logits are
+    the caller's either way, and a parameter updated in place is read at
+    its new value. It needs CUDA tokens, the default attention, no mesh and
+    no parameter that requires grad under grad mode (else ValueError).
+    False runs the eager body. None (the default) is True exactly where
+    those hold. A failed capture or replay raises; nothing falls back.
 
     attention: called as ``attention(q, k, v, causal=True, window=...)``;
     the default is the port's flash_attention. Passing ``attention_plain``
@@ -372,7 +400,45 @@ def forward(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
     (``parallel.mesh.shard_tokens(..., seq=True)``); the logits are that
     chunk's, and every rank of a seq group must call it together.
     """
-    return _forward_impl(params, tokens, cfg, attention, mesh)[0]
+    differentiable = torch.is_grad_enabled() and any(t.requires_grad for t in graphs.leaves(params))
+    eligible = attention is flash_attention and mesh is None and not differentiable
+    if capture is None:
+        capture = tokens.is_cuda and eligible
+    if capture and not eligible:
+        raise ValueError("a captured forward takes the default attention, no mesh and no "
+                         "parameter that requires grad")
+    _check_capture(capture, tokens, "batch")
+    if not capture:
+        return _forward_impl(params, tokens, cfg, attention, mesh)[0]
+
+    @torch.no_grad()
+    def program(static_tokens):
+        return _forward_impl(params, static_tokens, cfg, flash_attention)[0]
+
+    return graphs.replayed("forward", forward_key(params, tokens, cfg), program, (tokens,))
+
+
+def _empty_caches(params: dict, b: int, cfg: TransformerConfig, device) -> list:
+    """One (k, v) cache pair a layer, uninitialised: (B, kv_heads, max_len,
+    d_head) each, in the projections' dtype."""
+    shape = (b, cfg.kv_heads, cfg.max_len, cfg.d_head)
+    return [tuple(torch.empty(shape, dtype=blk["wqkv"].dtype, device=device) for _ in "kv")
+            for blk in params["blocks"]]
+
+
+def _prefill_into(params: dict, prompt: torch.Tensor, cfg: TransformerConfig,
+                  caches: list) -> torch.Tensor:
+    """``prefill`` into the given caches, in place: their first t0 slots
+    set to the prompt's keys and values, the rest zeroed. Returns the
+    logits at the prompt's last position."""
+    t0 = prompt.shape[1]
+    x = _embed(params, prompt, cfg)
+    for blk, (kc, vc) in zip(params["blocks"], caches, strict=True):
+        x, _aux, k, v = _block(x, blk, cfg, flash_attention, return_kv=True)
+        for cache, new in ((kc, k), (vc, v)):
+            cache[:, :, :t0] = new
+            cache[:, :, t0:].zero_()
+    return (x[:, -1] @ params["embed"].T).float()
 
 
 def prefill(params: dict, prompt: torch.Tensor, cfg: TransformerConfig):
@@ -382,18 +448,8 @@ def prefill(params: dict, prompt: torch.Tensor, cfg: TransformerConfig):
     post-RoPE k and v in a zero-filled cache pair of the fixed shape
     (B, kv_heads, max_len, d_head), the first t0 slots set.
     """
-    b, t0 = prompt.shape
-    x = _embed(params, prompt, cfg)
-    caches = []
-    for blk in params["blocks"]:
-        x, _aux, k, v = _block(x, blk, cfg, flash_attention, return_kv=True)
-        shape = (b, cfg.kv_heads, cfg.max_len, cfg.d_head)
-        kc = torch.zeros(shape, dtype=k.dtype, device=k.device)
-        vc = torch.zeros(shape, dtype=v.dtype, device=v.device)
-        kc[:, :, :t0] = k
-        vc[:, :, :t0] = v
-        caches.append((kc, vc))
-    return (x[:, -1] @ params["embed"].T).float(), caches
+    caches = _empty_caches(params, prompt.shape[0], cfg, prompt.device)
+    return _prefill_into(params, prompt, cfg, caches), caches
 
 
 def decode_step(params: dict, caches: list, token: torch.Tensor,
@@ -424,10 +480,10 @@ def generate(params: dict, prompt: torch.Tensor, cfg: TransformerConfig,
     prefill runs the full forward once (filling the caches); then n_new − 1
     decode steps each attend through flash_decode at a cache length held on
     the device, so every step launches the same kernels with the same
-    shapes. On a CUDA prompt the steps after the first are replays of one
-    CUDA graph of a step, as the reference's jitted scan is one program
-    (``generate_loop`` with capture=True); on a CPU prompt every step runs
-    eagerly.
+    shapes. On a CUDA prompt the prefill and the step are CUDA graphs cached
+    per key (``generate_loop`` with capture=True), as the reference's jitted
+    call compiles once per (prompt shape, n_new); on a CPU prompt every step
+    runs eagerly.
 
     generator None (default): greedy argmax decoding. generator given:
     sample from softmax(logits / temperature) (temperature defaults to 1.0)
@@ -456,19 +512,26 @@ def _picker(generator, temperature):
 
 
 def _decoder(params, prompt, cfg, n_new, pick):
-    """(step, out) after the prefill of `prompt` (B, t0): out (B, n_new)
-    holds new token #1, the prefill's pick, in column 0; each step() is one
-    decode step on static buffers, all updated in place: the model step on
-    the last token at the length cur_len (0-dim int32 on the device), its
-    pick written to the token and to column cur_len − t0 + 1 of out through
-    a device index, then cur_len + 1. Nothing is read on the host, and
-    every buffer a replay reads is the one the capture saw."""
+    """(start, step, out) on static buffers, all allocated here and updated
+    in place. start() prefills `prompt` (B, t0) into the caches, writes its
+    pick (new token #1) to the token and to column 0 of out (B, n_new), and
+    t0 to cur_len (0-dim int32 on the device); each step() is one decode
+    step: the model step on the last token at the length cur_len, its pick
+    written to the token and to column cur_len − t0 + 1 of out through a
+    device index, then cur_len + 1. Nothing is read on the host, and every
+    buffer a replay of either reads is the one its capture saw, so writing
+    another prompt of this shape into `prompt` and replaying start, then
+    step, generates from it."""
     b, t0 = prompt.shape
-    logits, caches = prefill(params, prompt, cfg)
-    token = pick(logits)
+    caches = _empty_caches(params, b, cfg, prompt.device)
+    token = torch.empty((b,), dtype=torch.long, device=prompt.device)
     out = torch.empty((b, n_new), dtype=prompt.dtype, device=prompt.device)
-    out[:, 0] = token
-    cur_len = torch.full((), t0, dtype=torch.int32, device=prompt.device)
+    cur_len = torch.empty((), dtype=torch.int32, device=prompt.device)
+
+    def start():
+        token.copy_(pick(_prefill_into(params, prompt, cfg, caches)))
+        out[:, 0] = token
+        cur_len.fill_(t0)
 
     def step():
         nxt = pick(decode_step(params, caches, token, cur_len, cfg))
@@ -477,7 +540,57 @@ def _decoder(params, prompt, cfg, n_new, pick):
         out.index_copy_(1, column, nxt[:, None].to(out.dtype))
         cur_len.add_(1)
 
-    return step, out
+    return start, step, out
+
+
+def generate_key(params: dict, prompt: torch.Tensor, cfg: TransformerConfig, n_new: int,
+                 sampled: bool) -> tuple:
+    """The key of ``generate``'s cached graphs: cfg, n_new, greedy or
+    sampled, the prompt's layout (it is copied in) and the storage of every
+    parameter (read in place). The temperature is a device operand and the
+    generator's state is copied in, so neither is part of it."""
+    return graphs.graph_key((cfg, n_new, sampled), copied=(prompt,), read=params)
+
+
+class _CapturedDecoder:
+    """``generate``'s two graphs for one key: the decoder's start (the
+    prefill and the first pick) and its step, on the static buffers of one
+    ``_decoder``. The prompt and the temperature are copied in; a sampled
+    decoder draws from a CUDA generator of its own, registered with both
+    graphs, whose state is the caller's generator's, copied in before a
+    call and back out after it."""
+
+    def __init__(self, params, prompt, cfg, n_new, sampled):
+        self.prompt = torch.empty_like(prompt)
+        self.temperature = torch.ones((), dtype=torch.float32, device=prompt.device)
+        self.generator = torch.Generator(device=prompt.device) if sampled else None
+        *self.bodies, self.out = _decoder(params, self.prompt, cfg, n_new,
+                                          _picker(self.generator, self.temperature))
+        self.start = self.step = None  # the bodies' graphs' counted replays
+
+    def __call__(self, prompt, temperature, generator, n_new):
+        """Generate n_new tokens from `prompt`: on the first call each
+        graph's eager warm-up is its first run (the prefill, then the first
+        step) before its capture; later calls replay from the prefill on."""
+        self.prompt.copy_(prompt)
+        self.temperature.copy_(temperature)
+        if generator is not None:
+            self.generator.set_state(generator.get_state())
+        steps = n_new - 1
+        if self.start is None:
+            registered = () if self.generator is None else (self.generator,)
+            start, step = self.bodies
+            _, self.start, _, _ = graphs.capture(start, registered)
+            if steps:
+                _, self.step, _, _ = graphs.capture(step, registered)
+                steps -= 1
+        else:
+            self.start()
+        for _ in range(steps):
+            self.step()
+        if generator is not None:
+            generator.set_state(self.generator.get_state())
+        return torch.cat([prompt, self.out], dim=1)
 
 
 @torch.no_grad()
@@ -485,21 +598,22 @@ def generate_loop(params: dict, prompt: torch.Tensor, cfg: TransformerConfig,
                   n_new: int, generator: torch.Generator | None = None,
                   temperature: float | torch.Tensor | None = None, *,
                   capture: bool) -> torch.Tensor:
-    """``generate``'s body, the decode loop chosen by `capture`.
+    """``generate``'s body, run eagerly or as cached graphs by `capture`.
 
-    capture=False runs every decode step eagerly. capture=True (a CUDA
-    prompt only) runs the first step eagerly on the capture stream, then
-    captures one step as a CUDA graph (``ops.graphs.capture``) and replays
-    it for every further step, the launch counts following the replays.
-    The graph lives for this call. Both give the same tokens: the same
-    kernels on the same inputs, and the generator registered with the
-    graph, so every replay draws the noise the eager step would. A failed
-    capture or replay raises; nothing falls back to the eager loop.
+    capture=False runs the prefill and every decode step eagerly.
+    capture=True (a CUDA prompt only) runs them as the graphs ``ops.graphs``
+    caches under ``generate_key``: on the first call for the key the
+    prefill and the first step each run eagerly on the capture stream and
+    are then captured; every later call replays the prefill graph and then
+    the step graph once per further token, capturing nothing. The launch
+    counts follow the replays. Both give the same tokens: the same kernels
+    on the same inputs, and the noise drawn at the generator's own offsets,
+    which advance as an eager call's would. A failed capture or replay
+    raises; nothing falls back to the eager loop.
     """
     if n_new < 0:
         raise ValueError(f"n_new must be >= 0, got {n_new}")
-    if capture and not prompt.is_cuda:
-        raise ValueError(f"capture needs a CUDA prompt, got one on {prompt.device}")
+    _check_capture(capture, prompt, "prompt")
     if n_new == 0:
         return prompt
     if prompt.shape[1] + n_new > cfg.max_len:
@@ -527,17 +641,20 @@ def generate_loop(params: dict, prompt: torch.Tensor, cfg: TransformerConfig,
                                   device=prompt.device)
     temperature = torch.where(temperature > 0, temperature,
                               torch.full_like(temperature, 1e-6))
-    step, out = _decoder(params, prompt, cfg, n_new, _picker(generator, temperature))
-    # The prefill's pick is new token #1, so n_new − 1 steps remain.
-    steps = n_new - 1
-    if capture and steps > 1:
-        generators = () if generator is None else (generator,)
-        _, replay, _ = capture_graph(step, generators)
-        for _ in range(steps - 1):
-            replay()
-    else:
-        for _ in range(steps):
-            step()
+    if capture:
+        sampled = generator is not None
+        key = generate_key(params, prompt, cfg, n_new, sampled)
+        decoder = graphs.lookup("generate", key)
+        if decoder is not None:
+            return decoder(prompt, temperature, generator, n_new)
+        decoder = _CapturedDecoder(params, prompt, cfg, n_new, sampled)
+        tokens = decoder(prompt, temperature, generator, n_new)
+        graphs.store("generate", key, decoder)
+        return tokens
+    start, step, out = _decoder(params, prompt, cfg, n_new, _picker(generator, temperature))
+    start()
+    for _ in range(n_new - 1):
+        step()
     return torch.cat([prompt, out], dim=1)
 
 

@@ -8,7 +8,9 @@ Counterpart of ``gpumounter_tpu/parallel/train_step.py``: ``param_specs``,
 of. Params are the probe's plain dict (``models.probe.init_params``);
 gradients come from ``torch.autograd`` through ``models.probe.loss_fn``,
 so on the card every block's attention runs the forward kernel with lse
-and the two backward kernels.
+and the two backward kernels. On one card ``make_train_step``'s step is
+one CUDA graph cached per key (``ops.graphs``), as the reference jits it;
+``make_train_step_optim`` and the mesh steps run eagerly.
 
 dp x tp (the reference's "heads" layout over ("data", "model")): one
 process per rank, each holding a ``parallel.mesh.Mesh`` and its shards.
@@ -43,7 +45,9 @@ from __future__ import annotations
 
 import torch
 
-from gpumounter_tpu_torch.models.probe import TransformerConfig, check_seq_split, loss_fn
+from gpumounter_tpu_torch.models.probe import (TransformerConfig, _check_capture, check_seq_split,
+                                               loss_fn)
+from gpumounter_tpu_torch.ops import graphs
 from gpumounter_tpu_torch.ops.flash_attention import flash_attention
 from gpumounter_tpu_torch.parallel.collectives import mean_over_data, sum_over
 from gpumounter_tpu_torch.parallel.mesh import HeadSplit, gather_leaf, shard_batch, shard_leaf
@@ -240,8 +244,32 @@ def _seq_step_collectives(cfg: TransformerConfig, mesh, local: dict, batch: tupl
     return {"calls": calls, "bytes": nbytes}
 
 
-def make_train_step(cfg: TransformerConfig, lr: float = 1e-3, mesh=None):
-    """Returns step(params, tokens) -> (new params, loss).
+def train_step_key(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
+                   lr: float) -> tuple:
+    """The key of ``make_train_step``'s cached graph: cfg, lr and the layout
+    of every param and of the tokens, all copied into the step's static
+    buffers (so no caller's storage is part of it)."""
+    return graphs.graph_key((cfg, lr), copied=(params, tokens))
+
+
+def make_train_step(cfg: TransformerConfig, lr: float = 1e-3, mesh=None,
+                    capture: bool | None = None):
+    """Returns step(params, tokens) -> (new params, loss). The caller's
+    params are only read, and the returned tensors are the caller's: no
+    later call rewrites them.
+
+    capture: True runs each step as one CUDA graph that ``ops.graphs``
+    caches under ``train_step_key`` (the loss, autograd through the
+    kernels' custom VJP, the f32 SGD update), the counterpart of the
+    reference's jitted step: the params and tokens are copied into the
+    graph's static buffers and the new params and loss out of its memory,
+    about 4 x the parameter bytes a step. The first call for a key runs the
+    step eagerly on those buffers (its result returned) and then captures
+    it; later calls replay. It needs CUDA tokens and no mesh (else
+    ValueError). False runs the eager body. None (the default) is True
+    exactly where those hold: with a mesh the step stays eager, its
+    collectives going through the host over gloo. A failed capture or
+    replay raises; nothing falls back.
 
     mesh: a ("data", "model") ``parallel.mesh.Mesh``; params are this
     rank's shards (``shard_params``) and tokens the whole batch, and the
@@ -252,10 +280,21 @@ def make_train_step(cfg: TransformerConfig, lr: float = 1e-3, mesh=None):
     cfg.attn_parallel == "seq", a (data, seq) mesh: params whole on every
     rank, and 2 (sp − 1) L ring shifts over seq besides the sums.
     """
+    if capture and mesh is not None:
+        raise ValueError("a captured train step takes no mesh: its collectives go "
+                         "through the host")
 
-    def step(params, tokens):
+    def body(params, tokens):
         loss, grads = loss_and_grads(params, tokens, cfg, mesh=mesh)
         return sgd_update(params, grads, lr), loss
+
+    def step(params, tokens):
+        captured = (mesh is None and tokens.is_cuda) if capture is None else capture
+        _check_capture(captured, tokens, "batch")
+        if not captured:
+            return body(params, tokens)
+        return graphs.replayed("train_step", train_step_key(params, tokens, cfg, lr), body,
+                               (params, tokens))
 
     return step
 

@@ -158,9 +158,10 @@ STEP_CASES = {
 
 @pytest.mark.parametrize("case", list(STEP_CASES))
 def test_decode_step_body_reads_no_device_value_on_the_host(case):
-    """The whole captured step (model step, pick, token write through a
-    device index, length increment) stays capturable; two steps write
-    columns 1 and 2 of the output, the plain loop's tokens, and leave the
+    """Both captured programs stay capturable: the start (prefill, pick,
+    column 0, the length) and the step (model step, pick, token write
+    through a device index, length increment); the start and two steps
+    write columns 0-2 of the output, the plain loop's tokens, and leave the
     rest."""
     cfg, seed = STEP_CASES[case]
     params = tprobe.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
@@ -170,9 +171,11 @@ def test_decode_step_body_reads_no_device_value_on_the_host(case):
         return None if seed is None else torch.Generator().manual_seed(seed)
 
     temperature = torch.tensor(0.8)
-    step, out = tprobe._decoder(params, prompt, cfg, 5, tprobe._picker(generator(), temperature))
+    start, step, out = tprobe._decoder(params, prompt, cfg, 5,
+                                       tprobe._picker(generator(), temperature))
     out[:, 3:] = -1
     with torch.no_grad(), NoHostReads():
+        start()
         step()
         step()
     want = _plain_loop(params, prompt, cfg, 3, generator(), temperature)[:, 9:]
